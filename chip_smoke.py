@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
+
+    python3 chip_smoke.py
+
+Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds every CUDA kernel under ``deeplearning4j_tpu_torch/csrc`` with
+   ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and times
+   the build;
+3. holds each kernel against its plain PyTorch version on the card at the
+   serving path's shapes, with a stated tolerance, and times the kernel, the
+   plain version and one PyTorch library call computing the same function;
+4. serves full-width ``transformer_lm(256)`` (random weights from a seed,
+   int8 at rest) through ``InferenceServer`` on the card: 8 concurrent
+   ``/v1/generate`` requests over the paged KV cache and one ``/v1/predict``
+   of ``[2, 512]`` ids. It checks the answers against a CPU reference and
+   that every kernel was launched by this traffic;
+5. prints one JSON line describing each kernel, then
+   ``{"ok": true, "device": {...}}`` as the last line.
+
+Any failed check exits non-zero without the last line. Without CUDA it
+exits non-zero before printing anything. Full results also go to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import http.client
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.keras_server import InferenceServer
+from deeplearning4j_tpu_torch.models import transformer_lm
+from deeplearning4j_tpu_torch.nn.inference import PredictFn
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.ops import _cuda
+from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from deeplearning4j_tpu_torch.ops.paged_attention import (
+    paged_gather, paged_gather_plain)
+from deeplearning4j_tpu_torch.ops.quant import (
+    dequantize_leaf, int8_matmul, int8_matmul_plain, quantize_per_channel)
+
+SEED = 1234
+#: published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls,
+    from CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float):
+    """Least time in ms the card could take and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def report(rows: list, name: str, shape: dict, err: float, tol: float,
+           ms: float, plain_ms: float, library_ms, nbytes: float, ops: float):
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = {"name": name, "shape": shape, "max_abs_err": err, "tol": tol,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    rows.append(row)
+    print(f"{name} {shape}: max_abs_err={err:.3e} (tol {tol:.0e}) "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms} "
+          f"bound_ms={bound_ms:.5f} ({bound_by}, {100 * bound_ms / ms:.1f}% "
+          "of it)", flush=True)
+    if not err <= tol:
+        fail(f"{name} {shape} disagrees with its plain version: "
+             f"{err} > {tol}")
+    return row
+
+
+def check_int8(rows: list, dev) -> None:
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    # float32 sums in another order than cuBLAS: ~K * 2^-24 relative
+    tol = 1e-4
+    for M in (4, 8, 16):
+        for K, N in ((256, 768), (256, 256), (256, 1024), (1024, 256)):
+            x = torch.randn(M, K, generator=g).to(dev)
+            leaf = quantize_per_channel(
+                (torch.randn(K, N, generator=g) * 0.05).to(dev))
+            wd = dequantize_leaf(leaf)
+            out = int8_matmul(x, leaf.q, leaf.scale)
+            ref = int8_matmul_plain(x, leaf.q, leaf.scale)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            report(rows, "int8_matmul", {"M": M, "K": K, "N": N}, err, tol,
+                   time_ms(lambda: int8_matmul(x, leaf.q, leaf.scale)),
+                   time_ms(lambda: int8_matmul_plain(x, leaf.q, leaf.scale)),
+                   time_ms(lambda: torch.matmul(x, wd)),
+                   M * K * 4 + K * N + N * 4 + M * N * 4, 2 * M * K * N)
+    x = torch.randn(16, 256, generator=g).to(dev).to(torch.bfloat16)
+    leaf = quantize_per_channel(torch.randn(256, 768, generator=g).to(dev))
+    err = float((int8_matmul(x, leaf.q, leaf.scale)
+                 - int8_matmul_plain(x, leaf.q, leaf.scale)).abs().max())
+    print(f"int8_matmul bf16 x: max_abs_err={err:.3e}", flush=True)
+    if not err <= 1e-3:
+        fail(f"int8_matmul with bfloat16 x disagrees: {err}")
+
+
+def check_gather(rows: list, dev) -> None:
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    n_pages, ps, H, D, P = 16 * 32, 16, 4, 64, 32
+    pool = torch.randn(n_pages + 1, ps, H, D, generator=g).to(dev)
+    for cap in (8, 16):
+        table = torch.randint(0, n_pages + 1, (cap, P), generator=g,
+                              dtype=torch.int32)
+        table[:, -3:] = 0  # trash page rows are gathered like any other
+        table = table.to(dev)
+        out = paged_gather(pool, table)
+        ref = paged_gather_plain(pool, table)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"paged_gather cap={cap} is not bitwise equal to index_select")
+        flat = table.reshape(-1).long()
+        nbytes = 2 * cap * P * ps * H * D * 4 + cap * P * 4
+        report(rows, "paged_gather",
+               {"n_pages": n_pages, "ps": ps, "H": H, "D": D, "cap": cap,
+                "P": P}, 0.0, 0.0,
+               time_ms(lambda: paged_gather(pool, table)),
+               time_ms(lambda: paged_gather_plain(pool, table)),
+               time_ms(lambda: pool.index_select(0, flat)), nbytes, 0)
+
+
+def check_flash(rows: list, dev) -> None:
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    # float32 online softmax against the one-pass plain version
+    tol = 2e-5
+    H, D, T = 4, 64, 512
+    for B in (2, 8):
+        q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
+                   for _ in range(3))
+        out, lse = flash_fwd(q, k, v, True)
+        ro, rl = flash_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = B * H * T * (T + 1) / 2
+        report(rows, "flash_fwd", {"B": B, "T": T, "H": H, "D": D,
+                                   "causal": True}, err, tol,
+               time_ms(lambda: flash_fwd(q, k, v, True), iters=20),
+               time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), iters=20),
+               4 * B * T * H * D * 4 + B * H * T * 4, 4 * D * pairs)
+    # a ragged length, a key mask with a fully masked row, and bfloat16
+    B, T = 2, 100
+    q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev) for _ in range(3))
+    km = (torch.rand(B, T, generator=g) > 0.3).float()
+    km[1] = 0.0
+    km = km.to(dev)
+    for causal in (False, True):
+        out, lse = flash_fwd(q, k, v, causal, key_mask=km)
+        ro, rl = flash_fwd_plain(q, k, v, causal, key_mask=km)
+        err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
+        print(f"flash_fwd masked T={T} causal={causal}: max_abs_err={err:.3e}",
+              flush=True)
+        if not err <= tol:
+            fail(f"masked flash_fwd disagrees: {err}")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out, _ = flash_fwd(qb, kb, vb, True)
+    ro, _ = flash_fwd_plain(qb, kb, vb, True)
+    err = float((out.float() - ro.float()).abs().max())
+    print(f"flash_fwd bf16: max_abs_err={err:.3e}", flush=True)
+    if not err <= 2e-2:
+        fail(f"bfloat16 flash_fwd disagrees: {err}")
+
+
+def post(port: int, path: str, body: dict):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def serve(kernels) -> dict:
+    """The main path: generate and predict through the HTTP server."""
+    V = 256
+    conf = transformer_lm(V)
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref_net = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+    srv = InferenceServer(device="cuda", decode_kv="paged",
+                          decode_page_size=16, decode_max_context=512,
+                          decode_max_slots=16)
+    srv.start()
+    try:
+        srv.register("lm", net, quant="int8")
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, V, size=int(rng.integers(16, 65))).tolist()
+                   for _ in range(8)]
+        results = [None] * len(prompts)
+
+        def gen(j):
+            results[j] = post(srv.port, "/v1/generate",
+                              {"model": "lm", "prompt": prompts[j],
+                               "max_new_tokens": 32})
+
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=gen, args=(j,))
+                   for j in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        gen_s = time.perf_counter() - t0
+        ids = rng.integers(0, V, size=(2, 512)).astype(np.float32)
+        t0 = time.perf_counter()
+        status, body = post(srv.port, "/v1/predict",
+                            {"model": "lm", "inputs": ids.tolist()})
+        predict_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        st = srv.status()
+    finally:
+        srv.stop()
+
+    dec = st["decode"]["lm@v1"]
+    print(f"serve: 8 x /v1/generate in {gen_s:.3f}s ({dec['steps']} decode "
+          f"steps, {dec['tokens']} tokens, peak {dec['peak_active']} slots, "
+          f"capacity {dec['capacity']}); /v1/predict [2,512] in "
+          f"{predict_s:.3f}s; launches {launches}", flush=True)
+    if status != 200:
+        fail(f"/v1/predict returned {status}: {body[:500]}")
+    pred = np.asarray(json.loads(body)["predictions"], np.float32)
+    if pred.shape != (2, 512, V) or not np.isfinite(pred).all():
+        fail(f"/v1/predict gave shape {pred.shape} or non-finite values")
+    dense_err = float((PredictFn(net, device="cuda")(ids).cpu()
+                       - PredictFn(ref_net, device="cpu")(ids)).abs().max())
+    print(f"float32 forward [2,512], card vs CPU: max_abs_err={dense_err:.3e}",
+          flush=True)
+    ref_pf = PredictFn(ref_net, quant="int8", device="cpu")
+    perr = float(np.abs(ref_pf(ids).numpy() - pred).max())
+    print(f"/v1/predict vs CPU reference: max_abs_err={perr:.3e} (tol 1e-4)",
+          flush=True)
+    if not perr <= 1e-4:
+        fail(f"/v1/predict disagrees with the CPU reference: {perr}")
+    worst_gap = 0.0
+    for prompt, (code, text) in zip(prompts, results):
+        if code != 200:
+            fail(f"/v1/generate returned {code}: {text[:500]}")
+        lines = [json.loads(l) for l in text.splitlines() if l.strip()]
+        done = lines[-1]
+        toks = done.get("tokens")
+        if not done.get("done") or len(toks) != 32 or len(lines) != 33:
+            fail(f"/v1/generate gave {len(lines)} lines, last {done}")
+        # the served greedy tokens must be argmax of the CPU full-sequence
+        # forward over the same stream, to within float32 noise
+        probs = ref_pf(np.asarray([prompt + toks], np.float32)).numpy()[0]
+        for t, tok in enumerate(toks):
+            p = probs[len(prompt) - 1 + t]
+            worst_gap = max(worst_gap, float(p.max() - p[tok]))
+    print(f"/v1/generate vs CPU full-sequence oracle: worst argmax gap "
+          f"{worst_gap:.3e} (tol 1e-4)", flush=True)
+    if not worst_gap <= 1e-4:
+        fail(f"/v1/generate tokens are not the reference argmax: {worst_gap}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the served traffic")
+    return {"launches": launches, "generate_s": gen_s, "predict_s": predict_s,
+            "decode_steps": dec["steps"], "decode_tokens": dec["tokens"],
+            "decode_capacity": dec["capacity"],
+            "predict_max_abs_err": perr, "generate_worst_argmax_gap": worst_gap}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    # full float32 matmuls and convolutions, as the reference computes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    _cuda.build()
+    build_s = time.perf_counter() - t0
+    print(f"built {_cuda.sources()} with nvcc for sm_90a in {build_s:.1f}s",
+          flush=True)
+    for name, log in sorted(_cuda.build_log.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    dev = torch.device("cuda")
+    rows: list = []
+    check_int8(rows, dev)
+    check_gather(rows, dev)
+    check_flash(rows, dev)
+
+    kernels = (int8_matmul, paged_gather, flash_fwd)
+    served = serve(kernels)
+
+    # one entry per kernel, at the shape the served traffic gave it:
+    # decode at capacity 8 (M = 8, the widest matmul), predict at B = 2
+    main_shape = {"int8_matmul": {"M": 8, "K": 256, "N": 1024},
+                  "paged_gather": {"cap": 8}, "flash_fwd": {"B": 2}}
+    meta = {
+        "int8_matmul": ("deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
+                        "deeplearning4j_tpu/ops/quant.py:157"),
+        "paged_gather": ("deeplearning4j_tpu_torch/csrc/paged_gather.cu",
+                         "deeplearning4j_tpu/ops/paged_attention.py:79"),
+        "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
+                      "deeplearning4j_tpu/ops/pallas_kernels.py:180"),
+    }
+    line = []
+    for fn in kernels:
+        name = fn.__name__
+        want = main_shape[name]
+        row = next(r for r in rows if r["name"] == name and all(
+            r["shape"].get(k) == v for k, v in want.items()))
+        line.append({"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1],
+                     "launches": served["launches"][name],
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"], "shape": row["shape"]})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "build_s": build_s, "rows": rows,
+                   "serve": served, "kernels": line}, f, indent=1)
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

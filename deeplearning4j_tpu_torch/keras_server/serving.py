@@ -1,0 +1,247 @@
+"""HTTP inference front-end: ``/v1/predict``, ``/v1/generate``, status.
+
+Counterpart of ``deeplearning4j_tpu/keras_server/serving.py``: a stdlib
+``ThreadingHTTPServer`` bound to loopback by default, one handler thread per
+connection. Routes:
+
+- ``POST /v1/predict`` body ``{"model": m, "inputs": [[...], ...]}``:
+  micro-batched forward; 200 with ``{"predictions", "model", "version",
+  "batched_with", "bucket"}``, 429 with ``Retry-After`` on admission
+  overflow, 404 for unknown models, 503 on dispatch timeout.
+- ``POST /v1/generate`` body ``{"model": m, "prompt": [ids],
+  "max_new_tokens": n}``: generation over the continuous-batching
+  :class:`DecodeEngine`, streamed as newline-delimited JSON, one line per
+  token, then a ``{"done": true, ...}`` line.
+- ``GET /serve/status``: models, versions, queue and decode-engine stats.
+
+Replicas, the autoscaler, ``/v1/stream``, traces, SLOs, ``/metrics`` and
+the fleet routes are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from concurrent.futures import TimeoutError as _FutureTimeout
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import urlparse
+
+import numpy as np
+
+from ..common import resolve_device
+from .admission import RejectedError, normalize_priority
+from .batcher import MicroBatcher
+from .decode import DecodeEngine
+from .registry import ModelRegistry
+
+#: request tag for priority-aware shedding under saturation
+PRIORITY_HEADER = "X-DL4J-Priority"
+
+
+class _ServeHandler(BaseHTTPRequestHandler):
+    engine: "InferenceServer"  # bound via type() subclass
+
+    # keep-alive: every response carries Content-Length or chunked framing
+    protocol_version = "HTTP/1.1"
+    disable_nagle_algorithm = True
+
+    def log_message(self, fmt, *args):  # silence request logging
+        pass
+
+    def _json(self, obj, code=200, headers=()):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in headers:
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _body(self) -> dict:
+        n = int(self.headers.get("Content-Length", 0))
+        if n <= 0:
+            return {}
+        obj = json.loads(self.rfile.read(n).decode())
+        if not isinstance(obj, dict):
+            raise ValueError("request body must be a JSON object")
+        return obj
+
+    def do_GET(self):
+        path = urlparse(self.path).path
+        if path == "/serve/status":
+            self._json(self.engine.status())
+        else:
+            self._json({"error": f"unknown route {path}"}, code=404)
+
+    def do_POST(self):
+        path = urlparse(self.path).path
+        try:
+            if path == "/v1/predict":
+                self._predict()
+            elif path == "/v1/generate":
+                self._generate()
+            else:
+                self._json({"error": f"unknown route {path}"}, code=404)
+        except RejectedError as e:
+            self._json({"error": str(e), "pending": e.pending,
+                        "limit": e.limit}, code=429,
+                       headers=(("Retry-After",
+                                 f"{max(e.retry_after_s, 0.001):.3f}"),))
+        except KeyError as e:
+            self._json({"error": f"unknown model: {e}"}, code=404)
+        except (ValueError, json.JSONDecodeError) as e:
+            self._json({"error": str(e)}, code=400)
+        except TimeoutError as e:
+            self._json({"error": f"dispatch timed out: {e}"}, code=503)
+
+    def _predict(self) -> None:
+        req = self._body()
+        model = str(req.get("model", ""))
+        if "inputs" not in req:
+            raise ValueError('request body needs an "inputs" field')
+        x = np.asarray(req["inputs"], dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        self.engine.registry.active(model)  # 404 before queueing
+        priority = normalize_priority(self.headers.get(PRIORITY_HEADER))
+        fut = self.engine.batcher.submit(model, x, priority=priority)
+        try:
+            res = fut.result(timeout=self.engine.request_timeout_s)
+        except (_FutureTimeout, TimeoutError):
+            raise TimeoutError(
+                f"no dispatch within {self.engine.request_timeout_s}s")
+        except Exception as e:
+            self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
+            return
+        self._json({
+            "predictions": np.asarray(res["predictions"]).tolist(),
+            "model": res["model"], "version": res["version"],
+            "batched_with": res["batch_rows"], "bucket": res["bucket"]})
+
+    def _generate(self) -> None:
+        req = self._body()
+        model = str(req.get("model", ""))
+        prompt = req.get("prompt")
+        if not isinstance(prompt, list) or not prompt:
+            raise ValueError(
+                'generate needs a non-empty "prompt" list of token ids')
+        max_new = int(req.get("max_new_tokens", 32))
+        eng = self.engine.decoder(model)
+        tokens_q: "queue.Queue" = queue.Queue()
+        sess = eng.submit(prompt, max_new,
+                          stream=lambda sid, tok, t: tokens_q.put(tok))
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def chunk(obj: dict) -> None:
+            line = (json.dumps(obj) + "\n").encode()
+            self.wfile.write(f"{len(line):x}\r\n".encode() + line + b"\r\n")
+            self.wfile.flush()
+
+        i = 0
+        deadline = time.monotonic() + self.engine.request_timeout_s
+        while True:
+            try:
+                tok = tokens_q.get(timeout=0.02)
+            except queue.Empty:
+                if sess.done.is_set() and tokens_q.empty():
+                    break
+                if time.monotonic() > deadline:
+                    chunk({"error": "generation timed out"})
+                    break
+                continue
+            chunk({"i": i, "token": int(tok)})
+            i += 1
+        chunk({"done": True, "tokens": sess.tokens,
+               "reason": sess.evict_reason, "ttft_s": sess.ttft_s})
+        self.wfile.write(b"0\r\n\r\n")
+
+
+class InferenceServer:
+    """The serving engine: registry + micro-batcher + decode engines + HTTP
+    front-end, all on ``device`` (``None`` means CUDA; raises without one
+    unless ``device="cpu"``)."""
+
+    def __init__(self, registry: Optional[ModelRegistry] = None, *,
+                 device=None, host: str = "127.0.0.1", port: int = 0,
+                 max_batch: int = 32, max_latency_s: float = 0.002,
+                 max_queue: int = 256, request_timeout_s: float = 30.0,
+                 decode_min_slots: int = 2, decode_max_slots: int = 16,
+                 decode_max_context: int = 256,
+                 decode_eos_id: Optional[int] = None,
+                 decode_kv: str = "dense", decode_page_size: int = 16,
+                 decode_pool_pages: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.registry = registry or ModelRegistry()
+        self.batcher = MicroBatcher(self.registry, max_batch=max_batch,
+                                    max_latency_s=max_latency_s,
+                                    max_queue=max_queue)
+        self.request_timeout_s = float(request_timeout_s)
+        self._decode_opts = dict(
+            min_slots=decode_min_slots, max_slots=decode_max_slots,
+            max_context=decode_max_context, eos_id=decode_eos_id,
+            kv=decode_kv, page_size=decode_page_size, n_pages=decode_pool_pages)
+        self._decoders: dict = {}
+        self._dec_lock = threading.Lock()
+        handler = type("BoundServeHandler", (_ServeHandler,), {"engine": self})
+        self._httpd = ThreadingHTTPServer((host, port), handler)
+        self._httpd.daemon_threads = True
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> "InferenceServer":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="serve-http", daemon=True)
+        self._thread.start()
+        return self
+
+    def register(self, name: str, net, version: Optional[str] = None,
+                 quant: Optional[str] = None):
+        """Register a model for serving, pinned on this server's device."""
+        return self.registry.register(name, net, version=version, quant=quant,
+                                      device=self.device)
+
+    def decoder(self, model: str) -> DecodeEngine:
+        """The decode engine of ``model``'s active version, created at first
+        use and shared by every /v1/generate request; a version's int8 policy
+        follows how it was registered. Engines of versions that are no longer
+        active retire once idle."""
+        mv = self.registry.active(model)
+        key = (mv.name, mv.version)
+        with self._dec_lock:
+            eng = self._decoders.get(key)
+            if eng is None:
+                eng = self._decoders[key] = DecodeEngine(
+                    mv.net, device=self.device, quant=mv.quant,
+                    **self._decode_opts)
+            for k0, stale in list(self._decoders.items()):
+                if k0[0] == mv.name and k0 != key and stale.idle():
+                    stale.close()
+                    del self._decoders[k0]
+            return eng
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(5.0)
+        self.batcher.close()
+        with self._dec_lock:
+            for eng in self._decoders.values():
+                eng.close()
+            self._decoders.clear()
+
+    def status(self) -> dict:
+        with self._dec_lock:
+            decode = {f"{name}@{version}": eng.stats()
+                      for (name, version), eng in sorted(self._decoders.items())}
+        return {**self.registry.status(), "device": str(self.device),
+                "queue": self.batcher.stats(), "decode": decode}

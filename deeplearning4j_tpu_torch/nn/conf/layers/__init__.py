@@ -1,0 +1,6 @@
+"""Forward-only layer modules, registered under the JAX ``"@type"`` names."""
+from .attention import TransformerBlock, attend
+from .feedforward import EmbeddingLayer
+from .recurrent import RnnOutputLayer
+
+__all__ = ["EmbeddingLayer", "RnnOutputLayer", "TransformerBlock", "attend"]

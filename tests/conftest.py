@@ -28,6 +28,9 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 gate (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,85 @@
+"""The port's CUDA kernels held against their plain PyTorch versions on the
+card. Every test here is marked ``cuda`` and skips without a card.
+
+This file imports neither JAX nor ``deeplearning4j_tpu``, so it also runs
+where only the port is installed. ``tests/conftest.py`` imports JAX, so there
+run it without it:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+from deeplearning4j_tpu_torch.ops import paged_attention as tpa
+from deeplearning4j_tpu_torch.ops import quant as tq
+
+#: float32 online softmax against the one-pass plain version
+FLASH_TOL = 2e-5
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; decided when the test runs, never at import, so every
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 256, 768), (16, 1024, 256),
+                                   (3, 200, 130)])
+def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, M, K, N):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(M, K, generator=g).to(cuda_device)
+    leaf = tq.quantize_per_channel(torch.randn(K, N, generator=g).to(cuda_device))
+    before = tq.int8_matmul.launches
+    out = tq.int8_matmul(x, leaf.q, leaf.scale)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul.launches == before + 1
+    ref = tq.int8_matmul_plain(x, leaf.q, leaf.scale)
+    # float32 sums in another order than cuBLAS
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_paged_gather_kernel_bitwise_on_card(cuda_device):
+    rng = np.random.default_rng(0)
+    n_pages, ps, H, D, cap, P = 64, 16, 4, 64, 8, 8
+    pool = rng.standard_normal((n_pages + 1, ps, H, D)).astype(np.float32)
+    table = rng.integers(0, n_pages + 1, size=(cap, P)).astype(np.int32)
+    table[0, -2:] = 0   # unmapped tail: the trash page
+    table[2, :] = 0     # an inactive slot maps trash everywhere
+    p = torch.from_numpy(pool).to(cuda_device)
+    t = torch.from_numpy(table).to(cuda_device)
+    before = tpa.paged_gather.launches
+    out = tpa.paged_gather(p, t)
+    torch.cuda.synchronize()
+    assert tpa.paged_gather.launches == before + 1
+    assert torch.equal(out, tpa.paged_gather_plain(p, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,causal,masked", [(512, True, False),
+                                             (100, False, True),
+                                             (100, True, True)])
+def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, T, causal, masked):
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, T, 4, 64))
+                                .astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    km = None
+    if masked:
+        m = (rng.random((2, T)) > 0.25).astype(np.float32)
+        m[1, :] = 0.0  # every query row of batch 1 sees no key at all
+        km = torch.from_numpy(m).to(cuda_device)
+    before = tfa.flash_fwd.launches
+    out, lse = tfa.flash_fwd(q, k, v, causal, key_mask=km)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd.launches == before + 1
+    ro, rl = tfa.flash_fwd_plain(q, k, v, causal, key_mask=km)
+    torch.testing.assert_close(out, ro, rtol=0, atol=FLASH_TOL)
+    torch.testing.assert_close(lse, rl, rtol=0, atol=FLASH_TOL)

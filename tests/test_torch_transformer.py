@@ -1,0 +1,114 @@
+"""The port's ``transformer_lm`` forward held against the JAX package.
+
+Weights cross only through ``convert.from_jax``. Whole-model outputs agree
+at atol 1e-5 (float32; the JAX CPU path runs plain XLA attention, the port
+its flash kernel's plain version). Also pinned: the port's own
+``transformer_lm`` writes the JAX config's fields, the config reader refuses
+unknown types, the port imports no JAX, and entry points refuse a host
+without CUDA unless asked for the CPU.
+"""
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import jax_lm
+from deeplearning4j_tpu.models.transformer import transformer_lm as jax_transformer_lm
+from deeplearning4j_tpu_torch.convert import from_jax
+from deeplearning4j_tpu_torch.models import transformer_lm
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def lm():
+    net, params = jax_lm(vocab=128, width=128, n_layers=2, n_heads=2,
+                         max_len=64, seed=3)
+    return net, params, from_jax(net.conf.to_json(), params, device="cpu")
+
+
+@pytest.mark.parametrize("encoding", ["one_hot", "ids"])
+def test_forward_matches_jax(lm, encoding):
+    jnet, _, tnet = lm
+    ids = np.random.default_rng(0).integers(0, 128, size=(2, 32))
+    one_hot = np.eye(128, dtype=np.float32)[ids]
+    ref = np.asarray(jnet.output(one_hot))
+    x = one_hot if encoding == "one_hot" else ids.astype(np.float32)
+    out = tnet.output(x)
+    assert out.shape == (2, 32, 128) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL)
+
+
+def test_params_keep_jax_names_and_layout(lm):
+    _, params, tnet = lm
+    for given, own in zip(params, tnet.params_list):
+        assert sorted(given) == sorted(own)
+        for k in given:
+            assert np.array_equal(own[k].numpy(), given[k])
+    bad = [dict(p) for p in params]
+    bad[1] = {k: v for k, v in bad[1].items() if k != "Wo"}
+    with pytest.raises(ValueError):
+        from_jax(lm[0].conf.to_json(), bad, device="cpu")
+
+
+def test_port_transformer_lm_config_matches_jax():
+    ours = json.loads(transformer_lm(256).to_json())
+    theirs = json.loads(jax_transformer_lm(256).to_json())
+    assert [l["@type"] for l in ours["layers"]] == \
+        [l["@type"] for l in theirs["layers"]]
+    for a, b in zip(ours["layers"], theirs["layers"]):
+        for key, value in a.items():
+            assert b[key] == value, key
+    # the embedding's activation is the global default, not identity
+    assert ours["layers"][0]["activation"] == "sigmoid"
+    assert ours["input_type"] == theirs["input_type"]
+    assert ours["global_conf"]["seed"] == theirs["global_conf"]["seed"]
+    conf = MultiLayerConfiguration.from_json(transformer_lm(64, width=32).to_json())
+    net = MultiLayerNetwork(conf, device="cpu").init(seed=7)
+    again = MultiLayerNetwork(conf, device="cpu").init(seed=7)
+    for a, b in zip(net.params_list, again.params_list):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert net.output(np.zeros((1, 5), np.float32)).shape == (1, 5, 64)
+
+
+def test_config_reader_refuses_unknown_and_unported_types():
+    d = json.loads(transformer_lm(16, width=8, n_layers=1, n_heads=2).to_json())
+    d["layers"][1]["@type"] = "NoSuchLayer"
+    with pytest.raises(ValueError):
+        MultiLayerConfiguration.from_dict(d)
+    d["layers"][1]["@type"] = "LSTM"
+    with pytest.raises(NotImplementedError):
+        MultiLayerConfiguration.from_dict(d)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, deeplearning4j_tpu_torch.keras_server, "
+            "deeplearning4j_tpu_torch.convert, deeplearning4j_tpu_torch.models;"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
+            "or m.startswith('deeplearning4j_tpu.')];"
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from deeplearning4j_tpu_torch.keras_server import DecodeEngine, InferenceServer
+    from deeplearning4j_tpu_torch.nn.inference import PredictFn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = transformer_lm(16, width=8, n_layers=1, n_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceServer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiLayerNetwork(conf)
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PredictFn(net)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(net)

@@ -10,14 +10,21 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    ``nvcc`` for ``sm_90a`` (one process per source, in parallel) and times
    the build;
 3. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, with a stated tolerance, and times the kernel, the
-   plain version and one PyTorch library call computing the same function;
+   main paths' shapes and at edge shapes, with a stated tolerance, and times
+   the kernel, the plain version and one PyTorch library call computing the
+   same function;
 4. serves full-width ``transformer_lm(256)`` (random weights from a seed,
    int8 at rest) through ``InferenceServer`` on the card: 8 concurrent
    ``/v1/generate`` requests over the paged KV cache and one ``/v1/predict``
    of ``[2, 512]`` ids. It checks the answers against a CPU reference and
-   that every kernel was launched by this traffic;
-5. prints one JSON line describing each kernel, then
+   that every serving kernel was launched by this traffic;
+5. trains full-width ``transformer_lm(256)`` through
+   ``MultiLayerNetwork.fit`` for 5 steps at B = 16, T = 256 (one-hot ids from
+   a numpy seed, y = x, Adam at 3e-4) on the card and, from the same initial
+   weights, on the CPU; checks each step's loss against the CPU run, that the
+   loss falls, and the exact launch counts of the training kernels; then
+   times train steps and profiles one (device time by kernel, idle share);
+6. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -37,19 +44,28 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
+from deeplearning4j_tpu_torch.keras_server.serve_profile import (
+    device_time_by_kernel)
 from deeplearning4j_tpu_torch.models import transformer_lm
 from deeplearning4j_tpu_torch.nn.inference import PredictFn
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _cuda
-from deeplearning4j_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    bwd_delta, flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
+    flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_gather, paged_gather_plain)
 from deeplearning4j_tpu_torch.ops.quant import (
     dequantize_leaf, int8_matmul, int8_matmul_plain, quantize_per_channel)
+from deeplearning4j_tpu_torch.ops.softmax_xent import (
+    softmax_cross_entropy, softmax_cross_entropy_plain)
 
 SEED = 1234
+#: the training phase: the JAX package's LM bench geometry
+TRAIN_B, TRAIN_T, TRAIN_V, TRAIN_STEPS = 16, 256, 256, 5
 #: published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -153,11 +169,14 @@ def check_gather(rows: list, dev) -> None:
 
 
 def check_flash(rows: list, dev) -> None:
+    """Kernel 1 at the serving path's shapes (predict [2, 512], and B = 8),
+    at the training path's (B 16, T 256), and at edge shapes: a ragged
+    T = 100 with a key mask that fully masks one batch row, and bfloat16."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
     # float32 online softmax against the one-pass plain version
     tol = 2e-5
-    H, D, T = 4, 64, 512
-    for B in (2, 8):
+    H, D = 4, 64
+    for B, T in ((2, 512), (8, 512), (TRAIN_B, TRAIN_T)):
         q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
                    for _ in range(3))
         out, lse = flash_fwd(q, k, v, True)
@@ -194,6 +213,116 @@ def check_flash(rows: list, dev) -> None:
     print(f"flash_fwd bf16: max_abs_err={err:.3e}", flush=True)
     if not err <= 2e-2:
         fail(f"bfloat16 flash_fwd disagrees: {err}")
+
+
+def check_xent(rows: list, dev) -> None:
+    """Kernel 4 at the training path's shape ([4096, 256] float32 logits),
+    at a vocab of 50,257 (a multiple of no block size) and with bfloat16
+    logits; its yardstick is ``F.cross_entropy`` with probability targets,
+    forward and backward."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    # loss: float32 row sums of up to 50,257 terms in another order; grad:
+    # one float32 rounding, or one bfloat16 ulp at magnitudes up to 1
+    for N, C, dt, loss_tol, grad_tol in (
+            (TRAIN_B * TRAIN_T, TRAIN_V, torch.float32, 1e-5, 1e-6),
+            (64, 50257, torch.float32, 1e-5, 1e-6),
+            (TRAIN_B * TRAIN_T, TRAIN_V, torch.bfloat16, 1e-5, 4e-3)):
+        x = (torch.randn(N, C, generator=g) * 3).to(dev).to(dt)
+        # labels in the logits' dtype, the instantiation mcxent launches
+        y = F.one_hot(torch.randint(0, C, (N,), generator=g), C).to(dev).to(dt)
+        loss, grad = softmax_cross_entropy(x, y)
+        rl, rg = softmax_cross_entropy_plain(x, y)
+        torch.cuda.synchronize()
+        lerr = float((loss - rl).abs().max())
+        gerr = float((grad.float() - rg.float()).abs().max())
+        print(f"sm_xent N={N} C={C} {dt}: loss max_abs_err={lerr:.3e} (tol "
+              f"{loss_tol:.0e}), grad max_abs_err={gerr:.3e} (tol "
+              f"{grad_tol:.0e})", flush=True)
+        if not (lerr <= loss_tol and gerr <= grad_tol):
+            fail(f"sm_xent N={N} C={C} {dt} disagrees with its plain version")
+        xl = x.float().clone().requires_grad_(True)
+        yl = y.float()
+
+        def library():
+            return torch.autograd.grad(
+                F.cross_entropy(xl, yl, reduction="sum"), xl)
+
+        elt = x.element_size()
+        report(rows, "sm_xent", {"N": N, "C": C, "dtype": str(dt)},
+               max(lerr, gerr), max(loss_tol, grad_tol),
+               time_ms(lambda: softmax_cross_entropy(x, y)),
+               time_ms(lambda: softmax_cross_entropy_plain(x, y)),
+               time_ms(library) if dt == torch.float32 else None,
+               3 * N * C * elt + N * 4, 6 * N * C)
+
+
+def check_flash_bwd(rows: list, dev) -> None:
+    """Kernels 2 and 3 at the training path's shape (B 16, T 256, 4 heads
+    of 64, causal, float32) and at edge shapes: not causal, a ragged T = 100,
+    a key mask that fully masks one batch row, D = 32 and bfloat16. Their
+    yardstick is the backward of ``scaled_dot_product_attention``."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    # float32 sums in another order than the plain version's matmuls; one
+    # bfloat16 ulp at magnitudes below 8
+    tol, tol_bf16 = 2e-5, 3.2e-2
+    cases = [(TRAIN_B, TRAIN_T, 4, 64, True, False, torch.float32),
+             (2, 100, 4, 64, False, True, torch.float32),
+             (2, 100, 4, 64, True, True, torch.float32),
+             (2, 100, 4, 32, True, False, torch.float32),
+             (2, 256, 4, 64, False, False, torch.float32),
+             (2, 128, 4, 64, True, False, torch.bfloat16)]
+    for B, T, H, D, causal, masked, dt in cases:
+        q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev).to(dt)
+                       for _ in range(4))
+        km = None
+        if masked:
+            km = (torch.rand(B, T, generator=g) > 0.3).float()
+            km[1] = 0.0  # every query row of batch 1 sees no key at all
+            km = km.to(dev)
+        out, lse = flash_fwd(q, k, v, causal, key_mask=km)
+        delta = bwd_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, km)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, km)
+        rq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, km)
+        rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, km)
+        torch.cuda.synchronize()
+        eq = float((dq.float() - rq.float()).abs().max())
+        ekv = max(float((dk.float() - rk.float()).abs().max()),
+                  float((dv.float() - rv.float()).abs().max()))
+        t = tol if dt == torch.float32 else tol_bf16
+        shape = {"B": B, "T": T, "H": H, "D": D, "causal": causal,
+                 "masked": masked, "dtype": str(dt)}
+        if not (B == TRAIN_B and T == TRAIN_T):
+            print(f"flash_bwd {shape}: dq max_abs_err={eq:.3e}, dk/dv "
+                  f"max_abs_err={ekv:.3e} (tol {t:.1e})", flush=True)
+            if not (eq <= t and ekv <= t):
+                fail(f"flash_bwd {shape} disagrees with its plain version")
+            continue
+        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib_ms = time_ms(library, iters=20)
+        pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
+        row = B * T * H * D * 4
+        stats = B * H * T * 4
+        report(rows, "flash_bwd_dq", shape, eq, t,
+               time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                            km), iters=20),
+               time_ms(lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  causal, km), iters=20),
+               lib_ms, 5 * row + 2 * stats, 6 * D * pairs)
+        report(rows, "flash_bwd_dkv", shape, ekv, t,
+               time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                             km), iters=20),
+               time_ms(lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   causal, km), iters=20),
+               lib_ms, 6 * row + 2 * stats, 8 * D * pairs)
 
 
 def post(port: int, path: str, body: dict):
@@ -297,6 +426,92 @@ def serve(kernels) -> dict:
             "predict_max_abs_err": perr, "generate_worst_argmax_gap": worst_gap}
 
 
+def train(kernels) -> dict:
+    """The training path: ``MultiLayerNetwork.fit`` on the card against the
+    same steps on the CPU, the launch counts of the 5 counted steps, then
+    step timing and one profiled step."""
+    conf = transformer_lm(TRAIN_V)
+    ids = np.random.default_rng(SEED).integers(
+        0, TRAIN_V, size=(TRAIN_B, TRAIN_T))
+    x = np.eye(TRAIN_V, dtype=np.float32)[ids]
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+
+    for fn in kernels:
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        net.fit(x, x)
+        losses.append(net.score_value)
+    first_steps_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+
+    ref_losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ref.fit(x, x)
+        ref_losses.append(ref.score_value)
+    cpu_s = time.perf_counter() - t0
+    # float32 on both; sums in another order, amplified by Adam where a
+    # gradient entry is near zero
+    tol = 1e-4
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"train: card losses {losses}; CPU losses {ref_losses}; worst "
+          f"relative difference {max(rel):.3e} (tol {tol:.0e}); "
+          f"{TRAIN_STEPS} steps on the card in {first_steps_s:.3f}s (first "
+          f"step included), on the CPU in {cpu_s:.3f}s; launches {launches}",
+          flush=True)
+    if not all(np.isfinite(losses)) or not max(rel) <= tol:
+        fail(f"training losses on the card {losses} disagree with the CPU "
+             f"run {ref_losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the training loss did not fall: {losses}")
+    want = {"softmax_cross_entropy": TRAIN_STEPS,
+            "flash_bwd_dq": 4 * TRAIN_STEPS, "flash_bwd_dkv": 4 * TRAIN_STEPS,
+            "flash_fwd": 4 * TRAIN_STEPS, "int8_matmul": 0, "paged_gather": 0}
+    if launches != want:
+        fail(f"training launch counts {launches} != expected {want}")
+
+    # step time: host clock around steps that end in a synchronize
+    for _ in range(2):
+        net.fit(x, x)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        net.fit(x, x)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n
+    tokens_per_s = TRAIN_B * TRAIN_T / (step_ms / 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, x)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = device_time_by_kernel(prof)
+    busy_us = sum(by_kernel.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the training step")
+    result = {
+        "losses": losses, "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
+        "launches": launches, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+        "profiled_step_ms": prof_ms, "device_us_by_kernel": by_kernel,
+        "device_us_total": busy_us,
+        "idle_share_unprofiled": 1.0 - busy_us / 1e3 / step_ms,
+        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    print(f"train step: {step_ms:.3f} ms wall, {tokens_per_s:.0f} tokens/s "
+          f"(B={TRAIN_B}, T={TRAIN_T}); profiled step {prof_ms:.3f} ms, "
+          f"device time {busy_us:.1f} us, idle share "
+          f"{result['idle_share_unprofiled']:.3f} of the unprofiled step "
+          f"({result['idle_share_profiled']:.3f} profiled)", flush=True)
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        print(f"  train step device time {name}: {us:.1f} us", flush=True)
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -324,14 +539,31 @@ def main() -> None:
     check_int8(rows, dev)
     check_gather(rows, dev)
     check_flash(rows, dev)
+    check_xent(rows, dev)
+    check_flash_bwd(rows, dev)
 
-    kernels = (int8_matmul, paged_gather, flash_fwd)
-    served = serve(kernels)
+    kernels = (int8_matmul, paged_gather, flash_fwd, softmax_cross_entropy,
+               flash_bwd_dq, flash_bwd_dkv)
+    served = serve(kernels[:3])
+    trained = train(kernels)
 
-    # one entry per kernel, at the shape the served traffic gave it:
-    # decode at capacity 8 (M = 8, the widest matmul), predict at B = 2
+    # one entry per kernel, at the shape its main path gave it: decode at
+    # capacity 8 (M = 8, the widest matmul), predict at B = 2, training at
+    # B = 16, T = 256; flash_fwd runs on both paths and also carries its
+    # training-shape numbers under "by_path"
+    train_shape = {"B": TRAIN_B, "T": TRAIN_T}
     main_shape = {"int8_matmul": {"M": 8, "K": 256, "N": 1024},
-                  "paged_gather": {"cap": 8}, "flash_fwd": {"B": 2}}
+                  "paged_gather": {"cap": 8}, "flash_fwd": {"B": 2, "T": 512},
+                  "sm_xent": {"N": TRAIN_B * TRAIN_T, "C": TRAIN_V,
+                              "dtype": "torch.float32"},
+                  "flash_bwd_dq": train_shape, "flash_bwd_dkv": train_shape}
+
+    def row_at(name, want):
+        return next(r for r in rows if r["name"] == name and all(
+            r["shape"].get(k) == v for k, v in want.items()))
+
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "shape")
     meta = {
         "int8_matmul": ("deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
                         "deeplearning4j_tpu/ops/quant.py:157"),
@@ -339,24 +571,40 @@ def main() -> None:
                          "deeplearning4j_tpu/ops/paged_attention.py:79"),
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
                       "deeplearning4j_tpu/ops/pallas_kernels.py:180"),
+        "sm_xent": ("deeplearning4j_tpu_torch/csrc/sm_xent.cu",
+                    "deeplearning4j_tpu/ops/pallas_kernels.py:678"),
+        "flash_bwd_dq": ("deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+                         "deeplearning4j_tpu/ops/pallas_kernels.py:519"),
+        "flash_bwd_dkv": ("deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+                          "deeplearning4j_tpu/ops/pallas_kernels.py:543"),
     }
     line = []
     for fn in kernels:
-        name = fn.__name__
-        want = main_shape[name]
-        row = next(r for r in rows if r["name"] == name and all(
-            r["shape"].get(k) == v for k, v in want.items()))
-        line.append({"name": name, "route": "cuda", "source": meta[name][0],
-                     "replaces": meta[name][1],
-                     "launches": served["launches"][name],
-                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"],
-                     "library_ms": row["library_ms"], "shape": row["shape"]})
+        fname = fn.__name__
+        name = "sm_xent" if fname == "softmax_cross_entropy" else fname
+        row = row_at(name, main_shape[name])
+        by_path = {"serve": served["launches"].get(fname, 0),
+                   "train": trained["launches"][fname]}
+        entry = {"name": name, "route": "cuda", "source": meta[name][0],
+                 "replaces": meta[name][1],
+                 "launches": by_path["train" if name in
+                                     ("sm_xent", "flash_bwd_dq",
+                                      "flash_bwd_dkv") else "serve"],
+                 "launches_by_path": by_path,
+                 **{k: row[k] for k in numbers}}
+        if name == "flash_fwd":
+            entry["by_path"] = {
+                "serve": {"launches": by_path["serve"],
+                          **{k: row[k] for k in numbers}},
+                "train": {"launches": by_path["train"],
+                          **{k: row_at(name, train_shape)[k]
+                             for k in numbers}}}
+        line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "rows": rows,
-                   "serve": served, "kernels": line}, f, indent=1)
+                   "serve": served, "train": trained, "kernels": line}, f,
+                  indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

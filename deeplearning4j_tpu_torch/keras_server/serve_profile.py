@@ -41,13 +41,19 @@ SEED = 1234
 V = 256
 #: kernel-name substrings -> the port's kernels; everything else is PyTorch's
 OURS = {"int8_matmul_kernel": "int8_matmul", "paged_gather_kernel": "paged_gather",
-        "flash_fwd_kernel": "flash_fwd"}
+        "flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel": "flash_bwd_dq",
+        "flash_bwd_dkv_kernel": "flash_bwd_dkv", "sm_xent_kernel": "sm_xent"}
 
 
 def device_time_by_kernel(prof) -> dict:
-    """Device microseconds per kernel family from a profiler run."""
+    """Device microseconds per kernel family from a profiler run, summed
+    over the device events (kernels and copies) alone: the profiler also
+    credits a kernel to the PyTorch op that launched it on the profiling
+    thread, so a sum over every event counts those kernels twice."""
     out: dict = {}
     for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)

@@ -2,14 +2,14 @@
 
 Counterpart of ``deeplearning4j_tpu/models/transformer.py``
 (``transformer_lm``), with the same defaults and the same resolved config:
-an ``Embedding`` layer whose activation is the global default (``sigmoid``),
-causal ``TransformerBlock``s, and a softmax ``RnnOutput`` head.
+Adam at the given learning rate, an ``Embedding`` layer whose activation is
+the global default (``sigmoid``), causal ``TransformerBlock``s, and a softmax
+``RnnOutput`` head, every layer with the global defaults baked in.
 """
 from __future__ import annotations
 
 from ..nn.conf.multilayer import (
-    GlobalConf, InputType, LayerConf, MultiLayerConfiguration,
-)
+    GlobalConf, InputType, LayerConf, MultiLayerConfiguration)
 
 
 def transformer_lm(vocab_size: int, width: int = 256, n_layers: int = 4,
@@ -18,19 +18,16 @@ def transformer_lm(vocab_size: int, width: int = 256, n_layers: int = 4,
                    learning_rate: float = 3e-4) -> MultiLayerConfiguration:
     """Causal LM: one-hot ``[B, T, V]`` or ids ``[B, T]`` -> embedding ->
     ``n_layers`` blocks -> vocab probabilities."""
-    g = GlobalConf(seed=seed, activation="sigmoid", weight_init="xavier")
-    common = {"name": None, "weight_init": g.weight_init, "bias_init": 0.0,
-              "learning_rate": learning_rate}
-    layers = [LayerConf("Embedding", {**common, "activation": g.activation,
-                                      "n_in": vocab_size, "n_out": width})]
+    g = GlobalConf(seed=seed, learning_rate=learning_rate, updater="adam",
+                   weight_init="xavier")
+    specs = [("Embedding", {"n_in": vocab_size, "n_out": width})]
     for _ in range(n_layers):
-        layers.append(LayerConf("TransformerBlock", {
-            **common, "activation": g.activation, "n_in": width,
-            "n_out": width, "n_heads": n_heads,
+        specs.append(("TransformerBlock", {
+            "n_in": width, "n_out": width, "n_heads": n_heads,
             "ffn_multiplier": ffn_multiplier, "causal": True}))
-    layers.append(LayerConf("RnnOutput", {
-        **common, "activation": "softmax", "n_in": width, "n_out": vocab_size,
-        "loss": "mcxent"}))
+    specs.append(("RnnOutput", {"activation": "softmax", "n_in": width,
+                                "n_out": vocab_size, "loss": "mcxent"}))
+    layers = [LayerConf(t, f) for t, f in specs]
     return MultiLayerConfiguration(
         g, layers, InputType(kind="recurrent", size=vocab_size,
                              timesteps=max_len))

@@ -1,1 +1,2 @@
-"""Networks, layers and the serving forward of the port."""
+"""Networks, layers, updaters and weight init of the port: the serving
+forward and training."""

@@ -1,4 +1,5 @@
-"""Forward-only layer modules, registered under the JAX ``"@type"`` names."""
+"""Layer modules (forward, train-mode dropout, the output layer's loss),
+registered under the JAX ``"@type"`` names."""
 from .attention import TransformerBlock, attend
 from .feedforward import EmbeddingLayer
 from .recurrent import RnnOutputLayer

@@ -1,7 +1,7 @@
 """Attention layers of the slice: ``TransformerBlock`` and ``attend``.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/attention.py``. The
-attention core is the flash-attention forward kernel
+attention core is the flash-attention forward and backward kernels
 (``ops/flash_attention.py``) at every sequence length; the projections and
 the MLP are plain ``torch.matmul``, as the JAX package leaves them to XLA.
 Layout: ``[batch, time, features]``.
@@ -22,7 +22,8 @@ from .base import Layer
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The attention core every attention-bearing layer uses: the flash
-    kernel, with a ``[B, Tk]`` key mask when one is given."""
+    kernels (differentiable: the backward is ``flash_bwd``), with a
+    ``[B, Tk]`` key mask when one is given. Returns the output only."""
     if mask is not None:
         return masked_attention(q, k, v, mask, causal)[0]
     return flash_attention(q, k, v, causal)[0]
@@ -62,6 +63,9 @@ class TransformerBlock(Layer):
                 "W1": (F_, hidden), "b1": (hidden,), "W2": (hidden, F_),
                 "b2": (F_,)}
 
+    def regularizable_params(self):
+        return ("Wqkv", "Wo", "W1", "W2")
+
     def init_param(self, name, shape, gen):
         if name.endswith("_g"):
             return torch.ones(shape)
@@ -69,7 +73,7 @@ class TransformerBlock(Layer):
             return torch.zeros(shape)
         return super().init_param(name, shape, gen)
 
-    def apply(self, params, x, mask=None):
+    def apply(self, params, x, mask=None, train=False, gen=None):
         pol = get_policy()
         cd, od = pol.compute_dtype, pol.output_dtype
         B, T, F_ = x.shape
@@ -85,5 +89,6 @@ class TransformerBlock(Layer):
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         h = torch.matmul(h.to(cd), params["W1"].to(cd))
         h = gelu(h.to(od) + params["b1"].to(od))
+        h = self.apply_dropout(h, gen, train)
         h = torch.matmul(h.to(cd), params["W2"].to(cd))
         return x + h.to(od) + params["b2"].to(od)

@@ -23,12 +23,14 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 @register_layer("Embedding")
 class EmbeddingLayer(Layer):
     """Index -> vector lookup, ``act(W[idx] + b)``. Takes integer ids or a
-    one-hot encoding, told apart exactly as the JAX layer does."""
+    one-hot encoding, told apart exactly as the JAX layer does; either way
+    ``W`` gets its gradient through the gather (the one-hot input itself
+    takes none, as in the JAX layer)."""
 
     def param_shapes(self):
         return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
 
-    def apply(self, params, x, mask=None):
+    def apply(self, params, x, mask=None, train=False, gen=None):
         # one-hot input: rank >= 3 ([B, T, V] sequences), or a floating-point
         # [B, V] matrix; integer ids are never taken for one-hot even when a
         # sequence length equals the vocab size

@@ -30,16 +30,87 @@ class InputType:
 
 @dataclasses.dataclass
 class GlobalConf:
-    """The network-wide defaults that the forward pass reads."""
+    """The network-wide defaults: every field of the JAX package's
+    ``GlobalConf``, with the same defaults. The JAX package bakes the
+    per-layer ones into each layer at ``build()``; the network reads the rest
+    (``iterations``, ``lr_policy*``, ``use_regularization``, ...) when it
+    trains."""
 
     seed: int = 12345
+    optimization_algo: str = "stochastic_gradient_descent"
+    iterations: int = 1                 # updates per presented minibatch
+    learning_rate: float = 0.1
+    bias_learning_rate: Optional[float] = None
+    lr_policy: Optional[str] = None
+    lr_policy_decay_rate: float = 0.0
+    lr_policy_power: float = 0.0
+    lr_policy_steps: float = 1.0
+    lr_schedule: Optional[dict] = None
+    max_num_iterations: int = 1         # for the poly and cosine policies
+    updater: str = "sgd"
+    momentum: float = 0.9
+    momentum_schedule: Optional[dict] = None
+    rho: float = 0.95
+    rms_decay: float = 0.95
+    adam_mean_decay: float = 0.9
+    adam_var_decay: float = 0.999
+    epsilon: float = 1e-8
     activation: str = "sigmoid"
     weight_init: str = "xavier"
+    dist: Optional[dict] = None
     bias_init: float = 0.0
+    l1: float = 0.0
+    l2: float = 0.0
+    dropout: float = 0.0
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
+    minibatch: bool = True
+    mini_batch: bool = True
+    use_regularization: bool = False
+    max_num_line_search_iterations: int = 5
+    gradient_checkpointing: bool = False
     dtype: Optional[str] = None
 
     def to_dict(self) -> dict:
         return {"@type": "GlobalConf", **dataclasses.asdict(self)}
+
+    @staticmethod
+    def from_dict(g: dict) -> "GlobalConf":
+        """Every field of the dict; a field this port does not know raises,
+        so no setting of the JSON is dropped in silence."""
+        g = {k: v for k, v in g.items() if k != "@type"}
+        known = {f.name for f in dataclasses.fields(GlobalConf)}
+        unknown = sorted(set(g) - known)
+        if unknown:
+            raise ValueError(f"GlobalConf fields {unknown} are not known to "
+                             "this port")
+        return GlobalConf(**g)
+
+
+#: per-layer fields a layer takes from the global defaults when unset (the
+#: JAX package's ``_LAYER_INHERIT_FIELDS``)
+LAYER_INHERIT_FIELDS = (
+    "activation", "weight_init", "dist", "l1", "l2", "dropout",
+    "learning_rate", "bias_learning_rate", "updater", "momentum", "rho",
+    "rms_decay", "adam_mean_decay", "adam_var_decay", "epsilon",
+    "gradient_normalization", "gradient_normalization_threshold",
+)
+
+
+def bake_layer_defaults(fields: dict, g: GlobalConf) -> dict:
+    """A layer's fields with every unset inherited field filled from ``g``,
+    as the JAX package bakes them at ``build()``. An unset bias learning rate
+    becomes the layer's learning rate, which is baked first, so the global
+    ``bias_learning_rate`` reaches no layer there either."""
+    out = {"name": None, **fields}
+    if out.get("bias_init") is None:
+        out["bias_init"] = g.bias_init
+    for f in LAYER_INHERIT_FIELDS:
+        if out.get(f) is None:
+            out[f] = getattr(g, f)
+    if fields.get("bias_learning_rate") is None:
+        out["bias_learning_rate"] = out["learning_rate"]
+    return out
 
 
 @dataclasses.dataclass
@@ -69,6 +140,22 @@ class MultiLayerConfiguration:
     global_conf: GlobalConf
     layers: List[LayerConf]
     input_type: Optional[InputType] = None
+    backprop: bool = True
+    pretrain: bool = False
+    backprop_type: str = "Standard"       # Standard | TruncatedBPTT
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+
+    #: the top-level training fields, in the JAX schema's order
+    TRAINING_FIELDS = ("backprop", "pretrain", "backprop_type",
+                       "tbptt_fwd_length", "tbptt_back_length")
+
+    def __post_init__(self):
+        # the one place the global defaults reach the layers: a layer reads
+        # its baked fields and holds no defaults of its own
+        self.layers = [LayerConf(lc.type, bake_layer_defaults(lc.fields,
+                                                              self.global_conf))
+                       for lc in self.layers]
 
     def to_json(self) -> str:
         return json.dumps({
@@ -78,6 +165,7 @@ class MultiLayerConfiguration:
             "preprocessors": {},
             "input_type": (None if self.input_type is None
                            else self.input_type.to_dict()),
+            **{f: getattr(self, f) for f in self.TRAINING_FIELDS},
         }, indent=2)
 
     @staticmethod
@@ -92,9 +180,7 @@ class MultiLayerConfiguration:
         if d.get("preprocessors"):
             raise ValueError("input preprocessors are not supported by this "
                              "port yet (ROADMAP.md)")
-        g = d.get("global_conf") or {}
-        gfields = {f.name for f in dataclasses.fields(GlobalConf)}
-        global_conf = GlobalConf(**{k: v for k, v in g.items() if k in gfields})
+        global_conf = GlobalConf.from_dict(d.get("global_conf") or {})
         layers = []
         for ld in d["layers"]:
             ld = dict(ld)
@@ -105,4 +191,7 @@ class MultiLayerConfiguration:
             ifields = {f.name for f in dataclasses.fields(InputType)}
             input_type = InputType(**{k: v for k, v in it.items()
                                       if k in ifields})
-        return MultiLayerConfiguration(global_conf, layers, input_type)
+        training = {f: d[f] for f in MultiLayerConfiguration.TRAINING_FIELDS
+                    if f in d}
+        return MultiLayerConfiguration(global_conf, layers, input_type,
+                                       **training)

@@ -1,3 +1,4 @@
-"""Tensor ops of the port: activations, int8 quantization, the paged KV
-gather and flash attention. The CUDA kernels under ``csrc/`` are built at
-first use (``ops/_cuda.py``), never at import."""
+"""Tensor ops of the port: activations, losses, the fused softmax
+cross-entropy, int8 quantization, the paged KV gather and flash attention
+(forward and backward). The CUDA kernels under ``csrc/`` are built at first
+use (``ops/_cuda.py``), never at import."""

@@ -1,17 +1,22 @@
-"""Flash-attention forward.
+"""Flash attention: the forward and its backward.
 
-Counterpart of the forward half of ``deeplearning4j_tpu/ops/pallas_kernels.py``
-(``_flash_forward``, ``flash_attention``, ``masked_attention``). Both entry
-points reach one kernel, ``csrc/flash_fwd.cu``, on CUDA tensors, at every
-sequence length: the TPU's length gate (``_MIN_SEQ``) is not carried over,
-and a crossover is for H100 measurements to set. On CPU tensors they run the
-plain version.
+Counterpart of the flash half of ``deeplearning4j_tpu/ops/pallas_kernels.py``
+(``_flash_forward``, ``_flash_backward``, ``flash_attention``,
+``masked_attention`` and their ``custom_vjp`` rules). On CUDA tensors the
+forward launches ``csrc/flash_fwd.cu`` and the backward the two kernels of
+``csrc/flash_bwd.cu`` (dQ, then dK/dV), at every sequence length: the TPU's
+length gates (``_MIN_SEQ``, ``_PBWD_MIN_SEQ``) are not carried over, and a
+crossover is for H100 measurements to set. On CPU tensors every wrapper runs
+its plain version.
 
 The JAX conventions are kept exactly: logits scaled by ``1/sqrt(D)``,
 masked logits ``-1e30`` (not ``-inf``), ``p = 0`` where the logit is
 ``<= -1e30``, ``l`` clamped at ``1e-20`` so a fully masked row outputs 0,
-``lse = m + log(l)``. Layouts are the JAX package's: q, k, v and out
-``[B, T, H, D]``, lse ``[B * H, Tq]`` float32.
+``lse = m + log(l)``; the backward recomputes ``P = exp(S - lse)`` (0 where
+masked), takes ``delta = rowsum(dO * O)`` from the saved output in its stored
+dtype, and applies the scale once, inside ``dS``. Layouts are the JAX
+package's: q, k, v, out and their gradients ``[B, T, H, D]``, lse and delta
+``[B * H, Tq]`` float32.
 """
 from __future__ import annotations
 
@@ -110,15 +115,218 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+
+
+def _check_bwd(name: str, q, k, v, do, lse, delta, key_mask) -> None:
+    """Operand checks shared by the two backward wrappers."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"{name} needs q, k, v as [B, T, H, D]")
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if k.shape != (B, Tk, H, D) or v.shape != k.shape or do.shape != q.shape:
+        raise ValueError(f"{name} shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, do "
+                         f"{tuple(do.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype) \
+            or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} needs one float32/bfloat16 dtype for q, k, "
+                        f"v, do, got {q.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{do.dtype}")
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t.shape != (B * H, Tq) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} must be float32 [B*H, Tq] = "
+                             f"{(B * H, Tq)}, got {t.dtype} {tuple(t.shape)}")
+    if key_mask is not None and key_mask.shape != (B, Tk):
+        raise ValueError(f"{name}: key_mask must be [B, Tk] = {(B, Tk)}, got "
+                         f"{tuple(key_mask.shape)}")
+    devices = {t.device for t in (q, k, v, do, lse, delta)}
+    if key_mask is not None:
+        devices.add(key_mask.device)
+    if len(devices) != 1:
+        raise ValueError(f"{name} operands must share one device")
+    if q.device.type == "cuda":
+        if D not in _HEAD_DIMS:
+            raise ValueError(f"{name} kernel takes head dims {_HEAD_DIMS}, "
+                             f"got {D}")
+        if not all(t.is_contiguous() for t in (q, k, v, do, lse, delta)):
+            raise ValueError(f"{name} needs contiguous operands")
+    elif q.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
+def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in float32 as ``[B * H, Tq]``, from ``out``
+    in its stored dtype (PyTorch ops, outside the kernels, as the JAX
+    package computes it in XLA)."""
+    B, Tq, H, _ = out.shape
+    d = (do.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+    return d.permute(0, 2, 1).reshape(B * H, Tq).contiguous()
+
+
+def _plain_p_ds(q, k, v, do, lse, delta, causal, key_mask):
+    """``P`` and ``dS`` ``[B, H, Tq, Tk]`` in float32, the kernels' math over
+    the whole score matrix."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / (D ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    neg = torch.tensor(NEG, dtype=torch.float32, device=q.device)
+    if key_mask is not None:
+        s = torch.where(key_mask.to(torch.float32)[:, None, None, :] > 0, s, neg)
+    if causal:
+        cm = (torch.arange(Tq, device=q.device)[:, None]
+              >= torch.arange(Tk, device=q.device)[None, :])
+        s = torch.where(cm, s, neg)
+    lse4 = lse.reshape(B, H, Tq, 1)
+    p = torch.where(s <= NEG, torch.zeros_like(s), torch.exp(s - lse4))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(torch.float32),
+                      v.to(torch.float32))
+    ds = p * (dp - delta.reshape(B, H, Tq, 1)) * scale
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, key_mask=None):
+    """Plain version of the dQ kernel."""
+    _, ds = _plain_p_ds(q, k, v, do, lse, delta, causal, key_mask)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.to(torch.float32)).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, key_mask=None):
+    """Plain version of the dK/dV kernel."""
+    p, ds = _plain_p_ds(q, k, v, do, lse, delta, causal, key_mask)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.to(torch.float32))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, out, lse, do, causal, key_mask=None):
+    """Plain version of :func:`flash_bwd`: ``(dq, dk, dv)``."""
+    delta = bwd_delta(out, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, key_mask)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                     key_mask))
+
+
+_BWD_ARGS = [_cuda.PTR] * 8 + [_cuda.INT] * 5 + [_cuda.FLOAT, _cuda.INT,
+                                                 _cuda.INT, _cuda.PTR]
+
+
+def _mask_operand(key_mask):
+    return None if key_mask is None else key_mask.to(torch.float32).contiguous()
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool, key_mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """dQ ``[B, Tq, H, D]`` in q's dtype. On CUDA tensors this launches the
+    dQ kernel of ``csrc/flash_bwd.cu``; on CPU tensors it runs the plain
+    version."""
+    _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, key_mask)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, key_mask)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    km = _mask_operand(key_mask)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    fn = _cuda.function("flash_bwd", "flash_bwd_dq", _BWD_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if km is None else km.data_ptr(), dq.data_ptr(), B, H, Tq,
+            Tk, D, 1.0 / (D ** 0.5), int(causal),
+            int(q.dtype == torch.bfloat16), _cuda.stream_handle())
+    _cuda.check(rc, "flash_bwd", "flash_bwd_dq launch")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+_DKV_ARGS = [_cuda.PTR] * 9 + [_cuda.INT] * 5 + [_cuda.FLOAT, _cuda.INT,
+                                                 _cuda.INT, _cuda.PTR]
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool, key_mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` ``[B, Tk, H, D]`` in k's dtype. On CUDA tensors this
+    launches the dK/dV kernel of ``csrc/flash_bwd.cu``; on CPU tensors it
+    runs the plain version."""
+    _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, key_mask)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, key_mask)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    km = _mask_operand(key_mask)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    fn = _cuda.function("flash_bwd", "flash_bwd_dkv", _DKV_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if km is None else km.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Tq, Tk, D, 1.0 / (D ** 0.5), int(causal),
+            int(q.dtype == torch.bfloat16), _cuda.stream_handle())
+    _cuda.check(rc, "flash_bwd", "flash_bwd_dkv launch")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool, key_mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward ``(dq, dk, dv)`` from the forward's saved
+    ``out`` and ``lse``: ``delta`` in PyTorch, then the dQ and the dK/dV
+    wrappers (two kernel launches on CUDA tensors)."""
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"flash_bwd: out must match q, got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    delta = bwd_delta(out, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, key_mask)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, key_mask)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward ``flash_fwd``, backward ``flash_bwd`` from the saved q, k, v,
+    out and lse (the ``custom_vjp`` of the JAX entry points). The key mask
+    and ``lse`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal):
+        out, lse = flash_fwd(q, k, v, causal, key_mask=key_mask)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               ctx.causal, key_mask)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tiled attention forward: ``(out, lse)``."""
-    return flash_fwd(q, k, v, causal)
+    """Tiled attention ``(out, lse)``, differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, None, causal)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_mask: torch.Tensor, causal: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention with a ``[B, Tk]`` {0,1} key mask: masked keys get ``-1e30``
-    logits, and rows whose keys are all masked output 0. ``(out, lse)``."""
-    return flash_fwd(q, k, v, causal, key_mask=key_mask)
+    logits, and rows whose keys are all masked output 0. ``(out, lse)``,
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, key_mask, causal)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
-card. Every test here is marked ``cuda`` and skips without a card.
+card, at the tolerances stated below. Every test here is marked ``cuda`` and
+skips without a card.
 
 This file imports neither JAX nor ``deeplearning4j_tpu``, so it also runs
 where only the port is installed. ``tests/conftest.py`` imports JAX, so there
@@ -14,9 +15,19 @@ import torch
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 from deeplearning4j_tpu_torch.ops import paged_attention as tpa
 from deeplearning4j_tpu_torch.ops import quant as tq
+from deeplearning4j_tpu_torch.ops import softmax_xent as tsx
 
 #: float32 online softmax against the one-pass plain version
 FLASH_TOL = 2e-5
+#: float32 backward sums in another order than the plain version's matmuls
+FLASH_BWD_TOL = 2e-5
+#: one bfloat16 ulp at magnitudes below 8
+FLASH_BWD_BF16_TOL = 3.2e-2
+#: loss: float32 row sums of up to 50,257 terms in another order
+XENT_LOSS_TOL = 1e-5
+XENT_GRAD_TOL = 1e-6
+#: one bfloat16 ulp at magnitudes up to 1
+XENT_BF16_GRAD_TOL = 4e-3
 
 
 @pytest.fixture
@@ -83,3 +94,58 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, T, causal, masked):
     ro, rl = tfa.flash_fwd_plain(q, k, v, causal, key_mask=km)
     torch.testing.assert_close(out, ro, rtol=0, atol=FLASH_TOL)
     torch.testing.assert_close(lse, rl, rtol=0, atol=FLASH_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,dtype", [(4096, 256, torch.float32),
+                                       (8, 50257, torch.float32),
+                                       (300, 256, torch.bfloat16)])
+def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(N, C, generator=g) * 3).to(cuda_device).to(dtype)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, C, (N,), generator=g), C).float().to(cuda_device)
+    before = tsx.softmax_cross_entropy.launches
+    loss, grad = tsx.softmax_cross_entropy(x, y)
+    torch.cuda.synchronize()
+    assert tsx.softmax_cross_entropy.launches == before + 1
+    rl, rg = tsx.softmax_cross_entropy_plain(x, y)
+    torch.testing.assert_close(loss, rl, rtol=0, atol=XENT_LOSS_TOL)
+    gtol = XENT_GRAD_TOL if dtype == torch.float32 else XENT_BF16_GRAD_TOL
+    assert grad.dtype == dtype
+    torch.testing.assert_close(grad.float(), rg.float(), rtol=0, atol=gtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,causal,masked,dtype", [
+    (256, 64, True, False, torch.float32),
+    (100, 64, False, True, torch.float32),
+    (100, 64, True, True, torch.float32),
+    (100, 32, True, False, torch.float32),
+    (128, 64, True, False, torch.bfloat16)])
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
+                                                masked, dtype):
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn(2, T, 4, D, generator=g).to(cuda_device)
+                   .to(dtype) for _ in range(4))
+    km = None
+    if masked:
+        km = (torch.rand(2, T, generator=g) > 0.25).float()
+        km[1] = 0.0  # every query row of batch 1 sees no key at all
+        km = km.to(cuda_device)
+    out, lse = tfa.flash_fwd(q, k, v, causal, key_mask=km)
+    delta = tfa.bwd_delta(out, do)
+    n_dq, n_dkv = tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal, km)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, km)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_dq.launches == n_dq + 1
+    assert tfa.flash_bwd_dkv.launches == n_dkv + 1
+    rq = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, km)
+    rk, rv = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, km)
+    tol = FLASH_BWD_TOL if dtype == torch.float32 else FLASH_BWD_BF16_TOL
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
+    # bitwise the same from run to run: no atomics
+    assert torch.equal(tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal, km), dq)

@@ -49,7 +49,7 @@ def test_params_keep_jax_names_and_layout(lm):
     for given, own in zip(params, tnet.params_list):
         assert sorted(given) == sorted(own)
         for k in given:
-            assert np.array_equal(own[k].numpy(), given[k])
+            assert np.array_equal(own[k].detach().numpy(), given[k])
     bad = [dict(p) for p in params]
     bad[1] = {k: v for k, v in bad[1].items() if k != "Wo"}
     with pytest.raises(ValueError):
@@ -88,7 +88,14 @@ def test_config_reader_refuses_unknown_and_unported_types():
 
 def test_port_imports_no_jax():
     code = ("import sys, deeplearning4j_tpu_torch.keras_server, "
-            "deeplearning4j_tpu_torch.convert, deeplearning4j_tpu_torch.models;"
+            "deeplearning4j_tpu_torch.convert, deeplearning4j_tpu_torch.models, "
+            "deeplearning4j_tpu_torch.nn.multilayer, "
+            "deeplearning4j_tpu_torch.nn.updaters, "
+            "deeplearning4j_tpu_torch.nn.weights, "
+            "deeplearning4j_tpu_torch.datasets, "
+            "deeplearning4j_tpu_torch.ops.losses, "
+            "deeplearning4j_tpu_torch.ops.softmax_xent, "
+            "deeplearning4j_tpu_torch.ops.flash_attention;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"

@@ -12,7 +12,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at edge shapes, with a stated tolerance, and times
    the kernel, the plain version and one PyTorch library call computing the
-   same function;
+   same function (for the LSTM kernels ``torch.nn.LSTM``, cuDNN, which has
+   no peepholes);
 4. serves full-width ``transformer_lm(256)`` (random weights from a seed,
    int8 at rest) through ``InferenceServer`` on the card: 8 concurrent
    ``/v1/generate`` requests over the paged KV cache and one ``/v1/predict``
@@ -24,7 +25,18 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    weights, on the CPU; checks each step's loss against the CPU run, that the
    loss falls, and the exact launch counts of the training kernels; then
    times train steps and profiles one (device time by kernel, idle share);
-6. prints one JSON line describing each kernel, then
+6. serves full-width ``char_rnn_lstm(64, hidden=200)`` (random weights from
+   a seed, float32): 8 concurrent ``/v1/generate`` requests over the LSTM
+   decode engine and one ``/v1/stream`` session of 64 steps in two requests,
+   then ``/v1/stream/reset``; checks every token and output against the CPU
+   ``rnn_time_step`` and the exact launches of each path; profiles the
+   generate traffic once more;
+7. trains the same model (RMSProp at 0.01) through TBPTT ``fit``: 2
+   batches of [32, 200, 64] one-hot ids (y = x), 8 chunks of 50, on the card and from the same
+   weights on the CPU; checks every chunk's loss and the exact launch counts
+   (``lstm_fwd`` 16, ``lstm_bwd`` 16, ``sm_xent`` 8); times chunks and
+   profiles one batch;
+8. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -49,10 +61,11 @@ from torch.profiler import ProfilerActivity, profile
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
 from deeplearning4j_tpu_torch.keras_server.serve_profile import (
     device_time_by_kernel)
-from deeplearning4j_tpu_torch.models import transformer_lm
+from deeplearning4j_tpu_torch.models import char_rnn_lstm, transformer_lm
 from deeplearning4j_tpu_torch.nn.inference import PredictFn
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _cuda
+from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     bwd_delta, flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq,
     flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
@@ -66,6 +79,14 @@ from deeplearning4j_tpu_torch.ops.softmax_xent import (
 SEED = 1234
 #: the training phase: the JAX package's LM bench geometry
 TRAIN_B, TRAIN_T, TRAIN_V, TRAIN_STEPS = 16, 256, 256, 5
+#: the recurrent path: full-width char_rnn_lstm (BASELINE config 3, the JAX
+#: package's bench geometry), 2 batches of T = 200 = 4 TBPTT chunks of 50
+RNN_V, RNN_H, RNN_B, RNN_T, RNN_CHUNK, RNN_BATCHES = 64, 200, 32, 200, 50, 2
+RNN_DECODE_B = 8
+#: RMSProp rate of the training phase. At the config's own 0.1 the loss
+#: diverges (4.2 -> 44 in 8 chunks) and the card and the CPU drift 2e-4
+#: apart (PERF.md, Findings); at 0.01 the run stays stable. Widths unchanged.
+RNN_LR = 0.01
 #: published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -325,6 +346,125 @@ def check_flash_bwd(rows: list, dev) -> None:
                lib_ms, 6 * row + 2 * stats, 8 * D * pairs)
 
 
+def _lstm_args(dev, g, T, B, F, H, peephole, masked):
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    m = torch.ones(T, B)
+    if masked:
+        m = (torch.rand(T, B, generator=g) > 0.3).float()
+        m[:, 0] = 0.0  # a batch row masked at every step
+    return dict(x_t=r(T, B, F), wcat=r(F + H, 4 * H, scale=0.1),
+                b=r(1, 4 * H, scale=0.1),
+                peep=r(3, H, scale=0.3) if peephole else None,
+                h0=r(B, H, scale=0.5), c0=r(B, H, scale=0.5), m_t=m.to(dev))
+
+
+def _cudnn_lstm(dev, T, B, F, H):
+    """``torch.nn.LSTM`` (cuDNN) at the same shape: the yardstick. It
+    computes the cell without peepholes."""
+    mod = torch.nn.LSTM(F, H).to(dev)
+    x = torch.randn(T, B, F, device=dev, requires_grad=True)
+    h0 = torch.zeros(1, B, H, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return mod(x, (h0, h0))
+
+    def fwd_bwd():
+        y, _ = mod(x, (h0, h0))
+        return torch.autograd.grad(y.sum(), [x] + list(mod.parameters()))
+
+    return fwd, fwd_bwd
+
+
+def lstm_work(T, B, F, H):
+    """(bytes, operations) of lstm_fwd and of lstm_bwd: each input read once
+    and each output written once (float32); the gate matmuls at 2 operations
+    a multiply-add and ~20 (forward) or ~40 (backward) elementwise
+    operations per cell and step."""
+    K = F + H
+    w = 4 * (K * 4 * H + 4 * H + 3 * H)
+    fwd_b = 4 * (T * B * F + T * B + 4 * B * H + 2 * T * B * H) + w
+    fwd_o = 2 * T * B * K * 4 * H + 20 * T * B * H
+    bwd_b = 4 * (T * B * (F + 3 * H) + T * B + 4 * B * H + T * B * F) + 2 * w
+    bwd_o = (2 * T * B * K * 4 * H * 2 + 2 * T * B * H * 4 * H
+             + 2 * T * B * F * 4 * H + 40 * T * B * H)
+    return fwd_b, fwd_o, bwd_b, bwd_o
+
+
+def check_lstm(rows: list, dev) -> None:
+    """Kernels 5 and 6 at the recurrent path's shapes: a TBPTT chunk of each
+    char_rnn layer (T 50, B 32, F 64 and 200, H 200, peepholes; the second
+    with a ragged mask that holds one batch row at every step), a decode step
+    (T 1, B 8) and a streamed step (T 1, B 1); and at edge shapes: no
+    peepholes, H = 37. The backward gets nonzero dh/dc seeds and is run twice
+    to check it bitwise."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    # forward: float32 dot products over F + H terms in another order
+    fwd_tol = 2e-5
+    # backward: dW sums T * B = 1,600 rows in another order than the plain
+    # version's matmul, so each output is held to 1e-4 of its own largest
+    # entry, plus 1e-5
+    bwd_atol, bwd_rtol = 1e-5, 1e-4
+    cases = [(RNN_CHUNK, RNN_B, RNN_V, RNN_H, True, False),
+             (RNN_CHUNK, RNN_B, RNN_H, RNN_H, True, True),
+             (1, RNN_DECODE_B, RNN_V, RNN_H, True, False),
+             (1, RNN_DECODE_B, RNN_H, RNN_H, True, False),
+             (1, 1, RNN_V, RNN_H, True, False),
+             (RNN_CHUNK, RNN_B, RNN_V, RNN_H, False, True),
+             (7, 3, 5, 37, True, True)]
+    for T, B, F, H, peephole, masked in cases:
+        a = _lstm_args(dev, g, T, B, F, H, peephole, masked)
+        out = lstm_ops.lstm_fwd(**a)
+        ref = lstm_ops.lstm_fwd_plain(**a)
+        torch.cuda.synchronize()
+        ferr = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        if masked and not torch.equal(out[0][:, 0],
+                                      a["h0"][0].expand(T, H)):
+            fail(f"lstm_fwd {T, B, F, H}: a fully masked row moved")
+        ys, cs = ref[0], ref[1]
+        dys, dht, dct = (torch.randn(*s, generator=g).to(dev)
+                         for s in ((T, B, H), (B, H), (B, H)))
+        ba = dict(x_t=a["x_t"], hprev=torch.cat([a["h0"][None], ys[:-1]]),
+                  cprev=torch.cat([a["c0"][None], cs[:-1]]), wcat=a["wcat"],
+                  b=a["b"], peep=a["peep"], dys=dys, dht=dht, dct=dct,
+                  m_t=a["m_t"])
+        bout = lstm_ops.lstm_bwd(**ba)
+        bref = lstm_ops.lstm_bwd_plain(**ba)
+        again = lstm_ops.lstm_bwd(**ba)
+        torch.cuda.synchronize()
+        berrs = [float((o - r).abs().max()) for o, r in zip(bout, bref)]
+        btols = [bwd_atol + bwd_rtol * float(r.abs().max()) for r in bref]
+        shape = {"T": T, "B": B, "F": F, "H": H, "peephole": peephole,
+                 "masked": masked}
+        print(f"lstm {shape}: fwd max_abs_err={ferr:.3e} (tol {fwd_tol:.0e}); "
+              "bwd max_abs_err (dx, dW, db, dpeep, dh0, dc0) = "
+              f"{[f'{e:.2e}' for e in berrs]} against "
+              f"{[f'{t:.2e}' for t in btols]}", flush=True)
+        if not ferr <= fwd_tol:
+            fail(f"lstm_fwd {shape} disagrees with its plain version: {ferr}")
+        if not all(e <= t for e, t in zip(berrs, btols)):
+            fail(f"lstm_bwd {shape} disagrees with its plain version")
+        if not all(torch.equal(x, y) for x, y in zip(bout, again)):
+            fail(f"lstm_bwd {shape} differs from run to run")
+        if (F, H) == (5, 37) or not peephole:
+            continue
+        lib_f, lib_fb = _cudnn_lstm(dev, T, B, F, H)
+        iters = 20 if T > 1 else 100
+        fb, fo, bb, bo = lstm_work(T, B, F, H)
+        shape["plan"] = lstm_ops.lstm_plan(B, F, H)
+        report(rows, "lstm_fwd", shape, ferr, fwd_tol,
+               time_ms(lambda: lstm_ops.lstm_fwd(**a), iters=iters),
+               time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
+               time_ms(lib_f, iters=iters), fb, fo)
+        worst = max(range(6), key=lambda i: berrs[i] / btols[i])
+        report(rows, "lstm_bwd", shape, berrs[worst], btols[worst],
+               time_ms(lambda: lstm_ops.lstm_bwd(**ba), iters=iters),
+               time_ms(lambda: lstm_ops.lstm_bwd_plain(**ba), iters=5),
+               time_ms(lib_fb, iters=iters), bb, bo)
+
+
 def post(port: int, path: str, body: dict):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
@@ -512,7 +652,245 @@ def train(kernels) -> dict:
     return result
 
 
+class _LossLog:
+    """A listener that keeps the loss of every update (one per TBPTT
+    chunk); reading it synchronizes, so timed runs go without it."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def iteration_done(self, model, iteration):
+        self.out.append(float(model.score_value))
+
+
+def _one_hot(ids) -> np.ndarray:
+    return np.eye(RNN_V, dtype=np.float32)[np.asarray(ids)]
+
+
+def serve_lstm(kernels) -> dict:
+    """The recurrent serving paths through the HTTP server: 8 concurrent
+    /v1/generate sessions over the LSTM decode engine (dense, float32), then
+    one /v1/stream session of 64 steps in two requests and its reset; every
+    answer against the CPU ``rnn_time_step`` reference, and the launches of
+    each path."""
+    conf = char_rnn_lstm(RNN_V, hidden=RNN_H, layers=2, tbptt_length=RNN_CHUNK)
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+    srv = InferenceServer(device="cuda", decode_max_slots=RNN_DECODE_B)
+    srv.start()
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, RNN_V, size=int(rng.integers(8, 33))).tolist()
+               for _ in range(8)]
+    stream_ids = rng.integers(0, RNN_V, size=(1, 64))
+    try:
+        srv.register("char", net)
+        results = [None] * len(prompts)
+
+        def gen(j):
+            results[j] = post(srv.port, "/v1/generate",
+                              {"model": "char", "prompt": prompts[j],
+                               "max_new_tokens": 32})
+
+        def generate_all():
+            threads = [threading.Thread(target=gen, args=(j,))
+                       for j in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        generate_all()
+        gen_s = time.perf_counter() - t0
+        decode_launches = {fn.__name__: fn.launches for fn in kernels}
+        dec = srv.status()["decode"]["char@v1"]
+
+        for fn in kernels:
+            fn.launches = 0
+        outs = []
+        t0 = time.perf_counter()
+        for part in (stream_ids[:, :32], stream_ids[:, 32:]):
+            code, text = post(srv.port, "/v1/stream",
+                              {"model": "char", "session": "s1",
+                               "inputs": _one_hot(part).tolist()})
+            if code != 200:
+                fail(f"/v1/stream returned {code}: {text[:500]}")
+            lines = [json.loads(l) for l in text.splitlines() if l.strip()]
+            if not lines[-1].get("done") or len(lines) != 33:
+                fail(f"/v1/stream gave {len(lines)} lines, last {lines[-1]}")
+            outs += [np.asarray(l["output"], np.float32)[0]
+                     for l in lines[:-1]]
+        stream_s = time.perf_counter() - t0
+        stream_launches = {fn.__name__: fn.launches for fn in kernels}
+        streams_before = srv.status()["streams"]
+        code, text = post(srv.port, "/v1/stream/reset",
+                          {"model": "char", "session": "s1"})
+        streams_after = srv.status()["streams"]
+
+        # the same generate traffic again, profiled: device time by kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate_all()
+            prof_s = time.perf_counter() - t0
+        dec2 = srv.status()["decode"]["char@v1"]
+    finally:
+        srv.stop()
+
+    if code != 200 or json.loads(text) != {"reset": True} \
+            or streams_before != {"char@v1": ["s1"]} \
+            or streams_after != {"char@v1": []}:
+        fail(f"/v1/stream/reset: {code} {text}; streams {streams_before} -> "
+             f"{streams_after}")
+    worst_gap, exact = 0.0, 0
+    for prompt, (code, text) in zip(prompts, results):
+        if code != 200:
+            fail(f"/v1/generate (LSTM) returned {code}: {text[:500]}")
+        lines = [json.loads(l) for l in text.splitlines() if l.strip()]
+        toks = lines[-1].get("tokens")
+        if not lines[-1].get("done") or len(toks) != 32 or len(lines) != 33:
+            fail(f"/v1/generate (LSTM) gave {len(lines)} lines, last {lines[-1]}")
+        # greedy tokens against the CPU rnn_time_step over the same stream
+        ref.rnn_clear_previous_state()
+        probs = ref.rnn_time_step(_one_hot([prompt + toks])).numpy()[0]
+        for t, tok in enumerate(toks):
+            p = probs[len(prompt) - 1 + t]
+            worst_gap = max(worst_gap, float(p.max() - p[tok]))
+            exact += int(p.argmax() == tok)
+    ref.rnn_clear_previous_state()
+    want_out = ref.rnn_time_step(_one_hot(stream_ids)).numpy()[0]
+    stream_err = float(np.abs(np.stack(outs) - want_out).max())
+    steps = dec["steps"]
+    print(f"serve char_rnn: 8 x /v1/generate in {gen_s:.3f}s ({steps} decode "
+          f"steps, {dec['tokens']} tokens, capacity {dec['capacity']}); "
+          f"{exact}/{8 * 32} tokens equal to the CPU rnn_time_step argmax, "
+          f"worst argmax probability gap {worst_gap:.3e} (tol 1e-4); "
+          f"/v1/stream 64 steps in {stream_s:.3f}s, max_abs_err "
+          f"{stream_err:.3e} (tol 1e-5); launches decode {decode_launches}, "
+          f"stream {stream_launches}", flush=True)
+    if not worst_gap <= 1e-4:
+        fail(f"LSTM /v1/generate tokens are not the reference argmax: "
+             f"{worst_gap}")
+    if not stream_err <= 1e-5:
+        fail(f"/v1/stream disagrees with the CPU rnn_time_step: {stream_err}")
+    want_d = {fn.__name__: 0 for fn in kernels}
+    want_s = dict(want_d, lstm_fwd=2 * 64)
+    want_d["lstm_fwd"] = 2 * steps
+    if decode_launches != want_d or stream_launches != want_s:
+        fail(f"LSTM serving launch counts decode {decode_launches} != "
+             f"{want_d} or stream {stream_launches} != {want_s}")
+    by_kernel = device_time_by_kernel(prof)
+    busy_us = sum(by_kernel.values())
+    steps2 = dec2["steps"] - steps
+    result = {
+        "decode_launches": decode_launches, "stream_launches": stream_launches,
+        "generate_s": gen_s, "decode_steps": steps,
+        "decode_tokens": dec["tokens"], "decode_capacity": dec["capacity"],
+        "decode_ms_per_step": 1e3 * gen_s / steps,
+        "decode_tokens_per_s": dec["tokens"] / gen_s,
+        "generate_exact_argmax": exact, "generate_worst_argmax_gap": worst_gap,
+        "stream_s": stream_s, "stream_ms_per_step": 1e3 * stream_s / 64,
+        "stream_max_abs_err": stream_err,
+        "profiled_generate_s": prof_s, "profiled_decode_steps": steps2,
+        "device_us_by_kernel": by_kernel, "device_us_total": busy_us,
+        "device_us_per_step": busy_us / max(steps2, 1),
+        "idle_share_profiled": 1.0 - busy_us / 1e6 / prof_s}
+    print(f"decode char_rnn profiled: {steps2} steps in {prof_s:.3f}s, device "
+          f"{busy_us:.1f} us ({result['device_us_per_step']:.1f} us a step), "
+          f"idle share {result['idle_share_profiled']:.3f}; by kernel "
+          f"{ {k: round(v, 1) for k, v in by_kernel.items()} }", flush=True)
+    return result
+
+
+def train_lstm(kernels) -> dict:
+    """The recurrent training path: TBPTT ``fit`` of full-width char_rnn on
+    the card against the same chunks on the CPU, the launch counts of the 8
+    counted chunks, then chunk timing and one profiled batch."""
+    conf = char_rnn_lstm(RNN_V, hidden=RNN_H, layers=2, tbptt_length=RNN_CHUNK,
+                         learning_rate=RNN_LR)
+    rng = np.random.default_rng(SEED)
+    batches = [_one_hot(rng.integers(0, RNN_V, size=(RNN_B, RNN_T)))
+               for _ in range(RNN_BATCHES)]
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+    losses, ref_losses = [], []
+    net.set_listeners(_LossLog(losses))
+    ref.set_listeners(_LossLog(ref_losses))
+    n_chunks = RNN_BATCHES * (RNN_T // RNN_CHUNK)
+
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for x in batches:
+        net.fit(x, x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    t0 = time.perf_counter()
+    for x in batches:
+        ref.fit(x, x)
+    cpu_s = time.perf_counter() - t0
+    # float32 on both; sums in another order, through 8 RMSProp updates
+    tol = 1e-4
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"train char_rnn: card chunk losses {losses}; CPU {ref_losses}; "
+          f"worst relative difference {max(rel):.3e} (tol {tol:.0e}); "
+          f"{n_chunks} chunks on the card in {first_s:.3f}s (first included), "
+          f"on the CPU in {cpu_s:.3f}s; launches {launches}", flush=True)
+    if len(losses) != n_chunks or not all(np.isfinite(losses)) \
+            or not max(rel) <= tol:
+        fail(f"char_rnn chunk losses on the card {losses} disagree with the "
+             f"CPU run {ref_losses}")
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update(lstm_fwd=2 * n_chunks, lstm_bwd=2 * n_chunks,
+                softmax_cross_entropy=n_chunks)
+    if launches != want:
+        fail(f"char_rnn launch counts {launches} != expected {want}")
+
+    net.set_listeners()
+    x = batches[0]
+    net.fit(x, x)
+    torch.cuda.synchronize()
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        net.fit(x, x)
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t0) / (n * RNN_T // RNN_CHUNK)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, x)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = device_time_by_kernel(prof)
+    busy_us = sum(by_kernel.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the char_rnn batch")
+    per_batch = RNN_T // RNN_CHUNK
+    result = {
+        "losses": losses, "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
+        "launches": launches, "chunk_ms": chunk_ms,
+        "tokens_per_s": RNN_B * RNN_CHUNK / (chunk_ms / 1e3),
+        "profiled_batch_ms": prof_ms, "profiled_chunks": per_batch,
+        "device_us_by_kernel": by_kernel, "device_us_total": busy_us,
+        "idle_share_unprofiled": 1.0 - busy_us / 1e3 / (chunk_ms * per_batch),
+        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms}
+    print(f"train char_rnn chunk: {chunk_ms:.3f} ms wall, "
+          f"{result['tokens_per_s']:.0f} tokens/s (B={RNN_B}, T={RNN_CHUNK}); "
+          f"profiled batch of {per_batch} chunks {prof_ms:.3f} ms, device time "
+          f"{busy_us:.1f} us, idle share "
+          f"{result['idle_share_unprofiled']:.3f} unprofiled "
+          f"({result['idle_share_profiled']:.3f} profiled)", flush=True)
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        print(f"  char_rnn batch device time {name}: {us:.1f} us", flush=True)
+    return result
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     # full float32 matmuls and convolutions, as the reference computes
@@ -541,11 +919,15 @@ def main() -> None:
     check_flash(rows, dev)
     check_xent(rows, dev)
     check_flash_bwd(rows, dev)
+    check_lstm(rows, dev)
 
     kernels = (int8_matmul, paged_gather, flash_fwd, softmax_cross_entropy,
-               flash_bwd_dq, flash_bwd_dkv)
+               flash_bwd_dq, flash_bwd_dkv, lstm_ops.lstm_fwd,
+               lstm_ops.lstm_bwd)
     served = serve(kernels[:3])
-    trained = train(kernels)
+    trained = train(kernels[:6])
+    served_rnn = serve_lstm(kernels)
+    trained_rnn = train_lstm(kernels)
 
     # one entry per kernel, at the shape its main path gave it: decode at
     # capacity 8 (M = 8, the widest matmul), predict at B = 2, training at
@@ -557,6 +939,11 @@ def main() -> None:
                   "sm_xent": {"N": TRAIN_B * TRAIN_T, "C": TRAIN_V,
                               "dtype": "torch.float32"},
                   "flash_bwd_dq": train_shape, "flash_bwd_dkv": train_shape}
+    rnn_train = {"T": RNN_CHUNK, "B": RNN_B, "F": RNN_V, "H": RNN_H,
+                 "peephole": True, "masked": False}
+    rnn_paths = {"decode": dict(rnn_train, T=1, B=RNN_DECODE_B),
+                 "stream": dict(rnn_train, T=1, B=1), "train": rnn_train}
+    main_shape["lstm_fwd"] = main_shape["lstm_bwd"] = rnn_train
 
     def row_at(name, want):
         return next(r for r in rows if r["name"] == name and all(
@@ -577,14 +964,38 @@ def main() -> None:
                          "deeplearning4j_tpu/ops/pallas_kernels.py:519"),
         "flash_bwd_dkv": ("deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
                           "deeplearning4j_tpu/ops/pallas_kernels.py:543"),
+        "lstm_fwd": ("deeplearning4j_tpu_torch/csrc/lstm.cu",
+                     "deeplearning4j_tpu/ops/lstm.py:486"),
+        "lstm_bwd": ("deeplearning4j_tpu_torch/csrc/lstm.cu",
+                     "deeplearning4j_tpu/ops/lstm.py:539"),
     }
     line = []
     for fn in kernels:
         fname = fn.__name__
         name = "sm_xent" if fname == "softmax_cross_entropy" else fname
         row = row_at(name, main_shape[name])
+        if name.startswith("lstm"):
+            # the recurrent path: TBPTT training is the main path of both;
+            # the forward also runs in decode and streaming, at T = 1
+            by_path = {"decode": served_rnn["decode_launches"][fname],
+                       "stream": served_rnn["stream_launches"][fname],
+                       "train": trained_rnn["launches"][fname]}
+            entry = {"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1], "launches": by_path["train"],
+                     "launches_by_path": by_path,
+                     **{k: row[k] for k in numbers}}
+            if name == "lstm_fwd":
+                entry["by_path"] = {
+                    p: {"launches": by_path[p],
+                        **{k: row_at(name, shp)[k] for k in numbers}}
+                    for p, shp in rnn_paths.items()}
+            line.append(entry)
+            continue
         by_path = {"serve": served["launches"].get(fname, 0),
-                   "train": trained["launches"][fname]}
+                   "train": trained["launches"][fname],
+                   "rnn": trained_rnn["launches"][fname]
+                   + served_rnn["decode_launches"][fname]
+                   + served_rnn["stream_launches"][fname]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": by_path["train" if name in
@@ -603,8 +1014,9 @@ def main() -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "rows": rows,
-                   "serve": served, "train": trained, "kernels": line}, f,
-                  indent=1)
+                   "serve": served, "train": trained, "serve_rnn": served_rnn,
+                   "train_rnn": trained_rnn, "kernels": line,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

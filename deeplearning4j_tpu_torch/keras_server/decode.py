@@ -1,7 +1,7 @@
 """Continuous (iteration-level) batching for autoregressive decode.
 
 Counterpart of ``deeplearning4j_tpu/keras_server/decode.py`` for
-decoder-only transformer stacks. One persistent step runs every iteration
+decoder-only transformer stacks and LSTM stacks. One persistent step runs every iteration
 over a fixed-capacity slot tensor; sessions are admitted into free slots
 between steps and evicted the step their sequence ends, so the device batch
 stays full while sessions churn. Capacity grows in power-of-two buckets.
@@ -16,21 +16,28 @@ State layouts, one per transformer block:
   iteration's k/v through the table, gathers the logical view back with the
   ``paged_gather`` kernel, and runs the same masked attention, so paged and
   dense decode are bitwise equal. Sessions whose prompts share a prefix map
-  the same pages copy-on-write.
+  the same pages copy-on-write;
+- LSTM stacks: ``h``/``c`` blocks ``[cap, hidden]`` per streaming LSTM
+  layer. The step one-hots the slot tokens, zeroes the state of slots
+  admitted since the last step (``fresh``), runs ``apply_streaming`` at
+  T = 1 (the ``lstm_fwd`` kernel on the card) and writes the new state back.
+  A stack mixing LSTM and transformer layers, a bidirectional LSTM and
+  ``kv="paged"`` with an LSTM are refused, as in the JAX package.
 
 Prompt prefill feeds prompt tokens one per step through the same step
 (teacher forcing). ``mode="static"`` admits only when every slot has
 drained, the request-level baseline. Sampling is greedy argmax.
 ``quant="int8"`` pins int8 weights; every matmul of the step then runs the
 ``int8_matmul`` kernel (``ops/quant.py``) and the embedding gathers int8
-rows (``gather_rows``). Attention inside the step is plain PyTorch, as it is
-plain XLA in the JAX package.
+rows (``gather_rows``); an LSTM step dequantizes the tree instead, as the JAX
+step does, so no ``int8_matmul`` runs there. Attention inside the step is
+plain PyTorch, as it is plain XLA in the JAX package.
 
 The KV blocks are updated in place (the JAX package donates them to its
 compiled step instead). They are confined to the pump thread, which launches
 every kernel on its own current CUDA stream; ``next_tok.cpu()`` is each
-iteration's sync point. Speculative decoding and LSTM stacks are not ported
-yet (ROADMAP.md).
+iteration's sync point. Speculative decoding is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,11 +53,14 @@ import torch
 from ..common import get_policy, resolve_device
 from ..nn.conf.layers.attention import TransformerBlock, gelu, layer_norm
 from ..nn.conf.layers.feedforward import EmbeddingLayer
-from ..nn.conf.layers.recurrent import RnnOutputLayer
+from ..nn.conf.layers.recurrent import (
+    GravesBidirectionalLSTM, RnnOutputLayer, streaming_lstm,
+)
 from ..nn.inference import copy_params
 from ..ops.paged_attention import paged_gather
 from ..ops.quant import (
-    gather_rows, quantize_tree, quantized_matmul, tree_param_bytes,
+    dequantize_tree, gather_rows, quantize_tree, quantized_matmul,
+    tree_param_bytes,
 )
 from .admission import RejectedError
 from .paging import TRASH_PAGE, PagePool, alloc_dense_kv, alloc_page_pool
@@ -210,6 +220,28 @@ def _tf_forward(layers, params_list, tokens, positions, kv):
     return torch.argmax(x, dim=-1).to(torch.int32), x
 
 
+def _lstm_forward(layers, params_list, blocks, tokens, fresh, vocab: int):
+    """One token through the LSTM stack for every slot: the state of fresh
+    slots starts at zero; the new ``h``/``c`` are written into ``blocks`` in
+    place."""
+    x = torch.nn.functional.one_hot(tokens.long(), vocab).to(
+        torch.float32)[:, None, :]
+    for i, layer in enumerate(layers):
+        p = params_list[i]
+        if streaming_lstm(layer):
+            b = blocks[i]
+            stale = fresh[:, None]
+            st = {k: torch.where(stale, torch.zeros_like(b[k]), b[k])
+                  for k in ("h", "c")}
+            x, rs = layer.apply_streaming(p, st, x)
+            b["h"].copy_(rs["h"])
+            b["c"].copy_(rs["c"])
+        else:
+            x = layer.apply(p, x)
+    probs = x[:, -1, :]
+    return torch.argmax(probs, dim=-1).to(torch.int32), probs
+
+
 class DecodeEngine:
     """Persistent decode loop with slot-level admission and eviction.
 
@@ -245,11 +277,19 @@ class DecodeEngine:
             raise ValueError(
                 f"decode feeds outputs back as inputs: first-layer n_in "
                 f"{layers[0].n_in} must equal output vocab {self.vocab}")
-        if not any(isinstance(l, TransformerBlock) for l in layers):
-            raise ValueError("decode needs a TransformerBlock stack (LSTM "
-                             "stacks are not ported yet, ROADMAP.md)")
+        has_tf = any(isinstance(l, TransformerBlock) for l in layers)
+        has_lstm = any(streaming_lstm(l) for l in layers)
+        if has_tf and has_lstm:
+            raise ValueError("decode supports pure-LSTM or pure-transformer "
+                             "stacks, not a mix")
+        if not (has_tf or has_lstm):
+            raise ValueError("decode needs a stateful sequence model (LSTM "
+                             "stack or TransformerBlock stack)")
+        if any(isinstance(l, GravesBidirectionalLSTM) for l in layers):
+            raise ValueError("bidirectional LSTMs cannot stream (the backward "
+                             "pass needs the full sequence)")
         self.device = resolve_device(device)
-        self.kind = "transformer"
+        self.kind = "transformer" if has_tf else "lstm"
         self.mode = mode
         self.max_context = int(max_context)
         self.min_slots = int(min_slots)
@@ -262,6 +302,9 @@ class DecodeEngine:
         self._layers = layers
         self._pool: Optional[PagePool] = None
         if kv == "paged":
+            if self.kind != "transformer":
+                raise ValueError("kv='paged' needs a transformer stack (LSTM "
+                                 "state is h/c vectors, not a KV cache)")
             if self.page_size < 1 or self.max_context % self.page_size:
                 raise ValueError(f"max_context {self.max_context} must be a "
                                  f"multiple of page_size {self.page_size}")
@@ -286,6 +329,7 @@ class DecodeEngine:
         self._slots: List[Optional[DecodeSession]] = []
         self._tokens_h = np.zeros((0,), np.int32)
         self._pos_h = np.zeros((0,), np.int32)
+        self._fresh_h = np.zeros((0,), bool)
         self._table_h = np.zeros((0, 0), np.int32)
         self._fork_src_h = np.zeros((0,), np.int32)
         self._fork_dst_h = np.zeros((0,), np.int32)
@@ -309,7 +353,12 @@ class DecodeEngine:
     def _zero_blocks(self, cap: int):
         blocks = []
         for layer in self._layers:
-            if isinstance(layer, TransformerBlock):
+            if self.kind == "lstm" and streaming_lstm(layer):
+                blocks.append({k: torch.zeros(cap, layer.n_out,
+                                              dtype=torch.float32,
+                                              device=self.device)
+                               for k in ("h", "c")})
+            elif isinstance(layer, TransformerBlock):
                 hd = layer.n_out // layer.n_heads
                 if self.kv == "paged":
                     blocks.append(alloc_page_pool(
@@ -328,8 +377,8 @@ class DecodeEngine:
         the device; the paged pool is capacity-independent and stays."""
         old = self._cap
         self._slots += [None] * (cap - old)
-        for name_ in ("_tokens_h", "_pos_h", "_fork_src_h", "_fork_dst_h",
-                      "_park_h"):
+        for name_ in ("_tokens_h", "_pos_h", "_fresh_h", "_fork_src_h",
+                      "_fork_dst_h", "_park_h"):
             a = getattr(self, name_)
             grown = np.zeros((cap,), a.dtype)
             grown[:old] = a
@@ -415,6 +464,7 @@ class DecodeEngine:
             self._slots[i] = sess
             self._tokens_h[i] = sess.prompt[skip]
             self._pos_h[i] = skip
+            self._fresh_h[i] = True
             sess._prompt_idx = skip
             active += 1
         self._peak_active = max(self._peak_active, active)
@@ -508,7 +558,13 @@ class DecodeEngine:
                                 int(self._table_h[i, q // ps]))
 
     @torch.no_grad()
-    def _step(self, tokens, positions, paged_args):
+    def _step(self, tokens, fresh, positions, paged_args):
+        if self.kind == "lstm":
+            params = self._params
+            if self.quant == "int8":
+                params = dequantize_tree(params)
+            return _lstm_forward(self._layers, params, self._blocks, tokens,
+                                 fresh, self.vocab)
         if self._pool is not None:
             table, fork_src, fork_dst = paged_args
             _fork_pages(self._blocks, fork_src, fork_dst)
@@ -537,6 +593,7 @@ class DecodeEngine:
                 return True  # planning preempted the whole batch
             parked = self._park_h.copy() if self._pool is not None else None
             tokens = torch.from_numpy(self._tokens_h.copy()).to(dev)
+            fresh = torch.from_numpy(self._fresh_h.copy()).to(dev)
             pos_np = self._pos_h.copy()
             if parked is not None:
                 # parked slots write the trash page and advance nothing
@@ -548,7 +605,7 @@ class DecodeEngine:
                                    (self._table_h, self._fork_src_h,
                                     self._fork_dst_h))
         try:
-            next_tok, probs = self._step(tokens, positions, paged_args)
+            next_tok, probs = self._step(tokens, fresh, positions, paged_args)
             # the iteration's sync point: the emitted token drives admission
             # and eviction and is the next input
             next_h = next_tok.cpu().numpy()
@@ -568,6 +625,7 @@ class DecodeEngine:
                 if parked is not None and parked[i]:
                     continue  # wrote trash; retry when pages free up
                 p0 = int(self._pos_h[i])
+                self._fresh_h[i] = False
                 self._pos_h[i] += 1
                 if self._pool is not None:
                     self._register_prefix_locked(i, sess, p0, p0 + 1)
@@ -592,7 +650,8 @@ class DecodeEngine:
                         self._evict_locked(i, "max_tokens")
                         continue
                     self._tokens_h[i] = tok
-                if self._pos_h[i] >= self.max_context:
+                if self.kind == "transformer" \
+                        and self._pos_h[i] >= self.max_context:
                     self._evict_locked(i, "context")
         return True
 

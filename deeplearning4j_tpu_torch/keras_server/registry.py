@@ -26,10 +26,13 @@ class ModelVersion:
         self.predict_fn = predict_fn
         #: serving dtype policy of this version (None, or "int8")
         self.quant = predict_fn.quant
+        #: whether /v1/stream can serve it (the rnn_time_step seam)
+        self.streaming_capable = hasattr(net, "rnn_time_step")
 
     def describe(self) -> dict:
         return {"name": self.name, "version": self.version,
                 "quant": self.quant,
+                "streaming_capable": self.streaming_capable,
                 "device": str(self.predict_fn.device),
                 "param_bytes": self.predict_fn.param_bytes,
                 "predict_calls": self.predict_fn.calls}

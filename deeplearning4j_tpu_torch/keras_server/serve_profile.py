@@ -42,7 +42,10 @@ V = 256
 #: kernel-name substrings -> the port's kernels; everything else is PyTorch's
 OURS = {"int8_matmul_kernel": "int8_matmul", "paged_gather_kernel": "paged_gather",
         "flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel": "flash_bwd_dq",
-        "flash_bwd_dkv_kernel": "flash_bwd_dkv", "sm_xent_kernel": "sm_xent"}
+        "flash_bwd_dkv_kernel": "flash_bwd_dkv", "sm_xent_kernel": "sm_xent",
+        "lstm_fwd_kernel": "lstm_fwd", "lstm_bwd_kernel": "lstm_bwd",
+        # lstm_bwd's reductions (dW, dx, db, dpeep) after its recurrence
+        "lstm_gemm_kernel": "lstm_bwd", "lstm_colsum_kernel": "lstm_bwd"}
 
 
 def device_time_by_kernel(prof) -> dict:

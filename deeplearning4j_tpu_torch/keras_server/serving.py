@@ -12,10 +12,18 @@ connection. Routes:
   "max_new_tokens": n}``: generation over the continuous-batching
   :class:`DecodeEngine`, streamed as newline-delimited JSON, one line per
   token, then a ``{"done": true, ...}`` line.
-- ``GET /serve/status``: models, versions, queue and decode-engine stats.
+- ``POST /v1/stream`` body ``{"model": m, "session": s, "inputs":
+  [B,T,F]}``: newline-delimited JSON, one line per timestep as it is
+  computed over the ``rnn_time_step`` seam (:class:`StreamSessions`), then
+  a ``{"done": true, ...}`` line; the hidden state persists server-side
+  under ``session`` across requests.
+- ``POST /v1/stream/reset`` body ``{"model": m, "session": s}``: drop a
+  session's parked state.
+- ``GET /serve/status``: models, versions, queue, decode-engine stats and
+  the streaming sessions.
 
-Replicas, the autoscaler, ``/v1/stream``, traces, SLOs, ``/metrics`` and
-the fleet routes are not ported yet (ROADMAP.md).
+Replicas, the autoscaler, traces, SLOs, ``/metrics`` and the fleet routes
+are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from .admission import RejectedError, normalize_priority
 from .batcher import MicroBatcher
 from .decode import DecodeEngine
 from .registry import ModelRegistry
+from .streaming import StreamSessions
 
 #: request tag for priority-aware shedding under saturation
 PRIORITY_HEADER = "X-DL4J-Priority"
@@ -83,6 +92,13 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 self._predict()
             elif path == "/v1/generate":
                 self._generate()
+            elif path == "/v1/stream":
+                self._stream()
+            elif path == "/v1/stream/reset":
+                req = self._body()
+                existed = self.engine.sessions.reset(
+                    str(req.get("model", "")), str(req.get("session", "")))
+                self._json({"reset": existed})
             else:
                 self._json({"error": f"unknown route {path}"}, code=404)
         except RejectedError as e:
@@ -97,12 +113,27 @@ class _ServeHandler(BaseHTTPRequestHandler):
         except TimeoutError as e:
             self._json({"error": f"dispatch timed out: {e}"}, code=503)
 
+    @staticmethod
+    def _inputs(req: dict) -> np.ndarray:
+        if "inputs" not in req:
+            raise ValueError('request body needs an "inputs" field')
+        return np.asarray(req["inputs"], dtype=np.float32)
+
+    def _chunked_start(self) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+    def _chunk(self, obj: dict) -> None:
+        line = (json.dumps(obj) + "\n").encode()
+        self.wfile.write(f"{len(line):x}\r\n".encode() + line + b"\r\n")
+        self.wfile.flush()
+
     def _predict(self) -> None:
         req = self._body()
         model = str(req.get("model", ""))
-        if "inputs" not in req:
-            raise ValueError('request body needs an "inputs" field')
-        x = np.asarray(req["inputs"], dtype=np.float32)
+        x = self._inputs(req)
         if x.ndim == 1:
             x = x[None, :]
         self.engine.registry.active(model)  # 404 before queueing
@@ -133,16 +164,8 @@ class _ServeHandler(BaseHTTPRequestHandler):
         tokens_q: "queue.Queue" = queue.Queue()
         sess = eng.submit(prompt, max_new,
                           stream=lambda sid, tok, t: tokens_q.put(tok))
-        self.send_response(200)
-        self.send_header("Content-Type", "application/x-ndjson")
-        self.send_header("Transfer-Encoding", "chunked")
-        self.end_headers()
-
-        def chunk(obj: dict) -> None:
-            line = (json.dumps(obj) + "\n").encode()
-            self.wfile.write(f"{len(line):x}\r\n".encode() + line + b"\r\n")
-            self.wfile.flush()
-
+        self._chunked_start()
+        chunk = self._chunk
         i = 0
         deadline = time.monotonic() + self.engine.request_timeout_s
         while True:
@@ -161,11 +184,31 @@ class _ServeHandler(BaseHTTPRequestHandler):
                "reason": sess.evict_reason, "ttft_s": sess.ttft_s})
         self.wfile.write(b"0\r\n\r\n")
 
+    def _stream(self) -> None:
+        req = self._body()
+        model = str(req.get("model", ""))
+        session = str(req.get("session") or f"conn-{id(self.connection)}")
+        x = self._inputs(req)
+        if x.ndim == 2:
+            x = x[:, None, :]
+        if x.ndim != 3:
+            raise ValueError(
+                f"stream inputs must be [B,T,F] or [B,F], got {x.shape}")
+        self.engine.registry.active(model)  # 404 before the stream starts
+        self._chunked_start()
+        for t in range(x.shape[1]):
+            step = self.engine.sessions.step(model, session, x[:, t:t + 1, :])
+            self._chunk({"t": t, "output": step["output"][:, -1, :].tolist(),
+                         "version": step["version"]})
+        self._chunk({"done": True, "session": session,
+                     "timesteps": int(x.shape[1])})
+        self.wfile.write(b"0\r\n\r\n")
+
 
 class InferenceServer:
-    """The serving engine: registry + micro-batcher + decode engines + HTTP
-    front-end, all on ``device`` (``None`` means CUDA; raises without one
-    unless ``device="cpu"``)."""
+    """The serving engine: registry + micro-batcher + decode engines +
+    streaming sessions + HTTP front-end, all on ``device`` (``None`` means
+    CUDA; raises without one unless ``device="cpu"``)."""
 
     def __init__(self, registry: Optional[ModelRegistry] = None, *,
                  device=None, host: str = "127.0.0.1", port: int = 0,
@@ -175,13 +218,16 @@ class InferenceServer:
                  decode_max_context: int = 256,
                  decode_eos_id: Optional[int] = None,
                  decode_kv: str = "dense", decode_page_size: int = 16,
-                 decode_pool_pages: Optional[int] = None):
+                 decode_pool_pages: Optional[int] = None,
+                 stream_ttl_s: float = 300.0):
         self.device = resolve_device(device)
         self.registry = registry or ModelRegistry()
         self.batcher = MicroBatcher(self.registry, max_batch=max_batch,
                                     max_latency_s=max_latency_s,
                                     max_queue=max_queue)
         self.request_timeout_s = float(request_timeout_s)
+        self.sessions = StreamSessions(self.registry, ttl_s=stream_ttl_s,
+                                       device=self.device)
         self._decode_opts = dict(
             min_slots=decode_min_slots, max_slots=decode_max_slots,
             max_context=decode_max_context, eos_id=decode_eos_id,
@@ -244,4 +290,5 @@ class InferenceServer:
             decode = {f"{name}@{version}": eng.stats()
                       for (name, version), eng in sorted(self._decoders.items())}
         return {**self.registry.status(), "device": str(self.device),
-                "queue": self.batcher.stats(), "decode": decode}
+                "queue": self.batcher.stats(), "decode": decode,
+                "streams": self.sessions.status()}

@@ -2,6 +2,8 @@
 registered under the JAX ``"@type"`` names."""
 from .attention import TransformerBlock, attend
 from .feedforward import EmbeddingLayer
-from .recurrent import RnnOutputLayer
+from .recurrent import (
+    LSTM, GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer, streaming_lstm)
 
-__all__ = ["EmbeddingLayer", "RnnOutputLayer", "TransformerBlock", "attend"]
+__all__ = ["EmbeddingLayer", "GravesBidirectionalLSTM", "GravesLSTM", "LSTM",
+           "RnnOutputLayer", "TransformerBlock", "attend", "streaming_lstm"]

@@ -2,7 +2,7 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/serde.py``. Layer classes
 register under the JAX package's registry names (``"Embedding"``,
-``"TransformerBlock"``, ``"RnnOutput"``), so a JAX ``conf.to_json()`` reads
+``"TransformerBlock"``, ``"GravesLSTM"``, ``"RnnOutput"``), so a JAX ``conf.to_json()`` reads
 here unchanged. A name that is not registered raises.
 """
 from __future__ import annotations
@@ -11,8 +11,13 @@ from typing import Dict
 
 LAYER_TYPES: Dict[str, type] = {}
 
-#: JAX layer types whose port is queued in ROADMAP.md (the recurrent slice)
-NOT_YET_PORTED = ("LSTM", "GravesLSTM", "GravesBidirectionalLSTM")
+#: layer types the JAX package registers that this port does not have yet
+#: (queued in ROADMAP.md)
+NOT_YET_PORTED = (
+    "Dense", "Output", "Loss", "Activation", "Dropout", "AutoEncoder", "RBM",
+    "VariationalAutoencoder", "SelfAttention", "MoE", "MoETransformerBlock",
+    "BatchNormalization", "LocalResponseNormalization", "Convolution",
+    "Subsampling", "Upsampling2D", "ZeroPadding", "GlobalPooling")
 
 
 def register_layer(name: str):
@@ -28,7 +33,7 @@ def layer_class(name: str) -> type:
     from . import layers  # noqa: F401  (registers the layer modules)
     if name in NOT_YET_PORTED:
         raise NotImplementedError(f"layer @type {name!r} is not ported yet "
-                                  "(recurrent slice, ROADMAP.md)")
+                                  "(ROADMAP.md)")
     try:
         return LAYER_TYPES[name]
     except KeyError:

@@ -3,9 +3,12 @@
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``,
 ``output``, ``_output_pure``, ``params_list``, ``state_list``, the pure
 training functions (``_regularization``, ``_aux_losses``, ``loss_fn``,
-``make_train_step``) and the stateful shell over them (``fit`` on arrays, a
-``DataSet`` or an iterable of ``DataSet``\\ s, ``_fit_batch`` with
-``iterations > 1``, ``fit_iterator``, ``score``, ``score_value``, listeners).
+``make_train_step``, ``make_tbptt_step``) and the stateful shell over them
+(``fit`` on arrays, a ``DataSet`` or an iterable of ``DataSet``\\ s,
+``_fit_batch`` with ``iterations > 1``, truncated BPTT (``_fit_tbptt``) for
+stacks with an LSTM, ``fit_iterator``, ``score``, ``score_value``,
+listeners), and the recurrent API (``rnn_time_step``, the previous-state
+accessors, ``clone``).
 
 The JAX package fuses the whole step into one compiled program; here the
 step is eager: ``torch.autograd.grad`` gives the gradients, and the updater
@@ -22,6 +25,7 @@ new value.
 """
 from __future__ import annotations
 
+import copy
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -31,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common import resolve_device
 from .conf.multilayer import MultiLayerConfiguration
+from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
 from .updaters import (
     UpdaterSpec, effective_lr, grads_to_param_dtype, normalize_gradients,
@@ -133,6 +138,53 @@ def loss_fn(net, params_list, x, y, rng: Optional[int] = None, fmask=None,
     return loss + _regularization(net, params_list), new_states
 
 
+def _apply_updates(net, params_list, upd_state, loss_val, iteration,
+                   bias_rate: bool = True) -> list:
+    """Gradients of ``loss_val`` by ``torch.autograd.grad``, then per layer
+    the gradient normalization, the learning-rate policy and the updater,
+    run under ``no_grad``; each step is subtracted from its parameter in
+    place. With ``bias_rate`` the bias params train at the layer's
+    ``bias_learning_rate``; without it every param trains at the layer's
+    rate. Returns the new updater state."""
+    g = net.conf.global_conf
+    keys = [(i, name) for i, p in enumerate(params_list) for name in p]
+    flat = [params_list[i][name] for i, name in keys]
+    got = torch.autograd.grad(loss_val, flat, allow_unused=True)
+    grads = [{} for _ in params_list]
+    for (i, name), p, gr in zip(keys, flat, got):
+        grads[i][name] = torch.zeros_like(p) if gr is None else gr
+    grads = grads_to_param_dtype(grads, params_list)
+    new_upd = []
+    with torch.no_grad():
+        for i, layer in enumerate(net.layers):
+            g_i = grads[i]
+            if not g_i:
+                new_upd.append(upd_state[i])
+                continue
+            g_i = normalize_gradients(
+                g_i, layer.gradient_normalization,
+                layer.gradient_normalization_threshold or 1.0)
+            spec = _updater_spec(layer)
+            lr = effective_lr(layer.learning_rate, g.lr_policy, iteration,
+                              g.lr_policy_decay_rate, g.lr_policy_power,
+                              g.lr_policy_steps, g.lr_schedule,
+                              g.max_num_iterations)
+            lr_bias = lr
+            if bias_rate and layer.bias_learning_rate is not None:
+                lr_bias = torch.tensor(layer.bias_learning_rate,
+                                       dtype=torch.float32)
+            u_new = {}
+            for name, grad in g_i.items():
+                this_lr = lr_bias if name in _BIAS_NAMES else lr
+                step, ustate = updater_step_with_param(
+                    spec, grad, params_list[i][name], upd_state[i][name],
+                    this_lr, iteration)
+                params_list[i][name].sub_(step)
+                u_new[name] = ustate
+            new_upd.append(u_new)
+    return new_upd
+
+
 def make_train_step(net):
     """The train step as a plain function:
     ``(params_list, upd_state, x, y, rng, iteration, fmask, lmask) ->
@@ -142,48 +194,82 @@ def make_train_step(net):
     normalization, the learning-rate policy, the separate bias learning rate
     and the updater then run under ``no_grad`` and subtract each step from
     its parameter in place."""
-    g = net.conf.global_conf
 
     def train_step(params_list, upd_state, x, y, rng, iteration, fmask=None,
                    lmask=None):
         loss_val, _ = loss_fn(net, params_list, x, y, rng, fmask, lmask)
-        keys = [(i, name) for i, p in enumerate(params_list) for name in p]
-        flat = [params_list[i][name] for i, name in keys]
-        got = torch.autograd.grad(loss_val, flat, allow_unused=True)
-        grads = [{} for _ in params_list]
-        for (i, name), p, gr in zip(keys, flat, got):
-            grads[i][name] = torch.zeros_like(p) if gr is None else gr
-        grads = grads_to_param_dtype(grads, params_list)
-        new_upd = []
-        with torch.no_grad():
-            for i, layer in enumerate(net.layers):
-                g_i = grads[i]
-                if not g_i:
-                    new_upd.append(upd_state[i])
-                    continue
-                g_i = normalize_gradients(
-                    g_i, layer.gradient_normalization,
-                    layer.gradient_normalization_threshold or 1.0)
-                spec = _updater_spec(layer)
-                lr = effective_lr(layer.learning_rate, g.lr_policy, iteration,
-                                  g.lr_policy_decay_rate, g.lr_policy_power,
-                                  g.lr_policy_steps, g.lr_schedule,
-                                  g.max_num_iterations)
-                lr_bias = (torch.tensor(layer.bias_learning_rate,
-                                        dtype=torch.float32)
-                           if layer.bias_learning_rate is not None else lr)
-                u_new = {}
-                for name, grad in g_i.items():
-                    this_lr = lr_bias if name in _BIAS_NAMES else lr
-                    step, ustate = updater_step_with_param(
-                        spec, grad, params_list[i][name], upd_state[i][name],
-                        this_lr, iteration)
-                    params_list[i][name].sub_(step)
-                    u_new[name] = ustate
-                new_upd.append(u_new)
+        new_upd = _apply_updates(net, params_list, upd_state, loss_val,
+                                 iteration)
         return new_upd, loss_val.detach()
 
     return train_step
+
+
+def _init_rnn_states(net, batch: int) -> List[dict]:
+    """Zero ``{"h", "c"}`` per LSTM layer (``{}`` for the others)."""
+    states = []
+    for layer in net.layers:
+        if isinstance(layer, LSTM):
+            z = torch.zeros(batch, layer.n_out, dtype=torch.float32,
+                            device=net.device)
+            states.append({"h": z, "c": z.clone()})
+        else:
+            states.append({})
+    return states
+
+
+def _rnn_forward(net, params_list, rnn_states, x):
+    """Forward pass threading the streaming LSTM state: ``(out,
+    new_states)``. Layers that do not stream run their full-sequence
+    forward."""
+    h = x
+    new_rnn = []
+    for layer, params, rs in zip(net.layers, params_list, rnn_states):
+        if streaming_lstm(layer):
+            h, rs = layer.apply_streaming(params, rs, h)
+        else:
+            h = layer.apply(params, h)
+        new_rnn.append(rs)
+    return h, new_rnn
+
+
+def make_tbptt_step(net):
+    """The truncated-BPTT step over one chunk as a plain function:
+    ``(params_list, upd_state, rnn_states, x, y, rng, iteration, fmask,
+    lmask) -> (upd_state', rnn_states', loss)``.
+
+    Streaming LSTM layers run ``apply_streaming`` from the carried state with
+    ``mask=fmask`` and hand on their final state detached (the truncation);
+    the other layers run their training forward. As in the JAX package's
+    TBPTT step, every param, biases included, trains at the layer's
+    learning rate: ``bias_learning_rate`` is not read here."""
+
+    def tbptt_step(params_list, upd_state, rnn_states, x, y, rng, iteration,
+                   fmask=None, lmask=None):
+        layers = net.layers
+        seeds = _layer_seeds(len(layers), rng)
+        h = x
+        new_rnn = []
+        for i, layer in enumerate(layers[:-1]):
+            if streaming_lstm(layer):
+                h, rs = layer.apply_streaming(params_list[i], rnn_states[i], h,
+                                              mask=fmask)
+                new_rnn.append({k: v.detach() for k, v in rs.items()})
+            else:
+                h = layer.apply(params_list[i], h, fmask, True,
+                                _dropout_gen(layer, seeds[i], x.device))
+                new_rnn.append(rnn_states[i])
+        last = layers[-1]
+        h = last.apply_dropout(h, _dropout_gen(last, seeds[-1], x.device), True)
+        loss = last.compute_loss(params_list[-1], h, y, lmask)
+        new_rnn.append(rnn_states[-1])
+        loss = loss + _aux_losses(layers, net.state_list)
+        loss = loss + _regularization(net, params_list)
+        new_upd = _apply_updates(net, params_list, upd_state, loss, iteration,
+                                 bias_rate=False)
+        return new_upd, new_rnn, loss.detach()
+
+    return tbptt_step
 
 
 class MultiLayerNetwork(nn.Module):
@@ -207,6 +293,9 @@ class MultiLayerNetwork(nn.Module):
         self._score = float("nan")
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
+        self._tbptt_step = None
+        #: streaming state of ``rnn_time_step`` (None until it runs)
+        self._rnn_state: Optional[List[dict]] = None
 
     # ------------------------------------------------------------------ lifecycle
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
@@ -374,10 +463,6 @@ class MultiLayerNetwork(nn.Module):
                 f"optimization_algo={g.optimization_algo!r}: the Solver "
                 "algorithms (LBFGS, conjugate gradient, line-search GD) are "
                 "not ported yet (ROADMAP.md); use stochastic_gradient_descent")
-        if self.conf.backprop_type == "TruncatedBPTT":
-            raise NotImplementedError(
-                "backprop_type='TruncatedBPTT' waits for the recurrent slice "
-                "(ROADMAP.md)")
         if self.conf.pretrain:
             raise NotImplementedError(
                 "pretrain=True: layerwise pretraining is not ported yet "
@@ -418,9 +503,19 @@ class MultiLayerNetwork(nn.Module):
                     listener.on_epoch_end(self)
             self.epoch += 1
 
+    def _uses_tbptt(self) -> bool:
+        """Truncated BPTT applies to stacks with an LSTM layer only; any other
+        stack flagged ``TruncatedBPTT`` trains with the standard step, as in
+        the JAX package."""
+        return (self.conf.backprop_type == "TruncatedBPTT"
+                and any(isinstance(l, LSTM) for l in self.layers))
+
     def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
         self._require_init()
         self._check_trainable()
+        if self._uses_tbptt():
+            self._fit_tbptt(x, y, fmask, lmask)
+            return
         x, y = self._to_device(x), self._to_device(y)
         fmask, lmask = self._to_device(fmask), self._to_device(lmask)
         self.last_batch_size = int(x.shape[0]) if x.ndim else 0
@@ -434,3 +529,78 @@ class MultiLayerNetwork(nn.Module):
             self.iteration += 1
             for listener in self.listeners:
                 listener.iteration_done(self, self.iteration)
+
+    def _fit_tbptt(self, x, y, fmask=None, lmask=None) -> None:
+        """Truncated BPTT: the time axis (1) cut into ``tbptt_fwd_length``
+        chunks, one update per chunk; the LSTM state carries across chunks
+        without gradient and starts from zero for every batch."""
+        x, y = self._to_device(x), self._to_device(y)
+        fmask, lmask = self._to_device(fmask), self._to_device(lmask)
+        self.last_batch_size = int(x.shape[0]) if x.ndim else 0
+        T = x.shape[1]
+        L = self.conf.tbptt_fwd_length
+        if self._tbptt_step is None:
+            self._tbptt_step = make_tbptt_step(self)
+        rnn_state = _init_rnn_states(self, x.shape[0])
+        for c in range(max(1, -(-T // L))):
+            sl = slice(c * L, min((c + 1) * L, T))
+            fm = fmask[:, sl] if fmask is not None else None
+            lm = lmask[:, sl] if lmask is not None else None
+            self.updater_state, rnn_state, loss = self._tbptt_step(
+                self.params_list, self.updater_state, rnn_state, x[:, sl],
+                y[:, sl], self._next_rng(), self.iteration, fm, lm)
+            self.score_value = loss  # a device scalar, read lazily
+            self.iteration += 1
+            for listener in self.listeners:
+                listener.iteration_done(self, self.iteration)
+
+    # ------------------------------------------------------------------ rnn API
+    @torch.no_grad()
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Streaming inference carrying the LSTM state across calls:
+        ``x [B, T, F]`` (T may be 1) -> the outputs of those steps."""
+        self._require_init()
+        x = self._to_device(x)
+        if self._rnn_state is None:
+            self._rnn_state = _init_rnn_states(self, x.shape[0])
+        out, self._rnn_state = _rnn_forward(self, self.params_list,
+                                            self._rnn_state, x)
+        return out
+
+    def rnn_get_previous_state(self) -> Optional[List[dict]]:
+        """Per-layer streaming state (``{"h", "c"}`` for LSTM layers); None
+        until ``rnn_time_step`` has run."""
+        return self._rnn_state
+
+    def rnn_set_previous_state(self, state) -> None:
+        """Install a state taken by ``rnn_get_previous_state`` (moved to this
+        network's device)."""
+        self._rnn_state = (None if state is None else
+                           [{k: self._to_device(v) for k, v in s.items()}
+                            for s in state])
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = None
+
+    def clone(self, device=None) -> "MultiLayerNetwork":
+        """A network on ``device`` (default: this network's) with copies
+        (never aliases) of the params, the updater state, the counters, the
+        RNG state and the streaming state."""
+        dev = self.device if device is None else device
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=dev)
+        with torch.no_grad():
+            for own, theirs in zip(self.params_list, net.params_list):
+                for k, v in own.items():
+                    theirs[k].copy_(v)
+        net._initialized = self._initialized
+        if self.updater_state is not None:
+            net.updater_state = [
+                {n: {k: v.to(net.device, copy=True) for k, v in slots.items()}
+                 for n, slots in layer.items()} for layer in self.updater_state]
+        net.iteration = self.iteration
+        net.epoch = self.epoch
+        net._rng.set_state(self._rng.get_state())
+        if self._rnn_state is not None:
+            net._rnn_state = [{k: v.to(net.device, copy=True)
+                               for k, v in s.items()} for s in self._rnn_state]
+        return net

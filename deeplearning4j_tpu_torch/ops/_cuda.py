@@ -8,6 +8,12 @@ seconds. Libraries go to ``_build/`` inside the package (listed in
 source is rebuilt and an unchanged one is reused. :func:`build` starts one
 ``nvcc`` per source, all at once.
 
+``csrc/lstm.cu`` synchronizes its grid with cooperative groups'
+``grid.sync()``. With CUDA 12 that needs a cooperative launch
+(``cudaLaunchCooperativeKernel``) and no extra compiler flag (no ``-rdc``;
+checked with nvcc 12.8 on the H100), so every source builds with the same
+flags.
+
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after the launch; wrappers
 pass the result to :func:`check`, which raises on anything but 0.

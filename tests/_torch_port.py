@@ -83,6 +83,16 @@ def _np_tree(tree):
     return np.array(tree)
 
 
+class LossRecorder:
+    """A listener (for either package) that appends each update's loss."""
+
+    def __init__(self, losses):
+        self.losses = losses
+
+    def iteration_done(self, model, iteration):
+        self.losses.append(float(model.score_value))
+
+
 def jax_train(conf_json, batches, cache_dir):
     """Train a JAX ``MultiLayerNetwork`` built from ``conf_json`` (initialized
     from its seed) with one ``fit`` call per ``(x, y, fmask, lmask)`` batch,
@@ -95,7 +105,9 @@ def jax_train(conf_json, batches, cache_dir):
     with compile_cache_at(cache_dir):
         net = MultiLayerNetwork(
             MultiLayerConfiguration.from_json(conf_json)).init()
-        out = {"params0": _np_tree(net.params_list), "losses": []}
+        out = {"params0": _np_tree(net.params_list), "losses": [],
+               "iter_losses": []}
+        net.set_listeners(LossRecorder(out["iter_losses"]))
         for n, (x, y, fmask, lmask) in enumerate(batches):
             net.fit(x, y, fmask=fmask, lmask=lmask)
             out["losses"].append(float(net.score_value))

@@ -149,3 +149,107 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
         torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
     # bitwise the same from run to run: no atomics
     assert torch.equal(tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal, km), dq)
+
+
+#: float32 cell forward: dot products over F + H terms in another order
+LSTM_FWD_TOL = 2e-5
+#: float32 backward: dW sums T * B = 1,600 rows in another order than the
+#: plain version's matmul, so each output is held to 1e-4 of its own largest
+#: entry (plus 1e-5)
+LSTM_BWD_ATOL = 1e-5
+LSTM_BWD_RTOL = 1e-4
+
+
+def _close_to_scale(got, ref):
+    err = float((got - ref).abs().max())
+    assert err <= LSTM_BWD_ATOL + LSTM_BWD_RTOL * float(ref.abs().max()), err
+
+
+def _lstm_inputs(dev, T, B, F, H, peephole, masked, seed=0):
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    m = torch.ones(T, B)
+    if masked:
+        m = (torch.rand(T, B, generator=g) > 0.3).float()
+        m[:, 0] = 0.0  # a batch row masked at every step
+    return tl, dict(x_t=r(T, B, F), wcat=r(F + H, 4 * H, scale=0.2),
+                    b=r(1, 4 * H, scale=0.1),
+                    peep=r(3, H, scale=0.3) if peephole else None,
+                    h0=r(B, H, scale=0.5), c0=r(B, H, scale=0.5),
+                    m_t=m.to(dev))
+
+
+LSTM_CASES = [(50, 32, 64, 200, True, False), (50, 32, 200, 200, True, True),
+              (1, 8, 64, 200, True, False), (7, 3, 5, 37, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,F,H,peephole,masked", LSTM_CASES)
+def test_lstm_fwd_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
+                                               peephole, masked):
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, peephole, masked)
+    before = tl.lstm_fwd.launches
+    out = tl.lstm_fwd(**a)
+    torch.cuda.synchronize()
+    assert tl.lstm_fwd.launches == before + 1
+    for got, ref in zip(out, tl.lstm_fwd_plain(**a)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=LSTM_FWD_TOL)
+    if masked:  # the fully masked row keeps its initial state everywhere
+        assert torch.equal(out[0][:, 0], a["h0"][0].expand(T, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,F,H,peephole,masked", LSTM_CASES)
+def test_lstm_bwd_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
+                                               peephole, masked):
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, peephole, masked, seed=1)
+    ys, cs, _, _ = tl.lstm_fwd_plain(**a)
+    g = torch.Generator().manual_seed(2)
+    dys, dht, dct = (torch.randn(*s, generator=g).to(cuda_device)
+                     for s in ((T, B, H), (B, H), (B, H)))
+    args = dict(x_t=a["x_t"], hprev=torch.cat([a["h0"][None], ys[:-1]]),
+                cprev=torch.cat([a["c0"][None], cs[:-1]]), wcat=a["wcat"],
+                b=a["b"], peep=a["peep"], dys=dys, dht=dht, dct=dct,
+                m_t=a["m_t"])
+    before = tl.lstm_bwd.launches
+    out = tl.lstm_bwd(**args)
+    torch.cuda.synchronize()
+    assert tl.lstm_bwd.launches == before + 1
+    for got, ref in zip(out, tl.lstm_bwd_plain(**args)):
+        _close_to_scale(got, ref)
+    # the same from run to run: fixed-order sums, no atomics
+    assert all(torch.equal(x, y) for x, y in zip(tl.lstm_bwd(**args), out))
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_gradients_on_card_match_cpu(cuda_device):
+    from deeplearning4j_tpu_torch.ops import activations as ta
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    g = torch.Generator().manual_seed(3)
+    B, T, F, H = 4, 9, 6, 10
+    cpu = {"W": torch.randn(F, 4 * H, generator=g) * 0.3,
+           "RW": torch.randn(H, 4 * H, generator=g) * 0.3,
+           "b": torch.randn(4 * H, generator=g) * 0.1,
+           "pI": torch.randn(H, generator=g) * 0.2,
+           "pF": torch.randn(H, generator=g) * 0.2,
+           "pO": torch.randn(H, generator=g) * 0.2}
+    x = torch.randn(B, T, F, generator=g)
+    mask = (torch.rand(B, T, generator=g) > 0.2).float()
+    grads = []
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in cpu.items()}
+        z = torch.zeros(B, H, device=dev)
+        n = (tl.lstm_fwd.launches, tl.lstm_bwd.launches)
+        ys, _ = tl.lstm_sequence(p, x.to(dev), ta.tanh, ta.sigmoid, z, z,
+                                 True, mask.to(dev))
+        gr = torch.autograd.grad((ys * ys).sum(), list(p.values()))
+        grads.append([t.cpu() for t in gr])
+        if dev != "cpu":
+            assert (tl.lstm_fwd.launches, tl.lstm_bwd.launches) == \
+                (n[0] + 1, n[1] + 1)
+    for a, b in zip(*grads):
+        _close_to_scale(b, a)

@@ -8,6 +8,7 @@ and forks mid-page. Greedy token streams must be equal and per-token
 probabilities within atol 1e-5 (float32 sums in another order). Paged and
 dense decode in the port must be bitwise equal.
 """
+import json
 import time
 
 import numpy as np
@@ -15,8 +16,12 @@ import pytest
 
 from _torch_port import jax_lm
 from deeplearning4j_tpu.keras_server.decode import DecodeEngine as JaxDecodeEngine
+from deeplearning4j_tpu.nn.conf.multilayer import (
+    MultiLayerConfiguration as JaxConfiguration,
+)
 from deeplearning4j_tpu_torch.convert import from_jax
 from deeplearning4j_tpu_torch.keras_server.decode import DecodeEngine
+from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 
 TOL = 1e-5
 PS = 16
@@ -108,3 +113,34 @@ def test_static_mode_equals_continuous_and_rejects(lm):
         eng.close()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tnet, device="cpu", draft_net=tnet)
+
+
+def test_decode_refuses_what_jax_refuses(lm, tmp_path):
+    """LSTM stacks decode (``tests/test_torch_streaming.py``); the stacks the
+    JAX engine refuses are refused here too: a bidirectional LSTM, paged KV
+    with an LSTM, and a mix of LSTM and transformer layers."""
+    from _torch_port import compile_cache_at
+    from deeplearning4j_tpu.keras_server.decode import (
+        DecodeEngine as JaxEngine)
+    from deeplearning4j_tpu.models.char_rnn import char_rnn_lstm
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    jnet, tnet = lm
+    lstm = json.loads(char_rnn_lstm(128, hidden=8).to_json())
+    bi = json.loads(json.dumps(lstm))
+    bi["layers"][1]["@type"] = "GravesBidirectionalLSTM"
+    mixed = json.loads(jnet.conf.to_json())
+    mixed["layers"].insert(1, dict(lstm["layers"][1], n_in=128, n_out=128))
+    cases = [(bi, {}, "bidirectional"), (lstm, {"kv": "paged"}, "paged"),
+             (mixed, {}, "not a mix")]
+    for conf, opts, msg in cases:
+        text = json.dumps(conf)
+        with compile_cache_at(tmp_path):
+            jn = JaxNet(JaxConfiguration.from_json(text)).init()
+            with pytest.raises(ValueError, match=msg):
+                JaxEngine(jn, **opts)
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_json(text),
+                                device="cpu").init()
+        with pytest.raises(ValueError, match=msg):
+            DecodeEngine(net, device="cpu", **opts)

@@ -278,13 +278,29 @@ def test_dropout_keeps_the_retain_share_and_follows_the_seed():
 @pytest.mark.parametrize("field,value", [
     ("backprop_type", "TruncatedBPTT"), ("optimization_algo", "lbfgs"),
     ("pretrain", True)])
-def test_unported_training_settings_raise_at_fit(field, value):
+def test_unported_training_settings_raise_at_fit(field, value, tmp_path):
+    """The Solver algorithms and pretraining raise at fit. A transformer LM
+    flagged ``TruncatedBPTT`` has no LSTM, so it trains with the standard
+    step (one update per batch, not per chunk), as the JAX package does."""
     top = {field: value} if field != "optimization_algo" else {}
     glob = {field: value} if field == "optimization_algo" else {}
+    x, y, _, _ = _batch(0)
+    if field == "backprop_type":
+        conf = lm_conf_json(learning_rate=0.05,
+                            global_fields={"updater": "sgd"},
+                            layer_fields={"updater": "sgd"},
+                            top_fields={**top, "tbptt_fwd_length": 3})
+        batches = [_batch(s) for s in range(2)]
+        ref = jax_train(conf, batches, tmp_path)
+        tnet = _port(conf, ref)
+        losses = _port_losses(tnet, batches)
+        assert tnet.iteration == ref["iteration"] == 2
+        np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL)
+        _assert_params(tnet, ref["params"], PARAM_RTOL, PARAM_ATOL)
+        return
     conf = MultiLayerConfiguration.from_json(
         lm_conf_json(global_fields=glob, top_fields=top))
     net = MultiLayerNetwork(conf, device="cpu").init()
-    x, y, _, _ = _batch(0)
     with pytest.raises(NotImplementedError, match=field):
         net.fit(x, y)
     with pytest.raises(NotImplementedError, match=field):

@@ -81,7 +81,7 @@ def test_config_reader_refuses_unknown_and_unported_types():
     d["layers"][1]["@type"] = "NoSuchLayer"
     with pytest.raises(ValueError):
         MultiLayerConfiguration.from_dict(d)
-    d["layers"][1]["@type"] = "LSTM"
+    d["layers"][1]["@type"] = "Convolution"
     with pytest.raises(NotImplementedError):
         MultiLayerConfiguration.from_dict(d)
 
@@ -95,7 +95,11 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.datasets, "
             "deeplearning4j_tpu_torch.ops.losses, "
             "deeplearning4j_tpu_torch.ops.softmax_xent, "
-            "deeplearning4j_tpu_torch.ops.flash_attention;"
+            "deeplearning4j_tpu_torch.ops.flash_attention, "
+            "deeplearning4j_tpu_torch.ops.lstm, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.recurrent, "
+            "deeplearning4j_tpu_torch.models.char_rnn, "
+            "deeplearning4j_tpu_torch.keras_server.streaming;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"
@@ -119,3 +123,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         PredictFn(net)
     with pytest.raises(RuntimeError, match="CUDA"):
         DecodeEngine(net)
+    from deeplearning4j_tpu_torch.keras_server import ModelRegistry, StreamSessions
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamSessions(ModelRegistry())

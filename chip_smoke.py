@@ -72,7 +72,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_gather, paged_gather_plain)
 from deeplearning4j_tpu_torch.ops.quant import (
-    dequantize_leaf, int8_matmul, int8_matmul_plain, quantize_per_channel)
+    dequantize_leaf, int8_matmul, int8_matmul_plain, int8_matmul_plan,
+    quantize_per_channel)
 from deeplearning4j_tpu_torch.ops.softmax_xent import (
     softmax_cross_entropy, softmax_cross_entropy_plain)
 
@@ -90,6 +91,12 @@ RNN_LR = 0.01
 #: published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+#: (row, kernel call, library call) whose device time the profiler reads
+#: after every other measurement (see measure_device_times)
+DEVICE_TIMED: list = []
+#: the card's name and power limit, as nvidia-smi prints them
+CARD = ""
 
 
 def fail(msg: str) -> None:
@@ -113,28 +120,67 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean device time of one call of ``fn`` in ms: the device events
+    (kernels, copies) that ``torch.profiler`` records over ``iters`` calls,
+    after a warm-up. Unlike :func:`time_ms` it leaves out the host's time
+    between launches, which dominates a kernel of a few microseconds."""
+    for _ in range(3):
+        fn()
+    # a profiler session now and then records no device event at all (seen
+    # once in a run on the H100, after the phases' own profiles): try again
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(device_time_by_kernel(prof).values())
+        if us > 0:
+            return us / 1e3 / iters
+        print("device_ms: the profiler saw no device time; again", flush=True)
+    fail("the profiler saw no device time in three sessions")
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """Least time in ms the card could take and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def report(rows: list, name: str, shape: dict, err: float, tol: float,
-           ms: float, plain_ms: float, library_ms, nbytes: float, ops: float):
+           ms: float, plain_ms: float, library_ms, nbytes: float, ops: float,
+           extra: dict = None):
     bound_ms, bound_by = bound(nbytes, ops)
     row = {"name": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})}
     rows.append(row)
     print(f"{name} {shape}: max_abs_err={err:.3e} (tol {tol:.0e}) "
           f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms} "
-          f"bound_ms={bound_ms:.5f} ({bound_by}, {100 * bound_ms / ms:.1f}% "
-          "of it)", flush=True)
+          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+          f"{100 * row['bound_ms'] / ms:.1f}% of it)"
+          + (f" [{row['card']}]" if "card" in row else ""), flush=True)
     if not err <= tol:
         fail(f"{name} {shape} disagrees with its plain version: "
              f"{err} > {tol}")
     return row
+
+
+def measure_device_times() -> None:
+    """``device_ms`` and ``library_device_ms`` of the rows queued in
+    ``DEVICE_TIMED``. Run after every other timing: the profiler is left
+    attached to the process once used, and could slow later launches."""
+    for row, kernel, library in DEVICE_TIMED:
+        row["device_ms"] = device_ms(kernel)
+        row["library_device_ms"] = None if library is None \
+            else device_ms(library)
+        print(f"{row['name']} {row['shape']}: device_ms="
+              f"{row['device_ms']:.5f} library_device_ms="
+              f"{row['library_device_ms']} (torch.profiler, mean per call)",
+              flush=True)
 
 
 def check_int8(rows: list, dev) -> None:
@@ -149,13 +195,29 @@ def check_int8(rows: list, dev) -> None:
             wd = dequantize_leaf(leaf)
             out = int8_matmul(x, leaf.q, leaf.scale)
             ref = int8_matmul_plain(x, leaf.q, leaf.scale)
+            again = int8_matmul(x, leaf.q, leaf.scale)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
-            report(rows, "int8_matmul", {"M": M, "K": K, "N": N}, err, tol,
-                   time_ms(lambda: int8_matmul(x, leaf.q, leaf.scale)),
-                   time_ms(lambda: int8_matmul_plain(x, leaf.q, leaf.scale)),
-                   time_ms(lambda: torch.matmul(x, wd)),
-                   M * K * 4 + K * N + N * 4 + M * N * 4, 2 * M * K * N)
+            if not torch.equal(out, again):
+                fail(f"int8_matmul M={M} K={K} N={N} differs from run to run")
+            kc, slices = int8_matmul_plan(
+                M, K, N, torch.cuda.get_device_properties(dev)
+                .multi_processor_count)
+
+            def kernel(x=x, leaf=leaf):
+                return int8_matmul(x, leaf.q, leaf.scale)
+
+            def library(x=x, wd=wd):
+                return torch.matmul(x, wd)
+
+            row = report(rows, "int8_matmul", {"M": M, "K": K, "N": N}, err,
+                         tol, time_ms(kernel),
+                         time_ms(lambda: int8_matmul_plain(x, leaf.q,
+                                                           leaf.scale)),
+                         time_ms(library),
+                         M * K * 4 + K * N + N * 4 + M * N * 4, 2 * M * K * N,
+                         {"card": CARD, "plan": {"kc": kc, "slices": slices}})
+            DEVICE_TIMED.append((row, kernel, library))
     x = torch.randn(16, 256, generator=g).to(dev).to(torch.bfloat16)
     leaf = quantize_per_channel(torch.randn(256, 768, generator=g).to(dev))
     err = float((int8_matmul(x, leaf.q, leaf.scale)
@@ -181,12 +243,19 @@ def check_gather(rows: list, dev) -> None:
             fail(f"paged_gather cap={cap} is not bitwise equal to index_select")
         flat = table.reshape(-1).long()
         nbytes = 2 * cap * P * ps * H * D * 4 + cap * P * 4
-        report(rows, "paged_gather",
-               {"n_pages": n_pages, "ps": ps, "H": H, "D": D, "cap": cap,
-                "P": P}, 0.0, 0.0,
-               time_ms(lambda: paged_gather(pool, table)),
-               time_ms(lambda: paged_gather_plain(pool, table)),
-               time_ms(lambda: pool.index_select(0, flat)), nbytes, 0)
+
+        def kernel(table=table):
+            return paged_gather(pool, table)
+
+        def library(flat=flat):
+            return pool.index_select(0, flat)
+
+        row = report(rows, "paged_gather",
+                     {"n_pages": n_pages, "ps": ps, "H": H, "D": D,
+                      "cap": cap, "P": P}, 0.0, 0.0, time_ms(kernel),
+                     time_ms(lambda: paged_gather_plain(pool, table)),
+                     time_ms(library), nbytes, 0)
+        DEVICE_TIMED.append((row, kernel, library))
 
 
 def check_flash(rows: list, dev) -> None:
@@ -202,17 +271,34 @@ def check_flash(rows: list, dev) -> None:
                    for _ in range(3))
         out, lse = flash_fwd(q, k, v, True)
         ro, rl = flash_fwd_plain(q, k, v, True)
+        again = flash_fwd(q, k, v, True)
         torch.cuda.synchronize()
         err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            fail(f"flash_fwd B={B} T={T} differs from run to run")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = B * H * T * (T + 1) / 2
-        report(rows, "flash_fwd", {"B": B, "T": T, "H": H, "D": D,
-                                   "causal": True}, err, tol,
-               time_ms(lambda: flash_fwd(q, k, v, True), iters=20),
-               time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True), iters=20),
-               4 * B * T * H * D * 4 + B * H * T * 4, 4 * D * pairs)
+        nbytes, ops = 4 * B * T * H * D * 4 + B * H * T * 4, 4 * D * pairs
+
+        def kernel(q=q, k=k, v=v):
+            return flash_fwd(q, k, v, True)
+
+        def library(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        # the kernel runs both products as three TF32 passes on the tensor
+        # cores: its bound is that work at the TF32 peak; the float32 bound
+        # (the same products on the CUDA cores) is kept beside it
+        f32_ms, f32_by = bound(nbytes, ops)
+        tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+        row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H, "D": D,
+                                         "causal": True}, err, tol,
+                     time_ms(kernel, iters=20),
+                     time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
+                     time_ms(library, iters=20), nbytes, ops,
+                     {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                      "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
+        DEVICE_TIMED.append((row, kernel, library))
     # a ragged length, a key mask with a fully masked row, and bfloat16
     B, T = 2, 100
     q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev) for _ in range(3))
@@ -454,10 +540,15 @@ def check_lstm(rows: list, dev) -> None:
         iters = 20 if T > 1 else 100
         fb, fo, bb, bo = lstm_work(T, B, F, H)
         shape["plan"] = lstm_ops.lstm_plan(B, F, H)
-        report(rows, "lstm_fwd", shape, ferr, fwd_tol,
-               time_ms(lambda: lstm_ops.lstm_fwd(**a), iters=iters),
-               time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
-               time_ms(lib_f, iters=iters), fb, fo)
+        def kernel(a=a):
+            return lstm_ops.lstm_fwd(**a)
+
+        row = report(rows, "lstm_fwd", shape, ferr, fwd_tol,
+                     time_ms(kernel, iters=iters),
+                     time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
+                     time_ms(lib_f, iters=iters), fb, fo)
+        if T == 1:  # decode and stream steps: a few microseconds of device
+            DEVICE_TIMED.append((row, kernel, lib_f))
         worst = max(range(6), key=lambda i: berrs[i] / btols[i])
         report(rows, "lstm_bwd", shape, berrs[worst], btols[worst],
                time_ms(lambda: lstm_ops.lstm_bwd(**ba), iters=iters),
@@ -560,6 +651,13 @@ def serve(kernels) -> dict:
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched by the served traffic")
+    # exact: a decode step runs 4 int8 products in each of the 4 blocks plus
+    # the head, and gathers K and V pages in each block; the predict runs
+    # one attention forward a block
+    want = {"int8_matmul": 17 * dec["steps"], "paged_gather": 8 * dec["steps"],
+            "flash_fwd": 4}
+    if launches != want:
+        fail(f"serving launch counts {launches} != expected {want}")
     return {"launches": launches, "generate_s": gen_s, "predict_s": predict_s,
             "decode_steps": dec["steps"], "decode_tokens": dec["tokens"],
             "decode_capacity": dec["capacity"],
@@ -896,10 +994,11 @@ def main() -> None:
     # full float32 matmuls and convolutions, as the reference computes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = CARD = smi.splitlines()[0]
     print(card, flush=True)
 
     t0 = time.perf_counter()
@@ -928,6 +1027,7 @@ def main() -> None:
     trained = train(kernels[:6])
     served_rnn = serve_lstm(kernels)
     trained_rnn = train_lstm(kernels)
+    measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
     # capacity 8 (M = 8, the widest matmul), predict at B = 2, training at
@@ -951,6 +1051,15 @@ def main() -> None:
 
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "shape")
+    #: present on some rows only: profiler device times, flash_fwd's float32
+    #: bound, the card of the redesigned kernels' rows, int8_matmul's plan
+    optional = ("device_ms", "library_device_ms", "bound_f32_ms",
+                "bound_f32_by", "card", "plan")
+
+    def nums(row):
+        return {**{k: row[k] for k in numbers},
+                **{k: row[k] for k in optional if k in row}}
+
     meta = {
         "int8_matmul": ("deeplearning4j_tpu_torch/csrc/int8_matmul.cu",
                         "deeplearning4j_tpu/ops/quant.py:157"),
@@ -983,11 +1092,11 @@ def main() -> None:
             entry = {"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": by_path["train"],
                      "launches_by_path": by_path,
-                     **{k: row[k] for k in numbers}}
+                     **nums(row)}
             if name == "lstm_fwd":
                 entry["by_path"] = {
                     p: {"launches": by_path[p],
-                        **{k: row_at(name, shp)[k] for k in numbers}}
+                        **nums(row_at(name, shp))}
                     for p, shp in rnn_paths.items()}
             line.append(entry)
             continue
@@ -1002,14 +1111,13 @@ def main() -> None:
                                      ("sm_xent", "flash_bwd_dq",
                                       "flash_bwd_dkv") else "serve"],
                  "launches_by_path": by_path,
-                 **{k: row[k] for k in numbers}}
+                 **nums(row)}
         if name == "flash_fwd":
             entry["by_path"] = {
                 "serve": {"launches": by_path["serve"],
-                          **{k: row[k] for k in numbers}},
+                          **nums(row)},
                 "train": {"launches": by_path["train"],
-                          **{k: row_at(name, train_shape)[k]
-                             for k in numbers}}}
+                          **nums(row_at(name, train_shape))}}
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -13,18 +13,44 @@
 //
 // What bounds it on the H100: operations. Causal attention at T = 512 and
 // D = 64 does 4 * D operations per (query, key) pair on 2 * D * 4 bytes per
-// row, well above the float32 ridge of ~20 operations per byte.
+// row, well above the ridge of either the CUDA cores or the tensor cores.
 //
-// What the design does about it: one block per (batch * head, 64-query tile);
-// one thread per query row keeps its scaled query and its output accumulator
-// in registers, so scores and probabilities never reach device memory (the
-// O(T^2) matrix never exists). K and V stream through shared memory 32 keys at
-// a time and are read there as broadcasts. The online softmax rescales the
-// accumulator once per tile. Under a causal mask the loop stops at the block's
-// last query row: the skipped tiles would contribute p = 0 exactly, so the
-// result is the same as the full loop's. Ragged Tq and Tk are masked, so any
-// length is taken. This is float32 arithmetic on the CUDA cores; tensor cores
-// (wgmma) and TMA are later work.
+// What the design does about it:
+// - Both products, S = Q.K^T and O += P.V, run on the tensor cores as
+//   mma.sync m16n8k8 TF32 with float32 accumulation. Float32 accuracy is
+//   kept by splitting every operand a into hi = tf32(a) and lo =
+//   tf32(a - hi) (tf32() drops the low 13 mantissa bits) and summing
+//   hi.lo + lo.hi + hi.hi: three TF32 passes, about float32's error
+//   (tests/test_torch_kernel_design.py emulates it on the CPU). The
+//   dropped lo.lo term is below 2^-22 of the product.
+// - One warp owns 16 query rows. S and P stay in registers as mma
+//   accumulator fragments; the online softmax runs on the fragment rows,
+//   with a row max across the 4 lanes of a row by two xor-shuffles. Lane
+//   (g, t) holds S columns {2t, 2t+1}, while the A operand of the next mma
+//   wants columns {t, t+4}: since the reduction index of P.V (the key) may
+//   be permuted in P and V alike, k-row t of each 8-key step stands for key
+//   2t and k-row t + 4 for key 2t + 1, and V's B fragment is read from
+//   shared memory at those keys. P feeds the second mma unchanged.
+// - A block is 2 groups of 16 query rows (BQ = 32 rows a block) times S
+//   key splits, one warp each. Split s takes the key tiles s, s + S, ...;
+//   at the end splits 1..S-1 hand (m, l, acc) to split 0 through shared
+//   memory, which folds them in split order. BQ = 32 gives B * H * Tq / 32
+//   blocks: 512 at the training shape, where S = 2 (4 warps a block, up to
+//   3 blocks an SM); 128 at the predict shape (B * H = 8, T = 512), fewer
+//   than 2 an SM, where S = 4 (8 warps a block), which doubles the warps in
+//   flight and halves the longest chain of key tiles (the last causal
+//   query tile). The launch picks S from the grid and the SM count.
+// - K and V tiles of BK = 32 keys come in with cp.async (16 bytes a thread,
+//   float32; bfloat16 and unaligned operands are converted through plain
+//   loads), double-buffered, into rows padded to D + 4 floats, so that both
+//   fragment reads (K at row g, column t; V at rows 2t, 2t + 1, column g)
+//   hit 32 distinct banks.
+// - Under a causal mask the key loop stops at the block's last query row,
+//   and a warp skips a tile that lies wholly above its rows: the skipped
+//   work would contribute p = 0 exactly. Blocks are issued heaviest first
+//   (the last query tile of every batch-head first).
+// - Ragged Tq and Tk are masked, so any length is taken. No atomics: the
+//   result is bitwise the same from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,99 +59,366 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 32;
+constexpr int ROWS = 16;             // query rows of a warp (mma M)
+constexpr int GROUPS = 2;            // row groups of a block
+constexpr int BQ = ROWS * GROUPS;    // query rows of a block
+constexpr int BK = 32;               // keys of a tile
+constexpr int NB = BK / 8;           // 8-key mma blocks of a tile
 constexpr float NEG = -1e30f;
+constexpr uint32_t TF32_MASK = 0xffffe000u;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(BQ)
+// x = hi + lo exactly; both truncated to TF32 (the low 13 mantissa bits
+// zero), so the tensor core reads them as they are.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & TF32_MASK;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a.b in split TF32: the two small cross terms first, then hi.hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
+  mma(d, al[0], al[1], al[2], al[3], bh0, bh1);
+  mma(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = ok ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+template <int D, int SPLITS>
+struct Smem {
+  static constexpr int LD = D + 4;  // padded row: conflict-free fragments
+  float k[2][SPLITS][BK][LD];
+  float v[2][SPLITS][BK][LD];
+  float km[2][SPLITS][BK];
+};
+
+// Stage `buf` gets key tiles it * SPLITS + s, s < SPLITS.
+template <typename T, int D, int SPLITS>
+__device__ __forceinline__ void load_stage(Smem<D, SPLITS>& sm, int buf, int it,
+                                           const T* __restrict__ k,
+                                           const T* __restrict__ v,
+                                           const float* __restrict__ key_mask,
+                                           int b, int h, int H, int Tk,
+                                           bool vec) {
+  constexpr int THREADS = GROUPS * SPLITS * 32;
+  const int tid = threadIdx.x;
+  constexpr int CH = D / 4;  // 16-byte chunks of a row
+  for (int idx = tid; idx < SPLITS * BK * CH; idx += THREADS) {
+    const int s = idx / (BK * CH);
+    const int j = (idx / CH) % BK;
+    const int c = idx % CH;
+    const int t = (it * SPLITS + s) * BK + j;
+    const bool ok = t < Tk;
+    const size_t off = (((size_t)b * Tk + (ok ? t : 0)) * H + h) * D + c * 4;
+    float* kd = &sm.k[buf][s][j][c * 4];
+    float* vd = &sm.v[buf][s][j][c * 4];
+    if (vec) {
+      cp_async16(kd, k + off, ok);
+      cp_async16(vd, v + off, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        kd[e] = ok ? to_f32(k[off + e]) : 0.f;
+        vd[e] = ok ? to_f32(v[off + e]) : 0.f;
+      }
+    }
+  }
+  for (int idx = tid; idx < SPLITS * BK; idx += THREADS) {
+    const int s = idx / BK;
+    const int j = idx % BK;
+    const int t = (it * SPLITS + s) * BK + j;
+    sm.km[buf][s][j] =
+        t < Tk ? (key_mask ? key_mask[(size_t)b * Tk + t] : 1.f) : 0.f;
+  }
+}
+
+template <typename T, int D, int SPLITS>
+__global__ void __launch_bounds__(GROUPS * SPLITS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ key_mask,
-                 T* __restrict__ out, float* __restrict__ lse, int H, int Tq,
-                 int Tk, float scale, int causal) {
-  __shared__ float ks[BK][D];
-  __shared__ float vs[BK][D];
-  __shared__ float kms[BK];
-  const int bh = blockIdx.x;
+                 T* __restrict__ out, float* __restrict__ lse, int BH, int H,
+                 int Tq, int Tk, float scale, int causal, int vec) {
+  constexpr int KD = D / 8;  // 8-wide steps over the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using Sm = Smem<D, SPLITS>;
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+
+  // heaviest first: the first BH blocks take the last query tile
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH;
+  const int qt = n_qt - 1 - blockIdx.x / BH;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int i = q0 + tid;
-  const bool row_ok = i < Tq;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int grp = warp % GROUPS;
+  const int split_id = warp / GROUPS;
+  const int r0 = q0 + grp * ROWS + g;  // this lane's rows: r0 and r0 + 8
+  const int r1 = r0 + 8;
+  const int warp_last = q0 + grp * ROWS + ROWS - 1;
 
-  float qr[D];
-  float acc[D];
-  const T* qp = q + (((size_t)b * Tq + (row_ok ? i : 0)) * H + h) * D;
+  // the scaled query as A fragments, split once
+  uint32_t qh[KD][4], ql[KD][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = row_ok ? to_f32(qp[d]) * scale : 0.f;
-    acc[d] = 0.f;
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = (e & 1) ? r1 : r0;
+      const int d = kk * 8 + t4 + ((e & 2) ? 4 : 0);
+      const float x = row < Tq
+          ? to_f32(q[(((size_t)b * Tq + row) * H + h) * D + d]) * scale : 0.f;
+      split(x, qh[kk][e], ql[kk][e]);
+    }
   }
-  float m = NEG;
-  float l = 0.f;
+
+  float acc[KD][4];
+#pragma unroll
+  for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  float m0 = NEG, m1 = NEG;  // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;  // this lane's share of the running sums
 
   const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    for (int idx = tid; idx < BK * D; idx += BQ) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const int t = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (t < Tk) {
-        const size_t off = (((size_t)b * Tk + t) * H + h) * D + d;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
+  const int n_kt = (k_end + BK - 1) / BK;
+  const int n_it = (n_kt + SPLITS - 1) / SPLITS;
+  const bool use_cp = vec != 0;
+
+  if (n_it > 0) load_stage<T, D, SPLITS>(sm, 0, 0, k, v, key_mask, b, h, H, Tk, use_cp);
+  cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_it)
+      load_stage<T, D, SPLITS>(sm, buf ^ 1, it + 1, k, v, key_mask, b, h, H, Tk, use_cp);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+
+    const int kt = it * SPLITS + split_id;
+    const int kb = kt * BK;
+    if (kt < n_kt && !(causal && kb > warp_last)) {
+      const float(*ks)[Sm::LD] = sm.k[buf][split_id];
+      const float(*vs)[Sm::LD] = sm.v[buf][split_id];
+      const float* kms = sm.km[buf][split_id];
+
+      // the cross terms and hi.hi in separate accumulators: twice the
+      // independent mma chains, then one add
+      float s[NB][4], sx[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = sx[nb][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(ks[nb * 8 + g][kk * 8 + t4], bh0, bl0);
+          split(ks[nb * 8 + g][kk * 8 + t4 + 4], bh1, bl1);
+          const uint32_t(&ah)[4] = qh[kk];
+          const uint32_t(&al)[4] = ql[kk];
+          mma(sx[nb], ah[0], ah[1], ah[2], ah[3], bl0, bl1);
+          mma(sx[nb], al[0], al[1], al[2], al[3], bh0, bh1);
+          mma(s[nb], ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] += sx[nb][e];
       }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    if (tid < BK) {
-      const int t = k0 + tid;
-      kms[tid] = t < Tk ? (key_mask ? key_mask[(size_t)b * Tk + t] : 1.f) : 0.f;
+      // mask, then the tile's row max (4 lanes share a row)
+      float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = nb * 8 + 2 * t4 + (e & 1);
+          const int row = (e & 2) ? r1 : r0;
+          const bool masked = kms[j] <= 0.f || (causal && kb + j > row);
+          if (masked) s[nb][e] = NEG;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float a0 = expf(m0 - mn0);
+      const float a1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int nd = 0; nd < KD; ++nd) {
+        acc[nd][0] *= a0;
+        acc[nd][1] *= a0;
+        acc[nd][2] *= a1;
+        acc[nd][3] *= a1;
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mr = (e & 2) ? mn1 : mn0;
+          const float p = s[nb][e] <= NEG ? 0.f : expf(s[nb][e] - mr);
+          if (e & 2) l1 += p; else l0 += p;
+          split(p, ph[e], pl[e]);
+        }
+        // lane (g, t) holds P[g][2t], P[g][2t+1], P[g+8][2t], P[g+8][2t+1]:
+        // as A fragment, k-row t is key 2t and k-row t + 4 key 2t + 1
+        const uint32_t ah[4] = {ph[0], ph[2], ph[1], ph[3]};
+        const uint32_t al[4] = {pl[0], pl[2], pl[1], pl[3]};
+        const int key = nb * 8 + 2 * t4;
+#pragma unroll
+        for (int nd = 0; nd < KD; ++nd) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(vs[key][nd * 8 + g], bh0, bl0);
+          split(vs[key + 1][nd * 8 + g], bh1, bl1);
+          mma3(acc[nd], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
     }
     __syncthreads();
-
-    float s[BK];
-    float m_blk = NEG;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const bool masked = kms[j] <= 0.f || (causal && k0 + j > i);
-      s[j] = masked ? NEG : dot;
-      m_blk = fmaxf(m_blk, s[j]);
-    }
-    const float m_new = fmaxf(m, m_blk);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = s[j] <= NEG ? 0.f : expf(s[j] - m_new);
-      psum += p;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-    }
-    l = l * alpha + psum;
-    m = m_new;
-    __syncthreads();
   }
+  cp_async_wait_all();
+  __syncthreads();
 
-  if (row_ok) {
-    const float l_safe = fmaxf(l, 1e-20f);
-    T* op = out + (((size_t)b * Tq + i) * H + h) * D;
+  // splits 1.. hand their state to split 0 through the (now idle) tile
+  // buffers; split 0 folds them in split order
+  constexpr int PER_LANE = KD * 4 + 4;
+  static_assert((SPLITS - 1) * GROUPS * 32 * PER_LANE * sizeof(float)
+                    <= sizeof(sm.k), "exchange does not fit");
+  float* xch = &sm.k[0][0][0][0];
+  if (split_id > 0) {
+    float* mine = xch + (((size_t)(split_id - 1) * GROUPS + grp) * 32 + lane) * PER_LANE;
 #pragma unroll
-    for (int d = 0; d < D; ++d) store(op + d, acc[d] / l_safe);
-    lse[(size_t)bh * Tq + i] = m + logf(l_safe);
+    for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[nd * 4 + e] = acc[nd][e];
+    mine[KD * 4 + 0] = m0;
+    mine[KD * 4 + 1] = m1;
+    mine[KD * 4 + 2] = l0;
+    mine[KD * 4 + 3] = l1;
   }
+  __syncthreads();
+  if (split_id != 0) return;
+  for (int o = 1; o < SPLITS; ++o) {
+    const float* other = xch + (((size_t)(o - 1) * GROUPS + grp) * 32 + lane) * PER_LANE;
+    const float om0 = other[KD * 4 + 0], om1 = other[KD * 4 + 1];
+    const float n0 = fmaxf(m0, om0), n1 = fmaxf(m1, om1);
+    const float a0 = expf(m0 - n0), b0 = expf(om0 - n0);
+    const float a1 = expf(m1 - n1), b1 = expf(om1 - n1);
+    l0 = l0 * a0 + other[KD * 4 + 2] * b0;
+    l1 = l1 * a1 + other[KD * 4 + 3] * b1;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      acc[nd][0] = acc[nd][0] * a0 + other[nd * 4 + 0] * b0;
+      acc[nd][1] = acc[nd][1] * a0 + other[nd * 4 + 1] * b0;
+      acc[nd][2] = acc[nd][2] * a1 + other[nd * 4 + 2] * b1;
+      acc[nd][3] = acc[nd][3] * a1 + other[nd * 4 + 3] * b1;
+    }
+    m0 = n0;
+    m1 = n1;
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const float ls0 = fmaxf(l0, 1e-20f);
+  const float ls1 = fmaxf(l1, 1e-20f);
+  if (r0 < Tq) {
+    T* op = out + (((size_t)b * Tq + r0) * H + h) * D;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      store(op + nd * 8 + 2 * t4, acc[nd][0] / ls0);
+      store(op + nd * 8 + 2 * t4 + 1, acc[nd][1] / ls0);
+    }
+    if (t4 == 0) lse[(size_t)bh * Tq + r0] = m0 + logf(ls0);
+  }
+  if (r1 < Tq) {
+    T* op = out + (((size_t)b * Tq + r1) * H + h) * D;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      store(op + nd * 8 + 2 * t4, acc[nd][2] / ls1);
+      store(op + nd * 8 + 2 * t4 + 1, acc[nd][3] / ls1);
+    }
+    if (t4 == 0) lse[(size_t)bh * Tq + r1] = m1 + logf(ls1);
+  }
+}
+
+template <typename T, int D, int SPLITS>
+cudaError_t launch_d(const T* q, const T* k, const T* v, const float* km,
+                     T* out, float* lse, int B, int H, int Tq, int Tk,
+                     float scale, int causal, int vec, cudaStream_t s) {
+  const int smem = sizeof(Smem<D, SPLITS>);
+  static bool attr_set = false;  // idempotent: a race only sets it twice
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D, SPLITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int grid = B * H * ((Tq + BQ - 1) / BQ);
+  flash_fwd_kernel<T, D, SPLITS><<<grid, GROUPS * SPLITS * 32, smem, s>>>(
+      q, k, v, km, out, lse, B * H, H, Tq, Tk, scale, causal, vec);
+  return cudaGetLastError();
+}
+
+// Two key splits (4 warps, 70 KB of shared memory at D = 64, up to 3
+// blocks an SM) when the grid gives every SM 2 blocks or more; else four
+// (8 warps, 139 KB, 1 block an SM), which doubles the warps in flight and
+// halves the longest chain of key tiles where there are too few blocks to
+// fill the card (the predict shape: 128 blocks). Both combine in split
+// order, so a shape on a given card always takes the same one.
+template <typename T, int D>
+cudaError_t launch_splits(const T* q, const T* k, const T* v, const float* km,
+                          T* out, float* lse, int B, int H, int Tq, int Tk,
+                          float scale, int causal, int vec, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((Tq + BQ - 1) / BQ);
+  if (blocks < 2LL * sms)
+    return launch_d<T, D, 4>(q, k, v, km, out, lse, B, H, Tq, Tk, scale, causal, vec, s);
+  return launch_d<T, D, 2>(q, k, v, km, out, lse, B, H, Tq, Tk, scale, causal, vec, s);
 }
 
 template <typename T>
@@ -133,22 +426,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* km, void* out, float* lse, int B, int H,
                    int Tq, int Tk, int D, float scale, int causal,
                    cudaStream_t s) {
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
+  // cp.async moves float32 rows 16 bytes at a time from 16-byte aligned
+  // k and v; anything else is converted through plain loads
+  const int vec = sizeof(T) == 4 && (reinterpret_cast<uintptr_t>(k) % 16 == 0)
+                  && (reinterpret_cast<uintptr_t>(v) % 16 == 0);
   switch (D) {
     case 32:
-      flash_fwd_kernel<T, 32><<<grid, BQ, 0, s>>>(qq, kk, vv, km, oo, lse, H, Tq, Tk, scale, causal);
-      break;
+      return launch_splits<T, 32>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, scale, causal, vec, s);
     case 64:
-      flash_fwd_kernel<T, 64><<<grid, BQ, 0, s>>>(qq, kk, vv, km, oo, lse, H, Tq, Tk, scale, causal);
-      break;
+      return launch_splits<T, 64>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, scale, causal, vec, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -15,7 +15,7 @@ weight takes a plain ``torch.matmul``, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,8 +118,48 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return torch.matmul(x.to(torch.float32), q.to(torch.float32)) * scale
 
 
-_ARGS = [_cuda.PTR, _cuda.PTR, _cuda.PTR, _cuda.PTR,
-         _cuda.INT, _cuda.INT, _cuda.INT, _cuda.INT, _cuda.PTR]
+#: the kernel's output tile (csrc/int8_matmul.cu): BN columns, BM rows of x
+INT8_BN, INT8_BM = 64, 4
+
+
+def int8_matmul_plan(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
+    """``(kc, slices)``: the kernel's split of K into ``slices`` slices of
+    ``kc`` rows (the last may be shorter), chosen so that the grid of
+    ``ceil(N / BN) * ceil(M / BM) * slices`` blocks reaches ``sms``. Slice
+    ``s`` covers rows ``[s * kc, min(K, (s + 1) * kc))``."""
+    tiles = -(-N // INT8_BN) * -(-M // INT8_BM)
+    if tiles >= sms or K <= 1:
+        return max(K, 1), 1
+    kc = max(1, (K * tiles) // sms)
+    return kc, -(-K // kc)
+
+
+_ARGS = [_cuda.PTR] * 6 + [_cuda.INT] * 6 + [_cuda.PTR]
+#: per (device, stream, M, K, N): the plan, the float32 partials [S, M, N]
+#: and the per-tile arrival counters (zero between launches: the last block
+#: of a tile resets its own). Reusing them is safe on one stream, where
+#: launches run in order; decode calls a handful of shapes every step.
+_plans: Dict[tuple, tuple] = {}
+_MAX_PLANS = 256
+
+
+def _launch_plan(dev: int, stream: int, M: int, K: int, N: int) -> tuple:
+    key = (dev, stream, M, K, N)
+    plan = _plans.get(key)
+    if plan is None:
+        device = torch.device("cuda", dev)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        kc, slices = int8_matmul_plan(M, K, N, sms)
+        part = counters = None
+        if slices > 1:
+            part = torch.empty((slices, M, N), dtype=torch.float32,
+                               device=device)
+            counters = torch.zeros(-(-N // INT8_BN) * -(-M // INT8_BM),
+                                   dtype=torch.int32, device=device)
+        if len(_plans) >= _MAX_PLANS:
+            _plans.clear()
+        plan = _plans[key] = (kc, slices, part, counters)
+    return plan
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
@@ -128,8 +168,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 
     x ``[M, K]`` float32 or bfloat16, q ``[K, N]`` int8, scale ``[N]``
     float32, all contiguous on one device. On CUDA tensors this launches
-    ``csrc/int8_matmul.cu`` (any M, K, N); on CPU tensors it runs the plain
-    version."""
+    ``csrc/int8_matmul.cu`` (any M, K, N; K split per
+    :func:`int8_matmul_plan`); on CPU tensors it runs the plain version."""
     if x.ndim != 2 or q.ndim != 2 or scale.ndim != 1:
         raise ValueError(f"int8_matmul needs x [M,K], q [K,N], scale [N]; got "
                          f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(scale.shape)}")
@@ -153,9 +193,13 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    stream = _cuda.stream_handle()
+    kc, slices, part, counters = _launch_plan(x.device.index, stream, M, K, N)
     fn = _cuda.function("int8_matmul", "int8_matmul", _ARGS)
     rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            M, K, N, int(x.dtype == torch.bfloat16), _cuda.stream_handle())
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            M, K, N, kc, slices, int(x.dtype == torch.bfloat16), stream)
     _cuda.check(rc, "int8_matmul", "int8_matmul launch")
     int8_matmul.launches += 1
     return out

@@ -19,6 +19,8 @@ from deeplearning4j_tpu_torch.ops import softmax_xent as tsx
 
 #: float32 online softmax against the one-pass plain version
 FLASH_TOL = 2e-5
+#: bfloat16 inputs and output: one bfloat16 ulp of the output
+FLASH_BF16_TOL = 2e-2
 #: float32 backward sums in another order than the plain version's matmuls
 FLASH_BWD_TOL = 2e-5
 #: one bfloat16 ulp at magnitudes below 8
@@ -40,20 +42,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: int8_matmul: float32 sums in another order than cuBLAS; bf16 x is
+#: widened exactly on both sides, so it keeps the float32 bound
+INT8_ATOL, INT8_RTOL = 1e-4, 1e-5
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(4, 256, 768), (16, 1024, 256),
-                                   (3, 200, 130)])
-def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, M, K, N):
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (4, 256, 768, torch.float32),
+    (16, 1024, 256, torch.float32),  # decode's W2 at full capacity
+    (3, 200, 130, torch.float32),    # N % 16 != 0: codes read one by one
+    (1, 256, 768, torch.float32),    # M = 1
+    (2, 256, 256, torch.float32),    # the most K slices
+    (5, 1000, 384, torch.float32),   # K not a multiple of the slice
+    (16, 256, 768, torch.bfloat16)])
+def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, M, K, N, dtype):
+    if (M, K, N) == (5, 1000, 384):
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        kc, slices = tq.int8_matmul_plan(M, K, N, sms)
+        assert slices > 1 and K % kc != 0
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(M, K, generator=g).to(cuda_device)
+    x = torch.randn(M, K, generator=g).to(cuda_device).to(dtype)
     leaf = tq.quantize_per_channel(torch.randn(K, N, generator=g).to(cuda_device))
     before = tq.int8_matmul.launches
     out = tq.int8_matmul(x, leaf.q, leaf.scale)
     torch.cuda.synchronize()
     assert tq.int8_matmul.launches == before + 1
     ref = tq.int8_matmul_plain(x, leaf.q, leaf.scale)
-    # float32 sums in another order than cuBLAS
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out, ref, rtol=INT8_RTOL, atol=INT8_ATOL)
+    # bitwise the same from run to run: partials summed in slice order
+    for _ in range(3):
+        assert torch.equal(tq.int8_matmul(x, leaf.q, leaf.scale), out)
 
 
 @pytest.mark.cuda
@@ -74,26 +93,43 @@ def test_paged_gather_kernel_bitwise_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,causal,masked", [(512, True, False),
-                                             (100, False, True),
-                                             (100, True, True)])
-def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, T, causal, masked):
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,masked,dtype", [
+    (2, 4, 512, 512, 64, True, False, torch.float32),    # predict: 4 splits
+    (16, 4, 256, 256, 64, True, False, torch.float32),   # train: 2 splits
+    (2, 4, 100, 100, 64, False, True, torch.float32),
+    (2, 4, 100, 100, 64, True, True, torch.float32),
+    (2, 4, 100, 100, 32, True, False, torch.float32),    # D = 32
+    (2, 4, 77, 200, 64, False, False, torch.float32),    # Tq != Tk
+    (2, 4, 45, 19, 32, False, True, torch.float32),      # Tk below a tile
+    (1, 1, 333, 333, 64, True, False, torch.float32),    # B * H = 1, ragged
+    (2, 4, 130, 130, 64, True, True, torch.bfloat16)])
+def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
+                                                causal, masked, dtype):
     rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, T, 4, 64))
-                                .astype(np.float32)).to(cuda_device)
-               for _ in range(3))
+    q = torch.from_numpy(rng.standard_normal((B, Tq, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Tk, H, D))
+                             .astype(np.float32)) for _ in range(2))
+    q, k, v = (t.to(cuda_device).to(dtype) for t in (q, k, v))
     km = None
     if masked:
-        m = (rng.random((2, T)) > 0.25).astype(np.float32)
-        m[1, :] = 0.0  # every query row of batch 1 sees no key at all
+        m = (rng.random((B, Tk)) > 0.25).astype(np.float32)
+        m[-1, :] = 0.0  # every query row of the last batch sees no key
         km = torch.from_numpy(m).to(cuda_device)
     before = tfa.flash_fwd.launches
     out, lse = tfa.flash_fwd(q, k, v, causal, key_mask=km)
     torch.cuda.synchronize()
     assert tfa.flash_fwd.launches == before + 1
     ro, rl = tfa.flash_fwd_plain(q, k, v, causal, key_mask=km)
-    torch.testing.assert_close(out, ro, rtol=0, atol=FLASH_TOL)
-    torch.testing.assert_close(lse, rl, rtol=0, atol=FLASH_TOL)
+    tol = FLASH_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ro.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, rl, rtol=0, atol=tol)
+    if masked:
+        assert not out[-1].any()
+    # bitwise the same from run to run: no atomics, a fixed combine order
+    for _ in range(2):
+        o2, l2 = tfa.flash_fwd(q, k, v, causal, key_mask=km)
+        assert torch.equal(o2, out) and torch.equal(l2, lse)
 
 
 @pytest.mark.cuda

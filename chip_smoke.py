@@ -25,6 +25,9 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    weights, on the CPU; checks each step's loss against the CPU run, that the
    loss falls, and the exact launch counts of the training kernels; then
    times train steps and profiles one (device time by kernel, idle share);
+   then runs full-width ``transformer_lm(256, width=512)`` (4 heads of 128):
+   one ``output`` and 2 ``fit`` steps at B = 4, T = 128 against the CPU from
+   the same weights, with exact flash launch counts;
 6. serves full-width ``char_rnn_lstm(64, hidden=200)`` (random weights from
    a seed, float32): 8 concurrent ``/v1/generate`` requests over the LSTM
    decode engine and one ``/v1/stream`` session of 64 steps in two requests,
@@ -48,6 +51,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -84,6 +88,11 @@ TRAIN_B, TRAIN_T, TRAIN_V, TRAIN_STEPS = 16, 256, 256, 5
 #: package's bench geometry), 2 batches of T = 200 = 4 TBPTT chunks of 50
 RNN_V, RNN_H, RNN_B, RNN_T, RNN_CHUNK, RNN_BATCHES = 64, 200, 32, 200, 50, 2
 RNN_DECODE_B = 8
+#: the wide phase: full-width transformer_lm(256, width=512), 4 heads of 128
+WIDE_WIDTH, WIDE_B, WIDE_T, WIDE_STEPS = 512, 4, 128, 2
+#: head dims the flash checks add to the main paths' 64: the kernel widths
+#: 16 and 128, and dims padded to a width (8, 12 -> 16; 40 -> 64)
+FLASH_EDGE_DIMS = (8, 12, 16, 40, 128)
 #: RMSProp rate of the training phase. At the config's own 0.1 the loss
 #: diverges (4.2 -> 44 in 8 chunks) and the card and the CPU drift 2e-4
 #: apart (PERF.md, Findings); at 0.01 the run stays stable. Widths unchanged.
@@ -121,15 +130,19 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def device_ms(fn, iters: int = 50) -> float:
-    """Mean device time of one call of ``fn`` in ms: the device events
-    (kernels, copies) that ``torch.profiler`` records over ``iters`` calls,
-    after a warm-up. Unlike :func:`time_ms` it leaves out the host's time
-    between launches, which dominates a kernel of a few microseconds."""
+    """Mean device time of one call of ``fn`` in ms from ``torch.profiler``
+    over ``iters`` calls, after a warm-up: the device time a recorded event
+    (kernels, copies) times the events a call makes, the median of three
+    sessions. Unlike :func:`time_ms` it leaves out the host's time between
+    launches, which dominates a kernel of a few microseconds."""
     for _ in range(3):
         fn()
-    # a profiler session now and then records no device event at all (seen
-    # once in a run on the H100, after the phases' own profiles): try again
-    for _ in range(3):
+    # a profiler session may record none or only a part of the device
+    # events (seen on the H100: 44 of 50 launches of an 8 us kernel, a third
+    # of a flash kernel's), so the time is taken a recorded event; the
+    # events a call makes come from the fullest session, rounded
+    got = []  # (device events, device us)
+    for _ in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -137,10 +150,42 @@ def device_ms(fn, iters: int = 50) -> float:
                 fn()
             torch.cuda.synchronize()
         us = sum(device_time_by_kernel(prof).values())
-        if us > 0:
-            return us / 1e3 / iters
-        print("device_ms: the profiler saw no device time; again", flush=True)
-    fail("the profiler saw no device time in three sessions")
+        events = sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0 and events > 0:
+            got.append((events, us))
+            if len(got) == 3:
+                per_call = max(1, round(max(n for n, _ in got) / iters))
+                return sorted(us / n * per_call / 1e3 for n, us in got)[1]
+        else:
+            print("device_ms: the profiler saw no device time; again",
+                  flush=True)
+    fail(f"the profiler saw device time in {len(got)} of eight sessions")
+
+
+def ptxas_report(log: str) -> list:
+    """One line a kernel from nvcc's ``-Xptxas -v`` output: the kernel with
+    its template arguments (read from the mangled name), registers, spills."""
+    out, name, spill = [], "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+            p = name.find("_kernelI")
+            if p >= 0:  # e.g. ...19flash_bwd_dq_kernelIfLi64EEEv...
+                start = p
+                while start > 0 and (name[start - 1].islower()
+                                     or name[start - 1] == "_"):
+                    start -= 1
+                args = name[p + len("_kernelI"):].split("EEv")[0]
+                dtype = "bf16" if "bfloat16" in args else "float"
+                ints = re.findall(r"Li(\d+)E", args + "E")
+                name = f"{name[start:p]}_kernel<{', '.join([dtype, *ints])}>"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = line.split("Used")[-1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {spill}")
+    return out
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -299,27 +344,71 @@ def check_flash(rows: list, dev) -> None:
                      {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
                       "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
         DEVICE_TIMED.append((row, kernel, library))
-    # a ragged length, a key mask with a fully masked row, and bfloat16
-    B, T = 2, 100
+    # the wide phase's shape (4 heads of 128), timed beside its bound
+    B, T, D = WIDE_B, WIDE_T, 128
     q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev) for _ in range(3))
-    km = (torch.rand(B, T, generator=g) > 0.3).float()
-    km[1] = 0.0
-    km = km.to(dev)
-    for causal in (False, True):
+    out, lse = flash_fwd(q, k, v, True)
+    ro, rl = flash_fwd_plain(q, k, v, True)
+    err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = B * H * T * (T + 1) / 2
+    nbytes, ops = 4 * B * T * H * D * 4 + B * H * T * 4, 4 * D * pairs
+
+    def kernel(q=q, k=k, v=v):
+        return flash_fwd(q, k, v, True)
+
+    def library(qt=qt, kt=kt, vt=vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    f32_ms, f32_by = bound(nbytes, ops)
+    tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+    row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H, "D": D,
+                                     "causal": True}, err, tol,
+                 time_ms(kernel, iters=20),
+                 time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
+                 time_ms(library, iters=20), nbytes, ops,
+                 {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                  "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
+    DEVICE_TIMED.append((row, kernel, library))
+    # edge shapes: a ragged length, a key mask with a fully masked batch row,
+    # Tq != Tk, every kernel width and padded head dims, bfloat16; each also
+    # bitwise the same from run to run
+    tol_bf16 = 2e-2
+    cases = [(2, 100, 100, 64, False, True, torch.float32),
+             (2, 100, 100, 64, True, True, torch.float32),
+             (2, 130, 130, 64, True, False, torch.bfloat16)]
+    cases += [(2, 100, 100, D, D not in (12, 16), D == 16, torch.float32)
+              for D in FLASH_EDGE_DIMS]
+    cases += [(2, 77, 200, 128, False, True, torch.float32),
+              (2, 100, 100, 128, True, True, torch.float32),
+              (2, 130, 130, 128, True, True, torch.bfloat16),
+              (2, 100, 100, 12, True, True, torch.bfloat16)]
+    for B, Tq, Tk, D, causal, masked, dt in cases:
+        q = torch.randn(B, Tq, H, D, generator=g).to(dev).to(dt)
+        k, v = (torch.randn(B, Tk, H, D, generator=g).to(dev).to(dt)
+                for _ in range(2))
+        km = None
+        if masked:
+            km = (torch.rand(B, Tk, generator=g) > 0.3).float()
+            km[1] = 0.0  # every query row of batch 1 sees no key at all
+            km = km.to(dev)
         out, lse = flash_fwd(q, k, v, causal, key_mask=km)
+        again = flash_fwd(q, k, v, causal, key_mask=km)
         ro, rl = flash_fwd_plain(q, k, v, causal, key_mask=km)
-        err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
-        print(f"flash_fwd masked T={T} causal={causal}: max_abs_err={err:.3e}",
+        torch.cuda.synchronize()
+        err = max(float((out.float() - ro.float()).abs().max()),
+                  float((lse - rl).abs().max()))
+        t = tol if dt == torch.float32 else tol_bf16
+        shape = {"B": B, "Tq": Tq, "Tk": Tk, "H": H, "D": D,
+                 "causal": causal, "masked": masked, "dtype": str(dt)}
+        print(f"flash_fwd {shape}: max_abs_err={err:.3e} (tol {t:.0e})",
               flush=True)
-        if not err <= tol:
-            fail(f"masked flash_fwd disagrees: {err}")
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    out, _ = flash_fwd(qb, kb, vb, True)
-    ro, _ = flash_fwd_plain(qb, kb, vb, True)
-    err = float((out.float() - ro.float()).abs().max())
-    print(f"flash_fwd bf16: max_abs_err={err:.3e}", flush=True)
-    if not err <= 2e-2:
-        fail(f"bfloat16 flash_fwd disagrees: {err}")
+        if not err <= t:
+            fail(f"flash_fwd {shape} disagrees with its plain version: {err}")
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            fail(f"flash_fwd {shape} differs from run to run")
+        if masked and out[1].any():
+            fail(f"flash_fwd {shape}: a fully masked batch row is not 0")
 
 
 def check_xent(rows: list, dev) -> None:
@@ -350,34 +439,49 @@ def check_xent(rows: list, dev) -> None:
         xl = x.float().clone().requires_grad_(True)
         yl = y.float()
 
-        def library():
+        def kernel(x=x, y=y):
+            return softmax_cross_entropy(x, y)
+
+        def library(xl=xl, yl=yl):
             return torch.autograd.grad(
                 F.cross_entropy(xl, yl, reduction="sum"), xl)
 
         elt = x.element_size()
-        report(rows, "sm_xent", {"N": N, "C": C, "dtype": str(dt)},
-               max(lerr, gerr), max(loss_tol, grad_tol),
-               time_ms(lambda: softmax_cross_entropy(x, y)),
-               time_ms(lambda: softmax_cross_entropy_plain(x, y)),
-               time_ms(library) if dt == torch.float32 else None,
-               3 * N * C * elt + N * 4, 6 * N * C)
+        row = report(rows, "sm_xent", {"N": N, "C": C, "dtype": str(dt)},
+                     max(lerr, gerr), max(loss_tol, grad_tol),
+                     time_ms(kernel),
+                     time_ms(lambda: softmax_cross_entropy_plain(x, y)),
+                     time_ms(library) if dt == torch.float32 else None,
+                     3 * N * C * elt + N * 4, 6 * N * C)
+        if (N, C, dt) == (TRAIN_B * TRAIN_T, TRAIN_V, torch.float32):
+            DEVICE_TIMED.append((row, kernel, library))
 
 
 def check_flash_bwd(rows: list, dev) -> None:
     """Kernels 2 and 3 at the training path's shape (B 16, T 256, 4 heads
-    of 64, causal, float32) and at edge shapes: not causal, a ragged T = 100,
-    a key mask that fully masks one batch row, D = 32 and bfloat16. Their
-    yardstick is the backward of ``scaled_dot_product_attention``."""
+    of 64, causal, float32), at the wide phase's (B 4, T 128, 4 heads of
+    128) and at edge shapes: not causal, a ragged T = 100, a key mask that
+    fully masks one batch row, every kernel width and padded head dims, and
+    bfloat16; each bitwise the same from run to run. Their yardstick is the
+    backward of ``scaled_dot_product_attention``."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
     # float32 sums in another order than the plain version's matmuls; one
     # bfloat16 ulp at magnitudes below 8
     tol, tol_bf16 = 2e-5, 3.2e-2
+    timed = {(TRAIN_B, TRAIN_T, 64), (WIDE_B, WIDE_T, 128)}
     cases = [(TRAIN_B, TRAIN_T, 4, 64, True, False, torch.float32),
+             (WIDE_B, WIDE_T, 4, 128, True, False, torch.float32),
              (2, 100, 4, 64, False, True, torch.float32),
              (2, 100, 4, 64, True, True, torch.float32),
              (2, 100, 4, 32, True, False, torch.float32),
              (2, 256, 4, 64, False, False, torch.float32),
              (2, 128, 4, 64, True, False, torch.bfloat16)]
+    cases += [(2, 100, 4, D, D not in (12, 16), D == 16, torch.float32)
+              for D in FLASH_EDGE_DIMS]
+    cases += [(2, 100, 4, 128, True, True, torch.float32),
+              (2, 100, 4, 128, False, False, torch.bfloat16),
+              (2, 100, 4, 8, True, True, torch.bfloat16),
+              (2, 100, 4, 40, False, False, torch.bfloat16)]
     for B, T, H, D, causal, masked, dt in cases:
         q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev).to(dt)
                        for _ in range(4))
@@ -390,6 +494,8 @@ def check_flash_bwd(rows: list, dev) -> None:
         delta = bwd_delta(out, do)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, km)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, km)
+        dq2 = flash_bwd_dq(q, k, v, do, lse, delta, causal, km)
+        dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta, causal, km)
         rq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, km)
         rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, km)
         torch.cuda.synchronize()
@@ -399,7 +505,10 @@ def check_flash_bwd(rows: list, dev) -> None:
         t = tol if dt == torch.float32 else tol_bf16
         shape = {"B": B, "T": T, "H": H, "D": D, "causal": causal,
                  "masked": masked, "dtype": str(dt)}
-        if not (B == TRAIN_B and T == TRAIN_T):
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            fail(f"flash_bwd {shape} differs from run to run")
+        if (B, T, D) not in timed:
             print(f"flash_bwd {shape}: dq max_abs_err={eq:.3e}, dk/dv "
                   f"max_abs_err={ekv:.3e} (tol {t:.1e})", flush=True)
             if not (eq <= t and ekv <= t):
@@ -410,7 +519,7 @@ def check_flash_bwd(rows: list, dev) -> None:
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2).contiguous()
 
-        def library():
+        def library(ot=ot, qt=qt, kt=kt, vt=vt, dot=dot):
             return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                        retain_graph=True)
 
@@ -418,18 +527,29 @@ def check_flash_bwd(rows: list, dev) -> None:
         pairs = B * H * (T * (T + 1) / 2 if causal else T * T)
         row = B * T * H * D * 4
         stats = B * H * T * 4
-        report(rows, "flash_bwd_dq", shape, eq, t,
-               time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, causal,
-                                            km), iters=20),
-               time_ms(lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                  causal, km), iters=20),
-               lib_ms, 5 * row + 2 * stats, 6 * D * pairs)
-        report(rows, "flash_bwd_dkv", shape, ekv, t,
-               time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal,
-                                             km), iters=20),
-               time_ms(lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                                   causal, km), iters=20),
-               lib_ms, 6 * row + 2 * stats, 8 * D * pairs)
+        # every product as three TF32 passes on the tensor cores: the bound
+        # is that work at the TF32 peak; the float32 bound (the same products
+        # on the CUDA cores) is kept beside it
+        for name, nbytes, ops, kernel, plain in (
+                ("flash_bwd_dq", 5 * row + 2 * stats, 6 * D * pairs,
+                 lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta, c=causal,
+                 m=km: flash_bwd_dq(q, k, v, do, lse, delta, c, m),
+                 lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                            km)),
+                ("flash_bwd_dkv", 6 * row + 2 * stats, 8 * D * pairs,
+                 lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta, c=causal,
+                 m=km: flash_bwd_dkv(q, k, v, do, lse, delta, c, m),
+                 lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                             km))):
+            f32_ms, f32_by = bound(nbytes, ops)
+            tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+            r = report(rows, name, shape,
+                       eq if name == "flash_bwd_dq" else ekv, t,
+                       time_ms(kernel, iters=20), time_ms(plain, iters=20),
+                       lib_ms, nbytes, ops,
+                       {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                        "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
+            DEVICE_TIMED.append((r, kernel, library))
 
 
 def _lstm_args(dev, g, T, B, F, H, peephole, masked):
@@ -547,13 +667,20 @@ def check_lstm(rows: list, dev) -> None:
                      time_ms(kernel, iters=iters),
                      time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
                      time_ms(lib_f, iters=iters), fb, fo)
-        if T == 1:  # decode and stream steps: a few microseconds of device
-            DEVICE_TIMED.append((row, kernel, lib_f))
+        # every main-path shape: decode and stream steps (a few microseconds
+        # of device) and the training chunks
+        DEVICE_TIMED.append((row, kernel, lib_f))
         worst = max(range(6), key=lambda i: berrs[i] / btols[i])
-        report(rows, "lstm_bwd", shape, berrs[worst], btols[worst],
-               time_ms(lambda: lstm_ops.lstm_bwd(**ba), iters=iters),
-               time_ms(lambda: lstm_ops.lstm_bwd_plain(**ba), iters=5),
-               time_ms(lib_fb, iters=iters), bb, bo)
+
+        def bkernel(ba=ba):
+            return lstm_ops.lstm_bwd(**ba)
+
+        row = report(rows, "lstm_bwd", shape, berrs[worst], btols[worst],
+                     time_ms(bkernel, iters=iters),
+                     time_ms(lambda: lstm_ops.lstm_bwd_plain(**ba), iters=5),
+                     time_ms(lib_fb, iters=iters), bb, bo)
+        if T > 1:  # the backward runs in training only
+            DEVICE_TIMED.append((row, bkernel, lib_fb))
 
 
 def post(port: int, path: str, body: dict):
@@ -748,6 +875,65 @@ def train(kernels) -> dict:
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         print(f"  train step device time {name}: {us:.1f} us", flush=True)
     return result
+
+
+def train_wide(kernels) -> dict:
+    """Full-width ``transformer_lm(256, width=512)``, 4 heads of 128 (the
+    flash kernels' widest instantiation): one ``output`` and ``WIDE_STEPS``
+    ``fit`` steps on the card against the same calls on the CPU from the same
+    weights, with the exact launches of each."""
+    conf = transformer_lm(TRAIN_V, width=WIDE_WIDTH)
+    ids = np.random.default_rng(SEED + 4).integers(
+        0, TRAIN_V, size=(WIDE_B, WIDE_T))
+    x = np.eye(TRAIN_V, dtype=np.float32)[ids]
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+
+    for fn in kernels:
+        fn.launches = 0
+    out = net.output(x)
+    torch.cuda.synchronize()
+    out_launches = {fn.__name__: fn.launches for fn in kernels}
+    for fn in kernels:
+        fn.launches = 0
+    losses = []
+    for _ in range(WIDE_STEPS):
+        net.fit(x, x)
+        losses.append(net.score_value)
+    fit_launches = {fn.__name__: fn.launches for fn in kernels}
+
+    ref_out = ref.output(x)
+    ref_losses = []
+    for _ in range(WIDE_STEPS):
+        ref.fit(x, x)
+        ref_losses.append(ref.score_value)
+    # as the serving and training phases: the output within 1e-4 of the CPU
+    # forward, each loss within 1e-4 relative of the CPU step
+    out_err = float((out.cpu() - ref_out).abs().max())
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"wide transformer_lm(width={WIDE_WIDTH}, 4 heads of 128) B={WIDE_B} "
+          f"T={WIDE_T}: output max_abs_err {out_err:.3e} (tol 1e-4); card "
+          f"losses {losses}, CPU {ref_losses}, worst relative difference "
+          f"{max(rel):.3e} (tol 1e-4); launches output {out_launches}, fit "
+          f"{fit_launches}", flush=True)
+    if tuple(out.shape) != (WIDE_B, WIDE_T, TRAIN_V) \
+            or not bool(torch.isfinite(out).all()) or not out_err <= 1e-4:
+        fail(f"wide output {tuple(out.shape)} disagrees with the CPU: {out_err}")
+    if not all(np.isfinite(losses)) or not max(rel) <= 1e-4:
+        fail(f"wide losses on the card {losses} disagree with the CPU run "
+             f"{ref_losses}")
+    want_out = {fn.__name__: 0 for fn in kernels}
+    want_fit = dict(want_out)
+    want_out["flash_fwd"] = 4  # one attention forward a block
+    want_fit.update(flash_fwd=4 * WIDE_STEPS, flash_bwd_dq=4 * WIDE_STEPS,
+                    flash_bwd_dkv=4 * WIDE_STEPS,
+                    softmax_cross_entropy=WIDE_STEPS)
+    if out_launches != want_out or fit_launches != want_fit:
+        fail(f"wide launch counts output {out_launches} != {want_out} or fit "
+             f"{fit_launches} != {want_fit}")
+    return {"output_launches": out_launches, "launches": fit_launches,
+            "output_max_abs_err": out_err, "losses": losses,
+            "cpu_losses": ref_losses, "worst_rel_diff": max(rel)}
 
 
 class _LossLog:
@@ -1007,9 +1193,8 @@ def main() -> None:
     print(f"built {_cuda.sources()} with nvcc for sm_90a in {build_s:.1f}s",
           flush=True)
     for name, log in sorted(_cuda.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for entry in ptxas_report(log):
+            print(f"  {name}: {entry}", flush=True)
 
     dev = torch.device("cuda")
     rows: list = []
@@ -1025,17 +1210,20 @@ def main() -> None:
                lstm_ops.lstm_bwd)
     served = serve(kernels[:3])
     trained = train(kernels[:6])
+    wide = train_wide(kernels)
     served_rnn = serve_lstm(kernels)
     trained_rnn = train_lstm(kernels)
     measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
     # capacity 8 (M = 8, the widest matmul), predict at B = 2, training at
-    # B = 16, T = 256; flash_fwd runs on both paths and also carries its
-    # training-shape numbers under "by_path"
-    train_shape = {"B": TRAIN_B, "T": TRAIN_T}
+    # B = 16, T = 256; the flash kernels also carry the numbers of their
+    # other paths (training, the wide phase at D = 128) under "by_path"
+    train_shape = {"B": TRAIN_B, "T": TRAIN_T, "D": 64}
+    wide_shape = {"B": WIDE_B, "T": WIDE_T, "D": 128}
     main_shape = {"int8_matmul": {"M": 8, "K": 256, "N": 1024},
-                  "paged_gather": {"cap": 8}, "flash_fwd": {"B": 2, "T": 512},
+                  "paged_gather": {"cap": 8},
+                  "flash_fwd": {"B": 2, "T": 512, "D": 64},
                   "sm_xent": {"N": TRAIN_B * TRAIN_T, "C": TRAIN_V,
                               "dtype": "torch.float32"},
                   "flash_bwd_dq": train_shape, "flash_bwd_dkv": train_shape}
@@ -1051,8 +1239,9 @@ def main() -> None:
 
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "shape")
-    #: present on some rows only: profiler device times, flash_fwd's float32
-    #: bound, the card of the redesigned kernels' rows, int8_matmul's plan
+    #: present on some rows only: profiler device times, the flash kernels'
+    #: float32 bound, the card of the redesigned kernels' rows, int8_matmul's
+    #: plan
     optional = ("device_ms", "library_device_ms", "bound_f32_ms",
                 "bound_f32_by", "card", "plan")
 
@@ -1102,6 +1291,8 @@ def main() -> None:
             continue
         by_path = {"serve": served["launches"].get(fname, 0),
                    "train": trained["launches"][fname],
+                   "wide": wide["output_launches"][fname]
+                   + wide["launches"][fname],
                    "rnn": trained_rnn["launches"][fname]
                    + served_rnn["decode_launches"][fname]
                    + served_rnn["stream_launches"][fname]}
@@ -1117,12 +1308,20 @@ def main() -> None:
                 "serve": {"launches": by_path["serve"],
                           **nums(row)},
                 "train": {"launches": by_path["train"],
-                          **nums(row_at(name, train_shape))}}
+                          **nums(row_at(name, train_shape))},
+                "wide": {"launches": by_path["wide"],
+                         **nums(row_at(name, wide_shape))}}
+        elif name.startswith("flash_bwd"):
+            entry["by_path"] = {
+                "train": {"launches": by_path["train"], **nums(row)},
+                "wide": {"launches": by_path["wide"],
+                         **nums(row_at(name, wide_shape))}}
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "rows": rows,
-                   "serve": served, "train": trained, "serve_rnn": served_rnn,
+                   "serve": served, "train": trained, "train_wide": wide,
+                   "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

@@ -15,6 +15,14 @@
 // D = 64 does 4 * D operations per (query, key) pair on 2 * D * 4 bytes per
 // row, well above the ridge of either the CUDA cores or the tensor cores.
 //
+// Head dims: any D in 1..128. The kernel is instantiated at widths W of 16,
+// 32, 64 and 128; a D between two is padded with zeros to the next width in
+// shared memory and registers (zero columns add exactly 0 to Q.K^T and P.V,
+// and the padded output columns are never written). The logit scale is the
+// caller's 1/sqrt(D) of the true D. The width, the key splits and the
+// shared-memory bytes come from ops/flash_attention.py flash_plan; the
+// launch refuses a plan whose bytes differ from the instantiation's.
+//
 // What the design does about it:
 // - Both products, S = Q.K^T and O += P.V, run on the tensor cores as
 //   mma.sync m16n8k8 TF32 with float32 accumulation. Float32 accuracy is
@@ -22,7 +30,8 @@
 //   tf32(a - hi) (tf32() drops the low 13 mantissa bits) and summing
 //   hi.lo + lo.hi + hi.hi: three TF32 passes, about float32's error
 //   (tests/test_torch_kernel_design.py emulates it on the CPU). The
-//   dropped lo.lo term is below 2^-22 of the product.
+//   dropped lo.lo term is below 2^-22 of the product. The helpers are in
+//   tf32_mma.cuh, shared with flash_bwd.cu.
 // - One warp owns 16 query rows. S and P stay in registers as mma
 //   accumulator fragments; the online softmax runs on the fragment rows,
 //   with a row max across the 4 lanes of a row by two xor-shuffles. Lane
@@ -39,10 +48,14 @@
 //   3 blocks an SM); 128 at the predict shape (B * H = 8, T = 512), fewer
 //   than 2 an SM, where S = 4 (8 warps a block), which doubles the warps in
 //   flight and halves the longest chain of key tiles (the last causal
-//   query tile). The launch picks S from the grid and the SM count.
+//   query tile). The plan picks S from the grid and the SM count. At
+//   W = 128 a split's double-buffered K/V tiles take 67.6 KB, so S is 2
+//   (152.6 KB a block with Q), and the scaled query waits in shared memory
+//   and is split per use: held pre-split it would take 128 registers a
+//   lane beside a 64-register accumulator.
 // - K and V tiles of BK = 32 keys come in with cp.async (16 bytes a thread,
 //   float32; bfloat16 and unaligned operands are converted through plain
-//   loads), double-buffered, into rows padded to D + 4 floats, so that both
+//   loads), double-buffered, into rows padded to W + 4 floats, so that both
 //   fragment reads (K at row g, column t; V at rows 2t, 2t + 1, column g)
 //   hit 32 distinct banks.
 // - Under a causal mask the key loop stops at the block's last query row,
@@ -52,12 +65,13 @@
 // - Ragged Tq and Tk are masked, so any length is taken. No atomics: the
 //   result is bitwise the same from run to run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
+
+using namespace tf32mma;
 
 constexpr int ROWS = 16;             // query rows of a warp (mma M)
 constexpr int GROUPS = 2;            // row groups of a block
@@ -65,90 +79,53 @@ constexpr int BQ = ROWS * GROUPS;    // query rows of a block
 constexpr int BK = 32;               // keys of a tile
 constexpr int NB = BK / 8;           // 8-key mma blocks of a tile
 constexpr float NEG = -1e30f;
-constexpr uint32_t TF32_MASK = 0xffffe000u;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// At W = 128 the scaled query waits in shared memory (split per use);
+// below it, it is held in registers, split once.
+template <int W> __host__ __device__ constexpr bool q_in_smem() { return W > 64; }
 
-// x = hi + lo exactly; both truncated to TF32 (the low 13 mantissa bits
-// zero), so the tensor core reads them as they are.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & TF32_MASK;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
-                                    uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// d += a.b in split TF32: the two small cross terms first, then hi.hi.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
-  mma(d, al[0], al[1], al[2], al[3], bh0, bh1);
-  mma(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = ok ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-template <int D, int SPLITS>
+// All float32, so the size is the sum the plan computes (no padding).
+template <int W, int SPLITS>
 struct Smem {
-  static constexpr int LD = D + 4;  // padded row: conflict-free fragments
+  static constexpr int LD = W + 4;  // padded row: conflict-free fragments
   float k[2][SPLITS][BK][LD];
   float v[2][SPLITS][BK][LD];
   float km[2][SPLITS][BK];
+  float q[q_in_smem<W>() ? BQ : 1][LD];
 };
 
-// Stage `buf` gets key tiles it * SPLITS + s, s < SPLITS.
-template <typename T, int D, int SPLITS>
-__device__ __forceinline__ void load_stage(Smem<D, SPLITS>& sm, int buf, int it,
+// Stage `buf` gets key tiles it * SPLITS + s, s < SPLITS; columns D .. W - 1
+// and keys past Tk are zeros.
+template <typename T, int W, int SPLITS>
+__device__ __forceinline__ void load_stage(Smem<W, SPLITS>& sm, int buf, int it,
                                            const T* __restrict__ k,
                                            const T* __restrict__ v,
                                            const float* __restrict__ key_mask,
-                                           int b, int h, int H, int Tk,
+                                           int b, int h, int H, int Tk, int D,
                                            bool vec) {
   constexpr int THREADS = GROUPS * SPLITS * 32;
   const int tid = threadIdx.x;
-  constexpr int CH = D / 4;  // 16-byte chunks of a row
+  constexpr int CH = W / 4;  // 16-byte chunks of a row
   for (int idx = tid; idx < SPLITS * BK * CH; idx += THREADS) {
     const int s = idx / (BK * CH);
     const int j = (idx / CH) % BK;
     const int c = idx % CH;
     const int t = (it * SPLITS + s) * BK + j;
     const bool ok = t < Tk;
-    const size_t off = (((size_t)b * Tk + (ok ? t : 0)) * H + h) * D + c * 4;
+    const size_t off = (((size_t)b * Tk + (ok ? t : 0)) * H + h) * D;
     float* kd = &sm.k[buf][s][j][c * 4];
     float* vd = &sm.v[buf][s][j][c * 4];
-    if (vec) {
-      cp_async16(kd, k + off, ok);
-      cp_async16(vd, v + off, ok);
+    if (vec) {  // D % 4 == 0: a chunk lies wholly inside or past D
+      const bool in = ok && c * 4 < D;
+      const size_t o = in ? off + c * 4 : off;
+      cp_async16(kd, k + o, in);
+      cp_async16(vd, v + o, in);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        kd[e] = ok ? to_f32(k[off + e]) : 0.f;
-        vd[e] = ok ? to_f32(v[off + e]) : 0.f;
+        const bool in = ok && c * 4 + e < D;
+        kd[e] = in ? to_f32(k[off + c * 4 + e]) : 0.f;
+        vd[e] = in ? to_f32(v[off + c * 4 + e]) : 0.f;
       }
     }
   }
@@ -161,15 +138,21 @@ __device__ __forceinline__ void load_stage(Smem<D, SPLITS>& sm, int buf, int it,
   }
 }
 
-template <typename T, int D, int SPLITS>
+// PAD: D < W, padded with zeros. Without it D is the compile-time W, and
+// the kernel compiles as it did before head dims were generalized: a
+// runtime D in every address and column check slowed the D = 64 predict
+// shape measurably.
+template <typename T, int W, int SPLITS, bool PAD>
 __global__ void __launch_bounds__(GROUPS * SPLITS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ key_mask,
                  T* __restrict__ out, float* __restrict__ lse, int BH, int H,
-                 int Tq, int Tk, float scale, int causal, int vec) {
-  constexpr int KD = D / 8;  // 8-wide steps over the head dim
+                 int Tq, int Tk, int d_arg, float scale, int causal, int vec) {
+  constexpr int KD = W / 8;  // 8-wide steps over the (padded) head dim
+  const int D = PAD ? d_arg : W;
+  constexpr bool QS = q_in_smem<W>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using Sm = Smem<D, SPLITS>;
+  using Sm = Smem<W, SPLITS>;
   Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
 
   // heaviest first: the first BH blocks take the last query tile
@@ -189,17 +172,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r1 = r0 + 8;
   const int warp_last = q0 + grp * ROWS + ROWS - 1;
 
-  // the scaled query as A fragments, split once
-  uint32_t qh[KD][4], ql[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = (e & 1) ? r1 : r0;
-      const int d = kk * 8 + t4 + ((e & 2) ? 4 : 0);
-      const float x = row < Tq
+  // the scaled query: as A fragments split once (W <= 64), or in shared
+  // memory (W = 128; made visible by the first barrier of the key loop)
+  uint32_t qh[QS ? 1 : KD][4], ql[QS ? 1 : KD][4];
+  if constexpr (QS) {
+    for (int idx = threadIdx.x; idx < BQ * W; idx += GROUPS * SPLITS * 32) {
+      const int r = idx / W, d = idx % W;
+      const int row = q0 + r;
+      sm.q[r][d] = row < Tq && d < D
           ? to_f32(q[(((size_t)b * Tq + row) * H + h) * D + d]) * scale : 0.f;
-      split(x, qh[kk][e], ql[kk][e]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = (e & 1) ? r1 : r0;
+        const int d = kk * 8 + t4 + ((e & 2) ? 4 : 0);
+        const float x = row < Tq && d < D
+            ? to_f32(q[(((size_t)b * Tq + row) * H + h) * D + d]) * scale : 0.f;
+        split(x, qh[kk][e], ql[kk][e]);
+      }
     }
   }
 
@@ -216,12 +209,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_it = (n_kt + SPLITS - 1) / SPLITS;
   const bool use_cp = vec != 0;
 
-  if (n_it > 0) load_stage<T, D, SPLITS>(sm, 0, 0, k, v, key_mask, b, h, H, Tk, use_cp);
+  if (n_it > 0)
+    load_stage<T, W, SPLITS>(sm, 0, 0, k, v, key_mask, b, h, H, Tk, D, use_cp);
   cp_async_commit();
   for (int it = 0; it < n_it; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_it)
-      load_stage<T, D, SPLITS>(sm, buf ^ 1, it + 1, k, v, key_mask, b, h, H, Tk, use_cp);
+      load_stage<T, W, SPLITS>(sm, buf ^ 1, it + 1, k, v, key_mask, b, h, H,
+                               Tk, D, use_cp);
     cp_async_commit();
     cp_async_wait_1();
     __syncthreads();
@@ -237,23 +232,41 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // independent mma chains, then one add
       float s[NB][4], sx[NB][4];
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nb][e] = sx[nb][e] = 0.f;
+      if constexpr (QS) {
+        // the query fragment is read and split once per 8 columns, for
+        // every key block
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(ks[nb * 8 + g][kk * 8 + t4], bh0, bl0);
-          split(ks[nb * 8 + g][kk * 8 + t4 + 4], bh1, bl1);
-          const uint32_t(&ah)[4] = qh[kk];
-          const uint32_t(&al)[4] = ql[kk];
-          mma(sx[nb], ah[0], ah[1], ah[2], ah[3], bl0, bl1);
-          mma(sx[nb], al[0], al[1], al[2], al[3], bh0, bh1);
-          mma(s[nb], ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+          uint32_t ah[4], al[4];
+          frag_a<Sm::LD>(sm.q, grp * ROWS, kk * 8, g, t4, ah, al);
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(ks[nb * 8 + g][kk * 8 + t4], bh0, bl0);
+            split(ks[nb * 8 + g][kk * 8 + t4 + 4], bh1, bl1);
+            mma_split<false, false>(s[nb], sx[nb], ah, al, bh0, bh1, bl0, bl1);
+          }
         }
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(ks[nb * 8 + g][kk * 8 + t4], bh0, bl0);
+            split(ks[nb * 8 + g][kk * 8 + t4 + 4], bh1, bl1);
+            mma_split<false, false>(s[nb], sx[nb], qh[kk], ql[kk], bh0, bh1,
+                                    bl0, bl1);
+          }
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nb][e] += sx[nb][e];
-      }
       // mask, then the tile's row max (4 lanes share a row)
       float mx0 = NEG, mx1 = NEG;
 #pragma unroll
@@ -361,12 +374,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float ls0 = fmaxf(l0, 1e-20f);
   const float ls1 = fmaxf(l1, 1e-20f);
+  // columns D .. W - 1 are padding: never written
   if (r0 < Tq) {
     T* op = out + (((size_t)b * Tq + r0) * H + h) * D;
 #pragma unroll
     for (int nd = 0; nd < KD; ++nd) {
-      store(op + nd * 8 + 2 * t4, acc[nd][0] / ls0);
-      store(op + nd * 8 + 2 * t4 + 1, acc[nd][1] / ls0);
+      const int d = nd * 8 + 2 * t4;
+      if (d < D) store(op + d, acc[nd][0] / ls0);
+      if (d + 1 < D) store(op + d + 1, acc[nd][1] / ls0);
     }
     if (t4 == 0) lse[(size_t)bh * Tq + r0] = m0 + logf(ls0);
   }
@@ -374,71 +389,90 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = out + (((size_t)b * Tq + r1) * H + h) * D;
 #pragma unroll
     for (int nd = 0; nd < KD; ++nd) {
-      store(op + nd * 8 + 2 * t4, acc[nd][2] / ls1);
-      store(op + nd * 8 + 2 * t4 + 1, acc[nd][3] / ls1);
+      const int d = nd * 8 + 2 * t4;
+      if (d < D) store(op + d, acc[nd][2] / ls1);
+      if (d + 1 < D) store(op + d + 1, acc[nd][3] / ls1);
     }
     if (t4 == 0) lse[(size_t)bh * Tq + r1] = m1 + logf(ls1);
   }
 }
 
-template <typename T, int D, int SPLITS>
-cudaError_t launch_d(const T* q, const T* k, const T* v, const float* km,
-                     T* out, float* lse, int B, int H, int Tq, int Tk,
-                     float scale, int causal, int vec, cudaStream_t s) {
-  const int smem = sizeof(Smem<D, SPLITS>);
+template <typename T, int W, int SPLITS, bool PAD>
+cudaError_t launch_pad(const T* q, const T* k, const T* v, const float* km,
+                       T* out, float* lse, int B, int H, int Tq, int Tk,
+                       int D, int smem, float scale, int causal, int vec,
+                       cudaStream_t s) {
   static bool attr_set = false;  // idempotent: a race only sets it twice
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D, SPLITS>,
+        flash_fwd_kernel<T, W, SPLITS, PAD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const int grid = B * H * ((Tq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D, SPLITS><<<grid, GROUPS * SPLITS * 32, smem, s>>>(
-      q, k, v, km, out, lse, B * H, H, Tq, Tk, scale, causal, vec);
+  flash_fwd_kernel<T, W, SPLITS, PAD><<<grid, GROUPS * SPLITS * 32, smem, s>>>(
+      q, k, v, km, out, lse, B * H, H, Tq, Tk, D, scale, causal, vec);
   return cudaGetLastError();
 }
 
-// Two key splits (4 warps, 70 KB of shared memory at D = 64, up to 3
-// blocks an SM) when the grid gives every SM 2 blocks or more; else four
-// (8 warps, 139 KB, 1 block an SM), which doubles the warps in flight and
-// halves the longest chain of key tiles where there are too few blocks to
-// fill the card (the predict shape: 128 blocks). Both combine in split
+template <typename T, int W, int SPLITS>
+cudaError_t launch_w(const T* q, const T* k, const T* v, const float* km,
+                     T* out, float* lse, int B, int H, int Tq, int Tk, int D,
+                     int smem, float scale, int causal, int vec,
+                     cudaStream_t s) {
+  if (smem != (int)sizeof(Smem<W, SPLITS>)) return cudaErrorInvalidValue;
+  if (D == W)
+    return launch_pad<T, W, SPLITS, false>(q, k, v, km, out, lse, B, H, Tq, Tk, D, smem, scale, causal, vec, s);
+  return launch_pad<T, W, SPLITS, true>(q, k, v, km, out, lse, B, H, Tq, Tk, D, smem, scale, causal, vec, s);
+}
+
+// The plan (ops/flash_attention.py flash_plan) picks the width and the key
+// splits: 2 splits (4 warps, 70 KB at W = 64, up to 3 blocks an SM) when
+// the grid gives every SM 2 blocks or more, else 4 (8 warps, 139 KB, 1
+// block an SM), which doubles the warps in flight and halves the longest
+// chain of key tiles where there are too few blocks to fill the card (the
+// predict shape: 128 blocks); always 2 at W = 128. Both combine in split
 // order, so a shape on a given card always takes the same one.
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch_splits(const T* q, const T* k, const T* v, const float* km,
                           T* out, float* lse, int B, int H, int Tq, int Tk,
-                          float scale, int causal, int vec, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * H * ((Tq + BQ - 1) / BQ);
-  if (blocks < 2LL * sms)
-    return launch_d<T, D, 4>(q, k, v, km, out, lse, B, H, Tq, Tk, scale, causal, vec, s);
-  return launch_d<T, D, 2>(q, k, v, km, out, lse, B, H, Tq, Tk, scale, causal, vec, s);
+                          int D, int splits, int smem, float scale, int causal,
+                          int vec, cudaStream_t s) {
+  if (splits == 2)
+    return launch_w<T, W, 2>(q, k, v, km, out, lse, B, H, Tq, Tk, D, smem, scale, causal, vec, s);
+  if constexpr (W <= 64) {
+    if (splits == 4)
+      return launch_w<T, W, 4>(q, k, v, km, out, lse, B, H, Tq, Tk, D, smem, scale, causal, vec, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* km, void* out, float* lse, int B, int H,
-                   int Tq, int Tk, int D, float scale, int causal,
-                   cudaStream_t s) {
+                   int Tq, int Tk, int D, int W, int splits, int smem,
+                   float scale, int causal, cudaStream_t s) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   T* oo = static_cast<T*>(out);
+  if (D < 1 || D > W) return cudaErrorInvalidValue;
   // cp.async moves float32 rows 16 bytes at a time from 16-byte aligned
-  // k and v; anything else is converted through plain loads
-  const int vec = sizeof(T) == 4 && (reinterpret_cast<uintptr_t>(k) % 16 == 0)
+  // k and v whose rows are whole chunks; anything else is converted
+  // through plain loads
+  const int vec = sizeof(T) == 4 && D % 4 == 0
+                  && (reinterpret_cast<uintptr_t>(k) % 16 == 0)
                   && (reinterpret_cast<uintptr_t>(v) % 16 == 0);
-  switch (D) {
+  switch (W) {
+    case 16:
+      return launch_splits<T, 16>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, D, splits, smem, scale, causal, vec, s);
     case 32:
-      return launch_splits<T, 32>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, scale, causal, vec, s);
+      return launch_splits<T, 32>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, D, splits, smem, scale, causal, vec, s);
     case 64:
-      return launch_splits<T, 64>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, scale, causal, vec, s);
+      return launch_splits<T, 64>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, D, splits, smem, scale, causal, vec, s);
+    case 128:
+      return launch_splits<T, 128>(qq, kk, vv, km, oo, lse, B, H, Tq, Tk, D, splits, smem, scale, causal, vec, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -448,14 +482,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* key_mask, void* out, void* lse, int B,
-                         int H, int Tq, int Tk, int D, float scale, int causal,
-                         int is_bf16, void* stream) {
+                         int H, int Tq, int Tk, int D, int W, int splits,
+                         int smem, float scale, int causal, int is_bf16,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* km = static_cast<const float*>(key_mask);
   float* l = static_cast<float*>(lse);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, km, out, l, B, H, Tq, Tk, D, scale, causal, s)
-              : launch<float>(q, k, v, km, out, l, B, H, Tq, Tk, D, scale, causal, s);
+      is_bf16 ? launch<__nv_bfloat16>(q, k, v, km, out, l, B, H, Tq, Tk, D, W, splits, smem, scale, causal, s)
+              : launch<float>(q, k, v, km, out, l, B, H, Tq, Tk, D, W, splits, smem, scale, causal, s);
   return static_cast<int>(err);
 }
 

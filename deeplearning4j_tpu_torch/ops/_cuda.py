@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, at first use, and
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds. Libraries go to ``_build/`` inside the package (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. :func:`build` starts one
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. :func:`build` starts one
 ``nvcc`` per source, all at once.
 
 ``csrc/lstm.cu`` synchronizes its grid with cooperative groups'
@@ -64,6 +65,8 @@ def nvcc() -> str:
 
 def _so_path(name: str) -> Path:
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -4,10 +4,12 @@ Counterpart of the flash half of ``deeplearning4j_tpu/ops/pallas_kernels.py``
 (``_flash_forward``, ``_flash_backward``, ``flash_attention``,
 ``masked_attention`` and their ``custom_vjp`` rules). On CUDA tensors the
 forward launches ``csrc/flash_fwd.cu`` and the backward the two kernels of
-``csrc/flash_bwd.cu`` (dQ, then dK/dV), at every sequence length: the TPU's
-length gates (``_MIN_SEQ``, ``_PBWD_MIN_SEQ``) are not carried over, and a
-crossover is for H100 measurements to set. On CPU tensors every wrapper runs
-its plain version.
+``csrc/flash_bwd.cu`` (dQ, then dK/dV), at every sequence length and every
+head dim from 1 to 128: the TPU's length gates (``_MIN_SEQ``,
+``_PBWD_MIN_SEQ``) are not carried over, and a crossover is for H100
+measurements to set. :func:`flash_plan` picks each launch's kernel width,
+key splits and shared memory. On CPU tensors every wrapper runs its plain
+version.
 
 The JAX conventions are kept exactly: logits scaled by ``1/sqrt(D)``,
 masked logits ``-1e30`` (not ``-inf``), ``p = 0`` where the logit is
@@ -20,14 +22,71 @@ package's: q, k, v, out and their gradients ``[B, T, H, D]``, lse and delta
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _cuda
 
 NEG = -1e30
-_HEAD_DIMS = (32, 64)
+#: head dims the kernels are instantiated at; a head dim between two is
+#: padded with zeros inside the kernel to the next
+FLASH_WIDTHS = (16, 32, 64, 128)
+#: the most dynamic shared memory an H100 block may have
+SMEM_PER_BLOCK = 232_448
+#: tile sizes of the kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+_FWD_BQ, _FWD_BK, _BWD_ROWS = 32, 32, 64
+
+
+class FlashPlan(NamedTuple):
+    width: int   #: the instantiated head dim the kernel runs at (>= D)
+    splits: int  #: key splits of a forward block (1 for the backward)
+    smem: int    #: dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
+    """The launch plan of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) at
+    head dim ``D``, ``BH = B * H`` and ``Tq`` query rows on a card of ``sms``
+    SMs; the C side follows it and refuses shared-memory bytes that differ
+    from its instantiation's. Raises for a head dim outside 1..128.
+
+    The width is the least of :data:`FLASH_WIDTHS` that holds ``D``. The
+    forward takes 2 key splits when the grid gives every SM 2 blocks or more,
+    else 4 (twice the warps in flight); at width 128 always 2, since 4 splits
+    of double-buffered 32-key tiles would need 270 KB. Rows are padded to
+    ``width + 4`` floats."""
+    _check_head_dim("flash_plan", D)
+    width = next(w for w in FLASH_WIDTHS if w >= D)
+    ld = width + 4
+    if kernel == "fwd":
+        blocks = BH * -(-Tq // _FWD_BQ)
+        splits = 2 if width > 64 or blocks >= 2 * sms else 4
+        # K and V tiles [2][splits][BK][ld], the key mask [2][splits][BK],
+        # the scaled query [BQ][ld] at width 128 (else one row)
+        floats = (4 * splits * _FWD_BK * ld + 2 * splits * _FWD_BK
+                  + (_FWD_BQ if width > 64 else 1) * ld)
+        return FlashPlan(width, splits, 4 * floats)
+    tile = 16 if width >= 128 else 32  # rows of a streamed tile
+    if kernel == "dq":
+        # Q and dO rows [64][ld] each; K, V tiles [2][tile][ld]; mask [2][tile]
+        floats = 2 * _BWD_ROWS * ld + 4 * tile * ld + 2 * tile
+    elif kernel == "dkv":
+        # K, V rows [64][ld]; mask [64]; Q, dO tiles [2][tile][ld]; lse and
+        # delta [2][tile]
+        floats = 2 * _BWD_ROWS * ld + _BWD_ROWS + 4 * tile * ld + 4 * tile
+    else:
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    return FlashPlan(width, 1, 4 * floats)
+
+
+def _check_head_dim(name: str, D: int) -> None:
+    """The kernels' head-dim range, checked for any tensor that is not on
+    the CPU (the plain version takes every head dim)."""
+    if not 1 <= D <= FLASH_WIDTHS[-1]:
+        raise ValueError(f"{name}: the flash kernels take head dims "
+                         f"1..{FLASH_WIDTHS[-1]}, got {D}")
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,9 +113,8 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
-_ARGS = [_cuda.PTR, _cuda.PTR, _cuda.PTR, _cuda.PTR, _cuda.PTR, _cuda.PTR,
-         _cuda.INT, _cuda.INT, _cuda.INT, _cuda.INT, _cuda.INT, _cuda.FLOAT,
-         _cuda.INT, _cuda.INT, _cuda.PTR]
+_ARGS = [_cuda.PTR] * 6 + [_cuda.INT] * 8 + [_cuda.FLOAT, _cuda.INT,
+                                             _cuda.INT, _cuda.PTR]
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,7 +124,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q ``[B, Tq, H, D]``, k and v ``[B, Tk, H, D]``, one dtype (float32 or
     bfloat16); ``key_mask`` an optional ``[B, Tk]`` {0,1} mask. On CUDA
-    tensors this launches ``csrc/flash_fwd.cu`` (D of 32 or 64; any
+    tensors this launches ``csrc/flash_fwd.cu`` (D from 1 to 128; any
     lengths); on CPU tensors it runs the plain version."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_fwd needs q, k, v as [B, T, H, D]")
@@ -89,10 +147,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_fwd operands must share one device")
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, key_mask)
+    _check_head_dim("flash_fwd", D)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head dims {_HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_fwd needs contiguous q, k, v")
     km = None
@@ -102,10 +159,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    plan = flash_plan("fwd", D, B * H, Tq, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     fn = _cuda.function("flash_fwd", "flash_fwd", _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if km is None else km.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, H, Tq, Tk, D, 1.0 / (D ** 0.5), int(causal),
+            lse.data_ptr(), B, H, Tq, Tk, D, plan.width, plan.splits,
+            plan.smem, 1.0 / (D ** 0.5), int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, "flash_fwd", "flash_fwd launch")
     flash_fwd.launches += 1
@@ -113,8 +173,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd.launches = 0
-
-
 
 
 def _check_bwd(name: str, q, k, v, do, lse, delta, key_mask) -> None:
@@ -144,14 +202,13 @@ def _check_bwd(name: str, q, k, v, do, lse, delta, key_mask) -> None:
         devices.add(key_mask.device)
     if len(devices) != 1:
         raise ValueError(f"{name} operands must share one device")
-    if q.device.type == "cuda":
-        if D not in _HEAD_DIMS:
-            raise ValueError(f"{name} kernel takes head dims {_HEAD_DIMS}, "
-                             f"got {D}")
-        if not all(t.is_contiguous() for t in (q, k, v, do, lse, delta)):
-            raise ValueError(f"{name} needs contiguous operands")
-    elif q.device.type != "cpu":
+    if q.device.type == "cpu":
+        return
+    _check_head_dim(name, D)
+    if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
+    if not all(t.is_contiguous() for t in (q, k, v, do, lse, delta)):
+        raise ValueError(f"{name} needs contiguous operands")
 
 
 def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -208,7 +265,7 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal, key_mask=None):
                                      key_mask))
 
 
-_BWD_ARGS = [_cuda.PTR] * 8 + [_cuda.INT] * 5 + [_cuda.FLOAT, _cuda.INT,
+_BWD_ARGS = [_cuda.PTR] * 8 + [_cuda.INT] * 7 + [_cuda.FLOAT, _cuda.INT,
                                                  _cuda.INT, _cuda.PTR]
 
 
@@ -232,11 +289,12 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
+    plan = flash_plan("dq", D, B * H, Tq, 0)
     fn = _cuda.function("flash_bwd", "flash_bwd_dq", _BWD_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if km is None else km.data_ptr(), dq.data_ptr(), B, H, Tq,
-            Tk, D, 1.0 / (D ** 0.5), int(causal),
+            Tk, D, plan.width, plan.smem, 1.0 / (D ** 0.5), int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, "flash_bwd", "flash_bwd_dq launch")
     flash_bwd_dq.launches += 1
@@ -245,7 +303,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_bwd_dq.launches = 0
 
-_DKV_ARGS = [_cuda.PTR] * 9 + [_cuda.INT] * 5 + [_cuda.FLOAT, _cuda.INT,
+_DKV_ARGS = [_cuda.PTR] * 9 + [_cuda.INT] * 7 + [_cuda.FLOAT, _cuda.INT,
                                                  _cuda.INT, _cuda.PTR]
 
 
@@ -266,11 +324,13 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
+    plan = flash_plan("dkv", D, B * H, Tq, 0)
     fn = _cuda.function("flash_bwd", "flash_bwd_dkv", _DKV_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if km is None else km.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, Tq, Tk, D, 1.0 / (D ** 0.5), int(causal),
+            dv.data_ptr(), B, H, Tq, Tk, D, plan.width, plan.smem,
+            1.0 / (D ** 0.5), int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, "flash_bwd", "flash_bwd_dkv launch")
     flash_bwd_dkv.launches += 1

@@ -102,7 +102,17 @@ def test_paged_gather_kernel_bitwise_on_card(cuda_device):
     (2, 4, 77, 200, 64, False, False, torch.float32),    # Tq != Tk
     (2, 4, 45, 19, 32, False, True, torch.float32),      # Tk below a tile
     (1, 1, 333, 333, 64, True, False, torch.float32),    # B * H = 1, ragged
-    (2, 4, 130, 130, 64, True, True, torch.bfloat16)])
+    (2, 4, 130, 130, 64, True, True, torch.bfloat16),
+    # head dims other than 32 and 64: the widths 16 and 128, and D padded
+    # with zeros to the next width (8, 12 -> 16; 40 -> 64)
+    (2, 4, 100, 100, 8, True, False, torch.float32),
+    (2, 4, 100, 100, 16, True, True, torch.float32),
+    (2, 4, 100, 100, 12, False, False, torch.float32),
+    (2, 4, 100, 100, 40, True, False, torch.float32),
+    (4, 4, 128, 128, 128, True, False, torch.float32),   # transformer_lm width 512
+    (2, 4, 77, 200, 128, False, True, torch.float32),    # ragged, masked, D = 128
+    (2, 4, 130, 130, 128, True, True, torch.bfloat16),
+    (2, 4, 100, 100, 12, True, True, torch.bfloat16)])
 def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
                                                 causal, masked, dtype):
     rng = np.random.default_rng(0)
@@ -158,7 +168,17 @@ def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     (100, 64, False, True, torch.float32),
     (100, 64, True, True, torch.float32),
     (100, 32, True, False, torch.float32),
-    (128, 64, True, False, torch.bfloat16)])
+    (128, 64, True, False, torch.bfloat16),
+    # head dims other than 32 and 64, padded where they are no width
+    (100, 8, True, False, torch.float32),
+    (100, 16, False, True, torch.float32),
+    (100, 12, True, False, torch.float32),
+    (100, 40, True, True, torch.float32),
+    (128, 128, True, False, torch.float32),
+    (100, 128, True, True, torch.float32),               # ragged, masked
+    (100, 128, False, False, torch.bfloat16),
+    (100, 8, True, True, torch.bfloat16),
+    (100, 40, False, False, torch.bfloat16)])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
                                                 masked, dtype):
     g = torch.Generator().manual_seed(1)
@@ -185,6 +205,22 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
         torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol)
     # bitwise the same from run to run: no atomics
     assert torch.equal(tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal, km), dq)
+    dk2, dv2 = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, km)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    if masked:  # batch 1 sees no key: no gradient reaches it
+        assert not dq[1].any() and not dk[1].any() and not dv[1].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_head_dims_above_128_on_card(cuda_device):
+    q = torch.zeros(1, 8, 1, 129, device=cuda_device)
+    lse = torch.zeros(1, 8, device=cuda_device)
+    with pytest.raises(ValueError, match=r"1\.\.128"):
+        tfa.flash_fwd(q, q, q, True)
+    with pytest.raises(ValueError, match=r"1\.\.128"):
+        tfa.flash_bwd_dq(q, q, q, q, lse, lse, True)
+    with pytest.raises(ValueError, match=r"1\.\.128"):
+        tfa.flash_bwd_dkv(q, q, q, q, lse, lse, True)
 
 
 #: float32 cell forward: dot products over F + H terms in another order

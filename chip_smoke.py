@@ -25,9 +25,10 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    weights, on the CPU; checks each step's loss against the CPU run, that the
    loss falls, and the exact launch counts of the training kernels; then
    times train steps and profiles one (device time by kernel, idle share);
-   then runs full-width ``transformer_lm(256, width=512)`` (4 heads of 128):
-   one ``output`` and 2 ``fit`` steps at B = 4, T = 128 against the CPU from
-   the same weights, with exact flash launch counts;
+   then runs full-width ``transformer_lm(256, width=512)`` twice, at 4
+   heads of 128 and at 2 heads of 256 (``csrc/flash_wide.cu``): one
+   ``output`` and 2 ``fit`` steps at B = 4, T = 128 each against the CPU
+   from the same weights, with exact flash launch counts;
 6. serves full-width ``char_rnn_lstm(64, hidden=200)`` (random weights from
    a seed, float32): 8 concurrent ``/v1/generate`` requests over the LSTM
    decode engine and one ``/v1/stream`` session of 64 steps in two requests,
@@ -38,8 +39,12 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    batches of [32, 200, 64] one-hot ids (y = x), 8 chunks of 50, on the card and from the same
    weights on the CPU; checks every chunk's loss and the exact launch counts
    (``lstm_fwd`` 16, ``lstm_bwd`` 16, ``sm_xent`` 8); times chunks and
-   profiles one batch;
-8. prints one JSON line describing each kernel, then
+   profiles one batch, with ``lstm_bwd``'s device time split into its
+   hoisted gate product, its recurrence and its tail;
+8. reads the profiler's device time of every main-path kernel row and its
+   library call, and of ``lstm_bwd``'s three parts at 2, 4 and 8 hidden
+   units a recurrence block;
+9. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -79,7 +84,7 @@ from deeplearning4j_tpu_torch.ops.quant import (
     dequantize_leaf, int8_matmul, int8_matmul_plain, int8_matmul_plan,
     quantize_per_channel)
 from deeplearning4j_tpu_torch.ops.softmax_xent import (
-    softmax_cross_entropy, softmax_cross_entropy_plain)
+    sm_xent_plan, softmax_cross_entropy, softmax_cross_entropy_plain)
 
 SEED = 1234
 #: the training phase: the JAX package's LM bench geometry
@@ -90,9 +95,13 @@ RNN_V, RNN_H, RNN_B, RNN_T, RNN_CHUNK, RNN_BATCHES = 64, 200, 32, 200, 50, 2
 RNN_DECODE_B = 8
 #: the wide phase: full-width transformer_lm(256, width=512), 4 heads of 128
 WIDE_WIDTH, WIDE_B, WIDE_T, WIDE_STEPS = 512, 4, 128, 2
+#: the D > 128 phase: full-width transformer_lm(256, width=512, n_heads=2),
+#: 2 heads of 256 (csrc/flash_wide.cu), at the wide phase's B and T
+WIDE2_HEADS = 2
 #: head dims the flash checks add to the main paths' 64: the kernel widths
-#: 16 and 128, and dims padded to a width (8, 12 -> 16; 40 -> 64)
-FLASH_EDGE_DIMS = (8, 12, 16, 40, 128)
+#: 16 and 128, dims padded to a width (8, 12 -> 16; 40 -> 64), and dims above
+#: 128 (flash_wide.cu's column groups: 2, 2 and 4)
+FLASH_EDGE_DIMS = (8, 12, 16, 40, 128, 160, 256, 512)
 #: RMSProp rate of the training phase. At the config's own 0.1 the loss
 #: diverges (4.2 -> 44 in 8 chunks) and the card and the CPU drift 2e-4
 #: apart (PERF.md, Findings); at 0.01 the run stays stable. Widths unchanged.
@@ -104,6 +113,16 @@ TF32_OPS_PER_S = 495e12
 #: (row, kernel call, library call) whose device time the profiler reads
 #: after every other measurement (see measure_device_times)
 DEVICE_TIMED: list = []
+#: (row, lstm_bwd arguments) of the training chunks, whose device time the
+#: profiler splits into lstm_bwd's three parts after every other measurement
+LSTM_SPLIT: list = []
+#: lstm_bwd's parts by kernel: the hoisted gate product, the recurrence, the
+#: tail's products and the sum of their slices (csrc/lstm.cu)
+LSTM_BWD_PARTS = {"hoisted": ("lstm_z_kernel",),
+                  "recurrence": ("lstm_bwd_kernel",),
+                  "tail": ("lstm_tail_kernel", "lstm_sum_kernel")}
+#: hidden units a block of lstm_bwd's recurrence, measured side by side
+LSTM_BWD_UNITS = (2, 4, 8)
 #: the card's name and power limit, as nvidia-smi prints them
 CARD = ""
 
@@ -161,6 +180,53 @@ def device_ms(fn, iters: int = 50) -> float:
             print("device_ms: the profiler saw no device time; again",
                   flush=True)
     fail(f"the profiler saw device time in {len(got)} of eight sessions")
+
+
+def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+    """Device ms a call of ``fn`` by kernel (the profiler's name), as
+    :func:`device_ms` takes it: each kernel's time a recorded event times
+    the events a call makes (from the fullest of three sessions), the median
+    of the three."""
+    for _ in range(3):
+        fn()
+    sessions = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us and e.count:
+                per[e.key] = (e.count, float(us))
+        if per:
+            sessions.append(per)
+            if len(sessions) == 3:
+                break
+    if len(sessions) < 3:
+        fail(f"the profiler saw device time in {len(sessions)} of eight "
+             "sessions")
+    out = {}
+    for key in set().union(*sessions):
+        seen = [s[key] for s in sessions if key in s]
+        per_call = max(1, round(max(n for n, _ in seen) / iters))
+        times = sorted(us / n for n, us in seen)
+        out[key] = times[len(times) // 2] * per_call / 1e3
+    return out
+
+
+def lstm_bwd_parts(by_kernel: dict) -> dict:
+    """Device time of lstm_bwd's three parts from times by kernel name."""
+    return {part: sum(v for k, v in by_kernel.items()
+                      if any(n in k for n in names))
+            for part, names in LSTM_BWD_PARTS.items()}
 
 
 def ptxas_report(log: str) -> list:
@@ -226,6 +292,31 @@ def measure_device_times() -> None:
               f"{row['device_ms']:.5f} library_device_ms="
               f"{row['library_device_ms']} (torch.profiler, mean per call)",
               flush=True)
+    # lstm_bwd's parts at each measured recurrence width (units a block);
+    # the wrapper's own launch takes the plan's default
+    for row, ba in LSTM_SPLIT:
+        sweep = {}
+        for units in LSTM_BWD_UNITS:
+            T, B, F = ba["x_t"].shape
+            H = ba["hprev"].shape[-1]
+            plan = lstm_ops.lstm_bwd_plan(T, B, F, H, units,
+                                          ba["peep"] is not None)
+            parts = lstm_bwd_parts(device_ms_by_kernel(
+                lambda u=units: lstm_ops._lstm_bwd_launch(**ba, units=u)))
+            sweep[units] = {**parts, "total": sum(parts.values()),
+                            "blocks": plan["blocks"]}
+        default = lstm_ops.lstm_bwd_plan(T, B, F, H, 0,
+                                         ba["peep"] is not None)["units"]
+        row["bwd_units"] = sweep
+        row["bwd_default_units"] = default
+        row["bwd_parts_ms"] = sweep[default]
+        print(f"lstm_bwd {row['shape']}: device ms a call by part and units "
+              f"a recurrence block (default {default}): "
+              + "; ".join(f"U={u} ({v['blocks']} blocks): hoisted "
+                          f"{v['hoisted']:.5f} recurrence "
+                          f"{v['recurrence']:.5f} tail {v['tail']:.5f} "
+                          f"total {v['total']:.5f}"
+                          for u, v in sweep.items()), flush=True)
 
 
 def check_int8(rows: list, dev) -> None:
@@ -344,32 +435,41 @@ def check_flash(rows: list, dev) -> None:
                      {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
                       "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
         DEVICE_TIMED.append((row, kernel, library))
-    # the wide phase's shape (4 heads of 128), timed beside its bound
-    B, T, D = WIDE_B, WIDE_T, 128
-    q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev) for _ in range(3))
-    out, lse = flash_fwd(q, k, v, True)
-    ro, rl = flash_fwd_plain(q, k, v, True)
-    err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = B * H * T * (T + 1) / 2
-    nbytes, ops = 4 * B * T * H * D * 4 + B * H * T * 4, 4 * D * pairs
+    # the wide phases' shapes (4 heads of 128; 2 heads of 256, which run
+    # flash_wide.cu on the CUDA cores: its bound is the float32 one), timed
+    # beside their bounds, and bitwise the same from run to run
+    for H_, D in ((H, 128), (WIDE2_HEADS, WIDE_WIDTH // WIDE2_HEADS)):
+        B, T = WIDE_B, WIDE_T
+        q, k, v = (torch.randn(B, T, H_, D, generator=g).to(dev)
+                   for _ in range(3))
+        out, lse = flash_fwd(q, k, v, True)
+        again = flash_fwd(q, k, v, True)
+        ro, rl = flash_fwd_plain(q, k, v, True)
+        err = max(float((out - ro).abs().max()), float((lse - rl).abs().max()))
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            fail(f"flash_fwd B={B} T={T} D={D} differs from run to run")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = B * H_ * T * (T + 1) / 2
+        nbytes, ops = 4 * B * T * H_ * D * 4 + B * H_ * T * 4, 4 * D * pairs
 
-    def kernel(q=q, k=k, v=v):
-        return flash_fwd(q, k, v, True)
+        def kernel(q=q, k=k, v=v):
+            return flash_fwd(q, k, v, True)
 
-    def library(qt=qt, kt=kt, vt=vt):
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        def library(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-    f32_ms, f32_by = bound(nbytes, ops)
-    tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-    row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H, "D": D,
-                                     "causal": True}, err, tol,
-                 time_ms(kernel, iters=20),
-                 time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
-                 time_ms(library, iters=20), nbytes, ops,
-                 {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
-                  "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
-    DEVICE_TIMED.append((row, kernel, library))
+        f32_ms, f32_by = bound(nbytes, ops)
+        tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+        if D > 128:
+            tc_ms, tc_by = f32_ms, f32_by
+        row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H_, "D": D,
+                                         "causal": True}, err, tol,
+                     time_ms(kernel, iters=20),
+                     time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
+                     time_ms(library, iters=20), nbytes, ops,
+                     {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                      "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
+        DEVICE_TIMED.append((row, kernel, library))
     # edge shapes: a ragged length, a key mask with a fully masked batch row,
     # Tq != Tk, every kernel width and padded head dims, bfloat16; each also
     # bitwise the same from run to run
@@ -382,8 +482,13 @@ def check_flash(rows: list, dev) -> None:
     cases += [(2, 77, 200, 128, False, True, torch.float32),
               (2, 100, 100, 128, True, True, torch.float32),
               (2, 130, 130, 128, True, True, torch.bfloat16),
-              (2, 100, 100, 12, True, True, torch.bfloat16)]
+              (2, 100, 100, 12, True, True, torch.bfloat16),
+              (2, 77, 200, 256, False, True, torch.float32),
+              (2, 130, 130, 160, True, True, torch.bfloat16),
+              (2, 100, 100, 256, False, True, torch.bfloat16),
+              (2, 100, 100, 512, True, True, torch.bfloat16)]
     for B, Tq, Tk, D, causal, masked, dt in cases:
+        H = 4 if D <= 128 else 2
         q = torch.randn(B, Tq, H, D, generator=g).to(dev).to(dt)
         k, v = (torch.randn(B, Tk, H, D, generator=g).to(dev).to(dt)
                 for _ in range(2))
@@ -411,24 +516,37 @@ def check_flash(rows: list, dev) -> None:
             fail(f"flash_fwd {shape}: a fully masked batch row is not 0")
 
 
+#: sm_xent's shapes on the main paths: the transformer's training step and
+#: char_rnn's TBPTT chunk (both a warp a row)
+XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V))
+
+
 def check_xent(rows: list, dev) -> None:
-    """Kernel 4 at the training path's shape ([4096, 256] float32 logits),
-    at a vocab of 50,257 (a multiple of no block size) and with bfloat16
-    logits; its yardstick is ``F.cross_entropy`` with probability targets,
-    forward and backward."""
+    """Kernel 4 at the training paths' shapes ([4096, 256] float32 logits,
+    and char_rnn's [1600, 64]), at a vocab of 50,257 (a block a row), at
+    the widest and the narrowest row a warp takes besides, and with bfloat16
+    logits; each bitwise the same from run to run. Its yardstick is
+    ``F.cross_entropy`` with probability targets, forward and backward."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
     # loss: float32 row sums of up to 50,257 terms in another order; grad:
     # one float32 rounding, or one bfloat16 ulp at magnitudes up to 1
     for N, C, dt, loss_tol, grad_tol in (
             (TRAIN_B * TRAIN_T, TRAIN_V, torch.float32, 1e-5, 1e-6),
+            (RNN_B * RNN_CHUNK, RNN_V, torch.float32, 1e-5, 1e-6),
             (64, 50257, torch.float32, 1e-5, 1e-6),
+            (64, 2048, torch.float32, 1e-5, 1e-6),
+            (65, 2049, torch.float32, 1e-5, 1e-6),
+            (1601, 33, torch.float32, 1e-5, 1e-6),
             (TRAIN_B * TRAIN_T, TRAIN_V, torch.bfloat16, 1e-5, 4e-3)):
         x = (torch.randn(N, C, generator=g) * 3).to(dev).to(dt)
         # labels in the logits' dtype, the instantiation mcxent launches
         y = F.one_hot(torch.randint(0, C, (N,), generator=g), C).to(dev).to(dt)
         loss, grad = softmax_cross_entropy(x, y)
+        again = softmax_cross_entropy(x, y)
         rl, rg = softmax_cross_entropy_plain(x, y)
         torch.cuda.synchronize()
+        if not (torch.equal(loss, again[0]) and torch.equal(grad, again[1])):
+            fail(f"sm_xent N={N} C={C} {dt} differs from run to run")
         lerr = float((loss - rl).abs().max())
         gerr = float((grad.float() - rg.float()).abs().max())
         print(f"sm_xent N={N} C={C} {dt}: loss max_abs_err={lerr:.3e} (tol "
@@ -447,13 +565,15 @@ def check_xent(rows: list, dev) -> None:
                 F.cross_entropy(xl, yl, reduction="sum"), xl)
 
         elt = x.element_size()
+        plan = sm_xent_plan(N, C, dt)
         row = report(rows, "sm_xent", {"N": N, "C": C, "dtype": str(dt)},
                      max(lerr, gerr), max(loss_tol, grad_tol),
                      time_ms(kernel),
                      time_ms(lambda: softmax_cross_entropy_plain(x, y)),
                      time_ms(library) if dt == torch.float32 else None,
-                     3 * N * C * elt + N * 4, 6 * N * C)
-        if (N, C, dt) == (TRAIN_B * TRAIN_T, TRAIN_V, torch.float32):
+                     3 * N * C * elt + N * 4, 6 * N * C,
+                     {"card": CARD, "plan": plan._asdict()})
+        if (N, C) in XENT_TIMED and dt == torch.float32:
             DEVICE_TIMED.append((row, kernel, library))
 
 
@@ -468,20 +588,27 @@ def check_flash_bwd(rows: list, dev) -> None:
     # float32 sums in another order than the plain version's matmuls; one
     # bfloat16 ulp at magnitudes below 8
     tol, tol_bf16 = 2e-5, 3.2e-2
-    timed = {(TRAIN_B, TRAIN_T, 64), (WIDE_B, WIDE_T, 128)}
+    wide2_d = WIDE_WIDTH // WIDE2_HEADS
+    timed = {(TRAIN_B, TRAIN_T, 64), (WIDE_B, WIDE_T, 128),
+             (WIDE_B, WIDE_T, wide2_d)}
     cases = [(TRAIN_B, TRAIN_T, 4, 64, True, False, torch.float32),
              (WIDE_B, WIDE_T, 4, 128, True, False, torch.float32),
+             (WIDE_B, WIDE_T, WIDE2_HEADS, wide2_d, True, False,
+              torch.float32),
              (2, 100, 4, 64, False, True, torch.float32),
              (2, 100, 4, 64, True, True, torch.float32),
              (2, 100, 4, 32, True, False, torch.float32),
              (2, 256, 4, 64, False, False, torch.float32),
              (2, 128, 4, 64, True, False, torch.bfloat16)]
-    cases += [(2, 100, 4, D, D not in (12, 16), D == 16, torch.float32)
-              for D in FLASH_EDGE_DIMS]
+    cases += [(2, 100, 4 if D <= 128 else 2, D, D not in (12, 16),
+               D in (16, 512), torch.float32) for D in FLASH_EDGE_DIMS]
     cases += [(2, 100, 4, 128, True, True, torch.float32),
               (2, 100, 4, 128, False, False, torch.bfloat16),
               (2, 100, 4, 8, True, True, torch.bfloat16),
-              (2, 100, 4, 40, False, False, torch.bfloat16)]
+              (2, 100, 4, 40, False, False, torch.bfloat16),
+              (2, 100, 2, 160, False, True, torch.bfloat16),
+              (2, 128, 2, 256, True, False, torch.bfloat16),
+              (2, 100, 2, 512, True, True, torch.bfloat16)]
     for B, T, H, D, causal, masked, dt in cases:
         q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev).to(dt)
                        for _ in range(4))
@@ -543,6 +670,8 @@ def check_flash_bwd(rows: list, dev) -> None:
                                              km))):
             f32_ms, f32_by = bound(nbytes, ops)
             tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+            if D > 128:  # flash_wide.cu: the CUDA cores, float32
+                tc_ms, tc_by = f32_ms, f32_by
             r = report(rows, name, shape,
                        eq if name == "flash_bwd_dq" else ekv, t,
                        time_ms(kernel, iters=20), time_ms(plain, iters=20),
@@ -660,6 +789,7 @@ def check_lstm(rows: list, dev) -> None:
         iters = 20 if T > 1 else 100
         fb, fo, bb, bo = lstm_work(T, B, F, H)
         shape["plan"] = lstm_ops.lstm_plan(B, F, H)
+        shape["bwd_plan"] = lstm_ops.lstm_bwd_plan(T, B, F, H, 0, peephole)
         def kernel(a=a):
             return lstm_ops.lstm_fwd(**a)
 
@@ -681,6 +811,20 @@ def check_lstm(rows: list, dev) -> None:
                      time_ms(lib_fb, iters=iters), bb, bo)
         if T > 1:  # the backward runs in training only
             DEVICE_TIMED.append((row, bkernel, lib_fb))
+            LSTM_SPLIT.append((row, ba))
+            # every measured recurrence width against the plain version,
+            # bitwise from run to run
+            for units in LSTM_BWD_UNITS:
+                uout = lstm_ops._lstm_bwd_launch(**ba, units=units)
+                uagain = lstm_ops._lstm_bwd_launch(**ba, units=units)
+                torch.cuda.synchronize()
+                uerrs = [float((o - r).abs().max())
+                         for o, r in zip(uout, bref)]
+                if not all(e <= t for e, t in zip(uerrs, btols)) or not all(
+                        torch.equal(x, y) for x, y in zip(uout, uagain)):
+                    fail(f"lstm_bwd {shape} at {units} units a block "
+                         f"disagrees with its plain version ({uerrs}) or "
+                         "differs from run to run")
 
 
 def post(port: int, path: str, body: dict):
@@ -877,12 +1021,13 @@ def train(kernels) -> dict:
     return result
 
 
-def train_wide(kernels) -> dict:
-    """Full-width ``transformer_lm(256, width=512)``, 4 heads of 128 (the
-    flash kernels' widest instantiation): one ``output`` and ``WIDE_STEPS``
-    ``fit`` steps on the card against the same calls on the CPU from the same
-    weights, with the exact launches of each."""
-    conf = transformer_lm(TRAIN_V, width=WIDE_WIDTH)
+def train_wide(kernels, n_heads: int = 4) -> dict:
+    """Full-width ``transformer_lm(256, width=512, n_heads=n_heads)``: 4
+    heads of 128 (the flash kernels' widest instantiation) or 2 heads of 256
+    (``csrc/flash_wide.cu``): one ``output`` and ``WIDE_STEPS`` ``fit`` steps
+    on the card against the same calls on the CPU from the same weights,
+    with the exact launches of each."""
+    conf = transformer_lm(TRAIN_V, width=WIDE_WIDTH, n_heads=n_heads)
     ids = np.random.default_rng(SEED + 4).integers(
         0, TRAIN_V, size=(WIDE_B, WIDE_T))
     x = np.eye(TRAIN_V, dtype=np.float32)[ids]
@@ -911,7 +1056,8 @@ def train_wide(kernels) -> dict:
     # forward, each loss within 1e-4 relative of the CPU step
     out_err = float((out.cpu() - ref_out).abs().max())
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
-    print(f"wide transformer_lm(width={WIDE_WIDTH}, 4 heads of 128) B={WIDE_B} "
+    print(f"wide transformer_lm(width={WIDE_WIDTH}, {n_heads} heads of "
+          f"{WIDE_WIDTH // n_heads}) B={WIDE_B} "
           f"T={WIDE_T}: output max_abs_err {out_err:.3e} (tol 1e-4); card "
           f"losses {losses}, CPU {ref_losses}, worst relative difference "
           f"{max(rel):.3e} (tol 1e-4); launches output {out_launches}, fit "
@@ -1154,6 +1300,15 @@ def train_lstm(kernels) -> dict:
     if busy_us <= 0:
         fail("the profiler saw no device time in the char_rnn batch")
     per_batch = RNN_T // RNN_CHUNK
+    # lstm_bwd's parts in the profiled batch, per chunk (both layers)
+    raw = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            raw[e.key] = raw.get(e.key, 0.0) + float(us or 0.0)
+    bwd_parts_us = {k: v / per_batch for k, v in lstm_bwd_parts(raw).items()}
     result = {
         "losses": losses, "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
         "launches": launches, "chunk_ms": chunk_ms,
@@ -1161,7 +1316,8 @@ def train_lstm(kernels) -> dict:
         "profiled_batch_ms": prof_ms, "profiled_chunks": per_batch,
         "device_us_by_kernel": by_kernel, "device_us_total": busy_us,
         "idle_share_unprofiled": 1.0 - busy_us / 1e3 / (chunk_ms * per_batch),
-        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms}
+        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms,
+        "lstm_bwd_us_per_chunk_by_part": bwd_parts_us}
     print(f"train char_rnn chunk: {chunk_ms:.3f} ms wall, "
           f"{result['tokens_per_s']:.0f} tokens/s (B={RNN_B}, T={RNN_CHUNK}); "
           f"profiled batch of {per_batch} chunks {prof_ms:.3f} ms, device time "
@@ -1170,6 +1326,9 @@ def train_lstm(kernels) -> dict:
           f"({result['idle_share_profiled']:.3f} profiled)", flush=True)
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         print(f"  char_rnn batch device time {name}: {us:.1f} us", flush=True)
+    print("  lstm_bwd device time per chunk (2 layers) by part: "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in bwd_parts_us.items()),
+          flush=True)
     return result
 
 
@@ -1211,6 +1370,7 @@ def main() -> None:
     served = serve(kernels[:3])
     trained = train(kernels[:6])
     wide = train_wide(kernels)
+    wide2 = train_wide(kernels, n_heads=WIDE2_HEADS)
     served_rnn = serve_lstm(kernels)
     trained_rnn = train_lstm(kernels)
     measure_device_times()
@@ -1221,6 +1381,8 @@ def main() -> None:
     # other paths (training, the wide phase at D = 128) under "by_path"
     train_shape = {"B": TRAIN_B, "T": TRAIN_T, "D": 64}
     wide_shape = {"B": WIDE_B, "T": WIDE_T, "D": 128}
+    wide2_shape = {"B": WIDE_B, "T": WIDE_T, "D": WIDE_WIDTH // WIDE2_HEADS}
+    rnn_xent = {"N": RNN_B * RNN_CHUNK, "C": RNN_V, "dtype": "torch.float32"}
     main_shape = {"int8_matmul": {"M": 8, "K": 256, "N": 1024},
                   "paged_gather": {"cap": 8},
                   "flash_fwd": {"B": 2, "T": 512, "D": 64},
@@ -1241,9 +1403,10 @@ def main() -> None:
                "library_ms", "shape")
     #: present on some rows only: profiler device times, the flash kernels'
     #: float32 bound, the card of the redesigned kernels' rows, int8_matmul's
-    #: plan
+    #: and sm_xent's plans, lstm_bwd's parts by units a block
     optional = ("device_ms", "library_device_ms", "bound_f32_ms",
-                "bound_f32_by", "card", "plan")
+                "bound_f32_by", "card", "plan", "bwd_parts_ms", "bwd_units",
+                "bwd_default_units")
 
     def nums(row):
         return {**{k: row[k] for k in numbers},
@@ -1293,6 +1456,8 @@ def main() -> None:
                    "train": trained["launches"][fname],
                    "wide": wide["output_launches"][fname]
                    + wide["launches"][fname],
+                   "wide_d256": wide2["output_launches"][fname]
+                   + wide2["launches"][fname],
                    "rnn": trained_rnn["launches"][fname]
                    + served_rnn["decode_launches"][fname]
                    + served_rnn["stream_launches"][fname]}
@@ -1310,17 +1475,27 @@ def main() -> None:
                 "train": {"launches": by_path["train"],
                           **nums(row_at(name, train_shape))},
                 "wide": {"launches": by_path["wide"],
-                         **nums(row_at(name, wide_shape))}}
+                         **nums(row_at(name, wide_shape))},
+                "wide_d256": {"launches": by_path["wide_d256"],
+                              **nums(row_at(name, wide2_shape))}}
         elif name.startswith("flash_bwd"):
             entry["by_path"] = {
                 "train": {"launches": by_path["train"], **nums(row)},
                 "wide": {"launches": by_path["wide"],
-                         **nums(row_at(name, wide_shape))}}
+                         **nums(row_at(name, wide_shape))},
+                "wide_d256": {"launches": by_path["wide_d256"],
+                              **nums(row_at(name, wide2_shape))}}
+        elif name == "sm_xent":
+            entry["by_path"] = {
+                "train": {"launches": by_path["train"], **nums(row)},
+                "rnn": {"launches": by_path["rnn"],
+                        **nums(row_at(name, rnn_xent))}}
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "rows": rows,
                    "serve": served, "train": trained, "train_wide": wide,
+                   "train_wide_d256": wide2,
                    "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

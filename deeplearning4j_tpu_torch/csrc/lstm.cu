@@ -1,7 +1,7 @@
 // The persistent LSTM cell, forward and backward, over a whole sequence.
 //
 // Replaces: deeplearning4j_tpu/ops/lstm.py, _lstm_fwd_kernel (the pallas_call
-// in _pallas_forward at :486) and _lstm_bwd_kernel (the pallas_call in
+// in _pallas_forward at :486) and _lstm_bwd_kernel (:361; the pallas_call in
 // _pallas_backward at :539).
 //
 // Forward, for t = 0..T-1, gate order i, f, g, o, float32:
@@ -17,32 +17,66 @@
 //
 // What bounds it on the H100: neither bytes nor operations. At char_rnn's
 // widths (B 32, H 200, F 64 or 200) a step is ~10 MFLOP and the whole chunk's
-// bound is a few microseconds; the recurrence makes T dependent steps, each
-// of which needs every block's h_{t-1}, so the time is T times the latency of
-// one step: a grid-wide barrier plus an L2 round trip plus the block's share
-// of the step's matmul.
+// bound is a few tens of microseconds; the recurrence makes T dependent
+// steps, each of which needs every block's h_{t-1} (forward) or dz_t
+// (backward), so the serial part costs T times the latency of one step: a
+// grid-wide barrier plus an L2 round trip plus the block's share of the
+// step's product.
 //
-// What the design does about it: one cooperative launch of G co-resident
-// blocks runs the whole recurrence, so a step costs one grid.sync() and no
-// kernel launch. Block g owns U hidden units j (U = ceil(H / SMs), so at most
-// one block per SM) and keeps the i, f, g, o columns of Wcat for those units
-// in shared memory for the whole sequence (the TPU kernel's resident weight);
-// the cell update needs no exchange between blocks. Each step a block stages
-// [x_t, h_{t-1}] (h_{t-1} from the previous step's ys row, read through L2)
-// for a chunk of batch rows, computes z for its 4U columns, updates its units'
-// c and h, and writes ys/cs. The backward uses the same ownership: phase (a)
-// recomputes z, forms dz_t for the block's columns and stashes it [T, B, 4H];
-// after one grid.sync() phase (b) forms dh_{t-1} for the block's units from
-// every block's dz_t and the block's resident RW rows (a warp per output,
-// lanes over the 4H columns, a shuffle sum). A second grid.sync() is not
-// needed: the next step's phase (a) writes another stash slot than phase (b)
-// reads. After the loop, plain launches on the same stream reduce the stash:
-// a 64x64-tiled matmul for dW (two calls) and dx, and column sums for db and
-// dpeep. Every sum runs in a fixed order, with no atomics, so results are the
-// same from run to run. When the weight slices do not fit in shared memory
-// (very wide layers) they are read from global memory (L2) instead; when
-// even one batch row does not fit, or the grid cannot be co-resident, the
-// launch is refused with an error.
+// The forward: one cooperative launch of G co-resident blocks runs the whole
+// recurrence, so a step costs one grid.sync() and no kernel launch. Block g
+// owns U hidden units j (U = ceil(H / SMs), so at most one block per SM) and
+// keeps the i, f, g, o columns of Wcat for those units in shared memory for
+// the whole sequence (the TPU kernel's resident weight); the cell update
+// needs no exchange between blocks. Each step a block stages [x_t, h_{t-1}]
+// (h_{t-1} from the previous step's ys row, read through L2) for a chunk of
+// batch rows, computes z for its 4U columns, updates its units' c and h, and
+// writes ys/cs. What bounds it: the step's serial dot product over K = F + H
+// (a thread an output) and the barrier. Its x_t W_x half does not recur: the
+// backward's hoisted product (lstm_z_kernel below) is the lever the forward
+// can reuse for it, leaving only h_{t-1} RW on the serial path.
+//
+// The backward takes everything that does not recur off the serial path,
+// in three parts on one stream:
+// 1. The hoisted product (lstm_z_kernel): z = [x, hprev] Wcat + b for all
+//    T * B rows at once, into the [T, B, 4H] stash, before the recurrence.
+//    It depends only on what the forward saved, never on the backward's
+//    carries. A register-tiled float32 GEMM: 64 x 64 output tiles, 16-deep
+//    slabs through shared memory, 4 x 4 outputs a thread read as float4
+//    rows, each output summed over K in order. 325 blocks at T * B = 1,600,
+//    4H = 800: the whole card.
+//    Bounded by the CUDA cores' float32 rate and this tile's shared-memory
+//    reads, not by the recurrence.
+// 2. The lean recurrence (lstm_bwd_kernel): one cooperative launch, block g
+//    owning U units (the plan's; 2 by default, 100 blocks at H = 200: the
+//    fastest of U = 2, 4, 8 on the H100, chip_smoke.py measures all three
+//    and PERF.md keeps them). Per step, phase (a): each of the block's cells
+//    reads its z_t and c_{t-1}, forms dz_t and the dc carry, and writes dz_t
+//    over z_t in place (the thread that reads z[t, b, c] is the one that
+//    writes dz[t, b, c]); then one grid.sync(); phase (b): dh_{t-1} =
+//    dz_t RW^T for its units, with dz_t staged into shared memory by
+//    16-byte cp.async (through L2) and a warp taking 4 batch rows at once:
+//    lanes over the 4H columns as float4, each RW float4 serving 4 rows,
+//    4 x UG independent sums, a shuffle tree each. The carries (dh, dc and
+//    the peephole sums) stay in shared memory. No second barrier: the next
+//    step's phase (a) writes another stash slot than phase (b) reads. What
+//    bounds it: phase (b)'s product, shared-memory bound, grows with U
+//    (each block reads dz_t once and RW's U rows for every row group),
+//    while the barrier and the staging of dz_t (B * 4H floats into every
+//    block, through L2) cost about the same at 25 to 100 blocks.
+// 3. The tail (lstm_tail_kernel, lstm_sum_kernel): dW = [x, hprev]^T dz,
+//    db = 1^T dz, dx = dz W_x^T and dpeep = 1^T pacc as one launch of the
+//    same tiled GEMM over all five problems, the reduced dimension (T * B,
+//    4H or B) cut into fixed slices of 256 whose partials go to a scratch
+//    buffer, then one launch that sums each output's partials in slice
+//    order. 656 and 1,229 blocks at char_rnn's two layers: every SM. No
+//    atomics. Bounded, like part 1, by the tile's float32 FMA and
+//    shared-memory rate.
+// Every sum runs in a fixed order, so results are the same from run to run.
+// When the weight slices do not fit in shared memory (very wide layers) they
+// are read from global memory (L2) instead; when even one batch row does not
+// fit, or the grid cannot be co-resident, the launch is refused with an
+// error, never run into a hang.
 //
 // Build: grid.sync() needs a cooperative launch and, with this toolkit, no
 // extra compiler flag (see ops/_cuda.py).
@@ -66,19 +100,13 @@ constexpr size_t W_SHARED_LIMIT = 128 * 1024;
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
 // Load the block's resident weight slices: Ws [K][4U] holds column q*H + j0 + u
-// of Wcat at q*U + u; RWs [U][4H] (backward only) holds row F + j0 + u.
-__device__ void load_slices(const float* __restrict__ wcat, float* Ws, float* RWs,
-                            int F, int H, int U, int j0, int nu) {
+// of Wcat at q*U + u.
+__device__ void load_slices(const float* __restrict__ wcat, float* Ws, int F,
+                            int H, int U, int j0, int nu) {
   const int K = F + H, C4 = 4 * U;
   for (int idx = threadIdx.x; idx < K * C4; idx += THREADS) {
     const int k = idx / C4, c = idx % C4, q = c / U, u = c % U;
     Ws[idx] = u < nu ? wcat[(size_t)k * 4 * H + q * H + j0 + u] : 0.f;
-  }
-  if (RWs != nullptr) {
-    for (int idx = threadIdx.x; idx < U * 4 * H; idx += THREADS) {
-      const int u = idx / (4 * H), c = idx % (4 * H);
-      RWs[idx] = u < nu ? wcat[(size_t)(F + j0 + u) * 4 * H + c] : 0.f;
-    }
   }
 }
 
@@ -118,7 +146,7 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
   float* Ws = smem;
   float* xh = smem + (wsh ? (size_t)K * C4 : 0);
   float* zs = xh + (size_t)rows * K;
-  if (wsh) load_slices(wcat, Ws, nullptr, F, H, U, j0, nu);
+  if (wsh) load_slices(wcat, Ws, F, H, U, j0, nu);
 
   for (int t = 0; t < T; ++t) {
     // h_{t-1} of every unit: written by all blocks before the last grid.sync,
@@ -170,169 +198,261 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
   }
 }
 
+
+// ------------------------------------------------------------ the backward
+// batch rows a warp takes at once in phase (b) (a lane holds RPW * UG
+// sums, UG units a pass: the kernel's template argument)
+constexpr int RPW = 4;
+// rows of the reduced dimension in one slice of a tail product
+constexpr int SLICE = 256;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(gmem));
+}
+
+// The recurrence: zdz holds z = [x, hprev] Wcat + b on entry (lstm_z_kernel)
+// and dz on exit. The carries dh, dc and the peephole products (summed over
+// time, [B][3H] in pacc) of the block's cells sit in shared memory when
+// `csh` (else in dh, dc, pacc) and finish in dh, dc (dh0, dc0) and pacc.
+// Every carry and every z column a block touches belongs to its own units.
+// UG: units of one phase-(b) pass (2, 4 or 8: the least that holds U, 8
+// beyond); WSH: RW's rows in shared memory (a shared-memory pointer the
+// compiler sees, not a generic one).
+template <int UG, bool WSH>
 __global__ void __launch_bounds__(THREADS)
-lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ hprev,
-                const float* __restrict__ cprev, const float* __restrict__ wcat,
-                const float* __restrict__ bias, const float* __restrict__ peep,
-                const float* __restrict__ dys, const float* __restrict__ dht,
-                const float* __restrict__ dct, const float* __restrict__ mask,
-                float* dh, float* dc, float* dz, float* pacc, int T, int B,
-                int F, int H, int U, int rows, int wsh) {
-  extern __shared__ float smem[];
+lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
+                const float* __restrict__ peep, const float* __restrict__ dys,
+                const float* __restrict__ dht, const float* __restrict__ dct,
+                const float* __restrict__ mask, float* dh, float* dc,
+                float* zdz, float* pacc, int T, int B, int F, int H, int U,
+                int rows, int csh) {
+  extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  const int K = F + H, C4 = 4 * U, H4 = 4 * H;
+  const int H4 = 4 * H;
   const int j0 = blockIdx.x * U;
   const int nu = min(U, H - j0);
-  float* Ws = smem;
-  float* RWs = smem + (size_t)K * C4;
-  float* xh = smem + (wsh ? (size_t)K * C4 + (size_t)U * H4 : 0);
-  float* zs = xh + (size_t)rows * K;
-  if (wsh) load_slices(wcat, Ws, RWs, F, H, U, j0, nu);
-  // the carries live in dh/dc (they finish as dh0/dc0); the peephole products
-  // accumulate in pacc [3][B][H]; each entry belongs to this block's units
+  float* RWs = smem;                                // [U][4H] when WSH
+  float* dzs = smem + (WSH ? (size_t)U * H4 : 0);  // [rows][4H]
+  float* carry = dzs + (size_t)rows * H4;          // [5][B][U] when csh
+  if (WSH) {
+    for (int idx = threadIdx.x; idx < U * H4; idx += THREADS) {
+      const int u = idx / H4, c = idx % H4;
+      RWs[idx] = u < nu ? wcat[(size_t)(F + j0 + u) * H4 + c] : 0.f;
+    }
+  }
+  const float* rw = WSH ? RWs : wcat + (size_t)(F + j0) * H4;
+  // carry (b, u) at dhc[b * cld + u]; peephole product q at
+  // pcc[b * pld + q * pq + u]
+  const size_t BU = (size_t)B * U;
+  float* dhc = csh ? carry : dh + j0;
+  float* dcc = csh ? carry + BU : dc + j0;
+  float* pcc = csh ? carry + 2 * BU : pacc + j0;
+  const int cld = csh ? U : H, pld = csh ? 3 * U : 3 * H, pq = csh ? U : H;
   for (int idx = threadIdx.x; idx < B * U; idx += THREADS) {
     const int b = idx / U, u = idx % U;
     if (u >= nu) continue;
     const size_t at = (size_t)b * H + j0 + u;
-    dh[at] = dht[at];
-    dc[at] = dct[at];
-    if (peep != nullptr) {
-      pacc[at] = 0.f;
-      pacc[(size_t)B * H + at] = 0.f;
-      pacc[(size_t)2 * B * H + at] = 0.f;
-    }
+    dhc[b * cld + u] = dht[at];
+    dcc[b * cld + u] = dct[at];
+    float* pa = pcc + (size_t)b * pld + u;
+    pa[0] = pa[pq] = pa[2 * pq] = 0.f;
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int t = T - 1; t >= 0; --t) {
-    // (a) recompute z, form dz_t for this block's columns
-    for (int b0 = 0; b0 < B; b0 += rows) {
-      const int nb = min(rows, B - b0);
-      for (int idx = threadIdx.x; idx < nb * K; idx += THREADS) {
-        const int r = idx / K, k = idx % K;
-        const size_t row = (size_t)t * B + b0 + r;
-        xh[idx] = k < F ? __ldg(&x[row * F + k]) : __ldg(&hprev[row * H + k - F]);
+    // (a) dz_t of this block's cells, over z_t in place
+    for (int idx = threadIdx.x; idx < B * U; idx += THREADS) {
+      const int b = idx / U, u = idx % U;
+      if (u >= nu) continue;
+      const int j = j0 + u;
+      const size_t row = (size_t)t * B + b;
+      float* zr = zdz + row * H4;
+      const float cp = __ldg(&cprev[row * H + j]);
+      float zi = zr[j], zf = zr[H + j], zo = zr[3 * H + j];
+      const float zg = zr[2 * H + j];
+      const bool live = __ldg(&mask[row]) > 0.f;
+      const float dy = __ldg(&dys[row * H + j]);
+      float pi = 0.f, pf = 0.f, po = 0.f;
+      if (peep != nullptr) {
+        pi = __ldg(&peep[j]);
+        pf = __ldg(&peep[H + j]);
+        po = __ldg(&peep[2 * H + j]);
+        zi += cp * pi;
+        zf += cp * pf;
       }
-      __syncthreads();
-      block_z(xh, Ws, wcat, bias, zs, nb, K, H, U, j0, nu, wsh);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < nb * U; idx += THREADS) {
-        const int r = idx / U, u = idx % U;
-        if (u >= nu) continue;
-        const int b = b0 + r, j = j0 + u;
-        const size_t row = (size_t)t * B + b;
-        const size_t at = (size_t)b * H + j;
-        const float* z = zs + (size_t)r * C4;
-        const float cp = __ldg(&cprev[row * H + j]);
-        float zi = z[u], zf = z[U + u], zo = z[3 * U + u];
-        float pi = 0.f, pf = 0.f, po = 0.f;
-        if (peep != nullptr) {
-          pi = __ldg(&peep[j]);
-          pf = __ldg(&peep[H + j]);
-          po = __ldg(&peep[2 * H + j]);
-          zi += cp * pi;
-          zf += cp * pf;
-        }
-        const float ig = sigm(zi), fg = sigm(zf), gg = tanhf(z[2 * U + u]);
-        const float cn = fg * cp + ig * gg;
-        if (peep != nullptr) zo += cn * po;
-        const float og = sigm(zo);
-        const float tc = tanhf(cn);
-        const bool live = __ldg(&mask[row]) > 0.f;
-        const float dh_t = dh[at] + __ldg(&dys[row * H + j]);
-        const float dcv = dc[at];
-        const float dh_act = live ? dh_t : 0.f;
-        const float dh_skip = live ? 0.f : dh_t;
-        const float dc_act = live ? dcv : 0.f;
-        const float dc_skip = live ? 0.f : dcv;
-        const float dzo = dh_act * tc * og * (1.f - og);
-        float dc_t = dc_act + dh_act * og * (1.f - tc * tc);
-        if (peep != nullptr) dc_t += dzo * po;
-        const float dzi = dc_t * gg * ig * (1.f - ig);
-        const float dzf = dc_t * cp * fg * (1.f - fg);
-        const float dzg = dc_t * ig * (1.f - gg * gg);
-        float* dzr = dz + row * H4;
-        dzr[j] = dzi;
-        dzr[H + j] = dzf;
-        dzr[2 * H + j] = dzg;
-        dzr[3 * H + j] = dzo;
-        float dc_next = dc_t * fg + dc_skip;
-        if (peep != nullptr) {
-          dc_next += dzi * pi + dzf * pf;
-          pacc[at] += dzi * cp;
-          pacc[(size_t)B * H + at] += dzf * cp;
-          pacc[(size_t)2 * B * H + at] += dzo * cn;
-        }
-        dc[at] = dc_next;
-        dh[at] = dh_skip;  // phase (b) adds dz_t RW^T
+      const float ig = sigm(zi), fg = sigm(zf), gg = tanhf(zg);
+      const float cn = fg * cp + ig * gg;
+      if (peep != nullptr) zo += cn * po;
+      const float og = sigm(zo);
+      const float tc = tanhf(cn);
+      float* dhp = dhc + b * cld + u;
+      float* dcp = dcc + b * cld + u;
+      const float dh_t = *dhp + dy;
+      const float dcv = *dcp;
+      const float dh_act = live ? dh_t : 0.f;
+      const float dh_skip = live ? 0.f : dh_t;
+      const float dc_act = live ? dcv : 0.f;
+      const float dc_skip = live ? 0.f : dcv;
+      const float dzo = dh_act * tc * og * (1.f - og);
+      float dc_t = dc_act + dh_act * og * (1.f - tc * tc);
+      if (peep != nullptr) dc_t += dzo * po;
+      const float dzi = dc_t * gg * ig * (1.f - ig);
+      const float dzf = dc_t * cp * fg * (1.f - fg);
+      const float dzg = dc_t * ig * (1.f - gg * gg);
+      zr[j] = dzi;
+      zr[H + j] = dzf;
+      zr[2 * H + j] = dzg;
+      zr[3 * H + j] = dzo;
+      float dc_next = dc_t * fg + dc_skip;
+      if (peep != nullptr) {
+        dc_next += dzi * pi + dzf * pf;
+        float* pa = pcc + (size_t)b * pld + u;
+        pa[0] += dzi * cp;
+        pa[pq] += dzf * cp;
+        pa[2 * pq] += dzo * cn;
       }
-      __syncthreads();
+      *dcp = dc_next;
+      *dhp = dh_skip;  // phase (b) adds dz_t RW^T
     }
     grid.sync();
     // (b) dh_{t-1}[b, j] += sum_c dz_t[b, c] RW[j, c] for this block's units
-    for (int o = warp; o < B * U; o += WARPS) {
-      const int b = o / U, u = o % U;
-      if (u >= nu) continue;  // uniform across the warp
-      const float* dzr = dz + ((size_t)t * B + b) * H4;
-      float acc = 0.f;
-      if (wsh) {
-        const float* rw = RWs + (size_t)u * H4;
-        for (int c = lane; c < H4; c += 32) acc = fmaf(__ldcg(&dzr[c]), rw[c], acc);
-      } else {
-        const float* rw = wcat + (size_t)(F + j0 + u) * H4;
-        for (int c = lane; c < H4; c += 32) acc = fmaf(__ldcg(&dzr[c]), __ldg(&rw[c]), acc);
-      }
+    for (int b0 = 0; b0 < B; b0 += rows) {
+      const int nb = min(rows, B - b0);
+      const float* src = zdz + ((size_t)t * B + b0) * H4;
+      for (int i = threadIdx.x; i < nb * H; i += THREADS)  // 16-byte chunks
+        cp_async16(dzs + 4 * (size_t)i, src + 4 * (size_t)i);
+      asm volatile("cp.async.wait_all;\n" ::);
+      __syncthreads();
+      // a warp takes RPW rows at once: each RW float4 it reads serves RPW
+      // rows, each dz float4 up to UG units, RPW * UG independent sums
+      for (int r0 = warp * RPW; r0 < nb; r0 += WARPS * RPW) {
+        for (int ug = 0; ug < nu; ug += UG) {
+          float acc[RPW][UG];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) dh[(size_t)b * H + j0 + u] += acc;
+          for (int rr = 0; rr < RPW; ++rr)
+#pragma unroll
+            for (int u = 0; u < UG; ++u) acc[rr][u] = 0.f;
+          for (int c4 = lane; c4 < H; c4 += 32) {  // H float4 = 4H columns
+            float4 d[RPW];
+#pragma unroll
+            for (int rr = 0; rr < RPW; ++rr)
+              d[rr] = r0 + rr < nb
+                  ? reinterpret_cast<const float4*>(dzs + (size_t)(r0 + rr) * H4)[c4]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int u = 0; u < UG; ++u) {
+              if (ug + u < nu) {
+                const float4 w =
+                    reinterpret_cast<const float4*>(rw + (size_t)(ug + u) * H4)[c4];
+#pragma unroll
+                for (int rr = 0; rr < RPW; ++rr) {
+                  acc[rr][u] = fmaf(d[rr].x, w.x, acc[rr][u]);
+                  acc[rr][u] = fmaf(d[rr].y, w.y, acc[rr][u]);
+                  acc[rr][u] = fmaf(d[rr].z, w.z, acc[rr][u]);
+                  acc[rr][u] = fmaf(d[rr].w, w.w, acc[rr][u]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int rr = 0; rr < RPW; ++rr)
+#pragma unroll
+            for (int u = 0; u < UG; ++u) {
+              if (ug + u >= nu || r0 + rr >= nb) continue;  // warp-uniform
+              float s = acc[rr][u];
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1)
+                s += __shfl_xor_sync(0xffffffffu, s, off);
+              if (lane == 0) dhc[(b0 + r0 + rr) * cld + ug + u] += s;
+            }
+        }
+      }
+      __syncthreads();  // dzs is restaged by the next chunk; dh is read in (a)
     }
-    __syncthreads();
+  }
+  if (csh) {
+    for (int idx = threadIdx.x; idx < B * U; idx += THREADS) {
+      const int b = idx / U, u = idx % U;
+      if (u >= nu) continue;
+      const size_t at = (size_t)b * H + j0 + u;
+      dh[at] = dhc[b * cld + u];
+      dc[at] = dcc[b * cld + u];
+      const float* pa = pcc + (size_t)b * pld + u;
+      float* po = pacc + (size_t)b * 3 * H + j0 + u;
+      po[0] = pa[0];
+      po[H] = pa[pq];
+      po[2 * H] = pa[2 * pq];
+    }
   }
 }
 
-// C[M, N] (row-major, leading dimension ldc) = sum_p A(i, p) B(p, j), with
-// A(i, p) = A[i * sai + p * sap] and B(p, j) = Bm[p * sbp + j * sbj]: 64x64
-// output tiles, 16-deep slabs through shared memory, 4x4 outputs a thread,
-// p summed in order.
-__global__ void __launch_bounds__(THREADS)
-lstm_gemm_kernel(const float* __restrict__ A, long long sai, long long sap,
-            const float* __restrict__ Bm, long long sbp, long long sbj,
-            float* __restrict__ C, long long ldc, int M, int N, int P) {
-  __shared__ float As[16][64 + 4];
-  __shared__ float Bs[16][64 + 4];
+// C[M][N] = sum_p A(i, p) B(p, j) (+ bias[j]) over p in a slice of [0, P):
+// A(i, p) = A[i * sai + p * sap] for p < pa, A2[i * sai2 + (p - pa) * sap2]
+// beyond ([x, hprev] side by side), or 1 where A is null (a column sum);
+// B(p, j) = Bm[p * sbp + j * sbj]. With one slice (part < 0) the sum goes to
+// C[i * ldc + j]; else slice s goes to the scratch at part + (s * M + i) * N
+// + j, and lstm_sum_kernel adds the slices in order.
+struct Gemm {
+  const float* A;
+  const float* A2;
+  const float* Bm;
+  const float* bias;
+  float* C;
+  long long sai, sap, sai2, sap2, sbp, sbj, ldc, part;
+  int M, N, P, pa, slices, tiles_n, first;
+};
+constexpr int MAX_GEMMS = 5;
+struct Gemms {
+  Gemm g[MAX_GEMMS];
+  int n;
+  float* scratch;
+};
+
+// One 64 x 64 output tile of one slice: 16-deep slabs through shared memory,
+// 4 x 4 outputs a thread read as float4 rows, p summed in order.
+__device__ __forceinline__ void gemm_tile(const Gemm& g, int idx, float* scratch,
+                                          float (*As)[68], float (*Bs)[68]) {
+  const int slice = idx % g.slices, tile = idx / g.slices;
+  const int i0 = tile / g.tiles_n * 64, j0 = tile % g.tiles_n * 64;
+  const int pbeg = slice * SLICE;
+  const int p_end = g.slices == 1 ? g.P : min(g.P, pbeg + SLICE);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = blockIdx.y * 64, j0 = blockIdx.x * 64;
   float acc[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int s = 0; s < 4; ++s) acc[r][s] = 0.f;
-  for (int p0 = 0; p0 < P; p0 += 16) {
+  for (int p0 = pbeg; p0 < p_end; p0 += 16) {
+    const long long sai = p0 < g.pa ? g.sai : g.sai2;
     for (int l = threadIdx.x; l < 64 * 16; l += THREADS) {
-      // walk the operand's contiguous axis with neighbouring threads
+      // walk each operand's contiguous axis with neighbouring threads
       int i, p;
       if (sai == 1) { i = l % 64; p = l / 64; } else { p = l % 16; i = l / 16; }
       const int gi = i0 + i, gp = p0 + p;
-      As[p][i] = (gi < M && gp < P) ? A[gi * sai + gp * sap] : 0.f;
+      float a = 0.f;
+      if (gi < g.M && gp < p_end) {
+        if (g.A == nullptr) a = 1.f;
+        else if (gp < g.pa) a = g.A[gi * g.sai + gp * g.sap];
+        else a = g.A2[gi * g.sai2 + (gp - g.pa) * g.sap2];
+      }
+      As[p][i] = a;
       int j, q;
-      if (sbj == 1) { j = l % 64; q = l / 64; } else { q = l % 16; j = l / 16; }
+      if (g.sbj == 1) { j = l % 64; q = l / 64; } else { q = l % 16; j = l / 16; }
       const int gj = j0 + j, gq = p0 + q;
-      Bs[q][j] = (gj < N && gq < P) ? Bm[gq * sbp + gj * sbj] : 0.f;
+      Bs[q][j] = (gj < g.N && gq < p_end) ? g.Bm[gq * g.sbp + gj * g.sbj] : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int p = 0; p < 16; ++p) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = As[p][ty + 16 * r];
-        b[r] = Bs[p][tx + 16 * r];
-      }
+      const float4 a = *reinterpret_cast<const float4*>(&As[p][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[p][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
+        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
     }
     __syncthreads();
   }
@@ -340,35 +460,111 @@ lstm_gemm_kernel(const float* __restrict__ A, long long sai, long long sap,
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const int gi = i0 + ty + 16 * r, gj = j0 + tx + 16 * s;
-      if (gi < M && gj < N) C[gi * ldc + gj] = acc[r][s];
+      const int gi = i0 + ty * 4 + r, gj = j0 + tx * 4 + s;
+      if (gi >= g.M || gj >= g.N) continue;
+      if (g.part < 0)
+        g.C[gi * g.ldc + gj] = acc[r][s] + (g.bias ? g.bias[gj] : 0.f);
+      else
+        scratch[g.part + ((long long)slice * g.M + gi) * g.N + gj] = acc[r][s];
     }
 }
 
-// out[plane][j] = sum_r in[plane][r][j] for r < R, j < N: 32 columns a block,
-// 8 row stripes summed in order, then the stripes in order.
-__global__ void __launch_bounds__(THREADS)
-lstm_colsum_kernel(const float* __restrict__ in, float* __restrict__ out, int R,
-              int N, long long in_plane, int out_plane) {
-  __shared__ float part[8][33];
-  const int jx = threadIdx.x % 32, ry = threadIdx.x / 32;
-  const int j = blockIdx.x * 32 + jx;
-  const float* p = in + blockIdx.y * in_plane;
-  float acc = 0.f;
-  if (j < N)
-    for (int r = ry; r < R; r += 8) acc += p[(long long)r * N + j];
-  part[ry][jx] = acc;
-  __syncthreads();
-  if (ry == 0 && j < N) {
-    float s = part[0][jx];
-    for (int k = 1; k < 8; ++k) s += part[k][jx];
-    out[blockIdx.y * out_plane + j] = s;
+__device__ __forceinline__ void run_gemms(const Gemms& gs) {
+  __shared__ __align__(16) float As[16][68];
+  __shared__ __align__(16) float Bs[16][68];
+  int k = 0;
+  while (k + 1 < gs.n && (int)blockIdx.x >= gs.g[k + 1].first) ++k;
+  gemm_tile(gs.g[k], blockIdx.x - gs.g[k].first, gs.scratch, As, Bs);
+}
+
+// the hoisted product z = [x, hprev] Wcat + b (part 1)
+__global__ void __launch_bounds__(THREADS) lstm_z_kernel(const Gemms gs) { run_gemms(gs); }
+
+// the tail products dW, db, dx, dpeep (part 3)
+__global__ void __launch_bounds__(THREADS) lstm_tail_kernel(const Gemms gs) { run_gemms(gs); }
+
+// the tail's sliced outputs: gs.g[blockIdx.y]'s slices added in order
+__global__ void __launch_bounds__(THREADS) lstm_sum_kernel(const Gemms gs) {
+  const Gemm& g = gs.g[blockIdx.y];
+  const long long mn = (long long)g.M * g.N;
+  for (long long e = (long long)blockIdx.x * THREADS + threadIdx.x; e < mn;
+       e += (long long)gridDim.x * THREADS) {
+    const float* p = gs.scratch + g.part + e;
+    float s = p[0];
+    for (int k = 1; k < g.slices; ++k) s += p[k * mn];
+    g.C[(e / g.N) * g.ldc + e % g.N] = s;
   }
 }
 
+// Append C[M][N] = A B to gs: tiles, slices (P cut in SLICE rows when
+// split) and the scratch offset; returns the blocks so far. One slice writes
+// C directly.
+int add_gemm(Gemms* gs, long long* scratch, Gemm g, bool split = true) {
+  g.tiles_n = (g.N + 63) / 64;
+  g.slices = split ? (g.P + SLICE - 1) / SLICE : 1;
+  if (g.slices < 1) g.slices = 1;
+  g.part = -1;
+  if (g.slices > 1) {
+    g.part = *scratch;
+    *scratch += (long long)g.slices * g.M * g.N;
+  }
+  const int first = gs->n ? gs->g[gs->n - 1].first
+                                + (gs->g[gs->n - 1].M + 63) / 64 * gs->g[gs->n - 1].tiles_n
+                                      * gs->g[gs->n - 1].slices
+                          : 0;
+  g.first = first;
+  gs->g[gs->n++] = g;
+  return first + (g.M + 63) / 64 * g.tiles_n * g.slices;
+}
+
+Gemm gemm_of(const float* A, long long sai, long long sap, const float* Bm,
+              long long sbp, long long sbj, float* C, long long ldc, int M,
+              int N, int P) {
+  Gemm g{};
+  g.A = A;
+  g.sai = g.sai2 = sai;
+  g.sap = g.sap2 = sap;
+  g.pa = P;
+  g.Bm = Bm;
+  g.sbp = sbp;
+  g.sbj = sbj;
+  g.C = C;
+  g.ldc = ldc;
+  g.M = M;
+  g.N = N;
+  g.P = P;
+  return g;
+}
+
+// The tail's problems (dW's x and hprev rows, db, dx, dpeep); returns its
+// blocks and sets the scratch floats it needs. Pointers may be null when
+// only the sizes are wanted.
+int tail_gemms(int T, int B, int F, int H, int peephole, const float* x,
+               const float* hprev, const float* wcat, const float* dz,
+               const float* pacc, float* dw, float* db, float* dx,
+               float* dpeep, Gemms* gs, long long* scratch) {
+  const int R = T * B, H4 = 4 * H;
+  gs->n = 0;
+  *scratch = 0;
+  add_gemm(gs, scratch, gemm_of(x, 1, F, dz, H4, 1, dw, H4, F, H4, R));
+  add_gemm(gs, scratch, gemm_of(hprev, 1, H, dz, H4, 1, dw ? dw + (size_t)F * H4 : nullptr,
+                                H4, H, H4, R));
+  add_gemm(gs, scratch, gemm_of(nullptr, 0, 0, dz, H4, 1, db, H4, 1, H4, R));
+  int blocks = add_gemm(gs, scratch, gemm_of(dz, H4, 1, wcat, 1, H4, dx, F, R, F, H4));
+  if (peephole)
+    blocks = add_gemm(gs, scratch, gemm_of(nullptr, 0, 0, pacc, 3 * H, 1, dpeep, 3 * H, 1,
+                                           3 * H, B));
+  return blocks;
+}
+
+// ------------------------------------------------------------------ plans
+// The forward's launch. Its numbers are those of the design before the
+// backward got a plan of its own: U = ceil(H / SMs), the weight slices in
+// shared memory while the forward's and the recurrent rows would fit in
+// 128 KB.
 struct Plan {
-  int units, blocks, rows_fwd, rows_bwd;
-  size_t smem_fwd, smem_bwd;
+  int units, blocks, rows;
+  size_t smem;
   int w_shared, max_blocks;
 };
 
@@ -384,43 +580,90 @@ cudaError_t make_plan(int B, int F, int H, Plan* p) {
   const int U = (H + sms - 1) / sms;
   const size_t K = (size_t)F + H;
   const size_t w_fwd = K * 4 * U * sizeof(float);
-  const size_t w_bwd = w_fwd + (size_t)U * 4 * H * sizeof(float);
-  const int wsh = w_bwd <= W_SHARED_LIMIT;
+  const int wsh = w_fwd + (size_t)U * 4 * H * sizeof(float) <= W_SHARED_LIMIT;
   const size_t per_row = (K + 4 * (size_t)U) * sizeof(float);
-  const size_t base_f = wsh ? w_fwd : 0, base_b = wsh ? w_bwd : 0;
-  if (base_b + per_row > SMEM_LIMIT) return cudaErrorInvalidValue;  // one row does not fit
+  const size_t base = wsh ? w_fwd : 0;
+  if (base + per_row > SMEM_LIMIT) return cudaErrorInvalidValue;  // one row does not fit
   p->units = U;
   p->blocks = (H + U - 1) / U;
   p->w_shared = wsh;
-  p->rows_fwd = (int)((size_t)B < (SMEM_LIMIT - base_f) / per_row ? B : (SMEM_LIMIT - base_f) / per_row);
-  p->rows_bwd = (int)((size_t)B < (SMEM_LIMIT - base_b) / per_row ? B : (SMEM_LIMIT - base_b) / per_row);
-  p->smem_fwd = base_f + p->rows_fwd * per_row;
-  p->smem_bwd = base_b + p->rows_bwd * per_row;
-  int occ_f = 0, occ_b = 0;
+  p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / per_row ? B : (SMEM_LIMIT - base) / per_row);
+  p->smem = base + p->rows * per_row;
+  int occ = 0;
   if ((err = cudaFuncSetAttribute(lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)p->smem_fwd)) != cudaSuccess)
+                                  (int)p->smem)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)p->smem_bwd)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, lstm_fwd_kernel, THREADS,
+                                                           p->smem)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_f, lstm_fwd_kernel, THREADS,
-                                                           p->smem_fwd)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_b, lstm_bwd_kernel, THREADS,
-                                                           p->smem_bwd)) != cudaSuccess)
-    return err;
-  p->max_blocks = (occ_f < occ_b ? occ_f : occ_b) * sms;
+  p->max_blocks = occ * sms;
   // every block must be resident at once for grid.sync(): refuse, never hang
   if (p->blocks > p->max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   return cudaSuccess;
 }
 
-cudaError_t gemm(const float* A, long long sai, long long sap, const float* Bm,
-                 long long sbp, long long sbj, float* C, long long ldc, int M,
-                 int N, int P, cudaStream_t st) {
-  dim3 grid((N + 63) / 64, (M + 63) / 64);
-  lstm_gemm_kernel<<<grid, THREADS, 0, st>>>(A, sai, sap, Bm, sbp, sbj, C, ldc, M, N, P);
-  return cudaGetLastError();
+// The backward's launch: U units a block (the caller's, or DEFAULT_BWD_UNITS,
+// raised to ceil(H / SMs) so the grid fits), RW's U rows in shared memory
+// when they fit in 128 KB, the cells' carries in shared memory when they
+// fit, dz_t staged `rows` batch rows at a time, and the tail's scratch.
+constexpr int DEFAULT_BWD_UNITS = 2;
+
+// The recurrence's instantiation for U units a block.
+const void* bwd_kernel(int U, int wsh) {
+  if (U <= 2) return wsh ? (const void*)lstm_bwd_kernel<2, true> : (const void*)lstm_bwd_kernel<2, false>;
+  if (U <= 4) return wsh ? (const void*)lstm_bwd_kernel<4, true> : (const void*)lstm_bwd_kernel<4, false>;
+  return wsh ? (const void*)lstm_bwd_kernel<8, true> : (const void*)lstm_bwd_kernel<8, false>;
+}
+struct BwdPlan {
+  int units, blocks, rows;
+  size_t smem;
+  int w_shared, c_shared, max_blocks, tail_blocks;
+  long long scratch;
+};
+
+cudaError_t make_bwd_plan(int T, int B, int F, int H, int units, int peephole, BwdPlan* p) {
+  int dev, sms, coop;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (units < 0) return cudaErrorInvalidValue;
+  int U = units > 0 ? units : DEFAULT_BWD_UNITS;
+  if (units == 0 && U < (H + sms - 1) / sms) U = (H + sms - 1) / sms;
+  if (U > H) U = H;
+  const size_t row = (size_t)4 * H * sizeof(float);
+  const size_t w = (size_t)U * row;
+  const int wsh = w <= W_SHARED_LIMIT;
+  // the carries and peephole sums of the block's cells: in shared memory
+  // when they leave room for one staged row
+  const size_t carries = (size_t)5 * B * U * sizeof(float);
+  const int csh = (wsh ? w : 0) + carries + row <= SMEM_LIMIT;
+  const size_t base = (wsh ? w : 0) + (csh ? carries : 0);
+  if (base + row > SMEM_LIMIT) return cudaErrorInvalidValue;  // one row does not fit
+  p->units = U;
+  p->blocks = (H + U - 1) / U;
+  p->w_shared = wsh;
+  p->c_shared = csh;
+  p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / row ? B : (SMEM_LIMIT - base) / row);
+  p->smem = base + p->rows * row;
+  int occ = 0;
+  const void* kernel = bwd_kernel(U, wsh);
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)p->smem)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS,
+                                                           p->smem)) != cudaSuccess)
+    return err;
+  p->max_blocks = occ * sms;
+  Gemms gs;
+  p->tail_blocks = tail_gemms(T, B, F, H, peephole, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr, &gs, &p->scratch);
+  // every block must be resident at once for grid.sync(): refuse, never hang
+  if (p->blocks > p->max_blocks) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -431,12 +674,27 @@ extern "C" int lstm_plan(int B, int F, int H, int* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.units;
   out[1] = p.blocks;
-  out[2] = p.rows_fwd;
-  out[3] = p.rows_bwd;
-  out[4] = (int)p.smem_fwd;
-  out[5] = (int)p.smem_bwd;
-  out[6] = p.w_shared;
-  out[7] = p.max_blocks;
+  out[2] = p.rows;
+  out[3] = (int)p.smem;
+  out[4] = p.w_shared;
+  out[5] = p.max_blocks;
+  return 0;
+}
+
+extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int units, int peephole,
+                             long long* out) {
+  BwdPlan p;
+  cudaError_t err = make_bwd_plan(T, B, F, H, units, peephole, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = p.units;
+  out[1] = p.blocks;
+  out[2] = p.rows;
+  out[3] = (long long)p.smem;
+  out[4] = p.w_shared;
+  out[5] = p.c_shared;
+  out[6] = p.max_blocks;
+  out[7] = p.tail_blocks;
+  out[8] = p.scratch;
   return 0;
 }
 
@@ -459,31 +717,31 @@ extern "C" int lstm_fwd(const void* x, const void* wcat, const void* bias,
   float* csa = static_cast<float*>(cs);
   float* ha = static_cast<float*>(h_out);
   float* ca = static_cast<float*>(c_out);
-  int U = p.units, rows = p.rows_fwd, wsh = p.w_shared;
+  int U = p.units, rows = p.rows, wsh = p.w_shared;
   void* args[] = {&xa, &wa, &ba, &pa, &h0a, &c0a, &ma, &ysa, &csa, &ha, &ca,
                   &T, &B, &F, &H, &U, &rows, &wsh};
   err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel, dim3(p.blocks), dim3(THREADS),
-                                    args, p.smem_fwd, static_cast<cudaStream_t>(stream));
+                                    args, p.smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// units: 0 for the plan's default. scratch: the plan's `scratch` floats.
 extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
                         const void* wcat, const void* bias, const void* peep,
                         const void* dys, const void* dht, const void* dct,
                         const void* mask, void* dx, void* dw, void* db,
-                        void* dpeep, void* dh0, void* dc0, void* dz_stash,
-                        void* pacc, int T, int B, int F, int H, int peephole,
-                        void* stream) {
-  Plan p;
-  cudaError_t err = make_plan(B, F, H, &p);
+                        void* dpeep, void* dh0, void* dc0, void* zdz,
+                        void* pacc, void* scratch, int T, int B, int F, int H,
+                        int peephole, int units, void* stream) {
+  BwdPlan p;
+  cudaError_t err = make_bwd_plan(T, B, F, H, units, peephole, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xa = static_cast<const float*>(x);
   const float* hpa = static_cast<const float*>(hprev);
   const float* cpa = static_cast<const float*>(cprev);
   const float* wa = static_cast<const float*>(wcat);
-  const float* ba = static_cast<const float*>(bias);
   const float* pa = peephole ? static_cast<const float*>(peep) : nullptr;
   const float* dya = static_cast<const float*>(dys);
   const float* dhta = static_cast<const float*>(dht);
@@ -491,33 +749,52 @@ extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
   const float* ma = static_cast<const float*>(mask);
   float* dha = static_cast<float*>(dh0);
   float* dca = static_cast<float*>(dc0);
-  float* dza = static_cast<float*>(dz_stash);
+  float* za = static_cast<float*>(zdz);
   float* paa = static_cast<float*>(pacc);
-  int U = p.units, rows = p.rows_bwd, wsh = p.w_shared;
-  void* args[] = {&xa, &hpa, &cpa, &wa, &ba, &pa, &dya, &dhta, &dcta, &ma,
-                  &dha, &dca, &dza, &paa, &T, &B, &F, &H, &U, &rows, &wsh};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel, dim3(p.blocks), dim3(THREADS),
-                                    args, p.smem_bwd, st);
+  const int H4 = 4 * H;
+
+  // 1. the hoisted product: z = [x, hprev] Wcat + b for every row
+  Gemms zg;
+  zg.n = 0;
+  zg.scratch = nullptr;
+  long long none = 0;
+  Gemm g = gemm_of(xa, F, 1, wa, H4, 1, za, H4, T * B, H4, F + H);
+  g.A2 = hpa;
+  g.sai2 = H;
+  g.sap2 = 1;
+  g.pa = F;
+  g.bias = static_cast<const float*>(bias);
+  const int z_blocks = add_gemm(&zg, &none, g, false);  // K in one pass
+  lstm_z_kernel<<<z_blocks, THREADS, 0, st>>>(zg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  // 2. the recurrence
+  int U = p.units, rows = p.rows, csh = p.c_shared;
+  void* args[] = {&cpa, &wa, &pa, &dya, &dhta, &dcta, &ma, &dha, &dca, &za, &paa,
+                  &T, &B, &F, &H, &U, &rows, &csh};
+  err = cudaLaunchCooperativeKernel(bwd_kernel(U, p.w_shared), dim3(p.blocks), dim3(THREADS),
+                                    args, p.smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const int R = T * B, H4 = 4 * H;
-  float* dwa = static_cast<float*>(dw);
-  // dW rows [0, F): x^T dz; rows [F, F+H): hprev^T dz
-  if ((err = gemm(xa, 1, F, dza, H4, 1, dwa, H4, F, H4, R, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = gemm(hpa, 1, H, dza, H4, 1, dwa + (size_t)F * H4, H4, H, H4, R, st)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  // dx = dz W_x^T
-  if ((err = gemm(dza, H4, 1, wa, 1, H4, static_cast<float*>(dx), F, R, F, H4, st)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  lstm_colsum_kernel<<<dim3((H4 + 31) / 32, 1), THREADS, 0, st>>>(dza, static_cast<float*>(db), R,
-                                                            H4, 0, 0);
+
+  // 3. the tail: every product in one launch, then the slices summed
+  Gemms tg;
+  long long need = 0;
+  const int blocks = tail_gemms(T, B, F, H, peephole, xa, hpa, wa, za, paa,
+                                static_cast<float*>(dw), static_cast<float*>(db),
+                                static_cast<float*>(dx), static_cast<float*>(dpeep), &tg,
+                                &need);
+  if (need != p.scratch) return static_cast<int>(cudaErrorInvalidValue);
+  tg.scratch = static_cast<float*>(scratch);
+  lstm_tail_kernel<<<blocks, THREADS, 0, st>>>(tg);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (peephole) {
-    lstm_colsum_kernel<<<dim3((H + 31) / 32, 3), THREADS, 0, st>>>(
-        paa, static_cast<float*>(dpeep), B, H, (long long)B * H, H);
+  Gemms sg;
+  sg.n = 0;
+  sg.scratch = tg.scratch;
+  for (int k = 0; k < tg.n; ++k)
+    if (tg.g[k].part >= 0) sg.g[sg.n++] = tg.g[k];
+  if (sg.n > 0) {
+    lstm_sum_kernel<<<dim3(64, sg.n), THREADS, 0, st>>>(sg);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -42,10 +42,17 @@ V = 256
 #: kernel-name substrings -> the port's kernels; everything else is PyTorch's
 OURS = {"int8_matmul_kernel": "int8_matmul", "paged_gather_kernel": "paged_gather",
         "flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel": "flash_bwd_dq",
-        "flash_bwd_dkv_kernel": "flash_bwd_dkv", "sm_xent_kernel": "sm_xent",
+        "flash_bwd_dkv_kernel": "flash_bwd_dkv",
+        # the flash kernels above head dim 128 (csrc/flash_wide.cu)
+        "flash_wide_fwd_kernel": "flash_fwd", "flash_wide_dq_kernel": "flash_bwd_dq",
+        "flash_wide_dkv_kernel": "flash_bwd_dkv",
+        # a warp a row, or a block a row
+        "sm_xent_warp_kernel": "sm_xent", "sm_xent_block_kernel": "sm_xent",
         "lstm_fwd_kernel": "lstm_fwd", "lstm_bwd_kernel": "lstm_bwd",
-        # lstm_bwd's reductions (dW, dx, db, dpeep) after its recurrence
-        "lstm_gemm_kernel": "lstm_bwd", "lstm_colsum_kernel": "lstm_bwd"}
+        # lstm_bwd's hoisted gate product before its recurrence, and its
+        # tail (dW, db, dx, dpeep, then the slices summed) after it
+        "lstm_z_kernel": "lstm_bwd", "lstm_tail_kernel": "lstm_bwd",
+        "lstm_sum_kernel": "lstm_bwd"}
 
 
 def device_time_by_kernel(prof) -> dict:

@@ -5,11 +5,11 @@ Counterpart of the flash half of ``deeplearning4j_tpu/ops/pallas_kernels.py``
 ``masked_attention`` and their ``custom_vjp`` rules). On CUDA tensors the
 forward launches ``csrc/flash_fwd.cu`` and the backward the two kernels of
 ``csrc/flash_bwd.cu`` (dQ, then dK/dV), at every sequence length and every
-head dim from 1 to 128: the TPU's length gates (``_MIN_SEQ``,
-``_PBWD_MIN_SEQ``) are not carried over, and a crossover is for H100
-measurements to set. :func:`flash_plan` picks each launch's kernel width,
-key splits and shared memory. On CPU tensors every wrapper runs its plain
-version.
+head dim (above 128 the three kernels of ``csrc/flash_wide.cu``): the TPU's
+length gates (``_MIN_SEQ``, ``_PBWD_MIN_SEQ``) are not carried over, and a
+crossover is for H100 measurements to set. :func:`flash_plan` picks each
+launch's kernel, width, column groups, key splits and shared memory. On CPU
+tensors every wrapper runs its plain version.
 
 The JAX conventions are kept exactly: logits scaled by ``1/sqrt(D)``,
 masked logits ``-1e30`` (not ``-inf``), ``p = 0`` where the logit is
@@ -37,12 +37,17 @@ FLASH_WIDTHS = (16, 32, 64, 128)
 SMEM_PER_BLOCK = 232_448
 #: tile sizes of the kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
 _FWD_BQ, _FWD_BK, _BWD_ROWS = 32, 32, 64
+#: csrc/flash_wide.cu (D > 128): output rows of a block, rows of a streamed
+#: tile, columns of a score slab, output columns of a group
+_WIDE_BR, _WIDE_BT, _WIDE_SL, _WIDE_GW = 16, 32, 64, 128
 
 
 class FlashPlan(NamedTuple):
-    width: int   #: the instantiated head dim the kernel runs at (>= D)
+    width: int   #: the instantiated head dim (<= 128), or a group's columns
     splits: int  #: key splits of a forward block (1 for the backward)
     smem: int    #: dynamic shared memory of a block, bytes
+    groups: int  #: output-column groups: 1, or ceil(D / 128) (flash_wide.cu)
+    scale: float  #: the logit scale, 1 / sqrt(D) of the true D
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,14 +55,30 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
     """The launch plan of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) at
     head dim ``D``, ``BH = B * H`` and ``Tq`` query rows on a card of ``sms``
     SMs; the C side follows it and refuses shared-memory bytes that differ
-    from its instantiation's. Raises for a head dim outside 1..128.
+    from its instantiation's. Any ``D >= 1``.
 
-    The width is the least of :data:`FLASH_WIDTHS` that holds ``D``. The
+    Up to 128 the width is the least of :data:`FLASH_WIDTHS` that holds
+    ``D`` and ``groups`` is 1 (``flash_fwd.cu``, ``flash_bwd.cu``). The
     forward takes 2 key splits when the grid gives every SM 2 blocks or more,
     else 4 (twice the warps in flight); at width 128 always 2, since 4 splits
     of double-buffered 32-key tiles would need 270 KB. Rows are padded to
-    ``width + 4`` floats."""
-    _check_head_dim("flash_plan", D)
+    ``width + 4`` floats. Above 128 the kernels of ``flash_wide.cu`` run
+    with ``groups = ceil(D / 128)`` output-column groups of width 128."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    if D < 1:
+        raise ValueError(f"flash_plan: head dim must be >= 1, got {D}")
+    scale = 1.0 / (D ** 0.5)
+    if D > FLASH_WIDTHS[-1]:
+        # score slabs [n][BR][SL+1] and [n][BT][SL+1] (n = 1 forward, else
+        # 2: S and dP); P or dS [m][BR][BT+1] and tiles [m][BT][GW+1] of V,
+        # K, or Q and dO (m = 2 for dK/dV, else 1)
+        n = 1 if kernel == "fwd" else 2
+        m = 2 if kernel == "dkv" else 1
+        floats = (n * (_WIDE_BR + _WIDE_BT) * (_WIDE_SL + 1)
+                  + m * _WIDE_BR * (_WIDE_BT + 1)
+                  + m * _WIDE_BT * (_WIDE_GW + 1))
+        return FlashPlan(_WIDE_GW, 1, 4 * floats, -(-D // _WIDE_GW), scale)
     width = next(w for w in FLASH_WIDTHS if w >= D)
     ld = width + 4
     if kernel == "fwd":
@@ -67,7 +88,7 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
         # the scaled query [BQ][ld] at width 128 (else one row)
         floats = (4 * splits * _FWD_BK * ld + 2 * splits * _FWD_BK
                   + (_FWD_BQ if width > 64 else 1) * ld)
-        return FlashPlan(width, splits, 4 * floats)
+        return FlashPlan(width, splits, 4 * floats, 1, scale)
     tile = 16 if width >= 128 else 32  # rows of a streamed tile
     if kernel == "dq":
         # Q and dO rows [64][ld] each; K, V tiles [2][tile][ld]; mask [2][tile]
@@ -76,17 +97,7 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
         # K, V rows [64][ld]; mask [64]; Q, dO tiles [2][tile][ld]; lse and
         # delta [2][tile]
         floats = 2 * _BWD_ROWS * ld + _BWD_ROWS + 4 * tile * ld + 4 * tile
-    else:
-        raise ValueError(f"unknown flash kernel {kernel!r}")
-    return FlashPlan(width, 1, 4 * floats)
-
-
-def _check_head_dim(name: str, D: int) -> None:
-    """The kernels' head-dim range, checked for any tensor that is not on
-    the CPU (the plain version takes every head dim)."""
-    if not 1 <= D <= FLASH_WIDTHS[-1]:
-        raise ValueError(f"{name}: the flash kernels take head dims "
-                         f"1..{FLASH_WIDTHS[-1]}, got {D}")
+    return FlashPlan(width, 1, 4 * floats, 1, scale)
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,8 +135,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q ``[B, Tq, H, D]``, k and v ``[B, Tk, H, D]``, one dtype (float32 or
     bfloat16); ``key_mask`` an optional ``[B, Tk]`` {0,1} mask. On CUDA
-    tensors this launches ``csrc/flash_fwd.cu`` (D from 1 to 128; any
-    lengths); on CPU tensors it runs the plain version."""
+    tensors this launches ``csrc/flash_fwd.cu`` (``csrc/flash_wide.cu``
+    above D = 128; any D, any lengths); on CPU tensors it runs the plain
+    version."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_fwd needs q, k, v as [B, T, H, D]")
     B, Tq, H, D = q.shape
@@ -147,7 +159,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_fwd operands must share one device")
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, key_mask)
-    _check_head_dim("flash_fwd", D)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -161,13 +172,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     plan = flash_plan("fwd", D, B * H, Tq, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
-    fn = _cuda.function("flash_fwd", "flash_fwd", _ARGS)
+    lib, fn, width = _entry("fwd", plan, _ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if km is None else km.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, H, Tq, Tk, D, plan.width, plan.splits,
-            plan.smem, 1.0 / (D ** 0.5), int(causal),
+            lse.data_ptr(), B, H, Tq, Tk, D, width, plan.splits, plan.smem, plan.scale, int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
-    _cuda.check(rc, "flash_fwd", "flash_fwd launch")
+    _cuda.check(rc, lib, "flash_fwd launch")
     flash_fwd.launches += 1
     return out, lse
 
@@ -204,7 +214,6 @@ def _check_bwd(name: str, q, k, v, do, lse, delta, key_mask) -> None:
         raise ValueError(f"{name} operands must share one device")
     if q.device.type == "cpu":
         return
-    _check_head_dim(name, D)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v, do, lse, delta)):
@@ -269,6 +278,23 @@ _BWD_ARGS = [_cuda.PTR] * 8 + [_cuda.INT] * 7 + [_cuda.FLOAT, _cuda.INT,
                                                  _cuda.INT, _cuda.PTR]
 
 
+#: each kernel's C entry, (library, symbol): up to D = 128, and above it
+_ENTRIES = {"fwd": (("flash_fwd", "flash_fwd"), ("flash_wide", "flash_wide_fwd")),
+            "dq": (("flash_bwd", "flash_bwd_dq"), ("flash_wide", "flash_wide_dq")),
+            "dkv": (("flash_bwd", "flash_bwd_dkv"),
+                    ("flash_wide", "flash_wide_dkv"))}
+
+
+def _entry(kernel: str, plan: FlashPlan, argtypes):
+    """``(library, C function, the int it takes after D)`` for ``plan``:
+    the width of ``flash_fwd.cu``/``flash_bwd.cu``, or the column groups of
+    ``flash_wide.cu`` (same signatures otherwise)."""
+    wide = plan.groups > 1
+    lib, sym = _ENTRIES[kernel][wide]
+    return (lib, _cuda.function(lib, sym, argtypes),
+            plan.groups if wide else plan.width)
+
+
 def _mask_operand(key_mask):
     return None if key_mask is None else key_mask.to(torch.float32).contiguous()
 
@@ -278,7 +304,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool, key_mask: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """dQ ``[B, Tq, H, D]`` in q's dtype. On CUDA tensors this launches the
-    dQ kernel of ``csrc/flash_bwd.cu``; on CPU tensors it runs the plain
+    dQ kernel of ``csrc/flash_bwd.cu`` (of ``csrc/flash_wide.cu`` above
+    D = 128); on CPU tensors it runs the plain
     version."""
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta, key_mask)
     if q.device.type == "cpu":
@@ -290,13 +317,14 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq
     plan = flash_plan("dq", D, B * H, Tq, 0)
-    fn = _cuda.function("flash_bwd", "flash_bwd_dq", _BWD_ARGS)
+    lib, fn, width = _entry("dq", plan, _BWD_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if km is None else km.data_ptr(), dq.data_ptr(), B, H, Tq,
-            Tk, D, plan.width, plan.smem, 1.0 / (D ** 0.5), int(causal),
-            int(q.dtype == torch.bfloat16), _cuda.stream_handle())
-    _cuda.check(rc, "flash_bwd", "flash_bwd_dq launch")
+            Tk, D, width, plan.smem, plan.scale,
+            int(causal), int(q.dtype == torch.bfloat16),
+            _cuda.stream_handle())
+    _cuda.check(rc, lib, "flash_bwd_dq launch")
     flash_bwd_dq.launches += 1
     return dq
 
@@ -312,7 +340,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, key_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` ``[B, Tk, H, D]`` in k's dtype. On CUDA tensors this
-    launches the dK/dV kernel of ``csrc/flash_bwd.cu``; on CPU tensors it
+    launches the dK/dV kernel of ``csrc/flash_bwd.cu`` (of
+    ``csrc/flash_wide.cu`` above D = 128); on CPU tensors it
     runs the plain version."""
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, key_mask)
     if q.device.type == "cpu":
@@ -325,14 +354,13 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk.numel() == 0:
         return dk, dv
     plan = flash_plan("dkv", D, B * H, Tq, 0)
-    fn = _cuda.function("flash_bwd", "flash_bwd_dkv", _DKV_ARGS)
+    lib, fn, width = _entry("dkv", plan, _DKV_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if km is None else km.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, Tq, Tk, D, plan.width, plan.smem,
-            1.0 / (D ** 0.5), int(causal),
+            dv.data_ptr(), B, H, Tq, Tk, D, width, plan.smem, plan.scale, int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
-    _cuda.check(rc, "flash_bwd", "flash_bwd_dkv launch")
+    _cuda.check(rc, lib, "flash_bwd_dkv launch")
     flash_bwd_dkv.launches += 1
     return dk, dv
 

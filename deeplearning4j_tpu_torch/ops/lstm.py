@@ -8,8 +8,8 @@ gates and ``c_t`` on the o gate; a per-step mask (``> 0`` means live) holds
 - :func:`lstm_scan` is the plain oracle (one input matmul over all steps,
   then a recurrent matmul per step) and :func:`lstm_fused` the per-step
   ``[B, F+H] x [F+H, 4H]`` form, both in plain PyTorch.
-- :func:`lstm_fwd` and :func:`lstm_bwd` are the wrappers of the persistent
-  cell kernels of ``csrc/lstm.cu``, with the argument and result contracts
+- :func:`lstm_fwd` and :func:`lstm_bwd` are the wrappers of the cell
+  kernels of ``csrc/lstm.cu``, with the argument and result contracts
   of the JAX package's ``_pallas_forward`` and ``_pallas_backward``. On CUDA
   tensors they launch the kernels at any ``T >= 1``, ``H`` and ``F``; on CPU
   tensors they run :func:`lstm_fwd_plain` and :func:`lstm_bwd_plain`, which
@@ -32,6 +32,7 @@ as it is.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -219,8 +220,8 @@ def lstm_bwd_plain(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
 
 # ------------------------------------------------------------ the kernels
 _FWD_ARGS = [_cuda.PTR] * 7 + [_cuda.PTR] * 4 + [_cuda.INT] * 5 + [_cuda.PTR]
-_BWD_ARGS = ([_cuda.PTR] * 10 + [_cuda.PTR] * 6 + [_cuda.PTR] * 2
-             + [_cuda.INT] * 5 + [_cuda.PTR])
+_BWD_ARGS = ([_cuda.PTR] * 10 + [_cuda.PTR] * 6 + [_cuda.PTR] * 3
+             + [_cuda.INT] * 6 + [_cuda.PTR])
 
 
 def _check_args(name: str, x_t: Tensor, h0: Tensor, wcat: Tensor, b: Tensor,
@@ -292,9 +293,9 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
              dct: Tensor, m_t: Tensor):
     """The LSTM cell backward in reverse time; contract of
     :func:`lstm_bwd_plain`. On CUDA tensors (float32, contiguous) this
-    launches ``lstm_bwd`` of ``csrc/lstm.cu`` (the persistent recurrence,
-    then its reductions, all on the stream); on CPU tensors it runs the plain
-    version."""
+    launches ``lstm_bwd`` of ``csrc/lstm.cu`` (the hoisted gate product, the
+    recurrence, then the tail's products, all on the stream); on CPU tensors
+    it runs the plain version."""
     T, B, F = x_t.shape
     H = hprev.shape[-1]
     _check_args("lstm_bwd", x_t, dht, wcat, b, peep, m_t, {
@@ -303,43 +304,84 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
     if x_t.device.type == "cpu":
         return lstm_bwd_plain(x_t, hprev, cprev, wcat, b, peep, dys, dht,
                               dct, m_t)
+    out = _lstm_bwd_launch(x_t, hprev, cprev, wcat, b, peep, dys, dht, dct,
+                           m_t, 0)
+    lstm_bwd.launches += 1
+    return out
+
+
+lstm_bwd.launches = 0
+
+
+def _lstm_bwd_launch(x_t, hprev, cprev, wcat, b, peep, dys, dht, dct, m_t,
+                     units: int):
+    """The CUDA launch of :func:`lstm_bwd` with ``units`` hidden units a
+    recurrence block (0: the plan's default); checked operands. It counts
+    no launch: :func:`lstm_bwd` does."""
+    T, B, F = x_t.shape
+    H = hprev.shape[-1]
     dev = x_t.device
     f32 = dict(dtype=torch.float32, device=dev)
+    plan = lstm_bwd_plan(T, B, F, H, units, peep is not None)
     dx = torch.empty(T, B, F, **f32)
     dw = torch.empty(F + H, 4 * H, **f32)
     db = torch.empty(1, 4 * H, **f32)
     dpeep = torch.zeros(3, H, **f32)
     dh0 = torch.empty(B, H, **f32)
     dc0 = torch.empty(B, H, **f32)
-    # scratch: the dz stash the reductions read, and the peephole products
-    # each (row, unit) accumulates over time
-    dz = torch.empty(T, B, 4 * H, **f32)
-    pacc = torch.empty(3, B, H, **f32)
+    # scratch: z, then dz, for every row (the tail reads dz); the peephole
+    # products each (row, unit) accumulates over time, [B, 3H]; the tail's
+    # per-slice partial sums
+    zdz = torch.empty(T, B, 4 * H, **f32)
+    pacc = torch.empty(B, 3 * H, **f32)
+    part = torch.empty(max(1, plan["scratch"]), **f32)
     fn = _cuda.function("lstm", "lstm_bwd", _BWD_ARGS)
     rc = fn(x_t.data_ptr(), hprev.data_ptr(), cprev.data_ptr(),
             wcat.data_ptr(), b.data_ptr(), _ptr(peep), dys.data_ptr(),
             dht.data_ptr(), dct.data_ptr(), m_t.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dpeep.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(), dz.data_ptr(), pacc.data_ptr(),
-            T, B, F, H, int(peep is not None), _cuda.stream_handle())
+            dh0.data_ptr(), dc0.data_ptr(), zdz.data_ptr(), pacc.data_ptr(),
+            part.data_ptr(), T, B, F, H, int(peep is not None), int(units),
+            _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_bwd launch")
-    lstm_bwd.launches += 1
     return dx, dw, db, dpeep, dh0, dc0
 
 
-lstm_bwd.launches = 0
-
-
 def lstm_plan(B: int, F: int, H: int) -> dict:
-    """The launch the kernels would make on the current card for these
-    widths: hidden units per block, blocks, batch rows staged per pass and
-    whether the weight slices sit in shared memory. CUDA only."""
-    out = (ctypes.c_int * 8)()
+    """The launch the forward kernel would make on the current card for
+    these widths: hidden units per block, blocks, batch rows staged per
+    pass, shared memory, whether the weight slices sit in shared memory, and
+    the most co-resident blocks. CUDA only."""
+    out = (ctypes.c_int * 6)()
     fn = _cuda.function("lstm", "lstm_plan", [_cuda.INT] * 3 + [_cuda.PTR])
     _cuda.check(fn(B, F, H, ctypes.addressof(out)), "lstm", "lstm_plan")
-    keys = ("units", "blocks", "rows_fwd", "rows_bwd", "smem_fwd",
-            "smem_bwd", "w_shared", "max_blocks")
+    keys = ("units", "blocks", "rows", "smem", "w_shared", "max_blocks")
     return dict(zip(keys, list(out)))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(device: int, T: int, B: int, F: int, H: int, units: int,
+              peephole: bool) -> dict:
+    out = (ctypes.c_longlong * 9)()
+    fn = _cuda.function("lstm", "lstm_bwd_plan",
+                        [_cuda.INT] * 6 + [_cuda.PTR])
+    _cuda.check(fn(T, B, F, H, units, int(peephole), ctypes.addressof(out)),
+                "lstm", "lstm_bwd_plan")
+    keys = ("units", "blocks", "rows", "smem", "w_shared", "c_shared",
+            "max_blocks", "tail_blocks", "scratch")
+    return dict(zip(keys, list(out)))
+
+
+def lstm_bwd_plan(T: int, B: int, F: int, H: int, units: int = 0,
+                  peephole: bool = True) -> dict:
+    """The backward's launch on the current card: the recurrence's units
+    per block (``units``, or the default for 0), blocks, batch rows of dz_t
+    staged per pass, shared memory, whether RW's rows and the carries sit
+    in shared memory, the most co-resident blocks, the tail's blocks and its
+    scratch floats.
+    CUDA only."""
+    return dict(_bwd_plan(torch.cuda.current_device(), T, B, F, H, units,
+                          bool(peephole)))
 
 
 # ------------------------------------------------------------ the gradient

@@ -112,7 +112,15 @@ def test_paged_gather_kernel_bitwise_on_card(cuda_device):
     (4, 4, 128, 128, 128, True, False, torch.float32),   # transformer_lm width 512
     (2, 4, 77, 200, 128, False, True, torch.float32),    # ragged, masked, D = 128
     (2, 4, 130, 130, 128, True, True, torch.bfloat16),
-    (2, 4, 100, 100, 12, True, True, torch.bfloat16)])
+    (2, 4, 100, 100, 12, True, True, torch.bfloat16),
+    # head dims above 128: flash_wide.cu's column groups (2, 2, 4)
+    (2, 2, 100, 100, 160, True, False, torch.float32),
+    (4, 2, 128, 128, 256, True, False, torch.float32),   # width 512, 2 heads
+    (2, 2, 77, 200, 256, False, True, torch.float32),    # ragged, masked
+    (2, 2, 100, 100, 512, True, True, torch.float32),
+    (2, 2, 130, 130, 160, True, True, torch.bfloat16),
+    (2, 2, 100, 100, 256, False, False, torch.bfloat16),
+    (2, 2, 100, 100, 512, True, False, torch.bfloat16)])
 def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
                                                 causal, masked, dtype):
     rng = np.random.default_rng(0)
@@ -145,7 +153,16 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,C,dtype", [(4096, 256, torch.float32),
                                        (8, 50257, torch.float32),
-                                       (300, 256, torch.bfloat16)])
+                                       (300, 256, torch.bfloat16),
+                                       # a warp a row: char_rnn's C = 64, a
+                                       # ragged N, odd C, the widest row
+                                       (1600, 64, torch.float32),
+                                       (1601, 100, torch.float32),
+                                       (37, 33, torch.float32),
+                                       (64, 2048, torch.float32),
+                                       (65, 2049, torch.float32),
+                                       (300, 64, torch.bfloat16),
+                                       (30, 2047, torch.bfloat16)])
 def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     g = torch.Generator().manual_seed(0)
     x = (torch.randn(N, C, generator=g) * 3).to(cuda_device).to(dtype)
@@ -160,6 +177,9 @@ def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     gtol = XENT_GRAD_TOL if dtype == torch.float32 else XENT_BF16_GRAD_TOL
     assert grad.dtype == dtype
     torch.testing.assert_close(grad.float(), rg.float(), rtol=0, atol=gtol)
+    # bitwise the same from run to run: fixed-order sums
+    again = tsx.softmax_cross_entropy(x, y)
+    assert torch.equal(again[0], loss) and torch.equal(again[1], grad)
 
 
 @pytest.mark.cuda
@@ -178,11 +198,20 @@ def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     (100, 128, True, True, torch.float32),               # ragged, masked
     (100, 128, False, False, torch.bfloat16),
     (100, 8, True, True, torch.bfloat16),
-    (100, 40, False, False, torch.bfloat16)])
+    (100, 40, False, False, torch.bfloat16),
+    # head dims above 128: flash_wide.cu's column groups
+    (100, 160, True, False, torch.float32),
+    (128, 256, True, False, torch.float32),
+    (100, 256, False, True, torch.float32),
+    (100, 512, True, True, torch.float32),
+    (100, 160, False, True, torch.bfloat16),
+    (128, 256, True, False, torch.bfloat16),
+    (100, 512, False, False, torch.bfloat16)])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
                                                 masked, dtype):
     g = torch.Generator().manual_seed(1)
-    q, k, v, do = (torch.randn(2, T, 4, D, generator=g).to(cuda_device)
+    H = 4 if D <= 128 else 2
+    q, k, v, do = (torch.randn(2, T, H, D, generator=g).to(cuda_device)
                    .to(dtype) for _ in range(4))
     km = None
     if masked:
@@ -209,18 +238,6 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
     if masked:  # batch 1 sees no key: no gradient reaches it
         assert not dq[1].any() and not dk[1].any() and not dv[1].any()
-
-
-@pytest.mark.cuda
-def test_flash_kernels_refuse_head_dims_above_128_on_card(cuda_device):
-    q = torch.zeros(1, 8, 1, 129, device=cuda_device)
-    lse = torch.zeros(1, 8, device=cuda_device)
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa.flash_fwd(q, q, q, True)
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa.flash_bwd_dq(q, q, q, q, lse, lse, True)
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa.flash_bwd_dkv(q, q, q, q, lse, lse, True)
 
 
 #: float32 cell forward: dot products over F + H terms in another order
@@ -256,7 +273,8 @@ def _lstm_inputs(dev, T, B, F, H, peephole, masked, seed=0):
 
 
 LSTM_CASES = [(50, 32, 64, 200, True, False), (50, 32, 200, 200, True, True),
-              (1, 8, 64, 200, True, False), (7, 3, 5, 37, False, True)]
+              (1, 8, 64, 200, True, False), (7, 3, 5, 37, False, True),
+              (50, 32, 64, 200, False, False), (50, 32, 200, 37, True, True)]
 
 
 @pytest.mark.cuda
@@ -295,6 +313,28 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
         _close_to_scale(got, ref)
     # the same from run to run: fixed-order sums, no atomics
     assert all(torch.equal(x, y) for x, y in zip(tl.lstm_bwd(**args), out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units", [1, 2, 8, 13])
+def test_lstm_bwd_recurrence_units_match_plain_on_card(cuda_device, units):
+    """The recurrence at other units a block than the plan's default (13:
+    a last block with fewer units, more than one 8-unit pass)."""
+    tl, a = _lstm_inputs(cuda_device, 50, 32, 200, 200, True, True, seed=4)
+    ys, cs, _, _ = tl.lstm_fwd_plain(**a)
+    g = torch.Generator().manual_seed(5)
+    dys, dht, dct = (torch.randn(*s, generator=g).to(cuda_device)
+                     for s in ((50, 32, 200), (32, 200), (32, 200)))
+    args = dict(x_t=a["x_t"], hprev=torch.cat([a["h0"][None], ys[:-1]]),
+                cprev=torch.cat([a["c0"][None], cs[:-1]]), wcat=a["wcat"],
+                b=a["b"], peep=a["peep"], dys=dys, dht=dht, dct=dct,
+                m_t=a["m_t"])
+    assert tl.lstm_bwd_plan(50, 32, 200, 200, units)["units"] == units
+    out = tl._lstm_bwd_launch(**args, units=units)
+    for got, ref in zip(out, tl.lstm_bwd_plain(**args)):
+        _close_to_scale(got, ref)
+    assert all(torch.equal(x, y) for x, y in
+               zip(tl._lstm_bwd_launch(**args, units=units), out))
 
 
 @pytest.mark.cuda

@@ -56,6 +56,26 @@ def test_masked_attention_matches_jax_interpret(T, causal):
     assert not out.numpy()[1].any()  # fully masked rows output 0
 
 
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_head_dim_above_128_matches_jax_interpret(causal, masked):
+    """D = 160: on the card csrc/flash_wide.cu's column groups; here the
+    plain version against the JAX Pallas kernel in interpret mode."""
+    q, k, v = _qkv(128, seed=4, D=160)
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    km = _key_mask(128, seed=5) if masked else None
+    jkm = None if km is None else jnp.asarray(km)
+    ref, ref_lse = jpk._flash_forward(*jargs, causal, interpret=True,
+                                      key_mask=jkm)
+    targs = list(map(torch.from_numpy, (q, k, v)))
+    if masked:
+        out, lse = tfa.masked_attention(*targs, torch.from_numpy(km), causal)
+    else:
+        out, lse = tfa.flash_attention(*targs, causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=0,
+                               atol=TOL)
+
+
 def test_flash_fwd_wrapper_checks_operands():
     q, k, v = map(torch.from_numpy, _qkv(16))
     with pytest.raises(TypeError):

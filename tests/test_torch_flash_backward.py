@@ -113,6 +113,34 @@ def test_masked_attention_grad_matches_jax_pallas(causal):
                                    atol=GRAD_TOL)
 
 
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_head_dim_above_128_grad_matches_jax_pallas(causal, masked):
+    """D = 160 (csrc/flash_wide.cu on the card): the port's gradients
+    against jax.grad through the Pallas backward in interpret mode."""
+    q, k, v, w = _arrays(128, seed=9, D=160)
+    km = _key_mask(128, seed=4) if masked else None
+    if masked:
+        def jf(a, b, c):
+            return jpk.masked_attention(a, b, c, jnp.asarray(km), causal,
+                                        True, True)
+
+        def tf(a, b, c):
+            return tfa.masked_attention(a, b, c, _t(km), causal)
+    else:
+        def jf(a, b, c):
+            return jpk.flash_attention(a, b, c, causal, True, True)
+
+        def tf(a, b, c):
+            return tfa.flash_attention(a, b, c, causal)
+    ref = jax.grad(lambda a, b, c: jnp.sum(jf(a, b, c) * w),
+                   argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(tf, q, k, v, w)
+    for r, x in zip(ref, got):
+        assert x.shape == (2, 128, 2, 160)
+        np.testing.assert_allclose(x.numpy(), np.asarray(r), rtol=0,
+                                   atol=GRAD_TOL)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_ragged_length_grad_matches_jax_xla(masked):
     """T = 50 does not tile for the JAX kernels: JAX takes its XLA forward

@@ -18,16 +18,32 @@ carries it into the total with a float32 add.
 ``flash_plan`` picks every flash launch's width, key splits and shared
 memory: it must cover every head dim from 1 to 128 within a block's limit.
 
+Above head dim 128 ``flash_plan`` sends the three flash kernels to
+``csrc/flash_wide.cu``, whose column groups must cover every output column
+once, at the scale of the true D.
+
 ``csrc/int8_matmul.cu`` splits K into slices per ``int8_matmul_plan``: every
 K index must be covered exactly once, and the grid must reach the card's SM
 count at every decode shape.
+
+``csrc/sm_xent.cu`` follows ``sm_xent_plan``: a warp a row (a lane holding
+chunks of ``vec`` elements) up to C = 2,048, a block a row beyond; every row
+and every element of a row must be taken exactly once.
+
+``csrc/lstm.cu``'s backward runs in three parts: the gate product z for all
+rows at once, the recurrence on z, and the tail's products with the reduced
+dimension cut in slices of 256 whose partial sums are added in slice order.
+That decomposition is mirrored here in plain PyTorch and held against
+``lstm_bwd_plain`` at the kernel's tolerance.
 """
 import numpy as np
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+from deeplearning4j_tpu_torch.ops import lstm as tl
 from deeplearning4j_tpu_torch.ops import quant as tq
+from deeplearning4j_tpu_torch.ops import softmax_xent as tsx
 
 #: the flash kernel's tolerance against its plain version (float32)
 FLASH_TOL = 2e-5
@@ -215,13 +231,20 @@ FLASH_GRIDS = [(8, 512), (64, 256)]
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("BH,Tq", FLASH_GRIDS)
 def test_flash_plan_covers_every_head_dim(kernel, BH, Tq):
-    for D in range(1, 129):
+    for D in range(1, 1025):
         plan = tfa.flash_plan(kernel, D, BH, Tq, SMS)
+        assert 0 < plan.smem <= tfa.SMEM_PER_BLOCK, (D, plan)
+        assert plan.scale == 1.0 / D ** 0.5
+        if D > 128:  # flash_wide.cu: column groups of 128 cover D once
+            assert plan.width == 128 and plan.splits == 1, (D, plan)
+            assert plan.groups == -(-D // 128)
+            assert (plan.groups - 1) * plan.width < D <= plan.groups * plan.width
+            continue
+        assert plan.groups == 1
         assert plan.width >= D and plan.width % 8 == 0, (D, plan)
         assert plan.width in tfa.FLASH_WIDTHS
         # the least width that holds D: padding never doubles past it
         assert all(w < D for w in tfa.FLASH_WIDTHS if w < plan.width)
-        assert 0 < plan.smem <= tfa.SMEM_PER_BLOCK, (D, plan)
         if kernel == "fwd":
             assert plan.splits in ((2,) if plan.width == 128 else (2, 4))
         else:
@@ -241,22 +264,30 @@ def test_flash_plan_keeps_the_d64_forward_launches():
 
 
 def test_flash_kernels_name_the_head_dim_range():
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa.flash_plan("fwd", 129, 8, 512, SMS)
-    # a tensor that is not on the CPU takes the kernel's checks (meta tensors
-    # reach them without a card)
-    q = torch.empty(1, 8, 1, 129, device="meta")
-    lse = torch.empty(1, 8, device="meta")
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa.flash_fwd(q, q, q, True)
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa._check_bwd("flash_bwd_dq", q, q, q, q, lse, lse, None)
-    with pytest.raises(ValueError, match=r"1\.\.128"):
-        tfa.flash_bwd_dkv(q, q, q, q, lse, lse, True)
-    # within the range a meta tensor is refused for its device, not its D
-    q = torch.empty(1, 8, 1, 128, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        tfa.flash_fwd(q, q, q, True)
+    """Every head dim runs on the card: up to 128 in the width kernels, above
+    it in flash_wide.cu's column groups, always at the true 1/sqrt(D)."""
+    for D, groups in ((129, 2), (160, 2), (256, 2), (257, 3), (512, 4)):
+        for kernel in ("fwd", "dq", "dkv"):
+            plan = tfa.flash_plan(kernel, D, 8, 512, SMS)
+            assert plan.groups == groups > 1 and plan.width == 128
+            assert plan.scale == 1.0 / D ** 0.5
+    # the shared-memory bytes of flash_wide.cu's three structs
+    assert [tfa.flash_plan(k, 256, 8, 128, SMS).smem
+            for k in ("fwd", "dq", "dkv")] == [31_104, 43_584, 62_208]
+    assert tfa.flash_plan("dq", 128, 8, 512, SMS).groups == 1
+    with pytest.raises(ValueError):
+        tfa.flash_plan("fwd", 0, 8, 512, SMS)
+    # a tensor that is neither on the CPU nor on a card is refused for its
+    # device, whatever its head dim (meta tensors reach the checks)
+    for D in (128, 129, 256):
+        q = torch.empty(1, 8, 1, D, device="meta")
+        lse = torch.empty(1, 8, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            tfa.flash_fwd(q, q, q, True)
+        with pytest.raises(ValueError, match="unsupported device"):
+            tfa._check_bwd("flash_bwd_dq", q, q, q, q, lse, lse, None)
+        with pytest.raises(ValueError, match="unsupported device"):
+            tfa.flash_bwd_dkv(q, q, q, q, lse, lse, True)
     # the plain version on the CPU takes any head dim
     x = torch.zeros(1, 4, 1, 129)
     assert tfa.flash_fwd(x, x, x, True)[0].shape == x.shape
@@ -316,3 +347,146 @@ def test_int8_split_k_sum_matches_plain(M, K, N):
     out = acc * leaf.scale
     torch.testing.assert_close(out, tq.int8_matmul_plain(x, leaf.q, leaf.scale),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,C", [(1600, 64), (4096, 256), (37, 2048),
+                                 (9, 2049), (5, 50257), (1601, 100), (3, 33),
+                                 (8, 1), (1, 2047)])
+def test_sm_xent_plan_covers_every_row_once(N, C, dtype):
+    plan = tsx.sm_xent_plan(N, C, dtype)
+    rows = np.zeros(N, np.int64)
+    if plan.route == "block":
+        assert C > tsx.WARP_MAX_C and plan.rows == 1 and plan.grid == N
+        rows[:] = 1
+        cols = np.zeros(C, np.int64)
+        for tid in range(256):  # a block's threads stride the row
+            cols[tid::256] += 1
+        assert (cols == 1).all()
+    else:
+        assert C <= tsx.WARP_MAX_C and plan.rows == tsx.WARP_ROWS
+        for blk in range(plan.grid):
+            for w in range(plan.rows):
+                r = blk * plan.rows + w
+                if r < N:
+                    rows[r] += 1
+        # lane l takes chunks l, l + 32, ... of vec elements, within the
+        # values it can hold
+        assert C % plan.vec == 0 and plan.per_lane & (plan.per_lane - 1) == 0
+        cols = np.zeros(C, np.int64)
+        for lane in range(32):
+            held = 0
+            for i in range(plan.per_lane // plan.vec):
+                ch = lane + 32 * i
+                if ch < C // plan.vec:
+                    cols[ch * plan.vec:(ch + 1) * plan.vec] += 1
+                    held += plan.vec
+            assert held <= plan.per_lane
+        assert (cols == 1).all()
+        if C >= 32 * plan.vec:  # every lane has a chunk
+            assert C // plan.vec >= 32
+    assert (rows == 1).all()
+
+
+def test_sm_xent_plan_routes_the_main_shapes():
+    """char_rnn's rows (C = 64) and the transformer's (C = 256) take a warp
+    each with every lane busy: one 8-byte chunk, two 16-byte chunks."""
+    assert tsx.sm_xent_plan(1600, 64) == ("warp", 8, 200, 2, 2)
+    assert tsx.sm_xent_plan(4096, 256) == ("warp", 8, 512, 4, 8)
+    assert tsx.sm_xent_plan(64, 50257).route == "block"
+
+
+#: lstm_bwd against lstm_bwd_plain: each output within 1e-4 of its largest
+#: entry, plus 1e-5 (sums over T * B = 1,600 rows in another order)
+LSTM_BWD_ATOL, LSTM_BWD_RTOL = 1e-5, 1e-4
+#: rows of the reduced dimension in one slice of a tail product (lstm.cu)
+LSTM_SLICE = 256
+
+
+def _sliced(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the tail computes it: the reduced dimension cut in
+    slices of 256, each slice's partial summed on its own, the partials
+    added in slice order."""
+    out = None
+    for p0 in range(0, a.shape[1], LSTM_SLICE):
+        part = a[:, p0:p0 + LSTM_SLICE] @ b[p0:p0 + LSTM_SLICE]
+        out = part if out is None else out + part
+    return out
+
+
+def hoisted_lstm_bwd(x_t, hprev, cprev, wcat, b, peep, dys, dht, dct, m_t):
+    """The CUDA backward's decomposition: (1) z for every row at once, (2)
+    the recurrence reading z_t (dz_t, the dc carry, dh_{t-1} = dz_t RW^T),
+    (3) the tail: dW, db, dx and dpeep as sliced products."""
+    T, B, F = x_t.shape
+    H = hprev.shape[-1]
+    xh = torch.cat([x_t, hprev], dim=-1).reshape(T * B, F + H)
+    z = (xh @ wcat + b.reshape(-1)).reshape(T, B, 4 * H)
+    dh, dc = dht.clone(), dct.clone()
+    dz = torch.empty(T, B, 4 * H)
+    pacc = torch.zeros(B, 3 * H)
+    for t in range(T - 1, -1, -1):
+        cp = cprev[t]
+        zi, zf, zg, zo = z[t].split(H, dim=-1)
+        if peep is not None:
+            zi, zf = zi + cp * peep[0], zf + cp * peep[1]
+        i, f, g = torch.sigmoid(zi), torch.sigmoid(zf), torch.tanh(zg)
+        cn = f * cp + i * g
+        if peep is not None:
+            zo = zo + cn * peep[2]
+        o, tc = torch.sigmoid(zo), torch.tanh(cn)
+        live = (m_t[t] > 0)[:, None]
+        dh_t = dh + dys[t]
+        zero = torch.zeros_like(dh_t)
+        dh_act, dh_skip = torch.where(live, dh_t, zero), torch.where(live, zero, dh_t)
+        dc_act, dc_skip = torch.where(live, dc, zero), torch.where(live, zero, dc)
+        dzo = dh_act * tc * o * (1 - o)
+        dc_t = dc_act + dh_act * o * (1 - tc * tc)
+        if peep is not None:
+            dc_t = dc_t + dzo * peep[2]
+        dzi = dc_t * g * i * (1 - i)
+        dzf = dc_t * cp * f * (1 - f)
+        dzg = dc_t * i * (1 - g * g)
+        dz[t] = torch.cat([dzi, dzf, dzg, dzo], dim=-1)
+        dc = dc_t * f + dc_skip
+        if peep is not None:
+            dc = dc + dzi * peep[0] + dzf * peep[1]
+            pacc += torch.cat([dzi * cp, dzf * cp, dzo * cn], dim=-1)
+        dh = dz[t] @ wcat[F:].t() + dh_skip
+    dzr = dz.reshape(T * B, 4 * H)
+    dw = _sliced(xh.t().contiguous(), dzr)
+    db = _sliced(torch.ones(1, T * B), dzr)
+    dx = _sliced(dzr, wcat[:F].t().contiguous()).reshape(T, B, F)
+    dpeep = (_sliced(torch.ones(1, B), pacc).reshape(3, H)
+             if peep is not None else torch.zeros(3, H))
+    return dx, dw, db, dpeep, dh, dc
+
+
+@pytest.mark.parametrize("T,B,F,H,peephole,masked", [
+    (50, 32, 64, 200, True, False),   # char_rnn's chunk, layer 1
+    (50, 32, 200, 200, True, True),   # layer 2, a ragged mask
+    (50, 32, 64, 200, False, False),  # no peepholes
+    (7, 3, 5, 37, True, True)])
+def test_hoisted_lstm_bwd_matches_plain(T, B, F, H, peephole, masked):
+    g = torch.Generator().manual_seed(T + F + H)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    m = torch.ones(T, B)
+    if masked:
+        m = (torch.rand(T, B, generator=g) > 0.3).float()
+        m[:, 0] = 0.0
+    x, wcat, b = r(T, B, F), r(F + H, 4 * H, scale=0.1), r(1, 4 * H, scale=0.1)
+    peep = r(3, H, scale=0.3) if peephole else None
+    h0, c0 = r(B, H, scale=0.5), r(B, H, scale=0.5)
+    ys, cs, _, _ = tl.lstm_fwd_plain(x, wcat, b, peep, h0, c0, m)
+    args = (x, torch.cat([h0[None], ys[:-1]]), torch.cat([c0[None], cs[:-1]]),
+            wcat, b, peep, r(T, B, H), r(B, H), r(B, H), m)
+    got = hoisted_lstm_bwd(*args)
+    want = tl.lstm_bwd_plain(*args)
+    for name, x_, w_ in zip(("dx", "dW", "db", "dpeep", "dh0", "dc0"), got, want):
+        assert x_.shape == w_.shape, name
+        err = float((x_ - w_).abs().max())
+        assert err <= LSTM_BWD_ATOL + LSTM_BWD_RTOL * float(w_.abs().max()), \
+            (name, err)

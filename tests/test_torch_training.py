@@ -102,6 +102,28 @@ def test_fit_trajectory_matches_jax_adam(tmp_path):
     assert losses[-1] < losses[0]
 
 
+def test_head_dim_above_128_matches_jax(tmp_path):
+    """``transformer_lm(V, width=320, n_heads=2)``: a head dim of 160, which
+    the CUDA kernels run in ``csrc/flash_wide.cu``. Output at atol 1e-5, and
+    two SGD steps at the SGD tolerances."""
+    conf = lm_conf_json(width=320, n_layers=1, n_heads=2, learning_rate=0.05,
+                        global_fields={"updater": "sgd"},
+                        layer_fields={"updater": "sgd"})
+    batches = [_batch(s) for s in range(2)]
+    ref = jax_train(conf, batches, tmp_path)
+    tnet = _port(conf, ref)
+    from deeplearning4j_tpu.nn.conf.multilayer import MultiLayerConfiguration
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
+    jnet = JaxNet(MultiLayerConfiguration.from_json(conf)).init()  # params0
+    x = batches[0][0]
+    np.testing.assert_allclose(tnet.output(x).numpy(),
+                               np.asarray(jnet.output(x)), rtol=0,
+                               atol=OTHER_ATOL)
+    losses = _port_losses(tnet, batches)
+    np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL)
+    _assert_params(tnet, ref["params"], PARAM_RTOL, PARAM_ATOL)
+
+
 def test_continuing_from_carried_updater_state(tmp_path):
     """JAX trains two Adam steps; the port picks up its params, updater state
     and iteration, and both take a third step: the Adam bias correction

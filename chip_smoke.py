@@ -42,8 +42,7 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    profiles one batch, with ``lstm_bwd``'s device time split into its
    hoisted gate product, its recurrence and its tail;
 8. reads the profiler's device time of every main-path kernel row and its
-   library call, and of ``lstm_bwd``'s three parts at 2, 4 and 8 hidden
-   units a recurrence block;
+   library call, and of ``lstm_bwd``'s three parts;
 9. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -121,8 +120,6 @@ LSTM_SPLIT: list = []
 LSTM_BWD_PARTS = {"hoisted": ("lstm_z_kernel",),
                   "recurrence": ("lstm_bwd_kernel",),
                   "tail": ("lstm_tail_kernel", "lstm_sum_kernel")}
-#: hidden units a block of lstm_bwd's recurrence, measured side by side
-LSTM_BWD_UNITS = (2, 4, 8)
 #: the card's name and power limit, as nvidia-smi prints them
 CARD = ""
 
@@ -292,31 +289,14 @@ def measure_device_times() -> None:
               f"{row['device_ms']:.5f} library_device_ms="
               f"{row['library_device_ms']} (torch.profiler, mean per call)",
               flush=True)
-    # lstm_bwd's parts at each measured recurrence width (units a block);
-    # the wrapper's own launch takes the plan's default
+    # lstm_bwd's three parts at the training chunks' shapes
     for row, ba in LSTM_SPLIT:
-        sweep = {}
-        for units in LSTM_BWD_UNITS:
-            T, B, F = ba["x_t"].shape
-            H = ba["hprev"].shape[-1]
-            plan = lstm_ops.lstm_bwd_plan(T, B, F, H, units,
-                                          ba["peep"] is not None)
-            parts = lstm_bwd_parts(device_ms_by_kernel(
-                lambda u=units: lstm_ops._lstm_bwd_launch(**ba, units=u)))
-            sweep[units] = {**parts, "total": sum(parts.values()),
-                            "blocks": plan["blocks"]}
-        default = lstm_ops.lstm_bwd_plan(T, B, F, H, 0,
-                                         ba["peep"] is not None)["units"]
-        row["bwd_units"] = sweep
-        row["bwd_default_units"] = default
-        row["bwd_parts_ms"] = sweep[default]
-        print(f"lstm_bwd {row['shape']}: device ms a call by part and units "
-              f"a recurrence block (default {default}): "
-              + "; ".join(f"U={u} ({v['blocks']} blocks): hoisted "
-                          f"{v['hoisted']:.5f} recurrence "
-                          f"{v['recurrence']:.5f} tail {v['tail']:.5f} "
-                          f"total {v['total']:.5f}"
-                          for u, v in sweep.items()), flush=True)
+        parts = lstm_bwd_parts(device_ms_by_kernel(
+            lambda ba=ba: lstm_ops.lstm_bwd(**ba)))
+        row["bwd_parts_ms"] = {**parts, "total": sum(parts.values())}
+        print(f"lstm_bwd {row['shape']}: device ms a call by part: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in
+                          row["bwd_parts_ms"].items()), flush=True)
 
 
 def check_int8(rows: list, dev) -> None:
@@ -435,9 +415,11 @@ def check_flash(rows: list, dev) -> None:
                      {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
                       "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
         DEVICE_TIMED.append((row, kernel, library))
-    # the wide phases' shapes (4 heads of 128; 2 heads of 256, which run
-    # flash_wide.cu on the CUDA cores: its bound is the float32 one), timed
-    # beside their bounds, and bitwise the same from run to run
+    # the wide phases' shapes (4 heads of 128; 2 heads of 256, flash_wide.cu),
+    # timed beside their bounds, and bitwise the same from run to run. Every
+    # width is held to the same bound: float32 work as three TF32 passes at
+    # the tensor cores' peak, whether the kernel runs on them or on the CUDA
+    # cores
     for H_, D in ((H, 128), (WIDE2_HEADS, WIDE_WIDTH // WIDE2_HEADS)):
         B, T = WIDE_B, WIDE_T
         q, k, v = (torch.randn(B, T, H_, D, generator=g).to(dev)
@@ -460,8 +442,6 @@ def check_flash(rows: list, dev) -> None:
 
         f32_ms, f32_by = bound(nbytes, ops)
         tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-        if D > 128:
-            tc_ms, tc_by = f32_ms, f32_by
         row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H_, "D": D,
                                          "causal": True}, err, tol,
                      time_ms(kernel, iters=20),
@@ -670,8 +650,6 @@ def check_flash_bwd(rows: list, dev) -> None:
                                              km))):
             f32_ms, f32_by = bound(nbytes, ops)
             tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-            if D > 128:  # flash_wide.cu: the CUDA cores, float32
-                tc_ms, tc_by = f32_ms, f32_by
             r = report(rows, name, shape,
                        eq if name == "flash_bwd_dq" else ekv, t,
                        time_ms(kernel, iters=20), time_ms(plain, iters=20),
@@ -789,7 +767,7 @@ def check_lstm(rows: list, dev) -> None:
         iters = 20 if T > 1 else 100
         fb, fo, bb, bo = lstm_work(T, B, F, H)
         shape["plan"] = lstm_ops.lstm_plan(B, F, H)
-        shape["bwd_plan"] = lstm_ops.lstm_bwd_plan(T, B, F, H, 0, peephole)
+        shape["bwd_plan"] = lstm_ops.lstm_bwd_plan(T, B, F, H, peephole)
         def kernel(a=a):
             return lstm_ops.lstm_fwd(**a)
 
@@ -812,19 +790,6 @@ def check_lstm(rows: list, dev) -> None:
         if T > 1:  # the backward runs in training only
             DEVICE_TIMED.append((row, bkernel, lib_fb))
             LSTM_SPLIT.append((row, ba))
-            # every measured recurrence width against the plain version,
-            # bitwise from run to run
-            for units in LSTM_BWD_UNITS:
-                uout = lstm_ops._lstm_bwd_launch(**ba, units=units)
-                uagain = lstm_ops._lstm_bwd_launch(**ba, units=units)
-                torch.cuda.synchronize()
-                uerrs = [float((o - r).abs().max())
-                         for o, r in zip(uout, bref)]
-                if not all(e <= t for e, t in zip(uerrs, btols)) or not all(
-                        torch.equal(x, y) for x, y in zip(uout, uagain)):
-                    fail(f"lstm_bwd {shape} at {units} units a block "
-                         f"disagrees with its plain version ({uerrs}) or "
-                         "differs from run to run")
 
 
 def post(port: int, path: str, body: dict):
@@ -1300,15 +1265,10 @@ def train_lstm(kernels) -> dict:
     if busy_us <= 0:
         fail("the profiler saw no device time in the char_rnn batch")
     per_batch = RNN_T // RNN_CHUNK
-    # lstm_bwd's parts in the profiled batch, per chunk (both layers)
-    raw = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            raw[e.key] = raw.get(e.key, 0.0) + float(us or 0.0)
-    bwd_parts_us = {k: v / per_batch for k, v in lstm_bwd_parts(raw).items()}
+    # lstm_bwd's parts per chunk (both layers), read as device_ms does it
+    # (time a recorded event x events a batch, median of three sessions)
+    bwd_parts_us = {k: 1e3 * v / per_batch for k, v in lstm_bwd_parts(
+        device_ms_by_kernel(lambda: net.fit(x, x), iters=2)).items()}
     result = {
         "losses": losses, "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
         "launches": launches, "chunk_ms": chunk_ms,
@@ -1403,10 +1363,9 @@ def main() -> None:
                "library_ms", "shape")
     #: present on some rows only: profiler device times, the flash kernels'
     #: float32 bound, the card of the redesigned kernels' rows, int8_matmul's
-    #: and sm_xent's plans, lstm_bwd's parts by units a block
+    #: and sm_xent's plans, lstm_bwd's three parts
     optional = ("device_ms", "library_device_ms", "bound_f32_ms",
-                "bound_f32_by", "card", "plan", "bwd_parts_ms", "bwd_units",
-                "bwd_default_units")
+                "bound_f32_by", "card", "plan", "bwd_parts_ms")
 
     def nums(row):
         return {**{k: row[k] for k in numbers},

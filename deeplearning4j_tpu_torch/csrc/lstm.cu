@@ -48,22 +48,22 @@
 //    Bounded by the CUDA cores' float32 rate and this tile's shared-memory
 //    reads, not by the recurrence.
 // 2. The lean recurrence (lstm_bwd_kernel): one cooperative launch, block g
-//    owning U units (the plan's; 2 by default, 100 blocks at H = 200: the
-//    fastest of U = 2, 4, 8 on the H100, chip_smoke.py measures all three
-//    and PERF.md keeps them). Per step, phase (a): each of the block's cells
-//    reads its z_t and c_{t-1}, forms dz_t and the dc carry, and writes dz_t
-//    over z_t in place (the thread that reads z[t, b, c] is the one that
-//    writes dz[t, b, c]); then one grid.sync(); phase (b): dh_{t-1} =
-//    dz_t RW^T for its units, with dz_t staged into shared memory by
-//    16-byte cp.async (through L2) and a warp taking 4 batch rows at once:
-//    lanes over the 4H columns as float4, each RW float4 serving 4 rows,
-//    4 x UG independent sums, a shuffle tree each. The carries (dh, dc and
-//    the peephole sums) stay in shared memory. No second barrier: the next
-//    step's phase (a) writes another stash slot than phase (b) reads. What
-//    bounds it: phase (b)'s product, shared-memory bound, grows with U
-//    (each block reads dz_t once and RW's U rows for every row group),
-//    while the barrier and the staging of dz_t (B * 4H floats into every
-//    block, through L2) cost about the same at 25 to 100 blocks.
+//    owning U = max(2, ceil(H / SMs)) units (100 blocks at H = 200: U = 2
+//    was the fastest of 2, 4 and 8 there on the H100, PERF.md). Per step,
+//    phase (a): each of the block's cells reads its z_t and c_{t-1}, forms
+//    dz_t and the dc carry, and writes dz_t over z_t in place (the thread
+//    that reads z[t, b, c] is the one that writes dz[t, b, c]); then one
+//    grid.sync(); phase (b): dh_{t-1} = dz_t RW^T for its units, with dz_t
+//    staged into shared memory by 16-byte cp.async (through L2) and a warp
+//    taking 4 batch rows at once: lanes over the 4H columns as float4, each
+//    RW float4 serving 4 rows, 4 x UG independent sums, a shuffle tree each.
+//    The carries (dh, dc and the peephole sums) stay in shared memory. No
+//    second barrier: the next step's phase (a) writes another stash slot
+//    than phase (b) reads. What bounds it: phase (b)'s product,
+//    shared-memory bound, grows with U (each block reads dz_t once and RW's
+//    U rows for every row group), while the barrier and the staging of dz_t
+//    (B * 4H floats into every block, through L2) cost about the same at 25
+//    to 100 blocks.
 // 3. The tail (lstm_tail_kernel, lstm_sum_kernel): dW = [x, hprev]^T dz,
 //    db = 1^T dz, dx = dz W_x^T and dpeep = 1^T pacc as one launch of the
 //    same tiled GEMM over all five problems, the reduced dimension (T * B,
@@ -602,11 +602,13 @@ cudaError_t make_plan(int B, int F, int H, Plan* p) {
   return cudaSuccess;
 }
 
-// The backward's launch: U units a block (the caller's, or DEFAULT_BWD_UNITS,
-// raised to ceil(H / SMs) so the grid fits), RW's U rows in shared memory
-// when they fit in 128 KB, the cells' carries in shared memory when they
-// fit, dz_t staged `rows` batch rows at a time, and the tail's scratch.
-constexpr int DEFAULT_BWD_UNITS = 2;
+// The backward's launch: U = max(2, ceil(H / SMs)) units a block (2: the
+// fastest of 2, 4 and 8 at char_rnn's H = 200 on the H100, PERF.md; more
+// when H needs it for the grid to fit), RW's U rows in shared memory when
+// they fit in 128 KB, the cells' carries in shared memory when they fit,
+// dz_t staged `rows` batch rows at a time, and the tail's scratch. The
+// caller keeps the plan and hands it to lstm_bwd, which only checks it.
+constexpr int MIN_BWD_UNITS = 2;
 
 // The recurrence's instantiation for U units a block.
 const void* bwd_kernel(int U, int wsh) {
@@ -621,7 +623,14 @@ struct BwdPlan {
   long long scratch;
 };
 
-cudaError_t make_bwd_plan(int T, int B, int F, int H, int units, int peephole, BwdPlan* p) {
+// the recurrence's shared memory: RW's U rows (wsh), the carries (csh) and
+// `rows` staged rows of dz_t
+size_t bwd_smem(int B, int H, int U, int rows, int wsh, int csh) {
+  const size_t row = (size_t)4 * H * sizeof(float);
+  return (wsh ? U * row : 0) + (csh ? (size_t)5 * B * U * sizeof(float) : 0) + rows * row;
+}
+
+cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, BwdPlan* p) {
   int dev, sms, coop;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -630,29 +639,28 @@ cudaError_t make_bwd_plan(int T, int B, int F, int H, int units, int peephole, B
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return err;
   if (!coop) return cudaErrorNotSupported;
-  if (units < 0) return cudaErrorInvalidValue;
-  int U = units > 0 ? units : DEFAULT_BWD_UNITS;
-  if (units == 0 && U < (H + sms - 1) / sms) U = (H + sms - 1) / sms;
+  int U = (H + sms - 1) / sms;
+  if (U < MIN_BWD_UNITS) U = MIN_BWD_UNITS;
   if (U > H) U = H;
   const size_t row = (size_t)4 * H * sizeof(float);
-  const size_t w = (size_t)U * row;
-  const int wsh = w <= W_SHARED_LIMIT;
+  const int wsh = U * row <= W_SHARED_LIMIT;
   // the carries and peephole sums of the block's cells: in shared memory
   // when they leave room for one staged row
-  const size_t carries = (size_t)5 * B * U * sizeof(float);
-  const int csh = (wsh ? w : 0) + carries + row <= SMEM_LIMIT;
-  const size_t base = (wsh ? w : 0) + (csh ? carries : 0);
+  const int csh = bwd_smem(B, H, U, 1, wsh, 1) <= SMEM_LIMIT;
+  const size_t base = bwd_smem(B, H, U, 0, wsh, csh);
   if (base + row > SMEM_LIMIT) return cudaErrorInvalidValue;  // one row does not fit
   p->units = U;
   p->blocks = (H + U - 1) / U;
   p->w_shared = wsh;
   p->c_shared = csh;
   p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / row ? B : (SMEM_LIMIT - base) / row);
-  p->smem = base + p->rows * row;
+  p->smem = bwd_smem(B, H, U, p->rows, wsh, csh);
   int occ = 0;
   const void* kernel = bwd_kernel(U, wsh);
+  // the most any plan takes, so that plans made for other shapes of the
+  // same instantiation stay launchable
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)p->smem)) != cudaSuccess)
+                                  (int)SMEM_LIMIT)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS,
                                                            p->smem)) != cudaSuccess)
@@ -681,10 +689,9 @@ extern "C" int lstm_plan(int B, int F, int H, int* out) {
   return 0;
 }
 
-extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int units, int peephole,
-                             long long* out) {
+extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int peephole, long long* out) {
   BwdPlan p;
-  cudaError_t err = make_bwd_plan(T, B, F, H, units, peephole, &p);
+  cudaError_t err = make_bwd_plan(T, B, F, H, peephole, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.units;
   out[1] = p.blocks;
@@ -726,17 +733,24 @@ extern "C" int lstm_fwd(const void* x, const void* wcat, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// units: 0 for the plan's default. scratch: the plan's `scratch` floats.
+// units, rows, w_shared, c_shared, smem, scratch_floats: lstm_bwd_plan's
+// for this shape, which the caller keeps; checked here, not worked out
+// again. scratch: `scratch_floats` floats.
 extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
                         const void* wcat, const void* bias, const void* peep,
                         const void* dys, const void* dht, const void* dct,
                         const void* mask, void* dx, void* dw, void* db,
                         void* dpeep, void* dh0, void* dc0, void* zdz,
                         void* pacc, void* scratch, int T, int B, int F, int H,
-                        int peephole, int units, void* stream) {
-  BwdPlan p;
-  cudaError_t err = make_bwd_plan(T, B, F, H, units, peephole, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                        int peephole, int units, int rows, int w_shared,
+                        int c_shared, long long smem, long long scratch_floats,
+                        void* stream) {
+  const size_t row = (size_t)4 * H * sizeof(float);
+  if (units < 1 || units > H || rows < 1 || rows > B ||
+      (w_shared && units * row > W_SHARED_LIMIT) || smem > (long long)SMEM_LIMIT ||
+      smem != (long long)bwd_smem(B, H, units, rows, w_shared, c_shared))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xa = static_cast<const float*>(x);
   const float* hpa = static_cast<const float*>(hprev);
@@ -768,12 +782,12 @@ extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
   lstm_z_kernel<<<z_blocks, THREADS, 0, st>>>(zg);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  // 2. the recurrence
-  int U = p.units, rows = p.rows, csh = p.c_shared;
+  // 2. the recurrence (a grid that cannot be co-resident is refused here)
+  int U = units, csh = c_shared;
   void* args[] = {&cpa, &wa, &pa, &dya, &dhta, &dcta, &ma, &dha, &dca, &za, &paa,
                   &T, &B, &F, &H, &U, &rows, &csh};
-  err = cudaLaunchCooperativeKernel(bwd_kernel(U, p.w_shared), dim3(p.blocks), dim3(THREADS),
-                                    args, p.smem, st);
+  err = cudaLaunchCooperativeKernel(bwd_kernel(U, w_shared), dim3((H + U - 1) / U),
+                                    dim3(THREADS), args, (size_t)smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
@@ -784,7 +798,7 @@ extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
                                 static_cast<float*>(dw), static_cast<float*>(db),
                                 static_cast<float*>(dx), static_cast<float*>(dpeep), &tg,
                                 &need);
-  if (need != p.scratch) return static_cast<int>(cudaErrorInvalidValue);
+  if (need != scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
   tg.scratch = static_cast<float*>(scratch);
   lstm_tail_kernel<<<blocks, THREADS, 0, st>>>(tg);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

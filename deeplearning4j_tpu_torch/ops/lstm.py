@@ -221,7 +221,7 @@ def lstm_bwd_plain(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
 # ------------------------------------------------------------ the kernels
 _FWD_ARGS = [_cuda.PTR] * 7 + [_cuda.PTR] * 4 + [_cuda.INT] * 5 + [_cuda.PTR]
 _BWD_ARGS = ([_cuda.PTR] * 10 + [_cuda.PTR] * 6 + [_cuda.PTR] * 3
-             + [_cuda.INT] * 6 + [_cuda.PTR])
+             + [_cuda.INT] * 9 + [_cuda.LONG] * 2 + [_cuda.PTR])
 
 
 def _check_args(name: str, x_t: Tensor, h0: Tensor, wcat: Tensor, b: Tensor,
@@ -304,25 +304,8 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
     if x_t.device.type == "cpu":
         return lstm_bwd_plain(x_t, hprev, cprev, wcat, b, peep, dys, dht,
                               dct, m_t)
-    out = _lstm_bwd_launch(x_t, hprev, cprev, wcat, b, peep, dys, dht, dct,
-                           m_t, 0)
-    lstm_bwd.launches += 1
-    return out
-
-
-lstm_bwd.launches = 0
-
-
-def _lstm_bwd_launch(x_t, hprev, cprev, wcat, b, peep, dys, dht, dct, m_t,
-                     units: int):
-    """The CUDA launch of :func:`lstm_bwd` with ``units`` hidden units a
-    recurrence block (0: the plan's default); checked operands. It counts
-    no launch: :func:`lstm_bwd` does."""
-    T, B, F = x_t.shape
-    H = hprev.shape[-1]
-    dev = x_t.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    plan = lstm_bwd_plan(T, B, F, H, units, peep is not None)
+    f32 = dict(dtype=torch.float32, device=x_t.device)
+    plan = lstm_bwd_plan(T, B, F, H, peep is not None)
     dx = torch.empty(T, B, F, **f32)
     dw = torch.empty(F + H, 4 * H, **f32)
     db = torch.empty(1, 4 * H, **f32)
@@ -341,10 +324,15 @@ def _lstm_bwd_launch(x_t, hprev, cprev, wcat, b, peep, dys, dht, dct, m_t,
             dht.data_ptr(), dct.data_ptr(), m_t.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dpeep.data_ptr(),
             dh0.data_ptr(), dc0.data_ptr(), zdz.data_ptr(), pacc.data_ptr(),
-            part.data_ptr(), T, B, F, H, int(peep is not None), int(units),
-            _cuda.stream_handle())
+            part.data_ptr(), T, B, F, H, int(peep is not None),
+            plan["units"], plan["rows"], plan["w_shared"], plan["c_shared"],
+            plan["smem"], plan["scratch"], _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_bwd launch")
+    lstm_bwd.launches += 1
     return dx, dw, db, dpeep, dh0, dc0
+
+
+lstm_bwd.launches = 0
 
 
 def lstm_plan(B: int, F: int, H: int) -> dict:
@@ -359,28 +347,28 @@ def lstm_plan(B: int, F: int, H: int) -> dict:
     return dict(zip(keys, list(out)))
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_plan(device: int, T: int, B: int, F: int, H: int, units: int,
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(device: int, T: int, B: int, F: int, H: int,
               peephole: bool) -> dict:
     out = (ctypes.c_longlong * 9)()
     fn = _cuda.function("lstm", "lstm_bwd_plan",
-                        [_cuda.INT] * 6 + [_cuda.PTR])
-    _cuda.check(fn(T, B, F, H, units, int(peephole), ctypes.addressof(out)),
+                        [_cuda.INT] * 5 + [_cuda.PTR])
+    _cuda.check(fn(T, B, F, H, int(peephole), ctypes.addressof(out)),
                 "lstm", "lstm_bwd_plan")
     keys = ("units", "blocks", "rows", "smem", "w_shared", "c_shared",
             "max_blocks", "tail_blocks", "scratch")
     return dict(zip(keys, list(out)))
 
 
-def lstm_bwd_plan(T: int, B: int, F: int, H: int, units: int = 0,
+def lstm_bwd_plan(T: int, B: int, F: int, H: int,
                   peephole: bool = True) -> dict:
-    """The backward's launch on the current card: the recurrence's units
-    per block (``units``, or the default for 0), blocks, batch rows of dz_t
+    """The backward's launch on the current card, worked out once a shape
+    and handed to the kernel, which only checks it: the recurrence's units
+    per block (``max(2, ceil(H / SMs))``), blocks, batch rows of dz_t
     staged per pass, shared memory, whether RW's rows and the carries sit
     in shared memory, the most co-resident blocks, the tail's blocks and its
-    scratch floats.
-    CUDA only."""
-    return dict(_bwd_plan(torch.cuda.current_device(), T, B, F, H, units,
+    scratch floats. CUDA only."""
+    return dict(_bwd_plan(torch.cuda.current_device(), T, B, F, H,
                           bool(peephole)))
 
 

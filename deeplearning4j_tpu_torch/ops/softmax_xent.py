@@ -8,7 +8,6 @@ as in the JAX package.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -30,7 +29,6 @@ class SmXentPlan(NamedTuple):
     per_lane: int  #: values a lane holds (an instantiation; >= its share)
 
 
-@functools.lru_cache(maxsize=None)
 def sm_xent_plan(N: int, C: int, dtype: torch.dtype = torch.float32
                  ) -> SmXentPlan:
     """The launch of ``csrc/sm_xent.cu`` for ``N`` rows of ``C`` logits of

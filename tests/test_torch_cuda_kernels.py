@@ -316,25 +316,30 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("units", [1, 2, 8, 13])
-def test_lstm_bwd_recurrence_units_match_plain_on_card(cuda_device, units):
-    """The recurrence at other units a block than the plan's default (13:
-    a last block with fewer units, more than one 8-unit pass)."""
-    tl, a = _lstm_inputs(cuda_device, 50, 32, 200, 200, True, True, seed=4)
+@pytest.mark.parametrize("H", [400, 401, 700, 1100])
+def test_lstm_bwd_wide_layers_match_plain_on_card(cuda_device, H):
+    """Hidden widths whose plan takes more than 2 units a recurrence block
+    on a 132-SM card: 4 units a block (400; 401 with a last block of one
+    unit), 6 (700, the 8-unit pass with a ragged last block) and 9 (1100:
+    two passes, RW's rows read from global memory)."""
+    T, B, F = 6, 8, 64
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, True, True, seed=4)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tl.lstm_bwd_plan(T, B, F, H, True)
+    assert plan["units"] == max(2, -(-H // sms))
+    assert plan["blocks"] == -(-H // plan["units"])
     ys, cs, _, _ = tl.lstm_fwd_plain(**a)
     g = torch.Generator().manual_seed(5)
     dys, dht, dct = (torch.randn(*s, generator=g).to(cuda_device)
-                     for s in ((50, 32, 200), (32, 200), (32, 200)))
+                     for s in ((T, B, H), (B, H), (B, H)))
     args = dict(x_t=a["x_t"], hprev=torch.cat([a["h0"][None], ys[:-1]]),
                 cprev=torch.cat([a["c0"][None], cs[:-1]]), wcat=a["wcat"],
                 b=a["b"], peep=a["peep"], dys=dys, dht=dht, dct=dct,
                 m_t=a["m_t"])
-    assert tl.lstm_bwd_plan(50, 32, 200, 200, units)["units"] == units
-    out = tl._lstm_bwd_launch(**args, units=units)
+    out = tl.lstm_bwd(**args)
     for got, ref in zip(out, tl.lstm_bwd_plain(**args)):
         _close_to_scale(got, ref)
-    assert all(torch.equal(x, y) for x, y in
-               zip(tl._lstm_bwd_launch(**args, units=units), out))
+    assert all(torch.equal(x, y) for x, y in zip(tl.lstm_bwd(**args), out))
 
 
 @pytest.mark.cuda

@@ -38,11 +38,14 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 7. trains the same model (RMSProp at 0.01) through TBPTT ``fit``: 2
    batches of [32, 200, 64] one-hot ids (y = x), 8 chunks of 50, on the card and from the same
    weights on the CPU; checks every chunk's loss and the exact launch counts
-   (``lstm_fwd`` 16, ``lstm_bwd`` 16, ``sm_xent`` 8); times chunks and
-   profiles one batch, with ``lstm_bwd``'s device time split into its
-   hoisted gate product, its recurrence and its tail;
+   (``lstm_fwd`` 16, ``lstm_bwd`` 16, ``sm_xent`` 8); times chunks (wall,
+   device time and idle share a chunk) and profiles one batch, with
+   ``lstm_fwd``'s device time split into its hoisted input product and its
+   recurrence, and ``lstm_bwd``'s into its hoisted gate product, its
+   recurrence and its tail;
 8. reads the profiler's device time of every main-path kernel row and its
-   library call, and of ``lstm_bwd``'s three parts;
+   library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
+   call at the training shapes;
 9. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -112,14 +115,28 @@ TF32_OPS_PER_S = 495e12
 #: (row, kernel call, library call) whose device time the profiler reads
 #: after every other measurement (see measure_device_times)
 DEVICE_TIMED: list = []
-#: (row, lstm_bwd arguments) of the training chunks, whose device time the
-#: profiler splits into lstm_bwd's three parts after every other measurement
+#: (row, wrapper, its arguments, its parts, the row's key) of the training
+#: chunks, whose device time the profiler splits into lstm_fwd's and
+#: lstm_bwd's parts after every other measurement
 LSTM_SPLIT: list = []
 #: lstm_bwd's parts by kernel: the hoisted gate product, the recurrence, the
 #: tail's products and the sum of their slices (csrc/lstm.cu)
 LSTM_BWD_PARTS = {"hoisted": ("lstm_z_kernel",),
                   "recurrence": ("lstm_bwd_kernel",),
                   "tail": ("lstm_tail_kernel", "lstm_sum_kernel")}
+#: lstm_fwd's parts by kernel at T > 1: the hoisted input product and the
+#: recurrence
+LSTM_FWD_PARTS = {"hoisted": ("lstm_fwd_x_kernel",),
+                  "recurrence": ("lstm_fwd_kernel",)}
+#: device ms a call of the designs this one replaced, from PERF.md §6 (their
+#: chip_smoke.py run in PR 7, NVIDIA H100 80GB HBM3 at 700.00 W), carried on
+#: the rows they belong to as "earlier_design_device_ms"
+EARLIER_DESIGN_DEVICE_MS = {
+    ("lstm_fwd", (50, 32, 64, 200)): 0.5935,
+    ("lstm_fwd", (50, 32, 200, 200)): 0.8812,
+    ("lstm_fwd", (1, 8, 64, 200)): 0.0089,
+    ("lstm_fwd", (1, 1, 64, 200)): 0.0074,
+    ("flash_fwd", (4, 128, 2, 256)): 0.0540}
 #: the card's name and power limit, as nvidia-smi prints them
 CARD = ""
 
@@ -219,11 +236,12 @@ def device_ms_by_kernel(fn, iters: int = 20) -> dict:
     return out
 
 
-def lstm_bwd_parts(by_kernel: dict) -> dict:
-    """Device time of lstm_bwd's three parts from times by kernel name."""
+def kernel_parts(by_kernel: dict, parts: dict) -> dict:
+    """Device time of a wrapper's parts (``LSTM_BWD_PARTS``,
+    ``LSTM_FWD_PARTS``) from times by kernel name."""
     return {part: sum(v for k, v in by_kernel.items()
                       if any(n in k for n in names))
-            for part, names in LSTM_BWD_PARTS.items()}
+            for part, names in parts.items()}
 
 
 def ptxas_report(log: str) -> list:
@@ -289,14 +307,13 @@ def measure_device_times() -> None:
               f"{row['device_ms']:.5f} library_device_ms="
               f"{row['library_device_ms']} (torch.profiler, mean per call)",
               flush=True)
-    # lstm_bwd's three parts at the training chunks' shapes
-    for row, ba in LSTM_SPLIT:
-        parts = lstm_bwd_parts(device_ms_by_kernel(
-            lambda ba=ba: lstm_ops.lstm_bwd(**ba)))
-        row["bwd_parts_ms"] = {**parts, "total": sum(parts.values())}
-        print(f"lstm_bwd {row['shape']}: device ms a call by part: "
-              + ", ".join(f"{k} {v:.5f}" for k, v in
-                          row["bwd_parts_ms"].items()), flush=True)
+    # lstm_fwd's and lstm_bwd's parts at the training chunks' shapes
+    for row, fn, args, parts, key in LSTM_SPLIT:
+        got = kernel_parts(device_ms_by_kernel(lambda: fn(**args)), parts)
+        row[key] = {**got, "total": sum(got.values())}
+        print(f"{row['name']} {row['shape']}: device ms a call by part: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in row[key].items()),
+              flush=True)
 
 
 def check_int8(rows: list, dev) -> None:
@@ -418,8 +435,7 @@ def check_flash(rows: list, dev) -> None:
     # the wide phases' shapes (4 heads of 128; 2 heads of 256, flash_wide.cu),
     # timed beside their bounds, and bitwise the same from run to run. Every
     # width is held to the same bound: float32 work as three TF32 passes at
-    # the tensor cores' peak, whether the kernel runs on them or on the CUDA
-    # cores
+    # the tensor cores' peak
     for H_, D in ((H, 128), (WIDE2_HEADS, WIDE_WIDTH // WIDE2_HEADS)):
         B, T = WIDE_B, WIDE_T
         q, k, v = (torch.randn(B, T, H_, D, generator=g).to(dev)
@@ -442,13 +458,16 @@ def check_flash(rows: list, dev) -> None:
 
         f32_ms, f32_by = bound(nbytes, ops)
         tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+        extra = {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                 "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
+        earlier = EARLIER_DESIGN_DEVICE_MS.get(("flash_fwd", (B, T, H_, D)))
+        if earlier is not None:
+            extra["earlier_design_device_ms"] = earlier
         row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H_, "D": D,
                                          "causal": True}, err, tol,
                      time_ms(kernel, iters=20),
                      time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
-                     time_ms(library, iters=20), nbytes, ops,
-                     {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
-                      "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
+                     time_ms(library, iters=20), nbytes, ops, extra)
         DEVICE_TIMED.append((row, kernel, library))
     # edge shapes: a ragged length, a key mask with a fully masked batch row,
     # Tq != Tk, every kernel width and padded head dims, bfloat16; each also
@@ -730,9 +749,12 @@ def check_lstm(rows: list, dev) -> None:
     for T, B, F, H, peephole, masked in cases:
         a = _lstm_args(dev, g, T, B, F, H, peephole, masked)
         out = lstm_ops.lstm_fwd(**a)
+        fagain = lstm_ops.lstm_fwd(**a)
         ref = lstm_ops.lstm_fwd_plain(**a)
         torch.cuda.synchronize()
         ferr = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        if not all(torch.equal(x, y) for x, y in zip(out, fagain)):
+            fail(f"lstm_fwd {T, B, F, H} differs from run to run")
         if masked and not torch.equal(out[0][:, 0],
                                       a["h0"][0].expand(T, H)):
             fail(f"lstm_fwd {T, B, F, H}: a fully masked row moved")
@@ -766,18 +788,23 @@ def check_lstm(rows: list, dev) -> None:
         lib_f, lib_fb = _cudnn_lstm(dev, T, B, F, H)
         iters = 20 if T > 1 else 100
         fb, fo, bb, bo = lstm_work(T, B, F, H)
-        shape["plan"] = lstm_ops.lstm_plan(B, F, H)
+        shape["plan"] = lstm_ops.lstm_plan(T, B, F, H)
         shape["bwd_plan"] = lstm_ops.lstm_bwd_plan(T, B, F, H, peephole)
         def kernel(a=a):
             return lstm_ops.lstm_fwd(**a)
 
+        earlier = EARLIER_DESIGN_DEVICE_MS.get(("lstm_fwd", (T, B, F, H)))
         row = report(rows, "lstm_fwd", shape, ferr, fwd_tol,
                      time_ms(kernel, iters=iters),
                      time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
-                     time_ms(lib_f, iters=iters), fb, fo)
+                     time_ms(lib_f, iters=iters), fb, fo,
+                     {"card": CARD, "earlier_design_device_ms": earlier})
         # every main-path shape: decode and stream steps (a few microseconds
         # of device) and the training chunks
         DEVICE_TIMED.append((row, kernel, lib_f))
+        if T > 1:
+            LSTM_SPLIT.append((row, lstm_ops.lstm_fwd, a, LSTM_FWD_PARTS,
+                               "fwd_parts_ms"))
         worst = max(range(6), key=lambda i: berrs[i] / btols[i])
 
         def bkernel(ba=ba):
@@ -789,7 +816,8 @@ def check_lstm(rows: list, dev) -> None:
                      time_ms(lib_fb, iters=iters), bb, bo)
         if T > 1:  # the backward runs in training only
             DEVICE_TIMED.append((row, bkernel, lib_fb))
-            LSTM_SPLIT.append((row, ba))
+            LSTM_SPLIT.append((row, lstm_ops.lstm_bwd, ba, LSTM_BWD_PARTS,
+                               "bwd_parts_ms"))
 
 
 def post(port: int, path: str, body: dict):
@@ -1265,30 +1293,39 @@ def train_lstm(kernels) -> dict:
     if busy_us <= 0:
         fail("the profiler saw no device time in the char_rnn batch")
     per_batch = RNN_T // RNN_CHUNK
-    # lstm_bwd's parts per chunk (both layers), read as device_ms does it
-    # (time a recorded event x events a batch, median of three sessions)
-    bwd_parts_us = {k: 1e3 * v / per_batch for k, v in lstm_bwd_parts(
-        device_ms_by_kernel(lambda: net.fit(x, x), iters=2)).items()}
+    # the device time a chunk, by kernel and for lstm_fwd's and lstm_bwd's
+    # parts (both layers), read as device_ms does it (time a recorded event
+    # x events a batch, median of three sessions): a single profiled session
+    # may drop part of the events
+    split = device_ms_by_kernel(lambda: net.fit(x, x), iters=2)
+    fwd_parts_us, bwd_parts_us = (
+        {k: 1e3 * v / per_batch for k, v in kernel_parts(split, parts).items()}
+        for parts in (LSTM_FWD_PARTS, LSTM_BWD_PARTS))
+    device_us_per_chunk = 1e3 * sum(split.values()) / per_batch
     result = {
         "losses": losses, "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
         "launches": launches, "chunk_ms": chunk_ms,
         "tokens_per_s": RNN_B * RNN_CHUNK / (chunk_ms / 1e3),
         "profiled_batch_ms": prof_ms, "profiled_chunks": per_batch,
         "device_us_by_kernel": by_kernel, "device_us_total": busy_us,
-        "idle_share_unprofiled": 1.0 - busy_us / 1e3 / (chunk_ms * per_batch),
+        "idle_share_unprofiled": 1.0 - device_us_per_chunk / 1e3 / chunk_ms,
         "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms,
+        "device_us_per_chunk": device_us_per_chunk,
+        "lstm_fwd_us_per_chunk_by_part": fwd_parts_us,
         "lstm_bwd_us_per_chunk_by_part": bwd_parts_us}
-    print(f"train char_rnn chunk: {chunk_ms:.3f} ms wall, "
-          f"{result['tokens_per_s']:.0f} tokens/s (B={RNN_B}, T={RNN_CHUNK}); "
+    print(f"train char_rnn chunk: {chunk_ms:.3f} ms wall, device "
+          f"{device_us_per_chunk:.1f} us, idle share "
+          f"{result['idle_share_unprofiled']:.3f} "
+          f"({result['tokens_per_s']:.0f} tokens/s, B={RNN_B}, T={RNN_CHUNK}); "
           f"profiled batch of {per_batch} chunks {prof_ms:.3f} ms, device time "
           f"{busy_us:.1f} us, idle share "
-          f"{result['idle_share_unprofiled']:.3f} unprofiled "
-          f"({result['idle_share_profiled']:.3f} profiled)", flush=True)
+          f"{result['idle_share_profiled']:.3f} profiled", flush=True)
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         print(f"  char_rnn batch device time {name}: {us:.1f} us", flush=True)
-    print("  lstm_bwd device time per chunk (2 layers) by part: "
-          + ", ".join(f"{k} {v:.1f} us" for k, v in bwd_parts_us.items()),
-          flush=True)
+    for name, parts in (("lstm_fwd", fwd_parts_us), ("lstm_bwd", bwd_parts_us)):
+        print(f"  {name} device time per chunk (2 layers) by part: "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in parts.items()),
+              flush=True)
     return result
 
 
@@ -1363,9 +1400,11 @@ def main() -> None:
                "library_ms", "shape")
     #: present on some rows only: profiler device times, the flash kernels'
     #: float32 bound, the card of the redesigned kernels' rows, int8_matmul's
-    #: and sm_xent's plans, lstm_bwd's three parts
+    #: and sm_xent's plans, lstm_fwd's and lstm_bwd's parts, the replaced
+    #: designs' device times
     optional = ("device_ms", "library_device_ms", "bound_f32_ms",
-                "bound_f32_by", "card", "plan", "bwd_parts_ms")
+                "bound_f32_by", "card", "plan", "bwd_parts_ms", "fwd_parts_ms",
+                "earlier_design_device_ms")
 
     def nums(row):
         return {**{k: row[k] for k in numbers},

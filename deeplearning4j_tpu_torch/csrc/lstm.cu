@@ -23,18 +23,28 @@
 // grid-wide barrier plus an L2 round trip plus the block's share of the
 // step's product.
 //
-// The forward: one cooperative launch of G co-resident blocks runs the whole
-// recurrence, so a step costs one grid.sync() and no kernel launch. Block g
-// owns U hidden units j (U = ceil(H / SMs), so at most one block per SM) and
-// keeps the i, f, g, o columns of Wcat for those units in shared memory for
-// the whole sequence (the TPU kernel's resident weight); the cell update
-// needs no exchange between blocks. Each step a block stages [x_t, h_{t-1}]
-// (h_{t-1} from the previous step's ys row, read through L2) for a chunk of
-// batch rows, computes z for its 4U columns, updates its units' c and h, and
-// writes ys/cs. What bounds it: the step's serial dot product over K = F + H
-// (a thread an output) and the barrier. Its x_t W_x half does not recur: the
-// backward's hoisted product (lstm_z_kernel below) is the lever the forward
-// can reuse for it, leaving only h_{t-1} RW on the serial path.
+// The forward takes what does not recur off the serial path too. Its plan
+// (lstm_plan, made once a shape and kept by the caller) picks the route by T:
+// 1. T > 1, first the hoisted product (lstm_fwd_x_kernel): zx = x W_x + b
+//    for all T * B rows, into a [T, B, 4H] buffer, on the backward's 64 x 64
+//    float32 tile (K = F in one pass). Then the lean recurrence
+//    (lstm_fwd_kernel): one cooperative launch, block g owning U units
+//    (units_for: 2 at H = 200, 100 blocks) and their 4U columns of RW in
+//    shared memory, the c carry in shared memory; per step it stages
+//    h_{t-1} (B x H floats, through L2: 16-byte cp.async when H % 4 == 0,
+//    plain loads for a ragged H), forms z = zx_t + h_{t-1} RW, updates its
+//    cells and writes ys/cs; one grid.sync() a step. The product: a warp
+//    takes 4 batch rows and 2 units (8 columns) at once, lanes split the
+//    H-term reduction in float4 chunks, each weight float4 serves 4 rows,
+//    and the 32 sums a lane holds go through one transpose-by-halves (31
+//    shuffles) that leaves sum (row, unit, gate) in its own lane, so the 4
+//    gates of a cell sit in 4 neighbouring lanes for the update.
+// 2. T = 1 (decode, stream): one ordinary launch of the same step
+//    (lstm_step_kernel) over K = F + H with the bias, staging [x, h0]; no
+//    hoist and no barrier.
+// What bounds it now: the recurrence's per-step latency (the barrier, the
+// L2 round trip of h_{t-1}, the short lane-split product and its shuffles),
+// T times over; the hoisted product is a small float32 GEMM.
 //
 // The backward takes everything that does not recur off the serial path,
 // in three parts on one stream:
@@ -98,106 +108,6 @@ constexpr size_t SMEM_LIMIT = 200 * 1024;
 constexpr size_t W_SHARED_LIMIT = 128 * 1024;
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
-
-// Load the block's resident weight slices: Ws [K][4U] holds column q*H + j0 + u
-// of Wcat at q*U + u.
-__device__ void load_slices(const float* __restrict__ wcat, float* Ws, int F,
-                            int H, int U, int j0, int nu) {
-  const int K = F + H, C4 = 4 * U;
-  for (int idx = threadIdx.x; idx < K * C4; idx += THREADS) {
-    const int k = idx / C4, c = idx % C4, q = c / U, u = c % U;
-    Ws[idx] = u < nu ? wcat[(size_t)k * 4 * H + q * H + j0 + u] : 0.f;
-  }
-}
-
-// z = [x_t, h] W + b for staged rows xh [nb][K] and the block's 4U columns,
-// into zs [nb][4U].
-__device__ void block_z(const float* xh, const float* Ws, const float* __restrict__ wcat,
-                        const float* __restrict__ bias, float* zs, int nb, int K,
-                        int H, int U, int j0, int nu, int wsh) {
-  const int C4 = 4 * U;
-  for (int idx = threadIdx.x; idx < nb * C4; idx += THREADS) {
-    const int r = idx / C4, c = idx % C4, q = c / U, u = c % U;
-    if (u >= nu) continue;
-    const int col = q * H + j0 + u;
-    const float* xr = xh + (size_t)r * K;
-    float acc = 0.f;
-    if (wsh) {
-      for (int k = 0; k < K; ++k) acc = fmaf(xr[k], Ws[k * C4 + c], acc);
-    } else {
-      for (int k = 0; k < K; ++k) acc = fmaf(xr[k], __ldg(&wcat[(size_t)k * 4 * H + col]), acc);
-    }
-    zs[idx] = acc + __ldg(&bias[col]);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wcat,
-                const float* __restrict__ bias, const float* __restrict__ peep,
-                const float* __restrict__ h0, const float* __restrict__ c0,
-                const float* __restrict__ mask, float* ys, float* cs,
-                float* h_out, float* c_out, int T, int B, int F, int H, int U,
-                int rows, int wsh) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int K = F + H, C4 = 4 * U;
-  const int j0 = blockIdx.x * U;
-  const int nu = min(U, H - j0);
-  float* Ws = smem;
-  float* xh = smem + (wsh ? (size_t)K * C4 : 0);
-  float* zs = xh + (size_t)rows * K;
-  if (wsh) load_slices(wcat, Ws, F, H, U, j0, nu);
-
-  for (int t = 0; t < T; ++t) {
-    // h_{t-1} of every unit: written by all blocks before the last grid.sync,
-    // so read through L2 (__ldcg), never a possibly stale L1 line
-    const float* hsrc = t == 0 ? h0 : ys + (size_t)(t - 1) * B * H;
-    const float* csrc = t == 0 ? c0 : cs + (size_t)(t - 1) * B * H;
-    for (int b0 = 0; b0 < B; b0 += rows) {
-      const int nb = min(rows, B - b0);
-      for (int idx = threadIdx.x; idx < nb * K; idx += THREADS) {
-        const int r = idx / K, k = idx % K;
-        const size_t b = b0 + r;
-        xh[idx] = k < F ? __ldg(&x[((size_t)t * B + b) * F + k])
-                        : __ldcg(&hsrc[b * H + k - F]);
-      }
-      __syncthreads();
-      block_z(xh, Ws, wcat, bias, zs, nb, K, H, U, j0, nu, wsh);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < nb * U; idx += THREADS) {
-        const int r = idx / U, u = idx % U;
-        if (u >= nu) continue;
-        const int b = b0 + r, j = j0 + u;
-        const float* z = zs + (size_t)r * C4;
-        const float cp = __ldcg(&csrc[(size_t)b * H + j]);
-        const float hp = xh[(size_t)r * K + F + j];
-        float zi = z[u], zf = z[U + u], zo = z[3 * U + u];
-        if (peep != nullptr) {
-          zi += cp * __ldg(&peep[j]);
-          zf += cp * __ldg(&peep[H + j]);
-        }
-        const float ig = sigm(zi), fg = sigm(zf), gg = tanhf(z[2 * U + u]);
-        float cn = fg * cp + ig * gg;
-        if (peep != nullptr) zo += cn * __ldg(&peep[2 * H + j]);
-        float hn = sigm(zo) * tanhf(cn);
-        if (!(__ldg(&mask[(size_t)t * B + b]) > 0.f)) {
-          hn = hp;
-          cn = cp;
-        }
-        const size_t at = ((size_t)t * B + b) * H + j;
-        ys[at] = hn;
-        cs[at] = cn;
-        if (t == T - 1) {
-          h_out[(size_t)b * H + j] = hn;
-          c_out[(size_t)b * H + j] = cn;
-        }
-      }
-      __syncthreads();  // xh and zs are reused by the next chunk
-    }
-    if (t + 1 < T) grid.sync();
-  }
-}
-
 
 // ------------------------------------------------------------ the backward
 // batch rows a warp takes at once in phase (b) (a lane holds RPW * UG
@@ -496,6 +406,232 @@ __global__ void __launch_bounds__(THREADS) lstm_sum_kernel(const Gemms gs) {
   }
 }
 
+// ------------------------------------------------------------- the forward
+// batch rows a warp takes at once, and units of one pass: a lane holds
+// FRPW * 4 gates * FUG = 32 sums, which lane_totals hands out one a lane
+constexpr int FRPW = 4;
+constexpr int FUG = 2;
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+struct FwdArgs {
+  const float *x, *wcat, *bias, *peep, *h0, *c0, *mask, *zx;
+  float *ys, *cs, *h_out, *c_out;
+  int T, B, F, H, U, rows, csh, vec;
+};
+
+// Wcat's entry for row kk of a staged row ([x padded to FP, h padded to a
+// multiple of 4]; FP = 0 when only h is staged) and column col; 0 in the
+// padding.
+__device__ __forceinline__ float w_at(const float* __restrict__ wcat, int F, int H, int FP,
+                                      int kk, int col) {
+  int k = kk;
+  if (kk < FP) {
+    if (kk >= F) return 0.f;
+  } else {
+    k = kk - FP;
+    if (k >= H) return 0.f;
+    k += F;
+  }
+  return __ldg(&wcat[(size_t)k * 4 * H + col]);
+}
+
+// dst[i] = f(i) for i < n by the block's threads, with 8 loads of a thread
+// in flight before their stores (a loop of load-then-store waits out one L2
+// round trip an element).
+template <typename F>
+__device__ __forceinline__ void fill(float* dst, int n, F f) {
+  constexpr int BATCH = 8;
+  for (int i0 = threadIdx.x; i0 < n; i0 += BATCH * THREADS) {
+    float v[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int i = i0 + j * THREADS;
+      v[j] = i < n ? f(i) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n) dst[i] = v[j];
+    }
+  }
+}
+
+// Each lane holds 32 partial sums v[0..31]; afterwards lane l holds the
+// warp's total of index l (in v[0]). A transpose by halves: at the level of
+// OFF a lane keeps the half of its values whose index has the bit OFF of its
+// lane number and adds its partner's copy of them, 31 shuffles in all (not
+// 32 * 5), and every total is the same fixed tree over the lanes.
+template <int OFF>
+__device__ __forceinline__ void lane_totals(float (&v)[32], int lane) {
+  const bool up = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = up ? v[i] : v[i + OFF];
+    const float keep = up ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+  if constexpr (OFF > 1) lane_totals<OFF / 2>(v, lane);
+}
+
+// The lean step, for the route's steps: STEP (T = 1) stages [x, h0] and
+// sums over K = F + H, with the bias; the recurrence stages h_{t-1} and sums
+// over H, with zx_t = x_t W_x + b from lstm_fwd_x_kernel. Block g owns units
+// j0 .. j0 + U - 1 and their 4U columns of Wcat (in shared memory when WSH,
+// as [4U][KP] rows over the reduction). A warp takes FRPW batch rows and FUG
+// units at once: each float4 of a weight column serves FRPW rows, lanes split
+// the reduction in float4 chunks (chunk c at lane c % 32, in order), and
+// lane_totals leaves sum (row rr, unit uu, gate q) at lane 8 rr + 4 uu + q, so
+// the 4 gates of a cell sit in 4 neighbouring lanes and the cell update needs
+// no shared memory. The recurrence keeps the c carry in shared memory (csh).
+template <bool STEP, bool WSH>
+__device__ __forceinline__ void fwd_body(const FwdArgs& a) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, F = a.F, U = a.U, B = a.B, H4 = 4 * H;
+  const int FP = STEP ? pad4(F) : 0;
+  const int KP = FP + pad4(H);
+  const int j0 = blockIdx.x * U;
+  const int nu = min(U, H - j0);
+  float* wsh = smem;                                       // [4U][KP] when WSH
+  float* hs = smem + (WSH ? (size_t)4 * U * KP : 0);       // [rows][KP]
+  float* cc = hs + (size_t)a.rows * KP;                    // [B][U] when csh
+  if (WSH) {
+    fill(wsh, 4 * U * KP, [&](int idx) {
+      const int c = idx / KP, kk = idx % KP, q = c / U, u = c % U;
+      return u < nu ? w_at(a.wcat, F, H, FP, kk, q * H + j0 + u) : 0.f;
+    });
+  }
+  if (!STEP && a.csh) {
+    for (int idx = threadIdx.x; idx < B * U; idx += THREADS) {
+      const int b = idx / U, u = idx % U;
+      if (u < nu) cc[idx] = __ldg(&a.c0[(size_t)b * H + j0 + u]);
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rr = lane >> 3, uu = (lane >> 2) & 1, q = lane & 3;  // this lane's total
+  const int T = STEP ? 1 : a.T;
+  for (int t = 0; t < T; ++t) {
+    // h_{t-1} of every unit: written by all blocks before the last
+    // grid.sync, so read through L2 (cp.async.cg, __ldcg), never L1
+    const float* hsrc = t == 0 ? a.h0 : a.ys + (size_t)(t - 1) * B * H;
+    for (int b0 = 0; b0 < B; b0 += a.rows) {
+      const int nb = min(a.rows, B - b0);
+      if (!STEP && a.vec) {  // H % 4 == 0: the rows are whole 16-byte chunks
+        const float* src = hsrc + (size_t)b0 * H;
+        for (int i = threadIdx.x; i < nb * H / 4; i += THREADS)
+          cp_async16(hs + 4 * (size_t)i, src + 4 * (size_t)i);
+        asm volatile("cp.async.wait_all;\n" ::);
+      } else {
+        fill(hs, nb * KP, [&](int idx) {
+          const int r = idx / KP, kk = idx % KP;
+          const size_t b = b0 + r;
+          if (kk < FP) return kk < F ? __ldg(&a.x[b * F + kk]) : 0.f;
+          return kk - FP < H ? __ldcg(&hsrc[b * H + kk - FP]) : 0.f;
+        });
+      }
+      __syncthreads();
+      for (int r0 = warp * FRPW; r0 < nb; r0 += WARPS * FRPW) {
+        for (int ug = 0; ug < nu; ug += FUG) {
+          float v[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) v[i] = 0.f;
+          for (int c4 = lane; c4 < KP / 4; c4 += 32) {
+            float4 hv[FRPW];
+#pragma unroll
+            for (int r = 0; r < FRPW; ++r)
+              hv[r] = r0 + r < nb ? reinterpret_cast<const float4*>(hs + (size_t)(r0 + r) * KP)[c4]
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int u = 0; u < FUG; ++u) {
+              if (ug + u >= nu) continue;  // warp-uniform
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                float4 w;
+                if (WSH) {
+                  w = reinterpret_cast<const float4*>(wsh + (size_t)(g * U + ug + u) * KP)[c4];
+                } else {
+                  const int col = g * H + j0 + ug + u;
+                  w = make_float4(w_at(a.wcat, F, H, FP, 4 * c4, col),
+                                  w_at(a.wcat, F, H, FP, 4 * c4 + 1, col),
+                                  w_at(a.wcat, F, H, FP, 4 * c4 + 2, col),
+                                  w_at(a.wcat, F, H, FP, 4 * c4 + 3, col));
+                }
+#pragma unroll
+                for (int r = 0; r < FRPW; ++r) {
+                  float& s = v[r * 8 + u * 4 + g];
+                  s = fmaf(hv[r].x, w.x, s);
+                  s = fmaf(hv[r].y, w.y, s);
+                  s = fmaf(hv[r].z, w.z, s);
+                  s = fmaf(hv[r].w, w.w, s);
+                }
+              }
+            }
+          }
+          lane_totals<16>(v, lane);
+          float z = v[0];
+          const int r = r0 + rr, u = ug + uu;
+          const bool ok = r < nb && u < nu;
+          const int b = b0 + r, j = j0 + u;
+          if (ok)
+            z += STEP ? __ldg(&a.bias[q * H + j]) : __ldg(&a.zx[((size_t)t * B + b) * H4 + q * H + j]);
+          const int base = lane & ~3;
+          const float zi0 = __shfl_sync(0xffffffffu, z, base);
+          const float zf0 = __shfl_sync(0xffffffffu, z, base + 1);
+          const float zg = __shfl_sync(0xffffffffu, z, base + 2);
+          const float zo0 = __shfl_sync(0xffffffffu, z, base + 3);
+          if (!ok || q != 0) continue;
+          const size_t at = ((size_t)t * B + b) * H + j;
+          float cp;
+          if (STEP) cp = __ldg(&a.c0[(size_t)b * H + j]);
+          else if (a.csh) cp = cc[b * U + u];
+          else cp = t == 0 ? __ldg(&a.c0[(size_t)b * H + j]) : __ldcg(&a.cs[at - (size_t)B * H]);
+          const float hp = hs[(size_t)r * KP + FP + j];
+          float zi = zi0, zf = zf0, zo = zo0;
+          if (a.peep != nullptr) {
+            zi += cp * __ldg(&a.peep[j]);
+            zf += cp * __ldg(&a.peep[H + j]);
+          }
+          const float ig = sigm(zi), fg = sigm(zf), gg = tanhf(zg);
+          float cn = fg * cp + ig * gg;
+          if (a.peep != nullptr) zo += cn * __ldg(&a.peep[2 * H + j]);
+          float hn = sigm(zo) * tanhf(cn);
+          if (!(__ldg(&a.mask[(size_t)t * B + b]) > 0.f)) {
+            hn = hp;
+            cn = cp;
+          }
+          a.ys[at] = hn;
+          a.cs[at] = cn;
+          if (!STEP && a.csh) cc[b * U + u] = cn;
+          if (t == T - 1) {
+            a.h_out[(size_t)b * H + j] = hn;
+            a.c_out[(size_t)b * H + j] = cn;
+          }
+        }
+      }
+      __syncthreads();  // hs is restaged by the next chunk or step
+    }
+    if constexpr (!STEP) {
+      if (t + 1 < T) cg::this_grid().sync();
+    }
+  }
+}
+
+// the recurrence over T > 1 steps: one cooperative launch, a grid.sync() a
+// step
+template <bool WSH>
+__global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(const FwdArgs a) {
+  fwd_body<false, WSH>(a);
+}
+
+// one step (T = 1: decode, stream): an ordinary launch, no barrier
+template <bool WSH>
+__global__ void __launch_bounds__(THREADS) lstm_step_kernel(const FwdArgs a) {
+  fwd_body<true, WSH>(a);
+}
+
+// the forward's hoisted product zx = x W_x + b for every row (T > 1)
+__global__ void __launch_bounds__(THREADS) lstm_fwd_x_kernel(const Gemms gs) { run_gemms(gs); }
+
 // Append C[M][N] = A B to gs: tiles, slices (P cut in SLICE rows when
 // split) and the scratch offset; returns the blocks so far. One slice writes
 // C directly.
@@ -558,57 +694,93 @@ int tail_gemms(int T, int B, int F, int H, int peephole, const float* x,
 }
 
 // ------------------------------------------------------------------ plans
-// The forward's launch. Its numbers are those of the design before the
-// backward got a plan of its own: U = ceil(H / SMs), the weight slices in
-// shared memory while the forward's and the recurrent rows would fit in
-// 128 KB.
-struct Plan {
-  int units, blocks, rows;
-  size_t smem;
-  int w_shared, max_blocks;
-};
+// Units a block, for both directions: max(2, ceil(H / SMs)) (2: the fastest
+// of 2, 4 and 8 for the backward's recurrence at char_rnn's H = 200 on the
+// H100, PERF.md, and the forward's pass width; more when H needs it for the
+// grid to fit), never more than H.
+constexpr int MIN_UNITS = 2;
+int units_for(int H, int sms) {
+  int U = (H + sms - 1) / sms;
+  if (U < MIN_UNITS) U = MIN_UNITS;
+  return U > H ? H : U;
+}
 
-cudaError_t make_plan(int B, int F, int H, Plan* p) {
-  int dev, sms, coop;
+cudaError_t device_sms(int* sms, int need_coop) {
+  int dev, coop;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return err;
-  if (!coop) return cudaErrorNotSupported;
-  const int U = (H + sms - 1) / sms;
-  const size_t K = (size_t)F + H;
-  const size_t w_fwd = K * 4 * U * sizeof(float);
-  const int wsh = w_fwd + (size_t)U * 4 * H * sizeof(float) <= W_SHARED_LIMIT;
-  const size_t per_row = (K + 4 * (size_t)U) * sizeof(float);
-  const size_t base = wsh ? w_fwd : 0;
-  if (base + per_row > SMEM_LIMIT) return cudaErrorInvalidValue;  // one row does not fit
+  return need_coop && !coop ? cudaErrorNotSupported : cudaSuccess;
+}
+
+// The forward's launch. route 1 (T > 1): the hoisted product, then the
+// cooperative recurrence over K = H; route 0 (T = 1): one ordinary launch of
+// the step over K = F + H. U units a block (units_for), the block's 4U weight
+// columns in shared memory when they fit in 128 KB, the c carry in shared
+// memory when it fits (route 1), the staged rows `rows` at a time. The caller
+// keeps the plan and hands it to lstm_fwd, which only checks it.
+struct FwdPlan {
+  int route, units, blocks, rows;
+  size_t smem;
+  int w_shared, c_shared, max_blocks;
+};
+
+// staged row width: [x padded, h padded] for the step, h padded for the recurrence
+int fwd_kp(int route, int F, int H) { return (route ? 0 : pad4(F)) + pad4(H); }
+
+size_t fwd_smem(int B, int KP, int U, int rows, int wsh, int csh) {
+  return ((wsh ? (size_t)4 * U * KP : 0) + (size_t)rows * KP + (csh ? (size_t)B * U : 0))
+         * sizeof(float);
+}
+
+const void* fwd_kernel(int route, int wsh) {
+  if (route) return wsh ? (const void*)lstm_fwd_kernel<true> : (const void*)lstm_fwd_kernel<false>;
+  return wsh ? (const void*)lstm_step_kernel<true> : (const void*)lstm_step_kernel<false>;
+}
+
+cudaError_t make_fwd_plan(int T, int B, int F, int H, FwdPlan* p) {
+  int sms;
+  const int route = T > 1;
+  cudaError_t err = device_sms(&sms, route);
+  if (err != cudaSuccess) return err;
+  const int U = units_for(H, sms);
+  const int KP = fwd_kp(route, F, H);
+  const int wsh = fwd_smem(B, KP, U, 0, 1, 0) <= W_SHARED_LIMIT;
+  const int csh = route && fwd_smem(B, KP, U, 1, wsh, 1) <= SMEM_LIMIT;
+  const size_t base = fwd_smem(B, KP, U, 0, wsh, csh);
+  const size_t row = (size_t)KP * sizeof(float);
+  if (base + row > SMEM_LIMIT) return cudaErrorInvalidValue;  // one row does not fit
+  p->route = route;
   p->units = U;
   p->blocks = (H + U - 1) / U;
   p->w_shared = wsh;
-  p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / per_row ? B : (SMEM_LIMIT - base) / per_row);
-  p->smem = base + p->rows * per_row;
-  int occ = 0;
-  if ((err = cudaFuncSetAttribute(lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)p->smem)) != cudaSuccess)
+  p->c_shared = csh;
+  p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / row ? B : (SMEM_LIMIT - base) / row);
+  p->smem = fwd_smem(B, KP, U, p->rows, wsh, csh);
+  const void* kernel = fwd_kernel(route, wsh);
+  // the most any plan takes, so that plans of other shapes stay launchable
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)SMEM_LIMIT)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, lstm_fwd_kernel, THREADS,
-                                                           p->smem)) != cudaSuccess)
+  int occ = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, p->smem)) !=
+      cudaSuccess)
     return err;
   p->max_blocks = occ * sms;
-  // every block must be resident at once for grid.sync(): refuse, never hang
-  if (p->blocks > p->max_blocks) return cudaErrorCooperativeLaunchTooLarge;
+  // every block of the recurrence must be resident at once for grid.sync():
+  // refuse, never hang
+  if (route && p->blocks > p->max_blocks) return cudaErrorCooperativeLaunchTooLarge;
   return cudaSuccess;
 }
 
-// The backward's launch: U = max(2, ceil(H / SMs)) units a block (2: the
-// fastest of 2, 4 and 8 at char_rnn's H = 200 on the H100, PERF.md; more
-// when H needs it for the grid to fit), RW's U rows in shared memory when
-// they fit in 128 KB, the cells' carries in shared memory when they fit,
-// dz_t staged `rows` batch rows at a time, and the tail's scratch. The
-// caller keeps the plan and hands it to lstm_bwd, which only checks it.
-constexpr int MIN_BWD_UNITS = 2;
+// The backward's launch: U = units_for(H, SMs) units a block, RW's U rows
+// in shared memory when they fit in 128 KB, the cells' carries in shared
+// memory when they fit, dz_t staged `rows` batch rows at a time, and the
+// tail's scratch. The caller keeps the plan and hands it to lstm_bwd, which
+// only checks it.
 
 // The recurrence's instantiation for U units a block.
 const void* bwd_kernel(int U, int wsh) {
@@ -631,17 +803,10 @@ size_t bwd_smem(int B, int H, int U, int rows, int wsh, int csh) {
 }
 
 cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, BwdPlan* p) {
-  int dev, sms, coop;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms;
+  cudaError_t err = device_sms(&sms, 1);
   if (err != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return err;
-  if (!coop) return cudaErrorNotSupported;
-  int U = (H + sms - 1) / sms;
-  if (U < MIN_BWD_UNITS) U = MIN_BWD_UNITS;
-  if (U > H) U = H;
+  const int U = units_for(H, sms);
   const size_t row = (size_t)4 * H * sizeof(float);
   const int wsh = U * row <= W_SHARED_LIMIT;
   // the carries and peephole sums of the block's cells: in shared memory
@@ -676,17 +841,83 @@ cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, BwdPlan* p) 
 
 }  // namespace
 
-extern "C" int lstm_plan(int B, int F, int H, int* out) {
-  Plan p;
-  cudaError_t err = make_plan(B, F, H, &p);
+extern "C" int lstm_plan(int T, int B, int F, int H, long long* out) {
+  FwdPlan p;
+  cudaError_t err = make_fwd_plan(T, B, F, H, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = p.units;
-  out[1] = p.blocks;
-  out[2] = p.rows;
-  out[3] = (int)p.smem;
-  out[4] = p.w_shared;
-  out[5] = p.max_blocks;
+  out[0] = p.route;
+  out[1] = p.units;
+  out[2] = p.blocks;
+  out[3] = p.rows;
+  out[4] = (long long)p.smem;
+  out[5] = p.w_shared;
+  out[6] = p.c_shared;
+  out[7] = p.max_blocks;
   return 0;
+}
+
+// route, units, rows, w_shared, c_shared, smem: lstm_plan's for this shape,
+// which the caller keeps; checked here, not worked out again. zx: [T, B, 4H]
+// floats for route 1, else unused.
+extern "C" int lstm_fwd(const void* x, const void* wcat, const void* bias,
+                        const void* peep, const void* h0, const void* c0,
+                        const void* mask, void* zx, void* ys, void* cs,
+                        void* h_out, void* c_out, int T, int B, int F, int H,
+                        int peephole, int route, int units, int rows,
+                        int w_shared, int c_shared, long long smem, void* stream) {
+  const int KP = fwd_kp(route, F, H);
+  if (route != (T > 1) || units < 1 || units > H || rows < 1 || rows > B ||
+      (c_shared && !route) || (route && zx == nullptr) ||
+      (w_shared && fwd_smem(B, KP, units, 0, 1, 0) > W_SHARED_LIMIT) ||
+      smem > (long long)SMEM_LIMIT ||
+      smem != (long long)fwd_smem(B, KP, units, rows, w_shared, c_shared))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FwdArgs a;
+  a.x = static_cast<const float*>(x);
+  a.wcat = static_cast<const float*>(wcat);
+  a.bias = static_cast<const float*>(bias);
+  a.peep = peephole ? static_cast<const float*>(peep) : nullptr;
+  a.h0 = static_cast<const float*>(h0);
+  a.c0 = static_cast<const float*>(c0);
+  a.mask = static_cast<const float*>(mask);
+  a.zx = static_cast<const float*>(zx);
+  a.ys = static_cast<float*>(ys);
+  a.cs = static_cast<float*>(cs);
+  a.h_out = static_cast<float*>(h_out);
+  a.c_out = static_cast<float*>(c_out);
+  a.T = T;
+  a.B = B;
+  a.F = F;
+  a.H = H;
+  a.U = units;
+  a.rows = rows;
+  a.csh = c_shared;
+  // h_{t-1} staged by 16-byte cp.async when its rows are whole chunks
+  a.vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0;
+  const dim3 grid((H + units - 1) / units);
+  cudaError_t err;
+  if (!route) {
+    if (w_shared) lstm_step_kernel<true><<<grid, THREADS, (size_t)smem, st>>>(a);
+    else lstm_step_kernel<false><<<grid, THREADS, (size_t)smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // 1. the hoisted product: zx = x W_x + b for every row, K = F in one pass
+  Gemms xg;
+  xg.n = 0;
+  xg.scratch = nullptr;
+  long long none = 0;
+  Gemm g = gemm_of(a.x, F, 1, a.wcat, 4 * H, 1, static_cast<float*>(zx), 4 * H, T * B, 4 * H, F);
+  g.bias = a.bias;
+  const int x_blocks = add_gemm(&xg, &none, g, false);
+  lstm_fwd_x_kernel<<<x_blocks, THREADS, 0, st>>>(xg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // 2. the recurrence (a grid that cannot be co-resident is refused here)
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fwd_kernel(1, w_shared), grid, dim3(THREADS), args,
+                                    (size_t)smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int peephole, long long* out) {
@@ -703,34 +934,6 @@ extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int peephole, long long
   out[7] = p.tail_blocks;
   out[8] = p.scratch;
   return 0;
-}
-
-extern "C" int lstm_fwd(const void* x, const void* wcat, const void* bias,
-                        const void* peep, const void* h0, const void* c0,
-                        const void* mask, void* ys, void* cs, void* h_out,
-                        void* c_out, int T, int B, int F, int H, int peephole,
-                        void* stream) {
-  Plan p;
-  cudaError_t err = make_plan(B, F, H, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* xa = static_cast<const float*>(x);
-  const float* wa = static_cast<const float*>(wcat);
-  const float* ba = static_cast<const float*>(bias);
-  const float* pa = peephole ? static_cast<const float*>(peep) : nullptr;
-  const float* h0a = static_cast<const float*>(h0);
-  const float* c0a = static_cast<const float*>(c0);
-  const float* ma = static_cast<const float*>(mask);
-  float* ysa = static_cast<float*>(ys);
-  float* csa = static_cast<float*>(cs);
-  float* ha = static_cast<float*>(h_out);
-  float* ca = static_cast<float*>(c_out);
-  int U = p.units, rows = p.rows, wsh = p.w_shared;
-  void* args[] = {&xa, &wa, &ba, &pa, &h0a, &c0a, &ma, &ysa, &csa, &ha, &ca,
-                  &T, &B, &F, &H, &U, &rows, &wsh};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel, dim3(p.blocks), dim3(THREADS),
-                                    args, p.smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // units, rows, w_shared, c_shared, smem, scratch_floats: lstm_bwd_plan's

@@ -49,6 +49,9 @@ OURS = {"int8_matmul_kernel": "int8_matmul", "paged_gather_kernel": "paged_gathe
         # a warp a row, or a block a row
         "sm_xent_warp_kernel": "sm_xent", "sm_xent_block_kernel": "sm_xent",
         "lstm_fwd_kernel": "lstm_fwd", "lstm_bwd_kernel": "lstm_bwd",
+        # lstm_fwd's hoisted input product before its recurrence, and its
+        # one-step route (T = 1: decode, stream)
+        "lstm_fwd_x_kernel": "lstm_fwd", "lstm_step_kernel": "lstm_fwd",
         # lstm_bwd's hoisted gate product before its recurrence, and its
         # tail (dW, db, dx, dpeep, then the slices summed) after it
         "lstm_z_kernel": "lstm_bwd", "lstm_tail_kernel": "lstm_bwd",

@@ -219,7 +219,8 @@ def lstm_bwd_plain(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
 
 
 # ------------------------------------------------------------ the kernels
-_FWD_ARGS = [_cuda.PTR] * 7 + [_cuda.PTR] * 4 + [_cuda.INT] * 5 + [_cuda.PTR]
+_FWD_ARGS = ([_cuda.PTR] * 12 + [_cuda.INT] * 5 + [_cuda.INT] * 5
+             + [_cuda.LONG, _cuda.PTR])
 _BWD_ARGS = ([_cuda.PTR] * 10 + [_cuda.PTR] * 6 + [_cuda.PTR] * 3
              + [_cuda.INT] * 9 + [_cuda.LONG] * 2 + [_cuda.PTR])
 
@@ -263,23 +264,31 @@ def _ptr(t: Optional[Tensor]) -> Optional[int]:
 def lstm_fwd(x_t: Tensor, wcat: Tensor, b: Tensor, peep: Optional[Tensor],
              h0: Tensor, c0: Tensor, m_t: Tensor
              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """The persistent LSTM cell forward over ``T`` steps; contract of
+    """The LSTM cell forward over ``T`` steps; contract of
     :func:`lstm_fwd_plain`. On CUDA tensors (float32, contiguous) this
-    launches ``lstm_fwd`` of ``csrc/lstm.cu``; on CPU tensors it runs the
-    plain version."""
+    launches ``lstm_fwd`` of ``csrc/lstm.cu`` with the shape's
+    :func:`lstm_plan` (for ``T > 1`` the hoisted input product, then the
+    recurrence; for ``T = 1`` one step); on CPU tensors it runs the plain
+    version."""
     T, B, F, H = _check_args("lstm_fwd", x_t, h0, wcat, b, peep, m_t,
                              {"c0": (c0, tuple(h0.shape))})
     if x_t.device.type == "cpu":
         return lstm_fwd_plain(x_t, wcat, b, peep, h0, c0, m_t)
-    ys = torch.empty(T, B, H, dtype=torch.float32, device=x_t.device)
+    f32 = dict(dtype=torch.float32, device=x_t.device)
+    plan = lstm_plan(T, B, F, H)
+    ys = torch.empty(T, B, H, **f32)
     cs = torch.empty_like(ys)
-    h = torch.empty(B, H, dtype=torch.float32, device=x_t.device)
+    h = torch.empty(B, H, **f32)
     c = torch.empty_like(h)
+    # zx = x W_x + b for every row, read by the recurrence
+    zx = torch.empty(T, B, 4 * H, **f32) if plan["route"] else None
     fn = _cuda.function("lstm", "lstm_fwd", _FWD_ARGS)
     rc = fn(x_t.data_ptr(), wcat.data_ptr(), b.data_ptr(), _ptr(peep),
-            h0.data_ptr(), c0.data_ptr(), m_t.data_ptr(), ys.data_ptr(),
-            cs.data_ptr(), h.data_ptr(), c.data_ptr(), T, B, F, H,
-            int(peep is not None), _cuda.stream_handle())
+            h0.data_ptr(), c0.data_ptr(), m_t.data_ptr(), _ptr(zx),
+            ys.data_ptr(), cs.data_ptr(), h.data_ptr(), c.data_ptr(), T, B, F,
+            H, int(peep is not None), plan["route"], plan["units"],
+            plan["rows"], plan["w_shared"], plan["c_shared"], plan["smem"],
+            _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_fwd launch")
     lstm_fwd.launches += 1
     return ys, cs, h, c
@@ -335,16 +344,27 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
 lstm_bwd.launches = 0
 
 
-def lstm_plan(B: int, F: int, H: int) -> dict:
-    """The launch the forward kernel would make on the current card for
-    these widths: hidden units per block, blocks, batch rows staged per
-    pass, shared memory, whether the weight slices sit in shared memory, and
-    the most co-resident blocks. CUDA only."""
-    out = (ctypes.c_int * 6)()
-    fn = _cuda.function("lstm", "lstm_plan", [_cuda.INT] * 3 + [_cuda.PTR])
-    _cuda.check(fn(B, F, H, ctypes.addressof(out)), "lstm", "lstm_plan")
-    keys = ("units", "blocks", "rows", "smem", "w_shared", "max_blocks")
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(device: int, route: int, B: int, F: int, H: int) -> dict:
+    out = (ctypes.c_longlong * 8)()
+    fn = _cuda.function("lstm", "lstm_plan", [_cuda.INT] * 4 + [_cuda.PTR])
+    # the plan depends on T only through the route: 2 stands for any T > 1
+    _cuda.check(fn(1 + route, B, F, H, ctypes.addressof(out)), "lstm",
+                "lstm_plan")
+    keys = ("route", "units", "blocks", "rows", "smem", "w_shared",
+            "c_shared", "max_blocks")
     return dict(zip(keys, list(out)))
+
+
+def lstm_plan(T: int, B: int, F: int, H: int) -> dict:
+    """The forward's launch on the current card, worked out once a shape and
+    handed to the kernel, which only checks it: the route (1: ``T > 1``, the
+    hoisted product and the cooperative recurrence; 0: ``T = 1``, one
+    ordinary launch of the step), hidden units per block (``max(2, ceil(H /
+    SMs))``), blocks, batch rows staged per pass, shared memory, whether the
+    weight columns and the c carry sit in shared memory, and the most
+    co-resident blocks. CUDA only."""
+    return dict(_fwd_plan(torch.cuda.current_device(), int(T > 1), B, F, H))
 
 
 @functools.lru_cache(maxsize=256)

@@ -120,7 +120,14 @@ def test_paged_gather_kernel_bitwise_on_card(cuda_device):
     (2, 2, 100, 100, 512, True, True, torch.float32),
     (2, 2, 130, 130, 160, True, True, torch.bfloat16),
     (2, 2, 100, 100, 256, False, False, torch.bfloat16),
-    (2, 2, 100, 100, 512, True, False, torch.bfloat16)])
+    (2, 2, 100, 100, 512, True, False, torch.bfloat16),
+    # the tensor-core wide forward: key splits over a ragged Tk, Tq != Tk,
+    # one batch-head with a long ragged sequence, D not a multiple of 4
+    (2, 2, 77, 200, 160, False, True, torch.float32),
+    (2, 2, 45, 19, 512, False, True, torch.float32),
+    (1, 1, 333, 333, 256, True, False, torch.float32),
+    (2, 2, 100, 100, 258, True, True, torch.float32),
+    (2, 2, 77, 200, 256, True, True, torch.bfloat16)])
 def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
                                                 causal, masked, dtype):
     rng = np.random.default_rng(0)
@@ -274,7 +281,11 @@ def _lstm_inputs(dev, T, B, F, H, peephole, masked, seed=0):
 
 LSTM_CASES = [(50, 32, 64, 200, True, False), (50, 32, 200, 200, True, True),
               (1, 8, 64, 200, True, False), (7, 3, 5, 37, False, True),
-              (50, 32, 64, 200, False, False), (50, 32, 200, 37, True, True)]
+              (50, 32, 64, 200, False, False), (50, 32, 200, 37, True, True),
+              # the one-step route at the decode and stream widths, and a
+              # ragged one (H % 4 != 0: h staged by plain loads)
+              (1, 1, 64, 200, True, False), (1, 8, 200, 200, True, True),
+              (1, 3, 5, 37, True, True)]
 
 
 @pytest.mark.cuda
@@ -290,6 +301,33 @@ def test_lstm_fwd_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
         torch.testing.assert_close(got, ref, rtol=0, atol=LSTM_FWD_TOL)
     if masked:  # the fully masked row keeps its initial state everywhere
         assert torch.equal(out[0][:, 0], a["h0"][0].expand(T, H))
+    # bitwise the same from run to run: every sum in a fixed order
+    for _ in range(2):
+        assert all(torch.equal(x, y) for x, y in zip(tl.lstm_fwd(**a), out))
+    plan = tl.lstm_plan(T, B, F, H)
+    assert plan["route"] == int(T > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [6, 1])
+@pytest.mark.parametrize("H", [400, 401, 700, 1100])
+def test_lstm_fwd_wide_layers_match_plain_on_card(cuda_device, T, H):
+    """Hidden widths whose plan takes more than 2 units a block on a 132-SM
+    card: 4 (400; 401 with a last block of one unit), 6 (700) and 9 (1100,
+    whose weight columns no longer fit in shared memory and are read from
+    global memory), on both routes."""
+    B, F = 8, 64
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, True, True, seed=6)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tl.lstm_plan(T, B, F, H)
+    assert plan["units"] == max(2, -(-H // sms))
+    assert plan["blocks"] == -(-H // plan["units"])
+    if H == 1100:
+        assert not plan["w_shared"]
+    out = tl.lstm_fwd(**a)
+    for got, ref in zip(out, tl.lstm_fwd_plain(**a)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=LSTM_FWD_TOL)
+    assert all(torch.equal(x, y) for x, y in zip(tl.lstm_fwd(**a), out))
 
 
 @pytest.mark.cuda

@@ -20,7 +20,10 @@ memory: it must cover every head dim from 1 to 128 within a block's limit.
 
 Above head dim 128 ``flash_plan`` sends the three flash kernels to
 ``csrc/flash_wide.cu``, whose column groups must cover every output column
-once, at the scale of the true D.
+once, at the scale of the true D. Its forward runs on the tensor cores too:
+S summed over 128-column slabs in slab order, the online softmax over key
+tiles, each tile's P.V in fresh accumulators; that arithmetic is emulated
+at D = 160 and 256 against ``flash_fwd_plain``.
 
 ``csrc/int8_matmul.cu`` splits K into slices per ``int8_matmul_plan``: every
 K index must be covered exactly once, and the grid must reach the card's SM
@@ -34,7 +37,11 @@ and every element of a row must be taken exactly once.
 rows at once, the recurrence on z, and the tail's products with the reduced
 dimension cut in slices of 256 whose partial sums are added in slice order.
 That decomposition is mirrored here in plain PyTorch and held against
-``lstm_bwd_plain`` at the kernel's tolerance.
+``lstm_bwd_plain`` at the kernel's tolerance. Its forward hoists ``x W_x +
+b`` off the recurrence and sums each step's ``h RW`` split over a warp's
+lanes (or, at T = 1, one step over ``[x, h]``); that decomposition is held
+against ``lstm_fwd_plain`` and the JAX Pallas kernel in interpret mode (the
+only tests here that import JAX, inside the test).
 """
 import numpy as np
 import pytest
@@ -236,7 +243,9 @@ def test_flash_plan_covers_every_head_dim(kernel, BH, Tq):
         assert 0 < plan.smem <= tfa.SMEM_PER_BLOCK, (D, plan)
         assert plan.scale == 1.0 / D ** 0.5
         if D > 128:  # flash_wide.cu: column groups of 128 cover D once
-            assert plan.width == 128 and plan.splits == 1, (D, plan)
+            assert plan.width == 128, (D, plan)
+            # the forward splits keys over 2 or 4 warps; the backward none
+            assert plan.splits in ((2, 4) if kernel == "fwd" else (1,)), plan
             assert plan.groups == -(-D // 128)
             assert (plan.groups - 1) * plan.width < D <= plan.groups * plan.width
             continue
@@ -271,9 +280,15 @@ def test_flash_kernels_name_the_head_dim_range():
             plan = tfa.flash_plan(kernel, D, 8, 512, SMS)
             assert plan.groups == groups > 1 and plan.width == 128
             assert plan.scale == 1.0 / D ** 0.5
-    # the shared-memory bytes of flash_wide.cu's three structs
+    # the shared-memory bytes of flash_wide.cu's structs: the forward's
+    # staging area a warp (16 query and 2 x 32 key rows of 132 floats) times
+    # its 4 key splits at the wide phase (128 blocks, under 2 an SM), 2 at a
+    # grid of 2 blocks an SM or more; the backward's two structs
     assert [tfa.flash_plan(k, 256, 8, 128, SMS).smem
-            for k in ("fwd", "dq", "dkv")] == [31_104, 43_584, 62_208]
+            for k in ("fwd", "dq", "dkv")] == [168_960, 43_584, 62_208]
+    assert tfa.flash_plan("fwd", 256, 8, 128, SMS).splits == 4
+    assert tfa.flash_plan("fwd", 256, 64, 256, SMS).splits == 2
+    assert tfa.flash_plan("fwd", 256, 64, 256, SMS).smem == 84_480
     assert tfa.flash_plan("dq", 128, 8, 512, SMS).groups == 1
     with pytest.raises(ValueError):
         tfa.flash_plan("fwd", 0, 8, 512, SMS)
@@ -490,3 +505,190 @@ def test_hoisted_lstm_bwd_matches_plain(T, B, F, H, peephole, masked):
         err = float((x_ - w_).abs().max())
         assert err <= LSTM_BWD_ATOL + LSTM_BWD_RTOL * float(w_.abs().max()), \
             (name, err)
+
+
+#: the forward kernel's tolerance against lstm_fwd_plain (chip_smoke.py):
+#: float32 dot products over F + H terms in another order
+LSTM_FWD_TOL = 2e-5
+
+
+def lane_split_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a [B, K] @ w [K, N]`` as ``csrc/lstm.cu``'s lean step sums it: K
+    padded with zeros to a multiple of 4, float4 chunk c taken by lane
+    c % 32, each lane's chunks in order (four products a chunk), then the
+    32 lanes' partials added in ``lane_totals``'s tree (lanes l and l ^ 16
+    first, then l ^ 8, ... l ^ 1)."""
+    B, K = a.shape
+    kp = -(-K // 4) * 4
+    a = torch.nn.functional.pad(a, (0, kp - K))
+    w = torch.nn.functional.pad(w, (0, 0, 0, kp - K))
+    part = torch.zeros(32, B, w.shape[1])
+    for c in range(kp // 4):
+        for k in range(4 * c, 4 * c + 4):
+            part[c % 32] = part[c % 32] + a[:, k, None] * w[k]
+    for off in (16, 8, 4, 2, 1):
+        part = part[:off] + part[off:2 * off]
+    return part[0]
+
+
+def _pad_rows(m: torch.Tensor, rows: int) -> torch.Tensor:
+    return torch.nn.functional.pad(m, (0, 0, 0, rows - m.shape[0]))
+
+
+def hoisted_lstm_fwd(x_t, wcat, b, peep, h0, c0, m_t):
+    """The CUDA forward's decomposition. T > 1: (1) ``zx = x W_x + b`` for
+    every row at once, (2) per step ``z = zx_t + h_{t-1} RW`` with the
+    recurrent product summed in the lane-split order, then the cell update.
+    T = 1: one step over ``[x padded to a multiple of 4, h]`` and ``[W_x,
+    RW]`` padded alike, plus the bias."""
+    T, B, F = x_t.shape
+    H = h0.shape[-1]
+    bias = b.reshape(-1)
+    h, c = h0, c0
+    if T == 1:
+        fp = -(-F // 4) * 4
+        xh = torch.cat([torch.nn.functional.pad(x_t[0], (0, fp - F)), h], -1)
+        w = torch.cat([_pad_rows(wcat[:F], fp), wcat[F:]])
+        zs = [lane_split_dot(xh, w) + bias]
+    else:
+        zx = (x_t.reshape(T * B, F) @ wcat[:F] + bias).reshape(T, B, 4 * H)
+    ys, cs = [], []
+    for t in range(T):
+        z = zs[0] if T == 1 else zx[t] + lane_split_dot(h, wcat[F:])
+        _, _, _, o, c_new = tl._gates(z, c, peep, H)
+        h_new = o * torch.tanh(c_new)
+        live = (m_t[t] > 0)[:, None]
+        h = torch.where(live, h_new, h)
+        c = torch.where(live, c_new, c)
+        ys.append(h)
+        cs.append(c)
+    return torch.stack(ys), torch.stack(cs), h, c
+
+
+@pytest.mark.parametrize("T,B,F,H,peephole,masked", [
+    (50, 32, 64, 200, True, False),   # char_rnn's chunk, layer 1
+    (50, 32, 200, 200, True, True),   # layer 2, a ragged mask
+    (50, 32, 64, 200, False, False),  # no peepholes
+    (1, 8, 64, 200, True, False),     # the one-step route: decode
+    (1, 1, 64, 200, True, False),     # stream
+    (7, 3, 5, 37, True, True)])
+def test_hoisted_lstm_fwd_matches_plain_and_jax(T, B, F, H, peephole, masked):
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.ops import lstm as jl
+    rng = np.random.default_rng(T + F + H + B)
+
+    def r(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    m = np.ones((T, B), np.float32)
+    if masked:
+        m = (rng.random((T, B)) > 0.3).astype(np.float32)
+        m[:, 0] = 0.0  # a batch row masked at every step
+    a = dict(x_t=r(T, B, F), wcat=r(F + H, 4 * H, scale=0.1),
+             b=r(1, 4 * H, scale=0.1), peep=r(3, H, scale=0.3),
+             h0=r(B, H, scale=0.5), c0=r(B, H, scale=0.5), m_t=m)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    peep = t["peep"] if peephole else None
+    args = (t["x_t"], t["wcat"], t["b"], peep, t["h0"], t["c0"], t["m_t"])
+    got = hoisted_lstm_fwd(*args)
+    plain = tl.lstm_fwd_plain(*args)
+    # the JAX Pallas kernel in interpret mode, one block of all T steps
+    ref = jl._pallas_forward(*(jnp.asarray(a[k]) for k in
+                               ("x_t", "wcat", "b", "peep", "h0", "c0", "m_t")),
+                             T, peephole, True)
+    for name, g, p, j in zip(("ys", "cs", "h", "c"), got, plain, ref):
+        assert g.shape == p.shape, name
+        torch.testing.assert_close(g, p, rtol=0, atol=LSTM_FWD_TOL, msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=0,
+                                   atol=LSTM_FWD_TOL, err_msg=name)
+    if masked:  # the held row keeps its initial state at every step
+        assert torch.equal(got[0][:, 0], t["h0"][0].expand(T, H))
+
+
+def test_lane_split_dot_tree_is_the_shuffle_transpose():
+    """``lane_totals`` in ``csrc/lstm.cu``, simulated lane by lane: at each
+    level a lane keeps the half of its 32 sums whose index has its lane's
+    bit and adds its partner's copy; lane l ends with the total of index l,
+    bitwise the tree ``lane_split_dot`` models."""
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal((32, 32)).astype(np.float32)  # [lane][index]
+    lanes = [list(row) for row in v]
+    off = 16
+    while off:
+        new = []
+        for lane in range(32):
+            up = bool(lane & off)
+            partner = lanes[lane ^ off]
+            new.append([np.float32((lanes[lane][i + off] if up else lanes[lane][i])
+                                   + (partner[i + off] if up else partner[i]))
+                        for i in range(off)])
+        lanes = new
+        off //= 2
+    got = np.array([lanes[lane][0] for lane in range(32)], np.float32)
+    part = torch.from_numpy(v)
+    for off in (16, 8, 4, 2, 1):
+        part = part[:off] + part[off:2 * off]
+    assert np.array_equal(got, part[0].numpy())
+
+
+#: csrc/flash_wide.cu's forward: keys of a tile, columns of a slab and of an
+#: output group
+WIDE_FK, WIDE_GW = 32, 128
+
+
+def emulated_wide_flash_fwd(q, k, v, causal, key_mask, passes=3):
+    """``csrc/flash_wide.cu``'s forward with its products emulated: per key
+    tile of 32, ``S = (q / sqrt(D)) k^T`` as the sum of its 128-column
+    slabs' split-TF32 products, added in slab order; the online softmax;
+    and per output group of 128 columns the tile's ``P V_g``, in fresh
+    accumulators, added to the rescaled output in float32. Every group uses
+    the one S, m, l and P."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    qs = (q * (1.0 / D ** 0.5)).permute(0, 2, 1, 3)
+    kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    masked = torch.zeros(B, 1, Tq, Tk, dtype=torch.bool)
+    if key_mask is not None:
+        masked = masked | (key_mask[:, None, None, :] <= 0)
+    if causal:
+        masked = masked | (torch.arange(Tq)[:, None] < torch.arange(Tk)[None, :])
+    m = torch.full((B, H, Tq, 1), tfa.NEG)
+    l = torch.zeros(B, H, Tq, 1)
+    acc = torch.zeros(B, H, Tq, D)
+    for kb in range(0, Tk, WIDE_FK):
+        ks = slice(kb, kb + WIDE_FK)
+        s = torch.zeros(B, H, Tq, min(Tk, kb + WIDE_FK) - kb)
+        for c0 in range(0, D, WIDE_GW):
+            cs = slice(c0, c0 + WIDE_GW)
+            s = s + split_mm(qs[..., cs], kf[:, :, ks, cs].transpose(-1, -2),
+                             passes)
+        s = torch.where(masked[..., ks], torch.tensor(tfa.NEG), s)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mn)
+        p = torch.where(s <= tfa.NEG, torch.zeros_like(s), torch.exp(s - mn))
+        m, l = mn, l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        for c0 in range(0, D, WIDE_GW):
+            cs = slice(c0, c0 + WIDE_GW)
+            acc[..., cs] = acc[..., cs] + split_mm(p, vf[:, :, ks, cs], passes)
+    ls = torch.clamp_min(l, 1e-20)
+    lse = (m + torch.log(ls))[..., 0].reshape(B * H, Tq)
+    return (acc / ls).permute(0, 2, 1, 3), lse
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+@pytest.mark.parametrize("D", [160, 256])
+def test_wide_split_tf32_forward_holds_float32_tolerance(D, causal, masked):
+    q, k, v, km = _inputs(100, D, masked, seed=D + 7 * causal + masked)
+    ro, rl = tfa.flash_fwd_plain(q, k, v, causal, key_mask=km)
+    out, lse = emulated_wide_flash_fwd(q, k, v, causal, km)
+    torch.testing.assert_close(out, ro, rtol=0, atol=FLASH_TOL)
+    torch.testing.assert_close(lse, rl, rtol=0, atol=FLASH_TOL)
+    # one TF32 pass misses it at these head dims too
+    out1, lse1 = emulated_wide_flash_fwd(q, k, v, causal, km, passes=1)
+    err1 = max(float((out1 - ro).abs().max()), float((lse1 - rl).abs().max()))
+    assert err1 > FLASH_TOL, err1
+    if masked:
+        assert not out[1].any()

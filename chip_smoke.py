@@ -128,15 +128,6 @@ LSTM_BWD_PARTS = {"hoisted": ("lstm_z_kernel",),
 #: recurrence
 LSTM_FWD_PARTS = {"hoisted": ("lstm_fwd_x_kernel",),
                   "recurrence": ("lstm_fwd_kernel",)}
-#: device ms a call of the designs this one replaced, from PERF.md §6 (their
-#: chip_smoke.py run in PR 7, NVIDIA H100 80GB HBM3 at 700.00 W), carried on
-#: the rows they belong to as "earlier_design_device_ms"
-EARLIER_DESIGN_DEVICE_MS = {
-    ("lstm_fwd", (50, 32, 64, 200)): 0.5935,
-    ("lstm_fwd", (50, 32, 200, 200)): 0.8812,
-    ("lstm_fwd", (1, 8, 64, 200)): 0.0089,
-    ("lstm_fwd", (1, 1, 64, 200)): 0.0074,
-    ("flash_fwd", (4, 128, 2, 256)): 0.0540}
 #: the card's name and power limit, as nvidia-smi prints them
 CARD = ""
 
@@ -458,16 +449,13 @@ def check_flash(rows: list, dev) -> None:
 
         f32_ms, f32_by = bound(nbytes, ops)
         tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-        extra = {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
-                 "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
-        earlier = EARLIER_DESIGN_DEVICE_MS.get(("flash_fwd", (B, T, H_, D)))
-        if earlier is not None:
-            extra["earlier_design_device_ms"] = earlier
         row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H_, "D": D,
                                          "causal": True}, err, tol,
                      time_ms(kernel, iters=20),
                      time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
-                     time_ms(library, iters=20), nbytes, ops, extra)
+                     time_ms(library, iters=20), nbytes, ops,
+                     {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                      "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
         DEVICE_TIMED.append((row, kernel, library))
     # edge shapes: a ragged length, a key mask with a fully masked batch row,
     # Tq != Tk, every kernel width and padded head dims, bfloat16; each also
@@ -793,12 +781,10 @@ def check_lstm(rows: list, dev) -> None:
         def kernel(a=a):
             return lstm_ops.lstm_fwd(**a)
 
-        earlier = EARLIER_DESIGN_DEVICE_MS.get(("lstm_fwd", (T, B, F, H)))
         row = report(rows, "lstm_fwd", shape, ferr, fwd_tol,
                      time_ms(kernel, iters=iters),
                      time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
-                     time_ms(lib_f, iters=iters), fb, fo,
-                     {"card": CARD, "earlier_design_device_ms": earlier})
+                     time_ms(lib_f, iters=iters), fb, fo, {"card": CARD})
         # every main-path shape: decode and stream steps (a few microseconds
         # of device) and the training chunks
         DEVICE_TIMED.append((row, kernel, lib_f))
@@ -1308,18 +1294,22 @@ def train_lstm(kernels) -> dict:
         "tokens_per_s": RNN_B * RNN_CHUNK / (chunk_ms / 1e3),
         "profiled_batch_ms": prof_ms, "profiled_chunks": per_batch,
         "device_us_by_kernel": by_kernel, "device_us_total": busy_us,
-        "idle_share_unprofiled": 1.0 - device_us_per_chunk / 1e3 / chunk_ms,
+        "idle_share_unprofiled": 1.0 - busy_us / 1e3 / (chunk_ms * per_batch),
         "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms,
         "device_us_per_chunk": device_us_per_chunk,
+        "idle_share_from_median_device":
+            1.0 - device_us_per_chunk / 1e3 / chunk_ms,
         "lstm_fwd_us_per_chunk_by_part": fwd_parts_us,
         "lstm_bwd_us_per_chunk_by_part": bwd_parts_us}
-    print(f"train char_rnn chunk: {chunk_ms:.3f} ms wall, device "
-          f"{device_us_per_chunk:.1f} us, idle share "
-          f"{result['idle_share_unprofiled']:.3f} "
-          f"({result['tokens_per_s']:.0f} tokens/s, B={RNN_B}, T={RNN_CHUNK}); "
+    print(f"train char_rnn chunk: {chunk_ms:.3f} ms wall, "
+          f"{result['tokens_per_s']:.0f} tokens/s (B={RNN_B}, T={RNN_CHUNK}); "
           f"profiled batch of {per_batch} chunks {prof_ms:.3f} ms, device time "
           f"{busy_us:.1f} us, idle share "
-          f"{result['idle_share_profiled']:.3f} profiled", flush=True)
+          f"{result['idle_share_unprofiled']:.3f} unprofiled "
+          f"({result['idle_share_profiled']:.3f} profiled); device a chunk "
+          f"{device_us_per_chunk:.1f} us (median of three sessions), idle "
+          f"share {result['idle_share_from_median_device']:.3f} from it",
+          flush=True)
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         print(f"  char_rnn batch device time {name}: {us:.1f} us", flush=True)
     for name, parts in (("lstm_fwd", fwd_parts_us), ("lstm_bwd", bwd_parts_us)):
@@ -1400,11 +1390,9 @@ def main() -> None:
                "library_ms", "shape")
     #: present on some rows only: profiler device times, the flash kernels'
     #: float32 bound, the card of the redesigned kernels' rows, int8_matmul's
-    #: and sm_xent's plans, lstm_fwd's and lstm_bwd's parts, the replaced
-    #: designs' device times
+    #: and sm_xent's plans, lstm_fwd's and lstm_bwd's parts
     optional = ("device_ms", "library_device_ms", "bound_f32_ms",
-                "bound_f32_by", "card", "plan", "bwd_parts_ms", "fwd_parts_ms",
-                "earlier_design_device_ms")
+                "bound_f32_by", "card", "plan", "bwd_parts_ms", "fwd_parts_ms")
 
     def nums(row):
         return {**{k: row[k] for k in numbers},

@@ -28,13 +28,13 @@
 //   128 output columns (64 registers a lane each) or pass P through shared
 //   memory with a barrier a key tile; recomputing costs G - 1 more slab
 //   products, at D = 256 a third of the block's mma work.
-// - A warp a key split (2 or 4, flash_plan: 4 when the grid gives the card
-//   fewer than 2 blocks an SM, the wide phase's 128 blocks), warp s taking
-//   key tiles s, s + splits, ...; each warp stages its own slabs of the
-//   query rows and of a 32-key tile and the tile's 128 value columns (float32
-//   by 16-byte cp.async, else plain loads; rows padded to 132 floats so
-//   fragment reads hit distinct banks), so warps need no block barrier until
-//   they fold (m, l, O) in split order through shared memory.
+// - A warp a key split, 4 splits at every grid (flash_plan; the setting
+//   measured at the wide phase's 128 blocks), warp s taking key tiles s,
+//   s + 4, ...; each warp stages its own slabs of the query rows and of a
+//   32-key tile and the tile's 128 value columns (float32 by 16-byte
+//   cp.async, else plain loads; rows padded to 132 floats so fragment reads
+//   hit distinct banks), so warps need no block barrier until they fold
+//   (m, l, O) in split order through shared memory.
 // - S and P stay in registers as accumulator fragments; the online softmax
 //   runs on fragment rows; P feeds P.V_g as the A operand with its keys
 //   permuted alike in V. The tensor core's float32 accumulation truncates,
@@ -140,7 +140,7 @@ constexpr int FR = 16;         // query rows of a forward block (one mma row gro
 constexpr int FK = 32;         // keys of a forward tile
 constexpr int FNB = FK / 8;    // 8-key mma blocks of a tile
 constexpr int LDW = GW + 4;    // a padded row of a slab: conflict-free fragments
-constexpr int MAX_SPLITS = 4;  // key splits (warps) of a forward block
+constexpr int SPLITS = 4;      // key splits (warps) of a forward block
 
 // One warp's staging area (all float32, so the size is the sum flash_plan
 // computes): a 128-column slab of the scaled query rows and of a key tile,
@@ -205,7 +205,7 @@ __device__ __forceinline__ void frag_q(const float (*m)[LDW], int c, int g, int 
 // ... (a warp stages into its own area and needs no block barrier until the
 // fold). EXACT: bfloat16 inputs, K and V exact in TF32 (their lo pass skipped).
 template <typename T, bool EXACT>
-__global__ void __launch_bounds__(MAX_SPLITS * 32)
+__global__ void __launch_bounds__(SPLITS * 32)
 flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const float* __restrict__ key_mask, T* __restrict__ out,
@@ -553,13 +553,13 @@ struct Args {
 
 template <typename T>
 cudaError_t launch_fwd(const Args& a, int splits, cudaStream_t s) {
-  if (splits < 1 || splits > MAX_SPLITS || a.smem != splits * (int)sizeof(FwdWarpSmem) ||
+  if (splits != SPLITS || a.smem != SPLITS * (int)sizeof(FwdWarpSmem) ||
       a.D < 1 || a.groups != (a.D + GW - 1) / GW)
     return cudaErrorInvalidValue;
   constexpr bool EXACT = sizeof(T) == 2;
   static bool done = false;
   cudaError_t err;
-  if ((err = allow_smem(flash_wide_fwd_kernel<T, EXACT>, MAX_SPLITS * (int)sizeof(FwdWarpSmem),
+  if ((err = allow_smem(flash_wide_fwd_kernel<T, EXACT>, SPLITS * (int)sizeof(FwdWarpSmem),
                         done)) != cudaSuccess)
     return err;
   // cp.async moves float32 rows 16 bytes at a time from 16-byte aligned q,

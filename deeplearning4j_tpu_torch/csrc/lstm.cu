@@ -695,9 +695,9 @@ int tail_gemms(int T, int B, int F, int H, int peephole, const float* x,
 
 // ------------------------------------------------------------------ plans
 // Units a block, for both directions: max(2, ceil(H / SMs)) (2: the fastest
-// of 2, 4 and 8 for the backward's recurrence at char_rnn's H = 200 on the
-// H100, PERF.md, and the forward's pass width; more when H needs it for the
-// grid to fit), never more than H.
+// unit count measured for both recurrences at char_rnn's H = 200 on the
+// H100, PERF.md, and the forward's pass width; the one-step route shares
+// the rule; more when H needs it for the grid to fit), never more than H.
 constexpr int MIN_UNITS = 2;
 int units_for(int H, int sms) {
   int U = (H + sms - 1) / sms;

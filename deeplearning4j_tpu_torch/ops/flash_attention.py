@@ -40,8 +40,9 @@ _FWD_BQ, _FWD_BK, _BWD_ROWS = 32, 32, 64
 #: csrc/flash_wide.cu (D > 128): output rows of a block, rows of a streamed
 #: tile, columns of a score slab, output columns of a group (the backward)
 _WIDE_BR, _WIDE_BT, _WIDE_SL, _WIDE_GW = 16, 32, 64, 128
-#: csrc/flash_wide.cu's forward: query rows of a block, keys of a tile
-_WIDE_FR, _WIDE_FK = 16, 32
+#: csrc/flash_wide.cu's forward: query rows of a block, keys of a tile, key
+#: splits (warps) of a block
+_WIDE_FR, _WIDE_FK, _WIDE_SPLITS = 16, 32, 4
 
 
 class FlashPlan(NamedTuple):
@@ -66,8 +67,7 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
     of double-buffered 32-key tiles would need 270 KB. Rows are padded to
     ``width + 4`` floats. Above 128 the kernels of ``flash_wide.cu`` run
     with ``groups = ceil(D / 128)`` output-column groups of width 128; its
-    forward takes 4 key splits when its grid gives every SM fewer than 2
-    blocks, else 2."""
+    forward takes 4 key splits at every grid."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"unknown flash kernel {kernel!r}")
     if D < 1:
@@ -76,15 +76,12 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
     if D > FLASH_WIDTHS[-1]:
         groups = -(-D // _WIDE_GW)
         if kernel == "fwd":
-            # a warp a key split, each with its own 128-column slabs of the
-            # query rows and of a key tile and the group's value columns,
-            # rows padded to 132 floats; 4 splits when the grid gives the
-            # card fewer than 2 blocks an SM, else 2
-            blocks = BH * -(-Tq // _WIDE_FR) * groups
-            splits = 4 if blocks < 2 * sms else 2
+            # a warp a key split, 4 splits, each with its own 128-column
+            # slabs of the query rows and of a key tile and the group's value
+            # columns, rows padded to 132 floats
             floats = (_WIDE_FR + 2 * _WIDE_FK) * (_WIDE_GW + 4)
-            return FlashPlan(_WIDE_GW, splits, 4 * splits * floats, groups,
-                             scale)
+            return FlashPlan(_WIDE_GW, _WIDE_SPLITS,
+                             4 * _WIDE_SPLITS * floats, groups, scale)
         # score slabs [2][BR][SL+1] and [2][BT][SL+1] (S and dP); P or dS
         # [m][BR][BT+1] and tiles [m][BT][GW+1] of K, or Q and dO (m = 2 for
         # dK/dV, else 1)

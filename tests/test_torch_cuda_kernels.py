@@ -331,6 +331,27 @@ def test_lstm_fwd_wide_layers_match_plain_on_card(cuda_device, T, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,c_shared", [(64, 1), (6000, 0)])
+@pytest.mark.parametrize("H", [1100, 1101])
+def test_lstm_fwd_large_batches_match_plain_on_card(cuda_device, B, c_shared,
+                                                    H):
+    """Batches whose h_{t-1} no longer fits in shared memory at once, so the
+    recurrence restages it in chunks of batch rows (whole 16-byte chunks at
+    H = 1100, plain loads at 1101), and at B = 6000 a c carry too large for
+    shared memory, read back from cs through L2."""
+    T, F = 3, 64
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, True, True, seed=7)
+    plan = tl.lstm_plan(T, B, F, H)
+    assert plan["route"] == 1 and not plan["w_shared"]
+    assert plan["rows"] < B and plan["c_shared"] == c_shared, plan
+    out = tl.lstm_fwd(**a)
+    for got, ref in zip(out, tl.lstm_fwd_plain(**a)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=LSTM_FWD_TOL)
+    assert torch.equal(out[0][:, 0], a["h0"][0].expand(T, H))
+    assert all(torch.equal(x, y) for x, y in zip(tl.lstm_fwd(**a), out))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,B,F,H,peephole,masked", LSTM_CASES)
 def test_lstm_bwd_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
                                                peephole, masked):

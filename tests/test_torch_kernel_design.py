@@ -244,8 +244,8 @@ def test_flash_plan_covers_every_head_dim(kernel, BH, Tq):
         assert plan.scale == 1.0 / D ** 0.5
         if D > 128:  # flash_wide.cu: column groups of 128 cover D once
             assert plan.width == 128, (D, plan)
-            # the forward splits keys over 2 or 4 warps; the backward none
-            assert plan.splits in ((2, 4) if kernel == "fwd" else (1,)), plan
+            # the forward splits keys over 4 warps; the backward none
+            assert plan.splits == (4 if kernel == "fwd" else 1), plan
             assert plan.groups == -(-D // 128)
             assert (plan.groups - 1) * plan.width < D <= plan.groups * plan.width
             continue
@@ -282,13 +282,13 @@ def test_flash_kernels_name_the_head_dim_range():
             assert plan.scale == 1.0 / D ** 0.5
     # the shared-memory bytes of flash_wide.cu's structs: the forward's
     # staging area a warp (16 query and 2 x 32 key rows of 132 floats) times
-    # its 4 key splits at the wide phase (128 blocks, under 2 an SM), 2 at a
-    # grid of 2 blocks an SM or more; the backward's two structs
+    # its 4 key splits, at the wide phase's grid (128 blocks, under 2 an SM)
+    # and at one of 2 blocks an SM or more alike; the backward's two structs
     assert [tfa.flash_plan(k, 256, 8, 128, SMS).smem
             for k in ("fwd", "dq", "dkv")] == [168_960, 43_584, 62_208]
     assert tfa.flash_plan("fwd", 256, 8, 128, SMS).splits == 4
-    assert tfa.flash_plan("fwd", 256, 64, 256, SMS).splits == 2
-    assert tfa.flash_plan("fwd", 256, 64, 256, SMS).smem == 84_480
+    assert tfa.flash_plan("fwd", 256, 64, 256, SMS) \
+        == tfa.flash_plan("fwd", 256, 8, 128, SMS)
     assert tfa.flash_plan("dq", 128, 8, 512, SMS).groups == 1
     with pytest.raises(ValueError):
         tfa.flash_plan("fwd", 0, 8, 512, SMS)

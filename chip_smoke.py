@@ -115,6 +115,9 @@ TF32_OPS_PER_S = 495e12
 #: (row, kernel call, library call) whose device time the profiler reads
 #: after every other measurement (see measure_device_times)
 DEVICE_TIMED: list = []
+#: flash_wide.cu's backward at its edge shapes (no library call), device
+#: time read with DEVICE_TIMED's
+WIDE_EDGES: list = []
 #: (row, wrapper, its arguments, its parts, the row's key) of the training
 #: chunks, whose device time the profiler splits into lstm_fwd's and
 #: lstm_bwd's parts after every other measurement
@@ -566,11 +569,13 @@ def check_xent(rows: list, dev) -> None:
 
 def check_flash_bwd(rows: list, dev) -> None:
     """Kernels 2 and 3 at the training path's shape (B 16, T 256, 4 heads
-    of 64, causal, float32), at the wide phase's (B 4, T 128, 4 heads of
-    128) and at edge shapes: not causal, a ragged T = 100, a key mask that
-    fully masks one batch row, every kernel width and padded head dims, and
-    bfloat16; each bitwise the same from run to run. Their yardstick is the
-    backward of ``scaled_dot_product_attention``."""
+    of 64, causal, float32), at the wide phases' (B 4, T 128, 4 heads of
+    128 and 2 heads of 256) and at edge shapes: not causal, a ragged
+    T = 100, a key mask that fully masks one batch row, every kernel width
+    and padded head dims, bfloat16, and shapes that give ``flash_wide.cu``'s
+    tile splits uneven or no work; each bitwise the same from run to run.
+    Their yardstick is the backward of ``scaled_dot_product_attention``.
+    The edges above D = 128 also get their device time (``WIDE_EDGES``)."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
     # float32 sums in another order than the plain version's matmuls; one
     # bfloat16 ulp at magnitudes below 8
@@ -596,6 +601,13 @@ def check_flash_bwd(rows: list, dev) -> None:
               (2, 100, 2, 160, False, True, torch.bfloat16),
               (2, 128, 2, 256, True, False, torch.bfloat16),
               (2, 100, 2, 512, True, True, torch.bfloat16)]
+    # flash_wide.cu's 4 tile splits given uneven or empty work: 11 key
+    # tiles under a causal mask at one head, a ragged T at D = 512, causal
+    # and masked bfloat16, fewer tiles than splits (T = 19)
+    cases += [(1, 333, 1, 256, True, False, torch.float32),
+              (2, 45, 2, 512, False, True, torch.float32),
+              (2, 77, 2, 256, True, True, torch.bfloat16),
+              (2, 19, 2, 160, False, False, torch.float32)]
     for B, T, H, D, causal, masked, dt in cases:
         q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev).to(dt)
                        for _ in range(4))
@@ -622,11 +634,27 @@ def check_flash_bwd(rows: list, dev) -> None:
         if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
                 and torch.equal(dv, dv2)):
             fail(f"flash_bwd {shape} differs from run to run")
+        if masked and (dq[1].any() or dk[1].any() or dv[1].any()):
+            fail(f"flash_bwd {shape}: a fully masked batch row has a "
+                 "gradient")
         if (B, T, D) not in timed:
             print(f"flash_bwd {shape}: dq max_abs_err={eq:.3e}, dk/dv "
                   f"max_abs_err={ekv:.3e} (tol {t:.1e})", flush=True)
             if not (eq <= t and ekv <= t):
                 fail(f"flash_bwd {shape} disagrees with its plain version")
+            if D > 128:  # flash_wide.cu's edges: device time, read later
+                for name, kernel in (
+                        ("flash_bwd_dq", lambda q=q, k=k, v=v, do=do, lse=lse,
+                         delta=delta, c=causal, m=km:
+                         flash_bwd_dq(q, k, v, do, lse, delta, c, m)),
+                        ("flash_bwd_dkv", lambda q=q, k=k, v=v, do=do,
+                         lse=lse, delta=delta, c=causal, m=km:
+                         flash_bwd_dkv(q, k, v, do, lse, delta, c, m))):
+                    row = {"name": name, "shape": shape, "card": CARD,
+                           "max_abs_err": eq if name == "flash_bwd_dq"
+                           else ekv, "tol": t}
+                    WIDE_EDGES.append(row)
+                    DEVICE_TIMED.append((row, kernel, None))
             continue
         qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
                       for a in (q, k, v))
@@ -1481,7 +1509,7 @@ def main() -> None:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "rows": rows,
                    "serve": served, "train": trained, "train_wide": wide,
-                   "train_wide_d256": wide2,
+                   "train_wide_d256": wide2, "flash_bwd_wide_edges": WIDE_EDGES,
                    "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

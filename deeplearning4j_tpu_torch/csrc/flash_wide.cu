@@ -12,54 +12,54 @@
 // dS = P * (dO.v - delta) * scale, dQ = dS.K, dK = dS^T.Q, dV = P^T.dO. All
 // in float32, written in the inputs' dtype (float32 or bfloat16).
 //
-// What bounds it on the H100: operations, as for the narrow kernels.
+// What bounds it on the H100: operations, as for the narrow kernels; at the
+// wide training phase's shape (B * H = 8, T = 128) latency, since a block
+// runs one or two streamed tiles.
 //
-// The forward runs on the tensor cores, as flash_fwd.cu does: both products
-// as split-TF32 mma.sync m16n8k8 (hi.lo + lo.hi + hi.hi, tf32_mma.cuh; a
-// bfloat16 K or V is exact in TF32 and its lo pass is skipped).
-// - Block (b * h, 16 query rows, column group g) writes the output columns
-//   [128 g, 128 g + 128); G = ceil(D / 128) groups, any D.
-// - Every group recomputes S = (Q / sqrt(D)) K^T over the full D, in
-//   128-column slabs, each slab in fresh accumulators and added to S in
-//   float32 in slab order. Every group runs the same slabs in the same
-//   order with the same key split, so every group forms the same S, m, l
-//   and P bitwise; lse is written once, by group 0. Chosen over sharing S
+// All three kernels run every product on the tensor cores, as flash_fwd.cu
+// and flash_bwd.cu do: split-TF32 mma.sync m16n8k8 (hi.lo + lo.hi + hi.hi,
+// tf32_mma.cuh; a bfloat16 operand is exact in TF32 and its lo pass is
+// skipped). Their shared layout:
+// - Block (b * h, 16 rows, column group g) writes the output columns
+//   [128 g, 128 g + 128) of its 16 rows (queries for the forward and dQ,
+//   keys for dK/dV); G = ceil(D / 128) groups, any D.
+// - The scores (S, and dP in the backward) are recomputed by every group
+//   over the full D, in 128-column slabs, each slab in fresh accumulators
+//   and added in float32 in slab order. Every group runs the same slabs in
+//   the same order with the same split of streamed tiles, so every group
+//   forms the same S, P and dS bitwise. Chosen over sharing the scores
 //   between the groups of one block: a block would then hold every group's
-//   128 output columns (64 registers a lane each) or pass P through shared
-//   memory with a barrier a key tile; recomputing costs G - 1 more slab
-//   products, at D = 256 a third of the block's mma work.
-// - A warp a key split, 4 splits at every grid (flash_plan; the setting
-//   measured at the wide phase's 128 blocks), warp s taking key tiles s,
-//   s + 4, ...; each warp stages its own slabs of the query rows and of a
-//   32-key tile and the tile's 128 value columns (float32 by 16-byte
-//   cp.async, else plain loads; rows padded to 132 floats so fragment reads
-//   hit distinct banks), so warps need no block barrier until they fold
-//   (m, l, O) in split order through shared memory.
-// - S and P stay in registers as accumulator fragments; the online softmax
-//   runs on fragment rows; P feeds P.V_g as the A operand with its keys
-//   permuted alike in V. The tensor core's float32 accumulation truncates,
-//   so each 8-column block of a tile's P.V_g is summed in fresh accumulators
-//   and added to the rescaled output in float32.
-//
-// The backward (dQ, dK/dV) is still the first design, on the CUDA cores in
-// float32:
-// - Output-column split: block (b * h, row tile, g) writes dQ, or dK and
-//   dV, in the columns [128 g, 128 g + 128); a lane holds 8 accumulators
-//   whatever D is.
-// - The score products (Q.K^T and dO.V^T) run over the full D in every
-//   group, streamed through shared memory in slabs of 64 columns, so each
-//   group recomputes S and dP: G times the score work. Every group runs the
-//   same slabs in the same order, so every group forms the same P and dS.
-// - A block is 256 threads over 16 output rows; the 16 threads of a row
-//   are 16 neighbouring lanes of one warp. A thread holds 2 score entries
-//   of its row (columns c and c + 16 of a 32-row tile) and 8 output columns
-//   (c + 16 j). Shared rows are padded (65, 33, 129 floats) so the column
-//   reads of a warp hit distinct banks or broadcast.
-// - Lever: the split-TF32 mma.sync of the forward and of flash_bwd.cu.
-// All three: causal tiles past the block's last query (or before its first
-// key) are skipped; ragged lengths and D are masked with zeros; every sum
-// runs in a fixed order, with no atomics: the result is bitwise the same
-// from run to run.
+//   output columns (64 registers a lane each, 128 for dK and dV) or pass P
+//   through shared memory with a barrier a tile; recomputing costs G - 1
+//   more slab products of the scores.
+// - A warp a split of the streamed tiles (32 keys, or 32 queries), 4 splits
+//   at every grid (flash_plan; the wide phase has 128 blocks), warp s
+//   taking tiles s, s + 4, ...; each warp stages its own slabs as float32
+//   (float32 rows by 16-byte cp.async, bfloat16 rows by 16-byte loads, 8
+//   in flight a lane; a D that leaves no whole 16-byte chunks a value at a
+//   time; rows padded to 132 floats so fragment reads hit distinct banks),
+//   so warps need no block barrier until they fold their partials in split
+//   order through shared memory.
+// - Scores stay in registers as accumulator fragments, and P (and dS) feed
+//   the output product as A operands with the tile's rows permuted alike in
+//   the B operand (tf32_mma.cuh). The tensor core's float32 accumulation
+//   truncates, so each tile's output product is summed in fresh
+//   accumulators and added to the total in float32.
+// The forward: S = (Q / sqrt(D)) K^T, the online softmax on fragment rows,
+// O += P.V_g; the fold merges (m, l, O) in split order.
+// dQ: S = Q.K^T and dP = dO.V^T a key tile at a time, P and dS on the
+// fragments, dQ_g += dS.K_g with the tile's K_g staged again into the K slab
+// (the last slab is K_g already for the last group).
+// dK/dV: keys as the mma rows, S^T = K.Q^T and dP^T = V.dO^T a query tile
+// at a time, so P^T and dS^T are C fragments of key rows and dV_g +=
+// P^T.dO_g and dK_g += dS^T.Q_g need no transpose (flash_bwd.cu's layout);
+// the tile's lse and delta come in by cp.async with the first slab.
+// Causal tiles past the block's last query (or before its first key) are
+// skipped; ragged lengths and D are masked with zeros; every sum runs in a
+// fixed order, with no atomics: the result is bitwise the same from run to
+// run. tests/test_torch_kernel_design.py emulates each kernel's sum order
+// on the CPU; tests/test_torch_cuda_kernels.py and chip_smoke.py hold the
+// kernels against their plain versions on the card.
 
 #include <math.h>
 #include <stdint.h>
@@ -71,107 +71,74 @@ namespace {
 using tf32mma::store;
 using tf32mma::to_f32;
 
-constexpr int BR = 16;        // output rows of a block
+constexpr int GW = 128;       // output columns of a group, and of a slab
+constexpr int LDW = GW + 4;   // a padded row of a slab: conflict-free fragments
+constexpr int BR = 16;        // output rows of a block (one mma row group)
 constexpr int BT = 32;        // rows of a streamed tile (keys, or queries)
-constexpr int SL = 64;        // columns of a score slab
-constexpr int GW = 128;       // output columns of a group
-constexpr int THREADS = 256;  // 16 threads a row
-constexpr int NJ = GW / 16;   // output columns of a thread
+constexpr int NB = BT / 8;    // 8-row mma blocks of a tile
+constexpr int SPLITS = 4;     // tile splits (warps) of a block
 constexpr float NEG = -1e30f;
 
-// All float32, so each size is the sum flash_plan computes.
-struct DqSmem {
-  float a[2][BR][SL + 1];  // Q, dO slabs
-  float b[2][BT][SL + 1];  // K, V slabs
-  float ds[BR][BT + 1];
-  float k[BT][GW + 1];     // K tile, the group's columns
-};
-struct DkvSmem {
-  float a[2][BR][SL + 1];  // K, V slabs
-  float b[2][BT][SL + 1];  // Q, dO slabs
-  float p[BR][BT + 1];     // P^T
-  float ds[BR][BT + 1];    // dS^T
-  float q[BT][GW + 1];     // Q and dO tiles, the group's columns
-  float g[BT][GW + 1];
-};
-
-// Rows t0 .. t0 + N - 1 and columns c0 .. c0 + NC - 1 of head (b, h) of a
-// [B, T, H, D] tensor into dst[N][LDD] as float32 times `mul`; zeros past
-// T and past D.
-template <int N, int NC, int LDD, typename T>
-__device__ __forceinline__ void stage(float (*dst)[LDD],
-                                      const T* __restrict__ src, int b, int h,
-                                      int H, int T_, int D, int t0, int c0,
-                                      float mul) {
-  for (int idx = threadIdx.x; idx < N * NC; idx += THREADS) {
-    const int r = idx / NC, c = idx % NC;
-    const int t = t0 + r, d = c0 + c;
-    dst[r][c] = t < T_ && d < D
-        ? to_f32(src[(((size_t)b * T_ + t) * H + h) * D + d]) * mul : 0.f;
-  }
-}
-
-// acc[e] += sum_s a[r][s] * b[c + 16 e][s] over one slab
-__device__ __forceinline__ void slab_dot(const float (*a)[SL + 1],
-                                         const float (*b)[SL + 1], int r,
-                                         int c, float (&acc)[2]) {
-#pragma unroll 16
-  for (int s = 0; s < SL; ++s) {
-    const float x = a[r][s];
-    acc[0] = fmaf(x, b[c][s], acc[0]);
-    acc[1] = fmaf(x, b[c + 16][s], acc[1]);
-  }
-}
-
-// acc[j] += sum_k w[r][k] * m[k][c + 16 j] over one tile
-__device__ __forceinline__ void tile_out(const float (*w)[BT + 1],
-                                         const float (*m)[GW + 1], int r,
-                                         int c, float (&acc)[NJ]) {
-#pragma unroll 4
-  for (int k = 0; k < BT; ++k) {
-    const float x = w[r][k];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j] = fmaf(x, m[k][c + 16 * j], acc[j]);
-  }
-}
-
 // ------------------------------------------------------------- the forward
-constexpr int FR = 16;         // query rows of a forward block (one mma row group)
-constexpr int FK = 32;         // keys of a forward tile
-constexpr int FNB = FK / 8;    // 8-key mma blocks of a tile
-constexpr int LDW = GW + 4;    // a padded row of a slab: conflict-free fragments
-constexpr int SPLITS = 4;      // key splits (warps) of a forward block
-
 // One warp's staging area (all float32, so the size is the sum flash_plan
 // computes): a 128-column slab of the scaled query rows and of a key tile,
 // and the group's 128 columns of the tile's values.
 struct FwdWarpSmem {
-  float q[FR][LDW];
-  float k[FK][LDW];
-  float v[FK][LDW];
+  float q[BR][LDW];
+  float k[BT][LDW];
+  float v[BT][LDW];
 };
 
 // Rows t0 .. t0 + N - 1 and columns c0 .. c0 + 127 of head (b, h) of a
 // [B, T, H, D] tensor into dst[N][LDW] as float32, by the lanes of one warp;
-// zeros past T and past D. vec (float32, D % 4 == 0, 16-byte aligned):
-// 16-byte cp.async, zero-filled, and the caller waits; else plain loads, 8
-// in flight a lane before their stores.
+// zeros past T and past D. vec (rows of whole 16-byte chunks, 16-byte
+// aligned): float32 by 16-byte cp.async, zero-filled, and the caller waits;
+// bfloat16 by 16-byte loads, 8 in flight a lane before their stores. Else
+// plain loads of one value, 8 in flight a lane.
 template <int N, typename T>
 __device__ __forceinline__ void warp_stage(float (*dst)[LDW], const T* __restrict__ src, int b,
                                            int h, int H, int T_, int D, int t0, int c0,
                                            bool vec) {
   const int lane = threadIdx.x & 31;
+  constexpr int BATCH = 8;
   if (vec) {
-    for (int idx = lane; idx < N * GW / 4; idx += 32) {
-      const int r = idx / (GW / 4), c = 4 * (idx % (GW / 4));
-      const int t = t0 + r, d = c0 + c;
-      const bool in = t < T_ && d < D;
-      tf32mma::cp_async16(&dst[r][c], in ? src + (((size_t)b * T_ + t) * H + h) * D + d : src,
-                          in);
+    if constexpr (sizeof(T) == 4) {
+      for (int idx = lane; idx < N * GW / 4; idx += 32) {
+        const int r = idx / (GW / 4), c = 4 * (idx % (GW / 4));
+        const int t = t0 + r, d = c0 + c;
+        const bool in = t < T_ && d < D;
+        tf32mma::cp_async16(&dst[r][c],
+                            in ? src + (((size_t)b * T_ + t) * H + h) * D + d : src, in);
+      }
+    } else {  // bfloat16: 8 values a chunk, widened exactly (bits << 16)
+      constexpr int CH = GW / 8;  // chunks of a row
+      static_assert(N * CH % (32 * BATCH) == 0, "a lane's chunks come in whole batches");
+#pragma unroll 1
+      for (int j0 = 0; j0 < N * CH / 32; j0 += BATCH) {
+        uint4 x[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          const int idx = lane + 32 * (j0 + j);
+          const int t = t0 + idx / CH, d = c0 + 8 * (idx % CH);
+          x[j] = t < T_ && d < D
+              ? *reinterpret_cast<const uint4*>(src + (((size_t)b * T_ + t) * H + h) * D + d)
+              : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          const int idx = lane + 32 * (j0 + j);
+          float* o = &dst[idx / CH][8 * (idx % CH)];
+          const uint32_t w[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[2 * e] = __uint_as_float(w[e] << 16);
+            o[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+          }
+        }
+      }
     }
     return;
   }
-  constexpr int BATCH = 8;
 #pragma unroll 1
   for (int j0 = 0; j0 < N * GW / 32; j0 += BATCH) {
     float x[BATCH];
@@ -217,9 +184,9 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   FwdWarpSmem& sm = reinterpret_cast<FwdWarpSmem*>(smem_raw)[warp];
-  const int n_qt = (Tq + FR - 1) / FR;
+  const int n_qt = (Tq + BR - 1) / BR;
   const int bh = blockIdx.x % BH;
-  const int q0 = (n_qt - 1 - blockIdx.x / BH) * FR;  // heaviest first
+  const int q0 = (n_qt - 1 - blockIdx.x / BH) * BR;  // heaviest first
   const int b = bh / H, h = bh % H;
   const int gc0 = blockIdx.y * GW;
   const int r0 = q0 + g, r1 = r0 + 8;  // this lane's rows
@@ -232,33 +199,33 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
   float m0 = NEG, m1 = NEG;  // running max of rows r0, r1
   float l0 = 0.f, l1 = 0.f;  // this lane's share of the running sums
-  const int k_end = causal ? min(Tk, q0 + FR) : Tk;
-  const int n_kt = (k_end + FK - 1) / FK;
+  const int k_end = causal ? min(Tk, q0 + BR) : Tk;
+  const int n_kt = (k_end + BT - 1) / BT;
   for (int kt = warp; kt < n_kt; kt += splits) {
-    const int kb = kt * FK;
+    const int kb = kt * BT;
     __syncwarp();  // the last tile's readers are done with this area
-    warp_stage<FK>(sm.v, v, b, h, H, Tk, D, kb, gc0, vec);
+    warp_stage<BT>(sm.v, v, b, h, H, Tk, D, kb, gc0, vec);
     cp_async_commit();
     // S = (Q / sqrt(D)) K^T over the full D, a 128-column slab at a time:
     // each slab in fresh accumulators (hi.hi apart from the cross terms),
     // added to S in float32 in slab order. Every group runs the same slabs
     // in the same order, so every group forms the same S, m, l and P bitwise.
-    float s[FNB][4];
+    float s[NB][4];
 #pragma unroll
-    for (int nb = 0; nb < FNB; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
     for (int sl = 0; sl < slabs; ++sl) {
       const int c0 = sl * GW;
       if (sl > 0) __syncwarp();
-      warp_stage<FR>(sm.q, q, b, h, H, Tq, D, q0, c0, vec);
-      warp_stage<FK>(sm.k, k, b, h, H, Tk, D, kb, c0, vec);
+      warp_stage<BR>(sm.q, q, b, h, H, Tq, D, q0, c0, vec);
+      warp_stage<BT>(sm.k, k, b, h, H, Tk, D, kb, c0, vec);
       cp_async_commit();
       cp_async_wait_all();
       __syncwarp();
-      float p[FNB][4], px[FNB][4];
+      float p[NB][4], px[NB][4];
 #pragma unroll
-      for (int nb = 0; nb < FNB; ++nb)
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[nb][e] = px[nb][e] = 0.f;
 #pragma unroll
@@ -267,7 +234,7 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         uint32_t ah[4], al[4];
         frag_q(sm.q, kk * 8, g, t4, scale, ah, al);
 #pragma unroll
-        for (int nb = 0; nb < FNB; ++nb) {
+        for (int nb = 0; nb < NB; ++nb) {
           uint32_t bh0, bl0, bh1, bl1;
           split(sm.k[nb * 8 + g][kk * 8 + t4], bh0, bl0);
           split(sm.k[nb * 8 + g][kk * 8 + t4 + 4], bh1, bl1);
@@ -275,14 +242,14 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int nb = 0; nb < FNB; ++nb)
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nb][e] += p[nb][e] + px[nb][e];
     }
     // mask, then the tile's row max (4 lanes share a row)
     float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-    for (int nb = 0; nb < FNB; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kb + nb * 8 + 2 * t4 + (e & 1);
@@ -307,9 +274,9 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l1 *= a1;
     // P as A fragments: lane (g, t) holds P[g][2t], P[g][2t+1], P[g+8][2t],
     // P[g+8][2t+1], so k-row t stands for key 2t and k-row t + 4 for 2t + 1
-    uint32_t ph[FNB][4], pl[FNB][4];
+    uint32_t ph[NB][4], pl[NB][4];
 #pragma unroll
-    for (int nb = 0; nb < FNB; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -331,7 +298,7 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (gc0 + nd * 8 >= D) continue;  // the group's columns past D
       float o[4] = {0.f, 0.f, 0.f, 0.f}, ox[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int nb = 0; nb < FNB; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         const int key = nb * 8 + 2 * t4;
         uint32_t bh0, bl0, bh1, bl1;
         split(sm.v[key][nd * 8 + g], bh0, bl0);
@@ -346,7 +313,7 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // warps 1.. hand their state to warp 0 through their own (now idle)
   // areas; warp 0 folds them in split order
   constexpr int PER_LANE = GW / 2 + 4;
-  static_assert(32 * PER_LANE <= FR * LDW + FK * LDW, "fold does not fit");
+  static_assert(32 * PER_LANE <= BR * LDW + BT * LDW, "fold does not fit");
   __syncwarp();
   if (warp > 0) {
     float* mine = &sm.q[0][0] + lane * PER_LANE;
@@ -404,129 +371,318 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------ the backward
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ key_mask, T* __restrict__ dq,
-                     int BH, int H, int Tq, int Tk, int D, float scale,
-                     int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_raw);
-  const int n_qt = (Tq + BR - 1) / BR;
-  const int bh = blockIdx.x % BH;
-  const int q0 = (n_qt - 1 - blockIdx.x / BH) * BR;
-  const int b = bh / H, h = bh % H;
-  const int gc0 = blockIdx.y * GW;
-  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const int row = q0 + r;
-  const float lse_r = row < Tq ? lse[(size_t)bh * Tq + row] : 0.f;
-  const float dl_r = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+// A warp's staging areas (all float32, so the sizes are the sums flash_plan
+// computes). dQ: 128-column slabs of the block's query rows (Q, dO) and of
+// a key tile (K, V); after the slabs, the tile's K_g in k. dK/dV: slabs of
+// the block's key rows (K, V) and of a query tile (Q, dO), the tile's lse
+// and delta; after the slabs, the tile's Q_g and dO_g in q and g.
+struct DqWarpSmem {
+  float q[BR][LDW];
+  float g[BR][LDW];
+  float k[BT][LDW];
+  float v[BT][LDW];
+};
+struct DkvWarpSmem {
+  float k[BR][LDW];
+  float v[BR][LDW];
+  float q[BT][LDW];
+  float g[BT][LDW];
+  float lse[BT];
+  float dl[BT];
+};
 
-  float acc[NJ];
+// acc += a.b^T over one slab (columns c0 .. c0 + 127, those past D
+// skipped): the 16 rows of a as the mma rows, the 32 rows of b as its
+// columns. The slab is summed in fresh accumulators (the cross terms in
+// their own) and added to acc in float32, so every slab's sum is the same
+// in every group.
+template <bool EXACT>
+__device__ __forceinline__ void slab_product(float (&acc)[NB][4], const float (*a)[LDW],
+                                             const float (*b)[LDW], int c0, int D, int g,
+                                             int t4) {
+  using namespace tf32mma;
+  float p[NB][4], px[NB][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-  const int k_end = causal ? min(Tk, q0 + BR) : Tk;
-  for (int kb = 0; kb < k_end; kb += BT) {
-    float s[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
-    for (int s0 = 0; s0 < D; s0 += SL) {
-      stage<BR, SL, SL + 1>(sm.a[0], q, b, h, H, Tq, D, q0, s0, 1.f);
-      stage<BR, SL, SL + 1>(sm.a[1], dout, b, h, H, Tq, D, q0, s0, 1.f);
-      stage<BT, SL, SL + 1>(sm.b[0], k, b, h, H, Tk, D, kb, s0, 1.f);
-      stage<BT, SL, SL + 1>(sm.b[1], v, b, h, H, Tk, D, kb, s0, 1.f);
-      __syncthreads();
-      slab_dot(sm.a[0], sm.b[0], r, c, s);
-      slab_dot(sm.a[1], sm.b[1], r, c, dp);
-      __syncthreads();
-    }
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = kb + c + 16 * e;
-      const bool masked = key >= Tk
-          || (key_mask && key_mask[(size_t)b * Tk + key] <= 0.f)
-          || (causal && key > row);
-      const float sv = s[e] * scale;
-      const float p = masked || sv <= NEG ? 0.f : expf(sv - lse_r);
-      sm.ds[r][c + 16 * e] = p * (dp[e] - dl_r) * scale;
+    for (int e = 0; e < 4; ++e) p[nb][e] = px[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < GW / 8; ++kk) {
+    if (c0 + kk * 8 >= D) continue;  // zero columns add nothing
+    uint32_t ah[4], al[4];
+    frag_a<LDW>(a, 0, kk * 8, g, t4, ah, al);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split(b[nb * 8 + g][kk * 8 + t4], bh0, bl0);
+      split(b[nb * 8 + g][kk * 8 + t4 + 4], bh1, bl1);
+      mma_split<EXACT, EXACT>(p[nb], px[nb], ah, al, bh0, bh1, bl0, bl1);
     }
-    stage<BT, GW, GW + 1>(sm.k, k, b, h, H, Tk, D, kb, gc0, 1.f);
-    __syncthreads();
-    tile_out(sm.ds, sm.k, r, c, acc);
-    __syncthreads();
   }
-  if (row >= Tq) return;
-  T* op = dq + (((size_t)b * Tq + row) * H + h) * D;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int d = gc0 + c + 16 * j;
-    if (d < D) store(op + d, acc[j]);
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] += p[nb][e] + px[nb][e];
+}
+
+// total += A.B_g over one streamed tile: A is the tile's C fragments as split
+// A operands (k-row t of block nb stands for tile row nb * 8 + 2t, k-row
+// t + 4 for nb * 8 + 2t + 1), B_g the tile's rows in the group's columns.
+// Each 8-column block is summed in fresh accumulators and added to the
+// total in float32 (the tensor core's own accumulation truncates).
+template <bool EXACT_B>
+__device__ __forceinline__ void tile_product(float (&total)[GW / 8][4],
+                                             const uint32_t (&ah)[NB][4],
+                                             const uint32_t (&al)[NB][4],
+                                             const float (*b)[LDW], int gc0, int D, int g,
+                                             int t4) {
+  using namespace tf32mma;
+#pragma unroll
+  for (int nd = 0; nd < GW / 8; ++nd) {
+    if (gc0 + nd * 8 >= D) continue;  // the group's columns past D
+    float o[4] = {0.f, 0.f, 0.f, 0.f}, ox[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int r = nb * 8 + 2 * t4;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(b[r][nd * 8 + g], bh0, bl0);
+      split(b[r + 1][nd * 8 + g], bh1, bl1);
+      mma_split<false, EXACT_B>(o, ox, ah[nb], al[nb], bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) total[nd][e] += o[e] + ox[e];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// A warp's partial (16 rows x 128 columns as C fragments) into rows of
+// its own staging area, for the fold.
+__device__ __forceinline__ void park(float (*dst)[LDW], const float (&acc)[GW / 8][4], int g,
+                                     int t4) {
+#pragma unroll
+  for (int nd = 0; nd < GW / 8; ++nd) {
+    *reinterpret_cast<float2*>(&dst[g][nd * 8 + 2 * t4]) = make_float2(acc[nd][0], acc[nd][1]);
+    *reinterpret_cast<float2*>(&dst[g + 8][nd * 8 + 2 * t4]) =
+        make_float2(acc[nd][2], acc[nd][3]);
+  }
+}
+
+// Block (b * h, 16 query rows, group g): dQ in the columns [128 g, 128 g +
+// 128). Warp s takes key tiles s, s + 4, ...; EXACT: bfloat16 inputs, exact
+// in TF32 (their lo passes skipped; dS keeps its split).
+template <typename T, bool EXACT>
+__global__ void __launch_bounds__(SPLITS * 32)
+flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ key_mask, T* __restrict__ dq, int BH, int H,
+                     int Tq, int Tk, int D, float scale, int causal, int vec) {
+  using namespace tf32mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqWarpSmem* const areas = reinterpret_cast<DqWarpSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  DqWarpSmem& sm = areas[warp];
+  const int n_qt = (Tq + BR - 1) / BR;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - blockIdx.x / BH) * BR;  // heaviest first
+  const int b = bh / H, h = bh % H;
+  const int gc0 = blockIdx.y * GW;
+  const int r0 = q0 + g, r1 = r0 + 8;  // this lane's rows
+  const int slabs = (D + GW - 1) / GW;
+  const float lse0 = r0 < Tq ? lse[(size_t)bh * Tq + r0] : 0.f;
+  const float lse1 = r1 < Tq ? lse[(size_t)bh * Tq + r1] : 0.f;
+  const float dl0 = r0 < Tq ? delta[(size_t)bh * Tq + r0] : 0.f;
+  const float dl1 = r1 < Tq ? delta[(size_t)bh * Tq + r1] : 0.f;
+  const float* kmrow = key_mask ? key_mask + (size_t)b * Tk : nullptr;
+
+  float acc[GW / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < GW / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  const int k_end = causal ? min(Tk, q0 + BR) : Tk;
+  const int n_kt = (k_end + BT - 1) / BT;
+  for (int kt = warp; kt < n_kt; kt += SPLITS) {
+    const int kb = kt * BT;
+    // S = Q.K^T and dP = dO.V^T over the full D, a slab at a time, in slab
+    // order: the same in every group
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int c0 = sl * GW;
+      __syncwarp();  // the last slab's readers are done with this area
+      warp_stage<BR>(sm.q, q, b, h, H, Tq, D, q0, c0, vec);
+      warp_stage<BR>(sm.g, dout, b, h, H, Tq, D, q0, c0, vec);
+      warp_stage<BT>(sm.k, k, b, h, H, Tk, D, kb, c0, vec);
+      warp_stage<BT>(sm.v, v, b, h, H, Tk, D, kb, c0, vec);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncwarp();
+      slab_product<EXACT>(s, sm.q, sm.k, c0, D, g, t4);
+      slab_product<EXACT>(dp, sm.g, sm.v, c0, D, g, t4);
+    }
+    // P and dS on the fragments, as split A operands (keys permuted)
+    uint32_t dh[NB][4], dlo[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kb + nb * 8 + 2 * t4 + (e & 1);
+        const int row = (e & 2) ? r1 : r0;
+        const bool masked = key >= Tk || (kmrow && __ldg(&kmrow[key]) <= 0.f) ||
+                            (causal && key > row);
+        const float sv = s[nb][e] * scale;
+        const float p = masked || sv <= NEG ? 0.f : expf(sv - ((e & 2) ? lse1 : lse0));
+        ds[e] = p * (dp[nb][e] - ((e & 2) ? dl1 : dl0)) * scale;
+      }
+      c_to_a(ds, dh[nb], dlo[nb]);
+    }
+    // dQ_g += dS.K_g, the tile's K_g staged again unless g is the last
+    // group: the last slab staged is K_g then. (Staged while P and dS were
+    // formed, it spilled and took 20% longer on the H100 at the wide phase.)
+    if (gc0 != (slabs - 1) * GW) {
+      __syncwarp();  // every lane is done with the last slab
+      warp_stage<BT>(sm.k, k, b, h, H, Tk, D, kb, gc0, vec);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncwarp();
+    }
+    tile_product<EXACT>(acc, dh, dlo, sm.k, gc0, D, g, t4);
+  }
+
+  // every warp parks its partial in its query slab; the block adds the
+  // partials in split order and writes the rows whole
+  __syncwarp();
+  park(sm.q, acc, g, t4);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BR * GW; i += SPLITS * 32) {
+    const int r = i / GW, c = i % GW;
+    const int row = q0 + r, d = gc0 + c;
+    if (row >= Tq || d >= D) continue;
+    float x = areas[0].q[r][c];
+#pragma unroll
+    for (int w = 1; w < SPLITS; ++w) x += areas[w].q[r][c];
+    store(dq + (((size_t)b * Tq + row) * H + h) * D + d, x);
+  }
+}
+
+// Block (b * h, 16 key rows, group g): dK and dV in the columns [128 g,
+// 128 g + 128). Warp s takes query tiles s, s + 4, ... from the block's
+// first key under a causal mask (else from 0).
+template <typename T, bool EXACT>
+__global__ void __launch_bounds__(SPLITS * 32)
 flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
                       const float* __restrict__ key_mask, T* __restrict__ dk,
-                      T* __restrict__ dv, int BH, int H, int Tq, int Tk,
-                      int D, float scale, int causal) {
+                      T* __restrict__ dv, int BH, int H, int Tq, int Tk, int D, float scale,
+                      int causal, int vec) {
+  using namespace tf32mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(smem_raw);
+  DkvWarpSmem* const areas = reinterpret_cast<DkvWarpSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  DkvWarpSmem& sm = areas[warp];
   const int bh = blockIdx.x % BH;
   const int k0 = (blockIdx.x / BH) * BR;  // heaviest (first keys) first
   const int b = bh / H, h = bh % H;
   const int gc0 = blockIdx.y * GW;
-  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const int key = k0 + r;
-  const float km_r = key < Tk
-      ? (key_mask ? key_mask[(size_t)b * Tk + key] : 1.f) : 0.f;
+  const int j0 = k0 + g, j1 = j0 + 8;  // this lane's keys
+  const int slabs = (D + GW - 1) / GW;
+  const float* kmrow = key_mask ? key_mask + (size_t)b * Tk : nullptr;
+  const bool live0 = j0 < Tk && !(kmrow && kmrow[j0] <= 0.f);
+  const bool live1 = j1 < Tk && !(kmrow && kmrow[j1] <= 0.f);
   const float* lrow = lse + (size_t)bh * Tq;
   const float* drow = delta + (size_t)bh * Tq;
 
-  float dka[NJ], dva[NJ];
+  float dka[GW / 8][4], dva[GW / 8][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) dka[j] = dva[j] = 0.f;
-  for (int qb = causal ? k0 : 0; qb < Tq; qb += BT) {
-    float s[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
-    for (int s0 = 0; s0 < D; s0 += SL) {
-      stage<BR, SL, SL + 1>(sm.a[0], k, b, h, H, Tk, D, k0, s0, 1.f);
-      stage<BR, SL, SL + 1>(sm.a[1], v, b, h, H, Tk, D, k0, s0, 1.f);
-      stage<BT, SL, SL + 1>(sm.b[0], q, b, h, H, Tq, D, qb, s0, 1.f);
-      stage<BT, SL, SL + 1>(sm.b[1], dout, b, h, H, Tq, D, qb, s0, 1.f);
-      __syncthreads();
-      slab_dot(sm.a[0], sm.b[0], r, c, s);
-      slab_dot(sm.a[1], sm.b[1], r, c, dp);
-      __syncthreads();
-    }
+  for (int nd = 0; nd < GW / 8; ++nd)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int i = qb + c + 16 * e;
-      const bool masked = km_r <= 0.f || i >= Tq || (causal && key > i);
-      const float sv = s[e] * scale;
-      const float p = masked || sv <= NEG ? 0.f : expf(sv - lrow[i]);
-      sm.p[r][c + 16 * e] = p;
-      sm.ds[r][c + 16 * e] = masked ? 0.f : p * (dp[e] - drow[i]) * scale;
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+  const int q_begin = causal ? k0 : 0;
+  const int n_it = Tq > q_begin ? (Tq - q_begin + BT - 1) / BT : 0;
+  for (int it = warp; it < n_it; it += SPLITS) {
+    const int qb = q_begin + it * BT;
+    // S^T = K.Q^T and dP^T = V.dO^T, keys as rows, in slab order
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int c0 = sl * GW;
+      __syncwarp();  // the last slab's readers are done with this area
+      warp_stage<BR>(sm.k, k, b, h, H, Tk, D, k0, c0, vec);
+      warp_stage<BR>(sm.v, v, b, h, H, Tk, D, k0, c0, vec);
+      warp_stage<BT>(sm.q, q, b, h, H, Tq, D, qb, c0, vec);
+      warp_stage<BT>(sm.g, dout, b, h, H, Tq, D, qb, c0, vec);
+      if (sl == 0) {
+        const int i = qb + lane;
+        cp_async4(&sm.lse[lane], lrow + (i < Tq ? i : 0), i < Tq);
+        cp_async4(&sm.dl[lane], drow + (i < Tq ? i : 0), i < Tq);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncwarp();
+      slab_product<EXACT>(s, sm.k, sm.q, c0, D, g, t4);
+      slab_product<EXACT>(dp, sm.v, sm.g, c0, D, g, t4);
     }
-    stage<BT, GW, GW + 1>(sm.q, q, b, h, H, Tq, D, qb, gc0, 1.f);
-    stage<BT, GW, GW + 1>(sm.g, dout, b, h, H, Tq, D, qb, gc0, 1.f);
-    __syncthreads();
-    tile_out(sm.p, sm.g, r, c, dva);
-    tile_out(sm.ds, sm.q, r, c, dka);
-    __syncthreads();
+    // P^T and dS^T on the fragments, as split A operands (queries permuted)
+    uint32_t ph[NB][4], pl[NB][4], dh[NB][4], dlo[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int iq = nb * 8 + 2 * t4 + (e & 1);
+        const int i = qb + iq;
+        const int key = (e & 2) ? j1 : j0;
+        const bool masked = !((e & 2) ? live1 : live0) || i >= Tq || (causal && key > i);
+        const float sv = s[nb][e] * scale;
+        p[e] = masked || sv <= NEG ? 0.f : expf(sv - sm.lse[iq]);
+        ds[e] = masked ? 0.f : p[e] * (dp[nb][e] - sm.dl[iq]) * scale;
+      }
+      c_to_a(p, ph[nb], pl[nb]);
+      c_to_a(ds, dh[nb], dlo[nb]);
+    }
+    // dV_g += P^T.dO_g and dK_g += dS^T.Q_g, the tile's Q_g and dO_g staged
+    // again unless g is the last group: the last slab staged is them then
+    if (gc0 != (slabs - 1) * GW) {
+      __syncwarp();  // every lane is done with the last slab
+      warp_stage<BT>(sm.q, q, b, h, H, Tq, D, qb, gc0, vec);
+      warp_stage<BT>(sm.g, dout, b, h, H, Tq, D, qb, gc0, vec);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncwarp();
+    }
+    tile_product<EXACT>(dva, ph, pl, sm.g, gc0, D, g, t4);
+    tile_product<EXACT>(dka, dh, dlo, sm.q, gc0, D, g, t4);
   }
-  if (key >= Tk) return;
-  const size_t off = (((size_t)b * Tk + key) * H + h) * D;
+
+  // every warp parks its partials in its key slabs; the block adds them in
+  // split order and writes the rows whole
+  __syncwarp();
+  park(sm.k, dka, g, t4);
+  park(sm.v, dva, g, t4);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BR * GW; i += SPLITS * 32) {
+    const int r = i / GW, c = i % GW;
+    const int key = k0 + r, d = gc0 + c;
+    if (key >= Tk || d >= D) continue;
+    float xk = areas[0].k[r][c], xv = areas[0].v[r][c];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int d = gc0 + c + 16 * j;
-    if (d < D) {
-      store(dk + off + d, dka[j]);
-      store(dv + off + d, dva[j]);
+    for (int w = 1; w < SPLITS; ++w) {
+      xk += areas[w].k[r][c];
+      xv += areas[w].v[r][c];
     }
+    const size_t off = (((size_t)b * Tk + key) * H + h) * D + d;
+    store(dk + off, xk);
+    store(dv + off, xv);
   }
 }
 
@@ -546,61 +702,52 @@ struct Args {
   const float *lse, *delta, *km;
   void *o1, *o2;  // out; dq; or dk, dv
   float* lse_out;
-  int B, H, Tq, Tk, D, groups, smem;
+  int B, H, Tq, Tk, D, groups, splits, smem;
   float scale;
   int causal;
 };
 
-template <typename T>
-cudaError_t launch_fwd(const Args& a, int splits, cudaStream_t s) {
-  if (splits != SPLITS || a.smem != SPLITS * (int)sizeof(FwdWarpSmem) ||
-      a.D < 1 || a.groups != (a.D + GW - 1) / GW)
+// KIND 0: the forward, 1: dQ, 2: dK/dV
+template <typename T, int KIND>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  constexpr int bytes = SPLITS * (KIND == 0   ? (int)sizeof(FwdWarpSmem)
+                                  : KIND == 1 ? (int)sizeof(DqWarpSmem)
+                                              : (int)sizeof(DkvWarpSmem));
+  if (a.splits != SPLITS || a.smem != bytes || a.D < 1 || a.groups != (a.D + GW - 1) / GW)
     return cudaErrorInvalidValue;
   constexpr bool EXACT = sizeof(T) == 2;
-  static bool done = false;
-  cudaError_t err;
-  if ((err = allow_smem(flash_wide_fwd_kernel<T, EXACT>, SPLITS * (int)sizeof(FwdWarpSmem),
-                        done)) != cudaSuccess)
-    return err;
-  // cp.async moves float32 rows 16 bytes at a time from 16-byte aligned q,
-  // k and v whose rows are whole chunks; anything else goes through plain
-  // loads
-  const int vec = sizeof(T) == 4 && a.D % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(a.q) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
-  const dim3 grid(a.B * a.H * ((a.Tq + FR - 1) / FR), a.groups);
-  flash_wide_fwd_kernel<T, EXACT><<<grid, splits * 32, a.smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.km,
-      static_cast<T*>(a.o1), a.lse_out, a.B * a.H, a.H, a.Tq, a.Tk, a.D, a.scale, a.causal, vec);
-  return cudaGetLastError();
-}
-
-// 1: dQ, 2: dK/dV
-template <typename T, int KIND>
-cudaError_t launch_bwd(const Args& a, cudaStream_t s) {
-  constexpr int bytes = KIND == 1 ? (int)sizeof(DqSmem) : (int)sizeof(DkvSmem);
-  if (a.smem != bytes || a.D < 1 || a.groups != (a.D + GW - 1) / GW)
-    return cudaErrorInvalidValue;
+  // rows are staged 16 bytes at a time from 16-byte aligned operands whose
+  // rows are whole 16-byte chunks; anything else a value at a time
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout);
+  const int vec = a.D % (16 / (int)sizeof(T)) == 0 && ptrs % 16 == 0;
   const int BH = a.B * a.H;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   static bool done = false;
   cudaError_t err;
-  if constexpr (KIND == 1) {
-    if ((err = allow_smem(flash_wide_dq_kernel<T>, a.smem, done)) != cudaSuccess) return err;
+  if constexpr (KIND == 0) {
+    if ((err = allow_smem(flash_wide_fwd_kernel<T, EXACT>, bytes, done)) != cudaSuccess)
+      return err;
     const dim3 grid(BH * ((a.Tq + BR - 1) / BR), a.groups);
-    flash_wide_dq_kernel<T><<<grid, THREADS, a.smem, s>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta, a.km,
-        static_cast<T*>(a.o1), BH, a.H, a.Tq, a.Tk, a.D, a.scale, a.causal);
+    flash_wide_fwd_kernel<T, EXACT><<<grid, SPLITS * 32, bytes, s>>>(
+        q, k, v, a.km, static_cast<T*>(a.o1), a.lse_out, BH, a.H, a.Tq, a.Tk, a.D, a.scale,
+        a.causal, vec);
+  } else if constexpr (KIND == 1) {
+    if ((err = allow_smem(flash_wide_dq_kernel<T, EXACT>, bytes, done)) != cudaSuccess)
+      return err;
+    const dim3 grid(BH * ((a.Tq + BR - 1) / BR), a.groups);
+    flash_wide_dq_kernel<T, EXACT><<<grid, SPLITS * 32, bytes, s>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta, a.km, static_cast<T*>(a.o1),
+        BH, a.H, a.Tq, a.Tk, a.D, a.scale, a.causal, vec);
   } else {
-    if ((err = allow_smem(flash_wide_dkv_kernel<T>, a.smem, done)) != cudaSuccess) return err;
+    if ((err = allow_smem(flash_wide_dkv_kernel<T, EXACT>, bytes, done)) != cudaSuccess)
+      return err;
     const dim3 grid(BH * ((a.Tk + BR - 1) / BR), a.groups);
-    flash_wide_dkv_kernel<T><<<grid, THREADS, a.smem, s>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta, a.km,
-        static_cast<T*>(a.o1), static_cast<T*>(a.o2), BH, a.H, a.Tq, a.Tk,
-        a.D, a.scale, a.causal);
+    flash_wide_dkv_kernel<T, EXACT><<<grid, SPLITS * 32, bytes, s>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.lse, a.delta, a.km, static_cast<T*>(a.o1),
+        static_cast<T*>(a.o2), BH, a.H, a.Tq, a.Tk, a.D, a.scale, a.causal, vec);
   }
   return cudaGetLastError();
 }
@@ -608,14 +755,14 @@ cudaError_t launch_bwd(const Args& a, cudaStream_t s) {
 template <int KIND>
 int run(const Args& a, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch_bwd<__nv_bfloat16, KIND>(a, s)
-                                  : launch_bwd<float, KIND>(a, s));
+  return static_cast<int>(is_bf16 ? launch<__nv_bfloat16, KIND>(a, s)
+                                  : launch<float, KIND>(a, s));
 }
 
 }  // namespace
 
 // The signatures of flash_fwd, flash_bwd_dq and flash_bwd_dkv, with the
-// plan's column groups in place of the width.
+// plan's column groups and tile splits in place of the width.
 extern "C" int flash_wide_fwd(const void* q, const void* k, const void* v,
                               const void* key_mask, void* out, void* lse,
                               int B, int H, int Tq, int Tk, int D, int groups,
@@ -623,23 +770,21 @@ extern "C" int flash_wide_fwd(const void* q, const void* k, const void* v,
                               int is_bf16, void* stream) {
   const Args a{q, k, v, nullptr, nullptr, nullptr,
                static_cast<const float*>(key_mask), out, nullptr,
-               static_cast<float*>(lse), B, H, Tq, Tk, D, groups, smem, scale,
-               causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch_fwd<__nv_bfloat16>(a, splits, s)
-                                  : launch_fwd<float>(a, splits, s));
+               static_cast<float*>(lse), B, H, Tq, Tk, D, groups, splits, smem,
+               scale, causal};
+  return run<0>(a, is_bf16, stream);
 }
 
 extern "C" int flash_wide_dq(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, const void* key_mask, void* dq,
                              int B, int H, int Tq, int Tk, int D, int groups,
-                             int smem, float scale, int causal, int is_bf16,
-                             void* stream) {
+                             int splits, int smem, float scale, int causal,
+                             int is_bf16, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta),
                static_cast<const float*>(key_mask), dq, nullptr, nullptr, B, H,
-               Tq, Tk, D, groups, smem, scale, causal};
+               Tq, Tk, D, groups, splits, smem, scale, causal};
   return run<1>(a, is_bf16, stream);
 }
 
@@ -647,12 +792,13 @@ extern "C" int flash_wide_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* key_mask,
                               void* dk, void* dv, int B, int H, int Tq,
-                              int Tk, int D, int groups, int smem, float scale,
-                              int causal, int is_bf16, void* stream) {
+                              int Tk, int D, int groups, int splits, int smem,
+                              float scale, int causal, int is_bf16,
+                              void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta),
                static_cast<const float*>(key_mask), dk, dv, nullptr, B, H, Tq,
-               Tk, D, groups, smem, scale, causal};
+               Tk, D, groups, splits, smem, scale, causal};
   return run<2>(a, is_bf16, stream);
 }
 

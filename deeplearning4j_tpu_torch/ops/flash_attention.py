@@ -8,7 +8,7 @@ forward launches ``csrc/flash_fwd.cu`` and the backward the two kernels of
 head dim (above 128 the three kernels of ``csrc/flash_wide.cu``): the TPU's
 length gates (``_MIN_SEQ``, ``_PBWD_MIN_SEQ``) are not carried over, and a
 crossover is for H100 measurements to set. :func:`flash_plan` picks each
-launch's kernel, width, column groups, key splits and shared memory. On CPU
+launch's kernel, width, column groups, tile splits and shared memory. On CPU
 tensors every wrapper runs its plain version.
 
 The JAX conventions are kept exactly: logits scaled by ``1/sqrt(D)``,
@@ -38,16 +38,15 @@ SMEM_PER_BLOCK = 232_448
 #: tile sizes of the kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
 _FWD_BQ, _FWD_BK, _BWD_ROWS = 32, 32, 64
 #: csrc/flash_wide.cu (D > 128): output rows of a block, rows of a streamed
-#: tile, columns of a score slab, output columns of a group (the backward)
-_WIDE_BR, _WIDE_BT, _WIDE_SL, _WIDE_GW = 16, 32, 64, 128
-#: csrc/flash_wide.cu's forward: query rows of a block, keys of a tile, key
-#: splits (warps) of a block
-_WIDE_FR, _WIDE_FK, _WIDE_SPLITS = 16, 32, 4
+#: tile (keys, or queries for dK/dV), columns of a slab and of an output
+#: group, tile splits (warps) of a block
+_WIDE_BR, _WIDE_BT, _WIDE_GW, _WIDE_SPLITS = 16, 32, 128, 4
 
 
 class FlashPlan(NamedTuple):
     width: int   #: the instantiated head dim (<= 128), or a group's columns
-    splits: int  #: key splits of a forward block (1 for the backward)
+    splits: int  #: tile splits (warps) of a block: the forward's key
+    #: splits, the wide backward's key or query splits; else 1
     smem: int    #: dynamic shared memory of a block, bytes
     groups: int  #: output-column groups: 1, or ceil(D / 128) (flash_wide.cu)
     scale: float  #: the logit scale, 1 / sqrt(D) of the true D
@@ -57,17 +56,22 @@ class FlashPlan(NamedTuple):
 def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
     """The launch plan of ``kernel`` (``"fwd"``, ``"dq"`` or ``"dkv"``) at
     head dim ``D``, ``BH = B * H`` and ``Tq`` query rows on a card of ``sms``
-    SMs; the C side follows it and refuses shared-memory bytes that differ
-    from its instantiation's. Any ``D >= 1``.
+    SMs; the C side follows it and refuses shared-memory bytes (above 128
+    also a split count) that differ from its instantiation's. Any
+    ``D >= 1``.
 
     Up to 128 the width is the least of :data:`FLASH_WIDTHS` that holds
     ``D`` and ``groups`` is 1 (``flash_fwd.cu``, ``flash_bwd.cu``). The
     forward takes 2 key splits when the grid gives every SM 2 blocks or more,
     else 4 (twice the warps in flight); at width 128 always 2, since 4 splits
     of double-buffered 32-key tiles would need 270 KB. Rows are padded to
-    ``width + 4`` floats. Above 128 the kernels of ``flash_wide.cu`` run
-    with ``groups = ceil(D / 128)`` output-column groups of width 128; its
-    forward takes 4 key splits at every grid."""
+    ``width + 4`` floats. Above 128 the three kernels of ``flash_wide.cu``
+    run with ``groups = ceil(D / 128)`` output-column groups of width 128.
+    A block's 4 warps (``splits``, at every grid) each take a split of the
+    streamed 32-row tiles (keys for the forward and dQ, queries for dK/dV)
+    and a staging area of their own: 128-column slabs of the block's 16 rows
+    and of a tile, rows padded to 132 floats. The area does not grow with
+    ``D``, so the plan fits a block at every head dim."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"unknown flash kernel {kernel!r}")
     if D < 1:
@@ -75,21 +79,13 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
     scale = 1.0 / (D ** 0.5)
     if D > FLASH_WIDTHS[-1]:
         groups = -(-D // _WIDE_GW)
-        if kernel == "fwd":
-            # a warp a key split, 4 splits, each with its own 128-column
-            # slabs of the query rows and of a key tile and the group's value
-            # columns, rows padded to 132 floats
-            floats = (_WIDE_FR + 2 * _WIDE_FK) * (_WIDE_GW + 4)
-            return FlashPlan(_WIDE_GW, _WIDE_SPLITS,
-                             4 * _WIDE_SPLITS * floats, groups, scale)
-        # score slabs [2][BR][SL+1] and [2][BT][SL+1] (S and dP); P or dS
-        # [m][BR][BT+1] and tiles [m][BT][GW+1] of K, or Q and dO (m = 2 for
-        # dK/dV, else 1)
-        m = 2 if kernel == "dkv" else 1
-        floats = (2 * (_WIDE_BR + _WIDE_BT) * (_WIDE_SL + 1)
-                  + m * _WIDE_BR * (_WIDE_BT + 1)
-                  + m * _WIDE_BT * (_WIDE_GW + 1))
-        return FlashPlan(_WIDE_GW, 1, 4 * floats, groups, scale)
+        # a warp's area: slabs of the block's rows (Q; or Q and dO; or K
+        # and V) and of a tile (K and V; or K and V; or Q and dO), dK/dV also
+        # the tile's lse and delta
+        rows = (_WIDE_BR if kernel == "fwd" else 2 * _WIDE_BR) + 2 * _WIDE_BT
+        floats = rows * (_WIDE_GW + 4) + (2 * _WIDE_BT if kernel == "dkv" else 0)
+        return FlashPlan(_WIDE_GW, _WIDE_SPLITS, 4 * _WIDE_SPLITS * floats,
+                         groups, scale)
     width = next(w for w in FLASH_WIDTHS if w >= D)
     ld = width + 4
     if kernel == "fwd":
@@ -133,10 +129,6 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhqk,bkhd->bqhd", p / l_safe, v.to(torch.float32))
     lse = (m + torch.log(l_safe))[..., 0].reshape(B * H, Tq)
     return out.to(q.dtype), lse
-
-
-_ARGS = [_cuda.PTR] * 6 + [_cuda.INT] * 8 + [_cuda.FLOAT, _cuda.INT,
-                                             _cuda.INT, _cuda.PTR]
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,10 +175,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     plan = flash_plan("fwd", D, B * H, Tq, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
-    lib, fn, width = _entry("fwd", plan, _ARGS)
+    lib, fn, dims = _entry("fwd", plan)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if km is None else km.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, H, Tq, Tk, D, width, plan.splits, plan.smem, plan.scale, int(causal),
+            lse.data_ptr(), B, H, Tq, Tk, D, *dims, plan.smem, plan.scale, int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, lib, "flash_fwd launch")
     flash_fwd.launches += 1
@@ -285,25 +277,31 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal, key_mask=None):
                                      key_mask))
 
 
-_BWD_ARGS = [_cuda.PTR] * 8 + [_cuda.INT] * 7 + [_cuda.FLOAT, _cuda.INT,
-                                                 _cuda.INT, _cuda.PTR]
-
-
 #: each kernel's C entry, (library, symbol): up to D = 128, and above it
 _ENTRIES = {"fwd": (("flash_fwd", "flash_fwd"), ("flash_wide", "flash_wide_fwd")),
             "dq": (("flash_bwd", "flash_bwd_dq"), ("flash_wide", "flash_wide_dq")),
             "dkv": (("flash_bwd", "flash_bwd_dkv"),
                     ("flash_wide", "flash_wide_dkv"))}
+#: pointers each C entry takes before B: q, k, v, the key mask, out and lse;
+#: or q, k, v, dO, lse, delta, the key mask and dQ (dK and dV)
+_POINTERS = {"fwd": 6, "dq": 8, "dkv": 9}
 
 
-def _entry(kernel: str, plan: FlashPlan, argtypes):
-    """``(library, C function, the int it takes after D)`` for ``plan``:
-    the width of ``flash_fwd.cu``/``flash_bwd.cu``, or the column groups of
-    ``flash_wide.cu`` (same signatures otherwise)."""
+@functools.lru_cache(maxsize=None)
+def _entry(kernel: str, plan: FlashPlan):
+    """``(library, C function, the ints it takes between D and the shared
+    memory bytes)`` for ``plan``: ``flash_fwd.cu`` takes the width and the
+    key splits, ``flash_bwd.cu`` the width, ``flash_wide.cu`` the column
+    groups and the tile splits (the signatures are the same otherwise)."""
     wide = plan.groups > 1
     lib, sym = _ENTRIES[kernel][wide]
-    return (lib, _cuda.function(lib, sym, argtypes),
-            plan.groups if wide else plan.width)
+    if wide:
+        dims = (plan.groups, plan.splits)
+    else:
+        dims = (plan.width, plan.splits) if kernel == "fwd" else (plan.width,)
+    argtypes = ([_cuda.PTR] * _POINTERS[kernel] + [_cuda.INT] * (6 + len(dims))
+                + [_cuda.FLOAT, _cuda.INT, _cuda.INT, _cuda.PTR])
+    return lib, _cuda.function(lib, sym, argtypes), dims
 
 
 def _mask_operand(key_mask):
@@ -328,11 +326,11 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq
     plan = flash_plan("dq", D, B * H, Tq, 0)
-    lib, fn, width = _entry("dq", plan, _BWD_ARGS)
+    lib, fn, dims = _entry("dq", plan)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if km is None else km.data_ptr(), dq.data_ptr(), B, H, Tq,
-            Tk, D, width, plan.smem, plan.scale,
+            Tk, D, *dims, plan.smem, plan.scale,
             int(causal), int(q.dtype == torch.bfloat16),
             _cuda.stream_handle())
     _cuda.check(rc, lib, "flash_bwd_dq launch")
@@ -341,10 +339,6 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_bwd_dq.launches = 0
-
-_DKV_ARGS = [_cuda.PTR] * 9 + [_cuda.INT] * 7 + [_cuda.FLOAT, _cuda.INT,
-                                                 _cuda.INT, _cuda.PTR]
-
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
@@ -365,11 +359,11 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk.numel() == 0:
         return dk, dv
     plan = flash_plan("dkv", D, B * H, Tq, 0)
-    lib, fn, width = _entry("dkv", plan, _DKV_ARGS)
+    lib, fn, dims = _entry("dkv", plan)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if km is None else km.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, Tq, Tk, D, width, plan.smem, plan.scale, int(causal),
+            dv.data_ptr(), B, H, Tq, Tk, D, *dims, plan.smem, plan.scale, int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, lib, "flash_bwd_dkv launch")
     flash_bwd_dkv.launches += 1

@@ -216,13 +216,34 @@ def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     (100, 512, False, False, torch.bfloat16)])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, D, causal,
                                                 masked, dtype):
+    _check_flash_bwd(cuda_device, 2, 4 if D <= 128 else 2, T, D, causal,
+                     masked, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D,causal,masked,dtype", [
+    # flash_wide.cu's 4 tile splits given uneven or empty work: 11 key
+    # tiles over 4 splits under a causal mask at one head; a ragged T with a
+    # fully masked batch row at D = 512; causal and masked in bfloat16; and
+    # T = 19, fewer tiles than splits
+    (1, 1, 333, 256, True, False, torch.float32),
+    (2, 2, 45, 512, False, True, torch.float32),
+    (2, 2, 77, 256, True, True, torch.bfloat16),
+    (2, 2, 19, 160, False, False, torch.float32)])
+def test_flash_bwd_wide_splits_match_plain_on_card(cuda_device, B, H, T, D,
+                                                    causal, masked, dtype):
+    _check_flash_bwd(cuda_device, B, H, T, D, causal, masked, dtype)
+
+
+def _check_flash_bwd(cuda_device, B, H, T, D, causal, masked, dtype):
+    """dQ and dK/dV at [B, T, H, D] within the tolerance of their plain
+    versions, one launch each, and bitwise the same from run to run."""
     g = torch.Generator().manual_seed(1)
-    H = 4 if D <= 128 else 2
-    q, k, v, do = (torch.randn(2, T, H, D, generator=g).to(cuda_device)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(cuda_device)
                    .to(dtype) for _ in range(4))
     km = None
     if masked:
-        km = (torch.rand(2, T, generator=g) > 0.25).float()
+        km = (torch.rand(B, T, generator=g) > 0.25).float()
         km[1] = 0.0  # every query row of batch 1 sees no key at all
         km = km.to(cuda_device)
     out, lse = tfa.flash_fwd(q, k, v, causal, key_mask=km)

@@ -244,8 +244,8 @@ def test_flash_plan_covers_every_head_dim(kernel, BH, Tq):
         assert plan.scale == 1.0 / D ** 0.5
         if D > 128:  # flash_wide.cu: column groups of 128 cover D once
             assert plan.width == 128, (D, plan)
-            # the forward splits keys over 4 warps; the backward none
-            assert plan.splits == (4 if kernel == "fwd" else 1), plan
+            # every kernel splits its streamed tiles over 4 warps
+            assert plan.splits == 4, plan
             assert plan.groups == -(-D // 128)
             assert (plan.groups - 1) * plan.width < D <= plan.groups * plan.width
             continue
@@ -280,12 +280,15 @@ def test_flash_kernels_name_the_head_dim_range():
             plan = tfa.flash_plan(kernel, D, 8, 512, SMS)
             assert plan.groups == groups > 1 and plan.width == 128
             assert plan.scale == 1.0 / D ** 0.5
-    # the shared-memory bytes of flash_wide.cu's structs: the forward's
-    # staging area a warp (16 query and 2 x 32 key rows of 132 floats) times
-    # its 4 key splits, at the wide phase's grid (128 blocks, under 2 an SM)
-    # and at one of 2 blocks an SM or more alike; the backward's two structs
+    # the shared-memory bytes of flash_wide.cu's structs: a staging area a
+    # warp times 4 splits, at the wide phase's grid (128 blocks, under 2 an
+    # SM) and at one of 2 blocks an SM or more alike. The forward's area is
+    # 16 query and 2 x 32 key rows of 132 floats: 4 * 4 * 80 * 132 =
+    # 168,960; dQ's 2 x 16 query (Q, dO) and 2 x 32 key rows (K, V): 4 * 4 *
+    # 96 * 132 = 202,752; dK/dV's 2 x 16 key and 2 x 32 query rows and the
+    # tile's 32 lse and 32 delta: 4 * 4 * (96 * 132 + 64) = 203,776
     assert [tfa.flash_plan(k, 256, 8, 128, SMS).smem
-            for k in ("fwd", "dq", "dkv")] == [168_960, 43_584, 62_208]
+            for k in ("fwd", "dq", "dkv")] == [168_960, 202_752, 203_776]
     assert tfa.flash_plan("fwd", 256, 8, 128, SMS).splits == 4
     assert tfa.flash_plan("fwd", 256, 64, 256, SMS) \
         == tfa.flash_plan("fwd", 256, 8, 128, SMS)
@@ -306,6 +309,23 @@ def test_flash_kernels_name_the_head_dim_range():
     # the plain version on the CPU takes any head dim
     x = torch.zeros(1, 4, 1, 129)
     assert tfa.flash_fwd(x, x, x, True)[0].shape == x.shape
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_wide_backward_plan_fits_a_block_at_every_head_dim(kernel):
+    """The backward's plan fits a block's shared memory at every head dim;
+    above 128 flash_wide.cu's staging areas (a warp each, 4 splits) do not
+    grow with D: every D takes the same bytes, and the same bytes at every
+    grid."""
+    wide = set()
+    for D in range(1, 1025):
+        for BH, Tq in FLASH_GRIDS + [(8, 128), (1, 333)]:
+            plan = tfa.flash_plan(kernel, D, BH, Tq, SMS)
+            assert 0 < plan.smem <= tfa.SMEM_PER_BLOCK, (D, plan)
+            if D > 128:
+                assert plan.splits == 4 and plan.groups == -(-D // 128), plan
+                wide.add(plan.smem)
+    assert wide == {202_752 if kernel == "dq" else 203_776}
 
 
 def test_tf32_split_is_exact_and_drops_13_bits():
@@ -692,3 +712,107 @@ def test_wide_split_tf32_forward_holds_float32_tolerance(D, causal, masked):
     assert err1 > FLASH_TOL, err1
     if masked:
         assert not out[1].any()
+
+
+#: csrc/flash_wide.cu's backward: rows of a block (queries for dQ, keys for
+#: dK/dV) and tile splits (warps) of a block
+WIDE_BR, WIDE_SPLITS = 16, 4
+
+
+def emulated_wide_flash_bwd(q, k, v, do, lse, delta, causal, key_mask,
+                            passes=3):
+    """``csrc/flash_wide.cu``'s dQ and dK/dV with their products emulated.
+    A streamed tile is 32 keys (dQ) or 32 queries (dK/dV, a block of 16 keys
+    at a time, from the block's first key under a causal mask). Per tile, S
+    and dP are the sums of their 128-column slabs' split-TF32 products, in
+    slab order (keys as rows for dK/dV), then P and dS; per output group of
+    128 columns the tile's dQ_g, or dV_g = P^T dO_g and dK_g = dS^T Q_g, in
+    fresh accumulators, added in float32 to its split's total (split = the
+    tile's index mod 4); the splits' totals are added in split order. Every
+    group uses the one S, P and dS of a tile."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / D ** 0.5
+    qf, kf, vf, gf = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    lse4, dl4 = lse.reshape(B, H, Tq, 1), delta.reshape(B, H, Tq, 1)
+    masked = torch.zeros(B, 1, Tq, Tk, dtype=torch.bool)
+    if key_mask is not None:
+        masked = masked | (key_mask[:, None, None, :] <= 0)
+    if causal:
+        masked = masked | (torch.arange(Tq)[:, None] < torch.arange(Tk)[None, :])
+    groups = [slice(c0, c0 + WIDE_GW) for c0 in range(0, D, WIDE_GW)]
+
+    def scores(a, b):
+        s = torch.zeros(a.shape[:-1] + b.shape[-2:-1])
+        for cs in groups:
+            s = s + split_mm(a[..., cs], b[..., cs].transpose(-1, -2), passes)
+        return s
+
+    def fold(parts):
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    # dQ: key tiles over every query row (a tile past a row's last key
+    # adds exactly 0)
+    parts = [torch.zeros(B, H, Tq, D) for _ in range(WIDE_SPLITS)]
+    for kt, kb in enumerate(range(0, Tk, WIDE_FK)):
+        ks = slice(kb, kb + WIDE_FK)
+        s = scores(qf, kf[:, :, ks]) * scale
+        p = torch.where(masked[..., ks] | (s <= tfa.NEG), torch.zeros_like(s),
+                        torch.exp(s - lse4))
+        ds = p * (scores(gf, vf[:, :, ks]) - dl4) * scale
+        part = parts[kt % WIDE_SPLITS]
+        for cs in groups:
+            part[..., cs] = part[..., cs] + split_mm(ds, kf[:, :, ks, cs],
+                                                     passes)
+    dq = fold(parts)
+    # dK/dV: a block of 16 keys at a time, keys as the rows
+    dk, dv = torch.zeros(B, H, Tk, D), torch.zeros(B, H, Tk, D)
+    for k0 in range(0, Tk, WIDE_BR):
+        ks = slice(k0, k0 + WIDE_BR)
+        pk = [torch.zeros(B, H, min(Tk, k0 + WIDE_BR) - k0, D)
+              for _ in range(WIDE_SPLITS)]
+        pv = [torch.zeros_like(t) for t in pk]
+        for it, qb in enumerate(range(k0 if causal else 0, Tq, WIDE_FK)):
+            qs = slice(qb, qb + WIDE_FK)
+            st = scores(kf[:, :, ks], qf[:, :, qs]) * scale
+            mt = masked[:, :, qs, ks].transpose(-1, -2)
+            lt, dlt = (x[:, :, qs].transpose(-1, -2) for x in (lse4, dl4))
+            pt = torch.where(mt | (st <= tfa.NEG), torch.zeros_like(st),
+                             torch.exp(st - lt))
+            dst = torch.where(mt, torch.zeros_like(st),
+                              pt * (scores(vf[:, :, ks], gf[:, :, qs]) - dlt)
+                              * scale)
+            for cs in groups:
+                i = it % WIDE_SPLITS
+                pv[i][..., cs] = pv[i][..., cs] + split_mm(
+                    pt, gf[:, :, qs, cs], passes)
+                pk[i][..., cs] = pk[i][..., cs] + split_mm(
+                    dst, qf[:, :, qs, cs], passes)
+        dk[:, :, ks], dv[:, :, ks] = fold(pk), fold(pv)
+    return tuple(t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+@pytest.mark.parametrize("D", [160, 256, 512])
+def test_wide_split_tf32_backward_holds_float32_tolerance(D, causal, masked):
+    q, k, v, km = _inputs(100, D, masked, seed=D + 5 * causal + masked)
+    do = torch.from_numpy(np.random.default_rng(D + 1).standard_normal(
+        q.shape).astype(np.float32))
+    out, lse = tfa.flash_fwd_plain(q, k, v, causal, key_mask=km)
+    delta = tfa.bwd_delta(out, do)
+    rq = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, km)
+    rk, rv = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, km)
+    got = emulated_wide_flash_bwd(q, k, v, do, lse, delta, causal, km)
+    for g, r in zip(got, (rq, rk, rv)):
+        torch.testing.assert_close(g, r, rtol=0, atol=FLASH_TOL)
+    # one TF32 pass misses float32's tolerance at these head dims too
+    one = emulated_wide_flash_bwd(q, k, v, do, lse, delta, causal, km,
+                                  passes=1)
+    err1 = max(float((g - r).abs().max()) for g, r in zip(one, (rq, rk, rv)))
+    assert err1 > FLASH_TOL, err1
+    if masked:
+        assert not any(g[1].any() for g in got)

@@ -43,10 +43,21 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    ``lstm_fwd``'s device time split into its hoisted input product and its
    recurrence, and ``lstm_bwd``'s into its hoisted gate product, its
    recurrence and its tail;
-8. reads the profiler's device time of every main-path kernel row and its
+8. trains full-width ``lenet_mnist()`` (20 and 50 filters, 500 dense
+   units; random weights from a seed) through ``fit`` for 5 steps at
+   B = 128 on synthetic MNIST digits (seed 123) on the card and, from the
+   same weights, on the CPU: each step's loss within 1e-4 relative, one
+   ``output`` within 1e-4, exactly one ``sm_xent`` launch a step; then one
+   ``fit_iterator`` epoch of 20 batches on both, ``evaluate`` on 1,000
+   synthetic test digits (seed 321; accuracies within 0.01), and
+   ``/v1/predict`` of 64 rows through ``InferenceServer`` (within 1e-4 of
+   the CPU ``output`` of the served weights); then times 20 steps (wall
+   ms, samples/s) and profiles one (device time by kernel family and by
+   kernel, idle share);
+9. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-9. prints one JSON line describing each kernel, then
+10. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -72,7 +83,9 @@ from torch.profiler import ProfilerActivity, profile
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
 from deeplearning4j_tpu_torch.keras_server.serve_profile import (
     device_time_by_kernel)
-from deeplearning4j_tpu_torch.models import char_rnn_lstm, transformer_lm
+from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+from deeplearning4j_tpu_torch.models import (
+    char_rnn_lstm, lenet_mnist, transformer_lm)
 from deeplearning4j_tpu_torch.nn.inference import PredictFn
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _cuda
@@ -104,6 +117,11 @@ WIDE2_HEADS = 2
 #: 16 and 128, dims padded to a width (8, 12 -> 16; 40 -> 64), and dims above
 #: 128 (flash_wide.cu's column groups: 2, 2 and 4)
 FLASH_EDGE_DIMS = (8, 12, 16, 40, 128, 160, 256, 512)
+#: the LeNet phase: full-width lenet_mnist (BASELINE config 1) at the JAX
+#: bench's batch of 128; 5 compared steps, a fit_iterator epoch of 20
+#: batches, 1,000 test digits, 64 served rows, 2 warm-up and 20 timed steps
+LENET_B, LENET_STEPS, LENET_EPOCH_BATCHES, LENET_TEST = 128, 5, 20, 1000
+LENET_SERVE_ROWS, LENET_TIMED = 64, 20
 #: RMSProp rate of the training phase. At the config's own 0.1 the loss
 #: diverges (4.2 -> 44 in 8 chunks) and the card and the CPU drift 2e-4
 #: apart (PERF.md, Findings); at 0.01 the run stays stable. Widths unchanged.
@@ -508,12 +526,13 @@ def check_flash(rows: list, dev) -> None:
 
 #: sm_xent's shapes on the main paths: the transformer's training step and
 #: char_rnn's TBPTT chunk (both a warp a row)
-XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V))
+XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V),
+              (LENET_B, 10))
 
 
 def check_xent(rows: list, dev) -> None:
     """Kernel 4 at the training paths' shapes ([4096, 256] float32 logits,
-    and char_rnn's [1600, 64]), at a vocab of 50,257 (a block a row), at
+    char_rnn's [1600, 64] and LeNet's [128, 10]), at a vocab of 50,257 (a block a row), at
     the widest and the narrowest row a warp takes besides, and with bfloat16
     logits; each bitwise the same from run to run. Its yardstick is
     ``F.cross_entropy`` with probability targets, forward and backward."""
@@ -523,6 +542,7 @@ def check_xent(rows: list, dev) -> None:
     for N, C, dt, loss_tol, grad_tol in (
             (TRAIN_B * TRAIN_T, TRAIN_V, torch.float32, 1e-5, 1e-6),
             (RNN_B * RNN_CHUNK, RNN_V, torch.float32, 1e-5, 1e-6),
+            (LENET_B, 10, torch.float32, 1e-5, 1e-6),
             (64, 50257, torch.float32, 1e-5, 1e-6),
             (64, 2048, torch.float32, 1e-5, 1e-6),
             (65, 2049, torch.float32, 1e-5, 1e-6),
@@ -1347,6 +1367,187 @@ def train_lstm(kernels) -> dict:
     return result
 
 
+def _lenet_family(name: str) -> str:
+    """A LeNet step's device kernel by family: the port's ``sm_xent``,
+    copies, cuDNN's convolutions (its FFT algorithms too: the transforms,
+    the filter flip and the complex GEMMs), the dense layers' GEMMs,
+    pooling, and the other (elementwise, reduction, updater) PyTorch
+    kernels."""
+    low = name.lower()
+    if "sm_xent" in low:
+        return "sm_xent"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                              "implicit", "fft", "flip_filter", "cf32")):
+        return "cuDNN convolution"
+    if "gemm" in low or "gemv" in low:
+        return "GEMM (dense layers)"
+    if "pool" in low:
+        return "pooling"
+    return "other PyTorch kernels"
+
+
+def lenet(kernels) -> dict:
+    """The LeNet path: ``fit`` of full-width ``lenet_mnist()`` on the card
+    against the CPU from the same weights, a ``fit_iterator`` epoch and
+    ``evaluate`` on both, ``/v1/predict`` through the HTTP server, then step
+    timing and one profiled step."""
+    net = MultiLayerNetwork(lenet_mnist(), device="cuda").init(seed=SEED)
+    ref = net.clone(device="cpu")
+
+    def train_digits():
+        return MnistDataSetIterator(
+            LENET_B, num_examples=LENET_B * LENET_EPOCH_BATCHES)
+
+    batches = list(train_digits())[:LENET_STEPS]
+    # batches of 200: the iterator drops a partial last batch
+    test = MnistDataSetIterator(200, train=False, shuffle=False,
+                                num_examples=LENET_TEST)
+    synthetic = train_digits().synthetic and test.synthetic
+
+    for fn in kernels:
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for ds in batches:
+        net.fit(ds)
+        losses.append(net.score_value)
+    first_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    ref_losses = []
+    for ds in batches:
+        ref.fit(ds)
+        ref_losses.append(ref.score_value)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    x0 = test.features[:LENET_B]
+    out_err = float((net.output(x0).cpu() - ref.output(x0)).abs().max())
+    print(f"lenet: card losses {losses}; CPU {ref_losses}; worst relative "
+          f"difference {max(rel):.3e} (tol 1e-4); output max_abs_err "
+          f"{out_err:.3e} (tol 1e-4); {LENET_STEPS} steps on the card in "
+          f"{first_s:.3f}s (first included); launches {launches}; synthetic "
+          f"digits {synthetic}", flush=True)
+    if not all(np.isfinite(losses)) or not max(rel) <= 1e-4:
+        fail(f"LeNet losses on the card {losses} disagree with the CPU run "
+             f"{ref_losses}")
+    if not out_err <= 1e-4:
+        fail(f"LeNet output on the card disagrees with the CPU: {out_err}")
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = LENET_STEPS
+    if launches != want:
+        fail(f"LeNet launch counts {launches} != expected {want}")
+
+    # a fit_iterator epoch and evaluate, on both devices
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    net.fit_iterator(train_digits())
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_launches = {fn.__name__: fn.launches for fn in kernels}
+    ref.fit_iterator(train_digits())
+    ev, ref_ev = net.evaluate(test), ref.evaluate(test)
+    acc, ref_acc = ev.accuracy(), ref_ev.accuracy()
+    print(f"lenet fit_iterator: {LENET_EPOCH_BATCHES} batches in "
+          f"{epoch_s:.3f}s on the card (launches {epoch_launches}); last "
+          f"losses card {net.score_value:.6f} CPU {ref.score_value:.6f}; "
+          f"evaluate on {ev.num_examples} test digits: accuracy card {acc:.4f}"
+          f", CPU {ref_acc:.4f} (tol 0.01)", flush=True)
+    if ev.num_examples != LENET_TEST or not abs(acc - ref_acc) <= 0.01:
+        fail(f"LeNet accuracy on the card {acc} differs from the CPU's "
+             f"{ref_acc}")
+    if epoch_launches["softmax_cross_entropy"] != LENET_EPOCH_BATCHES:
+        fail(f"fit_iterator launched sm_xent {epoch_launches} times, not "
+             f"once a batch")
+
+    # /v1/predict through the HTTP server
+    rows = test.features[:LENET_SERVE_ROWS]
+    srv = InferenceServer(device="cuda", max_batch=LENET_SERVE_ROWS)
+    srv.start()
+    try:
+        srv.register("lenet", net)
+        t0 = time.perf_counter()
+        status, body = post(srv.port, "/v1/predict",
+                            {"model": "lenet", "inputs": rows.tolist()})
+        predict_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    if status != 200:
+        fail(f"LeNet /v1/predict returned {status}: {body[:500]}")
+    pred = np.asarray(json.loads(body)["predictions"], np.float32)
+    # serving is held to the CPU forward of the weights it serves; the two
+    # trained copies have drifted apart over 25 steps (sums in another
+    # order, cuDNN's algorithm choice), which the accuracy check bounds
+    perr = float(np.abs(
+        pred - net.clone(device="cpu").output(rows).numpy()).max())
+    drift = float(np.abs(pred - ref.output(rows).numpy()).max())
+    print(f"lenet /v1/predict [{LENET_SERVE_ROWS}, 784] in {predict_s:.3f}s: "
+          f"max_abs_err {perr:.3e} against the CPU output of the served "
+          f"weights (tol 1e-4); {drift:.3e} against the CPU-trained copy",
+          flush=True)
+    if pred.shape != (LENET_SERVE_ROWS, 10) or not perr <= 1e-4:
+        fail(f"LeNet /v1/predict {pred.shape} disagrees with the CPU: {perr}")
+
+    # step time: host clock around steps that end in a synchronize
+    x, y = batches[0].features, batches[0].labels
+    for _ in range(2):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LENET_TIMED):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / LENET_TIMED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            by_name[e.key] = by_name.get(e.key, 0.0) + float(us)
+    by_family = {}
+    for name, us in by_name.items():
+        fam = _lenet_family(name)
+        by_family[fam] = by_family.get(fam, 0.0) + us
+    busy_us = sum(by_name.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the LeNet step")
+    result = {
+        "card": CARD, "synthetic_digits": synthetic, "losses": losses,
+        "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
+        "output_max_abs_err": out_err, "launches": launches,
+        "epoch_launches": epoch_launches, "epoch_s": epoch_s,
+        "accuracy": acc, "cpu_accuracy": ref_acc,
+        "predict_max_abs_err": perr, "predict_s": predict_s,
+        "trained_copies_output_max_abs_diff": drift,
+        "step_ms": step_ms, "samples_per_s": LENET_B / (step_ms / 1e3),
+        "profiled_step_ms": prof_ms, "device_us_total": busy_us,
+        "device_us_by_family": by_family, "device_us_by_kernel": by_name,
+        "idle_share_unprofiled": 1.0 - busy_us / 1e3 / step_ms,
+        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms}
+    print(f"lenet step: {step_ms:.3f} ms wall, "
+          f"{result['samples_per_s']:.0f} samples/s (B={LENET_B}, "
+          f"{LENET_TIMED} timed steps after 2 warm-up); profiled step "
+          f"{prof_ms:.3f} ms, device time {busy_us:.1f} us, idle share "
+          f"{result['idle_share_unprofiled']:.3f} of the unprofiled step "
+          f"({result['idle_share_profiled']:.3f} profiled) [{CARD}]",
+          flush=True)
+    for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  lenet step device time {fam}: {us:.1f} us", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us:8.1f} us  {name[:110]}", flush=True)
+    return result
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1388,6 +1589,7 @@ def main() -> None:
     wide2 = train_wide(kernels, n_heads=WIDE2_HEADS)
     served_rnn = serve_lstm(kernels)
     trained_rnn = train_lstm(kernels)
+    lenet_run = lenet(kernels)
     measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
@@ -1398,6 +1600,7 @@ def main() -> None:
     wide_shape = {"B": WIDE_B, "T": WIDE_T, "D": 128}
     wide2_shape = {"B": WIDE_B, "T": WIDE_T, "D": WIDE_WIDTH // WIDE2_HEADS}
     rnn_xent = {"N": RNN_B * RNN_CHUNK, "C": RNN_V, "dtype": "torch.float32"}
+    lenet_xent = {"N": LENET_B, "C": 10, "dtype": "torch.float32"}
     main_shape = {"int8_matmul": {"M": 8, "K": 256, "N": 1024},
                   "paged_gather": {"cap": 8},
                   "flash_fwd": {"B": 2, "T": 512, "D": 64},
@@ -1474,7 +1677,8 @@ def main() -> None:
                    + wide2["launches"][fname],
                    "rnn": trained_rnn["launches"][fname]
                    + served_rnn["decode_launches"][fname]
-                   + served_rnn["stream_launches"][fname]}
+                   + served_rnn["stream_launches"][fname],
+                   "lenet": lenet_run["launches"][fname]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": by_path["train" if name in
@@ -1503,7 +1707,9 @@ def main() -> None:
             entry["by_path"] = {
                 "train": {"launches": by_path["train"], **nums(row)},
                 "rnn": {"launches": by_path["rnn"],
-                        **nums(row_at(name, rnn_xent))}}
+                        **nums(row_at(name, rnn_xent))},
+                "lenet": {"launches": by_path["lenet"],
+                          **nums(row_at(name, lenet_xent))}}
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1511,7 +1717,8 @@ def main() -> None:
                    "serve": served, "train": trained, "train_wide": wide,
                    "train_wide_d256": wide2, "flash_bwd_wide_edges": WIDE_EDGES,
                    "serve_rnn": served_rnn,
-                   "train_rnn": trained_rnn, "kernels": line,
+                   "train_rnn": trained_rnn, "lenet": lenet_run,
+                   "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,12 @@
 ``params_list`` as numpy arrays (and, to continue a trajectory, its
 ``updater_state`` and ``iteration``), and returns a port
 :class:`~deeplearning4j_tpu_torch.nn.multilayer.MultiLayerNetwork` that
-computes the same function and takes the same next step. The two packages'
-RNGs differ, so weights cross only this way, never by seed. :func:`to_numpy`
+computes the same function and takes the same next step. Params match by
+layer index and JAX name and keep the JAX layouts (dense ``W [in, out]``,
+convolution ``W [kh, kw, in, out]`` HWIO; the port's convolutional layers
+run NHWC as the JAX ones do), so every leaf is copied as it is. The
+configuration's preprocessors come with the JSON. The two packages' RNGs
+differ, so weights cross only this way, never by seed. :func:`to_numpy`
 gives a port tree (params, updater state) back as numpy arrays.
 """
 from __future__ import annotations

@@ -1,4 +1,13 @@
-"""Datasets: the ``DataSet`` container that ``fit`` takes."""
+"""Datasets: the ``DataSet`` container, the iterators ``fit_iterator`` and
+``evaluate`` take, and MNIST."""
 from .dataset import DataSet
+from .iterators import (
+    ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
+    ExistingDataSetIterator, ListDataSetIterator, MultipleEpochsIterator,
+    SamplingDataSetIterator)
+from .mnist import MnistDataSetIterator
 
-__all__ = ["DataSet"]
+__all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator", "DataSet",
+           "DataSetIterator", "ExistingDataSetIterator", "ListDataSetIterator",
+           "MnistDataSetIterator", "MultipleEpochsIterator",
+           "SamplingDataSetIterator"]

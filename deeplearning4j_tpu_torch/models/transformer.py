@@ -8,8 +8,8 @@ the global default (``sigmoid``), causal ``TransformerBlock``s, and a softmax
 """
 from __future__ import annotations
 
-from ..nn.conf.multilayer import (
-    GlobalConf, InputType, LayerConf, MultiLayerConfiguration)
+from ..nn.conf.inputs import InputType
+from ..nn.conf.multilayer import GlobalConf, LayerConf, MultiLayerConfiguration
 
 
 def transformer_lm(vocab_size: int, width: int = 256, n_layers: int = 4,
@@ -29,5 +29,4 @@ def transformer_lm(vocab_size: int, width: int = 256, n_layers: int = 4,
                                 "n_out": vocab_size, "loss": "mcxent"}))
     layers = [LayerConf(t, f) for t, f in specs]
     return MultiLayerConfiguration(
-        g, layers, InputType(kind="recurrent", size=vocab_size,
-                             timesteps=max_len))
+        g, layers, input_type=InputType.recurrent(vocab_size, max_len))

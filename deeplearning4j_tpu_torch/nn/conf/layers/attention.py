@@ -16,7 +16,7 @@ from ....common import at_least_f32, get_policy
 from ....ops.activations import gelu
 from ....ops.flash_attention import flash_attention, masked_attention
 from ..serde import register_layer
-from .base import Layer
+from .base import FeedForwardLayer
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -41,10 +41,19 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 @register_layer("TransformerBlock")
-class TransformerBlock(Layer):
+class TransformerBlock(FeedForwardLayer):
     """Pre-LN transformer block: LN -> MHA -> residual, LN -> MLP ->
     residual. Params: ln1/ln2 scales and biases, ``Wqkv`` [F, 3F], ``Wo``
     [F, F], ``bo``, ``W1`` [F, hidden], ``b1``, ``W2`` [hidden, F], ``b2``."""
+
+    FIELDS = {**FeedForwardLayer.FIELDS, "n_heads": 4, "ffn_multiplier": 4,
+              "causal": True}
+
+    @classmethod
+    def set_n_in(cls, fields, itype):
+        super().set_n_in(fields, itype)
+        if not fields.get("n_out"):
+            fields["n_out"] = fields["n_in"]
 
     def __init__(self, conf, device):
         self.n_heads = int(conf.get("n_heads", 4))

@@ -1,6 +1,12 @@
-"""Layer base class: an ``nn.Module`` built from a layer config.
+"""Layer base classes: an ``nn.Module`` built from a layer config.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/base.py``. Parameters
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/base.py``: ``Layer`` holds
+the fields every layer has, ``FeedForwardLayer`` adds ``n_in`` and ``n_out``
+(a pooling or activation layer has neither). A layer class also owns its
+config side, as the JAX dataclass does: :meth:`Layer.conf` makes a
+``LayerConf`` with the JAX defaults of every field (what the builder DSL
+takes), and :meth:`Layer.set_n_in` and :meth:`Layer.output_type` walk an
+``InputType`` through it at ``build()``. Parameters
 keep the JAX names (``W``, ``b``, ``ln1_g``, ``Wqkv``, ...) and the JAX
 ``[in, out]`` layout, so per-output-channel int8 scales stay on the last
 axis; they are trainable. ``apply(params, x, mask, train, gen)`` is the pure
@@ -21,6 +27,15 @@ from torch import nn
 
 from ....ops.activations import get_activation
 from ...weights import init_weights
+from ..inputs import InputType
+
+#: the fields of every layer, in the JAX ``Layer`` dataclass's order; None
+#: inherits the network default at ``build()``
+BASE_FIELDS = (
+    "name", "activation", "weight_init", "dist", "bias_init", "l1", "l2",
+    "dropout", "learning_rate", "bias_learning_rate", "updater", "momentum",
+    "rho", "rms_decay", "adam_mean_decay", "adam_var_decay", "epsilon",
+    "gradient_normalization", "gradient_normalization_threshold")
 
 
 def init_weight(gen: torch.Generator, shape: Tuple[int, ...],
@@ -34,11 +49,31 @@ class Layer(nn.Module):
     """Hyperparameters from one ``LayerConf`` plus named parameters."""
 
     TYPE = ""
+    #: the type's own fields and their JAX defaults, in the dataclass's order
+    FIELDS: Dict[str, object] = {}
+
+    @classmethod
+    def conf(cls, **fields):
+        """A ``LayerConf`` of this type: every base field None (inherited at
+        ``build()``), the type's fields at their JAX defaults, then
+        ``fields``. An unknown field raises."""
+        from ..multilayer import LayerConf
+        unknown = sorted(set(fields) - set(BASE_FIELDS) - set(cls.FIELDS))
+        if unknown:
+            raise TypeError(f"{cls.__name__} has no fields {unknown}")
+        return LayerConf(cls.TYPE, {**dict.fromkeys(BASE_FIELDS),
+                                    **cls.FIELDS, **fields})
+
+    @classmethod
+    def set_n_in(cls, fields: dict, itype: InputType) -> None:
+        """Fill the input-size fields from the incoming type (in place)."""
+
+    @classmethod
+    def output_type(cls, fields: dict, itype: InputType) -> InputType:
+        return itype
 
     def __init__(self, conf, device: torch.device):
         super().__init__()
-        self.n_in = int(conf["n_in"])
-        self.n_out = int(conf["n_out"])
         # the global defaults are baked into every LayerConf
         # (``MultiLayerConfiguration``), so the layer reads them as they are
         self.activation = conf["activation"]
@@ -67,7 +102,7 @@ class Layer(nn.Module):
                 torch.zeros(shape, device=device)))
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
-        raise NotImplementedError
+        return {}
 
     def regularizable_params(self) -> Sequence[str]:
         """Param names subject to l1/l2 (weights, not biases)."""
@@ -117,3 +152,26 @@ class Layer(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.apply(self.params(), x, mask)
+
+
+class FeedForwardLayer(Layer):
+    """A layer with an ``n_in -> n_out`` shape contract."""
+
+    FIELDS = {"n_in": 0, "n_out": 0}
+
+    @classmethod
+    def set_n_in(cls, fields, itype):
+        if not fields.get("n_in"):
+            fields["n_in"] = (itype.size if itype.kind == "recurrent"
+                              else itype.flat_size())
+
+    @classmethod
+    def output_type(cls, fields, itype):
+        if itype.kind == "recurrent":
+            return InputType.recurrent(fields["n_out"], itype.timesteps)
+        return InputType.feed_forward(fields["n_out"])
+
+    def __init__(self, conf, device: torch.device):
+        self.n_in = int(conf["n_in"])
+        self.n_out = int(conf["n_out"])
+        super().__init__(conf, device)

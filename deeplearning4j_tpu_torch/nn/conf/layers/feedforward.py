@@ -1,14 +1,20 @@
-"""Feed-forward layers of the slice: ``EmbeddingLayer``.
+"""Dense-family layers: ``DenseLayer``, ``OutputLayer``, ``LossLayer``,
+``ActivationLayer``, ``DropoutLayer`` and ``EmbeddingLayer``.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/feedforward.py``.
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/feedforward.py`` (its
+``AutoEncoder`` and ``RBM`` wait for layerwise pretraining, ROADMAP.md).
+``W`` is ``[n_in, out]`` as in the JAX package. An ``OutputLayer`` with
+``mcxent`` and a softmax takes the fused softmax cross-entropy
+(``ops/losses.py``), the ``sm_xent`` kernel on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from ....common import get_policy
+from ....ops.losses import get_loss
 from ..serde import register_layer
-from .base import Layer
+from .base import FeedForwardLayer, Layer
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -20,8 +26,87 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     return (out.to(cd) + params["b"].to(cd)).to(pol.output_dtype)
 
 
+@register_layer("Dense")
+class DenseLayer(FeedForwardLayer):
+    """Fully connected: ``act(x @ W + b)``."""
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        x = self.apply_dropout(x, gen, train)
+        return self.act_fn()(dense(params, x))
+
+
+@register_layer("Output")
+class OutputLayer(DenseLayer):
+    """A dense layer with a loss; it ends backprop."""
+
+    FIELDS = {**FeedForwardLayer.FIELDS, "loss": "mcxent"}
+
+    def __init__(self, conf, device):
+        super().__init__(conf, device)
+        self.loss = conf.get("loss", "mcxent")
+
+    def has_loss(self) -> bool:
+        return True
+
+    def preout(self, params, x):
+        return dense(params, x)
+
+    def compute_loss(self, params, x, labels, mask=None) -> torch.Tensor:
+        """The configured loss of ``labels`` against ``act(x @ W + b)``."""
+        return get_loss(self.loss)(labels, self.preout(params, x),
+                                   self.act_fn(), mask)
+
+
+@register_layer("Loss")
+class LossLayer(Layer):
+    """A loss without parameters: ``act(x)`` against the labels."""
+
+    FIELDS = {"loss": "mcxent"}
+
+    def __init__(self, conf, device):
+        super().__init__(conf, device)
+        self.loss = conf.get("loss", "mcxent")
+
+    def has_loss(self) -> bool:
+        return True
+
+    def regularizable_params(self):
+        return ()
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        return self.act_fn()(x)
+
+    def compute_loss(self, params, x, labels, mask=None) -> torch.Tensor:
+        return get_loss(self.loss)(labels, x, self.act_fn(), mask)
+
+
+@register_layer("Activation")
+class ActivationLayer(Layer):
+    """An activation on its own."""
+
+    def regularizable_params(self):
+        return ()
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        return self.act_fn()(x)
+
+
+@register_layer("Dropout")
+class DropoutLayer(Layer):
+    """Dropout on its own; ``dropout`` is the retain probability."""
+
+    def regularizable_params(self):
+        return ()
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        return self.apply_dropout(x, gen, train)
+
+
 @register_layer("Embedding")
-class EmbeddingLayer(Layer):
+class EmbeddingLayer(FeedForwardLayer):
     """Index -> vector lookup, ``act(W[idx] + b)``. Takes integer ids or a
     one-hot encoding, told apart exactly as the JAX layer does; either way
     ``W`` gets its gradient through the gather (the one-hot input itself

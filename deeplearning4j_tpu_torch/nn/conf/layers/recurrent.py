@@ -20,18 +20,24 @@ from typing import Optional
 import torch
 
 from ....ops.activations import get_activation
-from ....ops.losses import get_loss
 from ....ops.lstm import lstm_sequence
+from ..inputs import InputType
 from ..serde import register_layer
-from .base import Layer, init_weight
-from .feedforward import dense
+from .base import FeedForwardLayer, init_weight
+from .feedforward import OutputLayer
 
 
 @register_layer("LSTM")
-class LSTM(Layer):
+class LSTM(FeedForwardLayer):
     """Standard LSTM cell (no peepholes unless the config sets them)."""
 
     PEEPHOLE_DEFAULT = False
+    FIELDS = {**FeedForwardLayer.FIELDS, "forget_gate_bias_init": 1.0,
+              "gate_activation": "sigmoid", "peephole": False}
+
+    @classmethod
+    def output_type(cls, fields, itype):
+        return InputType.recurrent(fields["n_out"], itype.timesteps)
 
     def __init__(self, conf, device):
         self.forget_gate_bias_init = float(conf.get("forget_gate_bias_init",
@@ -105,6 +111,7 @@ class GravesLSTM(LSTM):
     """LSTM with peephole connections (Graves 2013)."""
 
     PEEPHOLE_DEFAULT = True
+    FIELDS = {**LSTM.FIELDS, "peephole": True}
 
 
 @register_layer("GravesBidirectionalLSTM")
@@ -115,6 +122,7 @@ class GravesBidirectionalLSTM(LSTM):
     backward pass needs the whole sequence."""
 
     PEEPHOLE_DEFAULT = True
+    FIELDS = {**LSTM.FIELDS, "peephole": True}
 
     def param_shapes(self):
         return {**self._cell_shapes("F"), **self._cell_shapes("B")}
@@ -144,28 +152,10 @@ def streaming_lstm(layer) -> bool:
 
 
 @register_layer("RnnOutput")
-class RnnOutputLayer(Layer):
+class RnnOutputLayer(OutputLayer):
     """Time-distributed output layer: ``act(x @ W + b)`` at every timestep of
     ``[B, T, F]``, with its loss masked by the time-series label mask."""
 
-    def __init__(self, conf, device):
-        super().__init__(conf, device)
-        self.loss = conf.get("loss", "mcxent")
-
-    def param_shapes(self):
-        return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
-
-    def has_loss(self) -> bool:
-        return True
-
-    def preout(self, params, x):
-        return dense(params, x)
-
-    def apply(self, params, x, mask=None, train=False, gen=None):
-        x = self.apply_dropout(x, gen, train)
-        return self.act_fn()(dense(params, x))
-
-    def compute_loss(self, params, x, labels, mask=None) -> torch.Tensor:
-        """The configured loss of ``labels`` against ``act(x @ W + b)``."""
-        return get_loss(self.loss)(labels, self.preout(params, x),
-                                   self.act_fn(), mask)
+    @classmethod
+    def output_type(cls, fields, itype):
+        return InputType.recurrent(fields["n_out"], itype.timesteps)

@@ -2,7 +2,9 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/multilayer.py``. A configuration
 is plain data: the global defaults, one :class:`LayerConf` per layer (its
-``"@type"`` name and its resolved fields) and the input type.
+``"@type"`` name and its resolved fields), the input preprocessors by layer
+index and the input type. ``NeuralNetConfiguration.builder()``
+(``builders.py``) writes one as the JAX DSL does.
 :meth:`MultiLayerConfiguration.from_json` reads what the JAX package's
 ``conf.to_json()`` writes, and :meth:`to_json` writes the same schema.
 """
@@ -12,20 +14,9 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional
 
+from .inputs import InputType
+from .preprocessors import InputPreProcessor, preprocessor_from_dict
 from .serde import layer_class
-
-
-@dataclasses.dataclass
-class InputType:
-    kind: str = "recurrent"
-    size: int = 0
-    height: int = 0
-    width: int = 0
-    channels: int = 0
-    timesteps: int = 0
-
-    def to_dict(self) -> dict:
-        return {"@type": "InputType", **dataclasses.asdict(self)}
 
 
 @dataclasses.dataclass
@@ -139,6 +130,9 @@ class LayerConf:
 class MultiLayerConfiguration:
     global_conf: GlobalConf
     layers: List[LayerConf]
+    #: the preprocessor before layer i under the key str(i)
+    preprocessors: Dict[str, InputPreProcessor] = dataclasses.field(
+        default_factory=dict)
     input_type: Optional[InputType] = None
     backprop: bool = True
     pretrain: bool = False
@@ -156,13 +150,18 @@ class MultiLayerConfiguration:
         self.layers = [LayerConf(lc.type, bake_layer_defaults(lc.fields,
                                                               self.global_conf))
                        for lc in self.layers]
+        self.preprocessors = {str(k): v for k, v in self.preprocessors.items()}
+
+    def preprocessor(self, idx: int) -> Optional[InputPreProcessor]:
+        return self.preprocessors.get(str(idx))
 
     def to_json(self) -> str:
         return json.dumps({
             "@type": "MultiLayerConfiguration",
             "global_conf": self.global_conf.to_dict(),
             "layers": [lc.to_dict() for lc in self.layers],
-            "preprocessors": {},
+            "preprocessors": {k: pp.to_dict()
+                              for k, pp in self.preprocessors.items()},
             "input_type": (None if self.input_type is None
                            else self.input_type.to_dict()),
             **{f: getattr(self, f) for f in self.TRAINING_FIELDS},
@@ -177,21 +176,16 @@ class MultiLayerConfiguration:
         if d.get("@type") != "MultiLayerConfiguration":
             raise ValueError(f"expected a MultiLayerConfiguration, got "
                              f"@type {d.get('@type')!r}")
-        if d.get("preprocessors"):
-            raise ValueError("input preprocessors are not supported by this "
-                             "port yet (ROADMAP.md)")
         global_conf = GlobalConf.from_dict(d.get("global_conf") or {})
         layers = []
         for ld in d["layers"]:
             ld = dict(ld)
             layers.append(LayerConf(type=ld.pop("@type", None), fields=ld))
+        preprocessors = {k: preprocessor_from_dict(v)
+                         for k, v in (d.get("preprocessors") or {}).items()}
         it = d.get("input_type")
-        input_type = None
-        if it is not None:
-            ifields = {f.name for f in dataclasses.fields(InputType)}
-            input_type = InputType(**{k: v for k, v in it.items()
-                                      if k in ifields})
+        input_type = None if it is None else InputType.from_dict(it)
         training = {f: d[f] for f in MultiLayerConfiguration.TRAINING_FIELDS
                     if f in d}
-        return MultiLayerConfiguration(global_conf, layers, input_type,
-                                       **training)
+        return MultiLayerConfiguration(global_conf, layers, preprocessors,
+                                       input_type, **training)

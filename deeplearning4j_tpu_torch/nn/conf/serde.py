@@ -1,9 +1,10 @@
 """The ``"@type"`` registry of the JAX package's JSON config schema.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/serde.py``. Layer classes
-register under the JAX package's registry names (``"Embedding"``,
-``"TransformerBlock"``, ``"GravesLSTM"``, ``"RnnOutput"``), so a JAX ``conf.to_json()`` reads
-here unchanged. A name that is not registered raises.
+register under the JAX package's registry names (``"Dense"``,
+``"Convolution"``, ``"GravesLSTM"``, ``"TransformerBlock"``, ...), so a JAX
+``conf.to_json()`` reads here unchanged. A name that is not registered
+raises.
 """
 from __future__ import annotations
 
@@ -14,10 +15,8 @@ LAYER_TYPES: Dict[str, type] = {}
 #: layer types the JAX package registers that this port does not have yet
 #: (queued in ROADMAP.md)
 NOT_YET_PORTED = (
-    "Dense", "Output", "Loss", "Activation", "Dropout", "AutoEncoder", "RBM",
-    "VariationalAutoencoder", "SelfAttention", "MoE", "MoETransformerBlock",
-    "BatchNormalization", "LocalResponseNormalization", "Convolution",
-    "Subsampling", "Upsampling2D", "ZeroPadding", "GlobalPooling")
+    "AutoEncoder", "RBM", "VariationalAutoencoder", "SelfAttention", "MoE",
+    "MoETransformerBlock", "BatchNormalization", "LocalResponseNormalization")
 
 
 def register_layer(name: str):

@@ -1,14 +1,18 @@
 """``MultiLayerNetwork``: a stack of layers, run forward and trained.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``,
-``output``, ``_output_pure``, ``params_list``, ``state_list``, the pure
+``output``, ``_output_pure``, ``feed_forward``, ``predict``, ``params_list``,
+``state_list``, the flat ``params``/``set_params``/``num_params`` view,
+``score_examples``, ``gradient_and_score``, ``evaluate`` and its regression
+and ROC forms, the pure
 training functions (``_regularization``, ``_aux_losses``, ``loss_fn``,
 ``make_train_step``, ``make_tbptt_step``) and the stateful shell over them
 (``fit`` on arrays, a ``DataSet`` or an iterable of ``DataSet``\\ s,
 ``_fit_batch`` with ``iterations > 1``, truncated BPTT (``_fit_tbptt``) for
 stacks with an LSTM, ``fit_iterator``, ``score``, ``score_value``,
 listeners), and the recurrent API (``rnn_time_step``, the previous-state
-accessors, ``clone``).
+accessors, ``clone``). Every forward applies the configuration's input
+preprocessors before their layers, as the JAX ``forward_fn`` does.
 
 The JAX package fuses the whole step into one compiled program; here the
 step is eager: ``torch.autograd.grad`` gives the gradients, and the updater
@@ -101,6 +105,12 @@ def _dropout_gen(layer, seed: Optional[int], device) -> Optional[torch.Generator
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _pre(net, i: int, h: torch.Tensor, mask=None) -> torch.Tensor:
+    """``h`` through the preprocessor before layer ``i``, if it has one."""
+    pp = net.conf.preprocessor(i)
+    return h if pp is None else pp.pre_process(h, mask)
+
+
 def loss_fn(net, params_list, x, y, rng: Optional[int] = None, fmask=None,
             lmask=None):
     """Training loss: the forward in train mode to the last (loss) layer,
@@ -122,6 +132,7 @@ def loss_fn(net, params_list, x, y, rng: Optional[int] = None, fmask=None,
     dev = x.device
     h = x
     for i, layer in enumerate(layers[:-1]):
+        h = _pre(net, i, h, fmask)
         if remat:
             def f(p, hh, _layer=layer, _seed=seeds[i]):
                 return _layer.apply(p, hh, fmask, True,
@@ -131,11 +142,24 @@ def loss_fn(net, params_list, x, y, rng: Optional[int] = None, fmask=None,
         else:
             h = layer.apply(params_list[i], h, fmask, True,
                             _dropout_gen(layer, seeds[i], dev))
+    h = _pre(net, len(layers) - 1, h, fmask)
     h = last.apply_dropout(h, _dropout_gen(last, seeds[-1], dev), True)
     loss = last.compute_loss(params_list[-1], h, y, lmask)
     new_states = net.state_list
     loss = loss + _aux_losses(layers, new_states)
     return loss + _regularization(net, params_list), new_states
+
+
+def _grads(loss_val, params_list) -> List[dict]:
+    """``d loss_val / d param`` per layer by param name (zeros for a param
+    the loss does not reach)."""
+    keys = [(i, name) for i, p in enumerate(params_list) for name in p]
+    flat = [params_list[i][name] for i, name in keys]
+    got = torch.autograd.grad(loss_val, flat, allow_unused=True)
+    grads = [{} for _ in params_list]
+    for (i, name), p, gr in zip(keys, flat, got):
+        grads[i][name] = torch.zeros_like(p) if gr is None else gr
+    return grads
 
 
 def _apply_updates(net, params_list, upd_state, loss_val, iteration,
@@ -147,13 +171,7 @@ def _apply_updates(net, params_list, upd_state, loss_val, iteration,
     ``bias_learning_rate``; without it every param trains at the layer's
     rate. Returns the new updater state."""
     g = net.conf.global_conf
-    keys = [(i, name) for i, p in enumerate(params_list) for name in p]
-    flat = [params_list[i][name] for i, name in keys]
-    got = torch.autograd.grad(loss_val, flat, allow_unused=True)
-    grads = [{} for _ in params_list]
-    for (i, name), p, gr in zip(keys, flat, got):
-        grads[i][name] = torch.zeros_like(p) if gr is None else gr
-    grads = grads_to_param_dtype(grads, params_list)
+    grads = grads_to_param_dtype(_grads(loss_val, params_list), params_list)
     new_upd = []
     with torch.no_grad():
         for i, layer in enumerate(net.layers):
@@ -224,7 +242,9 @@ def _rnn_forward(net, params_list, rnn_states, x):
     forward."""
     h = x
     new_rnn = []
-    for layer, params, rs in zip(net.layers, params_list, rnn_states):
+    for i, (layer, params, rs) in enumerate(zip(net.layers, params_list,
+                                                 rnn_states)):
+        h = _pre(net, i, h)
         if streaming_lstm(layer):
             h, rs = layer.apply_streaming(params, rs, h)
         else:
@@ -251,6 +271,7 @@ def make_tbptt_step(net):
         h = x
         new_rnn = []
         for i, layer in enumerate(layers[:-1]):
+            h = _pre(net, i, h, fmask)
             if streaming_lstm(layer):
                 h, rs = layer.apply_streaming(params_list[i], rnn_states[i], h,
                                               mask=fmask)
@@ -270,6 +291,19 @@ def make_tbptt_step(net):
         return new_upd, new_rnn, loss.detach()
 
     return tbptt_step
+
+
+def _numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _rewound(iterator):
+    """``iterator`` reset first when it can be."""
+    if hasattr(iterator, "reset"):
+        iterator.reset()
+    return iterator
 
 
 class MultiLayerNetwork(nn.Module):
@@ -386,6 +420,34 @@ class MultiLayerNetwork(nn.Module):
     def add_listener(self, listener) -> None:
         self.listeners.append(listener)
 
+    # ------------------------------------------------------------------ params API
+    def _flat_order(self) -> list:
+        """The params in the JAX ``flatten_params`` order: layer by layer,
+        each layer's names sorted (a JAX pytree's dict order)."""
+        return [p[k] for p in self.params_list for k in sorted(p)]
+
+    def params(self) -> torch.Tensor:
+        """All parameters as one flat vector, the JAX ``params()`` order."""
+        leaves = self._flat_order()
+        if not leaves:
+            return torch.zeros(0, device=self.device)
+        return torch.cat([t.detach().reshape(-1) for t in leaves])
+
+    @torch.no_grad()
+    def set_params(self, flat) -> None:
+        """Copy a flat vector (as :meth:`params` gives it) into the params."""
+        flat = self._to_device(flat).reshape(-1)
+        if flat.numel() != self.num_params():
+            raise ValueError(f"{flat.numel()} values for {self.num_params()} "
+                             "params")
+        at = 0
+        for t in self._flat_order():
+            t.copy_(flat[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+
+    def num_params(self) -> int:
+        return sum(t.numel() for t in self._flat_order())
+
     @property
     def params_list(self) -> List[dict]:
         return [layer.params() for layer in self.layers]
@@ -396,10 +458,15 @@ class MultiLayerNetwork(nn.Module):
 
     # ------------------------------------------------------------------ inference
     def _output_pure(self, params_list, state_list, x: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None,
+                     collect: Optional[list] = None) -> torch.Tensor:
+        """The forward in eval mode; with ``collect`` each layer's output is
+        appended to it."""
         h = x
-        for layer, params in zip(self.layers, params_list):
-            h = layer.apply(params, h, mask)
+        for i, (layer, params) in enumerate(zip(self.layers, params_list)):
+            h = layer.apply(params, _pre(self, i, h, mask), mask)
+            if collect is not None:
+                collect.append(h)
         return h
 
     def _to_device(self, a) -> Optional[torch.Tensor]:
@@ -422,6 +489,66 @@ class MultiLayerNetwork(nn.Module):
                                  self._to_device(x))
 
     @torch.no_grad()
+    def feed_forward(self, x) -> List[torch.Tensor]:
+        """Every layer's output, in order."""
+        self._require_init()
+        acts: list = []
+        self._output_pure(self.params_list, self.state_list,
+                          self._to_device(x), collect=acts)
+        return acts
+
+    def predict(self, x) -> np.ndarray:
+        """The class of each row: the argmax of the output."""
+        return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    # ------------------------------------------------------------------ evaluation
+    def evaluate(self, iterator_or_x, y=None, labels_list=None,
+                 top_n: int = 1):
+        """Classification scores over an iterator of ``DataSet``\\ s or one
+        ``(x, y)`` pair; ``labels_list`` names the classes in ``stats()``,
+        ``top_n`` counts top-N accuracy beside top-1."""
+        from ..eval.evaluation import Evaluation
+
+        ev = Evaluation(labels=labels_list, top_n=top_n)
+        if y is not None:
+            ev.eval(_numpy(y), _numpy(self.output(iterator_or_x)))
+            return ev
+        for ds in _rewound(iterator_or_x):
+            ev.eval(_numpy(ds.labels), _numpy(self.output(ds.features)),
+                    mask=None if ds.labels_mask is None
+                    else _numpy(ds.labels_mask))
+        return ev
+
+    def f1_score(self, x, y=None) -> float:
+        """F1 on a ``DataSet`` or an ``(x, y)`` pair."""
+        from ..datasets.dataset import DataSet
+
+        if y is None and isinstance(x, DataSet):
+            x, y = x.features, x.labels
+        return self.evaluate(x, y).f1()
+
+    def _evaluate_with(self, ev, iterator):
+        for ds in _rewound(iterator):
+            ev.eval(_numpy(ds.labels), _numpy(self.output(ds.features)))
+        return ev
+
+    def evaluate_regression(self, iterator):
+        from ..eval.regression import RegressionEvaluation
+
+        return self._evaluate_with(RegressionEvaluation(), iterator)
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 30):
+        from ..eval.roc import ROC
+
+        return self._evaluate_with(ROC(threshold_steps), iterator)
+
+    def evaluate_roc_multiclass(self, iterator, threshold_steps: int = 30):
+        """One-vs-all ROC per class."""
+        from ..eval.roc import ROCMultiClass
+
+        return self._evaluate_with(ROCMultiClass(threshold_steps), iterator)
+
+    @torch.no_grad()
     def score(self, x=None, y=None, dataset=None) -> float:
         """Loss (with regularization) on a dataset, without dropout; a
         ``DataSet``'s feature and label masks are honored as in ``fit``."""
@@ -433,11 +560,54 @@ class MultiLayerNetwork(nn.Module):
         x, y = self._to_device(x), self._to_device(y)
         fmask, lmask = self._to_device(fmask), self._to_device(lmask)
         params = self.params_list
-        h = x
-        for layer, p in zip(self.layers[:-1], params[:-1]):
-            h = layer.apply(p, h, fmask)
+        h = self._eval_trunk(params, x, fmask)
         loss = self.layers[-1].compute_loss(params[-1], h, y, lmask)
         return float(loss + _regularization(self, params))
+
+    def _eval_trunk(self, params_list, x, fmask=None) -> torch.Tensor:
+        """The eval-mode forward to the last layer's input (its preprocessor
+        applied): the one trunk of ``score`` and ``score_examples``."""
+        h = x
+        for i, (layer, p) in enumerate(zip(self.layers[:-1], params_list)):
+            h = layer.apply(p, _pre(self, i, h, fmask), fmask)
+        return _pre(self, len(self.layers) - 1, h, fmask)
+
+    @torch.no_grad()
+    def score_examples(self, x, y=None,
+                       add_regularization: bool = False) -> np.ndarray:
+        """Each example's loss, unreduced (``[B]`` numpy): the loss of the
+        one-example batch, so every loss keeps its own reduction rules. ``x``
+        may be a ``DataSet``, whose label mask weights each example's own
+        loss. With ``add_regularization`` the l1/l2 term is added to each."""
+        from ..datasets.dataset import DataSet
+
+        self._require_init()
+        fmask = lmask = None
+        if y is None and isinstance(x, DataSet):
+            fmask, lmask = x.features_mask, x.labels_mask
+            x, y = x.features, x.labels
+        x, y = self._to_device(x), self._to_device(y)
+        fmask, lmask = self._to_device(fmask), self._to_device(lmask)
+        params = self.params_list
+        h = self._eval_trunk(params, x, fmask)
+        last = self.layers[-1]
+        per = torch.stack([
+            last.compute_loss(params[-1], h[i:i + 1], y[i:i + 1],
+                              None if lmask is None else lmask[i:i + 1])
+            for i in range(h.shape[0])])
+        if add_regularization:
+            per = per + _regularization(self, params)
+        return per.cpu().numpy()
+
+    def gradient_and_score(self, x, y, fmask=None, lmask=None):
+        """``(grads, score)`` without an update: the training loss's
+        gradients per layer by param name, without dropout."""
+        self._require_init()
+        x, y = self._to_device(x), self._to_device(y)
+        fmask, lmask = self._to_device(fmask), self._to_device(lmask)
+        params = self.params_list
+        loss, _ = loss_fn(self, params, x, y, None, fmask, lmask)
+        return _grads(loss, params), float(loss.detach())
 
     @property
     def score_value(self) -> float:

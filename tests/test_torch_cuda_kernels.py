@@ -169,7 +169,16 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
                                        (64, 2048, torch.float32),
                                        (65, 2049, torch.float32),
                                        (300, 64, torch.bfloat16),
-                                       (30, 2047, torch.bfloat16)])
+                                       (30, 2047, torch.bfloat16),
+                                       # LeNet's C = 10 (22 of a warp's 32
+                                       # lanes idle): a training batch, one
+                                       # score_examples row, a test set
+                                       (128, 10, torch.float32),
+                                       (1, 10, torch.float32),
+                                       (10000, 10, torch.float32),
+                                       (128, 10, torch.bfloat16),
+                                       (1, 10, torch.bfloat16),
+                                       (10000, 10, torch.bfloat16)])
 def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     g = torch.Generator().manual_seed(0)
     x = (torch.randn(N, C, generator=g) * 3).to(cuda_device).to(dtype)
@@ -450,3 +459,53 @@ def test_lstm_sequence_gradients_on_card_match_cpu(cuda_device):
                 (n[0] + 1, n[1] + 1)
     for a, b in zip(*grads):
         _close_to_scale(b, a)
+
+
+@pytest.mark.cuda
+def test_lenet_fit_step_on_card_matches_cpu(cuda_device):
+    """One ``fit`` step of full-width LeNet at B = 128 on the card against
+    the CPU from the same weights: the loss within 1e-4 relative, every
+    param within 1e-4 of its CPU value, the output within 1e-4, and one
+    ``sm_xent`` launch (cuDNN's convolutions, TF32 off, sum in another
+    order)."""
+    from deeplearning4j_tpu_torch.models import lenet_mnist
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(lenet_mnist(), device=cuda_device).init(seed=1)
+    ref = net.clone(device="cpu")
+    rng = np.random.default_rng(0)
+    x = rng.random((128, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 128)]
+    before = tsx.softmax_cross_entropy.launches
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    assert tsx.softmax_cross_entropy.launches == before + 1
+    ref.fit(x, y)
+    assert abs(net.score_value - ref.score_value) <= 1e-4 * ref.score_value
+    for a, b in zip(net.params_list, ref.params_list):
+        for k in a:
+            torch.testing.assert_close(a[k].detach().cpu(), b[k].detach(),
+                                       rtol=0, atol=1e-4)
+    torch.testing.assert_close(net.output(x[:16]).cpu(), ref.output(x[:16]),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_max_pool_ties_route_as_on_the_cpu_on_card(cuda_device):
+    """Max pooling over tied inputs (0, 1, 2) on the card gives each window's
+    gradient to the same element as the CPU, which the CPU tests hold to
+    XLA's routing: the gradients are equal."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import SubsamplingLayer
+    from deeplearning4j_tpu_torch.nn.conf.multilayer import (
+        GlobalConf, LayerConf, bake_layer_defaults)
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 3, (4, 24, 24, 20)).astype(np.float32)
+    ct = rng.standard_normal((4, 12, 12, 20)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        lc = SubsamplingLayer.conf(pooling_type="max")
+        layer = SubsamplingLayer(LayerConf(lc.type, bake_layer_defaults(
+            lc.fields, GlobalConf())), torch.device(dev))
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        (layer.apply({}, xt) * torch.tensor(ct, device=dev)).sum().backward()
+        grads.append(xt.grad.cpu())
+    assert torch.equal(grads[0], grads[1])

@@ -18,7 +18,7 @@ import torch
 from _torch_port import jax_lm
 from deeplearning4j_tpu.models.transformer import transformer_lm as jax_transformer_lm
 from deeplearning4j_tpu_torch.convert import from_jax
-from deeplearning4j_tpu_torch.models import transformer_lm
+from deeplearning4j_tpu_torch.models import lenet_mnist, transformer_lm
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
@@ -81,7 +81,7 @@ def test_config_reader_refuses_unknown_and_unported_types():
     d["layers"][1]["@type"] = "NoSuchLayer"
     with pytest.raises(ValueError):
         MultiLayerConfiguration.from_dict(d)
-    d["layers"][1]["@type"] = "Convolution"
+    d["layers"][1]["@type"] = "BatchNormalization"
     with pytest.raises(NotImplementedError):
         MultiLayerConfiguration.from_dict(d)
 
@@ -99,7 +99,14 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.ops.lstm, "
             "deeplearning4j_tpu_torch.nn.conf.layers.recurrent, "
             "deeplearning4j_tpu_torch.models.char_rnn, "
-            "deeplearning4j_tpu_torch.keras_server.streaming;"
+            "deeplearning4j_tpu_torch.keras_server.streaming, "
+            "deeplearning4j_tpu_torch.nn.conf.builders, "
+            "deeplearning4j_tpu_torch.nn.conf.preprocessors, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.convolutional, "
+            "deeplearning4j_tpu_torch.eval, "
+            "deeplearning4j_tpu_torch.datasets.iterators, "
+            "deeplearning4j_tpu_torch.datasets.mnist, "
+            "deeplearning4j_tpu_torch.models.lenet;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"
@@ -118,6 +125,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         InferenceServer()
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiLayerNetwork(conf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiLayerNetwork(lenet_mnist())
     net = MultiLayerNetwork(conf, device="cpu").init()
     with pytest.raises(RuntimeError, match="CUDA"):
         PredictFn(net)

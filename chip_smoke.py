@@ -54,10 +54,24 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    the CPU ``output`` of the served weights); then times 20 steps (wall
    ms, samples/s) and profiles one (device time by kernel family and by
    kernel, idle share);
-9. reads the profiler's device time of every main-path kernel row and its
+9. trains full-width ``resnet50()`` through ``ComputationGraph.fit``: at
+   64x64 (full depth and width, 1000 classes) 3 steps at B = 8 on the card
+   and, from the same weights (init on the CPU, ``clone`` to the card), on
+   the CPU, each card step from the CPU run's state: each loss within 1e-4
+   relative, the eval ``output`` within 1e-4, the batch-norm running
+   statistics within 1e-4 of their scale, one ``sm_xent`` launch a step;
+   a second card copy trains on its own and its drift is printed; then at the JAX
+   bench's shape (224x224x3, B = 128, synthetic normal images and one-hot
+   labels from a seed) 2 warm-up and 10 timed steps (wall ms, samples/s,
+   exactly one ``sm_xent`` launch a step, peak memory) and one profiled
+   step (device time by kernel family, idle share, the float32-peak share
+   of the FLOPs counted from the layer shapes); ``evaluate`` on 256
+   synthetic images and one ``/v1/predict`` of 2 rows, held to the card's
+   own ``output``;
+10. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-10. prints one JSON line describing each kernel, then
+11. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -80,12 +94,14 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
 from deeplearning4j_tpu_torch.keras_server.serve_profile import (
     device_time_by_kernel)
 from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
 from deeplearning4j_tpu_torch.models import (
-    char_rnn_lstm, lenet_mnist, transformer_lm)
+    char_rnn_lstm, lenet_mnist, resnet50, transformer_lm)
+from deeplearning4j_tpu_torch.nn.graph_network import ComputationGraph
 from deeplearning4j_tpu_torch.nn.inference import PredictFn
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _cuda
@@ -527,12 +543,13 @@ def check_flash(rows: list, dev) -> None:
 #: sm_xent's shapes on the main paths: the transformer's training step and
 #: char_rnn's TBPTT chunk (both a warp a row)
 XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V),
-              (LENET_B, 10))
+              (LENET_B, 10), (128, 1000))
 
 
 def check_xent(rows: list, dev) -> None:
     """Kernel 4 at the training paths' shapes ([4096, 256] float32 logits,
-    char_rnn's [1600, 64] and LeNet's [128, 10]), at a vocab of 50,257 (a block a row), at
+    char_rnn's [1600, 64], LeNet's [128, 10] and ResNet-50's [128, 1000]),
+    at a vocab of 50,257 (a block a row), at
     the widest and the narrowest row a warp takes besides, and with bfloat16
     logits; each bitwise the same from run to run. Its yardstick is
     ``F.cross_entropy`` with probability targets, forward and backward."""
@@ -543,6 +560,7 @@ def check_xent(rows: list, dev) -> None:
             (TRAIN_B * TRAIN_T, TRAIN_V, torch.float32, 1e-5, 1e-6),
             (RNN_B * RNN_CHUNK, RNN_V, torch.float32, 1e-5, 1e-6),
             (LENET_B, 10, torch.float32, 1e-5, 1e-6),
+            (128, 1000, torch.float32, 1e-5, 1e-6),
             (64, 50257, torch.float32, 1e-5, 1e-6),
             (64, 2048, torch.float32, 1e-5, 1e-6),
             (65, 2049, torch.float32, 1e-5, 1e-6),
@@ -1548,6 +1566,337 @@ def lenet(kernels) -> dict:
     return result
 
 
+#: the ResNet-50 phase: card against CPU at 64x64 (full depth and width,
+#: 1000 classes) for 3 steps at B = 8; then the JAX bench's shape
+#: (224x224x3, B = 128, bench.py:1795-1801): 2 warm-up, 10 timed and 1
+#: profiled step, evaluate on 256 images and a /v1/predict of 2 rows
+RES_CHECK_SIZE, RES_CHECK_B, RES_CHECK_STEPS = 64, 8, 3
+RES_SIZE, RES_B, RES_CLASSES = 224, 128, 1000
+RES_WARMUP, RES_TIMED, RES_EVAL, RES_SERVE_ROWS = 2, 10, 256, 2
+
+
+def resnet_flops(conf, batch: int) -> float:
+    """The float operations of one training step of a graph's convolutions
+    and dense output layer, from the layer shapes: 2 per multiply-add,
+    forward, input gradient (not for a layer fed by the network input) and
+    weight gradient."""
+    from deeplearning4j_tpu_torch.nn.conf.vertices import LayerVertex
+    types = dict(zip(conf.network_inputs, conf.input_types))
+    total = 0.0
+    for name in conf.topological_order:
+        v = conf.vertices[name]
+        itypes = [types[s] for s in conf.vertex_inputs[name]]
+        out = types[name] = v.output_type(itypes)
+        if not isinstance(v, LayerVertex):
+            continue
+        f = v.layer.fields
+        if v.layer.type == "Convolution":
+            kh, kw = f["kernel_size"]
+            fwd = 2.0 * out.height * out.width * out.channels * kh * kw \
+                * f["n_in"]
+        elif v.layer.type == "Output":
+            fwd = 2.0 * f["n_in"] * f["n_out"]
+        else:
+            continue
+        first = all(s in conf.network_inputs for s in conf.vertex_inputs[name])
+        total += fwd * (2 if first else 3)
+    return total * batch
+
+
+def _resnet_family(kernel: str, chain: list) -> str:
+    """A ResNet step's device kernel by family, from its name and the
+    names of the CPU ranges it was launched in (``chain``, innermost
+    first): ``sm_xent``, batch norm (``ops/batch_norm.py``'s autograd
+    function, forward and backward), the updater (its profiler range),
+    cuDNN's convolutions and their gradients, GEMMs, copies, and the other
+    elementwise, pooling and reduction kernels."""
+    from deeplearning4j_tpu_torch.nn.graph_network import UPDATER_LABEL
+    low = kernel.lower()
+    if "sm_xent" in low:
+        return "sm_xent"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any("BatchNormTrain" in c for c in chain):
+        return "batch norm"
+    if any(UPDATER_LABEL in c for c in chain):
+        return "updater"
+    if any("convolution" in c for c in chain) or any(
+            k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                               "implicit", "winograd", "fft")):
+        return "convolutions"
+    if "gemm" in low or "gemv" in low:
+        return "GEMM"
+    return "elementwise, pooling, reductions"
+
+
+def device_us_by_family(prof, family) -> dict:
+    """Device µs by family over a profile: each kernel is given to a family
+    by ``family(kernel name, chain of enclosing CPU range names)``; what the
+    events do not link to a launch is kept as ``unlinked``."""
+    out = {}
+    linked = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            fam = family(k.name, chain)
+            out[fam] = out.get(fam, 0.0) + float(k.duration)
+            linked += float(k.duration)
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        total += float(us or 0.0)
+    if total > linked:
+        out["unlinked"] = total - linked
+    return out
+
+
+def _res_batch(g, n: int, size: int, classes: int, device):
+    x = torch.randn(n, size, size, 3, generator=g)
+    y = F.one_hot(torch.randint(0, classes, (n,), generator=g),
+                  classes).float()
+    return x.to(device), y.to(device)
+
+
+def resnet(kernels) -> dict:
+    """The ResNet-50 path on ``ComputationGraph``: (a) the card against the
+    CPU from the same weights at 64x64, (b) step time, a profiled step by
+    kernel family and peak memory at 224x224, B = 128, (c) ``evaluate`` and
+    ``/v1/predict``, (d) ``sm_xent`` once a step."""
+    # (a) full depth and width at 64x64: init on the CPU, clone to the card.
+    # Two card copies: ``lock`` takes the CPU run's params, states and
+    # updater state before each step, so each step starts from the same
+    # point on both devices and is held to 1e-4; ``free`` trains on its
+    # own, and its distance to the CPU run is the drift, printed. (A free
+    # run cannot be held to 1e-4: at 0.1 and B = 8 the loss jumps from 7.7
+    # to some 56 and 84, a pre-activation within rounding of 0 takes the
+    # other side of a ReLU on one device, and the runs part; float32 and
+    # float64 runs of the same code on one CPU part the same way.)
+    ref = ComputationGraph(resnet50(n_classes=RES_CLASSES,
+                                    image_size=RES_CHECK_SIZE),
+                           device="cpu").init(seed=SEED)
+    lock, free = ref.clone(device="cuda"), ref.clone(device="cuda")
+    g = torch.Generator().manual_seed(SEED + 50)
+    batches = [_res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")
+               for _ in range(RES_CHECK_STEPS)]
+    xe = _res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")[0]
+    out0_err = float((lock.output(xe)[0].cpu() - ref.output(xe)[0])
+                     .abs().max())
+
+    def stats_rel(net):
+        """Worst relative difference (to the tensor's largest magnitude)
+        of the BN running statistics against the CPU run, and where."""
+        got = {f"{n}.{k}": float((net.state_list[n][k].cpu() - v).abs().max()
+                                 / v.abs().max().clamp_min(1e-30))
+               for n, st in ref.state_list.items() for k, v in st.items()}
+        worst = max(got, key=got.get)
+        return got[worst], worst
+
+    def param_diff(net):
+        return max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for n in ref.params_list
+                   for a, b in zip(net.params_list[n].values(),
+                                   ref.params_list[n].values()))
+
+    for fn in kernels:
+        fn.launches = 0
+    losses, free_losses, ref_losses, lock_stats, lock_params = [], [], [], \
+        [], []
+    for x, y in batches:
+        lock.load_params(convert.to_numpy(ref.params_list),
+                         convert.to_numpy(ref.state_list))
+        lock.load_updater_state(convert.to_numpy(ref.updater_state),
+                                ref.iteration)
+        lock.fit([x], [y])
+        free.fit([x], [y])
+        ref.fit([x], [y])
+        losses.append(lock.score_value)
+        free_losses.append(free.score_value)
+        ref_losses.append(ref.score_value)
+        lock_stats.append(stats_rel(lock))
+        lock_params.append(param_diff(lock))
+    check_launches = {fn.__name__: fn.launches for fn in kernels}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    free_rel = [abs(a - b) / abs(b) for a, b in zip(free_losses, ref_losses)]
+    lock.load_params(convert.to_numpy(ref.params_list),
+                     convert.to_numpy(ref.state_list))
+    out_err = float((lock.output(xe)[0].cpu() - ref.output(xe)[0])
+                    .abs().max())
+    worst_stat = max(lock_stats)
+    free_stat, free_param = stats_rel(free), param_diff(free)
+    print(f"resnet50 card vs CPU (64x64, B={RES_CHECK_B}, {RES_CHECK_STEPS} "
+          f"steps, each from the CPU run's state): card losses {losses}; CPU "
+          f"{ref_losses}; relative differences {rel} (tol 1e-4); eval "
+          f"output max_abs_err {out0_err:.3e} at init, {out_err:.3e} after "
+          f"(tol 1e-4); BN running stats after each step, worst relative "
+          f"difference {[f'{v:.3e} at {w}' for v, w in lock_stats]} (tol "
+          f"1e-4); params after each step apart by up to {lock_params}; "
+          f"launches {check_launches}", flush=True)
+    print(f"resnet50 drift of a free card run from the CPU run: losses "
+          f"{free_losses}, relative differences {free_rel}; after "
+          f"{RES_CHECK_STEPS} steps BN running stats worst relative "
+          f"difference {free_stat[0]:.3e} at {free_stat[1]}, params apart by "
+          f"up to {free_param:.3e}", flush=True)
+    if not all(np.isfinite(losses)) or not max(rel) <= 1e-4:
+        fail(f"ResNet-50 losses on the card {losses} disagree with the CPU "
+             f"run {ref_losses}")
+    if not max(out0_err, out_err) <= 1e-4:
+        fail(f"ResNet-50 output on the card disagrees with the CPU: "
+             f"{out0_err}, {out_err}")
+    if not worst_stat[0] <= 1e-4:
+        fail(f"ResNet-50 BN running statistics on the card disagree with the "
+             f"CPU: {worst_stat}")
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = 2 * RES_CHECK_STEPS
+    if check_launches != want:
+        fail(f"ResNet-50 launch counts {check_launches} != expected {want}")
+    check = {"check_losses": losses, "check_cpu_losses": ref_losses,
+             "check_rel_diffs": rel, "check_output_max_abs_err":
+             [out0_err, out_err], "check_bn_stats_worst_rel": lock_stats,
+             "check_param_diff_after_step": lock_params,
+             "check_launches": check_launches,
+             "drift_losses": free_losses, "drift_rel_diffs": free_rel,
+             "drift_bn_stats_worst_rel": free_stat,
+             "drift_params_max_abs": free_param}
+    del ref, lock, free
+
+    # (b) the bench's shape: the main path's launches, step time, a
+    # profiled step and peak memory
+    conf = resnet50()
+    flops = resnet_flops(conf, RES_B)
+    net = ComputationGraph(conf, device="cuda").init(seed=SEED)
+    x, y = _res_batch(torch.Generator().manual_seed(SEED + 51), RES_B,
+                      RES_SIZE, RES_CLASSES, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(RES_WARMUP):
+        net.fit([x], [y])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(RES_TIMED):
+        net.fit([x], [y])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / RES_TIMED
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    timed_loss = net.score_value
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = RES_WARMUP + RES_TIMED
+    if launches != want:
+        fail(f"ResNet-50 launch counts at B={RES_B} {launches} != {want}")
+    if not np.isfinite(timed_loss):
+        fail(f"ResNet-50 loss at B={RES_B} is not finite: {timed_loss}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit([x], [y])
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    by_family = device_us_by_family(prof, _resnet_family)
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            by_name[e.key] = by_name.get(e.key, 0.0) + float(us)
+    busy_us = sum(by_name.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the ResNet-50 step")
+
+    # (c) evaluate, and /v1/predict held to the card's own output
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    ge = torch.Generator().manual_seed(SEED + 52)
+    eval_sets = [DataSet(*(t.numpy() for t in _res_batch(
+        ge, RES_B, RES_SIZE, RES_CLASSES, "cpu")))
+        for _ in range(RES_EVAL // RES_B)]
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ev = net.evaluate(eval_sets)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = {fn.__name__: fn.launches for fn in kernels}
+    if ev.num_examples != RES_EVAL or any(eval_launches.values()):
+        fail(f"ResNet-50 evaluate saw {ev.num_examples} images, launches "
+             f"{eval_launches}")
+    rows = eval_sets[0].features[:RES_SERVE_ROWS]
+    srv = InferenceServer(device="cuda", max_batch=RES_SERVE_ROWS)
+    srv.start()
+    try:
+        srv.register("resnet50", net)
+        t0 = time.perf_counter()
+        status, body = post(srv.port, "/v1/predict",
+                            {"model": "resnet50", "inputs": rows.tolist()})
+        predict_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    if status != 200:
+        fail(f"ResNet-50 /v1/predict returned {status}: {body[:500]}")
+    pred = np.asarray(json.loads(body)["predictions"], np.float32)
+    own = net.output(rows)[0].cpu().numpy()
+    perr = float(np.abs(pred - own).max())
+    print(f"resnet50 evaluate on {ev.num_examples} images in {eval_s:.3f}s "
+          f"(accuracy {ev.accuracy():.4f}, random labels); /v1/predict "
+          f"[{RES_SERVE_ROWS}, {RES_SIZE}, {RES_SIZE}, 3] in {predict_s:.3f}s:"
+          f" max_abs_err {perr:.3e} against the card's output (tol 1e-4)",
+          flush=True)
+    if pred.shape != (RES_SERVE_ROWS, RES_CLASSES) or not perr <= 1e-4:
+        fail(f"ResNet-50 /v1/predict {pred.shape} disagrees with output: "
+             f"{perr}")
+
+    result = {
+        "card": CARD, **check, "launches": launches,
+        "eval_launches": eval_launches, "batch": RES_B,
+        "image_size": RES_SIZE, "warmup_s": warm_s, "step_ms": step_ms,
+        "samples_per_s": RES_B / (step_ms / 1e3), "timed_loss": timed_loss,
+        "profiled_step_ms": prof_ms, "device_us_total": busy_us,
+        "device_us_by_family": by_family,
+        "device_us_by_kernel": by_name,
+        "idle_share_unprofiled": 1.0 - busy_us / 1e3 / step_ms,
+        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms,
+        "step_tflop": flops / 1e12,
+        "f32_peak_share": flops / F32_OPS_PER_S / (step_ms / 1e3),
+        "f32_peak_share_of_device_time": flops / F32_OPS_PER_S
+        / (busy_us / 1e6),
+        "peak_memory_bytes": peak_bytes, "eval_s": eval_s,
+        "eval_accuracy": ev.accuracy(), "predict_s": predict_s,
+        "predict_max_abs_err": perr}
+    print(f"resnet50 step (224x224x3, B={RES_B}, float32, TF32 off): "
+          f"{step_ms:.3f} ms wall, {result['samples_per_s']:.1f} samples/s "
+          f"({RES_TIMED} timed steps after {RES_WARMUP} warm-up, "
+          f"{warm_s:.2f}s); profiled step {prof_ms:.3f} ms, device time "
+          f"{busy_us:.1f} us, idle share {result['idle_share_unprofiled']:.3f}"
+          f" of the unprofiled step ({result['idle_share_profiled']:.3f} "
+          f"profiled); {flops / 1e12:.4f} TFLOP a step, "
+          f"{100 * result['f32_peak_share']:.1f}% of the float32 peak "
+          f"(67 TFLOP/s) over the wall step, "
+          f"{100 * result['f32_peak_share_of_device_time']:.1f}% over the "
+          f"device time; peak memory {peak_bytes / 2**30:.2f} GiB; launches "
+          f"{launches} [{CARD}]", flush=True)
+    for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  resnet50 step device time {fam}: {us:.1f} us "
+              f"({100 * us / busy_us:.1f}%)", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"    {us:9.1f} us  {name[:110]}", flush=True)
+    return result
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1590,6 +1939,7 @@ def main() -> None:
     served_rnn = serve_lstm(kernels)
     trained_rnn = train_lstm(kernels)
     lenet_run = lenet(kernels)
+    resnet_run = resnet(kernels)
     measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
@@ -1601,6 +1951,7 @@ def main() -> None:
     wide2_shape = {"B": WIDE_B, "T": WIDE_T, "D": WIDE_WIDTH // WIDE2_HEADS}
     rnn_xent = {"N": RNN_B * RNN_CHUNK, "C": RNN_V, "dtype": "torch.float32"}
     lenet_xent = {"N": LENET_B, "C": 10, "dtype": "torch.float32"}
+    resnet_xent = {"N": RES_B, "C": RES_CLASSES, "dtype": "torch.float32"}
     main_shape = {"int8_matmul": {"M": 8, "K": 256, "N": 1024},
                   "paged_gather": {"cap": 8},
                   "flash_fwd": {"B": 2, "T": 512, "D": 64},
@@ -1678,7 +2029,8 @@ def main() -> None:
                    "rnn": trained_rnn["launches"][fname]
                    + served_rnn["decode_launches"][fname]
                    + served_rnn["stream_launches"][fname],
-                   "lenet": lenet_run["launches"][fname]}
+                   "lenet": lenet_run["launches"][fname],
+                   "resnet50": resnet_run["launches"][fname]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": by_path["train" if name in
@@ -1709,7 +2061,9 @@ def main() -> None:
                 "rnn": {"launches": by_path["rnn"],
                         **nums(row_at(name, rnn_xent))},
                 "lenet": {"launches": by_path["lenet"],
-                          **nums(row_at(name, lenet_xent))}}
+                          **nums(row_at(name, lenet_xent))},
+                "resnet50": {"launches": by_path["resnet50"],
+                             **nums(row_at(name, resnet_xent))}}
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1718,6 +2072,7 @@ def main() -> None:
                    "train_wide_d256": wide2, "flash_bwd_wide_edges": WIDE_EDGES,
                    "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "lenet": lenet_run,
+                   "resnet50": resnet_run,
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

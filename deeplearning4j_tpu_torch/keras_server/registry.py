@@ -5,14 +5,17 @@ maps ``name -> {version -> ModelVersion}``; each version pins a
 :class:`~deeplearning4j_tpu_torch.nn.inference.PredictFn` over a parameter
 snapshot, built before the active pointer moves, so a hot swap is a dict
 assignment under the lock and in-flight requests finish on the version they
-resolved. Models register from in-memory networks; loading files, drafts
-and warmup are not part of this port yet (ROADMAP.md).
+resolved. Models register from in-memory networks (a
+``MultiLayerNetwork``, or a ``ComputationGraph`` of one input and one
+output); loading files, drafts and warmup are not part of this port yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, Optional
 
+from ..nn.graph_network import ComputationGraph
 from ..nn.inference import PredictFn
 
 
@@ -26,8 +29,10 @@ class ModelVersion:
         self.predict_fn = predict_fn
         #: serving dtype policy of this version (None, or "int8")
         self.quant = predict_fn.quant
-        #: whether /v1/stream can serve it (the rnn_time_step seam)
-        self.streaming_capable = hasattr(net, "rnn_time_step")
+        #: whether /v1/stream can serve it (the rnn_time_step seam; not
+        #: ported for a ComputationGraph)
+        self.streaming_capable = (hasattr(net, "rnn_time_step")
+                                  and not isinstance(net, ComputationGraph))
 
     def describe(self) -> dict:
         return {"name": self.name, "version": self.version,

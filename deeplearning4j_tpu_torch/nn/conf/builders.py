@@ -56,7 +56,8 @@ class NeuralNetConfiguration:
 
 class Builder:
     """The global settings: a setter for every ``GlobalConf`` field
-    (``.seed(1).learning_rate(0.1)...``), then ``list()``."""
+    (``.seed(1).learning_rate(0.1)...``), then ``list()`` or
+    ``graph_builder()``."""
 
     def __init__(self):
         self._g = GlobalConf()
@@ -79,9 +80,10 @@ class Builder:
         return ListBuilder(self._g)
 
     def graph_builder(self):
-        raise NotImplementedError(
-            "ComputationGraph configurations are not ported yet (ROADMAP.md "
-            "A2, ResNet-50 training)")
+        """A ``GraphBuilder`` over these global settings (``graphconf.py``);
+        its ``add_layer`` bakes them into each layer."""
+        from .graphconf import GraphBuilder
+        return GraphBuilder(self._g)
 
     def global_conf(self) -> GlobalConf:
         return self._g

@@ -9,12 +9,14 @@ from .convolutional import (
 from .feedforward import (
     ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer, LossLayer,
     OutputLayer)
+from .normalization import BatchNormalization, LocalResponseNormalization
 from .recurrent import (
     LSTM, GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer, streaming_lstm)
 
-__all__ = ["ActivationLayer", "ConvolutionLayer", "DenseLayer",
-           "DropoutLayer", "EmbeddingLayer", "FeedForwardLayer",
+__all__ = ["ActivationLayer", "BatchNormalization", "ConvolutionLayer",
+           "DenseLayer", "DropoutLayer", "EmbeddingLayer", "FeedForwardLayer",
            "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM",
-           "LSTM", "Layer", "LossLayer", "OutputLayer", "RnnOutputLayer",
-           "SubsamplingLayer", "TransformerBlock", "Upsampling2D",
-           "ZeroPaddingLayer", "attend", "streaming_lstm"]
+           "LSTM", "Layer", "LocalResponseNormalization", "LossLayer",
+           "OutputLayer", "RnnOutputLayer", "SubsamplingLayer",
+           "TransformerBlock", "Upsampling2D", "ZeroPaddingLayer", "attend",
+           "streaming_lstm"]

@@ -14,6 +14,14 @@ forward over an explicit param dict (the module's own parameters when
 training, a pinned snapshot when serving); ``forward(x)`` runs it over the
 module's own parameters.
 
+A layer with running state (batch norm's mean and var) declares it in
+:meth:`Layer.init_state` and keeps it as buffers under the JAX state names.
+:meth:`Layer.apply_with_state` is the forward over explicit params and state
+that returns ``(out, new_state)``, as the JAX ``apply(params, state, x, ...)``
+does: the new state comes out of the forward and is written by the network
+after the step, never in place inside the forward (a checkpointed layer runs
+its forward twice).
+
 Dropout follows DL4J: ``dropout`` is the *retain* probability, and kept
 values are divided by it (inverted dropout). It applies only in training
 and only when a ``torch.Generator`` is given.
@@ -100,9 +108,25 @@ class Layer(nn.Module):
         for name, shape in self.param_shapes().items():
             self.register_parameter(name, nn.Parameter(
                 torch.zeros(shape, device=device)))
+        for name, value in self.init_state().items():
+            self.register_buffer(name, value.to(device))
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         return {}
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """The layer's running state at init, by JAX name (CPU tensors);
+        empty for a layer without state."""
+        return {}
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The layer's running state (its buffers) by JAX name."""
+        return dict(self.named_buffers(recurse=False))
+
+    @torch.no_grad()
+    def reset_state(self) -> None:
+        for name, value in self.init_state().items():
+            getattr(self, name).copy_(value)
 
     def regularizable_params(self) -> Sequence[str]:
         """Param names subject to l1/l2 (weights, not biases)."""
@@ -149,9 +173,17 @@ class Layer(nn.Module):
               gen: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    def apply_with_state(self, params: dict, state: dict, x: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         train: bool = False,
+                         gen: Optional[torch.Generator] = None):
+        """``(out, new_state)``: the forward over explicit params and state.
+        A layer without state hands its state back unchanged."""
+        return self.apply(params, x, mask, train, gen), state
+
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.apply(self.params(), x, mask)
+        return self.apply_with_state(self.params(), self.state(), x, mask)[0]
 
 
 class FeedForwardLayer(Layer):

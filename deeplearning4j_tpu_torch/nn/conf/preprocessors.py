@@ -152,10 +152,13 @@ def infer_preprocessor(prev: InputType, layer_cls: type
     from .layers.base import FeedForwardLayer
     from .layers.convolutional import (
         ConvolutionLayer, SubsamplingLayer, Upsampling2D, ZeroPaddingLayer)
+    from .layers.normalization import (
+        BatchNormalization, LocalResponseNormalization)
     from .layers.recurrent import LSTM, RnnOutputLayer
 
     if issubclass(layer_cls, (ConvolutionLayer, SubsamplingLayer,
-                              Upsampling2D, ZeroPaddingLayer)):
+                              Upsampling2D, ZeroPaddingLayer,
+                              LocalResponseNormalization)):
         if prev.kind == "convolutionalflat":
             return FeedForwardToCnnPreProcessor(prev.height, prev.width,
                                                 prev.channels)
@@ -164,6 +167,8 @@ def infer_preprocessor(prev: InputType, layer_cls: type
         if prev.kind == "convolutional":
             return CnnToRnnPreProcessor()
         return None
+    if issubclass(layer_cls, BatchNormalization):
+        return None  # takes images and features alike
     if issubclass(layer_cls, FeedForwardLayer) \
             and prev.kind == "convolutional":
         return CnnToFeedForwardPreProcessor(prev.height, prev.width,

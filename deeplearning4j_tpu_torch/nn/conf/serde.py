@@ -16,7 +16,7 @@ LAYER_TYPES: Dict[str, type] = {}
 #: (queued in ROADMAP.md)
 NOT_YET_PORTED = (
     "AutoEncoder", "RBM", "VariationalAutoencoder", "SelfAttention", "MoE",
-    "MoETransformerBlock", "BatchNormalization", "LocalResponseNormalization")
+    "MoETransformerBlock")
 
 
 def register_layer(name: str):

@@ -1,0 +1,647 @@
+"""``ComputationGraph``: a DAG of vertices, run forward and trained.
+
+Counterpart of ``deeplearning4j_tpu/nn/graph_network.py``: ``MultiDataSet``,
+the pure functions (``graph_forward``, ``graph_loss``,
+``_apply_graph_updates``, ``make_graph_train_step``) and the stateful shell
+(``init``, ``output`` as a list, ``score``, ``fit`` on a ``DataSet``, a
+``MultiDataSet``, input and label lists or an iterable, ``fit_iterator``,
+``evaluate``, the flat ``params``/``set_params``/``num_params`` view,
+``score_examples``, ``gradient_and_score``, ``clone``).
+
+The forward walks the vertices in the configuration's topological order.
+Masks are routed per input stream: a vertex takes the first mask among its
+inputs'. A layer vertex runs its layer module's ``apply_with_state``; a
+training forward returns the new layer states and the step writes them
+after the update. The train loss is the sum of the output layers' losses
+on their inputs (the output layers' own forward is not needed for it), plus
+regularization. As in ``MultiLayerNetwork``, the step is eager:
+``torch.autograd.grad`` gives the gradients and the updater subtracts each
+step from its parameter in place, vertex by vertex in topological order,
+inside a ``torch.profiler.record_function`` range (``UPDATER_LABEL``) that
+names its kernels in a profile.
+
+The params, states and updater state are dicts by vertex name (``{}`` for
+a vertex without params), as in the JAX package; the flat view follows the
+JAX pytree order: vertex names sorted, then param names sorted.
+
+Not ported yet, and each raises ``NotImplementedError`` (ROADMAP.md):
+truncated BPTT and ``rnn_time_step`` on a graph, layerwise pretraining, the
+``Solver`` algorithms other than SGD, and the K-step fused dispatch
+(``fit_iterator(ksteps=k > 1)``; ``fit(epochs=k)`` runs single steps).
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..common import resolve_device
+from .conf.graphconf import ComputationGraphConfiguration
+from .conf.layers.recurrent import LSTM
+from .conf.serde import layer_class
+from .conf.vertices import LayerVertex
+from .multilayer import (
+    _SEED_RANGE, _dropout_gen, _layer_seeds, _numpy, _rewound, _updater_spec,
+    load_states, update_layer, write_states)
+from .updaters import updater_init
+
+
+#: the profiler range around the updater's kernels in a train step
+UPDATER_LABEL = "dl4j::updater"
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Several inputs and several outputs: lists of arrays, one per network
+    input and per network output, with optional mask lists."""
+
+    features: list
+    labels: list
+    features_masks: Optional[list] = None
+    labels_masks: Optional[list] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+
+def _coerce_graph_batch(ds):
+    """A ``DataSet`` or ``MultiDataSet`` as ``(xs, ys, fmasks, lmasks)``
+    lists."""
+    if isinstance(ds, MultiDataSet):
+        return ds.features, ds.labels, ds.features_masks, ds.labels_masks
+    fm = [ds.features_mask] if ds.features_mask is not None else None
+    lm = [ds.labels_mask] if ds.labels_mask is not None else None
+    return [ds.features], [ds.labels], fm, lm
+
+
+def _graph_regularization(net, params) -> torch.Tensor:
+    """``l1 * |W|_1 + 0.5 * l2 * ||W||^2`` over the layer vertices'
+    regularizable params, only when the config sets
+    ``use_regularization``."""
+    total = torch.zeros((), dtype=torch.float32, device=net.device)
+    if not net.conf.global_conf.use_regularization:
+        return total
+    for name, layer in net.vertex_layers.items():
+        for pname in layer.regularizable_params():
+            if pname not in params.get(name, {}):
+                continue
+            w = params[name][pname]
+            if layer.l1:
+                total = total + layer.l1 * w.abs().sum()
+            if layer.l2:
+                total = total + 0.5 * layer.l2 * (w * w).sum()
+    return total
+
+
+def graph_forward(net, params: dict, states: dict, inputs: list, *,
+                  train: bool, rng: Optional[int] = None,
+                  masks: Optional[list] = None,
+                  collect_loss_inputs: bool = False):
+    """Walk the DAG in topological order. Returns ``(acts, new_states,
+    loss_inputs)``: every vertex's activation by name, every vertex's new
+    state, and, with ``collect_loss_inputs``, each loss-bearing output
+    layer's input (its loss is computed on it; such a layer's own forward
+    runs only when another vertex reads its output).
+
+    With ``gradient_checkpointing`` set, a training forward runs each layer
+    vertex under ``torch.utils.checkpoint``; the state comes out of the
+    first forward only."""
+    conf = net.conf
+    acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
+    mask_of: Dict[str, Optional[torch.Tensor]] = dict.fromkeys(
+        conf.network_inputs)
+    for i, name in enumerate(conf.network_inputs[:len(masks or [])]):
+        mask_of[name] = masks[i]
+    new_states: Dict[str, dict] = {}
+    loss_inputs: Dict[str, torch.Tensor] = {}
+    order = net.order
+    seeds = _layer_seeds(len(order), rng)
+    remat = train and conf.global_conf.gradient_checkpointing
+    for i, name in enumerate(order):
+        vertex = conf.vertices[name]
+        srcs = conf.vertex_inputs[name]
+        vins = [acts[src] for src in srcs]
+        mask = next((mask_of[s] for s in srcs if mask_of.get(s) is not None),
+                    None)
+        mask_of[name] = mask
+        state = states.get(name, {})
+        layer = net.vertex_layers.get(name)
+        if collect_loss_inputs and name in net.loss_outputs:
+            loss_inputs[name] = vins[0]
+            new_states[name] = state
+            if name not in net.consumed:
+                continue
+        if layer is None:
+            acts[name], new_states[name] = vertex.apply(vins, mask), state
+            continue
+        if remat:
+            def f(p, s, h, _layer=layer, _mask=mask, _gen_seed=seeds[i]):
+                return _layer.apply_with_state(
+                    p, s, h, _mask, True,
+                    _dropout_gen(_layer, _gen_seed, h.device))
+            y, ns = checkpoint(f, params.get(name, {}), state, vins[0],
+                               use_reentrant=False, preserve_rng_state=False)
+        else:
+            y, ns = layer.apply_with_state(
+                params.get(name, {}), state, vins[0], mask, train,
+                _dropout_gen(layer, seeds[i], vins[0].device))
+        acts[name] = y
+        new_states[name] = ns
+    return acts, new_states, loss_inputs
+
+
+def _output_losses(net, params, loss_inputs, labels, lmasks=None):
+    """The sum of the output layers' losses."""
+    total = torch.zeros((), dtype=torch.float32, device=net.device)
+    for i, out_name in enumerate(net.conf.network_outputs):
+        if out_name not in net.loss_outputs:
+            raise ValueError(f"Output vertex '{out_name}' has no loss function")
+        lmask = lmasks[i] if lmasks and i < len(lmasks) else None
+        total = total + net.vertex_layers[out_name].compute_loss(
+            params[out_name], loss_inputs[out_name], labels[i], lmask)
+    return total
+
+
+def graph_loss(net, params, states, inputs, labels, rng=None, fmasks=None,
+               lmasks=None):
+    """Training loss: the output layers' losses of a train-mode forward,
+    plus regularization. Returns ``(loss, new_states)``."""
+    _, new_states, loss_inputs = graph_forward(
+        net, params, states, inputs, train=True, rng=rng, masks=fmasks,
+        collect_loss_inputs=True)
+    total = _output_losses(net, params, loss_inputs, labels, lmasks)
+    return total + _graph_regularization(net, params), new_states
+
+
+def _graph_grads(loss, params) -> Dict[str, dict]:
+    """``d loss / d param`` by vertex and param name (zeros for a param the
+    loss does not reach), in each param's dtype."""
+    keys = [(n, k) for n, p in params.items() for k in p]
+    flat = [params[n][k] for n, k in keys]
+    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads: Dict[str, dict] = {n: {} for n in params}
+    for (n, k), p, g in zip(keys, flat, got):
+        grads[n][k] = torch.zeros_like(p) if g is None else g.to(p.dtype)
+    return grads
+
+
+def _apply_graph_updates(net, params, loss, upd_state, iteration) -> dict:
+    """Gradients of ``loss``, then each layer vertex's update (gradient
+    normalization, learning-rate policy, bias rate, updater) in topological
+    order, in place. Returns the new updater state."""
+    g = net.conf.global_conf
+    grads = _graph_grads(loss, params)
+    new_upd = {}
+    # the label names the updater's kernels in a profile
+    with torch.no_grad(), torch.profiler.record_function(UPDATER_LABEL):
+        for name in net.order:
+            layer = net.vertex_layers.get(name)
+            if layer is None or not grads.get(name):
+                new_upd[name] = upd_state.get(name, {})
+                continue
+            new_upd[name] = update_layer(g, layer, params[name], grads[name],
+                                         upd_state[name], iteration)
+    return new_upd
+
+
+def make_graph_train_step(net):
+    """The train step as a plain function: ``(params, states, upd_state,
+    inputs, labels, rng, iteration, fmasks, lmasks) -> (states', upd_state',
+    loss)``; the params are updated in place, the new states returned."""
+
+    def train_step(params, states, upd_state, inputs, labels, rng, iteration,
+                   fmasks=None, lmasks=None):
+        loss, new_states = graph_loss(net, params, states, inputs, labels, rng,
+                                      fmasks, lmasks)
+        new_upd = _apply_graph_updates(net, params, loss, upd_state, iteration)
+        return new_states, new_upd, loss.detach()
+
+    return train_step
+
+
+class ComputationGraph(nn.Module):
+    """The vertices of ``conf`` on ``device`` (``None`` means CUDA)."""
+
+    def __init__(self, conf: ComputationGraphConfiguration, device=None):
+        super().__init__()
+        if conf.global_conf.dtype not in (None, "float32"):
+            raise ValueError(f"config dtype {conf.global_conf.dtype!r} is not "
+                             "supported by this port yet (ROADMAP.md)")
+        self.conf = conf
+        self.device = resolve_device(device)
+        if not conf.topological_order:
+            conf.topological_order = conf.topo_sort()
+        self.order: List[str] = list(conf.topological_order)
+        #: the layer module of each layer vertex, by vertex name
+        self.vertex_layers: Dict[str, nn.Module] = {
+            name: layer_class(v.layer.type)(v.layer, self.device)
+            for name in self.order
+            for v in [conf.vertices[name]] if isinstance(v, LayerVertex)}
+        self._modules_in_order = nn.ModuleList(self.vertex_layers.values())
+        #: output vertices whose loss the training forward computes, and the
+        #: vertices another vertex reads
+        self.loss_outputs = {n for n in conf.network_outputs
+                             if n in self.vertex_layers
+                             and self.vertex_layers[n].has_loss()}
+        self.consumed = {s for ins in conf.vertex_inputs.values() for s in ins}
+        self._initialized = False
+        self.updater_state: Optional[dict] = None
+        self.iteration = 0
+        self.epoch = 0
+        self.listeners: list = []
+        self.last_batch_size = 0
+        self._score = float("nan")
+        self._rng = torch.Generator(device="cpu")
+        self._train_step = None
+
+    # ------------------------------------------------------------------ lifecycle
+    def init(self, seed: Optional[int] = None) -> "ComputationGraph":
+        """Draw every parameter, vertex by vertex in topological order, from
+        one CPU ``torch.Generator`` seeded with ``seed`` (default: the
+        config's), reset the layer states and zero the updater state. The
+        JAX package's RNG differs: weights cross through
+        ``convert.from_jax`` only."""
+        seed = self.conf.global_conf.seed if seed is None else seed
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        for layer in self.vertex_layers.values():
+            layer.init_params(gen)
+            layer.reset_state()
+        self._rng.manual_seed((int(seed) * 0x9E3779B1 + 0xC6) % _SEED_RANGE)
+        self._init_updater_state()
+        self._initialized = True
+        return self
+
+    def _init_updater_state(self) -> None:
+        self.updater_state = {
+            name: ({pname: updater_init(_updater_spec(layer), p)
+                    for pname, p in layer.params().items()}
+                   if layer is not None else {})
+            for name in self.order
+            for layer in [self.vertex_layers.get(name)]}
+
+    def _check_names(self, given: dict, what: str) -> None:
+        if set(given) - set(self.order):
+            raise ValueError(f"{what} for unknown vertices "
+                             f"{sorted(set(given) - set(self.order))}")
+
+    @torch.no_grad()
+    def load_params(self, params: dict,
+                    states: Optional[dict] = None) -> "ComputationGraph":
+        """Copy params given by vertex name and JAX param name (numpy arrays
+        or tensors), and with ``states`` the layers' running states the same
+        way; names and shapes must match exactly. The updater state is
+        zeroed unless one was loaded already."""
+        self._check_names(params, "params")
+        for name in self.order:
+            layer = self.vertex_layers.get(name)
+            own = {} if layer is None else layer.params()
+            given = params.get(name, {})
+            if set(given) != set(own):
+                raise ValueError(f"vertex {name!r} params {sorted(given)} != "
+                                 f"expected {sorted(own)}")
+            for k, value in given.items():
+                t = torch.as_tensor(np.array(value, dtype=np.float32))
+                if tuple(t.shape) != tuple(own[k].shape):
+                    raise ValueError(f"vertex {name!r} param {k}: shape "
+                                     f"{tuple(t.shape)} != "
+                                     f"{tuple(own[k].shape)}")
+                own[k].copy_(t)
+        if states is not None:
+            self.load_state(states)
+        if self.updater_state is None:
+            self._init_updater_state()
+        self._initialized = True
+        return self
+
+    def load_state(self, states: dict) -> "ComputationGraph":
+        """Copy the layer vertices' running states (as the JAX
+        ``net.state_list`` holds them, by vertex name)."""
+        self._check_names(states, "states")
+        names = list(self.vertex_layers)
+        load_states(list(self.vertex_layers.values()),
+                    [states.get(n, {}) for n in names], names)
+        return self
+
+    @torch.no_grad()
+    def load_updater_state(self, state: dict,
+                           iteration: int = 0) -> "ComputationGraph":
+        """Set the updater state (by vertex, param and state name, as the
+        JAX ``net.updater_state``) and the iteration."""
+        if self.updater_state is None:
+            self._init_updater_state()
+        self._check_names(state, "updater state")
+        new = {}
+        for name, own in self.updater_state.items():
+            given = state.get(name, {})
+            if set(own) != set(given):
+                raise ValueError(f"vertex {name!r} updater state params "
+                                 f"{sorted(given)} != {sorted(own)}")
+            new[name] = {}
+            for pname, slots in own.items():
+                if set(slots) != set(given[pname]):
+                    raise ValueError(
+                        f"vertex {name!r} param {pname}: updater state "
+                        f"{sorted(given[pname])} != {sorted(slots)}")
+                new[name][pname] = {
+                    k: torch.as_tensor(np.array(given[pname][k],
+                                                dtype=np.float32)
+                                       ).to(self.device) for k in slots}
+        self.updater_state = new
+        self.iteration = int(iteration)
+        return self
+
+    def _require_init(self) -> None:
+        if not self._initialized:
+            raise RuntimeError("network is not initialized: call init() or "
+                               "load_params() first")
+
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    # ------------------------------------------------------------------ params API
+    @property
+    def params_list(self) -> Dict[str, dict]:
+        """Each vertex's params by JAX name (``{}`` for a vertex without
+        params), in topological order."""
+        return {n: (self.vertex_layers[n].params() if n in self.vertex_layers
+                    else {}) for n in self.order}
+
+    @property
+    def state_list(self) -> Dict[str, dict]:
+        """Each vertex's running state by JAX name (its layer's buffers)."""
+        return {n: (self.vertex_layers[n].state() if n in self.vertex_layers
+                    else {}) for n in self.order}
+
+    def _flat_order(self) -> list:
+        """The params in the JAX pytree order: vertex names sorted, then
+        param names sorted."""
+        pl = self.params_list
+        return [pl[n][k] for n in sorted(pl) for k in sorted(pl[n])]
+
+    def params(self) -> torch.Tensor:
+        """All parameters as one flat vector, the JAX ``params()`` order."""
+        leaves = self._flat_order()
+        if not leaves:
+            return torch.zeros(0, device=self.device)
+        return torch.cat([t.detach().reshape(-1) for t in leaves])
+
+    @torch.no_grad()
+    def set_params(self, flat) -> None:
+        """Copy a flat vector (as :meth:`params` gives it) into the params."""
+        flat = self._to_device(flat).reshape(-1)
+        if flat.numel() != self.num_params():
+            raise ValueError(f"{flat.numel()} values for {self.num_params()} "
+                             "params")
+        at = 0
+        for t in self._flat_order():
+            t.copy_(flat[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+
+    def num_params(self) -> int:
+        return sum(t.numel() for t in self._flat_order())
+
+    # ------------------------------------------------------------------ inference
+    def _to_device(self, a) -> Optional[torch.Tensor]:
+        """A tensor on this network's device; float64 host data becomes
+        float32, as JAX makes it by default."""
+        if a is None:
+            return None
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.array(a))
+            if a.dtype == torch.float64:
+                a = a.to(torch.float32)
+        return a.to(self.device)
+
+    def _to_devices(self, arrays) -> Optional[list]:
+        if arrays is None:
+            return None
+        return [self._to_device(a) for a in arrays]
+
+    def _output_pure(self, params, states, xs: list,
+                     masks: Optional[list] = None) -> list:
+        """The eval-mode forward: the network outputs, in order."""
+        acts, _, _ = graph_forward(self, params, states, xs, train=False,
+                                   masks=masks)
+        return [acts[o] for o in self.conf.network_outputs]
+
+    @torch.no_grad()
+    def output(self, *inputs) -> List[torch.Tensor]:
+        """The network outputs (a list, one per output vertex) for one array
+        per network input, on this network's device."""
+        self._require_init()
+        return self._output_pure(self.params_list, self.state_list,
+                                 self._to_devices(inputs))
+
+    @torch.no_grad()
+    def score(self, data) -> float:
+        """Loss (with regularization) on a ``MultiDataSet`` or
+        ``DataSet``: the eval-mode forward (running batch-norm statistics,
+        no dropout), masks not applied, as in the JAX package."""
+        self._require_init()
+        xs, ys, _, _ = _coerce_graph_batch(data)
+        params = self.params_list
+        _, _, loss_inputs = graph_forward(
+            self, params, self.state_list, self._to_devices(xs), train=False,
+            collect_loss_inputs=True)
+        total = _output_losses(self, params, loss_inputs, self._to_devices(ys))
+        return float(total + _graph_regularization(self, params))
+
+    @torch.no_grad()
+    def score_examples(self, data, add_regularization: bool = False
+                       ) -> np.ndarray:
+        """Each example's loss, summed over the outputs, unreduced (``[B]``
+        numpy): the loss of the one-example batch. Feature masks route
+        through the forward, label masks weight each example's own loss."""
+        self._require_init()
+        xs, ys, fms, lms = _coerce_graph_batch(data)
+        params = self.params_list
+        _, _, loss_inputs = graph_forward(
+            self, params, self.state_list, self._to_devices(xs), train=False,
+            masks=self._to_devices(fms), collect_loss_inputs=True)
+        ys, lms = self._to_devices(ys), self._to_devices(lms)
+        total = None
+        for i, out_name in enumerate(self.conf.network_outputs):
+            if out_name not in self.loss_outputs:
+                raise ValueError(
+                    f"Output vertex '{out_name}' has no loss function")
+            layer, h = self.vertex_layers[out_name], loss_inputs[out_name]
+            lm = lms[i] if lms and i < len(lms) else None
+            per = torch.stack([
+                layer.compute_loss(params[out_name], h[j:j + 1], ys[i][j:j + 1],
+                                   None if lm is None else lm[j:j + 1])
+                for j in range(h.shape[0])])
+            total = per if total is None else total + per
+        if add_regularization:
+            total = total + _graph_regularization(self, params)
+        return total.cpu().numpy()
+
+    def gradient_and_score(self, xs, ys):
+        """``(grads, score)`` without an update: the training loss's
+        gradients by vertex and param name, without dropout (batch norm
+        normalizes with the batch's statistics; its state is not
+        written)."""
+        self._require_init()
+        params = self.params_list
+        loss, _ = graph_loss(self, params, self.state_list,
+                             self._to_devices(list(xs)),
+                             self._to_devices(list(ys)))
+        return _graph_grads(loss, params), float(loss.detach())
+
+    # ------------------------------------------------------------------ evaluation
+    def evaluate(self, iterator, labels_list=None, top_n: int = 1):
+        """Classification scores of the outputs over an iterable of
+        ``DataSet``\\ s or ``MultiDataSet``\\ s, label masks per output
+        stream; outputs whose class count differs from the first label
+        array's are left out, as in the JAX package."""
+        from ..eval.evaluation import Evaluation
+
+        ev = Evaluation(labels=labels_list, top_n=top_n)
+        for ds in _rewound(iterator):
+            feats, labels, fmasks, lmasks = _coerce_graph_batch(ds)
+            with torch.no_grad():
+                outs = self._output_pure(self.params_list, self.state_list,
+                                         self._to_devices(feats),
+                                         self._to_devices(fmasks))
+            n_cls = np.asarray(_numpy(labels[0])).shape[-1]
+            for i, out in enumerate(outs[:len(labels)]):
+                lab = _numpy(labels[i])
+                if lab.shape[-1] != n_cls:
+                    continue
+                lm = (_numpy(lmasks[i]) if lmasks and i < len(lmasks)
+                      and lmasks[i] is not None else None)
+                ev.eval(lab, _numpy(out), mask=lm)
+        return ev
+
+    # ------------------------------------------------------------------ training
+    @property
+    def score_value(self) -> float:
+        """The last step's loss; read from the device only when asked for."""
+        if isinstance(self._score, torch.Tensor):
+            self._score = float(self._score)
+        return self._score
+
+    @score_value.setter
+    def score_value(self, value) -> None:
+        self._score = value
+
+    def _next_rng(self) -> int:
+        return int(torch.randint(0, _SEED_RANGE, (1,), generator=self._rng))
+
+    def _check_trainable(self) -> None:
+        """Raise for the training settings this port cannot run yet."""
+        g = self.conf.global_conf
+        if g.optimization_algo not in (None, "stochastic_gradient_descent"):
+            raise _not_ported(
+                f"optimization_algo={g.optimization_algo!r} on a graph (the "
+                "Solver algorithms)")
+        if self.conf.pretrain:
+            raise _not_ported("pretrain=True: layerwise pretraining")
+        if self.conf.backprop_type == "TruncatedBPTT" and any(
+                isinstance(l, LSTM) for l in self.vertex_layers.values()):
+            raise _not_ported("truncated BPTT on a ComputationGraph")
+
+    def fit(self, data, labels=None, *, epochs: int = 1) -> None:
+        """Fit on a ``MultiDataSet`` or ``DataSet``, on lists of inputs and
+        labels (or one array each), or on an iterable of batches;
+        ``epochs`` repeats of one batch run as single steps."""
+        from ..datasets.dataset import DataSet
+
+        if isinstance(data, (MultiDataSet, DataSet)):
+            xs, ys, fm, lm = _coerce_graph_batch(data)
+            for _ in range(epochs):
+                self._fit_batch(xs, ys, fm, lm)
+            return
+        if labels is not None:
+            xs = list(data) if isinstance(data, (list, tuple)) else [data]
+            ys = list(labels) if isinstance(labels, (list, tuple)) else [labels]
+            for _ in range(epochs):
+                self._fit_batch(xs, ys)
+            return
+        self.fit_iterator(data, epochs=epochs)
+
+    def fit_iterator(self, iterator, epochs: int = 1,
+                     ksteps: Optional[int] = None) -> None:
+        """Fit from an iterable of ``DataSet``\\ s or ``MultiDataSet``\\ s,
+        one step a batch, for ``epochs`` passes (an iterator with
+        ``reset()`` is reset first). ``ksteps > 1`` (the JAX package's fused
+        K-step dispatch) is not ported."""
+        if ksteps is not None and ksteps > 1:
+            raise _not_ported("the K-step fused dispatch (ksteps > 1)")
+        self._check_trainable()
+        for _ in range(epochs):
+            for listener in self.listeners:
+                if hasattr(listener, "on_epoch_start"):
+                    listener.on_epoch_start(self)
+            for ds in _rewound(iterator):
+                self._fit_batch(*_coerce_graph_batch(ds))
+            for listener in self.listeners:
+                if hasattr(listener, "on_epoch_end"):
+                    listener.on_epoch_end(self)
+            self.epoch += 1
+
+    def _fit_batch(self, xs, ys, fmasks=None, lmasks=None) -> None:
+        self._require_init()
+        self._check_trainable()
+        xs, ys = self._to_devices(xs), self._to_devices(ys)
+        fmasks, lmasks = self._to_devices(fmasks), self._to_devices(lmasks)
+        self.last_batch_size = int(xs[0].shape[0]) if xs and xs[0].ndim else 0
+        if self._train_step is None:
+            self._train_step = make_graph_train_step(self)
+        for _ in range(max(1, self.conf.global_conf.iterations)):
+            new_states, self.updater_state, loss = self._train_step(
+                self.params_list, self.state_list, self.updater_state, xs, ys,
+                self._next_rng(), self.iteration, fmasks, lmasks)
+            write_states(self.vertex_layers.values(),
+                         [new_states[n] for n in self.vertex_layers])
+            self.score_value = loss  # a device scalar, read lazily
+            self.iteration += 1
+            for listener in self.listeners:
+                listener.iteration_done(self, self.iteration)
+
+    # ------------------------------------------------------------------ not ported
+    def pretrain(self, iterator) -> None:
+        raise _not_ported("layerwise pretraining on a graph")
+
+    def pretrain_layer(self, name: str, iterator) -> None:
+        raise _not_ported("layerwise pretraining on a graph")
+
+    def rnn_time_step(self, *inputs) -> list:
+        raise _not_ported("rnn_time_step on a ComputationGraph")
+
+    # ------------------------------------------------------------------ copies
+    def clone(self, device=None) -> "ComputationGraph":
+        """A network on ``device`` (default: this network's) with copies
+        (never aliases) of the params, the layer states, the updater state,
+        the counters and the RNG state."""
+        dev = self.device if device is None else device
+        net = ComputationGraph(copy.deepcopy(self.conf), device=dev)
+        with torch.no_grad():
+            for name, layer in self.vertex_layers.items():
+                theirs = net.vertex_layers[name]
+                for own, other in ((layer.params(), theirs.params()),
+                                   (layer.state(), theirs.state())):
+                    for k, v in own.items():
+                        other[k].copy_(v)
+        net._initialized = self._initialized
+        if self.updater_state is not None:
+            net.updater_state = {
+                n: {p: {k: v.to(net.device, copy=True)
+                        for k, v in slots.items()}
+                    for p, slots in vs.items()}
+                for n, vs in self.updater_state.items()}
+        net.iteration = self.iteration
+        net.epoch = self.epoch
+        net._rng.set_state(self._rng.get_state())
+        return net

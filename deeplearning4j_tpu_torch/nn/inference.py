@@ -1,8 +1,10 @@
 """Snapshot-pinned inference: the serving seam.
 
 Counterpart of ``deeplearning4j_tpu/nn/inference.py``. :class:`PredictFn`
-pins a copy of a network's parameters on its device, so serving never sees
-a later change to the source network and the source never sees serving.
+pins a copy of a network's parameters and layer states on its device, so
+serving never sees a later change to the source network and the source
+never sees serving. It serves a ``MultiLayerNetwork`` or a
+``ComputationGraph`` of one input and one output.
 With ``quant="int8"`` the pinned copy holds int8 codes and per-channel
 scales (``ops/quant.py``) and is dequantized on every call, as the JAX
 package does inside its compiled program (``inference.py:60``): the weights
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..common import resolve_device
+from .graph_network import ComputationGraph
 from ..ops.quant import dequantize_tree, quantize_tree, tree_param_bytes
 
 #: serving dtype policies: None serves the snapshot at the network's policy
@@ -24,10 +27,15 @@ from ..ops.quant import dequantize_tree, quantize_tree, tree_param_bytes
 QUANT_MODES = (None, "int8")
 
 
-def copy_params(params_list, device: torch.device):
-    """Real copies of a list of param dicts on ``device``."""
-    return [{k: v.detach().clone().to(device) for k, v in p.items()}
-            for p in params_list]
+def copy_params(tree, device: torch.device):
+    """Real copies on ``device`` of a list of param dicts (a
+    ``MultiLayerNetwork``'s, by layer) or a dict of them (a
+    ``ComputationGraph``'s, by vertex)."""
+    def copy_dict(p):
+        return {k: v.detach().clone().to(device) for k, v in p.items()}
+    if isinstance(tree, dict):
+        return {n: copy_dict(p) for n, p in tree.items()}
+    return [copy_dict(p) for p in tree]
 
 
 def to_device_tensor(x, device: torch.device) -> torch.Tensor:
@@ -49,8 +57,16 @@ class PredictFn:
         self._net = net
         self.quant = quant
         self.device = resolve_device(device)
+        # copies at pin time: a later fit of ``net`` changes neither the
+        # served weights nor the served batch-norm statistics
         self._params = copy_params(net.params_list, self.device)
-        self._states = net.state_list
+        self._states = copy_params(net.state_list, self.device)
+        #: a ComputationGraph serves its one input and one output here
+        self._graph = isinstance(net, ComputationGraph)
+        if self._graph and (len(net.conf.network_inputs) != 1
+                            or len(net.conf.network_outputs) != 1):
+            raise ValueError("PredictFn serves graphs of one input and one "
+                             "output")
         if self.quant == "int8":
             self._params = quantize_tree(self._params)
         self._lock = threading.Lock()
@@ -66,8 +82,11 @@ class PredictFn:
         params = self._params
         if self.quant == "int8":
             params = dequantize_tree(params)
-        out = self._net._output_pure(params, self._states,
-                                     to_device_tensor(x, self.device))
+        x = to_device_tensor(x, self.device)
+        if self._graph:
+            out = self._net._output_pure(params, self._states, [x])[0]
+        else:
+            out = self._net._output_pure(params, self._states, x)
         with self._lock:
             self.calls += 1
         return out

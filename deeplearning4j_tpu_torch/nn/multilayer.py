@@ -14,6 +14,13 @@ listeners), and the recurrent API (``rnn_time_step``, the previous-state
 accessors, ``clone``). Every forward applies the configuration's input
 preprocessors before their layers, as the JAX ``forward_fn`` does.
 
+Layer state (batch norm's running mean and var) lives in each layer's
+buffers; ``state_list`` reads them. Every forward runs
+``Layer.apply_with_state`` over an explicit state list; a training forward
+returns the new states, and the network writes them into the buffers once
+the step's update is done (:func:`write_states`), so a checkpointed layer's
+second forward in the backward writes nothing.
+
 The JAX package fuses the whole step into one compiled program; here the
 step is eager: ``torch.autograd.grad`` gives the gradients, and the updater
 runs under ``no_grad`` and updates the parameters *in place* (the JAX step
@@ -111,11 +118,22 @@ def _pre(net, i: int, h: torch.Tensor, mask=None) -> torch.Tensor:
     return h if pp is None else pp.pre_process(h, mask)
 
 
+def write_states(layers, new_states) -> None:
+    """Copy each layer's new state into its buffers (a state handed back
+    unchanged is skipped)."""
+    with torch.no_grad():
+        for layer, ns in zip(layers, new_states):
+            own = layer.state()
+            for k, v in ns.items():
+                if k in own and v is not own[k]:
+                    own[k].copy_(v)
+
+
 def loss_fn(net, params_list, x, y, rng: Optional[int] = None, fmask=None,
-            lmask=None):
+            lmask=None, state_list=None):
     """Training loss: the forward in train mode to the last (loss) layer,
-    plus auxiliary losses and regularization. Returns
-    ``(loss, new_state_list)``.
+    plus auxiliary losses and regularization, from ``state_list`` (default:
+    the network's). Returns ``(loss, new_state_list)``.
 
     With ``gradient_checkpointing`` set, each layer application runs under
     ``torch.utils.checkpoint``: the backward recomputes the layer's forward
@@ -128,24 +146,28 @@ def loss_fn(net, params_list, x, y, rng: Optional[int] = None, fmask=None,
         raise ValueError("Last layer has no loss function; cannot compute "
                          "supervised loss")
     remat = net.conf.global_conf.gradient_checkpointing
+    states = net.state_list if state_list is None else state_list
     seeds = _layer_seeds(len(layers), rng)
     dev = x.device
     h = x
+    new_states = []
     for i, layer in enumerate(layers[:-1]):
         h = _pre(net, i, h, fmask)
         if remat:
-            def f(p, hh, _layer=layer, _seed=seeds[i]):
-                return _layer.apply(p, hh, fmask, True,
-                                    _dropout_gen(_layer, _seed, dev))
-            h = checkpoint(f, params_list[i], h, use_reentrant=False,
-                           preserve_rng_state=False)
+            def f(p, s, hh, _layer=layer, _seed=seeds[i]):
+                return _layer.apply_with_state(
+                    p, s, hh, fmask, True, _dropout_gen(_layer, _seed, dev))
+            h, ns = checkpoint(f, params_list[i], states[i], h,
+                               use_reentrant=False, preserve_rng_state=False)
         else:
-            h = layer.apply(params_list[i], h, fmask, True,
-                            _dropout_gen(layer, seeds[i], dev))
+            h, ns = layer.apply_with_state(params_list[i], states[i], h, fmask,
+                                           True,
+                                           _dropout_gen(layer, seeds[i], dev))
+        new_states.append(ns)
     h = _pre(net, len(layers) - 1, h, fmask)
     h = last.apply_dropout(h, _dropout_gen(last, seeds[-1], dev), True)
     loss = last.compute_loss(params_list[-1], h, y, lmask)
-    new_states = net.state_list
+    new_states.append(states[-1])
     loss = loss + _aux_losses(layers, new_states)
     return loss + _regularization(net, params_list), new_states
 
@@ -162,63 +184,68 @@ def _grads(loss_val, params_list) -> List[dict]:
     return grads
 
 
+def update_layer(g, layer, params, grads, upd, iteration,
+                 bias_rate: bool = True) -> dict:
+    """One layer's update under ``no_grad``: the gradient normalization,
+    the learning-rate policy of global conf ``g`` and the updater, each step
+    subtracted from its parameter in place. With ``bias_rate`` the bias
+    params train at the layer's ``bias_learning_rate``; without it every
+    param trains at the layer's rate. Returns the layer's new updater
+    state."""
+    grads = normalize_gradients(grads, layer.gradient_normalization,
+                                layer.gradient_normalization_threshold or 1.0)
+    spec = _updater_spec(layer)
+    lr = effective_lr(layer.learning_rate, g.lr_policy, iteration,
+                      g.lr_policy_decay_rate, g.lr_policy_power,
+                      g.lr_policy_steps, g.lr_schedule, g.max_num_iterations)
+    lr_bias = lr
+    if bias_rate and layer.bias_learning_rate is not None:
+        lr_bias = torch.tensor(layer.bias_learning_rate, dtype=torch.float32)
+    u_new = {}
+    for name, grad in grads.items():
+        this_lr = lr_bias if name in _BIAS_NAMES else lr
+        step, ustate = updater_step_with_param(
+            spec, grad, params[name], upd[name], this_lr, iteration)
+        params[name].sub_(step)
+        u_new[name] = ustate
+    return u_new
+
+
 def _apply_updates(net, params_list, upd_state, loss_val, iteration,
                    bias_rate: bool = True) -> list:
-    """Gradients of ``loss_val`` by ``torch.autograd.grad``, then per layer
-    the gradient normalization, the learning-rate policy and the updater,
-    run under ``no_grad``; each step is subtracted from its parameter in
-    place. With ``bias_rate`` the bias params train at the layer's
-    ``bias_learning_rate``; without it every param trains at the layer's
-    rate. Returns the new updater state."""
+    """Gradients of ``loss_val`` by ``torch.autograd.grad``, then
+    :func:`update_layer` for each layer. Returns the new updater state."""
     g = net.conf.global_conf
     grads = grads_to_param_dtype(_grads(loss_val, params_list), params_list)
     new_upd = []
     with torch.no_grad():
         for i, layer in enumerate(net.layers):
-            g_i = grads[i]
-            if not g_i:
+            if not grads[i]:
                 new_upd.append(upd_state[i])
                 continue
-            g_i = normalize_gradients(
-                g_i, layer.gradient_normalization,
-                layer.gradient_normalization_threshold or 1.0)
-            spec = _updater_spec(layer)
-            lr = effective_lr(layer.learning_rate, g.lr_policy, iteration,
-                              g.lr_policy_decay_rate, g.lr_policy_power,
-                              g.lr_policy_steps, g.lr_schedule,
-                              g.max_num_iterations)
-            lr_bias = lr
-            if bias_rate and layer.bias_learning_rate is not None:
-                lr_bias = torch.tensor(layer.bias_learning_rate,
-                                       dtype=torch.float32)
-            u_new = {}
-            for name, grad in g_i.items():
-                this_lr = lr_bias if name in _BIAS_NAMES else lr
-                step, ustate = updater_step_with_param(
-                    spec, grad, params_list[i][name], upd_state[i][name],
-                    this_lr, iteration)
-                params_list[i][name].sub_(step)
-                u_new[name] = ustate
-            new_upd.append(u_new)
+            new_upd.append(update_layer(g, layer, params_list[i], grads[i],
+                                        upd_state[i], iteration, bias_rate))
     return new_upd
 
 
 def make_train_step(net):
     """The train step as a plain function:
     ``(params_list, upd_state, x, y, rng, iteration, fmask, lmask) ->
-    (upd_state', loss)``.
+    (upd_state', state_list', loss)``.
 
     Gradients come from ``torch.autograd.grad``; per-layer gradient
     normalization, the learning-rate policy, the separate bias learning rate
     and the updater then run under ``no_grad`` and subtract each step from
-    its parameter in place."""
+    its parameter in place. The new layer states are returned, not
+    written."""
 
     def train_step(params_list, upd_state, x, y, rng, iteration, fmask=None,
                    lmask=None):
-        loss_val, _ = loss_fn(net, params_list, x, y, rng, fmask, lmask)
+        loss_val, new_states = loss_fn(net, params_list, x, y, rng, fmask,
+                                       lmask)
         new_upd = _apply_updates(net, params_list, upd_state, loss_val,
                                  iteration)
-        return new_upd, loss_val.detach()
+        return new_upd, new_states, loss_val.detach()
 
     return train_step
 
@@ -239,16 +266,16 @@ def _init_rnn_states(net, batch: int) -> List[dict]:
 def _rnn_forward(net, params_list, rnn_states, x):
     """Forward pass threading the streaming LSTM state: ``(out,
     new_states)``. Layers that do not stream run their full-sequence
-    forward."""
+    forward in eval mode."""
     h = x
     new_rnn = []
-    for i, (layer, params, rs) in enumerate(zip(net.layers, params_list,
-                                                 rnn_states)):
+    for i, (layer, params, state, rs) in enumerate(zip(
+            net.layers, params_list, net.state_list, rnn_states)):
         h = _pre(net, i, h)
         if streaming_lstm(layer):
             h, rs = layer.apply_streaming(params, rs, h)
         else:
-            h = layer.apply(params, h)
+            h = layer.apply_with_state(params, state, h)[0]
         new_rnn.append(rs)
     return h, new_rnn
 
@@ -256,7 +283,7 @@ def _rnn_forward(net, params_list, rnn_states, x):
 def make_tbptt_step(net):
     """The truncated-BPTT step over one chunk as a plain function:
     ``(params_list, upd_state, rnn_states, x, y, rng, iteration, fmask,
-    lmask) -> (upd_state', rnn_states', loss)``.
+    lmask) -> (upd_state', rnn_states', state_list', loss)``.
 
     Streaming LSTM layers run ``apply_streaming`` from the carried state with
     ``mask=fmask`` and hand on their final state detached (the truncation);
@@ -267,30 +294,59 @@ def make_tbptt_step(net):
     def tbptt_step(params_list, upd_state, rnn_states, x, y, rng, iteration,
                    fmask=None, lmask=None):
         layers = net.layers
+        states = net.state_list
         seeds = _layer_seeds(len(layers), rng)
         h = x
         new_rnn = []
+        new_states = []
         for i, layer in enumerate(layers[:-1]):
             h = _pre(net, i, h, fmask)
             if streaming_lstm(layer):
                 h, rs = layer.apply_streaming(params_list[i], rnn_states[i], h,
                                               mask=fmask)
                 new_rnn.append({k: v.detach() for k, v in rs.items()})
+                new_states.append(states[i])
             else:
-                h = layer.apply(params_list[i], h, fmask, True,
-                                _dropout_gen(layer, seeds[i], x.device))
+                h, ns = layer.apply_with_state(
+                    params_list[i], states[i], h, fmask, True,
+                    _dropout_gen(layer, seeds[i], x.device))
                 new_rnn.append(rnn_states[i])
+                new_states.append(ns)
         last = layers[-1]
         h = last.apply_dropout(h, _dropout_gen(last, seeds[-1], x.device), True)
         loss = last.compute_loss(params_list[-1], h, y, lmask)
         new_rnn.append(rnn_states[-1])
-        loss = loss + _aux_losses(layers, net.state_list)
+        new_states.append(states[-1])
+        loss = loss + _aux_losses(layers, new_states)
         loss = loss + _regularization(net, params_list)
         new_upd = _apply_updates(net, params_list, upd_state, loss, iteration,
                                  bias_rate=False)
-        return new_upd, new_rnn, loss.detach()
+        return new_upd, new_rnn, new_states, loss.detach()
 
     return tbptt_step
+
+
+def load_states(layers, given_states, where) -> None:
+    """Copy running states (numpy arrays or tensors, by JAX name) into the
+    layers' buffers; ``where`` names each layer in errors. Names and shapes
+    must match exactly."""
+    given_states = list(given_states)
+    if len(given_states) != len(layers):
+        raise ValueError(f"{len(given_states)} state dicts for {len(layers)} "
+                         "layers")
+    with torch.no_grad():
+        for i, layer, given in zip(where, layers, given_states):
+            own = layer.state()
+            if set(given) != set(own):
+                raise ValueError(f"layer {i} ({layer.TYPE}) state "
+                                 f"{sorted(given)} != expected {sorted(own)}")
+            for name, value in given.items():
+                t = torch.as_tensor(np.array(value, dtype=np.float32))
+                if tuple(t.shape) != tuple(own[name].shape):
+                    raise ValueError(f"layer {i} state {name}: shape "
+                                     f"{tuple(t.shape)} != "
+                                     f"{tuple(own[name].shape)}")
+                own[name].copy_(t)
 
 
 def _numpy(a) -> np.ndarray:
@@ -343,6 +399,7 @@ class MultiLayerNetwork(nn.Module):
         gen.manual_seed(seed)
         for layer in self.layers:
             layer.init_params(gen)
+            layer.reset_state()
         self._rng.manual_seed((int(seed) * 0x9E3779B1 + 0xD14) % _SEED_RANGE)
         self._init_updater_state()
         self._initialized = True
@@ -355,8 +412,11 @@ class MultiLayerNetwork(nn.Module):
             for layer in self.layers]
 
     @torch.no_grad()
-    def load_params(self, params_list: List[dict]) -> "MultiLayerNetwork":
-        """Copy params given per layer by JAX name (numpy arrays or tensors);
+    def load_params(self, params_list: List[dict],
+                    state_list: Optional[List[dict]] = None
+                    ) -> "MultiLayerNetwork":
+        """Copy params given per layer by JAX name (numpy arrays or tensors),
+        and with ``state_list`` the layers' running states the same way;
         names and shapes must match exactly. The updater state is zeroed
         unless one was loaded already."""
         if len(params_list) != len(self.layers):
@@ -374,9 +434,19 @@ class MultiLayerNetwork(nn.Module):
                                      f"{tuple(t.shape)} != "
                                      f"{tuple(own[name].shape)}")
                 own[name].copy_(t)
+        if state_list is not None:
+            self.load_state(state_list)
         if self.updater_state is None:
             self._init_updater_state()
         self._initialized = True
+        return self
+
+    @torch.no_grad()
+    def load_state(self, state_list: List[dict]) -> "MultiLayerNetwork":
+        """Copy the layers' running state (batch norm's mean and var), given
+        per layer by JAX name as the JAX ``net.state_list`` holds it (numpy
+        arrays or tensors); names and shapes must match exactly."""
+        load_states(self.layers, state_list, range(len(self.layers)))
         return self
 
     @torch.no_grad()
@@ -454,7 +524,9 @@ class MultiLayerNetwork(nn.Module):
 
     @property
     def state_list(self) -> List[dict]:
-        return [{} for _ in self.layers]
+        """Each layer's running state by JAX name (its buffers; ``{}`` for
+        a layer without state)."""
+        return [layer.state() for layer in self.layers]
 
     # ------------------------------------------------------------------ inference
     def _output_pure(self, params_list, state_list, x: torch.Tensor,
@@ -463,8 +535,10 @@ class MultiLayerNetwork(nn.Module):
         """The forward in eval mode; with ``collect`` each layer's output is
         appended to it."""
         h = x
-        for i, (layer, params) in enumerate(zip(self.layers, params_list)):
-            h = layer.apply(params, _pre(self, i, h, mask), mask)
+        for i, (layer, params, state) in enumerate(zip(self.layers, params_list,
+                                                       state_list)):
+            h = layer.apply_with_state(params, state, _pre(self, i, h, mask),
+                                       mask)[0]
             if collect is not None:
                 collect.append(h)
         return h
@@ -560,16 +634,19 @@ class MultiLayerNetwork(nn.Module):
         x, y = self._to_device(x), self._to_device(y)
         fmask, lmask = self._to_device(fmask), self._to_device(lmask)
         params = self.params_list
-        h = self._eval_trunk(params, x, fmask)
+        h = self._eval_trunk(params, self.state_list, x, fmask)
         loss = self.layers[-1].compute_loss(params[-1], h, y, lmask)
         return float(loss + _regularization(self, params))
 
-    def _eval_trunk(self, params_list, x, fmask=None) -> torch.Tensor:
+    def _eval_trunk(self, params_list, state_list, x,
+                    fmask=None) -> torch.Tensor:
         """The eval-mode forward to the last layer's input (its preprocessor
         applied): the one trunk of ``score`` and ``score_examples``."""
         h = x
-        for i, (layer, p) in enumerate(zip(self.layers[:-1], params_list)):
-            h = layer.apply(p, _pre(self, i, h, fmask), fmask)
+        for i, (layer, p, st) in enumerate(zip(self.layers[:-1], params_list,
+                                               state_list)):
+            h = layer.apply_with_state(p, st, _pre(self, i, h, fmask),
+                                       fmask)[0]
         return _pre(self, len(self.layers) - 1, h, fmask)
 
     @torch.no_grad()
@@ -589,7 +666,7 @@ class MultiLayerNetwork(nn.Module):
         x, y = self._to_device(x), self._to_device(y)
         fmask, lmask = self._to_device(fmask), self._to_device(lmask)
         params = self.params_list
-        h = self._eval_trunk(params, x, fmask)
+        h = self._eval_trunk(params, self.state_list, x, fmask)
         last = self.layers[-1]
         per = torch.stack([
             last.compute_loss(params[-1], h[i:i + 1], y[i:i + 1],
@@ -601,7 +678,9 @@ class MultiLayerNetwork(nn.Module):
 
     def gradient_and_score(self, x, y, fmask=None, lmask=None):
         """``(grads, score)`` without an update: the training loss's
-        gradients per layer by param name, without dropout."""
+        gradients per layer by param name, without dropout (batch norm
+        normalizes with the batch's statistics, and its state is not
+        written)."""
         self._require_init()
         x, y = self._to_device(x), self._to_device(y)
         fmask, lmask = self._to_device(fmask), self._to_device(lmask)
@@ -692,9 +771,10 @@ class MultiLayerNetwork(nn.Module):
         if self._train_step is None:
             self._train_step = make_train_step(self)
         for _ in range(max(1, self.conf.global_conf.iterations)):
-            self.updater_state, loss = self._train_step(
+            self.updater_state, new_states, loss = self._train_step(
                 self.params_list, self.updater_state, x, y, self._next_rng(),
                 self.iteration, fmask, lmask)
+            write_states(self.layers, new_states)
             self.score_value = loss  # a device scalar, read lazily
             self.iteration += 1
             for listener in self.listeners:
@@ -716,9 +796,10 @@ class MultiLayerNetwork(nn.Module):
             sl = slice(c * L, min((c + 1) * L, T))
             fm = fmask[:, sl] if fmask is not None else None
             lm = lmask[:, sl] if lmask is not None else None
-            self.updater_state, rnn_state, loss = self._tbptt_step(
+            self.updater_state, rnn_state, new_states, loss = self._tbptt_step(
                 self.params_list, self.updater_state, rnn_state, x[:, sl],
                 y[:, sl], self._next_rng(), self.iteration, fm, lm)
+            write_states(self.layers, new_states)
             self.score_value = loss  # a device scalar, read lazily
             self.iteration += 1
             for listener in self.listeners:
@@ -754,12 +835,13 @@ class MultiLayerNetwork(nn.Module):
 
     def clone(self, device=None) -> "MultiLayerNetwork":
         """A network on ``device`` (default: this network's) with copies
-        (never aliases) of the params, the updater state, the counters, the
-        RNG state and the streaming state."""
+        (never aliases) of the params, the layer states, the updater state,
+        the counters, the RNG state and the streaming state."""
         dev = self.device if device is None else device
         net = MultiLayerNetwork(copy.deepcopy(self.conf), device=dev)
         with torch.no_grad():
-            for own, theirs in zip(self.params_list, net.params_list):
+            for own, theirs in zip(self.params_list + self.state_list,
+                                   net.params_list + net.state_list):
                 for k, v in own.items():
                     theirs[k].copy_(v)
         net._initialized = self._initialized

@@ -228,8 +228,14 @@ def test_builder_refuses_what_the_jax_builder_refuses():
         TL.DenseLayer.conf(n_out=2, kernel_size=(3, 3))
     with pytest.raises(TypeError, match="LayerConf"):
         lb.layer(TL.DenseLayer)
-    with pytest.raises(NotImplementedError, match="A2"):
-        NeuralNetConfiguration.builder().graph_builder()
+    # graph_builder() is ported: its build() refuses what the JAX one does
+    gb = NeuralNetConfiguration.builder().dtype("float33").graph_builder()
+    gb.add_inputs("in").add_layer("out", TL.OutputLayer.conf(n_in=2, n_out=2),
+                                  "in").set_outputs("out")
+    with pytest.raises(ValueError, match="dtype"):
+        gb.build()
+    with pytest.raises(TypeError, match="LayerConf"):
+        gb.add_layer("d", TL.DenseLayer, "in")
     with pytest.raises(ValueError, match="preprocessor"):
         TP.preprocessor_from_dict({"@type": "NoSuch"})
 

@@ -178,7 +178,9 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, B, H, Tq, Tk, D,
                                        (10000, 10, torch.float32),
                                        (128, 10, torch.bfloat16),
                                        (1, 10, torch.bfloat16),
-                                       (10000, 10, torch.bfloat16)])
+                                       (10000, 10, torch.bfloat16),
+                                       # ResNet-50's fc output at B = 128
+                                       (128, 1000, torch.float32)])
 def test_sm_xent_kernel_matches_plain_on_card(cuda_device, N, C, dtype):
     g = torch.Generator().manual_seed(0)
     x = (torch.randn(N, C, generator=g) * 3).to(cuda_device).to(dtype)
@@ -509,3 +511,32 @@ def test_max_pool_ties_route_as_on_the_cpu_on_card(cuda_device):
         (layer.apply({}, xt) * torch.tensor(ct, device=dev)).sum().backward()
         grads.append(xt.grad.cpu())
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 56, 56, 64), (128, 7, 7, 2048),
+                                   (8, 1000)])
+def test_batch_norm_on_card_matches_cpu(cuda_device, shape):
+    """``batch_norm_train`` (ResNet-50 shapes: the first stage, the last
+    stage, features) forward, its statistics and its backward on the card
+    against the CPU from the same inputs: within 1e-4 of each tensor's
+    largest magnitude (float32 sums of up to 401,408 terms in another
+    order)."""
+    from deeplearning4j_tpu_torch.ops.batch_norm import batch_norm_train
+    g = torch.Generator().manual_seed(2)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g) * 2 + 0.5
+    gamma = torch.rand(c, generator=g) + 0.5
+    beta = torch.randn(c, generator=g)
+    ct = torch.randn(shape, generator=g)
+    got = []
+    for dev in ("cpu", cuda_device):
+        xs = [t.to(dev, copy=True).requires_grad_(True)
+              for t in (x, gamma, beta)]
+        out, mean, var = batch_norm_train(*xs, 1e-5)
+        (out * ct.to(dev)).sum().backward()
+        got.append([t.detach().cpu() for t in
+                    (out, mean, var, *(v.grad for v in xs))])
+    for a, b in zip(*got):
+        err = float((b - a).abs().max())
+        assert err <= 1e-4 * float(a.abs().max()), err

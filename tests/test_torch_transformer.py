@@ -81,7 +81,7 @@ def test_config_reader_refuses_unknown_and_unported_types():
     d["layers"][1]["@type"] = "NoSuchLayer"
     with pytest.raises(ValueError):
         MultiLayerConfiguration.from_dict(d)
-    d["layers"][1]["@type"] = "BatchNormalization"
+    d["layers"][1]["@type"] = "MoE"
     with pytest.raises(NotImplementedError):
         MultiLayerConfiguration.from_dict(d)
 
@@ -106,7 +106,14 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.eval, "
             "deeplearning4j_tpu_torch.datasets.iterators, "
             "deeplearning4j_tpu_torch.datasets.mnist, "
-            "deeplearning4j_tpu_torch.models.lenet;"
+            "deeplearning4j_tpu_torch.models.lenet, "
+            "deeplearning4j_tpu_torch.models.resnet, "
+            "deeplearning4j_tpu_torch.ops.batch_norm, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.normalization, "
+            "deeplearning4j_tpu_torch.nn.conf.vertices, "
+            "deeplearning4j_tpu_torch.nn.conf.graphconf, "
+            "deeplearning4j_tpu_torch.nn.graph_network, "
+            "deeplearning4j_tpu_torch.nn.inference;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"

@@ -80,6 +80,7 @@ exits non-zero before printing anything. Full results also go to
 """
 from __future__ import annotations
 
+import copy
 import http.client
 import json
 import os
@@ -101,7 +102,9 @@ from deeplearning4j_tpu_torch.keras_server.serve_profile import (
 from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
 from deeplearning4j_tpu_torch.models import (
     char_rnn_lstm, lenet_mnist, resnet50, transformer_lm)
-from deeplearning4j_tpu_torch.nn.graph_network import ComputationGraph
+from deeplearning4j_tpu_torch.common import get_policy, set_policy
+from deeplearning4j_tpu_torch.nn.graph_network import (
+    ComputationGraph, graph_forward, make_graph_train_step)
 from deeplearning4j_tpu_torch.nn.inference import PredictFn
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _cuda
@@ -1573,6 +1576,18 @@ def lenet(kernels) -> dict:
 RES_CHECK_SIZE, RES_CHECK_B, RES_CHECK_STEPS = 64, 8, 3
 RES_SIZE, RES_B, RES_CLASSES = 224, 128, 1000
 RES_WARMUP, RES_TIMED, RES_EVAL, RES_SERVE_ROWS = 2, 10, 256, 2
+#: the gate on each card step of part (a), leaf by leaf. With e = ||p -
+#: p64|| / ||p64 - p0|| (p0 the CPU run's params before the step, p64 the
+#: params after a float64 step from the same point, p a float32 run's), the
+#: card's e may be at most RES_UPD_RATIO times the CPU float32 run's e, or
+#: RES_UPD_FLOOR, whichever is larger: the card's gradient and Nesterov
+#: update as close to float64 as the CPU's float32 ones are. The CPU's e is
+#: taken as at least its median over the step's leaves: a leaf's float32
+#: error moves with the few ReLU inputs that round to the other side of 0,
+#: and one CPU leaf has read 150 times below the step's median. The
+#: control, a card step at RES_CONTROL_LR times the config's learning
+#: rate, must fail the gate.
+RES_UPD_RATIO, RES_UPD_FLOOR, RES_CONTROL_LR = 4.0, 1e-4, 1.01
 
 
 def resnet_flops(conf, batch: int) -> float:
@@ -1666,30 +1681,146 @@ def _res_batch(g, n: int, size: int, classes: int, device):
     return x.to(device), y.to(device)
 
 
+def _f64(t):
+    """A float64 CPU copy of a nested dict of tensors."""
+    if isinstance(t, dict):
+        return {k: _f64(v) for k, v in t.items()}
+    return t.detach().to("cpu", torch.float64, copy=True)
+
+
+class Float64Run:
+    """A float64 copy of a CPU graph's params, states and updater state,
+    stepped by the graph's own train step under an all-float64 dtype
+    policy: the reference each float32 step is measured against."""
+
+    def __init__(self, net: ComputationGraph):
+        self.net, self.iteration = net, net.iteration
+        self.params, self.states, self.upd = (
+            _f64(net.params_list), _f64(net.state_list),
+            _f64(net.updater_state))
+
+    def step(self, x, y) -> float:
+        prev = get_policy()
+        set_policy(torch.float64, torch.float64, torch.float64)
+        leaves = [v for p in self.params.values() for v in p.values()]
+        try:
+            for v in leaves:
+                v.requires_grad_(True)
+            self.states, self.upd, loss = make_graph_train_step(self.net)(
+                self.params, self.states, self.upd, [x.double()],
+                [y.double()], None, self.iteration)
+        finally:
+            set_policy(prev.param_dtype, prev.compute_dtype,
+                       prev.output_dtype)
+            for v in leaves:
+                v.requires_grad_(False)
+        self.iteration += 1
+        return float(loss)
+
+
+def _update_errs(params, exact: Float64Run, before) -> dict:
+    """Each leaf's ``||p - p64|| / ||p64 - p0||``: a float32 step's
+    params against the float64 step's, over how far the float64 step
+    moved them."""
+    out = {}
+    for n, leaves in exact.params.items():
+        for k, r in leaves.items():
+            a = params[n][k].detach().to("cpu", torch.float64)
+            out[f"{n}.{k}"] = float((a - r).norm()
+                                    / (r - before[n][k]).norm()
+                                    .clamp_min(1e-30))
+    return out
+
+
+def _gate_limits(cpu: dict) -> dict:
+    """Each leaf's limit on the card's update error (RES_UPD_RATIO)."""
+    med = float(np.median(list(cpu.values())))
+    return {k: max(RES_UPD_RATIO * max(e, med), RES_UPD_FLOOR)
+            for k, e in cpu.items()}
+
+
+def _gate_misses(card: dict, cpu: dict) -> dict:
+    """The leaves where the card's update error exceeds the gate: ``{leaf:
+    (card e, CPU e)}``."""
+    limit = _gate_limits(cpu)
+    return {k: (card[k], cpu[k]) for k in card if not card[k] <= limit[k]}
+
+
+def _logits(net, x):
+    """The eval-mode input of the output layer and its logits (``W``,
+    ``b``; before the softmax, which saturates at the running statistics
+    of a new or barely trained network)."""
+    name = net.conf.network_outputs[0]
+    with torch.no_grad():
+        _, _, li = graph_forward(net, net.params_list, net.state_list,
+                                 [x.to(net.device)], train=False,
+                                 collect_loss_inputs=True)
+        p = net.params_list[name]
+        return li[name].cpu(), (li[name] @ p["W"] + p["b"]).cpu()
+
+
+def _scale_err(ours, ref) -> float:
+    """The largest difference over the reference's largest magnitude."""
+    return float((ours - ref).abs().max() / ref.abs().max())
+
+
+def batch_statistics(net, x) -> dict:
+    """Each batch-norm vertex's mean and biased variance over the batch
+    ``x`` (a train-mode forward): the running statistics that training on
+    batches like ``x`` settles at. Read from the state the forward returns,
+    ``decay * state + (1 - decay) * batch``."""
+    with torch.no_grad():
+        _, new, _ = graph_forward(net, net.params_list, net.state_list,
+                                  [x.to(net.device)], train=True)
+    out = {}
+    for name, state in net.state_list.items():
+        if state:
+            d = net.vertex_layers[name].decay
+            out[name] = {k: ((new[name][k] - d * v) / (1 - d)).cpu()
+                         for k, v in state.items()}
+            out[name]["var"] = out[name]["var"].clamp_min(0.0)
+    return out
+
+
 def resnet(kernels) -> dict:
     """The ResNet-50 path on ``ComputationGraph``: (a) the card against the
     CPU from the same weights at 64x64, (b) step time, a profiled step by
     kernel family and peak memory at 224x224, B = 128, (c) ``evaluate`` and
     ``/v1/predict``, (d) ``sm_xent`` once a step."""
     # (a) full depth and width at 64x64: init on the CPU, clone to the card.
-    # Two card copies: ``lock`` takes the CPU run's params, states and
-    # updater state before each step, so each step starts from the same
-    # point on both devices and is held to 1e-4; ``free`` trains on its
-    # own, and its distance to the CPU run is the drift, printed. (A free
-    # run cannot be held to 1e-4: at 0.1 and B = 8 the loss jumps from 7.7
-    # to some 56 and 84, a pre-activation within rounding of 0 takes the
-    # other side of a ReLU on one device, and the runs part; float32 and
-    # float64 runs of the same code on one CPU part the same way.)
+    # A free run cannot be held to 1e-4 for 3 steps: at 0.1 and B = 8 the
+    # loss jumps from 7.7 to some 56 and 84, the gradient at init is only
+    # about 1% accurate in float32 (against float64), and the float32 and
+    # float64 CPU runs part as far as the card's does (printed below). So
+    # ``lock`` starts each step from the CPU run's params, states and
+    # updater state; its loss, BN running statistics and eval-mode logits
+    # are held to 1e-4 and its update, leaf by leaf, to the gate above,
+    # against a float64 step from the same point. ``free`` trains on its
+    # own beside a float64 run from the same init; their drifts are
+    # printed.
     ref = ComputationGraph(resnet50(n_classes=RES_CLASSES,
                                     image_size=RES_CHECK_SIZE),
                            device="cpu").init(seed=SEED)
     lock, free = ref.clone(device="cuda"), ref.clone(device="cuda")
+    wide = Float64Run(ref)
+    # the control: the config's learning rate times RES_CONTROL_LR
+    conf = copy.deepcopy(ref.conf)
+    for v in conf.vertices.values():
+        f = getattr(getattr(v, "layer", None), "fields", {})
+        for k in ("learning_rate", "bias_learning_rate"):
+            if f.get(k) is not None:
+                f[k] *= RES_CONTROL_LR
+    control = ComputationGraph(conf, device="cuda")
     g = torch.Generator().manual_seed(SEED + 50)
     batches = [_res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")
                for _ in range(RES_CHECK_STEPS)]
     xe = _res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")[0]
-    out0_err = float((lock.output(xe)[0].cpu() - ref.output(xe)[0])
-                     .abs().max())
+
+    def logits_errs():
+        """The card's eval-mode output-layer input and logits against the
+        CPU's, each relative to its largest magnitude."""
+        return [_scale_err(a, b) for a, b in zip(_logits(lock, xe),
+                                                 _logits(ref, xe))]
 
     def stats_rel(net):
         """Worst relative difference (to the tensor's largest magnitude)
@@ -1700,73 +1831,117 @@ def resnet(kernels) -> dict:
         worst = max(got, key=got.get)
         return got[worst], worst
 
-    def param_diff(net):
-        return max(float((a.detach().cpu() - b.detach()).abs().max())
-                   for n in ref.params_list
-                   for a, b in zip(net.params_list[n].values(),
-                                   ref.params_list[n].values()))
+    def load_from_ref(net):
+        net.load_params(convert.to_numpy(ref.params_list),
+                        convert.to_numpy(ref.state_list))
+        net.load_updater_state(convert.to_numpy(ref.updater_state),
+                               ref.iteration)
 
+    def summary(card, cpu):
+        """The worst card leaf, the medians, and the leaf nearest its
+        limit: ``[leaf, card e / limit, card e, CPU e]``."""
+        limit = _gate_limits(cpu)
+        worst = max(card, key=card.get)
+        near = max(card, key=lambda k: card[k] / limit[k])
+        return {"card_worst": [worst, card[worst], cpu[worst]],
+                "card_median": float(np.median(list(card.values()))),
+                "cpu_median": float(np.median(list(cpu.values()))),
+                "nearest_limit": [near, card[near] / limit[near], card[near],
+                                  cpu[near]]}
+
+    load_from_ref(lock)
+    logits0 = logits_errs()
     for fn in kernels:
         fn.launches = 0
-    losses, free_losses, ref_losses, lock_stats, lock_params = [], [], [], \
-        [], []
-    for x, y in batches:
-        lock.load_params(convert.to_numpy(ref.params_list),
-                         convert.to_numpy(ref.state_list))
-        lock.load_updater_state(convert.to_numpy(ref.updater_state),
-                                ref.iteration)
+    losses, free_losses, ref_losses, wide_losses = [], [], [], []
+    lock_stats, upd, misses = [], [], {}
+    for i, (x, y) in enumerate(batches):
+        load_from_ref(lock)
+        before, exact = _f64(ref.params_list), Float64Run(ref)
+        exact.step(x, y)
         lock.fit([x], [y])
         free.fit([x], [y])
+        wide_losses.append(wide.step(x, y))
+        if i == RES_CHECK_STEPS - 1:
+            load_from_ref(control)
+            control.fit([x], [y])
         ref.fit([x], [y])
         losses.append(lock.score_value)
         free_losses.append(free.score_value)
         ref_losses.append(ref.score_value)
         lock_stats.append(stats_rel(lock))
-        lock_params.append(param_diff(lock))
+        card_e = _update_errs(lock.params_list, exact, before)
+        cpu_e = _update_errs(ref.params_list, exact, before)
+        upd.append(summary(card_e, cpu_e))
+        misses.update({f"step {i + 1} {k}": v
+                       for k, v in _gate_misses(card_e, cpu_e).items()})
+    control_e = _update_errs(control.params_list, exact, before)
+    control_misses = _gate_misses(control_e, cpu_e)
     check_launches = {fn.__name__: fn.launches for fn in kernels}
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     free_rel = [abs(a - b) / abs(b) for a, b in zip(free_losses, ref_losses)]
-    lock.load_params(convert.to_numpy(ref.params_list),
-                     convert.to_numpy(ref.state_list))
-    out_err = float((lock.output(xe)[0].cpu() - ref.output(xe)[0])
-                    .abs().max())
+    wide_rel = [abs(a - b) / abs(b) for a, b in zip(ref_losses, wide_losses)]
+    load_from_ref(lock)
+    logits1 = logits_errs()
     worst_stat = max(lock_stats)
-    free_stat, free_param = stats_rel(free), param_diff(free)
+    free_stat = stats_rel(free)
     print(f"resnet50 card vs CPU (64x64, B={RES_CHECK_B}, {RES_CHECK_STEPS} "
           f"steps, each from the CPU run's state): card losses {losses}; CPU "
-          f"{ref_losses}; relative differences {rel} (tol 1e-4); eval "
-          f"output max_abs_err {out0_err:.3e} at init, {out_err:.3e} after "
-          f"(tol 1e-4); BN running stats after each step, worst relative "
-          f"difference {[f'{v:.3e} at {w}' for v, w in lock_stats]} (tol "
-          f"1e-4); params after each step apart by up to {lock_params}; "
+          f"{ref_losses}; relative differences {rel} (tol 1e-4); eval-mode "
+          f"output-layer input and logits, max_abs_err over their scale "
+          f"{logits0} at init, {logits1} after (tol 1e-4); BN running stats "
+          f"after each step, worst relative difference "
+          f"{[f'{v:.3e} at {w}' for v, w in lock_stats]} (tol 1e-4); "
           f"launches {check_launches}", flush=True)
-    print(f"resnet50 drift of a free card run from the CPU run: losses "
-          f"{free_losses}, relative differences {free_rel}; after "
+    for i, u in enumerate(upd):
+        print(f"resnet50 step {i + 1} update against float64 from the same "
+              f"point, e = ||p - p64|| / ||p64 - p0|| by leaf: {u} (gate: "
+              f"card e <= max({RES_UPD_RATIO} x max(CPU e, CPU median e), "
+              f"{RES_UPD_FLOOR}))", flush=True)
+    print(f"resnet50 control (learning rate x{RES_CONTROL_LR}, step "
+          f"{RES_CHECK_STEPS}): {summary(control_e, cpu_e)}, "
+          f"{len(control_misses)} of {len(control_e)} leaves outside the "
+          f"gate", flush=True)
+    print(f"resnet50 drift of free runs: card against the CPU float32 run, "
+          f"losses {free_losses} (relative {free_rel}; after "
           f"{RES_CHECK_STEPS} steps BN running stats worst relative "
-          f"difference {free_stat[0]:.3e} at {free_stat[1]}, params apart by "
-          f"up to {free_param:.3e}", flush=True)
+          f"difference {free_stat[0]:.3e} at {free_stat[1]}); CPU float32 "
+          f"against a CPU float64 run from the same init, float64 losses "
+          f"{wide_losses} (relative {wide_rel})", flush=True)
     if not all(np.isfinite(losses)) or not max(rel) <= 1e-4:
         fail(f"ResNet-50 losses on the card {losses} disagree with the CPU "
              f"run {ref_losses}")
-    if not max(out0_err, out_err) <= 1e-4:
-        fail(f"ResNet-50 output on the card disagrees with the CPU: "
-             f"{out0_err}, {out_err}")
+    if not max(logits0 + logits1) <= 1e-4:
+        fail(f"ResNet-50 eval-mode logits on the card disagree with the "
+             f"CPU: {logits0}, {logits1}")
     if not worst_stat[0] <= 1e-4:
         fail(f"ResNet-50 BN running statistics on the card disagree with the "
              f"CPU: {worst_stat}")
+    if misses:
+        fail(f"ResNet-50 updates on the card outside the gate (card e, CPU "
+             f"e): {misses}")
+    if not control_misses:
+        fail("ResNet-50 gate control: an update at "
+             f"{RES_CONTROL_LR} x the learning rate passed the gate")
     want = {fn.__name__: 0 for fn in kernels}
-    want["softmax_cross_entropy"] = 2 * RES_CHECK_STEPS
+    want["softmax_cross_entropy"] = 2 * RES_CHECK_STEPS + 1
     if check_launches != want:
         fail(f"ResNet-50 launch counts {check_launches} != expected {want}")
     check = {"check_losses": losses, "check_cpu_losses": ref_losses,
-             "check_rel_diffs": rel, "check_output_max_abs_err":
-             [out0_err, out_err], "check_bn_stats_worst_rel": lock_stats,
-             "check_param_diff_after_step": lock_params,
+             "check_rel_diffs": rel,
+             "check_logits_scale_err": [logits0, logits1],
+             "check_bn_stats_worst_rel": lock_stats,
+             "check_update_errs": upd,
+             "check_control": {"lr_factor": RES_CONTROL_LR,
+                               **summary(control_e, cpu_e),
+                               "leaves_outside_gate": len(control_misses),
+                               "leaves": len(control_e)},
              "check_launches": check_launches,
              "drift_losses": free_losses, "drift_rel_diffs": free_rel,
              "drift_bn_stats_worst_rel": free_stat,
-             "drift_params_max_abs": free_param}
-    del ref, lock, free
+             "float64_losses": wide_losses,
+             "float64_vs_cpu_rel_diffs": wide_rel}
+    del ref, lock, free, control, wide, exact
 
     # (b) the bench's shape: the main path's launches, step time, a
     # profiled step and peak memory
@@ -1835,11 +2010,19 @@ def resnet(kernels) -> dict:
     if ev.num_examples != RES_EVAL or any(eval_launches.values()):
         fail(f"ResNet-50 evaluate saw {ev.num_examples} images, launches "
              f"{eval_launches}")
+    # served: a new network (seed SEED + 1) with a batch's own statistics
+    # as its running statistics, as a long run settles at. At the running
+    # statistics of a new or briefly trained network (0 and 1, or a
+    # quarter of them after 12 steps) the eval-mode softmax saturates to
+    # exact one-hots, and so does a network trained at 0.1 for 12 steps;
+    # such an answer would hide a wrong one
+    served = ComputationGraph(conf, device="cuda").init(seed=SEED + 1)
+    served.load_state(batch_statistics(served, x))
     rows = eval_sets[0].features[:RES_SERVE_ROWS]
     srv = InferenceServer(device="cuda", max_batch=RES_SERVE_ROWS)
     srv.start()
     try:
-        srv.register("resnet50", net)
+        srv.register("resnet50", served)
         t0 = time.perf_counter()
         status, body = post(srv.port, "/v1/predict",
                             {"model": "resnet50", "inputs": rows.tolist()})
@@ -1848,14 +2031,17 @@ def resnet(kernels) -> dict:
         srv.stop()
     if status != 200:
         fail(f"ResNet-50 /v1/predict returned {status}: {body[:500]}")
-    pred = np.asarray(json.loads(body)["predictions"], np.float32)
-    own = net.output(rows)[0].cpu().numpy()
-    perr = float(np.abs(pred - own).max())
+    pred = np.asarray(json.loads(body)["predictions"], np.float64)
+    own = served.output(rows)[0].cpu().double().numpy()
+    # log-probabilities: a probability that underflows to 0 fails
+    with np.errstate(divide="ignore"):
+        perr = float(np.abs(np.log(pred) - np.log(own)).max())
     print(f"resnet50 evaluate on {ev.num_examples} images in {eval_s:.3f}s "
           f"(accuracy {ev.accuracy():.4f}, random labels); /v1/predict "
           f"[{RES_SERVE_ROWS}, {RES_SIZE}, {RES_SIZE}, 3] in {predict_s:.3f}s:"
-          f" max_abs_err {perr:.3e} against the card's output (tol 1e-4)",
-          flush=True)
+          f" log-probabilities max_abs_err {perr:.3e} against the card's "
+          f"output (tol 1e-4); probabilities from {own.min():.3e} to "
+          f"{own.max():.3e}", flush=True)
     if pred.shape != (RES_SERVE_ROWS, RES_CLASSES) or not perr <= 1e-4:
         fail(f"ResNet-50 /v1/predict {pred.shape} disagrees with output: "
              f"{perr}")
@@ -1876,7 +2062,8 @@ def resnet(kernels) -> dict:
         / (busy_us / 1e6),
         "peak_memory_bytes": peak_bytes, "eval_s": eval_s,
         "eval_accuracy": ev.accuracy(), "predict_s": predict_s,
-        "predict_max_abs_err": perr}
+        "predict_log_prob_max_abs_err": perr,
+        "predict_prob_range": [float(own.min()), float(own.max())]}
     print(f"resnet50 step (224x224x3, B={RES_B}, float32, TF32 off): "
           f"{step_ms:.3f} ms wall, {result['samples_per_s']:.1f} samples/s "
           f"({RES_TIMED} timed steps after {RES_WARMUP} warm-up, "

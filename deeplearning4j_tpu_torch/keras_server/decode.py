@@ -56,7 +56,7 @@ from ..nn.conf.layers.feedforward import EmbeddingLayer
 from ..nn.conf.layers.recurrent import (
     GravesBidirectionalLSTM, RnnOutputLayer, streaming_lstm,
 )
-from ..nn.inference import copy_params
+from ..nn.inference import copy_tree
 from ..ops.paged_attention import paged_gather
 from ..ops.quant import (
     dequantize_tree, gather_rows, quantize_tree, quantized_matmul,
@@ -317,7 +317,7 @@ class DecodeEngine:
             self._n_pages = int(n_pages)
             self._pool = PagePool(self._n_pages, self.page_size)
         # pinned snapshot on this engine's device, like PredictFn
-        self._params = copy_params(net.params_list, self.device)
+        self._params = copy_tree(net.params_list, self.device)
         if self.quant == "int8":
             self._params = quantize_tree(self._params)
         self._lock = threading.Lock()

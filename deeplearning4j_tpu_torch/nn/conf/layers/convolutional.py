@@ -16,8 +16,7 @@ NHWC on.
 outputs, the padding split low = total // 2, high = the rest (asymmetric
 for strided windows), padded explicitly with ``F.pad``: zeros for
 convolutions and sums, -inf for max pooling (``reduce_window``'s initial
-value); a convolution whose padding is even on both sides hands it to
-``F.conv2d`` instead. Average pooling divides by kh * kw whatever the padding, as the
+value). Average pooling divides by kh * kw whatever the padding, as the
 JAX layer does. ``"truncate"`` and ``"strict"`` pad ``padding`` on both
 sides.
 """
@@ -124,15 +123,8 @@ class ConvolutionLayer(Layer):
         if self.convolution_mode == "same":
             k_eff = tuple((k - 1) * d + 1
                           for k, d in zip(self.kernel_size, self.dilation))
-            left, right, top, bottom = _pads("same", xc, k_eff, self.stride,
-                                             None)
-            if left == right and top == bottom:
-                # even padding (none for a 1x1) goes to the convolution
-                # itself: the same zeros, without a padded copy of x
-                padding = (top, left)
-            else:
-                xc = F.pad(xc, (left, right, top, bottom))
-                padding = (0, 0)
+            xc = F.pad(xc, _pads("same", xc, k_eff, self.stride, None))
+            padding = (0, 0)
         out = F.conv2d(xc, w, stride=self.stride, padding=padding,
                        dilation=self.dilation)
         out = _nhwc(out).to(pol.output_dtype)

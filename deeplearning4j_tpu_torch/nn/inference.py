@@ -27,10 +27,10 @@ from ..ops.quant import dequantize_tree, quantize_tree, tree_param_bytes
 QUANT_MODES = (None, "int8")
 
 
-def copy_params(tree, device: torch.device):
-    """Real copies on ``device`` of a list of param dicts (a
-    ``MultiLayerNetwork``'s, by layer) or a dict of them (a
-    ``ComputationGraph``'s, by vertex)."""
+def copy_tree(tree, device: torch.device):
+    """Real copies on ``device`` of a per-layer tree of tensor dicts, params
+    or layer states: a list (a ``MultiLayerNetwork``'s, by layer) or a dict
+    (a ``ComputationGraph``'s, by vertex)."""
     def copy_dict(p):
         return {k: v.detach().clone().to(device) for k, v in p.items()}
     if isinstance(tree, dict):
@@ -59,8 +59,8 @@ class PredictFn:
         self.device = resolve_device(device)
         # copies at pin time: a later fit of ``net`` changes neither the
         # served weights nor the served batch-norm statistics
-        self._params = copy_params(net.params_list, self.device)
-        self._states = copy_params(net.state_list, self.device)
+        self._params = copy_tree(net.params_list, self.device)
+        self._states = copy_tree(net.state_list, self.device)
         #: a ComputationGraph serves its one input and one output here
         self._graph = isinstance(net, ComputationGraph)
         if self._graph and (len(net.conf.network_inputs) != 1

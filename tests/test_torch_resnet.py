@@ -6,10 +6,17 @@ the JAX package on the CPU.
 seed; weights and batch-norm state cross only by ``convert.from_jax``.
 
 Tolerances (float32), and why:
-- ``output`` (eval mode, running statistics) within atol 1e-5; the first
-  ``fit`` step's loss, ``score``, ``score_examples`` and the
-  ``gradient_and_score`` loss within 1e-5 relative; ``evaluate``'s
-  confusion matrix exactly.
+- ``output`` (eval mode, running statistics) within atol 1e-5. The
+  softmax saturates here (the running statistics are 0 and 1 at init and
+  barely moved after 2 steps; after them every row is an exact one-hot),
+  so the eval-mode logits (the output layer's input times ``W`` plus
+  ``b``) are held too, within 1e-5 of their largest magnitude, at init
+  and on the trained weights: 1.0e-6 to 1.3e-6 at init and 2.4e-7 to
+  3.5e-7 trained were seen; with ``eps`` left out of the fold of the
+  running statistics the trained logits read 5.6e-5 and 6.3e-5 (and the
+  output at init fails its atol). The first ``fit`` step's loss,
+  ``score``, ``score_examples`` and the ``gradient_and_score`` loss within
+  1e-5 relative; ``evaluate``'s confusion matrix exactly.
 - The second step. At the config's rate 0.1 and B = 4 the first update
   sends the loss from 2.4 to 18.3 (ResNet-50) and 9.3 (ResNet-18); both
   trajectories are then sensitive to rounding. Two things move them apart:
@@ -21,12 +28,13 @@ Tolerances (float32), and why:
   steps the second loss is held within 2e-3 relative (6.5e-4 seen), the
   params within 0.25 of the distance they moved (``||port - jax|| /
   ||jax - init||`` over all leaves; 0.097 and 0.065 seen) and the
-  batch-norm state within 0.02 of it (0.0033 and 0.0011 seen). A wrong updater, EMA or gradient formula
-  moves them by a large part of the whole step (Nesterov's step is 1.9
-  times plain SGD's).
+  batch-norm state within 0.02 of it (0.0033 and 0.0011 seen). A wrong
+  updater, EMA or gradient formula moves them by a large part of the whole
+  step (Nesterov's step is 1.9 times plain SGD's).
 - The gradients of ``gradient_and_score`` on the same weights: each leaf
-  within 0.05 of its norm (4e-5 seen); one flipped ReLU element, as above,
-  would move a leaf by a few percent.
+  within 1e-3 of its norm. The worst leaf read 4.0e-5 (ResNet-50) and
+  under 1.9e-5 (ResNet-18); with the batch-norm backward's ``xhat`` term
+  divided by n − 1 instead of n it reads 0.053 and 0.056.
 """
 import numpy as np
 import pytest
@@ -43,7 +51,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import _same_pads
 
 ATOL = REL = 1e-5
 #: see the module docstring
-STEP2_REL, PARAMS_MOVED_REL, STATE_MOVED_REL, GRAD_REL = 2e-3, 0.25, 0.02, 0.05
+STEP2_REL, PARAMS_MOVED_REL, STATE_MOVED_REL = 2e-3, 0.25, 0.02
+GRAD_REL, LOGIT_REL = 1e-3, 1e-5
 B, SIZE, CLASSES = 4, 64, 10
 
 MODELS = {
@@ -84,6 +93,9 @@ def run(request, tmp_path_factory):
         out.update(p0=p0, s0=s0, tnet=tnet, jnet=jnet)
         out["j_out0"] = np.asarray(jnet.output(xt)[0])
         out["t_out0"] = tnet.output(xt)[0].numpy()
+        out["j_logits0"] = _j_logits(jnet, jnet.params_list, jnet.state_list,
+                                     xt)
+        out["t_logits0"] = _t_logits(tnet, xt)
         out["j_flat"] = np.asarray(jnet.params())
         out["t_flat"] = tnet.params().numpy()
         out["j_losses"], out["t_losses"] = [], []
@@ -101,6 +113,35 @@ def run(request, tmp_path_factory):
         jg, out["j_gscore"] = jnet.gradient_and_score([xt], [yt])
         out["j_grads"] = _np(jg)
     return out
+
+
+def _j_logits(jnet, params, states, x):
+    """The JAX network's eval-mode logits: its output layer's input times
+    ``W`` plus ``b`` (before the softmax, which saturates here)."""
+    from deeplearning4j_tpu.nn.graph_network import graph_forward
+    name = jnet.conf.network_outputs[0]
+    _, _, li = graph_forward(jnet.conf, params, states, [x], train=False,
+                             rng=None, collect_loss_inputs=True)
+    p = params[name]
+    return np.asarray(li[name] @ p["W"] + p["b"])
+
+
+def _t_logits(net, x):
+    """The port's eval-mode logits, as ``_j_logits``."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.graph_network import graph_forward
+    name = net.conf.network_outputs[0]
+    with torch.no_grad():
+        _, _, li = graph_forward(net, net.params_list, net.state_list,
+                                 [torch.from_numpy(x)], train=False,
+                                 collect_loss_inputs=True)
+        p = net.params_list[name]
+        return (li[name] @ p["W"] + p["b"]).numpy()
+
+
+def _scale_err(ours, ref):
+    """The largest difference over the reference's largest magnitude."""
+    return float(np.abs(ours - ref).max() / np.abs(ref).max())
 
 
 def _jmds(x, y):
@@ -121,6 +162,7 @@ def _moved_rel(ours, ref, init):
 def test_resnet_output_and_params_vector_match_jax(run):
     assert run["t_out0"].shape == (B, CLASSES)
     np.testing.assert_allclose(run["t_out0"], run["j_out0"], rtol=0, atol=ATOL)
+    assert _scale_err(run["t_logits0"], run["j_logits0"]) <= LOGIT_REL
     # the flat vector in the JAX pytree order, bitwise
     np.testing.assert_array_equal(run["t_flat"], run["j_flat"])
 
@@ -155,6 +197,9 @@ def test_resnet_score_evaluate_and_examples_match_jax(run):
                     state_list=run["j_state"])
     np.testing.assert_allclose(same.output(xt)[0].numpy(), run["j_out"],
                                rtol=0, atol=ATOL)
+    jnet = run["jnet"]
+    jl = _j_logits(jnet, jnet.params_list, jnet.state_list, xt)
+    assert _scale_err(_t_logits(same, xt), jl) <= LOGIT_REL
     from deeplearning4j_tpu_torch.nn.graph_network import MultiDataSet
     score = same.score(MultiDataSet([xt], [yt]))
     assert abs(score - run["j_score"]) <= REL * abs(run["j_score"])

@@ -48,7 +48,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    B = 128 on synthetic MNIST digits (seed 123) on the card and, from the
    same weights, on the CPU: each step's loss within 1e-4 relative, one
    ``output`` within 1e-4, exactly one ``sm_xent`` launch a step; then one
-   ``fit_iterator`` epoch of 20 batches on both, ``evaluate`` on 1,000
+   ``fit_iterator`` epoch of 20 batches on both (on the card through the
+   K-step dispatch), ``evaluate`` on 1,000
    synthetic test digits (seed 321; accuracies within 0.01), and
    ``/v1/predict`` of 64 rows through ``InferenceServer`` (within 1e-4 of
    the CPU ``output`` of the served weights); then times 20 steps (wall
@@ -68,10 +69,32 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    of the FLOPs counted from the layer shapes); ``evaluate`` on 256
    synthetic images and one ``/v1/predict`` of 2 rows, held to the card's
    own ``output``;
-10. reads the profiler's device time of every main-path kernel row and its
+10. runs the K-step dispatch (a CUDA graph of the train step, captured
+   once and replayed once a step) against eager single steps from one
+   init, on each network type: a 20-batch ``fit_iterator`` epoch of
+   full-width LeNet at ``ksteps=8`` (groups of 8, 8 and the ragged 4),
+   ``fit(x, y, epochs=8)`` of full-width ``transformer_lm(256)`` at
+   ``dispatch_ksteps`` 4, and full-depth ``resnet50()`` (4 steps at 64x64,
+   B = 8, then ``fit(epochs=4)`` at 224x224, B = 128). Each checks the
+   losses, the params and batch norm's running statistics (cuDNN
+   deterministic for the check) and the exact launches as the replays
+   count them, then times both paths in turns and profiles each once:
+   wall ms and device µs a step, idle share, peak memory and the graph's
+   pool, replays. LeNet's and the transformer's paths run right after
+   serving (step 4), so their wall times come before any profiler session
+   in the process (which may slow later launches on the host); their
+   profiled calls wait until after step 9;
+11. builds char_rnn_lstm(64)'s layers as a ``ComputationGraph`` and trains
+   it through TBPTT (8 chunks of [32, 50, 64]) on the card against the CPU
+   (chunk losses within 1e-4 relative; ``lstm_fwd`` 16, ``lstm_bwd`` 16,
+   ``sm_xent`` 8 launches), streams 64 steps through ``rnn_time_step`` and
+   through ``/v1/stream`` against the CPU ``rnn_time_step`` of the same
+   weights (1e-5; 128 one-step ``lstm_fwd`` launches each), then times
+   chunks;
+12. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-11. prints one JSON line describing each kernel, then
+13. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -98,7 +121,7 @@ from torch.profiler import ProfilerActivity, profile
 from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
 from deeplearning4j_tpu_torch.keras_server.serve_profile import (
-    device_time_by_kernel)
+    device_events, device_time_by_kernel)
 from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
 from deeplearning4j_tpu_torch.models import (
     char_rnn_lstm, lenet_mnist, resnet50, transformer_lm)
@@ -214,8 +237,7 @@ def device_ms(fn, iters: int = 50) -> float:
                 fn()
             torch.cuda.synchronize()
         us = sum(device_time_by_kernel(prof).values())
-        events = sum(e.count for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        events = sum(n for _, n, _ in device_events(prof))
         if us > 0 and events > 0:
             got.append((events, us))
             if len(got) == 3:
@@ -242,15 +264,8 @@ def device_ms_by_kernel(fn, iters: int = 20) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            if us and e.count:
-                per[e.key] = (e.count, float(us))
+        per = {key: (n, us) for key, n, us in device_events(prof)
+               if us and n}
         if per:
             sessions.append(per)
             if len(sessions) == 3:
@@ -1527,14 +1542,9 @@ def lenet(kernels) -> dict:
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+    for key, _, us in device_events(prof):
         if us:
-            by_name[e.key] = by_name.get(e.key, 0.0) + float(us)
+            by_name[key] = by_name.get(key, 0.0) + us
     by_family = {}
     for name, us in by_name.items():
         fam = _lenet_family(name)
@@ -1661,14 +1671,7 @@ def device_us_by_family(prof, family) -> dict:
             fam = family(k.name, chain)
             out[fam] = out.get(fam, 0.0) + float(k.duration)
             linked += float(k.duration)
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        total += float(us or 0.0)
+    total = sum(us for _, _, us in device_events(prof))
     if total > linked:
         out["unlinked"] = total - linked
     return out
@@ -1982,14 +1985,9 @@ def resnet(kernels) -> dict:
         prof_ms = 1e3 * (time.perf_counter() - t0)
     by_family = device_us_by_family(prof, _resnet_family)
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+    for key, _, us in device_events(prof):
         if us:
-            by_name[e.key] = by_name.get(e.key, 0.0) + float(us)
+            by_name[key] = by_name.get(key, 0.0) + us
     busy_us = sum(by_name.values())
     if busy_us <= 0:
         fail("the profiler saw no device time in the ResNet-50 step")
@@ -2084,6 +2082,512 @@ def resnet(kernels) -> dict:
     return result
 
 
+#: the K-step phase (nn/ksteps.py: a CUDA graph of the train step, replayed
+#: once a step): full-width LeNet, a 20-batch fit_iterator epoch at
+#: ksteps 8 (groups of 8, 8 and 4); full-width transformer_lm(256),
+#: fit(x, y, epochs=8) at dispatch_ksteps 4; full-depth resnet50(), 4 steps
+#: at 64x64 and B = 8, then fit(epochs=4) at 224x224, B = 128. Each against
+#: eager single steps from one init, then timed in turns (eager, K-step,
+#: K-step, eager) after a warm-up call and profiled once
+KS_LENET_K, KS_TRANSFORMER_K, KS_TRANSFORMER_STEPS, KS_RES_K = 8, 4, 8, 4
+#: a replayed step against an eager one on the card from one state: the
+#: same kernels on the same inputs (cuDNN deterministic for the check), but
+#: the scalars a learning-rate policy and Adam's bias correction read come
+#: from the card in a replay and from the host in an eager step: losses
+#: within 1e-5 relative, params and running statistics within 1e-5 of each
+#: leaf's largest magnitude
+KS_TOL = 1e-5
+#: (name, result, eager run, K-step run, steps) of the K-step timings whose
+#: profiled call waits until the host-bound paths have been timed: a
+#: profiler session may leave the process's later launches slower on the
+#: host
+PROFILE_LATER: list = []
+#: the graph_rnn phase: char_rnn_lstm(64)'s layers built as a
+#: ComputationGraph (2 x GravesLSTM(200), RnnOutput(64), mcxent, TBPTT 50,
+#: RMSProp 0.95 at RNN_LR): 2 batches of [32, 200, 64] (8 chunks) and a
+#: 64-step rnn_time_step and /v1/stream session, against the CPU
+RNN_STREAM_STEPS = 64
+
+
+def _launches(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def _zero(kernels) -> None:
+    for fn in kernels:
+        fn.launches = 0
+
+
+def _leaf_errs(a, b) -> dict:
+    """Each leaf's largest difference over its largest magnitude, for two
+    nested lists or dicts of tensors (params, or layer states)."""
+    out = {}
+    items = a.items() if isinstance(a, dict) else enumerate(a)
+    for i, leaves in items:
+        for k, v in leaves.items():
+            v, w = v.detach(), b[i][k].detach()
+            out[f"{i}.{k}"] = float((v - w).abs().max()) / max(
+                float(w.abs().max()), 1e-12)
+    return out
+
+
+def _compare(name, card_losses, eager_losses, pairs) -> dict:
+    """Losses and leaf errors of a K-step run against the eager one; fails
+    the phase past KS_TOL."""
+    rel = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(card_losses, eager_losses))
+    errs = {}
+    for a, b in pairs:
+        errs.update(_leaf_errs(a, b))
+    worst = max(errs.values()) if errs else 0.0
+    print(f"ksteps {name}: K-step losses {card_losses}; eager "
+          f"{eager_losses}; worst relative loss difference {rel:.3e}, worst "
+          f"leaf {worst:.3e} (tol {KS_TOL:.0e})", flush=True)
+    if len(card_losses) != len(eager_losses) or not rel <= KS_TOL \
+            or not worst <= KS_TOL or not all(np.isfinite(card_losses)):
+        fail(f"{name}: the K-step run disagrees with eager single steps "
+             f"(losses {rel}, worst leaf {worst})")
+    return {"losses": card_losses, "eager_losses": eager_losses,
+            "worst_rel_loss_diff": rel, "worst_leaf_rel_err": worst}
+
+
+def _device_us(prof) -> float:
+    return sum(device_time_by_kernel(prof).values())
+
+
+def _timed_pair(name, eager_run, kstep_run, steps: int,
+                profile_now: bool = True) -> dict:
+    """Wall ms a step of both runs in turns (eager, K-step, K-step, eager;
+    host clock around calls that end in a synchronize) and the peak memory
+    of each; then (:func:`_profile_pair`, at once or, with ``profile_now``
+    False, from PROFILE_LATER after the phases that time host-bound paths)
+    one profiled call of each."""
+    walls = {"eager": [], "kstep": []}
+    peaks = {"eager": 0, "kstep": 0}
+    for which in ("eager", "kstep", "kstep", "eager"):
+        run = eager_run if which == "eager" else kstep_run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls[which].append(1e3 * (time.perf_counter() - t0) / steps)
+        peaks[which] = max(peaks[which], torch.cuda.max_memory_allocated())
+    out = {which: {"wall_ms_per_step": float(np.mean(walls[which])),
+                   "wall_ms_runs": walls[which],
+                   "peak_memory_bytes": peaks[which]}
+           for which in ("eager", "kstep")}
+    pending = (name, out, eager_run, kstep_run, steps)
+    if profile_now:
+        _profile_pair(*pending)
+    else:
+        PROFILE_LATER.append(pending)
+    return out
+
+
+def _profile_pair(name, out, eager_run, kstep_run, steps: int) -> None:
+    """One profiled call of each run: device µs a step and the idle share
+    (against the unprofiled wall time) added to ``out``."""
+    for which, run in (("eager", eager_run), ("kstep", kstep_run)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0) / steps
+        dev_us = _device_us(prof) / steps
+        if dev_us <= 0:
+            fail(f"{name}: the profiler saw no device time in the {which} "
+                 "run")
+        o = out[which]
+        o.update(device_us_per_step=dev_us,
+                 idle_share=1.0 - dev_us / 1e3 / o["wall_ms_per_step"],
+                 profiled_ms_per_step=prof_ms,
+                 idle_share_profiled=1.0 - dev_us / 1e3 / prof_ms)
+    e, k = out["eager"], out["kstep"]
+    print(f"ksteps {name} timing [{CARD}]: K-step {k['wall_ms_per_step']:.3f} "
+          f"ms a step (runs {[round(v, 3) for v in k['wall_ms_runs']]}), "
+          f"device {k['device_us_per_step']:.1f} us, idle share "
+          f"{k['idle_share']:.3f}, peak {k['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; eager {e['wall_ms_per_step']:.3f} ms (runs "
+          f"{[round(v, 3) for v in e['wall_ms_runs']]}), device "
+          f"{e['device_us_per_step']:.1f} us, idle share "
+          f"{e['idle_share']:.3f}, peak {e['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; speed-up {e['wall_ms_per_step'] / k['wall_ms_per_step']:.2f}x",
+          flush=True)
+
+
+def _graph_counts(net, launches: dict) -> dict:
+    """The replays of a network's captured steps, each kernel's launches a
+    replay and the graphs' memory pools, beside the launches counted."""
+    per = {}
+    replays = pool = 0
+    for sg in net._step_graphs.values():
+        replays += sg.replays
+        pool += sg.pool_bytes
+        for fn, n in sg.per_replay.items():
+            per[fn.__name__] = per.get(fn.__name__, 0) + n
+    return {"replays": replays, "captured_per_replay": per,
+            "graph_pool_bytes": pool, "launches": launches}
+
+
+def _footprint(timing: dict, graphs: dict) -> None:
+    """The K-step run's peak memory with the graph's pool added: the
+    allocator's peak of allocated bytes does not count the pool's blocks
+    between replays."""
+    k = timing["kstep"]
+    k["footprint_bytes"] = k["peak_memory_bytes"] + graphs["graph_pool_bytes"]
+    print(f"  K-step peak {k['peak_memory_bytes'] / 2**30:.3f} GiB allocated "
+          f"+ graph pool {graphs['graph_pool_bytes'] / 2**30:.3f} GiB = "
+          f"{k['footprint_bytes'] / 2**30:.3f} GiB; eager peak "
+          f"{timing['eager']['peak_memory_bytes'] / 2**30:.3f} GiB",
+          flush=True)
+
+
+def ksteps_lenet(kernels) -> dict:
+    """A 20-batch fit_iterator epoch of full-width LeNet at ksteps 8 against
+    the same epoch in single steps, from one init."""
+    def epoch():
+        return MnistDataSetIterator(
+            LENET_B, num_examples=LENET_B * LENET_EPOCH_BATCHES)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        k = MultiLayerNetwork(lenet_mnist(), device="cuda").init(seed=SEED)
+        e = k.clone()
+        logs = {}
+        counts = {}
+        for name, net, ks in (("kstep", k, KS_LENET_K), ("eager", e, 1)):
+            logs[name] = []
+            net.set_listeners(_LossLog(logs[name]))
+            _zero(kernels)
+            net.fit_iterator(epoch(), ksteps=ks)
+            torch.cuda.synchronize()
+            counts[name] = _launches(kernels)
+            net.set_listeners()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check = _compare("lenet", logs["kstep"], logs["eager"],
+                     [(k.params_list, e.params_list)])
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = LENET_EPOCH_BATCHES
+    graphs = _graph_counts(k, counts["kstep"])
+    groups = [KS_LENET_K, KS_LENET_K,
+              LENET_EPOCH_BATCHES - 2 * KS_LENET_K]
+    print(f"ksteps lenet: launches K-step {counts['kstep']}, eager "
+          f"{counts['eager']}; {graphs['replays']} replays of "
+          f"{graphs['captured_per_replay']} (groups {groups}, a group's "
+          f"first step of new shapes captures)", flush=True)
+    if counts["kstep"] != want or counts["eager"] != want \
+            or graphs["replays"] != LENET_EPOCH_BATCHES - 1 \
+            or graphs["captured_per_replay"] != {"softmax_cross_entropy": 1}:
+        fail(f"LeNet K-step launches {counts} or replays {graphs} wrong")
+
+    k2 = MultiLayerNetwork(lenet_mnist(), device="cuda").init(seed=SEED + 7)
+    e2 = k2.clone()
+    it_k, it_e = epoch(), epoch()
+    k2.fit_iterator(it_k, ksteps=KS_LENET_K)  # captures
+    e2.fit_iterator(it_e, ksteps=1)
+    timing = _timed_pair(
+        "lenet (B = 128, a fit_iterator epoch of 20 batches)",
+        lambda: e2.fit_iterator(it_e, ksteps=1),
+        lambda: k2.fit_iterator(it_k, ksteps=KS_LENET_K),
+        LENET_EPOCH_BATCHES, profile_now=False)
+    _footprint(timing, _graph_counts(k2, {}))
+    pf = k2.prefetcher
+    timing["prefetch"] = {"staged": pf.staged, "bytes": pf.bytes,
+                          "staging_s": pf.staging_s, "wait_s": pf.wait_s}
+    print(f"  the last timed K-step epoch's prefetcher: {pf.staged} groups, "
+          f"{pf.bytes / 2**20:.2f} MiB staged, {1e3 * pf.staging_s:.3f} ms "
+          f"staging on its thread, {1e3 * pf.wait_s:.3f} ms waited for",
+          flush=True)
+    return {**check, **graphs, "eager_launches": counts["eager"],
+            "groups": groups, **timing}
+
+
+def ksteps_transformer(kernels) -> dict:
+    """fit(x, y, epochs=8) of full-width transformer_lm(256) at B = 16,
+    T = 256 (Adam at 3e-4) at dispatch_ksteps 4 against 8 single steps."""
+    conf = transformer_lm(TRAIN_V)
+    ids = np.random.default_rng(SEED + 11).integers(
+        0, TRAIN_V, size=(TRAIN_B, TRAIN_T))
+    x = np.eye(TRAIN_V, dtype=np.float32)[ids]
+    k = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    k.dispatch_ksteps = KS_TRANSFORMER_K
+    e = k.clone()
+    e.dispatch_ksteps = 1
+    logs, counts = {}, {}
+    for name, net in (("kstep", k), ("eager", e)):
+        logs[name] = []
+        net.set_listeners(_LossLog(logs[name]))
+        _zero(kernels)
+        net.fit(x, x, epochs=KS_TRANSFORMER_STEPS)
+        torch.cuda.synchronize()
+        counts[name] = _launches(kernels)
+        net.set_listeners()
+    check = _compare("transformer", logs["kstep"], logs["eager"],
+                     [(k.params_list, e.params_list)])
+    n = KS_TRANSFORMER_STEPS
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update(softmax_cross_entropy=n, flash_fwd=4 * n, flash_bwd_dq=4 * n,
+                flash_bwd_dkv=4 * n)
+    graphs = _graph_counts(k, counts["kstep"])
+    print(f"ksteps transformer: launches K-step {counts['kstep']}, eager "
+          f"{counts['eager']}; {graphs['replays']} replays of "
+          f"{graphs['captured_per_replay']}", flush=True)
+    if counts["kstep"] != want or counts["eager"] != want \
+            or graphs["replays"] != n - 1:
+        fail(f"transformer K-step launches {counts} or replays {graphs} "
+             "wrong")
+    timing = _timed_pair(
+        "transformer (B = 16, T = 256, fit(epochs=8))",
+        lambda: e.fit(x, x, epochs=n), lambda: k.fit(x, x, epochs=n), n,
+        profile_now=False)
+    _footprint(timing, graphs)
+    return {**check, **graphs, "eager_launches": counts["eager"], **timing}
+
+
+def ksteps_resnet(kernels) -> dict:
+    """Full-depth resnet50(): 4 steps at 64x64, B = 8, K-step against eager
+    (losses, params, batch norm's running statistics), then fit(epochs=4)
+    at 224x224, B = 128, timed beside the eager steps."""
+    from deeplearning4j_tpu_torch.nn.graph_network import MultiDataSet
+
+    g = torch.Generator().manual_seed(SEED + 61)
+    x, y = _res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")
+    mds = MultiDataSet([x.numpy()], [y.numpy()])
+    torch.backends.cudnn.deterministic = True
+    try:
+        k = ComputationGraph(resnet50(n_classes=RES_CLASSES,
+                                      image_size=RES_CHECK_SIZE),
+                             device="cuda").init(seed=SEED)
+        k.dispatch_ksteps = KS_RES_K
+        e = k.clone()
+        e.dispatch_ksteps = 1
+        logs, counts = {}, {}
+        for name, net in (("kstep", k), ("eager", e)):
+            logs[name] = []
+            net.set_listeners(_LossLog(logs[name]))
+            _zero(kernels)
+            net.fit(mds, epochs=KS_RES_K)
+            torch.cuda.synchronize()
+            counts[name] = _launches(kernels)
+            net.set_listeners()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check = _compare("resnet50 (64x64, B = 8)", logs["kstep"],
+                     logs["eager"], [(k.params_list, e.params_list),
+                                     (k.state_list, e.state_list)])
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = KS_RES_K
+    if counts["kstep"] != want or counts["eager"] != want:
+        fail(f"ResNet-50 K-step launches {counts} != {want}")
+    del k, e
+
+    conf = resnet50(n_classes=RES_CLASSES, image_size=RES_SIZE)
+    xb, yb = _res_batch(torch.Generator().manual_seed(SEED + 62), RES_B,
+                        RES_SIZE, RES_CLASSES, "cuda")
+    big = MultiDataSet([xb], [yb])
+    k = ComputationGraph(conf, device="cuda").init(seed=SEED)
+    k.dispatch_ksteps = KS_RES_K
+    e = k.clone()
+    e.dispatch_ksteps = 1
+    _zero(kernels)
+    t0 = time.perf_counter()
+    k.fit(big, epochs=KS_RES_K)  # the first step captures
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    e.fit(big, epochs=KS_RES_K)
+    torch.cuda.synchronize()
+    timing = _timed_pair(
+        f"resnet50 (224x224x3, B = {RES_B}, fit(epochs={KS_RES_K}))",
+        lambda: e.fit(big, epochs=KS_RES_K),
+        lambda: k.fit(big, epochs=KS_RES_K), KS_RES_K)
+    launches = _launches(kernels)
+    graphs = _graph_counts(k, launches)
+    _footprint(timing, graphs)
+    # on each network: the first call, two timed and one profiled
+    n_calls = 1 + 2 + 1
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = 2 * n_calls * KS_RES_K
+    print(f"ksteps resnet50: launches at 64x64 K-step {counts['kstep']}, "
+          f"eager {counts['eager']}; at 224x224 (both networks) {launches}, "
+          f"{graphs['replays']} replays of {graphs['captured_per_replay']}",
+          flush=True)
+    if launches != want or graphs["replays"] != n_calls * KS_RES_K - 1:
+        fail(f"ResNet-50 K-step launches {launches} or replays {graphs} "
+             "wrong at 224x224")
+    out = {**check, "check_launches": counts, **graphs,
+           "first_call_s": capture_s, **timing}
+    del k, e
+    torch.cuda.empty_cache()
+    return out
+
+
+def char_rnn_graph(device):
+    """char_rnn_lstm(64)'s layers (2 x GravesLSTM(200), RnnOutput(64),
+    mcxent, TBPTT 50, RMSProp 0.95 at RNN_LR, Xavier) built with the
+    port's graph builder, on ``device``, from SEED."""
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as TL
+
+    lstm = dict(activation="tanh", forget_gate_bias_init=1.0,
+                gate_activation="sigmoid")
+    conf = (NeuralNetConfiguration.builder().seed(SEED)
+            .learning_rate(RNN_LR).updater("rmsprop").rms_decay(0.95)
+            .weight_init("xavier").graph_builder().add_inputs("in")
+            .add_layer("l0", TL.GravesLSTM.conf(n_in=RNN_V, n_out=RNN_H,
+                                                **lstm), "in")
+            .add_layer("l1", TL.GravesLSTM.conf(n_in=RNN_H, n_out=RNN_H,
+                                                **lstm), "l0")
+            .add_layer("out", TL.RnnOutputLayer.conf(
+                n_in=RNN_H, n_out=RNN_V, loss="mcxent",
+                activation="softmax"), "l1")
+            .set_outputs("out").backprop_type("TruncatedBPTT")
+            .t_bptt_forward_length(RNN_CHUNK).build())
+    return ComputationGraph(conf, device=device).init(seed=SEED)
+
+
+def graph_rnn(kernels) -> dict:
+    """char_rnn as a graph: 8 TBPTT chunks on the card against the CPU, a
+    64-step rnn_time_step and a 64-step /v1/stream session against the CPU
+    rnn_time_step, with exact launches; then chunk timing and one profiled
+    batch."""
+    from deeplearning4j_tpu_torch.nn.graph_network import MultiDataSet
+
+    net = char_rnn_graph("cuda")
+    ref = net.clone(device="cpu")
+    rng = np.random.default_rng(SEED + 21)
+    batches = [MultiDataSet([b], [b]) for b in (
+        _one_hot(rng.integers(0, RNN_V, size=(RNN_B, RNN_T)))
+        for _ in range(RNN_BATCHES))]
+    n_chunks = RNN_BATCHES * (RNN_T // RNN_CHUNK)
+    losses, ref_losses = [], []
+    net.set_listeners(_LossLog(losses))
+    ref.set_listeners(_LossLog(ref_losses))
+    _zero(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for mds in batches:
+        net.fit(mds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    for mds in batches:
+        ref.fit(mds)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"graph_rnn TBPTT: card chunk losses {losses}; CPU {ref_losses}; "
+          f"worst relative difference {max(rel):.3e} (tol 1e-4); {n_chunks} "
+          f"chunks in {first_s:.3f}s (first included); launches {launches}",
+          flush=True)
+    if len(losses) != n_chunks or not all(np.isfinite(losses)) \
+            or not max(rel) <= 1e-4:
+        fail(f"graph char_rnn chunk losses {losses} disagree with the CPU "
+             f"{ref_losses}")
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update(lstm_fwd=2 * n_chunks, lstm_bwd=2 * n_chunks,
+                softmax_cross_entropy=n_chunks)
+    if launches != want:
+        fail(f"graph char_rnn launch counts {launches} != {want}")
+
+    # rnn_time_step, one step a call, against the CPU forward of the card's
+    # own trained weights
+    ids = rng.integers(0, RNN_V, size=(1, RNN_STREAM_STEPS))
+    xs = _one_hot(ids)
+    own = net.clone(device="cpu")
+    net.rnn_clear_previous_state()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    outs = [net.rnn_time_step(xs[:, t:t + 1])[0].cpu()
+            for t in range(RNN_STREAM_STEPS)]
+    step_ms = 1e3 * (time.perf_counter() - t0) / RNN_STREAM_STEPS
+    step_launches = _launches(kernels)
+    want_out = own.rnn_time_step(xs)[0]
+    step_err = float((torch.cat(outs, dim=1) - want_out).abs().max())
+
+    # /v1/stream: the same 64 steps in two requests
+    srv = InferenceServer(device="cuda")
+    srv.start()
+    try:
+        srv.register("char_graph", net)
+        _zero(kernels)
+        souts = []
+        t0 = time.perf_counter()
+        for part in (xs[:, :32], xs[:, 32:]):
+            code, text = post(srv.port, "/v1/stream",
+                              {"model": "char_graph", "session": "g1",
+                               "inputs": part.tolist()})
+            if code != 200:
+                fail(f"/v1/stream (graph) returned {code}: {text[:500]}")
+            lines = [json.loads(l) for l in text.splitlines() if l.strip()]
+            if not lines[-1].get("done") or len(lines) != 33:
+                fail(f"/v1/stream (graph) gave {len(lines)} lines, last "
+                     f"{lines[-1]}")
+            souts += [np.asarray(l["output"], np.float32)[0]
+                      for l in lines[:-1]]
+        stream_s = time.perf_counter() - t0
+        stream_launches = _launches(kernels)
+    finally:
+        srv.stop()
+    stream_err = float(np.abs(np.stack(souts) - want_out.numpy()[0]).max())
+    print(f"graph_rnn rnn_time_step: {RNN_STREAM_STEPS} steps, "
+          f"{step_ms:.3f} ms a step, max_abs_err {step_err:.3e} (tol 1e-5), "
+          f"launches {step_launches}; /v1/stream {RNN_STREAM_STEPS} steps in "
+          f"two requests in {stream_s:.3f}s, max_abs_err {stream_err:.3e} "
+          f"(tol 1e-5), launches {stream_launches}", flush=True)
+    if not step_err <= 1e-5 or not stream_err <= 1e-5:
+        fail(f"graph streaming disagrees with the CPU rnn_time_step: "
+             f"{step_err}, {stream_err}")
+    want_s = {fn.__name__: 0 for fn in kernels}
+    want_s["lstm_fwd"] = 2 * RNN_STREAM_STEPS
+    if step_launches != want_s or stream_launches != want_s:
+        fail(f"graph streaming launches {step_launches}, {stream_launches} "
+             f"!= {want_s}")
+
+    # chunk timing and one profiled batch (host clock, synchronized)
+    net.set_listeners()
+    per_batch = RNN_T // RNN_CHUNK
+    net.fit(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        net.fit(batches[0])
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t0) / (3 * per_batch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(batches[0])
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = device_time_by_kernel(prof)
+    busy_us = sum(by_kernel.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the graph char_rnn batch")
+    result = {
+        "losses": losses, "cpu_losses": ref_losses, "worst_rel_diff": max(rel),
+        "launches": launches, "step_launches": step_launches,
+        "stream_launches": stream_launches,
+        "rnn_time_step_max_abs_err": step_err,
+        "rnn_time_step_ms": step_ms, "stream_max_abs_err": stream_err,
+        "stream_ms_per_step": 1e3 * stream_s / RNN_STREAM_STEPS,
+        "chunk_ms": chunk_ms, "replays": 0,
+        "device_us_per_chunk": busy_us / per_batch,
+        "device_us_by_kernel": by_kernel,
+        "idle_share": 1.0 - busy_us / 1e3 / (chunk_ms * per_batch),
+        "idle_share_profiled": 1.0 - busy_us / 1e3 / prof_ms,
+        "peak_memory_bytes": peak}
+    print(f"graph_rnn chunk: {chunk_ms:.3f} ms wall, device "
+          f"{result['device_us_per_chunk']:.1f} us a chunk, idle share "
+          f"{result['idle_share']:.3f} ({result['idle_share_profiled']:.3f} "
+          f"profiled), peak {peak / 2**30:.3f} GiB, no replays (TBPTT takes "
+          f"single steps) [{CARD}]", flush=True)
+    return result
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2120,6 +2624,9 @@ def main() -> None:
                flash_bwd_dq, flash_bwd_dkv, lstm_ops.lstm_fwd,
                lstm_ops.lstm_bwd)
     served = serve(kernels[:3])
+    # the host-bound K-step paths are timed before any profiler session
+    kstep_run = {"lenet": ksteps_lenet(kernels),
+                 "transformer": ksteps_transformer(kernels)}
     trained = train(kernels[:6])
     wide = train_wide(kernels)
     wide2 = train_wide(kernels, n_heads=WIDE2_HEADS)
@@ -2127,6 +2634,10 @@ def main() -> None:
     trained_rnn = train_lstm(kernels)
     lenet_run = lenet(kernels)
     resnet_run = resnet(kernels)
+    for pending in PROFILE_LATER:
+        _profile_pair(*pending)
+    kstep_run["resnet50"] = ksteps_resnet(kernels)
+    graph_rnn_run = graph_rnn(kernels)
     measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
@@ -2195,7 +2706,12 @@ def main() -> None:
             # the forward also runs in decode and streaming, at T = 1
             by_path = {"decode": served_rnn["decode_launches"][fname],
                        "stream": served_rnn["stream_launches"][fname],
-                       "train": trained_rnn["launches"][fname]}
+                       "train": trained_rnn["launches"][fname],
+                       "graph_rnn_tbptt": graph_rnn_run["launches"][fname],
+                       "graph_rnn_time_step":
+                           graph_rnn_run["step_launches"][fname],
+                       "graph_rnn_stream":
+                           graph_rnn_run["stream_launches"][fname]}
             entry = {"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": by_path["train"],
                      "launches_by_path": by_path,
@@ -2217,7 +2733,12 @@ def main() -> None:
                    + served_rnn["decode_launches"][fname]
                    + served_rnn["stream_launches"][fname],
                    "lenet": lenet_run["launches"][fname],
-                   "resnet50": resnet_run["launches"][fname]}
+                   "resnet50": resnet_run["launches"][fname],
+                   "graph_rnn": graph_rnn_run["launches"][fname]}
+        # the K-step paths: launches counted as the replays count them
+        # (each replay adds its capture's launches)
+        for path, run in kstep_run.items():
+            by_path[f"ksteps_{path}"] = run["launches"][fname]
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": by_path["train" if name in
@@ -2259,7 +2780,8 @@ def main() -> None:
                    "train_wide_d256": wide2, "flash_bwd_wide_edges": WIDE_EDGES,
                    "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "lenet": lenet_run,
-                   "resnet50": resnet_run,
+                   "resnet50": resnet_run, "ksteps": kstep_run,
+                   "graph_rnn": graph_rnn_run,
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

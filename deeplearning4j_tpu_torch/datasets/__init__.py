@@ -6,8 +6,10 @@ from .iterators import (
     ExistingDataSetIterator, ListDataSetIterator, MultipleEpochsIterator,
     SamplingDataSetIterator)
 from .mnist import MnistDataSetIterator
+from .prefetch import DevicePrefetcher
 
 __all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator", "DataSet",
-           "DataSetIterator", "ExistingDataSetIterator", "ListDataSetIterator",
+           "DataSetIterator", "DevicePrefetcher", "ExistingDataSetIterator",
+           "ListDataSetIterator",
            "MnistDataSetIterator", "MultipleEpochsIterator",
            "SamplingDataSetIterator"]

@@ -8,13 +8,12 @@ sampling with replacement, and pre-built datasets. Each yields
 """
 from __future__ import annotations
 
-import queue
-import threading
 from typing import Iterator, Optional
 
 import numpy as np
 
 from .dataset import DataSet
+from .prefetch import DevicePrefetcher
 
 
 class DataSetIterator:
@@ -94,66 +93,6 @@ class ArrayDataSetIterator(DataSetIterator):
         return int(self.features.shape[0])
 
 
-_DONE = object()
-
-
-class _Prefetch:
-    """One pass over ``source`` on a thread, handed over in order through a
-    bounded queue. An error of the source reaches the consumer after every
-    item before it; ``close()`` stops the thread even when the consumer left
-    early (the bounded put polls a stop flag)."""
-
-    def __init__(self, source, depth: int):
-        self._source = source
-        self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
-        self._stop = threading.Event()
-        self._error: Optional[BaseException] = None
-        self.thread = threading.Thread(target=self._run, daemon=True,
-                                       name="dataset-prefetch")
-
-    def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def _run(self) -> None:
-        try:
-            for item in self._source:
-                if not self._put(item):
-                    return
-        except Exception as e:  # handed to the consumer, in order
-            self._error = e
-        finally:
-            self._put(_DONE)
-
-    def __iter__(self):
-        self.thread.start()
-        try:
-            while True:
-                item = self._q.get()
-                if item is _DONE:
-                    if self._error is not None:
-                        raise self._error
-                    return
-                yield item
-        finally:
-            self.close()
-
-    def close(self) -> None:
-        self._stop.set()
-        while True:
-            try:
-                self._q.get_nowait()
-            except queue.Empty:
-                break
-        if self.thread.is_alive():
-            self.thread.join(timeout=5.0)
-
-
 class AsyncDataSetIterator(DataSetIterator):
     """Prefetches ``base``'s batches on a background thread, up to
     ``queue_size`` ahead, in ``base``'s order."""
@@ -161,11 +100,11 @@ class AsyncDataSetIterator(DataSetIterator):
     def __init__(self, base: DataSetIterator, queue_size: int = 4):
         self.base = base
         self.queue_size = queue_size
-        self._pf: Optional[_Prefetch] = None  # the latest producer
+        self._pf: Optional[DevicePrefetcher] = None  # the latest producer
 
     def __iter__(self):
         self.close()  # a new pass abandons the previous producer
-        self._pf = _Prefetch(self.base, self.queue_size)
+        self._pf = DevicePrefetcher(self.base, depth=max(1, self.queue_size))
         return iter(self._pf)
 
     def close(self) -> None:

@@ -15,7 +15,6 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
-from ..nn.graph_network import ComputationGraph
 from ..nn.inference import PredictFn
 
 
@@ -29,10 +28,8 @@ class ModelVersion:
         self.predict_fn = predict_fn
         #: serving dtype policy of this version (None, or "int8")
         self.quant = predict_fn.quant
-        #: whether /v1/stream can serve it (the rnn_time_step seam; not
-        #: ported for a ComputationGraph)
-        self.streaming_capable = (hasattr(net, "rnn_time_step")
-                                  and not isinstance(net, ComputationGraph))
+        #: whether /v1/stream can serve it (the rnn_time_step seam)
+        self.streaming_capable = hasattr(net, "rnn_time_step")
 
     def describe(self) -> dict:
         return {"name": self.name, "version": self.version,

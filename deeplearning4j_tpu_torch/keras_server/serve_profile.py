@@ -58,25 +58,38 @@ OURS = {"int8_matmul_kernel": "int8_matmul", "paged_gather_kernel": "paged_gathe
         "lstm_sum_kernel": "lstm_bwd"}
 
 
-def device_time_by_kernel(prof) -> dict:
-    """Device microseconds per kernel family from a profiler run, summed
-    over the device events (kernels and copies) alone: the profiler also
-    credits a kernel to the PyTorch op that launched it on the profiling
-    thread, so a sum over every event counts those kernels twice."""
-    out: dict = {}
+def device_events(prof):
+    """``(name, events, device µs)`` of each device event (kernels and
+    copies) among a profile's averages. A ``record_function`` range (the
+    port's are named ``dl4j::...``) also shows on the device, as a user
+    annotation spanning its kernels: it is left out, or its span would count
+    those kernels again, with the gaps between them."""
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("dl4j::"):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
+        yield e.key, e.count, float(us or 0.0)
+
+
+def device_time_by_kernel(prof) -> dict:
+    """Device microseconds per kernel family from a profiler run, summed
+    over the device events (kernels and copies) alone (:func:`device_events`):
+    the profiler also credits a kernel to the PyTorch op that launched it on
+    the profiling thread, so a sum over every event counts those kernels
+    twice."""
+    out: dict = {}
+    for key, _, us in device_events(prof):
         if not us:
             continue
-        name = next((v for k, v in OURS.items() if k in e.key), None)
+        name = next((v for k, v in OURS.items() if k in key), None)
         if name is None:
-            name = "memcpy/memset" if "Memcpy" in e.key or "Memset" in e.key \
+            name = "memcpy/memset" if "Memcpy" in key or "Memset" in key \
                 else "other PyTorch kernels"
-        out[name] = out.get(name, 0.0) + float(us)
+        out[name] = out.get(name, 0.0) + us
     return out
 
 

@@ -7,7 +7,9 @@ sessions over ``rnn_time_step`` and ``rnn_get/set_previous_state``:
   streaming state never touches the registry's pinned predict snapshot, and
   shared by every session of that version;
 - each session's state is parked between calls and swapped into the clone
-  under the model's lock for each step;
+  under the model's lock for each step: a ``MultiLayerNetwork``'s list by
+  layer or a ``ComputationGraph``'s dict by vertex (a graph of one input
+  and one output; its ``rnn_time_step`` returns a list of outputs);
 - sessions idle past ``ttl_s`` are evicted on the next touch; eviction and
   ``reset`` release the parked state: the clone's live ``_rnn_state`` is
   un-aliased first (the most recently stepped session's parked state *is*
@@ -36,7 +38,7 @@ class _StreamModel:
         self.net = net.clone(device=device)
         self.lock = threading.Lock()
         #: session id -> (parked rnn state, last-touch monotonic time)
-        self.states: Dict[str, Tuple[list, float]] = {}
+        self.states: Dict[str, Tuple[object, float]] = {}
 
 
 class StreamSessions:
@@ -74,6 +76,8 @@ class StreamSessions:
         clone's live state first, then drop every tensor."""
         if sm.net.rnn_get_previous_state() is state:
             sm.net.rnn_clear_previous_state()
+        if isinstance(state, dict):  # a graph's, by vertex
+            state = state.values()
         for layer_state in state or ():
             layer_state.clear()
 
@@ -101,7 +105,10 @@ class StreamSessions:
             parked = sm.states.get(session)
             sm.net.rnn_set_previous_state(
                 parked[0] if parked is not None else None)
-            out = sm.net.rnn_time_step(x).cpu().numpy()
+            out = sm.net.rnn_time_step(x)
+            if isinstance(out, list):  # a graph's outputs
+                out = out[0]
+            out = out.cpu().numpy()
             sm.states[session] = (sm.net.rnn_get_previous_state(), now)
         return {"output": out, "model": model, "version": version,
                 "session": session, "timesteps": int(x.shape[1])}

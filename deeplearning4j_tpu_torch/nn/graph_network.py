@@ -1,12 +1,15 @@
 """``ComputationGraph``: a DAG of vertices, run forward and trained.
 
 Counterpart of ``deeplearning4j_tpu/nn/graph_network.py``: ``MultiDataSet``,
-the pure functions (``graph_forward``, ``graph_loss``,
-``_apply_graph_updates``, ``make_graph_train_step``) and the stateful shell
-(``init``, ``output`` as a list, ``score``, ``fit`` on a ``DataSet``, a
-``MultiDataSet``, input and label lists or an iterable, ``fit_iterator``,
-``evaluate``, the flat ``params``/``set_params``/``num_params`` view,
-``score_examples``, ``gradient_and_score``, ``clone``).
+the pure functions (``graph_forward``, ``graph_forward_streaming``,
+``graph_loss``, ``_apply_graph_updates``, ``make_graph_train_step``,
+``make_graph_tbptt_step``) and the stateful shell (``init``, ``output`` as
+a list, ``score``, ``fit`` on a ``DataSet``, a ``MultiDataSet``, input and
+label lists or an iterable, ``fit_iterator`` with the K-step dispatch of
+``nn/ksteps.py``, truncated BPTT, ``evaluate``, the flat
+``params``/``set_params``/``num_params`` view, ``score_examples``,
+``gradient_and_score``, the recurrent API ``rnn_time_step`` and the
+previous-state accessors, ``clone``).
 
 The forward walks the vertices in the configuration's topological order.
 Masks are routed per input stream: a vertex takes the first mask among its
@@ -24,10 +27,13 @@ The params, states and updater state are dicts by vertex name (``{}`` for
 a vertex without params), as in the JAX package; the flat view follows the
 JAX pytree order: vertex names sorted, then param names sorted.
 
+Truncated BPTT cuts every input, label and mask along the time axis (1)
+into ``tbptt_fwd_length`` chunks, one update a chunk; each streaming LSTM
+vertex carries its ``h``/``c`` across the chunks of a batch, detached at
+each boundary (the truncation), from zeros for every batch.
+
 Not ported yet, and each raises ``NotImplementedError`` (ROADMAP.md):
-truncated BPTT and ``rnn_time_step`` on a graph, layerwise pretraining, the
-``Solver`` algorithms other than SGD, and the K-step fused dispatch
-(``fit_iterator(ksteps=k > 1)``; ``fit(epochs=k)`` runs single steps).
+layerwise pretraining and the ``Solver`` algorithms other than SGD.
 """
 from __future__ import annotations
 
@@ -42,9 +48,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common import resolve_device
 from .conf.graphconf import ComputationGraphConfiguration
-from .conf.layers.recurrent import LSTM
+from .conf.layers.recurrent import streaming_lstm
 from .conf.serde import layer_class
 from .conf.vertices import LayerVertex
+from .ksteps import KStepFit, copy_into
 from .multilayer import (
     _SEED_RANGE, _dropout_gen, _layer_seeds, _numpy, _rewound, _updater_spec,
     load_states, update_layer, write_states)
@@ -115,6 +122,27 @@ def graph_forward(net, params: dict, states: dict, inputs: list, *,
     With ``gradient_checkpointing`` set, a training forward runs each layer
     vertex under ``torch.utils.checkpoint``; the state comes out of the
     first forward only."""
+    return _walk(net, params, states, inputs, train, rng, masks,
+                 collect_loss_inputs)[:3]
+
+
+def graph_forward_streaming(net, params: dict, states: dict,
+                            rnn_states: dict, inputs: list, *, train: bool,
+                            rng: Optional[int] = None,
+                            masks: Optional[list] = None,
+                            collect_loss_inputs: bool = False,
+                            truncate: bool = False):
+    """:func:`graph_forward` threading the streaming LSTM vertices' state:
+    each runs ``apply_streaming`` from its ``rnn_states`` entry (with the
+    vertex's mask) and hands on its final ``{"h", "c"}``, detached with
+    ``truncate`` (the TBPTT boundary). Returns ``(acts, new_states,
+    loss_inputs, new_rnn_states)``."""
+    return _walk(net, params, states, inputs, train, rng, masks,
+                 collect_loss_inputs, rnn_states, truncate)
+
+
+def _walk(net, params, states, inputs, train, rng, masks,
+          collect_loss_inputs, rnn_states=None, truncate=False):
     conf = net.conf
     acts: Dict[str, torch.Tensor] = dict(zip(conf.network_inputs, inputs))
     mask_of: Dict[str, Optional[torch.Tensor]] = dict.fromkeys(
@@ -122,6 +150,7 @@ def graph_forward(net, params: dict, states: dict, inputs: list, *,
     for i, name in enumerate(conf.network_inputs[:len(masks or [])]):
         mask_of[name] = masks[i]
     new_states: Dict[str, dict] = {}
+    new_rnn: Dict[str, dict] = {}
     loss_inputs: Dict[str, torch.Tensor] = {}
     order = net.order
     seeds = _layer_seeds(len(order), rng)
@@ -143,6 +172,14 @@ def graph_forward(net, params: dict, states: dict, inputs: list, *,
         if layer is None:
             acts[name], new_states[name] = vertex.apply(vins, mask), state
             continue
+        if rnn_states is not None and streaming_lstm(layer):
+            acts[name], rs = layer.apply_streaming(
+                params.get(name, {}), rnn_states.get(name, {}), vins[0],
+                mask=mask)
+            new_rnn[name] = ({k: v.detach() for k, v in rs.items()}
+                             if truncate else rs)
+            new_states[name] = state
+            continue
         if remat:
             def f(p, s, h, _layer=layer, _mask=mask, _gen_seed=seeds[i]):
                 return _layer.apply_with_state(
@@ -156,7 +193,9 @@ def graph_forward(net, params: dict, states: dict, inputs: list, *,
                 _dropout_gen(layer, seeds[i], vins[0].device))
         acts[name] = y
         new_states[name] = ns
-    return acts, new_states, loss_inputs
+    if rnn_states is not None:
+        new_rnn = {n: new_rnn.get(n, rnn_states.get(n, {})) for n in order}
+    return acts, new_states, loss_inputs, new_rnn
 
 
 def _output_losses(net, params, loss_inputs, labels, lmasks=None):
@@ -213,6 +252,43 @@ def _apply_graph_updates(net, params, loss, upd_state, iteration) -> dict:
     return new_upd
 
 
+def _init_graph_rnn_states(net, batch: int) -> dict:
+    """Zero ``{"h", "c"}`` for each streaming LSTM vertex, ``{}`` for the
+    others."""
+    states = {}
+    for name in net.order:
+        layer = net.vertex_layers.get(name)
+        if layer is not None and streaming_lstm(layer):
+            z = torch.zeros(batch, layer.n_out, dtype=torch.float32,
+                            device=net.device)
+            states[name] = {"h": z, "c": z.clone()}
+        else:
+            states[name] = {}
+    return states
+
+
+def make_graph_tbptt_step(net):
+    """The truncated-BPTT step over one chunk as a plain function:
+    ``(params, states, upd_state, rnn_states, inputs, labels, rng,
+    iteration, fmasks, lmasks) -> (states', upd_state', rnn_states',
+    loss)``: the streaming forward from the carried LSTM state (detached at
+    the chunk's end), the output layers' losses plus regularization, and
+    the update of every layer vertex, biases at their own rate, as the
+    graph's ordinary step."""
+
+    def tbptt_step(params, states, upd_state, rnn_states, inputs, labels,
+                   rng, iteration, fmasks=None, lmasks=None):
+        _, new_states, loss_inputs, new_rnn = graph_forward_streaming(
+            net, params, states, rnn_states, inputs, train=True, rng=rng,
+            masks=fmasks, collect_loss_inputs=True, truncate=True)
+        loss = _output_losses(net, params, loss_inputs, labels, lmasks)
+        loss = loss + _graph_regularization(net, params)
+        new_upd = _apply_graph_updates(net, params, loss, upd_state, iteration)
+        return new_states, new_upd, new_rnn, loss.detach()
+
+    return tbptt_step
+
+
 def make_graph_train_step(net):
     """The train step as a plain function: ``(params, states, upd_state,
     inputs, labels, rng, iteration, fmasks, lmasks) -> (states', upd_state',
@@ -228,7 +304,7 @@ def make_graph_train_step(net):
     return train_step
 
 
-class ComputationGraph(nn.Module):
+class ComputationGraph(KStepFit, nn.Module):
     """The vertices of ``conf`` on ``device`` (``None`` means CUDA)."""
 
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
@@ -262,6 +338,11 @@ class ComputationGraph(nn.Module):
         self._score = float("nan")
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
+        self._tbptt_step = None
+        #: the captured train steps of the K-step dispatch, by batch shapes
+        self._step_graphs: dict = {}
+        #: streaming state of ``rnn_time_step`` by vertex (None until it runs)
+        self._rnn_state: Optional[dict] = None
 
     # ------------------------------------------------------------------ lifecycle
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
@@ -277,6 +358,7 @@ class ComputationGraph(nn.Module):
             layer.reset_state()
         self._rng.manual_seed((int(seed) * 0x9E3779B1 + 0xC6) % _SEED_RANGE)
         self._init_updater_state()
+        self._drop_step_graphs()
         self._initialized = True
         return self
 
@@ -301,6 +383,7 @@ class ComputationGraph(nn.Module):
         way; names and shapes must match exactly. The updater state is
         zeroed unless one was loaded already."""
         self._check_names(params, "params")
+        self._drop_step_graphs()
         for name in self.order:
             layer = self.vertex_layers.get(name)
             own = {} if layer is None else layer.params()
@@ -329,6 +412,7 @@ class ComputationGraph(nn.Module):
         names = list(self.vertex_layers)
         load_states(list(self.vertex_layers.values()),
                     [states.get(n, {}) for n in names], names)
+        self._drop_step_graphs()
         return self
 
     @torch.no_grad()
@@ -357,6 +441,7 @@ class ComputationGraph(nn.Module):
                                        ).to(self.device) for k in slots}
         self.updater_state = new
         self.iteration = int(iteration)
+        self._drop_step_graphs()
         return self
 
     def _require_init(self) -> None:
@@ -404,6 +489,7 @@ class ComputationGraph(nn.Module):
         if flat.numel() != self.num_params():
             raise ValueError(f"{flat.numel()} values for {self.num_params()} "
                              "params")
+        self._drop_step_graphs()
         at = 0
         for t in self._flat_order():
             t.copy_(flat[at:at + t.numel()].reshape(t.shape))
@@ -548,63 +634,132 @@ class ComputationGraph(nn.Module):
                 "Solver algorithms)")
         if self.conf.pretrain:
             raise _not_ported("pretrain=True: layerwise pretraining")
-        if self.conf.backprop_type == "TruncatedBPTT" and any(
-                isinstance(l, LSTM) for l in self.vertex_layers.values()):
-            raise _not_ported("truncated BPTT on a ComputationGraph")
+
+    def _uses_tbptt(self) -> bool:
+        """Truncated BPTT applies to graphs with a streaming LSTM vertex;
+        any other graph flagged ``TruncatedBPTT`` trains with the standard
+        step, as in the JAX package."""
+        return (self.conf.backprop_type == "TruncatedBPTT"
+                and any(streaming_lstm(l) for l in self.vertex_layers.values()))
 
     def fit(self, data, labels=None, *, epochs: int = 1) -> None:
         """Fit on a ``MultiDataSet`` or ``DataSet``, on lists of inputs and
-        labels (or one array each), or on an iterable of batches;
-        ``epochs`` repeats of one batch run as single steps."""
+        labels (or one array each), or on an iterable of batches. ``epochs``
+        repeats of one unmasked batch run in groups of ``dispatch_ksteps``
+        steps (``_fit_repeated``) on an eligible graph, as single steps
+        otherwise."""
         from ..datasets.dataset import DataSet
 
         if isinstance(data, (MultiDataSet, DataSet)):
             xs, ys, fm, lm = _coerce_graph_batch(data)
-            for _ in range(epochs):
-                self._fit_batch(xs, ys, fm, lm)
-            return
-        if labels is not None:
+        elif labels is not None:
             xs = list(data) if isinstance(data, (list, tuple)) else [data]
             ys = list(labels) if isinstance(labels, (list, tuple)) else [labels]
-            for _ in range(epochs):
-                self._fit_batch(xs, ys)
+            fm = lm = None
+        else:
+            self.fit_iterator(data, epochs=epochs)
             return
-        self.fit_iterator(data, epochs=epochs)
-
-    def fit_iterator(self, iterator, epochs: int = 1,
-                     ksteps: Optional[int] = None) -> None:
-        """Fit from an iterable of ``DataSet``\\ s or ``MultiDataSet``\\ s,
-        one step a batch, for ``epochs`` passes (an iterator with
-        ``reset()`` is reset first). ``ksteps > 1`` (the JAX package's fused
-        K-step dispatch) is not ported."""
-        if ksteps is not None and ksteps > 1:
-            raise _not_ported("the K-step fused dispatch (ksteps > 1)")
-        self._check_trainable()
+        if (epochs > 1 and fm is None and lm is None
+                and self._multistep_ok(self.dispatch_ksteps)):
+            self._check_trainable()
+            self._fit_repeated(xs, ys, epochs)
+            return
         for _ in range(epochs):
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_start"):
-                    listener.on_epoch_start(self)
-            for ds in _rewound(iterator):
-                self._fit_batch(*_coerce_graph_batch(ds))
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
-            self.epoch += 1
+            self._fit_batch(xs, ys, fm, lm)
+
+    # the hooks of the K-step shell (KStepFit)
+    def _layer_modules(self) -> list:
+        return list(self.vertex_layers.values())
+
+    def _group_arrays(self, ds):
+        xs, ys, fm, lm = _coerce_graph_batch(ds)
+        if fm is not None or lm is not None:
+            return None
+        return [_numpy(x) for x in xs], [_numpy(y) for y in ys]
+
+    def _fit_dataset(self, ds) -> None:
+        self._fit_batch(*_coerce_graph_batch(ds))
+
+    def _fit_arrays(self, xs: list, ys: list) -> None:
+        self._fit_batch(xs, ys)
+
+    def _eager_step(self, xs: list, ys: list, iteration, fmasks=None,
+                    lmasks=None) -> torch.Tensor:
+        """One train step on device tensors, the layer states written;
+        returns the loss."""
+        if self._train_step is None:
+            self._train_step = make_graph_train_step(self)
+        new_states, self.updater_state, loss = self._train_step(
+            self.params_list, self.state_list, self.updater_state, xs, ys,
+            self._next_rng(), iteration, fmasks, lmasks)
+        self._write_states(new_states)
+        return loss
+
+    def _write_states(self, new_states: dict) -> None:
+        write_states(self.vertex_layers.values(),
+                     [new_states[n] for n in self.vertex_layers])
+
+    def _step_body(self, inputs: list, iteration: torch.Tensor, state):
+        """The train step as the K-step dispatch captures it (see
+        :class:`~.ksteps.StepGraph`): no seed, the updater state copied
+        into ``state``, the iteration incremented on the device."""
+        n_in = len(self.conf.network_inputs)
+        xs, ys = inputs[:n_in], inputs[n_in:]
+
+        def body():
+            params = self.params_list
+            loss, new_states = graph_loss(self, params, self.state_list, xs,
+                                          ys)
+            new_upd = _apply_graph_updates(self, params, loss, state,
+                                           iteration)
+            with torch.no_grad():
+                copy_into(state, new_upd)
+                self._write_states(new_states)
+                iteration.add_(1)
+            return loss.detach()
+
+        return body
 
     def _fit_batch(self, xs, ys, fmasks=None, lmasks=None) -> None:
         self._require_init()
         self._check_trainable()
+        if self._uses_tbptt():
+            self._fit_tbptt(xs, ys, fmasks, lmasks)
+            return
         xs, ys = self._to_devices(xs), self._to_devices(ys)
         fmasks, lmasks = self._to_devices(fmasks), self._to_devices(lmasks)
         self.last_batch_size = int(xs[0].shape[0]) if xs and xs[0].ndim else 0
-        if self._train_step is None:
-            self._train_step = make_graph_train_step(self)
         for _ in range(max(1, self.conf.global_conf.iterations)):
-            new_states, self.updater_state, loss = self._train_step(
-                self.params_list, self.state_list, self.updater_state, xs, ys,
-                self._next_rng(), self.iteration, fmasks, lmasks)
-            write_states(self.vertex_layers.values(),
-                         [new_states[n] for n in self.vertex_layers])
+            loss = self._eager_step(xs, ys, self.iteration, fmasks, lmasks)
+            self.score_value = loss  # a device scalar, read lazily
+            self.iteration += 1
+            for listener in self.listeners:
+                listener.iteration_done(self, self.iteration)
+
+    def _fit_tbptt(self, xs, ys, fmasks=None, lmasks=None) -> None:
+        """Truncated BPTT: every input, label and mask cut along the time
+        axis (1) into ``tbptt_fwd_length`` chunks, one update a chunk; the
+        LSTM vertices' state carries across chunks without gradient and
+        starts from zero for every batch."""
+        xs, ys = self._to_devices(xs), self._to_devices(ys)
+        fmasks, lmasks = self._to_devices(fmasks), self._to_devices(lmasks)
+        self.last_batch_size = int(xs[0].shape[0]) if xs[0].ndim else 0
+        T = xs[0].shape[1]
+        L = self.conf.tbptt_fwd_length
+        if self._tbptt_step is None:
+            self._tbptt_step = make_graph_tbptt_step(self)
+        rnn_state = _init_graph_rnn_states(self, xs[0].shape[0])
+        for c in range(max(1, -(-T // L))):
+            sl = slice(c * L, min((c + 1) * L, T))
+            fm = [m[:, sl] for m in fmasks] if fmasks else None
+            lm = [m[:, sl] for m in lmasks] if lmasks else None
+            new_states, self.updater_state, rnn_state, loss = \
+                self._tbptt_step(self.params_list, self.state_list,
+                                 self.updater_state, rnn_state,
+                                 [x[:, sl] for x in xs],
+                                 [y[:, sl] for y in ys], self._next_rng(),
+                                 self.iteration, fm, lm)
+            self._write_states(new_states)
             self.score_value = loss  # a device scalar, read lazily
             self.iteration += 1
             for listener in self.listeners:
@@ -617,14 +772,42 @@ class ComputationGraph(nn.Module):
     def pretrain_layer(self, name: str, iterator) -> None:
         raise _not_ported("layerwise pretraining on a graph")
 
+    # ------------------------------------------------------------------ rnn API
+    @torch.no_grad()
     def rnn_time_step(self, *inputs) -> list:
-        raise _not_ported("rnn_time_step on a ComputationGraph")
+        """Streaming inference carrying the LSTM vertices' state across
+        calls: one ``[B, T, F]`` array per network input (T may be 1) ->
+        the network outputs of those steps (a list)."""
+        self._require_init()
+        xs = self._to_devices(inputs)
+        if self._rnn_state is None:
+            self._rnn_state = _init_graph_rnn_states(self, xs[0].shape[0])
+        acts, _, _, self._rnn_state = graph_forward_streaming(
+            self, self.params_list, self.state_list, self._rnn_state, xs,
+            train=False)
+        return [acts[o] for o in self.conf.network_outputs]
+
+    def rnn_get_previous_state(self) -> Optional[dict]:
+        """The streaming state by vertex (``{"h", "c"}`` for the LSTM
+        vertices, ``{}`` for the others); None until ``rnn_time_step`` has
+        run."""
+        return self._rnn_state
+
+    def rnn_set_previous_state(self, state) -> None:
+        """Install a state taken by ``rnn_get_previous_state`` (moved to this
+        network's device)."""
+        self._rnn_state = (None if state is None else
+                           {n: {k: self._to_device(v) for k, v in s.items()}
+                            for n, s in state.items()})
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = None
 
     # ------------------------------------------------------------------ copies
     def clone(self, device=None) -> "ComputationGraph":
         """A network on ``device`` (default: this network's) with copies
         (never aliases) of the params, the layer states, the updater state,
-        the counters and the RNG state."""
+        the counters, the RNG state and the streaming state."""
         dev = self.device if device is None else device
         net = ComputationGraph(copy.deepcopy(self.conf), device=dev)
         with torch.no_grad():
@@ -644,4 +827,8 @@ class ComputationGraph(nn.Module):
         net.iteration = self.iteration
         net.epoch = self.epoch
         net._rng.set_state(self._rng.get_state())
+        if self._rnn_state is not None:
+            net._rnn_state = {n: {k: v.to(net.device, copy=True)
+                                  for k, v in s.items()}
+                              for n, s in self._rnn_state.items()}
         return net

@@ -10,8 +10,8 @@ training functions (``_regularization``, ``_aux_losses``, ``loss_fn``,
 (``fit`` on arrays, a ``DataSet`` or an iterable of ``DataSet``\\ s,
 ``_fit_batch`` with ``iterations > 1``, truncated BPTT (``_fit_tbptt``) for
 stacks with an LSTM, ``fit_iterator``, ``score``, ``score_value``,
-listeners), and the recurrent API (``rnn_time_step``, the previous-state
-accessors, ``clone``). Every forward applies the configuration's input
+listeners, the K-step dispatch of ``nn/ksteps.py``), and the recurrent
+API (``rnn_time_step``, the previous-state accessors, ``clone``). Every forward applies the configuration's input
 preprocessors before their layers, as the JAX ``forward_fn`` does.
 
 Layer state (batch norm's running mean and var) lives in each layer's
@@ -25,9 +25,10 @@ The JAX package fuses the whole step into one compiled program; here the
 step is eager: ``torch.autograd.grad`` gives the gradients, and the updater
 runs under ``no_grad`` and updates the parameters *in place* (the JAX step
 returns new arrays; in place saves a copy of every parameter). The JAX
-package's K-step fused dispatch, its device prefetcher and its health
-monitor are TPU dispatch and observability machinery and are not ported:
-``fit(epochs=k)`` loops over single steps (ROADMAP.md).
+package's K-step fused dispatch (``fit_iterator(ksteps=)``,
+``fit(epochs=k)``) is :class:`~.ksteps.KStepFit`: on the card a CUDA graph
+of the step; its health-monitor variant waits for the observability plane
+(ROADMAP.md).
 
 Iteration numbering follows the JAX package: a step runs with the
 network's ``iteration`` (the Adam bias correction and the learning-rate
@@ -37,7 +38,7 @@ new value.
 from __future__ import annotations
 
 import copy
-from typing import Iterable, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from ..common import resolve_device
 from .conf.multilayer import MultiLayerConfiguration
 from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
+from .ksteps import KStepFit, copy_into
 from .updaters import (
     UpdaterSpec, effective_lr, grads_to_param_dtype, normalize_gradients,
     updater_init, updater_step_with_param,
@@ -362,7 +364,7 @@ def _rewound(iterator):
     return iterator
 
 
-class MultiLayerNetwork(nn.Module):
+class MultiLayerNetwork(KStepFit, nn.Module):
     """Layers built from ``conf`` on ``device`` (``None`` means CUDA)."""
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
@@ -384,6 +386,8 @@ class MultiLayerNetwork(nn.Module):
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
         self._tbptt_step = None
+        #: the captured train steps of the K-step dispatch, by batch shapes
+        self._step_graphs: dict = {}
         #: streaming state of ``rnn_time_step`` (None until it runs)
         self._rnn_state: Optional[List[dict]] = None
 
@@ -402,6 +406,7 @@ class MultiLayerNetwork(nn.Module):
             layer.reset_state()
         self._rng.manual_seed((int(seed) * 0x9E3779B1 + 0xD14) % _SEED_RANGE)
         self._init_updater_state()
+        self._drop_step_graphs()
         self._initialized = True
         return self
 
@@ -422,6 +427,7 @@ class MultiLayerNetwork(nn.Module):
         if len(params_list) != len(self.layers):
             raise ValueError(f"{len(params_list)} param dicts for "
                              f"{len(self.layers)} layers")
+        self._drop_step_graphs()
         for i, (layer, given) in enumerate(zip(self.layers, params_list)):
             own = layer.params()
             if set(given) != set(own):
@@ -447,6 +453,7 @@ class MultiLayerNetwork(nn.Module):
         per layer by JAX name as the JAX ``net.state_list`` holds it (numpy
         arrays or tensors); names and shapes must match exactly."""
         load_states(self.layers, state_list, range(len(self.layers)))
+        self._drop_step_graphs()
         return self
 
     @torch.no_grad()
@@ -477,6 +484,7 @@ class MultiLayerNetwork(nn.Module):
             new.append(layer_state)
         self.updater_state = new
         self.iteration = int(iteration)
+        self._drop_step_graphs()
         return self
 
     def _require_init(self) -> None:
@@ -510,6 +518,7 @@ class MultiLayerNetwork(nn.Module):
         if flat.numel() != self.num_params():
             raise ValueError(f"{flat.numel()} values for {self.num_params()} "
                              "params")
+        self._drop_step_graphs()
         at = 0
         for t in self._flat_order():
             t.copy_(flat[at:at + t.numel()].reshape(t.shape))
@@ -719,8 +728,10 @@ class MultiLayerNetwork(nn.Module):
 
     def fit(self, x, y=None, *, epochs: int = 1, fmask=None,
             lmask=None) -> None:
-        """Fit on arrays, a ``DataSet``, or an iterable of ``DataSet``\\ s;
-        ``epochs`` repeats of one batch run as single steps."""
+        """Fit on arrays, a ``DataSet``, or an iterable of ``DataSet``\\ s.
+        ``epochs`` repeats of one unmasked batch run in groups of
+        ``dispatch_ksteps`` steps (``_fit_repeated``) on an eligible
+        network, as single steps otherwise."""
         from ..datasets.dataset import DataSet
 
         if y is None and isinstance(x, DataSet):
@@ -731,26 +742,59 @@ class MultiLayerNetwork(nn.Module):
                 and not isinstance(x, (np.ndarray, torch.Tensor)):
             self.fit_iterator(x, epochs=epochs)
             return
+        if (epochs > 1 and fmask is None and lmask is None
+                and self._multistep_ok(self.dispatch_ksteps)):
+            self._check_trainable()
+            self._fit_repeated([x], [y], epochs)
+            return
         for _ in range(epochs):
             self._fit_batch(x, y, fmask, lmask)
 
-    def fit_iterator(self, iterator: Iterable, epochs: int = 1) -> None:
-        """Fit from an iterable of ``DataSet``\\ s, batch by batch, for
-        ``epochs`` passes (an iterator with ``reset()`` is reset first)."""
-        self._check_trainable()
-        for _ in range(epochs):
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_start"):
-                    listener.on_epoch_start(self)
-            if hasattr(iterator, "reset"):
-                iterator.reset()
-            for ds in iterator:
-                self._fit_batch(ds.features, ds.labels, ds.features_mask,
-                                ds.labels_mask)
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
-            self.epoch += 1
+    # the hooks of the K-step shell (KStepFit)
+    def _layer_modules(self) -> list:
+        return list(self.layers)
+
+    def _group_arrays(self, ds):
+        if ds.features_mask is not None or ds.labels_mask is not None:
+            return None
+        return [_numpy(ds.features)], [_numpy(ds.labels)]
+
+    def _fit_dataset(self, ds) -> None:
+        self._fit_batch(ds.features, ds.labels, ds.features_mask,
+                        ds.labels_mask)
+
+    def _fit_arrays(self, xs: list, ys: list) -> None:
+        self._fit_batch(xs[0], ys[0])
+
+    def _eager_step(self, xs: list, ys: list, iteration, fmask=None,
+                    lmask=None) -> torch.Tensor:
+        """One train step on device tensors, the layer states written;
+        returns the loss."""
+        if self._train_step is None:
+            self._train_step = make_train_step(self)
+        self.updater_state, new_states, loss = self._train_step(
+            self.params_list, self.updater_state, xs[0], ys[0],
+            self._next_rng(), iteration, fmask, lmask)
+        write_states(self.layers, new_states)
+        return loss
+
+    def _step_body(self, inputs: list, iteration: torch.Tensor, state):
+        """The train step as the K-step dispatch captures it (see
+        :class:`~.ksteps.StepGraph`): no seed, the updater state copied
+        into ``state``, the iteration incremented on the device."""
+        x, y = inputs
+
+        def body():
+            params = self.params_list
+            loss, new_states = loss_fn(self, params, x, y)
+            new_upd = _apply_updates(self, params, state, loss, iteration)
+            with torch.no_grad():
+                copy_into(state, new_upd)
+                write_states(self.layers, new_states)
+                iteration.add_(1)
+            return loss.detach()
+
+        return body
 
     def _uses_tbptt(self) -> bool:
         """Truncated BPTT applies to stacks with an LSTM layer only; any other
@@ -768,13 +812,8 @@ class MultiLayerNetwork(nn.Module):
         x, y = self._to_device(x), self._to_device(y)
         fmask, lmask = self._to_device(fmask), self._to_device(lmask)
         self.last_batch_size = int(x.shape[0]) if x.ndim else 0
-        if self._train_step is None:
-            self._train_step = make_train_step(self)
         for _ in range(max(1, self.conf.global_conf.iterations)):
-            self.updater_state, new_states, loss = self._train_step(
-                self.params_list, self.updater_state, x, y, self._next_rng(),
-                self.iteration, fmask, lmask)
-            write_states(self.layers, new_states)
+            loss = self._eager_step([x], [y], self.iteration, fmask, lmask)
             self.score_value = loss  # a device scalar, read lazily
             self.iteration += 1
             for listener in self.listeners:

@@ -15,6 +15,12 @@ and an unchanged one is reused. :func:`build` starts one
 checked with nvcc 12.8 on the H100), so every source builds with the same
 flags.
 
+Each wrapper of a kernel is registered with :func:`counted` and counts
+its launches in ``.launches``, a plain integer it increments where it
+launches its kernel. A replayed CUDA graph runs no Python: the code that
+replays one adds the launches its capture recorded (:func:`launch_counts`
+before and after the capture) once a replay.
+
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after the launch; wrappers
 pass the result to :func:`check`, which raises on anything but 0.
@@ -48,6 +54,20 @@ _fns: Dict[tuple, object] = {}
 build_log: Dict[str, str] = {}
 #: wall seconds of the last :func:`build` call
 build_seconds: Optional[float] = None
+#: every kernel wrapper, each counting its launches in ``.launches``
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register a kernel wrapper and give it a launch count of 0."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[object, int]:
+    """Each registered wrapper's launch count."""
+    return {fn: fn.launches for fn in COUNTED}
 
 
 def sources() -> list:

@@ -131,6 +131,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+@_cuda.counted
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, key_mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -183,9 +184,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.check(rc, lib, "flash_fwd launch")
     flash_fwd.launches += 1
     return out, lse
-
-
-flash_fwd.launches = 0
 
 
 def _check_bwd(name: str, q, k, v, do, lse, delta, key_mask) -> None:
@@ -308,6 +306,7 @@ def _mask_operand(key_mask):
     return None if key_mask is None else key_mask.to(torch.float32).contiguous()
 
 
+@_cuda.counted
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  causal: bool, key_mask: Optional[torch.Tensor] = None
@@ -338,8 +337,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq
 
 
-flash_bwd_dq.launches = 0
-
+@_cuda.counted
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool, key_mask: Optional[torch.Tensor] = None
@@ -368,9 +366,6 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.check(rc, lib, "flash_bwd_dkv launch")
     flash_bwd_dkv.launches += 1
     return dk, dv
-
-
-flash_bwd_dkv.launches = 0
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

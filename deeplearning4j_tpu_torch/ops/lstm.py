@@ -261,6 +261,7 @@ def _ptr(t: Optional[Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+@_cuda.counted
 def lstm_fwd(x_t: Tensor, wcat: Tensor, b: Tensor, peep: Optional[Tensor],
              h0: Tensor, c0: Tensor, m_t: Tensor
              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -294,9 +295,7 @@ def lstm_fwd(x_t: Tensor, wcat: Tensor, b: Tensor, peep: Optional[Tensor],
     return ys, cs, h, c
 
 
-lstm_fwd.launches = 0
-
-
+@_cuda.counted
 def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
              b: Tensor, peep: Optional[Tensor], dys: Tensor, dht: Tensor,
              dct: Tensor, m_t: Tensor):
@@ -339,9 +338,6 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
     _cuda.check(rc, "lstm", "lstm_bwd launch")
     lstm_bwd.launches += 1
     return dx, dw, db, dpeep, dh0, dc0
-
-
-lstm_bwd.launches = 0
 
 
 @functools.lru_cache(maxsize=256)

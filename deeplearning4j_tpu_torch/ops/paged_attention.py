@@ -26,6 +26,7 @@ _ARGS = [_cuda.PTR, _cuda.PTR, _cuda.PTR, _cuda.INT, _cuda.INT,
          _cuda.LONG, _cuda.PTR]
 
 
+@_cuda.counted
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Materialize the logical KV view ``[cap, P * page_size, H, D]`` of
     ``pool [n_pages + 1, page_size, H, D]`` through ``table [cap, P]`` (int32
@@ -55,6 +56,3 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     _cuda.check(rc, "paged_gather", "paged_gather launch")
     paged_gather.launches += 1
     return out
-
-
-paged_gather.launches = 0

@@ -162,6 +162,7 @@ def _launch_plan(dev: int, stream: int, M: int, K: int, N: int) -> tuple:
     return plan
 
 
+@_cuda.counted
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """``out[m, n] = scale[n] * sum_k x[m, k] * q[k, n]`` in float32.
@@ -203,9 +204,6 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     _cuda.check(rc, "int8_matmul", "int8_matmul launch")
     int8_matmul.launches += 1
     return out
-
-
-int8_matmul.launches = 0
 
 
 def quantized_matmul(x: torch.Tensor, w, *,

@@ -64,6 +64,7 @@ def softmax_cross_entropy_plain(logits: torch.Tensor, labels: torch.Tensor
 _ARGS = [_cuda.PTR] * 4 + [_cuda.INT] * 9 + [_cuda.PTR]
 
 
+@_cuda.counted
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss [N] float32, grad [N, C] in the logits' dtype)`` for logits and
@@ -101,6 +102,3 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     _cuda.check(rc, "sm_xent", "sm_xent launch")
     softmax_cross_entropy.launches += 1
     return loss, grad
-
-
-softmax_cross_entropy.launches = 0

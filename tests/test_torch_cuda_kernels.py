@@ -540,3 +540,117 @@ def test_batch_norm_on_card_matches_cpu(cuda_device, shape):
     for a, b in zip(*got):
         err = float((b - a).abs().max())
         assert err <= 1e-4 * float(a.abs().max()), err
+
+
+#: a captured K-step group against eager single steps on the card from one
+#: init: the same kernels on the same inputs (cuDNN deterministic, so its
+#: algorithms accumulate alike in both), but the learning rate and
+#: Adam's bias correction computed on the card instead of the host (an ulp
+#: of a scalar a step), so losses within 1e-5 relative and params within
+#: 1e-5 of each leaf's largest magnitude
+KSTEP_TOL = 1e-5
+
+
+def _kstep_net(model, device):
+    from deeplearning4j_tpu_torch.models import (
+        char_rnn_lstm, lenet_mnist, resnet18, transformer_lm)
+    from deeplearning4j_tpu_torch.nn.graph_network import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    if model == "resnet18":
+        return ComputationGraph(resnet18(n_classes=10, image_size=32),
+                                device=device).init()
+    conf = {"lenet": lambda: lenet_mnist(),
+            "transformer": lambda: transformer_lm(32, width=64, n_layers=1,
+                                                  n_heads=2, max_len=16),
+            "lstm": lambda: char_rnn_lstm(16, hidden=32)}[model]()
+    if model == "lstm":  # full-sequence backprop: the K-step path takes it
+        conf.backprop_type = "Standard"
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _kstep_batches(model, n):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph_network import MultiDataSet
+    rng = np.random.default_rng(4)
+    out = []
+    for _ in range(n):
+        if model == "lenet":
+            x = rng.random((16, 784), dtype=np.float32)
+            y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+        elif model == "resnet18":
+            x = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+            y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 4)]
+            out.append(MultiDataSet([x], [y]))
+            continue
+        else:
+            v = 32 if model == "transformer" else 16
+            x = np.eye(v, dtype=np.float32)[rng.integers(0, v, (4, 12))]
+            y = x
+        out.append(DataSet(x, y))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["lenet", "transformer", "lstm", "resnet18"])
+def test_ksteps_on_card_match_single_steps(cuda_device, model, monkeypatch):
+    """``fit_iterator(ksteps=3)`` over 7 batches (groups of 3 and 3 replayed
+    from one captured step, then a single step) and ``fit(epochs=4)``
+    against single steps on the card from one init: losses, params, batch
+    norm's running statistics, and the exact launches of every kernel (each
+    replay adds its capture's count)."""
+    from deeplearning4j_tpu_torch.ops import _cuda
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    a = _kstep_net(model, cuda_device)
+    b = a.clone()
+    data = _kstep_batches(model, 7)
+    runs = []
+    for net, k in ((a, 3), (b, 1)):
+        losses = []
+
+        class Rec:
+            def iteration_done(self, model_, it):
+                losses.append(model_.score_value)
+
+        net.set_listeners(Rec())
+        before = _cuda.launch_counts()
+        net.fit_iterator(data, ksteps=k)
+        net.dispatch_ksteps = 4 if k > 1 else 1
+        net.fit(data[0] if model == "resnet18" else data[0].features,
+                None if model == "resnet18" else data[0].labels, epochs=4)
+        torch.cuda.synchronize()
+        after = _cuda.launch_counts()
+        runs.append((losses, {f.__name__: after[f] - before[f]
+                              for f in before if after[f] != before[f]}))
+    assert len(a._step_graphs) == 1
+    # 2 + 3 replays in the epoch (a group's first step captures), 4 in fit
+    assert next(iter(a._step_graphs.values())).replays == 2 + 3 + 4
+    assert runs[0][1] == runs[1][1] and runs[0][1]
+    torch.testing.assert_close(torch.tensor(runs[0][0]),
+                               torch.tensor(runs[1][0]), rtol=KSTEP_TOL,
+                               atol=0)
+    for own, other in ((a.params_list, b.params_list),
+                       (a.state_list, b.state_list)):
+        items = own.items() if isinstance(own, dict) else enumerate(own)
+        for i, leaves in items:
+            for k, v in leaves.items():
+                w = other[i][k].detach()
+                err = float((v.detach() - w).abs().max())
+                assert err <= KSTEP_TOL * max(float(w.abs().max()), 1e-3), \
+                    (i, k, err)
+
+
+@pytest.mark.cuda
+def test_ksteps_capture_failure_raises(cuda_device, monkeypatch):
+    """A step that syncs with the host cannot be captured: the K-step path
+    raises and names it; it does not fall back to single steps."""
+    from deeplearning4j_tpu_torch.nn.conf.layers.feedforward import DenseLayer
+    net = _kstep_net("lenet", cuda_device)
+    apply = DenseLayer.apply
+
+    def syncing(self, params, x, *args, **kw):
+        float(x.sum())  # a host sync inside the step
+        return apply(self, params, x, *args, **kw)
+
+    monkeypatch.setattr(DenseLayer, "apply", syncing)
+    with pytest.raises(RuntimeError, match="capturing the train step"):
+        net.fit_iterator(_kstep_batches("lenet", 3), ksteps=3)

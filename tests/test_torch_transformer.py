@@ -113,6 +113,9 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.nn.conf.vertices, "
             "deeplearning4j_tpu_torch.nn.conf.graphconf, "
             "deeplearning4j_tpu_torch.nn.graph_network, "
+            "deeplearning4j_tpu_torch.nn.ksteps, "
+            "deeplearning4j_tpu_torch.datasets.prefetch, "
+            "deeplearning4j_tpu_torch.utils.batching, "
             "deeplearning4j_tpu_torch.nn.inference;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "

@@ -2087,9 +2087,17 @@ def resnet(kernels) -> dict:
 #: ksteps 8 (groups of 8, 8 and 4); full-width transformer_lm(256),
 #: fit(x, y, epochs=8) at dispatch_ksteps 4; full-depth resnet50(), 4 steps
 #: at 64x64 and B = 8, then fit(epochs=4) at 224x224, B = 128. Each against
-#: eager single steps from one init, then timed in turns (eager, K-step,
-#: K-step, eager) after a warm-up call and profiled once
+#: eager single steps from one init, then timed in turns (KS_TURNS: eager,
+#: K-step, K-step, eager, ..., five calls each) after a warm-up call and
+#: profiled once
 KS_LENET_K, KS_TRANSFORMER_K, KS_TRANSFORMER_STEPS, KS_RES_K = 8, 4, 8, 4
+KS_TURNS = ("eager", "kstep", "kstep", "eager") * 2 + ("eager", "kstep")
+#: ResNet-50's ragged epoch at ksteps 4: a group at the full batch, then a
+#: group of the smaller tail batch, which captures a second step into the
+#: network's one memory pool; at 64x64 against eager, at 224x224 for the
+#: footprint
+KS_RES_RAGGED = (4, 2)
+KS_RES_TAIL_CHECK, KS_RES_TAIL = 6, 96
 #: a replayed step against an eager one on the card from one state: the
 #: same kernels on the same inputs (cuDNN deterministic for the check), but
 #: the scalars a learning-rate policy and Adam's bias correction read come
@@ -2157,14 +2165,16 @@ def _device_us(prof) -> float:
 
 def _timed_pair(name, eager_run, kstep_run, steps: int,
                 profile_now: bool = True) -> dict:
-    """Wall ms a step of both runs in turns (eager, K-step, K-step, eager;
-    host clock around calls that end in a synchronize) and the peak memory
-    of each; then (:func:`_profile_pair`, at once or, with ``profile_now``
-    False, from PROFILE_LATER after the phases that time host-bound paths)
-    one profiled call of each."""
+    """Wall ms a step of both runs in turns (KS_TURNS; host clock around
+    calls that end in a synchronize): the mean, the median and the range
+    of each, and the speed-up's range (the slowest eager call over the
+    fastest K-step one, and the other way round); the peak memory of each;
+    then (:func:`_profile_pair`, at once or, with ``profile_now`` False,
+    from PROFILE_LATER after the phases that time host-bound paths) one
+    profiled call of each."""
     walls = {"eager": [], "kstep": []}
     peaks = {"eager": 0, "kstep": 0}
-    for which in ("eager", "kstep", "kstep", "eager"):
+    for which in KS_TURNS:
         run = eager_run if which == "eager" else kstep_run
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2174,9 +2184,13 @@ def _timed_pair(name, eager_run, kstep_run, steps: int,
         walls[which].append(1e3 * (time.perf_counter() - t0) / steps)
         peaks[which] = max(peaks[which], torch.cuda.max_memory_allocated())
     out = {which: {"wall_ms_per_step": float(np.mean(walls[which])),
+                   "wall_ms_median": float(np.median(walls[which])),
+                   "wall_ms_range": [min(walls[which]), max(walls[which])],
                    "wall_ms_runs": walls[which],
                    "peak_memory_bytes": peaks[which]}
            for which in ("eager", "kstep")}
+    out["speed_up_range"] = [min(walls["eager"]) / max(walls["kstep"]),
+                             max(walls["eager"]) / min(walls["kstep"])]
     pending = (name, out, eager_run, kstep_run, steps)
     if profile_now:
         _profile_pair(*pending)
@@ -2206,16 +2220,19 @@ def _profile_pair(name, out, eager_run, kstep_run, steps: int) -> None:
                  profiled_ms_per_step=prof_ms,
                  idle_share_profiled=1.0 - dev_us / 1e3 / prof_ms)
     e, k = out["eager"], out["kstep"]
+    lo, hi = out["speed_up_range"]
     print(f"ksteps {name} timing [{CARD}]: K-step {k['wall_ms_per_step']:.3f} "
-          f"ms a step (runs {[round(v, 3) for v in k['wall_ms_runs']]}), "
-          f"device {k['device_us_per_step']:.1f} us, idle share "
+          f"ms a step, median {k['wall_ms_median']:.3f} (runs "
+          f"{[round(v, 3) for v in k['wall_ms_runs']]}), device "
+          f"{k['device_us_per_step']:.1f} us, idle share "
           f"{k['idle_share']:.3f}, peak {k['peak_memory_bytes'] / 2**30:.2f} "
-          f"GiB; eager {e['wall_ms_per_step']:.3f} ms (runs "
+          f"GiB; eager {e['wall_ms_per_step']:.3f} ms, median "
+          f"{e['wall_ms_median']:.3f} (runs "
           f"{[round(v, 3) for v in e['wall_ms_runs']]}), device "
           f"{e['device_us_per_step']:.1f} us, idle share "
           f"{e['idle_share']:.3f}, peak {e['peak_memory_bytes'] / 2**30:.2f} "
-          f"GiB; speed-up {e['wall_ms_per_step'] / k['wall_ms_per_step']:.2f}x",
-          flush=True)
+          f"GiB; speed-up {e['wall_ms_per_step'] / k['wall_ms_per_step']:.2f}x "
+          f"of the means ({lo:.2f}x to {hi:.2f}x over the calls)", flush=True)
 
 
 def _graph_counts(net, launches: dict) -> dict:
@@ -2348,15 +2365,35 @@ def ksteps_transformer(kernels) -> dict:
     return {**check, **graphs, "eager_launches": counts["eager"], **timing}
 
 
+def _res_ragged(g, batch: int, tail: int, size: int) -> list:
+    """ResNet-50's ragged epoch (KS_RES_RAGGED): full batches, then smaller
+    tail batches, as host arrays."""
+    from deeplearning4j_tpu_torch.nn.graph_network import MultiDataSet
+
+    rows = [batch] * KS_RES_RAGGED[0] + [tail] * KS_RES_RAGGED[1]
+    return [MultiDataSet(*([t.numpy()] for t in _res_batch(
+        g, n, size, RES_CLASSES, "cpu"))) for n in rows]
+
+
+def _shared_pool(net) -> bool:
+    pools = {sg.graph.pool() for sg in net._step_graphs.values()}
+    return len(net._step_graphs) == 2 and len(pools) == 1
+
+
 def ksteps_resnet(kernels) -> dict:
-    """Full-depth resnet50(): 4 steps at 64x64, B = 8, K-step against eager
-    (losses, params, batch norm's running statistics), then fit(epochs=4)
-    at 224x224, B = 128, timed beside the eager steps."""
+    """Full-depth resnet50(). At 64x64: 4 steps at B = 8, then a ragged
+    epoch (4 batches of 8, 2 of 6) whose tail captures a second step into
+    the network's memory pool, K-step against eager (losses, params, batch
+    norm's running statistics). At 224x224, B = 128: the K-step
+    fit(epochs=4), its launches counted alone, then timed beside the eager
+    steps, then a ragged epoch (4 batches of 128, 2 of 96) for the
+    footprint of two captured steps in one pool."""
     from deeplearning4j_tpu_torch.nn.graph_network import MultiDataSet
 
     g = torch.Generator().manual_seed(SEED + 61)
     x, y = _res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")
     mds = MultiDataSet([x.numpy()], [y.numpy()])
+    ragged = _res_ragged(g, RES_CHECK_B, KS_RES_TAIL_CHECK, RES_CHECK_SIZE)
     torch.backends.cudnn.deterministic = True
     try:
         k = ComputationGraph(resnet50(n_classes=RES_CLASSES,
@@ -2371,18 +2408,23 @@ def ksteps_resnet(kernels) -> dict:
             net.set_listeners(_LossLog(logs[name]))
             _zero(kernels)
             net.fit(mds, epochs=KS_RES_K)
+            net.fit_iterator(ragged)
             torch.cuda.synchronize()
             counts[name] = _launches(kernels)
             net.set_listeners()
     finally:
         torch.backends.cudnn.deterministic = False
-    check = _compare("resnet50 (64x64, B = 8)", logs["kstep"],
-                     logs["eager"], [(k.params_list, e.params_list),
-                                     (k.state_list, e.state_list)])
+    check = _compare("resnet50 (64x64, B = 8, then the ragged epoch)",
+                     logs["kstep"], logs["eager"],
+                     [(k.params_list, e.params_list),
+                      (k.state_list, e.state_list)])
     want = {fn.__name__: 0 for fn in kernels}
-    want["softmax_cross_entropy"] = KS_RES_K
+    want["softmax_cross_entropy"] = KS_RES_K + len(ragged)
     if counts["kstep"] != want or counts["eager"] != want:
         fail(f"ResNet-50 K-step launches {counts} != {want}")
+    if not _shared_pool(k):
+        fail("ResNet-50's two captured steps (B = 8, 6) do not share one "
+             "memory pool")
     del k, e
 
     conf = resnet50(n_classes=RES_CLASSES, image_size=RES_SIZE)
@@ -2393,35 +2435,91 @@ def ksteps_resnet(kernels) -> dict:
     k.dispatch_ksteps = KS_RES_K
     e = k.clone()
     e.dispatch_ksteps = 1
+    # the K-step path's own run, counted alone: the first step captures
     _zero(kernels)
     t0 = time.perf_counter()
-    k.fit(big, epochs=KS_RES_K)  # the first step captures
+    k.fit(big, epochs=KS_RES_K)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    graphs = _graph_counts(k, launches)
+    _zero(kernels)
     e.fit(big, epochs=KS_RES_K)
     torch.cuda.synchronize()
+    eager_launches = _launches(kernels)
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = KS_RES_K
+    print(f"ksteps resnet50: launches at 64x64 K-step {counts['kstep']}, "
+          f"eager {counts['eager']}; at 224x224 the K-step fit(epochs="
+          f"{KS_RES_K}) {launches}, {graphs['replays']} replays of "
+          f"{graphs['captured_per_replay']}; the eager one {eager_launches}",
+          flush=True)
+    if launches != want or eager_launches != want \
+            or graphs["replays"] != KS_RES_K - 1 \
+            or graphs["captured_per_replay"] != {"softmax_cross_entropy": 1}:
+        fail(f"ResNet-50 K-step launches {launches}, eager {eager_launches} "
+             f"or replays {graphs} wrong at 224x224")
     timing = _timed_pair(
         f"resnet50 (224x224x3, B = {RES_B}, fit(epochs={KS_RES_K}))",
         lambda: e.fit(big, epochs=KS_RES_K),
         lambda: k.fit(big, epochs=KS_RES_K), KS_RES_K)
-    launches = _launches(kernels)
-    graphs = _graph_counts(k, launches)
     _footprint(timing, graphs)
-    # on each network: the first call, two timed and one profiled
-    n_calls = 1 + 2 + 1
-    want = {fn.__name__: 0 for fn in kernels}
-    want["softmax_cross_entropy"] = 2 * n_calls * KS_RES_K
-    print(f"ksteps resnet50: launches at 64x64 K-step {counts['kstep']}, "
-          f"eager {counts['eager']}; at 224x224 (both networks) {launches}, "
-          f"{graphs['replays']} replays of {graphs['captured_per_replay']}",
-          flush=True)
-    if launches != want or graphs["replays"] != n_calls * KS_RES_K - 1:
-        fail(f"ResNet-50 K-step launches {launches} or replays {graphs} "
-             "wrong at 224x224")
+    tail = _ragged_footprint(k, _res_ragged(
+        torch.Generator().manual_seed(SEED + 63), RES_B, KS_RES_TAIL,
+        RES_SIZE))
     out = {**check, "check_launches": counts, **graphs,
-           "first_call_s": capture_s, **timing}
+           "eager_launches": eager_launches, "first_call_s": capture_s,
+           **timing, "ragged_epoch": tail}
     del k, e
     torch.cuda.empty_cache()
+    return out
+
+
+def _ragged_footprint(k, epoch: list) -> dict:
+    """A ragged fit_iterator epoch of ResNet-50 at 224x224: the tail's
+    group captures a second step into the network's one pool. Its losses
+    must be finite; the pool's growth at that capture and the card's
+    reserved memory (its peak: the pool, the tail's warm-up step outside it,
+    the staged groups) are kept."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool0 = sum(sg.pool_bytes for sg in k._step_graphs.values())
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    k.set_listeners(_LossLog(losses))
+    t0 = time.perf_counter()
+    k.fit_iterator(epoch)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k.set_listeners()
+    tail = next(sg for sg in k._step_graphs.values()
+                if sg.inputs[0].shape[0] == KS_RES_TAIL)
+    out = {"rows": [int(ds.features[0].shape[0]) for ds in epoch],
+           "losses": losses, "wall_s": wall_s,
+           "replays": {int(sg.inputs[0].shape[0]): sg.replays
+                       for sg in k._step_graphs.values()},
+           "pool_before_bytes": pool0, "tail_capture_pool_bytes":
+               tail.pool_bytes,
+           "reserved_before_bytes": reserved0,
+           "max_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "reserved_after_bytes": torch.cuda.memory_reserved(),
+           "max_allocated_bytes": torch.cuda.max_memory_allocated()}
+    gib = {key: v / 2**30 for key, v in out.items() if key.endswith("bytes")}
+    print(f"ksteps resnet50 ragged epoch (rows {out['rows']}, ksteps "
+          f"{KS_RES_K}) [{CARD}]: {wall_s:.3f}s, losses "
+          f"{[round(v, 4) for v in losses]}; replays by batch "
+          f"{out['replays']}; the shared pool {gib['pool_before_bytes']:.3f} "
+          f"GiB before, grew {gib['tail_capture_pool_bytes']:.3f} GiB at "
+          f"the B = {KS_RES_TAIL} capture; reserved "
+          f"{gib['reserved_before_bytes']:.3f} GiB before, peak "
+          f"{gib['max_reserved_bytes']:.3f}, after "
+          f"{gib['reserved_after_bytes']:.3f}; peak allocated "
+          f"{gib['max_allocated_bytes']:.3f} GiB", flush=True)
+    if len(losses) != len(epoch) or not all(np.isfinite(losses)) \
+            or not _shared_pool(k):
+        fail(f"ResNet-50's ragged epoch: losses {losses}, or its two "
+             "captured steps do not share one memory pool")
     return out
 
 

@@ -51,7 +51,7 @@ from .conf.graphconf import ComputationGraphConfiguration
 from .conf.layers.recurrent import streaming_lstm
 from .conf.serde import layer_class
 from .conf.vertices import LayerVertex
-from .ksteps import KStepFit, copy_into
+from .ksteps import KStepFit
 from .multilayer import (
     _SEED_RANGE, _dropout_gen, _layer_seeds, _numpy, _rewound, _updater_spec,
     load_states, update_layer, write_states)
@@ -683,42 +683,19 @@ class ComputationGraph(KStepFit, nn.Module):
     def _fit_arrays(self, xs: list, ys: list) -> None:
         self._fit_batch(xs, ys)
 
-    def _eager_step(self, xs: list, ys: list, iteration, fmasks=None,
-                    lmasks=None) -> torch.Tensor:
-        """One train step on device tensors, the layer states written;
-        returns the loss."""
+    def _train_call(self, xs: list, ys: list, rng, iteration, upd,
+                    fmasks=None, lmasks=None):
+        """The train step on device tensors: ``(upd', states', loss)``."""
         if self._train_step is None:
             self._train_step = make_graph_train_step(self)
-        new_states, self.updater_state, loss = self._train_step(
-            self.params_list, self.state_list, self.updater_state, xs, ys,
-            self._next_rng(), iteration, fmasks, lmasks)
-        self._write_states(new_states)
-        return loss
+        new_states, new_upd, loss = self._train_step(
+            self.params_list, self.state_list, upd, xs, ys, rng, iteration,
+            fmasks, lmasks)
+        return new_upd, new_states, loss
 
     def _write_states(self, new_states: dict) -> None:
         write_states(self.vertex_layers.values(),
                      [new_states[n] for n in self.vertex_layers])
-
-    def _step_body(self, inputs: list, iteration: torch.Tensor, state):
-        """The train step as the K-step dispatch captures it (see
-        :class:`~.ksteps.StepGraph`): no seed, the updater state copied
-        into ``state``, the iteration incremented on the device."""
-        n_in = len(self.conf.network_inputs)
-        xs, ys = inputs[:n_in], inputs[n_in:]
-
-        def body():
-            params = self.params_list
-            loss, new_states = graph_loss(self, params, self.state_list, xs,
-                                          ys)
-            new_upd = _apply_graph_updates(self, params, loss, state,
-                                           iteration)
-            with torch.no_grad():
-                copy_into(state, new_upd)
-                self._write_states(new_states)
-                iteration.add_(1)
-            return loss.detach()
-
-        return body
 
     def _fit_batch(self, xs, ys, fmasks=None, lmasks=None) -> None:
         self._require_init()

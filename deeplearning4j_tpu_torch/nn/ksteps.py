@@ -4,8 +4,8 @@ Counterpart of the JAX package's K-step path: ``make_multistep_train_step``
 and ``make_graph_multistep_train_step``, ``fit_iterator(ksteps=)``,
 ``_fit_epoch_multistep``, ``_dispatch_multistep``, ``_dispatch_staged``,
 ``_fit_repeated`` and ``_run_multistep``. :class:`KStepFit` is the shell
-both networks share; each network supplies its single step and its
-capturable step body.
+both networks share, the train step's eager and captured forms included;
+each network supplies how its step's arguments are laid out.
 
 The JAX package fuses K train steps into one program (``lax.scan`` over a
 ``[K, B, ...]`` stack) so that the host pays one dispatch for K steps. On
@@ -13,10 +13,13 @@ the card the port's counterpart is a CUDA graph of one train step
 (:class:`StepGraph`), replayed once a step with no Python in between but
 the copy of the step's batch into the graph's input buffers and the
 replay. One capture serves every group of the same batch shapes and
-dtypes, whatever its length (the ragged tail of an epoch too), and the
-graph's memory pool holds one step's intermediates. On the CPU a group runs
-as a plain loop of the network's single step: no graph, and the params are
-bitwise those of single steps.
+dtypes, whatever its length (the ragged tail of an epoch too). The graphs
+of a network share one memory pool, which holds one step's intermediates:
+they replay one after another on one stream, each replay's loss is
+copied out before the next, and a tensor a step keeps past its end (a
+cached constant) is made in the eager warm-up before a capture, outside
+the pool. On the CPU a group runs as a plain loop of the network's single
+step: no graph, and the params are bitwise those of single steps.
 
 A captured step reads everything from addresses fixed at capture:
 - its batch from static input buffers, written before each replay;
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..datasets.prefetch import (
@@ -69,31 +73,54 @@ def copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
+def _stage_host(a, dtype):
+    """Features cast to ``dtype`` before the copy to the device: on the host
+    for host data (half the bytes on the wire for bfloat16), on the device
+    for a tensor already there."""
+    if dtype is None:
+        return a
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a))
+    return a.to(dtype)
+
+
+def _widened(a: torch.Tensor) -> torch.Tensor:
+    """Features staged in a narrower float dtype back in float32, the dtype
+    the port computes in, on the device. The staging's rounding stays, as in
+    JAX, where the first float32 operation promotes them."""
+    if a.is_floating_point() and a.dtype != torch.float32:
+        return a.float()
+    return a
+
+
 class StepGraph:
     """One train step, captured once and replayed once a step.
 
-    ``make_body(inputs, iteration, state)`` returns the step as a function
-    of no arguments: it reads its batch from ``inputs`` (the static
-    buffers, one per network input and label array, in that order) and the
-    iteration from ``iteration`` (a device int64 scalar it increments),
-    updates ``state`` (the updater state) in place and returns the loss."""
+    ``make_body(xs, ys, iteration, state)`` returns the step as a function
+    of no arguments: it reads its batch from ``xs`` and ``ys`` (the static
+    buffers, one per network input and label array) and the iteration from
+    ``iteration`` (a device int64 scalar it increments), updates ``state``
+    (the updater state) in place and returns the loss. The graph is
+    captured into ``pool``, a memory pool the network's graphs share."""
 
-    def __init__(self, make_body: Callable, batch: List[torch.Tensor],
-                 state):
-        self.inputs = [torch.empty_like(t) for t in batch]
+    def __init__(self, make_body: Callable, xs: List[torch.Tensor],
+                 ys: List[torch.Tensor], state, pool):
+        self.inputs = [torch.empty_like(t) for t in xs + ys]
         self.iteration = torch.zeros((), dtype=torch.int64,
-                                     device=batch[0].device)
+                                     device=xs[0].device)
         self.state = state
-        self.body = make_body(self.inputs, self.iteration, state)
+        self.pool = pool
+        self.body = make_body(self.inputs[:len(xs)], self.inputs[len(xs):],
+                              self.iteration, state)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         #: launches of each kernel wrapper in one replay
         self.per_replay: Dict[object, int] = {}
         #: replays run so far
         self.replays = 0
-        #: device memory the capture reserved for the graph's private pool
-        #: (the step's intermediates, which the allocator's statistics of
-        #: allocated bytes do not count between replays)
+        #: device memory the shared pool grew by at this capture (the step's
+        #: intermediates, which the allocator's statistics of allocated
+        #: bytes do not count between replays)
         self.pool_bytes = 0
 
     def adopt(self, current_state, iteration: int):
@@ -129,14 +156,15 @@ class StepGraph:
         main.wait_stream(side)
         loss.record_stream(main)
         # the warm-up's cached blocks go back to the card before the graph
-        # takes its own pool
+        # takes memory for the shared pool
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         before = _cuda.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             # thread-local: the prefetcher's thread keeps staging meanwhile
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 out = self.body()
         except RuntimeError as e:
             raise RuntimeError(
@@ -161,9 +189,10 @@ class KStepFit:
     A network supplies ``_group_arrays(ds)`` (its inputs and labels as lists
     of host arrays, or None for a dataset that takes a single step),
     ``_fit_dataset(ds)`` and ``_fit_arrays(xs, ys)`` (its single-step
-    path), ``_eager_step(xs, ys, iteration)`` (one step on device tensors,
-    states written, returning the loss), ``_step_body`` (the capturable
-    step, see :class:`StepGraph`), ``_uses_tbptt()`` and ``_layer_modules()``.
+    path), ``_train_call(xs, ys, rng, iteration, upd, fmasks, lmasks)`` (its
+    train step on device tensors, returning ``(upd', states', loss)``),
+    ``_write_states(states)``, ``_next_rng()``, ``_uses_tbptt()`` and
+    ``_layer_modules()``.
     """
 
     #: train steps a group in ``fit_iterator`` and ``fit(epochs=k)``; 1
@@ -177,6 +206,8 @@ class KStepFit:
     prefetch_depth: int = 2
     #: the last K-step epoch's :class:`DevicePrefetcher` (its counters)
     prefetcher: Optional[DevicePrefetcher] = None
+    #: the memory pool the network's captured steps share
+    _graph_pool = None
 
     def _multistep_ok(self, k: int) -> bool:
         """The JAX eligibility rule (SGD, ``iterations <= 1``, no TBPTT)
@@ -191,6 +222,33 @@ class KStepFit:
 
     def _drop_step_graphs(self) -> None:
         self._step_graphs = {}
+        self._graph_pool = None
+
+    # ---------------------------------------------------------- the step
+    def _eager_step(self, xs: list, ys: list, iteration, fmasks=None,
+                    lmasks=None) -> torch.Tensor:
+        """One train step on device tensors, the layer states written;
+        returns the loss."""
+        self.updater_state, new_states, loss = self._train_call(
+            xs, ys, self._next_rng(), iteration, self.updater_state, fmasks,
+            lmasks)
+        self._write_states(new_states)
+        return loss
+
+    def _step_body(self, xs: list, ys: list, iteration: torch.Tensor, state):
+        """The train step as :class:`StepGraph` captures it: no seed, the
+        updater state copied into ``state``, the iteration incremented on
+        the device."""
+        def body():
+            new_upd, new_states, loss = self._train_call(xs, ys, None,
+                                                         iteration, state)
+            with torch.no_grad():
+                copy_into(state, new_upd)
+                self._write_states(new_states)
+                iteration.add_(1)
+            return loss
+
+        return body
 
     # ------------------------------------------------------------ fit loops
     def fit_iterator(self, iterator, epochs: int = 1,
@@ -262,16 +320,16 @@ class KStepFit:
         their way there: the steps wait on the copy's event)."""
         consume_staged(group)
         self.last_batch_size = int(group.xs[0].shape[1])
-        steps = [([x[j] for x in group.xs], [y[j] for y in group.ys])
+        xs = [_widened(x) for x in group.xs]
+        steps = [([x[j] for x in xs], [y[j] for y in group.ys])
                  for j in range(group.n)]
         self._after_group(self._run_group(steps))
 
     def _fit_repeated(self, xs: list, ys: list, epochs: int) -> None:
         """``epochs`` steps on one batch, ``dispatch_ksteps`` a group, the
         batch moved to the device once."""
-        xd = [self._to_device(a) for a in xs]
-        if self.stage_dtype is not None:
-            xd = [a.to(self.stage_dtype) for a in xd]
+        xd = [_widened(self._to_device(_stage_host(a, self.stage_dtype)))
+              for a in xs]
         yd = [self._to_device(a) for a in ys]
         self.last_batch_size = int(xd[0].shape[0]) if xd[0].ndim else 0
         remaining = epochs
@@ -291,12 +349,15 @@ class KStepFit:
             for j, (xs, ys) in enumerate(steps):
                 losses[j] = self._eager_step(xs, ys, self.iteration + j)
             return losses
-        first = steps[0][0] + steps[0][1]
-        key = tuple((tuple(t.shape), t.dtype) for t in first)
+        xs0, ys0 = steps[0]
+        key = tuple((tuple(t.shape), t.dtype) for t in xs0 + ys0)
         sg = self._step_graphs.get(key)
         if sg is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
             sg = self._step_graphs[key] = StepGraph(
-                self._step_body, first, self.updater_state)
+                self._step_body, xs0, ys0, self.updater_state,
+                self._graph_pool)
         self.updater_state = sg.adopt(self.updater_state, self.iteration)
         for j, (xs, ys) in enumerate(steps):
             self._next_rng()  # the seed stream advances as in single steps

@@ -49,7 +49,7 @@ from ..common import resolve_device
 from .conf.multilayer import MultiLayerConfiguration
 from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
-from .ksteps import KStepFit, copy_into
+from .ksteps import KStepFit
 from .updaters import (
     UpdaterSpec, effective_lr, grads_to_param_dtype, normalize_gradients,
     updater_init, updater_step_with_param,
@@ -766,35 +766,16 @@ class MultiLayerNetwork(KStepFit, nn.Module):
     def _fit_arrays(self, xs: list, ys: list) -> None:
         self._fit_batch(xs[0], ys[0])
 
-    def _eager_step(self, xs: list, ys: list, iteration, fmask=None,
-                    lmask=None) -> torch.Tensor:
-        """One train step on device tensors, the layer states written;
-        returns the loss."""
+    def _train_call(self, xs: list, ys: list, rng, iteration, upd,
+                    fmask=None, lmask=None):
+        """The train step on device tensors: ``(upd', states', loss)``."""
         if self._train_step is None:
             self._train_step = make_train_step(self)
-        self.updater_state, new_states, loss = self._train_step(
-            self.params_list, self.updater_state, xs[0], ys[0],
-            self._next_rng(), iteration, fmask, lmask)
+        return self._train_step(self.params_list, upd, xs[0], ys[0], rng,
+                                iteration, fmask, lmask)
+
+    def _write_states(self, new_states: list) -> None:
         write_states(self.layers, new_states)
-        return loss
-
-    def _step_body(self, inputs: list, iteration: torch.Tensor, state):
-        """The train step as the K-step dispatch captures it (see
-        :class:`~.ksteps.StepGraph`): no seed, the updater state copied
-        into ``state``, the iteration incremented on the device."""
-        x, y = inputs
-
-        def body():
-            params = self.params_list
-            loss, new_states = loss_fn(self, params, x, y)
-            new_upd = _apply_updates(self, params, state, loss, iteration)
-            with torch.no_grad():
-                copy_into(state, new_upd)
-                write_states(self.layers, new_states)
-                iteration.add_(1)
-            return loss.detach()
-
-        return body
 
     def _uses_tbptt(self) -> bool:
         """Truncated BPTT applies to stacks with an LSTM layer only; any other

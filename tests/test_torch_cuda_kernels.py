@@ -654,3 +654,59 @@ def test_ksteps_capture_failure_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(DenseLayer, "apply", syncing)
     with pytest.raises(RuntimeError, match="capturing the train step"):
         net.fit_iterator(_kstep_batches("lenet", 3), ksteps=3)
+
+
+@pytest.mark.cuda
+def test_ksteps_ragged_shapes_share_one_pool_on_card(cuda_device,
+                                                     monkeypatch):
+    """An epoch of two batch shapes (3 of 16 rows, then 3 of 8) captures a
+    step for each, both into the network's one memory pool, and still
+    trains as single steps do (KSTEP_TOL)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    a = _kstep_net("lenet", cuda_device)
+    b = a.clone()
+    data = _kstep_batches("lenet", 6)
+    data = data[:3] + [DataSet(d.features[:8], d.labels[:8])
+                       for d in data[3:]]
+    a.fit_iterator(data, ksteps=3)
+    b.fit_iterator(data, ksteps=1)
+    torch.cuda.synchronize()
+    graphs = list(a._step_graphs.values())
+    assert len(graphs) == 2 and all(g.replays == 2 for g in graphs)
+    assert graphs[0].pool == graphs[1].pool == a._graph_pool
+    assert graphs[0].graph.pool() == graphs[1].graph.pool()
+    for own, other in zip(a.params_list, b.params_list):
+        for k, v in own.items():
+            err = float((v - other[k]).abs().max())
+            assert err <= KSTEP_TOL * max(float(other[k].abs().max()), 1e-3)
+    a.set_params(a.params())
+    assert a._step_graphs == {} and a._graph_pool is None
+
+
+@pytest.mark.cuda
+def test_ksteps_stage_dtype_on_card(cuda_device, monkeypatch):
+    """``stage_dtype=torch.bfloat16`` on the card: the K-step epoch and
+    ``fit(epochs=4)`` stage bfloat16 features and train as single steps on
+    features rounded to bfloat16 first (KSTEP_TOL)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    a = _kstep_net("lenet", cuda_device)
+    b = a.clone()
+    a.stage_dtype = torch.bfloat16
+    data = _kstep_batches("lenet", 6)
+    rounded = [DataSet(torch.from_numpy(d.features).to(torch.bfloat16)
+                       .float().numpy(), d.labels) for d in data]
+    a.fit_iterator(data, ksteps=3)
+    staged = a.prefetcher.bytes
+    a.fit(data[0].features, data[0].labels, epochs=4)
+    b.fit_iterator(rounded, ksteps=1)
+    b.dispatch_ksteps = 1
+    b.fit(rounded[0].features, rounded[0].labels, epochs=4)
+    torch.cuda.synchronize()
+    assert staged == sum(d.features.nbytes // 2 + d.labels.nbytes
+                         for d in data)
+    for own, other in zip(a.params_list, b.params_list):
+        for k, v in own.items():
+            err = float((v - other[k]).abs().max())
+            assert err <= KSTEP_TOL * max(float(other[k].abs().max()), 1e-3)

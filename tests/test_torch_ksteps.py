@@ -448,3 +448,98 @@ def test_dispatch_multistep_stages_inline(jax_runs, kind):
         b.fit(ds)
     assert torch.equal(a.params(), b.params())
     assert a.iteration == b.iteration == 4
+
+
+# ------------------------------------------------------------ stage_dtype
+@pytest.fixture(scope="module")
+def jax_staged(tmp_path_factory):
+    """The JAX K-step runs with ``stage_dtype`` bfloat16: ``fit_iterator``
+    over the plain epoch at ``ksteps=3``, and ``fit(epochs=5)`` on its first
+    batch."""
+    import jax.numpy as jnp
+
+    out = {}
+    for kind in ("mln", "graph"):
+        for path in ("fit_iterator", "fit_epochs"):
+            with compile_cache_at(tmp_path_factory.mktemp("xcache")):
+                conf = _jax_conf(kind)
+                jnet = (JNet(conf) if kind == "mln" else JGraph(conf)).init()
+                jnet.stage_dtype = jnp.bfloat16
+                p0 = _np(jnet.params_list)
+                scores = _Scores()
+                jnet.set_listeners(scores)
+                theirs = _epoch(kind, "plain")[1]
+                if path == "fit_iterator":
+                    jnet.fit_iterator(theirs, ksteps=3)
+                elif kind == "mln":
+                    jnet.fit(theirs[0].features, theirs[0].labels, epochs=5)
+                else:
+                    jnet.fit(theirs[0], epochs=5)
+                out[kind, path] = {"p0": p0, "params": _np(jnet.params_list),
+                                   "scores": scores.seen}
+    return out
+
+
+def _fit_path(net, kind, path):
+    ours = _epoch(kind, "plain")[0]
+    if path == "fit_iterator":
+        return _fit_epoch(net, ours, ksteps=3)
+    scores = _Scores()
+    net.set_listeners(scores)
+    if kind == "mln":
+        net.fit(ours[0].features, ours[0].labels, epochs=5)
+    else:
+        net.fit(ours[0], epochs=5)
+    return scores.seen
+
+
+@pytest.mark.parametrize("path", ["fit_iterator", "fit_epochs"])
+@pytest.mark.parametrize("kind", ["mln", "graph"])
+def test_stage_dtype_matches_jax(jax_staged, kind, path):
+    """Features staged in bfloat16 train as the JAX package's do (losses
+    within 1e-5 relative, params within 1e-5 a leaf): rounded to bfloat16,
+    computed in float32. Unstaged, the losses part from them by more than
+    that (about 1e-4 relative here), so the cast did take effect."""
+    ref = jax_staged[kind, path]
+    net = _port(kind, ref["p0"])
+    net.stage_dtype = torch.bfloat16
+    seen = _fit_path(net, kind, path)
+    np.testing.assert_allclose([s for _, s in seen],
+                               [s for _, s in ref["scores"]], rtol=RTOL)
+    _assert_params_close(net, ref["params"])
+    plain = [s for _, s in _fit_path(_port(kind, ref["p0"]), kind, path)]
+    assert not np.allclose(plain, [s for _, s in seen], rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["mln", "graph"])
+def test_stage_dtype_casts_on_the_host(jax_runs, kind):
+    """The cast to ``stage_dtype`` comes before the copy to the device, on
+    every K-step path: the prefetcher stages half the feature bytes, and
+    ``fit(epochs=k)`` hands the device copy bfloat16 host tensors. The run
+    equals, bitwise, single steps on features rounded to bfloat16 first."""
+    p0 = jax_runs[kind, "plain"]["p0"]
+    datasets = _epoch(kind, "plain")[0]
+    staged, plain = _port(kind, p0), _port(kind, p0)
+    staged.stage_dtype = torch.bfloat16
+    seen = _fit_epoch(staged, datasets, ksteps=3)
+    _fit_epoch(plain, datasets, ksteps=3)
+    feats = sum(a.nbytes for ds in datasets
+                for a in staged._group_arrays(ds)[0])
+    assert plain.prefetcher.bytes - staged.prefetcher.bytes == feats // 2
+
+    def rounded(a):
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+    single = _port(kind, p0)
+    for ds in datasets:
+        xs, ys = single._group_arrays(ds)
+        single._fit_arrays([rounded(a) for a in xs], ys)
+    assert torch.equal(staged.params(), single.params())
+    assert seen[-1][1] == single.score_value
+
+    copied = []
+    to_device = staged._to_device
+    staged._to_device = lambda a: (copied.append(a.dtype), to_device(a))[1]
+    _fit_path(staged, kind, "fit_epochs")
+    n_in = len(staged._group_arrays(datasets[0])[0])
+    assert copied[:n_in] == [torch.bfloat16] * n_in

@@ -91,10 +91,26 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    through ``/v1/stream`` against the CPU ``rnn_time_step`` of the same
    weights (1e-5; 128 one-step ``lstm_fwd`` launches each), then times
    chunks;
-12. reads the profiler's device time of every main-path kernel row and its
+12. runs the ``dtype`` phase (``common.py``'s named policies, configs
+   naming them): full-depth ResNet-50 under ``bfloat16_flagship`` at 64x64
+   (3 steps at B = 8, each card step from the CPU flagship run's state:
+   the loss and the update against float64 as step 9's gate does, the
+   update's projection on the CPU's at the last step, a 1.01-rate control
+   that must fail, params and BN state float32) and at 224x224, B = 128
+   (eager steps in turns with float32 steps, ``fit(epochs=4)`` through the
+   K-step path, one profiled step of each by family, peak memory, the bf16
+   peak share, ``evaluate`` and ``/v1/predict``); full-width
+   ``transformer_lm(256)`` under ``bfloat16_full`` (2 steps against the
+   CPU, a K-step ``fit``, ``/v1/predict``, int8 ``/v1/generate``) and
+   ``char_rnn_lstm(64)`` under ``bfloat16`` (8 TBPTT chunks against the
+   CPU, decode, a 64-step ``/v1/stream``), each held to its CPU run within
+   twice that run's distance to float32, the kernels' operand dtypes
+   checked bf16; the kernel checks of step 3 add the bf16 operands at these
+   paths' shapes;
+13. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-13. prints one JSON line describing each kernel, then
+14. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -2686,6 +2702,871 @@ def graph_rnn(kernels) -> dict:
     return result
 
 
+#: the dtype phase (the named policies of common.py on both network types):
+#: full-depth ResNet-50 under bfloat16_flagship (a 64x64 check as the
+#: resnet50 phase's, then 224x224 at B = 128), full-width transformer_lm(256)
+#: under bfloat16_full, full-width char_rnn_lstm(64) under bfloat16
+FLAGSHIP, FULL_BF16, BF16 = "bfloat16_flagship", "bfloat16_full", "bfloat16"
+#: ResNet-50 at 224x224: fit(epochs=DT_RES_EPOCHS) through the K-step path,
+#: then DT_RES_TURN_STEPS eager steps a turn, flagship and float32 in turns
+#: (flagship, float32, float32, flagship)
+DT_RES_EPOCHS, DT_RES_TURN_STEPS, DT_RES_KSTEP_CALLS = 4, 4, 3
+#: the bf16 tensor cores' dense peak (NVIDIA H100 SXM data sheet, at 700 W):
+#: the figure the flagship step's share is taken of
+BF16_OPS_PER_S = 989e12
+#: card against CPU under a bf16 policy: the card's distance to the CPU run
+#: of the same policy at most DT_MULT times the CPU run's own distance to
+#: its wider counterpart (float32, or float64 for ResNet-50's update)
+DT_MULT = 2.0
+#: the flagship ResNet-50 update gate adds to the resnet50 phase's leaf
+#: gate (the card's update against a float64 step, leaf by leaf, relative
+#: to the CPU flagship step's own errors) the projection of the card's whole
+#: update on the CPU flagship update from the same state, r = <u, u_cpu> /
+#: <u_cpu, u_cpu> over all leaves, at the last step: within DT_PROJ_TOL of
+#: 1. The leaf gate alone cannot see a 1% error under bf16. A new
+#: ResNet-50's gradient is ill-conditioned (PR 11: float32 is 1% off
+#: float64), and in bf16 the first steps are rounding: on the H100 the
+#: flagship update's distance to the float64 update was 1.36 of it at the
+#: first step, 0.22 at the second and 0.086 at the third, and the card's
+#: update projected on the CPU's 0.29, 0.989 and 0.9994 (my chip run, PR
+#: 13). r is taken where the steps carry signal, the last. The control
+#: steps from the state a run at RES_CONTROL_LR times the rate would hold
+#: (the CPU run's params and BN state, its Nesterov velocity, proportional
+#: to the rate, times RES_CONTROL_LR), at that rate: its update is 1.01
+#: times the card's, r = 1.01.
+DT_PROJ_TOL = 0.003
+
+
+def _policy_conf(conf, name, lr_factor: float = 1.0):
+    """A copy of a config naming the dtype policy ``name``, every learning
+    rate times ``lr_factor``."""
+    conf = copy.deepcopy(conf)
+    conf.global_conf.dtype = name
+    if lr_factor != 1.0:
+        layers = ([v.layer for v in conf.vertices.values()
+                   if hasattr(v, "layer")] if hasattr(conf, "vertices")
+                  else conf.layers)
+        for lc in layers:
+            for k in ("learning_rate", "bias_learning_rate"):
+                if lc.fields.get(k) is not None:
+                    lc.fields[k] *= lr_factor
+    return conf
+
+
+class _Spy:
+    """A kernel wrapper's stand-in that notes each call's operand dtype,
+    then calls it; ``launches`` stays the wrapper's own (the wrapper counts
+    through its module's name, which is this stand-in while installed)."""
+
+    def __init__(self, name, fn, seen):
+        self.name, self.fn, self.seen = name, fn, seen
+
+    def __call__(self, *args, **kwargs):
+        per = self.seen.setdefault(self.name, {})
+        d = str(args[0].dtype)
+        per[d] = per.get(d, 0) + 1
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+class DtypeSeen:
+    """While installed, records the dtype of the first operand of each call
+    of the kernel wrappers the layers reach through their modules (the
+    flash kernels, the LSTM kernels, int8_matmul): ``seen[name][dtype]``.
+    A replay of a captured step runs no Python and is not seen; its capture
+    is."""
+
+    SITES = (("deeplearning4j_tpu_torch.ops.flash_attention",
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+             ("deeplearning4j_tpu_torch.ops.lstm", ("lstm_fwd", "lstm_bwd")),
+             ("deeplearning4j_tpu_torch.ops.quant", ("int8_matmul",)))
+
+    def __init__(self):
+        self.seen: dict = {}
+        self._saved = []
+
+    def __enter__(self):
+        for mod_name, names in self.SITES:
+            mod = sys.modules[mod_name]
+            for name in names:
+                fn = getattr(mod, name)
+                self._saved.append((mod, name, fn))
+                setattr(mod, name, self._spy(name, fn))
+        return self
+
+    def _spy(self, name, fn):
+        return _Spy(name, fn, self.seen)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved = []
+
+    def only(self, dtype: str, names) -> None:
+        """Fail unless each of ``names`` was called, and only with
+        ``dtype`` operands."""
+        for name in names:
+            got = self.seen.get(name, {})
+            if not got or set(got) != {dtype}:
+                fail(f"{name} was called with operands {got}, not only "
+                     f"{dtype}")
+
+
+def _tensors_of(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors_of(v)]
+    return [tree]
+
+
+def _all_float32(net) -> bool:
+    """Params, layer states and updater state all float32."""
+    return all(t.dtype == torch.float32 for t in _tensors_of(
+        [net.params_list, net.state_list, net.updater_state]))
+
+
+def _tree_dist(a, b) -> float:
+    """||a - b|| over every leaf of two trees of one structure."""
+    return float(sum(float(((x.detach().cpu().double() - y.detach().cpu()
+                             .double()) ** 2).sum())
+                     for x, y in zip(_tensors_of(a), _tensors_of(b))) ** 0.5)
+
+
+def _projection(params, ref_params, before) -> tuple:
+    """``(r, D)`` over all leaves: the update to ``params`` projected on
+    the update to ``ref_params`` (float64 copies: a float64 step's, or
+    another run's), ``<u, u_ref> / <u_ref, u_ref>``, and its distance to
+    it, ``||u - u_ref|| / ||u_ref||``."""
+    dot = nn = dd = 0.0
+    for n, leaves in ref_params.items():
+        for k, r in leaves.items():
+            u64 = r - before[n][k]
+            u = params[n][k].detach().to("cpu", torch.float64) - before[n][k]
+            dot += float((u * u64).sum())
+            nn += float((u64 * u64).sum())
+            dd += float(((u - u64) ** 2).sum())
+    return dot / nn, (dd / nn) ** 0.5
+
+
+def _dtype_family(kernel: str, chain: list) -> str:
+    """A ResNet step's kernel by family, as ``_resnet_family`` gives it,
+    with the convolutions split into the forward and the gradients, and the
+    dtype casts (``aten::_to_copy``) apart from the other elementwise
+    kernels."""
+    fam = _resnet_family(kernel, chain)
+    if fam == "convolutions":
+        back = any("backward" in c.lower() for c in chain)
+        return "convolution gradients" if back else "convolutions forward"
+    if fam in ("elementwise, pooling, reductions", "copies") and any(
+            "_to_copy" in c for c in chain):
+        return "dtype casts"
+    return fam
+
+
+def dtype_resnet_check(kernels) -> dict:
+    """Full-depth ResNet-50 under ``bfloat16_flagship`` at 64x64, B = 8, 3
+    steps, each card step from the CPU flagship run's state: the loss within
+    DT_MULT of the CPU run's own distance to the float64 loss, the update
+    leaf by leaf within the resnet50 phase's gate of a float64 step from the
+    same point (relative to the CPU flagship step's errors), the update's
+    projection on the float64 update within DT_PROJ_TOL of the CPU's, the
+    control failing; params, updater state and BN running state float32."""
+    ref = ComputationGraph(_policy_conf(resnet50(
+        n_classes=RES_CLASSES, image_size=RES_CHECK_SIZE), FLAGSHIP),
+        device="cpu").init(seed=SEED)
+    lock = ref.clone(device="cuda")
+    control = ComputationGraph(_policy_conf(ref.conf, FLAGSHIP,
+                                            RES_CONTROL_LR), device="cuda")
+    g = torch.Generator().manual_seed(SEED + 60)
+    batches = [_res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")
+               for _ in range(RES_CHECK_STEPS)]
+
+    def load_from_ref(net):
+        net.load_params(convert.to_numpy(ref.params_list),
+                        convert.to_numpy(ref.state_list))
+        net.load_updater_state(convert.to_numpy(ref.updater_state),
+                               ref.iteration)
+
+    for fn in kernels:
+        fn.launches = 0
+    steps, misses = [], {}
+    control_out = None
+    for i, (x, y) in enumerate(batches):
+        load_from_ref(lock)
+        before, exact = _f64(ref.params_list), Float64Run(ref)
+        loss64 = exact.step(x, y)
+        lock.fit([x], [y])
+        last = i == RES_CHECK_STEPS - 1
+        if last:
+            load_from_ref(control)
+            with torch.no_grad():
+                for t in _tensors_of(control.updater_state):
+                    t.mul_(RES_CONTROL_LR)
+            control.fit([x], [y])
+        ref.fit([x], [y])
+        # r and D of each update against the float64 update, r against the
+        # CPU flagship update (the gate)
+        card_e = _update_errs(lock.params_list, exact, before)
+        cpu_e = _update_errs(ref.params_list, exact, before)
+        card_r64, card_d = _projection(lock.params_list, exact.params, before)
+        cpu_r64, cpu_d = _projection(ref.params_list, exact.params, before)
+        on_cpu = _f64(ref.params_list)
+        card_r, card_dc = _projection(lock.params_list, on_cpu, before)
+        if last:
+            control_e = _update_errs(control.params_list, exact, before)
+            control_r, control_dc = _projection(control.params_list, on_cpu,
+                                                before)
+            control_out = {
+                "r": control_r, "D_vs_cpu": control_dc,
+                "leaves_outside_gate": len(_gate_misses(control_e, cpu_e))}
+        step = {"loss": lock.score_value, "cpu_loss": ref.score_value,
+                "float64_loss": loss64,
+                "card_e_median": float(np.median(list(card_e.values()))),
+                "cpu_e_median": float(np.median(list(cpu_e.values()))),
+                "card_e_worst": max(card_e.values()),
+                "card_r": card_r, "card_D_vs_cpu": card_dc,
+                "card_r64": card_r64, "cpu_r64": cpu_r64, "card_D64": card_d,
+                "cpu_D64": cpu_d,
+                "leaves_outside_gate": len(_gate_misses(card_e, cpu_e))}
+        steps.append(step)
+        misses.update({f"step {i + 1} {k}": v
+                       for k, v in _gate_misses(card_e, cpu_e).items()})
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    f32_ok = _all_float32(lock) and _all_float32(ref)
+    print(f"dtype resnet50 ({FLAGSHIP}, {RES_CHECK_SIZE}x{RES_CHECK_SIZE}, "
+          f"B={RES_CHECK_B}, each card step from the CPU flagship run's "
+          f"state): {steps}; control (rate x{RES_CONTROL_LR}, last step) "
+          f"{control_out}; params, updater and BN state float32: {f32_ok}; "
+          f"launches {launches} [{CARD}]", flush=True)
+    for i, s in enumerate(steps):
+        bound_loss = DT_MULT * abs(s["cpu_loss"] - s["float64_loss"])
+        if not (np.isfinite(s["loss"])
+                and abs(s["loss"] - s["cpu_loss"]) <= bound_loss):
+            fail(f"flagship ResNet-50 step {i + 1} loss {s['loss']} against "
+                 f"the CPU's {s['cpu_loss']} (float64 {s['float64_loss']})")
+    if not abs(steps[-1]["card_r"] - 1.0) <= DT_PROJ_TOL:
+        fail(f"flagship ResNet-50 step {len(steps)}: the card's update "
+             f"projected on the CPU's is {steps[-1]['card_r']}")
+    if misses:
+        fail(f"flagship ResNet-50 updates outside the gate: {misses}")
+    if not (control_out["leaves_outside_gate"]
+            or abs(control_out["r"] - 1.0) > DT_PROJ_TOL):
+        fail(f"flagship ResNet-50 control passed the gate: {control_out}")
+    if not f32_ok:
+        fail("flagship ResNet-50 params, updater or BN state left float32")
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = RES_CHECK_STEPS + 1
+    if launches != want:
+        fail(f"flagship ResNet-50 check launches {launches} != {want}")
+    return {"steps": steps, "control": control_out, "launches": launches,
+            "state_float32": f32_ok}
+
+
+def _profiled_family(net, x, y) -> tuple:
+    """One profiled eager step: ``(wall ms, device µs, µs by family)``."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit([x], [y])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    busy = sum(us for _, _, us in device_events(prof))
+    return ms, busy, device_us_by_family(prof, _dtype_family)
+
+
+def dtype_resnet_bench(kernels) -> dict:
+    """Full-depth ResNet-50 at 224x224, B = 128, under
+    ``bfloat16_flagship`` beside float32 (the same init): peak memory of
+    each, eager steps in turns, ``fit(epochs=4)`` through the K-step path,
+    one profiled eager step of each by family, evaluate on 256 images and a
+    2-row ``/v1/predict``."""
+    flag = ComputationGraph(_policy_conf(resnet50(), FLAGSHIP),
+                            device="cuda").init(seed=SEED)
+    f32 = ComputationGraph(resnet50(), device="cuda").init(seed=SEED)
+    flops = resnet_flops(flag.conf, RES_B)
+    x, y = _res_batch(torch.Generator().manual_seed(SEED + 61), RES_B,
+                      RES_SIZE, RES_CLASSES, "cuda")
+    peak = {}
+    for name, net in (("flagship", flag), ("float32", f32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(RES_WARMUP):
+            net.fit([x], [y])
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated()
+    for fn in kernels:
+        fn.launches = 0
+    turns = {"flagship": [], "float32": []}
+    for name in ("flagship", "float32", "float32", "flagship"):
+        net = flag if name == "flagship" else f32
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DT_RES_TURN_STEPS):
+            net.fit([x], [y])
+        torch.cuda.synchronize()
+        turns[name].append(1e3 * (time.perf_counter() - t0)
+                           / DT_RES_TURN_STEPS)
+    eager_launches = {fn.__name__: fn.launches for fn in kernels}
+    step_ms = {k: float(np.median(v)) for k, v in turns.items()}
+    losses = {"flagship": flag.score_value, "float32": f32.score_value}
+    # the K-step path: the first call captures the step (an eager warm-up
+    # step, then the capture), the next are replays
+    for fn in kernels:
+        fn.launches = 0
+    flag.fit([x], [y], epochs=DT_RES_EPOCHS)
+    torch.cuda.synchronize()
+    kstep_ms = []
+    for _ in range(DT_RES_KSTEP_CALLS):
+        t0 = time.perf_counter()
+        flag.fit([x], [y], epochs=DT_RES_EPOCHS)
+        torch.cuda.synchronize()
+        kstep_ms.append(1e3 * (time.perf_counter() - t0) / DT_RES_EPOCHS)
+    kstep_launches = {fn.__name__: fn.launches for fn in kernels}
+    graphs = len(flag._step_graphs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flag.fit([x], [y], epochs=DT_RES_EPOCHS)
+        torch.cuda.synchronize()
+        kprof_ms = 1e3 * (time.perf_counter() - t0) / DT_RES_EPOCHS
+    kbusy = sum(us for _, _, us in device_events(prof)) / DT_RES_EPOCHS
+    kloss = flag.score_value
+    fam = {}
+    for name, net in (("flagship", flag), ("float32", f32)):
+        ms, busy, by = _profiled_family(net, x, y)
+        fam[name] = {"profiled_ms": ms, "device_us": busy,
+                     "device_us_by_family": by,
+                     "idle_share_unprofiled":
+                         1.0 - busy / 1e3 / step_ms[name]}
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = 4 * DT_RES_TURN_STEPS
+    if eager_launches != want:
+        fail(f"ResNet-50 dtype eager launches {eager_launches} != {want}")
+    want["softmax_cross_entropy"] = DT_RES_EPOCHS * (1 + DT_RES_KSTEP_CALLS)
+    if kstep_launches != want or graphs != 1:
+        fail(f"flagship ResNet-50 K-step launches {kstep_launches} != {want}"
+             f" or {graphs} captured graphs")
+    if not (np.isfinite(list(losses.values())).all() and np.isfinite(kloss)):
+        fail(f"ResNet-50 dtype losses not finite: {losses}, {kloss}")
+    if not _all_float32(flag):
+        fail("flagship ResNet-50 params, updater or BN state left float32")
+
+    # evaluate, and /v1/predict held to the card's own output: a new network
+    # with a batch's own statistics as its running statistics (see resnet)
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    ge = torch.Generator().manual_seed(SEED + 62)
+    eval_sets = [DataSet(*(t.numpy() for t in _res_batch(
+        ge, RES_B, RES_SIZE, RES_CLASSES, "cpu")))
+        for _ in range(RES_EVAL // RES_B)]
+    t0 = time.perf_counter()
+    ev = flag.evaluate(eval_sets)
+    eval_s = time.perf_counter() - t0
+    served = ComputationGraph(flag.conf, device="cuda").init(seed=SEED + 1)
+    served.load_state(batch_statistics(served, x))
+    rows = eval_sets[0].features[:RES_SERVE_ROWS]
+    srv = InferenceServer(device="cuda", max_batch=RES_SERVE_ROWS)
+    srv.start()
+    try:
+        srv.register("resnet50_flagship", served)
+        status, body = post(srv.port, "/v1/predict",
+                            {"model": "resnet50_flagship",
+                             "inputs": rows.tolist()})
+    finally:
+        srv.stop()
+    if status != 200:
+        fail(f"flagship ResNet-50 /v1/predict returned {status}: {body[:300]}")
+    pred = np.asarray(json.loads(body)["predictions"], np.float64)
+    own_t = served.output(rows)[0]
+    own = own_t.float().cpu().double().numpy()
+    # one bf16 ulp of each probability (the output is bf16)
+    perr = float((np.abs(pred - own) / np.abs(own).clip(1e-30)).max())
+    if own_t.dtype != torch.bfloat16 or pred.shape != (RES_SERVE_ROWS,
+                                                        RES_CLASSES) \
+            or not perr <= 2.0 ** -7 or ev.num_examples != RES_EVAL:
+        fail(f"flagship ResNet-50 serving: output {own_t.dtype}, predict "
+             f"{pred.shape}, relative error {perr}, evaluated "
+             f"{ev.num_examples}")
+
+    def share(ms):
+        return flops / BF16_OPS_PER_S / (ms / 1e3)
+
+    result = {
+        "card": CARD, "batch": RES_B, "image_size": RES_SIZE,
+        "step_tflop": flops / 1e12, "peak_memory_bytes": peak,
+        "eager_step_ms": step_ms, "eager_turn_ms": turns,
+        "samples_per_s": {k: RES_B / (v / 1e3) for k, v in step_ms.items()},
+        "kstep_step_ms": kstep_ms,
+        "kstep_samples_per_s": RES_B / (float(np.median(kstep_ms)) / 1e3),
+        "kstep_profiled_step_ms": kprof_ms, "kstep_device_us": kbusy,
+        "kstep_idle_share": 1.0 - kbusy / 1e3 / float(np.median(kstep_ms)),
+        "bf16_peak_share": {
+            "flagship_eager": share(step_ms["flagship"]),
+            "flagship_kstep": share(float(np.median(kstep_ms))),
+            "float32_eager": share(step_ms["float32"])},
+        "by_family": fam, "losses": losses, "kstep_loss": kloss,
+        "eager_launches": eager_launches, "kstep_launches": kstep_launches,
+        "eval_s": eval_s, "predict_rel_err": perr}
+    print(f"dtype resnet50 (224x224x3, B={RES_B}): eager step flagship "
+          f"{step_ms['flagship']:.3f} ms, float32 {step_ms['float32']:.3f} "
+          f"ms (turns {turns}); K-step flagship {kstep_ms} ms a step "
+          f"(profiled {kprof_ms:.3f}, device {kbusy:.1f} us a step, idle "
+          f"{result['kstep_idle_share']:.3f}); peak memory GiB "
+          f"{ {k: round(v / 2**30, 2) for k, v in peak.items()} }; "
+          f"{flops / 1e12:.4f} TFLOP a step, share of the bf16 dense peak "
+          f"(989 TFLOP/s): {result['bf16_peak_share']}; evaluate 256 in "
+          f"{eval_s:.3f}s; /v1/predict relative error {perr:.3e} [{CARD}]",
+          flush=True)
+    for name, f in fam.items():
+        for k, us in sorted(f["device_us_by_family"].items(),
+                            key=lambda kv: -kv[1]):
+            print(f"  dtype resnet50 {name} step device time {k}: {us:.1f} "
+                  f"us ({100 * us / f['device_us']:.1f}%)", flush=True)
+    return result
+
+
+def dtype_transformer(kernels) -> dict:
+    """Full-width ``transformer_lm(256)`` under ``bfloat16_full``: 2 steps on
+    the card against the CPU from the same weights (each loss and the
+    params within DT_MULT of the CPU run's distance to its float32 run), a
+    K-step ``fit``, ``/v1/predict`` and int8 ``/v1/generate``; the flash
+    kernels and int8_matmul see bf16 operands."""
+    steps, V = 2, TRAIN_V
+    conf = _policy_conf(transformer_lm(V), FULL_BF16)
+    ids = np.random.default_rng(SEED + 63).integers(0, V, (TRAIN_B, TRAIN_T))
+    x = np.eye(V, dtype=np.float32)[ids]
+    cpu = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+    cpu32 = MultiLayerNetwork(transformer_lm(V), device="cpu").init(seed=SEED)
+    card = cpu.clone(device="cuda")
+    losses, cpu_losses, f32_losses = [], [], []
+    with DtypeSeen() as seen:
+        for fn in kernels:
+            fn.launches = 0
+        for _ in range(steps):
+            card.fit(x, x)
+            losses.append(card.score_value)
+        train_launches = {fn.__name__: fn.launches for fn in kernels}
+        seen.only("torch.bfloat16", ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"))
+        train_seen = copy.deepcopy(seen.seen)
+        for _ in range(steps):
+            cpu.fit(x, x)
+            cpu_losses.append(cpu.score_value)
+            cpu32.fit(x, x)
+            f32_losses.append(cpu32.score_value)
+        seen.seen.clear()
+        # the K-step path: dispatch_ksteps steps a group, one capture
+        ks = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+        ks.dispatch_ksteps = KS_TRANSFORMER_K
+        for fn in kernels:
+            fn.launches = 0
+        ks.fit(x, x, epochs=KS_TRANSFORMER_STEPS)
+        torch.cuda.synchronize()
+        ks_launches = {fn.__name__: fn.launches for fn in kernels}
+        ks_loss = ks.score_value
+        # serving: /v1/predict and int8 /v1/generate (bf16 x into int8_matmul)
+        srv = InferenceServer(device="cuda", decode_kv="paged",
+                              decode_page_size=16, decode_max_context=256,
+                              decode_max_slots=8)
+        srv.start()
+        seen.seen.clear()
+        try:
+            srv.register("lm_bf16", card, quant="int8")
+            rng = np.random.default_rng(SEED + 64)
+            prompts = [rng.integers(0, V, size=16).tolist() for _ in range(4)]
+            for fn in kernels:
+                fn.launches = 0
+            gens = [post(srv.port, "/v1/generate",
+                         {"model": "lm_bf16", "prompt": p,
+                          "max_new_tokens": 16}) for p in prompts]
+            gen_launches = {fn.__name__: fn.launches for fn in kernels}
+            # [2, 512] ids, as the serve phase's (a [2, 256] float row of
+            # a 256-token vocabulary reads as one-hot rows, as in JAX)
+            pids = rng.integers(0, V, size=(2, 512)).astype(np.float32)
+            for fn in kernels:
+                fn.launches = 0
+            status, body = post(srv.port, "/v1/predict",
+                                {"model": "lm_bf16", "inputs": pids.tolist()})
+            predict_launches = {fn.__name__: fn.launches for fn in kernels}
+        finally:
+            srv.stop()
+        serve_seen = copy.deepcopy(seen.seen)
+        if status != 200 or any(c != 200 for c, _ in gens):
+            fail(f"bfloat16_full serving: /v1/predict {status} "
+                 f"{body[:400]}; /v1/generate {[t[:200] for _, t in gens]}")
+        seen.only("torch.bfloat16", ("int8_matmul", "flash_fwd"))
+    rel = [abs(a - b) for a, b in zip(losses, cpu_losses)]
+    ref = [abs(a - b) for a, b in zip(cpu_losses, f32_losses)]
+    d = _tree_dist(card.params_list, cpu.params_list)
+    d_ref = _tree_dist(cpu.params_list, cpu32.params_list)
+    pred = np.asarray(json.loads(body)["predictions"], np.float32) \
+        if status == 200 else None
+    own = PredictFn(card, quant="int8", device="cuda")(pids)
+    perr = None if pred is None else float(
+        np.abs(pred - own.float().cpu().numpy()).max())
+    toks = [[json.loads(l) for l in t.splitlines() if l.strip()][-1]
+            .get("tokens") for _, t in gens]
+    print(f"dtype transformer ({FULL_BF16}, B={TRAIN_B}, T={TRAIN_T}): card "
+          f"losses {losses}, CPU {cpu_losses}, CPU float32 {f32_losses}; "
+          f"params card-CPU {d:.4e}, CPU bf16-float32 {d_ref:.4e}; K-step "
+          f"fit({KS_TRANSFORMER_STEPS}) at {KS_TRANSFORMER_K} loss {ks_loss}"
+          f" launches {ks_launches}; train launches {train_launches}; "
+          f"generate launches {gen_launches}, predict {predict_launches}, "
+          f"predict max_abs_err {perr} against PredictFn; operand dtypes "
+          f"train {train_seen}, serve {serve_seen} [{CARD}]", flush=True)
+    if not all(np.isfinite(losses)) or not max(rel) <= DT_MULT * max(ref) \
+            or not d <= DT_MULT * d_ref:
+        fail(f"bfloat16_full transformer on the card disagrees with the CPU "
+             f"beyond {DT_MULT} x its bf16-float32 distance")
+    want = {"softmax_cross_entropy": steps, "flash_fwd": 4 * steps,
+            "flash_bwd_dq": 4 * steps, "flash_bwd_dkv": 4 * steps,
+            "int8_matmul": 0, "paged_gather": 0, "lstm_fwd": 0,
+            "lstm_bwd": 0}
+    want_ks = {k: v // steps * KS_TRANSFORMER_STEPS for k, v in want.items()}
+    if train_launches != want or ks_launches != want_ks \
+            or not np.isfinite(ks_loss):
+        fail(f"bfloat16_full transformer launches {train_launches} != {want}"
+             f" or K-step {ks_launches} != {want_ks}")
+    if status != 200 or pred.shape != (2, 512, V) or not perr <= 2e-2:
+        fail(f"bfloat16_full /v1/predict: {status}, error {perr}")
+    if any(c != 200 for c, _ in gens) or any(
+            t is None or len(t) != 16 or not all(0 <= k < V for k in t)
+            for t in toks) or gen_launches["int8_matmul"] <= 0 \
+            or gen_launches["paged_gather"] <= 0:
+        fail(f"bfloat16_full int8 /v1/generate: {[c for c, _ in gens]}, "
+             f"launches {gen_launches}")
+    return {"losses": losses, "cpu_losses": cpu_losses,
+            "cpu_float32_losses": f32_losses, "params_card_cpu": d,
+            "params_cpu_bf16_f32": d_ref, "train_launches": train_launches,
+            "kstep_launches": ks_launches, "generate_launches": gen_launches,
+            "predict_launches": predict_launches, "predict_max_abs_err": perr,
+            "operand_dtypes_train": train_seen,
+            "operand_dtypes_serve": serve_seen}
+
+
+def dtype_rnn(kernels) -> dict:
+    """Full-width ``char_rnn_lstm(64)`` under ``bfloat16``: TBPTT over 8
+    chunks of [32, 50, 64] on the card against the CPU (each chunk's loss
+    and the params within DT_MULT of the CPU run's distance to its float32
+    run), decode (8 ``/v1/generate`` sessions) and a 64-step ``/v1/stream``
+    against the CPU ``rnn_time_step`` of the same policy; the LSTM kernels
+    see bf16 operands."""
+    base = char_rnn_lstm(RNN_V, hidden=RNN_H, layers=2, tbptt_length=RNN_CHUNK,
+                         learning_rate=RNN_LR)
+    conf = _policy_conf(base, BF16)
+    rng = np.random.default_rng(SEED + 65)
+    batches = [_one_hot(rng.integers(0, RNN_V, size=(RNN_B, RNN_T)))
+               for _ in range(RNN_BATCHES)]
+    cpu = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+    cpu32 = MultiLayerNetwork(base, device="cpu").init(seed=SEED)
+    card = cpu.clone(device="cuda")
+    losses, cpu_losses, f32_losses = [], [], []
+    card.set_listeners(_LossLog(losses))
+    cpu.set_listeners(_LossLog(cpu_losses))
+    cpu32.set_listeners(_LossLog(f32_losses))
+    with DtypeSeen() as seen:
+        for fn in kernels:
+            fn.launches = 0
+        for xb in batches:
+            card.fit(xb, xb)
+        torch.cuda.synchronize()
+        train_launches = {fn.__name__: fn.launches for fn in kernels}
+        seen.only("torch.bfloat16", ("lstm_fwd", "lstm_bwd"))
+        train_seen = copy.deepcopy(seen.seen)
+        for xb in batches:
+            cpu.fit(xb, xb)
+            cpu32.fit(xb, xb)
+        served = cpu.clone(device="cuda")
+        served.set_listeners()
+        srv = InferenceServer(device="cuda", decode_max_slots=RNN_DECODE_B)
+        srv.start()
+        seen.seen.clear()
+        prompts = [rng.integers(0, RNN_V, size=16).tolist() for _ in range(8)]
+        stream_ids = rng.integers(0, RNN_V, size=(1, RNN_STREAM_STEPS))
+        try:
+            srv.register("char_bf16", served)
+            for fn in kernels:
+                fn.launches = 0
+            results = [None] * len(prompts)
+
+            def gen(j):
+                results[j] = post(srv.port, "/v1/generate",
+                                  {"model": "char_bf16", "prompt": prompts[j],
+                                   "max_new_tokens": 16})
+            threads = [threading.Thread(target=gen, args=(j,))
+                       for j in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            decode_launches = {fn.__name__: fn.launches for fn in kernels}
+            for fn in kernels:
+                fn.launches = 0
+            code, text = post(srv.port, "/v1/stream",
+                              {"model": "char_bf16", "session": "s",
+                               "inputs": _one_hot(stream_ids).tolist()})
+            stream_launches = {fn.__name__: fn.launches for fn in kernels}
+        finally:
+            srv.stop()
+        serve_seen = copy.deepcopy(seen.seen)
+        seen.only("torch.bfloat16", ("lstm_fwd",))
+    if code != 200:
+        fail(f"bfloat16 char_rnn /v1/stream returned {code}: {text[:300]}")
+    lines = [json.loads(l) for l in text.splitlines() if l.strip()]
+    outs = np.stack([np.asarray(l["output"], np.float32)[0]
+                     for l in lines[:-1]])
+    # the CPU references step one timestep a call, as the server streams
+    ref_net = cpu.clone(device="cpu")
+    ref32 = cpu32.clone(device="cpu")
+    ref32.load_params(convert.to_numpy(cpu.params_list))
+    oh = _one_hot(stream_ids)
+    want_out, out32 = (np.concatenate([
+        net.rnn_time_step(oh[:, t:t + 1]).numpy()[0]
+        for t in range(RNN_STREAM_STEPS)]) for net in (ref_net, ref32))
+    stream_err = float(np.abs(outs - want_out).max())
+    stream_ref = float(np.abs(want_out - out32).max())
+    rel = [abs(a - b) for a, b in zip(losses, cpu_losses)]
+    ref = [abs(a - b) for a, b in zip(cpu_losses, f32_losses)]
+    d = _tree_dist(card.params_list, cpu.params_list)
+    d_ref = _tree_dist(cpu.params_list, cpu32.params_list)
+    toks = [[json.loads(l) for l in t.splitlines() if l.strip()][-1]
+            .get("tokens") for _, t in results]
+    n_chunks = RNN_BATCHES * (RNN_T // RNN_CHUNK)
+    print(f"dtype char_rnn ({BF16}): card chunk losses {losses}; CPU "
+          f"{cpu_losses}; CPU float32 {f32_losses}; params card-CPU {d:.4e},"
+          f" CPU bf16-float32 {d_ref:.4e}; /v1/stream {RNN_STREAM_STEPS} "
+          f"steps max_abs_err {stream_err:.3e} against the CPU (its own "
+          f"bf16-float32 distance {stream_ref:.3e}); launches train "
+          f"{train_launches}, decode {decode_launches}, stream "
+          f"{stream_launches}; operand dtypes train {train_seen}, serve "
+          f"{serve_seen} [{CARD}]", flush=True)
+    if len(losses) != n_chunks or not all(np.isfinite(losses)) \
+            or not max(rel) <= DT_MULT * max(ref) or not d <= DT_MULT * d_ref:
+        fail("bfloat16 char_rnn on the card disagrees with the CPU beyond "
+             f"{DT_MULT} x its bf16-float32 distance")
+    if not stream_err <= DT_MULT * stream_ref:
+        fail(f"bfloat16 /v1/stream disagrees with the CPU: {stream_err} > "
+             f"{DT_MULT} x {stream_ref}")
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update(lstm_fwd=2 * n_chunks, lstm_bwd=2 * n_chunks,
+                softmax_cross_entropy=n_chunks)
+    want_s = {fn.__name__: 0 for fn in kernels}
+    want_s["lstm_fwd"] = 2 * RNN_STREAM_STEPS
+    if train_launches != want or stream_launches != want_s \
+            or decode_launches["lstm_fwd"] <= 0:
+        fail(f"bfloat16 char_rnn launches {train_launches} != {want}, "
+             f"stream {stream_launches} != {want_s}, decode "
+             f"{decode_launches}")
+    if any(c != 200 for c, _ in results) or any(
+            t is None or len(t) != 16 for t in toks):
+        fail(f"bfloat16 char_rnn /v1/generate: {[c for c, _ in results]}")
+    return {"losses": losses, "cpu_losses": cpu_losses,
+            "cpu_float32_losses": f32_losses, "params_card_cpu": d,
+            "params_cpu_bf16_f32": d_ref, "stream_max_abs_err": stream_err,
+            "stream_cpu_bf16_f32": stream_ref,
+            "train_launches": train_launches,
+            "decode_launches": decode_launches,
+            "stream_launches": stream_launches,
+            "operand_dtypes_train": train_seen,
+            "operand_dtypes_serve": serve_seen}
+
+
+def dtype_phase(kernels) -> dict:
+    """The three paths of the dtype phase, in order."""
+    return {"resnet50_check": dtype_resnet_check(kernels),
+            "resnet50": dtype_resnet_bench(kernels),
+            "transformer": dtype_transformer(kernels),
+            "char_rnn": dtype_rnn(kernels)}
+
+
+def lstm_work_bf16(T, B, F, H):
+    """(bytes, operations) of lstm_fwd and of lstm_bwd with bf16 operands:
+    as :func:`lstm_work`, every bf16 tensor at 2 bytes an element; the
+    backward's dW, db, dpeep, dh0 and dc0 are float32."""
+    K = F + H
+    w = K * 4 * H + 4 * H + 3 * H
+    fwd_b = 2 * (T * B * F + T * B + 4 * B * H + 2 * T * B * H + w)
+    bwd_b = (2 * (T * B * (F + 3 * H) + T * B + 2 * B * H + w + T * B * F)
+             + 4 * (w + 2 * B * H))
+    _, fwd_o, _, bwd_o = lstm_work(T, B, F, H)
+    return fwd_b, fwd_o, bwd_b, bwd_o
+
+
+def check_bf16(rows: list, dev) -> None:
+    """The kernels the bf16 policies put on a path, with bf16 operands at
+    that path's shapes, each against its plain version on the same inputs:
+    the flash kernels at the transformer's training shape (B 16, T 256, 4
+    heads of 64, causal), ``int8_matmul`` at the decode step's widest matmul
+    (M 8, K 256, N 1024) and the LSTM kernels at char_rnn's two TBPTT
+    chunks. Bounds at bf16 bytes and the bf16 dense peak; the library calls
+    in bf16 too (``scaled_dot_product_attention``, a bf16 matmul against the
+    dequantized weights, cuDNN's LSTM)."""
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    B, T, H, D = TRAIN_B, TRAIN_T, 4, 64
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev).to(bf)
+                   for _ in range(4))
+    out, lse = flash_fwd(q, k, v, True)
+    ro, rl = flash_fwd_plain(q, k, v, True)
+    err = max(float((out.float() - ro.float()).abs().max()),
+              float((lse - rl).abs().max()))
+    pairs = B * H * T * (T + 1) / 2
+    row_b, stats = 2 * B * T * H * D, 4 * B * H * T
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    shape = {"B": B, "T": T, "H": H, "D": D, "causal": True,
+             "dtype": str(bf)}
+
+    def fkernel():
+        return flash_fwd(q, k, v, True)
+
+    def flib():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def bf16_bound(nbytes, ops):
+        return dict(zip(("bound_ms", "bound_by"),
+                        bound(nbytes, ops, BF16_OPS_PER_S)))
+
+    row = report(rows, "flash_fwd", shape, err, 2e-2,
+                 time_ms(fkernel, iters=20),
+                 time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
+                 time_ms(flib, iters=20), 4 * row_b + stats, 4 * D * pairs,
+                 {"card": CARD, **bf16_bound(4 * row_b + stats,
+                                             4 * D * pairs)})
+    DEVICE_TIMED.append((row, fkernel, flib))
+    delta = bwd_delta(out, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    rq = flash_bwd_dq_plain(q, k, v, do, lse, delta, True)
+    rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def blib():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    lib_ms = time_ms(blib, iters=20)
+    for name, e, nbytes, ops, kernel, plain in (
+            ("flash_bwd_dq", float((dq.float() - rq.float()).abs().max()),
+             5 * row_b + 2 * stats, 6 * D * pairs,
+             lambda: flash_bwd_dq(q, k, v, do, lse, delta, True),
+             lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
+            ("flash_bwd_dkv", max(float((dk.float() - rk.float()).abs().max()),
+                                  float((dv.float() - rv.float()).abs().max())),
+             6 * row_b + 2 * stats, 8 * D * pairs,
+             lambda: flash_bwd_dkv(q, k, v, do, lse, delta, True),
+             lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, True))):
+        row = report(rows, name, shape, e, 3.2e-2, time_ms(kernel, iters=20),
+                     time_ms(plain, iters=20), lib_ms, nbytes, ops,
+                     {"card": CARD, **bf16_bound(nbytes, ops)})
+        DEVICE_TIMED.append((row, kernel, blib))
+
+    M, K, N = 8, 256, 1024
+    x = torch.randn(M, K, generator=g).to(dev).to(bf)
+    leaf = quantize_per_channel((torch.randn(K, N, generator=g) * 0.05)
+                                .to(dev))
+    wd = dequantize_leaf(leaf).to(bf)
+    err = float((int8_matmul(x, leaf.q, leaf.scale)
+                 - int8_matmul_plain(x, leaf.q, leaf.scale)).abs().max())
+
+    def ikernel():
+        return int8_matmul(x, leaf.q, leaf.scale)
+
+    def ilib():
+        return torch.matmul(x, wd)
+
+    nbytes, ops = 2 * M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N
+    row = report(rows, "int8_matmul", {"M": M, "K": K, "N": N,
+                                       "dtype": str(bf)}, err, 1e-4,
+                 time_ms(ikernel),
+                 time_ms(lambda: int8_matmul_plain(x, leaf.q, leaf.scale)),
+                 time_ms(ilib), nbytes, ops,
+                 {"card": CARD, **bf16_bound(nbytes, ops)})
+    DEVICE_TIMED.append((row, ikernel, ilib))
+
+    for F_ in (RNN_V, RNN_H):
+        Tc, Bc, Hc = RNN_CHUNK, RNN_B, RNN_H
+        a = {kk: None if t is None else t.to(bf) for kk, t in
+             _lstm_args(dev, g, Tc, Bc, F_, Hc, True, F_ == RNN_H).items()}
+        fo = lstm_ops.lstm_fwd(**a)
+        fr = lstm_ops.lstm_fwd_plain(**a)
+        # each bf16 output within one bf16 ulp of the plain version's plus
+        # the float32 tolerance (2e-5)
+        fexcess = max(float(((o.float() - r.float()).abs()
+                             - 2.0 ** -7 * r.float().abs() - 2e-5).max())
+                      for o, r in zip(fo, fr))
+        ferr = max(float((o.float() - r.float()).abs().max())
+                   for o, r in zip(fo, fr))
+        ftol = 2e-5 + 2.0 ** -7 * max(float(r.float().abs().max())
+                                      for r in fr)
+        ys, cs = fr[0], fr[1]
+        dys, dht, dct = (torch.randn(*s, generator=g).to(dev).to(bf)
+                         for s in ((Tc, Bc, Hc), (Bc, Hc), (Bc, Hc)))
+        ba = dict(x_t=a["x_t"], hprev=torch.cat([a["h0"][None], ys[:-1]]),
+                  cprev=torch.cat([a["c0"][None], cs[:-1]]), wcat=a["wcat"],
+                  b=a["b"], peep=a["peep"], dys=dys, dht=dht, dct=dct,
+                  m_t=a["m_t"])
+        bo = lstm_ops.lstm_bwd(**ba)
+        br = lstm_ops.lstm_bwd_plain(**ba)
+        # dx (bf16): one ulp beside the float32 bound; the float32 outputs:
+        # 1e-4 of their largest entry plus 1e-5
+        bexcess = max(float(((o.float() - r.float()).abs()
+                             - (2.0 ** -7 * r.float().abs() if i == 0 else 0)
+                             - (1e-5 + 1e-4 * float(r.float().abs().max())))
+                            .max()) for i, (o, r) in enumerate(zip(bo, br)))
+        berr = float((bo[0].float() - br[0].float()).abs().max())
+        btol = 1e-5 + (2.0 ** -7 + 1e-4) * float(br[0].float().abs().max())
+        if fexcess > 0 or bexcess > 0:
+            fail(f"lstm bf16 T={Tc} F={F_}: an output past its bound "
+                 f"(forward {fexcess}, backward {bexcess})")
+        if bo[0].dtype != bf or any(t.dtype != torch.float32 for t in bo[1:]):
+            fail(f"lstm_bwd bf16 output dtypes {[t.dtype for t in bo]}")
+        fb, fops, bb, bops = lstm_work_bf16(Tc, Bc, F_, Hc)
+        shape = {"T": Tc, "B": Bc, "F": F_, "H": Hc, "peephole": True,
+                 "masked": F_ == RNN_H, "dtype": str(bf)}
+        mod = torch.nn.LSTM(F_, Hc).to(dev).to(bf)
+        xl = torch.randn(Tc, Bc, F_, device=dev, dtype=bf, requires_grad=True)
+        h0 = torch.zeros(1, Bc, Hc, device=dev, dtype=bf)
+
+        def lib_f():
+            with torch.no_grad():
+                return mod(xl, (h0, h0))
+
+        def lib_fb():
+            yl, _ = mod(xl, (h0, h0))
+            return torch.autograd.grad(yl.float().sum(),
+                                       [xl] + list(mod.parameters()))
+
+        def fk(a=a):
+            return lstm_ops.lstm_fwd(**a)
+
+        def bk(ba=ba):
+            return lstm_ops.lstm_bwd(**ba)
+
+        row = report(rows, "lstm_fwd", shape, ferr, ftol,
+                     time_ms(fk, iters=20),
+                     time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
+                     time_ms(lib_f, iters=20), fb, fops,
+                     {"card": CARD, **bf16_bound(fb, fops)})
+        DEVICE_TIMED.append((row, fk, lib_f))
+        row = report(rows, "lstm_bwd", shape, berr, btol,
+                     time_ms(bk, iters=20),
+                     time_ms(lambda: lstm_ops.lstm_bwd_plain(**ba), iters=5),
+                     time_ms(lib_fb, iters=20), bb, bops,
+                     {"card": CARD, **bf16_bound(bb, bops)})
+        DEVICE_TIMED.append((row, bk, lib_fb))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2717,6 +3598,7 @@ def main() -> None:
     check_xent(rows, dev)
     check_flash_bwd(rows, dev)
     check_lstm(rows, dev)
+    check_bf16(rows, dev)
 
     kernels = (int8_matmul, paged_gather, flash_fwd, softmax_cross_entropy,
                flash_bwd_dq, flash_bwd_dkv, lstm_ops.lstm_fwd,
@@ -2736,6 +3618,7 @@ def main() -> None:
         _profile_pair(*pending)
     kstep_run["resnet50"] = ksteps_resnet(kernels)
     graph_rnn_run = graph_rnn(kernels)
+    dtype_run = dtype_phase(kernels)
     measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
@@ -2761,8 +3644,56 @@ def main() -> None:
     main_shape["lstm_fwd"] = main_shape["lstm_bwd"] = rnn_train
 
     def row_at(name, want):
+        """The row of ``name`` at ``want``'s shape keys, float32 unless
+        ``want`` names a dtype."""
+        want = {"dtype": "torch.float32", **want}
         return next(r for r in rows if r["name"] == name and all(
-            r["shape"].get(k) == v for k, v in want.items()))
+            r["shape"].get(k, "torch.float32" if k == "dtype" else None) == v
+            for k, v in want.items()))
+
+    # the dtype phase's paths: every launch on them, and those whose
+    # operands were bf16 (seen by DtypeSeen), by kernel
+    dt_res = dtype_run["resnet50"]
+    dt_lm, dt_rnn = dtype_run["transformer"], dtype_run["char_rnn"]
+    dtype_paths = {
+        "dtype_resnet50_check": dtype_run["resnet50_check"]["launches"],
+        "dtype_resnet50_eager": dt_res["eager_launches"],
+        "dtype_resnet50_ksteps": dt_res["kstep_launches"],
+        "dtype_transformer_train": dt_lm["train_launches"],
+        "dtype_transformer_ksteps": dt_lm["kstep_launches"],
+        "dtype_transformer_generate": dt_lm["generate_launches"],
+        "dtype_transformer_predict": dt_lm["predict_launches"],
+        "dtype_rnn_train": dt_rnn["train_launches"],
+        "dtype_rnn_decode": dt_rnn["decode_launches"],
+        "dtype_rnn_stream": dt_rnn["stream_launches"]}
+    bf16_paths = {
+        "flash_fwd": ("dtype_transformer_train", "dtype_transformer_ksteps",
+                      "dtype_transformer_predict"),
+        "flash_bwd_dq": ("dtype_transformer_train",
+                         "dtype_transformer_ksteps"),
+        "flash_bwd_dkv": ("dtype_transformer_train",
+                          "dtype_transformer_ksteps"),
+        "int8_matmul": ("dtype_transformer_generate",),
+        "lstm_fwd": ("dtype_rnn_train", "dtype_rnn_decode",
+                     "dtype_rnn_stream"),
+        "lstm_bwd": ("dtype_rnn_train",)}
+    bf16_shape = {"flash_fwd": dict(train_shape, dtype="torch.bfloat16"),
+                  "flash_bwd_dq": dict(train_shape, dtype="torch.bfloat16"),
+                  "flash_bwd_dkv": dict(train_shape, dtype="torch.bfloat16"),
+                  "int8_matmul": {"M": 8, "K": 256, "N": 1024,
+                                  "dtype": "torch.bfloat16"},
+                  "lstm_fwd": dict(rnn_train, dtype="torch.bfloat16"),
+                  "lstm_bwd": dict(rnn_train, dtype="torch.bfloat16")}
+
+    def add_dtype_paths(entry, fname, name):
+        entry["launches_by_path"].update(
+            {p: n[fname] for p, n in dtype_paths.items()})
+        if name in bf16_paths:
+            entry["bf16_launches_by_path"] = {
+                p: dtype_paths[p][fname] for p in bf16_paths[name]}
+            entry.setdefault("by_path", {})["bf16"] = {
+                "launches": sum(entry["bf16_launches_by_path"].values()),
+                **nums(row_at(name, bf16_shape[name]))}
 
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "shape")
@@ -2819,6 +3750,7 @@ def main() -> None:
                     p: {"launches": by_path[p],
                         **nums(row_at(name, shp))}
                     for p, shp in rnn_paths.items()}
+            add_dtype_paths(entry, fname, name)
             line.append(entry)
             continue
         by_path = {"serve": served["launches"].get(fname, 0),
@@ -2870,6 +3802,10 @@ def main() -> None:
                           **nums(row_at(name, lenet_xent))},
                 "resnet50": {"launches": by_path["resnet50"],
                              **nums(row_at(name, resnet_xent))}}
+        elif name == "int8_matmul":
+            entry["by_path"] = {"serve": {"launches": by_path["serve"],
+                                          **nums(row)}}
+        add_dtype_paths(entry, fname, name)
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2879,7 +3815,7 @@ def main() -> None:
                    "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "lenet": lenet_run,
                    "resnet50": resnet_run, "ksteps": kstep_run,
-                   "graph_rnn": graph_rnn_run,
+                   "graph_rnn": graph_rnn_run, "dtype": dtype_run,
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

@@ -88,13 +88,27 @@
 // fit, or the grid cannot be co-resident, the launch is refused with an
 // error, never run into a hang.
 //
+// Element types: every kernel is a template on E, the dtype of the
+// operands (float or bfloat16, one for all of a call's inputs). It loads E
+// and works in float32, as the JAX kernels work in promote(x.dtype, float32):
+// the carries, every product's accumulation, z, dz and the gates are float32.
+// The forward stores ys, cs, h and c in E; with bf16 it also keeps h and c
+// of every step in float32 (hf, cf), which the recurrence reads back, so
+// that the carry is never rounded (as the plain version's is not). The
+// backward stores dx in E and dW, db, dpeep, dh0 and dc0 in float32. In the
+// GEMM tiles an operand is E or float32 by a flag per operand; with E =
+// float both arms are the same load and the float32 build is the one it was.
+//
 // Build: grid.sync() needs a cooperative launch and, with this toolkit, no
 // extra compiler flag (see ops/_cuda.py).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -108,6 +122,47 @@ constexpr size_t SMEM_LIMIT = 200 * 1024;
 constexpr size_t W_SHARED_LIMIT = 128 * 1024;
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
+
+using bf16 = __nv_bfloat16;
+template <typename E>
+constexpr bool IS_F32 = std::is_same<E, float>::value;
+
+__device__ __forceinline__ float cvt(float v) { return v; }
+__device__ __forceinline__ float cvt(bf16 v) { return __bfloat162float(v); }
+template <typename E>
+__device__ __forceinline__ E from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// read-only loads (__ldg) and loads through L2 only (__ldcg), widened
+__device__ __forceinline__ float ldg(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float ldg(const bf16* p, size_t i) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p) + i)));
+}
+__device__ __forceinline__ float ldcg(const float* p, size_t i) { return __ldcg(p + i); }
+__device__ __forceinline__ float ldcg(const bf16* p, size_t i) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p) + i)));
+}
+// four consecutive elements from global memory (16 or 8 bytes, aligned)
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// element i of an operand that is E when `e`, else float32
+template <typename E>
+__device__ __forceinline__ float ldx(const void* p, long long i, int e) {
+  return e ? cvt(static_cast<const E*>(p)[i]) : static_cast<const float*>(p)[i];
+}
+template <typename E>
+__device__ __forceinline__ void stx(void* p, long long i, float v, int e) {
+  if (e) static_cast<E*>(p)[i] = from_f<E>(v);
+  else static_cast<float*>(p)[i] = v;
+}
 
 // ------------------------------------------------------------ the backward
 // batch rows a warp takes at once in phase (b) (a lane holds RPW * UG
@@ -129,12 +184,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 // UG: units of one phase-(b) pass (2, 4 or 8: the least that holds U, 8
 // beyond); WSH: RW's rows in shared memory (a shared-memory pointer the
 // compiler sees, not a generic one).
-template <int UG, bool WSH>
+template <typename E, int UG, bool WSH>
 __global__ void __launch_bounds__(THREADS)
-lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
-                const float* __restrict__ peep, const float* __restrict__ dys,
-                const float* __restrict__ dht, const float* __restrict__ dct,
-                const float* __restrict__ mask, float* dh, float* dc,
+lstm_bwd_kernel(const E* __restrict__ cprev, const E* __restrict__ wcat,
+                const E* __restrict__ peep, const E* __restrict__ dys,
+                const E* __restrict__ dht, const E* __restrict__ dct,
+                const E* __restrict__ mask, float* dh, float* dc,
                 float* zdz, float* pacc, int T, int B, int F, int H, int U,
                 int rows, int csh) {
   extern __shared__ __align__(16) float smem[];
@@ -148,10 +203,11 @@ lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
   if (WSH) {
     for (int idx = threadIdx.x; idx < U * H4; idx += THREADS) {
       const int u = idx / H4, c = idx % H4;
-      RWs[idx] = u < nu ? wcat[(size_t)(F + j0 + u) * H4 + c] : 0.f;
+      RWs[idx] = u < nu ? cvt(wcat[(size_t)(F + j0 + u) * H4 + c]) : 0.f;
     }
   }
-  const float* rw = WSH ? RWs : wcat + (size_t)(F + j0) * H4;
+  // RW's rows of the block's units: in shared memory (float32) or global (E)
+  const E* rwg = wcat + (size_t)(F + j0) * H4;
   // carry (b, u) at dhc[b * cld + u]; peephole product q at
   // pcc[b * pld + q * pq + u]
   const size_t BU = (size_t)B * U;
@@ -163,8 +219,8 @@ lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
     const int b = idx / U, u = idx % U;
     if (u >= nu) continue;
     const size_t at = (size_t)b * H + j0 + u;
-    dhc[b * cld + u] = dht[at];
-    dcc[b * cld + u] = dct[at];
+    dhc[b * cld + u] = cvt(dht[at]);
+    dcc[b * cld + u] = cvt(dct[at]);
     float* pa = pcc + (size_t)b * pld + u;
     pa[0] = pa[pq] = pa[2 * pq] = 0.f;
   }
@@ -179,16 +235,16 @@ lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
       const int j = j0 + u;
       const size_t row = (size_t)t * B + b;
       float* zr = zdz + row * H4;
-      const float cp = __ldg(&cprev[row * H + j]);
+      const float cp = ldg(cprev, row * H + j);
       float zi = zr[j], zf = zr[H + j], zo = zr[3 * H + j];
       const float zg = zr[2 * H + j];
-      const bool live = __ldg(&mask[row]) > 0.f;
-      const float dy = __ldg(&dys[row * H + j]);
+      const bool live = ldg(mask, row) > 0.f;
+      const float dy = ldg(dys, row * H + j);
       float pi = 0.f, pf = 0.f, po = 0.f;
       if (peep != nullptr) {
-        pi = __ldg(&peep[j]);
-        pf = __ldg(&peep[H + j]);
-        po = __ldg(&peep[2 * H + j]);
+        pi = ldg(peep, j);
+        pf = ldg(peep, H + j);
+        po = ldg(peep, 2 * H + j);
         zi += cp * pi;
         zf += cp * pf;
       }
@@ -254,8 +310,11 @@ lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
 #pragma unroll
             for (int u = 0; u < UG; ++u) {
               if (ug + u < nu) {
-                const float4 w =
-                    reinterpret_cast<const float4*>(rw + (size_t)(ug + u) * H4)[c4];
+                float4 w;
+                if constexpr (WSH)
+                  w = reinterpret_cast<const float4*>(RWs + (size_t)(ug + u) * H4)[c4];
+                else
+                  w = ld4(rwg + (size_t)(ug + u) * H4 + 4 * (size_t)c4);
 #pragma unroll
                 for (int rr = 0; rr < RPW; ++rr) {
                   acc[rr][u] = fmaf(d[rr].x, w.x, acc[rr][u]);
@@ -304,14 +363,15 @@ lstm_bwd_kernel(const float* __restrict__ cprev, const float* __restrict__ wcat,
 // B(p, j) = Bm[p * sbp + j * sbj]. With one slice (part < 0) the sum goes to
 // C[i * ldc + j]; else slice s goes to the scratch at part + (s * M + i) * N
 // + j, and lstm_sum_kernel adds the slices in order.
+// ae: A and A2 are E (else float32); be: Bm and bias are E; ce: C is E.
 struct Gemm {
-  const float* A;
-  const float* A2;
-  const float* Bm;
-  const float* bias;
-  float* C;
+  const void* A;
+  const void* A2;
+  const void* Bm;
+  const void* bias;
+  void* C;
   long long sai, sap, sai2, sap2, sbp, sbj, ldc, part;
-  int M, N, P, pa, slices, tiles_n, first;
+  int M, N, P, pa, slices, tiles_n, first, ae, be, ce;
 };
 constexpr int MAX_GEMMS = 5;
 struct Gemms {
@@ -322,6 +382,7 @@ struct Gemms {
 
 // One 64 x 64 output tile of one slice: 16-deep slabs through shared memory,
 // 4 x 4 outputs a thread read as float4 rows, p summed in order.
+template <typename E>
 __device__ __forceinline__ void gemm_tile(const Gemm& g, int idx, float* scratch,
                                           float (*As)[68], float (*Bs)[68]) {
   const int slice = idx % g.slices, tile = idx / g.slices;
@@ -344,14 +405,14 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int idx, float* scratch
       float a = 0.f;
       if (gi < g.M && gp < p_end) {
         if (g.A == nullptr) a = 1.f;
-        else if (gp < g.pa) a = g.A[gi * g.sai + gp * g.sap];
-        else a = g.A2[gi * g.sai2 + (gp - g.pa) * g.sap2];
+        else if (gp < g.pa) a = ldx<E>(g.A, gi * g.sai + gp * g.sap, g.ae);
+        else a = ldx<E>(g.A2, gi * g.sai2 + (gp - g.pa) * g.sap2, g.ae);
       }
       As[p][i] = a;
       int j, q;
       if (g.sbj == 1) { j = l % 64; q = l / 64; } else { q = l % 16; j = l / 16; }
       const int gj = j0 + j, gq = p0 + q;
-      Bs[q][j] = (gj < g.N && gq < p_end) ? g.Bm[gq * g.sbp + gj * g.sbj] : 0.f;
+      Bs[q][j] = (gj < g.N && gq < p_end) ? ldx<E>(g.Bm, gq * g.sbp + gj * g.sbj, g.be) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -373,27 +434,31 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int idx, float* scratch
       const int gi = i0 + ty * 4 + r, gj = j0 + tx * 4 + s;
       if (gi >= g.M || gj >= g.N) continue;
       if (g.part < 0)
-        g.C[gi * g.ldc + gj] = acc[r][s] + (g.bias ? g.bias[gj] : 0.f);
+        stx<E>(g.C, gi * g.ldc + gj, acc[r][s] + (g.bias ? ldx<E>(g.bias, gj, g.be) : 0.f), g.ce);
       else
         scratch[g.part + ((long long)slice * g.M + gi) * g.N + gj] = acc[r][s];
     }
 }
 
+template <typename E>
 __device__ __forceinline__ void run_gemms(const Gemms& gs) {
   __shared__ __align__(16) float As[16][68];
   __shared__ __align__(16) float Bs[16][68];
   int k = 0;
   while (k + 1 < gs.n && (int)blockIdx.x >= gs.g[k + 1].first) ++k;
-  gemm_tile(gs.g[k], blockIdx.x - gs.g[k].first, gs.scratch, As, Bs);
+  gemm_tile<E>(gs.g[k], blockIdx.x - gs.g[k].first, gs.scratch, As, Bs);
 }
 
 // the hoisted product z = [x, hprev] Wcat + b (part 1)
-__global__ void __launch_bounds__(THREADS) lstm_z_kernel(const Gemms gs) { run_gemms(gs); }
+template <typename E>
+__global__ void __launch_bounds__(THREADS) lstm_z_kernel(const Gemms gs) { run_gemms<E>(gs); }
 
 // the tail products dW, db, dx, dpeep (part 3)
-__global__ void __launch_bounds__(THREADS) lstm_tail_kernel(const Gemms gs) { run_gemms(gs); }
+template <typename E>
+__global__ void __launch_bounds__(THREADS) lstm_tail_kernel(const Gemms gs) { run_gemms<E>(gs); }
 
 // the tail's sliced outputs: gs.g[blockIdx.y]'s slices added in order
+template <typename E>
 __global__ void __launch_bounds__(THREADS) lstm_sum_kernel(const Gemms gs) {
   const Gemm& g = gs.g[blockIdx.y];
   const long long mn = (long long)g.M * g.N;
@@ -402,7 +467,7 @@ __global__ void __launch_bounds__(THREADS) lstm_sum_kernel(const Gemms gs) {
     const float* p = gs.scratch + g.part + e;
     float s = p[0];
     for (int k = 1; k < g.slices; ++k) s += p[k * mn];
-    g.C[(e / g.N) * g.ldc + e % g.N] = s;
+    stx<E>(g.C, (e / g.N) * g.ldc + e % g.N, s, g.ce);
   }
 }
 
@@ -414,16 +479,23 @@ constexpr int FUG = 2;
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
+// hf, cf: the float32 h and c of every step ([T][B][H]) the recurrence
+// reads back; ys and cs themselves when E is float, float32 copies beside
+// them when E is bf16 (cf only when the c carry is not in shared memory).
+template <typename E>
 struct FwdArgs {
-  const float *x, *wcat, *bias, *peep, *h0, *c0, *mask, *zx;
-  float *ys, *cs, *h_out, *c_out;
+  const E *x, *wcat, *bias, *peep, *h0, *c0, *mask;
+  const float* zx;
+  E *ys, *cs, *h_out, *c_out;
+  float *hf, *cf;
   int T, B, F, H, U, rows, csh, vec;
 };
 
 // Wcat's entry for row kk of a staged row ([x padded to FP, h padded to a
 // multiple of 4]; FP = 0 when only h is staged) and column col; 0 in the
 // padding.
-__device__ __forceinline__ float w_at(const float* __restrict__ wcat, int F, int H, int FP,
+template <typename E>
+__device__ __forceinline__ float w_at(const E* __restrict__ wcat, int F, int H, int FP,
                                       int kk, int col) {
   int k = kk;
   if (kk < FP) {
@@ -433,7 +505,7 @@ __device__ __forceinline__ float w_at(const float* __restrict__ wcat, int F, int
     if (k >= H) return 0.f;
     k += F;
   }
-  return __ldg(&wcat[(size_t)k * 4 * H + col]);
+  return ldg(wcat, (size_t)k * 4 * H + col);
 }
 
 // dst[i] = f(i) for i < n by the block's threads, with 8 loads of a thread
@@ -484,8 +556,8 @@ __device__ __forceinline__ void lane_totals(float (&v)[32], int lane) {
 // lane_totals leaves sum (row rr, unit uu, gate q) at lane 8 rr + 4 uu + q, so
 // the 4 gates of a cell sit in 4 neighbouring lanes and the cell update needs
 // no shared memory. The recurrence keeps the c carry in shared memory (csh).
-template <bool STEP, bool WSH>
-__device__ __forceinline__ void fwd_body(const FwdArgs& a) {
+template <typename E, bool STEP, bool WSH>
+__device__ __forceinline__ void fwd_body(const FwdArgs<E>& a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, F = a.F, U = a.U, B = a.B, H4 = 4 * H;
   const int FP = STEP ? pad4(F) : 0;
@@ -504,7 +576,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   if (!STEP && a.csh) {
     for (int idx = threadIdx.x; idx < B * U; idx += THREADS) {
       const int b = idx / U, u = idx % U;
-      if (u < nu) cc[idx] = __ldg(&a.c0[(size_t)b * H + j0 + u]);
+      if (u < nu) cc[idx] = ldg(a.c0, (size_t)b * H + j0 + u);
     }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -513,11 +585,13 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   for (int t = 0; t < T; ++t) {
     // h_{t-1} of every unit: written by all blocks before the last
     // grid.sync, so read through L2 (cp.async.cg, __ldcg), never L1
-    const float* hsrc = t == 0 ? a.h0 : a.ys + (size_t)(t - 1) * B * H;
+    const float* hprev = t == 0 ? nullptr : a.hf + (size_t)(t - 1) * B * H;
     for (int b0 = 0; b0 < B; b0 += a.rows) {
       const int nb = min(a.rows, B - b0);
-      if (!STEP && a.vec) {  // H % 4 == 0: the rows are whole 16-byte chunks
-        const float* src = hsrc + (size_t)b0 * H;
+      // H % 4 == 0: the rows are whole 16-byte chunks of float32
+      if (!STEP && a.vec && (t > 0 || IS_F32<E>)) {
+        const float* src =
+            (t == 0 ? reinterpret_cast<const float*>(a.h0) : hprev) + (size_t)b0 * H;
         for (int i = threadIdx.x; i < nb * H / 4; i += THREADS)
           cp_async16(hs + 4 * (size_t)i, src + 4 * (size_t)i);
         asm volatile("cp.async.wait_all;\n" ::);
@@ -525,8 +599,9 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
         fill(hs, nb * KP, [&](int idx) {
           const int r = idx / KP, kk = idx % KP;
           const size_t b = b0 + r;
-          if (kk < FP) return kk < F ? __ldg(&a.x[b * F + kk]) : 0.f;
-          return kk - FP < H ? __ldcg(&hsrc[b * H + kk - FP]) : 0.f;
+          if (kk < FP) return kk < F ? ldg(a.x, b * F + kk) : 0.f;
+          if (kk - FP >= H) return 0.f;
+          return t == 0 ? ldcg(a.h0, b * H + kk - FP) : __ldcg(&hprev[b * H + kk - FP]);
         });
       }
       __syncthreads();
@@ -573,7 +648,7 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
           const bool ok = r < nb && u < nu;
           const int b = b0 + r, j = j0 + u;
           if (ok)
-            z += STEP ? __ldg(&a.bias[q * H + j]) : __ldg(&a.zx[((size_t)t * B + b) * H4 + q * H + j]);
+            z += STEP ? ldg(a.bias, q * H + j) : __ldg(&a.zx[((size_t)t * B + b) * H4 + q * H + j]);
           const int base = lane & ~3;
           const float zi0 = __shfl_sync(0xffffffffu, z, base);
           const float zf0 = __shfl_sync(0xffffffffu, z, base + 1);
@@ -582,29 +657,33 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
           if (!ok || q != 0) continue;
           const size_t at = ((size_t)t * B + b) * H + j;
           float cp;
-          if (STEP) cp = __ldg(&a.c0[(size_t)b * H + j]);
+          if (STEP) cp = ldg(a.c0, (size_t)b * H + j);
           else if (a.csh) cp = cc[b * U + u];
-          else cp = t == 0 ? __ldg(&a.c0[(size_t)b * H + j]) : __ldcg(&a.cs[at - (size_t)B * H]);
+          else cp = t == 0 ? ldg(a.c0, (size_t)b * H + j) : __ldcg(&a.cf[at - (size_t)B * H]);
           const float hp = hs[(size_t)r * KP + FP + j];
           float zi = zi0, zf = zf0, zo = zo0;
           if (a.peep != nullptr) {
-            zi += cp * __ldg(&a.peep[j]);
-            zf += cp * __ldg(&a.peep[H + j]);
+            zi += cp * ldg(a.peep, j);
+            zf += cp * ldg(a.peep, H + j);
           }
           const float ig = sigm(zi), fg = sigm(zf), gg = tanhf(zg);
           float cn = fg * cp + ig * gg;
-          if (a.peep != nullptr) zo += cn * __ldg(&a.peep[2 * H + j]);
+          if (a.peep != nullptr) zo += cn * ldg(a.peep, 2 * H + j);
           float hn = sigm(zo) * tanhf(cn);
-          if (!(__ldg(&a.mask[(size_t)t * B + b]) > 0.f)) {
+          if (!(ldg(a.mask, (size_t)t * B + b) > 0.f)) {
             hn = hp;
             cn = cp;
           }
-          a.ys[at] = hn;
-          a.cs[at] = cn;
+          a.ys[at] = from_f<E>(hn);
+          a.cs[at] = from_f<E>(cn);
+          if constexpr (!STEP && !IS_F32<E>) {
+            a.hf[at] = hn;
+            if (!a.csh) a.cf[at] = cn;
+          }
           if (!STEP && a.csh) cc[b * U + u] = cn;
           if (t == T - 1) {
-            a.h_out[(size_t)b * H + j] = hn;
-            a.c_out[(size_t)b * H + j] = cn;
+            a.h_out[(size_t)b * H + j] = from_f<E>(hn);
+            a.c_out[(size_t)b * H + j] = from_f<E>(cn);
           }
         }
       }
@@ -618,19 +697,20 @@ __device__ __forceinline__ void fwd_body(const FwdArgs& a) {
 
 // the recurrence over T > 1 steps: one cooperative launch, a grid.sync() a
 // step
-template <bool WSH>
-__global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(const FwdArgs a) {
-  fwd_body<false, WSH>(a);
+template <typename E, bool WSH>
+__global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(const FwdArgs<E> a) {
+  fwd_body<E, false, WSH>(a);
 }
 
 // one step (T = 1: decode, stream): an ordinary launch, no barrier
-template <bool WSH>
-__global__ void __launch_bounds__(THREADS) lstm_step_kernel(const FwdArgs a) {
-  fwd_body<true, WSH>(a);
+template <typename E, bool WSH>
+__global__ void __launch_bounds__(THREADS) lstm_step_kernel(const FwdArgs<E> a) {
+  fwd_body<E, true, WSH>(a);
 }
 
 // the forward's hoisted product zx = x W_x + b for every row (T > 1)
-__global__ void __launch_bounds__(THREADS) lstm_fwd_x_kernel(const Gemms gs) { run_gemms(gs); }
+template <typename E>
+__global__ void __launch_bounds__(THREADS) lstm_fwd_x_kernel(const Gemms gs) { run_gemms<E>(gs); }
 
 // Append C[M][N] = A B to gs: tiles, slices (P cut in SLICE rows when
 // split) and the scratch offset; returns the blocks so far. One slice writes
@@ -653,10 +733,13 @@ int add_gemm(Gemms* gs, long long* scratch, Gemm g, bool split = true) {
   return first + (g.M + 63) / 64 * g.tiles_n * g.slices;
 }
 
-Gemm gemm_of(const float* A, long long sai, long long sap, const float* Bm,
-              long long sbp, long long sbj, float* C, long long ldc, int M,
-              int N, int P) {
+Gemm gemm_of(const void* A, long long sai, long long sap, const void* Bm,
+              long long sbp, long long sbj, void* C, long long ldc, int M,
+              int N, int P, int ae, int be, int ce) {
   Gemm g{};
+  g.ae = ae;
+  g.be = be;
+  g.ce = ce;
   g.A = A;
   g.sai = g.sai2 = sai;
   g.sap = g.sap2 = sap;
@@ -675,21 +758,22 @@ Gemm gemm_of(const float* A, long long sai, long long sap, const float* Bm,
 // The tail's problems (dW's x and hprev rows, db, dx, dpeep); returns its
 // blocks and sets the scratch floats it needs. Pointers may be null when
 // only the sizes are wanted.
-int tail_gemms(int T, int B, int F, int H, int peephole, const float* x,
-               const float* hprev, const float* wcat, const float* dz,
-               const float* pacc, float* dw, float* db, float* dx,
+// x, hprev, wcat and dx are E; dz, pacc, dw, db and dpeep float32.
+int tail_gemms(int T, int B, int F, int H, int peephole, const void* x,
+               const void* hprev, const void* wcat, const float* dz,
+               const float* pacc, float* dw, float* db, void* dx,
                float* dpeep, Gemms* gs, long long* scratch) {
   const int R = T * B, H4 = 4 * H;
   gs->n = 0;
   *scratch = 0;
-  add_gemm(gs, scratch, gemm_of(x, 1, F, dz, H4, 1, dw, H4, F, H4, R));
+  add_gemm(gs, scratch, gemm_of(x, 1, F, dz, H4, 1, dw, H4, F, H4, R, 1, 0, 0));
   add_gemm(gs, scratch, gemm_of(hprev, 1, H, dz, H4, 1, dw ? dw + (size_t)F * H4 : nullptr,
-                                H4, H, H4, R));
-  add_gemm(gs, scratch, gemm_of(nullptr, 0, 0, dz, H4, 1, db, H4, 1, H4, R));
-  int blocks = add_gemm(gs, scratch, gemm_of(dz, H4, 1, wcat, 1, H4, dx, F, R, F, H4));
+                                H4, H, H4, R, 1, 0, 0));
+  add_gemm(gs, scratch, gemm_of(nullptr, 0, 0, dz, H4, 1, db, H4, 1, H4, R, 0, 0, 0));
+  int blocks = add_gemm(gs, scratch, gemm_of(dz, H4, 1, wcat, 1, H4, dx, F, R, F, H4, 0, 1, 1));
   if (peephole)
     blocks = add_gemm(gs, scratch, gemm_of(nullptr, 0, 0, pacc, 3 * H, 1, dpeep, 3 * H, 1,
-                                           3 * H, B));
+                                           3 * H, B, 0, 0, 0));
   return blocks;
 }
 
@@ -736,12 +820,18 @@ size_t fwd_smem(int B, int KP, int U, int rows, int wsh, int csh) {
          * sizeof(float);
 }
 
-const void* fwd_kernel(int route, int wsh) {
-  if (route) return wsh ? (const void*)lstm_fwd_kernel<true> : (const void*)lstm_fwd_kernel<false>;
-  return wsh ? (const void*)lstm_step_kernel<true> : (const void*)lstm_step_kernel<false>;
+template <typename E>
+const void* fwd_kernel_of(int route, int wsh) {
+  if (route)
+    return wsh ? (const void*)lstm_fwd_kernel<E, true> : (const void*)lstm_fwd_kernel<E, false>;
+  return wsh ? (const void*)lstm_step_kernel<E, true> : (const void*)lstm_step_kernel<E, false>;
 }
 
-cudaError_t make_fwd_plan(int T, int B, int F, int H, FwdPlan* p) {
+const void* fwd_kernel(int route, int wsh, int bf) {
+  return bf ? fwd_kernel_of<bf16>(route, wsh) : fwd_kernel_of<float>(route, wsh);
+}
+
+cudaError_t make_fwd_plan(int T, int B, int F, int H, int bf, FwdPlan* p) {
   int sms;
   const int route = T > 1;
   cudaError_t err = device_sms(&sms, route);
@@ -760,7 +850,7 @@ cudaError_t make_fwd_plan(int T, int B, int F, int H, FwdPlan* p) {
   p->c_shared = csh;
   p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / row ? B : (SMEM_LIMIT - base) / row);
   p->smem = fwd_smem(B, KP, U, p->rows, wsh, csh);
-  const void* kernel = fwd_kernel(route, wsh);
+  const void* kernel = fwd_kernel(route, wsh, bf);
   // the most any plan takes, so that plans of other shapes stay launchable
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)SMEM_LIMIT)) != cudaSuccess)
@@ -783,10 +873,17 @@ cudaError_t make_fwd_plan(int T, int B, int F, int H, FwdPlan* p) {
 // only checks it.
 
 // The recurrence's instantiation for U units a block.
-const void* bwd_kernel(int U, int wsh) {
-  if (U <= 2) return wsh ? (const void*)lstm_bwd_kernel<2, true> : (const void*)lstm_bwd_kernel<2, false>;
-  if (U <= 4) return wsh ? (const void*)lstm_bwd_kernel<4, true> : (const void*)lstm_bwd_kernel<4, false>;
-  return wsh ? (const void*)lstm_bwd_kernel<8, true> : (const void*)lstm_bwd_kernel<8, false>;
+template <typename E>
+const void* bwd_kernel_of(int U, int wsh) {
+  if (U <= 2)
+    return wsh ? (const void*)lstm_bwd_kernel<E, 2, true> : (const void*)lstm_bwd_kernel<E, 2, false>;
+  if (U <= 4)
+    return wsh ? (const void*)lstm_bwd_kernel<E, 4, true> : (const void*)lstm_bwd_kernel<E, 4, false>;
+  return wsh ? (const void*)lstm_bwd_kernel<E, 8, true> : (const void*)lstm_bwd_kernel<E, 8, false>;
+}
+
+const void* bwd_kernel(int U, int wsh, int bf) {
+  return bf ? bwd_kernel_of<bf16>(U, wsh) : bwd_kernel_of<float>(U, wsh);
 }
 struct BwdPlan {
   int units, blocks, rows;
@@ -802,7 +899,7 @@ size_t bwd_smem(int B, int H, int U, int rows, int wsh, int csh) {
   return (wsh ? U * row : 0) + (csh ? (size_t)5 * B * U * sizeof(float) : 0) + rows * row;
 }
 
-cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, BwdPlan* p) {
+cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, int bf, BwdPlan* p) {
   int sms;
   cudaError_t err = device_sms(&sms, 1);
   if (err != cudaSuccess) return err;
@@ -821,7 +918,7 @@ cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, BwdPlan* p) 
   p->rows = (int)((size_t)B < (SMEM_LIMIT - base) / row ? B : (SMEM_LIMIT - base) / row);
   p->smem = bwd_smem(B, H, U, p->rows, wsh, csh);
   int occ = 0;
-  const void* kernel = bwd_kernel(U, wsh);
+  const void* kernel = bwd_kernel(U, wsh, bf);
   // the most any plan takes, so that plans made for other shapes of the
   // same instantiation stay launchable
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -839,11 +936,126 @@ cudaError_t make_bwd_plan(int T, int B, int F, int H, int peephole, BwdPlan* p) 
   return cudaSuccess;
 }
 
+// The forward's launches for element type E; the plan's fields are checked
+// by lstm_fwd.
+template <typename E>
+cudaError_t run_fwd(const void* x, const void* wcat, const void* bias, const void* peep,
+                    const void* h0, const void* c0, const void* mask, void* zx, void* ys,
+                    void* cs, void* h_out, void* c_out, void* hf, void* cf, int T, int B,
+                    int F, int H, int peephole, int route, int units, int rows, int w_shared,
+                    int c_shared, long long smem, cudaStream_t st) {
+  FwdArgs<E> a;
+  a.x = static_cast<const E*>(x);
+  a.wcat = static_cast<const E*>(wcat);
+  a.bias = static_cast<const E*>(bias);
+  a.peep = peephole ? static_cast<const E*>(peep) : nullptr;
+  a.h0 = static_cast<const E*>(h0);
+  a.c0 = static_cast<const E*>(c0);
+  a.mask = static_cast<const E*>(mask);
+  a.zx = static_cast<const float*>(zx);
+  a.ys = static_cast<E*>(ys);
+  a.cs = static_cast<E*>(cs);
+  a.h_out = static_cast<E*>(h_out);
+  a.c_out = static_cast<E*>(c_out);
+  a.hf = IS_F32<E> ? static_cast<float*>(ys) : static_cast<float*>(hf);
+  a.cf = IS_F32<E> ? static_cast<float*>(cs) : static_cast<float*>(cf);
+  a.T = T;
+  a.B = B;
+  a.F = F;
+  a.H = H;
+  a.U = units;
+  a.rows = rows;
+  a.csh = c_shared;
+  // h_{t-1} staged by 16-byte cp.async when its rows are whole chunks
+  a.vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(a.hf) % 16 == 0 &&
+          (!IS_F32<E> || reinterpret_cast<uintptr_t>(h0) % 16 == 0);
+  const dim3 grid((H + units - 1) / units);
+  cudaError_t err;
+  if (!route) {
+    if (w_shared) lstm_step_kernel<E, true><<<grid, THREADS, (size_t)smem, st>>>(a);
+    else lstm_step_kernel<E, false><<<grid, THREADS, (size_t)smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  // 1. the hoisted product: zx = x W_x + b for every row, K = F in one pass
+  Gemms xg;
+  xg.n = 0;
+  xg.scratch = nullptr;
+  long long none = 0;
+  Gemm g = gemm_of(a.x, F, 1, a.wcat, 4 * H, 1, zx, 4 * H, T * B, 4 * H, F, 1, 1, 0);
+  g.bias = a.bias;
+  const int x_blocks = add_gemm(&xg, &none, g, false);
+  lstm_fwd_x_kernel<E><<<x_blocks, THREADS, 0, st>>>(xg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 2. the recurrence (a grid that cannot be co-resident is refused here)
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fwd_kernel_of<E>(1, w_shared), grid, dim3(THREADS), args,
+                                    (size_t)smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The backward's launches for element type E (see lstm_bwd).
+template <typename E>
+cudaError_t run_bwd(const void* xa, const void* hpa, const void* cpa, const void* wa,
+                    const void* bias, const void* pa, const void* dya, const void* dhta,
+                    const void* dcta, const void* ma, void* dx, float* dw, float* db,
+                    float* dpeep, float* dha, float* dca, float* za, float* paa,
+                    float* scratch, int T, int B, int F, int H, int peephole, int U,
+                    int rows, int w_shared, int csh, long long smem,
+                    long long scratch_floats, cudaStream_t st) {
+  cudaError_t err;
+  const int H4 = 4 * H;
+  // 1. the hoisted product: z = [x, hprev] Wcat + b for every row
+  Gemms zg;
+  zg.n = 0;
+  zg.scratch = nullptr;
+  long long none = 0;
+  Gemm g = gemm_of(xa, F, 1, wa, H4, 1, za, H4, T * B, H4, F + H, 1, 1, 0);
+  g.A2 = hpa;
+  g.sai2 = H;
+  g.sap2 = 1;
+  g.pa = F;
+  g.bias = bias;
+  const int z_blocks = add_gemm(&zg, &none, g, false);  // K in one pass
+  lstm_z_kernel<E><<<z_blocks, THREADS, 0, st>>>(zg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 2. the recurrence (a grid that cannot be co-resident is refused here)
+  void* args[] = {&cpa, &wa, &pa, &dya, &dhta, &dcta, &ma, &dha, &dca, &za, &paa,
+                  &T, &B, &F, &H, &U, &rows, &csh};
+  err = cudaLaunchCooperativeKernel(bwd_kernel_of<E>(U, w_shared), dim3((H + U - 1) / U),
+                                    dim3(THREADS), args, (size_t)smem, st);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 3. the tail: every product in one launch, then the slices summed
+  Gemms tg;
+  long long need = 0;
+  const int blocks = tail_gemms(T, B, F, H, peephole, xa, hpa, wa, za, paa, dw, db, dx,
+                                dpeep, &tg, &need);
+  if (need != scratch_floats) return cudaErrorInvalidValue;
+  tg.scratch = scratch;
+  lstm_tail_kernel<E><<<blocks, THREADS, 0, st>>>(tg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  Gemms sg;
+  sg.n = 0;
+  sg.scratch = tg.scratch;
+  for (int k = 0; k < tg.n; ++k)
+    if (tg.g[k].part >= 0) sg.g[sg.n++] = tg.g[k];
+  if (sg.n > 0) {
+    lstm_sum_kernel<E><<<dim3(64, sg.n), THREADS, 0, st>>>(sg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-extern "C" int lstm_plan(int T, int B, int F, int H, long long* out) {
+// bf: the operands' element type (1: bfloat16, 0: float32), which picks
+// the instantiation whose occupancy the plan reads.
+extern "C" int lstm_plan(int T, int B, int F, int H, int bf, long long* out) {
   FwdPlan p;
-  cudaError_t err = make_fwd_plan(T, B, F, H, &p);
+  cudaError_t err = make_fwd_plan(T, B, F, H, bf, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.route;
   out[1] = p.units;
@@ -856,73 +1068,40 @@ extern "C" int lstm_plan(int T, int B, int F, int H, long long* out) {
   return 0;
 }
 
-// route, units, rows, w_shared, c_shared, smem: lstm_plan's for this shape,
-// which the caller keeps; checked here, not worked out again. zx: [T, B, 4H]
-// floats for route 1, else unused.
+// route, units, rows, w_shared, c_shared, smem: lstm_plan's for this shape
+// and element type, which the caller keeps; checked here, not worked out
+// again. Every operand is float32 (bf = 0) or bfloat16 (bf = 1); ys,
+// cs, h_out and c_out are of the same type. zx: [T, B, 4H] floats for route
+// 1, else unused. hf, cf: with bf = 1 and route 1, [T, B, H] floats each (cf
+// only when !c_shared), else unused.
 extern "C" int lstm_fwd(const void* x, const void* wcat, const void* bias,
                         const void* peep, const void* h0, const void* c0,
                         const void* mask, void* zx, void* ys, void* cs,
-                        void* h_out, void* c_out, int T, int B, int F, int H,
-                        int peephole, int route, int units, int rows,
-                        int w_shared, int c_shared, long long smem, void* stream) {
+                        void* h_out, void* c_out, void* hf, void* cf, int T,
+                        int B, int F, int H, int peephole, int route,
+                        int units, int rows, int w_shared, int c_shared,
+                        long long smem, int bf, void* stream) {
   const int KP = fwd_kp(route, F, H);
   if (route != (T > 1) || units < 1 || units > H || rows < 1 || rows > B ||
       (c_shared && !route) || (route && zx == nullptr) ||
+      (bf && route && (hf == nullptr || (!c_shared && cf == nullptr))) ||
       (w_shared && fwd_smem(B, KP, units, 0, 1, 0) > W_SHARED_LIMIT) ||
       smem > (long long)SMEM_LIMIT ||
       smem != (long long)fwd_smem(B, KP, units, rows, w_shared, c_shared))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FwdArgs a;
-  a.x = static_cast<const float*>(x);
-  a.wcat = static_cast<const float*>(wcat);
-  a.bias = static_cast<const float*>(bias);
-  a.peep = peephole ? static_cast<const float*>(peep) : nullptr;
-  a.h0 = static_cast<const float*>(h0);
-  a.c0 = static_cast<const float*>(c0);
-  a.mask = static_cast<const float*>(mask);
-  a.zx = static_cast<const float*>(zx);
-  a.ys = static_cast<float*>(ys);
-  a.cs = static_cast<float*>(cs);
-  a.h_out = static_cast<float*>(h_out);
-  a.c_out = static_cast<float*>(c_out);
-  a.T = T;
-  a.B = B;
-  a.F = F;
-  a.H = H;
-  a.U = units;
-  a.rows = rows;
-  a.csh = c_shared;
-  // h_{t-1} staged by 16-byte cp.async when its rows are whole chunks
-  a.vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0;
-  const dim3 grid((H + units - 1) / units);
-  cudaError_t err;
-  if (!route) {
-    if (w_shared) lstm_step_kernel<true><<<grid, THREADS, (size_t)smem, st>>>(a);
-    else lstm_step_kernel<false><<<grid, THREADS, (size_t)smem, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // 1. the hoisted product: zx = x W_x + b for every row, K = F in one pass
-  Gemms xg;
-  xg.n = 0;
-  xg.scratch = nullptr;
-  long long none = 0;
-  Gemm g = gemm_of(a.x, F, 1, a.wcat, 4 * H, 1, static_cast<float*>(zx), 4 * H, T * B, 4 * H, F);
-  g.bias = a.bias;
-  const int x_blocks = add_gemm(&xg, &none, g, false);
-  lstm_fwd_x_kernel<<<x_blocks, THREADS, 0, st>>>(xg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // 2. the recurrence (a grid that cannot be co-resident is refused here)
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(fwd_kernel(1, w_shared), grid, dim3(THREADS), args,
-                                    (size_t)smem, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      bf ? run_fwd<bf16>(x, wcat, bias, peep, h0, c0, mask, zx, ys, cs, h_out, c_out, hf, cf,
+                             T, B, F, H, peephole, route, units, rows, w_shared, c_shared, smem, st)
+           : run_fwd<float>(x, wcat, bias, peep, h0, c0, mask, zx, ys, cs, h_out, c_out, hf, cf,
+                            T, B, F, H, peephole, route, units, rows, w_shared, c_shared, smem,
+                            st));
 }
 
-extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int peephole, long long* out) {
+extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int peephole, int bf,
+                             long long* out) {
   BwdPlan p;
-  cudaError_t err = make_bwd_plan(T, B, F, H, peephole, &p);
+  cudaError_t err = make_bwd_plan(T, B, F, H, peephole, bf, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.units;
   out[1] = p.blocks;
@@ -937,8 +1116,10 @@ extern "C" int lstm_bwd_plan(int T, int B, int F, int H, int peephole, long long
 }
 
 // units, rows, w_shared, c_shared, smem, scratch_floats: lstm_bwd_plan's
-// for this shape, which the caller keeps; checked here, not worked out
-// again. scratch: `scratch_floats` floats.
+// for this shape and element type, which the caller keeps; checked here,
+// not worked out again. Every input is float32 (bf = 0) or bfloat16
+// (bf = 1); dx is of the same type; dw, db, dpeep, dh0, dc0, zdz, pacc
+// and scratch (`scratch_floats` floats) are float32.
 extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
                         const void* wcat, const void* bias, const void* peep,
                         const void* dys, const void* dht, const void* dct,
@@ -947,74 +1128,24 @@ extern "C" int lstm_bwd(const void* x, const void* hprev, const void* cprev,
                         void* pacc, void* scratch, int T, int B, int F, int H,
                         int peephole, int units, int rows, int w_shared,
                         int c_shared, long long smem, long long scratch_floats,
-                        void* stream) {
+                        int bf, void* stream) {
   const size_t row = (size_t)4 * H * sizeof(float);
   if (units < 1 || units > H || rows < 1 || rows > B ||
       (w_shared && units * row > W_SHARED_LIMIT) || smem > (long long)SMEM_LIMIT ||
       smem != (long long)bwd_smem(B, H, units, rows, w_shared, c_shared))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xa = static_cast<const float*>(x);
-  const float* hpa = static_cast<const float*>(hprev);
-  const float* cpa = static_cast<const float*>(cprev);
-  const float* wa = static_cast<const float*>(wcat);
-  const float* pa = peephole ? static_cast<const float*>(peep) : nullptr;
-  const float* dya = static_cast<const float*>(dys);
-  const float* dhta = static_cast<const float*>(dht);
-  const float* dcta = static_cast<const float*>(dct);
-  const float* ma = static_cast<const float*>(mask);
-  float* dha = static_cast<float*>(dh0);
-  float* dca = static_cast<float*>(dc0);
-  float* za = static_cast<float*>(zdz);
-  float* paa = static_cast<float*>(pacc);
-  const int H4 = 4 * H;
-
-  // 1. the hoisted product: z = [x, hprev] Wcat + b for every row
-  Gemms zg;
-  zg.n = 0;
-  zg.scratch = nullptr;
-  long long none = 0;
-  Gemm g = gemm_of(xa, F, 1, wa, H4, 1, za, H4, T * B, H4, F + H);
-  g.A2 = hpa;
-  g.sai2 = H;
-  g.sap2 = 1;
-  g.pa = F;
-  g.bias = static_cast<const float*>(bias);
-  const int z_blocks = add_gemm(&zg, &none, g, false);  // K in one pass
-  lstm_z_kernel<<<z_blocks, THREADS, 0, st>>>(zg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  // 2. the recurrence (a grid that cannot be co-resident is refused here)
-  int U = units, csh = c_shared;
-  void* args[] = {&cpa, &wa, &pa, &dya, &dhta, &dcta, &ma, &dha, &dca, &za, &paa,
-                  &T, &B, &F, &H, &U, &rows, &csh};
-  err = cudaLaunchCooperativeKernel(bwd_kernel(U, w_shared), dim3((H + U - 1) / U),
-                                    dim3(THREADS), args, (size_t)smem, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  // 3. the tail: every product in one launch, then the slices summed
-  Gemms tg;
-  long long need = 0;
-  const int blocks = tail_gemms(T, B, F, H, peephole, xa, hpa, wa, za, paa,
-                                static_cast<float*>(dw), static_cast<float*>(db),
-                                static_cast<float*>(dx), static_cast<float*>(dpeep), &tg,
-                                &need);
-  if (need != scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
-  tg.scratch = static_cast<float*>(scratch);
-  lstm_tail_kernel<<<blocks, THREADS, 0, st>>>(tg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  Gemms sg;
-  sg.n = 0;
-  sg.scratch = tg.scratch;
-  for (int k = 0; k < tg.n; ++k)
-    if (tg.g[k].part >= 0) sg.g[sg.n++] = tg.g[k];
-  if (sg.n > 0) {
-    lstm_sum_kernel<<<dim3(64, sg.n), THREADS, 0, st>>>(sg);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const void* pa = peephole ? peep : nullptr;
+  float* f[] = {static_cast<float*>(dw), static_cast<float*>(db), static_cast<float*>(dpeep),
+                static_cast<float*>(dh0), static_cast<float*>(dc0), static_cast<float*>(zdz),
+                static_cast<float*>(pacc), static_cast<float*>(scratch)};
+  return static_cast<int>(
+      bf ? run_bwd<bf16>(x, hprev, cprev, wcat, bias, pa, dys, dht, dct, mask, dx, f[0], f[1],
+                             f[2], f[3], f[4], f[5], f[6], f[7], T, B, F, H, peephole, units,
+                             rows, w_shared, c_shared, smem, scratch_floats, st)
+           : run_bwd<float>(x, hprev, cprev, wcat, bias, pa, dys, dht, dct, mask, dx, f[0], f[1],
+                            f[2], f[3], f[4], f[5], f[6], f[7], T, B, F, H, peephole, units,
+                            rows, w_shared, c_shared, smem, scratch_floats, st));
 }
 
 extern "C" const char* error_string(int code) {

@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..common import host_numpy
 from .admission import AdmissionController
 from .registry import ModelRegistry
 
@@ -130,7 +131,7 @@ class MicroBatcher:
                 pad = np.zeros((bucket - rows,) + x.shape[1:], x.dtype)
                 x = np.concatenate([x, pad], axis=0)
             # .cpu() is this dispatch's sync point: the response is host data
-            out = mv.predict_fn(x).cpu().numpy()
+            out = host_numpy(mv.predict_fn(x))
         except Exception as e:
             with self._lock:
                 self._errors += len(group)

@@ -33,6 +33,12 @@ rows (``gather_rows``); an LSTM step dequantizes the tree instead, as the JAX
 step does, so no ``int8_matmul`` runs there. Attention inside the step is
 plain PyTorch, as it is plain XLA in the JAX package.
 
+Every step runs under the dtype policy the served network's config names
+(the ambient one when it names none): under a bf16 policy the int8 matmuls
+take bf16 ``x``. The KV blocks and the LSTM state blocks stay float32
+under every policy, as the JAX package keeps its pools; this step's k and
+v are widened into them.
+
 The KV blocks are updated in place (the JAX package donates them to its
 compiled step instead). They are confined to the pump thread, which launches
 every kernel on its own current CUDA stream; ``next_tok.cpu()`` is each
@@ -50,7 +56,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..common import get_policy, resolve_device
+from ..common import get_policy, host_numpy, override_policy, resolve_device
 from ..nn.conf.layers.attention import TransformerBlock, gelu, layer_norm
 from ..nn.conf.layers.feedforward import EmbeddingLayer
 from ..nn.conf.layers.recurrent import (
@@ -126,8 +132,8 @@ class _DenseKV:
         pos = positions.clamp(max=tmax - 1).long()
         rows = torch.arange(cap, device=K.device)
         # in place; a position past the ceiling rewrites its row unchanged
-        K[rows, pos] = torch.where(valid, k, K[rows, pos])
-        V[rows, pos] = torch.where(valid, v, V[rows, pos])
+        K[rows, pos] = torch.where(valid, k.to(K.dtype), K[rows, pos])
+        V[rows, pos] = torch.where(valid, v.to(V.dtype), V[rows, pos])
         return K, V
 
 
@@ -156,8 +162,8 @@ class _PagedKV:
         # planner's invariant), so indices collide only on the trash page.
         # On CUDA the order of colliding writes is unspecified; that is
         # harmless there only, because no mask ever reads the trash page.
-        pool_k[wp, off] = k
-        pool_v[wp, off] = v
+        pool_k[wp, off] = k.to(pool_k.dtype)
+        pool_v[wp, off] = v.to(pool_v.dtype)
         return paged_gather(pool_k, self.table), paged_gather(pool_v, self.table)
 
 
@@ -234,7 +240,7 @@ def _lstm_forward(layers, params_list, blocks, tokens, fresh, vocab: int):
             st = {k: torch.where(stale, torch.zeros_like(b[k]), b[k])
                   for k in ("h", "c")}
             x, rs = layer.apply_streaming(p, st, x)
-            b["h"].copy_(rs["h"])
+            b["h"].copy_(rs["h"])  # widened into the float32 block
             b["c"].copy_(rs["c"])
         else:
             x = layer.apply(p, x)
@@ -297,6 +303,8 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.capture_probs = bool(capture_probs)
         self.quant = "int8" if quant == "int8" else None
+        #: the dtype policy every step runs under (the config's, else None)
+        self.policy = net.conf.global_conf.dtype
         self.kv = kv
         self.page_size = int(page_size)
         self._layers = layers
@@ -559,6 +567,10 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _step(self, tokens, fresh, positions, paged_args):
+        with override_policy(self.policy):
+            return self._policy_step(tokens, fresh, positions, paged_args)
+
+    def _policy_step(self, tokens, fresh, positions, paged_args):
         if self.kind == "lstm":
             params = self._params
             if self.quant == "int8":
@@ -609,7 +621,7 @@ class DecodeEngine:
             # the iteration's sync point: the emitted token drives admission
             # and eviction and is the next input
             next_h = next_tok.cpu().numpy()
-            probs_h = probs.cpu().numpy() if self.capture_probs else None
+            probs_h = host_numpy(probs) if self.capture_probs else None
         except Exception as e:
             self.last_error = repr(e)
             with self._cond:

@@ -121,7 +121,9 @@ class PagePool:
         return len(self._prefix)
 
 
-# KV pools are always float32, as in the JAX package.
+# KV pools are always float32, as in the JAX package (its alloc_dense_kv and
+# alloc_page_pool), under every dtype policy: a bf16 step's k and v are
+# widened into them, and paged_gather moves float32 pages.
 
 def alloc_dense_kv(cap: int, max_context: int, n_heads: int, head_dim: int,
                    device: torch.device):

@@ -26,7 +26,8 @@ class ModelVersion:
         self.version = version
         self.net = net
         self.predict_fn = predict_fn
-        #: serving dtype policy of this version (None, or "int8")
+        #: serving dtype policy of this version (None, or "int8"; "bf16"
+        #: serves at the network's policy dtype and is stored as None)
         self.quant = predict_fn.quant
         #: whether /v1/stream can serve it (the rnn_time_step seam)
         self.streaming_capable = hasattr(net, "rnn_time_step")

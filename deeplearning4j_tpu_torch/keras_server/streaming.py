@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from ..common import resolve_device
+from ..common import host_numpy, resolve_device
 from .registry import ModelRegistry
 
 
@@ -108,7 +108,7 @@ class StreamSessions:
             out = sm.net.rnn_time_step(x)
             if isinstance(out, list):  # a graph's outputs
                 out = out[0]
-            out = out.cpu().numpy()
+            out = host_numpy(out)
             sm.states[session] = (sm.net.rnn_get_previous_state(), now)
         return {"output": out, "model": model, "version": version,
                 "session": session, "timesteps": int(x.shape[1])}

@@ -25,14 +25,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Union
 
+from ...common import resolve_policy
 from .inputs import InputType
 from .multilayer import GlobalConf, LayerConf, MultiLayerConfiguration
 from .preprocessors import InputPreProcessor, infer_preprocessor
 from .serde import layer_class
-
-#: the dtype policies a config may name, as in the JAX package (the network
-#: of this port runs float32 only and refuses the others, ROADMAP.md)
-DTYPE_POLICIES = ("float32", "bfloat16", "bfloat16_full", "bfloat16_flagship")
 
 #: camelCase names the builder also takes, as the JAX builder does
 _ALIASES = {"regularization": "use_regularization",
@@ -41,9 +38,8 @@ _ALIASES = {"regularization": "use_regularization",
 
 def validate_global_conf(g: GlobalConf) -> None:
     """Refuse a misspelt dtype policy at ``build()``."""
-    if g.dtype is not None and str(g.dtype).lower() not in DTYPE_POLICIES:
-        raise ValueError(f"Unknown dtype policy '{g.dtype}'. "
-                         f"Known: {sorted(DTYPE_POLICIES)}")
+    if g.dtype is not None:
+        resolve_policy(g.dtype)  # raises ValueError naming the known ones
 
 
 class NeuralNetConfiguration:

@@ -3,7 +3,9 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/attention.py``. The
 attention core is the flash-attention forward and backward kernels
 (``ops/flash_attention.py``) at every sequence length; the projections and
-the MLP are plain ``torch.matmul``, as the JAX package leaves them to XLA.
+the MLP are plain matmuls (:func:`~.feedforward.policy_matmul`), as the
+JAX package leaves them to XLA; under a bf16 policy q, k and v reach the
+flash kernels in bf16.
 Layout: ``[batch, time, features]``.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ from ....ops.activations import gelu
 from ....ops.flash_attention import flash_attention, masked_attention
 from ..serde import register_layer
 from .base import FeedForwardLayer
+from .feedforward import policy_matmul
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -83,21 +86,20 @@ class TransformerBlock(FeedForwardLayer):
         return super().init_param(name, shape, gen)
 
     def apply(self, params, x, mask=None, train=False, gen=None):
-        pol = get_policy()
-        cd, od = pol.compute_dtype, pol.output_dtype
+        od = get_policy().output_dtype
         B, T, F_ = x.shape
         H = self.n_heads
         D = F_ // H
         h = layer_norm(x, params["ln1_g"], params["ln1_b"])
-        qkv = torch.matmul(h.to(cd), params["Wqkv"].to(cd)).to(od)
+        qkv = policy_matmul(h, params["Wqkv"]).to(od)
         q, k, v = (t.reshape(B, T, H, D).contiguous()
                    for t in torch.split(qkv, F_, dim=-1))
         o = attend(q, k, v, self.causal, mask).reshape(B, T, F_)
-        att = torch.matmul(o.to(cd), params["Wo"].to(cd))
+        att = policy_matmul(o, params["Wo"])
         x = x + att.to(od) + params["bo"].to(od)
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
-        h = torch.matmul(h.to(cd), params["W1"].to(cd))
+        h = policy_matmul(h, params["W1"])
         h = gelu(h.to(od) + params["b1"].to(od))
         h = self.apply_dropout(h, gen, train)
-        h = torch.matmul(h.to(cd), params["W2"].to(cd))
+        h = policy_matmul(h, params["W2"])
         return x + h.to(od) + params["b2"].to(od)

@@ -12,6 +12,13 @@ NHWC input as NCHW with ``permute`` (for a contiguous NHWC tensor that is
 PyTorch's ``channels_last`` layout, which cuDNN takes as it is) and hands
 NHWC on.
 
+Under a policy whose ``grad_accum_dtype`` widens the compute dtype
+(``bfloat16_flagship``) a convolution is :class:`ConvWide`, the JAX layer's
+``_conv_wide``: bf16 operands in the forward, and gradient convolutions with
+both operands upcast to float32. With TF32 off those are true float32
+convolutions on the card (on a TPU the same program is still a bf16 MXU
+pass): the reference's semantics, kept, at their cost.
+
 ``convolution_mode="same"`` is XLA's ``"SAME"``: ``ceil(size / stride)``
 outputs, the padding split low = total // 2, high = the rest (asymmetric
 for strided windows), padded explicitly with ``F.pad``: zeros for
@@ -27,7 +34,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ....common import get_policy
+from ....common import accum_dtype, get_policy
 from ..inputs import InputType
 from ..serde import register_layer
 from .base import Layer
@@ -66,6 +73,44 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+class ConvWide(torch.autograd.Function):
+    """A convolution of NCHW ``x`` and OIHW ``w`` with ``compute``-dtype
+    operands, accumulated in ``accum`` and returned in ``out_dtype``; its
+    backward runs the gradient convolutions with both operands (the saved
+    input and the uncast weight) upcast to ``accum``, returning ``dx`` in
+    ``x``'s dtype and ``dW`` in ``w``'s. The forward is one cuDNN
+    convolution in ``compute`` on the card when ``out_dtype`` is
+    ``compute`` (cuDNN accumulates bf16 in float32 and rounds once, the
+    same function), else a convolution of the operands upcast to ``accum``
+    (bf16 products are exact in float32) cast to ``out_dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, compute, accum,
+                out_dtype):
+        xc, wc = x.to(compute), w.to(compute)
+        if x.is_cuda and out_dtype == compute:
+            out = F.conv2d(xc, wc, stride=stride, padding=padding,
+                           dilation=dilation)
+        else:
+            out = F.conv2d(xc.to(accum), wc.to(accum), stride=stride,
+                           padding=padding, dilation=dilation).to(out_dtype)
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, dilation, accum)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, accum = ctx.conv
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g.to(accum), x.to(accum), w.to(accum), None, stride, padding,
+            dilation, False, (0, 0), 1,
+            (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return (None if dx is None else dx.to(x.dtype),
+                None if dw is None else dw.to(w.dtype),
+                None, None, None, None, None, None)
 
 
 @register_layer("Convolution")
@@ -117,17 +162,25 @@ class ConvolutionLayer(Layer):
     def apply(self, params, x, mask=None, train=False, gen=None):
         x = self.apply_dropout(x, gen, train)
         pol = get_policy()
-        xc = _nchw(x.to(pol.compute_dtype))
-        w = params["W"].to(pol.compute_dtype).permute(3, 2, 0, 1)  # OIHW
+        cd, od = pol.compute_dtype, pol.output_dtype
+        acc = accum_dtype(cd)
+        # the raw input and weight go to ConvWide, so that their gradients
+        # keep their dtypes
+        xc = _nchw(x if acc is not None else x.to(cd))
+        w = params["W"].permute(3, 2, 0, 1)  # OIHW
         padding = self.padding
         if self.convolution_mode == "same":
             k_eff = tuple((k - 1) * d + 1
                           for k, d in zip(self.kernel_size, self.dilation))
             xc = F.pad(xc, _pads("same", xc, k_eff, self.stride, None))
             padding = (0, 0)
-        out = F.conv2d(xc, w, stride=self.stride, padding=padding,
-                       dilation=self.dilation)
-        out = _nhwc(out).to(pol.output_dtype)
+        if acc is None:
+            out = F.conv2d(xc, w.to(cd), stride=self.stride, padding=padding,
+                           dilation=self.dilation).to(od)
+        else:
+            out = ConvWide.apply(xc, w, self.stride, padding, self.dilation,
+                                 cd, acc, od)
+        out = _nhwc(out)
         if self.has_bias:
             out = out + params["b"].to(out.dtype)
         return self.act_fn()(out)

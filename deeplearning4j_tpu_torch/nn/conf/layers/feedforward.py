@@ -6,15 +6,58 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/layers/feedforward.py`` (its
 ``W`` is ``[n_in, out]`` as in the JAX package. An ``OutputLayer`` with
 ``mcxent`` and a softmax takes the fused softmax cross-entropy
 (``ops/losses.py``), the ``sm_xent`` kernel on the card.
+
+:func:`policy_matmul` is the contraction of every dense-family and
+attention layer: compute-dtype operands and, when the policy's
+``grad_accum_dtype`` widens them (``bfloat16_flagship``), a float32 result
+and float32 weight gradient (:class:`WideMatmul`), the counterpart of the
+JAX layers' ``preferred_element_type``.
 """
 from __future__ import annotations
 
 import torch
 
-from ....common import get_policy
+from ....common import accum_dtype, get_policy
 from ....ops.losses import get_loss
 from ..serde import register_layer
 from .base import FeedForwardLayer, Layer
+
+
+class WideMatmul(torch.autograd.Function):
+    """``x @ W`` with ``compute``-dtype operands and an ``accum``-dtype
+    result. Its backward forms both gradients in ``accum`` from
+    ``accum``-dtype operands: ``dW`` stays ``accum`` (float32), where
+    autograd through a bf16 matmul would round it to bf16; ``dx`` returns in
+    the operands' dtype, as the JAX transpose rule returns it. Products of
+    bf16 values are exact in float32, so these float32 matmuls compute what a
+    bf16 x bf16 -> float32 contraction computes, on every device; ``W``
+    enters uncast so that its gradient keeps ``accum``."""
+
+    @staticmethod
+    def forward(ctx, x, w, compute, accum):
+        xc, wc = x.to(compute), w.to(compute)
+        ctx.save_for_backward(xc, wc)
+        ctx.x_dtype = x.dtype
+        return torch.matmul(xc.to(accum), wc.to(accum))
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        acc = g.dtype
+        dx = torch.matmul(g, wc.to(acc).t()).to(xc.dtype).to(ctx.x_dtype)
+        n_in = wc.shape[0]
+        dw = xc.reshape(-1, n_in).to(acc).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw, None, None
+
+
+def policy_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ W`` with operands in the policy's compute dtype: the result in
+    that dtype, or in ``grad_accum_dtype`` when that widens it."""
+    cd = get_policy().compute_dtype
+    acc = accum_dtype(cd)
+    if acc is None:
+        return torch.matmul(x.to(cd), w.to(cd))
+    return WideMatmul.apply(x, w, cd, acc)
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -22,7 +65,7 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     dtype."""
     pol = get_policy()
     cd = pol.compute_dtype
-    out = torch.matmul(x.to(cd), params["W"].to(cd))
+    out = policy_matmul(x, params["W"])
     return (out.to(cd) + params["b"].to(cd)).to(pol.output_dtype)
 
 

@@ -5,8 +5,9 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/layers/normalization.py``. Batch
 norm runs over the channel axis, the last one (NHWC images, ``[B, F]``
 features). Its running mean and var are layer state (buffers ``mean`` and
 ``var``, 0 and 1 at init): a training forward normalizes with the batch's
-statistics (``ops/batch_norm.py``, the JAX formulas) and returns the new
-state ``decay * state + (1 - decay) * batch`` from the biased variance,
+statistics (``ops/batch_norm.py``, the JAX formulas, in the policy's
+``stat_dtype``) and returns the new state ``decay * state + (1 - decay) *
+batch`` from the biased variance, kept float32 under every policy,
 which the network writes after the step; inference folds the running
 statistics into one scale and one shift a channel. With
 ``lock_gamma_beta`` the layer has no params and scales by the fixed
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ....common import at_least_f32
+from ....common import at_least_f32, get_policy
 from ....ops.batch_norm import batch_norm_infer, batch_norm_train
 from ..serde import register_layer
 from .base import Layer
@@ -71,7 +72,8 @@ class BatchNormalization(Layer):
                          gen=None):
         gamma, beta = self._gamma_beta(params, x.device)
         if train:
-            out, mean, var = batch_norm_train(x, gamma, beta, self.eps)
+            out, mean, var = batch_norm_train(
+                x, gamma, beta, self.eps, get_policy().stat_dtype(x.dtype))
             d = self.decay
             new_state = {
                 "mean": d * state["mean"] + (1 - d) * mean.to(state["mean"].dtype),

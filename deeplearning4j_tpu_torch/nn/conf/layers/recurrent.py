@@ -83,7 +83,10 @@ class LSTM(FeedForwardLayer):
                              gate_name=self.gate_activation)
 
     def _zeros(self, x):
-        return torch.zeros(x.shape[0], self.n_out, dtype=torch.float32,
+        """The zero state, in ``x``'s dtype as in the JAX layer (float32 for
+        integer input)."""
+        dtype = x.dtype if x.is_floating_point() else torch.float32
+        return torch.zeros(x.shape[0], self.n_out, dtype=dtype,
                            device=x.device)
 
     def apply(self, params, x, mask=None, train=False, gen=None):

@@ -32,6 +32,10 @@ into ``tbptt_fwd_length`` chunks, one update a chunk; each streaming LSTM
 vertex carries its ``h``/``c`` across the chunks of a batch, detached at
 each boundary (the truncation), from zeros for every batch.
 
+The config's ``dtype`` names the policy the train step, TBPTT, streaming
+and ``output``/``score``/``evaluate`` run under, as for
+``MultiLayerNetwork``.
+
 Not ported yet, and each raises ``NotImplementedError`` (ROADMAP.md):
 layerwise pretraining and the ``Solver`` algorithms other than SGD.
 """
@@ -46,7 +50,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common import resolve_device
+from ..common import resolve_device, under_conf_policy
 from .conf.graphconf import ComputationGraphConfiguration
 from .conf.layers.recurrent import streaming_lstm
 from .conf.serde import layer_class
@@ -309,9 +313,6 @@ class ComputationGraph(KStepFit, nn.Module):
 
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         super().__init__()
-        if conf.global_conf.dtype not in (None, "float32"):
-            raise ValueError(f"config dtype {conf.global_conf.dtype!r} is not "
-                             "supported by this port yet (ROADMAP.md)")
         self.conf = conf
         self.device = resolve_device(device)
         if not conf.topological_order:
@@ -522,6 +523,7 @@ class ComputationGraph(KStepFit, nn.Module):
                                    masks=masks)
         return [acts[o] for o in self.conf.network_outputs]
 
+    @under_conf_policy
     @torch.no_grad()
     def output(self, *inputs) -> List[torch.Tensor]:
         """The network outputs (a list, one per output vertex) for one array
@@ -530,6 +532,7 @@ class ComputationGraph(KStepFit, nn.Module):
         return self._output_pure(self.params_list, self.state_list,
                                  self._to_devices(inputs))
 
+    @under_conf_policy
     @torch.no_grad()
     def score(self, data) -> float:
         """Loss (with regularization) on a ``MultiDataSet`` or
@@ -544,6 +547,7 @@ class ComputationGraph(KStepFit, nn.Module):
         total = _output_losses(self, params, loss_inputs, self._to_devices(ys))
         return float(total + _graph_regularization(self, params))
 
+    @under_conf_policy
     @torch.no_grad()
     def score_examples(self, data, add_regularization: bool = False
                        ) -> np.ndarray:
@@ -573,6 +577,7 @@ class ComputationGraph(KStepFit, nn.Module):
             total = total + _graph_regularization(self, params)
         return total.cpu().numpy()
 
+    @under_conf_policy
     def gradient_and_score(self, xs, ys):
         """``(grads, score)`` without an update: the training loss's
         gradients by vertex and param name, without dropout (batch norm
@@ -586,6 +591,7 @@ class ComputationGraph(KStepFit, nn.Module):
         return _graph_grads(loss, params), float(loss.detach())
 
     # ------------------------------------------------------------------ evaluation
+    @under_conf_policy
     def evaluate(self, iterator, labels_list=None, top_n: int = 1):
         """Classification scores of the outputs over an iterable of
         ``DataSet``\\ s or ``MultiDataSet``\\ s, label masks per output
@@ -683,6 +689,7 @@ class ComputationGraph(KStepFit, nn.Module):
     def _fit_arrays(self, xs: list, ys: list) -> None:
         self._fit_batch(xs, ys)
 
+    @under_conf_policy
     def _train_call(self, xs: list, ys: list, rng, iteration, upd,
                     fmasks=None, lmasks=None):
         """The train step on device tensors: ``(upd', states', loss)``."""
@@ -713,6 +720,7 @@ class ComputationGraph(KStepFit, nn.Module):
             for listener in self.listeners:
                 listener.iteration_done(self, self.iteration)
 
+    @under_conf_policy
     def _fit_tbptt(self, xs, ys, fmasks=None, lmasks=None) -> None:
         """Truncated BPTT: every input, label and mask cut along the time
         axis (1) into ``tbptt_fwd_length`` chunks, one update a chunk; the
@@ -751,6 +759,7 @@ class ComputationGraph(KStepFit, nn.Module):
 
     # ------------------------------------------------------------------ rnn API
     @torch.no_grad()
+    @under_conf_policy
     def rnn_time_step(self, *inputs) -> list:
         """Streaming inference carrying the LSTM vertices' state across
         calls: one ``[B, T, F]`` array per network input (T may be 1) ->

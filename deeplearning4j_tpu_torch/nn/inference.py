@@ -9,6 +9,9 @@ With ``quant="int8"`` the pinned copy holds int8 codes and per-channel
 scales (``ops/quant.py``) and is dequantized on every call, as the JAX
 package does inside its compiled program (``inference.py:60``): the weights
 at rest are 8-bit, the forward computes on the dequantized float copy.
+Every call runs under the dtype policy the network's config names (the
+ambient one when it names none), as the JAX ``PredictFn``'s program is
+traced under it.
 """
 from __future__ import annotations
 
@@ -18,13 +21,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common import resolve_device
+from ..common import override_policy, resolve_device
 from .graph_network import ComputationGraph
 from ..ops.quant import dequantize_tree, quantize_tree, tree_param_bytes
 
-#: serving dtype policies: None serves the snapshot at the network's policy
-#: dtype; "int8" quantizes the large matrix leaves at pin time
-QUANT_MODES = (None, "int8")
+#: serving dtype policies: None and "bf16" serve the snapshot at the
+#: network's policy dtype; "int8" quantizes the large matrix leaves at pin
+#: time
+QUANT_MODES = (None, "bf16", "int8")
 
 
 def copy_tree(tree, device: torch.device):
@@ -55,7 +59,7 @@ class PredictFn:
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         self._net = net
-        self.quant = quant
+        self.quant = quant if quant == "int8" else None
         self.device = resolve_device(device)
         # copies at pin time: a later fit of ``net`` changes neither the
         # served weights nor the served batch-norm statistics
@@ -83,10 +87,11 @@ class PredictFn:
         if self.quant == "int8":
             params = dequantize_tree(params)
         x = to_device_tensor(x, self.device)
-        if self._graph:
-            out = self._net._output_pure(params, self._states, [x])[0]
-        else:
-            out = self._net._output_pure(params, self._states, x)
+        with override_policy(self._net.conf.global_conf.dtype):
+            if self._graph:
+                out = self._net._output_pure(params, self._states, [x])[0]
+            else:
+                out = self._net._output_pure(params, self._states, x)
         with self._lock:
             self.calls += 1
         return out

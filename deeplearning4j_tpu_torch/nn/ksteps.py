@@ -13,7 +13,11 @@ the card the port's counterpart is a CUDA graph of one train step
 (:class:`StepGraph`), replayed once a step with no Python in between but
 the copy of the step's batch into the graph's input buffers and the
 replay. One capture serves every group of the same batch shapes and
-dtypes, whatever its length (the ragged tail of an epoch too). The graphs
+dtypes and the same dtype policy (:func:`~..common.effective_policy_key`
+of the config's ``dtype``, as the JAX program cache is keyed), whatever
+its length (the ragged tail of an epoch too): the step is captured under
+the config's policy, and a policy flip under a config that names none
+captures anew, never replaying a graph of another policy. The graphs
 of a network share one memory pool, which holds one step's intermediates:
 they replay one after another on one stream, each replay's loss is
 copied out before the next, and a tensor a step keeps past its end (a
@@ -53,6 +57,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..common import effective_policy_key
 from ..datasets.prefetch import (
     DevicePrefetcher, StagedGroup, consume_staged, stage_to_device)
 from ..ops import _cuda
@@ -350,7 +355,8 @@ class KStepFit:
                 losses[j] = self._eager_step(xs, ys, self.iteration + j)
             return losses
         xs0, ys0 = steps[0]
-        key = tuple((tuple(t.shape), t.dtype) for t in xs0 + ys0)
+        key = (tuple((tuple(t.shape), t.dtype) for t in xs0 + ys0),
+               effective_policy_key(self.conf.global_conf.dtype))
         sg = self._step_graphs.get(key)
         if sg is None:
             if self._graph_pool is None:

@@ -30,6 +30,12 @@ package's K-step fused dispatch (``fit_iterator(ksteps=)``,
 of the step; its health-monitor variant waits for the observability plane
 (ROADMAP.md).
 
+The config's ``dtype`` names the policy (``common.py``) every step, TBPTT
+chunk, streaming call and ``output``/``score``/``evaluate`` runs under,
+whatever the ambient policy (``under_conf_policy``), as the JAX package
+traces each program under it. Parameters, updater state and batch norm's
+running state stay float32 under every named policy.
+
 Iteration numbering follows the JAX package: a step runs with the
 network's ``iteration`` (the Adam bias correction and the learning-rate
 policies read it), then ``iteration`` is incremented and listeners see the
@@ -45,7 +51,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common import resolve_device
+from ..common import host_numpy, resolve_device, under_conf_policy
 from .conf.multilayer import MultiLayerConfiguration
 from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
@@ -353,7 +359,7 @@ def load_states(layers, given_states, where) -> None:
 
 def _numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return host_numpy(a)
     return np.asarray(a)
 
 
@@ -369,9 +375,6 @@ class MultiLayerNetwork(KStepFit, nn.Module):
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         super().__init__()
-        if conf.global_conf.dtype not in (None, "float32"):
-            raise ValueError(f"config dtype {conf.global_conf.dtype!r} is not "
-                             "supported by this port yet (ROADMAP.md)")
         self.conf = conf
         self.device = resolve_device(device)
         self.layers = nn.ModuleList(
@@ -563,6 +566,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
                 a = a.to(torch.float32)
         return a.to(self.device)
 
+    @under_conf_policy
     @torch.no_grad()
     def output(self, x) -> torch.Tensor:
         """Forward pass returning the final activations on this network's
@@ -571,6 +575,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         return self._output_pure(self.params_list, self.state_list,
                                  self._to_device(x))
 
+    @under_conf_policy
     @torch.no_grad()
     def feed_forward(self, x) -> List[torch.Tensor]:
         """Every layer's output, in order."""
@@ -631,6 +636,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
 
         return self._evaluate_with(ROCMultiClass(threshold_steps), iterator)
 
+    @under_conf_policy
     @torch.no_grad()
     def score(self, x=None, y=None, dataset=None) -> float:
         """Loss (with regularization) on a dataset, without dropout; a
@@ -658,6 +664,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
                                        fmask)[0]
         return _pre(self, len(self.layers) - 1, h, fmask)
 
+    @under_conf_policy
     @torch.no_grad()
     def score_examples(self, x, y=None,
                        add_regularization: bool = False) -> np.ndarray:
@@ -685,6 +692,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
             per = per + _regularization(self, params)
         return per.cpu().numpy()
 
+    @under_conf_policy
     def gradient_and_score(self, x, y, fmask=None, lmask=None):
         """``(grads, score)`` without an update: the training loss's
         gradients per layer by param name, without dropout (batch norm
@@ -766,6 +774,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
     def _fit_arrays(self, xs: list, ys: list) -> None:
         self._fit_batch(xs[0], ys[0])
 
+    @under_conf_policy
     def _train_call(self, xs: list, ys: list, rng, iteration, upd,
                     fmask=None, lmask=None):
         """The train step on device tensors: ``(upd', states', loss)``."""
@@ -800,6 +809,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
             for listener in self.listeners:
                 listener.iteration_done(self, self.iteration)
 
+    @under_conf_policy
     def _fit_tbptt(self, x, y, fmask=None, lmask=None) -> None:
         """Truncated BPTT: the time axis (1) cut into ``tbptt_fwd_length``
         chunks, one update per chunk; the LSTM state carries across chunks
@@ -826,6 +836,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
                 listener.iteration_done(self, self.iteration)
 
     # ------------------------------------------------------------------ rnn API
+    @under_conf_policy
     @torch.no_grad()
     def rnn_time_step(self, x) -> torch.Tensor:
         """Streaming inference carrying the LSTM state across calls:

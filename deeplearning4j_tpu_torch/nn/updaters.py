@@ -3,7 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/updaters.py``, function by function.
 Each is a plain function on tensors; schedules return a float32 scalar
 tensor on the CPU (a 0-dim tensor combines with tensors on any device), and
-the update math runs in float32, as in the JAX package.
+the update math runs in float32, as in the JAX package. Under every named
+dtype policy the parameters, and so the updater state, stay float32:
+:func:`grads_to_param_dtype` is the one cast between a gradient and its
+update.
 
 Update sign convention: ``updater_step(...)`` returns the *step to subtract*
 from the parameter (``param_new = param - step``), as in the JAX package.

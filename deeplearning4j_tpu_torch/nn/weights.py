@@ -5,6 +5,8 @@ names with the same fan-in/fan-out convention and the same distributions.
 Every initializer draws on the CPU from an explicit ``torch.Generator``, so a
 seed gives the same weights on every device. The JAX package's RNG differs:
 weights cross between the two packages through ``convert.from_jax`` only.
+Parameters are drawn float32 and stay float32 under every named dtype
+policy; a bf16 policy casts them to its compute dtype at each use.
 """
 from __future__ import annotations
 

@@ -11,16 +11,22 @@ gates and ``c_t`` on the o gate; a per-step mask (``> 0`` means live) holds
 - :func:`lstm_fwd` and :func:`lstm_bwd` are the wrappers of the cell
   kernels of ``csrc/lstm.cu``, with the argument and result contracts
   of the JAX package's ``_pallas_forward`` and ``_pallas_backward``. On CUDA
-  tensors they launch the kernels at any ``T >= 1``, ``H`` and ``F``; on CPU
+  tensors they launch the kernels at any ``T >= 1``, ``H`` and ``F``, with
+  float32 or bfloat16 operands (one dtype for all of a call's inputs); on CPU
   tensors they run :func:`lstm_fwd_plain` and :func:`lstm_bwd_plain`, which
-  compute the kernel bodies' math. Each counts its launches in
-  ``.launches``.
+  compute the kernel bodies' math. Either way the work is in float32 (the
+  JAX kernels' ``promote(x.dtype, float32)``): the forward returns ``ys``
+  and ``cs`` in ``x``'s dtype and ``h``, ``c`` in ``h0``'s, the backward
+  ``dx`` in ``x``'s dtype and ``dW``, ``db``, ``dpeep``, ``dh0``, ``dc0`` in
+  float32. Each counts its launches in ``.launches``.
 - :class:`LSTMCell` is the ``torch.autograd.Function`` over the two (the JAX
   package's ``custom_vjp``): the forward saves ``ys`` and ``cs``; the
   backward rebuilds the per-step ``h_{t-1}``/``c_{t-1}`` by shifting them
   with ``h0``/``c0`` in front.
 - :func:`lstm_sequence` is the seam layers call. A standard cell (tanh with
-  sigmoid gates) goes through :class:`LSTMCell`. A cell with other
+  sigmoid gates) goes through :class:`LSTMCell`, its operands cast to the
+  policy's compute dtype and its outputs to the output dtype, as the JAX
+  adapter casts them. A cell with other
   activations runs :func:`lstm_fused`: the JAX package computes that cell
   outside any Pallas kernel too (its kernels' backward is derived for the
   standard cell alone), so this is the reference's own route for it.
@@ -146,7 +152,9 @@ def lstm_fwd_plain(x_t: Tensor, wcat: Tensor, b: Tensor,
                    m_t: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The forward kernel's math in float32 (:func:`_wd`): ``x_t [T, B, F]``, ``wcat
     [F+H, 4H]``, ``b [1, 4H]``, ``peep [3, H]`` (rows pI, pF, pO) or None,
-    ``h0``/``c0 [B, H]``, ``m_t [T, B]`` -> ``(ys, cs [T, B, H], h, c)``."""
+    ``h0``/``c0 [B, H]``, ``m_t [T, B]`` -> ``(ys, cs [T, B, H], h, c)``;
+    ``ys``/``cs`` in ``x_t``'s dtype, ``h``/``c`` in ``h0``'s, the carries
+    never rounded."""
     H = h0.shape[-1]
     w, bb = _wd(wcat), _wd(b.reshape(-1))
     pp = None if peep is None else _wd(peep)
@@ -161,7 +169,9 @@ def lstm_fwd_plain(x_t: Tensor, wcat: Tensor, b: Tensor,
         c = torch.where(m, c_new, c)
         ys.append(h)
         cs.append(c)
-    return torch.stack(ys), torch.stack(cs), h, c
+    od = x_t.dtype
+    return (torch.stack(ys).to(od), torch.stack(cs).to(od), h.to(h0.dtype),
+            c.to(h0.dtype))
 
 
 def lstm_bwd_plain(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
@@ -173,7 +183,8 @@ def lstm_bwd_plain(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
     ``dct``, and carry ``dh_{t-1} = dz_t RW^T (+ the masked pass-through)``.
     Then ``dW = sum_t [x_t, hprev_t]^T dz_t``, ``db``, ``dpeep`` and ``dx =
     dz W_x^T``. Returns ``(dx [T, B, F], dW [F+H, 4H], db [1, 4H], dpeep
-    [3, H], dh0, dc0 [B, H])``; ``dpeep`` is zeros without peepholes."""
+    [3, H], dh0, dc0 [B, H])``, ``dx`` in ``x_t``'s dtype and the rest in
+    float32 (or wider); ``dpeep`` is zeros without peepholes."""
     T, B, F = x_t.shape
     H = hprev.shape[-1]
     w, bb = _wd(wcat), _wd(b.reshape(-1))
@@ -214,15 +225,17 @@ def lstm_bwd_plain(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
     xs = _wd(x_t).reshape(T * B, F)
     hs = _wd(hprev).reshape(T * B, H)
     dw = torch.cat([xs.t() @ dz, hs.t() @ dz], dim=0)
-    dx = (dz @ w[:F].t()).reshape(T, B, F)
+    dx = (dz @ w[:F].t()).reshape(T, B, F).to(x_t.dtype)
     return dx, dw, dz.sum(0)[None], dpeep, dh, dc
 
 
 # ------------------------------------------------------------ the kernels
-_FWD_ARGS = ([_cuda.PTR] * 12 + [_cuda.INT] * 5 + [_cuda.INT] * 5
-             + [_cuda.LONG, _cuda.PTR])
+_FWD_ARGS = ([_cuda.PTR] * 14 + [_cuda.INT] * 5 + [_cuda.INT] * 5
+             + [_cuda.LONG, _cuda.INT, _cuda.PTR])
 _BWD_ARGS = ([_cuda.PTR] * 10 + [_cuda.PTR] * 6 + [_cuda.PTR] * 3
-             + [_cuda.INT] * 9 + [_cuda.LONG] * 2 + [_cuda.PTR])
+             + [_cuda.INT] * 9 + [_cuda.LONG] * 2 + [_cuda.INT, _cuda.PTR])
+#: the operand dtypes the CUDA kernels take
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_args(name: str, x_t: Tensor, h0: Tensor, wcat: Tensor, b: Tensor,
@@ -247,8 +260,11 @@ def _check_args(name: str, x_t: Tensor, h0: Tensor, wcat: Tensor, b: Tensor,
     if any(t.device != x_t.device for t in tensors):
         raise ValueError(f"{name}: operands must share one device")
     if x_t.device.type == "cuda":
-        if any(t.dtype != torch.float32 for t in tensors):
-            raise TypeError(f"{name}: the CUDA kernel takes float32 operands")
+        if x_t.dtype not in KERNEL_DTYPES or any(t.dtype != x_t.dtype
+                                                 for t in tensors):
+            raise TypeError(f"{name}: the CUDA kernel takes operands of one "
+                            "dtype, float32 or bfloat16; got "
+                            f"{sorted({str(t.dtype) for t in tensors})}")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "
                              "operands")
@@ -266,30 +282,36 @@ def lstm_fwd(x_t: Tensor, wcat: Tensor, b: Tensor, peep: Optional[Tensor],
              h0: Tensor, c0: Tensor, m_t: Tensor
              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The LSTM cell forward over ``T`` steps; contract of
-    :func:`lstm_fwd_plain`. On CUDA tensors (float32, contiguous) this
-    launches ``lstm_fwd`` of ``csrc/lstm.cu`` with the shape's
-    :func:`lstm_plan` (for ``T > 1`` the hoisted input product, then the
-    recurrence; for ``T = 1`` one step); on CPU tensors it runs the plain
-    version."""
+    :func:`lstm_fwd_plain`. On CUDA tensors (contiguous, all float32 or all
+    bfloat16) this launches ``lstm_fwd`` of ``csrc/lstm.cu`` with the
+    shape's :func:`lstm_plan` (for ``T > 1`` the hoisted input product, then
+    the recurrence; for ``T = 1`` one step); on CPU tensors it runs the
+    plain version."""
     T, B, F, H = _check_args("lstm_fwd", x_t, h0, wcat, b, peep, m_t,
                              {"c0": (c0, tuple(h0.shape))})
     if x_t.device.type == "cpu":
         return lstm_fwd_plain(x_t, wcat, b, peep, h0, c0, m_t)
+    bf = x_t.dtype == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=x_t.device)
-    plan = lstm_plan(T, B, F, H)
-    ys = torch.empty(T, B, H, **f32)
+    plan = lstm_plan(T, B, F, H, x_t.dtype)
+    ys = torch.empty(T, B, H, dtype=x_t.dtype, device=x_t.device)
     cs = torch.empty_like(ys)
-    h = torch.empty(B, H, **f32)
-    c = torch.empty_like(h)
-    # zx = x W_x + b for every row, read by the recurrence
+    h = torch.empty_like(h0)
+    c = torch.empty_like(h0)
+    # zx = x W_x + b for every row, read by the recurrence; with bf16 the
+    # float32 h (and, unless the c carry is in shared memory, c) of every
+    # step, which the recurrence reads back unrounded
     zx = torch.empty(T, B, 4 * H, **f32) if plan["route"] else None
+    hf = torch.empty(T, B, H, **f32) if bf and plan["route"] else None
+    cf = (torch.empty(T, B, H, **f32)
+          if bf and plan["route"] and not plan["c_shared"] else None)
     fn = _cuda.function("lstm", "lstm_fwd", _FWD_ARGS)
     rc = fn(x_t.data_ptr(), wcat.data_ptr(), b.data_ptr(), _ptr(peep),
             h0.data_ptr(), c0.data_ptr(), m_t.data_ptr(), _ptr(zx),
-            ys.data_ptr(), cs.data_ptr(), h.data_ptr(), c.data_ptr(), T, B, F,
-            H, int(peep is not None), plan["route"], plan["units"],
-            plan["rows"], plan["w_shared"], plan["c_shared"], plan["smem"],
-            _cuda.stream_handle())
+            ys.data_ptr(), cs.data_ptr(), h.data_ptr(), c.data_ptr(),
+            _ptr(hf), _ptr(cf), T, B, F, H, int(peep is not None),
+            plan["route"], plan["units"], plan["rows"], plan["w_shared"],
+            plan["c_shared"], plan["smem"], int(bf), _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_fwd launch")
     lstm_fwd.launches += 1
     return ys, cs, h, c
@@ -300,10 +322,10 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
              b: Tensor, peep: Optional[Tensor], dys: Tensor, dht: Tensor,
              dct: Tensor, m_t: Tensor):
     """The LSTM cell backward in reverse time; contract of
-    :func:`lstm_bwd_plain`. On CUDA tensors (float32, contiguous) this
-    launches ``lstm_bwd`` of ``csrc/lstm.cu`` (the hoisted gate product, the
-    recurrence, then the tail's products, all on the stream); on CPU tensors
-    it runs the plain version."""
+    :func:`lstm_bwd_plain`. On CUDA tensors (contiguous, all float32 or all
+    bfloat16) this launches ``lstm_bwd`` of ``csrc/lstm.cu`` (the hoisted
+    gate product, the recurrence, then the tail's products, all on the
+    stream); on CPU tensors it runs the plain version."""
     T, B, F = x_t.shape
     H = hprev.shape[-1]
     _check_args("lstm_bwd", x_t, dht, wcat, b, peep, m_t, {
@@ -313,8 +335,8 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
         return lstm_bwd_plain(x_t, hprev, cprev, wcat, b, peep, dys, dht,
                               dct, m_t)
     f32 = dict(dtype=torch.float32, device=x_t.device)
-    plan = lstm_bwd_plan(T, B, F, H, peep is not None)
-    dx = torch.empty(T, B, F, **f32)
+    plan = lstm_bwd_plan(T, B, F, H, peep is not None, x_t.dtype)
+    dx = torch.empty_like(x_t)
     dw = torch.empty(F + H, 4 * H, **f32)
     db = torch.empty(1, 4 * H, **f32)
     dpeep = torch.zeros(3, H, **f32)
@@ -334,58 +356,62 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
             dh0.data_ptr(), dc0.data_ptr(), zdz.data_ptr(), pacc.data_ptr(),
             part.data_ptr(), T, B, F, H, int(peep is not None),
             plan["units"], plan["rows"], plan["w_shared"], plan["c_shared"],
-            plan["smem"], plan["scratch"], _cuda.stream_handle())
+            plan["smem"], plan["scratch"], int(x_t.dtype == torch.bfloat16),
+            _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_bwd launch")
     lstm_bwd.launches += 1
     return dx, dw, db, dpeep, dh0, dc0
 
 
 @functools.lru_cache(maxsize=256)
-def _fwd_plan(device: int, route: int, B: int, F: int, H: int) -> dict:
+def _fwd_plan(device: int, route: int, B: int, F: int, H: int,
+              bf: bool) -> dict:
     out = (ctypes.c_longlong * 8)()
-    fn = _cuda.function("lstm", "lstm_plan", [_cuda.INT] * 4 + [_cuda.PTR])
+    fn = _cuda.function("lstm", "lstm_plan", [_cuda.INT] * 5 + [_cuda.PTR])
     # the plan depends on T only through the route: 2 stands for any T > 1
-    _cuda.check(fn(1 + route, B, F, H, ctypes.addressof(out)), "lstm",
-                "lstm_plan")
+    _cuda.check(fn(1 + route, B, F, H, int(bf), ctypes.addressof(out)),
+                "lstm", "lstm_plan")
     keys = ("route", "units", "blocks", "rows", "smem", "w_shared",
             "c_shared", "max_blocks")
     return dict(zip(keys, list(out)))
 
 
-def lstm_plan(T: int, B: int, F: int, H: int) -> dict:
+def lstm_plan(T: int, B: int, F: int, H: int,
+              dtype: torch.dtype = torch.float32) -> dict:
     """The forward's launch on the current card, worked out once a shape and
     handed to the kernel, which only checks it: the route (1: ``T > 1``, the
     hoisted product and the cooperative recurrence; 0: ``T = 1``, one
     ordinary launch of the step), hidden units per block (``max(2, ceil(H /
     SMs))``), blocks, batch rows staged per pass, shared memory, whether the
     weight columns and the c carry sit in shared memory, and the most
-    co-resident blocks. CUDA only."""
-    return dict(_fwd_plan(torch.cuda.current_device(), int(T > 1), B, F, H))
+    co-resident blocks, for operands of ``dtype``. CUDA only."""
+    return dict(_fwd_plan(torch.cuda.current_device(), int(T > 1), B, F, H,
+                          dtype == torch.bfloat16))
 
 
 @functools.lru_cache(maxsize=256)
 def _bwd_plan(device: int, T: int, B: int, F: int, H: int,
-              peephole: bool) -> dict:
+              peephole: bool, bf: bool) -> dict:
     out = (ctypes.c_longlong * 9)()
     fn = _cuda.function("lstm", "lstm_bwd_plan",
-                        [_cuda.INT] * 5 + [_cuda.PTR])
-    _cuda.check(fn(T, B, F, H, int(peephole), ctypes.addressof(out)),
-                "lstm", "lstm_bwd_plan")
+                        [_cuda.INT] * 6 + [_cuda.PTR])
+    _cuda.check(fn(T, B, F, H, int(peephole), int(bf),
+                   ctypes.addressof(out)), "lstm", "lstm_bwd_plan")
     keys = ("units", "blocks", "rows", "smem", "w_shared", "c_shared",
             "max_blocks", "tail_blocks", "scratch")
     return dict(zip(keys, list(out)))
 
 
-def lstm_bwd_plan(T: int, B: int, F: int, H: int,
-                  peephole: bool = True) -> dict:
+def lstm_bwd_plan(T: int, B: int, F: int, H: int, peephole: bool = True,
+                  dtype: torch.dtype = torch.float32) -> dict:
     """The backward's launch on the current card, worked out once a shape
     and handed to the kernel, which only checks it: the recurrence's units
     per block (``max(2, ceil(H / SMs))``), blocks, batch rows of dz_t
     staged per pass, shared memory, whether RW's rows and the carries sit
     in shared memory, the most co-resident blocks, the tail's blocks and its
-    scratch floats. CUDA only."""
+    scratch floats, for operands of ``dtype``. CUDA only."""
     return dict(_bwd_plan(torch.cuda.current_device(), T, B, F, H,
-                          bool(peephole)))
+                          bool(peephole), dtype == torch.bfloat16))
 
 
 # ------------------------------------------------------------ the gradient
@@ -393,7 +419,9 @@ class LSTMCell(torch.autograd.Function):
     """``(x_t, wcat, b, peep, h0, c0, m_t) -> (ys, h, c)`` through
     :func:`lstm_fwd`, with :func:`lstm_bwd` as its backward. ``peep`` may be
     None (no peepholes; its gradient is then None). The mask takes no
-    gradient."""
+    gradient. The gradients return in their inputs' dtypes, as the JAX
+    ``custom_vjp`` returns them (the kernel's float32 ``dW`` of bf16 ``wcat``
+    rounds to bf16 there too)."""
 
     @staticmethod
     def forward(ctx, x_t, wcat, b, peep, h0, c0, m_t):
@@ -410,12 +438,15 @@ class LSTMCell(torch.autograd.Function):
         cprev = torch.cat([c0[None], cs[:-1]], dim=0)
 
         def dense(g, like):
-            return torch.zeros_like(like) if g is None else g.contiguous()
+            return (torch.zeros_like(like) if g is None
+                    else g.to(like.dtype).contiguous())
 
         dx, dw, db, dp, dh0, dc0 = lstm_bwd(
             x_t, hprev, cprev, wcat, b, peep, dense(dys, ys), dense(dht, h0),
             dense(dct, c0), m_t)
-        return dx, dw, db, (None if peep is None else dp), dh0, dc0, None
+        return (dx, dw.to(wcat.dtype), db.to(b.dtype),
+                None if peep is None else dp.to(peep.dtype),
+                dh0.to(h0.dtype), dc0.to(c0.dtype), None)
 
 
 def is_standard_cell(act_name, gate_name) -> bool:
@@ -430,20 +461,22 @@ def lstm_sequence(params: dict, x: Tensor, act, gate_act, h0: Tensor,
                   gate_name: Optional[str] = STANDARD_GATE):
     """The recurrent entry point layers call (full sequences, TBPTT chunks
     and single steps alike): ``x [B, T, F] -> (ys [B, T, H], (h, c))``.
-    A standard cell runs the kernels through :class:`LSTMCell` (float32);
-    another cell runs :func:`lstm_fused`."""
+    A standard cell runs the kernels through :class:`LSTMCell`, every operand
+    (the initial state and the mask too) in the policy's compute dtype and
+    the results in its output dtype, as the JAX adapter runs its Pallas
+    kernels; another cell runs :func:`lstm_fused`."""
     if not is_standard_cell(act_name, gate_name):
         return lstm_fused(params, x, act, gate_act, h0, c0, peephole, mask)
-    od = get_policy().output_dtype
-    f32 = torch.float32
-    wcat = torch.cat([params["W"], params["RW"]], dim=0).to(f32).contiguous()
-    b = params["b"].to(f32)[None]
-    peep = (torch.stack([params["pI"], params["pF"], params["pO"]]).to(f32)
+    pol = get_policy()
+    cd, od = pol.compute_dtype, pol.output_dtype
+    wcat = torch.cat([params["W"], params["RW"]], dim=0).to(cd).contiguous()
+    b = params["b"].to(cd)[None]
+    peep = (torch.stack([params["pI"], params["pF"], params["pO"]]).to(cd)
             if peephole else None)
     B, T = x.shape[0], x.shape[1]
-    x_t = x.transpose(0, 1).to(f32).contiguous()
-    m_t = (mask.transpose(0, 1).to(f32).contiguous() if mask is not None
-           else torch.ones(T, B, dtype=f32, device=x.device))
-    ys, h, c = LSTMCell.apply(x_t, wcat, b, peep, h0.to(f32).contiguous(),
-                              c0.to(f32).contiguous(), m_t)
+    x_t = x.transpose(0, 1).to(cd).contiguous()
+    m_t = (mask.transpose(0, 1).to(cd).contiguous() if mask is not None
+           else torch.ones(T, B, dtype=cd, device=x.device))
+    ys, h, c = LSTMCell.apply(x_t, wcat, b, peep, h0.to(cd).contiguous(),
+                              c0.to(cd).contiguous(), m_t)
     return ys.transpose(0, 1).to(od), (h.to(od), c.to(od))

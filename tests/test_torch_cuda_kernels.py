@@ -433,6 +433,91 @@ def test_lstm_bwd_wide_layers_match_plain_on_card(cuda_device, H):
     assert all(torch.equal(x, y) for x, y in zip(tl.lstm_bwd(**args), out))
 
 
+#: bfloat16 operands: the kernel and the plain version work in float32 from
+#: the same bf16 inputs, so their float32 results agree to the float32
+#: tolerances above; each rounds them to bf16 on its own, which may part
+#: them by one bf16 ulp, at most 2^-7 of the value
+LSTM_BF16_RTOL = 2.0 ** -7
+
+#: char_rnn's two layers (T = 50, B = 32, F = 64 and 200, H = 200), the
+#: decode step, a ragged H with a ragged mask, and a batch whose c carry
+#: does not fit in shared memory with weights read from global memory
+LSTM_BF16_CASES = [(50, 32, 64, 200, True, False),
+                   (50, 32, 200, 200, True, True),
+                   (1, 8, 64, 200, True, False), (1, 3, 5, 37, True, True),
+                   (7, 3, 5, 37, False, True), (3, 6000, 64, 1100, True, True)]
+
+
+def _bf16(a: dict) -> dict:
+    return {k: None if v is None else v.to(torch.bfloat16)
+            for k, v in a.items()}
+
+
+def _close_bf16(got, ref, atol):
+    """Each element within one bf16 ulp of the reference plus ``atol``."""
+    assert got.dtype == ref.dtype == torch.bfloat16
+    g, r = got.float(), ref.float()
+    excess = float(((g - r).abs() - (LSTM_BF16_RTOL * r.abs() + atol)).max())
+    assert excess <= 0, excess
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,F,H,peephole,masked", LSTM_BF16_CASES)
+def test_lstm_fwd_bf16_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
+                                                    peephole, masked):
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, peephole, masked, seed=8)
+    a = _bf16(a)
+    before = tl.lstm_fwd.launches
+    out = tl.lstm_fwd(**a)
+    torch.cuda.synchronize()
+    assert tl.lstm_fwd.launches == before + 1
+    for got, ref in zip(out, tl.lstm_fwd_plain(**a)):
+        _close_bf16(got, ref, LSTM_FWD_TOL)
+    if masked:  # the fully masked row keeps its initial state everywhere
+        assert torch.equal(out[0][:, 0], a["h0"][0].expand(T, H))
+    assert all(torch.equal(x, y) for x, y in zip(tl.lstm_fwd(**a), out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,F,H,peephole,masked", LSTM_BF16_CASES)
+def test_lstm_bwd_bf16_kernel_matches_plain_on_card(cuda_device, T, B, F, H,
+                                                    peephole, masked):
+    tl, a = _lstm_inputs(cuda_device, T, B, F, H, peephole, masked, seed=9)
+    a = _bf16(a)
+    ys, cs, _, _ = tl.lstm_fwd_plain(**a)
+    g = torch.Generator().manual_seed(10)
+    dys, dht, dct = (torch.randn(*s, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+                     for s in ((T, B, H), (B, H), (B, H)))
+    args = dict(x_t=a["x_t"], hprev=torch.cat([a["h0"][None], ys[:-1]]),
+                cprev=torch.cat([a["c0"][None], cs[:-1]]), wcat=a["wcat"],
+                b=a["b"], peep=a["peep"], dys=dys, dht=dht, dct=dct,
+                m_t=a["m_t"])
+    before = tl.lstm_bwd.launches
+    out = tl.lstm_bwd(**args)
+    torch.cuda.synchronize()
+    assert tl.lstm_bwd.launches == before + 1
+    ref = tl.lstm_bwd_plain(**args)
+    # dx in bf16 (one ulp beside the float32 bound), the rest float32
+    _close_bf16(out[0], ref[0], LSTM_BWD_ATOL
+                + LSTM_BWD_RTOL * float(ref[0].float().abs().max()))
+    for got, r in zip(out[1:], ref[1:]):
+        assert got.dtype == torch.float32
+        _close_to_scale(got, r)
+    assert all(torch.equal(x, y) for x, y in zip(tl.lstm_bwd(**args), out))
+
+
+@pytest.mark.cuda
+def test_lstm_kernels_refuse_other_dtypes_on_card(cuda_device):
+    """No cast behind the caller's back: float16 operands, or operands of
+    two dtypes, raise on the card instead of running another dtype."""
+    tl, a = _lstm_inputs(cuda_device, 4, 2, 5, 8, True, False)
+    with pytest.raises(TypeError):
+        tl.lstm_fwd(**{k: v.half() for k, v in a.items()})
+    with pytest.raises(TypeError):
+        tl.lstm_fwd(**{**a, "x_t": a["x_t"].to(torch.bfloat16)})
+
+
 @pytest.mark.cuda
 def test_lstm_sequence_gradients_on_card_match_cpu(cuda_device):
     from deeplearning4j_tpu_torch.ops import activations as ta
@@ -710,3 +795,48 @@ def test_ksteps_stage_dtype_on_card(cuda_device, monkeypatch):
         for k, v in own.items():
             err = float((v - other[k]).abs().max())
             assert err <= KSTEP_TOL * max(float(other[k].abs().max()), 1e-3)
+
+
+@pytest.mark.cuda
+def test_ksteps_policy_flip_recaptures_on_card(cuda_device, monkeypatch):
+    """A network whose config names no dtype policy follows the ambient
+    one: after ``fit(epochs=4)`` under float32, the same batch under
+    ``bfloat16_full`` captures a second step (keyed by the effective
+    policy) instead of replaying the float32 graph, and trains as bf16
+    single steps do; a config that names a policy keeps one graph whatever
+    the ambient policy."""
+    from deeplearning4j_tpu_torch import common
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    a = _kstep_net("lenet", cuda_device)
+    b = a.clone()
+    d = _kstep_batches("lenet", 1)[0]
+    a.dispatch_ksteps = b.dispatch_ksteps = 4
+    try:
+        a.fit(d.features, d.labels, epochs=4)
+        common.full_bf16_policy()
+        a.fit(d.features, d.labels, epochs=4)
+        assert len(a._step_graphs) == 2
+        assert a.output(d.features).dtype == torch.bfloat16
+        common.set_policy(torch.float32, torch.float32, torch.float32)
+        b.fit(d.features, d.labels, epochs=4)
+        common.full_bf16_policy()
+        b.dispatch_ksteps = 1
+        b.fit(d.features, d.labels, epochs=4)
+    finally:
+        common.set_policy(torch.float32, torch.float32, torch.float32,
+                          reduction_dtype=None, grad_accum_dtype=None)
+    for own, other in zip(a.params_list, b.params_list):
+        for k, v in own.items():
+            err = float((v - other[k]).abs().max())
+            assert err <= KSTEP_TOL * max(float(other[k].abs().max()), 1e-3)
+    pinned = _kstep_net("lenet", cuda_device)
+    pinned.conf.global_conf.dtype = "bfloat16_full"
+    pinned.dispatch_ksteps = 4
+    try:
+        pinned.fit(d.features, d.labels, epochs=4)
+        common.flagship_bf16_policy()
+        pinned.fit(d.features, d.labels, epochs=4)
+    finally:
+        common.set_policy(torch.float32, torch.float32, torch.float32,
+                          reduction_dtype=None, grad_accum_dtype=None)
+    assert len(pinned._step_graphs) == 1

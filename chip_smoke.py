@@ -2724,12 +2724,11 @@ DT_MULT = 2.0
 #: update on the CPU flagship update from the same state, r = <u, u_cpu> /
 #: <u_cpu, u_cpu> over all leaves, at the last step: within DT_PROJ_TOL of
 #: 1. The leaf gate alone cannot see a 1% error under bf16. A new
-#: ResNet-50's gradient is ill-conditioned (PR 11: float32 is 1% off
-#: float64), and in bf16 the first steps are rounding: on the H100 the
+#: ResNet-50's gradient is ill-conditioned (float32 is 1% off float64),
+#: and in bf16 the first steps are rounding: measured on one H100, the
 #: flagship update's distance to the float64 update was 1.36 of it at the
 #: first step, 0.22 at the second and 0.086 at the third, and the card's
-#: update projected on the CPU's 0.29, 0.989 and 0.9994 (my chip run, PR
-#: 13). r is taken where the steps carry signal, the last. The control
+#: update projected on the CPU's 0.29, 0.989 and 0.9994. r is taken where the steps carry signal, the last. The control
 #: steps from the state a run at RES_CONTROL_LR times the rate would hold
 #: (the CPU run's params and BN state, its Nesterov velocity, proportional
 #: to the rate, times RES_CONTROL_LR), at that rate: its update is 1.01

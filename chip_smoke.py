@@ -2715,9 +2715,23 @@ DT_RES_EPOCHS, DT_RES_TURN_STEPS, DT_RES_KSTEP_CALLS = 4, 4, 3
 #: the figure the flagship step's share is taken of
 BF16_OPS_PER_S = 989e12
 #: card against CPU under a bf16 policy: the card's distance to the CPU run
-#: of the same policy at most DT_MULT times the CPU run's own distance to
-#: its wider counterpart (float32, or float64 for ResNet-50's update)
+#: of the same policy at most a stated part of the CPU run's own distance to
+#: its wider counterpart (float32, or float64 for ResNet-50's loss). A path
+#: the card ran wholly in float32 lands at about 1 times that distance, so
+#: each limit sits between its reading on one H100 (NVIDIA H100 80GB HBM3,
+#: 700 W) and 1: the transformer's losses (max over the steps, read 0.044)
+#: and params (0.12), char_rnn's chunk losses (0.38) and params (0.047).
+#: ResNet-50's loss against float64 is held within DT_MULT, its update by
+#: the projection gate below.
 DT_MULT = 2.0
+DT_LM_LOSS, DT_LM_PARAMS = 0.25, 0.4
+DT_RNN_LOSS, DT_RNN_PARAMS = 0.75, 0.25
+#: the bf16 /v1/stream of char_rnn: within DT_STREAM of the CPU stream's own
+#: bf16-float32 distance (read 1.19: the card's and the CPU's rounding part
+#: them as far as bf16 parts the CPU from float32), and off the CPU float32
+#: stream by at least DT_ENGAGED of it (a float32 stream on the card sits
+#: within float32 rounding of it)
+DT_STREAM, DT_ENGAGED = 2.0, 0.5
 #: the flagship ResNet-50 update gate adds to the resnet50 phase's leaf
 #: gate (the card's update against a float64 step, leaf by leaf, relative
 #: to the CPU flagship step's own errors) the projection of the card's whole
@@ -2894,15 +2908,20 @@ def dtype_resnet_check(kernels) -> dict:
         net.load_updater_state(convert.to_numpy(ref.updater_state),
                                ref.iteration)
 
-    for fn in kernels:
-        fn.launches = 0
     steps, misses = [], {}
     control_out = None
+    launches = {fn.__name__: 0 for fn in kernels}
     for i, (x, y) in enumerate(batches):
         load_from_ref(lock)
         before, exact = _f64(ref.params_list), Float64Run(ref)
         loss64 = exact.step(x, y)
+        # the card's flagship step alone: the control's launches are not
+        # the path's
+        for fn in kernels:
+            fn.launches = 0
         lock.fit([x], [y])
+        for fn in kernels:
+            launches[fn.__name__] += fn.launches
         last = i == RES_CHECK_STEPS - 1
         if last:
             load_from_ref(control)
@@ -2938,7 +2957,6 @@ def dtype_resnet_check(kernels) -> dict:
         steps.append(step)
         misses.update({f"step {i + 1} {k}": v
                        for k, v in _gate_misses(card_e, cpu_e).items()})
-    launches = {fn.__name__: fn.launches for fn in kernels}
     f32_ok = _all_float32(lock) and _all_float32(ref)
     print(f"dtype resnet50 ({FLAGSHIP}, {RES_CHECK_SIZE}x{RES_CHECK_SIZE}, "
           f"B={RES_CHECK_B}, each card step from the CPU flagship run's "
@@ -2962,7 +2980,7 @@ def dtype_resnet_check(kernels) -> dict:
     if not f32_ok:
         fail("flagship ResNet-50 params, updater or BN state left float32")
     want = {fn.__name__: 0 for fn in kernels}
-    want["softmax_cross_entropy"] = RES_CHECK_STEPS + 1
+    want["softmax_cross_entropy"] = RES_CHECK_STEPS
     if launches != want:
         fail(f"flagship ResNet-50 check launches {launches} != {want}")
     return {"steps": steps, "control": control_out, "launches": launches,
@@ -3002,11 +3020,13 @@ def dtype_resnet_bench(kernels) -> dict:
             net.fit([x], [y])
         torch.cuda.synchronize()
         peak[name] = torch.cuda.max_memory_allocated()
-    for fn in kernels:
-        fn.launches = 0
     turns = {"flagship": [], "float32": []}
+    # each network's launches over its own turns alone
+    turn_launches = {k: {fn.__name__: 0 for fn in kernels} for k in turns}
     for name in ("flagship", "float32", "float32", "flagship"):
         net = flag if name == "flagship" else f32
+        for fn in kernels:
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(DT_RES_TURN_STEPS):
@@ -3014,7 +3034,10 @@ def dtype_resnet_bench(kernels) -> dict:
         torch.cuda.synchronize()
         turns[name].append(1e3 * (time.perf_counter() - t0)
                            / DT_RES_TURN_STEPS)
-    eager_launches = {fn.__name__: fn.launches for fn in kernels}
+        for fn in kernels:
+            turn_launches[name][fn.__name__] += fn.launches
+    eager_launches = turn_launches["flagship"]
+    f32_launches = turn_launches["float32"]
     step_ms = {k: float(np.median(v)) for k, v in turns.items()}
     losses = {"flagship": flag.score_value, "float32": f32.score_value}
     # the K-step path: the first call captures the step (an eager warm-up
@@ -3048,9 +3071,10 @@ def dtype_resnet_bench(kernels) -> dict:
                      "idle_share_unprofiled":
                          1.0 - busy / 1e3 / step_ms[name]}
     want = {fn.__name__: 0 for fn in kernels}
-    want["softmax_cross_entropy"] = 4 * DT_RES_TURN_STEPS
-    if eager_launches != want:
-        fail(f"ResNet-50 dtype eager launches {eager_launches} != {want}")
+    want["softmax_cross_entropy"] = 2 * DT_RES_TURN_STEPS
+    if eager_launches != want or f32_launches != want:
+        fail(f"ResNet-50 dtype eager launches: flagship {eager_launches}, "
+             f"float32 {f32_launches}, each != {want}")
     want["softmax_cross_entropy"] = DT_RES_EPOCHS * (1 + DT_RES_KSTEP_CALLS)
     if kstep_launches != want or graphs != 1:
         fail(f"flagship ResNet-50 K-step launches {kstep_launches} != {want}"
@@ -3113,8 +3137,10 @@ def dtype_resnet_bench(kernels) -> dict:
             "flagship_kstep": share(float(np.median(kstep_ms))),
             "float32_eager": share(step_ms["float32"])},
         "by_family": fam, "losses": losses, "kstep_loss": kloss,
-        "eager_launches": eager_launches, "kstep_launches": kstep_launches,
-        "eval_s": eval_s, "predict_rel_err": perr}
+        "eager_launches": eager_launches,
+        "float32_eager_launches": f32_launches,
+        "kstep_launches": kstep_launches, "eval_s": eval_s,
+        "predict_rel_err": perr}
     print(f"dtype resnet50 (224x224x3, B={RES_B}): eager step flagship "
           f"{step_ms['flagship']:.3f} ms, float32 {step_ms['float32']:.3f} "
           f"ms (turns {turns}); K-step flagship {kstep_ms} ms a step "
@@ -3135,10 +3161,11 @@ def dtype_resnet_bench(kernels) -> dict:
 
 def dtype_transformer(kernels) -> dict:
     """Full-width ``transformer_lm(256)`` under ``bfloat16_full``: 2 steps on
-    the card against the CPU from the same weights (each loss and the
-    params within DT_MULT of the CPU run's distance to its float32 run), a
-    K-step ``fit``, ``/v1/predict`` and int8 ``/v1/generate``; the flash
-    kernels and int8_matmul see bf16 operands."""
+    the card against the CPU from the same weights (the losses within
+    DT_LM_LOSS and the params within DT_LM_PARAMS of the CPU run's distance
+    to its float32 run), a K-step ``fit``, ``/v1/predict`` (one bf16 ulp
+    from ``PredictFn``) and int8 ``/v1/generate``; the flash kernels and
+    int8_matmul see bf16 operands."""
     steps, V = 2, TRAIN_V
     conf = _policy_conf(transformer_lm(V), FULL_BF16)
     ids = np.random.default_rng(SEED + 63).integers(0, V, (TRAIN_B, TRAIN_T))
@@ -3207,11 +3234,13 @@ def dtype_transformer(kernels) -> dict:
     ref = [abs(a - b) for a, b in zip(cpu_losses, f32_losses)]
     d = _tree_dist(card.params_list, cpu.params_list)
     d_ref = _tree_dist(cpu.params_list, cpu32.params_list)
-    pred = np.asarray(json.loads(body)["predictions"], np.float32) \
+    pred = np.asarray(json.loads(body)["predictions"], np.float64) \
         if status == 200 else None
     own = PredictFn(card, quant="int8", device="cuda")(pids)
+    # relative to each probability: one bf16 ulp (the output is bf16)
+    own64 = own.float().cpu().double().numpy()
     perr = None if pred is None else float(
-        np.abs(pred - own.float().cpu().numpy()).max())
+        (np.abs(pred - own64) / np.abs(own64).clip(1e-30)).max())
     toks = [[json.loads(l) for l in t.splitlines() if l.strip()][-1]
             .get("tokens") for _, t in gens]
     print(f"dtype transformer ({FULL_BF16}, B={TRAIN_B}, T={TRAIN_T}): card "
@@ -3220,12 +3249,13 @@ def dtype_transformer(kernels) -> dict:
           f"fit({KS_TRANSFORMER_STEPS}) at {KS_TRANSFORMER_K} loss {ks_loss}"
           f" launches {ks_launches}; train launches {train_launches}; "
           f"generate launches {gen_launches}, predict {predict_launches}, "
-          f"predict max_abs_err {perr} against PredictFn; operand dtypes "
+          f"predict relative error {perr} against PredictFn; operand dtypes "
           f"train {train_seen}, serve {serve_seen} [{CARD}]", flush=True)
-    if not all(np.isfinite(losses)) or not max(rel) <= DT_MULT * max(ref) \
-            or not d <= DT_MULT * d_ref:
-        fail(f"bfloat16_full transformer on the card disagrees with the CPU "
-             f"beyond {DT_MULT} x its bf16-float32 distance")
+    if not all(np.isfinite(losses)) or not max(rel) <= DT_LM_LOSS * max(ref) \
+            or not d <= DT_LM_PARAMS * d_ref:
+        fail(f"bfloat16_full transformer on the card disagrees with the CPU: "
+             f"losses {max(rel)} against {DT_LM_LOSS} x {max(ref)}, params "
+             f"{d} against {DT_LM_PARAMS} x {d_ref}")
     want = {"softmax_cross_entropy": steps, "flash_fwd": 4 * steps,
             "flash_bwd_dq": 4 * steps, "flash_bwd_dkv": 4 * steps,
             "int8_matmul": 0, "paged_gather": 0, "lstm_fwd": 0,
@@ -3235,8 +3265,10 @@ def dtype_transformer(kernels) -> dict:
             or not np.isfinite(ks_loss):
         fail(f"bfloat16_full transformer launches {train_launches} != {want}"
              f" or K-step {ks_launches} != {want_ks}")
-    if status != 200 or pred.shape != (2, 512, V) or not perr <= 2e-2:
-        fail(f"bfloat16_full /v1/predict: {status}, error {perr}")
+    if status != 200 or pred.shape != (2, 512, V) or not perr <= 2.0 ** -7 \
+            or own.dtype != torch.bfloat16:
+        fail(f"bfloat16_full /v1/predict: {status}, relative error {perr}, "
+             f"output {own.dtype}")
     if any(c != 200 for c, _ in gens) or any(
             t is None or len(t) != 16 or not all(0 <= k < V for k in t)
             for t in toks) or gen_launches["int8_matmul"] <= 0 \
@@ -3247,18 +3279,18 @@ def dtype_transformer(kernels) -> dict:
             "cpu_float32_losses": f32_losses, "params_card_cpu": d,
             "params_cpu_bf16_f32": d_ref, "train_launches": train_launches,
             "kstep_launches": ks_launches, "generate_launches": gen_launches,
-            "predict_launches": predict_launches, "predict_max_abs_err": perr,
+            "predict_launches": predict_launches, "predict_rel_err": perr,
             "operand_dtypes_train": train_seen,
             "operand_dtypes_serve": serve_seen}
 
 
 def dtype_rnn(kernels) -> dict:
     """Full-width ``char_rnn_lstm(64)`` under ``bfloat16``: TBPTT over 8
-    chunks of [32, 50, 64] on the card against the CPU (each chunk's loss
-    and the params within DT_MULT of the CPU run's distance to its float32
-    run), decode (8 ``/v1/generate`` sessions) and a 64-step ``/v1/stream``
-    against the CPU ``rnn_time_step`` of the same policy; the LSTM kernels
-    see bf16 operands."""
+    chunks of [32, 50, 64] on the card against the CPU (the chunk losses
+    within DT_RNN_LOSS and the params within DT_RNN_PARAMS of the CPU run's
+    distance to its float32 run), decode (8 ``/v1/generate`` sessions) and a
+    64-step ``/v1/stream`` against the CPU ``rnn_time_step`` of the same
+    policy (DT_STREAM, DT_ENGAGED); the LSTM kernels see bf16 operands."""
     base = char_rnn_lstm(RNN_V, hidden=RNN_H, layers=2, tbptt_length=RNN_CHUNK,
                          learning_rate=RNN_LR)
     conf = _policy_conf(base, BF16)
@@ -3333,6 +3365,7 @@ def dtype_rnn(kernels) -> dict:
         for t in range(RNN_STREAM_STEPS)]) for net in (ref_net, ref32))
     stream_err = float(np.abs(outs - want_out).max())
     stream_ref = float(np.abs(want_out - out32).max())
+    stream_off32 = float(np.abs(outs - out32).max())
     rel = [abs(a - b) for a, b in zip(losses, cpu_losses)]
     ref = [abs(a - b) for a, b in zip(cpu_losses, f32_losses)]
     d = _tree_dist(card.params_list, cpu.params_list)
@@ -3344,17 +3377,22 @@ def dtype_rnn(kernels) -> dict:
           f"{cpu_losses}; CPU float32 {f32_losses}; params card-CPU {d:.4e},"
           f" CPU bf16-float32 {d_ref:.4e}; /v1/stream {RNN_STREAM_STEPS} "
           f"steps max_abs_err {stream_err:.3e} against the CPU (its own "
-          f"bf16-float32 distance {stream_ref:.3e}); launches train "
+          f"bf16-float32 distance {stream_ref:.3e}; the card's distance to "
+          f"the CPU float32 stream {stream_off32:.3e}); launches train "
           f"{train_launches}, decode {decode_launches}, stream "
           f"{stream_launches}; operand dtypes train {train_seen}, serve "
           f"{serve_seen} [{CARD}]", flush=True)
     if len(losses) != n_chunks or not all(np.isfinite(losses)) \
-            or not max(rel) <= DT_MULT * max(ref) or not d <= DT_MULT * d_ref:
-        fail("bfloat16 char_rnn on the card disagrees with the CPU beyond "
-             f"{DT_MULT} x its bf16-float32 distance")
-    if not stream_err <= DT_MULT * stream_ref:
-        fail(f"bfloat16 /v1/stream disagrees with the CPU: {stream_err} > "
-             f"{DT_MULT} x {stream_ref}")
+            or not max(rel) <= DT_RNN_LOSS * max(ref) \
+            or not d <= DT_RNN_PARAMS * d_ref:
+        fail(f"bfloat16 char_rnn on the card disagrees with the CPU: losses "
+             f"{max(rel)} against {DT_RNN_LOSS} x {max(ref)}, params {d} "
+             f"against {DT_RNN_PARAMS} x {d_ref}")
+    if not (stream_err <= DT_STREAM * stream_ref
+            and stream_off32 >= DT_ENGAGED * stream_ref):
+        fail(f"bfloat16 /v1/stream: {stream_err} from the CPU stream (limit "
+             f"{DT_STREAM} x {stream_ref}), {stream_off32} from the CPU "
+             f"float32 stream (floor {DT_ENGAGED} x {stream_ref})")
     want = {fn.__name__: 0 for fn in kernels}
     want.update(lstm_fwd=2 * n_chunks, lstm_bwd=2 * n_chunks,
                 softmax_cross_entropy=n_chunks)
@@ -3372,6 +3410,7 @@ def dtype_rnn(kernels) -> dict:
             "cpu_float32_losses": f32_losses, "params_card_cpu": d,
             "params_cpu_bf16_f32": d_ref, "stream_max_abs_err": stream_err,
             "stream_cpu_bf16_f32": stream_ref,
+            "stream_card_cpu_float32": stream_off32,
             "train_launches": train_launches,
             "decode_launches": decode_launches,
             "stream_launches": stream_launches,
@@ -3657,6 +3696,7 @@ def main() -> None:
     dtype_paths = {
         "dtype_resnet50_check": dtype_run["resnet50_check"]["launches"],
         "dtype_resnet50_eager": dt_res["eager_launches"],
+        "dtype_resnet50_float32_eager": dt_res["float32_eager_launches"],
         "dtype_resnet50_ksteps": dt_res["kstep_launches"],
         "dtype_transformer_train": dt_lm["train_launches"],
         "dtype_transformer_ksteps": dt_lm["kstep_launches"],

@@ -187,11 +187,12 @@ def under_conf_policy(method):
     """A method of a network (or of an object serving one, through its
     ``conf``) run under the policy its config names, whatever the ambient
     one: the counterpart of the JAX package wrapping every traced program
-    of a network with :func:`wrap_with_policy`."""
+    of a network with :func:`wrap_with_policy`. The config is read at each
+    call, so a config edited after construction is followed."""
     @functools.wraps(method)
     def wrapped(self, *args, **kwargs):
-        with override_policy(self.conf.global_conf.dtype):
-            return method(self, *args, **kwargs)
+        return wrap_with_policy(method, self.conf.global_conf.dtype)(
+            self, *args, **kwargs)
     return wrapped
 
 

@@ -56,7 +56,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..common import get_policy, host_numpy, override_policy, resolve_device
+from ..common import get_policy, host_numpy, resolve_device, wrap_with_policy
 from ..nn.conf.layers.attention import TransformerBlock, gelu, layer_norm
 from ..nn.conf.layers.feedforward import EmbeddingLayer
 from ..nn.conf.layers.recurrent import (
@@ -305,6 +305,8 @@ class DecodeEngine:
         self.quant = "int8" if quant == "int8" else None
         #: the dtype policy every step runs under (the config's, else None)
         self.policy = net.conf.global_conf.dtype
+        #: one step of every slot, under that policy
+        self._step = wrap_with_policy(self._step_body, self.policy)
         self.kv = kv
         self.page_size = int(page_size)
         self._layers = layers
@@ -566,11 +568,7 @@ class DecodeEngine:
                                 int(self._table_h[i, q // ps]))
 
     @torch.no_grad()
-    def _step(self, tokens, fresh, positions, paged_args):
-        with override_policy(self.policy):
-            return self._policy_step(tokens, fresh, positions, paged_args)
-
-    def _policy_step(self, tokens, fresh, positions, paged_args):
+    def _step_body(self, tokens, fresh, positions, paged_args):
         if self.kind == "lstm":
             params = self._params
             if self.quant == "int8":

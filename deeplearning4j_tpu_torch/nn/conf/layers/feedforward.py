@@ -10,8 +10,8 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/layers/feedforward.py`` (its
 :func:`policy_matmul` is the contraction of every dense-family and
 attention layer: compute-dtype operands and, when the policy's
 ``grad_accum_dtype`` widens them (``bfloat16_flagship``), a float32 result
-and float32 weight gradient (:class:`WideMatmul`), the counterpart of the
-JAX layers' ``preferred_element_type``.
+with the JAX transpose rule's gradients (:class:`WideMatmul`), the
+counterpart of the JAX layers' ``preferred_element_type``.
 """
 from __future__ import annotations
 
@@ -25,19 +25,25 @@ from .base import FeedForwardLayer, Layer
 
 class WideMatmul(torch.autograd.Function):
     """``x @ W`` with ``compute``-dtype operands and an ``accum``-dtype
-    result. Its backward forms both gradients in ``accum`` from
-    ``accum``-dtype operands: ``dW`` stays ``accum`` (float32), where
-    autograd through a bf16 matmul would round it to bf16; ``dx`` returns in
-    the operands' dtype, as the JAX transpose rule returns it. Products of
-    bf16 values are exact in float32, so these float32 matmuls compute what a
-    bf16 x bf16 -> float32 contraction computes, on every device; ``W``
-    enters uncast so that its gradient keeps ``accum``."""
+    result, with the JAX transpose rule's gradients: each gradient is
+    contracted in ``accum`` and rounded back to its operand's ``compute``
+    dtype (``dx``, then widened to x's dtype; ``dW``, then widened to W's,
+    float32), as JAX rounds the cotangent of a ``preferred_element_type``
+    product to the operand dtype. On the card the forward is one cuBLAS
+    GEMM of the bf16 operands with a float32 result; on the CPU (which has
+    no such kernel) it multiplies the operands widened to ``accum``, the
+    same function, since products of bf16 values are exact in float32. The
+    gradient products take ``accum`` operands on both devices (the
+    cotangent is ``accum``)."""
 
     @staticmethod
     def forward(ctx, x, w, compute, accum):
         xc, wc = x.to(compute), w.to(compute)
         ctx.save_for_backward(xc, wc)
-        ctx.x_dtype = x.dtype
+        ctx.x_dtype, ctx.w_dtype = x.dtype, w.dtype
+        if xc.is_cuda:
+            out = torch.mm(xc.reshape(-1, wc.shape[0]), wc, out_dtype=accum)
+            return out.reshape(*xc.shape[:-1], wc.shape[1])
         return torch.matmul(xc.to(accum), wc.to(accum))
 
     @staticmethod
@@ -47,7 +53,7 @@ class WideMatmul(torch.autograd.Function):
         dx = torch.matmul(g, wc.to(acc).t()).to(xc.dtype).to(ctx.x_dtype)
         n_in = wc.shape[0]
         dw = xc.reshape(-1, n_in).to(acc).t() @ g.reshape(-1, g.shape[-1])
-        return dx, dw, None, None
+        return dx, dw.to(wc.dtype).to(ctx.w_dtype), None, None
 
 
 def policy_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common import override_policy, resolve_device
+from ..common import resolve_device, wrap_with_policy
 from .graph_network import ComputationGraph
 from ..ops.quant import dequantize_tree, quantize_tree, tree_param_bytes
 
@@ -73,6 +73,9 @@ class PredictFn:
                              "output")
         if self.quant == "int8":
             self._params = quantize_tree(self._params)
+        #: the network's forward under the policy its config names
+        self._forward = wrap_with_policy(net._output_pure,
+                                         net.conf.global_conf.dtype)
         self._lock = threading.Lock()
         self.calls = 0  #: dispatches served
 
@@ -87,11 +90,10 @@ class PredictFn:
         if self.quant == "int8":
             params = dequantize_tree(params)
         x = to_device_tensor(x, self.device)
-        with override_policy(self._net.conf.global_conf.dtype):
-            if self._graph:
-                out = self._net._output_pure(params, self._states, [x])[0]
-            else:
-                out = self._net._output_pure(params, self._states, x)
+        if self._graph:
+            out = self._forward(params, self._states, [x])[0]
+        else:
+            out = self._forward(params, self._states, x)
         with self._lock:
             self.calls += 1
         return out

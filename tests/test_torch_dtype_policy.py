@@ -52,11 +52,15 @@ POLICIES = ("float32", "bfloat16", "bfloat16_full", "bfloat16_flagship")
 #: the multiples of each model's own bf16-vs-float32 distance (module
 #: docstring) that bound its port-vs-JAX distance under the policy; the
 #: ratios seen: batch norm's gradients 1.0 (dx) to 1.04, LeNet's params
-#: 0.43, ResNet-18's first loss 0.90 and params 1.003, the transformer's
-#: output 1.10, char_rnn's params 0.31
+#: 0.43, ResNet-18's losses 0.53 and 0.66, params 0.9993 and BN state 1.10,
+#: the transformer's output 1.10, char_rnn's params 0.31
 BN_MULT = 2.0
 LENET_MULT = 1.0
 RESNET_MULT = 1.5
+#: the least part of its bf16-vs-float32 distance by which the port's
+#: flagship ResNet-18 must sit off the JAX float32 run (seen: 1.03; the
+#: port trained in float32: 0.086)
+RESNET_ENGAGED = 0.5
 LM_MULT = 2.0
 RNN_MULT = 1.0
 
@@ -193,6 +197,36 @@ def test_policy_knobs_sentinels_and_stat_dtype():
                                  activation="identity")).build())
 
 
+@pytest.mark.parametrize("name", POLICIES + (None,))
+def test_wrap_with_policy_as_jax(name):
+    """``wrap_with_policy(fn, name)`` runs ``fn`` under the named policy and
+    leaves the policy in force as it was, on return and on a raise, as the
+    JAX function does; no name gives ``fn`` itself. The networks' methods
+    (``under_conf_policy``), ``PredictFn`` and the decode engine's step go
+    through it."""
+    C.flagship_bf16_policy()
+    jcommon.flagship_bf16_policy()
+    ambient, jambient = C.get_policy(), jcommon.get_policy()
+
+    def probe(mod, fail=False):
+        key = mod.policy_key()
+        if fail:
+            raise RuntimeError(key)
+        return key
+    ours = C.wrap_with_policy(lambda **kw: probe(C, **kw), name)
+    theirs = jcommon.wrap_with_policy(lambda **kw: probe(jcommon, **kw), name)
+    assert ours() == theirs()
+    with C.override_policy(name or "bfloat16_flagship"):
+        assert ours() == C.policy_key()
+    with pytest.raises(RuntimeError):
+        ours(fail=True)
+    assert C.get_policy() == ambient and jcommon.get_policy() == jambient
+    if name is None:
+        assert ours() == C.policy_key()
+        fn = probe
+        assert C.wrap_with_policy(fn, None) is fn
+
+
 # ------------------------------------------------------- batch norm, grads
 def test_batch_norm_stats_under_flagship_match_jax():
     """``batch_norm_train`` with bf16 statistics (the flagship policy's
@@ -256,12 +290,12 @@ def test_batch_norm_stats_under_flagship_match_jax():
 @pytest.mark.parametrize("kind", ["dense", "conv"])
 def test_flagship_weight_grads_are_float32(kind):
     """Under the flagship policy the dense and convolution weight gradients
-    come out float32 and unrounded: equal, to float32 rounding, to the
-    float64 product of the same bf16 operands and float32 cotangent, which a
-    bf16-rounded gradient misses by up to half a bf16 ulp. The JAX package
-    agrees within that half ulp: its convolution gradient is float32 too,
-    while its dense transpose rule rounds dW back to the bf16 operand's
-    dtype after the float32 contraction (checked here)."""
+    come out float32, from a float32 contraction of the bf16 operands and
+    the float32 cotangent, as in the JAX package. The convolution's is left
+    unrounded: equal, to float32 rounding, to the JAX gradient. The dense
+    one is rounded to the bf16 operand's dtype after the contraction, as the
+    JAX transpose rule rounds it: equal to JAX's, bf16-valued, and within
+    half a bf16 ulp of the float64 product of the same operands."""
     from deeplearning4j_tpu.nn.conf import serde as jserde
     from deeplearning4j_tpu.nn.conf.builders import GlobalConf as JGlobal
     from deeplearning4j_tpu.nn.conf.builders import bake_layer_defaults
@@ -311,10 +345,14 @@ def test_flagship_weight_grads_are_float32(kind):
         # float32 contraction, the cotangent is 2 * out
         g = 2 * np.asarray(out.detach().float(), np.float64)
         exact = xb.T @ g
-        assert np.abs(dw - exact).max() <= 1e-5 * np.abs(exact).max()
-        as_bf16 = np.asarray(jnp.asarray(jdw, jnp.bfloat16), np.float32)
-        assert np.array_equal(jdw, as_bf16)  # JAX's dense dW is bf16-valued
-        assert not np.array_equal(dw, as_bf16)
+        as_bf16 = np.asarray(torch.from_numpy(dw).to(torch.bfloat16).float())
+        assert np.array_equal(dw, as_bf16)
+        assert np.array_equal(jdw, np.asarray(
+            jnp.asarray(jdw, jnp.bfloat16), np.float32))
+        assert np.array_equal(dw, jdw)
+        half_ulp64 = 2.0 ** (np.floor(np.log2(np.abs(exact))) - 8)
+        assert np.all(np.abs(dw - exact) <= half_ulp64
+                      + 1e-6 * np.abs(exact).max())
 
 
 # ------------------------------------------------------------------ models
@@ -381,26 +419,65 @@ def test_lenet_trains_under_flagship_as_jax(tmp_path):
     assert net.score(*batches[0]) < losses[0]
 
 
-def test_resnet18_steps_under_flagship_as_jax(tmp_path):
-    """A small ResNet-18 (64 x 64, 10 classes, B = 8, rate 0.01) under
-    ``bfloat16_flagship``: 2 steps from the JAX init, the first loss (the
-    same weights), the params and the batch-norm state within
-    ``RESNET_MULT`` of the JAX run's bf16-vs-float32 distance, and the port
-    no further from the float32 run than the JAX bf16 run is; BN's running
-    state, params and updater state stay float32.
+@pytest.fixture
+def jax_bf16_sums_round_once(monkeypatch):
+    """The JAX package's batch-norm sums (the two-sum variadic reduce of
+    ``batch_norm_stats`` and of the backward's dgamma/dbeta) accumulated in
+    float32 and rounded once to their bf16 operand dtype, as the port sums a
+    bf16 tensor. XLA:CPU runs that reduce as a running bf16 sum, which stops
+    moving once the sum outgrows its terms: at 64 x 64 and B = 32 it put the
+    JAX flagship run's parameters 4.33 from its float32 run after 2 steps,
+    where the float32 steps moved them 0.88. Every other op of the JAX
+    networks runs as it is."""
+    from deeplearning4j_tpu.ops import pallas_kernels as pk
 
-    bf16 single-pass statistics are coarse at this size: the deepest
-    stages normalise 32 values a channel, where ``E[x^2] - mean^2`` in bf16
-    cancels, and the JAX run's own parameters end further from its float32
-    run than the float32 step moved them (2.25 against 1.77 seen; the
-    port's 2.26 from the JAX bf16 run and 1.01 from the float32 run). At
-    32 x 32 and B = 4 (4 values a channel) both packages' bf16 runs blow up
-    within 2 steps, as the reference's semantics there do."""
+    def reduce(operands, init_values, computation, dimensions):
+        if computation is pk._add2 and operands[0].dtype == jnp.bfloat16:
+            return tuple(o.astype(jnp.float32).sum(dimensions).astype(o.dtype)
+                         for o in operands)
+        return jax.lax.reduce(operands, init_values, computation, dimensions)
+
+    class _Lax:
+        def __getattr__(self, name):
+            return getattr(jax.lax, name)
+
+    class _Jax:
+        def __getattr__(self, name):
+            return getattr(jax, name)
+    lax, jx = _Lax(), _Jax()
+    lax.reduce, jx.lax = reduce, lax
+    monkeypatch.setattr(pk, "jax", jx)
+
+
+def test_resnet18_steps_under_flagship_as_jax(tmp_path,
+                                              jax_bf16_sums_round_once):
+    """A small ResNet-18 (64 x 64, 10 classes, B = 32, rate 0.01) under
+    ``bfloat16_flagship`` against the JAX package with its batch-norm sums
+    rounded once (``jax_bf16_sums_round_once``): 2 steps from the JAX init.
+    Each loss, the params and the batch-norm state are within
+    ``RESNET_MULT`` of the JAX run's bf16-vs-float32 distance, which is under
+    how far the float32 steps moved the params; the port's params are off
+    the float32 run by at least ``RESNET_ENGAGED`` of that distance (the
+    policy is engaged); BN's running state, params and updater state stay
+    float32.
+
+    Seen: the losses 0.53 and 0.66 of the JAX distances, the params 0.9993
+    (0.4199 against 0.4202; the float32 steps moved them 0.883), the BN
+    state 1.097, the port's params 0.431 off the float32 run. Both bf16 runs
+    are as far from each other as from float32, so the parameter bound is a
+    bound on the update, and the float32-distance floor tells bf16 from
+    float32. Both are shown to fail here: an update that leaves the params
+    where they started (0.888 from the JAX flagship run, over 1.5 x 0.420)
+    and the port trained in float32 (0.036 off the JAX float32 run, under
+    0.5 x 0.420). At 64 x 64 and B = 8 (32 values a channel in the deepest
+    stages) bf16 single-pass statistics are coarse: both bf16 runs end
+    further from float32 than the float32 steps moved the params, and the
+    bound sees no update."""
     rng = np.random.default_rng(2)
     batches = []
     for _ in range(2):
-        x = rng.standard_normal((8, 64, 64, 3)).astype(np.float32)
-        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+        x = rng.standard_normal((32, 64, 64, 3)).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 32)]
         batches.append((x, y))
     f32_json = _with_dtype(jax_resnet18(n_classes=10, image_size=64).to_json(),
                            None, lr=0.01)
@@ -410,20 +487,33 @@ def test_resnet18_steps_under_flagship_as_jax(tmp_path):
         p0, s0 = _np(init.params_list), _np(init.state_list)
     j32, l32 = _jax_fit(f32_json, "graph", batches, tmp_path / "a", p0)
     jbf, jl = _jax_fit(bf_json, "graph", batches, tmp_path / "b", p0)
-    net = from_jax(bf_json, p0, device="cpu", state_list=s0)
-    losses = []
-    for x, y in batches:
-        net.fit([x], [y])
-        losses.append(net.score_value)
+
+    def port(conf_json):
+        net = from_jax(conf_json, p0, device="cpu", state_list=s0)
+        losses = []
+        for x, y in batches:
+            net.fit([x], [y])
+            losses.append(net.score_value)
+        return net, losses
+    net, losses = port(bf_json)
     assert _all_f32(net)
-    assert abs(losses[0] - jl[0]) <= RESNET_MULT * abs(jl[0] - l32[0])
+    assert net.output(batches[0][0])[0].dtype == torch.bfloat16
+    assert np.isfinite(losses).all()
+    for got, ref, wide in zip(losses, jl, l32):
+        assert abs(got - ref) <= RESNET_MULT * abs(ref - wide), (losses, jl)
+    moved = _dist(j32.params_list, p0)
     d_ref = _dist(jbf.params_list, j32.params_list)
+    bound = RESNET_MULT * d_ref
     d = _dist(net.params_list, jbf.params_list)
-    assert d_ref > 0 and np.isfinite(losses).all()
-    assert d <= RESNET_MULT * d_ref, (d, d_ref)
-    assert _dist(net.params_list, j32.params_list) <= d_ref
+    assert 0 < d_ref < moved
+    assert d <= bound, (d, d_ref, moved)
+    assert _dist(net.params_list, j32.params_list) >= RESNET_ENGAGED * d_ref
     s_ref = _dist(jbf.state_list, j32.state_list)
     assert _dist(net.state_list, jbf.state_list) <= RESNET_MULT * s_ref
+    # the bounds see the faults they are for
+    assert _dist(p0, jbf.params_list) > bound
+    f32_net, _ = port(f32_json)
+    assert _dist(f32_net.params_list, j32.params_list) < RESNET_ENGAGED * d_ref
 
 
 @pytest.fixture

@@ -107,10 +107,26 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    twice that run's distance to float32, the kernels' operand dtypes
    checked bf16; the kernel checks of step 3 add the bf16 operands at these
    paths' shapes;
-13. reads the profiler's device time of every main-path kernel row and its
+13. runs the ``files`` phase (model zips, ``utils/model_serializer.py``):
+   full-width LeNet through ``EarlyStoppingTrainer`` (a file saver, at most
+   4 epochs of 20 batches, stopping after 2 epochs without improvement on
+   512 held-out digits; score, score-collecting and checkpoint listeners;
+   exact ``sm_xent`` launches), the best epoch's zip restored on the card
+   and on the CPU (output within 1e-4 of the network at that epoch) and
+   loaded into ``InferenceServer(warmup=True, max_batch=32)`` (buckets 1 to
+   32 warmed, ``/v1/predict`` of 64 rows within 1e-4); full-depth ResNet-50
+   at 64x64, B = 8: a zip after 2 steps (its write and restore seconds and
+   size), restored on the card with every leaf and the eval output bitwise,
+   2 more steps from the file and from the original bitwise equal with
+   cuDNN deterministic, then served from the zip; full-width
+   ``transformer_lm(256)`` after 2 steps, served int8 from memory and from
+   its zip with step 4's traffic (the same greedy tokens, exact launches);
+   full-width LeNet under ``optimization_algo="lbfgs"`` (10 iterations on
+   one batch of 128; cuDNN deterministic) on the card against the CPU;
+14. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-14. prints one JSON line describing each kernel, then
+15. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -3605,6 +3621,414 @@ def check_bf16(rows: list, dev) -> None:
         DEVICE_TIMED.append((row, bk, lib_fb))
 
 
+#: the files phase: model zips written, restored and served. LeNet's early
+#: stopping (B = 128, synthetic digits: epochs of FILES_ES_BATCHES batches,
+#: 512 held-out digits, at most 4 epochs), ResNet-50's resume at 64x64,
+#: B = 8, the transformer served from a file, LBFGS on LeNet
+FILES_ES_BATCHES, FILES_ES_HELD, FILES_ES_EPOCHS = 20, 512, 4
+FILES_SERVE_MAX_BATCH, FILES_PROBE = 32, 64
+FILES_RES_SIZE, FILES_RES_B = 64, 8
+FILES_LBFGS_ITERS = 10
+
+
+def _tree_equal(a, b) -> bool:
+    """Whether two trees of tensors (params, states or updater state) have
+    the same leaves bitwise."""
+    from deeplearning4j_tpu_torch.utils.pytree import leaves_with_paths
+    la, lb = list(leaves_with_paths(a)), list(leaves_with_paths(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def files_lenet(kernels, tmp: str) -> dict:
+    """(a) Early stopping of full-width LeNet with a file saver and three
+    listeners, the best epoch's zip restored on the card and on the CPU,
+    then loaded into a warming ``InferenceServer`` and served."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener, CollectScoresIterationListener,
+        ScoreIterationListener)
+    from deeplearning4j_tpu_torch.utils.model_serializer import guess_model
+
+    net = MultiLayerNetwork(lenet_mnist(), device="cuda").init(seed=SEED)
+    train = MnistDataSetIterator(LENET_B,
+                                 num_examples=LENET_B * FILES_ES_BATCHES)
+    held = MnistDataSetIterator(LENET_B, train=False, shuffle=False,
+                                num_examples=FILES_ES_HELD)
+    probe = held.features[:FILES_PROBE]
+    ckpt_dir = os.path.join(tmp, "lenet_checkpoints")
+    collect = CollectScoresIterationListener()
+    net.set_listeners(ScoreIterationListener(5), collect,
+                      CheckpointListener(ckpt_dir, every_n_iterations=10))
+    outputs = {}
+
+    class AtEpoch(es.EarlyStoppingListener):
+        def on_epoch(self, epoch, score, config, model):
+            outputs[epoch] = model.output(probe).cpu()
+
+    saver = es.LocalFileModelSaver(os.path.join(tmp, "lenet_best"),
+                                   device="cuda")
+    cfg = (es.EarlyStoppingConfiguration.builder()
+           .epoch_termination_conditions(
+               es.MaxEpochsTerminationCondition(FILES_ES_EPOCHS),
+               es.ScoreImprovementEpochTerminationCondition(2))
+           .score_calculator(es.DataSetLossCalculator(held))
+           .model_saver(saver).build())
+    _zero(kernels)
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(cfg, net, train, AtEpoch()).fit()
+    torch.cuda.synchronize()
+    es_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    scored = len(result.score_vs_epoch)
+    held_batches = FILES_ES_HELD // LENET_B
+    print(f"files lenet: early stopping {result.termination_reason.value} "
+          f"({result.termination_details}) after {result.total_epochs} "
+          f"epochs, best epoch {result.best_model_epoch} score "
+          f"{result.best_model_score:.6f}; held-out scores "
+          f"{[round(result.score_vs_epoch[e], 6) for e in sorted(result.score_vs_epoch)]}"
+          f"; {net.iteration} steps in {es_s:.3f}s; collected "
+          f"{len(collect.scores)} scores; checkpoints "
+          f"{sorted(os.listdir(ckpt_dir))}; launches {launches}", flush=True)
+    if result.termination_reason is es.TerminationReason.ERROR:
+        fail(f"early stopping ended in an error: {result.termination_details}")
+    if result.best_model_epoch < 0 or not all(
+            np.isfinite(list(result.score_vs_epoch.values()))):
+        fail(f"early stopping kept no best model: {result}")
+    if [i for i, _ in collect.scores] != list(range(1, net.iteration + 1)):
+        fail("CollectScoresIterationListener missed iterations")
+    # sm_xent: one launch a train step, and one a held-out batch of each
+    # scored epoch (score() computes the same fused loss)
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = net.iteration + scored * held_batches
+    if launches != want:
+        fail(f"early-stopping launch counts {launches} != expected {want}")
+    if net.iteration != result.total_epochs * FILES_ES_BATCHES:
+        fail(f"{net.iteration} steps for {result.total_epochs} epochs")
+
+    # the best epoch's zip, on the card (the saver's device) and on the CPU
+    best_path = os.path.join(saver.directory, saver.BEST)
+    ref = outputs[result.best_model_epoch]
+    t0 = time.perf_counter()
+    best = saver.get_best_model()
+    restore_s = time.perf_counter() - t0
+    best_cpu = guess_model(best_path, device="cpu")
+    card_err = float((best.output(probe).cpu() - ref).abs().max())
+    cpu_err = float((best_cpu.output(probe) - ref).abs().max())
+    print(f"files lenet: best zip {os.path.getsize(best_path) / 1e6:.3f} MB "
+          f"restored on the card in {restore_s:.3f}s; output against the "
+          f"in-memory network at epoch {result.best_model_epoch}: card "
+          f"max_abs_err {card_err:.3e}, CPU {cpu_err:.3e} (tol 1e-4)",
+          flush=True)
+    if not (card_err <= 1e-4 and cpu_err <= 1e-4):
+        fail(f"the best LeNet zip restores to other outputs: card {card_err}"
+             f", CPU {cpu_err}")
+
+    # load into a warming server, then /v1/predict of 64 rows as two
+    # requests of max_batch rows
+    srv = InferenceServer(device="cuda", warmup=True,
+                          max_batch=FILES_SERVE_MAX_BATCH).start()
+    try:
+        t0 = time.perf_counter()
+        mv = srv.load("lenet", best_path,
+                      warmup_example=np.zeros((1, 784), np.float32))
+        load_s = time.perf_counter() - t0
+        warmup_s = srv.registry.last_warmup_s
+        warmed = sorted(mv.predict_fn.warmed)
+        answers = [None, None]
+
+        def ask(j):
+            rows = probe[j * FILES_SERVE_MAX_BATCH:
+                         (j + 1) * FILES_SERVE_MAX_BATCH]
+            answers[j] = post(srv.port, "/v1/predict",
+                              {"model": "lenet", "inputs": rows.tolist()})
+
+        threads = [threading.Thread(target=ask, args=(j,)) for j in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        srv.stop()
+    for code, body in answers:
+        if code != 200:
+            fail(f"LeNet /v1/predict from the file returned {code}: "
+                 f"{body[:300]}")
+    pred = np.concatenate([np.asarray(json.loads(b)["predictions"],
+                                      np.float32) for _, b in answers])
+    perr = float(np.abs(pred - best_cpu.output(probe).numpy()).max())
+    print(f"files lenet: load + warmup in {load_s:.3f}s (warmup "
+          f"{warmup_s:.3f}s over buckets {warmed}); /v1/predict of "
+          f"{FILES_PROBE} rows max_abs_err {perr:.3e} against the restored "
+          f"CPU output (tol 1e-4)", flush=True)
+    if warmed != [1, 2, 4, 8, 16, 32]:
+        fail(f"warmup ran buckets {warmed}, not 1..32")
+    if pred.shape != (FILES_PROBE, 10) or not perr <= 1e-4:
+        fail(f"LeNet served from its file disagrees: {perr}")
+    return {"launches": launches, "termination": result.termination_details,
+            "epochs": result.total_epochs,
+            "best_epoch": result.best_model_epoch,
+            "scores": {str(k): v for k, v in result.score_vs_epoch.items()},
+            "steps": net.iteration, "early_stopping_s": es_s,
+            "restore_s": restore_s, "restore_card_err": card_err,
+            "restore_cpu_err": cpu_err, "load_s": load_s,
+            "warmup_s": warmup_s, "warmed": warmed, "predict_err": perr}
+
+
+def files_resnet(kernels, tmp: str) -> dict:
+    """(b) Full-depth ResNet-50 at 64x64: a zip with the updater state after
+    2 steps, restored on the card, then 2 more steps from the file and from
+    the original, bitwise equal with cuDNN deterministic; the zip served."""
+    from deeplearning4j_tpu_torch.utils.model_serializer import (
+        guess_model, write_model)
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g = torch.Generator().manual_seed(SEED + 71)
+        batches = [_res_batch(g, FILES_RES_B, FILES_RES_SIZE, RES_CLASSES,
+                              "cuda") for _ in range(4)]
+        net = ComputationGraph(resnet50(n_classes=RES_CLASSES,
+                                        image_size=FILES_RES_SIZE),
+                               device="cuda").init(seed=SEED)
+        _zero(kernels)
+        for x, y in batches[:2]:
+            net.fit([x], [y])
+        path = os.path.join(tmp, "resnet50.zip")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_model(net, path)
+        write_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        back = guess_model(path, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same_leaves = all(_tree_equal(a, b) for a, b in (
+            (back.params_list, net.params_list),
+            (back.state_list, net.state_list),
+            (back.updater_state, net.updater_state)))
+        x0 = batches[0][0]
+        out_equal = torch.equal(back.output(x0)[0], net.output(x0)[0])
+        losses, back_losses = [], []
+        for x, y in batches[2:]:
+            net.fit([x], [y])
+            back.fit([x], [y])
+            losses.append(net.score_value)
+            back_losses.append(back.score_value)
+        resumed = (losses == back_losses and back.iteration == net.iteration
+                   and all(_tree_equal(a, b) for a, b in (
+                       (back.params_list, net.params_list),
+                       (back.state_list, net.state_list),
+                       (back.updater_state, net.updater_state))))
+        launches = _launches(kernels)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = prev
+    print(f"files resnet50: zip of {net.num_params()} params with momentum "
+          f"{mb:.1f} MB written in {write_s:.3f}s, restored on the card in "
+          f"{restore_s:.3f}s; leaves bitwise {same_leaves}; eval output "
+          f"bitwise {out_equal}; 2 more steps from the file and from the "
+          f"original: losses {back_losses} / {losses}, leaves bitwise "
+          f"{resumed}; launches {launches}", flush=True)
+    if not (same_leaves and out_equal and resumed):
+        fail("ResNet-50 does not resume bitwise from its zip")
+    want = {fn.__name__: 0 for fn in kernels}
+    want["softmax_cross_entropy"] = 6  # 4 steps of net, 2 of back
+    if launches != want:
+        fail(f"ResNet-50 resume launch counts {launches} != expected {want}")
+    # served from the file through registry.load, warmed with an NHWC row
+    srv = InferenceServer(device="cuda", warmup=True, max_batch=2).start()
+    try:
+        mv = srv.load("resnet50", path, warmup_example=np.zeros(
+            (1, FILES_RES_SIZE, FILES_RES_SIZE, 3), np.float32))
+        rows = batches[3][0][:2].cpu().numpy()
+        code, body = post(srv.port, "/v1/predict",
+                          {"model": "resnet50", "inputs": rows.tolist()})
+        warmed = sorted(mv.predict_fn.warmed)
+    finally:
+        srv.stop()
+    if code != 200:
+        fail(f"ResNet-50 /v1/predict from the file returned {code}: "
+             f"{body[:300]}")
+    pred = np.asarray(json.loads(body)["predictions"], np.float32)
+    # held to the card's output of the served network (the zip's weights;
+    # back has trained on since)
+    perr = float(np.abs(pred - mv.net.output(rows)[0].cpu().numpy()).max())
+    print(f"files resnet50: served from the zip (warmed buckets {warmed}); "
+          f"/v1/predict of 2 rows max_abs_err {perr:.3e} against the card's "
+          f"output of the zip's network (tol 1e-4)", flush=True)
+    if warmed != [1, 2] or pred.shape != (2, RES_CLASSES) or not perr <= 1e-4:
+        fail(f"ResNet-50 served from its file disagrees: {perr}, {warmed}")
+    return {"launches": launches, "zip_mb": mb, "write_s": write_s,
+            "restore_s": restore_s, "losses": losses, "predict_err": perr}
+
+
+def _generate(port: int, model: str, prompts: list) -> list:
+    results = [None] * len(prompts)
+
+    def gen(j):
+        results[j] = post(port, "/v1/generate",
+                          {"model": model, "prompt": prompts[j],
+                           "max_new_tokens": 32})
+
+    threads = [threading.Thread(target=gen, args=(j,))
+               for j in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    tokens = []
+    for code, text in results:
+        if code != 200:
+            fail(f"/v1/generate of {model} returned {code}: {text[:300]}")
+        done = json.loads(text.splitlines()[-1])
+        if not done.get("done") or len(done["tokens"]) != 32:
+            fail(f"/v1/generate of {model} ended with {done}")
+        tokens.append(done["tokens"])
+    return tokens
+
+
+def files_transformer(kernels, tmp: str) -> dict:
+    """(c) Full-width transformer_lm(256): 2 train steps, a zip, then the
+    phase-4 traffic (8 concurrent /v1/generate, one /v1/predict of [2, 512]
+    ids) over the in-memory network and over the file, both int8."""
+    from deeplearning4j_tpu_torch.utils.model_serializer import write_model
+
+    V = 256
+    net = MultiLayerNetwork(transformer_lm(V), device="cuda").init(seed=SEED)
+    rng = np.random.default_rng(SEED + 81)
+    for _ in range(2):
+        x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (TRAIN_B, TRAIN_T))]
+        net.fit(x, x)
+    path = os.path.join(tmp, "transformer.zip")
+    write_model(net, path)
+    prompts = [rng.integers(0, V, size=int(rng.integers(16, 65))).tolist()
+               for _ in range(8)]
+    ids = rng.integers(0, V, size=(2, 512)).astype(np.float32)
+    srv = InferenceServer(device="cuda", decode_kv="paged",
+                          decode_page_size=16, decode_max_context=512,
+                          decode_max_slots=16).start()
+    runs = {}
+    try:
+        srv.register("memory", net, quant="int8")
+        srv.load("file", path, quant="int8")
+        for name in ("memory", "file"):
+            _zero(kernels)
+            t0 = time.perf_counter()
+            tokens = _generate(srv.port, name, prompts)
+            code, body = post(srv.port, "/v1/predict",
+                              {"model": name, "inputs": ids.tolist()})
+            seconds = time.perf_counter() - t0
+            if code != 200:
+                fail(f"/v1/predict of {name} returned {code}: {body[:300]}")
+            steps = srv.status()["decode"][f"{name}@v1"]["steps"]
+            runs[name] = {"tokens": tokens, "launches": _launches(kernels),
+                          "steps": steps, "seconds": seconds,
+                          "predict": np.asarray(json.loads(body)[
+                              "predictions"], np.float32)}
+    finally:
+        srv.stop()
+    same = runs["memory"]["tokens"] == runs["file"]["tokens"]
+    perr = float(np.abs(runs["memory"]["predict"]
+                        - runs["file"]["predict"]).max())
+    for name, run in runs.items():
+        print(f"files transformer ({name}): 8 x /v1/generate + /v1/predict "
+              f"in {run['seconds']:.3f}s, {run['steps']} decode steps, "
+              f"launches {run['launches']}", flush=True)
+    print(f"files transformer: greedy tokens identical {same}; /v1/predict "
+          f"memory vs file max_abs_err {perr:.3e}", flush=True)
+    if not same:
+        fail("the transformer served from its file generates other tokens")
+    if not perr <= 1e-6:
+        fail(f"the transformer served from its file predicts otherwise: {perr}")
+    for name, run in runs.items():
+        want = {fn.__name__: 0 for fn in kernels}
+        want.update({"int8_matmul": 17 * run["steps"],
+                     "paged_gather": 8 * run["steps"], "flash_fwd": 4})
+        if run["launches"] != want:
+            fail(f"transformer ({name}) launch counts {run['launches']} != "
+                 f"expected {want}")
+    return {"launches": {n: r["launches"] for n, r in runs.items()},
+            "steps": {n: r["steps"] for n, r in runs.items()},
+            "predict_err": perr}
+
+
+def files_lbfgs(kernels) -> dict:
+    """(d) Full-width LeNet with ``optimization_algo="lbfgs"`` and
+    ``iterations=10`` on one batch of 128, on the card and on the CPU from
+    the same init."""
+    import dataclasses
+
+    conf = lenet_mnist()
+    conf.global_conf = dataclasses.replace(
+        conf.global_conf, optimization_algo="lbfgs",
+        iterations=FILES_LBFGS_ITERS)
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref = net.clone(device="cpu")
+    ds = next(iter(MnistDataSetIterator(LENET_B, num_examples=LENET_B)))
+    s0 = net.score(ds.features, ds.labels)
+    # cuDNN deterministic: the line search's accept/reject decisions carry
+    # any difference on, and a nondeterministic weight-gradient algorithm
+    # gave a card run 1.95e-4 from the CPU once where repeats read 5e-6 to
+    # 8e-6 (PERF.md, PR 14); deterministic, the card run repeats bitwise
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _zero(kernels)
+    try:
+        t0 = time.perf_counter()
+        net.fit(ds.features, ds.labels)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    launches = _launches(kernels)
+    t0 = time.perf_counter()
+    ref.fit(ds.features, ds.labels)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(net.score_value - ref.score_value) / abs(ref.score_value)
+    print(f"files lbfgs: loss {s0:.6f} -> card {net.score_value:.6f}, CPU "
+          f"{ref.score_value:.6f} (relative {rel:.3e}, tol 1e-4); iterations "
+          f"card {net.iteration}, CPU {ref.iteration}; card "
+          f"{card_s / max(net.iteration, 1) * 1e3:.2f} ms an iteration, CPU "
+          f"{cpu_s / max(ref.iteration, 1) * 1e3:.2f}; sm_xent launches "
+          f"{launches['softmax_cross_entropy']} for {net.iteration} "
+          f"iterations; launches {launches}", flush=True)
+    if not (np.isfinite(net.score_value) and net.score_value < s0):
+        fail(f"LBFGS on the card did not lower the loss: {s0} -> "
+             f"{net.score_value}")
+    if not rel <= 1e-4:
+        fail(f"LBFGS on the card ends {rel} from the CPU run")
+    if not 0 < net.iteration <= FILES_LBFGS_ITERS:
+        fail(f"LBFGS ran {net.iteration} iterations")
+    if launches["softmax_cross_entropy"] < net.iteration or any(
+            n for k, n in launches.items() if k != "softmax_cross_entropy"):
+        fail(f"LBFGS launches {launches} for {net.iteration} iterations")
+    return {"launches": launches, "iterations": net.iteration,
+            "cpu_iterations": ref.iteration, "loss": net.score_value,
+            "cpu_loss": ref.score_value, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def files_phase(kernels) -> dict:
+    """The files phase: (a) to (d) above, in a temporary directory that is
+    removed after."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dl4j-files-")
+    try:
+        out = {"lenet": files_lenet(kernels, tmp),
+               "resnet50": files_resnet(kernels, tmp),
+               "transformer": files_transformer(kernels, tmp),
+               "lbfgs": files_lbfgs(kernels)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"files phase: {out['seconds']:.1f}s wall; {CARD}", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3657,6 +4081,7 @@ def main() -> None:
     kstep_run["resnet50"] = ksteps_resnet(kernels)
     graph_rnn_run = graph_rnn(kernels)
     dtype_run = dtype_phase(kernels)
+    files_run = files_phase(kernels)
     measure_device_times()
 
     # one entry per kernel, at the shape its main path gave it: decode at
@@ -3724,9 +4149,18 @@ def main() -> None:
                   "lstm_fwd": dict(rnn_train, dtype="torch.bfloat16"),
                   "lstm_bwd": dict(rnn_train, dtype="torch.bfloat16")}
 
+    # the files phase's paths, every launch on each
+    files_paths = {
+        "files_early_stopping": files_run["lenet"]["launches"],
+        "files_resnet50_resume": files_run["resnet50"]["launches"],
+        "files_transformer_memory":
+            files_run["transformer"]["launches"]["memory"],
+        "files_transformer_file": files_run["transformer"]["launches"]["file"],
+        "files_lbfgs": files_run["lbfgs"]["launches"]}
+
     def add_dtype_paths(entry, fname, name):
         entry["launches_by_path"].update(
-            {p: n[fname] for p, n in dtype_paths.items()})
+            {p: n[fname] for p, n in {**dtype_paths, **files_paths}.items()})
         if name in bf16_paths:
             entry["bf16_launches_by_path"] = {
                 p: dtype_paths[p][fname] for p in bf16_paths[name]}
@@ -3855,7 +4289,7 @@ def main() -> None:
                    "train_rnn": trained_rnn, "lenet": lenet_run,
                    "resnet50": resnet_run, "ksteps": kstep_run,
                    "graph_rnn": graph_rnn_run, "dtype": dtype_run,
-                   "kernels": line,
+                   "files": files_run, "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Datasets: the ``DataSet`` container, the iterators ``fit_iterator`` and
 ``evaluate`` take, and MNIST."""
-from .dataset import DataSet
+from .dataset import DataSet, NormalizerMinMaxScaler, NormalizerStandardize
 from .iterators import (
     ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
     ExistingDataSetIterator, ListDataSetIterator, MultipleEpochsIterator,
@@ -12,4 +12,5 @@ __all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator", "DataSet",
            "DataSetIterator", "DevicePrefetcher", "ExistingDataSetIterator",
            "ListDataSetIterator",
            "MnistDataSetIterator", "MultipleEpochsIterator",
+           "NormalizerMinMaxScaler", "NormalizerStandardize",
            "SamplingDataSetIterator"]

@@ -3,8 +3,9 @@
 Counterpart of the container in ``deeplearning4j_tpu/datasets/dataset.py``:
 numpy arrays (or tensors), ``features_mask`` and ``labels_mask`` ``[B, T]``
 {0,1}, with ``num_examples``, ``split_test_and_train``, ``shuffle`` and
-``batch_by``. The normalizers wait for the serializer's zip format
-(ROADMAP.md).
+``batch_by``; and the normalizers, ``NormalizerStandardize`` (which the
+model zip carries as ``normalizer.npz``) and ``NormalizerMinMaxScaler``,
+numpy on the host as in the JAX package.
 """
 from __future__ import annotations
 
@@ -49,3 +50,84 @@ class DataSet:
     def batch_by(self, batch_size: int) -> List["DataSet"]:
         return [self._take(slice(i, i + batch_size))
                 for i in range(0, self.num_examples(), batch_size)]
+
+
+def _flat(features) -> np.ndarray:
+    return features.reshape(features.shape[0], -1)
+
+
+class NormalizerStandardize:
+    """Feature-wise zero mean and unit variance (``std`` carries 1e-8, as
+    in the JAX package); ``to_arrays``/``from_arrays`` are the model zip's
+    ``normalizer.npz``."""
+
+    def __init__(self):
+        self.mean: Optional[np.ndarray] = None
+        self.std: Optional[np.ndarray] = None
+
+    def fit(self, ds: DataSet) -> None:
+        flat = _flat(ds.features)
+        self.mean = flat.mean(axis=0)
+        self.std = flat.std(axis=0) + 1e-8
+
+    def transform(self, ds: DataSet) -> None:
+        shape = ds.features.shape
+        ds.features = ((_flat(ds.features) - self.mean) / self.std
+                       ).reshape(shape)
+
+    def revert(self, ds: DataSet) -> None:
+        shape = ds.features.shape
+        ds.features = (_flat(ds.features) * self.std + self.mean
+                       ).reshape(shape)
+
+    def to_arrays(self) -> dict:
+        return {"mean": self.mean, "std": self.std}
+
+    @staticmethod
+    def from_arrays(d: dict) -> "NormalizerStandardize":
+        n = NormalizerStandardize()
+        n.mean, n.std = d["mean"], d["std"]
+        return n
+
+
+class NormalizerMinMaxScaler:
+    """Feature-wise scaling of ``[min, max]`` to ``[min_range,
+    max_range]``; a constant feature scales by 1."""
+
+    def __init__(self, min_range: float = 0.0, max_range: float = 1.0):
+        self.min_range = min_range
+        self.max_range = max_range
+        self.data_min: Optional[np.ndarray] = None
+        self.data_max: Optional[np.ndarray] = None
+
+    def fit(self, ds: DataSet) -> None:
+        flat = _flat(ds.features)
+        self.data_min = flat.min(axis=0)
+        self.data_max = flat.max(axis=0)
+
+    def _range(self) -> np.ndarray:
+        return np.where(self.data_max > self.data_min,
+                        self.data_max - self.data_min, 1.0)
+
+    def transform(self, ds: DataSet) -> None:
+        shape = ds.features.shape
+        scaled = (_flat(ds.features) - self.data_min) / self._range()
+        ds.features = (scaled * (self.max_range - self.min_range)
+                       + self.min_range).reshape(shape)
+
+    def revert(self, ds: DataSet) -> None:
+        shape = ds.features.shape
+        scaled = ((_flat(ds.features) - self.min_range)
+                  / (self.max_range - self.min_range))
+        ds.features = (scaled * self._range() + self.data_min).reshape(shape)
+
+    def to_arrays(self) -> dict:
+        return {"data_min": self.data_min, "data_max": self.data_max,
+                "range": np.asarray([self.min_range, self.max_range])}
+
+    @staticmethod
+    def from_arrays(d: dict) -> "NormalizerMinMaxScaler":
+        lo, hi = (float(v) for v in d["range"])
+        n = NormalizerMinMaxScaler(lo, hi)
+        n.data_min, n.data_max = d["data_min"], d["data_max"]
+        return n

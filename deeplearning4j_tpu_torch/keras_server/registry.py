@@ -7,25 +7,80 @@ snapshot, built before the active pointer moves, so a hot swap is a dict
 assignment under the lock and in-flight requests finish on the version they
 resolved. Models register from in-memory networks (a
 ``MultiLayerNetwork``, or a ``ComputationGraph`` of one input and one
-output); loading files, drafts and warmup are not part of this port yet
-(ROADMAP.md).
+output) or load from ``model_serializer`` zips (either network type,
+through ``guess_model``); Keras HDF5 files wait for ``modelimport/``
+(ROADMAP.md A8) and speculative drafts for A6.
+
+``warmup_max_batch`` opts registration into warmup: before the active
+pointer moves, the new version's ``PredictFn`` runs one forward at every
+micro-batch bucket up to that cap (:meth:`ModelRegistry.warmup_buckets`),
+so the kernels are built and cuDNN and cuBLAS have chosen their algorithms
+before the first request. The example comes from ``warmup_example`` or, for
+a stack whose first layer is a feed-forward one, from its ``n_in``; a graph
+or any other first layer is warmed only with an explicit example, as in
+the JAX package. A warmup forward on an explicit example that fails
+raises, and the version does not go active; an example derived from
+``n_in`` that the network does not take (an embedding's ``n_in`` is its
+vocabulary) leaves the version unwarmed, as the JAX package's warmup does.
 """
 from __future__ import annotations
 
+import logging
 import threading
-from typing import Dict, Optional
+import time
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
 
+import numpy as np
+
+from ..nn.conf.serde import layer_class
 from ..nn.inference import PredictFn
+
+log = logging.getLogger(__name__)
+
+
+def load_model_file(path: str, device=None):
+    """The network a serving model file holds, on ``device``: a
+    ``model_serializer`` zip of either network type. Keras HDF5 files are
+    not read yet."""
+    if zipfile.is_zipfile(path):
+        from ..utils.model_serializer import guess_model
+        return guess_model(path, device=device)
+    raise NotImplementedError(
+        f"{path} is not a model zip; Keras HDF5 import (modelimport/) is not "
+        "ported yet (ROADMAP.md A8)")
+
+
+def _derive_warmup_example(net) -> Optional[np.ndarray]:
+    """``(1, n_in)`` float32 zeros for a stack whose first layer is a
+    feed-forward one; None (no warmup) for a graph or any other first
+    layer, whose input layout ``n_in`` does not give."""
+    if type(net).__name__ == "ComputationGraph":
+        return None
+    layers = getattr(getattr(net, "conf", None), "layers", None)
+    if not layers:
+        return None
+    first = layers[0]
+    if layer_class(first.type).__module__.rsplit(".", 1)[-1] != "feedforward":
+        return None
+    n_in = first.get("n_in")
+    if not n_in:
+        return None
+    return np.zeros((1, int(n_in)), np.float32)
 
 
 class ModelVersion:
     """One immutable (name, version) serving unit."""
 
-    def __init__(self, name: str, version: str, net, predict_fn: PredictFn):
+    def __init__(self, name: str, version: str, net, predict_fn: PredictFn,
+                 source: str = "memory"):
         self.name = name
         self.version = version
         self.net = net
         self.predict_fn = predict_fn
+        #: "memory", or the file the version was loaded from
+        self.source = source
         #: serving dtype policy of this version (None, or "int8"; "bf16"
         #: serves at the network's policy dtype and is stored as None)
         self.quant = predict_fn.quant
@@ -34,26 +89,38 @@ class ModelVersion:
 
     def describe(self) -> dict:
         return {"name": self.name, "version": self.version,
-                "quant": self.quant,
+                "source": self.source, "quant": self.quant,
                 "streaming_capable": self.streaming_capable,
                 "device": str(self.predict_fn.device),
                 "param_bytes": self.predict_fn.param_bytes,
-                "predict_calls": self.predict_fn.calls}
+                "predict_calls": self.predict_fn.calls,
+                "warmed_buckets": list(self.predict_fn.warmed)}
 
 
 class ModelRegistry:
-    """Thread-safe versioned model store."""
+    """Thread-safe versioned model store. ``warmup_max_batch`` (None: off)
+    opts every registration into bucket warmup on ``warmup_workers``
+    threads."""
 
-    def __init__(self):
+    def __init__(self, warmup_max_batch: Optional[int] = None,
+                 warmup_workers: int = 4):
         self._lock = threading.RLock()
         self._versions: Dict[str, Dict[str, ModelVersion]] = {}
         self._active: Dict[str, str] = {}
+        self.warmup_max_batch = warmup_max_batch
+        self.warmup_workers = warmup_workers
+        #: seconds the last registration's warmup took (None: no warmup ran)
+        self.last_warmup_s: Optional[float] = None
 
     def register(self, name: str, net, version: Optional[str] = None,
-                 quant: Optional[str] = None, device=None) -> ModelVersion:
-        """Pin ``net`` on ``device`` (``None`` means CUDA) and make it the
-        active version. ``quant="int8"`` keeps int8 weights at rest for the
-        predict path and for this version's decode engines."""
+                 quant: Optional[str] = None, device=None,
+                 source: str = "memory",
+                 warmup_example=None) -> ModelVersion:
+        """Pin ``net`` on ``device`` (``None`` means CUDA), warm it when the
+        registry warms, and make it the active version. ``quant="int8"``
+        keeps int8 weights at rest for the predict path and for this
+        version's decode engines. ``warmup_example`` is one input batch (an
+        array, or a tuple of arrays) whose row shape warmup uses."""
         with self._lock:
             version = version or f"v{len(self._versions.get(name, {})) + 1}"
             if version in self._versions.get(name, {}):
@@ -61,11 +128,69 @@ class ModelRegistry:
                     f"model {name!r} already has version {version!r}; "
                     "versions are immutable - register a new one")
         pf = PredictFn(net, quant=quant, device=device)
+        if self.warmup_max_batch:
+            # off the serving path: an older version keeps serving meanwhile
+            self._warmup(pf, net, warmup_example)
         with self._lock:
-            mv = ModelVersion(name, version, net, pf)
+            mv = ModelVersion(name, version, net, pf, source=source)
             self._versions.setdefault(name, {})[version] = mv
             self._active[name] = version
         return mv
+
+    @staticmethod
+    def warmup_buckets(max_batch: int) -> List[int]:
+        """The micro-batcher's bucket ladder: powers of two below
+        ``max_batch``, then ``max_batch``."""
+        buckets, b = [], 1
+        while b < max_batch:
+            buckets.append(b)
+            b *= 2
+        buckets.append(max_batch)
+        return buckets
+
+    def _warmup(self, pf: PredictFn, net, example=None) -> None:
+        """One forward of ``pf`` at every bucket size, with zeros of the
+        example's row shape and dtype; skipped when no example is given or
+        derivable."""
+        derived = example is None
+        if derived:
+            example = _derive_warmup_example(net)
+            if example is None:
+                return
+        examples = [np.asarray(e) for e in
+                    (example if isinstance(example, (tuple, list))
+                     else (example,))]
+
+        def one(b):
+            pf.warm(*[np.zeros((b,) + e.shape[1:], e.dtype)
+                      for e in examples])
+
+        buckets = self.warmup_buckets(self.warmup_max_batch)
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(
+                    max_workers=max(1, min(self.warmup_workers, len(buckets))),
+                    thread_name_prefix="dl4j-warmup") as ex:
+                for fut in [ex.submit(one, b) for b in buckets]:
+                    fut.result()
+        except Exception as e:
+            if not derived:
+                raise
+            # a guess from n_in that the network does not take (an
+            # embedding's n_in is a vocabulary): no warmup, as in the JAX
+            # package, whose warmup forward fails the same way
+            log.warning("warmup skipped: the (1, n_in) example derived for "
+                        "%s does not fit it: %s", type(net).__name__, e)
+            return
+        self.last_warmup_s = time.perf_counter() - t0
+
+    def load(self, name: str, path: str, version: Optional[str] = None,
+             quant: Optional[str] = None, device=None,
+             warmup_example=None) -> ModelVersion:
+        """Restore a model zip on ``device`` and register it."""
+        return self.register(name, load_model_file(path, device=device),
+                             version=version, quant=quant, device=device,
+                             source=path, warmup_example=warmup_example)
 
     def active(self, name: str) -> ModelVersion:
         with self._lock:

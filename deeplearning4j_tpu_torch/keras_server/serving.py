@@ -219,9 +219,13 @@ class InferenceServer:
                  decode_eos_id: Optional[int] = None,
                  decode_kv: str = "dense", decode_page_size: int = 16,
                  decode_pool_pages: Optional[int] = None,
-                 stream_ttl_s: float = 300.0):
+                 stream_ttl_s: float = 300.0, warmup: bool = False):
         self.device = resolve_device(device)
         self.registry = registry or ModelRegistry()
+        if warmup:
+            # this server's registrations warm every bucket up to max_batch
+            # (a caller-supplied registry too)
+            self.registry.warmup_max_batch = max_batch
         self.batcher = MicroBatcher(self.registry, max_batch=max_batch,
                                     max_latency_s=max_latency_s,
                                     max_queue=max_queue)
@@ -250,10 +254,18 @@ class InferenceServer:
         return self
 
     def register(self, name: str, net, version: Optional[str] = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, warmup_example=None):
         """Register a model for serving, pinned on this server's device."""
         return self.registry.register(name, net, version=version, quant=quant,
-                                      device=self.device)
+                                      device=self.device,
+                                      warmup_example=warmup_example)
+
+    def load(self, name: str, path: str, version: Optional[str] = None,
+             quant: Optional[str] = None, warmup_example=None):
+        """Restore a model zip on this server's device and register it."""
+        return self.registry.load(name, path, version=version, quant=quant,
+                                  device=self.device,
+                                  warmup_example=warmup_example)
 
     def decoder(self, model: str) -> DecodeEngine:
         """The decode engine of ``model``'s active version, created at first

@@ -6,7 +6,8 @@ is plain data: the global defaults, one :class:`LayerConf` per layer (its
 index and the input type. ``NeuralNetConfiguration.builder()``
 (``builders.py``) writes one as the JAX DSL does.
 :meth:`MultiLayerConfiguration.from_json` reads what the JAX package's
-``conf.to_json()`` writes, and :meth:`to_json` writes the same schema.
+``conf.to_json()`` writes, and :meth:`to_json` writes the same schema;
+:meth:`to_yaml` and :meth:`from_yaml` do the same in YAML.
 """
 from __future__ import annotations
 
@@ -155,8 +156,8 @@ class MultiLayerConfiguration:
     def preprocessor(self, idx: int) -> Optional[InputPreProcessor]:
         return self.preprocessors.get(str(idx))
 
-    def to_json(self) -> str:
-        return json.dumps({
+    def to_dict(self) -> dict:
+        return {
             "@type": "MultiLayerConfiguration",
             "global_conf": self.global_conf.to_dict(),
             "layers": [lc.to_dict() for lc in self.layers],
@@ -165,11 +166,30 @@ class MultiLayerConfiguration:
             "input_type": (None if self.input_type is None
                            else self.input_type.to_dict()),
             **{f: getattr(self, f) for f in self.TRAINING_FIELDS},
-        }, indent=2)
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    def to_yaml(self) -> str:
+        """The same document as YAML (``yaml.safe_dump`` in key order, as
+        the JAX ``to_yaml`` writes it). PyYAML is imported here, at call
+        time: the package itself does not need it. The dict goes through
+        JSON first, so layers that share a list object are written out in
+        full, not as YAML anchors."""
+        import yaml
+
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False)
 
     @staticmethod
     def from_json(text: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(text))
+
+    @staticmethod
+    def from_yaml(text: str) -> "MultiLayerConfiguration":
+        import yaml
+
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(text))
 
     @staticmethod
     def from_dict(d: dict) -> "MultiLayerConfiguration":

@@ -36,8 +36,9 @@ The config's ``dtype`` names the policy the train step, TBPTT, streaming
 and ``output``/``score``/``evaluate`` run under, as for
 ``MultiLayerNetwork``.
 
-Not ported yet, and each raises ``NotImplementedError`` (ROADMAP.md):
-layerwise pretraining and the ``Solver`` algorithms other than SGD.
+A non-SGD ``optimization_algo`` trains through the ``Solver``
+(``optimize/solvers.py``). Layerwise pretraining is not ported yet and
+raises ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -340,6 +341,8 @@ class ComputationGraph(KStepFit, nn.Module):
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
         self._tbptt_step = None
+        #: the Solver of a non-SGD ``optimization_algo`` (made at first use)
+        self._solver = None
         #: the captured train steps of the K-step dispatch, by batch shapes
         self._step_graphs: dict = {}
         #: streaming state of ``rnn_time_step`` by vertex (None until it runs)
@@ -633,11 +636,6 @@ class ComputationGraph(KStepFit, nn.Module):
 
     def _check_trainable(self) -> None:
         """Raise for the training settings this port cannot run yet."""
-        g = self.conf.global_conf
-        if g.optimization_algo not in (None, "stochastic_gradient_descent"):
-            raise _not_ported(
-                f"optimization_algo={g.optimization_algo!r} on a graph (the "
-                "Solver algorithms)")
         if self.conf.pretrain:
             raise _not_ported("pretrain=True: layerwise pretraining")
 
@@ -704,9 +702,21 @@ class ComputationGraph(KStepFit, nn.Module):
         write_states(self.vertex_layers.values(),
                      [new_states[n] for n in self.vertex_layers])
 
+    def _uses_sgd(self) -> bool:
+        return self.conf.global_conf.optimization_algo in (
+            None, "stochastic_gradient_descent")
+
     def _fit_batch(self, xs, ys, fmasks=None, lmasks=None) -> None:
         self._require_init()
         self._check_trainable()
+        if not self._uses_sgd():
+            # the Solver algorithms, as in MultiLayerNetwork._fit_batch
+            from ..optimize.solvers import Solver
+
+            if self._solver is None:
+                self._solver = Solver(self)
+            self._solver.optimize(list(xs), list(ys))
+            return
         if self._uses_tbptt():
             self._fit_tbptt(xs, ys, fmasks, lmasks)
             return

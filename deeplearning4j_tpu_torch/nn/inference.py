@@ -78,23 +78,39 @@ class PredictFn:
                                          net.conf.global_conf.dtype)
         self._lock = threading.Lock()
         self.calls = 0  #: dispatches served
+        #: the batch sizes :meth:`warm` has run, in order
+        self.warmed: list = []
 
     @property
     def param_bytes(self) -> int:
         """Resident bytes of the pinned params (int8 shows the 4x cut)."""
         return tree_param_bytes(self._params)
 
-    @torch.no_grad()
-    def __call__(self, x) -> torch.Tensor:
+    def _run(self, x) -> torch.Tensor:
         params = self._params
         if self.quant == "int8":
             params = dequantize_tree(params)
         x = to_device_tensor(x, self.device)
         if self._graph:
-            out = self._forward(params, self._states, [x])[0]
-        else:
-            out = self._forward(params, self._states, x)
+            return self._forward(params, self._states, [x])[0]
+        return self._forward(params, self._states, x)
+
+    @torch.no_grad()
+    def __call__(self, x) -> torch.Tensor:
+        out = self._run(x)
         with self._lock:
             self.calls += 1
         return out
 
+    @torch.no_grad()
+    def warm(self, *xs) -> None:
+        """One forward on an example batch, waited for, so its kernels are
+        built and the libraries' algorithms chosen before the pin serves;
+        not counted in :attr:`calls`."""
+        if len(xs) != 1:
+            raise ValueError(f"PredictFn serves one input, got {len(xs)}")
+        self._run(xs[0])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        with self._lock:
+            self.warmed.append(int(np.shape(xs[0])[0]))

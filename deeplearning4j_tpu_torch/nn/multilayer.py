@@ -8,7 +8,8 @@ and ROC forms, the pure
 training functions (``_regularization``, ``_aux_losses``, ``loss_fn``,
 ``make_train_step``, ``make_tbptt_step``) and the stateful shell over them
 (``fit`` on arrays, a ``DataSet`` or an iterable of ``DataSet``\\ s,
-``_fit_batch`` with ``iterations > 1``, truncated BPTT (``_fit_tbptt``) for
+``_fit_batch`` with ``iterations > 1`` or, for a non-SGD
+``optimization_algo``, through the ``Solver``, truncated BPTT (``_fit_tbptt``) for
 stacks with an LSTM, ``fit_iterator``, ``score``, ``score_value``,
 listeners, the K-step dispatch of ``nn/ksteps.py``), and the recurrent
 API (``rnn_time_step``, the previous-state accessors, ``clone``). Every forward applies the configuration's input
@@ -389,6 +390,8 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
         self._tbptt_step = None
+        #: the Solver of a non-SGD ``optimization_algo`` (made at first use)
+        self._solver = None
         #: the captured train steps of the K-step dispatch, by batch shapes
         self._step_graphs: dict = {}
         #: streaming state of ``rnn_time_step`` (None until it runs)
@@ -723,12 +726,6 @@ class MultiLayerNetwork(KStepFit, nn.Module):
     def _check_trainable(self) -> None:
         """Raise for the training settings this port cannot run yet, naming
         the field, instead of training another model than the config's."""
-        g = self.conf.global_conf
-        if g.optimization_algo not in (None, "stochastic_gradient_descent"):
-            raise NotImplementedError(
-                f"optimization_algo={g.optimization_algo!r}: the Solver "
-                "algorithms (LBFGS, conjugate gradient, line-search GD) are "
-                "not ported yet (ROADMAP.md); use stochastic_gradient_descent")
         if self.conf.pretrain:
             raise NotImplementedError(
                 "pretrain=True: layerwise pretraining is not ported yet "
@@ -793,9 +790,22 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         return (self.conf.backprop_type == "TruncatedBPTT"
                 and any(isinstance(l, LSTM) for l in self.layers))
 
+    def _uses_sgd(self) -> bool:
+        return self.conf.global_conf.optimization_algo in (
+            None, "stochastic_gradient_descent")
+
     def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
         self._require_init()
         self._check_trainable()
+        if not self._uses_sgd():
+            # LBFGS, conjugate gradient and line-search GD minimize the batch
+            # loss through the Solver, as the JAX package routes them
+            from ..optimize.solvers import Solver
+
+            if self._solver is None:
+                self._solver = Solver(self)
+            self._solver.optimize(x, y)
+            return
         if self._uses_tbptt():
             self._fit_tbptt(x, y, fmask, lmask)
             return

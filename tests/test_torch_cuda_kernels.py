@@ -840,3 +840,113 @@ def test_ksteps_policy_flip_recaptures_on_card(cuda_device, monkeypatch):
         common.set_policy(torch.float32, torch.float32, torch.float32,
                           reduction_dtype=None, grad_accum_dtype=None)
     assert len(pinned._step_graphs) == 1
+
+
+def _leaf_pairs(a, b):
+    """``(path, tensor_a, tensor_b)`` over two trees of one structure."""
+    from deeplearning4j_tpu_torch.utils.pytree import leaves_with_paths
+    la, lb = list(leaves_with_paths(a)), list(leaves_with_paths(b))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    return [(p, x, y) for (p, x), (_, y) in zip(la, lb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["lenet", "resnet18"])
+def test_model_file_restores_on_card_and_resumes_bitwise(cuda_device, model,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A model zip written after 2 card steps restores on the card with
+    every param, layer-state and updater-state leaf bitwise; with cuDNN
+    deterministic, 2 more steps from the restored network and from the
+    original give bitwise-equal losses and leaves. It also restores on the
+    CPU, where its output is within 1e-4 of the card's."""
+    from deeplearning4j_tpu_torch.utils import model_serializer as ser
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    net = _kstep_net(model, cuda_device)
+    data = _kstep_batches(model, 4)
+
+    def step(n, ds):
+        if model == "resnet18":
+            n.fit(ds)
+        else:
+            n.fit(ds.features, ds.labels)
+        return n.score_value
+
+    for ds in data[:2]:
+        step(net, ds)
+    path = str(tmp_path / "m.zip")
+    ser.write_model(net, path)
+    back = ser.guess_model(path, device=cuda_device)
+    assert back.device.type == "cuda" and back.iteration == 2
+    for own, ref in ((back.params_list, net.params_list),
+                     (back.state_list, net.state_list),
+                     (back.updater_state, net.updater_state)):
+        for p, a, b in _leaf_pairs(own, ref):
+            assert torch.equal(a, b), p
+    x0 = data[0].features[0] if model == "resnet18" else data[0].features
+    out = net.output(x0)
+    out = out[0] if model == "resnet18" else out
+    cpu = ser.guess_model(path, device="cpu").output(x0)
+    cpu = cpu[0] if model == "resnet18" else cpu
+    torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=1e-4)
+    for ds in data[2:]:
+        assert step(back, ds) == step(net, ds)
+    for own, ref in ((back.params_list, net.params_list),
+                     (back.state_list, net.state_list),
+                     (back.updater_state, net.updater_state)):
+        for p, a, b in _leaf_pairs(own, ref):
+            assert torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+def test_registry_warms_every_bucket_on_card(cuda_device, tmp_path):
+    """``load`` into ``InferenceServer(warmup=True, max_batch=16)`` with an
+    explicit example runs one forward a bucket on the card before the
+    version is active, and the served answer is the restored network's."""
+    from deeplearning4j_tpu_torch.keras_server import InferenceServer
+    from deeplearning4j_tpu_torch.models import lenet_mnist
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils.model_serializer import write_model
+    net = MultiLayerNetwork(lenet_mnist(), device=cuda_device).init(seed=2)
+    path = str(tmp_path / "lenet.zip")
+    write_model(net, path)
+    srv = InferenceServer(device=cuda_device, warmup=True,
+                          max_batch=16).start()
+    try:
+        mv = srv.load("lenet", path,
+                      warmup_example=np.zeros((1, 784), np.float32))
+        assert sorted(mv.predict_fn.warmed) == [1, 2, 4, 8, 16]
+        assert mv.predict_fn.calls == 0
+        x = np.random.default_rng(3).random((5, 784)).astype(np.float32)
+        torch.testing.assert_close(mv.predict_fn(x), net.output(x),
+                                   rtol=0, atol=1e-6)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+def test_lbfgs_on_card_follows_the_cpu(cuda_device):
+    """Full-width LeNet, ``optimization_algo="lbfgs"``, ``iterations=10``
+    on one batch of 128 on the card and from the same init on the CPU: the
+    loss falls, the card's final loss within 1e-4 relative of the CPU's,
+    and at least one ``sm_xent`` launch an iteration."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.models import lenet_mnist
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = lenet_mnist()
+    conf.global_conf = dataclasses.replace(
+        conf.global_conf, optimization_algo="lbfgs", iterations=10)
+    net = MultiLayerNetwork(conf, device=cuda_device).init(seed=4)
+    ref = net.clone(device="cpu")
+    rng = np.random.default_rng(5)
+    x = rng.random((128, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 128)]
+    s0 = net.score(x, y)
+    before = tsx.softmax_cross_entropy.launches
+    net.fit(x, y)
+    launches = tsx.softmax_cross_entropy.launches - before
+    ref.fit(x, y)
+    assert net.score_value < s0
+    assert abs(net.score_value - ref.score_value) <= 1e-4 * ref.score_value
+    assert net.iteration == ref.iteration and 0 < net.iteration <= 10
+    assert launches >= net.iteration

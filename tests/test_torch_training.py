@@ -301,12 +301,25 @@ def test_dropout_keeps_the_retain_share_and_follows_the_seed():
     ("backprop_type", "TruncatedBPTT"), ("optimization_algo", "lbfgs"),
     ("pretrain", True)])
 def test_unported_training_settings_raise_at_fit(field, value, tmp_path):
-    """The Solver algorithms and pretraining raise at fit. A transformer LM
-    flagged ``TruncatedBPTT`` has no LSTM, so it trains with the standard
-    step (one update per batch, not per chunk), as the JAX package does."""
+    """Pretraining raises at fit. A transformer LM flagged
+    ``TruncatedBPTT`` has no LSTM, so it trains with the standard step (one
+    update per batch, not per chunk), as the JAX package does. An LBFGS
+    config trains through the Solver (one LBFGS iteration a ``fit``, the
+    config's ``iterations``), as the JAX package's does: the iteration
+    count exactly, the losses within 1e-4 relative
+    (``tests/test_torch_solvers.py`` holds the solvers themselves)."""
     top = {field: value} if field != "optimization_algo" else {}
     glob = {field: value} if field == "optimization_algo" else {}
     x, y, _, _ = _batch(0)
+    if field == "optimization_algo":
+        conf = lm_conf_json(global_fields=glob)
+        batches = [_batch(s) for s in range(2)]
+        ref = jax_train(conf, batches, tmp_path)
+        tnet = _port(conf, ref)
+        losses = _port_losses(tnet, batches)
+        assert tnet.iteration == ref["iteration"] == 2
+        np.testing.assert_allclose(losses, ref["losses"], rtol=1e-4)
+        return
     if field == "backprop_type":
         conf = lm_conf_json(learning_rate=0.05,
                             global_fields={"updater": "sgd"},

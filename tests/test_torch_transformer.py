@@ -116,7 +116,16 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.nn.ksteps, "
             "deeplearning4j_tpu_torch.datasets.prefetch, "
             "deeplearning4j_tpu_torch.utils.batching, "
-            "deeplearning4j_tpu_torch.nn.inference;"
+            "deeplearning4j_tpu_torch.nn.inference, "
+            "deeplearning4j_tpu_torch.utils.pytree, "
+            "deeplearning4j_tpu_torch.utils.model_serializer, "
+            "deeplearning4j_tpu_torch.utils.collections, "
+            "deeplearning4j_tpu_torch.optimize, "
+            "deeplearning4j_tpu_torch.optimize.listeners, "
+            "deeplearning4j_tpu_torch.optimize.solvers, "
+            "deeplearning4j_tpu_torch.earlystopping, "
+            "deeplearning4j_tpu_torch.nn.gradientcheck, "
+            "deeplearning4j_tpu_torch.keras_server.registry;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"

@@ -123,10 +123,63 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    its zip with step 4's traffic (the same greedy tokens, exact launches);
    full-width LeNet under ``optimization_algo="lbfgs"`` (10 iterations on
    one batch of 128; cuDNN deterministic) on the card against the CPU;
-14. reads the profiler's device time of every main-path kernel row and its
+14. runs the ``self_attention`` path: ``SelfAttentionLayer(n_out=512,
+   n_heads=8)`` (non-causal), average pooling and a 10-way output on
+   ``[4, T, 512]`` normal features: at T = 512 ``output`` and 2 ``fit``
+   steps, each card step from the CPU run's state, and a ragged masked
+   batch (``fit`` and ``score`` through the key mask), each within 1e-4 of
+   the CPU; exact flash launches; then 5 timed steps at bench_attention's
+   B = 4, T = 2048 (step 3 adds the kernels' non-causal rows at that shape,
+   at a ragged T = 2001 and with a key mask zeroing every row's tail);
+15. runs the ``moe`` phase, the slice's main path: full-width
+   ``moe_transformer_lm(256)`` (width 256, 4 layers of 4 heads and 8
+   experts; the JAX bench's ``moe`` geometry, B = 8, T = 256, Adam at
+   3e-4): 2 ``fit`` steps on the card, each from the CPU run's state, with
+   the routing of every token held first (a token whose top-2 router
+   probabilities differ by more than 1e-5 must take the CPU's expert;
+   near-ties are counted), each loss (load-balance term included) within
+   1e-4 relative, launches exact (4 of each flash kernel and 1 ``sm_xent``
+   a step); ``fit(epochs=8)`` at ``dispatch_ksteps`` 4 against 8 eager
+   steps (within 1e-5), both timed in turns and profiled (wall ms,
+   samples/s, tokens/s, device µs by family, idle share, peak memory);
+   ``/v1/predict`` of 2 one-hot rows in float32 and int8 (3-D expert
+   leaves quantized per output channel) within 1e-4 of the CPU forward of
+   the served leaves; ``tests/golden/lm_golden.zip`` restored on the card
+   within 1e-4 of its expected outputs;
+16. runs the ``zoo`` phase: ``vgg16()`` at 64x64, B = 4 (dropout at retain
+   1.0, as the two RNGs differ) for 2 steps against the CPU, each from the
+   CPU run's state (losses and the eval output within 1e-4, one
+   ``sm_xent`` a step), then at the JAX bench's 224x224, B = 64 with the
+   config's dropout: 2 warm-up and 10 timed steps, each from the initial
+   state restored on the device (the config's rate diverges within a few
+   steps on random labels; every loss must be finite), with wall ms,
+   samples/s, the float32-peak share from the layer shapes' FLOPs and peak
+   memory, and one profiled step by family; ``evaluate`` on 128 images and
+   a 2-row ``/v1/predict`` of that network; ``alexnet()`` and ``googlenet()`` at
+   64x64, B = 2 (1 step and the output within 1e-4 of the CPU) and at
+   224x224, B = 32 (3 timed steps); each network's parameter count equal
+   to the JAX config's;
+17. runs the ``pretrain`` phase: a ``VariationalAutoencoder`` vertex at
+   DL4J's VaeMNISTAnomaly widths (784 -> 256, 256 -> 32, Bernoulli): its
+   pretraining step on 20 batches of 128 synthetic digits, each card
+   batch from the CPU run's state, both given the same normals through the
+   step's ``noise`` (losses within 1e-4 relative); then ``pretrain_layer``
+   over the 20 batches on the card alone (the head's params bitwise
+   unchanged, the iteration unmoved, the loss lower) and 5 ``fit`` steps
+   (5 ``sm_xent`` launches); an ``RBM(784 -> 500)``,
+   ``AutoEncoder(500 -> 250)``, output stack with ``pretrain(True)``: the
+   RBM's first CD update on the card against the CPU from the same
+   uniforms (a Bernoulli sample may differ only where its uniform lies
+   within 1e-6 of its probability), then ``fit_iterator`` over the 20
+   batches (pretraining, then the supervised epoch: exactly 20 ``sm_xent``
+   launches);
+18. runs the ``iris`` drive: ``IrisDataSetIterator(batch=30)``, a dense 4 ->
+   16 -> 3 network, Adam at 0.1, 20 epochs of ``fit_iterator``: accuracy
+   above 0.9, exactly 100 ``sm_xent`` launches;
+19. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-15. prints one JSON line describing each kernel, then
+20. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -154,14 +207,23 @@ from deeplearning4j_tpu_torch import convert
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
 from deeplearning4j_tpu_torch.keras_server.serve_profile import (
     device_events, device_time_by_kernel)
-from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+from deeplearning4j_tpu_torch.datasets import (
+    IrisDataSetIterator, MnistDataSetIterator)
 from deeplearning4j_tpu_torch.models import (
-    char_rnn_lstm, lenet_mnist, resnet50, transformer_lm)
+    alexnet, char_rnn_lstm, googlenet, lenet_mnist, moe_transformer_lm,
+    resnet50, transformer_lm, vgg16)
+from deeplearning4j_tpu_torch.nn.conf.builders import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    RBM, AutoEncoder, DenseLayer, GlobalPoolingLayer, MoETransformerBlock,
+    OutputLayer, SelfAttentionLayer, VariationalAutoencoder)
 from deeplearning4j_tpu_torch.common import get_policy, set_policy
 from deeplearning4j_tpu_torch.nn.graph_network import (
-    ComputationGraph, graph_forward, make_graph_train_step)
+    ComputationGraph, graph_forward, make_graph_pretrain_step,
+    make_graph_train_step)
 from deeplearning4j_tpu_torch.nn.inference import PredictFn
-from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    UPDATER_LABEL, MultiLayerNetwork)
 from deeplearning4j_tpu_torch.ops import _cuda
 from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 from deeplearning4j_tpu_torch.ops.flash_attention import (
@@ -248,12 +310,16 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50) -> float:
+def device_ms(fn, iters: int = 50) -> tuple:
     """Mean device time of one call of ``fn`` in ms from ``torch.profiler``
     over ``iters`` calls, after a warm-up: the device time a recorded event
     (kernels, copies) times the events a call makes, the median of three
     sessions. Unlike :func:`time_ms` it leaves out the host's time between
-    launches, which dominates a kernel of a few microseconds."""
+    launches, which dominates a kernel of a few microseconds. Returns
+    ``(ms, source)``: when fewer than three of eight sessions saw device
+    time (on the H100 the profiler has, once in a run, stopped seeing any
+    for a stretch of sessions), the median of those that did, else
+    :func:`time_ms`'s CUDA-event time, and ``source`` says which."""
     for _ in range(3):
         fn()
     # a profiler session may record none or only a part of the device
@@ -261,6 +327,11 @@ def device_ms(fn, iters: int = 50) -> float:
     # of a flash kernel's), so the time is taken a recorded event; the
     # events a call makes come from the fullest session, rounded
     got = []  # (device events, device us)
+
+    def median():
+        per_call = max(1, round(max(n for n, _ in got) / iters))
+        times = sorted(us / n * per_call / 1e3 for n, us in got)
+        return times[len(times) // 2]
     for _ in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -273,19 +344,23 @@ def device_ms(fn, iters: int = 50) -> float:
         if us > 0 and events > 0:
             got.append((events, us))
             if len(got) == 3:
-                per_call = max(1, round(max(n for n, _ in got) / iters))
-                return sorted(us / n * per_call / 1e3 for n, us in got)[1]
+                return median(), "torch.profiler"
         else:
             print("device_ms: the profiler saw no device time; again",
                   flush=True)
-    fail(f"the profiler saw device time in {len(got)} of eight sessions")
+    print(f"device_ms: the profiler saw device time in {len(got)} of eight "
+          "sessions", flush=True)
+    if got:
+        return median(), f"torch.profiler, {len(got)} sessions"
+    return time_ms(fn, iters), "CUDA events"
 
 
-def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+def device_ms_by_kernel(fn, iters: int = 20):
     """Device ms a call of ``fn`` by kernel (the profiler's name), as
     :func:`device_ms` takes it: each kernel's time a recorded event times
     the events a call makes (from the fullest of three sessions), the median
-    of the three."""
+    of the three; of fewer when fewer of eight sessions saw device time, and
+    None when none did."""
     for _ in range(3):
         fn()
     sessions = []
@@ -303,8 +378,10 @@ def device_ms_by_kernel(fn, iters: int = 20) -> dict:
             if len(sessions) == 3:
                 break
     if len(sessions) < 3:
-        fail(f"the profiler saw device time in {len(sessions)} of eight "
-             "sessions")
+        print(f"device_ms_by_kernel: the profiler saw device time in "
+              f"{len(sessions)} of eight sessions", flush=True)
+    if not sessions:
+        return None
     out = {}
     for key in set().union(*sessions):
         seen = [s[key] for s in sessions if key in s]
@@ -378,16 +455,23 @@ def measure_device_times() -> None:
     ``DEVICE_TIMED``. Run after every other timing: the profiler is left
     attached to the process once used, and could slow later launches."""
     for row, kernel, library in DEVICE_TIMED:
-        row["device_ms"] = device_ms(kernel)
-        row["library_device_ms"] = None if library is None \
+        row["device_ms"], src = device_ms(kernel)
+        row["library_device_ms"], lib_src = (None, None) if library is None \
             else device_ms(library)
+        if "torch.profiler" not in src or "torch.profiler" not in (
+                lib_src or src):
+            row["device_ms_source"] = [src, lib_src]
         print(f"{row['name']} {row['shape']}: device_ms="
               f"{row['device_ms']:.5f} library_device_ms="
-              f"{row['library_device_ms']} (torch.profiler, mean per call)",
+              f"{row['library_device_ms']} ({src}; {lib_src}; mean per call)",
               flush=True)
     # lstm_fwd's and lstm_bwd's parts at the training chunks' shapes
     for row, fn, args, parts, key in LSTM_SPLIT:
-        got = kernel_parts(device_ms_by_kernel(lambda: fn(**args)), parts)
+        by_kernel = device_ms_by_kernel(lambda: fn(**args))
+        if by_kernel is None:  # not measured in this run
+            row[key] = None
+            continue
+        got = kernel_parts(by_kernel, parts)
         row[key] = {**got, "total": sum(got.values())}
         print(f"{row['name']} {row['shape']}: device ms a call by part: "
               + ", ".join(f"{k} {v:.5f}" for k, v in row[key].items()),
@@ -477,7 +561,7 @@ def check_flash(rows: list, dev) -> None:
     # float32 online softmax against the one-pass plain version
     tol = 2e-5
     H, D = 4, 64
-    for B, T in ((2, 512), (8, 512), (TRAIN_B, TRAIN_T)):
+    for B, T in ((2, 512), (8, 512), (TRAIN_B, TRAIN_T), (MOE_B, MOE_T)):
         q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
                    for _ in range(3))
         out, lse = flash_fwd(q, k, v, True)
@@ -590,15 +674,22 @@ def check_flash(rows: list, dev) -> None:
             fail(f"flash_fwd {shape}: a fully masked batch row is not 0")
 
 
-#: sm_xent's shapes on the main paths: the transformer's training step and
-#: char_rnn's TBPTT chunk (both a warp a row)
+#: sm_xent's shapes on the main paths: the transformer's training step,
+#: char_rnn's TBPTT chunk, LeNet's (and the pretraining stacks') step,
+#: ResNet-50's, the MoE LM's (B 8 x T 256 rows of 256), VGG-16's (B 64)
+#: and AlexNet's and GoogLeNet's (B 32) steps of 1000 classes, their
+#: checks against the CPU (VGG-16 at B 4, the other two at B 2), the
+#: SelfAttention network's (B 4 of 10) and Iris's (B 30 of 3)
 XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V),
-              (LENET_B, 10), (128, 1000))
+              (LENET_B, 10), (128, 1000), (2048, 256), (64, 1000),
+              (32, 1000), (4, 1000), (2, 1000), (4, 10), (30, 3))
 
 
 def check_xent(rows: list, dev) -> None:
-    """Kernel 4 at the training paths' shapes ([4096, 256] float32 logits,
-    char_rnn's [1600, 64], LeNet's [128, 10] and ResNet-50's [128, 1000]),
+    """Kernel 4 at the training paths' shapes (``XENT_TIMED``: [4096, 256]
+    float32 logits, char_rnn's [1600, 64], LeNet's [128, 10], ResNet-50's
+    [128, 1000] and the shapes of the MoE, zoo, SelfAttention and Iris
+    paths),
     at a vocab of 50,257 (a block a row), at
     the widest and the narrowest row a warp takes besides, and with bfloat16
     logits; each bitwise the same from run to run. Its yardstick is
@@ -611,6 +702,13 @@ def check_xent(rows: list, dev) -> None:
             (RNN_B * RNN_CHUNK, RNN_V, torch.float32, 1e-5, 1e-6),
             (LENET_B, 10, torch.float32, 1e-5, 1e-6),
             (128, 1000, torch.float32, 1e-5, 1e-6),
+            (2048, 256, torch.float32, 1e-5, 1e-6),
+            (64, 1000, torch.float32, 1e-5, 1e-6),
+            (32, 1000, torch.float32, 1e-5, 1e-6),
+            (4, 1000, torch.float32, 1e-5, 1e-6),
+            (2, 1000, torch.float32, 1e-5, 1e-6),
+            (4, 10, torch.float32, 1e-5, 1e-6),
+            (30, 3, torch.float32, 1e-5, 1e-6),
             (64, 50257, torch.float32, 1e-5, 1e-6),
             (64, 2048, torch.float32, 1e-5, 1e-6),
             (65, 2049, torch.float32, 1e-5, 1e-6),
@@ -670,8 +768,9 @@ def check_flash_bwd(rows: list, dev) -> None:
     tol, tol_bf16 = 2e-5, 3.2e-2
     wide2_d = WIDE_WIDTH // WIDE2_HEADS
     timed = {(TRAIN_B, TRAIN_T, 64), (WIDE_B, WIDE_T, 128),
-             (WIDE_B, WIDE_T, wide2_d)}
+             (WIDE_B, WIDE_T, wide2_d), (MOE_B, MOE_T, 64)}
     cases = [(TRAIN_B, TRAIN_T, 4, 64, True, False, torch.float32),
+             (MOE_B, MOE_T, 4, 64, True, False, torch.float32),
              (WIDE_B, WIDE_T, 4, 128, True, False, torch.float32),
              (WIDE_B, WIDE_T, WIDE2_HEADS, wide2_d, True, False,
               torch.float32),
@@ -1400,6 +1499,8 @@ def train_lstm(kernels) -> dict:
     # x events a batch, median of three sessions): a single profiled session
     # may drop part of the events
     split = device_ms_by_kernel(lambda: net.fit(x, x), iters=2)
+    if split is None:
+        fail("the profiler saw no device time in eight char_rnn sessions")
     fwd_parts_us, bwd_parts_us = (
         {k: 1e3 * v / per_batch for k, v in kernel_parts(split, parts).items()}
         for parts in (LSTM_FWD_PARTS, LSTM_BWD_PARTS))
@@ -1632,11 +1733,25 @@ RES_WARMUP, RES_TIMED, RES_EVAL, RES_SERVE_ROWS = 2, 10, 256, 2
 RES_UPD_RATIO, RES_UPD_FLOOR, RES_CONTROL_LR = 4.0, 1e-4, 1.01
 
 
+def _step_flops(layer_type: str, f: dict, out, first: bool) -> float:
+    """The float operations of one sample's training step through a
+    convolution or dense layer, from its shapes: 2 per multiply-add, forward,
+    input gradient (not for a layer fed by the network input) and weight
+    gradient; 0 for other layers."""
+    if layer_type == "Convolution":
+        kh, kw = f["kernel_size"]
+        fwd = 2.0 * out.height * out.width * out.channels * kh * kw \
+            * f["n_in"]
+    elif layer_type in ("Dense", "Output"):
+        fwd = 2.0 * f["n_in"] * f["n_out"]
+    else:
+        return 0.0
+    return fwd * (2 if first else 3)
+
+
 def resnet_flops(conf, batch: int) -> float:
     """The float operations of one training step of a graph's convolutions
-    and dense output layer, from the layer shapes: 2 per multiply-add,
-    forward, input gradient (not for a layer fed by the network input) and
-    weight gradient."""
+    and dense layers (:func:`_step_flops`)."""
     from deeplearning4j_tpu_torch.nn.conf.vertices import LayerVertex
     types = dict(zip(conf.network_inputs, conf.input_types))
     total = 0.0
@@ -1644,19 +1759,9 @@ def resnet_flops(conf, batch: int) -> float:
         v = conf.vertices[name]
         itypes = [types[s] for s in conf.vertex_inputs[name]]
         out = types[name] = v.output_type(itypes)
-        if not isinstance(v, LayerVertex):
-            continue
-        f = v.layer.fields
-        if v.layer.type == "Convolution":
-            kh, kw = f["kernel_size"]
-            fwd = 2.0 * out.height * out.width * out.channels * kh * kw \
-                * f["n_in"]
-        elif v.layer.type == "Output":
-            fwd = 2.0 * f["n_in"] * f["n_out"]
-        else:
-            continue
-        first = all(s in conf.network_inputs for s in conf.vertex_inputs[name])
-        total += fwd * (2 if first else 3)
+        if isinstance(v, LayerVertex):
+            total += _step_flops(v.layer.type, v.layer.fields, out, all(
+                s in conf.network_inputs for s in conf.vertex_inputs[name]))
     return total * batch
 
 
@@ -1721,6 +1826,16 @@ def _f64(t):
     if isinstance(t, dict):
         return {k: _f64(v) for k, v in t.items()}
     return t.detach().to("cpu", torch.float64, copy=True)
+
+
+def _from_cpu_state(card, ref) -> None:
+    """The card network takes the CPU network's params, layer states,
+    updater state, iteration and seed stream."""
+    card.load_params(convert.to_numpy(ref.params_list),
+                     convert.to_numpy(ref.state_list))
+    card.load_updater_state(convert.to_numpy(ref.updater_state),
+                            ref.iteration)
+    card._rng.set_state(ref._rng.get_state())
 
 
 class Float64Run:
@@ -1866,12 +1981,6 @@ def resnet(kernels) -> dict:
         worst = max(got, key=got.get)
         return got[worst], worst
 
-    def load_from_ref(net):
-        net.load_params(convert.to_numpy(ref.params_list),
-                        convert.to_numpy(ref.state_list))
-        net.load_updater_state(convert.to_numpy(ref.updater_state),
-                               ref.iteration)
-
     def summary(card, cpu):
         """The worst card leaf, the medians, and the leaf nearest its
         limit: ``[leaf, card e / limit, card e, CPU e]``."""
@@ -1884,21 +1993,21 @@ def resnet(kernels) -> dict:
                 "nearest_limit": [near, card[near] / limit[near], card[near],
                                   cpu[near]]}
 
-    load_from_ref(lock)
+    _from_cpu_state(lock, ref)
     logits0 = logits_errs()
     for fn in kernels:
         fn.launches = 0
     losses, free_losses, ref_losses, wide_losses = [], [], [], []
     lock_stats, upd, misses = [], [], {}
     for i, (x, y) in enumerate(batches):
-        load_from_ref(lock)
+        _from_cpu_state(lock, ref)
         before, exact = _f64(ref.params_list), Float64Run(ref)
         exact.step(x, y)
         lock.fit([x], [y])
         free.fit([x], [y])
         wide_losses.append(wide.step(x, y))
         if i == RES_CHECK_STEPS - 1:
-            load_from_ref(control)
+            _from_cpu_state(control, ref)
             control.fit([x], [y])
         ref.fit([x], [y])
         losses.append(lock.score_value)
@@ -1916,7 +2025,7 @@ def resnet(kernels) -> dict:
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     free_rel = [abs(a - b) / abs(b) for a, b in zip(free_losses, ref_losses)]
     wide_rel = [abs(a - b) / abs(b) for a, b in zip(ref_losses, wide_losses)]
-    load_from_ref(lock)
+    _from_cpu_state(lock, ref)
     logits1 = logits_errs()
     worst_stat = max(lock_stats)
     free_stat = stats_rel(free)
@@ -2918,17 +3027,11 @@ def dtype_resnet_check(kernels) -> dict:
     batches = [_res_batch(g, RES_CHECK_B, RES_CHECK_SIZE, RES_CLASSES, "cpu")
                for _ in range(RES_CHECK_STEPS)]
 
-    def load_from_ref(net):
-        net.load_params(convert.to_numpy(ref.params_list),
-                        convert.to_numpy(ref.state_list))
-        net.load_updater_state(convert.to_numpy(ref.updater_state),
-                               ref.iteration)
-
     steps, misses = [], {}
     control_out = None
     launches = {fn.__name__: 0 for fn in kernels}
     for i, (x, y) in enumerate(batches):
-        load_from_ref(lock)
+        _from_cpu_state(lock, ref)
         before, exact = _f64(ref.params_list), Float64Run(ref)
         loss64 = exact.step(x, y)
         # the card's flagship step alone: the control's launches are not
@@ -2940,7 +3043,7 @@ def dtype_resnet_check(kernels) -> dict:
             launches[fn.__name__] += fn.launches
         last = i == RES_CHECK_STEPS - 1
         if last:
-            load_from_ref(control)
+            _from_cpu_state(control, ref)
             with torch.no_grad():
                 for t in _tensors_of(control.updater_state):
                     t.mul_(RES_CONTROL_LR)
@@ -4029,6 +4132,884 @@ def files_phase(kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The A5 slice's paths: non-causal flash checks, SelfAttention, the MoE LM,
+# the zoo, layerwise pretraining and the Iris drive.
+
+#: bench_attention's geometry (bench.py:506-521): B 4, T 2048, 8 heads of 64;
+#: its ragged edge (T not a multiple of any tile) and its masked batch (a
+#: tail of 256 (b + 1) keys masked in row b)
+SA_B, SA_T, SA_H, SA_D, SA_RAGGED_T, SA_MASK_TAIL = 4, 2048, 8, 64, 2001, 256
+#: the SelfAttention network's width (8 heads of 64), its check length and
+#: timed steps at SA_T
+SA_W, SA_CHECK_T, SA_TIMED = 512, 512, 5
+#: the moe phase: the JAX bench's "moe" (bench.py:260-266, :403-407):
+#: moe_transformer_lm(256, width 256, 4 layers, 4 heads, 8 experts), T 256,
+#: B 8, K-step groups of 4; 2 card steps against the CPU, 8 K-step steps
+MOE_V, MOE_W, MOE_L, MOE_H, MOE_E = 256, 256, 4, 4, 8
+MOE_B, MOE_T, MOE_K, MOE_STEPS, MOE_CHECK_STEPS = 8, 256, 4, 8, 2
+#: a token whose top-2 router probabilities lie closer than this may route
+#: to another expert on the card than on the CPU (counted, not failed)
+MOE_TIE = 1e-5
+#: the zoo phase: VGG-16 at the JAX bench's geometry (bench.py:248-253,
+#: :1802: 224x224x3, 1000 classes, B 64); its card-vs-CPU check at 64x64,
+#: B 4; AlexNet and GoogLeNet checked at 64x64, B 2 (tests/test_model_zoo.py)
+#: and timed at 224x224, B 32
+ZOO_SIZE, ZOO_CLASSES, VGG_B, VGG_WARMUP, VGG_TIMED = 224, 1000, 64, 2, 10
+VGG_CHECK_SIZE, VGG_CHECK_B, VGG_CHECK_STEPS, ZOO_EVAL = 64, 4, 2, 128
+ZOO_SMALL_SIZE, ZOO_SMALL_B, ZOO_OTHER_B, ZOO_OTHER_TIMED = 64, 2, 32, 3
+#: the JAX configs' parameter counts (tests/test_torch_zoo.py holds the
+#: port's equal to them)
+ZOO_PARAMS = {"vgg16": 138357544, "alexnet": 62378344,
+              "googlenet": 6998552}
+#: the pretrain phase: DL4J's VaeMNISTAnomaly widths (784 -> 256, 256 -> 32,
+#: Bernoulli), and an RBM / AutoEncoder / output stack, on 20 batches of 128
+#: synthetic digits
+PT_B, PT_BATCHES, PT_HEAD_STEPS = 128, 20, 5
+#: a Bernoulli draw whose uniform lies this close to its probability may
+#: fall the other way on the card (counted, not failed)
+PT_TIE = 1e-6
+#: the Iris drive's batch
+IRIS_B = 30
+
+
+def _noncausal_case(g, dev, T, masked):
+    B, H, D = SA_B, SA_H, SA_D
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dev)
+                   for _ in range(4))
+    valid = [T] * B
+    km = None
+    if masked:
+        valid = [T - SA_MASK_TAIL * (b + 1) for b in range(B)]
+        km = torch.zeros(B, T)
+        for b, n in enumerate(valid):
+            km[b, :n] = 1.0
+        km = km.to(dev)
+    return q, k, v, do, km, valid
+
+
+def check_flash_noncausal(rows, dev) -> None:
+    """Kernels 1-3 without the causal mask, at bench_attention's geometry
+    (B 4, T 2048, 8 heads of 64), at a ragged T = 2001 and with a key mask
+    that zeroes the tail of every row: against the plain versions, bitwise
+    the same from run to run, and timed beside SDPA (the same mask) and the
+    bound of the pairs this input needs."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    tol = 2e-5
+    for T, masked in ((SA_T, False), (SA_RAGGED_T, False), (SA_T, True)):
+        q, k, v, do, km, valid = _noncausal_case(g, dev, T, masked)
+        B, H, D = SA_B, SA_H, SA_D
+        out, lse = flash_fwd(q, k, v, False, key_mask=km)
+        again = flash_fwd(q, k, v, False, key_mask=km)
+        ro, rl = flash_fwd_plain(q, k, v, False, key_mask=km)
+        delta = bwd_delta(out, do)
+        grads = [flash_bwd_dq(q, k, v, do, lse, delta, False, km),
+                 *flash_bwd_dkv(q, k, v, do, lse, delta, False, km)]
+        twice = [flash_bwd_dq(q, k, v, do, lse, delta, False, km),
+                 *flash_bwd_dkv(q, k, v, do, lse, delta, False, km)]
+        plain = [flash_bwd_dq_plain(q, k, v, do, lse, delta, False, km),
+                 *flash_bwd_dkv_plain(q, k, v, do, lse, delta, False, km)]
+        torch.cuda.synchronize()
+        shape = {"B": B, "T": T, "H": H, "D": D, "causal": False,
+                 "masked": masked}
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                and all(torch.equal(a, b) for a, b in zip(grads, twice))):
+            fail(f"flash {shape} differs from run to run")
+        errs = {"flash_fwd": max(float((out - ro).abs().max()),
+                                 float((lse - rl).abs().max())),
+                "flash_bwd_dq": float((grads[0] - plain[0]).abs().max()),
+                "flash_bwd_dkv": max(float((grads[1] - plain[1]).abs().max()),
+                                     float((grads[2] - plain[2]).abs().max()))}
+        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        am = None if km is None else (km > 0)[:, None, None, :]
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        dot = do.transpose(1, 2).contiguous()
+
+        def lib_fwd(qt=qt, kt=kt, vt=vt, am=am):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=am)
+
+        def lib_bwd(ot=ot, qt=qt, kt=kt, vt=vt, dot=dot):
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib_bwd_ms = time_ms(lib_bwd, iters=10)
+        # the pairs this input needs: every query against its row's keys
+        pairs = H * T * sum(valid)
+        row = B * T * H * D * 4
+        stats = B * H * T * 4
+        mask_b = 0 if km is None else B * T * 4
+        for name, nbytes, ops, kernel, plain_fn, lib, lib_ms in (
+                ("flash_fwd", 4 * row + stats + mask_b, 4 * D * pairs,
+                 lambda: flash_fwd(q, k, v, False, key_mask=km),
+                 lambda: flash_fwd_plain(q, k, v, False, key_mask=km),
+                 lib_fwd, None),
+                ("flash_bwd_dq", 5 * row + 2 * stats + mask_b, 6 * D * pairs,
+                 lambda: flash_bwd_dq(q, k, v, do, lse, delta, False, km),
+                 lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta, False,
+                                            km), lib_bwd, lib_bwd_ms),
+                ("flash_bwd_dkv", 6 * row + 2 * stats + mask_b, 8 * D * pairs,
+                 lambda: flash_bwd_dkv(q, k, v, do, lse, delta, False, km),
+                 lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, False,
+                                             km), lib_bwd, lib_bwd_ms)):
+            f32_ms, f32_by = bound(nbytes, ops)
+            tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+            r = report(rows, name, shape, errs[name], tol,
+                       time_ms(kernel, iters=10), time_ms(plain_fn, iters=5),
+                       lib_ms if lib_ms is not None
+                       else time_ms(lib, iters=10), nbytes, ops,
+                       {"card": CARD, "bound_ms": tc_ms, "bound_by": tc_by,
+                        "bound_f32_ms": f32_ms, "bound_f32_by": f32_by})
+            DEVICE_TIMED.append((r, kernel, lib))
+        del ro, rl, plain, ot
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _want(kernels, **counts) -> dict:
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update(counts)
+    return want
+
+
+def _check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        fail(f"{what}: launch counts {got} != expected {want}")
+
+
+def sa_conf():
+    """SelfAttentionLayer(n_out=512, n_heads=8) (non-causal by default),
+    average pooling over time, a 10-way softmax output."""
+    return (NeuralNetConfiguration.builder().seed(SEED).learning_rate(1e-3)
+            .updater("adam").list()
+            .layer(SelfAttentionLayer.conf(n_out=SA_W, n_heads=SA_H))
+            .layer(GlobalPoolingLayer.conf(pooling_type="avg"))
+            .layer(OutputLayer.conf(n_out=10, loss="mcxent",
+                                    activation="softmax"))
+            .set_input_type(InputType.recurrent(SA_W, SA_CHECK_T)).build())
+
+
+def self_attention(kernels) -> dict:
+    """The SelfAttention network on the card against the CPU at T = 512
+    (output, 2 fit steps each from the CPU run's state, a ragged masked
+    batch's fit step and score), then timed at B 4, T 2048."""
+    g = torch.Generator().manual_seed(SEED + 8)
+    B, T = SA_B, SA_CHECK_T
+    x = torch.randn(B, T, SA_W, generator=g).numpy()
+    y = F.one_hot(torch.arange(B) % 10, 10).float().numpy()
+    mask = np.ones((B, T), np.float32)
+    for b in range(1, B):
+        mask[b, T - T // 4 * b - 1:] = 0.0  # ragged: 512, 383, 255, 127
+    ref = MultiLayerNetwork(sa_conf(), device="cpu").init(seed=SEED)
+    card = ref.clone(device="cuda")
+    _zero(kernels)
+    out_err = float((card.output(x).cpu() - ref.output(x)).abs().max())
+    out_launches = _launches(kernels)
+    _check_launches("SelfAttention output", out_launches,
+                    _want(kernels, flash_fwd=1))
+    losses, ref_losses, step_launches = [], [], []
+    for s in range(3):
+        fmask = mask if s == 2 else None
+        if s:
+            _from_cpu_state(card, ref)
+        _zero(kernels)
+        card.fit(x, y, fmask=fmask)
+        torch.cuda.synchronize()
+        step_launches.append(_launches(kernels))
+        ref.fit(x, y, fmask=fmask)
+        losses.append(card.score_value)
+        ref_losses.append(ref.score_value)
+        _check_launches(f"SelfAttention step {s}", step_launches[-1],
+                        _want(kernels, flash_fwd=1, flash_bwd_dq=1,
+                              flash_bwd_dkv=1, softmax_cross_entropy=1))
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    _from_cpu_state(card, ref)
+    ds = DataSet(x, y, mask)
+    masked_score = (card.score(dataset=ds), ref.score(dataset=ds))
+    rel = [_rel(a, b) for a, b in zip(losses, ref_losses)]
+    rel.append(_rel(*masked_score))
+    print(f"self_attention (T={T}): output max_abs_err {out_err:.3e}; card "
+          f"losses {losses} (the last masked); CPU {ref_losses}; masked "
+          f"score {masked_score}; worst relative {max(rel):.3e} (tol 1e-4)",
+          flush=True)
+    if not (out_err <= 1e-4 and max(rel) <= 1e-4):
+        fail("SelfAttention on the card disagrees with the CPU")
+    # timed at bench_attention's geometry
+    net = MultiLayerNetwork(sa_conf(), device="cuda").init(seed=SEED)
+    xt = torch.randn(SA_B, SA_T, SA_W, generator=g).to("cuda")
+    yt = torch.from_numpy(y).to("cuda")
+    for _ in range(2):
+        net.fit(xt, yt)
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    for _ in range(SA_TIMED):
+        net.fit(xt, yt)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / SA_TIMED
+    timed_launches = _launches(kernels)
+    n = SA_TIMED
+    _check_launches("SelfAttention timed steps", timed_launches,
+                    _want(kernels, flash_fwd=n, flash_bwd_dq=n,
+                          flash_bwd_dkv=n, softmax_cross_entropy=n))
+    print(f"self_attention step (B={SA_B}, T={SA_T}, {SA_H} heads of "
+          f"{SA_D}, non-causal): {step_ms:.3f} ms wall, "
+          f"{SA_B * SA_T / (step_ms / 1e3):.0f} tokens/s [{CARD}]", flush=True)
+    return {"output_max_abs_err": out_err, "losses": losses,
+            "cpu_losses": ref_losses, "masked_score": list(masked_score),
+            "worst_rel": max(rel), "output_launches": out_launches,
+            "step_launches": step_launches, "step_ms": step_ms,
+            "timed_launches": timed_launches,
+            "masked_launches": step_launches[2],
+            "unmasked_launches": {k_: out_launches[k_] + step_launches[0][k_]
+                                  + step_launches[1][k_]
+                                  + timed_launches[k_]
+                                  for k_ in out_launches},
+            "launches": {k_: out_launches[k_] + sum(s[k_] for s in
+                                                   step_launches)
+                         for k_ in out_launches}}
+
+
+def moe_conf():
+    return moe_transformer_lm(MOE_V, width=MOE_W, n_layers=MOE_L,
+                              n_heads=MOE_H, n_experts=MOE_E, max_len=MOE_T)
+
+
+@torch.no_grad()
+def moe_routes(net, x) -> list:
+    """Each MoE block's routing of ``x``'s tokens in the eval forward:
+    ``(expert [S], gap between the top two router probabilities [S])``."""
+    h = net._to_device(x)
+    out = []
+    for layer, p, st in zip(net.layers, net.params_list, net.state_list):
+        if layer.has_loss():
+            break
+        if isinstance(layer, MoETransformerBlock):
+            eidx, _, probs = layer.route(p, layer.ffn_tokens(p, h)[1])
+            top = probs.topk(2, dim=-1).values
+            out.append((eidx.cpu(), (top[:, 0] - top[:, 1]).cpu()))
+        h = layer.apply_with_state(p, st, h)[0]
+    return out
+
+
+def _route_agreement(card_routes, cpu_routes) -> list:
+    """Per layer: tokens, near-ties (CPU gap <= MOE_TIE), tokens routed
+    elsewhere on the card among the near-ties and among the rest."""
+    out = []
+    for (ce, _), (re_, gap) in zip(card_routes, cpu_routes):
+        tie = gap <= MOE_TIE
+        flip = ce != re_
+        out.append({"tokens": int(ce.numel()), "near_ties": int(tie.sum()),
+                    "flips_near_ties": int((flip & tie).sum()),
+                    "flips": int((flip & ~tie).sum()),
+                    "experts_used": int(torch.unique(ce).numel())})
+    return out
+
+
+def _moe_family(kernel: str, chain: list) -> str:
+    """A MoE LM step's device kernel by family: ``sm_xent``, the flash
+    kernels, copies, the updater (its profiler range), the expert einsums
+    (every batched product of the step: ``aten::bmm`` and its backward),
+    the attention and head projections (the other products), and the rest
+    (layer norm, softmax, router, elementwise, reductions)."""
+    low = kernel.lower()
+    if "sm_xent" in low:
+        return "sm_xent"
+    if "flash" in low:
+        return "flash"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(UPDATER_LABEL in c for c in chain):
+        return "updater"
+    if any("bmm" in c.lower() for c in chain):
+        return "expert einsums"
+    if "gemm" in low or any(c in ("aten::mm", "aten::addmm") or
+                            "MmBackward" in c for c in chain):
+        return "attention and head projections"
+    return "elementwise, norms, router, reductions"
+
+
+def moe(kernels) -> dict:
+    """The slice's main path: full-width moe_transformer_lm at the JAX
+    bench's geometry."""
+    conf = moe_conf()
+    rng = np.random.default_rng(SEED + 21)
+    x = np.eye(MOE_V, dtype=np.float32)[rng.integers(0, MOE_V,
+                                                     (MOE_B, MOE_T))]
+    # (a) 2 fit steps on the card, each from the CPU run's state: the
+    # routing first, then the loss (with the balance term) and launches
+    ref = MultiLayerNetwork(conf, device="cpu").init(seed=SEED)
+    card = ref.clone(device="cuda")
+    losses, ref_losses, routing, step_launches = [], [], [], []
+    for s in range(MOE_CHECK_STEPS):
+        if s:
+            _from_cpu_state(card, ref)
+        routing.append(_route_agreement(moe_routes(card, x),
+                                        moe_routes(ref, x)))
+        _zero(kernels)
+        card.fit(x, x)
+        torch.cuda.synchronize()
+        step_launches.append(_launches(kernels))
+        ref.fit(x, x)
+        losses.append(card.score_value)
+        ref_losses.append(ref.score_value)
+    rel = [_rel(a, b) for a, b in zip(losses, ref_losses)]
+    print(f"moe: card losses {losses}; CPU {ref_losses}; worst relative "
+          f"{max(rel):.3e} (tol 1e-4); routing by step and layer {routing}",
+          flush=True)
+    for s, layers in enumerate(routing):
+        if any(r["flips"] for r in layers):
+            fail(f"moe step {s}: a token routed to another expert on the "
+                 f"card than on the CPU with its top-2 gap above {MOE_TIE}: "
+                 f"{layers}")
+    if not max(rel) <= 1e-4 or not all(np.isfinite(losses)):
+        fail(f"moe losses on the card {losses} disagree with the CPU "
+             f"{ref_losses}")
+    for got in step_launches:
+        _check_launches("moe step", got, _want(
+            kernels, flash_fwd=MOE_L, flash_bwd_dq=MOE_L,
+            flash_bwd_dkv=MOE_L, softmax_cross_entropy=1))
+    del ref
+    # (b) the K-step dispatch against eager single steps from one init
+    k = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    k.dispatch_ksteps = MOE_K
+    e = k.clone()
+    e.dispatch_ksteps = 1
+    logs, counts = {}, {}
+    for name, net in (("kstep", k), ("eager", e)):
+        logs[name] = []
+        net.set_listeners(_LossLog(logs[name]))
+        _zero(kernels)
+        net.fit(x, x, epochs=MOE_STEPS)
+        torch.cuda.synchronize()
+        counts[name] = _launches(kernels)
+        net.set_listeners()
+    check = _compare("moe", logs["kstep"], logs["eager"],
+                     [(k.params_list, e.params_list),
+                      (k.state_list, e.state_list)])
+    n = MOE_STEPS
+    graphs = _graph_counts(k, counts["kstep"])
+    want = _want(kernels, softmax_cross_entropy=n, flash_fwd=MOE_L * n,
+                 flash_bwd_dq=MOE_L * n, flash_bwd_dkv=MOE_L * n)
+    if counts["kstep"] != want or counts["eager"] != want \
+            or graphs["replays"] != n - 1:
+        fail(f"moe K-step launches {counts} or replays {graphs} wrong")
+    timing = _timed_pair(f"moe (B = {MOE_B}, T = {MOE_T}, fit(epochs={n}))",
+                         lambda: e.fit(x, x, epochs=n),
+                         lambda: k.fit(x, x, epochs=n), n)
+    _footprint(timing, graphs)
+    # (c) one profiled eager step by family
+    prof, prof_ms = profiled(lambda: e.fit(x, x))
+    by_family = device_us_by_family(prof, _moe_family)
+    busy_us = sum(by_family.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the moe step")
+    wall = {w: timing[w]["wall_ms_per_step"] for w in ("eager", "kstep")}
+    perf = {f"{w}_{m}": v for w, ms in wall.items() for m, v in (
+        ("ms_per_step", ms), ("samples_per_s", MOE_B / (ms / 1e3)),
+        ("tokens_per_s", MOE_B * MOE_T / (ms / 1e3)))}
+    print(f"moe step (B={MOE_B}, T={MOE_T}): eager {wall['eager']:.3f} ms, "
+          f"K-step {wall['kstep']:.3f} ms a step ({perf['eager_tokens_per_s']:.0f}"
+          f" / {perf['kstep_tokens_per_s']:.0f} tokens/s); profiled eager step"
+          f" {prof_ms:.3f} ms, device {busy_us:.1f} us, idle share "
+          f"{1 - busy_us / 1e3 / wall['eager']:.3f} of the unprofiled step "
+          f"[{CARD}]", flush=True)
+    for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  moe step device time {fam}: {us:.1f} us "
+              f"({100 * us / busy_us:.1f}%)", flush=True)
+    # (d) /v1/predict of [2, 256] tokens, float32 and int8, against the
+    # CPU forward of the same served leaves. One-hot rows: float ids of
+    # shape [2, T] read as a one-hot [B, V] batch when T equals the
+    # vocabulary, as in the JAX package's embedding
+    cpu_twin = e.clone(device="cpu")
+    ids = np.eye(MOE_V, dtype=np.float32)[
+        rng.integers(0, MOE_V, size=(2, MOE_T))]
+    srv = InferenceServer(device="cuda")
+    srv.start()
+    served = {}
+    try:
+        srv.register("moe", e)
+        srv.register("moe_int8", e, quant="int8")
+        for model, quant in (("moe", None), ("moe_int8", "int8")):
+            _zero(kernels)
+            status, body = post(srv.port, "/v1/predict",
+                                {"model": model, "inputs": ids.tolist()})
+            got = _launches(kernels)
+            if status != 200:
+                fail(f"moe /v1/predict ({model}) returned {status}: "
+                     f"{body[:500]}")
+            pred = np.asarray(json.loads(body)["predictions"], np.float32)
+            want_p = PredictFn(cpu_twin, quant=quant, device="cpu")(ids)
+            err = float(np.abs(pred - want_p.numpy()).max())
+            served[model] = {"max_abs_err": err, "launches": got}
+            _check_launches(f"moe /v1/predict ({model})", got,
+                            _want(kernels, flash_fwd=MOE_L))
+    finally:
+        srv.stop()
+    # (e) the JAX-written lm_golden.zip restored on the card
+    from deeplearning4j_tpu_torch.utils.model_serializer import guess_model
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+    gnet = guess_model(os.path.join(golden, "lm_golden.zip"))
+    exp = np.load(os.path.join(golden, "lm_golden_expected.npz"))
+    golden_err = float(np.abs(gnet.output(exp["lm_in"]).cpu().numpy()
+                              - exp["lm_out"]).max())
+    print(f"moe /v1/predict [2, {MOE_T}] against the CPU: {served}; "
+          f"lm_golden.zip on the card: max_abs_err {golden_err:.3e} "
+          f"(tol 1e-4)", flush=True)
+    if not (all(v["max_abs_err"] <= 1e-4 for v in served.values())
+            and golden_err <= 1e-4):
+        fail("moe serving or lm_golden.zip disagrees with the reference")
+    return {"card": CARD, "losses": losses, "cpu_losses": ref_losses,
+            "worst_rel": max(rel), "routing": routing,
+            "step_launches": step_launches,
+            "launches": {k_: sum(s[k_] for s in step_launches)
+                         for k_ in step_launches[0]},
+            "kstep": {**check, **graphs}, "eager_launches": counts["eager"],
+            "timing": timing, **perf, "profiled_step_ms": prof_ms,
+            "device_us_total": busy_us, "device_us_by_family": by_family,
+            "idle_share_eager": 1 - busy_us / 1e3 / wall["eager"],
+            "peak_memory_bytes": timing["eager"]["peak_memory_bytes"],
+            "predict": served,
+            "predict_launches": served["moe"]["launches"],
+            "golden_max_abs_err": golden_err}
+
+
+def list_flops(conf, batch: int) -> float:
+    """:func:`resnet_flops` for a list network."""
+    from deeplearning4j_tpu_torch.nn.conf.serde import layer_class
+    itype = conf.input_type
+    total = 0.0
+    for i, lc in enumerate(conf.layers):
+        pp = conf.preprocessor(i)
+        if pp is not None:
+            itype = pp.output_type(itype)
+        itype = layer_class(lc.type).output_type(lc.fields, itype)
+        total += _step_flops(lc.type, lc.fields, itype, i == 0)
+    return total * batch
+
+
+def _zoo_net(name: str, device, **kw):
+    conf = {"vgg16": vgg16, "alexnet": alexnet,
+            "googlenet": googlenet}[name](n_classes=ZOO_CLASSES, **kw)
+    cls = ComputationGraph if name == "googlenet" else MultiLayerNetwork
+    return cls(conf, device=device)
+
+
+def _fit(net, x, y):
+    if isinstance(net, ComputationGraph):
+        net.fit([x], [y])
+    else:
+        net.fit(x, y)
+
+
+def _out(net, x):
+    o = net.output(x)
+    return (o[0] if isinstance(o, list) else o).cpu()
+
+
+def zoo_check(name, kernels, size, batch, steps) -> dict:
+    """Card against CPU from the same weights (dropout at retain 1.0, as
+    the two RNGs differ): the eval output, then ``steps`` fit steps each
+    from the CPU run's state, one sm_xent launch a step."""
+    ref = _zoo_net(name, "cpu", image_size=size, dropout=1.0).init(seed=SEED)
+    card = ref.clone(device="cuda")
+    g = torch.Generator().manual_seed(SEED + 31)
+    x, y = _res_batch(g, batch, size, ZOO_CLASSES, "cpu")
+    out_err = float((_out(card, x) - _out(ref, x)).abs().max())
+    losses, ref_losses = [], []
+    launches = _want(kernels)
+    for s in range(steps):
+        if s:
+            _from_cpu_state(card, ref)
+        _zero(kernels)
+        _fit(card, x.cuda(), y.cuda())
+        torch.cuda.synchronize()
+        got = _launches(kernels)
+        _check_launches(f"{name} step", got,
+                        _want(kernels, softmax_cross_entropy=1))
+        launches = {k_: launches[k_] + got[k_] for k_ in got}
+        _fit(ref, x, y)
+        losses.append(card.score_value)
+        ref_losses.append(ref.score_value)
+    rel = [_rel(a, b) for a, b in zip(losses, ref_losses)]
+    print(f"{name} ({size}x{size}, B={batch}) card vs CPU: output "
+          f"max_abs_err {out_err:.3e}, losses {losses} / {ref_losses}, worst "
+          f"relative {max(rel):.3e} (tol 1e-4)", flush=True)
+    if not (out_err <= 1e-4 and max(rel) <= 1e-4):
+        fail(f"{name} on the card disagrees with the CPU")
+    return {"output_max_abs_err": out_err, "losses": losses,
+            "cpu_losses": ref_losses, "worst_rel": max(rel),
+            "launches": launches}
+
+
+def _tree_map(fn, t):
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_tree_map(fn, v) for v in t]
+    return fn(t)
+
+
+def _snapshot(net) -> tuple:
+    """A device copy of the network's params, layer states, updater state
+    and iteration, for :func:`_restore`."""
+    return (_tree_map(torch.Tensor.clone, (
+        net.params_list, net.state_list, net.updater_state)), net.iteration)
+
+
+@torch.no_grad()
+def _restore(net, snap) -> None:
+    """Copy a :func:`_snapshot` back into the network, in place."""
+    trees, net.iteration = snap
+
+    def copy(dst, src):
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(src)
+        else:
+            for k in (dst if isinstance(dst, dict) else range(len(dst))):
+                copy(dst[k], src[k])
+
+    copy([net.params_list, net.state_list, net.updater_state], trees)
+
+
+def profiled(fn) -> tuple:
+    """``fn`` run once under ``torch.profiler``: ``(prof, wall ms)``. A
+    session that saw no device time is run again, up to three times."""
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        if any(us for _, _, us in device_events(prof)):
+            break
+    return prof, ms
+
+
+def zoo_bench(name, kernels, batch, warmup, timed, profiled_step) -> dict:
+    """Full width at 224x224 with the config's own dropout: warm-up and
+    timed steps (wall ms, samples/s, peak memory, one sm_xent launch a
+    step), and with ``profiled_step`` one profiled step by family and the
+    share of the float32 peak. At the config's rate (0.01, Nesterov 0.9) a
+    new He-initialized VGG-16 diverges on these random labels within a few
+    steps (its loss reads 730 after the second step at 64x64), so every
+    step starts from the initial state, restored on the device (its copies
+    are timed apart and included in the step's time), and a step whose loss
+    is not finite fails the phase."""
+    net = _zoo_net(name, "cuda", image_size=ZOO_SIZE).init(seed=SEED)
+    if net.num_params() != ZOO_PARAMS[name]:
+        fail(f"{name}: {net.num_params()} params, the JAX config has "
+             f"{ZOO_PARAMS[name]}")
+    conf = net.conf
+    flops = (resnet_flops(conf, batch) if isinstance(net, ComputationGraph)
+             else list_flops(conf, batch))
+    x, y = _res_batch(torch.Generator().manual_seed(SEED + 32), batch,
+                      ZOO_SIZE, ZOO_CLASSES, "cuda")
+    init = _snapshot(net)
+    restore_ms = time_ms(lambda: _restore(net, init), iters=10, warmup=2)
+
+    def step():
+        _restore(net, init)
+        _fit(net, x, y)
+        return net._score  # the device scalar: read after the window
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / timed
+    launches = _launches(kernels)
+    losses = [float(v) for v in losses]
+    _check_launches(f"{name} timed steps", launches,
+                    _want(kernels, softmax_cross_entropy=warmup + timed))
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: a step's loss is not finite: {losses}")
+    out = {"card": CARD, "batch": batch, "params": net.num_params(),
+           "losses": losses, "restore_ms": restore_ms,
+           "step_ms": step_ms, "samples_per_s": batch / (step_ms / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "step_tflop": flops / 1e12,
+           "f32_peak_share": flops / F32_OPS_PER_S / (step_ms / 1e3)}
+    if profiled_step:
+        prof, out["profiled_step_ms"] = profiled(step)
+        fam = device_us_by_family(prof, _resnet_family)
+        busy = sum(fam.values())
+        if busy <= 0:
+            fail(f"the profiler saw no device time in the {name} step")
+        out.update(device_us_by_family=fam, device_us_total=busy,
+                   idle_share=1 - busy / 1e3 / step_ms,
+                   f32_peak_share_of_device_time=flops / F32_OPS_PER_S
+                   / (max(busy, 1e-9) / 1e6))
+    print(f"{name} step ({ZOO_SIZE}x{ZOO_SIZE}x3, B={batch}): {step_ms:.3f} ms wall, "
+          f"{out['samples_per_s']:.1f} samples/s, {flops / 1e12:.3f} TFLOP, "
+          f"{100 * out['f32_peak_share']:.1f}% of the float32 peak; peak "
+          f"memory {out['peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"{out['params']} params; restore {restore_ms:.3f} ms a step "
+          f"(included); losses {losses[0]:.4f} .. {losses[-1]:.4f} [{CARD}]"
+          + (f"; device {out['device_us_total']:.1f} us, idle share "
+             f"{out['idle_share']:.3f}" if profiled_step else ""), flush=True)
+    for f_, us in sorted(out.get("device_us_by_family", {}).items(),
+                         key=lambda kv: -kv[1]):
+        print(f"  {name} step device time {f_}: {us:.1f} us "
+              f"({100 * us / out['device_us_total']:.1f}%)", flush=True)
+    out["net"] = net
+    return out
+
+
+def zoo(kernels) -> dict:
+    """VGG-16 at the JAX bench's geometry, AlexNet and GoogLeNet at 224x224,
+    B 32, each held to the CPU at a small size first."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    res = {"vgg16": {"check": zoo_check("vgg16", kernels, VGG_CHECK_SIZE,
+                                        VGG_CHECK_B, VGG_CHECK_STEPS)}}
+    bench = zoo_bench("vgg16", kernels, VGG_B, VGG_WARMUP, VGG_TIMED, True)
+    # the timed network (one step from its initial state) evaluated and
+    # served
+    net = bench.pop("net")
+    ge = torch.Generator().manual_seed(SEED + 33)
+    sets = [DataSet(*(t.numpy() for t in _res_batch(
+        ge, VGG_B, ZOO_SIZE, ZOO_CLASSES, "cpu")))
+        for _ in range(ZOO_EVAL // VGG_B)]
+    _zero(kernels)
+    t0 = time.perf_counter()
+    ev = net.evaluate(sets)
+    torch.cuda.synchronize()
+    bench["eval_s"] = time.perf_counter() - t0
+    if ev.num_examples != ZOO_EVAL or any(_launches(kernels).values()):
+        fail(f"vgg16 evaluate saw {ev.num_examples} images")
+    rows = sets[0].features[:2]
+    srv = InferenceServer(device="cuda", max_batch=2)
+    srv.start()
+    try:
+        srv.register("vgg16", net)
+        status, body = post(srv.port, "/v1/predict",
+                            {"model": "vgg16", "inputs": rows.tolist()})
+    finally:
+        srv.stop()
+    if status != 200:
+        fail(f"vgg16 /v1/predict returned {status}: {body[:500]}")
+    pred = np.asarray(json.loads(body)["predictions"], np.float32)
+    bench["predict_max_abs_err"] = float(np.abs(
+        pred - _out(net, rows).numpy()).max())
+    print(f"vgg16 evaluate on {ev.num_examples} images in "
+          f"{bench['eval_s']:.3f}s; /v1/predict of 2 rows against the card's"
+          f" output: max_abs_err {bench['predict_max_abs_err']:.3e} (tol "
+          f"1e-4)", flush=True)
+    if not bench["predict_max_abs_err"] <= 1e-4:
+        fail("vgg16 /v1/predict disagrees with the card's output")
+    res["vgg16"].update(bench)
+    del net
+    for name in ("alexnet", "googlenet"):
+        res[name] = {"check": zoo_check(name, kernels, ZOO_SMALL_SIZE,
+                                        ZOO_SMALL_B, 1)}
+        b = zoo_bench(name, kernels, ZOO_OTHER_B, 1, ZOO_OTHER_TIMED, False)
+        b.pop("net")
+        res[name].update(b)
+    torch.cuda.empty_cache()
+    return res
+
+
+def pt_vae_graph():
+    """A VariationalAutoencoder vertex at DL4J's VaeMNISTAnomaly widths and
+    a 10-way head."""
+    return (NeuralNetConfiguration.builder().seed(SEED).learning_rate(1e-3)
+            .updater("adam").graph_builder().add_inputs("in")
+            .add_layer("vae", VariationalAutoencoder.conf(
+                n_in=784, n_out=32, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), activation="leakyrelu",
+                reconstruction_distribution="bernoulli"), "in")
+            .add_layer("out", OutputLayer.conf(n_in=32, n_out=10,
+                                               loss="mcxent",
+                                               activation="softmax"), "vae")
+            .set_outputs("out").build())
+
+
+def pt_stack():
+    """RBM(784 -> 500, CD-1), AutoEncoder(500 -> 250, corruption 0.3), a
+    10-way output, with layerwise pretraining before the supervised epoch."""
+    return (NeuralNetConfiguration.builder().seed(SEED).learning_rate(0.05)
+            .list()
+            .layer(RBM.conf(n_in=784, n_out=500, k=1))
+            .layer(AutoEncoder.conf(n_out=250, corruption_level=0.3))
+            .layer(OutputLayer.conf(n_out=10, loss="mcxent",
+                                    activation="softmax"))
+            .pretrain(True)
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def pretrain_phase(kernels) -> dict:
+    """Layerwise pretraining on the card: a VAE graph vertex through
+    ``pretrain_layer`` against the CPU, then the head's fit steps; an
+    RBM / AutoEncoder stack's first CD update against the CPU, then
+    ``fit_iterator`` (pretraining, then the supervised epoch)."""
+    batches = list(MnistDataSetIterator(PT_B, num_examples=PT_B * PT_BATCHES))
+    # (a) the VAE vertex's pretraining step on each batch, on the card from
+    # the CPU run's state, both given the same normals (drawn once, on the
+    # CPU, from one seeded generator) through the step's ``noise``
+    ref = ComputationGraph(pt_vae_graph(), device="cpu").init(seed=SEED)
+    card = ref.clone(device="cuda")
+    step_r = make_graph_pretrain_step(ref, "vae")
+    step_c = make_graph_pretrain_step(card, "vae")
+    ge = torch.Generator().manual_seed(SEED + 40)
+    eps = [torch.randn(PT_B, 32, generator=ge) for _ in batches]
+    losses, ref_losses = [], []
+    _zero(kernels)
+    for ds, e in zip(batches, eps):
+        _from_cpu_state(card, ref)
+        xs = [torch.from_numpy(ds.features)]
+        card.updater_state["vae"], loss = step_c(
+            card.params_list, card.state_list, card.updater_state["vae"],
+            [xs[0].cuda()], None, card.iteration, noise=[e.cuda()])
+        losses.append(float(loss))
+        ref.updater_state["vae"], loss = step_r(
+            ref.params_list, ref.state_list, ref.updater_state["vae"], xs,
+            None, ref.iteration, noise=[e])
+        ref_losses.append(float(loss))
+    check_launches = _launches(kernels)
+    rel = [_rel(a, b) for a, b in zip(losses, ref_losses)]
+    print(f"pretrain VAE vertex step ({PT_BATCHES} batches of {PT_B}, the "
+          f"CPU's normals): card losses {losses[0]:.4f} .. {losses[-1]:.4f};"
+          f" worst relative {max(rel):.3e} against the CPU (tol 1e-4)",
+          flush=True)
+    if not max(rel) <= 1e-4:
+        fail("the VAE pretraining step on the card disagrees with the CPU")
+    _check_launches("VAE pretraining check", check_launches, _want(kernels))
+    del ref
+    # then the entry point on the card alone, its normals drawn there: only
+    # the vertex moves, the iteration stays
+    card = ComputationGraph(pt_vae_graph(), device="cuda").init(seed=SEED)
+    head0 = copy.deepcopy(convert.to_numpy(card.params_list["out"]))
+    pre = []
+    _zero(kernels)
+    for ds in batches:
+        card.pretrain_layer("vae", [ds])
+        pre.append(card.score_value)
+    pre_launches = _launches(kernels)
+    head_same = all(np.array_equal(head0[k], v) for k, v in
+                    convert.to_numpy(card.params_list["out"]).items())
+    print(f"pretrain VAE vertex pretrain_layer on the card: losses "
+          f"{pre[0]:.4f} .. {pre[-1]:.4f}; head unchanged {head_same}; "
+          f"iteration {card.iteration}", flush=True)
+    if not (head_same and card.iteration == 0 and np.isfinite(pre).all()
+            and pre[-1] < pre[0]):
+        fail("the VAE's pretrain_layer on the card moved the head or the "
+             "iteration, or did not lower its loss")
+    _check_launches("VAE pretraining", pre_launches, _want(kernels))
+    _zero(kernels)
+    for ds in batches[:PT_HEAD_STEPS]:
+        card.fit(ds)
+    torch.cuda.synchronize()
+    head_launches = _launches(kernels)
+    _check_launches("VAE graph fit", head_launches,
+                    _want(kernels, softmax_cross_entropy=PT_HEAD_STEPS))
+    vae = {"losses": losses, "cpu_losses": ref_losses, "worst_rel": max(rel),
+           "pretrain_layer_losses": pre, "head_unchanged": head_same,
+           "fit_launches": head_launches, "fit_score": card.score_value}
+    del card
+    # (b) the RBM's first CD update: the chain's uniforms drawn once, on
+    # the CPU, and given to both devices
+    ref = MultiLayerNetwork(pt_stack(), device="cpu").init(seed=SEED)
+    card = ref.clone(device="cuda")
+    x = torch.from_numpy(batches[0].features)
+    rbm_r, rbm_c = ref.layers[0], card.layers[0]
+    gu = torch.Generator().manual_seed(SEED + 41)
+    u = [torch.rand(s, generator=gu) for s in rbm_r.noise_shapes(PT_B)]
+    chain_r = rbm_r.gibbs_chain(ref.params_list[0], x, noise=u)
+    chain_c = rbm_c.gibbs_chain(card.params_list[0], x.cuda(),
+                                noise=[t.cuda() for t in u])
+    flips = near = bad = 0
+    compared = 0
+    for (ur, pr, sr), (_, _, sc) in zip(chain_r[3], chain_c[3]):
+        diff = sr != sc.cpu()
+        tie = (ur - pr).abs() < PT_TIE
+        flips += int(diff.sum())
+        near += int(tie.sum())
+        bad += int((diff & ~tie).sum())
+        compared += 1
+        if diff.any():
+            break  # later draws follow other probabilities
+    upd_err = None
+    if flips == 0:
+        names = ("W", "b", "vb")
+        gr = torch.autograd.grad(rbm_r.pretrain_loss(
+            ref.params_list[0], x, noise=u),
+            [ref.params_list[0][n] for n in names])
+        gc = torch.autograd.grad(rbm_c.pretrain_loss(
+            card.params_list[0], x.cuda(), noise=[t.cuda() for t in u]),
+            [card.params_list[0][n] for n in names])
+        upd_err = max(float((a.cpu() - b).abs().max())
+                      / max(float(b.abs().max()), 1e-12)
+                      for a, b in zip(gc, gr))
+    print(f"pretrain RBM first CD update: {flips} Bernoulli samples differ "
+          f"from the CPU's ({near} uniforms within {PT_TIE} of their "
+          f"probability; {bad} differ elsewhere) over {compared} draws; "
+          f"update relative error {upd_err} (tol 1e-5)", flush=True)
+    if bad or (upd_err is not None and not upd_err <= 1e-5):
+        fail("the RBM's CD update on the card disagrees with the CPU")
+    # (c) fit_iterator: the layerwise pretraining, then the supervised epoch
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator)
+    before = copy.deepcopy(convert.to_numpy(card.params_list))
+    _zero(kernels)
+    t0 = time.perf_counter()
+    card.fit_iterator(ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = _launches(kernels)
+    moved = [any(not np.array_equal(before[i][k], v) for k, v in
+                 convert.to_numpy(p).items())
+             for i, p in enumerate(card.params_list)]
+    print(f"pretrain stack fit_iterator ({PT_BATCHES} batches): "
+          f"{fit_s:.3f}s, iteration {card.iteration}, loss "
+          f"{card.score_value:.4f}, layers moved {moved}, launches "
+          f"{fit_launches}", flush=True)
+    _check_launches("pretrain stack fit_iterator", fit_launches,
+                    _want(kernels, softmax_cross_entropy=PT_BATCHES))
+    if not (all(moved) and card.iteration == PT_BATCHES
+            and np.isfinite(card.score_value)):
+        fail("the pretrain-then-fit stack did not train every layer")
+    return {"vae": vae, "rbm_flips": flips, "rbm_near_ties": near,
+            "rbm_update_rel_err": upd_err, "stack_fit_s": fit_s,
+            "stack_launches": fit_launches, "stack_score": card.score_value,
+            "launches": {k_: head_launches[k_] + fit_launches[k_]
+                         for k_ in fit_launches}}
+
+
+def iris(kernels) -> dict:
+    """The SKILL.md library drive on the card: Iris, a 4 -> 16 -> 3 dense
+    network, Adam at 0.1, 20 epochs of 5 batches of 30."""
+    it = IrisDataSetIterator(batch=IRIS_B)
+    conf = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.1)
+            .updater("adam").list()
+            .layer(DenseLayer.conf(n_in=4, n_out=16, activation="relu"))
+            .layer(OutputLayer.conf(n_in=16, n_out=3, loss="mcxent",
+                                    activation="softmax")).build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    _zero(kernels)
+    net.fit_iterator(it, epochs=20)
+    torch.cuda.synchronize()
+    launches = _launches(kernels)
+    acc = net.evaluate(it).accuracy()
+    print(f"iris: accuracy {acc:.4f} after 20 epochs (must be > 0.9); "
+          f"launches {launches}", flush=True)
+    _check_launches("iris", launches, _want(kernels,
+                                            softmax_cross_entropy=100))
+    if not acc > 0.9:
+        fail(f"iris accuracy {acc} <= 0.9")
+    return {"accuracy": acc, "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4059,6 +5040,7 @@ def main() -> None:
     check_flash(rows, dev)
     check_xent(rows, dev)
     check_flash_bwd(rows, dev)
+    check_flash_noncausal(rows, dev)
     check_lstm(rows, dev)
     check_bf16(rows, dev)
 
@@ -4082,7 +5064,20 @@ def main() -> None:
     graph_rnn_run = graph_rnn(kernels)
     dtype_run = dtype_phase(kernels)
     files_run = files_phase(kernels)
+    phase_s = {}
+    for name, phase in (("self_attention", self_attention), ("moe", moe),
+                        ("zoo", zoo), ("pretrain", pretrain_phase),
+                        ("iris", iris)):
+        t0 = time.perf_counter()
+        phase_s[name] = (phase(kernels), time.perf_counter() - t0)
+        print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
+    sa_run, moe_run, zoo_run, pretrain_run, iris_run = (
+        phase_s[n][0] for n in ("self_attention", "moe", "zoo", "pretrain",
+                                "iris"))
+    t0 = time.perf_counter()
     measure_device_times()
+    print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # one entry per kernel, at the shape its main path gave it: decode at
     # capacity 8 (M = 8, the widest matmul), predict at B = 2, training at
@@ -4158,9 +5153,60 @@ def main() -> None:
         "files_transformer_file": files_run["transformer"]["launches"]["file"],
         "files_lbfgs": files_run["lbfgs"]["launches"]}
 
+    # the A5 paths, every launch on each
+    a5_paths = {
+        "selfattention": sa_run["launches"],
+        "selfattention_timed": sa_run["timed_launches"],
+        "moe_train": moe_run["launches"],
+        "moe_ksteps": moe_run["kstep"]["launches"],
+        "moe_eager": moe_run["eager_launches"],
+        "moe_predict": moe_run["predict_launches"],
+        "vgg16": zoo_run["vgg16"]["launches"],
+        "alexnet": zoo_run["alexnet"]["launches"],
+        "googlenet": zoo_run["googlenet"]["launches"],
+        "vgg16_check": zoo_run["vgg16"]["check"]["launches"],
+        "alexnet_check": zoo_run["alexnet"]["check"]["launches"],
+        "googlenet_check": zoo_run["googlenet"]["check"]["launches"],
+        "pretrain": pretrain_run["launches"], "iris": iris_run["launches"]}
+    sa_shape = {"B": SA_B, "H": SA_H, "D": SA_D, "causal": False}
+    a5_rows = {"noncausal": dict(sa_shape, T=SA_T, masked=False),
+               "noncausal_ragged": dict(sa_shape, T=SA_RAGGED_T,
+                                        masked=False),
+               "noncausal_masked": dict(sa_shape, T=SA_T, masked=True)}
+    # sm_xent's rows: each path's shape and the paths launching at it
+    a5_xent = {"moe": ({"N": MOE_B * MOE_T, "C": MOE_V}, ("moe_train",)),
+               "vgg16": ({"N": VGG_B, "C": ZOO_CLASSES}, ("vgg16",)),
+               "vgg16_check": ({"N": VGG_CHECK_B, "C": ZOO_CLASSES},
+                               ("vgg16_check",)),
+               "alexnet_googlenet": ({"N": ZOO_OTHER_B, "C": ZOO_CLASSES},
+                                     ("alexnet", "googlenet")),
+               "alexnet_googlenet_check": (
+                   {"N": ZOO_SMALL_B, "C": ZOO_CLASSES},
+                   ("alexnet_check", "googlenet_check")),
+               "selfattention": ({"N": SA_B, "C": 10},
+                                 ("selfattention", "selfattention_timed")),
+               "pretrain": ({"N": PT_B, "C": 10}, ("pretrain",)),
+               "iris": ({"N": IRIS_B, "C": 3}, ("iris",))}
+
     def add_dtype_paths(entry, fname, name):
         entry["launches_by_path"].update(
-            {p: n[fname] for p, n in {**dtype_paths, **files_paths}.items()})
+            {p: n[fname] for p, n in {**dtype_paths, **files_paths,
+                                       **a5_paths}.items()})
+        if name.startswith("flash"):
+            by = entry.setdefault("by_path", {})
+            by["moe"] = {"launches": moe_run["launches"][fname],
+                         **nums(row_at(name, {"B": MOE_B, "T": MOE_T,
+                                              "D": 64}))}
+            for path, shp in a5_rows.items():
+                by[path] = {"launches": {
+                    "noncausal": sa_run["unmasked_launches"][fname],
+                    "noncausal_masked": sa_run["masked_launches"][fname]}
+                    .get(path, 0), **nums(row_at(name, shp))}
+        elif name == "sm_xent":
+            for path, (shp, lpaths) in a5_xent.items():
+                entry["by_path"][path] = {
+                    "launches": sum(a5_paths[p][fname] for p in lpaths),
+                    **nums(row_at(name, shp))}
         if name in bf16_paths:
             entry["bf16_launches_by_path"] = {
                 p: dtype_paths[p][fname] for p in bf16_paths[name]}
@@ -4289,7 +5335,11 @@ def main() -> None:
                    "train_rnn": trained_rnn, "lenet": lenet_run,
                    "resnet50": resnet_run, "ksteps": kstep_run,
                    "graph_rnn": graph_rnn_run, "dtype": dtype_run,
-                   "files": files_run, "kernels": line,
+                   "files": files_run, "self_attention": sa_run,
+                   "moe": moe_run, "zoo": zoo_run, "pretrain": pretrain_run,
+                   "iris": iris_run,
+                   "phase_seconds": {n: v[1] for n, v in phase_s.items()},
+                   "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

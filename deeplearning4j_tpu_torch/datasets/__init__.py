@@ -1,6 +1,10 @@
 """Datasets: the ``DataSet`` container, the iterators ``fit_iterator`` and
-``evaluate`` take, and MNIST."""
+``evaluate`` take, MNIST and the CIFAR-10, LFW, Curves and Iris
+fetchers."""
 from .dataset import DataSet, NormalizerMinMaxScaler, NormalizerStandardize
+from .fetchers import (
+    CifarDataSetIterator, CurvesDataSetIterator, IrisDataSetIterator,
+    LFWDataSetIterator)
 from .iterators import (
     ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
     ExistingDataSetIterator, ListDataSetIterator, MultipleEpochsIterator,
@@ -8,9 +12,10 @@ from .iterators import (
 from .mnist import MnistDataSetIterator
 from .prefetch import DevicePrefetcher
 
-__all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator", "DataSet",
+__all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator",
+           "CifarDataSetIterator", "CurvesDataSetIterator", "DataSet",
            "DataSetIterator", "DevicePrefetcher", "ExistingDataSetIterator",
-           "ListDataSetIterator",
+           "IrisDataSetIterator", "LFWDataSetIterator", "ListDataSetIterator",
            "MnistDataSetIterator", "MultipleEpochsIterator",
            "NormalizerMinMaxScaler", "NormalizerStandardize",
            "SamplingDataSetIterator"]

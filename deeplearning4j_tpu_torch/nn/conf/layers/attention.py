@@ -1,4 +1,5 @@
-"""Attention layers of the slice: ``TransformerBlock`` and ``attend``.
+"""Attention layers: ``SelfAttentionLayer``, ``TransformerBlock`` and
+``attend``.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers/attention.py``. The
 attention core is the flash-attention forward and backward kernels
@@ -6,6 +7,8 @@ attention core is the flash-attention forward and backward kernels
 the MLP are plain matmuls (:func:`~.feedforward.policy_matmul`), as the
 JAX package leaves them to XLA; under a bf16 policy q, k and v reach the
 flash kernels in bf16.
+``SelfAttentionLayer`` is non-causal by default; a masked batch reaches
+the flash kernels with its ``[B, Tk]`` key mask (``masked_attention``).
 Layout: ``[batch, time, features]``.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from ....common import at_least_f32, get_policy
 from ....ops.activations import gelu
 from ....ops.flash_attention import flash_attention, masked_attention
+from ..inputs import InputType
 from ..serde import register_layer
 from .base import FeedForwardLayer
 from .feedforward import policy_matmul
@@ -41,6 +45,71 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     xhat = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
     return xhat * g.to(x.dtype) + b.to(x.dtype)
+
+
+def attention_residual(params: dict, x: torch.Tensor, n_heads: int,
+                       causal: bool, mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """A pre-LN block's first half, ``x + attn(LN1(x) Wqkv) Wo + bo`` (the
+    ``ln1_*``, ``Wqkv``, ``Wo`` and ``bo`` params), shared by
+    ``TransformerBlock`` and ``MoETransformerBlock``."""
+    od = get_policy().output_dtype
+    B, T, F_ = x.shape
+    D = F_ // n_heads
+    h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+    qkv = policy_matmul(h, params["Wqkv"]).to(od)
+    q, k, v = (t.reshape(B, T, n_heads, D).contiguous()
+               for t in torch.split(qkv, F_, dim=-1))
+    o = attend(q, k, v, causal, mask).reshape(B, T, F_)
+    att = policy_matmul(o, params["Wo"])
+    return x + att.to(od) + params["bo"].to(od)
+
+
+@register_layer("SelfAttention")
+class SelfAttentionLayer(FeedForwardLayer):
+    """Multi-head self-attention with a fused QKV projection: ``act(attn(x
+    Wqkv) Wo + b)``. ``n_out`` is the model width; params ``Wqkv`` [n_in,
+    3 n_out], ``Wo`` [n_out, n_out], ``b`` [n_out]."""
+
+    FIELDS = {**FeedForwardLayer.FIELDS, "n_heads": 4, "causal": False}
+
+    @classmethod
+    def set_n_in(cls, fields, itype):
+        super().set_n_in(fields, itype)
+        if not fields.get("n_out"):
+            fields["n_out"] = fields["n_in"]
+
+    @classmethod
+    def output_type(cls, fields, itype):
+        return InputType.recurrent(fields["n_out"], itype.timesteps)
+
+    def __init__(self, conf, device):
+        self.n_heads = int(conf.get("n_heads", 4))
+        self.causal = bool(conf.get("causal", False))
+        super().__init__(conf, device)
+        if self.n_out % self.n_heads:
+            raise ValueError(f"n_out {self.n_out} not divisible by n_heads "
+                             f"{self.n_heads}")
+
+    def param_shapes(self):
+        return {"Wqkv": (self.n_in, 3 * self.n_out),
+                "Wo": (self.n_out, self.n_out), "b": (self.n_out,)}
+
+    def regularizable_params(self):
+        return ("Wqkv", "Wo")
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        od = get_policy().output_dtype
+        x = self.apply_dropout(x, gen, train)
+        B, T, _ = x.shape
+        H = self.n_heads
+        D = self.n_out // H
+        qkv = policy_matmul(x, params["Wqkv"]).to(od)
+        q, k, v = (t.reshape(B, T, H, D).contiguous()
+                   for t in torch.split(qkv, self.n_out, dim=-1))
+        o = attend(q, k, v, self.causal, mask).reshape(B, T, self.n_out)
+        out = policy_matmul(o, params["Wo"]).to(od) + params["b"].to(od)
+        return self.act_fn()(out)
 
 
 @register_layer("TransformerBlock")
@@ -87,16 +156,7 @@ class TransformerBlock(FeedForwardLayer):
 
     def apply(self, params, x, mask=None, train=False, gen=None):
         od = get_policy().output_dtype
-        B, T, F_ = x.shape
-        H = self.n_heads
-        D = F_ // H
-        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
-        qkv = policy_matmul(h, params["Wqkv"]).to(od)
-        q, k, v = (t.reshape(B, T, H, D).contiguous()
-                   for t in torch.split(qkv, F_, dim=-1))
-        o = attend(q, k, v, self.causal, mask).reshape(B, T, F_)
-        att = policy_matmul(o, params["Wo"])
-        x = x + att.to(od) + params["bo"].to(od)
+        x = attention_residual(params, x, self.n_heads, self.causal, mask)
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         h = policy_matmul(h, params["W1"])
         h = gelu(h.to(od) + params["b1"].to(od))

@@ -22,6 +22,10 @@ does: the new state comes out of the forward and is written by the network
 after the step, never in place inside the forward (a checkpointed layer runs
 its forward twice).
 
+A :class:`PretrainLayer` (``AutoEncoder``, ``RBM``,
+``VariationalAutoencoder``) adds :meth:`PretrainLayer.pretrain_loss`, the
+objective of greedy layerwise pretraining.
+
 Dropout follows DL4J: ``dropout`` is the *retain* probability, and kept
 values are divided by it (inverted dropout). It applies only in training
 and only when a ``torch.Generator`` is given.
@@ -136,6 +140,11 @@ class Layer(nn.Module):
         """True for output layers that end backprop with a loss function."""
         return False
 
+    def is_pretrain_layer(self) -> bool:
+        """True for layers with an unsupervised objective
+        (:class:`PretrainLayer`)."""
+        return False
+
     def init_param(self, name: str, shape, gen: torch.Generator) -> torch.Tensor:
         """Weights (``W*``) by the weight-init scheme, biases by bias_init."""
         if name.startswith("W"):
@@ -207,3 +216,36 @@ class FeedForwardLayer(Layer):
         self.n_in = int(conf["n_in"])
         self.n_out = int(conf["n_out"])
         super().__init__(conf, device)
+
+
+def random_uniform(gen: Optional[torch.Generator], shape,
+                   device) -> torch.Tensor:
+    """Uniforms in [0, 1) drawn on ``device`` from ``gen``, a generator on
+    that device (as the dropout masks' are)."""
+    return torch.rand(tuple(shape), generator=gen, device=device)
+
+
+def random_normal(gen: Optional[torch.Generator], shape,
+                  device) -> torch.Tensor:
+    """Standard normals drawn as :func:`random_uniform` draws uniforms."""
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
+class PretrainLayer(FeedForwardLayer):
+    """A layer with an unsupervised objective, minimized by layerwise
+    pretraining (``MultiLayerNetwork.pretrain_layer``,
+    ``ComputationGraph.pretrain_layer``).
+
+    :meth:`pretrain_loss` takes its random draws from ``noise`` when given
+    (uniforms for a Bernoulli draw, normals for the VAE, in the order the
+    JAX layer splits its key), else from ``gen``. The JAX package's
+    ``jax.random`` bits cannot be made in torch, so a test that holds the
+    port against it passes the JAX draws in ``noise``."""
+
+    def is_pretrain_layer(self) -> bool:
+        return True
+
+    def pretrain_loss(self, params: dict, x: torch.Tensor, *,
+                      gen: Optional[torch.Generator] = None,
+                      noise=None) -> torch.Tensor:
+        raise NotImplementedError

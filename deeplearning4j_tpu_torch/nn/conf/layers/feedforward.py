@@ -1,8 +1,8 @@
 """Dense-family layers: ``DenseLayer``, ``OutputLayer``, ``LossLayer``,
-``ActivationLayer``, ``DropoutLayer`` and ``EmbeddingLayer``.
+``ActivationLayer``, ``DropoutLayer``, ``EmbeddingLayer``, and the
+pretraining layers ``AutoEncoder`` and ``RBM``.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers/feedforward.py`` (its
-``AutoEncoder`` and ``RBM`` wait for layerwise pretraining, ROADMAP.md).
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers/feedforward.py``.
 ``W`` is ``[n_in, out]`` as in the JAX package. An ``OutputLayer`` with
 ``mcxent`` and a softmax takes the fused softmax cross-entropy
 (``ops/losses.py``), the ``sm_xent`` kernel on the card.
@@ -20,7 +20,7 @@ import torch
 from ....common import accum_dtype, get_policy
 from ....ops.losses import get_loss
 from ..serde import register_layer
-from .base import FeedForwardLayer, Layer
+from .base import FeedForwardLayer, Layer, PretrainLayer, random_uniform
 
 
 class WideMatmul(torch.autograd.Function):
@@ -178,3 +178,141 @@ class EmbeddingLayer(FeedForwardLayer):
                 idx = idx[..., 0]
         emb = (params["W"][idx] + params["b"]).to(get_policy().output_dtype)
         return self.act_fn()(emb)
+
+
+@register_layer("AutoEncoder")
+class AutoEncoder(PretrainLayer):
+    """Denoising autoencoder: ``encode = act(x @ W + b)``, ``decode =
+    act(h @ W^T + vb)``. Its pretraining objective is the
+    ``pretrain_loss_fn`` loss of the reconstruction of a corrupted input
+    (each input unit zeroed with probability ``corruption_level``), plus a
+    KL sparsity term on the mean hidden activation when ``sparsity`` > 0.
+    The supervised forward is the encoder."""
+
+    FIELDS = {**FeedForwardLayer.FIELDS, "corruption_level": 0.3,
+              "sparsity": 0.0, "pretrain_loss_fn": "mse"}
+
+    def __init__(self, conf, device):
+        self.corruption_level = float(conf.get("corruption_level", 0.0))
+        self.sparsity = float(conf.get("sparsity", 0.0))
+        self.pretrain_loss_fn = conf.get("pretrain_loss_fn", "mse")
+        super().__init__(conf, device)
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out), "b": (self.n_out,),
+                "vb": (self.n_in,)}
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        x = self.apply_dropout(x, gen, train)
+        return self.encode(params, x)
+
+    def encode(self, params, x):
+        return self.act_fn()(dense(params, x))
+
+    def decode(self, params, h):
+        return self.act_fn()(torch.matmul(h, params["W"].t()) + params["vb"])
+
+    def pretrain_loss(self, params, x, *, gen=None, noise=None):
+        """``noise``: the ``[N, n_in]`` uniforms of the corruption mask (a
+        unit is kept where its uniform is below ``1 - corruption_level``)."""
+        corrupted = x
+        if self.corruption_level > 0:
+            u = noise if noise is not None else random_uniform(gen, x.shape,
+                                                               x.device)
+            corrupted = torch.where(u < 1.0 - self.corruption_level, x,
+                                    torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+        recon = self.decode(params, self.encode(params, corrupted))
+        loss = get_loss(self.pretrain_loss_fn)(x, recon, lambda v: v, None)
+        if self.sparsity > 0:
+            rho = self.sparsity
+            h_c = torch.clamp(self.encode(params, x).mean(dim=0), 1e-7,
+                              1 - 1e-7)
+            loss = loss + torch.sum(rho * torch.log(rho / h_c)
+                                    + (1 - rho) * torch.log((1 - rho)
+                                                            / (1 - h_c)))
+        return loss
+
+
+@register_layer("RBM")
+class RBM(PretrainLayer):
+    """Restricted Boltzmann machine trained by CD-k; the supervised forward
+    is ``act(x @ W + b)``.
+
+    The CD-k update is not the gradient of a function, so pretraining
+    minimizes a surrogate whose gradient is the negative CD update: the
+    Gibbs chain runs without gradient (the JAX ``stop_gradient``) and the
+    surrogate is linear in the params. ``visible_unit`` is ``"binary"``
+    (sampled) or ``"gaussian"`` (the mean, unsampled)."""
+
+    FIELDS = {**FeedForwardLayer.FIELDS, "k": 1, "visible_unit": "binary",
+              "hidden_unit": "binary"}
+
+    def __init__(self, conf, device):
+        self.k = int(conf.get("k", 1))
+        self.visible_unit = conf.get("visible_unit", "binary")
+        self.hidden_unit = conf.get("hidden_unit", "binary")
+        super().__init__(conf, device)
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out), "b": (self.n_out,),
+                "vb": (self.n_in,)}
+
+    def apply(self, params, x, mask=None, train=False, gen=None):
+        x = self.apply_dropout(x, gen, train)
+        return self.act_fn()(dense(params, x))
+
+    def prop_up(self, params, v):
+        return torch.sigmoid(torch.matmul(v, params["W"]) + params["b"])
+
+    def prop_down(self, params, h):
+        pre = torch.matmul(h, params["W"].t()) + params["vb"]
+        return pre if self.visible_unit == "gaussian" else torch.sigmoid(pre)
+
+    def noise_shapes(self, n: int) -> list:
+        """The shape of each of the chain's ``2k + 1`` uniforms (the JAX
+        layer's ``2k + 1`` keys): the first hidden sample, then a visible
+        and a hidden one a Gibbs step."""
+        return ([(n, self.n_out)]
+                + [(n, self.n_in), (n, self.n_out)] * self.k)
+
+    @torch.no_grad()
+    def gibbs_chain(self, params, x, *, gen=None, noise=None):
+        """The CD-k chain from ``x``: ``(ph, vk, hk, draws)``, the data's
+        hidden probabilities, the chain's last visible and hidden values,
+        and every Bernoulli draw as ``(uniform, probability, sample)``.
+        Element ``j`` of ``noise`` is the uniform of the JAX key ``j``."""
+        shapes = self.noise_shapes(x.shape[0])
+        draws = []
+
+        def sample(j, p):
+            u = noise[j] if noise is not None else random_uniform(
+                gen, shapes[j], p.device)
+            s = (u < p).to(p.dtype)
+            draws.append((u, p, s))
+            return s
+
+        ph = self.prop_up(params, x)
+        vk = x
+        hk = sample(0, ph)
+        for i in range(self.k):
+            vk = self.prop_down(params, hk)
+            if self.visible_unit == "binary":
+                vk = sample(2 * i + 1, vk)
+            hk_prob = self.prop_up(params, vk)
+            hk = sample(2 * i + 2, hk_prob) if i < self.k - 1 else hk_prob
+        return ph, vk, hk, draws
+
+    def pretrain_loss(self, params, x, *, gen=None, noise=None):
+        """The surrogate ``-(<v+ h+> - <v- h->) . W - (<v+> - <v->) . vb -
+        (<h+> - <h->) . b`` (means over the batch): its gradient is the
+        negative CD-k update. ``noise``: the chain's uniforms, by
+        :meth:`noise_shapes`."""
+        ph, vk, hk, _ = self.gibbs_chain(params, x, gen=gen, noise=noise)
+        n = x.shape[0]
+        w = params["W"]
+        w_term = (torch.sum(torch.matmul(x.t(), ph) * w)
+                  - torch.sum(torch.matmul(vk.t(), hk) * w)) / n
+        vb_term = torch.sum((x.mean(dim=0) - vk.mean(dim=0)) * params["vb"])
+        b_term = torch.sum((ph.mean(dim=0) - hk.mean(dim=0)) * params["b"])
+        return -(w_term + vb_term + b_term)

@@ -3,21 +3,14 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/serde.py``. Layer classes
 register under the JAX package's registry names (``"Dense"``,
 ``"Convolution"``, ``"GravesLSTM"``, ``"TransformerBlock"``, ...), so a JAX
-``conf.to_json()`` reads here unchanged. A name that is not registered
-raises.
+``conf.to_json()`` reads here unchanged: every layer type the JAX package
+registers is registered here. A name that is not registered raises.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 LAYER_TYPES: Dict[str, type] = {}
-
-#: layer types the JAX package registers that this port does not have yet
-#: (queued in ROADMAP.md)
-NOT_YET_PORTED = (
-    "AutoEncoder", "RBM", "VariationalAutoencoder", "SelfAttention", "MoE",
-    "MoETransformerBlock")
-
 
 def register_layer(name: str):
     """Class decorator: register a layer module under its ``"@type"`` name."""
@@ -30,9 +23,6 @@ def register_layer(name: str):
 
 def layer_class(name: str) -> type:
     from . import layers  # noqa: F401  (registers the layer modules)
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"layer @type {name!r} is not ported yet "
-                                  "(ROADMAP.md)")
     try:
         return LAYER_TYPES[name]
     except KeyError:

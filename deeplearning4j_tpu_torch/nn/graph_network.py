@@ -2,14 +2,18 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph_network.py``: ``MultiDataSet``,
 the pure functions (``graph_forward``, ``graph_forward_streaming``,
-``graph_loss``, ``_apply_graph_updates``, ``make_graph_train_step``,
-``make_graph_tbptt_step``) and the stateful shell (``init``, ``output`` as
+``graph_loss``, ``_aux_losses``, ``_apply_graph_updates``,
+``make_graph_train_step``, ``make_graph_tbptt_step``,
+``eval_forward_to_vertex``, ``make_graph_pretrain_step``) and the stateful
+shell (``init``, ``output`` as
 a list, ``score``, ``fit`` on a ``DataSet``, a ``MultiDataSet``, input and
 label lists or an iterable, ``fit_iterator`` with the K-step dispatch of
 ``nn/ksteps.py``, truncated BPTT, ``evaluate``, the flat
 ``params``/``set_params``/``num_params`` view, ``score_examples``,
-``gradient_and_score``, the recurrent API ``rnn_time_step`` and the
-previous-state accessors, ``clone``).
+``gradient_and_score``, layerwise pretraining (``pretrain``,
+``pretrain_layer``, and ``fit_iterator`` of a config with ``pretrain``
+set), the recurrent API ``rnn_time_step`` and the previous-state
+accessors, ``clone``).
 
 The forward walks the vertices in the configuration's topological order.
 Masks are routed per input stream: a vertex takes the first mask among its
@@ -17,7 +21,8 @@ inputs'. A layer vertex runs its layer module's ``apply_with_state``; a
 training forward returns the new layer states and the step writes them
 after the update. The train loss is the sum of the output layers' losses
 on their inputs (the output layers' own forward is not needed for it), plus
-regularization. As in ``MultiLayerNetwork``, the step is eager:
+the vertices' auxiliary losses (a MoE vertex's load-balance term, in the
+standard and the TBPTT step alike) and regularization. As in ``MultiLayerNetwork``, the step is eager:
 ``torch.autograd.grad`` gives the gradients and the updater subtracts each
 step from its parameter in place, vertex by vertex in topological order,
 inside a ``torch.profiler.record_function`` range (``UPDATER_LABEL``) that
@@ -37,8 +42,7 @@ and ``output``/``score``/``evaluate`` run under, as for
 ``MultiLayerNetwork``.
 
 A non-SGD ``optimization_algo`` trains through the ``Solver``
-(``optimize/solvers.py``). Layerwise pretraining is not ported yet and
-raises ``NotImplementedError`` (ROADMAP.md).
+(``optimize/solvers.py``).
 """
 from __future__ import annotations
 
@@ -51,24 +55,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common import resolve_device, under_conf_policy
+from ..common import resolve_device, under_conf_policy, wrap_with_policy
 from .conf.graphconf import ComputationGraphConfiguration
 from .conf.layers.recurrent import streaming_lstm
 from .conf.serde import layer_class
 from .conf.vertices import LayerVertex
 from .ksteps import KStepFit
 from .multilayer import (
-    _SEED_RANGE, _dropout_gen, _layer_seeds, _numpy, _rewound, _updater_spec,
-    load_states, update_layer, write_states)
+    _SEED_RANGE, UPDATER_LABEL, _dropout_gen, _layer_seeds, _numpy, _rewound,
+    _updater_spec, load_states, pretrain_update, update_layer, write_states)
 from .updaters import updater_init
-
-
-#: the profiler range around the updater's kernels in a train step
-UPDATER_LABEL = "dl4j::updater"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
 
 
 @dataclasses.dataclass
@@ -215,14 +211,29 @@ def _output_losses(net, params, loss_inputs, labels, lmasks=None):
     return total
 
 
+def _aux_losses(net, new_states):
+    """The vertices' auxiliary objectives: a layer vertex publishes one as
+    an ``"aux_loss"`` scalar in its state (the MoE load-balance term),
+    weighted by its layer's ``aux_loss_weight``."""
+    total = 0.0
+    for name, ns in new_states.items():
+        if isinstance(ns, dict) and "aux_loss" in ns:
+            layer = net.vertex_layers.get(name)
+            total = total + getattr(layer, "aux_loss_weight", 1.0) * \
+                ns["aux_loss"]
+    return total
+
+
 def graph_loss(net, params, states, inputs, labels, rng=None, fmasks=None,
                lmasks=None):
     """Training loss: the output layers' losses of a train-mode forward,
-    plus regularization. Returns ``(loss, new_states)``."""
+    plus the auxiliary losses and regularization. Returns ``(loss,
+    new_states)``."""
     _, new_states, loss_inputs = graph_forward(
         net, params, states, inputs, train=True, rng=rng, masks=fmasks,
         collect_loss_inputs=True)
     total = _output_losses(net, params, loss_inputs, labels, lmasks)
+    total = total + _aux_losses(net, new_states)
     return total + _graph_regularization(net, params), new_states
 
 
@@ -277,7 +288,8 @@ def make_graph_tbptt_step(net):
     ``(params, states, upd_state, rnn_states, inputs, labels, rng,
     iteration, fmasks, lmasks) -> (states', upd_state', rnn_states',
     loss)``: the streaming forward from the carried LSTM state (detached at
-    the chunk's end), the output layers' losses plus regularization, and
+    the chunk's end), the output layers' losses plus the auxiliary losses
+    and regularization, and
     the update of every layer vertex, biases at their own rate, as the
     graph's ordinary step."""
 
@@ -287,6 +299,7 @@ def make_graph_tbptt_step(net):
             net, params, states, rnn_states, inputs, train=True, rng=rng,
             masks=fmasks, collect_loss_inputs=True, truncate=True)
         loss = _output_losses(net, params, loss_inputs, labels, lmasks)
+        loss = loss + _aux_losses(net, new_states)
         loss = loss + _graph_regularization(net, params)
         new_upd = _apply_graph_updates(net, params, loss, upd_state, iteration)
         return new_states, new_upd, new_rnn, loss.detach()
@@ -307,6 +320,56 @@ def make_graph_train_step(net):
         return new_states, new_upd, loss.detach()
 
     return train_step
+
+
+def _ancestors(conf, name: str) -> set:
+    """``name``'s ancestor vertices and network inputs."""
+    anc, stack = set(), list(conf.vertex_inputs.get(name, []))
+    while stack:
+        n = stack.pop()
+        if n not in anc:
+            anc.add(n)
+            stack.extend(conf.vertex_inputs.get(n, []))
+    return anc
+
+
+def eval_forward_to_vertex(net, params, states, inputs, name: str):
+    """The eval-mode forward of ``name``'s ancestors only: returns the
+    vertex's (first) input. The one walk of the graph pretraining step and
+    the graph pretraining gradient check."""
+    conf = net.conf
+    anc = _ancestors(conf, name)
+    acts = dict(zip(conf.network_inputs, inputs))
+    for n in net.order:
+        if n not in anc or n in acts:
+            continue
+        vins = [acts[s] for s in conf.vertex_inputs[n]]
+        layer = net.vertex_layers.get(n)
+        if layer is None:
+            acts[n] = conf.vertices[n].apply(vins, None)
+        else:
+            acts[n] = layer.apply_with_state(params.get(n, {}),
+                                             states.get(n, {}), vins[0])[0]
+    return acts[conf.vertex_inputs[name][0]]
+
+
+def make_graph_pretrain_step(net, name: str):
+    """The unsupervised pretraining step of vertex ``name`` as a plain
+    function: ``(params, states, vertex_upd, inputs, rng, iteration,
+    noise=None) -> (vertex_upd', loss)``. The vertex's ancestors run their
+    eval forward without gradient; only the vertex's params move, in place,
+    through its own updater state."""
+    layer = net.vertex_layers[name]
+    g = net.conf.global_conf
+
+    def pretrain_step(params, states, vertex_upd, inputs, rng, iteration,
+                      noise=None):
+        with torch.no_grad():
+            h = eval_forward_to_vertex(net, params, states, inputs, name)
+        return pretrain_update(g, layer, params[name], vertex_upd, h, rng,
+                               iteration, noise)
+
+    return wrap_with_policy(pretrain_step, g.dtype)
 
 
 class ComputationGraph(KStepFit, nn.Module):
@@ -341,6 +404,8 @@ class ComputationGraph(KStepFit, nn.Module):
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
         self._tbptt_step = None
+        #: the pretraining steps by vertex name (made at first use)
+        self._pretrain_steps: dict = {}
         #: the Solver of a non-SGD ``optimization_algo`` (made at first use)
         self._solver = None
         #: the captured train steps of the K-step dispatch, by batch shapes
@@ -634,11 +699,6 @@ class ComputationGraph(KStepFit, nn.Module):
     def _next_rng(self) -> int:
         return int(torch.randint(0, _SEED_RANGE, (1,), generator=self._rng))
 
-    def _check_trainable(self) -> None:
-        """Raise for the training settings this port cannot run yet."""
-        if self.conf.pretrain:
-            raise _not_ported("pretrain=True: layerwise pretraining")
-
     def _uses_tbptt(self) -> bool:
         """Truncated BPTT applies to graphs with a streaming LSTM vertex;
         any other graph flagged ``TruncatedBPTT`` trains with the standard
@@ -665,7 +725,6 @@ class ComputationGraph(KStepFit, nn.Module):
             return
         if (epochs > 1 and fm is None and lm is None
                 and self._multistep_ok(self.dispatch_ksteps)):
-            self._check_trainable()
             self._fit_repeated(xs, ys, epochs)
             return
         for _ in range(epochs):
@@ -708,7 +767,6 @@ class ComputationGraph(KStepFit, nn.Module):
 
     def _fit_batch(self, xs, ys, fmasks=None, lmasks=None) -> None:
         self._require_init()
-        self._check_trainable()
         if not self._uses_sgd():
             # the Solver algorithms, as in MultiLayerNetwork._fit_batch
             from ..optimize.solvers import Solver
@@ -760,12 +818,40 @@ class ComputationGraph(KStepFit, nn.Module):
             for listener in self.listeners:
                 listener.iteration_done(self, self.iteration)
 
-    # ------------------------------------------------------------------ not ported
+    # ------------------------------------------------------------------ pretrain
     def pretrain(self, iterator) -> None:
-        raise _not_ported("layerwise pretraining on a graph")
+        """Greedy layerwise unsupervised pretraining of every pretraining
+        vertex in topological order (:meth:`pretrain_layer`): earlier
+        vertices are frozen features for later ones."""
+        for name in self.order:
+            layer = self.vertex_layers.get(name)
+            if layer is not None and layer.is_pretrain_layer():
+                self.pretrain_layer(name, iterator)
 
     def pretrain_layer(self, name: str, iterator) -> None:
-        raise _not_ported("layerwise pretraining on a graph")
+        """Pretrain vertex ``name`` on the features of every batch of
+        ``iterator`` (reset first when it can be); its ancestors give its
+        input in eval mode and only its params move. ``score_value`` is the
+        last batch's pretraining loss; ``iteration`` does not move."""
+        self._require_init()
+        if name not in self.conf.vertices:
+            raise ValueError(f"Unknown vertex '{name}'; graph vertices: "
+                             f"{sorted(self.conf.vertices)}")
+        layer = self.vertex_layers.get(name)
+        if layer is None or not layer.is_pretrain_layer():
+            raise ValueError(
+                f"Vertex '{name}' is not pretrainable: layerwise pretraining "
+                "needs an unsupervised layer (VAE, RBM, AutoEncoder)")
+        step = self._pretrain_steps.get(name)
+        if step is None:
+            step = self._pretrain_steps[name] = make_graph_pretrain_step(
+                self, name)
+        for ds in _rewound(iterator):
+            xs = self._to_devices(_coerce_graph_batch(ds)[0])
+            self.updater_state[name], loss = step(
+                self.params_list, self.state_list, self.updater_state[name],
+                xs, self._next_rng(), self.iteration)
+            self.score_value = loss  # a device scalar, read lazily
 
     # ------------------------------------------------------------------ rnn API
     @torch.no_grad()

@@ -264,8 +264,9 @@ class KStepFit:
         unmasked batches run in groups of up to ``ksteps`` steps, staged
         ahead by a :class:`DevicePrefetcher`; masked batches, a group of
         one and an ineligible network take single steps. Listeners see
-        every iteration."""
-        self._check_trainable()
+        every iteration. A config with ``pretrain`` set runs the layerwise
+        pretraining (``pretrain``) over the iterator first, each epoch, as
+        the JAX package does."""
         k = self.dispatch_ksteps if ksteps is None else max(1, ksteps)
         multistep = self._multistep_ok(k)
         for _ in range(epochs):
@@ -274,6 +275,10 @@ class KStepFit:
                     listener.on_epoch_start(self)
             if hasattr(iterator, "reset"):
                 iterator.reset()
+            if self.conf.pretrain:
+                self.pretrain(iterator)
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
             if multistep:
                 self._fit_epoch_multistep(iterator, k)
             else:

@@ -6,12 +6,15 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``,
 ``score_examples``, ``gradient_and_score``, ``evaluate`` and its regression
 and ROC forms, the pure
 training functions (``_regularization``, ``_aux_losses``, ``loss_fn``,
-``make_train_step``, ``make_tbptt_step``) and the stateful shell over them
+``make_train_step``, ``make_tbptt_step``, ``make_pretrain_step``) and
+the stateful shell over them
 (``fit`` on arrays, a ``DataSet`` or an iterable of ``DataSet``\\ s,
 ``_fit_batch`` with ``iterations > 1`` or, for a non-SGD
 ``optimization_algo``, through the ``Solver``, truncated BPTT (``_fit_tbptt``) for
-stacks with an LSTM, ``fit_iterator``, ``score``, ``score_value``,
-listeners, the K-step dispatch of ``nn/ksteps.py``), and the recurrent
+stacks with an LSTM, ``fit_iterator`` (with layerwise pretraining first
+when the config sets ``pretrain``), ``pretrain``, ``pretrain_layer``,
+``score``, ``score_value``, listeners, the K-step dispatch of
+``nn/ksteps.py``), and the recurrent
 API (``rnn_time_step``, the previous-state accessors, ``clone``). Every forward applies the configuration's input
 preprocessors before their layers, as the JAX ``forward_fn`` does.
 
@@ -40,7 +43,8 @@ running state stay float32 under every named policy.
 Iteration numbering follows the JAX package: a step runs with the
 network's ``iteration`` (the Adam bias correction and the learning-rate
 policies read it), then ``iteration`` is incremented and listeners see the
-new value.
+new value. A pretraining step reads the iteration and leaves it as it is,
+as the JAX package does.
 """
 from __future__ import annotations
 
@@ -52,7 +56,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common import host_numpy, resolve_device, under_conf_policy
+from ..common import (
+    host_numpy, resolve_device, under_conf_policy, wrap_with_policy)
 from .conf.multilayer import MultiLayerConfiguration
 from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
@@ -62,6 +67,8 @@ from .updaters import (
     updater_init, updater_step_with_param,
 )
 
+#: the profiler range around the updater's kernels in a train step
+UPDATER_LABEL = "dl4j::updater"
 #: parameter names that train at the bias learning rate
 _BIAS_NAMES = ("b", "vb", "beta")
 _SEED_RANGE = 2 ** 62
@@ -94,9 +101,9 @@ def _regularization(net, params_list) -> torch.Tensor:
 
 
 def _aux_losses(layers, new_states):
-    """Sum of layer-declared auxiliary objectives (a layer publishes one as
-    an ``"aux_loss"`` scalar in its state, weighted by its
-    ``aux_loss_weight``). No layer of this port publishes one yet."""
+    """Sum of layer-declared auxiliary objectives: a layer publishes one as
+    an ``"aux_loss"`` scalar in its state (the MoE layers' load-balance
+    term), weighted by its ``aux_loss_weight``."""
     total = 0.0
     for layer, ns in zip(layers, new_states):
         if isinstance(ns, dict) and "aux_loss" in ns:
@@ -223,11 +230,13 @@ def update_layer(g, layer, params, grads, upd, iteration,
 def _apply_updates(net, params_list, upd_state, loss_val, iteration,
                    bias_rate: bool = True) -> list:
     """Gradients of ``loss_val`` by ``torch.autograd.grad``, then
-    :func:`update_layer` for each layer. Returns the new updater state."""
+    :func:`update_layer` for each layer, inside the ``UPDATER_LABEL``
+    profiler range. Returns the new updater state."""
     g = net.conf.global_conf
     grads = grads_to_param_dtype(_grads(loss_val, params_list), params_list)
     new_upd = []
-    with torch.no_grad():
+    # the label names the updater's kernels in a profile
+    with torch.no_grad(), torch.profiler.record_function(UPDATER_LABEL):
         for i, layer in enumerate(net.layers):
             if not grads[i]:
                 new_upd.append(upd_state[i])
@@ -257,6 +266,57 @@ def make_train_step(net):
         return new_upd, new_states, loss_val.detach()
 
     return train_step
+
+
+def pretrain_update(g, layer, params: dict, upd: dict, h: torch.Tensor,
+                    rng: Optional[int], iteration, noise=None):
+    """One pretraining update of ``layer`` on its input ``h`` (already
+    detached): the gradient of its ``pretrain_loss`` with respect to its
+    own params only, then :func:`update_layer` with every param at the
+    layer's learning rate (no bias rate), without l1/l2, as the JAX
+    pretrain step. The layer's random draws come from a generator on
+    ``h``'s device seeded with ``rng`` unless ``noise`` gives them. Returns
+    ``(upd', loss)``."""
+    gen = None if rng is None else torch.Generator(
+        device=h.device).manual_seed(int(rng))
+    loss = layer.pretrain_loss(params, h, gen=gen, noise=noise)
+    grads = grads_to_param_dtype(_grads(loss, [params]), [params])[0]
+    with torch.no_grad():
+        new_upd = update_layer(g, layer, params, grads, upd, iteration,
+                               bias_rate=False)
+    return new_upd, loss.detach()
+
+
+def eval_forward_to_layer(net, params_list, state_list, x,
+                          layer_idx: int) -> torch.Tensor:
+    """The eval-mode forward of the layers before ``layer_idx``: returns
+    that layer's input, after its preprocessor. The one walk of the
+    pretraining step and the pretraining gradient check."""
+    h = x
+    for i in range(layer_idx):
+        h = net.layers[i].apply_with_state(params_list[i], state_list[i],
+                                           _pre(net, i, h))[0]
+    return _pre(net, layer_idx, h)
+
+
+def make_pretrain_step(net, layer_idx: int):
+    """The unsupervised pretraining step of layer ``layer_idx`` as a plain
+    function: ``(params_list, state_list, layer_upd, x, rng, iteration,
+    noise=None) -> (layer_upd', loss)``. The layers before it run their
+    eval forward (no dropout) without gradient; only the layer's own params
+    move, in place, through its own updater state."""
+    layer = net.layers[layer_idx]
+    g = net.conf.global_conf
+
+    def pretrain_step(params_list, state_list, layer_upd, x, rng, iteration,
+                      noise=None):
+        with torch.no_grad():
+            h = eval_forward_to_layer(net, params_list, state_list, x,
+                                      layer_idx)
+        return pretrain_update(g, layer, params_list[layer_idx], layer_upd,
+                               h, rng, iteration, noise)
+
+    return wrap_with_policy(pretrain_step, g.dtype)
 
 
 def _init_rnn_states(net, batch: int) -> List[dict]:
@@ -390,6 +450,8 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         self._rng = torch.Generator(device="cpu")
         self._train_step = None
         self._tbptt_step = None
+        #: the pretraining steps by layer index (made at first use)
+        self._pretrain_steps: dict = {}
         #: the Solver of a non-SGD ``optimization_algo`` (made at first use)
         self._solver = None
         #: the captured train steps of the K-step dispatch, by batch shapes
@@ -723,14 +785,6 @@ class MultiLayerNetwork(KStepFit, nn.Module):
     def _next_rng(self) -> int:
         return int(torch.randint(0, _SEED_RANGE, (1,), generator=self._rng))
 
-    def _check_trainable(self) -> None:
-        """Raise for the training settings this port cannot run yet, naming
-        the field, instead of training another model than the config's."""
-        if self.conf.pretrain:
-            raise NotImplementedError(
-                "pretrain=True: layerwise pretraining is not ported yet "
-                "(ROADMAP.md)")
-
     def fit(self, x, y=None, *, epochs: int = 1, fmask=None,
             lmask=None) -> None:
         """Fit on arrays, a ``DataSet``, or an iterable of ``DataSet``\\ s.
@@ -749,7 +803,6 @@ class MultiLayerNetwork(KStepFit, nn.Module):
             return
         if (epochs > 1 and fmask is None and lmask is None
                 and self._multistep_ok(self.dispatch_ksteps)):
-            self._check_trainable()
             self._fit_repeated([x], [y], epochs)
             return
         for _ in range(epochs):
@@ -796,7 +849,6 @@ class MultiLayerNetwork(KStepFit, nn.Module):
 
     def _fit_batch(self, x, y, fmask=None, lmask=None) -> None:
         self._require_init()
-        self._check_trainable()
         if not self._uses_sgd():
             # LBFGS, conjugate gradient and line-search GD minimize the batch
             # loss through the Solver, as the JAX package routes them
@@ -844,6 +896,39 @@ class MultiLayerNetwork(KStepFit, nn.Module):
             self.iteration += 1
             for listener in self.listeners:
                 listener.iteration_done(self, self.iteration)
+
+    # ------------------------------------------------------------------ pretrain
+    def pretrain(self, iterator) -> None:
+        """Greedy layerwise unsupervised pretraining: each pretraining layer
+        in order (:meth:`pretrain_layer`), an epoch of ``iterator`` each."""
+        for idx, layer in enumerate(self.layers):
+            if layer.is_pretrain_layer():
+                self.pretrain_layer(idx, iterator)
+
+    def pretrain_layer(self, layer_idx: int, iterator) -> None:
+        """Pretrain layer ``layer_idx`` on the features of every batch of
+        ``iterator`` (reset first when it can be); the earlier layers give
+        its input in eval mode. ``score_value`` is the last batch's
+        pretraining loss; ``iteration`` does not move."""
+        self._require_init()
+        if not 0 <= layer_idx < len(self.layers):
+            raise ValueError(f"layer_idx {layer_idx} out of range for "
+                             f"{len(self.layers)} layers")
+        if not self.layers[layer_idx].is_pretrain_layer():
+            raise ValueError(
+                f"Layer {layer_idx} ({type(self.layers[layer_idx]).__name__})"
+                " is not pretrainable: layerwise pretraining needs an "
+                "unsupervised layer (VAE, RBM, AutoEncoder)")
+        step = self._pretrain_steps.get(layer_idx)
+        if step is None:
+            step = self._pretrain_steps[layer_idx] = make_pretrain_step(
+                self, layer_idx)
+        for ds in _rewound(iterator):
+            self.updater_state[layer_idx], loss = step(
+                self.params_list, self.state_list,
+                self.updater_state[layer_idx], self._to_device(ds.features),
+                self._next_rng(), self.iteration)
+            self.score_value = loss  # a device scalar, read lazily
 
     # ------------------------------------------------------------------ rnn API
     @under_conf_policy

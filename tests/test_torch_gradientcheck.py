@@ -9,10 +9,11 @@ and data beside it, and both must pass. An activation whose backward is
 made 10% wrong must fail the check, and a network on the card raises with
 the message to pass a CPU clone.
 
-Not checked here: the JAX package's attention and MoE cases. MoE and
-``SelfAttentionLayer`` are not ported (ROADMAP.md A5), and the port's
-attention is the flash kernels' arithmetic, float32 inside even for
-float64 operands (its wrappers take float32 and bf16 only), so a float64
+Not checked here: the JAX package's attention and MoE cases (the MoE
+layer's check runs in tests/test_torch_moe.py, the pretraining checks in
+tests/test_torch_pretrain.py). The port's attention is the flash
+kernels' arithmetic, float32 inside even for float64 operands (its
+wrappers take float32 and bf16 only), so a float64
 central difference through ``TransformerBlock`` measures float32 rounding,
 not the gradient; the JAX suite runs its transformer case without
 asserting the result.

@@ -316,18 +316,21 @@ def test_graph_params_round_trip_and_fit_forms(merge):
 
 
 def test_unported_graph_paths_raise(merge):
-    """What a graph still refuses: layerwise pretraining. (The Solver
-    algorithms train a graph since they were ported: an LBFGS config's
-    ``fit`` runs the Solver here, and ``tests/test_torch_solvers.py`` holds
-    it against JAX. ``rnn_time_step`` and ``fit_iterator(ksteps=8)`` are
-    ported; tests/test_torch_graph_rnn.py and tests/test_torch_ksteps.py
-    hold them.)"""
+    """What a graph without a pretraining vertex does with the pretraining
+    entry points, as the JAX package: ``pretrain`` moves nothing,
+    ``pretrain_layer`` of a convolution raises (not pretrainable), and a
+    ``pretrain`` config's ``fit`` on a ``MultiDataSet`` takes the
+    supervised step alone. (Layerwise pretraining itself is held against
+    JAX in tests/test_torch_pretrain.py; the Solver algorithms train a
+    graph: an LBFGS config's ``fit`` runs the Solver here, and
+    ``tests/test_torch_solvers.py`` holds it against JAX.)"""
     net = from_jax(merge["conf"].to_json(), merge["p0"], device="cpu")
     mds = _mds(merge["batches"][0])
-    for call in (lambda: net.pretrain([mds]),
-                 lambda: net.pretrain_layer("conv", [mds])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    before = net.params()
+    net.pretrain([mds])
+    assert torch.equal(net.params(), before) and net.iteration == 0
+    with pytest.raises(ValueError, match="not pretrainable"):
+        net.pretrain_layer("conv", [mds])
     d = _jd(merge["conf"])
     for field, value in (("optimization_algo", "lbfgs"),):
         d2 = json.loads(json.dumps(d))
@@ -339,8 +342,12 @@ def test_unported_graph_paths_raise(merge):
         assert other.score_value < before
     d2 = json.loads(json.dumps(d))
     d2["pretrain"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        from_jax(json.dumps(d2), merge["p0"], device="cpu").fit(mds)
+    flagged = from_jax(json.dumps(d2), merge["p0"], device="cpu")
+    plain = from_jax(merge["conf"].to_json(), merge["p0"], device="cpu")
+    flagged.fit(mds)
+    plain.fit(mds)
+    assert flagged.iteration == 1
+    assert torch.equal(flagged.params(), plain.params())
 
 
 def _tiny_residual(pkg):

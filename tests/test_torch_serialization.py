@@ -21,7 +21,9 @@ against the JAX package on the CPU.
   ResNet-18's loss from 2.4 to 9.3 in one step, where float32 rounding
   alone parts the two packages' trajectories, so the resume runs at 0.01.
 - A zip the port writes restores in the JAX package with the same leaves
-  bitwise and outputs within atol 1e-5 of the port's.
+  bitwise and outputs within atol 1e-5 of the port's (LeNet, a graph and
+  the MoE LM of ``lm_golden.zip`` after 2 steps).
+- ``lm_golden.zip`` restores with the JAX golden test's bound (1e-5).
 - A bf16 leaf is stored as 16-bit patterns (``'V2'``) and read back bitwise
   into a bf16 template; another template raises.
 - ``to_yaml`` is the JAX ``to_yaml`` text, and reads back in either package.
@@ -260,12 +262,19 @@ def test_jax_zip_restores_and_resumes_in_the_port(kind, tmp_path):
 
 
 # ---------------------------------------------------- the port's zip -> JAX
-@pytest.mark.parametrize("kind", ["lenet", "graph"])
+@pytest.mark.parametrize("kind", ["lenet", "graph", "moe_lm"])
 def test_port_zip_restores_in_jax(kind, tmp_path):
     rng = np.random.default_rng(8)
     if kind == "lenet":
         net = MultiLayerNetwork(_small_lenet_port(), device="cpu").init()
         x, y = _digits(rng)
+    elif kind == "moe_lm":
+        # the MoE leaves: 3-D expert weights, the router, the aux state
+        net = ser.restore_multi_layer_network(
+            os.path.join(GOLDEN, "lm_golden.zip"), device="cpu")
+        net.iteration = 0
+        x = np.eye(8, dtype=np.float32)[rng.integers(0, 8, (4, 6))]
+        y = x
     else:
         net = ser.restore_computation_graph(
             os.path.join(GOLDEN, "cg_golden.zip"), device="cpu")
@@ -289,10 +298,11 @@ def test_port_zip_restores_in_jax(kind, tmp_path):
         jnet = jser.guess_model(path)
         _assert_same_leaves(net.params_list, jnet.params_list)
         _assert_same_leaves(net.updater_state, jnet.updater_state)
+        _assert_same_leaves(net.state_list, jnet.state_list)
         assert jnet.iteration == 2
         jnorm = jser.restore_normalizer(path)
         np.testing.assert_array_equal(jnorm.mean, norm.mean)
-        if kind == "lenet":
+        if kind != "graph":
             ref, ours = np.asarray(jnet.output(x)), net.output(x).numpy()
         else:
             ref = np.asarray(jnet.output(*x)[0])
@@ -390,6 +400,16 @@ def test_collections_match_jax():
 
 
 def test_the_moe_golden_zip_is_refused_until_moe_is_ported():
-    """``lm_golden.zip`` holds a Switch-MoE block, which waits for A5."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ser.guess_model(os.path.join(GOLDEN, "lm_golden.zip"), device="cpu")
+    """``lm_golden.zip`` (a transformer block and a Switch-MoE block, written
+    by the JAX serializer) restores now that MoE is ported: its outputs
+    within the JAX golden test's own bound (rtol and atol 1e-5) and its
+    flat updater state bitwise."""
+    exp = np.load(os.path.join(GOLDEN, "lm_golden_expected.npz"))
+    net = ser.guess_model(os.path.join(GOLDEN, "lm_golden.zip"), device="cpu")
+    assert type(net) is MultiLayerNetwork and net.layers[2].TYPE == \
+        "MoETransformerBlock"
+    np.testing.assert_allclose(net.output(exp["lm_in"]).numpy(),
+                               exp["lm_out"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        pytree.flatten_params(net.updater_state, torch.float32).numpy(),
+        exp["lm_updater_flat"])

@@ -301,7 +301,11 @@ def test_dropout_keeps_the_retain_share_and_follows_the_seed():
     ("backprop_type", "TruncatedBPTT"), ("optimization_algo", "lbfgs"),
     ("pretrain", True)])
 def test_unported_training_settings_raise_at_fit(field, value, tmp_path):
-    """Pretraining raises at fit. A transformer LM flagged
+    """A ``pretrain(True)`` stack without a pretraining layer trains as the
+    JAX one does: ``fit`` takes the supervised step, and ``fit_iterator``
+    runs the (empty) layerwise pretraining, then the supervised epoch, the
+    same steps (layerwise pretraining itself is held against JAX in
+    tests/test_torch_pretrain.py). A transformer LM flagged
     ``TruncatedBPTT`` has no LSTM, so it trains with the standard step (one
     update per batch, not per chunk), as the JAX package does. An LBFGS
     config trains through the Solver (one LBFGS iteration a ``fit``, the
@@ -333,14 +337,17 @@ def test_unported_training_settings_raise_at_fit(field, value, tmp_path):
         np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL)
         _assert_params(tnet, ref["params"], PARAM_RTOL, PARAM_ATOL)
         return
-    conf = MultiLayerConfiguration.from_json(
-        lm_conf_json(global_fields=glob, top_fields=top))
-    net = MultiLayerNetwork(conf, device="cpu").init()
-    with pytest.raises(NotImplementedError, match=field):
-        net.fit(x, y)
-    with pytest.raises(NotImplementedError, match=field):
-        net.fit_iterator([DataSet(x, y)])
-    assert net.iteration == 0
+    conf = lm_conf_json(global_fields=glob, top_fields=top)
+    batches = [_batch(s) for s in range(2)]
+    ref = jax_train(conf, batches, tmp_path)
+    tnet = _port(conf, ref)
+    losses = _port_losses(tnet, batches)
+    assert tnet.iteration == ref["iteration"] == 2
+    np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL)
+    again = _port(conf, ref)
+    again.fit_iterator([DataSet(b[0], b[1]) for b in batches])
+    assert again.iteration == 2
+    assert torch.equal(again.params(), tnet.params())
 
 
 def test_config_round_trip_through_the_port():

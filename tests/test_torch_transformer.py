@@ -77,13 +77,25 @@ def test_port_transformer_lm_config_matches_jax():
 
 
 def test_config_reader_refuses_unknown_and_unported_types():
+    """An unknown ``@type`` raises; every type the JAX package registers is
+    read (the MoE types too, since they were ported)."""
     d = json.loads(transformer_lm(16, width=8, n_layers=1, n_heads=2).to_json())
     d["layers"][1]["@type"] = "NoSuchLayer"
     with pytest.raises(ValueError):
         MultiLayerConfiguration.from_dict(d)
     d["layers"][1]["@type"] = "MoE"
-    with pytest.raises(NotImplementedError):
-        MultiLayerConfiguration.from_dict(d)
+    conf = MultiLayerConfiguration.from_dict(d)
+    assert conf.layers[1].type == "MoE"
+    from deeplearning4j_tpu.nn.conf import serde as jserde
+    from deeplearning4j_tpu.nn.conf.layers.base import Layer as JLayer
+    from deeplearning4j_tpu_torch.nn.conf.serde import LAYER_TYPES, layer_class
+    layer_class("Dense")
+    # the package's own types: a test elsewhere registers a custom layer in
+    # the same process
+    jax_types = {k for k, v in jserde._REGISTRY.items()
+                 if isinstance(v, type) and issubclass(v, JLayer)
+                 and v.__module__.startswith("deeplearning4j_tpu.")}
+    assert jax_types == set(LAYER_TYPES)
 
 
 def test_port_imports_no_jax():
@@ -125,7 +137,16 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.optimize.solvers, "
             "deeplearning4j_tpu_torch.earlystopping, "
             "deeplearning4j_tpu_torch.nn.gradientcheck, "
-            "deeplearning4j_tpu_torch.keras_server.registry;"
+            "deeplearning4j_tpu_torch.keras_server.registry, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.moe, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.variational, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.attention, "
+            "deeplearning4j_tpu_torch.nn.conf.layers.feedforward, "
+            "deeplearning4j_tpu_torch.models.vgg, "
+            "deeplearning4j_tpu_torch.models.alexnet, "
+            "deeplearning4j_tpu_torch.models.googlenet, "
+            "deeplearning4j_tpu_torch.models.transformer, "
+            "deeplearning4j_tpu_torch.datasets.fetchers;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"

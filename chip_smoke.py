@@ -176,10 +176,32 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 18. runs the ``iris`` drive: ``IrisDataSetIterator(batch=30)``, a dense 4 ->
    16 -> 3 network, Adam at 0.1, 20 epochs of ``fit_iterator``: accuracy
    above 0.9, exactly 100 ``sm_xent`` launches;
-19. reads the profiler's device time of every main-path kernel row and its
+19. runs the ``spec`` phase: the serve phase's full-width int8
+   ``transformer_lm(256)`` on paged KV with the JAX bench's draft
+   (``transformer_lm(256, width=128, n_layers=1, n_heads=2)``, float32)
+   linked through ``registry.link_draft``, 3 proposals a round: the serve
+   phase's 8 concurrent ``/v1/generate`` requests (every token the CPU
+   oracle's argmax within 1e-4; exactly 17 ``int8_matmul`` and 8
+   ``paged_gather`` launches a verify position, 4 positions a round, no
+   ``flash_fwd``), then ``run_spec_ab`` at a fixed capacity of 8 (spec
+   tokens equal to plain tokens; tokens/s of both), and a draft holding the
+   target's own weights, both float32 on dense KV (acceptance exactly 1);
+20. runs the ``replicas`` phase: ``InferenceServer(replicas=2)`` serving the
+   int8 transformer, 32 ``/v1/predict`` requests of one row of 255 ids from
+   8 threads with a rolling hot swap to a second version after the 12th
+   answer (every answer 200 and within 1e-4 of the CPU int8 forward of the
+   version that answered, both replicas serving, 4 ``flash_fwd`` launches a
+   dispatch), then one ``Autoscaler`` tick sequence on an injected clock,
+   with no SLO engine as the server builds it: 24 requests queued behind a
+   spin on the stream scale out on queue pressure, then a scale-in drains 4
+   requests queued on the new replica;
+21. runs the ``multi_input`` phase: a two-input, two-output
+   ``ComputationGraph`` through ``make_predict_fn`` and the micro-batcher on
+   the card, within 1e-6 of its card ``output``;
+22. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-20. prints one JSON line describing each kernel, then
+23. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -561,7 +583,8 @@ def check_flash(rows: list, dev) -> None:
     # float32 online softmax against the one-pass plain version
     tol = 2e-5
     H, D = 4, 64
-    for B, T in ((2, 512), (8, 512), (TRAIN_B, TRAIN_T), (MOE_B, MOE_T)):
+    for B, T in ((2, 512), (8, 512), (TRAIN_B, TRAIN_T), (MOE_B, MOE_T),
+                 (REPLICA_B, REPLICA_T)):
         q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
                    for _ in range(3))
         out, lse = flash_fwd(q, k, v, True)
@@ -1105,10 +1128,7 @@ def serve(kernels) -> dict:
             fail(f"/v1/generate gave {len(lines)} lines, last {done}")
         # the served greedy tokens must be argmax of the CPU full-sequence
         # forward over the same stream, to within float32 noise
-        probs = ref_pf(np.asarray([prompt + toks], np.float32)).numpy()[0]
-        for t, tok in enumerate(toks):
-            p = probs[len(prompt) - 1 + t]
-            worst_gap = max(worst_gap, float(p.max() - p[tok]))
+        worst_gap = max(worst_gap, argmax_gap(ref_pf, prompt, toks))
     print(f"/v1/generate vs CPU full-sequence oracle: worst argmax gap "
           f"{worst_gap:.3e} (tol 1e-4)", flush=True)
     if not worst_gap <= 1e-4:
@@ -5010,6 +5030,325 @@ def iris(kernels) -> dict:
     return {"accuracy": acc, "launches": launches}
 
 
+# ------------------------------------------------------------------ A6
+#: the spec phase: the serve phase's target and traffic, and the JAX bench's
+#: draft (bench.py:1011-1012): half the target's width, one block of 2 heads
+SPEC_V, SPEC_DRAFT_WIDTH, SPEC_TOKENS, SPEC_SLOTS, SPEC_NEW = 256, 128, 3, 8, 32
+#: the replicas phase: 32 /v1/predict requests from 8 threads, each of one
+#: row of 255 ids (a float row of 256 = V would read as one one-hot token in
+#: both packages); a rolling hot swap starts after the 12th answer, and the
+#: last 8 requests wait for it to end, so both versions answer
+REPLICA_REQUESTS, REPLICA_THREADS, REPLICA_T, REPLICA_SWAP_AT = 32, 8, 255, 12
+#: the replicas' widest dispatch: 4 rows of 8 threads over 2 replicas
+REPLICA_B = 4
+#: each replica admits 16 requests; the autoscaler's scale-out sees 24
+#: queued over 2 replicas (a pending fraction of 0.75 > its queue_high 0.5)
+#: and its scale-in 4 on the third (0.083 < its queue_low 0.1)
+REPLICA_MAX_QUEUE, REPLICA_PRESSURE, REPLICA_DRAIN = 16, 24, 4
+#: GPU clock cycles of the spin that holds the stream while requests queue
+#: behind it (about 1 s at the H100's 1.98 GHz)
+REPLICA_HOLD_CYCLES = 2_000_000_000
+
+
+def serve_prompts() -> list:
+    """The serve phase's 8 prompts (16 to 64 tokens), drawn again."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, SPEC_V, size=int(rng.integers(16, 65))).tolist()
+            for _ in range(8)]
+
+
+def argmax_gap(ref_pf, prompt, toks) -> float:
+    """The worst gap between the CPU full-sequence forward's best
+    probability and the served token's, over the served tokens."""
+    probs = ref_pf(np.asarray([prompt + toks], np.float32)).numpy()[0]
+    return max(float(probs[len(prompt) - 1 + t].max()
+                     - probs[len(prompt) - 1 + t][tok])
+               for t, tok in enumerate(toks))
+
+
+def spec_phase(kernels) -> dict:
+    """Speculative decoding on the paged int8 engine: (a) 8 concurrent
+    /v1/generate requests through a server whose target links a draft, each
+    token the CPU oracle's argmax; (c) exact launches a verify round; (b)
+    run_spec_ab at a fixed capacity of 8, spec tokens equal to plain tokens;
+    (d) a draft holding the target's own weights, both float32 on dense KV,
+    acceptance exactly 1.0."""
+    from deeplearning4j_tpu_torch.keras_server.decode import DecodeEngine
+    from deeplearning4j_tpu_torch.keras_server.loadgen import run_spec_ab
+    conf = transformer_lm(SPEC_V)
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    ref_pf = PredictFn(MultiLayerNetwork(conf, device="cpu").init(seed=SEED),
+                       quant="int8", device="cpu")
+    draft = MultiLayerNetwork(
+        transformer_lm(SPEC_V, width=SPEC_DRAFT_WIDTH, n_layers=1, n_heads=2,
+                       max_len=512), device="cuda").init(seed=SEED + 16)
+    prompts = serve_prompts()
+    srv = InferenceServer(device="cuda", decode_kv="paged",
+                          decode_page_size=16, decode_max_context=512,
+                          decode_max_slots=16, decode_spec_tokens=SPEC_TOKENS)
+    srv.start()
+    try:
+        srv.register("lm", net, quant="int8")
+        srv.register("draft", draft)
+        srv.registry.link_draft("lm", "draft")
+        _zero(kernels)
+        t0 = time.perf_counter()
+        tokens = _generate(srv.port, "lm", prompts)
+        gen_s = time.perf_counter() - t0
+        launches = _launches(kernels)
+        dec = srv.status()["decode"]["lm@v1+draft@v1"]
+    finally:
+        srv.stop()
+    rounds = dec["steps"]
+    print(f"spec: 8 x /v1/generate in {gen_s:.3f}s: {rounds} verify rounds, "
+          f"{dec['draft_steps']} draft steps, {dec['tokens']} tokens, "
+          f"acceptance {dec['spec_acceptance']:.4f} "
+          f"({dec['spec_accepted']}/{dec['spec_proposed']}); launches "
+          f"{launches}", flush=True)
+    # (c) each verify round runs the plain step's ops T = 4 times: 17 int8
+    # products and 8 page gathers a position; the draft launches nothing
+    T = SPEC_TOKENS + 1
+    _check_launches("spec /v1/generate", launches, _want(
+        kernels, int8_matmul=17 * T * rounds, paged_gather=8 * T * rounds))
+    # the pump counts each draft forward it runs: gamma of them a round
+    if dec["draft_steps"] != SPEC_TOKENS * rounds:
+        fail(f"spec: {dec['draft_steps']} draft steps in {rounds} rounds, "
+             f"not {SPEC_TOKENS} a round")
+    # (a) the served tokens against the CPU full-sequence oracle
+    gap = max(argmax_gap(ref_pf, p, t) for p, t in zip(prompts, tokens))
+    print(f"spec /v1/generate vs CPU full-sequence oracle: worst argmax gap "
+          f"{gap:.3e} (tol 1e-4)", flush=True)
+    if not gap <= 1e-4:
+        fail(f"spec /v1/generate tokens are not the reference argmax: {gap}")
+    # (b) plain against spec on the engines, one fixed capacity for both
+    ab = run_spec_ab(net, draft, slots=SPEC_SLOTS, max_context=512,
+                     spec_tokens=SPEC_TOKENS, quant="int8", kv="paged",
+                     page_size=16, prompts=prompts,
+                     budgets=[SPEC_NEW] * len(prompts), device="cuda")
+    g, s = ab["greedy"], ab["spec"]
+    print(f"run_spec_ab at capacity {SPEC_SLOTS}: plain {g['tokens_per_sec']} "
+          f"tokens/s ({g['steps']} steps), spec {s['tokens_per_sec']} "
+          f"tokens/s ({s['steps']} rounds), ratio "
+          f"{ab['tokens_per_sec_ratio']}, acceptance {ab['acceptance']}, "
+          f"bitwise {ab['bitwise_equal']}", flush=True)
+    if not ab["bitwise_equal"]:
+        fail("run_spec_ab: spec tokens differ from plain tokens")
+    want_plain = {"int8_matmul": 17 * g["steps"], "paged_gather": 8 * g["steps"]}
+    want_spec = {"int8_matmul": 17 * T * s["steps"],
+                 "paged_gather": 8 * T * s["steps"]}
+    if g["kernel_launches"] != want_plain or s["kernel_launches"] != want_spec:
+        fail(f"run_spec_ab launches {g['kernel_launches']} / "
+             f"{s['kernel_launches']} != {want_plain} / {want_spec}")
+    # (d) the target's own weights as the draft, both float32, dense KV
+    self_ab = run_spec_ab(net, net, slots=SPEC_SLOTS, max_context=512,
+                          spec_tokens=SPEC_TOKENS, prompts=prompts,
+                          budgets=[SPEC_NEW] * len(prompts), device="cuda")
+    print(f"self-draft float32 dense: acceptance {self_ab['acceptance']} "
+          f"({self_ab['proposed']} proposed), tokens/s plain "
+          f"{self_ab['greedy']['tokens_per_sec']} spec "
+          f"{self_ab['spec']['tokens_per_sec']} (ratio "
+          f"{self_ab['tokens_per_sec_ratio']}), bitwise "
+          f"{self_ab['bitwise_equal']}", flush=True)
+    if self_ab["spec_stats"]["spec_accepted"] != \
+            self_ab["spec_stats"]["spec_proposed"] \
+            or not self_ab["bitwise_equal"]:
+        fail(f"a self-draft's acceptance is {self_ab['acceptance']}, not 1.0")
+    return {"launches": launches, "generate_s": gen_s, "rounds": rounds,
+            "acceptance": dec["spec_acceptance"], "worst_argmax_gap": gap,
+            "generate_stats": dec, "ab": ab, "self_draft_ab": self_ab}
+
+
+def replicas_phase(kernels) -> dict:
+    """/v1/predict through two replicas of the int8 transformer on the one
+    card, a rolling hot swap mid-traffic; then one autoscaler tick sequence
+    on an injected clock: one scale-out, one drained scale-in."""
+    from deeplearning4j_tpu_torch.keras_server import Autoscaler
+    conf = transformer_lm(SPEC_V)
+    nets = {v: MultiLayerNetwork(conf, device="cuda").init(seed=SEED + i)
+            for i, v in enumerate(("v1", "v2"))}
+    refs = {v: PredictFn(MultiLayerNetwork(conf, device="cpu").init(
+        seed=SEED + i), quant="int8", device="cpu")
+        for i, v in enumerate(("v1", "v2"))}
+    rng = np.random.default_rng(SEED + 32)
+    ids = rng.integers(0, SPEC_V, size=(REPLICA_REQUESTS, 1, REPLICA_T)) \
+        .astype(np.float32)
+    srv = InferenceServer(replicas=2, device="cuda",
+                          max_queue=REPLICA_MAX_QUEUE)
+    srv.start()
+    answers = [None] * REPLICA_REQUESTS
+    walls = [None] * REPLICA_REQUESTS
+    done = threading.Semaphore(0)
+    swapped = threading.Event()
+    try:
+        srv.register("lm", nets["v1"], quant="int8", version="v1")
+        _zero(kernels)
+
+        def client(w):
+            for j in range(w, REPLICA_REQUESTS, REPLICA_THREADS):
+                if j >= REPLICA_REQUESTS - REPLICA_THREADS:
+                    swapped.wait(600)
+                t0 = time.perf_counter()
+                answers[j] = post(srv.port, "/v1/predict",
+                                  {"model": "lm", "inputs": ids[j].tolist()})
+                walls[j] = time.perf_counter() - t0
+                done.release()
+
+        threads = [threading.Thread(target=client, args=(w,), daemon=True)
+                   for w in range(REPLICA_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for _ in range(REPLICA_SWAP_AT):
+            if not done.acquire(timeout=600):
+                fail("replicas: no answer within 600 s")
+        t_swap = time.perf_counter()
+        try:
+            srv.register("lm", nets["v2"], quant="int8", version="v2")
+        finally:
+            swapped.set()
+        swap_s = time.perf_counter() - t_swap
+        for t in threads:
+            t.join()
+        total_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _launches(kernels)
+        st = srv.status()
+        dispatches = st["queue"]["dispatches"]
+        # one autoscaler sequence on a fake clock, as the server builds it
+        # (no SLO engine: queue pressure is its one signal). A spin on the
+        # stream the dispatchers launch on holds their forwards, so the
+        # requests stay queued while the autoscaler reads the queues
+        clock = [1000.0]
+        rs = srv.replica_set
+
+        def pending_fraction():
+            return sum(r.queue_depth() / REPLICA_MAX_QUEUE
+                       for r in rs.replicas) / rs.n_replicas
+
+        asc = Autoscaler(rs, min_replicas=2, max_replicas=3, cooldown_s=5.0,
+                         headroom_ticks=1, clock=lambda: clock[0])
+        torch.cuda._sleep(REPLICA_HOLD_CYCLES)
+        futs = [rs.submit("lm", ids[j % REPLICA_REQUESTS])
+                for j in range(REPLICA_PRESSURE)]
+        qfrac_out = pending_fraction()
+        t_out = time.perf_counter()
+        out = asc.tick()
+        out_s = time.perf_counter() - t_out
+        pressed = [f.result(timeout=120) for f in futs]
+        added = max(rs.replicas, key=lambda r: r.index)
+        torch.cuda._sleep(REPLICA_HOLD_CYCLES)
+        futs = [added.batcher.submit("lm", ids[j])
+                for j in range(REPLICA_DRAIN)]
+        qfrac_in = pending_fraction()
+        clock[0] += 6.0
+        back = asc.tick()
+        drained = [f.result(timeout=120) for f in futs]
+        scaler = asc.status()
+    finally:
+        srv.stop()
+    errs, by_replica, by_version = [], {}, {}
+    for j, (code, text) in enumerate(answers):
+        if code != 200:
+            fail(f"replicas: request {j} answered {code}: {text[:300]}")
+        body = json.loads(text)
+        v = body["version"]
+        by_replica[body["replica"]] = by_replica.get(body["replica"], 0) + 1
+        by_version[v] = by_version.get(v, 0) + 1
+        errs.append(float(np.abs(np.asarray(body["predictions"], np.float32)
+                                 - refs[v](ids[j]).numpy()).max()))
+    drained_err = max(float(np.abs(np.asarray(r["predictions"])
+                                   - refs[r["version"]](ids[j]).numpy())
+                            .max()) for j, r in enumerate(drained))
+    pressed_err = max(float(np.abs(
+        np.asarray(r["predictions"])
+        - refs[r["version"]](ids[j % REPLICA_REQUESTS]).numpy()).max())
+        for j, r in enumerate(pressed))
+    ms = sorted(1e3 * w for w in walls)
+    print(f"replicas: {REPLICA_REQUESTS} x /v1/predict [1,{REPLICA_T}] from "
+          f"{REPLICA_THREADS} threads in {total_s:.3f}s; wall ms p50 "
+          f"{ms[len(ms) // 2]:.3f} max {ms[-1]:.3f}; rolling swap "
+          f"{swap_s:.3f}s; by replica {by_replica}, by version {by_version}; "
+          f"{dispatches} dispatches; worst error {max(errs):.3e} (tol 1e-4); "
+          f"launches {launches}", flush=True)
+    print(f"autoscaler: {out} at queue fraction {qfrac_out:.3f} "
+          f"({REPLICA_PRESSURE} queued), then {back} at {qfrac_in:.3f}; "
+          f"scale-out {out_s:.3f}s of wall time (a replica pinning the "
+          f"catalog behind the held stream); {len(pressed)} queued answers, worst error "
+          f"{pressed_err:.3e}; drained answers {len(drained)} from replica "
+          f"{drained[0]['replica']}, worst error {drained_err:.3e}",
+          flush=True)
+    if not max(errs) <= 1e-4 or not drained_err <= 1e-4 \
+            or not pressed_err <= 1e-4:
+        fail(f"replica answers disagree with the CPU: {max(errs)}, "
+             f"{pressed_err}, {drained_err}")
+    if set(by_replica) != {0, 1} or set(by_version) != {"v1", "v2"}:
+        fail(f"replicas: by replica {by_replica}, by version {by_version}")
+    _check_launches("replicas /v1/predict", launches,
+                    _want(kernels, flash_fwd=4 * dispatches))
+    if (out, back) != ("out", "in") or \
+            [(e["direction"], e["reason"]) for e in scaler["events"]] != \
+            [("out", "queue-depth"), ("in", "headroom")] or \
+            {r["replica"] for r in drained} != {added.index}:
+        fail(f"autoscaler ticks gave {out}, {back} at queue fractions "
+             f"{qfrac_out}, {qfrac_in}: {scaler['events']}")
+    return {"launches": launches, "dispatches": dispatches,
+            "total_s": total_s, "wall_ms": ms, "swap_s": swap_s,
+            "by_replica": by_replica, "by_version": by_version,
+            "max_abs_err": max(errs), "scale_out_s": out_s,
+            "queue_fraction_out": qfrac_out, "queue_fraction_in": qfrac_in,
+            "autoscaler": scaler}
+
+
+def multi_input_phase(kernels) -> dict:
+    """A two-input, two-output ComputationGraph through make_predict_fn and
+    the micro-batcher on the card, against its own card ``output``."""
+    from deeplearning4j_tpu_torch.keras_server import (
+        MicroBatcher, ModelRegistry)
+    from deeplearning4j_tpu_torch.nn.conf.vertices import MergeVertex
+    from deeplearning4j_tpu_torch.nn.inference import make_predict_fn
+    conf = (NeuralNetConfiguration.builder().seed(SEED).graph_builder()
+            .add_inputs("a", "b")
+            .add_layer("da", DenseLayer.conf(n_in=4, n_out=6,
+                                             activation="tanh"), "a")
+            .add_layer("db", DenseLayer.conf(n_in=3, n_out=6,
+                                             activation="tanh"), "b")
+            .add_vertex("merged", MergeVertex(), "da", "db")
+            .add_layer("out", OutputLayer.conf(n_in=12, n_out=2, loss="mse",
+                                               activation="identity"),
+                       "merged")
+            .add_layer("out2", OutputLayer.conf(n_in=12, n_out=3,
+                                                loss="mcxent",
+                                                activation="softmax"),
+                       "merged")
+            .set_outputs("out", "out2").build())
+    net = ComputationGraph(conf, device="cuda").init()
+    rng = np.random.default_rng(SEED)
+    a = rng.normal(size=(3, 4)).astype(np.float32)
+    b = rng.normal(size=(3, 3)).astype(np.float32)
+    want = [o.cpu().numpy() for o in net.output(a, b)]
+    pf = make_predict_fn(net, device="cuda")
+    err = max(float(np.abs(o.cpu().numpy() - w).max())
+              for o, w in zip(pf(a, b), want))
+    registry = ModelRegistry()
+    registry.register("g", net, device="cuda")
+    batcher = MicroBatcher(registry, max_batch=8, max_latency_s=0.002)
+    try:
+        futs = [batcher.submit("g", [a[i:i + 1], b[i:i + 1]])
+                for i in range(3)]
+        for i, f in enumerate(futs):
+            for p, w in zip(f.result(timeout=60)["predictions"], want):
+                err = max(err, float(np.abs(np.asarray(p) - w[i:i + 1])
+                                     .max()))
+    finally:
+        batcher.close()
+    print(f"multi_input: 2 inputs, 2 outputs through PredictFn "
+          f"(n_inputs {pf.n_inputs}) and the batcher: max_abs_err "
+          f"{err:.3e} (tol 1e-6)", flush=True)
+    if pf.n_inputs != 2 or not err <= 1e-6:
+        fail(f"multi_input: n_inputs {pf.n_inputs}, error {err}")
+    return {"max_abs_err": err, "n_inputs": pf.n_inputs}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5067,13 +5406,17 @@ def main() -> None:
     phase_s = {}
     for name, phase in (("self_attention", self_attention), ("moe", moe),
                         ("zoo", zoo), ("pretrain", pretrain_phase),
-                        ("iris", iris)):
+                        ("iris", iris), ("spec", spec_phase),
+                        ("replicas", replicas_phase),
+                        ("multi_input", multi_input_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
     sa_run, moe_run, zoo_run, pretrain_run, iris_run = (
         phase_s[n][0] for n in ("self_attention", "moe", "zoo", "pretrain",
                                 "iris"))
+    spec_run, replicas_run, multi_run = (
+        phase_s[n][0] for n in ("spec", "replicas", "multi_input"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -5167,7 +5510,8 @@ def main() -> None:
         "vgg16_check": zoo_run["vgg16"]["check"]["launches"],
         "alexnet_check": zoo_run["alexnet"]["check"]["launches"],
         "googlenet_check": zoo_run["googlenet"]["check"]["launches"],
-        "pretrain": pretrain_run["launches"], "iris": iris_run["launches"]}
+        "pretrain": pretrain_run["launches"], "iris": iris_run["launches"],
+        "spec": spec_run["launches"], "replicas": replicas_run["launches"]}
     sa_shape = {"B": SA_B, "H": SA_H, "D": SA_D, "causal": False}
     a5_rows = {"noncausal": dict(sa_shape, T=SA_T, masked=False),
                "noncausal_ragged": dict(sa_shape, T=SA_RAGGED_T,
@@ -5324,6 +5668,18 @@ def main() -> None:
         elif name == "int8_matmul":
             entry["by_path"] = {"serve": {"launches": by_path["serve"],
                                           **nums(row)}}
+        # the A6 paths: spec decoding's verify rounds (the decode shapes),
+        # the replicas' predicts (flash at their widest dispatch)
+        if name in ("int8_matmul", "paged_gather"):
+            entry.setdefault("by_path", {})["spec"] = {
+                "launches": spec_run["launches"][fname],
+                "verify_rounds": spec_run["rounds"], **nums(row)}
+        if name in ("int8_matmul", "paged_gather", "flash_fwd"):
+            entry.setdefault("by_path", {})["replicas"] = {
+                "launches": replicas_run["launches"][fname],
+                "dispatches": replicas_run["dispatches"],
+                **nums(row_at(name, {"B": REPLICA_B, "T": REPLICA_T, "D": 64})
+                       if name == "flash_fwd" else row)}
         add_dtype_paths(entry, fname, name)
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -5337,7 +5693,8 @@ def main() -> None:
                    "graph_rnn": graph_rnn_run, "dtype": dtype_run,
                    "files": files_run, "self_attention": sa_run,
                    "moe": moe_run, "zoo": zoo_run, "pretrain": pretrain_run,
-                   "iris": iris_run,
+                   "iris": iris_run, "spec": spec_run,
+                   "replicas": replicas_run, "multi_input": multi_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -1,11 +1,14 @@
 """Dynamic micro-batching with padded power-of-two batch buckets.
 
 Counterpart of ``deeplearning4j_tpu/keras_server/batcher.py``. Concurrent
-requests group by ``(model, per-example shape, dtype)``; a group dispatches
-when it reaches ``max_batch`` or its oldest request has waited
-``max_latency_s``. The rows are zero-padded to the next power-of-two bucket
-(capped at ``max_batch``). Rows are independent under the inference forward,
-so padding does not change any request's answer.
+requests group by model and by each input's per-example shape and dtype; a
+group dispatches when it reaches ``max_batch`` or its oldest request has
+waited ``max_latency_s``. The rows are zero-padded to the next power-of-two
+bucket (capped at ``max_batch``). Rows are independent under the inference
+forward, so padding does not change any request's answer. A graph with
+several inputs takes a list of arrays sharing the leading axis, concatenated
+and padded input by input; with several outputs each answer is a list.
+A ``ReplicaSet`` member carries its ``replica`` index into every answer.
 """
 from __future__ import annotations
 
@@ -32,12 +35,13 @@ def batch_bucket(n: int, max_batch: int) -> int:
 
 
 class _Request:
-    __slots__ = ("model", "x", "n", "key", "future", "t_enqueue")
+    __slots__ = ("model", "xs", "n", "key", "future", "t_enqueue")
 
-    def __init__(self, model: str, x: np.ndarray, key: Tuple, t_enqueue: float):
+    def __init__(self, model: str, xs: Tuple[np.ndarray, ...], key: Tuple,
+                 t_enqueue: float):
         self.model = model
-        self.x = x
-        self.n = int(x.shape[0])
+        self.xs = xs
+        self.n = int(xs[0].shape[0])
         self.key = key
         self.future: Future = Future()
         self.t_enqueue = t_enqueue
@@ -51,10 +55,13 @@ class MicroBatcher:
 
     def __init__(self, registry: ModelRegistry, *, max_batch: int = 32,
                  max_latency_s: float = 0.002, max_queue: int = 256,
-                 admission: Optional[AdmissionController] = None):
+                 admission: Optional[AdmissionController] = None,
+                 replica: Optional[int] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.registry = registry
+        #: ReplicaSet member index, or None for a standalone batcher
+        self.replica = replica
         self.max_batch = int(max_batch)
         self.max_latency_s = float(max_latency_s)
         self.admission = admission or AdmissionController(
@@ -68,22 +75,38 @@ class MicroBatcher:
         self._occupancy_sum = 0.0
         self._buckets_seen: set = set()
         self._thread = threading.Thread(
-            target=self._loop, name="serve-microbatcher", daemon=True)
+            target=self._loop, daemon=True,
+            name="serve-microbatcher" if replica is None
+            else f"serve-microbatcher-r{replica}")
         self._thread.start()
 
-    def submit(self, model: str, x, *, priority: str = "high") -> Future:
-        """Queue one request (``x`` carries a leading batch axis). Raises
-        :class:`RejectedError` when admission refuses (HTTP 429)."""
-        x = np.asarray(x)
-        if x.ndim < 2:
-            raise ValueError(f"request needs a leading batch axis, got shape "
-                             f"{x.shape}")
-        if x.shape[0] > self.max_batch:
-            raise ValueError(f"request batch {x.shape[0]} exceeds max_batch "
-                             f"{self.max_batch}; split it client-side")
-        self.admission.admit(priority=priority)
-        req = _Request(model, x, (model, x.shape[1:], str(x.dtype)),
-                       time.perf_counter())
+    def submit(self, model: str, x, *, priority: str = "high",
+               tenant: str = "-") -> Future:
+        """Queue one request (``x`` carries a leading batch axis; a graph
+        with several inputs takes a list or tuple of arrays sharing it).
+        Raises :class:`RejectedError` when admission refuses (HTTP 429);
+        ``priority`` and ``tenant`` go to admission."""
+        if isinstance(x, (list, tuple)):
+            xs = tuple(np.asarray(a) for a in x)
+            if not xs:
+                raise ValueError("empty input list")
+        else:
+            xs = (np.asarray(x),)
+        for a in xs:
+            if a.ndim < 2:
+                raise ValueError(f"request needs a leading batch axis, got "
+                                 f"shape {a.shape}")
+        if len({a.shape[0] for a in xs}) != 1:
+            raise ValueError("multi-input request arrays must share the "
+                             f"leading batch axis, got "
+                             f"{[a.shape[0] for a in xs]}")
+        if xs[0].shape[0] > self.max_batch:
+            raise ValueError(f"request batch {xs[0].shape[0]} exceeds "
+                             f"max_batch {self.max_batch}; split it "
+                             "client-side")
+        self.admission.admit(priority=priority, tenant=tenant)
+        key = (model,) + tuple((a.shape[1:], str(a.dtype)) for a in xs)
+        req = _Request(model, xs, key, time.perf_counter())
         with self._cond:
             if self._closed:
                 self.admission.release()
@@ -126,12 +149,17 @@ class MicroBatcher:
         try:
             # the version resolves here, at dispatch time
             mv = self.registry.active(group[0].model)
-            x = np.concatenate([r.x for r in group], axis=0)
-            if bucket > rows:
-                pad = np.zeros((bucket - rows,) + x.shape[1:], x.dtype)
-                x = np.concatenate([x, pad], axis=0)
+            xs = []
+            for j in range(len(group[0].xs)):
+                x = np.concatenate([r.xs[j] for r in group], axis=0)
+                if bucket > rows:
+                    pad = np.zeros((bucket - rows,) + x.shape[1:], x.dtype)
+                    x = np.concatenate([x, pad], axis=0)
+                xs.append(x)
+            raw = mv.predict_fn(*xs)
+            multi_out = isinstance(raw, (list, tuple))
             # .cpu() is this dispatch's sync point: the response is host data
-            out = host_numpy(mv.predict_fn(x))
+            outs = [host_numpy(o) for o in (raw if multi_out else [raw])]
         except Exception as e:
             with self._lock:
                 self._errors += len(group)
@@ -146,9 +174,11 @@ class MicroBatcher:
             self._buckets_seen.add((group[0].key, bucket))
         off = 0
         for r in group:
+            pred = [o[off:off + r.n] for o in outs]
             r.future.set_result(
-                {"predictions": out[off:off + r.n], "model": mv.name,
-                 "version": mv.version, "batch_rows": rows, "bucket": bucket})
+                {"predictions": pred if multi_out else pred[0],
+                 "model": mv.name, "version": mv.version, "batch_rows": rows,
+                 "bucket": bucket, "replica": self.replica})
             off += r.n
 
     def _loop(self) -> None:
@@ -173,6 +203,8 @@ class MicroBatcher:
                 "bucket_count": len(self._buckets_seen),
                 "max_batch": self.max_batch,
                 "max_latency_s": self.max_latency_s,
+                "replica": self.replica,
+                "admission": self.admission.stats(),
             }
 
     def close(self, timeout_s: float = 5.0) -> None:

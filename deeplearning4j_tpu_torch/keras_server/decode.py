@@ -42,8 +42,21 @@ v are widened into them.
 The KV blocks are updated in place (the JAX package donates them to its
 compiled step instead). They are confined to the pump thread, which launches
 every kernel on its own current CUDA stream; ``next_tok.cpu()`` is each
-iteration's sync point. Speculative decoding is not ported yet
-(ROADMAP.md).
+iteration's sync point.
+
+**Speculative decoding** (``draft_net=``, transformer targets): each round
+the draft proposes ``spec_tokens`` (γ) tokens, one single-token step of its
+own at a time over its own dense float32 KV blocks (no kernel: no int8, no
+pages), and the target verifies them in one round of T = γ + 1 calls of the
+same ``_tf_forward`` the plain step runs, each at M = capacity rows, token t
+at ``position + t``. The longest prefix whose argmax agrees is accepted; a
+rejected write sits at ``j > position`` behind the mask, as a freed slot's
+rows do. Every verify position runs the plain step's ops at the plain
+step's shapes, so the emitted stream equals plain greedy decode at any
+acceptance rate; the T positions are never folded into one forward of
+``cap * T`` rows, which would give ``int8_matmul`` another M and another
+K split. Prefill rides the same round: prompt tokens are inputs whose
+acceptance is certain.
 """
 from __future__ import annotations
 
@@ -84,7 +97,8 @@ class DecodeSession:
     _next_sid = [0]
     _sid_lock = threading.Lock()
 
-    def __init__(self, prompt, max_new_tokens: int, stream=None):
+    def __init__(self, prompt, max_new_tokens: int,
+                 t_sched: Optional[float] = None, stream=None):
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -99,12 +113,20 @@ class DecodeSession:
         self.tokens: List[int] = []         #: generated token ids
         self.token_times: List[float] = []  #: host perf_counter per token
         self.probs: List[np.ndarray] = []   #: per-token dists (opt-in)
-        self.t_sched = time.perf_counter()
+        #: the offered arrival (an open-loop client's schedule); TTFT counts
+        #: from it, so queueing in the engine is not hidden
+        self.t_sched = time.perf_counter() if t_sched is None \
+            else float(t_sched)
         self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
         self.evict_reason: Optional[str] = None
         self.done = threading.Event()
         self._prompt_idx = 0
+        #: every input token the target has consumed or will consume next
+        #: (prompt + emissions); speculative rounds read their inputs here
+        self._hist: List[int] = []
+        self._spec_proposed = 0
+        self._spec_accepted = 0
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -226,6 +248,20 @@ def _tf_forward(layers, params_list, tokens, positions, kv):
     return torch.argmax(x, dim=-1).to(torch.int32), x
 
 
+def _tf_verify(layers, params_list, tokens, positions, kv):
+    """The spec-decode verify round: ``_tf_forward`` once for each of the T
+    columns of ``tokens`` ``[cap, T]``, column t at ``positions + t``, each
+    at M = cap rows exactly as the plain step; outputs ``[cap, T]`` and
+    ``[cap, T, vocab]``."""
+    outs, probs = [], []
+    for t in range(tokens.shape[1]):
+        tok, pr = _tf_forward(layers, params_list,
+                              tokens[:, t].contiguous(), positions + t, kv)
+        outs.append(tok)
+        probs.append(pr)
+    return torch.stack(outs, dim=1), torch.stack(probs, dim=1)
+
+
 def _lstm_forward(layers, params_list, blocks, tokens, fresh, vocab: int):
     """One token through the LSTM stack for every slot: the state of fresh
     slots starts at zero; the new ``h``/``c`` are written into ``blocks`` in
@@ -254,7 +290,9 @@ class DecodeEngine:
     ``submit()`` queues a session; one daemon pump thread admits, steps and
     evicts. ``device=None`` means CUDA. ``kv="paged"`` swaps the dense KV
     blocks for ``n_pages`` physical pages of ``page_size`` tokens, shared
-    copy-on-write across sessions with equal prompt prefixes."""
+    copy-on-write across sessions with equal prompt prefixes. ``draft_net``
+    (a transformer over the target's vocabulary) turns on speculative
+    decoding with ``spec_tokens`` proposals a round."""
 
     def __init__(self, net, *, device=None, max_context: int = 128,
                  min_slots: int = 2, max_slots: int = 16,
@@ -262,10 +300,7 @@ class DecodeEngine:
                  quant: Optional[str] = None, capture_probs: bool = False,
                  max_queue: int = 4096, kv: str = "dense",
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 draft_net=None):
-        if draft_net is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md)")
+                 draft_net=None, spec_tokens: int = 3):
         if mode not in DECODE_MODES:
             raise ValueError(f"mode must be one of {DECODE_MODES}, got {mode!r}")
         if kv not in DECODE_KV:
@@ -326,6 +361,33 @@ class DecodeEngine:
                 raise ValueError("n_pages must be >= 1")
             self._n_pages = int(n_pages)
             self._pool = PagePool(self._n_pages, self.page_size)
+        self._spec_draft = None
+        self.spec_tokens = int(spec_tokens)
+        if draft_net is not None:
+            if self.kind != "transformer":
+                raise ValueError("speculative decoding needs a transformer "
+                                 "target (the verify round is the "
+                                 "teacher-forcing prefill path)")
+            draft_net._require_init()
+            dlayers = list(draft_net.layers)
+            dout = dlayers[-1]
+            if not isinstance(dout, RnnOutputLayer) \
+                    or int(dout.n_out) != self.vocab:
+                raise ValueError(
+                    "draft model must share the target's vocab "
+                    f"({self.vocab}) and end in an RnnOutputLayer")
+            if not any(isinstance(l, TransformerBlock) for l in dlayers):
+                raise ValueError("draft model must be a transformer stack")
+            if self.spec_tokens < 1:
+                raise ValueError("spec_tokens must be >= 1")
+            self._spec_draft = draft_net
+            self._draft_layers = dlayers
+            #: the draft's pinned float32 snapshot: dense, never quantized
+            self._draft_params = copy_tree(draft_net.params_list, self.device)
+            self._draft_step = wrap_with_policy(
+                self._draft_body, draft_net.conf.global_conf.dtype)
+            self._verify_T = self.spec_tokens + 1
+            self._verify = wrap_with_policy(self._verify_body, self.policy)
         # pinned snapshot on this engine's device, like PredictFn
         self._params = copy_tree(net.params_list, self.device)
         if self.quant == "int8":
@@ -344,7 +406,9 @@ class DecodeEngine:
         self._fork_src_h = np.zeros((0,), np.int32)
         self._fork_dst_h = np.zeros((0,), np.int32)
         self._park_h = np.zeros((0,), bool)
+        self._dpos_h = np.zeros((0,), np.int32)
         self._blocks = None
+        self._draft_blocks = None
         self._grow_to(self.min_slots)
         self._steps = 0
         self._generated = 0
@@ -353,6 +417,9 @@ class DecodeEngine:
         self._peak_active = 0
         self._shared_tokens = 0
         self._prompt_tokens = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._draft_steps = 0
         self._buckets: set = set()
         self.last_error: Optional[str] = None
         self._thread = threading.Thread(
@@ -381,6 +448,13 @@ class DecodeEngine:
                 blocks.append({})
         return blocks
 
+    def _zero_draft_blocks(self, cap: int):
+        """The draft's dense KV blocks for one capacity bucket."""
+        return [alloc_dense_kv(cap, self.max_context, layer.n_heads,
+                               layer.n_out // layer.n_heads, self.device)
+                if isinstance(layer, TransformerBlock) else {}
+                for layer in self._draft_layers]
+
     #: requires-lock: _cond
     def _grow_to(self, cap: int) -> None:
         """Move to a larger capacity bucket. Dense blocks copy their rows on
@@ -388,7 +462,7 @@ class DecodeEngine:
         old = self._cap
         self._slots += [None] * (cap - old)
         for name_ in ("_tokens_h", "_pos_h", "_fresh_h", "_fork_src_h",
-                      "_fork_dst_h", "_park_h"):
+                      "_fork_dst_h", "_park_h", "_dpos_h"):
             a = getattr(self, name_)
             grown = np.zeros((cap,), a.dtype)
             grown[:old] = a
@@ -407,15 +481,25 @@ class DecodeEngine:
                     for key in nb:
                         nb[key][:old] = ob[key]
             self._blocks = new_blocks
+        if self._spec_draft is not None:
+            new_draft = self._zero_draft_blocks(cap)
+            if self._draft_blocks is not None and old:
+                for nb, ob in zip(new_draft, self._draft_blocks):
+                    for key in nb:
+                        nb[key][:old] = ob[key]
+            self._draft_blocks = new_draft
         self._cap = cap
 
     # --------------------------------------------------------------- producer
     def submit(self, prompt, max_new_tokens: int = 32,
+               t_sched: Optional[float] = None,
                stream=None) -> DecodeSession:
         """Queue one generation session; returns immediately. ``stream``,
         when given, is called as ``stream(sid, token, time)`` for every
-        generated token."""
-        sess = DecodeSession(prompt, max_new_tokens, stream=stream)
+        generated token; ``t_sched`` is the offered arrival an open-loop
+        client scheduled (TTFT counts from it)."""
+        sess = DecodeSession(prompt, max_new_tokens, t_sched=t_sched,
+                             stream=stream)
         bad = [t for t in sess.prompt if not 0 <= t < self.vocab]
         if bad:
             raise ValueError(f"prompt token ids {bad} outside vocab "
@@ -476,6 +560,9 @@ class DecodeEngine:
             self._pos_h[i] = skip
             self._fresh_h[i] = True
             sess._prompt_idx = skip
+            sess._hist = list(sess.prompt)
+            if self._spec_draft is not None:
+                self._dpos_h[i] = 0
             active += 1
         self._peak_active = max(self._peak_active, active)
 
@@ -567,6 +654,61 @@ class DecodeEngine:
             self._pool.register(sess.prompt[:q + 1],
                                 int(self._table_h[i, q // ps]))
 
+    #: requires-lock: _cond
+    def _settle_locked(self, i: int, sess, p: int, n_ok: int, outs_row,
+                       probs_rows, now: float) -> int:
+        """Settle slot ``i`` after a step or verify round that consumed the
+        inputs at positions ``[p, p + n_ok)``: emit each output past the
+        prompt (``outs_row[t]`` follows position ``p + t``), evict on eos,
+        max_tokens or the context ceiling, publish the prompt pages
+        written, and set the next input. Returns the positions kept
+        (``n_ok``, cut at an emission that evicts)."""
+        h = sess._hist
+        evict = None
+        for t in range(n_ok):
+            if p + t + 1 < len(h):
+                continue  # a teacher-forced prefill output
+            tok = int(outs_row[t])
+            h.append(tok)
+            sess.tokens.append(tok)
+            sess.token_times.append(now)
+            if probs_rows is not None:
+                sess.probs.append(probs_rows[t].copy())
+            if sess.t_first is None:
+                sess.t_first = now
+            self._generated += 1
+            if sess.stream is not None:
+                sess.stream(sess.sid, tok, now)
+            if self.eos_id is not None and tok == self.eos_id:
+                evict, n_ok = "eos", t + 1
+                break
+            if len(sess.tokens) >= sess.max_new_tokens:
+                evict, n_ok = "max_tokens", t + 1
+                break
+        new_p = p + n_ok
+        self._fresh_h[i] = False
+        self._pos_h[i] = new_p
+        sess._prompt_idx = min(new_p, len(sess.prompt) - 1)
+        if self._pool is not None:
+            self._register_prefix_locked(i, sess, p, new_p)
+        if evict is None and self.kind == "transformer" \
+                and new_p >= self.max_context:
+            evict = "context"
+        if evict is not None:
+            self._evict_locked(i, evict)
+        else:
+            self._tokens_h[i] = h[new_p]
+        return n_ok
+
+    def _target_kv(self, paged_args):
+        """The target's cache adapter for one step or verify round, after
+        this iteration's copy-on-write forks."""
+        if self._pool is None:
+            return _DenseKV(self._blocks)
+        table, fork_src, fork_dst = paged_args
+        _fork_pages(self._blocks, fork_src, fork_dst)
+        return _PagedKV(self._blocks, table, self.page_size)
+
     @torch.no_grad()
     def _step_body(self, tokens, fresh, positions, paged_args):
         if self.kind == "lstm":
@@ -575,25 +717,38 @@ class DecodeEngine:
                 params = dequantize_tree(params)
             return _lstm_forward(self._layers, params, self._blocks, tokens,
                                  fresh, self.vocab)
-        if self._pool is not None:
-            table, fork_src, fork_dst = paged_args
-            _fork_pages(self._blocks, fork_src, fork_dst)
-            kv = _PagedKV(self._blocks, table, self.page_size)
-        else:
-            kv = _DenseKV(self._blocks)
-        return _tf_forward(self._layers, self._params, tokens, positions, kv)
+        return _tf_forward(self._layers, self._params, tokens, positions,
+                           self._target_kv(paged_args))
+
+    @torch.no_grad()
+    def _draft_body(self, tokens, positions):
+        return _tf_forward(self._draft_layers, self._draft_params, tokens,
+                           positions, _DenseKV(self._draft_blocks))
+
+    @torch.no_grad()
+    def _verify_body(self, tokens, positions, paged_args):
+        return _tf_verify(self._layers, self._params, tokens, positions,
+                          self._target_kv(paged_args))
+
+    #: requires-lock: _cond
+    def _await_active_locked(self) -> bool:
+        """Admit until a slot is active; False when idle and closed."""
+        while True:
+            self._admit_locked()
+            if self._active_count():
+                return True
+            if self._closed and not self._queue:
+                return False
+            self._cond.wait(0.05)
 
     def _pump_once(self) -> bool:
         """One admit/step/bookkeep iteration; False when idle and closed."""
+        if self._spec_draft is not None:
+            return self._pump_once_spec()
         dev = self.device
         with self._cond:
-            while True:
-                self._admit_locked()
-                if self._active_count():
-                    break
-                if self._closed and not self._queue:
-                    return False
-                self._cond.wait(0.05)
+            if not self._await_active_locked():
+                return False
             cap = self._cap
             if self._pool is not None:
                 self._plan_pages_locked(1)
@@ -634,35 +789,141 @@ class DecodeEngine:
             for i, sess in active:
                 if parked is not None and parked[i]:
                     continue  # wrote trash; retry when pages free up
-                p0 = int(self._pos_h[i])
-                self._fresh_h[i] = False
-                self._pos_h[i] += 1
-                if self._pool is not None:
-                    self._register_prefix_locked(i, sess, p0, p0 + 1)
-                if sess._prompt_idx < len(sess.prompt) - 1:
-                    sess._prompt_idx += 1
-                    self._tokens_h[i] = sess.prompt[sess._prompt_idx]
-                else:
-                    tok = int(next_h[i])
-                    sess.tokens.append(tok)
-                    sess.token_times.append(now)
-                    if probs_h is not None:
-                        sess.probs.append(probs_h[i].copy())
-                    if sess.t_first is None:
-                        sess.t_first = now
-                    self._generated += 1
-                    if sess.stream is not None:
-                        sess.stream(sess.sid, tok, now)
-                    if self.eos_id is not None and tok == self.eos_id:
-                        self._evict_locked(i, "eos")
+                self._settle_locked(
+                    i, sess, int(self._pos_h[i]), 1, next_h[i:i + 1],
+                    None if probs_h is None else probs_h[i:i + 1], now)
+        return True
+
+    def _pump_once_spec(self) -> bool:
+        """One speculative round: γ draft proposals, one verify round over
+        T = γ + 1 positions, acceptance of the longest argmax-agreeing
+        prefix. Prefill rides the same round (prompt tokens are certain
+        inputs), so at acceptance 0 a round still emits the plain engine's
+        one token."""
+        gamma, T, dev = self.spec_tokens, self._verify_T, self.device
+        with self._cond:
+            if not self._await_active_locked():
+                return False
+            cap = self._cap
+            if self._pool is not None:
+                self._plan_pages_locked(T)
+            active = [(i, self._slots[i]) for i in range(cap)
+                      if self._slots[i] is not None]
+            if not active:
+                return True
+            parked = (self._park_h.copy() if self._pool is not None
+                      else np.zeros((cap,), bool))
+            paged_args = None
+            if self._pool is not None:
+                paged_args = tuple(torch.from_numpy(a.copy()).to(dev) for a in
+                                   (self._table_h, self._fork_src_h,
+                                    self._fork_dst_h))
+            d0 = self._dpos_h.copy()
+            base_pos = self._pos_h.copy()
+        live = [(i, s) for i, s in active if not parked[i]]
+        try:
+            # the draft: γ single-token steps over its own dense blocks
+            props = {i: {} for i, _ in active}   # stream index -> proposal
+            dins = {i: [] for i, _ in active}    # tokens the draft consumed
+            dcur = d0.copy()
+            n_draft = 0
+            for _ in range(gamma):
+                dtok = np.zeros((cap,), np.int32)
+                for i, s in live:
+                    c = int(dcur[i])
+                    tok = s._hist[c] if c < len(s._hist) else props[i][c]
+                    dtok[i] = tok
+                    dins[i].append(tok)
+                dpos = dcur.copy()
+                dpos[parked] = self.max_context
+                dout, _ = self._draft_step(torch.from_numpy(dtok).to(dev),
+                                           torch.from_numpy(dpos).to(dev))
+                n_draft += 1
+                # the proposal is the draft's own next input: its sync point
+                dout_h = dout.cpu().numpy()
+                for i, s in live:
+                    c = int(dcur[i])
+                    if c + 1 >= len(s._hist):
+                        props[i][c + 1] = int(dout_h[i])
+                    dcur[i] = c + 1
+            # the target: one verify round over T positions
+            vtok = np.zeros((cap, T), np.int32)
+            trusted = {}
+            for i, s in live:
+                p = int(base_pos[i])
+                row = []
+                for t in range(T):
+                    sidx = p + t
+                    if sidx < len(s._hist):
+                        vtok[i, t] = s._hist[sidx]
+                        row.append(True)
+                    elif sidx in props[i]:
+                        vtok[i, t] = props[i][sidx]
+                        row.append(False)
+                    else:
+                        # the draft is still catching up: a pad, always
+                        # rejected, its write behind the position mask
+                        vtok[i, t] = s._hist[-1]
+                        row.append(None)
+                trusted[i] = row
+            vpos = base_pos.copy()
+            vpos[parked] = self.max_context
+            outs, vprobs = self._verify(torch.from_numpy(vtok).to(dev),
+                                        torch.from_numpy(vpos).to(dev),
+                                        paged_args)
+            # accept/reject drives eviction and the next round's inputs
+            outs_h = outs.cpu().numpy()
+            vprobs_h = host_numpy(vprobs) if self.capture_probs else None
+        except Exception as e:
+            self.last_error = repr(e)
+            with self._cond:
+                for i, _ in active:
+                    self._evict_locked(i, "error")
+            raise
+        now = time.perf_counter()
+        with self._cond:
+            self._steps += 1
+            self._draft_steps += n_draft
+            self._buckets.add(cap)
+            self._occupancy_sum += len(active) / cap
+            for i, s in live:
+                p = int(base_pos[i])
+                row = trusted[i]
+                # writes past the context ceiling went to the trash: never
+                # accepted, the slot evicts at the ceiling
+                max_ok = min(T, self.max_context - p)
+                n_ok = max_ok
+                # a proposal is judged only up to the first reject, so a
+                # draft with the target's weights reads acceptance 1.0
+                proposed = accepted = 0
+                for t in range(1, max_ok):
+                    if row[t] is True:
                         continue
-                    if len(sess.tokens) >= sess.max_new_tokens:
-                        self._evict_locked(i, "max_tokens")
-                        continue
-                    self._tokens_h[i] = tok
-                if self.kind == "transformer" \
-                        and self._pos_h[i] >= self.max_context:
-                    self._evict_locked(i, "context")
+                    if row[t] is False:
+                        proposed += 1
+                        if int(vtok[i, t]) == int(outs_h[i, t - 1]):
+                            accepted += 1
+                            continue
+                    n_ok = t
+                    break
+                self._settle_locked(
+                    i, s, p, n_ok, outs_h[i],
+                    None if vprobs_h is None else vprobs_h[i], now)
+                self._spec_proposed += proposed
+                self._spec_accepted += accepted
+                s._spec_proposed += proposed
+                s._spec_accepted += accepted
+                # the draft keeps KV only for inputs that match the settled
+                # stream; the rest rolls back behind its position mask
+                h = s._hist
+                dvalid = 0
+                c0 = int(d0[i])
+                for j, tok in enumerate(dins[i]):
+                    if c0 + j < len(h) and tok == h[c0 + j]:
+                        dvalid += 1
+                    else:
+                        break
+                self._dpos_h[i] = c0 + dvalid
         return True
 
     def _loop(self) -> None:
@@ -702,9 +963,32 @@ class DecodeEngine:
                 out["prefix_share_ratio"] = (
                     self._shared_tokens / self._prompt_tokens
                     if self._prompt_tokens else 0.0)
+            if self._spec_draft is not None:
+                out["spec_tokens"] = self.spec_tokens
+                out["spec_proposed"] = self._spec_proposed
+                out["spec_accepted"] = self._spec_accepted
+                out["spec_acceptance"] = (
+                    self._spec_accepted / self._spec_proposed
+                    if self._spec_proposed else 0.0)
+                out["draft_steps"] = self._draft_steps
+                out["draft_param_bytes"] = tree_param_bytes(
+                    self._draft_params)
             return out
 
+    def state_bytes(self) -> int:
+        """Device bytes of the slot state blocks (the paged pool and its
+        page tables, the draft's blocks with a draft)."""
+        with self._lock:
+            total = tree_param_bytes(self._blocks)
+            if self._pool is not None:
+                total += self._table_h.nbytes
+            if self._draft_blocks is not None:
+                total += tree_param_bytes(self._draft_blocks)
+            return total
+
     def idle(self) -> bool:
+        """No queued or active session: an engine of a version no longer
+        active may retire exactly then."""
         with self._lock:
             return not self._queue and not self._active_count()
 

@@ -5,11 +5,14 @@ maps ``name -> {version -> ModelVersion}``; each version pins a
 :class:`~deeplearning4j_tpu_torch.nn.inference.PredictFn` over a parameter
 snapshot, built before the active pointer moves, so a hot swap is a dict
 assignment under the lock and in-flight requests finish on the version they
-resolved. Models register from in-memory networks (a
-``MultiLayerNetwork``, or a ``ComputationGraph`` of one input and one
-output) or load from ``model_serializer`` zips (either network type,
-through ``guess_model``); Keras HDF5 files wait for ``modelimport/``
-(ROADMAP.md A8) and speculative drafts for A6.
+resolved; :meth:`ModelRegistry.set_active` moves the pointer back to an
+older version (the rollback). Models register from in-memory networks (a
+``MultiLayerNetwork`` or a ``ComputationGraph``) or load from
+``model_serializer`` zips (either network type, through ``guess_model``);
+Keras HDF5 files wait for ``modelimport/`` (ROADMAP.md A8). A model may be
+linked as the speculative-decode draft of another (:meth:`link_draft`):
+the draft is an ordinary registered model, so a hot swap of it retires the
+target's decode engines as a swap of the target does.
 
 ``warmup_max_batch`` opts registration into warmup: before the active
 pointer moves, the new version's ``PredictFn`` runs one forward at every
@@ -35,7 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..nn.conf.serde import layer_class
-from ..nn.inference import PredictFn
+from ..nn.inference import PredictFn, make_predict_fn
 
 log = logging.getLogger(__name__)
 
@@ -107,6 +110,8 @@ class ModelRegistry:
         self._lock = threading.RLock()
         self._versions: Dict[str, Dict[str, ModelVersion]] = {}
         self._active: Dict[str, str] = {}
+        #: target model name -> draft model name (speculative decoding)
+        self._drafts: Dict[str, str] = {}
         self.warmup_max_batch = warmup_max_batch
         self.warmup_workers = warmup_workers
         #: seconds the last registration's warmup took (None: no warmup ran)
@@ -114,20 +119,25 @@ class ModelRegistry:
 
     def register(self, name: str, net, version: Optional[str] = None,
                  quant: Optional[str] = None, device=None,
-                 source: str = "memory",
-                 warmup_example=None) -> ModelVersion:
+                 source: str = "memory", warmup_example=None,
+                 replica: Optional[int] = None, sharding=None, mesh=None,
+                 draft_for: Optional[str] = None) -> ModelVersion:
         """Pin ``net`` on ``device`` (``None`` means CUDA), warm it when the
         registry warms, and make it the active version. ``quant="int8"``
         keeps int8 weights at rest for the predict path and for this
         version's decode engines. ``warmup_example`` is one input batch (an
-        array, or a tuple of arrays) whose row shape warmup uses."""
+        array, or a tuple of arrays) whose row shape warmup uses.
+        ``replica`` decorates the pin's name (a ``ReplicaSet`` member's);
+        ``draft_for`` also links this model as the speculative-decode draft
+        of the named target (:meth:`link_draft`)."""
         with self._lock:
             version = version or f"v{len(self._versions.get(name, {})) + 1}"
             if version in self._versions.get(name, {}):
                 raise ValueError(
                     f"model {name!r} already has version {version!r}; "
                     "versions are immutable - register a new one")
-        pf = PredictFn(net, quant=quant, device=device)
+        pf = make_predict_fn(net, version=version, quant=quant, device=device,
+                             replica=replica, sharding=sharding, mesh=mesh)
         if self.warmup_max_batch:
             # off the serving path: an older version keeps serving meanwhile
             self._warmup(pf, net, warmup_example)
@@ -135,7 +145,28 @@ class ModelRegistry:
             mv = ModelVersion(name, version, net, pf, source=source)
             self._versions.setdefault(name, {})[version] = mv
             self._active[name] = version
+        if draft_for is not None:
+            self.link_draft(draft_for, name)
         return mv
+
+    # ------------------------------------------------- speculative drafts
+    def link_draft(self, name: str, draft_name: str) -> None:
+        """Name ``draft_name`` as the speculative-decode draft of ``name``.
+        The draft's active version resolves per decode engine."""
+        with self._lock:
+            if draft_name not in self._versions:
+                raise KeyError(
+                    f"draft model {draft_name!r} is not registered "
+                    f"(loaded: {sorted(self._versions)})")
+            if draft_name == name:
+                raise ValueError(
+                    f"model {name!r} cannot be its own spec-decode draft")
+            self._drafts[name] = draft_name
+
+    def draft_of(self, name: str) -> Optional[str]:
+        """The linked draft model name of ``name``, or None."""
+        with self._lock:
+            return self._drafts.get(name)
 
     @staticmethod
     def warmup_buckets(max_batch: int) -> List[int]:
@@ -201,10 +232,48 @@ class ModelRegistry:
                     f"no model {name!r} in registry "
                     f"(loaded: {sorted(self._versions)})") from None
 
+    def get(self, name: str, version: str) -> ModelVersion:
+        with self._lock:
+            return self._versions[name][version]
+
+    def set_active(self, name: str, version: str) -> ModelVersion:
+        """Point ``name`` at an already-registered version (the rollback)."""
+        with self._lock:
+            mv = self._versions[name][version]  # KeyError: no such version
+            self._active[name] = version
+            return mv
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._versions)
+
     def status(self) -> dict:
         with self._lock:
             return {"models": {
                 name: {"active": self._active[name],
                        "versions": {v: mv.describe()
                                     for v, mv in sorted(versions.items())}}
-                for name, versions in sorted(self._versions.items())}}
+                for name, versions in sorted(self._versions.items())},
+                "drafts": dict(sorted(self._drafts.items()))}
+
+
+_GLOBAL: Optional[ModelRegistry] = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def global_model_registry() -> ModelRegistry:
+    """The process-wide registry, made at first use."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = ModelRegistry()
+        return _GLOBAL
+
+
+def set_global_model_registry(
+        registry: Optional[ModelRegistry]) -> Optional[ModelRegistry]:
+    """Swap the process-wide registry; returns the previous one."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        prev, _GLOBAL = _GLOBAL, registry
+        return prev

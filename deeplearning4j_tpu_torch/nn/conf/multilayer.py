@@ -129,8 +129,8 @@ class LayerConf:
 
 @dataclasses.dataclass
 class MultiLayerConfiguration:
-    global_conf: GlobalConf
-    layers: List[LayerConf]
+    global_conf: GlobalConf = dataclasses.field(default_factory=GlobalConf)
+    layers: List[LayerConf] = dataclasses.field(default_factory=list)
     #: the preprocessor before layer i under the key str(i)
     preprocessors: Dict[str, InputPreProcessor] = dataclasses.field(
         default_factory=dict)

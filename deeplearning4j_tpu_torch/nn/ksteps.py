@@ -149,7 +149,7 @@ class StepGraph:
         self.graph.replay()
         self.replays += 1
         for fn, n in self.per_replay.items():
-            fn.launches += n
+            _cuda.count(fn, n)
         return self.out
 
     def _warm_up_and_capture(self) -> torch.Tensor:
@@ -164,12 +164,15 @@ class StepGraph:
         # takes memory for the shared pool
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        before = _cuda.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
         try:
-            # thread-local: the prefetcher's thread keeps staging meanwhile
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
+            # thread-local: the prefetcher's thread keeps staging meanwhile;
+            # the launches on the capture's stream go to its record, not to
+            # the counts
+            with _cuda.capturing(stream) as recorded, \
+                    torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                     capture_error_mode="thread_local"):
                 out = self.body()
         except RuntimeError as e:
             raise RuntimeError(
@@ -177,12 +180,7 @@ class StepGraph:
                 "operation of the step cannot be captured; a host sync such "
                 f"as .item(), .tolist() or .cpu() is the usual cause): {e}"
             ) from e
-        finally:
-            after = _cuda.launch_counts()
-            for fn, n in before.items():
-                fn.launches = n
-        self.per_replay = {fn: after[fn] - n for fn, n in before.items()
-                           if after[fn] != n}
+        self.per_replay = {fn: n for fn, n in recorded.items() if n}
         self.graph, self.out = graph, out
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         return loss

@@ -16,10 +16,15 @@ checked with nvcc 12.8 on the H100), so every source builds with the same
 flags.
 
 Each wrapper of a kernel is registered with :func:`counted` and counts
-its launches in ``.launches``, a plain integer it increments where it
-launches its kernel. A replayed CUDA graph runs no Python: the code that
-replays one adds the launches its capture recorded (:func:`launch_counts`
-before and after the capture) once a replay.
+its launches in ``.launches``, a plain integer it increments through
+:func:`count` where it launches its kernel. :func:`count` adds under one
+lock, so wrappers called from several threads at once (replicas' batcher
+threads, a decode pump beside them) lose no launch. A replayed CUDA graph
+runs no Python: a capture runs inside :func:`capturing`, which diverts the
+counts of launches made on the capture's stream (the backward's too, made
+from autograd's own thread) into a record, while other streams' launches
+count as usual; the code that replays the graph adds that record once a
+replay.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after the launch; wrappers
@@ -31,6 +36,7 @@ reuses memory in stream order, after the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,6 +69,47 @@ def counted(fn):
     fn.launches = 0
     COUNTED.append(fn)
     return fn
+
+
+#: guards every read-modify-write of a ``.launches`` count
+_count_lock = threading.Lock()
+#: stream handle -> the record of the CUDA graph capture on that stream
+_captures: Dict[int, Dict[object, int]] = {}
+
+
+def _current_stream() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def count(fn, n: int = 1) -> None:
+    """Add ``n`` to ``fn.launches`` under a lock (``fn.launches += n`` is a
+    read-modify-write that loses increments when threads race). A launch
+    on a stream that :func:`capturing` holds goes to that capture's record
+    instead: a capture launches nothing."""
+    with _count_lock:
+        rec = _captures.get(_current_stream()) if _captures else None
+        if rec is not None:
+            rec[fn] = rec.get(fn, 0) + n
+        else:
+            fn.launches += n
+
+
+@contextlib.contextmanager
+def capturing(stream):
+    """Record, as ``{wrapper: n}``, the launches counted on ``stream`` (a
+    ``torch.cuda.Stream`` that a CUDA graph captures) from any thread;
+    launches on other streams meanwhile count as usual."""
+    key = stream.cuda_stream
+    with _count_lock:
+        if key in _captures:
+            raise RuntimeError("a capture already records this stream")
+        _captures[key] = rec = {}
+    try:
+        yield rec
+    finally:
+        with _count_lock:
+            del _captures[key]
 
 
 def launch_counts() -> Dict[object, int]:

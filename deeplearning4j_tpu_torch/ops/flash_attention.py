@@ -182,7 +182,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), B, H, Tq, Tk, D, *dims, plan.smem, plan.scale, int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, lib, "flash_fwd launch")
-    flash_fwd.launches += 1
+    _cuda.count(flash_fwd)
     return out, lse
 
 
@@ -333,7 +333,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), int(q.dtype == torch.bfloat16),
             _cuda.stream_handle())
     _cuda.check(rc, lib, "flash_bwd_dq launch")
-    flash_bwd_dq.launches += 1
+    _cuda.count(flash_bwd_dq)
     return dq
 
 
@@ -364,7 +364,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.data_ptr(), B, H, Tq, Tk, D, *dims, plan.smem, plan.scale, int(causal),
             int(q.dtype == torch.bfloat16), _cuda.stream_handle())
     _cuda.check(rc, lib, "flash_bwd_dkv launch")
-    flash_bwd_dkv.launches += 1
+    _cuda.count(flash_bwd_dkv)
     return dk, dv
 
 

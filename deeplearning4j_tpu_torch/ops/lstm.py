@@ -313,7 +313,7 @@ def lstm_fwd(x_t: Tensor, wcat: Tensor, b: Tensor, peep: Optional[Tensor],
             plan["route"], plan["units"], plan["rows"], plan["w_shared"],
             plan["c_shared"], plan["smem"], int(bf), _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_fwd launch")
-    lstm_fwd.launches += 1
+    _cuda.count(lstm_fwd)
     return ys, cs, h, c
 
 
@@ -359,7 +359,7 @@ def lstm_bwd(x_t: Tensor, hprev: Tensor, cprev: Tensor, wcat: Tensor,
             plan["smem"], plan["scratch"], int(x_t.dtype == torch.bfloat16),
             _cuda.stream_handle())
     _cuda.check(rc, "lstm", "lstm_bwd launch")
-    lstm_bwd.launches += 1
+    _cuda.count(lstm_bwd)
     return dx, dw, db, dpeep, dh0, dc0
 
 

@@ -54,5 +54,5 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     rc = fn(pool.data_ptr(), table.data_ptr(), out.data_ptr(), n_total,
             cap * P, ps * H * D * pool.element_size(), _cuda.stream_handle())
     _cuda.check(rc, "paged_gather", "paged_gather launch")
-    paged_gather.launches += 1
+    _cuda.count(paged_gather)
     return out

@@ -202,7 +202,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
             None if counters is None else counters.data_ptr(),
             M, K, N, kc, slices, int(x.dtype == torch.bfloat16), stream)
     _cuda.check(rc, "int8_matmul", "int8_matmul launch")
-    int8_matmul.launches += 1
+    _cuda.count(int8_matmul)
     return out
 
 

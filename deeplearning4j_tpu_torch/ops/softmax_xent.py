@@ -100,5 +100,5 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
             plan.rows, plan.grid, plan.vec, plan.per_lane,
             _cuda.stream_handle())
     _cuda.check(rc, "sm_xent", "sm_xent launch")
-    softmax_cross_entropy.launches += 1
+    _cuda.count(softmax_cross_entropy)
     return loss, grad

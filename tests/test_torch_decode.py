@@ -111,8 +111,18 @@ def test_static_mode_equals_continuous_and_rejects(lm):
             eng.submit([500], 2)
     finally:
         eng.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tnet, device="cpu", draft_net=tnet)
+    # a self-draft engine (the target's own weights proposing) emits the
+    # plain engine's tokens, every judged proposal accepted
+    eng = DecodeEngine(tnet, device="cpu", max_context=64, min_slots=2,
+                       max_slots=4, draft_net=tnet)
+    try:
+        sessions = [eng.submit(p, 5) for p in PROMPTS * 2]
+        spec = [s.result(timeout=120) for s in sessions]
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert spec == streams["continuous"]
+    assert st["spec_proposed"] > 0 and st["spec_acceptance"] == 1.0
 
 
 def test_decode_refuses_what_jax_refuses(lm, tmp_path):

@@ -456,7 +456,17 @@ def test_graph_evaluate_and_score_examples(tiny):
     per = net.score_examples(ds)
     assert per.shape == (4,)
     np.testing.assert_allclose(per.mean(), net.score(ds), rtol=1e-5)
-    with pytest.raises(ValueError, match="one input"):
-        PredictFn(from_jax(_merge_graph("jax").to_json(),
-                           _np(JGraph(_merge_graph("jax")).init().params_list),
-                           device="cpu"), device="cpu")
+    # a graph of two inputs serves through PredictFn: one array per input,
+    # the JAX PredictFn's answer; one array alone is refused, naming 2
+    jgraph = JGraph(_merge_graph("jax")).init()
+    two = PredictFn(from_jax(jgraph.conf.to_json(), _np(jgraph.params_list),
+                             device="cpu"), device="cpu")
+    assert two.n_inputs == 2
+    rng = np.random.default_rng(4)
+    img = rng.normal(size=(3, 4, 4, 2)).astype(np.float32)
+    feat = rng.normal(size=(3, 5)).astype(np.float32)
+    np.testing.assert_allclose(two(img, feat).numpy(),
+                               np.asarray(JPredictFn(jgraph)(img, feat)),
+                               rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="2 input"):
+        two(img)

@@ -138,6 +138,9 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.earlystopping, "
             "deeplearning4j_tpu_torch.nn.gradientcheck, "
             "deeplearning4j_tpu_torch.keras_server.registry, "
+            "deeplearning4j_tpu_torch.keras_server.replica, "
+            "deeplearning4j_tpu_torch.keras_server.autoscaler, "
+            "deeplearning4j_tpu_torch.keras_server.loadgen, "
             "deeplearning4j_tpu_torch.nn.conf.layers.moe, "
             "deeplearning4j_tpu_torch.nn.conf.layers.variational, "
             "deeplearning4j_tpu_torch.nn.conf.layers.attention, "
@@ -175,3 +178,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from deeplearning4j_tpu_torch.keras_server import ModelRegistry, StreamSessions
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamSessions(ModelRegistry())
+    from deeplearning4j_tpu_torch.keras_server import ReplicaSet
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplicaSet(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceServer(replicas=2)

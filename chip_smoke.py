@@ -198,10 +198,22 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 21. runs the ``multi_input`` phase: a two-input, two-output
    ``ComputationGraph`` through ``make_predict_fn`` and the micro-batcher on
    the card, within 1e-6 of its card ``output``;
-22. reads the profiler's device time of every main-path kernel row and its
+22. runs the ``parallel`` phase (A7, ``ParallelWrapper`` over
+   ``torch.distributed``): on an NCCL group of one, full-width
+   ``transformer_lm(256)`` at B = 16, T = 256, each mode from the same state
+   as ``fit`` on the same batches: sync DP as 4 single steps and an 8-step
+   K-step group (a CUDA graph with the NCCL collectives captured; losses and
+   params within 1e-5 relative), ``zero3``, local SGD at frequency 2, and
+   ``sequence_parallel`` Ulysses and ring on ``{"data": 1, "sp": 1}``;
+   ResNet-50 at 224x224, B = 128 for 2 steps through batch norm's group path
+   (within 1e-4, cuDNN deterministic); exact launches of the flash kernels
+   and ``sm_xent``; then two gloo ranks on the one card (the modes whose
+   collectives gloo carries on CUDA tensors) against one rank, within 1e-4,
+   with each rank's launches; each mode's ms a step beside ``fit``'s;
+23. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-23. prints one JSON line describing each kernel, then
+24. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -4677,8 +4689,11 @@ def _tree_map(fn, t):
 
 def _snapshot(net) -> tuple:
     """A device copy of the network's params, layer states, updater state
-    and iteration, for :func:`_restore`."""
-    return (_tree_map(torch.Tensor.clone, (
+    and iteration, for :func:`_restore`. The copies are detached: a clone
+    of a param would keep the param's gradient accumulator alive, made on
+    this stream, and a later CUDA graph capture of the step would then
+    wait on this stream."""
+    return (_tree_map(lambda t: t.detach().clone(), (
         net.params_list, net.state_list, net.updater_state)), net.iteration)
 
 
@@ -5349,6 +5364,396 @@ def multi_input_phase(kernels) -> dict:
     return {"max_abs_err": err, "n_inputs": pf.n_inputs}
 
 
+#: the parallel phase (A7: ParallelWrapper over torch.distributed on one
+#: card): transformer_lm(256) at the training shape (B 16, T 256, Adam at
+#: 3e-4, seed 1234); sync DP as 4 single steps then one K-step group of 8;
+#: zero3, local SGD at frequency 2 (4 steps), Ulysses and ring (2 steps
+#: each); ResNet-50 at 224x224, B 128, 2 steps
+PAR_SINGLE, PAR_K, PAR_STEPS, PAR_LOCAL_FREQ = 4, 8, 2, 2
+#: sync DP (the collectives of a group of one are identities): losses and
+#: params within this of fit, relative
+PAR_TOL = 1e-5
+#: the other modes reorder sums (zero3's per-leaf blocks, ring's plain
+#: attention in place of the flash kernels), which Adam amplifies where a
+#: gradient entry is near 0: losses within PAR_TOL relative, and
+#: ||wrapper - fit|| / ||fit - init|| of the params within this
+PAR_SHARE_TOL = 1e-3
+#: ResNet-50 under DP (batch norm's group path), cuDNN deterministic
+PAR_RES_STEPS, PAR_RES_TOL = 2, 1e-4
+#: two gloo ranks on the one card against one rank on the same batches
+PAR_GLOO_STEPS, PAR_GLOO_TOL = 3, 1e-4
+#: the modes two gloo ranks run on the card and hold against one rank: gloo
+#: (torch 2.11 on the chip machine) ran all_reduce, all_gather(_into_tensor),
+#: reduce_scatter_tensor, all_to_all_single and broadcast on CUDA tensors
+#: and failed batch_isend_irecv (ring's K/V pass) in this PR's first chip
+#: call; local SGD is another algorithm than one rank's fit
+PAR_GLOO_MODES = ("dp", "zero3", "ulysses")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _par_batches(n: int, seed: int) -> list:
+    """``n`` one-hot id batches ``[B, T, V]`` with y = x (the train
+    phase's inputs), host numpy."""
+    g = np.random.default_rng(seed)
+    return [np.eye(TRAIN_V, dtype=np.float32)[
+        g.integers(0, TRAIN_V, size=(TRAIN_B, TRAIN_T))] for _ in range(n)]
+
+
+def _par_net(device="cuda"):
+    return MultiLayerNetwork(transformer_lm(TRAIN_V), device=device).init(
+        seed=SEED)
+
+
+def _flat_params(net) -> torch.Tensor:
+    return net.params().detach().double()
+
+
+def _par_iter(xs):
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    return ListDataSetIterator([DataSet(x, x) for x in xs])
+
+
+class _Losses:
+    def __init__(self):
+        self.values = []
+
+    def iteration_done(self, model, iteration):
+        self.values.append(float(model.score_value))
+
+
+def _par_run(net, snap, fn, warm: int = 0) -> tuple:
+    """``fn(net)`` from the snapshot: ``(losses, flat params, wall ms a
+    step)``, the ms over the steps after the first (over the last ``warm``
+    steps when given)."""
+    _restore(net, snap)
+    rec = _Losses()
+    net.set_listeners(rec)
+    stamps = []
+
+    class Stamp:
+        def iteration_done(self, model, iteration):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    net.add_listener(Stamp())
+    torch.cuda.synchronize()
+    fn(net)
+    torch.cuda.synchronize()
+    net.set_listeners()
+    span = stamps[-warm - 1:] if warm else stamps
+    ms = (1e3 * (span[-1] - span[0]) / (len(span) - 1) if len(span) > 1
+          else float("nan"))
+    return rec.values, _flat_params(net), ms
+
+
+def _par_check(name, got, ref, init, share_tol=None) -> dict:
+    """``got`` against ``ref`` (each ``(losses, params, ms)``): the losses'
+    worst relative error, the params' relative error and their share of
+    the distance moved."""
+    gl, gp, _ = got
+    rl, rp, _ = ref
+    if len(gl) != len(rl) or not all(np.isfinite(gl)):
+        fail(f"parallel {name}: losses {gl} against fit's {rl}")
+    loss_rel = max(_rel(a, b) for a, b in zip(gl, rl))
+    rel = float((gp - rp).norm() / rp.norm())
+    share = float((gp - rp).norm() / max(float((rp - init).norm()), 1e-30))
+    ok = loss_rel <= PAR_TOL and (rel <= PAR_TOL if share_tol is None
+                                  else share <= share_tol)
+    print(f"parallel {name}: losses {gl} (fit {rl}); loss rel err "
+          f"{loss_rel:.3e}, params rel err {rel:.3e}, share of the distance "
+          f"moved {share:.3e} (tol {PAR_TOL:.0e}"
+          f"{'' if share_tol is None else f', share {share_tol:.0e}'}); "
+          f"{got[2]:.3f} ms a step (fit {ref[2]:.3f})", flush=True)
+    if not ok:
+        fail(f"parallel {name}: the wrapper parts from fit")
+    return {"losses": gl, "fit_losses": rl, "loss_rel_err": loss_rel,
+            "params_rel_err": rel, "share": share, "ms": got[2],
+            "fit_ms": ref[2]}
+
+
+def _gloo_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One of two gloo ranks on the card: each mode of
+    :data:`PAR_GLOO_MODES` on the phase's batches from the same init;
+    writes each mode's losses, params and launches to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, build_mesh
+    from deeplearning4j_tpu_torch.parallel.mesh import init_distributed
+    _cuda.build()
+    init_distributed(f"tcp://localhost:{port}", world, rank, device="cuda",
+                     backend="gloo")
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
+    xs = _par_batches(PAR_GLOO_STEPS, SEED + 7)
+    got = {}
+    for mode in PAR_GLOO_MODES:
+        net = _par_net()
+        rec = _Losses()
+        net.set_listeners(rec)
+        b = ParallelWrapper.builder(net).prefetch_buffer(0)
+        if mode == "zero3":
+            b = b.sharding("zero3")
+        elif mode == "ulysses":
+            b = b.mesh(build_mesh({"data": 1, "sp": world})).sequence_parallel(
+                "sp", "ulysses")
+        stamps = []
+
+        class Stamp:
+            def iteration_done(self, model, iteration):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+        net.add_listener(Stamp())
+        _zero(kernels)
+        b.build().fit(_par_iter(xs))
+        got[mode] = {"losses": rec.values, "params": net.params().cpu(),
+                     "launches": _launches(kernels),
+                     "ms": 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)}
+        del net
+    torch.save(got, out)
+    dist.destroy_process_group()
+
+
+def parallel_phase(kernels) -> dict:
+    """A7 on the card: ``ParallelWrapper`` on an NCCL group of one (every
+    mode, each held against ``fit`` from the same state, the K-step group
+    with its NCCL collectives captured in the CUDA graph), then two gloo
+    ranks on the one card against one rank."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, build_mesh
+    from deeplearning4j_tpu_torch.parallel.mesh import init_distributed
+
+    counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
+    out = {"modes": {}, "launches": {}}
+    init_distributed(f"tcp://localhost:{_free_port()}", 1, 0)
+    try:
+        net = _par_net()
+        snap = _snapshot(net)
+        init = _flat_params(net)
+        xs = _par_batches(PAR_SINGLE + 2 * PAR_K, SEED + 1)
+
+        def fit_dp(n):
+            n.dispatch_ksteps = 8
+            for x in xs[:PAR_SINGLE]:
+                n.fit(x, x)
+            n.fit_iterator(_par_iter(xs[PAR_SINGLE:PAR_SINGLE + PAR_K]),
+                           ksteps=PAR_K)
+
+        def pw(n, **knobs):
+            b = ParallelWrapper.builder(n).prefetch_buffer(0)
+            for k, v in knobs.items():
+                b = getattr(b, k)(*v)
+            return b.build()
+
+        launches = {}
+
+        def wrapper_dp(n):
+            w = pw(n)
+            n.dispatch_ksteps = 1
+            _zero(counted)
+            w.fit(_par_iter(xs[:PAR_SINGLE]))
+            launches["parallel_dp"] = _launches(counted)
+            n.dispatch_ksteps = PAR_K
+            _zero(counted)
+            w.fit(_par_iter(xs[PAR_SINGLE:PAR_SINGLE + PAR_K]))
+            launches["parallel_ksteps"] = _launches(counted)
+            out["dp_stats"] = {k: v for k, v in w.stats().items()
+                               if isinstance(k, str) and
+                               not isinstance(v, dict)}
+
+        ref = _par_run(net, snap, fit_dp)
+        got = _par_run(net, snap, wrapper_dp)
+        out["modes"]["dp"] = _par_check("sync DP (4 single + 8 K-step)", got,
+                                        ref, init)
+        want = {"flash_fwd": 4 * PAR_SINGLE, "flash_bwd_dq": 4 * PAR_SINGLE,
+                "flash_bwd_dkv": 4 * PAR_SINGLE,
+                "softmax_cross_entropy": PAR_SINGLE}
+        _check_launches("parallel dp", launches["parallel_dp"], want)
+        _check_launches("parallel K-step", launches["parallel_ksteps"],
+                        {k: v * PAR_K // PAR_SINGLE for k, v in want.items()})
+
+        # the K-step path timed warm: one call of two groups of 8, the
+        # second replaying the first's capture; its 8 steps timed
+        def fit_k(n):
+            n.fit_iterator(_par_iter(xs[PAR_SINGLE:]), ksteps=PAR_K)
+
+        def wrapper_k(n):
+            # staged ahead by the prefetcher, as fit_iterator stages
+            n.dispatch_ksteps = PAR_K
+            pw(n, prefetch_buffer=(2,)).fit(_par_iter(xs[PAR_SINGLE:]))
+
+        tk_fit = _par_run(net, snap, fit_k, warm=PAR_K)
+        tk_pw = _par_run(net, snap, wrapper_k, warm=PAR_K)
+        out["modes"]["ksteps_warm"] = {"ms": tk_pw[2], "fit_ms": tk_fit[2]}
+        print(f"parallel K-step, two groups of 8: {tk_pw[2]:.3f} ms a step "
+              f"(fit {tk_fit[2]:.3f})", flush=True)
+
+        def fit_n(k):
+            def run(n):
+                for x in xs[:k]:
+                    n.fit(x, x)
+            return run
+
+        for name, knobs, n_steps, tol in (
+                ("zero3", {"sharding": ("zero3",)}, PAR_STEPS,
+                 PAR_SHARE_TOL),
+                ("local_sgd", {"averaging_frequency": (PAR_LOCAL_FREQ,)},
+                 2 * PAR_STEPS, None),
+                ("ulysses", {"mesh": (build_mesh({"data": 1, "sp": 1}),),
+                             "sequence_parallel": ("sp", "ulysses")},
+                 PAR_STEPS, PAR_SHARE_TOL),
+                ("ring", {"mesh": (build_mesh({"data": 1, "sp": 1}),),
+                          "sequence_parallel": ("sp", "ring")},
+                 PAR_STEPS, PAR_SHARE_TOL)):
+            def wrapper_mode(n, knobs=knobs, n_steps=n_steps):
+                n.dispatch_ksteps = 1
+                _zero(counted)
+                pw(n, **knobs).fit(_par_iter(xs[:n_steps]))
+                launches[f"parallel_{name}"] = _launches(counted)
+
+            ref = _par_run(net, snap, fit_n(n_steps))
+            got = _par_run(net, snap, wrapper_mode)
+            out["modes"][name] = _par_check(name, got, ref, init, tol)
+            flash = 0 if name == "ring" else 4 * n_steps
+            _check_launches(f"parallel {name}", launches[f"parallel_{name}"],
+                            {"flash_fwd": flash, "flash_bwd_dq": flash,
+                             "flash_bwd_dkv": flash,
+                             "softmax_cross_entropy": n_steps})
+        out["launches"] = launches
+        del net, snap
+        torch.cuda.empty_cache()
+
+        # ResNet-50 at the bench's shape: batch norm's group path
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            res = ComputationGraph(resnet50(), device="cuda").init(seed=SEED)
+            rsnap = _snapshot(res)
+            rinit = _flat_params(res)
+            g = torch.Generator().manual_seed(SEED)
+            # host batches for both paths: each pays its copy to the card
+            rb = [tuple(t.numpy() for t in _res_batch(
+                g, RES_B, RES_SIZE, RES_CLASSES, "cpu"))
+                for _ in range(PAR_RES_STEPS)]
+
+            def res_fit(n):
+                for x, y in rb:
+                    n.fit([x], [y])
+
+            def res_pw(n):
+                from deeplearning4j_tpu_torch.nn.graph_network import (
+                    MultiDataSet)
+                n.dispatch_ksteps = 1
+                _zero(counted)
+                pw(n).fit([MultiDataSet([x], [y]) for x, y in rb])
+                launches["parallel_resnet50"] = _launches(counted)
+
+            rref = _par_run(res, rsnap, res_fit)
+            rgot = _par_run(res, rsnap, res_pw)
+            gl, rl = rgot[0], rref[0]
+            loss_rel = max(_rel(a, b) for a, b in zip(gl, rl))
+            prel = float((rgot[1] - rref[1]).norm() / rref[1].norm())
+            print(f"parallel ResNet-50 224x224 B {RES_B}: losses {gl} (fit "
+                  f"{rl}); loss rel err {loss_rel:.3e}, params rel err "
+                  f"{prel:.3e} (tol {PAR_RES_TOL:.0e}); {rgot[2]:.3f} ms a "
+                  f"step (fit {rref[2]:.3f}); launches "
+                  f"{launches['parallel_resnet50']}", flush=True)
+            if not (loss_rel <= PAR_RES_TOL and prel <= PAR_RES_TOL
+                    and all(np.isfinite(gl))):
+                fail("parallel ResNet-50: the wrapper parts from fit")
+            _check_launches("parallel ResNet-50",
+                            launches["parallel_resnet50"],
+                            {"flash_fwd": 0, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0,
+                             "softmax_cross_entropy": PAR_RES_STEPS})
+            out["modes"]["resnet50"] = {
+                "losses": gl, "fit_losses": rl, "loss_rel_err": loss_rel,
+                "params_rel_err": prel, "ms": rgot[2], "fit_ms": rref[2]}
+            del res, rsnap, rb
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two gloo ranks on the one card, against one rank on the card
+    import shutil
+    import tempfile
+
+    xs = _par_batches(PAR_GLOO_STEPS, SEED + 7)
+    one = _par_net()
+    snap = _snapshot(one)
+    one_ms = _par_run(one, snap, lambda n: [n.fit(x, x) for x in xs])[2]
+    rec = _Losses()
+    _restore(one, snap)
+    one.set_listeners(rec)
+    for x in xs:
+        one.fit(x, x)
+    ref_params = one.params().cpu()
+    del one, snap
+    tmp = tempfile.mkdtemp(prefix="parallel_gloo_")
+    files = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, port, files[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"parallel gloo: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(f) for f in files]
+    shutil.rmtree(tmp)
+    out["gloo"] = {}
+    for mode in PAR_GLOO_MODES:
+        runs = [r[mode] for r in ranks]
+        rel = max(float((r["params"] - ref_params).double().norm()
+                        / ref_params.double().norm()) for r in runs)
+        loss_rel = max(_rel(a, b) for r in runs
+                       for a, b in zip(r["losses"], rec.values))
+        ms = max(r["ms"] for r in runs)
+        print(f"parallel gloo {mode}, 2 ranks on the card: losses "
+              f"{runs[0]['losses']} (one rank {rec.values}); loss rel err "
+              f"{loss_rel:.3e}, params rel err {rel:.3e} (tol "
+              f"{PAR_GLOO_TOL:.0e}); per-rank launches "
+              f"{[r['launches'] for r in runs]}; {ms:.3f} ms a step after "
+              f"the first (one rank {one_ms:.3f})", flush=True)
+        if not (rel <= PAR_GLOO_TOL and loss_rel <= PAR_GLOO_TOL):
+            fail(f"parallel gloo {mode}: two ranks part from one")
+        per_rank = {"flash_fwd": 4 * PAR_GLOO_STEPS,
+                    "flash_bwd_dq": 4 * PAR_GLOO_STEPS,
+                    "flash_bwd_dkv": 4 * PAR_GLOO_STEPS,
+                    "softmax_cross_entropy": PAR_GLOO_STEPS}
+        for r in runs:
+            _check_launches(f"parallel gloo {mode} rank", r["launches"],
+                            per_rank)
+        out["gloo"][mode] = {
+            "losses": [r["losses"] for r in runs], "one_rank": rec.values,
+            "params_rel_err": rel, "loss_rel_err": loss_rel,
+            "launches": [r["launches"] for r in runs], "ms": ms,
+            "one_rank_ms": one_ms}
+    print(f"parallel: {CARD}; ms a step by mode "
+          f"{ {k: round(v['ms'], 3) for k, v in out['modes'].items()} } "
+          f"beside fit's "
+          f"{ {k: round(v['fit_ms'], 3) for k, v in out['modes'].items()} }",
+          flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5408,15 +5813,17 @@ def main() -> None:
                         ("zoo", zoo), ("pretrain", pretrain_phase),
                         ("iris", iris), ("spec", spec_phase),
                         ("replicas", replicas_phase),
-                        ("multi_input", multi_input_phase)):
+                        ("multi_input", multi_input_phase),
+                        ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
     sa_run, moe_run, zoo_run, pretrain_run, iris_run = (
         phase_s[n][0] for n in ("self_attention", "moe", "zoo", "pretrain",
                                 "iris"))
-    spec_run, replicas_run, multi_run = (
-        phase_s[n][0] for n in ("spec", "replicas", "multi_input"))
+    spec_run, replicas_run, multi_run, par_run = (
+        phase_s[n][0] for n in ("spec", "replicas", "multi_input",
+                                "parallel"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -5681,6 +6088,18 @@ def main() -> None:
                 **nums(row_at(name, {"B": REPLICA_B, "T": REPLICA_T, "D": 64})
                        if name == "flash_fwd" else row)}
         add_dtype_paths(entry, fname, name)
+        # the A7 paths (an NCCL group of one, the training shape): sync DP's
+        # single steps, its K-step group, Ulysses
+        if fname in par_run["launches"]["parallel_dp"]:
+            train_row = row_at(name, train_shape if name != "sm_xent"
+                               else main_shape["sm_xent"])
+            for path in ("parallel_dp", "parallel_ksteps",
+                         "parallel_ulysses"):
+                entry.setdefault("by_path", {})[path] = {
+                    "launches": par_run["launches"][path][fname],
+                    **nums(train_row)}
+            entry["launches_by_path"].update(
+                {p: n[fname] for p, n in par_run["launches"].items()})
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5695,6 +6114,7 @@ def main() -> None:
                    "moe": moe_run, "zoo": zoo_run, "pretrain": pretrain_run,
                    "iris": iris_run, "spec": spec_run,
                    "replicas": replicas_run, "multi_input": multi_run,
+                   "parallel": par_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

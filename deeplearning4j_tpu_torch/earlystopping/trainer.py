@@ -130,13 +130,35 @@ class EarlyStoppingTrainer:
 
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
-    """Early stopping over data-parallel epochs: waits for the parallel
-    modes (``parallel/wrapper.py``)."""
+    """Early stopping over data-parallel epochs (DL4J
+    ``EarlyStoppingParallelTrainer``): each epoch trains through
+    ``ParallelWrapper``; scoring, saving and termination are the base
+    trainer's. Every rank runs the same trainer over the same batches."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "EarlyStoppingParallelTrainer needs ParallelWrapper, which is not "
-            "ported yet (ROADMAP.md A7); use EarlyStoppingTrainer")
+    def __init__(self, config, model, iterator, workers=None, listener=None,
+                 averaging_frequency: int = 1, mesh=None):
+        super().__init__(config, model, iterator, listener)
+        from ..parallel.wrapper import ParallelWrapper
+
+        self.wrapper = ParallelWrapper(
+            model, workers=workers, averaging_frequency=averaging_frequency,
+            prefetch=0, mesh=mesh)
+
+    def _run_epoch(self, cfg):
+        from ..datasets.iterators import ExistingDataSetIterator
+
+        if self.wrapper.averaging_frequency > 1:
+            # local SGD needs the whole epoch in one fit (each fit ends with
+            # an average); the iteration conditions run at the epoch's end
+            self.wrapper.fit(self.iterator, epochs=1)
+            return self._check_iteration_termination(cfg)
+        # one global batch a fit, so a divergence guard stops promptly
+        for ds in self.iterator:
+            self.wrapper.fit(ExistingDataSetIterator([ds]), epochs=1)
+            fired = self._check_iteration_termination(cfg)
+            if fired is not None:
+                return fired
+        return None
 
 
 #: the JAX package's alias of the one trainer for graphs

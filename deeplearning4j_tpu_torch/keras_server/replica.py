@@ -15,7 +15,7 @@ one card the replicas share it: every
 dispatcher thread launches on the card's default stream, so kernels run in
 launch order and ``int8_matmul``'s split-K workspace (kept per stream)
 never serves two kernels at once. Sharded replicas
-(``sharding=``) wait for ROADMAP.md A7.1 and lease fencing
+(``sharding=``) wait for ROADMAP.md A7.8 and lease fencing
 (``membership=``, the ``cloud.MembershipOracle``) for A7.4.
 
 **Rolling hot swap.** :meth:`ReplicaSet.register` upgrades one replica at a
@@ -56,8 +56,8 @@ def refuse_sharded(sharding=None, membership=None, mesh_axes=None,
             "replica_devices=) wait for the parallel modes (ROADMAP.md A7)")
     if sharding is not None or mesh_axes is not None:
         raise NotImplementedError(
-            "sharded replicas (sharding=, mesh axes) wait for the parallel "
-            "modes over torch.distributed (ROADMAP.md A7.1)")
+            "sharded replicas (sharding=, mesh axes) place a PredictFn over "
+            "the A7.1 mesh and rule engine, and wait for ROADMAP.md A7.8")
     if membership is not None:
         raise NotImplementedError(
             "replica lease fencing (membership=, cloud.MembershipOracle) "

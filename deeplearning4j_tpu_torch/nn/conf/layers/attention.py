@@ -30,7 +30,24 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The attention core every attention-bearing layer uses: the flash
     kernels (differentiable: the backward is ``flash_bwd``), with a
-    ``[B, Tk]`` key mask when one is given. Returns the output only."""
+    ``[B, Tk]`` key mask when one is given. Returns the output only.
+
+    Under a sequence-parallel step (a ``ParallelContext`` with a
+    ``seq_axis``, published by ``ParallelWrapper``) q, k and v are this
+    rank's time blocks, and an unmasked batch runs Ulysses (the flash
+    kernels on a head split) or ring attention over that axis, as the JAX
+    ``attend`` dispatches; a masked batch keeps the single-device path."""
+    from ....parallel import context as pctx
+
+    ctx = pctx.current()
+    if ctx is not None and ctx.seq_axis is not None and mask is None:
+        from ....parallel.ring_attention import (
+            ring_attention_sharded, ulysses_attention_sharded)
+        if ctx.seq_mode == "ring":
+            return ring_attention_sharded(q, k, v, ctx.mesh, ctx.seq_axis,
+                                          causal, batch_axis=ctx.data_axis)
+        return ulysses_attention_sharded(q, k, v, ctx.mesh, ctx.seq_axis,
+                                         causal, batch_axis=ctx.data_axis)
     if mask is not None:
         return masked_attention(q, k, v, mask, causal)[0]
     return flash_attention(q, k, v, causal)[0]

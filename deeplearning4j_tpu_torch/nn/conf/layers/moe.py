@@ -21,6 +21,7 @@ kernels.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ....common import accum_dtype, get_policy
 from ..inputs import InputType
@@ -121,8 +122,19 @@ class MoELayer(FeedForwardLayer):
     def balance_term(self, eidx, probs) -> torch.Tensor:
         """The Switch load-balance term ``E * sum_e f_e * P_e`` of a routing
         decision (``f_e`` the share of tokens routed to ``e``, ``P_e`` its
-        mean router probability)."""
+        mean router probability). In a data-parallel step ``f_e`` is the
+        whole batch's (all-reduced over the batch's ranks) and ``P_e`` this
+        rank's: the term's mean over the ranks is the global term, and so
+        is its gradient."""
+        from ....parallel.context import batch_group
+
         frac = self._one_hot(eidx, probs.dtype).mean(dim=0)
+        group, n = batch_group()
+        if group is not None:
+            # a data-parallel step: the global batch's routing shares, with
+            # this rank's P_e, so the ranks' mean gradient is the global one
+            dist.all_reduce(frac, group=group)
+            frac = frac / n
         return self.n_experts * torch.sum(frac * probs.mean(dim=0))
 
     def load_balance_loss(self, params, x2d) -> torch.Tensor:

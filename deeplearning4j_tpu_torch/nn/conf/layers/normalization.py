@@ -72,8 +72,13 @@ class BatchNormalization(Layer):
                          gen=None):
         gamma, beta = self._gamma_beta(params, x.device)
         if train:
+            from ....parallel.context import batch_group
+
+            # a data-parallel step's group: the global batch's statistics
+            group, _ = batch_group()
             out, mean, var = batch_norm_train(
-                x, gamma, beta, self.eps, get_policy().stat_dtype(x.dtype))
+                x, gamma, beta, self.eps, get_policy().stat_dtype(x.dtype),
+                group)
             d = self.decay
             new_state = {
                 "mean": d * state["mean"] + (1 - d) * mean.to(state["mean"].dtype),

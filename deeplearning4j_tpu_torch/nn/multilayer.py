@@ -201,15 +201,18 @@ def _grads(loss_val, params_list) -> List[dict]:
 
 
 def update_layer(g, layer, params, grads, upd, iteration,
-                 bias_rate: bool = True) -> dict:
+                 bias_rate: bool = True, sqsum=None) -> dict:
     """One layer's update under ``no_grad``: the gradient normalization,
     the learning-rate policy of global conf ``g`` and the updater, each step
     subtracted from its parameter in place. With ``bias_rate`` the bias
     params train at the layer's ``bias_learning_rate``; without it every
-    param trains at the layer's rate. Returns the layer's new updater
-    state."""
+    param trains at the layer's rate. ``sqsum(name, t)`` forms the squared
+    sums of the gradient normalization and the LARS/LAMB norms (a ZeRO step
+    passes one that reduces a sharded leaf's over its ranks). Returns the
+    layer's new updater state."""
     grads = normalize_gradients(grads, layer.gradient_normalization,
-                                layer.gradient_normalization_threshold or 1.0)
+                                layer.gradient_normalization_threshold or 1.0,
+                                sqsum)
     spec = _updater_spec(layer)
     lr = effective_lr(layer.learning_rate, g.lr_policy, iteration,
                       g.lr_policy_decay_rate, g.lr_policy_power,
@@ -221,7 +224,8 @@ def update_layer(g, layer, params, grads, upd, iteration,
     for name, grad in grads.items():
         this_lr = lr_bias if name in _BIAS_NAMES else lr
         step, ustate = updater_step_with_param(
-            spec, grad, params[name], upd[name], this_lr, iteration)
+            spec, grad, params[name], upd[name], this_lr, iteration, sqsum,
+            name)
         params[name].sub_(step)
         u_new[name] = ustate
     return u_new

@@ -172,22 +172,25 @@ def updater_step(spec: UpdaterSpec, grad: Tensor, state: dict, lr: Tensor,
     raise ValueError(f"Unknown updater '{spec.name}'")
 
 
-def _safe_norm(x: Tensor) -> Tensor:
-    return torch.sqrt(torch.sum(x.to(torch.float32) ** 2) + 1e-12)
+def _safe_norm(x: Tensor, sqsum=None, name: str = "") -> Tensor:
+    xf = x.to(torch.float32)
+    s = torch.sum(xf ** 2) if sqsum is None else sqsum(name, xf)
+    return torch.sqrt(s + 1e-12)
 
 
 def updater_step_with_param(spec: UpdaterSpec, grad: Tensor, param: Tensor,
-                            state: dict, lr: Tensor,
-                            iteration) -> Tuple[Tensor, dict]:
+                            state: dict, lr: Tensor, iteration,
+                            sqsum=None, name: str = "") -> Tuple[Tensor, dict]:
     """Like :func:`updater_step`, for updaters whose math needs the
     parameter itself (LARS/LAMB layerwise trust ratios); every other updater
-    falls through to :func:`updater_step`."""
+    falls through to :func:`updater_step`. ``sqsum(name, t)``, when given,
+    forms the norms' squared sums (see :func:`normalize_gradients`)."""
     n = spec.name.lower()
     eps = spec.epsilon
     if n == "lars":
         mu = scheduled_value(spec.momentum, spec.momentum_schedule, iteration)
-        w_norm = _safe_norm(param)
-        g_norm = _safe_norm(grad)
+        w_norm = _safe_norm(param, sqsum, name)
+        g_norm = _safe_norm(grad, sqsum, name)
         one = torch.ones((), dtype=torch.float32, device=grad.device)
         trust = torch.where(g_norm > 0, w_norm / g_norm, one)
         trust = torch.where(w_norm > 0, trust, one)
@@ -201,8 +204,8 @@ def updater_step_with_param(spec: UpdaterSpec, grad: Tensor, param: Tensor,
         m_hat = m / (1 - torch.pow(_f32(b1), t))
         v_hat = v / (1 - torch.pow(_f32(b2), t))
         update = m_hat / (torch.sqrt(v_hat) + eps)
-        w_norm = _safe_norm(param)
-        u_norm = _safe_norm(update)
+        w_norm = _safe_norm(param, sqsum, name)
+        u_norm = _safe_norm(update, sqsum, name)
         one = torch.ones((), dtype=torch.float32, device=grad.device)
         trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm, one)
         return lr * trust * update, {"m": m, "v": v}
@@ -217,30 +220,38 @@ def grads_to_param_dtype(grads, params):
             for gl, p in zip(grads, params)]
 
 
+def _sq(name: str, g: Tensor, sqsum) -> Tensor:
+    return torch.sum(g * g) if sqsum is None else sqsum(name, g)
+
+
 def normalize_gradients(grads: dict, kind: Optional[str],
-                        threshold: float) -> dict:
+                        threshold: float, sqsum=None) -> dict:
     """Per-layer gradient normalization or clipping, applied before the
-    updater; ``grads`` is one layer's ``{param_name: grad}``."""
+    updater; ``grads`` is one layer's ``{param_name: grad}``. ``sqsum(name,
+    g)``, when given, forms each squared sum (a data-parallel step reduces
+    it over the ranks that hold a gradient's blocks)."""
     if not kind or kind.lower() in ("none",):
         return grads
     k = kind.lower()
     if k == "renormalizel2perlayer":
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-12)
+        norm = torch.sqrt(sum(_sq(n, g, sqsum) for n, g in grads.items())
+                          + 1e-12)
         return {n: g / norm for n, g in grads.items()}
     if k == "renormalizel2perparamtype":
-        return {n: g / torch.sqrt(torch.sum(g * g) + 1e-12)
+        return {n: g / torch.sqrt(_sq(n, g, sqsum) + 1e-12)
                 for n, g in grads.items()}
     if k == "clipelementwiseabsolutevalue":
         t = threshold
         return {n: torch.clamp(g, -t, t) for n, g in grads.items()}
     if k == "clipl2perlayer":
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()) + 1e-12)
+        norm = torch.sqrt(sum(_sq(n, g, sqsum) for n, g in grads.items())
+                          + 1e-12)
         scale = torch.clamp_max(threshold / norm, 1.0)
         return {n: g * scale for n, g in grads.items()}
     if k == "clipl2perparamtype":
         out = {}
         for n, g in grads.items():
-            norm = torch.sqrt(torch.sum(g * g) + 1e-12)
+            norm = torch.sqrt(_sq(n, g, sqsum) + 1e-12)
             out[n] = g * torch.clamp_max(threshold / norm, 1.0)
         return out
     raise ValueError(f"Unknown gradient normalization '{kind}'")

@@ -22,6 +22,14 @@ hand-written backward.
   ``stat_dtype``) and
   ``dx = gamma / sqrt(var + eps) * (dy - dbeta / n - xhat * dgamma / n)``.
 
+With a process group (a data-parallel step's batch ranks) the statistics
+are the global batch's: the forward all-reduces each rank's count, sum and
+sum of squares (in float32, the sums formed in ``stat_dtype`` as above),
+and the backward all-reduces ``sum(dy)`` and ``sum(dy * xhat)`` for ``dx``.
+The gradients of gamma and beta stay this rank's own sums: the step
+averages every param's gradient over the ranks afterwards. No group is the
+single-device code path.
+
 ``F.batch_norm`` computes another function: its statistics take two passes
 and its running update takes the unbiased variance. The ``mean`` and ``var``
 outputs feed the layer's running average only and are not differentiated.
@@ -31,6 +39,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+import torch.distributed as dist
 
 from ..common import at_least_f32
 
@@ -59,14 +69,40 @@ def batch_norm_stats(x: Tensor, stat_dtype: Optional[torch.dtype] = None
     return mean, var
 
 
+def _group_stats(x: Tensor, stat_dtype: torch.dtype, group
+                 ) -> Tuple[Tensor, Tensor, float]:
+    """``(mean, biased var, 1 / global count)`` over the ranks of
+    ``group``: each rank's count, sum and sum of squares all-reduced
+    together in float32."""
+    xs = x.to(stat_dtype)
+    dims = _dims(x)
+    s1, s2 = xs.sum(dims), (xs * xs).sum(dims)
+    n_local = torch.full((1,), x.numel() // x.shape[-1], dtype=torch.float32,
+                         device=x.device)
+    buf = torch.cat([s1.to(torch.float32), s2.to(torch.float32), n_local])
+    dist.all_reduce(buf, group=group)
+    c = s1.shape[0]
+    inv_n = 1.0 / buf[2 * c]
+    mean = (buf[:c] * inv_n).to(stat_dtype)
+    var = torch.clamp_min((buf[c:2 * c] * inv_n).to(stat_dtype) - mean * mean,
+                          0.0)
+    return mean, var, inv_n
+
+
 class BatchNormTrain(torch.autograd.Function):
     """``(out, mean, var)`` of a train-mode batch norm; the backward is the
-    JAX package's hand-written VJP (``_bn_train_bwd``)."""
+    JAX package's hand-written VJP (``_bn_train_bwd``). With ``group`` the
+    statistics and the backward's two sums are the group's (the group is
+    kept in ``ctx``: the backward runs on autograd's thread)."""
 
     @staticmethod
     def forward(ctx, x: Tensor, gamma: Tensor, beta: Tensor, eps: float,
-                stat_dtype: torch.dtype):
-        mean, var = batch_norm_stats(x, stat_dtype)
+                stat_dtype: torch.dtype, group=None):
+        if group is None:
+            mean, var = batch_norm_stats(x, stat_dtype)
+            inv_n = 1.0 / (x.numel() // x.shape[-1])
+        else:
+            mean, var, inv_n = _group_stats(x, stat_dtype, group)
         # inv in at least float32: a bf16 rsqrt costs accuracy on a
         # channel-sized vector for no saving
         wide = torch.promote_types(stat_dtype, torch.float32)
@@ -76,6 +112,7 @@ class BatchNormTrain(torch.autograd.Function):
         out = x * scale.to(x.dtype) + shift.to(x.dtype)
         ctx.save_for_backward(x, gamma, mean, inv)
         ctx.stat_dtype = stat_dtype
+        ctx.group, ctx.inv_n = group, inv_n
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -87,24 +124,31 @@ class BatchNormTrain(torch.autograd.Function):
         xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
         dbeta = dy.to(sd).sum(dims)
         dgamma = (dy * xhat).to(sd).sum(dims)
-        inv_n = 1.0 / (x.numel() // x.shape[-1])
+        inv_n = ctx.inv_n
+        sb, sg = dbeta, dgamma
+        if ctx.group is not None:
+            c = dbeta.shape[0]
+            buf = torch.cat([dbeta.to(torch.float32),
+                             dgamma.to(torch.float32)])
+            dist.all_reduce(buf, group=ctx.group)
+            sb, sg = buf[:c].to(sd), buf[c:].to(sd)
         k = gamma.to(wide) * inv
-        dx = k.to(x.dtype) * (dy - (dbeta.to(wide) * inv_n).to(x.dtype)
-                              - xhat * (dgamma.to(wide) * inv_n).to(x.dtype))
+        dx = k.to(x.dtype) * (dy - (sb.to(wide) * inv_n).to(x.dtype)
+                              - xhat * (sg.to(wide) * inv_n).to(x.dtype))
         return (dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),
-                None, None)
+                None, None, None)
 
 
 def batch_norm_train(x: Tensor, gamma: Tensor, beta: Tensor, eps: float,
-                     stat_dtype: Optional[torch.dtype] = None
+                     stat_dtype: Optional[torch.dtype] = None, group=None
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """Train-mode batch norm over every axis of ``x`` but the last:
     ``(out, mean, var)``, ``var`` biased, the statistics in ``stat_dtype``
-    (default: at least float32) and ``out`` in ``x``'s dtype.
-    Differentiable in ``x``, ``gamma`` and ``beta``; ``mean`` and ``var``
-    are not."""
+    (default: at least float32) and ``out`` in ``x``'s dtype, over the ranks
+    of ``group`` when one is given. Differentiable in ``x``, ``gamma`` and
+    ``beta``; ``mean`` and ``var`` are not."""
     return BatchNormTrain.apply(x, gamma, beta, float(eps),
-                                _stat(x, stat_dtype))
+                                _stat(x, stat_dtype), group)
 
 
 def batch_norm_infer(x: Tensor, gamma: Tensor, beta: Tensor, mean: Tensor,

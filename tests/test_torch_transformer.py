@@ -149,7 +149,15 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.models.alexnet, "
             "deeplearning4j_tpu_torch.models.googlenet, "
             "deeplearning4j_tpu_torch.models.transformer, "
-            "deeplearning4j_tpu_torch.datasets.fetchers;"
+            "deeplearning4j_tpu_torch.datasets.fetchers, "
+            "deeplearning4j_tpu_torch.parallel, "
+            "deeplearning4j_tpu_torch.parallel.mesh, "
+            "deeplearning4j_tpu_torch.parallel.partition, "
+            "deeplearning4j_tpu_torch.parallel.context, "
+            "deeplearning4j_tpu_torch.parallel.compile_seam, "
+            "deeplearning4j_tpu_torch.parallel.ring_attention, "
+            "deeplearning4j_tpu_torch.parallel.wrapper, "
+            "deeplearning4j_tpu_torch.parallel.training_master;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.')];"

@@ -210,10 +210,25 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    and ``sm_xent``; then two gloo ranks on the one card (the modes whose
    collectives gloo carries on CUDA tensors) against one rank, within 1e-4,
    with each rank's launches; each mode's ms a step beside ``fit``'s;
-23. reads the profiler's device time of every main-path kernel row and its
+23. runs the ``param_server`` phase (A7.3) on the parallel phase's model
+   and shapes: one inproc worker at push frequency 4 over 8 batches
+   against ``fit`` from the same state (the JAX suite's rtol 2e-4, atol
+   2e-5; 2 pushes; exact launches: 32 of each flash kernel, 8 ``sm_xent``),
+   two inproc workers (every step counted, version == pushes, the score
+   falls), then two worker processes on the card over tcp with bf16 deltas
+   and two over shm (each reporting its own process's launches, the
+   coordinator launching none; the shm rings and shard segments used; the
+   score falls; no orphan segment);
+24. runs the ``elastic`` phase (A7.4, A7.8's checkpoints): two shm worker
+   processes on the card, shard 0's SIGKILLed once its group committed its
+   first window; every group committed through its fin marker, a handoff,
+   no orphan segment, the score falls; then ``save_sharded`` and
+   ``restore_sharded`` on the card bitwise (params, states, updater state)
+   and an async save whose sidecar appears only after ``wait``;
+25. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-24. prints one JSON line describing each kernel, then
+26. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -5754,6 +5769,279 @@ def parallel_phase(kernels) -> dict:
     return out
 
 
+#: the param_server and elastic phases (A7.3, A7.4, A7.8's checkpoints):
+#: the train phase's full-width transformer_lm(256) at B = 16, T = 256 on
+#: batches made as the parallel phase makes them. One inproc worker at push
+#: frequency 4 over 8 batches is held against fit at the JAX suite's
+#: single-worker tolerance (tests/test_param_server.py)
+PS_BATCHES, PS_FREQ, PS_RTOL, PS_ATOL = 8, 4, 2e-4, 2e-5
+#: two workers (threads, then processes) at push frequency 2
+PS_MANY_FREQ = 2
+#: the elastic run: 16 batches over 2 shards, each worker sleeping this long
+#: a step so that the chaos kill lands mid-shard
+EL_BATCHES, EL_DELAY = 16, 0.25
+_PS_COUNTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+               "softmax_cross_entropy")
+
+
+def _ps_want(steps: int) -> dict:
+    """Exact launches of ``steps`` train steps of transformer_lm(256): each
+    of its 4 layers launches each flash kernel once, the loss sm_xent once."""
+    return {"flash_fwd": 4 * steps, "flash_bwd_dq": 4 * steps,
+            "flash_bwd_dkv": 4 * steps, "softmax_cross_entropy": steps}
+
+
+def _ps_score(net, xs) -> float:
+    return float(np.mean([net.score(x, x) for x in xs]))
+
+
+def _worker_launches(stats: dict) -> dict:
+    return {k: stats["launches"].get(k, 0) for k in _PS_COUNTED}
+
+
+def _check_workers(what: str, stats: list, steps: int) -> dict:
+    """Each worker process's own launches against its steps, all on the
+    card; returns their sum."""
+    if sum(s["steps"] for s in stats) != steps:
+        fail(f"{what}: worker steps {[s['steps'] for s in stats]} != {steps}")
+    total = dict.fromkeys(_PS_COUNTED, 0)
+    for s in stats:
+        if not s["device"].startswith("cuda"):
+            fail(f"{what}: a worker trained on {s['device']}")
+        _check_launches(f"{what} worker {s['worker_id']}",
+                        _worker_launches(s), _ps_want(s["steps"]))
+        for k in total:
+            total[k] += s["launches"][k]
+    return total
+
+
+def param_server_phase(kernels) -> dict:
+    """A7.3 on the card: ``ParameterServerParallelWrapper`` with one inproc
+    worker against ``fit`` (JAX's tolerance, exact launches, 2 pushes), two
+    inproc workers, then two worker processes over tcp with bf16 deltas and
+    two over shm, each reporting the launches of its own process."""
+    from deeplearning4j_tpu_torch.parallel import ps_transport as pst
+    from deeplearning4j_tpu_torch.parallel.param_server import (
+        ParameterServerParallelWrapper as PSW)
+
+    counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
+    out = {"launches": {}}
+    xs = _par_batches(PS_BATCHES, SEED + 11)
+    net = _par_net()
+    snap = _snapshot(net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in xs:
+        net.fit(x, x)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0) / PS_BATCHES
+    ref = net.params().detach().clone()
+
+    # (a) one inproc worker: each window lands at staleness 0, weight 1
+    _restore(net, snap)
+    w = PSW.builder(net).workers(1).push_frequency(PS_FREQ).build()
+    _zero(counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.fit(_par_iter(xs))
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0) / PS_BATCHES
+    out["launches"]["param_server_inproc"] = got_l = _launches(counted)
+    got = net.params().detach()
+    err = (got - ref).abs()
+    ratio = float((err / (PS_ATOL + PS_RTOL * ref.abs())).max())
+    print(f"param_server one inproc worker (push frequency {PS_FREQ}, "
+          f"{PS_BATCHES} batches): max abs err {float(err.max()):.3e} "
+          f"against fit, worst share of rtol {PS_RTOL:.0e} atol "
+          f"{PS_ATOL:.0e} {ratio:.3f}; pushes {w.server.pushes}; "
+          f"{one_ms:.3f} ms a step (fit {fit_ms:.3f}); launches {got_l}",
+          flush=True)
+    if ratio > 1.0 or w.server.pushes != 2 \
+            or w.worker_stats[0]["steps"] != PS_BATCHES:
+        fail("param_server: one worker parts from fit")
+    _check_launches("param_server one worker", got_l, _ps_want(PS_BATCHES))
+    out["one_worker"] = {"max_abs_err": float(err.max()), "tol_share": ratio,
+                         "pushes": w.server.pushes, "ms": one_ms,
+                         "fit_ms": fit_ms}
+
+    # (b) two inproc workers: every step counted, version == pushes
+    _restore(net, snap)
+    s0 = _ps_score(net, xs[:2])
+    w = PSW.builder(net).workers(2).push_frequency(PS_MANY_FREQ).build()
+    _zero(counted)
+    t0 = time.perf_counter()
+    w.fit(_par_iter(xs))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PS_BATCHES
+    out["launches"]["param_server_inproc2"] = got_l = _launches(counted)
+    s1 = _ps_score(net, xs[:2])
+    srv = w.server.stats()
+    print(f"param_server two inproc workers: steps "
+          f"{[s['steps'] for s in w.worker_stats]}, server {srv}; score "
+          f"{s0:.5f} -> {s1:.5f}; {ms:.3f} ms a step; launches {got_l}",
+          flush=True)
+    if (sum(s["steps"] for s in w.worker_stats) != PS_BATCHES
+            or srv["version"] != srv["pushes"] or not s1 < s0):
+        fail("param_server: two inproc workers")
+    _check_launches("param_server two workers", got_l, _ps_want(PS_BATCHES))
+    out["two_inproc"] = {"server": srv, "score": [s0, s1], "ms": ms}
+
+    # (c) two worker processes on the card over tcp (bf16 deltas), then
+    # over shm: each reports the launches of its own process
+    for transport, codec in (("tcp", "bf16"), ("shm", "none")):
+        _restore(net, snap)
+        s0 = _ps_score(net, xs[:2])
+        w = (PSW.builder(net).workers(2).push_frequency(PS_MANY_FREQ)
+             .transport(transport).compression(codec).build())
+        _zero(counted)
+        t0 = time.perf_counter()
+        w.fit(_par_iter(xs))
+        wall = time.perf_counter() - t0
+        here = _launches(counted)
+        s1 = _ps_score(net, xs[:2])
+        if any(here.values()):
+            fail(f"param_server {transport}: the coordinator launched {here}")
+        total = _check_workers(f"param_server {transport}",
+                               w.worker_stats, PS_BATCHES)
+        out["launches"][f"param_server_{transport}"] = total
+        tstats = [s["transport"] for s in w.worker_stats]
+        print(f"param_server two {transport} worker processes ({codec}): "
+              f"steps {[s['steps'] for s in w.worker_stats]}, pushes "
+              f"{[s['pushes'] for s in w.worker_stats]}, rebased "
+              f"{[s['rebased'] for s in w.worker_stats]}; shard routes "
+              f"{w.shard_routes}; transports {tstats}; score {s0:.5f} -> "
+              f"{s1:.5f}; {wall:.1f}s wall with the workers' start; "
+              f"launches {[_worker_launches(s) for s in w.worker_stats]}",
+              flush=True)
+        if not s1 < s0:
+            fail(f"param_server {transport}: the loss did not fall")
+        if transport == "shm" and not (
+                w.shard_routes == ["shm", "shm"]
+                and all(t["shm_active"] and t["shm_pushes"] == s["pushes"]
+                        for t, s in zip(tstats, w.worker_stats))):
+            fail("param_server shm: the shared-memory route was not taken")
+        if pst.orphan_segments():
+            fail(f"param_server {transport}: orphan segments "
+                 f"{pst.orphan_segments()}")
+        out[transport] = {"score": [s0, s1], "wall_s": wall,
+                          "workers": w.worker_stats,
+                          "shard_routes": w.shard_routes}
+    del net, snap
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_phase(kernels) -> dict:
+    """A7.4 and A7.8's checkpoints on the card: an ``ElasticTrainer`` of two
+    shm worker processes, one SIGKILLed after its group's first committed
+    window; then a sharded checkpoint and an async one round trip."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import ps_transport as pst
+    from deeplearning4j_tpu_torch.parallel.elastic import ElasticTrainer
+    from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
+        AsyncShardedSaver, restore_sharded, save_sharded)
+
+    counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
+    out = {}
+    xs = _par_batches(EL_BATCHES, SEED + 13)
+    net = _par_net()
+    s0 = _ps_score(net, xs[:2])
+    trainer = (ElasticTrainer.builder(net).workers(2).push_frequency(2)
+               .transport("shm").lease_timeout(30.0).respawn(True)
+               .worker_delays(EL_DELAY, EL_DELAY).fit_timeout(300.0).build())
+    killed = {}
+
+    def assassin():
+        deadline = time.monotonic() + 240.0
+        while time.monotonic() < deadline:
+            at = trainer.committed_offset(0)
+            if at >= 1:  # the first window of shard 0 committed
+                killed["committed"] = at
+                killed["ok"] = trainer.chaos_kill(0)
+                return
+            time.sleep(0.005)
+
+    th = threading.Thread(target=assassin, daemon=True)
+    _zero(counted)
+    th.start()
+    t0 = time.perf_counter()
+    trainer.fit(_par_iter(xs))
+    wall = time.perf_counter() - t0
+    th.join(10)
+    s1 = _ps_score(net, xs[:2])
+    commits = trainer.shard_commits
+    st = trainer.stats
+    orphans = pst.orphan_segments()
+    print(f"elastic: killed shard 0 at committed offset "
+          f"{killed.get('committed')} ({killed.get('ok')}); shard commits "
+          f"{commits}; stats {st}; worker steps "
+          f"{[(s['shard'], s['steps']) for s in trainer.worker_stats]}; "
+          f"score {s0:.5f} -> {s1:.5f}; orphan segments {orphans}; "
+          f"{wall:.1f}s wall", flush=True)
+    if not killed.get("ok") or trainer.handoffs < 1:
+        fail("elastic: the chaos kill did not hand a shard off")
+    if any(c["committed"] < c["fin"] for c in commits):
+        fail(f"elastic: a shard lost samples: {commits}")
+    if orphans or pst.segment_stats()["owned"]:
+        fail(f"elastic: segments left: {orphans}, {pst.segment_stats()}")
+    if st["joins"] != 2 + trainer.handoffs or not s1 < s0:
+        fail("elastic: joins or loss")
+    steps = sum(s["steps"] for s in trainer.worker_stats)
+    launches = _check_workers("elastic", trainer.worker_stats, steps)
+    out["run"] = {"killed_at": killed.get("committed"), "commits": commits,
+                  "stats": st, "score": [s0, s1], "wall_s": wall,
+                  "workers": trainer.worker_stats, "launches": launches}
+
+    # sharded checkpoints on the card: a fit step fills Adam's state first
+    net.fit(xs[0], xs[0])
+    tmp = tempfile.mkdtemp(prefix="elastic_ck_")
+    try:
+        t0 = time.perf_counter()
+        d = save_sharded(os.path.join(tmp, "sync"), net, step=1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_sharded(d, device="cuda")
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            _tensors_of([back.params_list, back.state_list,
+                         back.updater_state]),
+            _tensors_of([net.params_list, net.state_list,
+                         net.updater_state])))
+        if not same or back.iteration != net.iteration \
+                or back.device.type != "cuda":
+            fail("elastic: the sharded checkpoint did not round trip")
+        del back
+        saver = AsyncShardedSaver()
+        t0 = time.perf_counter()
+        d2 = saver.save(os.path.join(tmp, "async"), net, step=2)
+        async_return_s = time.perf_counter() - t0
+        early = os.path.exists(os.path.join(d2, "meta.json"))
+        snap = _snapshot(net)
+        net.fit(xs[1], xs[1])  # trains on while the write is in flight
+        saver.wait()
+        committed = os.path.exists(os.path.join(d2, "meta.json"))
+        back = restore_sharded(d2, device="cuda")
+        same_async = all(torch.equal(a, b) for a, b in zip(
+            _tensors_of([back.params_list, back.updater_state]),
+            _tensors_of([snap[0][0], snap[0][2]])))
+        print(f"elastic sharded checkpoint on the card: save {save_s:.2f}s, "
+              f"restore {restore_s:.2f}s, bitwise {same}; async save "
+              f"returned in {async_return_s:.3f}s, sidecar before wait "
+              f"{early}, after {committed}, the save-time state bitwise "
+              f"{same_async}", flush=True)
+        if early or not committed or not same_async:
+            fail("elastic: the async sharded checkpoint's commit order")
+        out["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                             "async_return_s": async_return_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5814,16 +6102,18 @@ def main() -> None:
                         ("iris", iris), ("spec", spec_phase),
                         ("replicas", replicas_phase),
                         ("multi_input", multi_input_phase),
-                        ("parallel", parallel_phase)):
+                        ("parallel", parallel_phase),
+                        ("param_server", param_server_phase),
+                        ("elastic", elastic_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
     sa_run, moe_run, zoo_run, pretrain_run, iris_run = (
         phase_s[n][0] for n in ("self_attention", "moe", "zoo", "pretrain",
                                 "iris"))
-    spec_run, replicas_run, multi_run, par_run = (
+    spec_run, replicas_run, multi_run, par_run, ps_run, el_run = (
         phase_s[n][0] for n in ("spec", "replicas", "multi_input",
-                                "parallel"))
+                                "parallel", "param_server", "elastic"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -6100,6 +6390,15 @@ def main() -> None:
                     **nums(train_row)}
             entry["launches_by_path"].update(
                 {p: n[fname] for p, n in par_run["launches"].items()})
+            # A7.3/A7.4, new paths of the same kernels at the training
+            # shape: the PS workers' steps (threads, then processes, whose
+            # launches each process counted) and the elastic workers'
+            ps_paths = dict(ps_run["launches"],
+                            elastic=el_run["run"]["launches"])
+            for path, n in ps_paths.items():
+                entry["by_path"][path] = {"launches": n[fname],
+                                          **nums(train_row)}
+                entry["launches_by_path"][path] = n[fname]
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6114,7 +6413,8 @@ def main() -> None:
                    "moe": moe_run, "zoo": zoo_run, "pretrain": pretrain_run,
                    "iris": iris_run, "spec": spec_run,
                    "replicas": replicas_run, "multi_input": multi_run,
-                   "parallel": par_run,
+                   "parallel": par_run, "param_server": ps_run,
+                   "elastic": el_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -18,8 +18,11 @@ catalog on the new replica before the router sees it; scale-in drains
 without loss. ``last_scale_out_latency_s`` is the decision-to-routable wall
 time. ``clock`` is injectable, so the hysteresis is testable with a fake
 clock. Scale events are kept in a bounded list in :meth:`status`, where the
-JAX package records them in its flight recorder. The zombie sweep (replicas
-whose membership lease lapsed) waits for ROADMAP.md A7.4.
+JAX package records them in its flight recorder. Each tick first
+heartbeats the replicas and removes every one whose lease no longer
+validates (``ReplicaSet.fenced_replicas``, reason ``lease-fenced``), then
+fills the fleet back to ``min_replicas`` (``replace-fenced``), outside the
+hysteresis window: fencing is correctness, not capacity.
 """
 from __future__ import annotations
 
@@ -132,10 +135,17 @@ class Autoscaler:
         now = self.clock() if now is None else now
         self._ticks += 1
         rs = self.replica_set
-        # bounds are correctness, not capacity: a fleet below its floor is
-        # filled outside the hysteresis window
+        # lease fencing and the bounds are correctness, not capacity:
+        # zombies go and the fleet is filled back to its floor outside the
+        # hysteresis window
+        rs.heartbeat()
+        for zombie in rs.fenced_replicas():
+            try:
+                rs.remove_replica(zombie.index, reason="lease-fenced")
+            except ValueError:
+                break  # the primary or the last replica: nothing to fence to
         while rs.n_replicas < self.min_replicas:
-            self._scale_out("below-min", now)
+            self._scale_out("replace-fenced", now)
         burn, alerting = self._slo_signals()
         qfrac = self._queue_fraction()
         if self._in_cooldown(now):

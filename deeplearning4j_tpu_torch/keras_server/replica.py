@@ -15,8 +15,17 @@ one card the replicas share it: every
 dispatcher thread launches on the card's default stream, so kernels run in
 launch order and ``int8_matmul``'s split-K workspace (kept per stream)
 never serves two kernels at once. Sharded replicas
-(``sharding=``) wait for ROADMAP.md A7.8 and lease fencing
-(``membership=``, the ``cloud.MembershipOracle``) for A7.4.
+(``sharding=``) wait for ROADMAP.md A7.8.
+
+**Lease fencing.** With ``membership=`` (a ``cloud.MembershipOracle``,
+``role="replica"``) every replica registers a lease when it joins the set
+and deregisters when it is removed; :meth:`ReplicaSet.heartbeat` renews
+the leases of the replicas in the set (in one process, being in the
+routable list is liveness). A replica whose ``(member, epoch)`` no longer
+validates (evicted, or lapsed) is fenced: the router never dispatches to
+it, :meth:`ReplicaSet.fenced_replicas` lists it, and the autoscaler's
+sweep removes it and fills the fleet back to its floor. A heartbeat never
+revives a dead lease.
 
 **Rolling hot swap.** :meth:`ReplicaSet.register` upgrades one replica at a
 time: mark it draining (the router stops sending it new work while a
@@ -47,8 +56,7 @@ from .batcher import MicroBatcher
 from .registry import ModelRegistry, ModelVersion, load_model_file
 
 
-def refuse_sharded(sharding=None, membership=None, mesh_axes=None,
-                   devices=None) -> None:
+def refuse_sharded(sharding=None, mesh_axes=None, devices=None) -> None:
     """Raise for the placements that wait for the parallel modes."""
     if devices is not None:
         raise NotImplementedError(
@@ -58,10 +66,6 @@ def refuse_sharded(sharding=None, membership=None, mesh_axes=None,
         raise NotImplementedError(
             "sharded replicas (sharding=, mesh axes) place a PredictFn over "
             "the A7.1 mesh and rule engine, and wait for ROADMAP.md A7.8")
-    if membership is not None:
-        raise NotImplementedError(
-            "replica lease fencing (membership=, cloud.MembershipOracle) "
-            "waits for ROADMAP.md A7.4")
 
 
 class Replica:
@@ -77,6 +81,9 @@ class Replica:
         #: router-visible: a draining replica takes no new requests while
         #: its registry swaps versions (its queued work still completes)
         self.draining = False
+        #: the replica's membership lease (a cloud.WorkerLease) in a fenced
+        #: set, else None
+        self.lease = None
         self.registry = ModelRegistry(
             warmup_max_batch=max_batch if warmup else None)
         self.batcher = MicroBatcher(
@@ -99,7 +106,7 @@ class ReplicaSet:
                  max_latency_s: float = 0.002, max_queue: int = 256,
                  drain_timeout_s: float = 30.0, warmup: bool = False,
                  membership=None):
-        refuse_sharded(sharding, membership, mesh_axes, devices)
+        refuse_sharded(sharding, mesh_axes, devices)
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         self.sharding = None
@@ -123,9 +130,17 @@ class ReplicaSet:
         #: fleet size changes by (direction, reason)
         self.scale_events: Counter = Counter()
         self._next_index = n_replicas
+        self._membership = membership
         #: guarded-by: _lock
         self._replicas = [self._new_replica(i, warmup)
                           for i in range(n_replicas)]
+        for r in self._replicas:
+            self._join(r)
+
+    def _join(self, r: Replica) -> None:
+        if self._membership is not None:
+            r.lease = self._membership.register(
+                shard=r.index, worker=f"replica-{r.index}")
 
     def _new_replica(self, i: int, warmup: bool) -> Replica:
         return Replica(i, device=self.device,
@@ -230,6 +245,7 @@ class ReplicaSet:
             r = self._new_replica(idx, warmup=True)
             for name, (version, net, source, quant, ex) in catalog.items():
                 self._register_on(r, name, net, version, source, quant, ex)
+            self._join(r)
             with self._lock:
                 self._replicas.append(r)
                 self._routed[idx] = 0
@@ -264,21 +280,46 @@ class ReplicaSet:
             with self._lock:
                 self._replicas = [o for o in self._replicas if o is not r]
             r.batcher.close(self.drain_timeout_s)
+            if self._membership is not None and r.lease is not None:
+                self._membership.deregister(r.lease.member, r.lease.epoch,
+                                            reason=reason)
             with self._lock:
                 for name in r.registry.names():
                     self._active_version.pop((r.index, name), None)
                 self.scale_events[("in", reason)] += 1
             return True
 
+    # ----------------------------------------------------------- membership
+    def heartbeat(self) -> None:
+        """Renew the lease of every replica in the set. An evicted or
+        superseded lease stays dead."""
+        if self._membership is None:
+            return
+        for r in self.replicas:
+            if r.lease is not None:
+                self._membership.heartbeat(r.lease.member, r.lease.epoch)
+
+    def _lease_ok(self, r: Replica) -> bool:
+        if self._membership is None or r.lease is None:
+            return True
+        return self._membership.validate(r.lease.member, r.lease.epoch)
+
+    def fenced_replicas(self) -> List[Replica]:
+        """Replicas whose lease no longer validates (the autoscaler's
+        sweep removes and replaces them)."""
+        return [r for r in self.replicas if not self._lease_ok(r)]
+
     # -------------------------------------------------------------- router
     def submit(self, model: str, x, *, priority: str = "high",
                tenant: str = "-") -> Future:
         """Route one request to the least-loaded replica that is not
         draining, falling through on an admission refusal; raises the last
-        :class:`RejectedError` when every replica refused."""
+        :class:`RejectedError` when every replica refused. A fenced replica
+        gets nothing while a live one is in the set."""
         with self._lock:
             fleet = list(self._replicas)
-        candidates = [r for r in fleet if not r.draining] or fleet
+        live = [r for r in fleet if self._lease_ok(r)] or fleet
+        candidates = [r for r in live if not r.draining] or live
         last: Optional[RejectedError] = None
         for r in sorted(candidates, key=lambda r: (r.queue_depth(), r.index)):
             try:
@@ -327,6 +368,7 @@ class ReplicaSet:
             s = r.batcher.stats()
             reps.append({
                 "replica": r.index, "draining": r.draining,
+                "fenced": not self._lease_ok(r),
                 "queue_depth": r.queue_depth(),
                 "routed": routed.get(r.index, 0),
                 "dispatches": s["dispatches"],

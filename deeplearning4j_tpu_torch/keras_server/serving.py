@@ -30,7 +30,9 @@ connection. Routes:
 
 ``replicas=N`` serves ``/v1/predict`` through a :class:`ReplicaSet` (a
 least-queue router over N batchers, rolling hot swaps) and ``autoscale=``
-sizes it with an :class:`Autoscaler` on queue pressure. Sharded replicas
+sizes it with an :class:`Autoscaler` on queue pressure, the replicas then
+fenced by the leases of a ``cloud.MembershipOracle`` (``membership``).
+Sharded replicas
 (``sharding=``, ``replica_mesh_axes=``) wait for ROADMAP.md A7; traces,
 SLOs (``/serve/slo``, the autoscaler's burn input), ``/metrics``, the fleet
 routes and ``active_server``/``serve_slo`` wait for A9.
@@ -252,15 +254,22 @@ class InferenceServer:
         self.replica_set: Optional[ReplicaSet] = None
         self.autoscaler: Optional[Autoscaler] = None
         self.batcher: Optional[MicroBatcher] = None
+        self.membership = None
         if replicas > 1 or autoscale:
             if registry is not None:
                 raise ValueError(
                     "replica mode owns its per-replica registries; pass "
                     "registry=None and register through server.register()")
+            if autoscale:
+                # serving replicas are fenced members, as elastic training
+                # workers are: a lapsed lease takes one out of the router
+                from ..cloud import MembershipOracle
+                self.membership = MembershipOracle(role="replica")
             self.replica_set = ReplicaSet(
                 replicas, device=self.device,
                 max_batch=max_batch, max_latency_s=max_latency_s,
-                max_queue=max_queue, warmup=warmup)
+                max_queue=max_queue, warmup=warmup,
+                membership=self.membership)
             # replica 0's registry is the front door's catalog (404s,
             # streaming, decode); every roll keeps the replicas in step
             self.registry = self.replica_set.primary_registry

@@ -263,26 +263,56 @@ class CheckpointListener(IterationListener):
     ``checkpoint_epoch_<n>.zip`` beside a copy of the newest as
     ``latest.zip``; the ``keep_last`` newest stay, counted across restarts
     from the files in ``directory``. Each file is written to a temporary
-    name and renamed, so a crash leaves no truncated zip."""
+    name and renamed, so a crash leaves no truncated zip.
+
+    ``sharded=True`` writes sharded checkpoint directories
+    (``utils/sharded_checkpoint.py``: each rank of a distributed fit writes
+    its own blocks, no gather) as ``checkpoint_<tag>``, with a ``LATEST``
+    file naming the newest."""
 
     def __init__(self, directory: str, every_n_iterations: Optional[int] = None,
                  every_n_epochs: Optional[int] = 1, keep_last: int = 3,
                  sharded: bool = False):
-        if sharded:
-            raise NotImplementedError(
-                "sharded checkpoints (utils/sharded_checkpoint.py) are not "
-                "ported yet (ROADMAP.md A7); use sharded=False for zips")
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self.every_n_iterations = every_n_iterations
         self.every_n_epochs = every_n_epochs
         self.keep_last = keep_last
-        self.sharded = False
+        self.sharded = sharded
+        pattern = "checkpoint_*" if sharded else "checkpoint_*.zip"
         self._written: list = sorted(
-            (p for p in glob.glob(os.path.join(directory, "checkpoint_*.zip"))
-             if not os.path.isdir(p)), key=os.path.getmtime)
+            (p for p in glob.glob(os.path.join(directory, pattern))
+             if sharded == os.path.isdir(p)), key=os.path.getmtime)
+
+    def _rotate(self, path: str, remove) -> None:
+        if path in self._written:
+            self._written.remove(path)
+        self._written.append(path)
+        while len(self._written) > self.keep_last:
+            old = self._written.pop(0)
+            try:
+                remove(old)
+            except OSError:
+                log.debug("could not remove rotated checkpoint %s", old,
+                          exc_info=True)
+
+    def _save_sharded(self, model, tag: str) -> str:
+        from ..utils.sharded_checkpoint import _rank, save_sharded
+
+        path = os.path.join(self.directory, f"checkpoint_{tag}")
+        save_sharded(path, model)
+        lead = _rank() == 0  # one rank writes the pointer and rotates
+        if lead:
+            tmp = os.path.join(self.directory, "LATEST.tmp")
+            with open(tmp, "w") as f:
+                f.write(os.path.basename(path))
+            os.replace(tmp, os.path.join(self.directory, "LATEST"))
+        self._rotate(path, shutil.rmtree if lead else (lambda p: None))
+        return path
 
     def _save(self, model, tag: str) -> str:
+        if self.sharded:
+            return self._save_sharded(model, tag)
         from ..utils.model_serializer import write_model
 
         path = os.path.join(self.directory, f"checkpoint_{tag}.zip")
@@ -292,16 +322,7 @@ class CheckpointListener(IterationListener):
         latest_tmp = os.path.join(self.directory, "latest.zip.tmp")
         shutil.copyfile(path, latest_tmp)
         os.replace(latest_tmp, os.path.join(self.directory, "latest.zip"))
-        if path in self._written:
-            self._written.remove(path)
-        self._written.append(path)
-        while len(self._written) > self.keep_last:
-            old = self._written.pop(0)
-            try:
-                os.remove(old)
-            except OSError:
-                log.debug("could not remove rotated checkpoint %s", old,
-                          exc_info=True)
+        self._rotate(path, os.remove)
         return path
 
     def iteration_done(self, model, iteration: int) -> None:

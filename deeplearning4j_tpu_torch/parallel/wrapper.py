@@ -421,6 +421,7 @@ class ParallelWrapper:
                     sh.gather_all()
                     net.updater_state = sh.gather_updater_state(
                         net.updater_state)
+                    net._zero_sharding = None  # whole for this step
                 try:
                     net._fit_dataset(ds)
                 finally:
@@ -428,6 +429,7 @@ class ParallelWrapper:
                         net.updater_state = sh.scatter_updater_state(
                             net.updater_state)
                         sh.begin()
+                        net._zero_sharding = sh
 
         stream = (torch.cuda.Stream(net.device)
                   if net.device.type == "cuda" else None)
@@ -443,6 +445,9 @@ class ParallelWrapper:
             if sh is not None:
                 net.updater_state = sh.scatter_updater_state(net.updater_state)
                 sh.begin()
+                # what a sharded checkpoint saves from between steps
+                # (utils/sharded_checkpoint.py): this rank's blocks
+                net._zero_sharding = sh
             try:
                 for _ in range(epochs):
                     if hasattr(iterator, "reset"):
@@ -475,6 +480,7 @@ class ParallelWrapper:
                                         grad_bytes * item.n)
             finally:
                 if sh is not None:
+                    net._zero_sharding = None
                     sh.end()
                     net.updater_state = sh.gather_updater_state(
                         net.updater_state)

@@ -1,0 +1,308 @@
+"""Sharded checkpoints of a network's training state.
+
+Counterpart of ``deeplearning4j_tpu/utils/sharded_checkpoint.py``. The
+zip container (``utils/model_serializer.py``) gathers everything to one
+host; a sharded checkpoint lets each rank write its own blocks. The array
+state goes through ``torch.distributed.checkpoint`` into ``<dir>/state``
+(one ``.distcp`` file a rank and a ``.metadata`` index): params, layer
+states and updater state, keyed ``params/<layer>/<name>``,
+``states/<layer>/<name>`` and ``updater/<layer>/<name>/<slot>``. A leaf
+that a ZeRO fit (``ParallelWrapper`` with ``zero1``, FSDP or ``zero3``,
+``parallel/compile_seam.py``) holds split over the ranks is saved from the
+block its rank holds, with no gather: under the key
+``<key>@shard<i>of<n>@dim<d>``; a whole leaf is written by one rank.
+:func:`restore_sharded` reads the blocks of every rank back into whole
+tensors.
+
+The sidecar is the JAX package's exactly: ``config.json`` (the config
+JSON) and ``meta.json`` (``iteration``, ``epoch``, ``step``,
+``network_type``), written by rank 0 after the array state has landed,
+and removed before a new write. It is the commit marker:
+:func:`restore_sharded` refuses array state without it. The JAX package
+writes orbax/TensorStore arrays; the port has no orbax and does not
+reproduce that layout, so a checkpoint directory is read by the package
+that wrote it (ROADMAP.md §C).
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+_PARAMS = "params"
+_UPDATER = "updater"
+_STATES = "states"
+_STATE_DIR = "state"
+_CONFIG_FILE = "config.json"
+_META_FILE = "meta.json"
+_SHARD = re.compile(r"^(.*)@shard(\d+)of(\d+)@dim(\d+)$")
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def _distributed() -> bool:
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _barrier() -> None:
+    if _distributed():
+        dist.barrier()
+
+
+def _items(tree):
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
+
+
+def _state_dict(net) -> dict:
+    """The network's training state as flat keys -> tensors; a leaf a ZeRO
+    fit holds split is this rank's block under a shard key."""
+    sh = getattr(net, "_zero_sharding", None)
+    out = {}
+
+    def split(leaf_key, kind):
+        if sh is None:
+            return None
+        leaf = sh.leaves.get(leaf_key)
+        return None if leaf is None else getattr(leaf, kind)
+
+    def shard_key(key, d):
+        return f"{key}@shard{sh.idx}of{sh.n}@dim{d}"
+
+    for layer, params in _items(net.params_list):
+        for name, t in params.items():
+            key = f"{_PARAMS}/{layer}/{name}"
+            d = split((layer, name), "pdim")
+            if d is None:
+                out[key] = t.detach()
+            else:
+                out[shard_key(key, d)] = sh.param_shards[(layer, name)]
+    for layer, states in _items(net.state_list):
+        for name, t in states.items():
+            out[f"{_STATES}/{layer}/{name}"] = t.detach()
+    for layer, upd in _items(net.updater_state or []):
+        for name, slots in upd.items():
+            d = split((layer, name), "udim")
+            for slot, t in slots.items():
+                key = f"{_UPDATER}/{layer}/{name}/{slot}"
+                if d is None:
+                    out[key] = t.detach()
+                else:
+                    out[shard_key(key, d)] = t.detach()
+    return out
+
+
+def _snapshot_sidecar(net, step: Optional[int]) -> dict:
+    """The sidecar, taken at save time (an async write lands later, when
+    ``net`` may have trained on)."""
+    return {"config": net.conf.to_json(),
+            "meta": {"iteration": int(getattr(net, "iteration", 0)),
+                     "epoch": int(getattr(net, "epoch", 0)),
+                     "step": step,
+                     "network_type": type(net).__name__}}
+
+
+def _write_sidecar_payload(directory: str, payload: dict) -> None:
+    """Config and bookkeeping JSON beside the array state, written by rank 0
+    once the array state is on disk (the commit marker)."""
+    if _rank() != 0:
+        return
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, _CONFIG_FILE), "w") as f:
+        f.write(payload["config"])
+    with open(os.path.join(directory, _META_FILE), "w") as f:
+        json.dump(payload["meta"], f)
+
+
+def _begin(directory: str) -> str:
+    """Before new array state: rank 0 removes the last save's commit marker
+    and array state (a crash mid-write then leaves no sidecar endorsing a
+    torn state); every rank waits for it. Returns the state directory."""
+    state = os.path.join(directory, _STATE_DIR)
+    if _rank() == 0:
+        for name in (_CONFIG_FILE, _META_FILE):
+            path = os.path.join(directory, name)
+            if os.path.exists(path):
+                os.remove(path)
+        if os.path.exists(state):
+            shutil.rmtree(state)
+        os.makedirs(state)
+    _barrier()
+    return state
+
+
+def _dcp_kwargs() -> dict:
+    return {} if dist.is_available() and dist.is_initialized() \
+        else {"no_dist": True}
+
+
+def save_sharded(directory: str, net, *, step: Optional[int] = None) -> str:
+    """Write a sharded checkpoint of the network's training state (every
+    rank of a distributed fit calls it); saving to the same directory
+    again replaces the last one. Returns the directory."""
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(directory)
+    state = _begin(directory)
+    dcp.save(_state_dict(net), checkpoint_id=state, **_dcp_kwargs())
+    _write_sidecar_payload(directory, _snapshot_sidecar(net, step))
+    return directory
+
+
+class AsyncShardedSaver:
+    """Sharded saves that do not stall training: ``save`` copies the state
+    to the host and returns; the write runs on a background thread
+    (``torch.distributed.checkpoint.async_save``). One save is in flight at
+    a time: a new ``save`` waits for the last one and commits it. Call
+    ``wait()`` (or use the object as a context manager) before reading the
+    checkpoint or exiting.
+
+    The sidecar, snapshotted at ``save`` time, is written only after
+    ``wait`` confirms the array write landed, so a crash mid-save leaves
+    array state without a sidecar, which :func:`restore_sharded` refuses.
+    In a distributed group the group needs a CPU backend (gloo)."""
+
+    def __init__(self):
+        self._future = None
+        self._pending: Optional[tuple] = None
+        #: saves committed by this saver
+        self.committed = 0
+
+    def save(self, directory: str, net, *, step: Optional[int] = None) -> str:
+        import torch.distributed.checkpoint as dcp
+
+        directory = os.path.abspath(directory)
+        self.wait()
+        state = _begin(directory)
+        snapshot = {k: t.to("cpu", copy=True)
+                    for k, t in _state_dict(net).items()}
+        self._future = dcp.async_save(snapshot, checkpoint_id=state,
+                                      **_dcp_kwargs())
+        self._pending = (directory, _snapshot_sidecar(net, step))
+        return directory
+
+    def wait(self) -> None:
+        if self._future is not None:
+            future, self._future = self._future, None
+            future.result()
+        if self._pending is not None:
+            pending_dir, payload = self._pending
+            self._pending = None
+            _write_sidecar_payload(pending_dir, payload)
+            self.committed += 1
+
+    def close(self) -> None:
+        self.wait()
+
+    def __enter__(self) -> "AsyncShardedSaver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def is_committed(directory: str) -> bool:
+    return os.path.exists(os.path.join(directory, _META_FILE))
+
+
+def _read_state(state_dir: str) -> dict:
+    """Every key of a checkpoint as a whole host tensor: the shard keys of
+    all ranks concatenated back along their dim."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    md = FileSystemReader(state_dir).read_metadata().state_dict_metadata
+    flat = {k: torch.empty(v.size, dtype=v.properties.dtype)
+            for k, v in md.items()}
+    dcp.load(flat, checkpoint_id=state_dir, no_dist=True)
+    whole, shards = {}, {}
+    for key, t in flat.items():
+        m = _SHARD.match(key)
+        if m is None:
+            whole[key] = t
+            continue
+        base, i, n, d = m.group(1), *(int(g) for g in m.groups()[1:])
+        shards.setdefault((base, n, d), {})[i] = t
+    for (base, n, d), parts in shards.items():
+        if sorted(parts) != list(range(n)):
+            raise RuntimeError(f"checkpoint {state_dir}: {base} has blocks "
+                               f"{sorted(parts)} of {n}")
+        whole[base] = torch.cat([parts[i] for i in range(n)]).movedim(0, d)
+    return whole
+
+
+@torch.no_grad()
+def restore_sharded(directory: str, net=None, *, device=None,
+                    shardings=None):
+    """Restore a sharded checkpoint into ``net`` (made and initialized if
+    it is not) or, with ``net`` None, into a network built from the stored
+    config on ``device`` (None means CUDA). Every leaf comes back whole,
+    bitwise as saved; iteration and epoch come from the sidecar. Placing
+    leaves onto a sharding at restore (``shardings=``) waits for ROADMAP.md
+    A7.8."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restoring onto a sharding (shardings=) waits for ROADMAP.md "
+            "A7.8; restore whole and fit through ParallelWrapper")
+    directory = os.path.abspath(directory)
+    state_dir = os.path.join(directory, _STATE_DIR)
+    # the sidecar is written only after the array write landed: array
+    # state without it is a save that crashed mid-write
+    if os.path.exists(state_dir) and not is_committed(directory):
+        raise RuntimeError(
+            f"checkpoint at {directory} has array state but no committed "
+            f"sidecar ({_META_FILE}); an async save likely crashed before "
+            "wait()/close() — refusing to restore an incomplete checkpoint")
+    with open(os.path.join(directory, _META_FILE)) as f:
+        meta = json.load(f)
+    if net is None:
+        with open(os.path.join(directory, _CONFIG_FILE)) as f:
+            net = _net_from_config(f.read(), meta, device)
+    if not getattr(net, "_initialized", True) or net.updater_state is None:
+        net.init()
+    saved = _read_state(state_dir)
+    trees = {_PARAMS: net.params_list, _STATES: net.state_list,
+             _UPDATER: net.updater_state}
+    want = set()
+    for kind, tree in trees.items():
+        for layer, leaves in _items(tree):
+            for name, v in leaves.items():
+                slots = v.items() if isinstance(v, dict) else [(None, v)]
+                for slot, t in slots:
+                    key = f"{kind}/{layer}/{name}" + (
+                        "" if slot is None else f"/{slot}")
+                    want.add(key)
+                    if key not in saved:
+                        raise RuntimeError(f"checkpoint {directory} has no "
+                                           f"{key}")
+                    t.copy_(saved[key])
+    extra = set(saved) - want
+    if extra:
+        raise RuntimeError(f"checkpoint {directory} holds leaves the "
+                           f"network lacks: {sorted(extra)[:5]}")
+    net.iteration = int(meta.get("iteration", 0))
+    net.epoch = int(meta.get("epoch", 0))
+    if hasattr(net, "_drop_step_graphs"):
+        net._drop_step_graphs()
+    return net
+
+
+def _net_from_config(config_json: str, meta: dict, device):
+    if meta.get("network_type") == "ComputationGraph":
+        from ..nn.conf.graphconf import ComputationGraphConfiguration
+        from ..nn.graph_network import ComputationGraph
+        return ComputationGraph(
+            ComputationGraphConfiguration.from_json(config_json),
+            device=device)
+    from ..nn.conf.multilayer import MultiLayerConfiguration
+    from ..nn.multilayer import MultiLayerNetwork
+    return MultiLayerNetwork(MultiLayerConfiguration.from_json(config_json),
+                             device=device)

@@ -333,7 +333,39 @@ def job_mesh(axes):
     return out
 
 
-JOBS = {"wrapper": job_wrapper, "master": job_master,
+def job_checkpoint(conf_json, params, batches, directory, knobs=(),
+                   every=1):
+    """``ParallelWrapper.fit`` with a ``CheckpointListener(sharded=True)``
+    saving every ``every`` iterations into ``directory`` (every rank
+    writes its own blocks). Returns the final params, updater state and
+    iteration, and the smallest param storage the listener saw (0 when
+    the rank held only its shards)."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener)
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    net = _net(conf_json, params)
+    seen = []
+
+    class Storage:
+        def iteration_done(self, model, iteration):
+            seen.append(min(p.untyped_storage().size()
+                            for d in model.params_list for p in d.values()))
+
+    net.set_listeners(Storage(), CheckpointListener(
+        directory, every_n_iterations=every, every_n_epochs=None,
+        keep_last=2, sharded=True))
+    b = ParallelWrapper.builder(net).prefetch_buffer(0)
+    for method, args in knobs:
+        b = getattr(b, method)(*args)
+    b.build().fit(ListDataSetIterator(_datasets(batches)))
+    return {"params": _np(net.params_list), "updater": _np(net.updater_state),
+            "iteration": net.iteration, "min_storage": min(seen)}
+
+
+JOBS = {"wrapper": job_wrapper, "master": job_master, "checkpoint":
+        job_checkpoint,
         "early_stopping": job_early_stopping, "attention": job_attention,
         "raises": job_raises, "mesh": job_mesh}
 

@@ -950,3 +950,67 @@ def test_lbfgs_on_card_follows_the_cpu(cuda_device):
     assert abs(net.score_value - ref.score_value) <= 1e-4 * ref.score_value
     assert net.iteration == ref.iteration and 0 < net.iteration <= 10
     assert launches >= net.iteration
+
+
+def _ps_lm(device):
+    from deeplearning4j_tpu_torch.models import transformer_lm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return MultiLayerNetwork(transformer_lm(32, width=64, n_layers=2,
+                                           n_heads=2, max_len=32),
+                             device=device).init(seed=3)
+
+
+def _ps_batches(n=8, b=4, t=32, v=32, seed=0):
+    g = np.random.default_rng(seed)
+    return [np.eye(v, dtype=np.float32)[g.integers(0, v, (b, t))]
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_param_server_worker_on_card_equals_fit(cuda_device):
+    """One inproc PS worker on the card (push frequency 4, 8 batches):
+    each window lands at weight 1, so the params are fit's within the JAX
+    suite's rtol 2e-4 atol 2e-5, and the worker's steps launch exactly the
+    fit's kernels: each flash kernel once a layer a step, sm_xent once."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel.param_server import (
+        ParameterServerParallelWrapper)
+    xs = _ps_batches()
+    ref = _ps_lm(cuda_device)
+    for x in xs:
+        ref.fit(x, x)
+    net = _ps_lm(cuda_device)
+    counted = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv,
+               tsx.softmax_cross_entropy)
+    for fn in counted:
+        fn.launches = 0
+    w = (ParameterServerParallelWrapper.builder(net).workers(1)
+         .push_frequency(4).build())
+    w.fit(ListDataSetIterator([DataSet(x, x) for x in xs]))
+    assert w.server.pushes == 2
+    assert [fn.launches for fn in counted] == [16, 16, 16, 8]
+    got, want = net.params().cpu(), ref.params().cpu()
+    assert bool(((got - want).abs() <= 2e-5 + 2e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_sharded_checkpoint_round_trips_on_card(cuda_device, tmp_path):
+    """save_sharded then restore_sharded on the card: params, layer states
+    and Adam's state bitwise, restored onto the card."""
+    from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
+        restore_sharded, save_sharded)
+    net = _ps_lm(cuda_device)
+    for x in _ps_batches(2):
+        net.fit(x, x)
+    back = restore_sharded(save_sharded(str(tmp_path / "ck"), net),
+                           device=cuda_device)
+    assert back.device.type == "cuda" and back.iteration == net.iteration
+    for a, b in ((back.params_list, net.params_list),
+                 (back.updater_state, net.updater_state)):
+        for la, lb in zip(a, b):
+            for k in lb:
+                va, vb = la[k], lb[k]
+                if isinstance(vb, dict):
+                    assert all(torch.equal(va[s], vb[s]) for s in vb)
+                else:
+                    assert torch.equal(va, vb)

@@ -278,8 +278,26 @@ def test_checkpoint_listener_keeps_the_jax_files(tmp_path):
     assert len(again._written) == 3
     # no pointer and no zip: nothing to resume
     assert tl.CheckpointListener.last_checkpoint(str(tmp_path)) is None
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.CheckpointListener(str(tmp_path / "s"), sharded=True)
+    # sharded=True writes sharded checkpoint directories with a LATEST
+    # pointer (utils/sharded_checkpoint.py), named as the JAX listener
+    # names them
+    sck = tl.CheckpointListener(str(tmp_path / "s"), every_n_iterations=1,
+                                every_n_epochs=None, keep_last=2, sharded=True)
+    tnet.set_listeners(sck)
+    tnet.fit_iterator(ListDataSetIterator([DataSet(x, y) for x, y in batches]),
+                      epochs=1)
+    last = tl.CheckpointListener.last_checkpoint(str(tmp_path / "s"))
+    assert os.path.isdir(last)
+    assert os.path.basename(last) == f"checkpoint_iter_{tnet.iteration}"
+    assert len(names(tmp_path / "s")) == 3  # two directories and LATEST
+    from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
+        restore_sharded)
+    back = restore_sharded(last, device="cpu")
+    assert back.iteration == tnet.iteration
+    for own, ref in zip(to_numpy(back.params_list),
+                        to_numpy(tnet.params_list)):
+        for k in ref:
+            np.testing.assert_array_equal(own[k], ref[k])
 
 
 # ---------------------------------------------------------- early stopping

@@ -221,8 +221,16 @@ def test_sharded_placements_wait_for_a7():
     net = _port(_jax_mlp())
     with pytest.raises(NotImplementedError, match="A7.1"):
         ReplicaSet(2, device="cpu", sharding="dp_tp")
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        ReplicaSet(2, device="cpu", membership=object())
+    # lease fencing (A7.4) works: each replica holds a live lease
+    from deeplearning4j_tpu_torch.cloud import MembershipOracle
+    oracle = MembershipOracle(role="replica")
+    rs = ReplicaSet(2, device="cpu", membership=oracle)
+    try:
+        assert [oracle.validate(r.lease.member, r.lease.epoch)
+                for r in rs.replicas] == [True, True]
+        assert rs.fenced_replicas() == []
+    finally:
+        rs.close()
     with pytest.raises(NotImplementedError, match="A7"):
         InferenceServer(replicas=2, device="cpu", sharding="dp_tp")
     with pytest.raises(NotImplementedError, match="A7"):

@@ -157,10 +157,20 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.parallel.compile_seam, "
             "deeplearning4j_tpu_torch.parallel.ring_attention, "
             "deeplearning4j_tpu_torch.parallel.wrapper, "
-            "deeplearning4j_tpu_torch.parallel.training_master;"
+            "deeplearning4j_tpu_torch.parallel.training_master, "
+            "deeplearning4j_tpu_torch.streaming.wire, "
+            "deeplearning4j_tpu_torch.parallel.param_server, "
+            "deeplearning4j_tpu_torch.parallel.ps_transport, "
+            "deeplearning4j_tpu_torch.parallel.ps_worker, "
+            "deeplearning4j_tpu_torch.streaming, "
+            "deeplearning4j_tpu_torch.streaming.broker, "
+            "deeplearning4j_tpu_torch.cloud, "
+            "deeplearning4j_tpu_torch.utils.sharded_checkpoint, "
+            "deeplearning4j_tpu_torch.parallel.elastic;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
-            "or m.startswith('deeplearning4j_tpu.')];"
+            "or m.startswith('deeplearning4j_tpu.') or m == 'ml_dtypes' "
+            "or m.startswith('ml_dtypes.')];"
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)

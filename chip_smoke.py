@@ -204,12 +204,26 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    as ``fit`` on the same batches: sync DP as 4 single steps and an 8-step
    K-step group (a CUDA graph with the NCCL collectives captured; losses and
    params within 1e-5 relative), ``zero3``, local SGD at frequency 2, and
-   ``sequence_parallel`` Ulysses and ring on ``{"data": 1, "sp": 1}``;
+   ``sequence_parallel`` Ulysses and ring on ``{"data": 1, "sp": 1}``,
+   ``PipelineTrainer`` on ``{"stage": 1}`` (4 microbatches of 4 rows: the
+   GPipe schedule's ticks on one rank);
    ResNet-50 at 224x224, B = 128 for 2 steps through batch norm's group path
-   (within 1e-4, cuDNN deterministic); exact launches of the flash kernels
-   and ``sm_xent``; then two gloo ranks on the one card (the modes whose
-   collectives gloo carries on CUDA tensors) against one rank, within 1e-4,
-   with each rank's launches; each mode's ms a step beside ``fit``'s;
+   (within 1e-4, cuDNN deterministic); ``moe_transformer_lm(256)`` at B = 8,
+   T = 256 through ``expert_parallel("data", 8)`` on ``{"data": 1}`` (the
+   capacity packing and the all_to_all of one rank; no token dropped);
+   exact launches of the flash kernels and ``sm_xent``; then two gloo ranks
+   on the one card (the modes whose collectives gloo carries on CUDA
+   tensors: dp, zero3, Ulysses, the pipeline on ``{"stage": 2}``, dp_tp on
+   ``{"data": 1, "model": 2}``) against one rank, within 1e-4, with each
+   rank's launches (the pipeline's 4 microbatches through a stage's 2
+   blocks, dp_tp's attention on 2 of the 4 heads), and the MoE LM's
+   expert-parallel steps on ``{"data": 2}`` (4 experts a rank): one at
+   capacity factor 8 against one rank's fit, one at the default 2.0 against
+   the same step on a CPU clone in the same group (the loss, the routing
+   and the drops; the gradient of the leaves no expert's ReLU slope reaches
+   within 1e-5, the whole gradient within twice the dense path's own
+   card-to-CPU distance on the same batch); each mode's ms a step beside
+   ``fit``'s;
 23. runs the ``param_server`` phase (A7.3) on the parallel phase's model
    and shapes: one inproc worker at push frequency 4 over 8 batches
    against ``fit`` from the same state (the JAX suite's rtol 2e-4, atol
@@ -610,9 +624,13 @@ def check_flash(rows: list, dev) -> None:
     # float32 online softmax against the one-pass plain version
     tol = 2e-5
     H, D = 4, 64
-    for B, T in ((2, 512), (8, 512), (TRAIN_B, TRAIN_T), (MOE_B, MOE_T),
-                 (REPLICA_B, REPLICA_T)):
-        q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev)
+    # besides: the pipeline's microbatch and an expert-parallel rank's rows
+    # (B 4), and a dp_tp rank's heads (2 of the train shape's 4)
+    for B, T, Hh in ((2, 512, H), (8, 512, H), (TRAIN_B, TRAIN_T, H),
+                     (MOE_B, MOE_T, H), (REPLICA_B, REPLICA_T, H),
+                     (TRAIN_B // PAR_PIPE_M, TRAIN_T, H),
+                     (TRAIN_B, TRAIN_T, PAR_TP_HEADS)):
+        q, k, v = (torch.randn(B, T, Hh, D, generator=g).to(dev)
                    for _ in range(3))
         out, lse = flash_fwd(q, k, v, True)
         ro, rl = flash_fwd_plain(q, k, v, True)
@@ -622,8 +640,8 @@ def check_flash(rows: list, dev) -> None:
         if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
             fail(f"flash_fwd B={B} T={T} differs from run to run")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = B * H * T * (T + 1) / 2
-        nbytes, ops = 4 * B * T * H * D * 4 + B * H * T * 4, 4 * D * pairs
+        pairs = B * Hh * T * (T + 1) / 2
+        nbytes, ops = 4 * B * T * Hh * D * 4 + B * Hh * T * 4, 4 * D * pairs
 
         def kernel(q=q, k=k, v=v):
             return flash_fwd(q, k, v, True)
@@ -636,7 +654,7 @@ def check_flash(rows: list, dev) -> None:
         # (the same products on the CUDA cores) is kept beside it
         f32_ms, f32_by = bound(nbytes, ops)
         tc_ms, tc_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-        row = report(rows, "flash_fwd", {"B": B, "T": T, "H": H, "D": D,
+        row = report(rows, "flash_fwd", {"B": B, "T": T, "H": Hh, "D": D,
                                          "causal": True}, err, tol,
                      time_ms(kernel, iters=20),
                      time_ms(lambda: flash_fwd_plain(q, k, v, True), iters=20),
@@ -729,10 +747,12 @@ def check_flash(rows: list, dev) -> None:
 #: ResNet-50's, the MoE LM's (B 8 x T 256 rows of 256), VGG-16's (B 64)
 #: and AlexNet's and GoogLeNet's (B 32) steps of 1000 classes, their
 #: checks against the CPU (VGG-16 at B 4, the other two at B 2), the
-#: SelfAttention network's (B 4 of 10) and Iris's (B 30 of 3)
+#: SelfAttention network's (B 4 of 10), Iris's (B 30 of 3) and an
+#: expert-parallel rank's MoE LM rows (B 4 x T 256 of 256)
 XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V),
               (LENET_B, 10), (128, 1000), (2048, 256), (64, 1000),
-              (32, 1000), (4, 1000), (2, 1000), (4, 10), (30, 3))
+              (32, 1000), (4, 1000), (2, 1000), (4, 10), (30, 3),
+              (1024, 256))
 
 
 def check_xent(rows: list, dev) -> None:
@@ -759,6 +779,7 @@ def check_xent(rows: list, dev) -> None:
             (2, 1000, torch.float32, 1e-5, 1e-6),
             (4, 10, torch.float32, 1e-5, 1e-6),
             (30, 3, torch.float32, 1e-5, 1e-6),
+            (1024, 256, torch.float32, 1e-5, 1e-6),
             (64, 50257, torch.float32, 1e-5, 1e-6),
             (64, 2048, torch.float32, 1e-5, 1e-6),
             (65, 2049, torch.float32, 1e-5, 1e-6),
@@ -818,9 +839,16 @@ def check_flash_bwd(rows: list, dev) -> None:
     tol, tol_bf16 = 2e-5, 3.2e-2
     wide2_d = WIDE_WIDTH // WIDE2_HEADS
     timed = {(TRAIN_B, TRAIN_T, 64), (WIDE_B, WIDE_T, 128),
-             (WIDE_B, WIDE_T, wide2_d), (MOE_B, MOE_T, 64)}
+             (WIDE_B, WIDE_T, wide2_d), (MOE_B, MOE_T, 64),
+             (TRAIN_B // PAR_PIPE_M, TRAIN_T, 64)}
     cases = [(TRAIN_B, TRAIN_T, 4, 64, True, False, torch.float32),
              (MOE_B, MOE_T, 4, 64, True, False, torch.float32),
+             # the pipeline's microbatch, an expert-parallel rank's rows,
+             # a dp_tp rank's heads
+             (TRAIN_B // PAR_PIPE_M, TRAIN_T, 4, 64, True, False,
+              torch.float32),
+             (TRAIN_B, TRAIN_T, PAR_TP_HEADS, 64, True, False,
+              torch.float32),
              (WIDE_B, WIDE_T, 4, 128, True, False, torch.float32),
              (WIDE_B, WIDE_T, WIDE2_HEADS, wide2_d, True, False,
               torch.float32),
@@ -5402,7 +5430,26 @@ PAR_GLOO_STEPS, PAR_GLOO_TOL = 3, 1e-4
 #: reduce_scatter_tensor, all_to_all_single and broadcast on CUDA tensors
 #: and failed batch_isend_irecv (ring's K/V pass) in this PR's first chip
 #: call; local SGD is another algorithm than one rank's fit
-PAR_GLOO_MODES = ("dp", "zero3", "ulysses")
+PAR_GLOO_MODES = ("dp", "zero3", "ulysses", "pipeline", "dp_tp", "expert")
+#: A7.5, A7.6 and A7.9: PipelineTrainer's microbatches (B 16 gives 4 rows
+#: a microbatch), the expert-parallel capacity factors (8: nothing drops;
+#: 2.0: the default) on the MoE LM at its bench geometry (B 8, T 256, 8
+#: experts), and a dp_tp rank's heads on {data: 1, model: 2}
+PAR_PIPE_M = 4
+PAR_EP_ROOMY, PAR_EP_DEFAULT = 8.0, 2.0
+PAR_TP_HEADS = 2
+#: the default-capacity step is held against the same step on the CPU. The
+#: MoE LM's gradient is not a continuous function of its inputs: an expert's
+#: hidden unit whose pre-activation lies within rounding of 0 takes ReLU's
+#: other slope on the card than on the CPU, which moves that expert's W1
+#: and b1 gradient by one token's rank-1 term, and every gradient upstream
+#: of it. So the leaves no ReLU slope reaches (the last block's W2, b2 and
+#: Wg and the output layer: their gradients are continuous given the same
+#: routing) are held to this fixed limit, and the whole gradient within
+#: PAR_EP_MULT of the dense path's own card-to-CPU distance on the same
+#: rows (the whole batch) from the same state
+PAR_EP_SMOOTH_TOL = 1e-5
+PAR_EP_MULT = 2.0
 
 
 def _free_port() -> int:
@@ -5423,6 +5470,17 @@ def _par_batches(n: int, seed: int) -> list:
 def _par_net(device="cuda"):
     return MultiLayerNetwork(transformer_lm(TRAIN_V), device=device).init(
         seed=SEED)
+
+
+def _moe_batches(n: int, seed: int) -> list:
+    """``n`` one-hot id batches of the MoE LM ``[B, T, V]``, host numpy."""
+    g = np.random.default_rng(seed)
+    return [np.eye(MOE_V, dtype=np.float32)[
+        g.integers(0, MOE_V, size=(MOE_B, MOE_T))] for _ in range(n)]
+
+
+def _moe_net(device="cuda"):
+    return MultiLayerNetwork(moe_conf(), device=device).init(seed=SEED)
 
 
 def _flat_params(net) -> torch.Tensor:
@@ -5505,10 +5563,15 @@ def _gloo_rank(rank: int, world: int, port: int, out: str) -> None:
     _cuda.build()
     init_distributed(f"tcp://localhost:{port}", world, rank, device="cuda",
                      backend="gloo")
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        PipelineTrainer)
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
     xs = _par_batches(PAR_GLOO_STEPS, SEED + 7)
     got = {}
     for mode in PAR_GLOO_MODES:
+        if mode == "expert":
+            got[mode] = _gloo_expert(kernels)
+            continue
         net = _par_net()
         rec = _Losses()
         net.set_listeners(rec)
@@ -5518,6 +5581,16 @@ def _gloo_rank(rank: int, world: int, port: int, out: str) -> None:
         elif mode == "ulysses":
             b = b.mesh(build_mesh({"data": 1, "sp": world})).sequence_parallel(
                 "sp", "ulysses")
+        elif mode == "dp_tp":
+            b = b.mesh(build_mesh({"data": 1, "model": world})).sharding(
+                "dp_tp")
+        if mode == "pipeline":
+            trainer = PipelineTrainer(net, mesh=build_mesh({"stage": world}),
+                                      n_microbatches=PAR_PIPE_M)
+            trainer.prefetch_depth = 0
+            fit = trainer.fit
+        else:
+            fit = b.build().fit
         stamps = []
 
         class Stamp:
@@ -5527,13 +5600,241 @@ def _gloo_rank(rank: int, world: int, port: int, out: str) -> None:
 
         net.add_listener(Stamp())
         _zero(kernels)
-        b.build().fit(_par_iter(xs))
+        fit(_par_iter(xs))
         got[mode] = {"losses": rec.values, "params": net.params().cpu(),
                      "launches": _launches(kernels),
                      "ms": 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)}
+        if mode == "pipeline":
+            got[mode]["stats"] = trainer.stats()
         del net
     torch.save(got, out)
     dist.destroy_process_group()
+
+
+def _first_moments(net) -> dict:
+    """Adam's first moment of every param, by ``"layer/name"``, flat, on
+    the host."""
+    return {f"{i}/{name}": slots["m"].detach().reshape(-1).cpu().double()
+            for i, layer in enumerate(net.updater_state)
+            for name, slots in sorted(layer.items())}
+
+
+def _local_grad(net, x) -> dict:
+    """The gradient of the network's training loss on ``x`` (its dense
+    path, no update) by ``"layer/name"``, flat, on the host."""
+    from deeplearning4j_tpu_torch.nn.multilayer import _grads, loss_fn
+    h = net._to_device(x)
+    loss, _ = loss_fn(net, net.params_list, h, h, None)
+    return {f"{i}/{name}": t.detach().reshape(-1).double().cpu()
+            for i, layer in enumerate(_grads(loss, net.params_list))
+            for name, t in sorted(layer.items())}
+
+
+def _smooth_leaves(net) -> list:
+    """The ``"layer/name"`` keys of the MoE LM's leaves no expert's ReLU
+    slope reaches in the backward: the output layer's and the last MoE
+    block's W2, b2 and Wg."""
+    last = len(net.layers) - 1
+    return ([f"{last}/{k}" for k in net.params_list[last]]
+            + [f"{last - 1}/{k}" for k in ("W2", "b2", "Wg")])
+
+
+def _gap(a: dict, b: dict, keys=None) -> float:
+    """``||a - b|| / ||b||`` over ``keys`` (every key when None)."""
+    keys = list(b) if keys is None else keys
+    d = torch.cat([a[k] - b[k] for k in keys])
+    return float(d.norm() / torch.cat([b[k] for k in keys]).norm())
+
+
+@torch.no_grad()
+def _relu_flips(card, cpu, x) -> list:
+    """Per MoE block: the routed tokens' expert pre-activations (``x``'s
+    tokens through their own expert's W1 and b1, on each device from its
+    own forward) whose sign differs between the card and the CPU."""
+    out = []
+    hs = [card._to_device(x), cpu._to_device(x)]
+    for i, layer in enumerate(cpu.layers):
+        if layer.has_loss():
+            break
+        if isinstance(layer, MoETransformerBlock):
+            signs = []
+            for net, h in zip((card, cpu), hs):
+                p, blk = net.params_list[i], net.layers[i]
+                tokens = blk.ffn_tokens(p, h)[1]
+                eidx = blk.route(p, tokens)[0]
+                pre = torch.zeros(tokens.shape[0], p["W1"].shape[-1],
+                                  dtype=torch.float32, device=h.device)
+                for e in range(blk.n_experts):
+                    sel = eidx == e
+                    pre[sel] = tokens[sel] @ p["W1"][e] + p["b1"][e]
+                signs.append((pre > 0).cpu())
+            out.append(int((signs[0] != signs[1]).sum()))
+        hs = [n.layers[i].apply_with_state(n.params_list[i], n.state_list[i],
+                                           h)[0]
+              for n, h in zip((card, cpu), hs)]
+    return out
+
+
+def _gloo_expert(kernels) -> dict:
+    """A gloo rank's expert-parallel steps on the MoE LM over ``data``: one
+    at ``PAR_EP_ROOMY`` (held by the parent against one rank's fit), then
+    one at ``PAR_EP_DEFAULT`` from there, run on the card and on a CPU
+    clone through the same group (the reference of the same function: the
+    capacity, and so the tokens dropped, depend on the rank's rows)."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel import moe as ep
+
+    xs = _moe_batches(2, SEED + 9)
+    net = _moe_net()
+    rec = _Losses()
+    net.set_listeners(rec)
+
+    def step(n, cf, x):
+        (ParallelWrapper.builder(n).prefetch_buffer(0)
+         .expert_parallel("data", cf).build().fit(_par_iter([x])))
+
+    out = {}
+    for name, cf, x in (("roomy", PAR_EP_ROOMY, xs[0]),
+                        ("default", PAR_EP_DEFAULT, xs[1])):
+        if name == "default":
+            cpu = net.clone(device="cpu")
+            cpu_rec = _Losses()
+            cpu.set_listeners(cpu_rec)
+            before = net.params().cpu()
+            m_before = _first_moments(net)
+            # this rank's rows routed on the card and on the CPU: a token
+            # near a tie may take another expert, and so another slot
+            import torch.distributed as dist
+            mine = np.array_split(x, dist.get_world_size())[dist.get_rank()]
+            routing = _route_agreement(moe_routes(net, mine),
+                                       moe_routes(cpu, mine))
+            # the dense path's gradient on the rows the step averages (the
+            # whole batch), card against CPU: the yardstick of the step's
+            # own distance, whole and on the leaves no ReLU slope reaches,
+            # and the ReLU slopes that differ
+            g_card, g_cpu = _local_grad(net, x), _local_grad(cpu, x)
+            smooth = _smooth_leaves(net)
+            dense_gap = {"all": _gap(g_card, g_cpu),
+                         "smooth": _gap(g_card, g_cpu, smooth),
+                         "relu_flips": _relu_flips(net, cpu, x)}
+        _zero(kernels)
+        ep.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(net, cf, x)
+        torch.cuda.synchronize()
+        out[name] = {"ms": 1e3 * (time.perf_counter() - t0),
+                     "launches": _launches(kernels),
+                     "params": net.params().cpu(), "loss": rec.values[-1],
+                     "tokens": ep.stats()}
+    ep.reset_stats()
+    step(cpu, PAR_EP_DEFAULT, xs[1])
+    out["default"].update(before=before, cpu_params=cpu.params().detach(),
+                          cpu_loss=cpu_rec.values[-1],
+                          cpu_tokens=ep.stats(), routing=routing,
+                          m_before=m_before, m=_first_moments(net),
+                          cpu_m=_first_moments(cpu), dense_gap=dense_gap,
+                          smooth=smooth)
+    return out
+
+
+def _check_gloo_expert(runs) -> dict:
+    """The two gloo ranks' expert-parallel steps: the roomy one against one
+    rank's fit on the same batch, the default one against the same step on
+    the CPU; launches exact."""
+    xs = _moe_batches(1, SEED + 9)
+    one = _moe_net()
+    rec = _Losses()
+    one.set_listeners(rec)
+    one.fit(xs[0], xs[0])
+    ref = one.params().cpu().double()
+    del one
+    out = {"launches": [], "roomy": {}, "default": {}}
+    for rank, r in enumerate(runs):
+        roomy, dflt = r["roomy"], r["default"]
+        rel = float((roomy["params"].double() - ref).norm() / ref.norm())
+        loss_rel = _rel(roomy["loss"], rec.values[0])
+        cpu = dflt["cpu_params"].double()
+        moved = float((cpu - dflt["before"].double()).norm())
+        share = float((dflt["params"].double() - cpu).norm()
+                      / max(moved, 1e-30))
+        cpu_rel = _rel(dflt["loss"], dflt["cpu_loss"])
+        # the step's gradient, card against CPU: Adam's first moment is
+        # 0.9 m + 0.1 g, so ||m - m_cpu|| / ||m_cpu - 0.9 m_before|| is the
+        # gradient's relative distance, held within PAR_EP_SMOOTH_TOL on
+        # the leaves no ReLU slope reaches and within PAR_EP_MULT of the
+        # dense path's on the whole (see PAR_EP_SMOOTH_TOL). The params
+        # after the update are not held by their own distance: Adam
+        # divides each entry by its own scale, so an entry whose gradient
+        # is within rounding of 0 moves by up to the rate either way
+        m_cpu, m0 = dflt["cpu_m"], dflt["m_before"]
+        g_cpu = {k: m_cpu[k] - 0.9 * m0[k] for k in m_cpu}
+        d_m = {k: dflt["m"][k] - 0.9 * m0[k] for k in m_cpu}
+        grad_rel = _gap(d_m, g_cpu)
+        smooth_rel = _gap(d_m, g_cpu, dflt["smooth"])
+        dense = dflt["dense_gap"]
+        grad_tol = PAR_EP_MULT * dense["all"]
+        # the moe phase's rule: a token may take another expert on the card
+        # than on the CPU only at a near-tie (gap <= MOE_TIE), and `flips`
+        # (away from a near tie) must be 0. Where a near-tie did flip, the
+        # slots and drops after it differ and the step is another
+        # function: the gradient and the drops are then not held
+        flips = sum(layer["flips"] for layer in dflt["routing"])
+        tie_flips = sum(layer["flips_near_ties"]
+                        for layer in dflt["routing"])
+        print(f"parallel gloo expert rank {rank}: capacity "
+              f"{PAR_EP_ROOMY:g} loss {roomy['loss']} (one rank "
+              f"{rec.values[0]}), loss rel err {loss_rel:.3e}, params rel err "
+              f"{rel:.3e} (tol {PAR_GLOO_TOL:.0e}), {roomy['ms']:.3f} ms, "
+              f"tokens {roomy['tokens']}; capacity {PAR_EP_DEFAULT:g} loss "
+              f"{dflt['loss']} (CPU {dflt['cpu_loss']}), loss rel err "
+              f"{cpu_rel:.3e} (tol {PAR_TOL:.0e}), gradient rel err on the "
+              f"leaves no ReLU slope reaches {smooth_rel:.3e} (tol "
+              f"{PAR_EP_SMOOTH_TOL:.0e}; the dense path's {dense['smooth']:.3e}"
+              f"), whole {grad_rel:.3e} (tol {grad_tol:.3e}: "
+              f"{PAR_EP_MULT:g} x the dense path's {dense['all']:.3e} on the "
+              f"whole batch, ReLU slopes differing card vs CPU by block "
+              f"{dense['relu_flips']}), params' share of the distance moved "
+              f"{share:.3e}, {dflt['ms']:.3f} ms, tokens {dflt['tokens']} "
+              f"(CPU {dflt['cpu_tokens']}); routing card vs CPU by layer "
+              f"{dflt['routing']}; gradient and drops held: "
+              f"{tie_flips == 0}", flush=True)
+        held = tie_flips == 0
+        if not (rel <= PAR_GLOO_TOL and loss_rel <= PAR_GLOO_TOL
+                and cpu_rel <= PAR_TOL and flips == 0
+                and (not held or (
+                    smooth_rel <= PAR_EP_SMOOTH_TOL and grad_rel <= grad_tol
+                    and dflt["tokens"]["dropped"]
+                    == dflt["cpu_tokens"]["dropped"]))):
+            fail(f"parallel gloo expert rank {rank}: parts from its "
+                 "reference")
+        if roomy["tokens"]["dropped"]:
+            fail(f"parallel gloo expert rank {rank}: capacity "
+                 f"{PAR_EP_ROOMY:g} dropped tokens {roomy['tokens']}")
+        want = {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                "softmax_cross_entropy": 1}
+        for name in ("roomy", "default"):
+            _check_launches(f"parallel gloo expert rank {rank} {name}",
+                            r[name]["launches"], want)
+        out["launches"].append({k: roomy["launches"][k]
+                                + dflt["launches"][k] for k in want})
+        for name, d in (("roomy", {"loss": roomy["loss"],
+                                   "one_rank_loss": rec.values[0],
+                                   "params_rel_err": rel,
+                                   "loss_rel_err": loss_rel}),
+                        ("default", {"loss": dflt["loss"],
+                                     "cpu_loss": dflt["cpu_loss"],
+                                     "loss_rel_err": cpu_rel,
+                                     "grad_rel_err": grad_rel,
+                                     "smooth_grad_rel_err": smooth_rel,
+                                     "dense_grad_rel_err": dense,
+                                     "held": held,
+                                     "share": share,
+                                     "cpu_tokens": dflt["cpu_tokens"],
+                                     "routing": dflt["routing"]})):
+            out[name].setdefault("ranks", []).append(
+                dict(d, ms=r[name]["ms"], tokens=r[name]["tokens"]))
+    return out
 
 
 def parallel_phase(kernels) -> dict:
@@ -5643,8 +5944,71 @@ def parallel_phase(kernels) -> dict:
                             {"flash_fwd": flash, "flash_bwd_dq": flash,
                              "flash_bwd_dkv": flash,
                              "softmax_cross_entropy": n_steps})
+        # A7.5: PipelineTrainer on stage: 1, the schedule's M ticks on one
+        # rank (M microbatches through the 4 blocks a step)
+        from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+            PipelineTrainer)
+
+        def pipeline_mode(n):
+            _zero(counted)
+            trainer = PipelineTrainer(n, mesh=build_mesh({"stage": 1}),
+                                      n_microbatches=PAR_PIPE_M)
+            trainer.fit(_par_iter(xs[:PAR_STEPS]))
+            launches["parallel_pipeline"] = _launches(counted)
+            out["pipeline_stats"] = trainer.stats()
+            st = out["pipeline_stats"]
+            if st["route"] != "none" or st.get("handoffs", 0):
+                fail(f"parallel pipeline: a group of one made handoffs "
+                     f"{st}")
+
+        ref = _par_run(net, snap, fit_n(PAR_STEPS))
+        got = _par_run(net, snap, pipeline_mode)
+        out["modes"]["pipeline"] = _par_check(
+            f"pipeline (stage 1, {PAR_PIPE_M} microbatches)", got, ref, init,
+            PAR_SHARE_TOL)
+        flash = PAR_PIPE_M * 4 * PAR_STEPS
+        _check_launches("parallel pipeline", launches["parallel_pipeline"],
+                        {"flash_fwd": flash, "flash_bwd_dq": flash,
+                         "flash_bwd_dkv": flash,
+                         "softmax_cross_entropy": PAR_STEPS})
         out["launches"] = launches
         del net, snap
+        torch.cuda.empty_cache()
+
+        # A7.6: expert parallelism on data: 1, the MoE LM at its bench
+        # geometry: the capacity packing and an all_to_all of one rank
+        from deeplearning4j_tpu_torch.parallel import moe as ep
+        mnet = _moe_net()
+        msnap = _snapshot(mnet)
+        minit = _flat_params(mnet)
+        mxs = _moe_batches(PAR_STEPS, SEED + 11)
+
+        def moe_fit(n):
+            for x in mxs:
+                n.fit(x, x)
+
+        def moe_expert(n):
+            n.dispatch_ksteps = 1
+            _zero(counted)
+            ep.reset_stats()
+            pw(n, expert_parallel=("data", PAR_EP_ROOMY)).fit(_par_iter(mxs))
+            launches["parallel_expert"] = _launches(counted)
+            out["expert_tokens"] = ep.stats()
+
+        mref = _par_run(mnet, msnap, moe_fit)
+        mgot = _par_run(mnet, msnap, moe_expert)
+        out["modes"]["expert"] = _par_check(
+            f"expert parallelism (data 1, capacity {PAR_EP_ROOMY:g})", mgot,
+            mref, minit, PAR_SHARE_TOL)
+        if out["expert_tokens"]["dropped"]:
+            fail(f"parallel expert: capacity {PAR_EP_ROOMY:g} dropped tokens "
+                 f"{out['expert_tokens']}")
+        _check_launches("parallel expert", launches["parallel_expert"],
+                        {"flash_fwd": 4 * PAR_STEPS,
+                         "flash_bwd_dq": 4 * PAR_STEPS,
+                         "flash_bwd_dkv": 4 * PAR_STEPS,
+                         "softmax_cross_entropy": PAR_STEPS})
+        del mnet, msnap
         torch.cuda.empty_cache()
 
         # ResNet-50 at the bench's shape: batch norm's group path
@@ -5736,6 +6100,9 @@ def parallel_phase(kernels) -> dict:
     out["gloo"] = {}
     for mode in PAR_GLOO_MODES:
         runs = [r[mode] for r in ranks]
+        if mode == "expert":
+            out["gloo"][mode] = _check_gloo_expert(runs)
+            continue
         rel = max(float((r["params"] - ref_params).double().norm()
                         / ref_params.double().norm()) for r in runs)
         loss_rel = max(_rel(a, b) for r in runs
@@ -5749,18 +6116,34 @@ def parallel_phase(kernels) -> dict:
               f"the first (one rank {one_ms:.3f})", flush=True)
         if not (rel <= PAR_GLOO_TOL and loss_rel <= PAR_GLOO_TOL):
             fail(f"parallel gloo {mode}: two ranks part from one")
-        per_rank = {"flash_fwd": 4 * PAR_GLOO_STEPS,
-                    "flash_bwd_dq": 4 * PAR_GLOO_STEPS,
-                    "flash_bwd_dkv": 4 * PAR_GLOO_STEPS,
-                    "softmax_cross_entropy": PAR_GLOO_STEPS}
-        for r in runs:
-            _check_launches(f"parallel gloo {mode} rank", r["launches"],
-                            per_rank)
+        for rank, r in enumerate(runs):
+            # every mode runs the 4 blocks' attention a step on each rank
+            # (dp_tp on 2 of the 4 heads), except the pipeline: M
+            # microbatches through the rank's 2 blocks, the loss on the
+            # last stage only
+            flash, xent = 4 * PAR_GLOO_STEPS, PAR_GLOO_STEPS
+            if mode == "pipeline":
+                flash = PAR_PIPE_M * 4 // len(runs) * PAR_GLOO_STEPS
+                xent = PAR_GLOO_STEPS if rank == len(runs) - 1 else 0
+            _check_launches(f"parallel gloo {mode} rank {rank}",
+                            r["launches"],
+                            {"flash_fwd": flash, "flash_bwd_dq": flash,
+                             "flash_bwd_dkv": flash,
+                             "softmax_cross_entropy": xent})
         out["gloo"][mode] = {
             "losses": [r["losses"] for r in runs], "one_rank": rec.values,
             "params_rel_err": rel, "loss_rel_err": loss_rel,
             "launches": [r["launches"] for r in runs], "ms": ms,
             "one_rank_ms": one_ms}
+        if mode == "pipeline":
+            out["gloo"][mode]["stats"] = [r["stats"] for r in runs]
+            print(f"parallel gloo pipeline stats {out['gloo'][mode]['stats']}",
+                  flush=True)
+            # gloo fails batch_isend_irecv on CUDA tensors: the handoffs
+            # take all_to_all_single there
+            if any(r["stats"]["route"] != "all_to_all" for r in runs):
+                fail("parallel gloo pipeline: the handoffs did not take the "
+                     "all_to_all route")
     print(f"parallel: {CARD}; ms a step by mode "
           f"{ {k: round(v['ms'], 3) for k, v in out['modes'].items()} } "
           f"beside fit's "
@@ -6399,6 +6782,43 @@ def main() -> None:
                 entry["by_path"][path] = {"launches": n[fname],
                                           **nums(train_row)}
                 entry["launches_by_path"][path] = n[fname]
+            # A7.5, A7.6, A7.9: each path at its shape on a rank (the
+            # pipeline's microbatch, an expert-parallel rank's rows, a
+            # dp_tp rank's heads; sm_xent's rows), with the launches of the
+            # group of one and of each gloo rank (in rank order)
+            flash_at = {"pipe": {"B": TRAIN_B // PAR_PIPE_M, "T": TRAIN_T,
+                                 "H": 4, "D": 64},
+                        "moe": {"B": MOE_B, "T": MOE_T, "H": 4, "D": 64},
+                        "ep_rank": {"B": MOE_B // 2, "T": MOE_T, "H": 4,
+                                    "D": 64},
+                        "tp_rank": {"B": TRAIN_B, "T": TRAIN_T,
+                                    "H": PAR_TP_HEADS, "D": 64}}
+            xent_at = {"pipe": main_shape["sm_xent"],
+                       "moe": {"N": MOE_B * MOE_T, "C": MOE_V},
+                       "ep_rank": {"N": MOE_B // 2 * MOE_T, "C": MOE_V},
+                       "tp_rank": main_shape["sm_xent"]}
+            gloo = par_run["gloo"]
+            for path, n, at in (
+                    ("parallel_pipeline",
+                     par_run["launches"]["parallel_pipeline"][fname], "pipe"),
+                    ("parallel_expert",
+                     par_run["launches"]["parallel_expert"][fname], "moe"),
+                    ("gloo_pipeline",
+                     [r[fname] for r in gloo["pipeline"]["launches"]],
+                     "pipe"),
+                    ("gloo_expert",
+                     [r[fname] for r in gloo["expert"]["launches"]],
+                     "ep_rank"),
+                    ("gloo_dp_tp",
+                     [r[fname] for r in gloo["dp_tp"]["launches"]],
+                     "tp_rank")):
+                shape = xent_at[at] if name == "sm_xent" else flash_at[at]
+                per_rank = n if isinstance(n, list) else None
+                entry["by_path"][path] = {
+                    "launches": sum(per_rank) if per_rank else n,
+                    **({"launches_per_rank": per_rank} if per_rank else {}),
+                    **nums(row_at(name, shape))}
+                entry["launches_by_path"][path] = n
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -20,6 +20,7 @@ import torch
 from ....common import at_least_f32, get_policy
 from ....ops.activations import gelu
 from ....ops.flash_attention import flash_attention, masked_attention
+from ... import param_blocks
 from ..inputs import InputType
 from ..serde import register_layer
 from .base import FeedForwardLayer
@@ -69,16 +70,24 @@ def attention_residual(params: dict, x: torch.Tensor, n_heads: int,
                        ) -> torch.Tensor:
     """A pre-LN block's first half, ``x + attn(LN1(x) Wqkv) Wo + bo`` (the
     ``ln1_*``, ``Wqkv``, ``Wo`` and ``bo`` params), shared by
-    ``TransformerBlock`` and ``MoETransformerBlock``."""
+    ``TransformerBlock`` and ``MoETransformerBlock``.
+
+    Under ``dp_tp`` (``parallel/tensor_parallel.py``) ``Wqkv`` may arrive
+    as this rank's heads' q, k and v columns and ``Wo`` as the rows that
+    read them: the rank attends over its ``H/n`` heads, and the partial
+    products of ``Wo`` are summed over the model axis before ``bo``
+    (the container's hooks, ``nn/param_blocks.py``)."""
     od = get_policy().output_dtype
     B, T, F_ = x.shape
     D = F_ // n_heads
     h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+    h = param_blocks.enter(params, "Wqkv", h)
     qkv = policy_matmul(h, params["Wqkv"]).to(od)
-    q, k, v = (t.reshape(B, T, n_heads, D).contiguous()
-               for t in torch.split(qkv, F_, dim=-1))
-    o = attend(q, k, v, causal, mask).reshape(B, T, F_)
-    att = policy_matmul(o, params["Wo"])
+    width = qkv.shape[-1] // 3
+    q, k, v = (t.reshape(B, T, width // D, D).contiguous()
+               for t in torch.split(qkv, width, dim=-1))
+    o = attend(q, k, v, causal, mask).reshape(B, T, width)
+    att = param_blocks.leave(params, "Wo", policy_matmul(o, params["Wo"]))
     return x + att.to(od) + params["bo"].to(od)
 
 
@@ -175,8 +184,10 @@ class TransformerBlock(FeedForwardLayer):
         od = get_policy().output_dtype
         x = attention_residual(params, x, self.n_heads, self.causal, mask)
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
-        h = policy_matmul(h, params["W1"])
+        # dp_tp: W1, b1 by columns and W2 by rows of this rank's hidden
+        # units, the partial products summed before b2
+        h = policy_matmul(param_blocks.enter(params, "W1", h), params["W1"])
         h = gelu(h.to(od) + params["b1"].to(od))
         h = self.apply_dropout(h, gen, train)
-        h = policy_matmul(h, params["W2"])
+        h = param_blocks.leave(params, "W2", policy_matmul(h, params["W2"]))
         return x + h.to(od) + params["b2"].to(od)

@@ -5,10 +5,14 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/layers/moe.py``, its dense
 path: every expert runs on every token (batched ``torch.einsum``, as the
 JAX package leaves the expert products to XLA, outside any Pallas kernel)
 and each token keeps its routed expert's output, selected by a one-hot and
-scaled by the gate. The JAX package's expert-parallel path (``_ep_context``
-and ``parallel/moe.py``: all_to_all dispatch over an ``expert`` mesh axis)
-waits for the parallel context (ROADMAP.md); this port has none, so the
-dense path is the only one.
+scaled by the gate. Under a parallel step whose context names an expert
+axis that divides ``n_experts`` (``ParallelWrapper.expert_parallel``) the
+layers run the all_to_all dispatch of ``parallel/moe.py`` instead, as the
+JAX ``_ep_context`` dispatches. Under ``dp_tp`` (``parallel/
+tensor_parallel.py``) a layer whose expert ``W1``/``b1``/``W2`` arrive as
+this rank's blocks of the hidden units runs the Megatron pair: the
+partial outputs of the routed experts are summed over the ``model`` axis
+before the gate and ``b2``.
 
 Params: ``Wg`` [F, E] router; experts on the leading axis, ``W1`` [E, F,
 H], ``b1`` [E, H], ``W2`` [E, H, F], ``b2`` [E, F]. A training forward
@@ -24,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ....common import accum_dtype, get_policy
+from ... import param_blocks
 from ..inputs import InputType
 from ..serde import register_layer
 from .attention import attention_residual, layer_norm
@@ -141,6 +146,16 @@ class MoELayer(FeedForwardLayer):
         eidx, _, probs = self.route(params, x2d)
         return self.balance_term(eidx, probs)
 
+    def expert_ffn(self, params, buf):
+        """Every expert on its token buffer: ``buf [E, C, F] -> [E, C, F]``
+        (the expert-parallel path's FFN over the rank's experts)."""
+        od = get_policy().output_dtype
+        h = (expert_einsum("ecf,efh->ech", buf, params["W1"]).to(od)
+             + params["b1"][:, None].to(od))
+        h = torch.relu(h)
+        return (expert_einsum("ech,ehf->ecf", h, params["W2"]).to(od)
+                + params["b2"][:, None].to(od))
+
     def moe_ffn_2d(self, params, x2d, train: bool = False, gen=None):
         """The top-1 expert FFN on ``[S, F]`` tokens: ``(y [S, F], aux)``,
         every expert evaluated on every token, then each token's routed
@@ -148,11 +163,21 @@ class MoELayer(FeedForwardLayer):
         od = get_policy().output_dtype
         eidx, gate, probs = self.route(params, x2d, train, gen)
         aux = self.balance_term(eidx, probs)
-        h = (expert_einsum("sf,efh->esh", x2d, params["W1"]).to(od)
+        xe = param_blocks.enter(params, "W1", x2d)
+        h = (expert_einsum("sf,efh->esh", xe, params["W1"]).to(od)
              + params["b1"][:, None].to(od))
         h = torch.relu(h)
-        y_all = (expert_einsum("esh,ehf->esf", h, params["W2"]).to(od)
-                 + params["b2"][:, None].to(od))
+        y_all = expert_einsum("esh,ehf->esf", h, params["W2"]).to(od)
+        if param_blocks.is_block(params, "W2"):
+            # each rank's experts hold its block of the hidden units: the
+            # routed experts' partial outputs summed over the model axis,
+            # then b2 and the gate, once
+            sel = self._one_hot(eidx, y_all.dtype)
+            part = param_blocks.leave(
+                params, "W2", torch.einsum("se,esf->sf", sel, y_all))
+            b2 = torch.einsum("se,ef->sf", sel, params["b2"].to(od))
+            return (part + b2) * gate[:, None].to(y_all.dtype), aux
+        y_all = y_all + params["b2"][:, None].to(od)
         sel = self._one_hot(eidx, y_all.dtype)
         y = torch.einsum("se,esf->sf", sel, y_all) * gate[:, None].to(
             y_all.dtype)
@@ -161,10 +186,33 @@ class MoELayer(FeedForwardLayer):
     def _new_state(self, aux, train: bool) -> dict:
         return {"aux_loss": aux if train else torch.zeros_like(aux)}
 
+    def ep_context(self):
+        """The active expert-parallel context, if the step running now
+        publishes one whose expert axis divides ``n_experts``; None runs
+        the dense path."""
+        from ....parallel import context as pctx
+        ctx = pctx.current()
+        if ctx is not None and ctx.expert_axis is not None and \
+                self.n_experts % ctx.mesh.shape[ctx.expert_axis] == 0:
+            return ctx
+        return None
+
+    def _expert_parallel(self, ctx, params, x, train, gen):
+        from ....parallel.moe import expert_parallel_ffn
+        return expert_parallel_ffn(self, params, x, ctx.mesh,
+                                   ctx.expert_axis, ctx.capacity_factor,
+                                   train=train, gen=gen,
+                                   seq_axis=ctx.seq_axis)
+
     def apply_with_state(self, params, state, x, mask=None, train=False,
                          gen=None):
         shape = x.shape
-        y, aux = self.moe_ffn_2d(params, x.reshape(-1, shape[-1]), train, gen)
+        ctx = self.ep_context()
+        if ctx is not None:
+            y, aux = self._expert_parallel(ctx, params, x, train, gen)
+        else:
+            y, aux = self.moe_ffn_2d(params, x.reshape(-1, shape[-1]), train,
+                                     gen)
         return self.act_fn()(y.reshape(shape)), self._new_state(aux, train)
 
     def apply(self, params, x, mask=None, train=False, gen=None):
@@ -221,6 +269,12 @@ class MoETransformerBlock(MoELayer):
     def apply_with_state(self, params, state, x, mask=None, train=False,
                          gen=None):
         x, tokens = self.ffn_tokens(params, x, mask)
-        y2d, aux = self.moe_ffn_2d(params, tokens, train, gen)
+        ctx = self.ep_context()
+        if ctx is not None:
+            y2d, aux = self._expert_parallel(ctx, params,
+                                             tokens.reshape(x.shape), train,
+                                             gen)
+        else:
+            y2d, aux = self.moe_ffn_2d(params, tokens, train, gen)
         out = self.act_fn()(x + y2d.reshape(x.shape))
         return out, self._new_state(aux, train)

@@ -56,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..common import resolve_device, under_conf_policy, wrap_with_policy
+from . import param_blocks
 from .conf.graphconf import ComputationGraphConfiguration
 from .conf.layers.recurrent import streaming_lstm
 from .conf.serde import layer_class
@@ -102,11 +103,13 @@ def _graph_regularization(net, params) -> torch.Tensor:
         for pname in layer.regularizable_params():
             if pname not in params.get(name, {}):
                 continue
-            w = params[name][pname]
+            own = params[name]
+            w = own[pname]
+            # a dp_tp block's terms are summed over its model group
             if layer.l1:
-                total = total + layer.l1 * w.abs().sum()
+                total = total + layer.l1 * param_blocks.whole_sum(own, pname, w.abs())
             if layer.l2:
-                total = total + 0.5 * layer.l2 * (w * w).sum()
+                total = total + 0.5 * layer.l2 * param_blocks.whole_sum(own, pname, w * w)
     return total
 
 

@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..common import (
     host_numpy, resolve_device, under_conf_policy, wrap_with_policy)
+from . import param_blocks
 from .conf.multilayer import MultiLayerConfiguration
 from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
@@ -93,10 +94,12 @@ def _regularization(net, params_list) -> torch.Tensor:
             if name not in params:
                 continue
             w = params[name]
+            # a dp_tp block's terms are summed over its model group
             if layer.l1:
-                total = total + layer.l1 * w.abs().sum()
+                total = total + layer.l1 * param_blocks.whole_sum(params, name, w.abs())
             if layer.l2:
-                total = total + 0.5 * layer.l2 * (w * w).sum()
+                total = total + 0.5 * layer.l2 * param_blocks.whole_sum(params, name,
+                                                           w * w)
     return total
 
 

@@ -10,8 +10,14 @@ step.
 
 ``ProfilerListener`` traces a window of iterations with ``torch.profiler``
 (the JAX package uses ``jax.profiler``). ``CheckpointListener`` writes
-model zips; sharded checkpoints wait for ``utils/sharded_checkpoint.py``
-(ROADMAP.md A7).
+model zips or sharded checkpoints (``utils/sharded_checkpoint.py``).
+
+A listener that reads the network's whole params or updater state when it
+fires says so in ``reads_whole`` (``"params"``, ``"updater"``). A sharded
+fit that holds those as blocks between steps (ZeRO, ``dp_tp``, the
+pipeline's stages) refuses it before the first step
+(:func:`refuse_whole_readers`): JAX's listeners read sharded arrays
+whole, which the port's blocks are not.
 """
 from __future__ import annotations
 
@@ -35,6 +41,9 @@ log = logging.getLogger(__name__)
 class IterationListener:
     """The listener interface; every hook does nothing by default."""
 
+    #: what the listener reads whole when it fires: "params", "updater"
+    reads_whole: tuple = ()
+
     def iteration_done(self, model, iteration: int) -> None:
         pass
 
@@ -46,6 +55,21 @@ class IterationListener:
 
 
 TrainingListener = IterationListener  # the epoch hooks are included above
+
+
+def refuse_whole_readers(listeners, held_split, mode: str) -> None:
+    """Raise before a fit whose placement holds ``held_split`` (of
+    "params", "updater") as blocks between steps if a listener reads one
+    of them whole when it fires."""
+    bad = [type(l).__name__ for l in listeners
+           if set(getattr(l, "reads_whole", ())) & set(held_split)]
+    if bad:
+        raise ValueError(
+            f"{mode} holds the {' and '.join(held_split)} as blocks between "
+            f"steps, and listeners {bad} read them whole when they fire; "
+            "use CheckpointListener(sharded=True), which saves the blocks "
+            "(a whole view of a sharded fit between steps waits for "
+            "ROADMAP.md A7.8)")
 
 
 class ScoreIterationListener(IterationListener):
@@ -130,6 +154,8 @@ class ParamAndGradientIterationListener(IterationListener):
     ``update_<path>``), optionally appended to ``output_file`` as JSON
     lines. It copies the params to the host at every iteration, so that
     each update spans one step."""
+
+    reads_whole = ("params",)
 
     def __init__(self, iterations: int = 1, output_file: Optional[str] = None,
                  print_mean_magnitudes: bool = True):
@@ -279,6 +305,8 @@ class CheckpointListener(IterationListener):
         self.every_n_epochs = every_n_epochs
         self.keep_last = keep_last
         self.sharded = sharded
+        #: a zip holds every leaf whole; a sharded save takes the blocks
+        self.reads_whole = () if sharded else ("params", "updater")
         pattern = "checkpoint_*" if sharded else "checkpoint_*.zip"
         self._written: list = sorted(
             (p for p in glob.glob(os.path.join(directory, pattern))

@@ -327,6 +327,19 @@ class Sharding:
             return _GatherDict(params, self.gather_layer)
         return _GatherList(params, self.gather_layer)
 
+    def checkpoint_entry(self, key, name, t: torch.Tensor, slot):
+        """What a sharded checkpoint saves of a leaf (``slot`` None) or of
+        an updater slot between steps: ``(key suffix, tensor)``, this
+        rank's block (its dim first) of one split at rest."""
+        from ..utils.sharded_checkpoint import shard_suffix
+        leaf = self.leaves.get((key, name))
+        d = None if leaf is None else (leaf.pdim if slot is None
+                                       else leaf.udim)
+        if d is None:
+            return "", t
+        block = self.param_shards[(key, name)] if slot is None else t
+        return shard_suffix(self.idx, self.n, d), block
+
     def held_bytes(self) -> int:
         """Bytes of params this rank holds between steps."""
         params = self.view.params()
@@ -554,13 +567,16 @@ class CompiledStep:
 def compile_step(name: str, step_fn, *, mesh, rule_set: str,
                  in_specs=None, out_specs=None, strategy: str = "jit",
                  reduce_axes=("data",), param_specs=None, upd_specs=None,
-                 params=None, conf=None) -> CompiledStep:
+                 params=None, conf=None,
+                 tp_axis: Optional[str] = None) -> CompiledStep:
     """The step of ``step_fn`` (a network: its objective, gradients and
     updaters) on ``mesh`` under the spec trees.
 
     ``strategy`` ``"jit"`` averages the gradients over ``reduce_axes`` (the
     axes that split the batch), ZeRO-style where ``upd_specs`` or
-    ``param_specs`` shard a leaf over ``data``; ``"shard_map"`` updates each
+    ``param_specs`` shard a leaf over ``data``, and with ``tp_axis`` as the
+    ``dp_tp`` placement (``tensor_parallel.py``) of the leaves
+    ``param_specs`` split over that axis; ``"shard_map"`` updates each
     rank on its own and averages only the reported loss. ``params`` with
     ``param_specs`` record the per-rank param bytes for the rule set, and
     every spec tree is counted (``partition.stats()``)."""
@@ -569,7 +585,12 @@ def compile_step(name: str, step_fn, *, mesh, rule_set: str,
                          f"expected 'jit' or 'shard_map'")
     view = step_fn if isinstance(step_fn, NetView) else NetView(step_fn)
     sharding = None
-    if strategy == "jit":
+    if strategy == "jit" and tp_axis is not None:
+        from .tensor_parallel import TPPlacement, TPStep
+        fn = TPStep(view, mesh, tuple(reduce_axes),
+                    TPPlacement(view, mesh, tp_axis, param_specs))
+        sharding = fn.sharding
+    elif strategy == "jit":
         if _any_split(param_specs) or _any_split(upd_specs):
             sharding = Sharding(view, mesh, "data", param_specs
                                 if param_specs is not None

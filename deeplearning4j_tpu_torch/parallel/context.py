@@ -5,7 +5,8 @@ Counterpart of ``deeplearning4j_tpu/parallel/context.py``. A trainer
 step runs, and the layers read them in their forward: attention dispatches
 ring or Ulysses attention over the sequence axis (``attend``), batch norm
 reduces its statistics over the batch's ranks, and the MoE layers reduce
-their routing shares. Without a context every layer runs its
+their routing shares and, with an expert axis, dispatch their tokens to
+the experts' ranks. Without a context every layer runs its
 single-device math.
 
 The JAX package reads the context while it traces a step; the port's step
@@ -35,9 +36,11 @@ class ParallelContext:
     ``seq_axis``: the mesh axis the time axis is split over; attention
     layers run ring or Ulysses attention over it. ``seq_mode``:
     ``"ulysses"`` (all-to-all head swap, heads must divide the axis) or
-    ``"ring"`` (K/V rotation). ``expert_axis``: the expert-parallel axis
-    (A7.6, refused by ``ParallelWrapper``). ``data_axis``: the axis the
-    batch's rows are split over."""
+    ``"ring"`` (K/V rotation). ``expert_axis``: the axis the MoE layers
+    split their experts over (``moe.py``'s all_to_all dispatch, when it
+    divides their expert count), with ``capacity_factor`` sizing each
+    expert's buffer. ``data_axis``: the axis the batch's rows are split
+    over."""
 
     mesh: Mesh
     seq_axis: Optional[str] = None

@@ -10,7 +10,7 @@ as ``np.reshape`` lays devices out, with one process group for each set of
 axes (the ranks that differ only along those axes). Axis conventions are the
 JAX package's: ``data`` splits the batch, ``sp`` (or any name given to
 ``sequence_parallel``) the time axis, ``model`` the weights (tensor
-parallelism, A7.9 in ROADMAP.md).
+parallelism, ``tensor_parallel.py``), ``stage`` the pipeline's stages.
 
 With no process group initialized a mesh of size 1 is a group of one: it has
 no process groups and every collective on it is skipped. A mesh of one over
@@ -212,8 +212,14 @@ def replicated(mesh: Mesh):
 
 def shard_params_for_tp(params_tree, conf, mesh: Mesh,
                         model_axis: str = "model"):
-    """Tensor-parallel placement (the ``dp_tp`` rule set) needs Megatron
-    collectives inside the layers, which the port does not have yet."""
-    raise NotImplementedError(
-        "tensor parallelism (the dp_tp placement) is not ported yet: "
-        "ROADMAP.md A7.9")
+    """A params tree (list- or dict-style) placed by the ``dp_tp`` rules:
+    each rank keeps its block of every leaf the Megatron column and row
+    splits cut over ``model_axis`` (the spec's contiguous block, as JAX
+    lays the sharded array out), and the indivisible or tiny leaves whole.
+    Training under this placement is ``ParallelWrapper.sharding("dp_tp")``
+    (``tensor_parallel.py``), which writes out the collectives GSPMD
+    inserts in JAX."""
+    from . import partition
+    specs = partition.match_partition_rules(
+        partition.dp_tp_rules(model_axis), params_tree, mesh=mesh, conf=conf)
+    return partition.device_put(params_tree, mesh, specs)

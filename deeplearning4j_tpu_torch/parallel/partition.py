@@ -15,7 +15,7 @@ layouts come from:
    :class:`PartitionRuleError`; a dim the mesh axis does not divide demotes
    the leaf to replicated.
 3. The rule sets ``dp`` (replicate), ``dp_tp`` (Megatron column and row
-   splits; the specs are data here, the placement waits for A7.9) and
+   splits, placed by ``tensor_parallel.py``) and
    ``zero3`` (every leaf split over ``data`` on its first divisible dim).
 
 A spec is the JAX ``PartitionSpec`` as a plain tuple of axis names (None for
@@ -275,14 +275,16 @@ def rules_for(name: str, **kwargs) -> list:
 # ----------------------------------------------------------- placement
 def sharded_dim(spec: PartitionSpec) -> Optional[Tuple[int, Any]]:
     """``(dim, axis)`` of the one dim a spec splits, None if replicated.
-    A spec that splits two dims (tensor parallelism) raises."""
+    A spec that splits two dims raises: no rule set makes one (the
+    ``dp_tp`` placement of ROADMAP.md A7.9 splits one dim over
+    ``model``)."""
     named = [(d, a) for d, a in enumerate(spec) if a is not None]
     if not named:
         return None
     if len(named) > 1:
         raise NotImplementedError(
-            f"spec {spec!r} splits more than one dim: placement across two "
-            "axes is tensor parallelism (ROADMAP.md A7.9)")
+            f"spec {spec!r} splits more than one dim; the placements split "
+            "one (dp_tp, ROADMAP.md A7.9, splits one dim over 'model')")
     return named[0]
 
 

@@ -31,9 +31,17 @@ group of one.
   the layers' states and (``average_updaters``) the updater state are
   averaged over the ranks; ``fit`` ends with an average.
 
-``expert_parallel`` (A7.6) and ``sharding("dp_tp")`` (A7.9) raise
-``NotImplementedError``. The JAX package's metrics and flight-recorder
-events are plain counters (:meth:`ParallelWrapper.stats`).
+* ``expert_parallel(axis="data", capacity_factor)``: the MoE layers run
+  the all_to_all dispatch of ``moe.py`` over the data axis (the tokens'
+  axis doubles as the experts' axis), in the synchronous step.
+* ``sharding("dp_tp")`` on a ``{data, model}`` mesh: the rows split over
+  ``data`` only, each leaf the ``dp_tp`` rules split held as this rank's
+  block over ``model`` and used by the layers' Megatron pairs or gathered
+  at use (``tensor_parallel.py``); gradients averaged over ``data``.
+
+Both take single steps (no K-step capture), as ZeRO does. The JAX
+package's metrics and flight-recorder events are plain counters
+(:meth:`ParallelWrapper.stats`).
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch.distributed as dist
 
 from ..common import wrap_with_policy
 from ..datasets.prefetch import DevicePrefetcher, stage_to_device
+from ..optimize.listeners import refuse_whole_readers
 from ..utils.batching import k_step_groups
 from . import compile_seam, context as pctx
 from .compile_seam import (
@@ -112,6 +121,9 @@ class ParallelWrapperBuilder:
     def expert_parallel(self, axis: str = "data",
                         capacity_factor: float = 2.0
                         ) -> "ParallelWrapperBuilder":
+        """Run the MoE layers expert-parallel over mesh axis ``axis`` (the
+        batch's ``"data"`` axis), each expert's buffer holding
+        ``capacity_factor`` times its even share of a rank's tokens."""
         self._expert_axis = axis
         self._capacity_factor = capacity_factor
         return self
@@ -132,7 +144,7 @@ class ParallelWrapperBuilder:
     def sharding(self, rule_set: str) -> "ParallelWrapperBuilder":
         """A rule set by name (``partition.py``): ``"dp"`` (the default),
         ``"zero3"`` (params and updater state split over ``data``) or
-        ``"dp_tp"`` (tensor parallelism, not ported: A7.9)."""
+        ``"dp_tp"`` (tensor parallelism over a ``model`` axis)."""
         self._sharding = rule_set
         return self
 
@@ -191,24 +203,27 @@ class ParallelWrapper:
         if sharding not in (None, "dp", "dp_tp", "zero3"):
             raise ValueError(f"unknown sharding rule set {sharding!r}; "
                              "expected 'dp', 'dp_tp', or 'zero3'")
-        if sharding == "dp_tp":
-            raise NotImplementedError(
-                "sharding('dp_tp'): tensor parallelism needs Megatron "
-                "collectives inside the layers, not ported yet "
-                "(ROADMAP.md A7.9)")
-        if expert_parallel_axis is not None:
-            raise NotImplementedError(
-                "expert_parallel(): the all_to_all expert dispatch is not "
-                "ported yet (ROADMAP.md A7.6)")
-        self.expert_axis = None
+        self.expert_axis = expert_parallel_axis
         self.rule_set = sharding
         if sharding == "zero3":
             self.zero1 = self.fsdp = True
+        if sharding == "dp_tp":
+            if "model" not in self.mesh.shape:
+                raise ValueError("sharding('dp_tp') needs a mesh with a "
+                                 "'model' axis, e.g. build_mesh({'data': 4, "
+                                 "'model': 2})")
+            if averaging_frequency != 1:
+                raise ValueError("sharding('dp_tp') requires "
+                                 "averaging_frequency == 1 (synchronous DP)")
+            if self.seq_axis or self.expert_axis or self.zero1 or self.fsdp:
+                raise ValueError(
+                    "sharding('dp_tp') runs alone: sequence or expert "
+                    "parallelism and ZeRO/FSDP do not compose with it here")
         if (self.zero1 or self.fsdp) and averaging_frequency != 1:
             raise ValueError("shard_optimizer_state/shard_parameters "
                              "(ZeRO/FSDP) require averaging_frequency == 1 "
                              "(synchronous DP)")
-        if self.seq_axis and averaging_frequency != 1:
+        if (self.seq_axis or self.expert_axis) and averaging_frequency != 1:
             raise ValueError("sequence/expert parallelism requires "
                              "averaging_frequency == 1 (synchronous DP)")
         if self.seq_axis:
@@ -235,6 +250,8 @@ class ParallelWrapper:
                         f"sequence_parallel('{self.seq_axis}', ulysses) with "
                         f"axis size {n}: head counts {bad} are not divisible "
                         "by it (use mode='ring' or adjust heads)")
+        if self.expert_axis:
+            self._check_expert_parallel(model)
         self.prefetch = prefetch
         self.averaging_frequency = averaging_frequency
         self.average_updaters = average_updaters
@@ -242,6 +259,29 @@ class ParallelWrapper:
         self._sync_step = None
         self._local_step = None
         self._counts: Counter = Counter()
+
+    def _check_expert_parallel(self, model) -> None:
+        """An explicit ``expert_parallel()`` engages or fails: a MoE layer
+        whose expert count the axis does not divide would run the dense
+        path in silence (JAX ``wrapper.py``'s check)."""
+        axis = self.expert_axis
+        if axis not in self.mesh.shape:
+            raise ValueError(f"expert axis {axis!r} not in mesh axes "
+                             f"{tuple(self.mesh.shape)}")
+        if axis != "data":
+            raise ValueError(
+                f"expert_parallel('{axis}'): the tokens are split over "
+                "'data', which the experts' axis doubles as; use 'data'")
+        n = self.mesh.shape[axis]
+        moe_layers = [l for l in _layers(model) if hasattr(l, "n_experts")]
+        bad = [l.n_experts for l in moe_layers if l.n_experts % n]
+        if bad:
+            raise ValueError(
+                f"expert_parallel('{axis}') with axis size {n}: expert "
+                f"counts {bad} are not divisible by it")
+        if not moe_layers:
+            raise ValueError("expert_parallel() requested but the model "
+                             "has no MoE layers")
 
     @staticmethod
     def builder(model) -> ParallelWrapperBuilder:
@@ -254,6 +294,8 @@ class ParallelWrapper:
     def _context(self):
         return pctx.parallel_context(self.mesh, seq_axis=self.seq_axis,
                                      seq_mode=self.seq_mode,
+                                     expert_axis=self.expert_axis,
+                                     capacity_factor=self.capacity_factor,
                                      data_axis="data")
 
     def _batch_spec(self, arr) -> P:
@@ -303,9 +345,17 @@ class ParallelWrapper:
         return specs
 
     def _spec_trees(self):
-        """``(param_specs, upd_specs)``: a ``P()`` prefix (replicated) or
+        """``(param_specs, upd_specs)``: a ``P()`` prefix (replicated), the
+        ``dp_tp`` rules' specs (params and their updater state alike) or
         the ``zero3`` rules' specs."""
         net = self.model
+        if self.rule_set == "dp_tp":
+            rules = rules_for("dp_tp")
+            par = self._matched_specs(rules, net.params_list,
+                                      "sharding('dp_tp')")
+            upd = match_partition_rules(rules, net.updater_state,
+                                        mesh=self.mesh, conf=net.conf)
+            return par, upd
         par, upd = P(), P()
         if self.fsdp:
             par = self._matched_specs(rules_for("zero3"), net.params_list,
@@ -374,12 +424,14 @@ class ParallelWrapper:
             in_specs=(par_sp, P(), upd_sp, None, None, P(), P()),
             out_specs=(par_sp, P(), upd_sp, P()),
             reduce_axes=self._batch_axes(), param_specs=par_sp,
-            upd_specs=upd_sp, params=net.params_list, conf=net.conf)
+            upd_specs=upd_sp, params=net.params_list, conf=net.conf,
+            tp_axis="model" if self.rule_set == "dp_tp" else None)
 
     def _capturable(self) -> bool:
         """K-step groups replay a CUDA graph only where the step's
         collectives can be captured: NCCL (or no group), and no ZeRO."""
-        if self.model.device.type != "cuda" or self.zero1 or self.fsdp:
+        if (self.model.device.type != "cuda" or self.zero1 or self.fsdp
+                or self.expert_axis or self.rule_set == "dp_tp"):
             return False
         group = self.mesh.group(*self._batch_axes())
         return group is None or dist.get_backend(group) == "nccl"
@@ -390,6 +442,13 @@ class ParallelWrapper:
             self._sync_step = self._make_sync_step()
         step = self._sync_step
         sh = step.sharding
+        if sh is not None:
+            # the blocks between steps: ZeRO-1's updater state; FSDP's,
+            # zero3's and dp_tp's params too
+            held = (("params", "updater") if self.fsdp
+                    or self.rule_set == "dp_tp" else ("updater",))
+            refuse_whole_readers(net.listeners, held,
+                                 f"sharding('{self._rule_label()}')")
         k = max(1, getattr(net, "dispatch_ksteps", 8))
         if net.device.type == "cuda" and not self._capturable():
             k = 1
@@ -421,7 +480,7 @@ class ParallelWrapper:
                     sh.gather_all()
                     net.updater_state = sh.gather_updater_state(
                         net.updater_state)
-                    net._zero_sharding = None  # whole for this step
+                    net._held_sharding = None  # whole for this step
                 try:
                     net._fit_dataset(ds)
                 finally:
@@ -429,7 +488,7 @@ class ParallelWrapper:
                         net.updater_state = sh.scatter_updater_state(
                             net.updater_state)
                         sh.begin()
-                        net._zero_sharding = sh
+                        net._held_sharding = sh
 
         stream = (torch.cuda.Stream(net.device)
                   if net.device.type == "cuda" else None)
@@ -447,7 +506,7 @@ class ParallelWrapper:
                 sh.begin()
                 # what a sharded checkpoint saves from between steps
                 # (utils/sharded_checkpoint.py): this rank's blocks
-                net._zero_sharding = sh
+                net._held_sharding = sh
             try:
                 for _ in range(epochs):
                     if hasattr(iterator, "reset"):
@@ -480,7 +539,7 @@ class ParallelWrapper:
                                         grad_bytes * item.n)
             finally:
                 if sh is not None:
-                    net._zero_sharding = None
+                    net._held_sharding = None
                     sh.end()
                     net.updater_state = sh.gather_updater_state(
                         net.updater_state)

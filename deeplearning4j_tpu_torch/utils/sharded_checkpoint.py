@@ -6,11 +6,23 @@ host; a sharded checkpoint lets each rank write its own blocks. The array
 state goes through ``torch.distributed.checkpoint`` into ``<dir>/state``
 (one ``.distcp`` file a rank and a ``.metadata`` index): params, layer
 states and updater state, keyed ``params/<layer>/<name>``,
-``states/<layer>/<name>`` and ``updater/<layer>/<name>/<slot>``. A leaf
-that a ZeRO fit (``ParallelWrapper`` with ``zero1``, FSDP or ``zero3``,
-``parallel/compile_seam.py``) holds split over the ranks is saved from the
-block its rank holds, with no gather: under the key
-``<key>@shard<i>of<n>@dim<d>``; a whole leaf is written by one rank.
+``states/<layer>/<name>`` and ``updater/<layer>/<name>/<slot>``. Between
+the steps of a sharded fit the network names its placement
+(``net._held_sharding``), and the placement says what this rank saves of
+each leaf (``checkpoint_entry``), with no gather:
+
+* a leaf that ZeRO (``ParallelWrapper`` with ``zero1``, FSDP or ``zero3``,
+  ``parallel/compile_seam.py``) or ``dp_tp`` (``parallel/
+  tensor_parallel.py``) holds split is saved from the block its rank
+  holds, its split dim moved first, under the key
+  ``<key>@shard<i>of<n>@dim<d>``, with ``@groups<g>`` where the block is
+  the concatenation of its share of ``g`` equal parts of the dim (a
+  ``dp_tp`` rank's heads' q, k and v columns of ``Wqkv``);
+* a block of a pipeline's stack (``parallel/pipeline_trainer.py``) is
+  saved whole by the stage that owns it, and by no other;
+* a whole leaf is written by one rank (the ranks that hold it alike are
+  deduplicated).
+
 :func:`restore_sharded` reads the blocks of every rank back into whole
 tensors.
 
@@ -40,7 +52,7 @@ _STATES = "states"
 _STATE_DIR = "state"
 _CONFIG_FILE = "config.json"
 _META_FILE = "meta.json"
-_SHARD = re.compile(r"^(.*)@shard(\d+)of(\d+)@dim(\d+)$")
+_SHARD = re.compile(r"^(.*)@shard(\d+)of(\d+)@dim(\d+)(?:@groups(\d+))?$")
 
 
 def _rank() -> int:
@@ -62,41 +74,37 @@ def _items(tree):
     return tree.items() if isinstance(tree, dict) else enumerate(tree)
 
 
+def shard_suffix(index: int, n: int, dim: int, groups: int = 1) -> str:
+    """The key suffix of block ``index`` of ``n`` along ``dim`` (see the
+    module docstring)."""
+    return f"@shard{index}of{n}@dim{dim}" + (
+        f"@groups{groups}" if groups > 1 else "")
+
+
 def _state_dict(net) -> dict:
-    """The network's training state as flat keys -> tensors; a leaf a ZeRO
-    fit holds split is this rank's block under a shard key."""
-    sh = getattr(net, "_zero_sharding", None)
+    """The network's training state as flat keys -> tensors, as this rank
+    saves it: between the steps of a sharded fit, what its placement says
+    (a block under a shard key, or nothing where another rank writes the
+    leaf)."""
+    sh = getattr(net, "_held_sharding", None)
     out = {}
 
-    def split(leaf_key, kind):
-        if sh is None:
-            return None
-        leaf = sh.leaves.get(leaf_key)
-        return None if leaf is None else getattr(leaf, kind)
-
-    def shard_key(key, d):
-        return f"{key}@shard{sh.idx}of{sh.n}@dim{d}"
+    def put(key, layer, name, t, slot=None):
+        entry = ("", t) if sh is None else sh.checkpoint_entry(
+            layer, name, t, slot)
+        if entry is not None:
+            out[key + entry[0]] = entry[1].detach()
 
     for layer, params in _items(net.params_list):
         for name, t in params.items():
-            key = f"{_PARAMS}/{layer}/{name}"
-            d = split((layer, name), "pdim")
-            if d is None:
-                out[key] = t.detach()
-            else:
-                out[shard_key(key, d)] = sh.param_shards[(layer, name)]
+            put(f"{_PARAMS}/{layer}/{name}", layer, name, t)
     for layer, states in _items(net.state_list):
         for name, t in states.items():
             out[f"{_STATES}/{layer}/{name}"] = t.detach()
     for layer, upd in _items(net.updater_state or []):
         for name, slots in upd.items():
-            d = split((layer, name), "udim")
             for slot, t in slots.items():
-                key = f"{_UPDATER}/{layer}/{name}/{slot}"
-                if d is None:
-                    out[key] = t.detach()
-                else:
-                    out[shard_key(key, d)] = t.detach()
+                put(f"{_UPDATER}/{layer}/{name}/{slot}", layer, name, t, slot)
     return out
 
 
@@ -229,13 +237,16 @@ def _read_state(state_dir: str) -> dict:
         if m is None:
             whole[key] = t
             continue
-        base, i, n, d = m.group(1), *(int(g) for g in m.groups()[1:])
-        shards.setdefault((base, n, d), {})[i] = t
-    for (base, n, d), parts in shards.items():
+        base, i, n, d = m.group(1), *(int(g) for g in m.groups()[1:4])
+        g = int(m.group(5) or 1)
+        shards.setdefault((base, n, d, g), {})[i] = t
+    for (base, n, d, g), parts in shards.items():
         if sorted(parts) != list(range(n)):
             raise RuntimeError(f"checkpoint {state_dir}: {base} has blocks "
                                f"{sorted(parts)} of {n}")
-        whole[base] = torch.cat([parts[i] for i in range(n)]).movedim(0, d)
+        blocks = [parts[i].chunk(g) for i in range(n)]
+        whole[base] = torch.cat([b[j] for j in range(g)
+                                 for b in blocks]).movedim(0, d)
     return whole
 
 

@@ -120,6 +120,9 @@ def job_wrapper(conf_json, params, batches, axes=None, states=None,
     from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
     from deeplearning4j_tpu_torch.parallel import ParallelWrapper
 
+    from deeplearning4j_tpu_torch.parallel import compile_seam
+
+    before = dict(compile_seam.stats()["collective_bytes_total"])
     net = _net(conf_json, params, states)
     if ksteps is not None:
         net.dispatch_ksteps = ksteps
@@ -158,7 +161,12 @@ def job_wrapper(conf_json, params, batches, axes=None, states=None,
             "holds": holds,
             "stats": {} if pw is None else {
                 k: v for k, v in pw.stats().items() if isinstance(k, str)
-                and not isinstance(v, dict)}}
+                and not isinstance(v, dict)},
+            "collectives": {
+                f"{op}/{site}": n - before.get((op, site), 0)
+                for (op, site), n in
+                compile_seam.stats()["collective_bytes_total"].items()
+                if n != before.get((op, site), 0)}}
 
 
 def _held(net, pw):
@@ -169,9 +177,20 @@ def _held(net, pw):
     sh = pw._sync_step.sharding
     storage = sorted({p.untyped_storage().size() for d in net.params_list
                       for p in d.values()})
-    return {"param_bytes": sh.held_bytes(),
-            "updater_bytes": tree_nbytes(net.updater_state),
-            "min_storage": storage[0]}
+    out = {"param_bytes": sh.held_bytes(),
+           "updater_bytes": tree_nbytes(net.updater_state),
+           "min_storage": storage[0]}
+    if hasattr(sh, "layouts"):
+        # dp_tp: each split leaf's block against its whole leaf, in bytes
+        params = sh.view.params()
+        out["blocks"] = {
+            f"{key}/{name}": (t.numel() * t.element_size(),
+                              params[key][name].numel()
+                              * params[key][name].element_size())
+            for (key, name), t in sh.shards.items()}
+        out["megatron"] = {str(k): sorted(v) for k, v in sh.megatron.items()
+                           if v}
+    return out
 
 
 def job_master(conf_json, params, batches, workers, freq=1, epochs=1,
@@ -311,7 +330,73 @@ def _refuse_sp_heads():
      .sequence_parallel("sp", "ulysses").build())
 
 
-_REFUSALS = {"ulysses_heads": _refuse_indivisible_heads,
+def _refuse_pipeline_indivisible():
+    from deeplearning4j_tpu_torch.models import transformer_lm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        PipelineTrainer)
+    net = MultiLayerNetwork(transformer_lm(8, width=32, n_layers=3,
+                                           n_heads=4, max_len=16,
+                                           learning_rate=0.01),
+                            device="cpu").init()
+    PipelineTrainer(net, mesh=_mesh({"stage": 2}))
+
+
+def _refuse_indivisible_experts():
+    from deeplearning4j_tpu_torch.models import moe_transformer_lm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    net = MultiLayerNetwork(moe_transformer_lm(8, width=32, n_layers=1,
+                                               n_heads=4, n_experts=6,
+                                               max_len=16),
+                            device="cpu").init()
+    ParallelWrapper.builder(net).workers(4).expert_parallel("data").build()
+
+
+def _refuse_experts_without_moe():
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    net = _sp_net()
+    ParallelWrapper.builder(net).workers(4).expert_parallel("data").build()
+
+
+def _refuse_expert_axis():
+    from deeplearning4j_tpu_torch.models import moe_transformer_lm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    net = MultiLayerNetwork(moe_transformer_lm(8, width=32, n_layers=1,
+                                               n_heads=4, n_experts=4,
+                                               max_len=16),
+                            device="cpu").init()
+    (ParallelWrapper.builder(net).mesh(_mesh({"data": 2, "sp": 2}))
+     .expert_parallel("sp").build())
+
+
+def _refuse_dp_tp_nothing_shards():
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    conf = (NeuralNetConfiguration.builder().seed(1).list()
+            .layer(DenseLayer.conf(n_in=5, n_out=7, activation="tanh"))
+            .layer(OutputLayer.conf(n_in=7, n_out=3, loss="mcxent",
+                                    activation="softmax")).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    pw = (ParallelWrapper.builder(net).mesh(_mesh({"data": 2, "model": 2}))
+          .prefetch_buffer(0).sharding("dp_tp").build())
+    x = np.zeros((8, 5), np.float32)
+    y = np.eye(3, dtype=np.float32)[np.zeros(8, int)]
+    pw.fit(ListDataSetIterator([DataSet(x, y)]))
+
+
+_REFUSALS = {"pipeline_indivisible": _refuse_pipeline_indivisible,
+             "dp_tp_nothing_shards": _refuse_dp_tp_nothing_shards,
+             "indivisible_experts": _refuse_indivisible_experts,
+             "experts_without_moe": _refuse_experts_without_moe,
+             "expert_axis": _refuse_expert_axis,
+             "ulysses_heads": _refuse_indivisible_heads,
              "local_sgd_sp": _refuse_local_sgd_sp,
              "sp_length": _refuse_sp_length,
              "sp_heads": _refuse_sp_heads}
@@ -334,16 +419,19 @@ def job_mesh(axes):
 
 
 def job_checkpoint(conf_json, params, batches, directory, knobs=(),
-                   every=1):
-    """``ParallelWrapper.fit`` with a ``CheckpointListener(sharded=True)``
-    saving every ``every`` iterations into ``directory`` (every rank
-    writes its own blocks). Returns the final params, updater state and
-    iteration, and the smallest param storage the listener saw (0 when
-    the rank held only its shards)."""
+                   every=1, axes=None, n_micro=None):
+    """``ParallelWrapper.fit`` (``knobs``, over the mesh ``axes``), or with
+    ``n_micro`` ``PipelineTrainer.fit`` over ``axes``' stages, with a
+    ``CheckpointListener(sharded=True)`` saving every ``every`` iterations
+    into ``directory`` (every rank writes its own blocks). Returns the
+    final params, updater state and iteration, and the smallest param
+    storage the listener saw (0 when the rank held only its blocks)."""
     from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
     from deeplearning4j_tpu_torch.optimize.listeners import (
         CheckpointListener)
     from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        PipelineTrainer)
 
     net = _net(conf_json, params)
     seen = []
@@ -356,15 +444,166 @@ def job_checkpoint(conf_json, params, batches, directory, knobs=(),
     net.set_listeners(Storage(), CheckpointListener(
         directory, every_n_iterations=every, every_n_epochs=None,
         keep_last=2, sharded=True))
-    b = ParallelWrapper.builder(net).prefetch_buffer(0)
-    for method, args in knobs:
-        b = getattr(b, method)(*args)
-    b.build().fit(ListDataSetIterator(_datasets(batches)))
+    data = ListDataSetIterator(_datasets(batches))
+    if n_micro is not None:
+        PipelineTrainer(net, mesh=_mesh(axes),
+                        n_microbatches=n_micro).fit(data)
+    else:
+        b = ParallelWrapper.builder(net).prefetch_buffer(0)
+        if axes:
+            b = b.mesh(_mesh(axes))
+        for method, args in knobs:
+            b = getattr(b, method)(*args)
+        b.build().fit(data)
     return {"params": _np(net.params_list), "updater": _np(net.updater_state),
             "iteration": net.iteration, "min_storage": min(seen)}
 
 
-JOBS = {"wrapper": job_wrapper, "master": job_master, "checkpoint":
+def _layer(conf):
+    """A CPU layer from ``{"@type": ..., fields}`` with the global
+    defaults baked in, as a network builds it."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.conf.multilayer import (
+        GlobalConf, LayerConf, bake_layer_defaults)
+    from deeplearning4j_tpu_torch.nn.conf.serde import layer_class
+    cls = layer_class(conf["@type"])
+    lc = cls.conf(**{k: v for k, v in conf.items() if k != "@type"})
+    lc = LayerConf(lc.type, bake_layer_defaults(lc.fields, GlobalConf()))
+    return cls(lc, torch.device("cpu"))
+
+
+def job_pipeline(conf_json, params, batches, axes, n_micro=4,
+                 epochs=1, hold_check=False, checkpointing=False,
+                 hold_updater=False):
+    """``PipelineTrainer.fit`` over the ``stage`` axis of ``axes``: the
+    final params (whole on every rank), the scores, the trainer's stats,
+    and with ``hold_check`` what the rank held between steps (its blocks'
+    param bytes and the storage of every block's params)."""
+    import json
+
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        PipelineTrainer)
+
+    if checkpointing:
+        d = json.loads(conf_json)
+        d["global_conf"]["gradient_checkpointing"] = True
+        conf_json = json.dumps(d)
+    net = _net(conf_json, params)
+    trainer = PipelineTrainer(net, mesh=_mesh(axes), n_microbatches=n_micro)
+    scores, holds = [], []
+
+    class Listen:
+        def iteration_done(self, model, iteration):
+            scores.append(float(model.score_value))
+            if hold_check:
+                i0, i1 = trainer.block_range
+                tensors = [list(model.params_list[i].values())
+                           + ([t for slots in model.updater_state[i].values()
+                               for t in slots.values()] if hold_updater
+                              else [])
+                           for i in range(i0, i1)]
+                holds.append({
+                    "held": trainer.held_bytes(),
+                    "storage": [min(t.untyped_storage().size() for t in ts)
+                                for ts in tensors]})
+
+    net.set_listeners(Listen())
+    trainer.fit(ListDataSetIterator(_datasets(batches)), epochs=epochs)
+    return {"params": _np(net.params_list), "scores": scores,
+            "iteration": net.iteration, "holds": holds,
+            "updater": _np(net.updater_state), "stats": trainer.stats(),
+            "own": trainer.own, "last_batch_size": net.last_batch_size}
+
+
+def job_pipeline_parallel(block_conf, stacked, x, axes, n_micro=4):
+    """``PipelineParallel`` of one block type over stacked params: the
+    output and ``reference_forward`` on the last stage, and the gradients
+    of ``sum(out ** 2)`` (there) with respect to the stacked params and
+    the input, summed over the stages."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.pipeline import PipelineParallel
+
+    block = _layer(block_conf)
+    mesh = _mesh(axes)
+    n_blocks = next(iter(stacked.values())).shape[0]
+    pipe = PipelineParallel(
+        mesh, lambda p, h: block.apply(p, h, None, True, None),
+        n_blocks=n_blocks, n_microbatches=n_micro)
+    st = {k: torch.tensor(v, requires_grad=True) for k, v in stacked.items()}
+    xt = torch.tensor(x, requires_grad=True)
+    out = pipe(st, xt)
+    # the sequential oracle and its autograd gradients
+    rst = {k: torch.tensor(v, requires_grad=True) for k, v in stacked.items()}
+    rx = torch.tensor(x, requires_grad=True)
+    ref = pipe.reference_forward(rst, rx)
+    (ref ** 2).sum().backward()
+    loss = (out ** 2).sum() if pipe.is_last else (out * 0).sum()
+    loss.backward()
+    grads = {k: v.grad.clone() for k, v in st.items()}
+    gx = (xt.grad.clone() if xt.grad is not None
+          else torch.zeros_like(xt))
+    group = pipe.group
+    for t in list(grads.values()) + [gx]:
+        if group is not None:
+            dist.all_reduce(t, group=group)
+    return {"out": _np(out) if pipe.is_last else None,
+            "ref": _np(ref), "grads": _np(grads), "gx": _np(gx),
+            "ref_grads": _np({k: v.grad for k, v in rst.items()}),
+            "ref_gx": _np(rx.grad),
+            "stats": pipe.stats(), "is_last": pipe.is_last,
+            "zeros": bool(np.all(_np(out) == 0)) if not pipe.is_last
+            else None}
+
+
+def job_moe_ffn(layer_conf, params, x, axes, axis, capacity_factor,
+                whole=False):
+    """``expert_parallel_ffn`` on this rank's rows of ``x`` (or, with
+    ``whole``, ``ExpertParallelMoE`` on all of it): the rows' output, the
+    aux share, and the gradients of ``sum(y ** 2) + aux`` summed over the
+    axis."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import moe
+
+    layer = _layer(layer_conf)
+    mesh = _mesh(axes)
+    pt = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    xt = torch.tensor(x)
+    if whole:
+        y = moe.ExpertParallelMoE(layer, mesh, axis, capacity_factor)(pt, xt)
+        return {"y": _np(y)}
+    n, i = mesh.shape[axis], mesh.coords[axis]
+    mine = xt.chunk(n)[i]
+    moe.reset_stats()
+    y, aux = moe.expert_parallel_ffn(layer, pt, mine, mesh, axis,
+                                     capacity_factor, train=True)
+    # summed over the ranks: sum(y ** 2) over the batch plus the mean of
+    # the aux shares (JAX's global term)
+    ((y ** 2).sum() + aux / n).backward()
+    grads = {k: v.grad.clone() for k, v in pt.items()}
+    for t in grads.values():
+        dist.all_reduce(t, group=mesh.group(axis))
+    return {"y": _np(y), "aux": float(aux), "grads": _np(grads),
+            "tokens": moe.stats()}
+
+
+def job_shard_tp(conf_json, params, axes):
+    """``mesh.shard_params_for_tp``: this rank's blocks."""
+    from deeplearning4j_tpu_torch.parallel.mesh import shard_params_for_tp
+    net = _net(conf_json, params)
+    return {"blocks": _np(shard_params_for_tp(net.params_list, net.conf,
+                                              _mesh(axes)))}
+
+
+JOBS = {"pipeline": job_pipeline, "pipeline_parallel": job_pipeline_parallel,
+        "moe_ffn": job_moe_ffn, "shard_tp": job_shard_tp,
+        "wrapper": job_wrapper, "master": job_master, "checkpoint":
         job_checkpoint,
         "early_stopping": job_early_stopping, "attention": job_attention,
         "raises": job_raises, "mesh": job_mesh}

@@ -573,24 +573,41 @@ def test_mesh_groups_and_coordinates(run):
 
 
 def test_refusals_name_their_roadmap_items():
+    """The modes ROADMAP.md A7.6 and A7.9 refused until they were ported
+    now build (``tests/test_torch_expert_parallel.py`` and
+    ``tests/test_torch_tensor_parallel.py`` hold them against JAX); the
+    wrapper's other refusals stay."""
+    import torch
+
     from deeplearning4j_tpu_torch.models import (
         moe_transformer_lm, transformer_lm)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, build_mesh
     from deeplearning4j_tpu_torch.parallel.mesh import shard_params_for_tp
 
     net = MultiLayerNetwork(transformer_lm(8, width=16, n_layers=1,
                                            n_heads=2, max_len=8),
                             device="cpu").init()
-    with pytest.raises(NotImplementedError, match="A7.9"):
+    # A7.9: dp_tp builds on a mesh with a model axis, and the placement of
+    # a model axis of 1 keeps every leaf whole
+    mesh = build_mesh({"data": 1, "model": 1})
+    pw = ParallelWrapper.builder(net).mesh(mesh).sharding("dp_tp").build()
+    assert pw.rule_set == "dp_tp"
+    with pytest.raises(ValueError, match="'model' axis"):
         ParallelWrapper.builder(net).sharding("dp_tp").build()
-    with pytest.raises(NotImplementedError, match="A7.9"):
-        shard_params_for_tp(net.params_list, net.conf, None)
+    placed = shard_params_for_tp(net.params_list, net.conf, mesh)
+    for own, got in zip(net.params_list, placed):
+        assert set(own) == set(got)
+        for k in own:
+            assert torch.equal(own[k], got[k])
+    # A7.6: expert parallelism builds on the data axis
     moe = MultiLayerNetwork(moe_transformer_lm(8, width=16, n_layers=1,
                                                n_heads=2, max_len=8),
                             device="cpu").init()
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        ParallelWrapper.builder(moe).expert_parallel("data").build()
+    pw = ParallelWrapper.builder(moe).expert_parallel("data", 4.0).build()
+    assert (pw.expert_axis, pw.capacity_factor) == ("data", 4.0)
+    with pytest.raises(ValueError, match="no MoE layers"):
+        ParallelWrapper.builder(net).expert_parallel("data").build()
     with pytest.raises(ValueError, match="unknown sharding rule set"):
         ParallelWrapper.builder(net).sharding("3d").build()
     with pytest.raises(ValueError, match="ZeRO"):

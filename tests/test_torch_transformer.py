@@ -156,6 +156,11 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.parallel.context, "
             "deeplearning4j_tpu_torch.parallel.compile_seam, "
             "deeplearning4j_tpu_torch.parallel.ring_attention, "
+            "deeplearning4j_tpu_torch.parallel.pipeline, "
+            "deeplearning4j_tpu_torch.parallel.pipeline_trainer, "
+            "deeplearning4j_tpu_torch.parallel.moe, "
+            "deeplearning4j_tpu_torch.parallel.tensor_parallel, "
+            "deeplearning4j_tpu_torch.nn.param_blocks, "
             "deeplearning4j_tpu_torch.parallel.wrapper, "
             "deeplearning4j_tpu_torch.parallel.training_master, "
             "deeplearning4j_tpu_torch.streaming.wire, "

@@ -239,10 +239,37 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    no orphan segment, the score falls; then ``save_sharded`` and
    ``restore_sharded`` on the card bitwise (params, states, updater state)
    and an async save whose sidecar appears only after ``wait``;
-25. reads the profiler's device time of every main-path kernel row and its
+25. runs the ``sharded`` phase (A7.8's second half; every slot on the one
+   card, so it measures correctness, launches and the cost of gathering at
+   use, not a gain across cards): (a) the serve phase's full-width
+   ``transformer_lm(256)`` (seed-1234 weights) pinned float32 and int8
+   with ``sharding="dp_tp"`` on ``build_mesh({"data": 2, "model": 2},
+   devices=["cuda:0"] * 4)``, ``[B, 512]`` ids at B = 1, 2, 3, 4, 8 held
+   against the whole pin (bitwise, else each data slot's rows bitwise
+   against the whole pin on the same rows and the output no further from
+   the whole pin's than the whole pin is from the CPU pin on that batch),
+   the per-device param bytes against the partition math and
+   each slot's tensors, exactly 4 ``flash_fwd`` launches for each data
+   slot that runs rows, the wall ms of a sharded and a whole predict; (b)
+   ``InferenceServer(replicas=2, sharding="dp_tp", replica_devices=
+   ["cuda:0"] * 8)`` answering 32 ``/v1/predict`` requests of two rows
+   over HTTP with a rolling swap to v2 in flight (none lost, each the
+   sharded pin's answer and within 1e-6 of the whole pin's, 8 launches a
+   dispatch, each replica's status listing its 4 slots and mesh); then on
+   two gloo ranks sharing the card, (c) a sharded checkpoint of the
+   train-shape model after one ``dp_tp`` step restored onto the ``dp_tp``
+   specs on ``{"data": 1, "model": 2}`` (each rank's blocks bitwise the
+   saved slices, ``output`` bitwise a whole restore's, 2 ``dp_tp`` steps
+   from it within 1e-4 of one rank's fit from the whole restore, exact
+   launches) and (d) a zip ``CheckpointListener`` and
+   ``ParamAndGradientIterationListener`` on 2-step fits through ``dp_tp``,
+   ``zero3`` on ``{"data": 2}`` and ``PipelineTrainer`` on
+   ``{"stage": 2}``: the last zip restored bitwise the state the fit
+   leaves, the launches those of the same fit without the listeners;
+26. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-26. prints one JSON line describing each kernel, then
+27. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero without the last line. Without CUDA it
@@ -625,11 +652,13 @@ def check_flash(rows: list, dev) -> None:
     tol = 2e-5
     H, D = 4, 64
     # besides: the pipeline's microbatch and an expert-parallel rank's rows
-    # (B 4), and a dp_tp rank's heads (2 of the train shape's 4)
+    # (B 4), a dp_tp rank's heads (2 of the train shape's 4), and a sharded
+    # pin's data slot at B 8 on {data: 2} (4 rows of 512)
     for B, T, Hh in ((2, 512, H), (8, 512, H), (TRAIN_B, TRAIN_T, H),
                      (MOE_B, MOE_T, H), (REPLICA_B, REPLICA_T, H),
                      (TRAIN_B // PAR_PIPE_M, TRAIN_T, H),
-                     (TRAIN_B, TRAIN_T, PAR_TP_HEADS)):
+                     (TRAIN_B, TRAIN_T, PAR_TP_HEADS),
+                     (8 // SH_AXES["data"], 512, H)):
         q, k, v = (torch.randn(B, T, Hh, D, generator=g).to(dev)
                    for _ in range(3))
         out, lse = flash_fwd(q, k, v, True)
@@ -6425,6 +6454,441 @@ def elastic_phase(kernels) -> dict:
     return out
 
 
+#: A7.8's second half: the served model's pins on a device mesh of four
+#: slots on the one card, the batch sizes held, the replicas' requests
+#: (two rows of SH_T ids, one dispatch each at max_batch 2), the steps of
+#: the fits on two gloo ranks
+SH_AXES = {"data": 2, "model": 2}
+SH_SIZES = (1, 2, 3, 4, 8)
+SH_T, SH_REQUESTS, SH_THREADS, SH_SWAP_AT = 128, 32, 4, 12
+SH_STEPS = 2
+#: a sharded pin computes each row as the whole pin does. Where the card
+#: parts a slot's rows from the whole batch (cuBLAS picks another algorithm
+#: for the FFN's second product at another M; the flash forward's plan
+#: takes 4 key splits at B*H <= 16 and 2 at 32), each data slot's rows are
+#: held bitwise against the whole pin on the same rows, and the joined
+#: output's distance to the whole batch's (||got - want|| / ||want||, as
+#: the parallel phase holds params) within the whole pin's own distance to
+#: the CPU pin on the same batch, the float32 rounding the card already
+#: shows; the largest element's error over the largest value is printed
+#: beside it. The replicas' two-row requests give a slot's rows the whole
+#: batch's plan and M, and are held within SH_REL_TOL
+SH_REL_TOL = 1e-6
+#: the fits from a restore against one rank's fit from the whole restore
+#: (PR 19's dp_tp bound)
+SH_FIT_TOL = 1e-4
+SH_VIEW_MODES = ("dp_tp", "zero3", "pipeline")
+
+
+def _sh_devices(n: int) -> list:
+    return ["cuda:0"] * n
+
+
+def _sh_hold(pf, ref, cpu_ref, ids) -> dict:
+    """The sharded pin's output on ``ids`` against the whole pin's: bitwise,
+    or (the card parting a slot's rows from the whole batch) each data
+    slot's rows bitwise against the whole pin on the same rows and the
+    whole within the whole pin's distance to ``cpu_ref`` (``ok``)."""
+    got, want = pf(ids), ref(ids)
+    if torch.equal(got, want):
+        return {"bitwise": True, "rel_err": 0.0, "max_rel_err": 0.0,
+                "ok": True}
+    rel = _norm_rel(got, want)
+    yard = _norm_rel(want.cpu(), cpu_ref(ids))
+    from deeplearning4j_tpu_torch.parallel import partition
+    same_rows = True
+    if partition.batch_spec(pf.mesh, ids.shape[0]) != partition.pspec():
+        f = len(pf.mesh.lead_slots("data"))
+        for part, mine in zip(np.split(ids, f), got.chunk(f)):
+            lone = part.shape[0] == 1
+            run = np.concatenate([part, part]) if lone else part
+            same_rows &= torch.equal(mine, ref(run)[:part.shape[0]])
+    else:
+        same_rows = False  # a batch run whole is the whole pin's call
+    return {"bitwise": False, "rel_err": rel, "same_rows": same_rows,
+            "max_rel_err": float((got - want).abs().max()
+                                 / want.abs().max()),
+            "card_to_cpu": yard, "ok": same_rows and rel <= yard}
+
+
+def _norm_rel(got, want) -> float:
+    d = (got.double() - want.double()).norm()
+    return float(d / want.double().norm())
+
+
+def _sh_pins(kernels) -> dict:
+    """(a) the served transformer pinned dp_tp on the device mesh, float32
+    and int8, against the whole pin at each batch size."""
+    from deeplearning4j_tpu_torch.nn.inference import make_predict_fn
+    from deeplearning4j_tpu_torch.parallel import build_mesh, partition
+    V = 256
+    net = MultiLayerNetwork(transformer_lm(V), device="cuda").init(seed=SEED)
+    cpu_net = MultiLayerNetwork(transformer_lm(V), device="cpu").init(
+        seed=SEED)
+    mesh = build_mesh(SH_AXES, devices=_sh_devices(4))
+    rng = np.random.default_rng(SEED + 41)
+    out = {"sizes": {}, "launches": 0}
+    for quant in (None, "int8"):
+        label = quant or "float32"
+        ref = make_predict_fn(net, device="cuda", quant=quant)
+        cpu_ref = make_predict_fn(cpu_net, device="cpu", quant=quant)
+        pf = make_predict_fn(net, sharding="dp_tp", mesh=mesh, quant=quant)
+        per = pf.per_device_param_bytes
+        math = partition.per_device_bytes(pf.params_snapshot(),
+                                          pf.param_specs, mesh)
+        held = pf.slot_param_bytes()
+        print(f"sharded (a) {label}: per-device param bytes {per} (partition "
+              f"math {math}, each slot's tensors {held}; whole "
+              f"{pf.param_bytes})", flush=True)
+        if not (per == math and held == [per] * mesh.size
+                and per < pf.param_bytes):
+            fail(f"sharded (a) {label}: per-device bytes disagree")
+        for B in SH_SIZES:
+            ids = rng.integers(0, V, size=(B, 512)).astype(np.float32)
+            _zero(kernels)
+            got = pf(ids)
+            torch.cuda.synchronize()
+            n = flash_fwd.launches
+            # 4 attention forwards for each data slot that runs rows: both
+            # when the data axis divides B, the first alone otherwise
+            want = 4 * (SH_AXES["data"] if B % SH_AXES["data"] == 0 else 1)
+            if got.shape != (B, 512, V) or not torch.isfinite(got).all():
+                fail(f"sharded (a) {label} B={B}: shape {tuple(got.shape)}")
+            if n != want or any(fn.launches for fn in kernels
+                                if fn is not flash_fwd):
+                fail(f"sharded (a) {label} B={B}: flash_fwd launched {n}, "
+                     f"want {want}")
+            out["launches"] += n
+            held_to = _sh_hold(pf, ref, cpu_ref, ids)
+            print(f"sharded (a) {label} B={B}: {n} flash_fwd launches "
+                  f"(want {want}); against the whole pin {held_to}",
+                  flush=True)
+            if not held_to["ok"]:
+                fail(f"sharded (a) {label} B={B}: {held_to}")
+            out["sizes"][f"{label}_{B}"] = held_to
+        ids = rng.integers(0, V, size=(8, 512)).astype(np.float32)
+        walls = {}
+        for name, fn in (("sharded", pf), ("whole", ref)):
+            fn(ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn(ids)
+            torch.cuda.synchronize()
+            walls[name] = 1e3 * (time.perf_counter() - t0) / 10
+        print(f"sharded (a) {label}: predict [8, 512] wall ms sharded "
+              f"{walls['sharded']:.3f}, whole {walls['whole']:.3f}",
+              flush=True)
+        out[label] = {"per_device_param_bytes": per,
+                      "param_bytes": pf.param_bytes, "wall_ms": walls}
+    del net, cpu_net
+    return out
+
+
+def _sh_replicas(kernels) -> dict:
+    """(b) two sharded replicas over HTTP, a rolling swap in flight."""
+    from deeplearning4j_tpu_torch.nn.inference import make_predict_fn
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+    V = 256
+    nets = {v: MultiLayerNetwork(transformer_lm(V), device="cuda").init(
+        seed=SEED + i) for i, v in enumerate(("v1", "v2"))}
+    mesh = build_mesh(SH_AXES, devices=_sh_devices(4))
+    pins = {v: make_predict_fn(n, sharding="dp_tp", mesh=mesh)
+            for v, n in nets.items()}
+    whole = {v: make_predict_fn(n, device="cuda") for v, n in nets.items()}
+    rng = np.random.default_rng(SEED + 43)
+    ids = rng.integers(0, V, size=(SH_REQUESTS, 2, SH_T)).astype(np.float32)
+    srv = InferenceServer(replicas=2, sharding="dp_tp", device="cuda",
+                          replica_devices=_sh_devices(8), max_batch=2)
+    srv.start()
+    answers = [None] * SH_REQUESTS
+    done = threading.Semaphore(0)
+    try:
+        srv.register("lm", nets["v1"], version="v1")
+        _zero(kernels)
+
+        def client(w):
+            for j in range(w, SH_REQUESTS, SH_THREADS):
+                answers[j] = post(srv.port, "/v1/predict",
+                                  {"model": "lm", "inputs": ids[j].tolist()})
+                done.release()
+
+        threads = [threading.Thread(target=client, args=(w,), daemon=True)
+                   for w in range(SH_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for _ in range(SH_SWAP_AT):
+            if not done.acquire(timeout=600):
+                fail("sharded (b): requests stalled")
+        srv.register("lm", nets["v2"], version="v2")
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = flash_fwd.launches
+        st = srv.status()
+    finally:
+        srv.stop()
+    versions, worst = [], 0.0
+    for j, ans in enumerate(answers):
+        if ans is None or ans[0] != 200:
+            fail(f"sharded (b): request {j} answered {ans and ans[0]}")
+        body = json.loads(ans[1])
+        v = body["version"]
+        versions.append(v)
+        got = torch.tensor(np.asarray(body["predictions"], np.float32))
+        # the answer is the sharded pin's, bitwise; and the whole pin's
+        # as (a) holds it
+        if not torch.equal(got, pins[v](ids[j]).cpu()):
+            fail(f"sharded (b): request {j} is not the sharded pin's answer")
+        worst = max(worst, _norm_rel(got, whole[v](ids[j]).cpu()))
+    reps = st["replicas"]["replicas"]
+    print(f"sharded (b): {SH_REQUESTS} requests in {wall:.2f}s, versions "
+          f"{ {v: versions.count(v) for v in ('v1', 'v2')} }, worst rel err "
+          f"against the whole pin {worst:.3e} (tol {SH_REL_TOL:.0e}); "
+          f"flash_fwd {launches} (want {8 * SH_REQUESTS}); replicas "
+          f"{[(r['slots'], r['mesh'], r['devices'], r['active'], r['routed']) for r in reps]}",
+          flush=True)
+    if worst > SH_REL_TOL or "v2" not in versions or versions[-1] != "v2":
+        fail("sharded (b): answers or the swap")
+    if launches != 8 * SH_REQUESTS:
+        fail(f"sharded (b): flash_fwd launched {launches}")
+    for r in reps:
+        if (r["mesh"] != SH_AXES or len(r["slots"]) != 4
+                or r["sharding"] != "dp_tp" or r["active"] != {"lm": "v2"}
+                or not r["routed"]):
+            fail(f"sharded (b): replica status {r}")
+    del nets, pins, whole
+    return {"launches": launches, "wall_s": wall, "rel_err": worst,
+            "versions": versions, "replicas": reps}
+
+
+def _sh_launches(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def _sh_rank(rank: int, world: int, port: int, out: str, tmp: str) -> None:
+    """One of two gloo ranks on the card: (c) a restore onto the dp_tp
+    sharding and fits from it, (d) the three fits with listeners that read
+    a whole view, each beside the same fit without them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener, ParamAndGradientIterationListener)
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, build_mesh, partition)
+    from deeplearning4j_tpu_torch.parallel.mesh import init_distributed
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        PipelineTrainer)
+    from deeplearning4j_tpu_torch.utils.model_serializer import (
+        restore_multi_layer_network)
+    from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
+        restore_sharded)
+    _cuda.build()
+    init_distributed(f"tcp://localhost:{port}", world, rank, device="cuda",
+                     backend="gloo")
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
+    xs = _par_batches(SH_STEPS + 1, SEED + 45)
+    tp_mesh = build_mesh({"data": 1, "model": world})
+    got = {}
+
+    def wrapper_fit(net, mesh, knobs):
+        b = ParallelWrapper.builder(net).prefetch_buffer(0).mesh(mesh)
+        for k, v in knobs:
+            b = getattr(b, k)(*v)
+        return b.build()
+
+    # (c): a sharded checkpoint of the train-shape model after one dp_tp
+    # step (its blocks on disk), restored onto the dp_tp specs
+    ck = os.path.join(tmp, "ck")
+    net = _par_net()
+    net.set_listeners(CheckpointListener(ck, every_n_iterations=1,
+                                         every_n_epochs=None, sharded=True))
+    wrapper_fit(net, tp_mesh, [("sharding", ("dp_tp",))]).fit(
+        _par_iter(xs[:1]))
+    ck = CheckpointListener.last_checkpoint(ck)
+    whole = restore_sharded(ck, device="cuda")
+    net = _par_net()
+    specs = partition.match_partition_rules(
+        partition.rules_for("dp_tp"), net.params_list, mesh=tp_mesh,
+        conf=net.conf)
+    t0 = time.perf_counter()
+    restore_sharded(ck, net, shardings=specs, mesh=tp_mesh)
+    restore_s = time.perf_counter() - t0
+    held = net._held_sharding
+    n_blocks, held_bytes = len(held.blocks), held.held_bytes()
+    blocks_ok = True
+    for (layer, name, slot), (block, d, axes) in held.blocks.items():
+        t = (whole.params_list[layer][name] if slot is None
+             else whole.updater_state[layer][name][slot])
+        want = t.detach().movedim(d, 0).chunk(world)[rank]
+        blocks_ok &= torch.equal(block, want)
+    x = torch.tensor(xs[SH_STEPS], device="cuda")
+    _zero(kernels)
+    out_sharded = net.output(x)
+    restore_launches = _sh_launches(kernels)
+    out_ok = torch.equal(out_sharded, whole.output(x))
+    _zero(kernels)
+    wrapper_fit(net, tp_mesh, [("sharding", ("dp_tp",))]).fit(
+        _par_iter(xs[1:1 + SH_STEPS]))
+    fit_launches = _sh_launches(kernels)
+    for x1 in xs[1:1 + SH_STEPS]:
+        whole.fit(x1, x1)
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for t in _tensors_of(whole.params_list))
+    ref = whole.params().double()
+    rel = float((net.params().double() - ref).norm() / ref.norm())
+    got["restore"] = {
+        "blocks": n_blocks, "blocks_ok": bool(blocks_ok),
+        "reads": dict(held.reads), "output_ok": bool(out_ok),
+        "restore_s": restore_s, "output_launches": restore_launches,
+        "fit_launches": fit_launches, "fit_rel_err": rel,
+        "held_bytes": held_bytes, "whole_bytes": whole_bytes,
+        "settled": net._held_sharding is None}
+    del net, whole
+
+    # (d): each fit twice from one init, without and with the listeners
+    # that read whole state; rank 0 writes the zips
+    for mode in SH_VIEW_MODES:
+        runs = {}
+        for listen in (False, True):
+            net = _par_net()
+            d = os.path.join(tmp, f"view_{mode}")
+            log = ParamAndGradientIterationListener(
+                print_mean_magnitudes=False)
+            if listen:
+                net.set_listeners(CheckpointListener(
+                    d, every_n_iterations=SH_STEPS, every_n_epochs=None),
+                    log)
+            if mode == "pipeline":
+                fit = PipelineTrainer(net, mesh=build_mesh({"stage": world}),
+                                      n_microbatches=PAR_PIPE_M)
+                fit.prefetch_depth = 0
+            elif mode == "zero3":
+                fit = wrapper_fit(net, build_mesh({"data": world}),
+                                  [("sharding", ("zero3",))])
+            else:
+                fit = wrapper_fit(net, tp_mesh, [("sharding", ("dp_tp",))])
+            _zero(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit.fit(_par_iter(xs[:SH_STEPS]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = fit.stats()
+            run = {"launches": _sh_launches(kernels), "wall_s": wall,
+                   "views": st["whole_views"],
+                   "view_bytes": st["whole_view_bytes"],
+                   "rows": len(log.rows),
+                   "params": net.params().cpu()}
+            if listen and rank == 0:
+                back = restore_multi_layer_network(
+                    os.path.join(d, f"checkpoint_iter_{SH_STEPS}.zip"),
+                    device="cuda")
+                same = all(torch.equal(a, b) for a, b in zip(
+                    _tensors_of([back.params_list, back.updater_state]),
+                    _tensors_of([net.params_list, net.updater_state])))
+                run["zip_bitwise"] = bool(same)
+            runs["listen" if listen else "plain"] = run
+            del net
+        got[mode] = runs
+    torch.save(got, out)
+    dist.destroy_process_group()
+
+
+def sharded_phase(kernels) -> dict:
+    """A7.8's second half on the card: (a) sharded pins on a device mesh,
+    (b) sharded replicas over HTTP through a rolling swap, then on two gloo
+    ranks sharing the card (c) a restore onto the dp_tp sharding and (d)
+    whole views for the listeners that read them."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    counted = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, softmax_cross_entropy)
+    out = {"pins": _sh_pins(counted), "replicas": _sh_replicas(counted)}
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    files = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sh_rank, args=(r, 2, port, files[r], tmp))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"sharded gloo: rank exit codes "
+                 f"{[p.exitcode for p in procs]}")
+        ranks = [torch.load(f) for f in files]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rs = [r["restore"] for r in ranks]
+    fit_want = {"flash_fwd": 4 * SH_STEPS, "flash_bwd_dq": 4 * SH_STEPS,
+                "flash_bwd_dkv": 4 * SH_STEPS,
+                "softmax_cross_entropy": SH_STEPS}
+    out_want = {"flash_fwd": 4, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "softmax_cross_entropy": 0}
+    print(f"sharded (c): restore onto dp_tp {{data: 1, model: 2}}: blocks "
+          f"{[r['blocks'] for r in rs]} bitwise {[r['blocks_ok'] for r in rs]}"
+          f", reads {[r['reads'] for r in rs]}, param bytes held "
+          f"{[r['held_bytes'] for r in rs]} of {rs[0]['whole_bytes']}, "
+          f"{[round(r['restore_s'], 3) for r in rs]} s; output bitwise a "
+          f"whole restore's {[r['output_ok'] for r in rs]}, launches "
+          f"{[r['output_launches'] for r in rs]}; {SH_STEPS} dp_tp steps "
+          f"from it against one rank's fit from the whole restore: rel err "
+          f"{[f'{r['fit_rel_err']:.3e}' for r in rs]} (tol "
+          f"{SH_FIT_TOL:.0e}), launches {[r['fit_launches'] for r in rs]}",
+          flush=True)
+    for r in rs:
+        if not (r["blocks_ok"] and r["output_ok"] and r["blocks"] > 0
+                and r["reads"]["own_blocks"] > 0 and r["settled"]
+                and r["held_bytes"] < r["whole_bytes"]
+                and r["fit_rel_err"] <= SH_FIT_TOL):
+            fail(f"sharded (c): {r}")
+        if r["output_launches"] != out_want or r["fit_launches"] != fit_want:
+            fail(f"sharded (c): launches {r['output_launches']}, "
+                 f"{r['fit_launches']}")
+    out["restore"] = [{k: v for k, v in r.items()} for r in rs]
+    out["views"] = {}
+    for mode in SH_VIEW_MODES:
+        runs = [r[mode] for r in ranks]
+        for r in runs:
+            if r["listen"]["launches"] != r["plain"]["launches"]:
+                fail(f"sharded (d) {mode}: launches with the listeners "
+                     f"{r['listen']['launches']} against "
+                     f"{r['plain']['launches']}")
+            if not torch.equal(r["listen"]["params"], r["plain"]["params"]):
+                fail(f"sharded (d) {mode}: the listeners moved the fit")
+            if r["listen"]["views"] != SH_STEPS:
+                fail(f"sharded (d) {mode}: {r['listen']['views']} views")
+        if not runs[0]["listen"].get("zip_bitwise") \
+                or runs[0]["listen"]["rows"] != SH_STEPS \
+                or runs[1]["listen"]["rows"] != 0:
+            fail(f"sharded (d) {mode}: the zip or the param log")
+        print(f"sharded (d) {mode}: last zip restored bitwise the state the "
+              f"fit leaves; whole views {[r['listen']['views'] for r in runs]}"
+              f" of {[r['listen']['view_bytes'] for r in runs]} bytes; "
+              f"launches with listeners {[r['listen']['launches'] for r in runs]}"
+              f" = without; fit wall s {[round(r['listen']['wall_s'], 3) for r in runs]}"
+              f" (without {[round(r['plain']['wall_s'], 3) for r in runs]})",
+              flush=True)
+        out["views"][mode] = [{k: v for k, v in r["listen"].items()
+                               if k != "params"} | {
+            "plain_wall_s": r["plain"]["wall_s"]} for r in runs]
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6487,16 +6951,18 @@ def main() -> None:
                         ("multi_input", multi_input_phase),
                         ("parallel", parallel_phase),
                         ("param_server", param_server_phase),
-                        ("elastic", elastic_phase)):
+                        ("elastic", elastic_phase),
+                        ("sharded", sharded_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
     sa_run, moe_run, zoo_run, pretrain_run, iris_run = (
         phase_s[n][0] for n in ("self_attention", "moe", "zoo", "pretrain",
                                 "iris"))
-    spec_run, replicas_run, multi_run, par_run, ps_run, el_run = (
+    spec_run, replicas_run, multi_run, par_run, ps_run, el_run, sh_run = (
         phase_s[n][0] for n in ("spec", "replicas", "multi_input",
-                                "parallel", "param_server", "elastic"))
+                                "parallel", "param_server", "elastic",
+                                "sharded"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -6819,6 +7285,26 @@ def main() -> None:
                     **({"launches_per_rank": per_rank} if per_rank else {}),
                     **nums(row_at(name, shape))}
                 entry["launches_by_path"][path] = n
+            # A7.8's second half: the sharded pins' and replicas' forwards
+            # (flash_fwd), and on each gloo rank the restore's output and
+            # the fits from it, and the fits with whole views
+            sh = {"sharded_pins": sh_run["pins"]["launches"]
+                  if fname == "flash_fwd" else 0,
+                  "sharded_replicas": sh_run["replicas"]["launches"]
+                  if fname == "flash_fwd" else 0,
+                  "sharded_restore_output": [
+                      r["output_launches"][fname] for r in sh_run["restore"]],
+                  "sharded_restore_fit": [
+                      r["fit_launches"][fname] for r in sh_run["restore"]]}
+            for mode, runs in sh_run["views"].items():
+                sh[f"sharded_views_{mode}"] = [r["launches"][fname]
+                                               for r in runs]
+            entry["launches_by_path"].update(sh)
+            if fname == "flash_fwd":
+                entry["by_path"]["sharded_pins"] = {
+                    "launches": sh["sharded_pins"],
+                    **nums(row_at(name, {"B": 8 // SH_AXES["data"],
+                                         "T": 512, "D": 64}))}
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6834,7 +7320,7 @@ def main() -> None:
                    "iris": iris_run, "spec": spec_run,
                    "replicas": replicas_run, "multi_input": multi_run,
                    "parallel": par_run, "param_server": ps_run,
-                   "elastic": el_run,
+                   "elastic": el_run, "sharded": sh_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -341,7 +341,8 @@ def run_replica_ab(net, *, model: str = "model", replicas: int = 2,
     least-queue router, at the SAME offered QPS (pick one that saturates
     the single replica, so the scaled phase shows real headroom). The
     scaled phase reports each replica's routed requests, dispatches and
-    buckets. ``sharding`` waits for ROADMAP.md A7.1."""
+    buckets. ``sharding`` shards every replica's pin over its slice of the
+    cards (``InferenceServer(sharding=)``, ``replica.py``)."""
     from .registry import ModelRegistry
     from .serving import InferenceServer
     if example is None:

@@ -95,6 +95,8 @@ class ModelVersion:
                 "source": self.source, "quant": self.quant,
                 "streaming_capable": self.streaming_capable,
                 "device": str(self.predict_fn.device),
+                "sharding": self.predict_fn.sharding,
+                "devices": self.predict_fn.devices(),
                 "param_bytes": self.predict_fn.param_bytes,
                 "predict_calls": self.predict_fn.calls,
                 "warmed_buckets": list(self.predict_fn.warmed)}
@@ -127,7 +129,10 @@ class ModelRegistry:
         keeps int8 weights at rest for the predict path and for this
         version's decode engines. ``warmup_example`` is one input batch (an
         array, or a tuple of arrays) whose row shape warmup uses.
-        ``replica`` decorates the pin's name (a ``ReplicaSet`` member's);
+        ``sharding`` and ``mesh`` pin it sharded over a device mesh
+        instead (``nn/inference.py``; a ``ReplicaSet`` passes each
+        replica's). ``replica`` decorates the pin's name (a ``ReplicaSet``
+        member's);
         ``draft_for`` also links this model as the speculative-decode draft
         of the named target (:meth:`link_draft`)."""
         with self._lock:

@@ -9,13 +9,23 @@ the fewest admitted-but-unanswered requests (ties to the lowest index) and
 falls through to the next on an admission refusal: a 429 comes only when
 every replica refused.
 
-Placement: every replica pins on ``device`` (``None`` means CUDA);
-placement over several devices (``devices=``) waits for ROADMAP.md A7. On
-one card the replicas share it: every
-dispatcher thread launches on the card's default stream, so kernels run in
-launch order and ``int8_matmul``'s split-K workspace (kept per stream)
-never serves two kernels at once. Sharded replicas
-(``sharding=``) wait for ROADMAP.md A7.8.
+Placement, as the JAX package's ``_placement_for``:
+
+- unsharded, replica i pins on ``devices[i % len(devices)]`` (no
+  ``devices``: every replica on ``device``, ``None`` meaning CUDA);
+- ``sharding="dp_tp"`` (any rule set): the device list (default every
+  card, ``cuda:0`` .. ``cuda:N-1``) is cut into N contiguous slices and
+  each replica pins sharded over a device mesh of its slice
+  (``build_mesh(mesh_axes, devices=slice)``; by default ``{"data":
+  per // model, "model": model}``, ``model`` 2 when the slice is even), so
+  tensor-parallel serving and replica scale-out compose. A slice is a run
+  of positions in the list; a device may repeat (``["cuda:0"] * 8`` on one
+  card).
+
+On one card the replicas share it: every dispatcher thread launches on the
+card's default stream, so kernels run in launch order and
+``int8_matmul``'s split-K workspace (kept per stream) never serves two
+kernels at once.
 
 **Lease fencing.** With ``membership=`` (a ``cloud.MembershipOracle``,
 ``role="replica"``) every replica registers a lease when it joins the set
@@ -50,34 +60,29 @@ from collections import Counter
 from concurrent.futures import Future
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
 from ..common import resolve_device
 from .admission import RejectedError
 from .batcher import MicroBatcher
 from .registry import ModelRegistry, ModelVersion, load_model_file
 
 
-def refuse_sharded(sharding=None, mesh_axes=None, devices=None) -> None:
-    """Raise for the placements that wait for the parallel modes."""
-    if devices is not None:
-        raise NotImplementedError(
-            "replicas placed over several devices (devices=, "
-            "replica_devices=) wait for the parallel modes (ROADMAP.md A7)")
-    if sharding is not None or mesh_axes is not None:
-        raise NotImplementedError(
-            "sharded replicas (sharding=, mesh axes) place a PredictFn over "
-            "the A7.1 mesh and rule engine, and wait for ROADMAP.md A7.8")
-
-
 class Replica:
-    """One serving lane: private registry, admission and dispatcher."""
+    """One serving lane: private registry, admission and dispatcher, on one
+    device or, sharded, on a device mesh (``mesh``; ``slots`` are its
+    positions in the set's device list)."""
 
-    def __init__(self, index: int, *, device=None, sharding=None,
-                 max_batch: int = 32, max_latency_s: float = 0.002,
+    def __init__(self, index: int, *, device=None, mesh=None, sharding=None,
+                 slots=None, max_batch: int = 32, max_latency_s: float = 0.002,
                  max_queue: int = 256, warmup: bool = False):
-        refuse_sharded(sharding)
         self.index = index
-        self.device = resolve_device(device)
-        self.sharding = None
+        self.mesh = mesh
+        self.device = None if mesh is not None else resolve_device(device)
+        self.sharding = sharding
+        #: the positions in the set's device list this replica's mesh holds
+        self.slots = list(slots) if slots is not None else []
         #: router-visible: a draining replica takes no new requests while
         #: its registry swaps versions (its queued work still completes)
         self.draining = False
@@ -95,6 +100,8 @@ class Replica:
         return self.batcher.admission.pending
 
     def devices(self) -> list:
+        if self.mesh is not None:
+            return [str(d) for d in self.mesh.devices.reshape(-1)]
         return [str(self.device)]
 
 
@@ -106,12 +113,23 @@ class ReplicaSet:
                  max_latency_s: float = 0.002, max_queue: int = 256,
                  drain_timeout_s: float = 30.0, warmup: bool = False,
                  membership=None):
-        refuse_sharded(sharding, mesh_axes, devices)
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
-        self.sharding = None
+        self.sharding = sharding
         self.drain_timeout_s = float(drain_timeout_s)
-        self.device = resolve_device(device)
+        #: where the set reads model files: ``device``, else the first of
+        #: ``devices``, else CUDA
+        self.device = resolve_device(
+            devices[0] if device is None and devices else device)
+        self._mesh_axes = dict(mesh_axes) if mesh_axes is not None else None
+        if devices is None and sharding is not None:
+            if self.device.type != "cuda":
+                raise ValueError("sharded replicas on the CPU need a device "
+                                 "list (devices=)")
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        self._devices = list(devices) if devices is not None else None
+        #: devices a sharded replica's slice holds (fixed at construction)
+        self._slice_per: Optional[int] = None
         self._max_batch = max_batch
         self._max_latency_s = max_latency_s
         self._max_queue = max_queue
@@ -132,7 +150,7 @@ class ReplicaSet:
         self._next_index = n_replicas
         self._membership = membership
         #: guarded-by: _lock
-        self._replicas = [self._new_replica(i, warmup)
+        self._replicas = [self._new_replica(i, warmup, n_total=n_replicas)
                           for i in range(n_replicas)]
         for r in self._replicas:
             self._join(r)
@@ -142,11 +160,50 @@ class ReplicaSet:
             r.lease = self._membership.register(
                 shard=r.index, worker=f"replica-{r.index}")
 
-    def _new_replica(self, i: int, warmup: bool) -> Replica:
-        return Replica(i, device=self.device,
-                       max_batch=self._max_batch,
+    def _new_replica(self, i: int, warmup: bool,
+                     n_total: Optional[int] = None) -> Replica:
+        return Replica(i, max_batch=self._max_batch,
                        max_latency_s=self._max_latency_s,
-                       max_queue=self._max_queue, warmup=warmup)
+                       max_queue=self._max_queue, warmup=warmup,
+                       **self._placement_for(i, n_total))
+
+    def _placement_for(self, i: int, n_total: Optional[int] = None) -> dict:
+        """Replica ``i``'s placement (JAX ``_placement_for``). ``n_total``
+        sizes the mesh slices at construction; afterwards the slice width
+        is fixed, so a sharded scale-out succeeds only while unclaimed
+        slices remain."""
+        devs = self._devices
+        if self.sharding is None:
+            if devs is None:
+                return {"device": self.device}
+            return {"device": devs[i % len(devs)]}
+        from ..parallel.mesh import build_mesh
+        if n_total is not None:
+            per = len(devs) // n_total
+            if per < 1:
+                raise ValueError(
+                    f"{n_total} sharded replicas need >= {n_total} devices, "
+                    f"have {len(devs)}")
+            if self._mesh_axes is None:
+                # the model axis gets the factor of two when there is one:
+                # dp_tp with model=1 would shard nothing
+                model = 2 if per % 2 == 0 else 1
+                self._mesh_axes = {"data": per // model, "model": model}
+            self._slice_per = per
+        per = self._slice_per
+        need = int(np.prod(list(self._mesh_axes.values())))
+        if need > per:
+            raise ValueError(
+                f"mesh_axes {self._mesh_axes} needs {need} devices per "
+                f"replica but only {per} are available for each replica")
+        if i * per + need > len(devs):
+            raise ValueError(
+                f"no free device slice for sharded replica {i}: "
+                f"{len(devs)} devices at {per} per replica")
+        at = range(i * per, i * per + need)
+        return {"mesh": build_mesh(self._mesh_axes,
+                                   devices=[devs[j] for j in at]),
+                "sharding": self.sharding, "slots": at}
 
     # ------------------------------------------------------------ registry
     @property
@@ -217,7 +274,8 @@ class ReplicaSet:
         mv = r.registry.register(name, net, version=version, quant=quant,
                                  device=r.device, source=source,
                                  warmup_example=warmup_example,
-                                 replica=r.index)
+                                 replica=r.index, sharding=r.sharding,
+                                 mesh=r.mesh)
         with self._lock:
             self._active_version[(r.index, name)] = version
         return mv
@@ -376,6 +434,8 @@ class ReplicaSet:
                 "bucket_count": s["bucket_count"],
                 "rejected": s["rejected"], "sharding": r.sharding,
                 "devices": r.devices(),
+                "mesh": dict(r.mesh.shape) if r.mesh is not None else None,
+                "slots": list(r.slots),
                 "active": {name: r.registry.active(name).version
                            for name in r.registry.names()},
             })

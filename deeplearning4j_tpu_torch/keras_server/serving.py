@@ -32,8 +32,10 @@ connection. Routes:
 least-queue router over N batchers, rolling hot swaps) and ``autoscale=``
 sizes it with an :class:`Autoscaler` on queue pressure, the replicas then
 fenced by the leases of a ``cloud.MembershipOracle`` (``membership``).
-Sharded replicas
-(``sharding=``, ``replica_mesh_axes=``) wait for ROADMAP.md A7; traces,
+``sharding=`` (with
+``replica_devices=`` and ``replica_mesh_axes=``) shards each replica's pin
+over a device mesh of its slice of the device list (``replica.py``), and
+``replica_devices=`` alone places unsharded replicas round-robin; traces,
 SLOs (``/serve/slo``, the autoscaler's burn input), ``/metrics``, the fleet
 routes and ``active_server``/``serve_slo`` wait for A9.
 """
@@ -56,7 +58,7 @@ from .autoscaler import Autoscaler
 from .batcher import MicroBatcher
 from .decode import DecodeEngine
 from .registry import ModelRegistry
-from .replica import ReplicaSet, refuse_sharded
+from .replica import ReplicaSet
 from .streaming import StreamSessions
 
 #: request tags for priority-aware shedding under saturation
@@ -248,14 +250,14 @@ class InferenceServer:
                  max_replicas: Optional[int] = None,
                  autoscale_cooldown_s: float = 30.0,
                  autoscale_interval_s: float = 2.0):
-        refuse_sharded(sharding, mesh_axes=replica_mesh_axes,
-                       devices=replica_devices)
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            replica_devices[0] if device is None and replica_devices
+            else device)
         self.replica_set: Optional[ReplicaSet] = None
         self.autoscaler: Optional[Autoscaler] = None
         self.batcher: Optional[MicroBatcher] = None
         self.membership = None
-        if replicas > 1 or autoscale:
+        if replicas > 1 or sharding is not None or autoscale:
             if registry is not None:
                 raise ValueError(
                     "replica mode owns its per-replica registries; pass "
@@ -266,7 +268,8 @@ class InferenceServer:
                 from ..cloud import MembershipOracle
                 self.membership = MembershipOracle(role="replica")
             self.replica_set = ReplicaSet(
-                replicas, device=self.device,
+                replicas, device=self.device, sharding=sharding,
+                devices=replica_devices, mesh_axes=replica_mesh_axes,
                 max_batch=max_batch, max_latency_s=max_latency_s,
                 max_queue=max_queue, warmup=warmup,
                 membership=self.membership)

@@ -520,6 +520,7 @@ class ComputationGraph(KStepFit, nn.Module):
         if not self._initialized:
             raise RuntimeError("network is not initialized: call init() or "
                                "load_params() first")
+        param_blocks.settle(self)
 
     def set_listeners(self, *listeners) -> None:
         self.listeners = list(listeners)
@@ -598,10 +599,13 @@ class ComputationGraph(KStepFit, nn.Module):
     @torch.no_grad()
     def output(self, *inputs) -> List[torch.Tensor]:
         """The network outputs (a list, one per output vertex) for one array
-        per network input, on this network's device."""
-        self._require_init()
-        return self._output_pure(self.params_list, self.state_list,
-                                 self._to_devices(inputs))
+        per network input, on this network's device. A network holding
+        blocks of its params gathers them whole for the call, on every
+        rank."""
+        with param_blocks.held_view(self):
+            self._require_init()
+            return self._output_pure(self.params_list, self.state_list,
+                                     self._to_devices(inputs))
 
     @under_conf_policy
     @torch.no_grad()

@@ -377,8 +377,8 @@ class KStepFit:
         """The iteration advanced once a step, each step's loss kept (read
         from the device only when asked for) and the listeners called once
         an iteration."""
+        from ..optimize.listeners import fire_iteration_done
         for j in range(losses.shape[0]):
             self.iteration += 1
             self.score_value = losses[j]
-            for listener in self.listeners:
-                listener.iteration_done(self, self.iteration)
+            fire_iteration_done(self, self.iteration)

@@ -566,6 +566,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         if not self._initialized:
             raise RuntimeError("network is not initialized: call init() or "
                                "load_params() first")
+        param_blocks.settle(self)
 
     def set_listeners(self, *listeners) -> None:
         self.listeners = list(listeners)
@@ -642,10 +643,13 @@ class MultiLayerNetwork(KStepFit, nn.Module):
     @torch.no_grad()
     def output(self, x) -> torch.Tensor:
         """Forward pass returning the final activations on this network's
-        device."""
-        self._require_init()
-        return self._output_pure(self.params_list, self.state_list,
-                                 self._to_device(x))
+        device. A network holding blocks of its params (a sharded fit
+        between steps, a restore onto a sharding) gathers them whole for
+        the call, on every rank."""
+        with param_blocks.held_view(self):
+            self._require_init()
+            return self._output_pure(self.params_list, self.state_list,
+                                     self._to_device(x))
 
     @under_conf_policy
     @torch.no_grad()

@@ -79,7 +79,8 @@ def _leaves(tree):
     elif is_quantized(tree):
         yield tree.q
         yield tree.scale
-    elif isinstance(tree, torch.Tensor):
+    elif isinstance(tree, torch.Tensor) or hasattr(tree, "element_size"):
+        # a tensor, or a leaf placed on a device mesh (its whole bytes)
         yield tree
 
 

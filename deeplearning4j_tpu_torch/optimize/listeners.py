@@ -13,14 +13,21 @@ step.
 model zips or sharded checkpoints (``utils/sharded_checkpoint.py``).
 
 A listener that reads the network's whole params or updater state when it
-fires says so in ``reads_whole`` (``"params"``, ``"updater"``). A sharded
-fit that holds those as blocks between steps (ZeRO, ``dp_tp``, the
-pipeline's stages) refuses it before the first step
-(:func:`refuse_whole_readers`): JAX's listeners read sharded arrays
-whole, which the port's blocks are not.
+fires says so in ``reads_whole`` (``"params"``, ``"updater"``; a listener
+that reads them only at some iterations says which in
+``reads_whole_at(iteration)``). JAX's arrays are global, so its listeners
+read a sharded fit's state whole. A sharded fit of the port holds blocks
+between steps (ZeRO, ``dp_tp``, the pipeline's stages; the network names
+the placement in ``_held_sharding``), so :func:`fire_iteration_done` runs
+the listeners of an iteration inside the placement's whole view when one
+of them reads what it holds: every rank takes part in assembling it, the
+listeners see the whole state, and the blocks are given back after. In a
+process group only rank 0 writes the files (a zip checkpoint, the param
+log's rows); the other ranks take part in the gather.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import logging
@@ -32,6 +39,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..common import host_numpy
 
@@ -57,19 +65,28 @@ class IterationListener:
 TrainingListener = IterationListener  # the epoch hooks are included above
 
 
-def refuse_whole_readers(listeners, held_split, mode: str) -> None:
-    """Raise before a fit whose placement holds ``held_split`` (of
-    "params", "updater") as blocks between steps if a listener reads one
-    of them whole when it fires."""
-    bad = [type(l).__name__ for l in listeners
-           if set(getattr(l, "reads_whole", ())) & set(held_split)]
-    if bad:
-        raise ValueError(
-            f"{mode} holds the {' and '.join(held_split)} as blocks between "
-            f"steps, and listeners {bad} read them whole when they fire; "
-            "use CheckpointListener(sharded=True), which saves the blocks "
-            "(a whole view of a sharded fit between steps waits for "
-            "ROADMAP.md A7.8)")
+def _writes_files() -> bool:
+    """Whether this process writes a listener's files: rank 0 of a process
+    group, or a process without one."""
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
+def fire_iteration_done(model, iteration: int) -> None:
+    """Every listener's ``iteration_done``. When the network holds blocks
+    between steps (``model._held_sharding``) and a listener reads what it
+    holds at this iteration, they all fire inside the placement's whole
+    view (every rank of the fit calls this, and takes part)."""
+    held = getattr(model, "_held_sharding", None)
+    parts = set()
+    if held is not None:
+        for l in model.listeners:
+            at = getattr(l, "reads_whole_at", None)
+            parts |= set(at(iteration) if at is not None
+                         else getattr(l, "reads_whole", ()))
+    with (held.whole_view(parts) if parts else contextlib.nullcontext()):
+        for listener in model.listeners:
+            listener.iteration_done(model, iteration)
 
 
 class ScoreIterationListener(IterationListener):
@@ -153,7 +170,8 @@ class ParamAndGradientIterationListener(IterationListener):
     ``iterations`` iterations, as rows (``param_<path>``,
     ``update_<path>``), optionally appended to ``output_file`` as JSON
     lines. It copies the params to the host at every iteration, so that
-    each update spans one step."""
+    each update spans one step. In a process group rank 0 keeps the rows
+    and writes the file; the other ranks record nothing."""
 
     reads_whole = ("params",)
 
@@ -180,6 +198,8 @@ class ParamAndGradientIterationListener(IterationListener):
         return out
 
     def iteration_done(self, model, iteration: int) -> None:
+        if not _writes_files():
+            return
         flat = self._flatten(getattr(model, "params_list", {}) or {})
         log_now = iteration % self.iterations == 0
         if log_now:
@@ -291,10 +311,12 @@ class CheckpointListener(IterationListener):
     from the files in ``directory``. Each file is written to a temporary
     name and renamed, so a crash leaves no truncated zip.
 
-    ``sharded=True`` writes sharded checkpoint directories
-    (``utils/sharded_checkpoint.py``: each rank of a distributed fit writes
-    its own blocks, no gather) as ``checkpoint_<tag>``, with a ``LATEST``
-    file naming the newest."""
+    In a process group rank 0 writes the zips (of the whole state, which
+    a sharded fit assembles for it: :func:`fire_iteration_done`); the other
+    ranks write nothing. ``sharded=True`` writes sharded checkpoint
+    directories (``utils/sharded_checkpoint.py``: each rank of a
+    distributed fit writes its own blocks, no gather) as
+    ``checkpoint_<tag>``, with a ``LATEST`` file naming the newest."""
 
     def __init__(self, directory: str, every_n_iterations: Optional[int] = None,
                  every_n_epochs: Optional[int] = 1, keep_last: int = 3,
@@ -338,12 +360,21 @@ class CheckpointListener(IterationListener):
         self._rotate(path, shutil.rmtree if lead else (lambda p: None))
         return path
 
-    def _save(self, model, tag: str) -> str:
+    def reads_whole_at(self, iteration: int) -> tuple:
+        """What the listener reads whole at ``iteration``: the params and
+        updater state when a zip is due."""
+        due = (self.every_n_iterations
+               and iteration % self.every_n_iterations == 0)
+        return self.reads_whole if due else ()
+
+    def _save(self, model, tag: str) -> Optional[str]:
         if self.sharded:
             return self._save_sharded(model, tag)
+        path = os.path.join(self.directory, f"checkpoint_{tag}.zip")
+        if not _writes_files():
+            return None
         from ..utils.model_serializer import write_model
 
-        path = os.path.join(self.directory, f"checkpoint_{tag}.zip")
         tmp = path + ".tmp"
         write_model(model, tmp)
         os.replace(tmp, path)

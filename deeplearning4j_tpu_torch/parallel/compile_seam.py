@@ -43,6 +43,7 @@ The JAX seam's compile tracker and spec counters are plain counters here
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from collections import Counter
@@ -78,6 +79,21 @@ def stats() -> dict:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+@torch.no_grad()
+def free_storage(t: torch.Tensor) -> None:
+    """Give ``t``'s storage back, keeping its shape (a placement restores
+    it with ``untyped_storage().resize_``). A numpy view of a CPU tensor
+    (``.numpy()``, as a listener's host copy makes one) pins its storage
+    for good; such a tensor moves to a fresh storage first."""
+    st = t.untyped_storage()
+    try:
+        st.resize_(0)
+    except RuntimeError:
+        fresh = torch.UntypedStorage(st.nbytes(), device=t.device)
+        t.set_(fresh, t.storage_offset(), t.shape, t.stride())
+        fresh.resize_(0)
 
 
 # ------------------------------------------------------------ network views
@@ -129,6 +145,57 @@ class NetView:
         return [by_key.get(k, upd[k]) for k in self.keys]
 
 
+# ----------------------------------------------------------- whole views
+class WholeViews:
+    """What a placement that holds blocks between steps gives the
+    listeners that read whole state (``reads_whole``): :meth:`whole_view`
+    makes the params and/or the updater state whole on every rank (each
+    rank takes part in the collectives) while they run, then gives the
+    blocks back, so the next step finds the placement and the held bytes
+    as they were. A subclass says what it holds (:meth:`held_parts`) and
+    assembles it (``_view_in``, returning the bytes of the whole tensors
+    it assembled) and gives it back (``_view_out``). ``views`` and
+    ``view_bytes`` count the views taken and those bytes. A view inside a
+    view is the outer one."""
+
+    views = 0
+    view_bytes = 0
+    _viewing = 0
+
+    def held_parts(self) -> frozenset:
+        """Of ``"params"`` and ``"updater"``, what this rank holds as
+        blocks between steps."""
+        raise NotImplementedError
+
+    def _view_in(self, parts: frozenset) -> int:
+        raise NotImplementedError
+
+    def _view_out(self, parts: frozenset) -> None:
+        raise NotImplementedError
+
+    @contextlib.contextmanager
+    def whole_view(self, parts):
+        parts = frozenset(parts) & frozenset(self.held_parts())
+        if not parts or self._viewing:
+            yield
+            return
+        self._viewing += 1
+        try:
+            nbytes = self._view_in(parts)
+            self.views += 1
+            self.view_bytes += nbytes
+            yield
+        finally:
+            try:
+                self._view_out(parts)
+            finally:
+                self._viewing -= 1
+
+    def view_stats(self) -> dict:
+        return {"whole_views": self.views,
+                "whole_view_bytes": self.view_bytes}
+
+
 # --------------------------------------------------------------- ZeRO layout
 class _Leaf:
     """One param's placement: the dim its updater state is split on
@@ -162,7 +229,7 @@ def _dim(spec) -> Optional[int]:
     return None if at is None else at[0]
 
 
-class Sharding:
+class Sharding(WholeViews):
     """The ZeRO placement of one network on one mesh axis: which leaves are
     split on which dim, this rank's shards (dim moved to the front, so a
     shard is a contiguous block), and the collectives that move between
@@ -295,7 +362,7 @@ class Sharding:
             p = params[key][name]
             if (key, name) not in self.param_shards:
                 self.param_shards[(key, name)] = self.shard(p, leaf.pdim)
-            p.untyped_storage().resize_(0)
+            free_storage(p)
         self.gathered.clear()
 
     @torch.no_grad()
@@ -349,6 +416,136 @@ class Sharding:
             total += (_nbytes(self.param_shards[(key, name)])
                       if leaf.pdim is not None and (key, name)
                       in self.param_shards else _nbytes(p))
+        return total
+
+    # -- the whole view between steps
+    def held_parts(self) -> frozenset:
+        leaves = self.leaves.values()
+        return frozenset(
+            (["params"] if any(l.pdim is not None for l in leaves) else [])
+            + (["updater"] if any(l.udim is not None for l in leaves)
+               else []))
+
+    def _view_in(self, parts) -> int:
+        net, params = self.view.net, self.view.params()
+        nbytes = 0
+        if "params" in parts:
+            self.gather_all()
+            nbytes += sum(_nbytes(params[k][n]) for (k, n), l
+                          in self.leaves.items() if l.pdim is not None)
+        if "updater" in parts:
+            self._held_upd = net.updater_state
+            net.updater_state = self.gather_updater_state(self._held_upd)
+            nbytes += sum(_nbytes(t) for k in self.view.keys
+                          for n, slots in self.view.upd_of(
+                              net.updater_state, k).items()
+                          if self.leaves[(k, n)].udim is not None
+                          for t in slots.values())
+        return nbytes
+
+    def _view_out(self, parts) -> None:
+        if "updater" in parts:
+            self.view.net.updater_state = self._held_upd
+            self._held_upd = None
+        if "params" in parts:
+            self.release_params()
+
+
+class RestoredSharding(WholeViews):
+    """The placement a restore onto a sharding installs
+    (``utils/sharded_checkpoint.restore_sharded``): each leaf its spec
+    splits is held on this rank as the spec's block, its dim first, for the
+    param and for each updater slot of the param's shape; the network's
+    whole tensors of those leaves give their storage back. It answers
+    :meth:`checkpoint_entry` as the fits' placements do, gives whole views
+    (``output`` reads through one), and :meth:`settle` makes the network
+    whole for good, which every other entry point (a fit resuming from the
+    restore) does first. ``blocks`` maps ``(layer, name, slot)`` (slot None
+    for the param) to ``(block, dim, axes)``."""
+
+    restored = True
+
+    def __init__(self, net, mesh, blocks: dict):
+        self.net, self.mesh, self.blocks = net, mesh, blocks
+        self._release()
+
+    def _whole(self, layer, name, slot) -> torch.Tensor:
+        net = self.net
+        if slot is None:
+            return net.params_list[layer][name]
+        return net.updater_state[layer][name][slot]
+
+    @torch.no_grad()
+    def _release(self, slots: bool = True) -> None:
+        for (layer, name, slot) in self.blocks:
+            if slot is None or slots:
+                free_storage(self._whole(layer, name, slot))
+
+    @torch.no_grad()
+    def _assemble(self, parts) -> int:
+        """The whole tensors of ``parts`` from every rank's blocks."""
+        nbytes = 0
+        for (layer, name, slot), (block, d, axes) in self.blocks.items():
+            if ("params" if slot is None else "updater") not in parts:
+                continue
+            full = self._whole(layer, name, slot)
+            full.untyped_storage().resize_(_nbytes(full))
+            group, n = self.mesh.group(*axes), self.mesh.axis_size(*axes)
+            buf = torch.empty((block.shape[0] * n,) + tuple(block.shape[1:]),
+                              dtype=block.dtype, device=block.device)
+            if group is None:
+                buf.copy_(block)
+            else:
+                dist.all_gather_into_tensor(buf, block.contiguous(),
+                                            group=group)
+                count_collective("all_gather", "restored", _nbytes(buf))
+            full.copy_(buf.movedim(0, d))
+            nbytes += _nbytes(full)
+        return nbytes
+
+    def held_parts(self) -> frozenset:
+        return frozenset("params" if slot is None else "updater"
+                         for (_l, _n, slot) in self.blocks)
+
+    def _view_in(self, parts) -> int:
+        return self._assemble(parts)
+
+    @torch.no_grad()
+    def _view_out(self, parts) -> None:
+        for (layer, name, slot) in self.blocks:
+            if ("params" if slot is None else "updater") in parts:
+                free_storage(self._whole(layer, name, slot))
+
+    def settle(self) -> None:
+        """Every leaf whole on every rank, for good; the network holds no
+        placement after."""
+        if self._viewing:
+            return
+        self._assemble(self.held_parts())
+        self.blocks = {}
+        if getattr(self.net, "_held_sharding", None) is self:
+            self.net._held_sharding = None
+
+    def checkpoint_entry(self, key, name, t: torch.Tensor, slot):
+        """``(key suffix, tensor)`` a sharded checkpoint saves of a leaf:
+        this rank's block under a shard key, or the whole leaf."""
+        from ..utils.sharded_checkpoint import shard_suffix
+        held = self.blocks.get((key, name, slot))
+        if held is None:
+            return "", t
+        block, d, axes = held
+        return (shard_suffix(self.mesh.index(*axes),
+                             self.mesh.axis_size(*axes), d), block)
+
+    def held_bytes(self) -> int:
+        """Bytes of params this rank holds."""
+        total = 0
+        for layer, params in (self.net.params_list.items()
+                              if isinstance(self.net.params_list, dict)
+                              else enumerate(self.net.params_list)):
+            for name, p in params.items():
+                held = self.blocks.get((layer, name, None))
+                total += _nbytes(held[0] if held is not None else p)
         return total
 
 

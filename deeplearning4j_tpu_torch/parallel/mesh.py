@@ -16,6 +16,15 @@ With no process group initialized a mesh of size 1 is a group of one: it has
 no process groups and every collective on it is skipped. A mesh of one over
 an initialized group (``world_size=1``) has real groups, so its collectives
 run (on the card: NCCL kernels).
+
+``build_mesh(axes, devices=[...])`` gives a :class:`DeviceMesh` instead: the
+same named axes over a list of devices that one process drives, with no
+process group. That is the JAX package's single controller, and what a
+sharded serving pin (``nn/inference.py``) and a sharded replica
+(``keras_server/replica.py``) are placed on. A device may appear more than
+once (``["cuda:0"] * 4`` on a one-card machine, ``["cpu"] * 8`` in the
+tests): a slot is told apart by its position in the list, not by its
+device. JAX refuses repeated devices (ROADMAP.md §C).
 """
 from __future__ import annotations
 
@@ -168,14 +177,99 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
-def build_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None
-               ) -> Mesh:
-    """A named mesh, e.g. ``build_mesh({"data": 2, "sp": 2})``. ``devices``
-    is accepted for the JAX signature and must be None: a rank owns one
-    device."""
+class DeviceMesh:
+    """Named axes over a list of devices driven by one process.
+
+    The axis API of :class:`Mesh` (``shape``, ``axis_names``, ``size``,
+    :meth:`axis_size`), with ``devices``, the ``torch.device`` of each slot
+    laid out row-major on the axes, and ``slots``, the slots' positions in
+    the device list laid out alike. It has no process group: what moves
+    between slots is a copy from one device to another. Every device must
+    exist: a CUDA index beyond the card count raises, as does any CUDA
+    device without a card."""
+
+    def __init__(self, axes: Dict[str, int], devices: Sequence):
+        if not axes:
+            raise ValueError("a mesh needs at least one axis")
+        self.shape: Dict[str, int] = {str(k): int(v) for k, v in axes.items()}
+        if any(v < 1 for v in self.shape.values()):
+            raise ValueError(f"mesh axis sizes must be >= 1: {self.shape}")
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+        self.size = int(np.prod(list(self.shape.values())))
+        devices = list(devices)
+        if self.size > len(devices):
+            raise ValueError(f"Mesh needs {self.size} devices, have "
+                             f"{len(devices)}")
+        sizes = [self.shape[a] for a in self.axis_names]
+        devs = np.empty(self.size, dtype=object)
+        for i, d in enumerate(devices[:self.size]):
+            devs[i] = _existing_device(d)
+        #: the device of each slot, row-major on the axes
+        self.devices = devs.reshape(sizes)
+        #: each slot's position in the device list, laid out alike
+        self.slots = np.arange(self.size).reshape(sizes)
+
+    def axis_size(self, *axes: str) -> int:
+        return int(np.prod([self.shape[a] for a in axes])) if axes else 1
+
+    def coords(self, slot: int) -> Dict[str, int]:
+        """The coordinates of ``slot`` on the axes."""
+        at = np.unravel_index(int(slot), self.slots.shape)
+        return {a: int(i) for a, i in zip(self.axis_names, at)}
+
+    def index(self, slot: int, *axes: str) -> int:
+        """``slot``'s position along ``axes`` (row-major)."""
+        c = self.coords(slot)
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def peers(self, slot: int, *axes: str) -> list:
+        """The slots that differ from ``slot`` only along ``axes``, in
+        their row-major order along them (``slot`` among them)."""
+        c = self.coords(slot)
+        at = tuple(slice(None) if a in axes else c[a]
+                   for a in self.axis_names)
+        sub = self.slots[at]
+        kept = [a for a in self.axis_names if a in axes]
+        order = [kept.index(a) for a in axes]
+        return [int(s) for s in np.transpose(sub, order).reshape(-1)]
+
+    def device_of(self, slot: int) -> torch.device:
+        return self.devices.reshape(-1)[int(slot)]
+
+    def lead_slots(self, axis: str) -> list:
+        """One slot for each position along ``axis``: the one whose other
+        coordinates are all 0."""
+        return self.peers(0, axis) if axis in self.shape else [0]
+
+    def __repr__(self) -> str:
+        return (f"DeviceMesh({self.shape}, "
+                f"{[str(d) for d in self.devices.reshape(-1)]})")
+
+
+def _existing_device(d) -> torch.device:
+    dev = torch.device(d) if not isinstance(d, torch.device) else d
+    if dev.type == "cuda":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        idx = 0 if dev.index is None else dev.index
+        if idx >= count:
+            raise ValueError(f"device {dev} is not there: {count} CUDA "
+                             "device(s) are available")
+        dev = torch.device("cuda", idx)
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def build_mesh(axes: Dict[str, int], devices: Optional[Sequence] = None):
+    """A named mesh, e.g. ``build_mesh({"data": 2, "sp": 2})``: over the
+    process group's ranks (:class:`Mesh`), or with ``devices`` over that
+    list of devices in this process (:class:`DeviceMesh`, its first
+    ``prod(axes)`` devices)."""
     if devices is not None:
-        raise ValueError("a port mesh is laid over the process group's "
-                         "ranks; pass no devices")
+        return DeviceMesh(axes, devices)
     return Mesh(axes)
 
 
@@ -195,8 +289,10 @@ def build_hybrid_mesh(ici_axes: Dict[str, int],
 
 def data_parallel_mesh(n: Optional[int] = None,
                        devices: Optional[Sequence] = None) -> Mesh:
-    """``{"data": n}``, ``n`` defaulting to the process group's size."""
-    return build_mesh({"data": n or world()[1]}, devices)
+    """``{"data": n}``, ``n`` defaulting to the number of ``devices``, or
+    without them to the process group's size."""
+    n = n or (len(devices) if devices is not None else world()[1])
+    return build_mesh({"data": n}, devices)
 
 
 def batch_sharding(mesh: Mesh):

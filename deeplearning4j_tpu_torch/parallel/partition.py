@@ -19,9 +19,14 @@ layouts come from:
    ``zero3`` (every leaf split over ``data`` on its first divisible dim).
 
 A spec is the JAX ``PartitionSpec`` as a plain tuple of axis names (None for
-a whole dim). Placement is SPMD: :func:`device_put` gives this rank its
-local shard of each leaf. The JAX package's telemetry (the spec counter and
-the per-device bytes gauge) is plain counters here (:func:`stats`).
+a whole dim). On a process-group ``Mesh`` placement is SPMD:
+:func:`device_put` gives this rank its local shard of each leaf. On a
+``DeviceMesh`` (one process driving a device list) it gives each leaf as a
+:class:`MeshLeaf`, the tensor every slot holds on its device. An int8
+``QuantizedLeaf`` is a node of the tree, its ``q`` and ``scale`` leaves
+named as the JAX package's pytree paths name them (``.../W/q``). The JAX
+package's telemetry (the spec counter and the per-device bytes gauge) is
+plain counters here (:func:`stats`).
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ class PartitionSpec(tuple):
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
+
+    def __getnewargs__(self):
+        # a pickled spec unpickles through __new__(cls, *axes)
+        return tuple(self)
 
     def __repr__(self) -> str:
         return "PartitionSpec(" + ", ".join(repr(a) for a in self) + ")"
@@ -96,6 +105,11 @@ def _is_container(x) -> bool:
         x, PartitionSpec)
 
 
+def _is_record(x) -> bool:
+    """A named tuple (``QuantizedLeaf``): its fields are named in paths."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def named_tree_map(f: Callable[..., Any], tree, *rest, sep: str = "/",
                    top_names: Optional[dict] = None):
     """A tree map whose function gets the ``sep``-joined path first:
@@ -108,6 +122,10 @@ def named_tree_map(f: Callable[..., Any], tree, *rest, sep: str = "/",
         if isinstance(node, dict):
             return {k: walk(v, [_child(o, k) for o in others], parts + [str(k)])
                     for k, v in node.items()}
+        if _is_record(node):
+            return type(node)(*[
+                walk(v, [_child(o, i) for o in others], parts + [f])
+                for i, (f, v) in enumerate(zip(node._fields, node))])
         if _is_container(node):
             out = [walk(v, [_child(o, i) for o in others], parts + [str(i)])
                    for i, v in enumerate(node)]
@@ -288,23 +306,106 @@ def sharded_dim(spec: PartitionSpec) -> Optional[Tuple[int, Any]]:
     return named[0]
 
 
+def _split_axes(spec: PartitionSpec):
+    """``(dim, axes)`` of the one dim ``spec`` splits, None if
+    replicated."""
+    at = sharded_dim(spec)
+    if at is None:
+        return None
+    d, axis = at
+    return d, (axis if isinstance(axis, tuple) else (axis,))
+
+
 def local_shard(leaf: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     """This rank's block of ``leaf`` under ``spec`` (a copy; the leaf
     itself when replicated)."""
-    at = sharded_dim(spec)
+    at = _split_axes(spec)
     if at is None:
         return leaf
-    d, axis = at
-    axes = axis if isinstance(axis, tuple) else (axis,)
+    d, axes = at
     n = mesh.axis_size(*axes)
     return leaf.chunk(n, dim=d)[mesh.index(*axes)].clone()
 
 
+class MeshLeaf:
+    """A leaf placed on a ``DeviceMesh``: ``shards[s]`` is the tensor slot
+    ``s`` holds on its device, its block along the dim ``spec`` splits (the
+    spec's contiguous block, as JAX lays a sharded array out), or the whole
+    leaf where ``spec`` replicates it. ``shape``, ``dtype`` and
+    :attr:`nbytes` are the whole leaf's."""
+
+    __slots__ = ("shards", "spec", "shape", "dtype", "mesh")
+
+    def __init__(self, leaf: torch.Tensor, spec: PartitionSpec, mesh):
+        self.spec, self.mesh = spec, mesh
+        self.shape, self.dtype = tuple(leaf.shape), leaf.dtype
+        at = _split_axes(spec)
+        self.shards = []
+        for s in range(mesh.size):
+            part = leaf if at is None else leaf.chunk(
+                mesh.axis_size(*at[1]), dim=at[0])[mesh.index(s, *at[1])]
+            self.shards.append(part.detach().to(mesh.device_of(s),
+                                                copy=True).contiguous())
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    @property
+    def nbytes(self) -> int:
+        return self.numel() * self.element_size()
+
+    def whole(self, slot: int) -> torch.Tensor:
+        """The whole leaf for ``slot``, on its device: its own copy where
+        replicated, else its peers' blocks along the split axes copied
+        there and concatenated in order (an exact layout change, no
+        arithmetic)."""
+        at = _split_axes(self.spec)
+        if at is None:
+            return self.shards[slot]
+        dev = self.mesh.device_of(slot)
+        return torch.cat([self.shards[p].to(dev)
+                          for p in self.mesh.peers(slot, *at[1])], at[0])
+
+    def __repr__(self) -> str:
+        return f"MeshLeaf({self.shape}, {self.dtype}, {self.spec!r})"
+
+
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (a device list one process
+    drives), not a process group's ``Mesh``."""
+    return hasattr(mesh, "slots")
+
+
 def device_put(tree, mesh, spec_tree):
     """``tree`` placed per ``spec_tree`` (a spec tree, or one spec for the
-    whole tree): each rank keeps its local shard of each leaf."""
+    whole tree): on a process-group ``Mesh`` each rank keeps its local
+    shard of each leaf; on a ``DeviceMesh`` each leaf becomes a
+    :class:`MeshLeaf` holding one tensor for every slot, on that slot's
+    device."""
+    if is_device_mesh(mesh):
+        return named_tree_map(lambda _p, leaf, spec: MeshLeaf(leaf, spec,
+                                                              mesh),
+                              tree, spec_tree)
     return named_tree_map(lambda _p, leaf, spec: local_shard(leaf, spec, mesh),
                           tree, spec_tree)
+
+
+def gather_whole(tree, slot: int):
+    """A tree placed by :func:`device_put` on a ``DeviceMesh`` as whole
+    tensors on ``slot``'s device (see :meth:`MeshLeaf.whole`)."""
+    return named_tree_map(
+        lambda _p, leaf: leaf.whole(slot) if isinstance(leaf, MeshLeaf)
+        else leaf, tree)
+
+
+def slot_bytes(tree, slot: int) -> int:
+    """The bytes the tensors ``slot`` holds of a tree placed on a
+    ``DeviceMesh`` take."""
+    return sum(leaf.shards[slot].numel() * leaf.shards[slot].element_size()
+               for leaf in tree_leaves(tree) if isinstance(leaf, MeshLeaf))
 
 
 def batch_spec(mesh, n: int, axis: str = "data") -> PartitionSpec:
@@ -327,7 +428,7 @@ def shard_factor(mesh, spec: PartitionSpec) -> int:
 
 
 def _nbytes(leaf) -> int:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, MeshLeaf)):
         return leaf.numel() * leaf.element_size()
     return int(np.asarray(leaf).nbytes)
 

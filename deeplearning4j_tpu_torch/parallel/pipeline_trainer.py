@@ -31,9 +31,11 @@ state: the other blocks' tensors give their storage back (``fit`` starts
 so), and ``fit`` ends with every leaf whole on every rank, broadcast from
 the stage that owns it. A sharded checkpoint taken by a listener between
 steps saves each block from its owner (:meth:`PipelineTrainer.
-checkpoint_entry`); a listener that reads whole params or updater state
-(a zip checkpoint) is refused. The JAX module's compile tracker, flight recorder,
-metrics and watchdog beats are the plain counters of :meth:`stats`.
+checkpoint_entry`). A listener that reads whole params or updater state
+(a zip checkpoint, the param log) fires inside a whole view: each block
+broadcast from its owner to every stage, the storage given back after.
+The JAX module's compile tracker, flight recorder, metrics and watchdog
+beats are the plain counters of :meth:`stats`.
 """
 from __future__ import annotations
 
@@ -45,8 +47,8 @@ import torch.distributed as dist
 
 from ..common import wrap_with_policy
 from ..datasets.prefetch import DevicePrefetcher
-from ..optimize.listeners import refuse_whole_readers
-from .compile_seam import count_collective
+from ..optimize.listeners import fire_iteration_done
+from .compile_seam import WholeViews, count_collective, free_storage
 from .mesh import Mesh, build_mesh, world
 from .pipeline import PipelineParallel
 
@@ -67,15 +69,11 @@ def find_block_run(layers) -> tuple:
     return best
 
 
-def _storage_release(t: torch.Tensor) -> None:
-    t.untyped_storage().resize_(0)
-
-
 def _storage_restore(t: torch.Tensor) -> None:
     t.untyped_storage().resize_(t.numel() * t.element_size())
 
 
-class PipelineTrainer:
+class PipelineTrainer(WholeViews):
     """GPipe training for configs with a homogeneous block stack.
 
     ``n_microbatches`` trades the bubble share ``(S-1)/(S+M-1)`` for the
@@ -152,15 +150,19 @@ class PipelineTrainer:
         stage = (i - self.block_range[0]) // self.pipe.blocks_per_stage
         return self.pipe.ranks[stage]
 
-    def _block_tensors(self, i: int) -> list:
-        """Block ``i``'s params and updater-state slots, in one order on
+    def _block_tensors(self, i: int,
+                       parts=("params", "updater")) -> list:
+        """Block ``i``'s params and/or updater-state slots, in one order on
         every rank."""
         net = self.net
-        params = net.params_list[i]
-        out = [params[k] for k in sorted(params)]
-        upd = net.updater_state[i]
-        for k in sorted(upd):
-            out += [upd[k][s] for s in sorted(upd[k])]
+        out = []
+        if "params" in parts:
+            params = net.params_list[i]
+            out += [params[k] for k in sorted(params)]
+        if "updater" in parts:
+            upd = net.updater_state[i]
+            for k in sorted(upd):
+                out += [upd[k][s] for s in sorted(upd[k])]
         return out
 
     @torch.no_grad()
@@ -169,21 +171,39 @@ class PipelineTrainer:
         back."""
         for i in self._others():
             for t in self._block_tensors(i):
-                _storage_release(t)
+                free_storage(t)
 
     @torch.no_grad()
-    def _gather(self) -> None:
-        """Every block whole again on every rank, from its owner."""
+    def _gather(self, parts=("params", "updater"),
+                site: str = "pipeline_gather") -> int:
+        """Every block (its ``parts``) whole again on every rank, from its
+        owner; returns the bytes this rank received."""
         group = self.pipe.group
+        got = 0
         for i in range(*self.block_range):
             src = self._owner(i)
-            for t in self._block_tensors(i):
+            for t in self._block_tensors(i, parts):
                 if i not in self.own:
                     _storage_restore(t)
+                    got += t.numel() * t.element_size()
                 if group is not None:
                     dist.broadcast(t, src, group=group)
-                    count_collective("broadcast", "pipeline_gather",
+                    count_collective("broadcast", site,
                                      t.numel() * t.element_size())
+        return got
+
+    # -- the whole view between steps
+    def held_parts(self) -> frozenset:
+        return frozenset(("params", "updater") if self._others() else ())
+
+    def _view_in(self, parts) -> int:
+        return self._gather(tuple(sorted(parts)), "pipeline_view")
+
+    @torch.no_grad()
+    def _view_out(self, parts) -> None:
+        for i in self._others():
+            for t in self._block_tensors(i, tuple(sorted(parts))):
+                free_storage(t)
 
     def checkpoint_entry(self, key, name, t: torch.Tensor, slot):
         """What a sharded checkpoint saves of a leaf or an updater slot
@@ -202,8 +222,10 @@ class PipelineTrainer:
                    for p in self.net.params_list[i].values())
 
     def stats(self) -> dict:
-        """Steps, the handoff route and the pipeline's counters."""
-        return {**dict(self.counts), **self.pipe.stats()}
+        """Steps, the whole views given to listeners and their bytes, the
+        handoff route and the pipeline's counters."""
+        return {**dict(self.counts), **self.view_stats(),
+                **self.pipe.stats()}
 
     # ------------------------------------------------------------------ loss
     def _pipeline_loss(self, params_list, state_list, x, y, rng):
@@ -346,8 +368,6 @@ class PipelineTrainer:
                                  "masked batches; use net.fit()")
             return net._to_device(ds.features), net._to_device(ds.labels)
 
-        refuse_whole_readers(net.listeners, ("params", "updater"),
-                             "PipelineTrainer")
         step = wrap_with_policy(self._step, net.conf.global_conf.dtype)
         net._drop_step_graphs()
         self._release()
@@ -366,8 +386,7 @@ class PipelineTrainer:
                         loss = step(x, y, net._next_rng(), net.iteration)
                         net.score_value = loss
                         net.iteration += 1
-                        for listener in net.listeners:
-                            listener.iteration_done(net, net.iteration)
+                        fire_iteration_done(net, net.iteration)
         finally:
             net._held_sharding = None
             self._gather()

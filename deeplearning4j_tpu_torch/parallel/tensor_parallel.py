@@ -56,7 +56,8 @@ import torch
 import torch.distributed as dist
 
 from . import compile_seam
-from .compile_seam import _spec_at, count_collective
+from .compile_seam import (
+    WholeViews, _spec_at, count_collective, free_storage)
 from .partition import sharded_dim
 
 
@@ -178,7 +179,7 @@ def _megatron_names(layer, split: dict, n: int) -> tuple:
     return names, layouts
 
 
-class TPPlacement:
+class TPPlacement(WholeViews):
     """The ``dp_tp`` placement of one network on the mesh's ``axis``: each
     split leaf's block on this rank (``shards``), the layers' Megatron
     pairs, and the collectives between the blocks and the whole leaves.
@@ -233,7 +234,7 @@ class TPPlacement:
             p = self._full(key, name)
             block = layout.split(p.detach(), self.n, self.idx)
             self.shards[(key, name)] = block.requires_grad_(True)
-            p.untyped_storage().resize_(0)
+            free_storage(p)
 
     @torch.no_grad()
     def gather_all(self) -> None:
@@ -367,6 +368,35 @@ class TPPlacement:
                 total += (t if t is not None else p).numel() * \
                     p.element_size()
         return total
+
+    # -- the whole view between steps (Wqkv joined from its q, k, v parts)
+    def held_parts(self) -> frozenset:
+        return frozenset(("params", "updater") if self.shards else ())
+
+    def _view_in(self, parts) -> int:
+        net = self.view.net
+        nbytes = 0
+        if "params" in parts:
+            self.gather_all()
+            nbytes += sum(self._full(k, n).numel() * self._full(k, n)
+                          .element_size() for (k, n) in self.shards)
+        if "updater" in parts:
+            self._held_upd = net.updater_state
+            net.updater_state = self.gather_updater_state(self._held_upd)
+            nbytes += sum(t.numel() * t.element_size()
+                          for (k, n) in self.shards
+                          for t in self.view.upd_of(net.updater_state, k)
+                          .get(n, {}).values())
+        return nbytes
+
+    @torch.no_grad()
+    def _view_out(self, parts) -> None:
+        if "updater" in parts:
+            self.view.net.updater_state = self._held_upd
+            self._held_upd = None
+        if "params" in parts:
+            for (key, name) in self.shards:
+                free_storage(self._full(key, name))
 
 
 class TPStep:

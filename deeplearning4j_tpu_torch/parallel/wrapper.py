@@ -55,7 +55,7 @@ import torch.distributed as dist
 
 from ..common import wrap_with_policy
 from ..datasets.prefetch import DevicePrefetcher, stage_to_device
-from ..optimize.listeners import refuse_whole_readers
+from ..optimize.listeners import fire_iteration_done
 from ..utils.batching import k_step_groups
 from . import compile_seam, context as pctx
 from .compile_seam import (
@@ -377,9 +377,13 @@ class ParallelWrapper:
             self._fit_local_sgd(iterator, epochs)
 
     def stats(self) -> dict:
-        """The wrapper's counters (steps by path, fallbacks, averages) and
-        the seam's and the rule engine's."""
-        return {**dict(self._counts), **compile_seam.stats()}
+        """The wrapper's counters (steps by path, fallbacks, averages, the
+        whole views given to listeners and their bytes) and the seam's and
+        the rule engine's."""
+        sh = getattr(self._sync_step, "sharding", None)
+        views = (sh.view_stats() if sh is not None
+                 else {"whole_views": 0, "whole_view_bytes": 0})
+        return {**dict(self._counts), **views, **compile_seam.stats()}
 
     @contextlib.contextmanager
     def _stepping(self, step):
@@ -411,8 +415,7 @@ class ParallelWrapper:
         net.last_batch_size = batch_size
         net.score_value = loss
         net.iteration += 1
-        for listener in net.listeners:
-            listener.iteration_done(net, net.iteration)
+        fire_iteration_done(net, net.iteration)
 
     # -------------------------------------------------------- synchronous DP
     def _make_sync_step(self):
@@ -442,13 +445,6 @@ class ParallelWrapper:
             self._sync_step = self._make_sync_step()
         step = self._sync_step
         sh = step.sharding
-        if sh is not None:
-            # the blocks between steps: ZeRO-1's updater state; FSDP's,
-            # zero3's and dp_tp's params too
-            held = (("params", "updater") if self.fsdp
-                    or self.rule_set == "dp_tp" else ("updater",))
-            refuse_whole_readers(net.listeners, held,
-                                 f"sharding('{self._rule_label()}')")
         k = max(1, getattr(net, "dispatch_ksteps", 8))
         if net.device.type == "cuda" and not self._capturable():
             k = 1

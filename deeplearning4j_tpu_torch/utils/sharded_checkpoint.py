@@ -24,7 +24,9 @@ each leaf (``checkpoint_entry``), with no gather:
   deduplicated).
 
 :func:`restore_sharded` reads the blocks of every rank back into whole
-tensors.
+tensors, or, given a spec tree and a process-group mesh (``shardings=``,
+``mesh=``), onto that sharding: each rank keeps only its block of each
+leaf a spec splits, as a sharded fit holds it between steps.
 
 The sidecar is the JAX package's exactly: ``config.json`` (the config
 JSON) and ``meta.json`` (``iteration``, ``epoch``, ``step``,
@@ -221,48 +223,112 @@ def is_committed(directory: str) -> bool:
     return os.path.exists(os.path.join(directory, _META_FILE))
 
 
-def _read_state(state_dir: str) -> dict:
-    """Every key of a checkpoint as a whole host tensor: the shard keys of
-    all ranks concatenated back along their dim."""
-    import torch.distributed.checkpoint as dcp
+def _metadata(state_dir: str) -> dict:
     from torch.distributed.checkpoint import FileSystemReader
+    return FileSystemReader(state_dir).read_metadata().state_dict_metadata
 
-    md = FileSystemReader(state_dir).read_metadata().state_dict_metadata
-    flat = {k: torch.empty(v.size, dtype=v.properties.dtype)
-            for k, v in md.items()}
-    dcp.load(flat, checkpoint_id=state_dir, no_dist=True)
-    whole, shards = {}, {}
-    for key, t in flat.items():
+
+def _load(state_dir: str, md: dict, keys) -> dict:
+    """The stored tensors of ``keys`` (host tensors), read without the
+    others."""
+    import torch.distributed.checkpoint as dcp
+    flat = {k: torch.empty(md[k].size, dtype=md[k].properties.dtype)
+            for k in keys}
+    if flat:
+        dcp.load(flat, checkpoint_id=state_dir, no_dist=True)
+    return flat
+
+
+def _layout(md: dict) -> dict:
+    """Each stored leaf's key: ``base -> None`` for a whole leaf, or
+    ``base -> (n, dim, groups, {index: key})`` for one saved in blocks."""
+    out: dict = {}
+    for key in md:
         m = _SHARD.match(key)
         if m is None:
-            whole[key] = t
+            out[key] = None
             continue
         base, i, n, d = m.group(1), *(int(g) for g in m.groups()[1:4])
         g = int(m.group(5) or 1)
-        shards.setdefault((base, n, d, g), {})[i] = t
-    for (base, n, d, g), parts in shards.items():
-        if sorted(parts) != list(range(n)):
-            raise RuntimeError(f"checkpoint {state_dir}: {base} has blocks "
-                               f"{sorted(parts)} of {n}")
-        blocks = [parts[i].chunk(g) for i in range(n)]
-        whole[base] = torch.cat([b[j] for j in range(g)
-                                 for b in blocks]).movedim(0, d)
-    return whole
+        out.setdefault(base, (n, d, g, {}))[3][i] = key
+    return out
+
+
+def _join(base: str, entry, flat: dict, where: str) -> torch.Tensor:
+    """A leaf saved in blocks, whole again: the blocks (dim first)
+    concatenated, each of its ``groups`` parts in turn, the dim moved
+    back."""
+    n, d, g, keys = entry
+    if sorted(keys) != list(range(n)):
+        raise RuntimeError(f"checkpoint {where}: {base} has blocks "
+                           f"{sorted(keys)} of {n}")
+    blocks = [flat[keys[i]].chunk(g) for i in range(n)]
+    return torch.cat([b[j] for j in range(g) for b in blocks]).movedim(0, d)
+
+
+def _read_state(state_dir: str) -> dict:
+    """Every key of a checkpoint as a whole host tensor: the shard keys of
+    all ranks concatenated back along their dim."""
+    md = _metadata(state_dir)
+    flat = _load(state_dir, md, md)
+    return {base: flat[base] if entry is None
+            else _join(base, entry, flat, state_dir)
+            for base, entry in _layout(md).items()}
+
+
+def _leaf_keys(net):
+    """``(key, layer, name, slot, tensor)`` of every leaf a checkpoint
+    holds of ``net``: params and updater slots (slot None for a param),
+    then layer states (name prefixed)."""
+    trees = ((_PARAMS, net.params_list), (_UPDATER, net.updater_state),
+             (_STATES, net.state_list))
+    for kind, tree in trees:
+        for layer, leaves in _items(tree):
+            for name, v in leaves.items():
+                slots = v.items() if isinstance(v, dict) else [(None, v)]
+                for slot, t in slots:
+                    key = f"{kind}/{layer}/{name}" + (
+                        "" if slot is None else f"/{slot}")
+                    yield key, kind, layer, name, slot, t
 
 
 @torch.no_grad()
 def restore_sharded(directory: str, net=None, *, device=None,
-                    shardings=None):
+                    shardings=None, mesh=None):
     """Restore a sharded checkpoint into ``net`` (made and initialized if
     it is not) or, with ``net`` None, into a network built from the stored
-    config on ``device`` (None means CUDA). Every leaf comes back whole,
-    bitwise as saved; iteration and epoch come from the sidecar. Placing
-    leaves onto a sharding at restore (``shardings=``) waits for ROADMAP.md
-    A7.8."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a sharding (shardings=) waits for ROADMAP.md "
-            "A7.8; restore whole and fit through ParallelWrapper")
+    config on ``device`` (None means CUDA). Iteration and epoch come from
+    the sidecar.
+
+    Without ``shardings`` every leaf comes back whole, bitwise as saved.
+    With ``shardings`` (a spec tree over the params, ``PartitionSpec``
+    leaves, or one spec for every leaf; it stands where JAX takes a tree of
+    ``NamedSharding``) and ``mesh`` (a process-group ``Mesh``; every rank
+    calls this) the leaves land on that sharding: each rank keeps only its
+    block of each leaf a spec splits (the spec's contiguous block; an
+    updater slot of the param's shape is cut as its param; a dim the mesh
+    does not divide stays whole), bitwise the saved leaf's slice, and the
+    network holds the blocks as a sharded fit holds them between steps
+    (``net._held_sharding``, a ``compile_seam.RestoredSharding``). Where a
+    leaf was saved in blocks split as the target splits it (the same count
+    along the same dim, no groups), a rank reads only its own block;
+    otherwise it reads the whole leaf (joining the saved blocks) and keeps
+    its block. ``output`` gathers the params whole for each call; any other
+    entry point, a fit resuming from the restore among them, first makes
+    the network whole on every rank. A device mesh is a serving placement:
+    restore whole and pin the network with ``make_predict_fn(net,
+    sharding=, mesh=)``."""
+    if shardings is not None or mesh is not None:
+        if shardings is None or mesh is None:
+            raise ValueError("a restore onto a sharding takes both "
+                             "shardings= (specs) and mesh= (the process-"
+                             "group mesh they place on)")
+        from ..parallel.partition import is_device_mesh
+        if is_device_mesh(mesh):
+            raise ValueError(
+                "a device mesh is a serving placement: restore whole "
+                "(restore_sharded(directory)) and serve the network "
+                "through make_predict_fn(net, sharding=, mesh=)")
     directory = os.path.abspath(directory)
     state_dir = os.path.join(directory, _STATE_DIR)
     # the sidecar is written only after the array write landed: array
@@ -279,31 +345,82 @@ def restore_sharded(directory: str, net=None, *, device=None,
             net = _net_from_config(f.read(), meta, device)
     if not getattr(net, "_initialized", True) or net.updater_state is None:
         net.init()
-    saved = _read_state(state_dir)
-    trees = {_PARAMS: net.params_list, _STATES: net.state_list,
-             _UPDATER: net.updater_state}
-    want = set()
-    for kind, tree in trees.items():
-        for layer, leaves in _items(tree):
-            for name, v in leaves.items():
-                slots = v.items() if isinstance(v, dict) else [(None, v)]
-                for slot, t in slots:
-                    key = f"{kind}/{layer}/{name}" + (
-                        "" if slot is None else f"/{slot}")
-                    want.add(key)
-                    if key not in saved:
-                        raise RuntimeError(f"checkpoint {directory} has no "
-                                           f"{key}")
-                    t.copy_(saved[key])
-    extra = set(saved) - want
+    md = _metadata(state_dir)
+    layout = _layout(md)
+    leaves = list(_leaf_keys(net))
+    want = {key for key, *_ in leaves}
+    missing = sorted(want - set(layout))
+    if missing:
+        raise RuntimeError(f"checkpoint {directory} has no {missing[0]}")
+    extra = set(layout) - want
     if extra:
         raise RuntimeError(f"checkpoint {directory} holds leaves the "
                            f"network lacks: {sorted(extra)[:5]}")
+    if shardings is None:
+        flat = _load(state_dir, md, md)
+        for key, _k, _l, _n, _s, t in leaves:
+            entry = layout[key]
+            t.copy_(flat[key] if entry is None
+                    else _join(key, entry, flat, directory))
+    else:
+        _restore_onto(state_dir, md, layout, net, leaves, shardings, mesh)
     net.iteration = int(meta.get("iteration", 0))
     net.epoch = int(meta.get("epoch", 0))
     if hasattr(net, "_drop_step_graphs"):
         net._drop_step_graphs()
     return net
+
+
+def _restore_onto(state_dir, md, layout, net, leaves, shardings, mesh):
+    """Each rank's blocks of the leaves ``shardings`` split, the rest
+    whole; installs the ``RestoredSharding`` placement."""
+    from ..parallel import partition
+    from ..parallel.compile_seam import RestoredSharding, _spec_at
+
+    plan = []  # (key, t, slot, (d, axes) or None, own block key or None)
+    params = net.params_list
+    for key, kind, layer, name, slot, t in leaves:
+        at = None
+        if kind != _STATES and tuple(t.shape) == tuple(
+                params[layer][name].shape):
+            spec = partition._resolve(_spec_at(shardings, layer, name),
+                                      tuple(t.shape), mesh)
+            at = partition._split_axes(spec)
+        own = None
+        entry = layout[key]
+        if at is not None and entry is not None:
+            n, d, g, keys = entry
+            if (n, d, g) == (mesh.axis_size(*at[1]), at[0], 1):
+                own = keys.get(mesh.index(*at[1]))
+        plan.append((key, kind, layer, name, slot, t, at, own))
+    reads = set()
+    for key, *_rest, at, own in plan:
+        entry = layout[key]
+        reads |= ({own} if own is not None else {key} if entry is None
+                  else set(entry[3].values()))
+    flat = _load(state_dir, md, sorted(reads))
+    blocks = {}
+    for key, kind, layer, name, slot, t, at, own in plan:
+        if own is not None:
+            block = flat[own]
+        else:
+            entry = layout[key]
+            whole = (flat[key] if entry is None
+                     else _join(key, entry, flat, state_dir))
+            if at is None:
+                t.copy_(whole)
+                continue
+            d, axes = at
+            block = whole.movedim(d, 0).chunk(mesh.axis_size(*axes))[
+                mesh.index(*axes)].clone()
+        blocks[(layer, name, slot)] = (block.to(t.device).contiguous(),
+                                       at[0], at[1])
+    placement = RestoredSharding(net, mesh, blocks)
+    #: which stored keys this rank read: its own blocks only, or whole
+    #: leaves (each block of a leaf saved in blocks) too
+    placement.reads = {"own_blocks": sum(1 for p in plan if p[-1]),
+                       "keys": len(reads)}
+    net._held_sharding = placement
 
 
 def _net_from_config(config_json: str, meta: dict, device):

@@ -459,6 +459,127 @@ def job_checkpoint(conf_json, params, batches, directory, knobs=(),
             "iteration": net.iteration, "min_storage": min(seen)}
 
 
+def _split_storage(net):
+    """The smallest storage of the network's params and updater slots (0
+    while a placement holds blocks of them)."""
+    tensors = [p for d in _items(net.params_list) for p in d.values()]
+    tensors += [t for d in _items(net.updater_state or [])
+                for slots in d.values() for t in slots.values()]
+    return min(t.untyped_storage().size() for t in tensors)
+
+
+def _items(tree):
+    return list(tree.values()) if isinstance(tree, dict) else list(tree)
+
+
+def job_whole_view(conf_json, params, batches, directory, axes, knobs=(),
+                   n_micro=None, every=None):
+    """A fit (``ParallelWrapper`` with ``knobs`` over the mesh ``axes``,
+    or with ``n_micro`` ``PipelineTrainer`` over its stages) with a zip
+    ``CheckpointListener`` every ``every`` iterations (default: the last
+    batch's) into ``directory`` and a ``ParamAndGradientIterationListener``,
+    which read the whole state; single steps. Returns the final params and
+    updater state, the param log's rows, the fit's stats, and at the start
+    of each step what the rank held (the placement's param bytes, the
+    updater state's bytes, the smallest storage)."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CheckpointListener, ParamAndGradientIterationListener)
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.partition import tree_nbytes
+    from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
+        PipelineTrainer)
+
+    net = _net(conf_json, params)
+    net.dispatch_ksteps = 1
+    log = ParamAndGradientIterationListener(print_mean_magnitudes=False)
+    net.set_listeners(CheckpointListener(
+        directory, every_n_iterations=every or len(batches),
+        every_n_epochs=None, keep_last=len(batches)), log)
+    holds = []
+
+    def spy(fn):
+        def step(*a, **k):
+            held = net._held_sharding
+            holds.append({"param_bytes": held.held_bytes(),
+                          "updater_bytes": tree_nbytes(net.updater_state),
+                          "min_storage": _split_storage(net)})
+            return fn(*a, **k)
+        return step
+
+    data = ListDataSetIterator(_datasets(batches))
+    if n_micro is not None:
+        fit = PipelineTrainer(net, mesh=_mesh(axes), n_microbatches=n_micro)
+        fit._step = spy(fit._step)
+    else:
+        b = ParallelWrapper.builder(net).prefetch_buffer(0).mesh(_mesh(axes))
+        for method, args in knobs:
+            b = getattr(b, method)(*args)
+        fit = b.build()
+        net._eager_step = spy(net._eager_step)
+    fit.fit(data)
+    st = fit.stats()
+    return {"params": _np(net.params_list), "updater": _np(net.updater_state),
+            "iteration": net.iteration, "rows": log.rows, "holds": holds,
+            "views": st["whole_views"], "view_bytes": st["whole_view_bytes"]}
+
+
+def job_restore_onto(conf_json, params, directory, axes, x, specs=None,
+                     rules=None, batches=None, knobs=()):
+    """``restore_sharded`` onto ``specs`` (or the rule set ``rules``'
+    specs) on the mesh ``axes``: this rank's blocks by ``layer/name[/slot]``
+    (dim first), what it read, the storage of its whole tensors, the
+    ``output`` of ``x`` (gathered at use) and a second call's; then, with
+    ``batches``, a ``ParallelWrapper`` fit (``knobs``) resuming from it and
+    the same fit from a whole restore (params, updater state, scores)."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, partition
+    from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
+        restore_sharded)
+
+    mesh = _mesh(axes)
+    net = _net(conf_json, params)
+    if specs is None:
+        specs = partition.match_partition_rules(
+            partition.rules_for(rules), net.params_list, mesh=mesh,
+            conf=net.conf)
+    restore_sharded(directory, net, shardings=specs, mesh=mesh)
+    held = net._held_sharding
+    blocks = {"/".join(str(p) for p in k if p is not None):
+              (_np(b), d) for k, (b, d, _axes) in held.blocks.items()}
+    storage = {f"{layer}/{name}": p.untyped_storage().size()
+               for layer, d in enumerate(net.params_list)
+               for name, p in d.items()}
+    out = {"blocks": blocks, "reads": dict(held.reads),
+           "storage": storage, "held_bytes": held.held_bytes(),
+           "iteration": net.iteration, "output": _np(net.output(x)),
+           "storage_after_output": _split_storage(net),
+           "output_again": _np(net.output(x)), "views": held.views}
+    if batches is None:
+        return out
+    runs = {}
+    for how in ("sharded", "whole"):
+        if how == "whole":
+            net = _net(conf_json, params)
+            restore_sharded(directory, net)
+        scores = []
+
+        class Listen:
+            def iteration_done(self, model, iteration):
+                scores.append(float(model.score_value))
+
+        net.set_listeners(Listen())
+        b = ParallelWrapper.builder(net).prefetch_buffer(0).mesh(mesh)
+        for method, args in knobs:
+            b = getattr(b, method)(*args)
+        b.build().fit(ListDataSetIterator(_datasets(batches)))
+        runs[how] = {"params": _np(net.params_list), "scores": scores,
+                     "updater": _np(net.updater_state),
+                     "held": getattr(net, "_held_sharding", None) is None}
+    out["fit"] = runs
+    return out
+
+
 def _layer(conf):
     """A CPU layer from ``{"@type": ..., fields}`` with the global
     defaults baked in, as a network builds it."""
@@ -606,7 +727,8 @@ JOBS = {"pipeline": job_pipeline, "pipeline_parallel": job_pipeline_parallel,
         "wrapper": job_wrapper, "master": job_master, "checkpoint":
         job_checkpoint,
         "early_stopping": job_early_stopping, "attention": job_attention,
-        "raises": job_raises, "mesh": job_mesh}
+        "raises": job_raises, "mesh": job_mesh,
+        "whole_view": job_whole_view, "restore_onto": job_restore_onto}
 
 
 def _child(d, world, rank):

@@ -398,31 +398,44 @@ def test_sharded_checkpoint_saves_each_block_from_its_stage(run):
 
 
 def test_listeners_reading_whole_state_refused(tmp_path):
-    """A zip checkpoint or the param log inside a pipelined fit would read
-    the other stages' blocks with no storage: the fit refuses them before
-    its first step, naming the sharded checkpoint and ROADMAP A7.8."""
-    from deeplearning4j_tpu_torch.convert import from_jax
+    """A zip checkpoint and the param log inside a pipelined fit (the name
+    is kept from when the fit refused them): on ``{stage: 1}`` the one
+    stage owns every block, so they read the network as it is and need no
+    view; the last zip is bitwise the state the fit leaves. The two-stage
+    whole view is ``test_torch_whole_view.py``'s."""
+    from deeplearning4j_tpu_torch.convert import from_jax, to_numpy
     from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
     from deeplearning4j_tpu_torch.optimize.listeners import (
         CheckpointListener, ParamAndGradientIterationListener)
     from deeplearning4j_tpu_torch.parallel.mesh import build_mesh
     from deeplearning4j_tpu_torch.parallel.pipeline_trainer import (
         PipelineTrainer)
+    from deeplearning4j_tpu_torch.utils.model_serializer import (
+        restore_multi_layer_network)
 
     conf = _conf(2)
     p0 = _np(JNet(conf).init().params_list)
-    batches = _lm_batches(1)
-    for make in (lambda: CheckpointListener(str(tmp_path),
-                                            every_n_iterations=1),
-                 ParamAndGradientIterationListener):
-        net = from_jax(conf.to_json(), p0, device="cpu")
-        net.set_listeners(make())
-        trainer = PipelineTrainer(net, mesh=build_mesh({"stage": 1}),
-                                  n_microbatches=2)
-        with pytest.raises(ValueError, match="A7.8"):
-            trainer.fit(ListDataSetIterator(
-                [DataSet(x, y) for x, y in batches]))
-        assert net.iteration == 0
+    batches = _lm_batches(2)
+    net = from_jax(conf.to_json(), p0, device="cpu")
+    log = ParamAndGradientIterationListener(print_mean_magnitudes=False)
+    net.set_listeners(CheckpointListener(str(tmp_path), every_n_iterations=1,
+                                         every_n_epochs=None), log)
+    trainer = PipelineTrainer(net, mesh=build_mesh({"stage": 1}),
+                              n_microbatches=2)
+    trainer.fit(ListDataSetIterator([DataSet(x, y) for x, y in batches]))
+    assert net.iteration == 2 and len(log.rows) == 2
+    assert trainer.held_parts() == frozenset()
+    assert trainer.stats()["whole_views"] == 0
+    back = restore_multi_layer_network(
+        str(tmp_path / "checkpoint_iter_2.zip"), device="cpu")
+    for a, b in zip(to_numpy(back.params_list), to_numpy(net.params_list)):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+    for a, b in zip(to_numpy(back.updater_state),
+                    to_numpy(net.updater_state)):
+        for k in b:
+            for slot in b[k]:
+                np.testing.assert_array_equal(a[k][slot], b[k][slot])
 
 
 def test_pipeline_adam_equals_single_device(run):

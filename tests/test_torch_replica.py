@@ -7,7 +7,7 @@ and the ``MicroBatcher`` against the JAX network's ``output`` within 1e-6; a
 rolling hot swap over 3 replicas that loses no request, each answer within
 1e-6 of the JAX ``output`` of the version that answered it; the router's
 preference for the shorter queue; replica mode's refusal of an external
-registry; the sharded placements that wait for ROADMAP.md A7; HTTP status
+registry; sharded replicas and device lists (ROADMAP.md A7.8); HTTP status
 in replica mode. Also the empty ``MultiLayerConfiguration()`` against the
 JAX one, and the launch counter under threads. Weights cross only through
 ``convert.from_jax``.
@@ -218,31 +218,53 @@ def test_replica_mode_refuses_external_registry():
 
 
 def test_sharded_placements_wait_for_a7():
+    """The placements that waited for ROADMAP.md A7 (the name is kept from
+    when they raised): sharded replicas over device-list slices and
+    device lists round-robin, with lease fencing on sharded replicas; a
+    pin given a device and a mesh raises JAX's error."""
     net = _port(_jax_mlp())
-    with pytest.raises(NotImplementedError, match="A7.1"):
-        ReplicaSet(2, device="cpu", sharding="dp_tp")
-    # lease fencing (A7.4) works: each replica holds a live lease
     from deeplearning4j_tpu_torch.cloud import MembershipOracle
     oracle = MembershipOracle(role="replica")
-    rs = ReplicaSet(2, device="cpu", membership=oracle)
+    rs = ReplicaSet(2, sharding="dp_tp", devices=["cpu"] * 4,
+                    membership=oracle)
     try:
+        assert [r.mesh.shape for r in rs.replicas] == [
+            {"data": 1, "model": 2}] * 2
+        assert [r.slots for r in rs.replicas] == [[0, 1], [2, 3]]
         assert [oracle.validate(r.lease.member, r.lease.epoch)
                 for r in rs.replicas] == [True, True]
         assert rs.fenced_replicas() == []
+        rs.register("mlp", net, version="v1")
+        x = np.zeros((2, N_IN), np.float32)
+        assert rs.submit("mlp", x).result(timeout=60)["version"] == "v1"
     finally:
         rs.close()
-    with pytest.raises(NotImplementedError, match="A7"):
-        InferenceServer(replicas=2, device="cpu", sharding="dp_tp")
-    with pytest.raises(NotImplementedError, match="A7"):
-        InferenceServer(replicas=2, device="cpu",
-                        replica_mesh_axes={"data": 2})
-    with pytest.raises(NotImplementedError, match="A7"):
-        ReplicaSet(2, device="cpu", devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        InferenceServer(replicas=2, device="cpu", replica_devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="A7.8"):
+    srv = InferenceServer(replicas=2, device="cpu", sharding="dp_tp",
+                          replica_devices=["cpu"] * 4)
+    try:
+        assert srv.replica_set.sharding == "dp_tp"
+    finally:
+        srv.replica_set.close()
+    # mesh axes without a sharding place unsharded replicas, as in JAX
+    srv = InferenceServer(replicas=2, device="cpu",
+                          replica_mesh_axes={"data": 2})
+    try:
+        assert all(r.mesh is None for r in srv.replica_set.replicas)
+    finally:
+        srv.replica_set.close()
+    rs = ReplicaSet(2, device="cpu", devices=["cpu", "cpu"])
+    try:
+        assert [r.devices() for r in rs.replicas] == [["cpu"], ["cpu"]]
+    finally:
+        rs.close()
+    srv = InferenceServer(replicas=2, device="cpu", replica_devices=["cpu"])
+    try:
+        assert srv.replica_set.n_replicas == 2
+    finally:
+        srv.replica_set.close()
+    with pytest.raises(ValueError, match="not both"):
         make_predict_fn(net, device="cpu", sharding="dp_tp", mesh=object())
-    with pytest.raises(NotImplementedError, match="A7.8"):
+    with pytest.raises(ValueError, match="not both"):
         PredictFn(net, device="cpu", mesh=object())
 
 

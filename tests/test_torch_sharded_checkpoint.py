@@ -213,7 +213,9 @@ def test_restore_refuses_uncommitted_and_rolls_one_directory(tmp_path):
     os.remove(os.path.join(d, "config.json"))
     with pytest.raises(RuntimeError, match="no committed sidecar"):
         restore_sharded(d, net)
-    with pytest.raises(NotImplementedError, match="A7.8"):
+    # a restore onto a sharding needs its mesh too (the refusal that
+    # named ROADMAP.md A7.8 before it was ported)
+    with pytest.raises(ValueError, match="both"):
         restore_sharded(d, net, shardings=object())
 
 

@@ -351,29 +351,44 @@ def test_sharded_checkpoint_saves_blocks_and_restores_whole(run, w):
 
 
 def test_listeners_reading_whole_state_refused(tmp_path):
-    """A zip checkpoint or the param log inside a dp_tp fit would read
-    tensors with no storage: the fit refuses them before its first step,
-    naming the sharded checkpoint and ROADMAP A7.8."""
-    from deeplearning4j_tpu_torch.convert import from_jax
+    """A zip checkpoint and the param log inside a dp_tp fit (the name is
+    kept from when the fit refused them): on ``{data: 1, model: 1}`` with
+    no process group every split leaf is held as a block of one with its
+    whole tensor's storage given back, so they fire inside a whole view
+    each iteration; the last zip is bitwise the state the fit leaves, the
+    log's rows read the whole params, and the fit counts its views."""
+    from deeplearning4j_tpu_torch.convert import from_jax, to_numpy
     from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
     from deeplearning4j_tpu_torch.optimize.listeners import (
         CheckpointListener, ParamAndGradientIterationListener)
     from deeplearning4j_tpu_torch.parallel import ParallelWrapper
     from deeplearning4j_tpu_torch.parallel.mesh import build_mesh
+    from deeplearning4j_tpu_torch.utils.model_serializer import (
+        restore_multi_layer_network)
 
     text = _lm(sgd=False)
     p0 = _np(JNet(_jconf(text)).init().params_list)
-    batches = _lm_batches(1)
-    for make in (lambda d: CheckpointListener(d, every_n_iterations=1),
-                 lambda d: ParamAndGradientIterationListener()):
-        net = from_jax(text, p0, device="cpu")
-        net.set_listeners(make(str(tmp_path)))
-        pw = (ParallelWrapper.builder(net)
-              .mesh(build_mesh({"data": 1, "model": 1}))
-              .prefetch_buffer(0).sharding("dp_tp").build())
-        with pytest.raises(ValueError, match="A7.8"):
-            pw.fit(ListDataSetIterator([DataSet(x, y) for x, y in batches]))
-        assert net.iteration == 0
+    batches = _lm_batches(2)
+    net = from_jax(text, p0, device="cpu")
+    log = ParamAndGradientIterationListener(print_mean_magnitudes=False)
+    net.set_listeners(CheckpointListener(str(tmp_path), every_n_iterations=1,
+                                         every_n_epochs=None), log)
+    pw = (ParallelWrapper.builder(net)
+          .mesh(build_mesh({"data": 1, "model": 1}))
+          .prefetch_buffer(0).sharding("dp_tp").build())
+    pw.fit(ListDataSetIterator([DataSet(x, y) for x, y in batches]))
+    assert net.iteration == 2 and len(log.rows) == 2
+    assert pw.stats()["whole_views"] == 2
+    assert pw.stats()["whole_view_bytes"] > 0
+    back = restore_multi_layer_network(
+        str(tmp_path / "checkpoint_iter_2.zip"), device="cpu")
+    _same_state(back, {"params": to_numpy(net.params_list),
+                       "updater": to_numpy(net.updater_state)})
+    row = log.rows[-1]
+    for i, layer in enumerate(to_numpy(net.params_list)):
+        for k, v in layer.items():
+            assert row[f"param_{i}_{k}"] == pytest.approx(
+                float(np.mean(np.abs(v))), rel=1e-6)
 
 
 def _same_state(back, g):

@@ -161,6 +161,9 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.parallel.moe, "
             "deeplearning4j_tpu_torch.parallel.tensor_parallel, "
             "deeplearning4j_tpu_torch.nn.param_blocks, "
+            "deeplearning4j_tpu_torch.keras_server.serving, "
+            "deeplearning4j_tpu_torch.keras_server.batcher, "
+            "deeplearning4j_tpu_torch.ops.quant, "
             "deeplearning4j_tpu_torch.parallel.wrapper, "
             "deeplearning4j_tpu_torch.parallel.training_master, "
             "deeplearning4j_tpu_torch.streaming.wire, "

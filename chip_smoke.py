@@ -253,7 +253,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    slot that runs rows, the wall ms of a sharded and a whole predict; (b)
    ``InferenceServer(replicas=2, sharding="dp_tp", replica_devices=
    ["cuda:0"] * 8)`` answering 32 ``/v1/predict`` requests of two rows
-   over HTTP with a rolling swap to v2 in flight (none lost, each the
+   over HTTP with a rolling swap to v2 in flight (the last round of 4
+   sent once the swap has returned; none lost, each the
    sharded pin's answer and within 1e-6 of the whole pin's, 8 launches a
    dispatch, each replica's status listing its 4 slots and mesh); then on
    two gloo ranks sharing the card, (c) a sharded checkpoint of the
@@ -266,11 +267,56 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    ``zero3`` on ``{"data": 2}`` and ``PipelineTrainer`` on
    ``{"stage": 2}``: the last zip restored bitwise the state the fit
    leaves, the launches those of the same fit without the listeners;
-26. reads the profiler's device time of every main-path kernel row and its
+26. runs the ``c3`` phase (before ``sharded``): the flash forward at D = 64
+   with 2 and with 4 key splits in turns at the sharded pins' predict shape
+   (B 4, T 512, H 4), the serve shape (B 2, T 512), the whole pin's
+   (B 8, T 512), the training shape (B 16, T 256) and the pipeline's
+   microbatch (B 4, T 256), each against the plain version and beside the
+   count the plan takes there (4 at T 512, 2 at T 256); and whether
+   cuBLAS gives a row the same float32 answer at 512 to 4,096 rows for
+   the FFN's two matmuls, under each BLAS library PyTorch offers;
+27. runs the ``keras`` phase (A8.1): (a) a Keras-1 archive of
+   ``keras.applications``' VGG-16 (Keras 1.2 layout, Theano ordering,
+   138,357,544 float32 params from a seed, about 553 MB) written by the
+   port's own HDF5 writer, read back and imported on the card and on the
+   CPU (every param bitwise the archive's after the TH-to-HWIO transpose;
+   the card's softmax output at B = 2 within 1e-5 of its largest value from the CPU's),
+   then fine-tuned 4 steps at B = 32 on 224x224 inputs (exactly 4
+   ``sm_xent`` launches), with the write, read, import and step times; (b)
+   the same file through ``load_model_file`` and a ``ModelRegistry`` pin,
+   bitwise the imported network's output; (c) a character LSTM archive at
+   char_rnn's widths (two ``LSTM(200)`` with sigmoid gates over T 50 of
+   64 characters, ``TimeDistributedDense(64, softmax)``) whose card output
+   is held within 1e-5 of the CPU's, then the Keras gateway ``Server`` on
+   127.0.0.1 with a token: ``call``s to ``fit`` over HDF5 minibatch
+   directories of 8 batches of 32 (exactly 16 ``lstm_fwd``, 16
+   ``lstm_bwd``, 8 ``sm_xent``), ``evaluate`` (16 ``lstm_fwd``) and
+   ``predict`` (2); (d) the same archive with Keras 1's default
+   ``hard_sigmoid`` gates: no LSTM launch, the output against the CPU, one
+   ``fit`` step with one ``sm_xent``;
+28. runs the ``native`` phase (A8.2 and DataVec): (a) the host runtime
+   built on the card's machine (the compiler and seconds printed); (b)
+   MNIST-sized IDX files (60,000 x 28 x 28 and their labels, from a seed)
+   parsed natively, in Python and by ``datasets.mnist``, bitwise; (c)
+   ``AsyncNativeLoader.mnist`` at B = 128, its epoch bitwise its Python
+   route's, feeding one epoch of full-width LeNet-5 ``fit`` (exactly one
+   ``sm_xent`` a batch), with the loader's batches/s beside the Python
+   route's; (d) a CSV of 204,800 Iris-shaped rows parsed natively bitwise
+   the general reader's, then through ``CSVRecordReader`` and
+   ``RecordReaderDataSetIterator`` (B = 1,024) into the Iris MLP's
+   ``fit_iterator`` (exactly 200 ``sm_xent``, accuracy above 0.9); (e)
+   broker frames: the runtime's ``decode_records`` on each float32 array
+   bitwise ``wire.decode_array``, and a consumer's frames bitwise what was
+   sent;
+29. reads the profiler's device time of every main-path kernel row and its
    library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
    call at the training shapes;
-27. prints one JSON line describing each kernel, then
+30. prints one JSON line describing each kernel, then
    ``{"ok": true, "device": {...}}`` as the last line.
+
+To debug a phase alone on the card, ``run_phases`` sets the card up,
+builds the kernels and runs the named phases (``c3``, ``sharded_pins``,
+``keras``, ``native``).
 
 Any failed check exits non-zero without the last line. Without CUDA it
 exits non-zero before printing anything. Full results also go to
@@ -287,6 +333,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -356,8 +403,9 @@ RNN_LR = 0.01
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
-#: (row, kernel call, library call) whose device time the profiler reads
-#: after every other measurement (see measure_device_times)
+#: (row, kernel call, library call[, calls a session]) whose device time
+#: the profiler reads after every other measurement (see
+#: measure_device_times)
 DEVICE_TIMED: list = []
 #: flash_wide.cu's backward at its edge shapes (no library call), device
 #: time read with DEVICE_TIMED's
@@ -544,10 +592,11 @@ def measure_device_times() -> None:
     """``device_ms`` and ``library_device_ms`` of the rows queued in
     ``DEVICE_TIMED``. Run after every other timing: the profiler is left
     attached to the process once used, and could slow later launches."""
-    for row, kernel, library in DEVICE_TIMED:
-        row["device_ms"], src = device_ms(kernel)
+    for row, kernel, library, *iters in DEVICE_TIMED:
+        iters = iters[0] if iters else 50
+        row["device_ms"], src = device_ms(kernel, iters)
         row["library_device_ms"], lib_src = (None, None) if library is None \
-            else device_ms(library)
+            else device_ms(library, iters)
         if "torch.profiler" not in src or "torch.profiler" not in (
                 lib_src or src):
             row["device_ms_source"] = [src, lib_src]
@@ -781,7 +830,7 @@ def check_flash(rows: list, dev) -> None:
 XENT_TIMED = ((TRAIN_B * TRAIN_T, TRAIN_V), (RNN_B * RNN_CHUNK, RNN_V),
               (LENET_B, 10), (128, 1000), (2048, 256), (64, 1000),
               (32, 1000), (4, 1000), (2, 1000), (4, 10), (30, 3),
-              (1024, 256))
+              (1024, 256), (1024, 3))
 
 
 def check_xent(rows: list, dev) -> None:
@@ -809,6 +858,7 @@ def check_xent(rows: list, dev) -> None:
             (4, 10, torch.float32, 1e-5, 1e-6),
             (30, 3, torch.float32, 1e-5, 1e-6),
             (1024, 256, torch.float32, 1e-5, 1e-6),
+            (1024, 3, torch.float32, 1e-5, 1e-6),
             (64, 50257, torch.float32, 1e-5, 1e-6),
             (64, 2048, torch.float32, 1e-5, 1e-6),
             (65, 2049, torch.float32, 1e-5, 1e-6),
@@ -1039,8 +1089,9 @@ def check_lstm(rows: list, dev) -> None:
     """Kernels 5 and 6 at the recurrent path's shapes: a TBPTT chunk of each
     char_rnn layer (T 50, B 32, F 64 and 200, H 200, peepholes; the second
     with a ragged mask that holds one batch row at every step), a decode step
-    (T 1, B 8) and a streamed step (T 1, B 1); and at edge shapes: no
-    peepholes, H = 37. The backward gets nonzero dh/dc seeds and is run twice
+    (T 1, B 8) and a streamed step (T 1, B 1), each layer of the Keras
+    gateway's imported LSTM (the same widths, no peepholes); and at edge
+    shapes: no peepholes with a mask, H = 37. The backward gets nonzero dh/dc seeds and is run twice
     to check it bitwise."""
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     # forward: float32 dot products over F + H terms in another order
@@ -1055,6 +1106,10 @@ def check_lstm(rows: list, dev) -> None:
              (1, RNN_DECODE_B, RNN_H, RNN_H, True, False),
              (1, 1, RNN_V, RNN_H, True, False),
              (RNN_CHUNK, RNN_B, RNN_V, RNN_H, False, True),
+             (KERAS_RNN_T, KERAS_RNN_B, KERAS_RNN_V, KERAS_RNN_H, False,
+              False),
+             (KERAS_RNN_T, KERAS_RNN_B, KERAS_RNN_H, KERAS_RNN_H, False,
+              False),
              (7, 3, 5, 37, True, True)]
     for T, B, F, H, peephole, masked in cases:
         a = _lstm_args(dev, g, T, B, F, H, peephole, masked)
@@ -1093,7 +1148,7 @@ def check_lstm(rows: list, dev) -> None:
             fail(f"lstm_bwd {shape} disagrees with its plain version")
         if not all(torch.equal(x, y) for x, y in zip(bout, again)):
             fail(f"lstm_bwd {shape} differs from run to run")
-        if (F, H) == (5, 37) or not peephole:
+        if (F, H) == (5, 37) or (masked and not peephole):
             continue
         lib_f, lib_fb = _cudnn_lstm(dev, T, B, F, H)
         iters = 20 if T > 1 else 100
@@ -1107,10 +1162,13 @@ def check_lstm(rows: list, dev) -> None:
                      time_ms(kernel, iters=iters),
                      time_ms(lambda: lstm_ops.lstm_fwd_plain(**a), iters=5),
                      time_ms(lib_f, iters=iters), fb, fo, {"card": CARD})
-        # every main-path shape: decode and stream steps (a few microseconds
-        # of device) and the training chunks
-        DEVICE_TIMED.append((row, kernel, lib_f))
-        if T > 1:
+        # every main-path shape: decode and stream steps (a few
+        # microseconds of device) and the training chunks at 50 calls a
+        # profiler session; the Keras gateway's layers (no peepholes, the
+        # chunks' shapes) at 5, which keeps their readout short
+        dev_iters = 50 if peephole else 5
+        DEVICE_TIMED.append((row, kernel, lib_f, dev_iters))
+        if T > 1 and peephole:
             LSTM_SPLIT.append((row, lstm_ops.lstm_fwd, a, LSTM_FWD_PARTS,
                                "fwd_parts_ms"))
         worst = max(range(6), key=lambda i: berrs[i] / btols[i])
@@ -1123,7 +1181,8 @@ def check_lstm(rows: list, dev) -> None:
                      time_ms(lambda: lstm_ops.lstm_bwd_plain(**ba), iters=5),
                      time_ms(lib_fb, iters=iters), bb, bo)
         if T > 1:  # the backward runs in training only
-            DEVICE_TIMED.append((row, bkernel, lib_fb))
+            DEVICE_TIMED.append((row, bkernel, lib_fb, dev_iters))
+        if T > 1 and peephole:
             LSTM_SPLIT.append((row, lstm_ops.lstm_bwd, ba, LSTM_BWD_PARTS,
                                "bwd_parts_ms"))
 
@@ -6462,17 +6521,22 @@ SH_AXES = {"data": 2, "model": 2}
 SH_SIZES = (1, 2, 3, 4, 8)
 SH_T, SH_REQUESTS, SH_THREADS, SH_SWAP_AT = 128, 32, 4, 12
 SH_STEPS = 2
-#: a sharded pin computes each row as the whole pin does. Where the card
-#: parts a slot's rows from the whole batch (cuBLAS picks another algorithm
-#: for the FFN's second product at another M; the flash forward's plan
-#: takes 4 key splits at B*H <= 16 and 2 at 32), each data slot's rows are
-#: held bitwise against the whole pin on the same rows, and the joined
-#: output's distance to the whole batch's (||got - want|| / ||want||, as
-#: the parallel phase holds params) within the whole pin's own distance to
-#: the CPU pin on the same batch, the float32 rounding the card already
-#: shows; the largest element's error over the largest value is printed
-#: beside it. The replicas' two-row requests give a slot's rows the whole
-#: batch's plan and M, and are held within SH_REL_TOL
+#: a sharded pin computes each row as the whole pin does. The flash
+#: forward's plan no longer moves with B*H (its key splits follow the head
+#: dim and T alone), but cuBLAS still picks another algorithm for the FFN's
+#: second product ([M, 1024] @ [1024, 256]) at another M: the c3 phase
+#: finds its rows bitwise across M = 512 to 4,096 under no BLAS library
+#: PyTorch offers (cublasLt only from M = 2,048 up). So where a slot's
+#: rows part from the whole batch (B = 4 and 8 on two data slots), each
+#: data slot's rows are held bitwise against the whole pin on the same
+#: rows, and the joined output's distance to the whole batch's (||got -
+#: want|| / ||want||, as the parallel phase holds params) within the whole
+#: pin's own distance to the CPU pin on the same batch, the float32
+#: rounding the card already shows. The bound that remains, measured on
+#: the H100 with the plan fixed: 8.4e-7 to 1.0e-6 (norm), 1.3e-6 to 2.2e-6
+#: of the largest value, float32 and int8 (2.92e-6 at B = 8 while the plan
+#: still moved with B*H). The replicas' two-row requests give a slot's
+#: rows the whole batch's M, and are held within SH_REL_TOL
 SH_REL_TOL = 1e-6
 #: the fits from a restore against one rank's fit from the whole restore
 #: (PR 19's dp_tp bound)
@@ -6603,12 +6667,18 @@ def _sh_replicas(kernels) -> dict:
     srv.start()
     answers = [None] * SH_REQUESTS
     done = threading.Semaphore(0)
+    # the last round of requests goes out once the rolling swap has
+    # returned, so v2 answers whatever the swap's length; the rounds before
+    # it run while the swap is in flight
+    swapped = threading.Event()
     try:
         srv.register("lm", nets["v1"], version="v1")
         _zero(kernels)
 
         def client(w):
             for j in range(w, SH_REQUESTS, SH_THREADS):
+                if j >= SH_REQUESTS - SH_THREADS:
+                    swapped.wait(600)
                 answers[j] = post(srv.port, "/v1/predict",
                                   {"model": "lm", "inputs": ids[j].tolist()})
                 done.release()
@@ -6621,7 +6691,10 @@ def _sh_replicas(kernels) -> dict:
         for _ in range(SH_SWAP_AT):
             if not done.acquire(timeout=600):
                 fail("sharded (b): requests stalled")
-        srv.register("lm", nets["v2"], version="v2")
+        try:
+            srv.register("lm", nets["v2"], version="v2")
+        finally:
+            swapped.set()
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
@@ -6889,6 +6962,734 @@ def sharded_phase(kernels) -> dict:
     return out
 
 
+# ------------------------------------------------------------- A8 and C3
+#: C3: the flash forward's key splits at D = 64, timed at the sharded
+#: pins' predict shape, the serve phase's, the whole pin's [8, 512], the
+#: training shape and the pipeline's microbatch (B, T, H, D): shapes on
+#: both sides of the batch at each T the plan chooses on
+C3_SHAPES = {"predict": (4, 512, 4, 64), "serve": (2, 512, 4, 64),
+             "whole8": (8, 512, 4, 64),
+             "train": (TRAIN_B, TRAIN_T, 4, 64),
+             "microbatch": (TRAIN_B // PAR_PIPE_M, TRAIN_T, 4, 64)}
+#: C3: the FFN's matmuls of transformer_lm(256) (K, N), at these row counts
+C3_FFN = ((1024, 256), (256, 1024))
+C3_ROWS = (512, 1024, 2048, 4096)
+#: the keras phase: BASELINE config 5's VGG-16 at full width (the
+#: keras.applications layout of Keras 1.2, Theano dim ordering), fine-tuned
+#: at B = 32 for 4 steps; its softmax output against the CPU at B = 2, the
+#: largest difference over the largest output (probabilities from 4e-8 to
+#: 0.11 on the H100: an absolute 1e-4 would pass a drift of percents in
+#: most of them; read 4.3e-6)
+KERAS_VGG_B, KERAS_VGG_STEPS, KERAS_VGG_CHECK_B = 32, 4, 2
+KERAS_VGG_REL_TOL = 1e-5
+#: the fine-tune's learning rate, set on every layer of the imported
+#: configuration (as DL4J's FineTuneConfiguration sets it): the import's
+#: default of 0.1 diverges from this random init (losses 8.9, 336, 1.9e19,
+#: NaN on the H100)
+KERAS_VGG_LR = 1e-3
+KERAS_VGG_PARAMS = 138_357_544
+#: the gateway's character LSTM at char_rnn's widths: two LSTM(200) over
+#: T = 50 one-hot characters of 64, 8 minibatch files of B = 32
+KERAS_RNN_V, KERAS_RNN_H, KERAS_RNN_T, KERAS_RNN_B = 64, 200, 50, 32
+KERAS_RNN_BATCHES = 8
+#: card against CPU of the imported LSTM's softmax output (the serve
+#: phase's 1e-5 for char_rnn's rnn_time_step)
+KERAS_RNN_TOL = 1e-5
+#: the native phase: MNIST-sized IDX files, LeNet-5 fed by the native
+#: loader at the JAX bench's B = 128; an Iris-shaped CSV of 200 batches of
+#: 1,024 rows into the Iris MLP; broker frames of a LeNet batch
+NATIVE_MNIST_N, NATIVE_B = 60_000, 128
+NATIVE_CSV_ROWS, NATIVE_CSV_B = 204_800, 1024
+NATIVE_FRAMES, NATIVE_FRAME_SHAPE = 32, (128, 784)
+
+
+def c3_phase() -> dict:
+    """C3: the flash forward with 2 and with 4 key splits at D = 64 (both
+    instantiated in csrc/flash_fwd.cu), timed in turns at each shape, the
+    outputs of each held against the plain version, beside the count the
+    plan chooses there; then whether cuBLAS gives a row the same float32
+    answer at every row count, for the FFN's two matmuls, with each BLAS
+    library PyTorch offers."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    keep = dict(fa.FWD_SPLITS)
+    g = torch.Generator().manual_seed(SEED + 51)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"flash": {}, "cublas": {}}
+    try:
+        for name, (B, T, H, D) in C3_SHAPES.items():
+            in_use = keep[64][T >= fa.FWD_LONG_TQ]
+            q, k, v = (torch.randn(B, T, H, D, generator=g).cuda()
+                       for _ in range(3))
+            ref = flash_fwd_plain(q, k, v, True)[0]
+            times, walls, errs = {2: [], 4: []}, {2: [], 4: []}, {}
+            for splits in (2, 4, 4, 2):
+                fa.FWD_SPLITS[64] = (splits, splits)
+                fa.flash_plan.cache_clear()
+                walls[splits].append(time_ms(
+                    lambda: flash_fwd(q, k, v, True), iters=100))
+                times[splits].append(device_ms(
+                    lambda: flash_fwd(q, k, v, True))[0])
+                errs[splits] = float((flash_fwd(q, k, v, True)[0] - ref)
+                                     .abs().max())
+            res = {s: {"device_ms": float(np.mean(t)), "runs_device_ms": t,
+                       "wall_ms": walls[s], "max_abs_err": errs[s]}
+                   for s, t in times.items()}
+            out["flash"][name] = {"splits_in_use": in_use, **res}
+            print(f"c3 flash_fwd {name} B={B} T={T} H={H} D={D}: device ms "
+                  f"2 splits {res[2]['device_ms']:.5f} {times[2]}, 4 splits "
+                  f"{res[4]['device_ms']:.5f} {times[4]}; CUDA-event ms "
+                  f"2: {walls[2]}, 4: {walls[4]} (in use: {in_use}; "
+                  f"errors {errs}) [{CARD}]", flush=True)
+            if max(errs.values()) > 2e-5:
+                fail(f"c3 flash_fwd {name}: a split count disagrees {errs}")
+    finally:
+        fa.FWD_SPLITS.clear()
+        fa.FWD_SPLITS.update(keep)
+        fa.flash_plan.cache_clear()
+    for name, (B, T, H, D) in C3_SHAPES.items():
+        got = fa.flash_plan("fwd", D, B * H, T, sms).splits
+        if got != out["flash"][name]["splits_in_use"]:
+            fail(f"c3: the plan at {name} takes {got} splits")
+    flash_fwd.launches = 0
+    gm = torch.Generator().manual_seed(SEED + 52)
+    libs = ["default"] + [lib for lib in ("cublas", "cublaslt")]
+    before = torch.backends.cuda.preferred_blas_library()
+    try:
+        for lib in libs:
+            if lib != "default":
+                torch.backends.cuda.preferred_blas_library(lib)
+            for K, N in C3_FFN:
+                x = torch.randn(max(C3_ROWS), K, generator=gm).cuda()
+                w = torch.randn(K, N, generator=gm).cuda()
+                whole = x @ w
+                same = {M: bool(torch.equal((x[:M] @ w), whole[:M]))
+                        for M in C3_ROWS}
+                out["cublas"][f"{lib}_K{K}_N{N}"] = same
+                print(f"c3 cuBLAS ({lib}) [M, {K}] @ [{K}, {N}]: rows "
+                      f"bitwise those of M = {max(C3_ROWS)} at M = {same}",
+                      flush=True)
+    finally:
+        torch.backends.cuda.preferred_blas_library(before)
+    return out
+
+
+def _vgg_keras_layers() -> list:
+    """The Keras-1.2 ``keras.applications.VGG16`` layers as a Sequential
+    model (Theano ordering): ``(class, config, weight shapes)``."""
+    layers, c_in = [], 3
+    blocks = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+    for b, (width, convs) in enumerate(blocks, 1):
+        for c in range(1, convs + 1):
+            cfg = {"name": f"block{b}_conv{c}", "nb_filter": width,
+                   "nb_row": 3, "nb_col": 3, "activation": "relu",
+                   "border_mode": "same", "subsample": [1, 1],
+                   "dim_ordering": "th"}
+            if not layers:
+                cfg["batch_input_shape"] = [None, 3, 224, 224]
+            layers.append(("Convolution2D", cfg,
+                           [(width, c_in, 3, 3), (width,)]))
+            c_in = width
+        layers.append(("MaxPooling2D", {
+            "name": f"block{b}_pool", "pool_size": [2, 2],
+            "strides": [2, 2], "dim_ordering": "th"}, []))
+    layers.append(("Flatten", {"name": "flatten"}, []))
+    for name, n_in, n_out, act in (("fc1", 25088, 4096, "relu"),
+                                   ("fc2", 4096, 4096, "relu"),
+                                   ("predictions", 4096, 1000, "softmax")):
+        layers.append(("Dense", {"name": name, "output_dim": n_out,
+                                 "activation": act},
+                       [(n_in, n_out), (n_out,)]))
+    return layers
+
+
+def write_keras_archive(path: str, layers: list, weights: dict,
+                        loss: str = "categorical_crossentropy") -> None:
+    """A Keras-1 archive in its layout: ``model_config`` and
+    ``training_config`` on the root, ``model_weights`` with
+    ``layer_names`` and each layer's ``weight_names``, written by the
+    port's own HDF5 writer (each array streamed to the file)."""
+    from deeplearning4j_tpu_torch.modelimport.hdf5 import H5File
+    mc = {"class_name": "Sequential",
+          "config": [{"class_name": c, "config": cfg} for c, cfg, _ in layers]}
+    with H5File(path, "w") as f:
+        f.write_attr("/", "model_config", json.dumps(mc))
+        f.write_attr("/", "training_config", json.dumps({"loss": loss}))
+        f.create_group("/model_weights")
+        f.write_attr("/model_weights", "layer_names",
+                     [cfg["name"] for _, cfg, _ in layers])
+        for _, cfg, _shapes in layers:
+            name = cfg["name"]
+            f.create_group(f"/model_weights/{name}")
+            ws = weights.get(name, [])
+            f.write_attr(f"/model_weights/{name}", "weight_names",
+                         [wn for wn, _ in ws])
+            for wn, arr in ws:
+                f.write_dataset(f"/model_weights/{name}/{wn}", arr)
+
+
+def _vgg_weights(layers: list) -> dict:
+    """He-scaled normal kernels and zero biases from a seed; the
+    classifier's kernel at 0.01 so the fine-tune starts near uniform."""
+    rng = np.random.default_rng(SEED + 61)
+    out = {}
+    for _, cfg, shapes in layers:
+        if not shapes:
+            continue
+        name, (wshape, bshape) = cfg["name"], shapes
+        fan_in = int(np.prod(wshape[1:])) if len(wshape) == 4 else wshape[0]
+        std = 0.01 if name == "predictions" else float(np.sqrt(2.0 / fan_in))
+        w = rng.standard_normal(wshape, dtype=np.float32)
+        w *= np.float32(std)
+        out[name] = [(f"{name}_W", w), (f"{name}_b",
+                                        np.zeros(bshape, np.float32))]
+    return out
+
+
+def _imported_equal(net, layers, weights) -> int:
+    """Every param of the imported network bitwise the archive's array
+    after the documented layout change (TH kernels to HWIO); returns the
+    parameter count. Each Keras layer but Flatten is a layer of the
+    network (Flatten is the preprocessor the builder infers)."""
+    n = 0
+    kept = [(cls, cfg) for cls, cfg, _ in layers if cls != "Flatten"]
+    if len(kept) != len(net.params_list):
+        fail(f"keras (a): {len(net.params_list)} layers for {len(kept)}")
+    for (cls, cfg), params in zip(kept, net.params_list):
+        if cfg["name"] not in weights:
+            if params:
+                fail(f"keras (a): {cfg['name']} has params {sorted(params)}")
+            continue
+        (_, w), (_, b) = weights[cfg["name"]]
+        want = np.transpose(w, (2, 3, 1, 0)) if cls == "Convolution2D" else w
+        for key, arr in (("W", want), ("b", b)):
+            got = params[key].detach().cpu().numpy()
+            if got.shape != arr.shape or got.tobytes() != arr.tobytes():
+                fail(f"keras (a) {cfg['name']}/{key} differs from the "
+                     "archive")
+            n += arr.size
+    return n
+
+
+def _pin_out(mv, x: np.ndarray) -> torch.Tensor:
+    out = mv.predict_fn(x)
+    return out.cpu() if torch.is_tensor(out) else torch.as_tensor(out)
+
+
+def _keras_vgg(kernels, tmp: str) -> dict:
+    """(a) and (b): the full-width VGG-16 archive written, read, imported
+    on the card and the CPU, served from the file, then fine-tuned."""
+    from deeplearning4j_tpu_torch.keras_server.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.modelimport.hdf5 import H5File
+    from deeplearning4j_tpu_torch.modelimport.keras_import import (
+        KerasModelImport)
+    layers = _vgg_keras_layers()
+    weights = _vgg_weights(layers)
+    path = os.path.join(tmp, "vgg16_keras1.h5")
+    t0 = time.perf_counter()
+    write_keras_archive(path, layers, weights)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    with H5File(path) as f:
+        read = {(n, wn): f.read_dataset(f"/model_weights/{n}/{wn}")
+                for n, ws in weights.items() for wn, _ in ws}
+    read_s = time.perf_counter() - t0
+    if any(read[(n, wn)].tobytes() != arr.tobytes()
+           for n, ws in weights.items() for wn, arr in ws):
+        fail("keras (a): an array read back differs from the one written")
+    del read
+    t0 = time.perf_counter()
+    net = KerasModelImport.import_keras_sequential_model_and_weights(
+        path, device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = KerasModelImport.import_keras_sequential_model_and_weights(
+        path, device="cpu")
+    cpu_import_s = time.perf_counter() - t0
+    n_params = _imported_equal(net, layers, weights)
+    if n_params != KERAS_VGG_PARAMS or net.num_params() != KERAS_VGG_PARAMS:
+        fail(f"keras (a): {n_params} / {net.num_params()} params, want "
+             f"{KERAS_VGG_PARAMS}")
+    print(f"keras (a) VGG-16 archive: {size} bytes, {n_params} float32 "
+          f"params; write {write_s:.2f}s, read {read_s:.2f}s, import on the "
+          f"card {import_s:.2f}s (CPU {cpu_import_s:.2f}s); every param "
+          "bitwise the archive's (TH kernels as HWIO)", flush=True)
+    g = torch.Generator().manual_seed(SEED + 62)
+    xc, _ = _res_batch(g, KERAS_VGG_CHECK_B, 224, 1000, "cpu")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        card_out = _out(net, xc.cuda())
+        cpu_out = _out(cpu, xc)
+        out_err = float((card_out - cpu_out).abs().max())
+        out_scale = float(cpu_out.abs().max())
+        out_rel = out_err / out_scale
+        print(f"keras (a) forward B={KERAS_VGG_CHECK_B}: card vs CPU "
+              f"max_abs_err {out_err:.3e} over max|out| {out_scale:.3e}: "
+              f"{out_rel:.3e} (tol {KERAS_VGG_REL_TOL:.0e}); smallest "
+              f"output {float(cpu_out.min()):.3e}", flush=True)
+        if not out_rel <= KERAS_VGG_REL_TOL:
+            fail(f"keras (a): the imported VGG-16's card output is "
+                 f"{out_err} from the CPU's ({out_rel} of its largest)")
+        del cpu
+        # (b) the same file through load_model_file and a registry pin,
+        # before the fine-tune moves the network
+        t0 = time.perf_counter()
+        mv = ModelRegistry().load("vgg16_keras", path, device="cuda")
+        load_s = time.perf_counter() - t0
+        pin_equal = bool(torch.equal(_pin_out(mv, xc.numpy()), card_out))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    print(f"keras (b) load_model_file + registry pin in {load_s:.2f}s: "
+          f"output bitwise the imported network's: {pin_equal}", flush=True)
+    if not pin_equal:
+        fail("keras (b): the served pin's output is not net.output's")
+    del mv
+    # the fine-tune configuration: the imported one at KERAS_VGG_LR, the
+    # imported weights loaded into it
+    conf = json.loads(net.conf.to_json())
+    for lc in conf["layers"]:
+        lc["learning_rate"] = lc["bias_learning_rate"] = KERAS_VGG_LR
+    from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+    tuned = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
+                              device="cuda")
+    tuned.load_params(convert.to_numpy(net.params_list))
+    del net
+    net = tuned
+    x, y = _res_batch(g, KERAS_VGG_B, 224, 1000, "cuda")
+    losses, step_ms = [], []
+    _zero(kernels)
+    for _ in range(KERAS_VGG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(net.score_value)
+    launches = _launches(kernels)
+    print(f"keras (a) fine-tune {KERAS_VGG_STEPS} steps at B={KERAS_VGG_B}, "
+          f"224x224, SGD at {KERAS_VGG_LR}: losses {losses}, step ms "
+          f"{step_ms}, launches {launches}", flush=True)
+    _check_launches("keras (a) fine-tune", launches,
+                    _want(kernels, softmax_cross_entropy=KERAS_VGG_STEPS))
+    if not all(np.isfinite(losses)):
+        fail(f"keras (a): a fine-tune loss is not finite: {losses}")
+    os.remove(path)
+    del net
+    torch.cuda.empty_cache()
+    return {"bytes": size, "params": n_params, "write_s": write_s,
+            "read_s": read_s, "import_s": import_s,
+            "cpu_import_s": cpu_import_s, "output_max_abs_err": out_err,
+            "output_max": out_scale, "output_rel_err": out_rel,
+            "pin_bitwise": pin_equal, "load_s": load_s, "losses": losses,
+            "step_ms": step_ms, "launches": launches}
+
+
+def _rnn_keras_layers(inner: str) -> list:
+    """Two Keras-1 ``LSTM(200, return_sequences=True)`` over one-hot
+    characters, then ``TimeDistributedDense(64, softmax)``."""
+    V, H, T = KERAS_RNN_V, KERAS_RNN_H, KERAS_RNN_T
+    gates = [(f"{w}_{g}", shape) for g in "icfo"
+             for w, shape in (("W", None), ("U", (H, H)), ("b", (H,)))]
+    out = []
+    for i, n_in in ((1, V), (2, H)):
+        cfg = {"name": f"lstm_{i}", "output_dim": H, "activation": "tanh",
+               "inner_activation": inner, "return_sequences": True}
+        if i == 1:
+            cfg["batch_input_shape"] = [None, T, V]
+        out.append(("LSTM", cfg, [(n, s or (n_in, H)) for n, s in gates]))
+    out.append(("TimeDistributedDense", {"name": "td_1", "output_dim": V,
+                                         "activation": "softmax"},
+                [("W", (H, V)), ("b", (V,))]))
+    return out
+
+
+def _rnn_weights(layers: list) -> dict:
+    rng = np.random.default_rng(SEED + 63)
+    return {cfg["name"]: [(f"{cfg['name']}_{n}",
+                           (0.1 * rng.standard_normal(s)).astype(np.float32))
+                          for n, s in shapes]
+            for _, cfg, shapes in layers}
+
+
+def _char_batches(rng, n: int) -> tuple:
+    """``n`` batches of one-hot characters ``[B, T, V]`` and their next
+    characters as labels."""
+    ids = rng.integers(0, KERAS_RNN_V, size=(n, KERAS_RNN_B, KERAS_RNN_T + 1))
+    eye = np.eye(KERAS_RNN_V, dtype=np.float32)
+    return eye[ids[..., :-1]], eye[ids[..., 1:]]
+
+
+def _keras_gateway(kernels, tmp: str) -> dict:
+    """(c) the gateway: a token-guarded Server on loopback, ``call``s to fit,
+    evaluate and predict the sigmoid-gated character LSTM over HDF5
+    minibatch directories; (d) the hard_sigmoid archive."""
+    from deeplearning4j_tpu_torch.modelimport.hdf5 import H5File
+    from deeplearning4j_tpu_torch.modelimport.keras_import import (
+        KerasModelImport)
+    rng = np.random.default_rng(SEED + 64)
+    xs, ys = _char_batches(rng, KERAS_RNN_BATCHES)
+    dirs = {}
+    for kind, arrs in (("x", xs), ("y", ys)):
+        d = dirs[kind] = os.path.join(tmp, f"lstm_{kind}")
+        os.makedirs(d)
+        for i, a in enumerate(arrs):
+            with H5File(os.path.join(d, f"{i}.h5"), "w") as f:
+                f.write_dataset("/data", a)
+    out = {}
+    for inner in ("sigmoid", "hard_sigmoid"):
+        layers = _rnn_keras_layers(inner)
+        path = os.path.join(tmp, f"char_lstm_{inner}.h5")
+        write_keras_archive(path, layers, _rnn_weights(layers))
+        card = KerasModelImport.import_keras_sequential_model_and_weights(
+            path, device="cuda")
+        cpu = KerasModelImport.import_keras_sequential_model_and_weights(
+            path, device="cpu")
+        _zero(kernels)
+        got = _out(card, torch.from_numpy(xs[0]).cuda())
+        fwd_launches = _launches(kernels)
+        err = float((got - _out(cpu, torch.from_numpy(xs[0]))).abs().max())
+        gated = inner == "sigmoid"
+        want_fwd = _want(kernels, lstm_fwd=2 if gated else 0)
+        print(f"keras ({'c' if gated else 'd'}) {inner} LSTM archive: output "
+              f"card vs CPU max_abs_err {err:.3e} (tol {KERAS_RNN_TOL:.0e}); "
+              f"launches {fwd_launches}", flush=True)
+        _check_launches(f"keras {inner} output", fwd_launches, want_fwd)
+        if not err <= KERAS_RNN_TOL:
+            fail(f"keras {inner}: the imported LSTM's card output is {err} "
+                 "from the CPU's")
+        res = {"output_max_abs_err": err, "output_launches": fwd_launches}
+        if gated:
+            res.update(_gateway_calls(kernels, path, dirs, xs))
+        else:
+            _zero(kernels)
+            card.fit(xs[0], ys[0])
+            torch.cuda.synchronize()
+            res["fit_launches"] = _launches(kernels)
+            print(f"keras (d) hard_sigmoid: one fit step, loss "
+                  f"{card.score_value}, launches {res['fit_launches']}",
+                  flush=True)
+            _check_launches("keras (d) fit", res["fit_launches"],
+                            _want(kernels, softmax_cross_entropy=1))
+        out[inner] = res
+        del card, cpu
+    return out
+
+
+def _gateway_calls(kernels, path: str, dirs: dict, xs) -> dict:
+    from deeplearning4j_tpu_torch.keras_server import Server, call
+    token = "chip-smoke-" + os.urandom(8).hex()
+    srv = Server(host="127.0.0.1", auth_token=token, device="cuda").start()
+    res = {}
+    n = KERAS_RNN_BATCHES
+    try:
+        try:
+            call("127.0.0.1", srv.port, "predict", model_file_path=path,
+                 features=[])
+            fail("keras (c): the gateway answered without its token")
+        except RuntimeError as e:
+            if "auth token" not in str(e):
+                raise
+        for method, params, want in (
+                ("fit", dict(nb_epoch=1, train_features_directory=dirs["x"],
+                             train_labels_directory=dirs["y"]),
+                 _want(kernels, lstm_fwd=2 * n, lstm_bwd=2 * n,
+                       softmax_cross_entropy=n)),
+                ("evaluate", dict(features_directory=dirs["x"],
+                                  labels_directory=dirs["y"]),
+                 _want(kernels, lstm_fwd=2 * n)),
+                ("predict", dict(features=xs[0][:4].tolist()),
+                 _want(kernels, lstm_fwd=2))):
+            _zero(kernels)
+            t0 = time.perf_counter()
+            r = call("127.0.0.1", srv.port, method, token=token,
+                     model_file_path=path, **params)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _launches(kernels)
+            summary = ({k: v for k, v in r.items() if k != "predictions"}
+                       if method != "predict" else
+                       {"shape": list(np.shape(r["predictions"]))})
+            print(f"keras (c) gateway {method}: {summary} in {secs:.2f}s, "
+                  f"launches {launches}", flush=True)
+            _check_launches(f"keras (c) {method}", launches, want)
+            res[method] = {"result": summary, "seconds": secs,
+                           "launches": launches}
+        pred = np.asarray(call("127.0.0.1", srv.port, "predict", token=token,
+                               model_file_path=path,
+                               features=xs[0][:4].tolist())["predictions"])
+        if pred.shape != (4, KERAS_RNN_T, KERAS_RNN_V) or \
+                not np.isfinite(pred).all():
+            fail(f"keras (c): predictions of shape {pred.shape}")
+        if not np.isfinite(res["fit"]["result"]["score"]):
+            fail("keras (c): the gateway's fit score is not finite")
+    finally:
+        srv.stop()
+    return res
+
+
+def keras_phase(kernels) -> dict:
+    """A8.1: a Keras-1 archive imported, served and fine-tuned on the card,
+    and the Keras gateway over TCP."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="keras_phase_")
+    try:
+        return {"vgg16": _keras_vgg(kernels, tmp),
+                "lstm": _keras_gateway(kernels, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _write_idx(path: str, arr: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(np.array([0x0800 | arr.ndim, *arr.shape], ">i4").tobytes())
+        f.write(np.ascontiguousarray(arr, np.uint8).tobytes())
+
+
+def _native_mnist(kernels, tmp: str) -> dict:
+    """(b) MNIST-sized IDX files parsed natively and in Python; (c) one
+    epoch of LeNet-5 fed by the native loader, against the loader's
+    Python route."""
+    from deeplearning4j_tpu_torch import nativert
+    from deeplearning4j_tpu_torch.datasets import mnist
+    rng = np.random.default_rng(SEED + 71)
+    imgs = rng.integers(0, 256, (NATIVE_MNIST_N, 28, 28), dtype=np.uint8)
+    lbls = rng.integers(0, 10, NATIVE_MNIST_N, dtype=np.uint8)
+    paths = [os.path.join(tmp, n) for n in ("train-images-idx3-ubyte",
+                                            "train-labels-idx1-ubyte")]
+    _write_idx(paths[0], imgs)
+    _write_idx(paths[1], lbls)
+    times = {}
+    for route, fn in (("native", nativert.read_idx),
+                      ("python", nativert.read_idx_py),
+                      ("datasets.mnist", lambda p: mnist.read_idx(Path(p)))):
+        t0 = time.perf_counter()
+        got = [fn(p) for p in paths]
+        times[route] = time.perf_counter() - t0
+        if not all(g.dtype == np.uint8 and g.tobytes() == a.tobytes()
+                   and g.shape == a.shape for g, a in zip(got, (imgs, lbls))):
+            fail(f"native (b): the {route} IDX parse differs")
+    print(f"native (b) IDX {imgs.shape} + {lbls.shape}: native, Python and "
+          f"datasets.mnist parses bitwise equal; seconds {times}", flush=True)
+    n_batches = NATIVE_MNIST_N // NATIVE_B
+    loader = nativert.AsyncNativeLoader.mnist(*paths, batch=NATIVE_B,
+                                              seed=SEED)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = list(nativert.loader_batches_py(imgs, lbls, 10, NATIVE_B,
+                                         seed=SEED))
+    python_s = time.perf_counter() - t0
+    if len(batches) != n_batches or any(
+            a.tobytes() != c.tobytes() or b.tobytes() != d.tobytes()
+            for (a, b), (c, d) in zip(batches, py)):
+        fail("native (c): the loader's epoch differs from its Python route")
+    del py
+    loader.reset()
+    net = MultiLayerNetwork(lenet_mnist(), device="cuda").init(seed=SEED)
+    _zero(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    for x, y in loader:
+        net.fit(x, y)
+        steps += 1
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    loader.close()
+    rates = {"native_batches_per_s": n_batches / native_s,
+             "python_batches_per_s": n_batches / python_s}
+    print(f"native (c) AsyncNativeLoader.mnist B={NATIVE_B}: {n_batches} "
+          f"batches bitwise the Python route's; {rates['native_batches_per_s']:.1f} "
+          f"batches/s native, {rates['python_batches_per_s']:.1f} Python; "
+          f"a LeNet-5 epoch of {steps} fit steps in {fit_s:.2f}s, loss "
+          f"{net.score_value}, launches {launches}", flush=True)
+    _check_launches("native (c) LeNet epoch", launches,
+                    _want(kernels, softmax_cross_entropy=n_batches))
+    if steps != n_batches or not np.isfinite(net.score_value):
+        fail(f"native (c): {steps} steps, loss {net.score_value}")
+    return {"idx_seconds": times, "batches": n_batches, **rates,
+            "fit_s": fit_s, "loss": net.score_value, "launches": launches}
+
+
+def _native_csv(kernels, tmp: str) -> dict:
+    """(d) an Iris-shaped CSV through CSVRecordReader and
+    RecordReaderDataSetIterator into the Iris MLP."""
+    from deeplearning4j_tpu_torch import nativert
+    from deeplearning4j_tpu_torch.datavec import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    import csv
+
+    from deeplearning4j_tpu_torch.datavec.records import _maybe_float
+    rng = np.random.default_rng(SEED + 72)
+    cls = rng.integers(0, 3, NATIVE_CSV_ROWS)
+    centers = np.array([[5.0, 3.4, 1.5, 0.2], [5.9, 2.8, 4.3, 1.3],
+                        [6.6, 3.0, 5.6, 2.0]])
+    feats = np.round(centers[cls] + rng.normal(0, 0.3, (NATIVE_CSV_ROWS, 4)),
+                     1)
+    path = os.path.join(tmp, "iris_large.csv")
+    with open(path, "w") as f:
+        f.writelines(f"{a:.1f},{b:.1f},{c:.1f},{d:.1f},{k}\n"
+                     for (a, b, c, d), k in zip(feats, cls))
+    t0 = time.perf_counter()
+    native = nativert.read_csv_numeric(path, strict=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, newline="") as f:
+        general = np.asarray([[_maybe_float(v) for v in row]
+                              for row in csv.reader(f)], np.float32)
+    general_s = time.perf_counter() - t0
+    plain = nativert.read_csv_numeric_py(path, strict=True)
+    if native is None or native.tobytes() != general.tobytes() \
+            or native.tobytes() != plain.tobytes():
+        fail("native (d): the native CSV parse differs from the general "
+             "reader's")
+    conf = (NeuralNetConfiguration.builder().seed(1).learning_rate(0.1)
+            .updater("adam").list()
+            .layer(DenseLayer.conf(n_in=4, n_out=16, activation="relu"))
+            .layer(OutputLayer.conf(n_in=16, n_out=3, loss="mcxent",
+                                    activation="softmax")).build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    it = RecordReaderDataSetIterator(CSVRecordReader(path),
+                                     batch=NATIVE_CSV_B, label_index=4,
+                                     num_classes=3)
+    _zero(kernels)
+    t0 = time.perf_counter()
+    net.fit_iterator(it, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    n_batches = NATIVE_CSV_ROWS // NATIVE_CSV_B
+    acc = net.evaluate(it).accuracy()
+    print(f"native (d) CSV {NATIVE_CSV_ROWS} x 5: native strict parse "
+          f"{native_s:.2f}s, general reader {general_s:.2f}s, bitwise "
+          f"equal; {n_batches} batches of {NATIVE_CSV_B} through "
+          f"RecordReaderDataSetIterator into the Iris MLP in {fit_s:.2f}s, "
+          f"accuracy {acc:.4f}, launches {launches}", flush=True)
+    _check_launches("native (d) CSV fit", launches,
+                    _want(kernels, softmax_cross_entropy=n_batches))
+    if not acc > 0.9:
+        fail(f"native (d): accuracy {acc} <= 0.9")
+    return {"rows": NATIVE_CSV_ROWS, "native_parse_s": native_s,
+            "general_parse_s": general_s, "fit_s": fit_s, "accuracy": acc,
+            "launches": launches}
+
+
+def _native_broker() -> dict:
+    """(e) broker frames: the host runtime's ``decode_records`` on each
+    float32 array's bytes (raw and bf16 coded) bitwise ``wire.decode_array``
+    on the same bytes, both timed over the frames; then the frames through
+    a ``ReconnectingConsumer``, bitwise the wire decode of what was sent."""
+    from deeplearning4j_tpu_torch import nativert
+    from deeplearning4j_tpu_torch.streaming import wire
+    from deeplearning4j_tpu_torch.streaming.broker import (
+        BrokerProducer, LoopbackBroker, ReconnectingConsumer)
+    rng = np.random.default_rng(SEED + 73)
+    frames = [{"x": rng.normal(size=NATIVE_FRAME_SHAPE).astype(np.float32),
+               "y": np.eye(10, dtype=np.float32)[
+                   rng.integers(0, 10, NATIVE_FRAME_SHAPE[0])],
+               "ids": rng.integers(0, 10, NATIVE_FRAME_SHAPE[0])}
+              for _ in range(NATIVE_FRAMES)]
+    broker = LoopbackBroker().start()
+    out = {}
+    try:
+        prod = BrokerProducer(broker.address)
+        for codec in ("none", "bf16"):
+            topic = f"frames_{codec}"
+            sent, f32 = [], []
+            for fr in frames:
+                prod.publish(topic, fr, codec=codec)
+                metas, views = wire.pack_arrays(fr, codec)
+                raws = [bytes(v) for v in views]
+                sent.append(wire.unpack_arrays(metas, b"".join(raws)))
+                f32 += [(m, r) for m, r in zip(metas, raws)
+                        if m["dtype"] == "float32"]
+            kind = "f32" if codec == "none" else "bf16"
+            t0 = time.perf_counter()
+            nat = [nativert.decode_records(r, kind).reshape(tuple(m["shape"]))
+                   for m, r in f32]
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = [wire.decode_array(m, r) for m, r in f32]
+            wire_s = time.perf_counter() - t0
+            same = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                       for a, b in zip(nat, ref))
+            cons = ReconnectingConsumer(broker.address, topic, group="g")
+            got = [cons.get(timeout=10.0)[1] for _ in range(NATIVE_FRAMES)]
+            cons.close()
+            consumed = all(a[k].dtype == b[k].dtype
+                           and a[k].tobytes() == b[k].tobytes()
+                           for a, b in zip(got, sent) for k in b)
+            print(f"native (e) {NATIVE_FRAMES} broker frames {codec}: "
+                  f"{len(f32)} float32 arrays decoded by the runtime bitwise "
+                  f"the wire's: {same} (seconds: native {native_s:.5f}, wire "
+                  f"{wire_s:.5f}); the consumer's frames bitwise what was "
+                  f"sent: {consumed}", flush=True)
+            if not (same and consumed):
+                fail(f"native (e): {codec} frames decode differently")
+            out[codec] = {"native_s": native_s, "wire_s": wire_s}
+        prod.close()
+    finally:
+        broker.stop()
+    return out
+
+
+def native_phase(kernels) -> dict:
+    """A8.2 and DataVec: the host runtime built on the card's machine, its
+    parsers, loader, CSV reader and decoder feeding the card."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch import nativert
+    t0 = time.perf_counter()
+    nativert.build()
+    nativert.get_runtime()
+    info = dict(nativert.build_info, load_s=time.perf_counter() - t0)
+    print(f"native (a) host runtime built with {info['compiler']} in "
+          f"{info['seconds']:.2f}s ({info['library']}; built in this "
+          f"process: {info['built']})", flush=True)
+    tmp = tempfile.mkdtemp(prefix="native_phase_")
+    try:
+        return {"build": info, "mnist": _native_mnist(kernels, tmp),
+                "csv": _native_csv(kernels, tmp), "broker": _native_broker()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the phases :func:`run_phases` runs alone, by name
+PHASES_ALONE = {"c3": lambda k: c3_phase(), "sharded_pins": _sh_pins,
+                "keras": keras_phase, "native": native_phase}
+
+
+def run_phases(*names: str) -> dict:
+    """Run the named phases alone (after the card setup and the kernel
+    build), for debugging them on the card:
+    ``python3 -c "import chip_smoke; chip_smoke.run_phases('keras')"``."""
+    global CARD
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
+    _cuda.build()
+    kernels = (int8_matmul, paged_gather, flash_fwd, softmax_cross_entropy,
+               flash_bwd_dq, flash_bwd_dkv, lstm_ops.lstm_fwd,
+               lstm_ops.lstm_bwd)
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        out[name] = PHASES_ALONE[name](kernels)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6952,7 +7753,9 @@ def main() -> None:
                         ("parallel", parallel_phase),
                         ("param_server", param_server_phase),
                         ("elastic", elastic_phase),
-                        ("sharded", sharded_phase)):
+                        ("c3", lambda k: c3_phase()),
+                        ("sharded", sharded_phase),
+                        ("keras", keras_phase), ("native", native_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
@@ -6963,6 +7766,8 @@ def main() -> None:
         phase_s[n][0] for n in ("spec", "replicas", "multi_input",
                                 "parallel", "param_server", "elastic",
                                 "sharded"))
+    c3_run, keras_run, native_run = (phase_s[n][0]
+                                     for n in ("c3", "keras", "native"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -7104,6 +7909,44 @@ def main() -> None:
                 "launches": sum(entry["bf16_launches_by_path"].values()),
                 **nums(row_at(name, bf16_shape[name]))}
 
+    # the A8 paths (the keras and native phases), every launch on each,
+    # and the shapes sm_xent and the LSTM kernels took on them
+    a8_paths = {
+        "keras_vgg16_finetune": keras_run["vgg16"]["launches"],
+        "keras_lstm_output": keras_run["lstm"]["sigmoid"]["output_launches"],
+        "keras_gateway_fit":
+            keras_run["lstm"]["sigmoid"]["fit"]["launches"],
+        "keras_gateway_evaluate":
+            keras_run["lstm"]["sigmoid"]["evaluate"]["launches"],
+        "keras_gateway_predict":
+            keras_run["lstm"]["sigmoid"]["predict"]["launches"],
+        "keras_hard_sigmoid_output":
+            keras_run["lstm"]["hard_sigmoid"]["output_launches"],
+        "keras_hard_sigmoid_fit":
+            keras_run["lstm"]["hard_sigmoid"]["fit_launches"],
+        "native_lenet_epoch": native_run["mnist"]["launches"],
+        "native_csv_mlp": native_run["csv"]["launches"]}
+    keras_lstm = {"T": KERAS_RNN_T, "B": KERAS_RNN_B, "F": KERAS_RNN_V,
+                  "H": KERAS_RNN_H, "peephole": False, "masked": False}
+    keras_xent = {"N": KERAS_RNN_B * KERAS_RNN_T, "C": KERAS_RNN_V}
+    a8_shapes = {
+        "sm_xent": {"keras_vgg16_finetune": {"N": KERAS_VGG_B, "C": 1000},
+                    "keras_gateway_fit": keras_xent,
+                    "keras_hard_sigmoid_fit": keras_xent,
+                    "native_lenet_epoch": {"N": NATIVE_B, "C": 10},
+                    "native_csv_mlp": {"N": NATIVE_CSV_B, "C": 3}},
+        "lstm_fwd": {"keras_lstm_output": keras_lstm,
+                     "keras_gateway_fit": keras_lstm,
+                     "keras_gateway_evaluate": keras_lstm},
+        "lstm_bwd": {"keras_gateway_fit": keras_lstm}}
+
+    def add_a8_paths(entry, fname, name):
+        entry["launches_by_path"].update(
+            {p: n[fname] for p, n in a8_paths.items()})
+        for path, shp in a8_shapes.get(name, {}).items():
+            entry.setdefault("by_path", {})[path] = {
+                "launches": a8_paths[path][fname], **nums(row_at(name, shp))}
+
     numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "shape")
     #: present on some rows only: profiler device times, the flash kernels'
@@ -7160,6 +8003,7 @@ def main() -> None:
                         **nums(row_at(name, shp))}
                     for p, shp in rnn_paths.items()}
             add_dtype_paths(entry, fname, name)
+            add_a8_paths(entry, fname, name)
             line.append(entry)
             continue
         by_path = {"serve": served["launches"].get(fname, 0),
@@ -7305,6 +8149,7 @@ def main() -> None:
                     "launches": sh["sharded_pins"],
                     **nums(row_at(name, {"B": 8 // SH_AXES["data"],
                                          "T": 512, "D": 64}))}
+        add_a8_paths(entry, fname, name)
         line.append(entry)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -7320,7 +8165,8 @@ def main() -> None:
                    "iris": iris_run, "spec": spec_run,
                    "replicas": replicas_run, "multi_input": multi_run,
                    "parallel": par_run, "param_server": ps_run,
-                   "elastic": el_run, "sharded": sh_run,
+                   "elastic": el_run, "sharded": sh_run, "c3": c3_run,
+                   "keras": keras_run, "native": native_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

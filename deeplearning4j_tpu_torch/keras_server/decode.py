@@ -992,6 +992,16 @@ class DecodeEngine:
         with self._lock:
             return not self._queue and not self._active_count()
 
+    def drain(self, timeout_s: float = 60.0) -> None:
+        """Block until every queued and active session has finished; raises
+        ``TimeoutError`` after ``timeout_s``."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if self.idle():
+                return
+            time.sleep(0.002)
+        raise TimeoutError("decode engine did not drain in time")
+
     def close(self, timeout_s: float = 30.0) -> None:
         """Stop accepting sessions; the pump drains what is queued first."""
         with self._cond:

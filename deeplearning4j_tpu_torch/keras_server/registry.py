@@ -8,8 +8,8 @@ assignment under the lock and in-flight requests finish on the version they
 resolved; :meth:`ModelRegistry.set_active` moves the pointer back to an
 older version (the rollback). Models register from in-memory networks (a
 ``MultiLayerNetwork`` or a ``ComputationGraph``) or load from
-``model_serializer`` zips (either network type, through ``guess_model``);
-Keras HDF5 files wait for ``modelimport/`` (ROADMAP.md A8). A model may be
+``model_serializer`` zips (either network type, through ``guess_model``)
+or Keras HDF5 exports (``modelimport/keras_import.py``). A model may be
 linked as the speculative-decode draft of another (:meth:`link_draft`):
 the draft is an ordinary registered model, so a hot swap of it retires the
 target's decode engines as a swap of the target does.
@@ -45,14 +45,19 @@ log = logging.getLogger(__name__)
 
 def load_model_file(path: str, device=None):
     """The network a serving model file holds, on ``device``: a
-    ``model_serializer`` zip of either network type. Keras HDF5 files are
-    not read yet."""
+    ``model_serializer`` zip of either network type, or a Keras HDF5
+    export (a Sequential archive first, then a functional one, as the JAX
+    package tries them)."""
     if zipfile.is_zipfile(path):
         from ..utils.model_serializer import guess_model
         return guess_model(path, device=device)
-    raise NotImplementedError(
-        f"{path} is not a model zip; Keras HDF5 import (modelimport/) is not "
-        "ported yet (ROADMAP.md A8)")
+    from ..modelimport.keras_import import KerasModelImport
+    try:
+        return KerasModelImport.import_keras_sequential_model_and_weights(
+            path, device=device)
+    except ValueError:
+        return KerasModelImport.import_keras_model_and_weights(
+            path, device=device)
 
 
 def _derive_warmup_example(net) -> Optional[np.ndarray]:
@@ -223,7 +228,8 @@ class ModelRegistry:
     def load(self, name: str, path: str, version: Optional[str] = None,
              quant: Optional[str] = None, device=None,
              warmup_example=None) -> ModelVersion:
-        """Restore a model zip on ``device`` and register it."""
+        """Load a model file (a zip or a Keras HDF5 archive, see
+        :func:`load_model_file`) on ``device`` and register it."""
         return self.register(name, load_model_file(path, device=device),
                              version=version, quant=quant, device=device,
                              source=path, warmup_example=warmup_example)

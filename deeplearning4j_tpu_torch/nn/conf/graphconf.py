@@ -30,6 +30,7 @@ from typing import Dict, List
 from .inputs import InputType
 from .multilayer import GlobalConf, LayerConf, bake_layer_defaults
 from .preprocessors import infer_preprocessor
+from . import serde
 from .serde import layer_class
 from .vertices import GraphVertex, LayerVertex, PreprocessorVertex, \
     vertex_from_dict
@@ -236,3 +237,7 @@ class GraphBuilder:
             types[name] = v.output_type(in_types)
         conf.topological_order = conf.topo_sort()
         return conf
+
+
+serde.register_reader("ComputationGraphConfiguration",
+                      ComputationGraphConfiguration.from_dict)

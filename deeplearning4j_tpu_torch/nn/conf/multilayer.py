@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional
 
 from .inputs import InputType
 from .preprocessors import InputPreProcessor, preprocessor_from_dict
+from . import serde
 from .serde import layer_class
 
 
@@ -156,6 +157,10 @@ class MultiLayerConfiguration:
     def preprocessor(self, idx: int) -> Optional[InputPreProcessor]:
         return self.preprocessors.get(str(idx))
 
+    @property
+    def n_layers(self) -> int:
+        return len(self.layers)
+
     def to_dict(self) -> dict:
         return {
             "@type": "MultiLayerConfiguration",
@@ -209,3 +214,6 @@ class MultiLayerConfiguration:
                     if f in d}
         return MultiLayerConfiguration(global_conf, layers, preprocessors,
                                        input_type, **training)
+
+
+serde.register_reader("MultiLayerConfiguration", MultiLayerConfiguration.from_dict)

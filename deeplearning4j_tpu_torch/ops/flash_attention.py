@@ -43,6 +43,22 @@ _FWD_BQ, _FWD_BK, _BWD_ROWS = 32, 32, 64
 _WIDE_BR, _WIDE_BT, _WIDE_GW, _WIDE_SPLITS = 16, 32, 128, 4
 
 
+#: the forward's key splits (warps of a block) by width: below and at or
+#: above :data:`FWD_LONG_TQ` query rows. A function of the head dim and the
+#: sequence alone, never of B * H, so a row's answer does not depend on its
+#: batch (a plan that moved with B * H summed the key splits in another
+#: order at another batch). At width 64, on the H100 (chip_smoke.py's c3
+#: phase, H = 4, device ms, 2 splits against 4): at T 512 4 splits win
+#: (B 4: 0.0324 against 0.0289; B 2: 0.0297 against 0.0209); at T 256 the
+#: training shape, B 16, takes 2 (0.0269 against 0.0394), which costs the
+#: pipeline's B 4 microbatch (0.0165 against 0.0126). Widths 16 and 32 keep
+#: 4, which keeps twice the warps in flight on the small grids they run; at
+#: width 128, 4 splits of double-buffered 32-key tiles would need 270 KB,
+#: so 2.
+FWD_SPLITS = {16: (4, 4), 32: (4, 4), 64: (2, 4), 128: (2, 2)}
+FWD_LONG_TQ = 512
+
+
 class FlashPlan(NamedTuple):
     width: int   #: the instantiated head dim (<= 128), or a group's columns
     splits: int  #: tile splits (warps) of a block: the forward's key
@@ -62,10 +78,9 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
 
     Up to 128 the width is the least of :data:`FLASH_WIDTHS` that holds
     ``D`` and ``groups`` is 1 (``flash_fwd.cu``, ``flash_bwd.cu``). The
-    forward takes 2 key splits when the grid gives every SM 2 blocks or more,
-    else 4 (twice the warps in flight); at width 128 always 2, since 4 splits
-    of double-buffered 32-key tiles would need 270 KB. Rows are padded to
-    ``width + 4`` floats. Above 128 the three kernels of ``flash_wide.cu``
+    forward takes :data:`FWD_SPLITS` key splits at its width and ``Tq``
+    (``BH`` and ``sms`` do not enter any plan's split count).
+    Rows are padded to ``width + 4`` floats. Above 128 the three kernels of ``flash_wide.cu``
     run with ``groups = ceil(D / 128)`` output-column groups of width 128.
     A block's 4 warps (``splits``, at every grid) each take a split of the
     streamed 32-row tiles (keys for the forward and dQ, queries for dK/dV)
@@ -89,8 +104,7 @@ def flash_plan(kernel: str, D: int, BH: int, Tq: int, sms: int) -> FlashPlan:
     width = next(w for w in FLASH_WIDTHS if w >= D)
     ld = width + 4
     if kernel == "fwd":
-        blocks = BH * -(-Tq // _FWD_BQ)
-        splits = 2 if width > 64 or blocks >= 2 * sms else 4
+        splits = FWD_SPLITS[width][Tq >= FWD_LONG_TQ]
         # K and V tiles [2][splits][BK][ld], the key mask [2][splits][BK],
         # the scaled query [BQ][ld] at width 128 (else one row)
         floats = (4 * splits * _FWD_BK * ld + 2 * splits * _FWD_BK

@@ -6,7 +6,9 @@ GPipe pipeline (``pipeline``, ``pipeline_trainer``), expert parallelism
 (``moe``), the parameter-averaging ``TrainingMaster``, ring/Ulysses
 attention, the asynchronous parameter server (``param_server``,
 ``ps_transport``, ``ps_worker``) and elastic training (``elastic``)."""
+from .elastic import ElasticTrainer
 from .mesh import build_mesh, data_parallel_mesh
 from .wrapper import ParallelWrapper
 
-__all__ = ["ParallelWrapper", "build_mesh", "data_parallel_mesh"]
+__all__ = ["ElasticTrainer", "ParallelWrapper", "build_mesh",
+           "data_parallel_mesh"]

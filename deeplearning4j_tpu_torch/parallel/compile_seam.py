@@ -225,7 +225,7 @@ def _spec_at(specs, key, name):
 
 
 def _dim(spec) -> Optional[int]:
-    at = sharded_dim(spec)
+    at = partition.one_split(spec, "the ZeRO placement")
     return None if at is None else at[0]
 
 

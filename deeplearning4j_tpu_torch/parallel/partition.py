@@ -291,47 +291,50 @@ def rules_for(name: str, **kwargs) -> list:
 
 
 # ----------------------------------------------------------- placement
+def split_dims(spec: PartitionSpec) -> list:
+    """``[(dim, axes), ...]`` of every dim ``spec`` splits, in dim order,
+    ``axes`` a tuple of mesh axis names; empty if replicated."""
+    return [(d, a if isinstance(a, tuple) else (a,))
+            for d, a in enumerate(spec) if a is not None]
+
+
 def sharded_dim(spec: PartitionSpec) -> Optional[Tuple[int, Any]]:
-    """``(dim, axis)`` of the one dim a spec splits, None if replicated.
-    A spec that splits two dims raises: no rule set makes one (the
-    ``dp_tp`` placement of ROADMAP.md A7.9 splits one dim over
-    ``model``)."""
+    """``(dim, axis)`` of the first dim a spec splits, None if replicated
+    (:func:`split_dims` lists them all)."""
     named = [(d, a) for d, a in enumerate(spec) if a is not None]
-    if not named:
-        return None
-    if len(named) > 1:
-        raise NotImplementedError(
-            f"spec {spec!r} splits more than one dim; the placements split "
-            "one (dp_tp, ROADMAP.md A7.9, splits one dim over 'model')")
-    return named[0]
+    return named[0] if named else None
 
 
-def _split_axes(spec: PartitionSpec):
-    """``(dim, axes)`` of the one dim ``spec`` splits, None if
-    replicated."""
-    at = sharded_dim(spec)
-    if at is None:
-        return None
-    d, axis = at
-    return d, (axis if isinstance(axis, tuple) else (axis,))
+def one_split(spec: PartitionSpec, what: str) -> Optional[Tuple[int, tuple]]:
+    """``(dim, axes)`` of the one dim ``spec`` splits, None if replicated,
+    for the placements that hold a leaf split on one dim (``what`` names
+    the placement): a spec that splits two raises ``ValueError``."""
+    splits = split_dims(spec)
+    if len(splits) > 1:
+        raise ValueError(f"{what} holds a leaf split on one dim; spec "
+                         f"{spec!r} splits {len(splits)} (device_put places "
+                         "it)")
+    return splits[0] if splits else None
 
 
 def local_shard(leaf: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     """This rank's block of ``leaf`` under ``spec`` (a copy; the leaf
-    itself when replicated)."""
-    at = _split_axes(spec)
-    if at is None:
+    itself when replicated): along each split dim, the block at this rank's
+    row-major position on that dim's axes, as JAX lays out a
+    ``NamedSharding``."""
+    splits = split_dims(spec)
+    if not splits:
         return leaf
-    d, axes = at
-    n = mesh.axis_size(*axes)
-    return leaf.chunk(n, dim=d)[mesh.index(*axes)].clone()
+    for d, axes in splits:
+        leaf = leaf.chunk(mesh.axis_size(*axes), dim=d)[mesh.index(*axes)]
+    return leaf.clone()
 
 
 class MeshLeaf:
     """A leaf placed on a ``DeviceMesh``: ``shards[s]`` is the tensor slot
-    ``s`` holds on its device, its block along the dim ``spec`` splits (the
-    spec's contiguous block, as JAX lays a sharded array out), or the whole
-    leaf where ``spec`` replicates it. ``shape``, ``dtype`` and
+    ``s`` holds on its device, its block along every dim ``spec`` splits
+    (the spec's contiguous block, as JAX lays a sharded array out), or the
+    whole leaf where ``spec`` replicates it. ``shape``, ``dtype`` and
     :attr:`nbytes` are the whole leaf's."""
 
     __slots__ = ("shards", "spec", "shape", "dtype", "mesh")
@@ -339,11 +342,13 @@ class MeshLeaf:
     def __init__(self, leaf: torch.Tensor, spec: PartitionSpec, mesh):
         self.spec, self.mesh = spec, mesh
         self.shape, self.dtype = tuple(leaf.shape), leaf.dtype
-        at = _split_axes(spec)
+        splits = split_dims(spec)
         self.shards = []
         for s in range(mesh.size):
-            part = leaf if at is None else leaf.chunk(
-                mesh.axis_size(*at[1]), dim=at[0])[mesh.index(s, *at[1])]
+            part = leaf
+            for d, axes in splits:
+                part = part.chunk(mesh.axis_size(*axes), dim=d)[
+                    mesh.index(s, *axes)]
             self.shards.append(part.detach().to(mesh.device_of(s),
                                                 copy=True).contiguous())
 
@@ -360,14 +365,20 @@ class MeshLeaf:
     def whole(self, slot: int) -> torch.Tensor:
         """The whole leaf for ``slot``, on its device: its own copy where
         replicated, else its peers' blocks along the split axes copied
-        there and concatenated in order (an exact layout change, no
-        arithmetic)."""
-        at = _split_axes(self.spec)
-        if at is None:
+        there and concatenated in order, the last split dim first (an
+        exact layout change, no arithmetic)."""
+        splits = split_dims(self.spec)
+        if not splits:
             return self.shards[slot]
         dev = self.mesh.device_of(slot)
-        return torch.cat([self.shards[p].to(dev)
-                          for p in self.mesh.peers(slot, *at[1])], at[0])
+        axes = [a for _d, ax in splits for a in ax]
+        # the peers in row-major order over the split dims' axes
+        blocks = [self.shards[p].to(dev) for p in self.mesh.peers(slot, *axes)]
+        for d, ax in reversed(splits):
+            n = self.mesh.axis_size(*ax)
+            blocks = [torch.cat(blocks[i:i + n], d)
+                      for i in range(0, len(blocks), n)]
+        return blocks[0]
 
     def __repr__(self) -> str:
         return f"MeshLeaf({self.shape}, {self.dtype}, {self.spec!r})"

@@ -58,7 +58,7 @@ import torch.distributed as dist
 from . import compile_seam
 from .compile_seam import (
     WholeViews, _spec_at, count_collective, free_storage)
-from .partition import sharded_dim
+from .partition import one_split
 
 
 class ShardedParams(dict):
@@ -200,7 +200,8 @@ class TPPlacement(WholeViews):
         for key in view.keys:
             split = {}
             for name in params[key]:
-                at = sharded_dim(_spec_at(param_specs, key, name))
+                at = one_split(_spec_at(param_specs, key, name),
+                               "the dp_tp placement")
                 if at is not None:
                     split[name] = at[0]
             names, special = _megatron_names(view.layers[key], split, self.n)

@@ -15,10 +15,11 @@ Frames are ``streaming/wire.py``'s, the same the parameter server's TCP
 transport speaks, so a JAX producer feeds a port consumer and the other way
 round. :class:`ReconnectingConsumer` has the queue seam a ``Route``
 consumes, so ``BrokerTrainingRoute`` is ``TrainingRoute`` over the network.
-Arrays decode through ``wire.decode_array``; the JAX package may decode
-them through its native ingest library, which its docstring holds bitwise
-equal. The JAX package's trace propagation and metrics are counters in
-``stats()`` here.
+Arrays decode through ``wire.decode_array``. A consumer takes the JAX
+signature's ``native_decode`` flag, and decodes through the wire with it
+too: the host runtime's ``nativert.decode_records`` gives the same float32
+values bitwise and was no faster on these frames (``PERF.md``). The JAX
+package's trace propagation and metrics are counters in ``stats()`` here.
 """
 from __future__ import annotations
 
@@ -223,7 +224,9 @@ class ReconnectingConsumer:
 
     def __init__(self, addr: Tuple[str, int], topic: str,
                  group: str = "default", reconnect_backoff_s: float = 0.05,
-                 reconnect_backoff_cap_s: float = 1.0):
+                 reconnect_backoff_cap_s: float = 1.0,
+                 native_decode: bool = False):
+        del native_decode  # the wire decode serves both settings
         self._addr = tuple(addr)
         self.topic, self.group = topic, group
         self._backoff = reconnect_backoff_s

@@ -385,7 +385,7 @@ def _restore_onto(state_dir, md, layout, net, leaves, shardings, mesh):
                 params[layer][name].shape):
             spec = partition._resolve(_spec_at(shardings, layer, name),
                                       tuple(t.shape), mesh)
-            at = partition._split_axes(spec)
+            at = partition.one_split(spec, "restore onto a sharding")
         own = None
         entry = layout[key]
         if at is not None and entry is not None:

@@ -261,9 +261,19 @@ def test_flash_plan_covers_every_head_dim(kernel, BH, Tq):
 
 
 def test_flash_plan_keeps_the_d64_forward_launches():
-    """At D = 64 the forward keeps its launch: 4 key splits at the predict
-    grid (128 blocks, under 2 an SM), 2 at the training grid; 2 at D = 128,
-    where 4 would need more shared memory than a block has."""
+    """The forward's key splits depend on the head dim and Tq alone: the
+    same count at B * H = 1, 16 and 64 (a count that moved with the batch
+    summed a row's keys in another order at another batch). At D = 64, 4
+    key splits at the predict grid's T 512, 2 at the training grid's T 256;
+    2 at D = 128, where 4 would need more shared memory than a block has."""
+    for D in (8, 16, 32, 40, 64, 128):
+        width = next(w for w in tfa.FLASH_WIDTHS if w >= D)
+        for Tq in (1, 256, 511, 512, 2048):
+            plans = {tfa.flash_plan("fwd", D, BH, Tq, sms)
+                     for BH in (1, 16, 64) for sms in (SMS, 2 * SMS)}
+            assert len(plans) == 1, (D, Tq, plans)
+            assert plans.pop().splits == tfa.FWD_SPLITS[width][
+                Tq >= tfa.FWD_LONG_TQ]
     assert tfa.flash_plan("fwd", 64, 8, 512, SMS).splits == 4
     assert tfa.flash_plan("fwd", 64, 64, 256, SMS).splits == 2
     wide = tfa.flash_plan("fwd", 128, 8, 512, SMS)

@@ -293,8 +293,15 @@ def test_device_put_keeps_this_ranks_block():
     assert placed["b"] is b
     placed = partition.device_put({"W": w}, mesh, {"W": P(None, "data")})
     assert torch.equal(placed["W"], w[:, 2:3])
-    with pytest.raises(NotImplementedError, match="A7.9"):
-        partition.device_put({"W": w}, mesh, {"W": P("data", "model")})
+    # a spec that splits two dims: this rank's block along each, in the
+    # mesh's row-major order (rank (1, 0) of {"data": 2, "model": 2})
+    mesh2 = types.SimpleNamespace(
+        shape={"data": 2, "model": 2},
+        axis_size=lambda *a: int(np.prod([{"data": 2, "model": 2}[x]
+                                          for x in a])),
+        index=lambda *a: {("data",): 1, ("model",): 0}[a])
+    placed = partition.device_put({"W": w}, mesh2, {"W": P("data", "model")})
+    assert torch.equal(placed["W"], w[4:8, 0:2])
 
 
 def test_batch_spec_splits_only_divisible_batches():
@@ -320,3 +327,72 @@ def test_hybrid_mesh_single_slice_and_validation():
         build_hybrid_mesh({"data": 1}, {"expert": 2})
     with pytest.raises(ValueError, match="Mesh needs 4 ranks"):
         build_hybrid_mesh({"data": 2}, {"data": 2})
+
+
+# ------------------------------------------------ specs that split two dims
+TWO_DIM_CASES = (
+    ({"data": 2, "model": 4}, P("data", "model")),
+    ({"data": 4, "model": 2}, P("model", "data")),
+    ({"data": 2, "model": 2, "sp": 2}, P(("data", "sp"), "model")),
+    ({"data": 2, "model": 2, "sp": 2}, P(None, "model", "data")),
+)
+
+
+@pytest.mark.parametrize("shape,spec", TWO_DIM_CASES,
+                         ids=[f"{s}-{p}" for s, p in TWO_DIM_CASES])
+def test_two_dim_spec_places_as_jax(shape, spec):
+    """A spec that splits two dims places each device's block bitwise as
+    JAX's ``NamedSharding`` does on the 8 CPU devices, on a device mesh of
+    repeated CPU slots and on each rank of a process-group mesh; the
+    per-device bytes and the shard factor equal JAX's, and every slot's
+    ``whole`` reassembles the leaf."""
+    import torch
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+    from deeplearning4j_tpu_torch.parallel.mesh import build_mesh
+
+    rng = np.random.default_rng(7)
+    leaf = rng.normal(size=(8, 8, 4)).astype(np.float32)
+    jmesh = _jax_mesh(shape)
+    jspec = JP(*spec)
+    placed = jax.device_put(leaf, NamedSharding(jmesh, jspec))
+    jblocks = {d: np.asarray(s.data) for s in placed.addressable_shards
+               for d in [s.device]}
+    order = list(jmesh.devices.reshape(-1))  # row-major slots
+
+    dmesh = build_mesh(shape, devices=["cpu"] * len(order))
+    mleaf = partition.device_put({"W": torch.from_numpy(leaf)}, dmesh,
+                                 {"W": spec})["W"]
+    for slot, dev in enumerate(order):
+        np.testing.assert_array_equal(mleaf.shards[slot].numpy(),
+                                      jblocks[dev])
+        np.testing.assert_array_equal(mleaf.whole(slot).numpy(), leaf)
+        # the rank of a process-group mesh at the same coordinates
+        coords = dmesh.coords(slot)
+        rank = types.SimpleNamespace(
+            shape=dict(shape),
+            axis_size=lambda *a: int(np.prod([shape[x] for x in a])),
+            index=lambda *a, c=coords: int(np.ravel_multi_index(
+                [c[x] for x in a], [shape[x] for x in a])))
+        got = partition.local_shard(torch.from_numpy(leaf), spec, rank)
+        np.testing.assert_array_equal(got.numpy(), jblocks[dev])
+    tree = {"W": leaf, "b": np.zeros(16, np.float32)}
+    specs = {"W": spec, "b": P()}
+    jspecs = {"W": jspec, "b": JP()}
+    assert per_device_bytes(
+        {"W": torch.from_numpy(leaf), "b": torch.zeros(16)}, specs,
+        _stand_in(shape)) == jpart.per_device_bytes(tree, jspecs, jmesh)
+    assert partition.shard_factor(_stand_in(shape), spec) == \
+        jpart.shard_factor(jmesh, jspec)
+    assert partition.slot_bytes({"W": mleaf}, 0) == \
+        jblocks[order[0]].nbytes
+
+
+def test_one_dim_placements_name_a_two_dim_spec():
+    """The placements that hold a leaf split on one dim (ZeRO, dp_tp, the
+    restore onto a sharding) refuse a two-dim spec by name."""
+    assert partition.sharded_dim(P(None, "data", "model")) == (1, "data")
+    assert partition.split_dims(P(("data", "sp"), None, "model")) == [
+        (0, ("data", "sp")), (2, ("model",))]
+    with pytest.raises(ValueError, match="ZeRO placement.*splits 2"):
+        partition.one_split(P("data", "model"), "the ZeRO placement")
+    assert partition.one_split(P(None, "model"), "x") == (1, ("model",))

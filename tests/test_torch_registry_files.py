@@ -12,7 +12,8 @@
   whose derived example does not fit it (as the JAX warmup ends for
   those); with an example a graph warms every bucket, and a bad explicit
   example raises.
-- A file that is not a zip raises, naming ROADMAP A8 (``modelimport/``).
+- A file that is not a zip is read as a Keras HDF5 archive
+  (``modelimport/``); one that is not HDF5, or is cut short, raises.
 """
 import http.client
 import json
@@ -181,9 +182,15 @@ def test_warmup_skips_what_it_cannot_derive_and_takes_an_example():
 
 
 def test_a_file_that_is_not_a_zip_raises_naming_a8(tmp_path):
+    """A file that is not a zip is read as a Keras HDF5 archive (A8.1,
+    ``modelimport/``): a truncated one and one that is not HDF5 at all
+    raise ``OSError`` saying so, through both entry points."""
     path = tmp_path / "model.h5"
     path.write_bytes(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(OSError, match="truncated HDF5 file"):
         load_model_file(str(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="modelimport"):
+    with pytest.raises(OSError, match="truncated HDF5 file"):
         ModelRegistry().load("m", str(path), device="cpu")
+    path.write_bytes(b"not an archive" * 8)
+    with pytest.raises(OSError, match="not an HDF5 file"):
+        load_model_file(str(path), device="cpu")

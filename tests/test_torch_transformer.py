@@ -174,11 +174,19 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.streaming.broker, "
             "deeplearning4j_tpu_torch.cloud, "
             "deeplearning4j_tpu_torch.utils.sharded_checkpoint, "
-            "deeplearning4j_tpu_torch.parallel.elastic;"
+            "deeplearning4j_tpu_torch.parallel.elastic, "
+            "deeplearning4j_tpu_torch.modelimport, "
+            "deeplearning4j_tpu_torch.modelimport.hdf5, "
+            "deeplearning4j_tpu_torch.modelimport.keras_import, "
+            "deeplearning4j_tpu_torch.nativert, "
+            "deeplearning4j_tpu_torch.datavec, "
+            "deeplearning4j_tpu_torch.datavec.records, "
+            "deeplearning4j_tpu_torch.datavec.iterators;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.') or m == 'ml_dtypes' "
-            "or m.startswith('ml_dtypes.')];"
+            "or m.startswith('ml_dtypes.') or m == 'h5py' "
+            "or m.startswith('h5py.')];"
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)

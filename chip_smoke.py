@@ -245,17 +245,16 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    ``transformer_lm(256)`` (seed-1234 weights) pinned float32 and int8
    with ``sharding="dp_tp"`` on ``build_mesh({"data": 2, "model": 2},
    devices=["cuda:0"] * 4)``, ``[B, 512]`` ids at B = 1, 2, 3, 4, 8 held
-   against the whole pin (bitwise, else each data slot's rows bitwise
-   against the whole pin on the same rows and the output no further from
-   the whole pin's than the whole pin is from the CPU pin on that batch),
-   the per-device param bytes against the partition math and
-   each slot's tensors, exactly 4 ``flash_fwd`` launches for each data
-   slot that runs rows, the wall ms of a sharded and a whole predict; (b)
+   bitwise against the whole pin, the per-device param bytes against the
+   partition math and each slot's tensors, exactly 4 ``flash_fwd`` and 17
+   ``fixed_matmul`` launches for each data slot that runs rows, the wall
+   ms of a sharded and a whole ``[8, 512]`` predict with the pins'
+   products through ``fixed_matmul`` and, in turns, through cuBLAS; (b)
    ``InferenceServer(replicas=2, sharding="dp_tp", replica_devices=
    ["cuda:0"] * 8)`` answering 32 ``/v1/predict`` requests of two rows
    over HTTP with a rolling swap to v2 in flight (the last round of 4
    sent once the swap has returned; none lost, each the
-   sharded pin's answer and within 1e-6 of the whole pin's, 8 launches a
+   sharded pin's answer and the whole pin's, bitwise, 8 launches a
    dispatch, each replica's status listing its 4 slots and mesh); then on
    two gloo ranks sharing the card, (c) a sharded checkpoint of the
    train-shape model after one ``dp_tp`` step restored onto the ``dp_tp``
@@ -272,9 +271,11 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    (B 4, T 512, H 4), the serve shape (B 2, T 512), the whole pin's
    (B 8, T 512), the training shape (B 16, T 256) and the pipeline's
    microbatch (B 4, T 256), each against the plain version and beside the
-   count the plan takes there (4 at T 512, 2 at T 256); and whether
-   cuBLAS gives a row the same float32 answer at 512 to 4,096 rows for
-   the FFN's two matmuls, under each BLAS library PyTorch offers;
+   count the plan takes there (4 at T 512, 2 at T 256); and, for every
+   dense product of a pin (Wqkv, Wo, W1, W2, the head; float32 and the
+   int8 route's dequantized weight), whether a row comes out with the same
+   bits at every row count from 1 to 4,096: under ``fixed_matmul``
+   (``csrc/fixed_matmul.cu``, which must) and under cuBLAS (recorded);
 27. runs the ``keras`` phase (A8.1): (a) a Keras-1 archive of
    ``keras.applications``' VGG-16 (Keras 1.2 layout, Theano ordering,
    138,357,544 float32 params from a seed, about 553 MB) written by the
@@ -284,7 +285,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    then fine-tuned 4 steps at B = 32 on 224x224 inputs (exactly 4
    ``sm_xent`` launches), with the write, read, import and step times; (b)
    the same file through ``load_model_file`` and a ``ModelRegistry`` pin,
-   bitwise the imported network's output; (c) a character LSTM archive at
+   bitwise the imported network's output with its dense products through
+   ``fixed_matmul``, as a pin's; (c) a character LSTM archive at
    char_rnn's widths (two ``LSTM(200)`` with sigmoid gates over T 50 of
    64 characters, ``TimeDistributedDense(64, softmax)``) whose card output
    is held within 1e-5 of the CPU's, then the Keras gateway ``Server`` on
@@ -308,15 +310,30 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    broker frames: the runtime's ``decode_records`` on each float32 array
    bitwise ``wire.decode_array``, and a consumer's frames bitwise what was
    sent;
-29. reads the profiler's device time of every main-path kernel row and its
-   library call, and of ``lstm_fwd``'s two and ``lstm_bwd``'s three parts a
-   call at the training shapes;
-30. prints one JSON line describing each kernel, then
+29. runs the ``nlp`` phase (A8.3's ``nlp/`` and ``graph/``; no TPU kernel
+   on the path, so no kernel's launch count may move): (a) Word2Vec at
+   BASELINE config 4 through ``Word2Vec.builder()...fit()`` (vocab 10,000:
+   every word once, then 200,000 Zipf-drawn tokens in sentences of 20,
+   from a numpy seed; vectors of 100, 5 negatives, HS off, window 5,
+   1,024-pair batches): the first 20,000 tokens fitted on the card and on
+   the CPU from the same seed, syn0 and syn1neg within 1e-4 (norm); the
+   whole corpus on the card, its pairs/s; 32 of its batches profiled
+   (device ms a batch, idle share, top device ops); the bare step at
+   bench.py's shape (32 batches of 1,024 random pairs) timed beside its
+   bound; (b) one small fit each on the card against the CPU within 1e-4:
+   HS CBOW Word2Vec, ParagraphVectors DBOW with ``infer_vector``, GloVe,
+   ``SparkWord2Vec`` on 4 workers, DeepWalk on a 1,000-vertex graph;
+30. reads the profiler's device time of every main-path kernel row and its
+   library call (``fixed_matmul`` against cuBLAS at each pin product, held
+   against its plain version at step 3), and of ``lstm_fwd``'s two and
+   ``lstm_bwd``'s three parts a call at the training shapes;
+31. prints one JSON line describing each kernel (``fixed_matmul``'s too),
+   then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 To debug a phase alone on the card, ``run_phases`` sets the card up,
-builds the kernels and runs the named phases (``c3``, ``sharded_pins``,
-``keras``, ``native``).
+builds the kernels and runs the named phases (``fixed_matmul``, ``c3``,
+``sharded_pins``, ``keras``, ``native``, ``nlp``).
 
 Any failed check exits non-zero without the last line. Without CUDA it
 exits non-zero before printing anything. Full results also go to
@@ -333,6 +350,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -368,6 +386,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_gather, paged_gather_plain)
+from deeplearning4j_tpu_torch.ops.fixed_matmul import (
+    fixed_matmul, fixed_matmul_plain)
 from deeplearning4j_tpu_torch.ops.quant import (
     dequantize_leaf, int8_matmul, int8_matmul_plain, int8_matmul_plan,
     quantize_per_channel)
@@ -6521,23 +6541,12 @@ SH_AXES = {"data": 2, "model": 2}
 SH_SIZES = (1, 2, 3, 4, 8)
 SH_T, SH_REQUESTS, SH_THREADS, SH_SWAP_AT = 128, 32, 4, 12
 SH_STEPS = 2
-#: a sharded pin computes each row as the whole pin does. The flash
-#: forward's plan no longer moves with B*H (its key splits follow the head
-#: dim and T alone), but cuBLAS still picks another algorithm for the FFN's
-#: second product ([M, 1024] @ [1024, 256]) at another M: the c3 phase
-#: finds its rows bitwise across M = 512 to 4,096 under no BLAS library
-#: PyTorch offers (cublasLt only from M = 2,048 up). So where a slot's
-#: rows part from the whole batch (B = 4 and 8 on two data slots), each
-#: data slot's rows are held bitwise against the whole pin on the same
-#: rows, and the joined output's distance to the whole batch's (||got -
-#: want|| / ||want||, as the parallel phase holds params) within the whole
-#: pin's own distance to the CPU pin on the same batch, the float32
-#: rounding the card already shows. The bound that remains, measured on
-#: the H100 with the plan fixed: 8.4e-7 to 1.0e-6 (norm), 1.3e-6 to 2.2e-6
-#: of the largest value, float32 and int8 (2.92e-6 at B = 8 while the plan
-#: still moved with B*H). The replicas' two-row requests give a slot's
-#: rows the whole batch's M, and are held within SH_REL_TOL
-SH_REL_TOL = 1e-6
+#: a sharded pin computes each row as the whole pin does: the flash
+#: forward's key splits follow the head dim and T alone, and every
+#: float32 dense product of a pin runs through ops/fixed_matmul.py, whose
+#: answer for a row does not depend on the row count (cuBLAS's does, C3).
+#: So the sharded pin is held bitwise against the whole pin at every batch
+#: size, float32 and int8, as the JAX package holds its sharded pin
 #: the fits from a restore against one rank's fit from the whole restore
 #: (PR 19's dp_tp bound)
 SH_FIT_TOL = 1e-4
@@ -6548,31 +6557,38 @@ def _sh_devices(n: int) -> list:
     return ["cuda:0"] * n
 
 
-def _sh_hold(pf, ref, cpu_ref, ids) -> dict:
-    """The sharded pin's output on ``ids`` against the whole pin's: bitwise,
-    or (the card parting a slot's rows from the whole batch) each data
-    slot's rows bitwise against the whole pin on the same rows and the
-    whole within the whole pin's distance to ``cpu_ref`` (``ok``)."""
+#: the dense products of one forward of transformer_lm(256): Wqkv, Wo,
+#: W1, W2 in each of 4 blocks, and the head
+SH_PIN_PRODUCTS = 4 * 4 + 1
+
+
+def _pin_products(route: str):
+    """The pins' products through fixed_matmul (``"fixed"``, as the port
+    runs them) or, for the before-and-after timing alone, through cuBLAS
+    (``"cublas"``)."""
+    import contextlib
+    from deeplearning4j_tpu_torch.nn import inference
+    if route == "fixed":
+        return contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def cublas():
+        keep = inference.row_invariant_matmuls
+        inference.row_invariant_matmuls = contextlib.nullcontext
+        try:
+            yield
+        finally:
+            inference.row_invariant_matmuls = keep
+    return cublas()
+
+
+def _sh_hold(pf, ref, ids) -> dict:
+    """The sharded pin's output on ``ids`` against the whole pin's, which
+    must be bitwise; the distance is kept for the record when not."""
     got, want = pf(ids), ref(ids)
-    if torch.equal(got, want):
-        return {"bitwise": True, "rel_err": 0.0, "max_rel_err": 0.0,
-                "ok": True}
-    rel = _norm_rel(got, want)
-    yard = _norm_rel(want.cpu(), cpu_ref(ids))
-    from deeplearning4j_tpu_torch.parallel import partition
-    same_rows = True
-    if partition.batch_spec(pf.mesh, ids.shape[0]) != partition.pspec():
-        f = len(pf.mesh.lead_slots("data"))
-        for part, mine in zip(np.split(ids, f), got.chunk(f)):
-            lone = part.shape[0] == 1
-            run = np.concatenate([part, part]) if lone else part
-            same_rows &= torch.equal(mine, ref(run)[:part.shape[0]])
-    else:
-        same_rows = False  # a batch run whole is the whole pin's call
-    return {"bitwise": False, "rel_err": rel, "same_rows": same_rows,
-            "max_rel_err": float((got - want).abs().max()
-                                 / want.abs().max()),
-            "card_to_cpu": yard, "ok": same_rows and rel <= yard}
+    same = bool(torch.equal(got, want))
+    return {"bitwise": same, "rel_err": 0.0 if same else _norm_rel(got, want),
+            "ok": same}
 
 
 def _norm_rel(got, want) -> float:
@@ -6587,15 +6603,12 @@ def _sh_pins(kernels) -> dict:
     from deeplearning4j_tpu_torch.parallel import build_mesh, partition
     V = 256
     net = MultiLayerNetwork(transformer_lm(V), device="cuda").init(seed=SEED)
-    cpu_net = MultiLayerNetwork(transformer_lm(V), device="cpu").init(
-        seed=SEED)
     mesh = build_mesh(SH_AXES, devices=_sh_devices(4))
     rng = np.random.default_rng(SEED + 41)
-    out = {"sizes": {}, "launches": 0}
+    out = {"sizes": {}, "launches": 0, "fixed_matmul_launches": 0}
     for quant in (None, "int8"):
         label = quant or "float32"
         ref = make_predict_fn(net, device="cuda", quant=quant)
-        cpu_ref = make_predict_fn(cpu_net, device="cpu", quant=quant)
         pf = make_predict_fn(net, sharding="dp_tp", mesh=mesh, quant=quant)
         per = pf.per_device_param_bytes
         math = partition.per_device_bytes(pf.params_snapshot(),
@@ -6610,42 +6623,55 @@ def _sh_pins(kernels) -> dict:
         for B in SH_SIZES:
             ids = rng.integers(0, V, size=(B, 512)).astype(np.float32)
             _zero(kernels)
+            fixed_matmul.launches = 0
             got = pf(ids)
             torch.cuda.synchronize()
-            n = flash_fwd.launches
+            n, n_mm = flash_fwd.launches, fixed_matmul.launches
             # 4 attention forwards for each data slot that runs rows: both
-            # when the data axis divides B, the first alone otherwise
-            want = 4 * (SH_AXES["data"] if B % SH_AXES["data"] == 0 else 1)
+            # when the data axis divides B, the first alone otherwise; and
+            # each slot's dense products: 4 a block and the head's
+            slots = SH_AXES["data"] if B % SH_AXES["data"] == 0 else 1
+            want, want_mm = 4 * slots, SH_PIN_PRODUCTS * slots
             if got.shape != (B, 512, V) or not torch.isfinite(got).all():
                 fail(f"sharded (a) {label} B={B}: shape {tuple(got.shape)}")
-            if n != want or any(fn.launches for fn in kernels
-                                if fn is not flash_fwd):
+            if n != want or n_mm != want_mm or any(
+                    fn.launches for fn in kernels if fn is not flash_fwd):
                 fail(f"sharded (a) {label} B={B}: flash_fwd launched {n}, "
-                     f"want {want}")
+                     f"want {want}; fixed_matmul {n_mm}, want {want_mm}")
             out["launches"] += n
-            held_to = _sh_hold(pf, ref, cpu_ref, ids)
+            out["fixed_matmul_launches"] += n_mm
+            held_to = _sh_hold(pf, ref, ids)
             print(f"sharded (a) {label} B={B}: {n} flash_fwd launches "
-                  f"(want {want}); against the whole pin {held_to}",
-                  flush=True)
+                  f"(want {want}), {n_mm} fixed_matmul (want {want_mm}); "
+                  f"against the whole pin {held_to}", flush=True)
             if not held_to["ok"]:
                 fail(f"sharded (a) {label} B={B}: {held_to}")
             out["sizes"][f"{label}_{B}"] = held_to
         ids = rng.integers(0, V, size=(8, 512)).astype(np.float32)
         walls = {}
-        for name, fn in (("sharded", pf), ("whole", ref)):
-            fn(ids)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
-                fn(ids)
-            torch.cuda.synchronize()
-            walls[name] = 1e3 * (time.perf_counter() - t0) / 10
-        print(f"sharded (a) {label}: predict [8, 512] wall ms sharded "
-              f"{walls['sharded']:.3f}, whole {walls['whole']:.3f}",
-              flush=True)
+        # in turns: the pins' products through fixed_matmul, and through
+        # cuBLAS as before C3's repair (the harness swaps the pin's
+        # context for a no-op; the port has no such switch)
+        for route in ("fixed", "cublas", "cublas", "fixed"):
+            for name, fn in (("sharded", pf), ("whole", ref)):
+                with _pin_products(route):
+                    fn(ids)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        fn(ids)
+                    torch.cuda.synchronize()
+                walls.setdefault(f"{name}_{route}", []).append(
+                    1e3 * (time.perf_counter() - t0) / 10)
+        walls = {k: float(np.mean(v)) for k, v in walls.items()}
+        print(f"sharded (a) {label}: predict [8, 512] wall ms, products "
+              f"through fixed_matmul: sharded {walls['sharded_fixed']:.3f}, "
+              f"whole {walls['whole_fixed']:.3f}; through cuBLAS: sharded "
+              f"{walls['sharded_cublas']:.3f}, whole "
+              f"{walls['whole_cublas']:.3f} [{CARD}]", flush=True)
         out[label] = {"per_device_param_bytes": per,
                       "param_bytes": pf.param_bytes, "wall_ms": walls}
-    del net, cpu_net
+    del net
     return out
 
 
@@ -6711,19 +6737,18 @@ def _sh_replicas(kernels) -> dict:
         v = body["version"]
         versions.append(v)
         got = torch.tensor(np.asarray(body["predictions"], np.float32))
-        # the answer is the sharded pin's, bitwise; and the whole pin's
-        # as (a) holds it
+        # the answer is the sharded pin's, and the whole pin's, bitwise
         if not torch.equal(got, pins[v](ids[j]).cpu()):
             fail(f"sharded (b): request {j} is not the sharded pin's answer")
         worst = max(worst, _norm_rel(got, whole[v](ids[j]).cpu()))
     reps = st["replicas"]["replicas"]
     print(f"sharded (b): {SH_REQUESTS} requests in {wall:.2f}s, versions "
           f"{ {v: versions.count(v) for v in ('v1', 'v2')} }, worst rel err "
-          f"against the whole pin {worst:.3e} (tol {SH_REL_TOL:.0e}); "
+          f"against the whole pin {worst:.3e} (bitwise wanted); "
           f"flash_fwd {launches} (want {8 * SH_REQUESTS}); replicas "
           f"{[(r['slots'], r['mesh'], r['devices'], r['active'], r['routed']) for r in reps]}",
           flush=True)
-    if worst > SH_REL_TOL or "v2" not in versions or versions[-1] != "v2":
+    if worst != 0.0 or "v2" not in versions or versions[-1] != "v2":
         fail("sharded (b): answers or the swap")
     if launches != 8 * SH_REQUESTS:
         fail(f"sharded (b): flash_fwd launched {launches}")
@@ -6794,10 +6819,11 @@ def _sh_rank(rank: int, world: int, port: int, out: str, tmp: str) -> None:
     held = net._held_sharding
     n_blocks, held_bytes = len(held.blocks), held.held_bytes()
     blocks_ok = True
-    for (layer, name, slot), (block, d, axes) in held.blocks.items():
+    for (layer, name, slot), (block, splits) in held.blocks.items():
         t = (whole.params_list[layer][name] if slot is None
              else whole.updater_state[layer][name][slot])
-        want = t.detach().movedim(d, 0).chunk(world)[rank]
+        (d, _axes), = splits
+        want = t.detach().chunk(world, dim=d)[rank]
         blocks_ok &= torch.equal(block, want)
     x = torch.tensor(xs[SH_STEPS], device="cuda")
     _zero(kernels)
@@ -6971,9 +6997,17 @@ C3_SHAPES = {"predict": (4, 512, 4, 64), "serve": (2, 512, 4, 64),
              "whole8": (8, 512, 4, 64),
              "train": (TRAIN_B, TRAIN_T, 4, 64),
              "microbatch": (TRAIN_B // PAR_PIPE_M, TRAIN_T, 4, 64)}
-#: C3: the FFN's matmuls of transformer_lm(256) (K, N), at these row counts
-C3_FFN = ((1024, 256), (256, 1024))
-C3_ROWS = (512, 1024, 2048, 4096)
+#: C3: every dense product of a transformer_lm(256) pin (K, N), held at
+#: these row counts (M = B * T: 4,096 is the whole pin's [8, 512], 2,048 a
+#: data slot's share of it, 1,024 the serve phase's [2, 512])
+C3_PRODUCTS = {"Wqkv": (256, 768), "Wo": (256, 256), "W1": (256, 1024),
+               "W2": (1024, 256), "head": (256, 256)}
+C3_ROWS = (1, 2, 3, 5, 8, 64, 255, 512, 1000, 1024, 2048, 4096)
+C3_TIMED_ROWS = (4096, 2048, 1024)
+#: fixed_matmul against its plain version (cuBLAS in float32, TF32 off) on
+#: outputs of unit scale (w scaled by 1/sqrt(K)): the two sum in other
+#: orders, K = 1,024 terms at most
+FIXED_MM_TOL = 2e-5
 #: the keras phase: BASELINE config 5's VGG-16 at full width (the
 #: keras.applications layout of Keras 1.2, Theano dim ordering), fine-tuned
 #: at B = 32 for 4 steps; its softmax output against the CPU at B = 2, the
@@ -7003,13 +7037,69 @@ NATIVE_CSV_ROWS, NATIVE_CSV_B = 204_800, 1024
 NATIVE_FRAMES, NATIVE_FRAME_SHAPE = 32, (128, 784)
 
 
+def check_fixed_matmul(rows: list, dev) -> None:
+    """fixed_matmul (csrc/fixed_matmul.cu) against its plain version at
+    each product of a pin, at the whole pin's, a data slot's and the serve
+    phase's row counts; timed against the cuBLAS call (the plain version
+    on the card is that call)."""
+    g = torch.Generator().manual_seed(SEED + 53)
+    for name, (K, N) in C3_PRODUCTS.items():
+        w = (torch.randn(K, N, generator=g) / K ** 0.5).to(dev)
+        for M in C3_TIMED_ROWS:
+            x = torch.randn(M, K, generator=g).to(dev)
+            got = fixed_matmul(x, w)
+            err = float((got - fixed_matmul_plain(x, w)).abs().max())
+            ms = time_ms(lambda: fixed_matmul(x, w))
+            lib_ms = time_ms(lambda: torch.matmul(x, w))
+            row = report(rows, "fixed_matmul",
+                         {"M": M, "K": K, "N": N, "product": name}, err,
+                         FIXED_MM_TOL, ms, lib_ms, lib_ms,
+                         4 * (M * K + K * N + M * N), 2 * M * N * K)
+            if M == C3_TIMED_ROWS[1]:  # a data slot's share: the main path
+                DEVICE_TIMED.append((row,
+                                     lambda x=x, w=w: fixed_matmul(x, w),
+                                     lambda x=x, w=w: torch.matmul(x, w)))
+
+
+def c3_products() -> dict:
+    """C3's cuBLAS half: for every dense product of a pin, float32 and on
+    the int8 route's dequantized weight, whether a row comes out with the
+    same float32 bits at every row count, under fixed_matmul (which must)
+    and under cuBLAS (recorded)."""
+    g = torch.Generator().manual_seed(SEED + 52)
+    out = {}
+    top = max(C3_ROWS)
+    for name, (K, N) in C3_PRODUCTS.items():
+        w32 = torch.randn(K, N, generator=g) / K ** 0.5
+        x = torch.randn(top, K, generator=g).cuda()
+        for route in ("float32", "int8"):
+            w = (w32 if route == "float32"
+                 else dequantize_leaf(quantize_per_channel(w32))).cuda()
+            res = {}
+            for lib, fn in (("fixed_matmul", fixed_matmul),
+                            ("cublas", torch.matmul)):
+                whole = fn(x, w)
+                res[lib] = {M: bool(torch.equal(fn(x[:M], w), whole[:M]))
+                            for M in C3_ROWS}
+            out[f"{name}_{route}"] = res
+            print(f"c3 [M, {K}] @ [{K}, {N}] ({name}, {route}): rows "
+                  f"bitwise those of M = {top}: fixed_matmul at every M "
+                  f"{all(res['fixed_matmul'].values())}; cuBLAS "
+                  f"{ {M: v for M, v in res['cublas'].items() if not v} or 'at every M'} "
+                  f"off", flush=True)
+            if not all(res["fixed_matmul"].values()):
+                fail(f"c3: fixed_matmul {name} ({route}) changes a row "
+                     f"with M: {res['fixed_matmul']}")
+    fixed_matmul.launches = 0
+    return out
+
+
 def c3_phase() -> dict:
     """C3: the flash forward with 2 and with 4 key splits at D = 64 (both
     instantiated in csrc/flash_fwd.cu), timed in turns at each shape, the
     outputs of each held against the plain version, beside the count the
-    plan chooses there; then whether cuBLAS gives a row the same float32
-    answer at every row count, for the FFN's two matmuls, with each BLAS
-    library PyTorch offers."""
+    plan chooses there; then the pins' dense products across row counts
+    (:func:`c3_products`)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     keep = dict(fa.FWD_SPLITS)
     g = torch.Generator().manual_seed(SEED + 51)
@@ -7051,25 +7141,7 @@ def c3_phase() -> dict:
         if got != out["flash"][name]["splits_in_use"]:
             fail(f"c3: the plan at {name} takes {got} splits")
     flash_fwd.launches = 0
-    gm = torch.Generator().manual_seed(SEED + 52)
-    libs = ["default"] + [lib for lib in ("cublas", "cublaslt")]
-    before = torch.backends.cuda.preferred_blas_library()
-    try:
-        for lib in libs:
-            if lib != "default":
-                torch.backends.cuda.preferred_blas_library(lib)
-            for K, N in C3_FFN:
-                x = torch.randn(max(C3_ROWS), K, generator=gm).cuda()
-                w = torch.randn(K, N, generator=gm).cuda()
-                whole = x @ w
-                same = {M: bool(torch.equal((x[:M] @ w), whole[:M]))
-                        for M in C3_ROWS}
-                out["cublas"][f"{lib}_K{K}_N{N}"] = same
-                print(f"c3 cuBLAS ({lib}) [M, {K}] @ [{K}, {N}]: rows "
-                      f"bitwise those of M = {max(C3_ROWS)} at M = {same}",
-                      flush=True)
-    finally:
-        torch.backends.cuda.preferred_blas_library(before)
+    out["products"] = c3_products()
     return out
 
 
@@ -7238,11 +7310,18 @@ def _keras_vgg(kernels, tmp: str) -> dict:
         t0 = time.perf_counter()
         mv = ModelRegistry().load("vgg16_keras", path, device="cuda")
         load_s = time.perf_counter() - t0
-        pin_equal = bool(torch.equal(_pin_out(mv, xc.numpy()), card_out))
+        # a pin's dense products are fixed_matmul's (C3): the network's
+        # forward with the same products
+        from deeplearning4j_tpu_torch.ops.fixed_matmul import (
+            row_invariant_matmuls)
+        with row_invariant_matmuls():
+            pin_want = _out(net, xc.cuda())
+        pin_equal = bool(torch.equal(_pin_out(mv, xc.numpy()), pin_want))
     finally:
         torch.backends.cudnn.deterministic = prev
     print(f"keras (b) load_model_file + registry pin in {load_s:.2f}s: "
-          f"output bitwise the imported network's: {pin_equal}", flush=True)
+          f"output bitwise the imported network's (its dense products "
+          f"through fixed_matmul, as a pin's): {pin_equal}", flush=True)
     if not pin_equal:
         fail("keras (b): the served pin's output is not net.output's")
     del mv
@@ -7659,9 +7738,325 @@ def native_phase(kernels) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- A8.3 nlp
+#: BASELINE config 4 (BASELINE.md, "Word2Vec skip-gram"; bench.py:410-470):
+#: skip-gram with 5 negatives, HS off, vocab 10,000, vectors of 100, window
+#: 5, batches of 1,024 pairs. The corpus: every word once, then 200,000
+#: tokens drawn by Zipf's law (p ~ 1 / rank), in sentences of 20, from a
+#: numpy seed
+NLP_VOCAB, NLP_TOKENS, NLP_SENT = 10_000, 200_000, 20
+NLP_DIM, NLP_NEG, NLP_WINDOW, NLP_BATCH = 100, 5, 5, 1024
+#: the card's fit against the CPU's on the corpus's first tokens
+NLP_CHECK_TOKENS = 20_000
+#: batches profiled, and of the bare step at bench.py's shape
+NLP_PROFILED = 32
+#: card against CPU from the same seed and the same negatives,
+#: ||card - cpu|| / ||cpu|| of each table: the scatter-adds accumulate in
+#: another order on the card (atomics), and the float32 gaps grow over the
+#: fit's hundred-odd batches
+NLP_FIT_TOL = 1e-4
+
+
+def _word(i: int) -> str:
+    """The ``i``-th word: letters only, so CommonPreprocessor (the
+    distributed pipeline's) keeps every word apart."""
+    out = ""
+    while True:
+        i, r = divmod(i, 26)
+        out += chr(ord("a") + r)
+        if not i:
+            return "w" + out
+
+
+def _w2v_corpus(seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    words = np.array([_word(i) for i in range(NLP_VOCAB)])
+    p = 1.0 / np.arange(1, NLP_VOCAB + 1)
+    ids = np.concatenate([rng.permutation(NLP_VOCAB),
+                          rng.choice(NLP_VOCAB, NLP_TOKENS, p=p / p.sum())])
+    toks = words[ids].tolist()
+    return [toks[i:i + NLP_SENT] for i in range(0, len(toks), NLP_SENT)]
+
+
+def _w2v(sentences, device, **kw):
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.iterators import (
+        CollectionSentenceIterator)
+    b = (Word2Vec.builder().layer_size(kw.get("dim", NLP_DIM))
+         .window_size(kw.get("window", NLP_WINDOW)).min_word_frequency(1)
+         .seed(SEED).batch_size(kw.get("batch", NLP_BATCH)).device(device)
+         .iterate(CollectionSentenceIterator(
+             [" ".join(s) for s in sentences])))
+    if kw.get("cbow"):
+        b = b.elements_learning_algorithm("CBOW").use_hierarchic_softmax(True)
+    else:
+        b = b.negative_sample(NLP_NEG).use_hierarchic_softmax(False)
+    return b.build()
+
+
+class _one_cpu_thread:
+    """The CPU references of the nlp phase on one thread: their ops are a
+    few rows each, where a pool of threads costs more than it gives."""
+
+    def __enter__(self):
+        self.keep = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.keep)
+
+
+def _tables_rel(card, cpu, names) -> dict:
+    return {n: _norm_rel(getattr(card, n).cpu(), getattr(cpu, n))
+            for n in names}
+
+
+def _nlp_small(all_kernels) -> dict:
+    """One small fit each on the card against the CPU from the same seed:
+    HS CBOW Word2Vec, ParagraphVectors DBOW with infer_vector, GloVe,
+    SparkWord2Vec on 4 workers, DeepWalk on a 1,000-vertex graph."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.nlp import Glove, ParagraphVectors
+    from deeplearning4j_tpu_torch.nlp.distributed import SparkWord2Vec
+    from deeplearning4j_tpu_torch.nlp.iterators import (
+        LabelledDocument, SimpleLabelAwareIterator)
+    sents = _w2v_corpus(SEED + 61)[:400]
+    rng = np.random.default_rng(SEED + 62)
+    g_edges = [(int(a), int(b)) for a, b in rng.integers(0, 1000, (4000, 2))
+               if a != b]
+
+    def fits(device):
+        out = {}
+        t0 = time.perf_counter()
+        w = _w2v(sents, device, dim=32, cbow=True, batch=256)
+        w.fit()
+        out["cbow"] = (w.lookup, ("syn0", "syn1"), time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        docs = [LabelledDocument(" ".join(s), [f"DOC_{i}"])
+                for i, s in enumerate(sents[:100])]
+        pv = (ParagraphVectors.builder().layer_size(32).window_size(4)
+              .seed(SEED).device(device)
+              .iterate(SimpleLabelAwareIterator(docs)).build())
+        pv.fit()
+        out["infer"] = pv.infer_vector(" ".join(sents[0]))
+        out["pv_dbow"] = (pv.lookup, ("syn0", "syn1"),
+                          time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        gl = (Glove.builder().layer_size(32).window_size(4).epochs(2)
+              .seed(SEED).batch_size(1024).device(device).build())
+        gl.fit(sents[:200])
+        out["glove"] = (gl.lookup, ("syn0",), time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sp = SparkWord2Vec(num_workers=4, vector_length=32, window=4,
+                           seed=SEED, use_hierarchic_softmax=True,
+                           batch_size=256, device=device).fit(
+            [" ".join(s) for s in sents[:200]])
+        out["spark4"] = (sp.master.lookup, ("syn0", "syn1"),
+                         time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        graph = Graph(1000)
+        for a, b in g_edges:
+            graph.add_edge(a, b)
+        dw = (DeepWalk.builder().vector_size(32).window_size(4).seed(SEED)
+              .device(device).build())
+        dw.fit(graph, walk_length=10)
+        out["deepwalk"] = (dw.model.lookup, ("syn0", "syn1"),
+                           time.perf_counter() - t0)
+        return out
+
+    card = fits("cuda")
+    with _one_cpu_thread():
+        cpu = fits("cpu")
+    res = {}
+    for name in ("cbow", "pv_dbow", "glove", "spark4", "deepwalk"):
+        lt, names, card_s = card[name]
+        clt, _n, cpu_s = cpu[name]
+        rel = _tables_rel(lt, clt, names)
+        res[name] = {"rel": rel, "card_s": card_s, "cpu_s": cpu_s,
+                     "finite": bool(torch.isfinite(lt.syn0).all())}
+        print(f"nlp (b) {name}: card against CPU {rel} (tol "
+              f"{NLP_FIT_TOL:.0e}); card {card_s:.2f}s, CPU {cpu_s:.2f}s",
+              flush=True)
+        if not (res[name]["finite"] and max(rel.values()) <= NLP_FIT_TOL):
+            fail(f"nlp (b) {name}: card against CPU {rel}")
+    inf = _norm_rel(torch.from_numpy(card["infer"]),
+                    torch.from_numpy(cpu["infer"]))
+    res["infer_vector_rel"] = inf
+    print(f"nlp (b) infer_vector: card against CPU {inf:.3e}", flush=True)
+    if not inf <= NLP_FIT_TOL:
+        fail(f"nlp (b) infer_vector: {inf}")
+    return res
+
+
+def nlp_phase(kernels) -> dict:
+    """A8.3's embedding engine on the card: Word2Vec at BASELINE config 4
+    through ``Word2Vec.builder()...fit()`` (the corpus's first tokens on
+    the card against the CPU, then the whole corpus on the card, pairs/s;
+    32 batches profiled), the bare step at bench.py's shape, and the small
+    fits of :func:`_nlp_small`. No TPU kernel lies on this path: no
+    kernel's count may move."""
+    from deeplearning4j_tpu_torch.nlp import learning
+    all_kernels = tuple(kernels) + (fixed_matmul,)
+    _zero(all_kernels)
+    out = {"part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        t_part = now
+    sents = _w2v_corpus(SEED + 60)
+    head = sents[:NLP_CHECK_TOKENS // NLP_SENT]
+    # (a) the card against the CPU on the first tokens
+    fitted = {}
+    for device in ("cuda", "cpu"):
+        w = _w2v(head, device)
+        t0 = time.perf_counter()
+        if device == "cuda":
+            w.fit()
+            torch.cuda.synchronize()
+        else:
+            with _one_cpu_thread():
+                w.fit()
+        fitted[device] = (w, time.perf_counter() - t0)
+    rel = _tables_rel(fitted["cuda"][0].lookup, fitted["cpu"][0].lookup,
+                      ("syn0", "syn1neg"))
+    out["check"] = {"tokens": sum(map(len, head)), "rel": rel,
+                    "card_s": fitted["cuda"][1], "cpu_s": fitted["cpu"][1]}
+    print(f"nlp (a) Word2Vec config 4 on {out['check']['tokens']} tokens: "
+          f"card against CPU {rel} (tol {NLP_FIT_TOL:.0e}); card "
+          f"{fitted['cuda'][1]:.2f}s, CPU {fitted['cpu'][1]:.2f}s",
+          flush=True)
+    if max(rel.values()) > NLP_FIT_TOL:
+        fail(f"nlp (a): card against CPU {rel}")
+    del fitted
+    part("check")
+    # the whole corpus on the card
+    w = _w2v(sents, "cuda")
+    t0 = time.perf_counter()
+    w.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pairs = w.pairs_trained
+    syn0 = w.lookup.syn0
+    if syn0.shape != (NLP_VOCAB, NLP_DIM) or not torch.isfinite(syn0).all():
+        fail(f"nlp (a): syn0 {tuple(syn0.shape)}")
+    out["fit"] = {"tokens": sum(map(len, sents)), "pairs": pairs,
+                  "batches": -(-pairs // NLP_BATCH), "wall_s": wall,
+                  "pairs_per_s": pairs / wall}
+    print(f"nlp (a) Word2Vec config 4 fit: {out['fit']['tokens']} tokens, "
+          f"{pairs} pairs in {out['fit']['batches']} batches, {wall:.2f}s "
+          f"wall: {pairs / wall:.0f} pairs/s [{CARD}]", flush=True)
+    part("fit")
+    # 32 of its batches profiled: stage and step, as fit runs them
+    acc = learning.BatchAccumulator(NLP_BATCH, 1, 1, NLP_VOCAB)
+    batches = []
+    gen = (b for s in sents for b in w._train_sequence(s, [], acc))
+    while len(batches) < NLP_PROFILED:
+        batches.append(next(gen))
+    lt = w.lookup
+    step = learning.make_train_step(False, NLP_NEG)
+    C, S = learning.chunking(NLP_BATCH, 64)
+    spare = torch.zeros((1, NLP_DIM), device="cuda")
+    us = [torch.rand((C, S, NLP_NEG), generator=w._gen).numpy()
+          for _ in batches]
+
+    def run32():
+        for b, u in zip(batches, us):
+            st, lr, u_dev = learning.stage(b, "cuda", 0.025, u)
+            step(lt.syn0, spare, lt.syn1neg, lt.cum_table, st, lr, u_dev)
+    run32()
+    torch.cuda.synchronize()
+    # the device's events alone (no CPU op tracing: the 32 batches are some
+    # 23,000 ops), their averages read once
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run32()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    t_read = time.perf_counter()
+    averages = prof.key_averages()
+    once = types.SimpleNamespace(key_averages=lambda: averages)
+    dev_us = _device_us(once)
+    top = sorted(((us_, k, n) for k, n, us_ in device_events(once)),
+                 reverse=True)[:6]
+    out["part_s"]["profile_readout"] = time.perf_counter() - t_read
+    out["profile"] = {
+        "batches": NLP_PROFILED, "wall_ms_per_batch": 1e3 * pwall / NLP_PROFILED,
+        "device_ms_per_batch": dev_us / 1e3 / NLP_PROFILED,
+        "idle": 1 - dev_us / 1e6 / pwall,
+        "top_ops": [{"name": k[:80], "count": n, "us": u} for u, k, n in top]}
+    print(f"nlp (a) profile of {NLP_PROFILED} batches: wall ms a batch "
+          f"{out['profile']['wall_ms_per_batch']:.3f}, device ms a batch "
+          f"{out['profile']['device_ms_per_batch']:.4f}, idle "
+          f"{100 * out['profile']['idle']:.1f}%; top device ops "
+          f"{[(t['name'][:48], t['count'], round(t['us'], 1)) for t in out['profile']['top_ops']]}",
+          flush=True)
+    part("profile")
+    # the bare step at bench.py:410-470's shape: random pairs
+    rng = np.random.default_rng(0)
+    tab0 = torch.from_numpy(rng.normal(size=(NLP_VOCAB, NLP_DIM))
+                            .astype(np.float32) * 0.01).cuda()
+    tabn = torch.zeros((NLP_VOCAB, NLP_DIM), device="cuda")
+    cum = torch.from_numpy((np.arange(1, NLP_VOCAB + 1) / NLP_VOCAB)
+                           .astype(np.float32)).cuda()
+    bare = []
+    for _ in range(NLP_PROFILED):
+        ones = np.ones((NLP_BATCH, 1), np.float32)
+        zi = np.zeros((NLP_BATCH, 1), np.int32)
+        hb = learning.PairBatch(
+            rng.integers(0, NLP_VOCAB, (NLP_BATCH, 1)).astype(np.int32),
+            ones, rng.integers(0, NLP_VOCAB, NLP_BATCH).astype(np.int32), zi,
+            zi.astype(np.float32), zi.astype(np.float32),
+            np.ones(NLP_BATCH, np.float32),
+            rng.integers(0, NLP_VOCAB, (NLP_BATCH, 1)).astype(np.int32))
+        bare.append(learning.stage(hb, "cuda", 0.025,
+                                   rng.random((C, S, NLP_NEG),
+                                              np.float32)))
+
+    def run_bare():
+        for st, lr, u_dev in bare:
+            step(tab0, spare, tabn, cum, st, lr, u_dev)
+    run_bare()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_bare()
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    # the least time: each pair reads its input row and 6 output rows and
+    # writes the 7 back (float32, D = 100), the indices and uniforms once
+    nbytes = NLP_BATCH * (7 * NLP_DIM * 4 * 2 + 4 * 3 + 4 * NLP_NEG)
+    ops = NLP_BATCH * (1 + NLP_NEG) * NLP_DIM * 2 * 3
+    bms, bby = bound(nbytes, ops)
+    out["bare_step"] = {"wall_ms": 1e3 * bwall / NLP_PROFILED,
+                        "bound_ms": bms, "bound_by": bby,
+                        "pairs_per_s": NLP_BATCH * NLP_PROFILED / bwall}
+    print(f"nlp (a) bare step at bench.py's shape (V {NLP_VOCAB}, D "
+          f"{NLP_DIM}, {NLP_NEG} negatives, {NLP_BATCH} pairs): wall ms a "
+          f"batch {out['bare_step']['wall_ms']:.3f} (its device time: the "
+          f"profiled batches'), bound {bms:.5f} ({bby}); "
+          f"{out['bare_step']['pairs_per_s']:.0f} pairs/s [{CARD}]",
+          flush=True)
+    del w, batches, bare
+    part("bare_step")
+    out["small"] = _nlp_small(all_kernels)
+    part("small")
+    print(f"nlp: seconds by part {out['part_s']}", flush=True)
+    moved = {fn.__name__: fn.launches for fn in all_kernels if fn.launches}
+    print(f"nlp: kernel launches during the phase {moved or 'none'}",
+          flush=True)
+    if moved:
+        fail(f"nlp: a kernel launched on a path that has none: {moved}")
+    return out
+
+
 #: the phases :func:`run_phases` runs alone, by name
 PHASES_ALONE = {"c3": lambda k: c3_phase(), "sharded_pins": _sh_pins,
-                "keras": keras_phase, "native": native_phase}
+                "fixed_matmul": lambda k: check_fixed_matmul(
+                    [], torch.device("cuda")),
+                "keras": keras_phase, "native": native_phase,
+                "nlp": nlp_phase}
 
 
 def run_phases(*names: str) -> dict:
@@ -7723,6 +8118,7 @@ def main() -> None:
     check_flash_noncausal(rows, dev)
     check_lstm(rows, dev)
     check_bf16(rows, dev)
+    check_fixed_matmul(rows, dev)
 
     kernels = (int8_matmul, paged_gather, flash_fwd, softmax_cross_entropy,
                flash_bwd_dq, flash_bwd_dkv, lstm_ops.lstm_fwd,
@@ -7755,7 +8151,8 @@ def main() -> None:
                         ("elastic", elastic_phase),
                         ("c3", lambda k: c3_phase()),
                         ("sharded", sharded_phase),
-                        ("keras", keras_phase), ("native", native_phase)):
+                        ("keras", keras_phase), ("native", native_phase),
+                        ("nlp", nlp_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
@@ -7766,8 +8163,8 @@ def main() -> None:
         phase_s[n][0] for n in ("spec", "replicas", "multi_input",
                                 "parallel", "param_server", "elastic",
                                 "sharded"))
-    c3_run, keras_run, native_run = (phase_s[n][0]
-                                     for n in ("c3", "keras", "native"))
+    c3_run, keras_run, native_run, nlp_run = (
+        phase_s[n][0] for n in ("c3", "keras", "native", "nlp"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -8151,6 +8548,16 @@ def main() -> None:
                                          "T": 512, "D": 64}))}
         add_a8_paths(entry, fname, name)
         line.append(entry)
+    # C3's repair: the serving pins' dense products, at a data slot's
+    # share of the whole pin's [8, 512] (the FFN's down-projection); no
+    # TPU kernel stands behind it (XLA's dot in the JAX package)
+    line.append({"name": "fixed_matmul", "route": "cuda",
+                 "source": "deeplearning4j_tpu_torch/csrc/fixed_matmul.cu",
+                 "replaces": "deeplearning4j_tpu/nn/conf/layers/"
+                             "feedforward.py:34",
+                 "launches": sh_run["pins"]["fixed_matmul_launches"],
+                 **nums(row_at("fixed_matmul",
+                               {"M": 2048, "K": 1024, "N": 256}))})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "rows": rows,
@@ -8167,6 +8574,7 @@ def main() -> None:
                    "parallel": par_run, "param_server": ps_run,
                    "elastic": el_run, "sharded": sh_run, "c3": c3_run,
                    "keras": keras_run, "native": native_run,
+                   "nlp": nlp_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

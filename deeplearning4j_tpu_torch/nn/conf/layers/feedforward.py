@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ....common import accum_dtype, get_policy
+from ....ops.fixed_matmul import fixed_matmul, row_invariant
 from ....ops.losses import get_loss
 from ..serde import register_layer
 from .base import FeedForwardLayer, Layer, PretrainLayer, random_uniform
@@ -62,6 +63,9 @@ def policy_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     cd = get_policy().compute_dtype
     acc = accum_dtype(cd)
     if acc is None:
+        if cd == torch.float32 and row_invariant():
+            # a serving pin's product (ops/fixed_matmul.py)
+            return fixed_matmul(x.to(cd), w.to(cd))
         return torch.matmul(x.to(cd), w.to(cd))
     return WideMatmul.apply(x, w, cd, acc)
 

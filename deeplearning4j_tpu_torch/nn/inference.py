@@ -34,10 +34,13 @@ whole, on the first device. So the sharded pin computes each row as the
 single-device pin computes it, which is the JAX package's serving bitwise
 contract (its module docstring): the gain is resident bytes and data-axis
 scale-out, not distributed products, and the gather must not become
-sharded compute. One exception is staged, not computed: a slot whose share
-is one row runs it beside a copy of itself and keeps the first row, since
-a one-row product takes BLAS's matrix-vector route, whose sums run in
-another order than the matrix product of a whole batch.
+sharded compute. On the card every float32 dense product of a pin runs
+through ``ops/fixed_matmul.py``, whose answer for a row does not depend on
+the row count (cuBLAS's does), so the sharded pin is bitwise the whole pin
+at every batch size. One exception is staged, not computed, for the CPU: a
+slot whose share is one row runs it beside a copy of itself and keeps the
+first row, since a one-row product takes BLAS's matrix-vector route, whose
+sums run in another order than the matrix product of a whole batch.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import torch
 
 from ..common import resolve_device, wrap_with_policy
 from .graph_network import ComputationGraph
+from ..ops.fixed_matmul import row_invariant_matmuls
 from ..ops.quant import dequantize_tree, quantize_tree, tree_param_bytes
 
 #: the name every serving forward pins under, decorated per version, int8
@@ -212,9 +216,10 @@ class PredictFn:
     def _forward_on(self, params, states, xs):
         if self.quant == "int8":
             params = dequantize_tree(params)
-        if not self._graph:
-            return self._forward(params, states, xs[0])
-        outs = self._forward(params, states, xs)
+        with row_invariant_matmuls():
+            if not self._graph:
+                return self._forward(params, states, xs[0])
+            outs = self._forward(params, states, xs)
         return outs[0] if self._single_out else outs
 
     def _run(self, xs):

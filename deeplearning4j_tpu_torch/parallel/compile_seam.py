@@ -198,14 +198,16 @@ class WholeViews:
 
 # --------------------------------------------------------------- ZeRO layout
 class _Leaf:
-    """One param's placement: the dim its updater state is split on
-    (``udim``) and the dim the param itself is split on between steps
-    (``pdim``), None where whole."""
+    """One param's placement: the splits its updater state is cut by
+    (``usplit``) and those the param itself is cut by between steps
+    (``psplit``), each a tuple of ``(dim, axes)`` in dim order (a spec may
+    split one dim or several), None where whole."""
 
-    __slots__ = ("key", "name", "udim", "pdim")
+    __slots__ = ("key", "name", "usplit", "psplit")
 
-    def __init__(self, key, name, udim, pdim):
-        self.key, self.name, self.udim, self.pdim = key, name, udim, pdim
+    def __init__(self, key, name, usplit, psplit):
+        self.key, self.name = key, name
+        self.usplit, self.psplit = usplit, psplit
 
 
 def _spec_at(specs, key, name):
@@ -224,27 +226,41 @@ def _spec_at(specs, key, name):
     return node
 
 
-def _dim(spec) -> Optional[int]:
-    at = partition.one_split(spec, "the ZeRO placement")
-    return None if at is None else at[0]
+def _splits(spec) -> Optional[tuple]:
+    """``((dim, axes), ...)`` of every dim ``spec`` splits, None if none."""
+    return tuple(partition.split_dims(spec)) or None
+
+
+def gather_blocks(block: torch.Tensor, splits, mesh,
+                  site: str) -> torch.Tensor:
+    """The whole tensor from every rank's ``block`` under ``splits``: one
+    all-gather over each split dim's axes, the last dim first."""
+    t = block
+    for d, axes in reversed(splits):
+        group = mesh.group(*axes)
+        if group is None:
+            continue
+        n = mesh.axis_size(*axes)
+        parts = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                            dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(parts, t.contiguous(), group=group)
+        count_collective("all_gather", site, _nbytes(parts))
+        t = torch.cat(parts.view((n,) + tuple(t.shape)).unbind(0), dim=d)
+    return t
 
 
 class Sharding(WholeViews):
-    """The ZeRO placement of one network on one mesh axis: which leaves are
-    split on which dim, this rank's shards (dim moved to the front, so a
-    shard is a contiguous block), and the collectives that move between
-    them and the whole."""
+    """The ZeRO placement of one network on the mesh: which leaves are
+    split on which dims (a spec may split one or several, each over its
+    own axes), this rank's shards (each the spec's contiguous block, in its
+    leaf's layout), and the collectives that move between them and the
+    whole."""
 
-    def __init__(self, view: NetView, mesh, axis: str, param_specs,
-                 upd_specs, reduce_axes):
-        self.view, self.mesh, self.axis = view, mesh, axis
-        self.group = mesh.group(axis)
-        self.n = mesh.shape[axis]
-        self.idx = mesh.coords[axis]
-        #: the axes a gradient is averaged over before the scatter (the
-        #: sequence axis), with their group
-        self.pre_axes = tuple(a for a in reduce_axes if a != axis)
-        self.pre_group = mesh.group(*self.pre_axes) if self.pre_axes else None
+    def __init__(self, view: NetView, mesh, param_specs, upd_specs,
+                 reduce_axes):
+        self.view, self.mesh = view, mesh
+        #: the axes that split the batch: a gradient is averaged over them
+        self.reduce_axes = tuple(reduce_axes)
         self.reduce_n = mesh.axis_size(*reduce_axes)
         net_upd = view.net.updater_state
         self.leaves: Dict[tuple, _Leaf] = {}
@@ -252,65 +268,80 @@ class Sharding(WholeViews):
         for key in view.keys:
             for name in params[key]:
                 slots = view.upd_of(net_upd, key).get(name, {})
-                udim = (_dim(_spec_at(upd_specs, key, name)) if slots
-                        else None)
-                pdim = _dim(_spec_at(param_specs, key, name))
-                if None not in (udim, pdim) and udim != pdim:
+                usplit = (_splits(_spec_at(upd_specs, key, name)) if slots
+                          else None)
+                psplit = _splits(_spec_at(param_specs, key, name))
+                if None not in (usplit, psplit) and usplit != psplit:
                     raise ValueError(
-                        f"{key}/{name}: updater state split on dim {udim}, "
-                        f"the param on dim {pdim}; they must agree")
-                self.leaves[(key, name)] = _Leaf(key, name, udim, pdim)
-        #: this rank's param shards (pdim first) of the params split at rest
+                        f"{key}/{name}: updater state split as {usplit}, "
+                        f"the param as {psplit}; they must agree")
+                for d, axes in usplit or ():
+                    red = set(axes) & set(self.reduce_axes)
+                    if red and red != set(axes):
+                        raise ValueError(
+                            f"{key}/{name}: dim {d} is split over {axes}, "
+                            f"batch axes and others at once")
+                self.leaves[(key, name)] = _Leaf(key, name, usplit, psplit)
+        #: this rank's param shards of the params split at rest
         self.param_shards: Dict[tuple, torch.Tensor] = {}
         #: layers whose params are whole in this step
         self.gathered: set = set()
 
     # -- shards
-    def shard(self, t: torch.Tensor, d: int) -> torch.Tensor:
-        """This rank's block of ``t`` along ``d``, ``d`` moved first."""
-        return t.movedim(d, 0).chunk(self.n)[self.idx].clone()
+    def shard(self, t: torch.Tensor, splits) -> torch.Tensor:
+        """This rank's block of ``t`` under ``splits``."""
+        return partition.block_of(t, splits, self.mesh)
 
     def gather_into(self, full: torch.Tensor, shard: torch.Tensor,
-                    d: int, site: str) -> None:
-        """All-gather ``shard`` (``d`` first) over the axis into ``full``."""
-        buf = torch.empty((shard.shape[0] * self.n,) + tuple(shard.shape[1:]),
-                          dtype=shard.dtype, device=shard.device)
-        if self.group is None:
-            buf.copy_(shard)
-        else:
-            dist.all_gather_into_tensor(buf, shard.contiguous(),
-                                        group=self.group)
-            count_collective("all_gather", site, _nbytes(buf))
-        full.copy_(buf.movedim(0, d))
+                    splits, site: str) -> None:
+        """All-gather ``shard`` over ``splits``' axes into ``full``."""
+        full.copy_(gather_blocks(shard, splits, self.mesh, site))
 
-    def reduce_scatter(self, g: torch.Tensor, d: int) -> torch.Tensor:
+    def split_group(self, splits):
+        """The process group of every axis ``splits`` cut over (a block's
+        peers)."""
+        return self.mesh.group(*(a for _d, axes in splits for a in axes))
+
+    def reduce_scatter(self, g: torch.Tensor, splits) -> torch.Tensor:
         """The average of ``g`` over the batch's ranks, this rank's block
-        along ``d`` (``d`` first)."""
-        g = g.movedim(d, 0).contiguous()
-        if self.pre_group is not None:
-            dist.all_reduce(g, group=self.pre_group)
-        out = torch.empty((g.shape[0] // self.n,) + tuple(g.shape[1:]),
-                          dtype=g.dtype, device=g.device)
-        if self.group is None:
-            out.copy_(g)
-        else:
-            dist.reduce_scatter_tensor(out, g, group=self.group)
-            count_collective("reduce_scatter", "zero", _nbytes(g))
-        return out.div_(self.reduce_n)
+        under ``splits``: summed by ``reduce_scatter_tensor`` along each
+        dim split over batch axes, cut along a dim split over other axes
+        (its ranks computed the same gradient), all-reduced first over the
+        batch axes no split covers."""
+        mesh = self.mesh
+        cut = {a for _d, axes in splits for a in axes}
+        pre = tuple(a for a in self.reduce_axes if a not in cut)
+        pre_group = mesh.group(*pre) if pre else None
+        if pre_group is not None:
+            g = g.clone()
+            dist.all_reduce(g, group=pre_group)
+        for d, axes in splits:
+            group = mesh.group(*axes)
+            n = mesh.axis_size(*axes)
+            if set(axes) <= set(self.reduce_axes) and group is not None:
+                gd = g.movedim(d, 0).contiguous()
+                out = torch.empty((gd.shape[0] // n,) + tuple(gd.shape[1:]),
+                                  dtype=gd.dtype, device=gd.device)
+                dist.reduce_scatter_tensor(out, gd, group=group)
+                count_collective("reduce_scatter", "zero", _nbytes(gd))
+                g = out.movedim(0, d)
+            else:
+                g = g.chunk(n, dim=d)[mesh.index(*axes)]
+        return (g / self.reduce_n).contiguous()
 
     # -- the network's state in and out of the placement
     @torch.no_grad()
     def scatter_updater_state(self, upd):
         """The network's whole updater state as this rank's shards (leaves
-        with a ``udim``); the rest stays as it is."""
+        with a ``usplit``); the rest stays as it is."""
         view = self.view
         by_key = {}
         for key in view.keys:
             own = view.upd_of(upd, key)
             by_key[key] = {
-                name: ({s: self.shard(t, self.leaves[(key, name)].udim)
+                name: ({s: self.shard(t, self.leaves[(key, name)].usplit)
                         for s, t in slots.items()}
-                       if self.leaves[(key, name)].udim is not None
+                       if self.leaves[(key, name)].usplit is not None
                        else slots)
                 for name, slots in own.items()}
         return view.new_upd(by_key, upd)
@@ -326,14 +357,14 @@ class Sharding(WholeViews):
             layer = {}
             for name, slots in own.items():
                 leaf = self.leaves[(key, name)]
-                if leaf.udim is None:
+                if leaf.usplit is None:
                     layer[name] = slots
                     continue
                 whole = {}
                 for s, t in slots.items():
                     full = torch.empty(params[key][name].shape, dtype=t.dtype,
                                        device=t.device)
-                    self.gather_into(full, t, leaf.udim, "zero_state")
+                    self.gather_into(full, t, leaf.usplit, "zero_state")
                     whole[s] = full
                 layer[name] = whole
             by_key[key] = layer
@@ -357,11 +388,11 @@ class Sharding(WholeViews):
         network's full tensor gives its storage back."""
         params = self.view.params()
         for (key, name), leaf in self.leaves.items():
-            if leaf.pdim is None:
+            if leaf.psplit is None:
                 continue
             p = params[key][name]
             if (key, name) not in self.param_shards:
-                self.param_shards[(key, name)] = self.shard(p, leaf.pdim)
+                self.param_shards[(key, name)] = self.shard(p, leaf.psplit)
             free_storage(p)
         self.gathered.clear()
 
@@ -375,10 +406,10 @@ class Sharding(WholeViews):
         params = self.view.params()
         for name, p in params[key].items():
             leaf = self.leaves[(key, name)]
-            if leaf.pdim is None:
+            if leaf.psplit is None:
                 continue
             p.untyped_storage().resize_(p.numel() * p.element_size())
-            self.gather_into(p, self.param_shards[(key, name)], leaf.pdim,
+            self.gather_into(p, self.param_shards[(key, name)], leaf.psplit,
                              "fsdp")
 
     def gather_all(self) -> None:
@@ -388,7 +419,7 @@ class Sharding(WholeViews):
     def at_use(self, params):
         """``params`` as a container that gathers a layer's leaves when the
         forward first reads it."""
-        if not any(l.pdim is not None for l in self.leaves.values()):
+        if not any(l.psplit is not None for l in self.leaves.values()):
             return params
         if isinstance(params, dict):
             return _GatherDict(params, self.gather_layer)
@@ -398,14 +429,14 @@ class Sharding(WholeViews):
         """What a sharded checkpoint saves of a leaf (``slot`` None) or of
         an updater slot between steps: ``(key suffix, tensor)``, this
         rank's block (its dim first) of one split at rest."""
-        from ..utils.sharded_checkpoint import shard_suffix
+        from ..utils.sharded_checkpoint import stored_block
         leaf = self.leaves.get((key, name))
-        d = None if leaf is None else (leaf.pdim if slot is None
-                                       else leaf.udim)
-        if d is None:
+        splits = None if leaf is None else (leaf.psplit if slot is None
+                                            else leaf.usplit)
+        if splits is None:
             return "", t
         block = self.param_shards[(key, name)] if slot is None else t
-        return shard_suffix(self.idx, self.n, d), block
+        return stored_block(block, splits, self.mesh)
 
     def held_bytes(self) -> int:
         """Bytes of params this rank holds between steps."""
@@ -414,7 +445,7 @@ class Sharding(WholeViews):
         for (key, name), leaf in self.leaves.items():
             p = params[key][name]
             total += (_nbytes(self.param_shards[(key, name)])
-                      if leaf.pdim is not None and (key, name)
+                      if leaf.psplit is not None and (key, name)
                       in self.param_shards else _nbytes(p))
         return total
 
@@ -422,8 +453,8 @@ class Sharding(WholeViews):
     def held_parts(self) -> frozenset:
         leaves = self.leaves.values()
         return frozenset(
-            (["params"] if any(l.pdim is not None for l in leaves) else [])
-            + (["updater"] if any(l.udim is not None for l in leaves)
+            (["params"] if any(l.psplit is not None for l in leaves) else [])
+            + (["updater"] if any(l.usplit is not None for l in leaves)
                else []))
 
     def _view_in(self, parts) -> int:
@@ -432,14 +463,14 @@ class Sharding(WholeViews):
         if "params" in parts:
             self.gather_all()
             nbytes += sum(_nbytes(params[k][n]) for (k, n), l
-                          in self.leaves.items() if l.pdim is not None)
+                          in self.leaves.items() if l.psplit is not None)
         if "updater" in parts:
             self._held_upd = net.updater_state
             net.updater_state = self.gather_updater_state(self._held_upd)
             nbytes += sum(_nbytes(t) for k in self.view.keys
                           for n, slots in self.view.upd_of(
                               net.updater_state, k).items()
-                          if self.leaves[(k, n)].udim is not None
+                          if self.leaves[(k, n)].usplit is not None
                           for t in slots.values())
         return nbytes
 
@@ -454,8 +485,9 @@ class Sharding(WholeViews):
 class RestoredSharding(WholeViews):
     """The placement a restore onto a sharding installs
     (``utils/sharded_checkpoint.restore_sharded``): each leaf its spec
-    splits is held on this rank as the spec's block, its dim first, for the
-    param and for each updater slot of the param's shape; the network's
+    splits (on one dim or several) is held on this rank as the spec's
+    block, for the param and for each updater slot of the param's shape;
+    the network's
     whole tensors of those leaves give their storage back. It answers
     :meth:`checkpoint_entry` as the fits' placements do, gives whole views
     (``output`` reads through one), and :meth:`settle` makes the network
@@ -485,21 +517,12 @@ class RestoredSharding(WholeViews):
     def _assemble(self, parts) -> int:
         """The whole tensors of ``parts`` from every rank's blocks."""
         nbytes = 0
-        for (layer, name, slot), (block, d, axes) in self.blocks.items():
+        for (layer, name, slot), (block, splits) in self.blocks.items():
             if ("params" if slot is None else "updater") not in parts:
                 continue
             full = self._whole(layer, name, slot)
             full.untyped_storage().resize_(_nbytes(full))
-            group, n = self.mesh.group(*axes), self.mesh.axis_size(*axes)
-            buf = torch.empty((block.shape[0] * n,) + tuple(block.shape[1:]),
-                              dtype=block.dtype, device=block.device)
-            if group is None:
-                buf.copy_(block)
-            else:
-                dist.all_gather_into_tensor(buf, block.contiguous(),
-                                            group=group)
-                count_collective("all_gather", "restored", _nbytes(buf))
-            full.copy_(buf.movedim(0, d))
+            full.copy_(gather_blocks(block, splits, self.mesh, "restored"))
             nbytes += _nbytes(full)
         return nbytes
 
@@ -529,13 +552,11 @@ class RestoredSharding(WholeViews):
     def checkpoint_entry(self, key, name, t: torch.Tensor, slot):
         """``(key suffix, tensor)`` a sharded checkpoint saves of a leaf:
         this rank's block under a shard key, or the whole leaf."""
-        from ..utils.sharded_checkpoint import shard_suffix
+        from ..utils.sharded_checkpoint import stored_block
         held = self.blocks.get((key, name, slot))
         if held is None:
             return "", t
-        block, d, axes = held
-        return (shard_suffix(self.mesh.index(*axes),
-                             self.mesh.axis_size(*axes), d), block)
+        return stored_block(*held, self.mesh)
 
     def held_bytes(self) -> int:
         """Bytes of params this rank holds."""
@@ -660,9 +681,9 @@ class _SyncStep:
         whole, shards = [], {}
         for key in self.view.keys:
             for name, gr in grads.get(key, {}).items():
-                if sh is not None and sh.leaves[(key, name)].udim is not None:
+                if sh is not None and sh.leaves[(key, name)].usplit is not None:
                     shards[(key, name)] = sh.reduce_scatter(
-                        gr, sh.leaves[(key, name)].udim)
+                        gr, sh.leaves[(key, name)].usplit)
                 else:
                     whole.append(gr)
         if whole and self.group is not None:
@@ -685,17 +706,19 @@ class _SyncStep:
         pview, gview, split = {}, {}, set()
         for name, p in params.items():
             leaf = sh.leaves[(key, name)]
-            if leaf.udim is None:
+            if leaf.usplit is None:
                 pview[name], gview[name] = p, grads[name]
                 continue
-            pview[name] = sh.shard(p, leaf.udim)
+            pview[name] = sh.shard(p, leaf.usplit)
             gview[name] = shards[(key, name)]
             split.add(name)
 
         def sqsum(name, t):
             s = torch.sum(t * t)
-            if name in split and sh.group is not None:
-                dist.all_reduce(s, group=sh.group)
+            group = (sh.split_group(sh.leaves[(key, name)].usplit)
+                     if name in split else None)
+            if group is not None:
+                dist.all_reduce(s, group=group)
             return s
 
         return pview, gview, (sqsum if split else None)
@@ -706,13 +729,13 @@ class _SyncStep:
         sh = self.sharding
         for name, p in params.items():
             leaf = sh.leaves[(key, name)]
-            if leaf.udim is not None:
-                if leaf.pdim is not None:
+            if leaf.usplit is not None:
+                if leaf.psplit is not None:
                     sh.param_shards[(key, name)] = pview[name]
                 else:
-                    sh.gather_into(p, pview[name], leaf.udim, "zero1")
-            elif leaf.pdim is not None:
-                sh.param_shards[(key, name)] = sh.shard(p, leaf.pdim)
+                    sh.gather_into(p, pview[name], leaf.usplit, "zero1")
+            elif leaf.psplit is not None:
+                sh.param_shards[(key, name)] = sh.shard(p, leaf.psplit)
 
 
 class _LocalStep:
@@ -789,7 +812,7 @@ def compile_step(name: str, step_fn, *, mesh, rule_set: str,
         sharding = fn.sharding
     elif strategy == "jit":
         if _any_split(param_specs) or _any_split(upd_specs):
-            sharding = Sharding(view, mesh, "data", param_specs
+            sharding = Sharding(view, mesh, param_specs
                                 if param_specs is not None
                                 else PartitionSpec(), upd_specs
                                 if upd_specs is not None

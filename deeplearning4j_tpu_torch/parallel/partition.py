@@ -317,17 +317,21 @@ def one_split(spec: PartitionSpec, what: str) -> Optional[Tuple[int, tuple]]:
     return splits[0] if splits else None
 
 
-def local_shard(leaf: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
-    """This rank's block of ``leaf`` under ``spec`` (a copy; the leaf
-    itself when replicated): along each split dim, the block at this rank's
-    row-major position on that dim's axes, as JAX lays out a
+def block_of(leaf: torch.Tensor, splits, mesh) -> torch.Tensor:
+    """This rank's block of ``leaf`` (a contiguous copy) under ``splits``
+    (``[(dim, axes), ...]``): along each split dim, the block at this
+    rank's row-major position on that dim's axes, as JAX lays out a
     ``NamedSharding``."""
-    splits = split_dims(spec)
-    if not splits:
-        return leaf
     for d, axes in splits:
         leaf = leaf.chunk(mesh.axis_size(*axes), dim=d)[mesh.index(*axes)]
-    return leaf.clone()
+    return leaf.clone(memory_format=torch.contiguous_format)
+
+
+def local_shard(leaf: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """This rank's block of ``leaf`` under ``spec`` (:func:`block_of`; the
+    leaf itself when replicated)."""
+    splits = split_dims(spec)
+    return block_of(leaf, splits, mesh) if splits else leaf
 
 
 class MeshLeaf:

@@ -18,6 +18,10 @@ each leaf (``checkpoint_entry``), with no gather:
   ``<key>@shard<i>of<n>@dim<d>``, with ``@groups<g>`` where the block is
   the concatenation of its share of ``g`` equal parts of the dim (a
   ``dp_tp`` rank's heads' q, k and v columns of ``Wqkv``);
+* a block of a leaf split on several dims (a spec such as ``P("data",
+  "model")`` under ZeRO or a restore onto a sharding) is saved in the
+  leaf's own layout under one ``@shard<i>of<n>@dim<d>`` a split dim, in
+  dim order;
 * a block of a pipeline's stack (``parallel/pipeline_trainer.py``) is
   saved whole by the stage that owns it, and by no other;
 * a whole leaf is written by one rank (the ranks that hold it alike are
@@ -39,6 +43,7 @@ that wrote it (ROADMAP.md §C).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -54,7 +59,9 @@ _STATES = "states"
 _STATE_DIR = "state"
 _CONFIG_FILE = "config.json"
 _META_FILE = "meta.json"
-_SHARD = re.compile(r"^(.*)@shard(\d+)of(\d+)@dim(\d+)(?:@groups(\d+))?$")
+_SHARD = re.compile(
+    r"^(.*?)((?:@shard\d+of\d+@dim\d+)+)(?:@groups(\d+))?$")
+_SEGMENT = re.compile(r"@shard(\d+)of(\d+)@dim(\d+)")
 
 
 def _rank() -> int:
@@ -81,6 +88,18 @@ def shard_suffix(index: int, n: int, dim: int, groups: int = 1) -> str:
     module docstring)."""
     return f"@shard{index}of{n}@dim{dim}" + (
         f"@groups{groups}" if groups > 1 else "")
+
+
+def stored_block(block: torch.Tensor, splits, mesh) -> tuple:
+    """``(key suffix, tensor)`` a checkpoint stores of this rank's
+    ``block`` (in its leaf's layout) under ``splits`` (``((dim, axes),
+    ...)``): one split dim, the block with that dim first; several, the
+    block as it is under a suffix a dim."""
+    suffix = "".join(shard_suffix(mesh.index(*axes), mesh.axis_size(*axes), d)
+                     for d, axes in splits)
+    if len(splits) == 1:
+        block = block.movedim(splits[0][0], 0).contiguous()
+    return suffix, block
 
 
 def _state_dict(net) -> dict:
@@ -241,29 +260,45 @@ def _load(state_dir: str, md: dict, keys) -> dict:
 
 def _layout(md: dict) -> dict:
     """Each stored leaf's key: ``base -> None`` for a whole leaf, or
-    ``base -> (n, dim, groups, {index: key})`` for one saved in blocks."""
+    ``base -> (splits, groups, {index: key})`` for one saved in blocks,
+    ``splits`` the ``((n, dim), ...)`` of its split dims and ``index`` a
+    block's position along each."""
     out: dict = {}
     for key in md:
         m = _SHARD.match(key)
         if m is None:
             out[key] = None
             continue
-        base, i, n, d = m.group(1), *(int(g) for g in m.groups()[1:4])
-        g = int(m.group(5) or 1)
-        out.setdefault(base, (n, d, g, {}))[3][i] = key
+        segs = [tuple(int(x) for x in seg)
+                for seg in _SEGMENT.findall(m.group(2))]
+        entry = out.setdefault(m.group(1), (
+            tuple((n, d) for _i, n, d in segs), int(m.group(3) or 1), {}))
+        entry[2][tuple(i for i, _n, _d in segs)] = key
     return out
 
 
 def _join(base: str, entry, flat: dict, where: str) -> torch.Tensor:
-    """A leaf saved in blocks, whole again: the blocks (dim first)
-    concatenated, each of its ``groups`` parts in turn, the dim moved
-    back."""
-    n, d, g, keys = entry
-    if sorted(keys) != list(range(n)):
+    """A leaf saved in blocks, whole again. One split dim: the blocks (dim
+    first) concatenated, each of its ``groups`` parts in turn, the dim
+    moved back. Several: the blocks (in the leaf's layout) concatenated
+    along each dim, the last first."""
+    splits, g, keys = entry
+    grid = sorted(itertools.product(*(range(n) for n, _d in splits)))
+    if sorted(keys) != grid:
         raise RuntimeError(f"checkpoint {where}: {base} has blocks "
-                           f"{sorted(keys)} of {n}")
-    blocks = [flat[keys[i]].chunk(g) for i in range(n)]
-    return torch.cat([b[j] for j in range(g) for b in blocks]).movedim(0, d)
+                           f"{sorted(keys)} of {[n for n, _d in splits]}")
+    if len(splits) == 1:
+        (n, d), = splits
+        blocks = [flat[keys[(i,)]].chunk(g) for i in range(n)]
+        return torch.cat([b[j] for j in range(g) for b in blocks]).movedim(
+            0, d)
+
+    def joined(at: tuple) -> torch.Tensor:
+        if len(at) == len(splits):
+            return flat[keys[at]]
+        n, d = splits[len(at)]
+        return torch.cat([joined(at + (i,)) for i in range(n)], dim=d)
+    return joined(())
 
 
 def _read_state(state_dir: str) -> dict:
@@ -377,7 +412,7 @@ def _restore_onto(state_dir, md, layout, net, leaves, shardings, mesh):
     from ..parallel import partition
     from ..parallel.compile_seam import RestoredSharding, _spec_at
 
-    plan = []  # (key, t, slot, (d, axes) or None, own block key or None)
+    plan = []  # (key, kind, layer, name, slot, t, splits or None, own key)
     params = net.params_list
     for key, kind, layer, name, slot, t in leaves:
         at = None
@@ -385,24 +420,27 @@ def _restore_onto(state_dir, md, layout, net, leaves, shardings, mesh):
                 params[layer][name].shape):
             spec = partition._resolve(_spec_at(shardings, layer, name),
                                       tuple(t.shape), mesh)
-            at = partition.one_split(spec, "restore onto a sharding")
+            at = tuple(partition.split_dims(spec)) or None
         own = None
         entry = layout[key]
         if at is not None and entry is not None:
-            n, d, g, keys = entry
-            if (n, d, g) == (mesh.axis_size(*at[1]), at[0], 1):
-                own = keys.get(mesh.index(*at[1]))
+            splits, g, keys = entry
+            if g == 1 and splits == tuple((mesh.axis_size(*axes), d)
+                                          for d, axes in at):
+                own = keys.get(tuple(mesh.index(*axes) for _d, axes in at))
         plan.append((key, kind, layer, name, slot, t, at, own))
     reads = set()
     for key, *_rest, at, own in plan:
         entry = layout[key]
         reads |= ({own} if own is not None else {key} if entry is None
-                  else set(entry[3].values()))
+                  else set(entry[2].values()))
     flat = _load(state_dir, md, sorted(reads))
     blocks = {}
     for key, kind, layer, name, slot, t, at, own in plan:
         if own is not None:
             block = flat[own]
+            if len(at) == 1:  # stored with its dim first
+                block = block.movedim(0, at[0][0])
         else:
             entry = layout[key]
             whole = (flat[key] if entry is None
@@ -410,11 +448,8 @@ def _restore_onto(state_dir, md, layout, net, leaves, shardings, mesh):
             if at is None:
                 t.copy_(whole)
                 continue
-            d, axes = at
-            block = whole.movedim(d, 0).chunk(mesh.axis_size(*axes))[
-                mesh.index(*axes)].clone()
-        blocks[(layer, name, slot)] = (block.to(t.device).contiguous(),
-                                       at[0], at[1])
+            block = partition.block_of(whole, at, mesh)
+        blocks[(layer, name, slot)] = (block.to(t.device).contiguous(), at)
     placement = RestoredSharding(net, mesh, blocks)
     #: which stored keys this rank read: its own blocks only, or whole
     #: leaves (each block of a leaf saved in blocks) too

@@ -112,13 +112,23 @@ def _mesh(axes):
 
 def job_wrapper(conf_json, params, batches, axes=None, states=None,
                 epochs=1, knobs=(), ksteps=None, prefetch=0, local_freq=None,
-                single=False, hold_check=False):
+                single=False, hold_check=False, zero_specs=None):
     """Train through ``ParallelWrapper`` (``knobs``: builder calls as
     ``(method, args)``); with ``single`` through the network's own ``fit``
-    instead. Returns the final params, states and updater state, the
-    scores, the first batch's checksum and the wrapper's counters."""
+    instead. ``zero_specs`` (a spec tree over the params) stands for the
+    ZeRO placement's param and updater specs, as ``compile_step`` takes
+    any spec (a custom rule). Returns the final params, states and updater
+    state, the scores, the first batch's checksum, the wrapper's counters
+    and, under ZeRO, this rank's param shards by ``layer/name``."""
     from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
     from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    if zero_specs is not None:
+        from deeplearning4j_tpu_torch.parallel.partition import (
+            PartitionSpec)
+        specs = [{k: PartitionSpec(*v) for k, v in layer.items()}
+                 for layer in zero_specs]
+        ParallelWrapper._spec_trees = lambda self: (specs, specs)
 
     from deeplearning4j_tpu_torch.parallel import compile_seam
 
@@ -159,6 +169,11 @@ def job_wrapper(conf_json, params, batches, axes=None, states=None,
             "updater": _np(net.updater_state), "scores": scores,
             "iteration": net.iteration, "checksum": _checksum(batches),
             "holds": holds,
+            "shards": {} if not hasattr(
+                getattr(getattr(pw, "_sync_step", None), "sharding", None),
+                "param_shards") else {
+                f"{k}/{n}": _np(t) for (k, n), t in
+                pw._sync_step.sharding.param_shards.items()},
             "stats": {} if pw is None else {
                 k: v for k, v in pw.stats().items() if isinstance(k, str)
                 and not isinstance(v, dict)},
@@ -528,7 +543,8 @@ def job_restore_onto(conf_json, params, directory, axes, x, specs=None,
                      rules=None, batches=None, knobs=()):
     """``restore_sharded`` onto ``specs`` (or the rule set ``rules``'
     specs) on the mesh ``axes``: this rank's blocks by ``layer/name[/slot]``
-    (dim first), what it read, the storage of its whole tensors, the
+    (a leaf split on one dim: its dim first; on several: in the leaf's
+    layout, under ``grid_blocks``), what it read, the storage of its whole tensors, the
     ``output`` of ``x`` (gathered at use) and a second call's; then, with
     ``batches``, a ``ParallelWrapper`` fit (``knobs``) resuming from it and
     the same fit from a whole restore (params, updater state, scores)."""
@@ -546,11 +562,15 @@ def job_restore_onto(conf_json, params, directory, axes, x, specs=None,
     restore_sharded(directory, net, shardings=specs, mesh=mesh)
     held = net._held_sharding
     blocks = {"/".join(str(p) for p in k if p is not None):
-              (_np(b), d) for k, (b, d, _axes) in held.blocks.items()}
+              (_np(b.movedim(s[0][0], 0)), s[0][0])
+              for k, (b, s) in held.blocks.items() if len(s) == 1}
+    grid_blocks = {"/".join(str(p) for p in k if p is not None): _np(b)
+                   for k, (b, s) in held.blocks.items() if len(s) > 1}
     storage = {f"{layer}/{name}": p.untyped_storage().size()
                for layer, d in enumerate(net.params_list)
                for name, p in d.items()}
-    out = {"blocks": blocks, "reads": dict(held.reads),
+    out = {"blocks": blocks, "grid_blocks": grid_blocks,
+           "reads": dict(held.reads),
            "storage": storage, "held_bytes": held.held_bytes(),
            "iteration": net.iteration, "output": _np(net.output(x)),
            "storage_after_output": _split_storage(net),

@@ -135,3 +135,63 @@ def no_executable_cache():
             os.environ.pop("DL4J_COMPILE_CACHE", None)
         else:
             os.environ["DL4J_COMPILE_CACHE"] = old
+
+
+def port_module_name(name: str) -> str:
+    """The port's module at a JAX module's path."""
+    return name.replace("deeplearning4j_tpu", "deeplearning4j_tpu_torch", 1)
+
+
+def run_on_port(test_module: str, test_name: str, monkeypatch, jax_prefixes,
+                **kwargs):
+    """Run the JAX contract test ``test_module.test_name`` on the port: the
+    test's own assertions, with every name the test module takes from the
+    modules under ``jax_prefixes`` (e.g. ``deeplearning4j_tpu.nlp``) bound
+    to the port's same-named object, its helper functions rebound alike,
+    and those JAX modules answered by the port's for an import inside the
+    test body. The port's entry points default to CUDA; the caller points
+    them at the CPU (``monkeypatch``)."""
+    import importlib
+    import sys
+    import types
+
+    mod = importlib.import_module(test_module)
+
+    def ported(obj):
+        home = getattr(obj, "__module__", None) or ""
+        if not any(home == p or home.startswith(p + ".")
+                   for p in jax_prefixes):
+            return obj
+        return getattr(importlib.import_module(port_module_name(home)),
+                       obj.__name__)
+
+    for name in list(sys.modules):
+        if any(name == p or name.startswith(p + ".") for p in jax_prefixes):
+            monkeypatch.setitem(sys.modules, name, importlib.import_module(
+                port_module_name(name)))
+    env = {}
+    for k, v in vars(mod).items():
+        if isinstance(v, (type, types.FunctionType)):
+            env[k] = ported(v)
+        elif k in ("EXCEPTION_ON_DISCONNECTED", "SELF_LOOP_ON_DISCONNECTED"):
+            env[k] = v
+    env = {**vars(mod), **env}
+    for k, v in list(env.items()):
+        if isinstance(v, types.FunctionType) and v.__module__ == mod.__name__:
+            env[k] = types.FunctionType(v.__code__, env, v.__name__,
+                                        v.__defaults__, v.__closure__)
+    fn = env[test_name]
+    return fn(**kwargs)
+
+
+def cpu_default(monkeypatch, *modules):
+    """Make ``device=None`` mean the CPU in the port's ``modules`` (their
+    ``resolve_device``), for contract tests written without a device."""
+    import torch
+    from deeplearning4j_tpu_torch.common import resolve_device
+
+    def on_cpu(device=None):
+        return resolve_device("cpu" if device is None else device)
+    for m in modules:
+        monkeypatch.setattr(m, "resolve_device", on_cpu)
+    return torch.device("cpu")

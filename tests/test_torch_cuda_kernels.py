@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.ops import fixed_matmul as tfm
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 from deeplearning4j_tpu_torch.ops import paged_attention as tpa
 from deeplearning4j_tpu_torch.ops import quant as tq
@@ -40,6 +41,31 @@ def cuda_device():
         pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+#: fixed_matmul against cuBLAS in float32 on outputs of unit scale
+FIXED_MM_TOL = 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(256, 768), (256, 256), (256, 1024),
+                                 (1024, 256), (100, 70)])
+def test_fixed_matmul_rows_bitwise_across_m_on_card(cuda_device, K, N):
+    """C3: each dense product of a serving pin (Wqkv, Wo, W1, W2 and the
+    head of transformer_lm(256)), and a ragged shape: a row comes out of
+    fixed_matmul with the same bits at every row count M from 1 to 4,096,
+    within FIXED_MM_TOL of the plain version, on the float32 weight and on
+    the int8 route's dequantized one."""
+    g = torch.Generator().manual_seed(K + N)
+    x = torch.randn(4096, K, generator=g).to(cuda_device)
+    w32 = torch.randn(K, N, generator=g) / K ** 0.5
+    for w in (w32, tq.dequantize_leaf(tq.quantize_per_channel(w32))):
+        w = w.to(cuda_device)
+        whole = tfm.fixed_matmul(x, w)
+        assert float((whole - tfm.fixed_matmul_plain(x, w)).abs().max()) \
+            <= FIXED_MM_TOL
+        for M in (1, 2, 3, 7, 64, 255, 512, 1000, 1024, 2048):
+            assert torch.equal(tfm.fixed_matmul(x[:M], w), whole[:M]), M
 
 
 #: int8_matmul: float32 sums in another order than cuBLAS; bf16 x is

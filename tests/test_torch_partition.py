@@ -388,11 +388,17 @@ def test_two_dim_spec_places_as_jax(shape, spec):
 
 
 def test_one_dim_placements_name_a_two_dim_spec():
-    """The placements that hold a leaf split on one dim (ZeRO, dp_tp, the
-    restore onto a sharding) refuse a two-dim spec by name."""
+    """The one placement that holds a leaf split on one dim, ``dp_tp``
+    (whose JAX counterpart takes only its rule set's specs), refuses a
+    two-dim spec by name; the ZeRO placement and the restore onto a
+    sharding take it, a split for each dim (C6; held on four ranks by
+    ``test_torch_whole_view.py``)."""
+    from deeplearning4j_tpu_torch.parallel.compile_seam import _splits
     assert partition.sharded_dim(P(None, "data", "model")) == (1, "data")
     assert partition.split_dims(P(("data", "sp"), None, "model")) == [
         (0, ("data", "sp")), (2, ("model",))]
-    with pytest.raises(ValueError, match="ZeRO placement.*splits 2"):
-        partition.one_split(P("data", "model"), "the ZeRO placement")
+    with pytest.raises(ValueError, match="dp_tp placement.*splits 2"):
+        partition.one_split(P("data", "model"), "the dp_tp placement")
     assert partition.one_split(P(None, "model"), "x") == (1, ("model",))
+    assert _splits(P("data", "model")) == ((0, ("data",)), (1, ("model",)))
+    assert _splits(P()) is None

@@ -30,6 +30,13 @@ MODULES = {
         "deeplearning4j_tpu_torch.datavec.records",
     "deeplearning4j_tpu.datavec.iterators":
         "deeplearning4j_tpu_torch.datavec.iterators",
+    **{f"deeplearning4j_tpu.{m}": f"deeplearning4j_tpu_torch.{m}" for m in (
+        "nlp", "nlp.tokenization", "nlp.vocab", "nlp.lookup", "nlp.learning",
+        "nlp.sequencevectors", "nlp.word2vec", "nlp.iterators",
+        "nlp.paragraph_vectors", "nlp.glove", "nlp.bagofwords",
+        "nlp.serializer", "nlp.distributed", "nlp.languages",
+        "nlp.ja_lexicon", "nlp.annotators", "graph", "graph.graph",
+        "graph.walkers", "graph.deepwalk")},
 }
 #: names the JAX modules hold that are not theirs to export: imported
 #: typing helpers and modules, and the libhdf5 binding's ctypes plumbing,
@@ -38,7 +45,7 @@ NOT_API = {"annotations", "Any", "Dict", "List", "Optional", "Sequence",
            "Type", "Union", "Iterable", "Iterator", "Path", "ctypes", "json",
            "np", "jnp", "jax", "os", "re", "struct", "subprocess",
            "threading", "functools", "dataclasses", "enum", "csv", "io",
-           "DataSet", "DataSetIterator", "RecordReader", "H5File",
+           "DataSet", "DataSetIterator", "RecordReader", "H5File", "Array",
            "NeuralNetConfiguration", "InputType", "ElementWiseVertex",
            "MergeVertex", "ActivationLayer", "BatchNormalization",
            "ConvolutionLayer", "DenseLayer", "DropoutLayer", "EmbeddingLayer",

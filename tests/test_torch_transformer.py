@@ -181,7 +181,28 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.nativert, "
             "deeplearning4j_tpu_torch.datavec, "
             "deeplearning4j_tpu_torch.datavec.records, "
-            "deeplearning4j_tpu_torch.datavec.iterators;"
+            "deeplearning4j_tpu_torch.datavec.iterators, "
+            "deeplearning4j_tpu_torch.ops.fixed_matmul, "
+            "deeplearning4j_tpu_torch.nlp, "
+            "deeplearning4j_tpu_torch.nlp.tokenization, "
+            "deeplearning4j_tpu_torch.nlp.vocab, "
+            "deeplearning4j_tpu_torch.nlp.lookup, "
+            "deeplearning4j_tpu_torch.nlp.learning, "
+            "deeplearning4j_tpu_torch.nlp.sequencevectors, "
+            "deeplearning4j_tpu_torch.nlp.word2vec, "
+            "deeplearning4j_tpu_torch.nlp.iterators, "
+            "deeplearning4j_tpu_torch.nlp.paragraph_vectors, "
+            "deeplearning4j_tpu_torch.nlp.glove, "
+            "deeplearning4j_tpu_torch.nlp.bagofwords, "
+            "deeplearning4j_tpu_torch.nlp.serializer, "
+            "deeplearning4j_tpu_torch.nlp.distributed, "
+            "deeplearning4j_tpu_torch.nlp.languages, "
+            "deeplearning4j_tpu_torch.nlp.ja_lexicon, "
+            "deeplearning4j_tpu_torch.nlp.annotators, "
+            "deeplearning4j_tpu_torch.graph, "
+            "deeplearning4j_tpu_torch.graph.graph, "
+            "deeplearning4j_tpu_torch.graph.walkers, "
+            "deeplearning4j_tpu_torch.graph.deepwalk;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.') or m == 'ml_dtypes' "

@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 
 import _torch_dist
-from _torch_port import compile_cache_at, no_executable_cache
+from _torch_port import compile_cache_at, jax_train, no_executable_cache
 from deeplearning4j_tpu.models import transformer_lm as jtransformer_lm
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
 from deeplearning4j_tpu_torch.convert import from_jax, to_numpy
@@ -53,6 +53,12 @@ from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
 
 VOCAB, WIDTH, HEADS, T, B = 8, 32, 4, 16, 8
 STEPS = 3
+#: C6: the mesh of the specs that split two dims
+TWO_DIM_AXES = {"data": 2, "model": 2}
+#: the ZeRO fit under those specs against one device's fit (the port's:
+#: the reduce-scatter sums the batch's halves; JAX's: its tolerance for a
+#: transformer's parallel fit, DEEP_JAX_* of test_torch_parallel.py)
+TWO_DIM_ATOL, TWO_DIM_JAX_ATOL, TWO_DIM_JAX_RTOL = 2e-5, 5e-5, 1e-4
 
 #: (name, mesh, wrapper knobs or None for the pipeline, held parts)
 VIEW_MODES = (
@@ -199,6 +205,27 @@ def run(tmp_path_factory):
     jobs4 = [("restore", dict(job="restore_onto", conf_json=small,
                               params=sp0, directory=whole_dir,
                               axes={"model": 4}, x=x, specs=specs))]
+    # C6: specs that split two dims, on {data: 2, model: 2}: a restore onto
+    # them, and the ZeRO placement (params and Adam's state) under them
+    specs2 = [{k: (("data", "model") if np.ndim(v) == 2 else ())
+               for k, v in layer.items()} for layer in sp0]
+    ref["specs2"] = specs2
+    jobs4.append(("restore2d", dict(
+        job="restore_onto", conf_json=small, params=sp0, directory=whole_dir,
+        axes=TWO_DIM_AXES, x=x,
+        specs=[{k: P(*v) for k, v in layer.items()} for layer in specs2])))
+    jobs4.append(("zero2d", dict(
+        job="wrapper", conf_json=small, params=sp0, batches=batches[:2],
+        axes=TWO_DIM_AXES, zero_specs=specs2,
+        knobs=[("shard_parameters", ()), ("shard_optimizer_state", ())])))
+    jobs4.append(("zero2d_single", dict(
+        job="wrapper", conf_json=small, params=sp0, batches=batches[:2],
+        single=True)))
+    with compile_cache_at(tmp_path_factory.mktemp("xcache2")), \
+            no_executable_cache():
+        ref["jax_fit2"] = jax_train(
+            small, [(x_, y_, None, None) for x_, y_ in batches[:2]],
+            tmp_path_factory.mktemp("xcache3"))
     ranks = {2: _torch_dist.run(2, jobs2, timeout=300),
              4: _torch_dist.run(4, jobs4, timeout=300)}
     return ref, ranks
@@ -355,3 +382,104 @@ def test_restore_onto_a_group_of_one(tmp_path):
     assert got._held_sharding is None
     net.fit(x, y)
     _same(to_numpy(got.params_list), to_numpy(net.params_list))
+
+
+def _jax_blocks(leaf, spec):
+    """Each of the four devices' block of ``leaf`` under ``spec`` as JAX's
+    ``NamedSharding`` lays it out on the first four of the 8 CPU devices
+    (``TWO_DIM_AXES``), in the mesh's row-major order."""
+    import jax
+    from jax.sharding import Mesh as JMesh, NamedSharding, PartitionSpec as JP
+    devs = np.array(jax.devices()[:4]).reshape(2, 2)
+    placed = jax.device_put(leaf, NamedSharding(JMesh(devs, ("data",
+                                                             "model")),
+                                                JP(*spec)))
+    by_dev = {s.device: np.asarray(s.data) for s in placed.addressable_shards}
+    return [by_dev[d] for d in devs.reshape(-1)]
+
+
+def test_restore_onto_two_dim_spec(run):
+    """C6: a restore onto specs that split two dims (``P("data",
+    "model")``) on four ranks: each rank holds JAX's ``NamedSharding``
+    block of each leaf (the updater slots cut as their params) bitwise,
+    the whole tensors give their storage back, and ``output`` is a whole
+    restore's bitwise."""
+    ref, ranks = run
+    whole = restore_sharded(ref["restore_dirs"]["whole"], device="cpu")
+    out = whole.output(ref["x"]).detach().numpy()
+    for rank, r in enumerate(ranks[4]):
+        g = r["restore2d"]
+        assert not g["blocks"]  # every split leaf is split on two dims
+        want_keys = set()
+        for i, layer in enumerate(ref["specs2"]):
+            for k, spec in layer.items():
+                if not spec:
+                    continue
+                leaves = {f"{i}/{k}": whole.params_list[i][k]}
+                leaves.update({f"{i}/{k}/{s}": t for s, t in
+                               whole.updater_state[i][k].items()})
+                for key, t in leaves.items():
+                    want_keys.add(key)
+                    np.testing.assert_array_equal(
+                        g["grid_blocks"][key],
+                        _jax_blocks(t.detach().numpy(), spec)[rank],
+                        err_msg=key)
+                assert g["storage"][f"{i}/{k}"] == 0
+        assert set(g["grid_blocks"]) == want_keys
+        np.testing.assert_array_equal(g["output"], out)
+        np.testing.assert_array_equal(g["output_again"], out)
+
+
+def test_zero_placement_two_dim_spec(run):
+    """C6: the ZeRO placement (params and Adam's state split at rest) under
+    specs that split two dims, on four ranks: each rank's param shards are
+    JAX's ``NamedSharding`` blocks of the fit's params, bitwise; the fit
+    equals one device's fit (the port's within TWO_DIM_ATOL, JAX's within
+    its parallel-fit tolerance) and is the same on every rank."""
+    ref, ranks = run
+    single = ranks[4][0]["zero2d_single"]["params"]
+    jax_params = ref["jax_fit2"]["params"]
+    for rank, r in enumerate(ranks[4]):
+        got = r["zero2d"]
+        for i, layer in enumerate(ref["specs2"]):
+            for k, spec in layer.items():
+                np.testing.assert_array_equal(
+                    got["params"][i][k], ranks[4][0]["zero2d"]["params"][i][k])
+                np.testing.assert_allclose(got["params"][i][k], single[i][k],
+                                           atol=TWO_DIM_ATOL, err_msg=k)
+                np.testing.assert_allclose(
+                    got["params"][i][k], jax_params[i][k],
+                    atol=TWO_DIM_JAX_ATOL, rtol=TWO_DIM_JAX_RTOL, err_msg=k)
+                if spec:
+                    np.testing.assert_array_equal(
+                        got["shards"][f"{i}/{k}"],
+                        _jax_blocks(got["params"][i][k], spec)[rank])
+        assert got["iteration"] == 2
+
+
+def test_two_dim_blocks_stored_and_joined_whole():
+    """C6: the checkpoint keys of a leaf split on two dims name both
+    (``@shard<i>of<n>@dim<d>`` a dim), and the stored blocks join back
+    into the leaf bitwise."""
+    import types
+    import torch
+    from deeplearning4j_tpu_torch.parallel.partition import block_of
+    from deeplearning4j_tpu_torch.utils.sharded_checkpoint import (
+        _join, _layout, stored_block)
+    leaf = torch.arange(8 * 6 * 4, dtype=torch.float32).reshape(8, 6, 4)
+    splits = ((0, ("data",)), (2, ("model",)))
+    flat = {}
+    for coords in ({"data": 0, "model": 0}, {"data": 0, "model": 1},
+                   {"data": 1, "model": 0}, {"data": 1, "model": 1}):
+        mesh = types.SimpleNamespace(
+            axis_size=lambda *a: 2 ** len(a),
+            index=lambda *a, c=coords: int(np.ravel_multi_index(
+                [c[x] for x in a], [2] * len(a))))
+        suffix, block = stored_block(block_of(leaf, splits, mesh), splits,
+                                     mesh)
+        assert suffix == (f"@shard{coords['data']}of2@dim0"
+                          f"@shard{coords['model']}of2@dim2")
+        flat["params/0/W" + suffix] = block
+    entry = _layout(flat)["params/0/W"]
+    assert entry[:2] == (((2, 0), (2, 2)), 1)
+    assert torch.equal(_join("params/0/W", entry, flat, "here"), leaf)

@@ -333,7 +333,7 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 
 To debug a phase alone on the card, ``run_phases`` sets the card up,
 builds the kernels and runs the named phases (``fixed_matmul``, ``c3``,
-``sharded_pins``, ``keras``, ``native``, ``nlp``).
+``sharded_pins``, ``sharded``, ``keras``, ``native``, ``nlp``).
 
 Any failed check exits non-zero without the last line. Without CUDA it
 exits non-zero before printing anything. Full results also go to
@@ -591,8 +591,11 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 
 def report(rows: list, name: str, shape: dict, err: float, tol: float,
            ms: float, plain_ms: float, library_ms, nbytes: float, ops: float,
-           extra: dict = None):
-    bound_ms, bound_by = bound(nbytes, ops)
+           extra: dict = None, ops_per_s: float = F32_OPS_PER_S):
+    """Record and print a kernel's row; its bound is ``ops`` at
+    ``ops_per_s`` (the float32 peak unless the kernel runs another
+    arithmetic) or ``nbytes`` at the memory's rate."""
+    bound_ms, bound_by = bound(nbytes, ops, ops_per_s)
     row = {"name": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})}
@@ -7041,7 +7044,9 @@ def check_fixed_matmul(rows: list, dev) -> None:
     """fixed_matmul (csrc/fixed_matmul.cu) against its plain version at
     each product of a pin, at the whole pin's, a data slot's and the serve
     phase's row counts; timed against the cuBLAS call (the plain version
-    on the card is that call)."""
+    on the card is that call). The kernel runs its products as three TF32
+    passes on the tensor cores: its bound is that work at the TF32 peak,
+    with the float32 bound (the same product on the CUDA cores) beside it."""
     g = torch.Generator().manual_seed(SEED + 53)
     for name, (K, N) in C3_PRODUCTS.items():
         w = (torch.randn(K, N, generator=g) / K ** 0.5).to(dev)
@@ -7051,11 +7056,15 @@ def check_fixed_matmul(rows: list, dev) -> None:
             err = float((got - fixed_matmul_plain(x, w)).abs().max())
             ms = time_ms(lambda: fixed_matmul(x, w))
             lib_ms = time_ms(lambda: torch.matmul(x, w))
+            nbytes, ops = 4 * (M * K + K * N + M * N), 2 * M * N * K
+            f32_ms, f32_by = bound(nbytes, ops)
             row = report(rows, "fixed_matmul",
                          {"M": M, "K": K, "N": N, "product": name}, err,
-                         FIXED_MM_TOL, ms, lib_ms, lib_ms,
-                         4 * (M * K + K * N + M * N), 2 * M * N * K)
-            if M == C3_TIMED_ROWS[1]:  # a data slot's share: the main path
+                         FIXED_MM_TOL, ms, lib_ms, lib_ms, nbytes, 3 * ops,
+                         {"card": CARD, "bound_f32_ms": f32_ms,
+                          "bound_f32_by": f32_by},
+                         ops_per_s=TF32_OPS_PER_S)
+            if M in C3_TIMED_ROWS[:2]:  # the whole pin's rows; a data slot's
                 DEVICE_TIMED.append((row,
                                      lambda x=x, w=w: fixed_matmul(x, w),
                                      lambda x=x, w=w: torch.matmul(x, w)))
@@ -8053,6 +8062,7 @@ def nlp_phase(kernels) -> dict:
 
 #: the phases :func:`run_phases` runs alone, by name
 PHASES_ALONE = {"c3": lambda k: c3_phase(), "sharded_pins": _sh_pins,
+                "sharded": sharded_phase,
                 "fixed_matmul": lambda k: check_fixed_matmul(
                     [], torch.device("cuda")),
                 "keras": keras_phase, "native": native_phase,

@@ -49,23 +49,40 @@ FIXED_MM_TOL = 2e-5
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,N", [(256, 768), (256, 256), (256, 1024),
-                                 (1024, 256), (100, 70)])
+                                 (1024, 256), (100, 70), (1000, 256),
+                                 (1000, 20), (1001, 20)])
 def test_fixed_matmul_rows_bitwise_across_m_on_card(cuda_device, K, N):
     """C3: each dense product of a serving pin (Wqkv, Wo, W1, W2 and the
-    head of transformer_lm(256)), and a ragged shape: a row comes out of
-    fixed_matmul with the same bits at every row count M from 1 to 4,096,
-    within FIXED_MM_TOL of the plain version, on the float32 weight and on
-    the int8 route's dequantized one."""
+    head of transformer_lm(256)), and ragged shapes (N % 4 != 0; K = 1,000,
+    no multiple of the plan's chunk; N = 20, under one tile; K = 1,001, no
+    multiple of 4): a row comes out of fixed_matmul with the same bits at
+    every row count M from 1 to 4,096, within FIXED_MM_TOL of the plain
+    version, on the float32 weight and on the int8 route's dequantized
+    one; and alike from an operand that is not 16-byte aligned (copied 4
+    bytes at a time)."""
     g = torch.Generator().manual_seed(K + N)
     x = torch.randn(4096, K, generator=g).to(cuda_device)
     w32 = torch.randn(K, N, generator=g) / K ** 0.5
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tfm.fixed_matmul_plan(4096, K, N, sms)
+    if K == 1000:
+        assert K % plan.chunk
+    if K == 1001:
+        assert K % 4
+    if N == 20:
+        assert N < plan.bn
     for w in (w32, tq.dequantize_leaf(tq.quantize_per_channel(w32))):
         w = w.to(cuda_device)
+        before = tfm.fixed_matmul.launches
         whole = tfm.fixed_matmul(x, w)
+        assert tfm.fixed_matmul.launches == before + 1
         assert float((whole - tfm.fixed_matmul_plain(x, w)).abs().max()) \
             <= FIXED_MM_TOL
         for M in (1, 2, 3, 7, 64, 255, 512, 1000, 1024, 2048):
             assert torch.equal(tfm.fixed_matmul(x[:M], w), whole[:M]), M
+        shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:]
+        shifted = shifted.view(x.shape).copy_(x)
+        assert torch.equal(tfm.fixed_matmul(shifted, w), whole)
 
 
 #: int8_matmul: float32 sums in another order than cuBLAS; bf16 x is

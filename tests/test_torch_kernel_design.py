@@ -42,11 +42,22 @@ b`` off the recurrence and sums each step's ``h RW`` split over a warp's
 lanes (or, at T = 1, one step over ``[x, h]``); that decomposition is held
 against ``lstm_fwd_plain`` and the JAX Pallas kernel in interpret mode (the
 only tests here that import JAX, inside the test).
+
+``csrc/fixed_matmul.cu``, the serving pins' row-invariant GEMM, runs split
+TF32 on the tensor cores in launches that ``fixed_matmul_plan`` picks:
+its warp tiles must cover every output element once, its K order (chunk,
+pass order) must be the same at every row count, and its grid must fill
+the card at a data slot's share of the whole pin. Its arithmetic, the
+truncating chain restarted every chunk, is emulated with
+``tensor_core_mm`` at the pin products against float32, with the operands
+split by rounding to nearest (``tf32_rn``); one chain over K = 1,024
+misses the card's tolerance, which is why the chunks exist.
 """
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.ops import fixed_matmul as tfm
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 from deeplearning4j_tpu_torch.ops import lstm as tl
 from deeplearning4j_tpu_torch.ops import quant as tq
@@ -64,6 +75,26 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     """Truncate float32 to TF32: zero the low 13 mantissa bits."""
     bits = x.contiguous().view(torch.int32) & -8192  # 0xffffe000
     return bits.view(torch.float32)
+
+
+def tf32_rn(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 to nearest, ties away from zero: add half of
+    the low 13 bits' range to the bits, then zero them."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & -8192
+    return bits.view(torch.float32)
+
+
+def split_trunc(x: torch.Tensor):
+    """The flash kernels' split (tf32_mma.cuh): hi and lo truncated."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def split_rn(x: torch.Tensor):
+    """``csrc/fixed_matmul.cu``'s split: hi rounded to nearest, lo = x - hi
+    truncated."""
+    hi = tf32_rn(x)
+    return hi, tf32(x - hi)
 
 
 def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
@@ -193,14 +224,15 @@ def _round_to_zero(x: torch.Tensor) -> torch.Tensor:
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def tensor_core_mm(a, b, tile=None):
+def tensor_core_mm(a, b, tile=None, split=split_trunc):
     """``a @ b`` as a chain of split-TF32 m16n8k8 steps whose float32
     accumulator is rounded toward zero after every step (each step's exact
     sum added), as the tensor core accumulates. With ``tile``, the chain
     restarts every ``tile`` rows of the reduction and a float32 add (round
-    to nearest) carries each partial into the total, as the backward does."""
-    ah, bh = tf32(a), tf32(b)
-    al, bl = tf32(a - ah), tf32(b - bh)
+    to nearest) carries each partial into the total, as the backward does.
+    ``split`` cuts each operand into hi and lo: :func:`split_trunc` (the
+    flash kernels) or :func:`split_rn` (``fixed_matmul``)."""
+    (ah, al), (bh, bl) = split(a), split(b)
     total = torch.zeros(a.shape[:-1] + b.shape[-1:])
     acc = torch.zeros_like(total)
     for k0 in range(0, a.shape[-1], 8):
@@ -826,3 +858,151 @@ def test_wide_split_tf32_backward_holds_float32_tolerance(D, causal, masked):
     assert err1 > FLASH_TOL, err1
     if masked:
         assert not any(g[1].any() for g in got)
+
+
+#: the serving pins' dense products (K, N) of transformer_lm(256): the
+#: shapes csrc/fixed_matmul.cu runs on the main path
+PIN_KN = {"Wqkv": (256, 768), "Wo": (256, 256), "W1": (256, 1024),
+          "W2": (1024, 256), "head": (256, 256)}
+#: fixed_matmul against float32 ``x @ w`` at unit-scale outputs (the card's
+#: tolerance in chip_smoke.py and test_torch_cuda_kernels.py)
+FIXED_MM_TOL = 2e-5
+#: row counts of a pin's products: C3's, from one row to the whole pin's
+PIN_ROWS = (1, 2, 3, 5, 8, 64, 255, 512, 1000, 1024, 2048, 4096)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (3, 5, 7), (100, 1000, 70),
+                                   (65, 33, 129), (2048, 1024, 256),
+                                   (4095, 256, 768), (257, 1001, 20),
+                                   (1000, 256, 1024), (17, 8, 4100)])
+def test_fixed_matmul_plan_covers_every_output_once(M, K, N):
+    """The blocks' warp tiles, each a whole number of 16 x 8 mma tiles,
+    cover every output element once at ragged M, N and K; the chunks cover
+    K once, the last padded with fewer than a chunk of zeros."""
+    p = tfm.fixed_matmul_plan(M, K, N, SMS)
+    assert p.bm % p.wm == 0 and p.bn % p.wn == 0
+    assert p.wm % 16 == 0 and p.wn % 8 == 0
+    assert 0 < p.smem <= tfa.SMEM_PER_BLOCK
+    covered = np.zeros((p.grid[0] * p.bm, p.grid[1] * p.bn), np.int64)
+    for bx in range(p.grid[0]):
+        for by in range(p.grid[1]):
+            for r in range(bx * p.bm, (bx + 1) * p.bm, p.wm):
+                for c in range(by * p.bn, (by + 1) * p.bn, p.wn):
+                    covered[r:r + p.wm, c:c + p.wn] += 1
+    assert (covered == 1).all()
+    # no block lies wholly past the edge: every block holds output
+    assert (p.grid[0] - 1) * p.bm < M and (p.grid[1] - 1) * p.bn < N
+    chunks = -(-K // p.chunk)
+    ks = np.zeros(chunks * p.chunk, np.int64)
+    for c in range(chunks):
+        ks[c * p.chunk:(c + 1) * p.chunk] += 1
+    assert (ks == 1).all() and chunks * p.chunk - K < p.chunk
+    assert p.chunk % 8 == 0  # whole m16n8k8 steps
+
+
+@pytest.mark.parametrize("name", PIN_KN)
+def test_fixed_matmul_plan_k_order_is_the_same_at_every_m(name):
+    """A pin product's plan at every row count: one tile (one
+    instantiation), one K order (chunk and pass order); only the grid's M
+    tiles follow M."""
+    K, N = PIN_KN[name]
+    plans = [tfm.fixed_matmul_plan(M, K, N, SMS) for M in PIN_ROWS]
+    assert len({p[:6] for p in plans}) == 1, plans
+    assert {(p.chunk, p.passes) for p in plans} == {
+        (tfm.FIXED_MM_CHUNK, ("hi.lo", "lo.hi", "hi.hi"))}
+    assert [p.grid for p in plans] == [
+        (-(-M // plans[0].bm), plans[0].grid[1]) for M in PIN_ROWS]
+    # nor does the card's SM count move the K order
+    other = tfm.fixed_matmul_plan(4096, K, N, 114)
+    assert (other.chunk, other.passes) == (plans[0].chunk, plans[0].passes)
+
+
+@pytest.mark.parametrize("name", PIN_KN)
+def test_fixed_matmul_plan_fills_the_card_at_a_data_slot(name):
+    """At M 2,048 (a data slot's share of the whole pin's [8, 512]) every
+    pin product's grid reaches the H100's 132 SMs."""
+    K, N = PIN_KN[name]
+    p = tfm.fixed_matmul_plan(2048, K, N, SMS)
+    assert p.grid[0] * p.grid[1] >= SMS, p
+
+
+def _pin_operands(K, N, M=64, seed=0):
+    rng = np.random.default_rng(seed + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                         .astype(np.float32))
+    return x, w
+
+
+@pytest.mark.parametrize("name", PIN_KN)
+def test_fixed_matmul_chunked_split_tf32_holds_float32(name):
+    """The kernel's arithmetic (split TF32, the tensor core's truncating
+    chain restarted every plan chunk, partials added in float32) on the
+    pin product at M 64 with unit-scale outputs: within half the card's
+    tolerance of float32 ``x @ w``."""
+    K, N = PIN_KN[name]
+    x, w = _pin_operands(K, N)
+    chunk = tfm.fixed_matmul_plan(64, K, N, SMS).chunk
+    got = tensor_core_mm(x, w, tile=chunk, split=split_rn)
+    torch.testing.assert_close(got, x @ w, rtol=0, atol=FIXED_MM_TOL / 2)
+
+
+def test_fixed_matmul_one_chain_over_w2_misses_float32():
+    """Why the chain restarts: one truncating chain over W2's K = 1,024
+    drifts past the card's 2e-5; the plan's chunks stay inside half of it."""
+    K, N = PIN_KN["W2"]
+    x, w = _pin_operands(K, N)
+    ref = x @ w
+    chain = float((tensor_core_mm(x, w, split=split_rn) - ref).abs().max())
+    chunk = tfm.fixed_matmul_plan(64, K, N, SMS).chunk
+    chunked = float((tensor_core_mm(x, w, tile=chunk, split=split_rn)
+                     - ref).abs().max())
+    assert chain > FIXED_MM_TOL, chain
+    assert chunked < FIXED_MM_TOL / 2 < chain, (chunked, chain)
+
+
+@pytest.mark.parametrize("name", ["Wo", "W2"])
+def test_fixed_matmul_emulated_rows_do_not_move_with_m(name):
+    """The emulated arithmetic is a function of a row and K alone: rows of
+    ``x[:M]`` come out bitwise those of ``x``."""
+    K, N = PIN_KN[name]
+    x, w = _pin_operands(K, N, M=64, seed=3)
+    chunk = tfm.fixed_matmul_plan(64, K, N, SMS).chunk
+    whole = tensor_core_mm(x, w, tile=chunk, split=split_rn)
+    for M in (1, 3, 17, 40):
+        assert torch.equal(
+            tensor_core_mm(x[:M], w, tile=chunk, split=split_rn), whole[:M]), M
+
+
+def test_fixed_matmul_rounded_split_is_unbiased():
+    """fixed_matmul rounds hi to nearest: hi + lo is within 2^-22 of x and
+    falls on either side of it. The truncating split of the flash kernels
+    falls short of x, toward zero, by up to 2^-21: biased alike in every
+    term, which a short dot product adds up."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(4096)
+                         .astype(np.float32))
+    (rh, rl), (th, tl) = split_rn(x), split_trunc(x)
+    rn = x.double() - rh.double() - rl.double()
+    tr = x.double() - th.double() - tl.double()
+    assert float((rn / x.double()).abs().max()) <= 2.0 ** -22
+    assert (torch.sign(rn) == torch.sign(x)).any()
+    assert (torch.sign(rn) == -torch.sign(x)).any()
+    assert float((tr / x.double()).abs().max()) > 2.0 ** -22
+    assert ((tr == 0) | (torch.sign(tr) == torch.sign(x.double()))).all()
+
+
+@pytest.mark.parametrize("K,N", [(4, 6), (12, 2), (12, 3)])
+def test_fixed_matmul_short_products_stay_near_float32(K, N):
+    """A two-input graph's pin (dense layers of K 4 and 12, outputs near 2):
+    the rounded split holds its products within 1e-6 of float32, the
+    tolerance that graph's pin is held to on the card; the truncating split
+    drifted past it there (1.2e-6 on the H100)."""
+    for seed in range(3):
+        rng = np.random.default_rng(seed * 7 + K + N)
+        x = torch.from_numpy(np.tanh(rng.standard_normal((64, K)) * 2)
+                             .astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((K, N))
+                              * np.sqrt(2.0 / (K + N))).astype(np.float32))
+        chunk = tfm.fixed_matmul_plan(64, K, N, SMS).chunk
+        got = tensor_core_mm(x, w, tile=chunk, split=split_rn)
+        torch.testing.assert_close(got, x @ w, rtol=0, atol=1e-6)

@@ -18,7 +18,11 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    int8 at rest) through ``InferenceServer`` on the card: 8 concurrent
    ``/v1/generate`` requests over the paged KV cache and one ``/v1/predict``
    of ``[2, 512]`` ids. It checks the answers against a CPU reference and
-   that every serving kernel was launched by this traffic;
+   that every serving kernel was launched by this traffic, parses ``GET
+   /metrics`` and holds the request, token, TTFT, eviction and batch
+   series to what was sent and to ``/serve/status``, then repeats the
+   traffic with the metrics registry off and on in turns (3 calls a side;
+   decode tokens/s and predict ms printed, not gated);
 5. trains full-width ``transformer_lm(256)`` through
    ``MultiLayerNetwork.fit`` for 5 steps at B = 16, T = 256 (one-hot ids from
    a numpy seed, y = x, Adam at 3e-4) on the card and, from the same initial
@@ -194,7 +198,10 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    dispatch), then one ``Autoscaler`` tick sequence on an injected clock,
    with no SLO engine as the server builds it: 24 requests queued behind a
    spin on the stream scale out on queue pressure, then a scale-in drains 4
-   requests queued on the new replica;
+   requests queued on the new replica; before the autoscaler, ``GET
+   /metrics`` after the predicts: requests, batches, routed requests by
+   replica, hot swaps and the active-version series held to what was
+   sent and to ``/serve/status``;
 21. runs the ``multi_input`` phase: a two-input, two-output
    ``ComputationGraph`` through ``make_predict_fn`` and the micro-batcher on
    the card, within 1e-6 of its card ``output``;
@@ -323,17 +330,31 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    bound; (b) one small fit each on the card against the CPU within 1e-4:
    HS CBOW Word2Vec, ParagraphVectors DBOW with ``infer_vector``, GloVe,
    ``SparkWord2Vec`` on 4 workers, DeepWalk on a 1,000-vertex graph;
-30. reads the profiler's device time of every main-path kernel row and its
+30. runs the ``embed`` phase (A8.3's ``clustering/`` and ``plot/``; no TPU
+   kernel on the path, so no kernel's launch count may move) over the nlp
+   phase's trained ``syn0`` [10,000, 100] (a seeded table of that shape
+   when the phase runs alone): (a) exact ``Tsne`` on every row (2
+   components, perplexity 30, 500 iterations): wall, its step's device ms
+   from the profiler over 5 steps beside its bound, peak memory, the final
+   KL; (b) the same on the first 1,000 rows on the card and on the CPU: P
+   within 1e-9 relative, coordinates after 3 iterations within 1e-4, each
+   final KL below its value at iteration 100; (c) ``KMeansClustering`` at
+   k 100, euclidean and cosine, up to 100 iterations, on the card and on
+   the CPU: the same iterations and assignments, centers within 1e-5; (d)
+   ``BarnesHutTsne`` on the host at 256 rows for 50 iterations, and its
+   exact route at 48 rows on the card against the CPU;
+31. reads the profiler's device time of every main-path kernel row and its
    library call (``fixed_matmul`` against cuBLAS at each pin product, held
    against its plain version at step 3), and of ``lstm_fwd``'s two and
    ``lstm_bwd``'s three parts a call at the training shapes;
-31. prints one JSON line describing each kernel (``fixed_matmul``'s too),
+32. prints one JSON line describing each kernel (``fixed_matmul``'s too),
    then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 To debug a phase alone on the card, ``run_phases`` sets the card up,
 builds the kernels and runs the named phases (``fixed_matmul``, ``c3``,
-``sharded_pins``, ``sharded``, ``keras``, ``native``, ``nlp``).
+``sharded_pins``, ``sharded``, ``keras``, ``native``, ``nlp``, ``embed``,
+``serve``, ``replicas``).
 
 Any failed check exits non-zero without the last line. Without CUDA it
 exits non-zero before printing anything. Full results also go to
@@ -1221,6 +1242,60 @@ def post(port: int, path: str, body: dict):
         conn.close()
 
 
+#: one sample line of the Prometheus text exposition
+_PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? (\S+)$')
+
+
+def scrape_metrics(port: int) -> dict:
+    """``GET /metrics``, parsed: ``{(name, ((label, value), ...)): float}``
+    for every sample line; fails on another status, content type or an
+    unparseable line."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        ctype, text = resp.getheader("Content-Type"), resp.read().decode()
+    finally:
+        conn.close()
+    if resp.status != 200 or ctype != "text/plain; version=0.0.4":
+        fail(f"/metrics answered {resp.status} with {ctype!r}")
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            fail(f"/metrics line does not parse: {line!r}")
+        labels = tuple(sorted(re.findall(r'(\w+)="([^"]*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def metric_delta(after: dict, before: dict, name: str, **labels) -> float:
+    """How far one series moved between two scrapes (summed over the
+    series whose labels include ``labels``)."""
+    want = set((k, str(v)) for k, v in labels.items())
+
+    def total(samples):
+        return sum(v for (n, lab), v in samples.items()
+                   if n == name and want <= set(lab))
+    return total(after) - total(before)
+
+
+def request_count_delta(port: int, before: dict, route: str,
+                        want: float) -> float:
+    """The request histogram's count for ``route`` since ``before``, once
+    it reaches ``want`` (a handler observes after its response is written)
+    or after 5 s."""
+    deadline = time.perf_counter() + 5.0
+    while True:
+        got = metric_delta(scrape_metrics(port), before,
+                           "dl4j_serve_request_seconds_count", route=route)
+        if got >= want or time.perf_counter() > deadline:
+            return got
+
+
 def serve(kernels) -> dict:
     """The main path: generate and predict through the HTTP server."""
     V = 256
@@ -1236,30 +1311,39 @@ def serve(kernels) -> dict:
         rng = np.random.default_rng(SEED)
         prompts = [rng.integers(0, V, size=int(rng.integers(16, 65))).tolist()
                    for _ in range(8)]
-        results = [None] * len(prompts)
 
-        def gen(j):
-            results[j] = post(srv.port, "/v1/generate",
-                              {"model": "lm", "prompt": prompts[j],
-                               "max_new_tokens": 32})
+        def traffic():
+            """The 8 generates at once, then the predict: (generate s,
+            their answers, the predict's answer, its s)."""
+            answers = [None] * len(prompts)
 
+            def gen(j):
+                answers[j] = post(srv.port, "/v1/generate",
+                                  {"model": "lm", "prompt": prompts[j],
+                                   "max_new_tokens": 32})
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=gen, args=(j,))
+                       for j in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            answer = post(srv.port, "/v1/predict",
+                          {"model": "lm", "inputs": ids.tolist()})
+            return gen_s, answers, answer, time.perf_counter() - t0
+
+        ids = rng.integers(0, V, size=(2, 512)).astype(np.float32)
+        scraped = scrape_metrics(srv.port)
         for fn in kernels:
             fn.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=gen, args=(j,))
-                   for j in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        gen_s = time.perf_counter() - t0
-        ids = rng.integers(0, V, size=(2, 512)).astype(np.float32)
-        t0 = time.perf_counter()
-        status, body = post(srv.port, "/v1/predict",
-                            {"model": "lm", "inputs": ids.tolist()})
-        predict_s = time.perf_counter() - t0
+        gen_s, results, (status, body), predict_s = traffic()
         launches = {fn.__name__: fn.launches for fn in kernels}
         st = srv.status()
+        metrics = serve_metrics_check(srv.port, scraped, st, len(prompts))
+        metrics["on_off"] = metrics_on_off(traffic)
     finally:
         srv.stop()
 
@@ -1312,7 +1396,73 @@ def serve(kernels) -> dict:
     return {"launches": launches, "generate_s": gen_s, "predict_s": predict_s,
             "decode_steps": dec["steps"], "decode_tokens": dec["tokens"],
             "decode_capacity": dec["capacity"],
-            "predict_max_abs_err": perr, "generate_worst_argmax_gap": worst_gap}
+            "predict_max_abs_err": perr, "generate_worst_argmax_gap": worst_gap,
+            "metrics": metrics}
+
+
+def serve_metrics_check(port: int, before: dict, st: dict,
+                        sessions: int) -> dict:
+    """``GET /metrics`` after the serve phase's traffic (``sessions``
+    generates of 32 tokens, one predict): the request, token, TTFT,
+    eviction and batch series moved by what was sent and by what
+    ``/serve/status`` counts."""
+    after = scrape_metrics(port)
+    dec = st["decode"]["lm@v1"]
+    got = {
+        "generate_requests": request_count_delta(port, before,
+                                                 "/v1/generate", sessions),
+        "predict_requests": request_count_delta(port, before,
+                                                "/v1/predict", 1),
+        "tokens": metric_delta(after, before, "dl4j_serve_tokens_total"),
+        "ttft_count": metric_delta(after, before,
+                                   "dl4j_serve_ttft_seconds_count"),
+        "evictions": metric_delta(after, before, "dl4j_serve_evictions_total",
+                                  reason="max_tokens"),
+        "predicts_admitted": metric_delta(after, before,
+                                          "dl4j_serve_requests_total",
+                                          model="lm"),
+        "batches": metric_delta(after, before, "dl4j_serve_batches_total",
+                                model="lm")}
+    want = {"generate_requests": sessions, "predict_requests": 1,
+            "tokens": 32 * sessions, "ttft_count": sessions,
+            "evictions": sessions, "predicts_admitted": 1,
+            "batches": st["queue"]["dispatches"]}
+    print(f"serve /metrics: {got} (stats: decode tokens {dec['tokens']}, "
+          f"dispatches {st['queue']['dispatches']}); pages in use at the "
+          f"last step {after.get(('dl4j_decode_page_in_use', ()))}",
+          flush=True)
+    if got != want or dec["tokens"] != 32 * sessions:
+        fail(f"serve /metrics {got} != {want}")
+    return got
+
+
+def metrics_on_off(traffic, turns: int = 3) -> dict:
+    """The serve phase's traffic with the metrics registry off and on in
+    turns (``set_enabled``), ``turns`` calls a side: decode tokens/s over
+    the 8 generates and the predict's wall ms. Printed, not gated: the
+    host alone spreads these by milliseconds."""
+    from deeplearning4j_tpu_torch.observability import global_registry
+    reg = global_registry()
+    out = {"on": {"tokens_per_s": [], "predict_ms": []},
+           "off": {"tokens_per_s": [], "predict_ms": []}}
+    try:
+        for _ in range(turns):
+            for side in ("off", "on"):
+                reg.set_enabled(side == "on")
+                gen_s, _, (code, body), predict_s = traffic()
+                if code != 200:
+                    fail(f"metrics on/off: /v1/predict answered {code}")
+                out[side]["tokens_per_s"].append(8 * 32 / gen_s)
+                out[side]["predict_ms"].append(1e3 * predict_s)
+    finally:
+        reg.set_enabled(True)
+    print(f"metrics on/off in turns, {turns} calls a side: decode tokens/s "
+          f"on {[round(v, 1) for v in out['on']['tokens_per_s']]} off "
+          f"{[round(v, 1) for v in out['off']['tokens_per_s']]}; predict "
+          f"[2,512] ms on {[round(v, 3) for v in out['on']['predict_ms']]} "
+          f"off {[round(v, 3) for v in out['off']['predict_ms']]} [{CARD}]",
+          flush=True)
+    return out
 
 
 def train(kernels) -> dict:
@@ -5350,6 +5500,7 @@ def replicas_phase(kernels) -> dict:
     swapped = threading.Event()
     try:
         srv.register("lm", nets["v1"], quant="int8", version="v1")
+        scraped = scrape_metrics(srv.port)
         _zero(kernels)
 
         def client(w):
@@ -5383,6 +5534,7 @@ def replicas_phase(kernels) -> dict:
         launches = _launches(kernels)
         st = srv.status()
         dispatches = st["queue"]["dispatches"]
+        metrics = replicas_metrics_check(srv.port, scraped, st)
         # one autoscaler sequence on a fake clock, as the server builds it
         # (no SLO engine: queue pressure is its one signal). A spin on the
         # stream the dispatchers launch on holds their forwards, so the
@@ -5465,7 +5617,43 @@ def replicas_phase(kernels) -> dict:
             "by_replica": by_replica, "by_version": by_version,
             "max_abs_err": max(errs), "scale_out_s": out_s,
             "queue_fraction_out": qfrac_out, "queue_fraction_in": qfrac_in,
-            "autoscaler": scaler}
+            "autoscaler": scaler, "metrics": metrics}
+
+
+def replicas_metrics_check(port: int, before: dict, st: dict) -> dict:
+    """``GET /metrics`` after the replicas phase's predicts and rolling
+    swap: requests, batches and routed requests by replica moved by what
+    was sent and by what ``/serve/status`` counts; the swap moved each
+    replica's active-version series."""
+    after = scrape_metrics(port)
+    reps = st["replicas"]["replicas"]
+    got = {
+        "requests": request_count_delta(port, before, "/v1/predict",
+                                        REPLICA_REQUESTS),
+        "admitted": metric_delta(after, before, "dl4j_serve_requests_total",
+                                 model="lm"),
+        "batches": metric_delta(after, before, "dl4j_serve_batches_total",
+                                model="lm"),
+        "routed": {r["replica"]: metric_delta(
+            after, before, "dl4j_serve_replica_routed_total",
+            replica=r["replica"]) for r in reps},
+        "hot_swaps": metric_delta(after, before, "dl4j_serve_hot_swaps_total",
+                                  model="lm"),
+        "fleet": after.get(("dl4j_serve_fleet_size", ())),
+        "active_v2": sorted(dict(lab)["replica"] for (n, lab), v
+                            in after.items()
+                            if n == "dl4j_serve_replica_active_version"
+                            and dict(lab).get("model") == "lm"
+                            and dict(lab).get("version") == "v2" and v == 1)}
+    want = {"requests": REPLICA_REQUESTS, "admitted": REPLICA_REQUESTS,
+            "batches": st["queue"]["dispatches"],
+            "routed": {r["replica"]: r["routed"] for r in reps},
+            "hot_swaps": len(reps), "fleet": len(reps),
+            "active_v2": sorted(str(r["replica"]) for r in reps)}
+    print(f"replicas /metrics: {got}", flush=True)
+    if got != want or sum(got["routed"].values()) != REPLICA_REQUESTS:
+        fail(f"replicas /metrics {got} != {want}")
+    return got
 
 
 def multi_input_phase(kernels) -> dict:
@@ -7951,6 +8139,8 @@ def nlp_phase(kernels) -> dict:
     syn0 = w.lookup.syn0
     if syn0.shape != (NLP_VOCAB, NLP_DIM) or not torch.isfinite(syn0).all():
         fail(f"nlp (a): syn0 {tuple(syn0.shape)}")
+    global NLP_TABLE
+    NLP_TABLE = syn0.detach().clone()
     out["fit"] = {"tokens": sum(map(len, sents)), "pairs": pairs,
                   "batches": -(-pairs // NLP_BATCH), "wall_s": wall,
                   "pairs_per_s": pairs / wall}
@@ -8060,13 +8250,226 @@ def nlp_phase(kernels) -> dict:
     return out
 
 
+# ------------------------------------------------------- A8.3: embed
+#: the embed phase: exact t-SNE at the JAX package's defaults (2
+#: components, perplexity 30, 500 iterations) on every row of the nlp
+#: phase's Word2Vec table (BASELINE config 4: 10,000 x 100); its step
+#: profiled over a few steps at the fit's final state; card against CPU on
+#: the first 1,000 rows (P, and coordinates after 3 iterations);
+#: k-means at k 100 (up to 100 iterations); Barnes-Hut on the host at 256
+#: rows, and its exact route below 64 rows on the card
+EMBED_PERPLEXITY, EMBED_ITERS, EMBED_PROFILED = 30.0, 500, 5
+EMBED_CHECK_ROWS, EMBED_CHECK_ITERS = 1000, 3
+EMBED_K, EMBED_KMEANS_ITERS = 100, 100
+EMBED_BH_N, EMBED_BH_ITERS, EMBED_BH_EXACT_N = 256, 50, 48
+#: t-SNE's step: floating-point operations a pair (i, j) takes (the
+#: difference 2, its square and sum 3, 1 + and 1 /, the kernel's sum, Q's
+#: division and clamp, P - Q, the product by the kernel, the gradient's
+#: product and sum over 2 components 4)
+TSNE_PAIR_OPS = 16
+#: tolerances of the card-against-CPU checks
+EMBED_P_TOL, EMBED_Y_TOL, EMBED_CENTER_TOL = 1e-9, 1e-4, 1e-5
+#: the nlp phase's trained syn0 (the embed phase's input), on the card
+NLP_TABLE = None
+
+
+def _embed_tsne_pair(sub) -> dict:
+    """Exact t-SNE on the first rows on the card and on the CPU: P, the
+    coordinates after 3 iterations, and KL(P || Q) at iteration 100 (the
+    end of the exaggeration) and at the end, from one fit a device."""
+    from deeplearning4j_tpu_torch.plot import Tsne, tsne
+    runs = {}
+    for device in ("cuda", "cpu"):
+        seen = {}
+
+        def keep(it, y, seen=seen):
+            if it in (EMBED_CHECK_ITERS, 100):
+                seen[it] = y.cpu().numpy()
+        ts = Tsne(perplexity=EMBED_PERPLEXITY, max_iter=EMBED_ITERS,
+                  device=device)
+        t0 = time.perf_counter()
+        y = ts.fit_transform(sub, callback=keep)
+        runs[device] = {"P": ts.P.cpu(), "y3": seen[EMBED_CHECK_ITERS],
+                        "kl_100": tsne.kl_divergence(ts.P, seen[100]),
+                        "kl_final": tsne.kl_divergence(ts.P, y),
+                        "wall_s": time.perf_counter() - t0}
+    card, cpu = runs["cuda"], runs["cpu"]
+    out = {"rows": len(sub),
+           "P_rel": float(((card["P"] - cpu["P"]).abs() / cpu["P"]).max()),
+           "y3_max_abs": float(np.abs(card["y3"] - cpu["y3"]).max()),
+           **{f"{k}_{d}": runs[d][k] for d in runs
+              for k in ("kl_100", "kl_final", "wall_s")}}
+    print(f"embed (b) t-SNE card against CPU on {len(sub)} rows: P "
+          f"{out['P_rel']:.3e} relative (tol {EMBED_P_TOL:.0e}), coordinates "
+          f"after {EMBED_CHECK_ITERS} iterations {out['y3_max_abs']:.3e} "
+          f"(tol {EMBED_Y_TOL:.0e}); KL at 100 / {EMBED_ITERS}: card "
+          f"{card['kl_100']:.4f} / {card['kl_final']:.4f}, CPU "
+          f"{cpu['kl_100']:.4f} / {cpu['kl_final']:.4f}; wall card "
+          f"{card['wall_s']:.2f}s, CPU {cpu['wall_s']:.2f}s [{CARD}]",
+          flush=True)
+    if not out["P_rel"] <= EMBED_P_TOL or not out["y3_max_abs"] <= EMBED_Y_TOL:
+        fail(f"embed (b): t-SNE card against CPU {out}")
+    for d, r in runs.items():
+        if not (np.isfinite(r["kl_final"]) and r["kl_final"] < r["kl_100"]):
+            fail(f"embed (b): {d} KL {r['kl_final']} not below its value "
+                 f"at iteration 100, {r['kl_100']}")
+    return out
+
+
+def _embed_kmeans(table) -> dict:
+    """k-means at k 100 on every row, euclidean and cosine, on the card,
+    then on the CPU: the same iterations, assignments and centers."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    out = {}
+    for distance in ("euclidean", "cosine"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            km = KMeansClustering(EMBED_K, EMBED_KMEANS_ITERS, seed=SEED,
+                                  distance=distance, device=device)
+            t0 = time.perf_counter()
+            cs = km.apply_to(table)
+            inertia = float(cs.inertia)   # a host read: the run's end
+            runs[device] = (cs, inertia, time.perf_counter() - t0)
+        (card, inertia, wall), (cpu, cpu_inertia, cpu_wall) = \
+            runs["cuda"], runs["cpu"]
+        r = {"iterations": card.iterations,
+             "cpu_iterations": cpu.iterations, "inertia": inertia,
+             "cpu_inertia": cpu_inertia, "wall_s": wall,
+             "cpu_wall_s": cpu_wall,
+             "assignments_differ": int((card.assignments.cpu()
+                                        != cpu.assignments).sum()),
+             "centers_max_abs": float((card.centers.cpu()
+                                       - cpu.centers).abs().max())}
+        out[distance] = r
+        print(f"embed (c) k-means {distance}, k {EMBED_K}, {len(table)} rows: "
+              f"{r['iterations']} iterations (CPU {r['cpu_iterations']}), "
+              f"inertia {inertia:.6f} (CPU {cpu_inertia:.6f}), "
+              f"{r['assignments_differ']} assignments differ, centers "
+              f"{r['centers_max_abs']:.3e} (tol {EMBED_CENTER_TOL:.0e}); wall "
+              f"{wall:.3f}s, CPU {cpu_wall:.3f}s [{CARD}]", flush=True)
+        if r["iterations"] != r["cpu_iterations"] or r["assignments_differ"] \
+                or not r["centers_max_abs"] <= EMBED_CENTER_TOL:
+            fail(f"embed (c): k-means {distance} card against CPU {r}")
+    return out
+
+
+def embed_phase(kernels) -> dict:
+    """A8.3's ``clustering/`` and ``plot/`` on the card over the nlp
+    phase's Word2Vec table: (a) exact t-SNE on every row (wall, device ms a
+    step from the profiler beside its bound, peak memory, the final KL);
+    (b) t-SNE on the card against the CPU on the first 1,000 rows; (c)
+    k-means at k 100 against the CPU; (d) Barnes-Hut on the host and its
+    exact route on the card. No TPU kernel lies on this path: no kernel's
+    count may move."""
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne, tsne
+    all_kernels = tuple(kernels) + (fixed_matmul,)
+    _zero(all_kernels)
+    t_phase = time.perf_counter()
+    if NLP_TABLE is not None:
+        table = NLP_TABLE.float().cpu().numpy()
+        source = "the nlp phase's trained syn0"
+    else:
+        rng = np.random.default_rng(SEED + 70)
+        table = (rng.normal(size=(NLP_VOCAB, NLP_DIM)) * 0.1).astype(
+            np.float32)
+        source = (f"a seeded normal table (seed {SEED + 70}, scale 0.1): "
+                  "the phase ran without the nlp phase")
+    n = table.shape[0]
+    print(f"embed: input {source}, {table.shape[0]} x {table.shape[1]}",
+          flush=True)
+    out = {"input": source, "rows": n, "dim": int(table.shape[1])}
+    # (a) exact t-SNE on every row
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ts = Tsne(perplexity=EMBED_PERPLEXITY, max_iter=EMBED_ITERS,
+              device="cuda")
+    t0 = time.perf_counter()
+    emb = ts.fit_transform(table)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    kl = tsne.kl_divergence(ts.P, emb)
+    if emb.shape != (n, 2) or not np.isfinite(emb).all() \
+            or not np.isfinite(kl):
+        fail(f"embed (a): t-SNE gave {emb.shape}, KL {kl}")
+    # its step at the fit's final state, the same inputs each call
+    P32 = ts.P.float()
+    y = torch.from_numpy(emb).cuda()
+    vel, gains = torch.zeros_like(y), torch.ones_like(y)
+
+    def steps():
+        for _ in range(EMBED_PROFILED):
+            tsne.tsne_step(y, vel, gains, P32, ts.final_momentum,
+                           ts.learning_rate)
+    steps()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    steps()
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / EMBED_PROFILED
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps()
+        torch.cuda.synchronize()
+    dev_ms = _device_us(prof) / 1e3 / EMBED_PROFILED
+    nbytes = n * n * 4 + 6 * n * 2 * 4
+    bms, bby = bound(nbytes, TSNE_PAIR_OPS * n * n)
+    out["tsne"] = {"iterations": EMBED_ITERS, "perplexity": EMBED_PERPLEXITY,
+                   "wall_s": wall, "step_device_ms": dev_ms,
+                   "step_event_ms": event_ms, "step_bound_ms": bms,
+                   "step_bound_by": bby, "peak_gib": peak, "kl": kl}
+    print(f"embed (a) exact t-SNE on {n} rows, perplexity "
+          f"{EMBED_PERPLEXITY:g}, {EMBED_ITERS} iterations: {wall:.2f}s wall; "
+          f"a step {dev_ms:.3f} device ms (profiler, {EMBED_PROFILED} steps), "
+          f"{event_ms:.3f} ms (CUDA events), bound {bms:.4f} ms ({bby}); "
+          f"peak {peak:.2f} GiB above the phase's start; final KL {kl:.4f} "
+          f"[{CARD}]", flush=True)
+    del ts, P32, y, vel, gains
+    # (b) the card against the CPU on the first rows
+    out["tsne_check"] = _embed_tsne_pair(table[:EMBED_CHECK_ROWS])
+    # (c) k-means
+    out["kmeans"] = _embed_kmeans(table)
+    # (d) Barnes-Hut: the host loop, and its exact route on the card
+    bh = BarnesHutTsne(perplexity=EMBED_PERPLEXITY, max_iter=EMBED_BH_ITERS,
+                       device="cuda")
+    t0 = time.perf_counter()
+    bemb = bh.fit(table[:EMBED_BH_N])
+    bh_wall = time.perf_counter() - t0
+    small = table[:EMBED_BH_EXACT_N]
+    exact = BarnesHutTsne(perplexity=EMBED_PERPLEXITY,
+                          max_iter=EMBED_CHECK_ITERS, device="cuda").fit(small)
+    ref = Tsne(perplexity=EMBED_PERPLEXITY, max_iter=EMBED_CHECK_ITERS,
+               device="cpu").fit_transform(small)
+    exact_err = float(np.abs(exact - ref).max())
+    out["barnes_hut"] = {"rows": EMBED_BH_N, "iterations": EMBED_BH_ITERS,
+                         "wall_s": bh_wall, "exact_rows": EMBED_BH_EXACT_N,
+                         "exact_max_abs": exact_err}
+    print(f"embed (d) Barnes-Hut t-SNE on the host, {EMBED_BH_N} rows, "
+          f"{EMBED_BH_ITERS} iterations: {bh_wall:.2f}s wall; its exact route "
+          f"at {EMBED_BH_EXACT_N} rows on the card against the CPU after "
+          f"{EMBED_CHECK_ITERS} iterations {exact_err:.3e} (tol "
+          f"{EMBED_Y_TOL:.0e})", flush=True)
+    if bemb.shape != (EMBED_BH_N, 2) or not np.isfinite(bemb).all() \
+            or not exact_err <= EMBED_Y_TOL:
+        fail(f"embed (d): Barnes-Hut {bemb.shape}, exact route {exact_err}")
+    out["seconds"] = time.perf_counter() - t_phase
+    moved = {fn.__name__: fn.launches for fn in all_kernels if fn.launches}
+    print(f"embed: {out['seconds']:.1f}s; kernel launches during the phase "
+          f"{moved or 'none'}", flush=True)
+    if moved:
+        fail(f"embed: a kernel launched on a path that has none: {moved}")
+    return out
+
+
 #: the phases :func:`run_phases` runs alone, by name
 PHASES_ALONE = {"c3": lambda k: c3_phase(), "sharded_pins": _sh_pins,
                 "sharded": sharded_phase,
                 "fixed_matmul": lambda k: check_fixed_matmul(
                     [], torch.device("cuda")),
                 "keras": keras_phase, "native": native_phase,
-                "nlp": nlp_phase}
+                "nlp": nlp_phase, "embed": embed_phase,
+                "serve": lambda k: serve(k[:3]),
+                "replicas": replicas_phase}
 
 
 def run_phases(*names: str) -> dict:
@@ -8162,7 +8565,7 @@ def main() -> None:
                         ("c3", lambda k: c3_phase()),
                         ("sharded", sharded_phase),
                         ("keras", keras_phase), ("native", native_phase),
-                        ("nlp", nlp_phase)):
+                        ("nlp", nlp_phase), ("embed", embed_phase)):
         t0 = time.perf_counter()
         phase_s[name] = (phase(kernels), time.perf_counter() - t0)
         print(f"phase {name}: {phase_s[name][1]:.1f}s", flush=True)
@@ -8173,8 +8576,8 @@ def main() -> None:
         phase_s[n][0] for n in ("spec", "replicas", "multi_input",
                                 "parallel", "param_server", "elastic",
                                 "sharded"))
-    c3_run, keras_run, native_run, nlp_run = (
-        phase_s[n][0] for n in ("c3", "keras", "native", "nlp"))
+    c3_run, keras_run, native_run, nlp_run, embed_run = (
+        phase_s[n][0] for n in ("c3", "keras", "native", "nlp", "embed"))
     t0 = time.perf_counter()
     measure_device_times()
     print(f"device times: {time.perf_counter() - t0:.1f}s; the script so far "
@@ -8584,7 +8987,7 @@ def main() -> None:
                    "parallel": par_run, "param_server": ps_run,
                    "elastic": el_run, "sharded": sh_run, "c3": c3_run,
                    "keras": keras_run, "native": native_run,
-                   "nlp": nlp_run,
+                   "nlp": nlp_run, "embed": embed_run,
                    "phase_seconds": {n: v[1] for n, v in phase_s.items()},
                    "kernels": line,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

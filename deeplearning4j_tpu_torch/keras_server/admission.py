@@ -6,14 +6,18 @@ raises :class:`RejectedError`, which the HTTP layer maps to 429 with a
 ``Retry-After`` hint. Each priority (``low`` < ``normal`` < ``high``) sees a
 fraction of the budget, so under saturation low priorities are shed first.
 A request may name its tenant (the HTTP layer reads ``X-DL4J-Tenant``);
-priority sheds are counted by tenant and by priority in :meth:`stats`,
-where the JAX package counts them in ``dl4j_serve_shed_total{tenant,
-priority}``.
+priority sheds are counted by tenant and by priority in :meth:`stats`
+and in ``dl4j_serve_shed_total{tenant, priority}``. The queue-depth gauge
+moves on both edges (admit and release), so it always agrees with what a
+429 claimed.
 """
 from __future__ import annotations
 
 import threading
 from collections import Counter
+
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 
 #: recognized priority tags, lowest first (shed order under saturation)
 PRIORITY_LEVELS = ("low", "normal", "high")
@@ -46,10 +50,10 @@ class RejectedError(RuntimeError):
 
 
 class AdmissionController:
-    """Counting semaphore with a Retry-After estimate."""
+    """Counting semaphore with metrics and a Retry-After estimate."""
 
     def __init__(self, max_pending: int = 256,
-                 expected_latency_s: float = 0.05):
+                 expected_latency_s: float = 0.05, metrics=None):
         if max_pending < 1:
             raise ValueError("max_pending must be >= 1")
         self.max_pending = int(max_pending)
@@ -60,6 +64,14 @@ class AdmissionController:
         self.shed = 0
         #: priority sheds by (tenant, priority), by tenant, by priority
         self.shed_by: Counter = Counter()
+        m = metrics or global_registry()
+        self._g_depth = m.gauge(
+            _n.SERVE_QUEUE_DEPTH, "admitted-but-unfinished serve requests")
+        self._c_rejected = m.counter(
+            _n.SERVE_REJECTED_TOTAL, "requests refused at admission (429)")
+        self._c_shed = m.counter(
+            _n.SERVE_SHED_TOTAL,
+            "requests priority-shed at admission, by tenant and priority")
 
     @property
     def pending(self) -> int:
@@ -79,17 +91,22 @@ class AdmissionController:
             if self._pending + n > limit:
                 shed = limit < self.max_pending
                 self.rejected += n
+                self._c_rejected.inc(n)
                 if shed:
                     self.shed += n
                     self.shed_by[(tenant, priority)] += n
+                    self._c_shed.labels(tenant=tenant,
+                                        priority=priority).inc(n)
                 raise RejectedError(self._pending, limit,
                                     self.expected_latency_s,
                                     priority=priority, shed=shed)
             self._pending += n
+            self._g_depth.set(self._pending)
 
     def release(self, n: int = 1) -> None:
         with self._lock:
             self._pending = max(0, self._pending - n)
+            self._g_depth.set(self._pending)
 
     def stats(self) -> dict:
         """Pending work, refusals and priority sheds, by tenant and by

@@ -8,7 +8,11 @@ bucket (capped at ``max_batch``). Rows are independent under the inference
 forward, so padding does not change any request's answer. A graph with
 several inputs takes a list of arrays sharing the leading axis, concatenated
 and padded input by input; with several outputs each answer is a list.
-A ``ReplicaSet`` member carries its ``replica`` index into every answer.
+A ``ReplicaSet`` member carries its ``replica`` index into every answer
+and into the labels of its queue-depth and occupancy gauges. Requests,
+batches (by model), errors, the dispatch wall time and the occupancy of
+the last dispatch go to the metrics registry (``metrics``, the global one
+by default); none of them reads a device value.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..common import host_numpy
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 from .admission import AdmissionController
 from .registry import ModelRegistry
 
@@ -56,7 +62,7 @@ class MicroBatcher:
     def __init__(self, registry: ModelRegistry, *, max_batch: int = 32,
                  max_latency_s: float = 0.002, max_queue: int = 256,
                  admission: Optional[AdmissionController] = None,
-                 replica: Optional[int] = None):
+                 metrics=None, replica: Optional[int] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.registry = registry
@@ -65,7 +71,30 @@ class MicroBatcher:
         self.max_batch = int(max_batch)
         self.max_latency_s = float(max_latency_s)
         self.admission = admission or AdmissionController(
-            max_pending=max_queue, expected_latency_s=max_latency_s)
+            max_pending=max_queue, expected_latency_s=max_latency_s,
+            metrics=metrics)
+        m = metrics or global_registry()
+        self._g_replica_queue = self._g_replica_occ = None
+        if replica is not None:
+            self._g_replica_queue = m.gauge(
+                _n.SERVE_REPLICA_QUEUE_DEPTH,
+                "admitted-but-unanswered requests per replica").labels(
+                    replica=str(replica))
+            self._g_replica_occ = m.gauge(
+                _n.SERVE_REPLICA_OCCUPANCY,
+                "rows/bucket of the replica's last dispatch").labels(
+                    replica=str(replica))
+        self._c_requests = m.counter(
+            _n.SERVE_REQUESTS_TOTAL, "predict requests admitted")
+        self._c_errors = m.counter(
+            _n.SERVE_ERRORS_TOTAL, "predict requests failed in dispatch")
+        self._c_batches = m.counter(
+            _n.SERVE_BATCHES_TOTAL, "micro-batches dispatched")
+        self._h_dispatch = m.histogram(
+            _n.SERVE_BATCH_DISPATCH_SECONDS, "device time per micro-batch")
+        self._g_occupancy = m.gauge(
+            _n.SERVE_BATCH_OCCUPANCY,
+            "real rows / padded bucket size of the last dispatch")
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._queue: List[_Request] = []
@@ -105,6 +134,7 @@ class MicroBatcher:
                              f"max_batch {self.max_batch}; split it "
                              "client-side")
         self.admission.admit(priority=priority, tenant=tenant)
+        self._c_requests.labels(model=model).inc()
         key = (model,) + tuple((a.shape[1:], str(a.dtype)) for a in xs)
         req = _Request(model, xs, key, time.perf_counter())
         with self._cond:
@@ -113,6 +143,8 @@ class MicroBatcher:
                 raise RuntimeError("MicroBatcher is closed")
             self._queue.append(req)
             self._cond.notify()
+        if self._g_replica_queue is not None:
+            self._g_replica_queue.set(self.admission.pending)
         return req.future
 
     #: requires-lock: _cond
@@ -156,11 +188,14 @@ class MicroBatcher:
                     pad = np.zeros((bucket - rows,) + x.shape[1:], x.dtype)
                     x = np.concatenate([x, pad], axis=0)
                 xs.append(x)
+            t0 = time.perf_counter()
             raw = mv.predict_fn(*xs)
             multi_out = isinstance(raw, (list, tuple))
             # .cpu() is this dispatch's sync point: the response is host data
             outs = [host_numpy(o) for o in (raw if multi_out else [raw])]
+            dt = time.perf_counter() - t0
         except Exception as e:
+            self._c_errors.inc(len(group))
             with self._lock:
                 self._errors += len(group)
             for r in group:
@@ -168,9 +203,17 @@ class MicroBatcher:
             return
         finally:
             self.admission.release(len(group))
+            if self._g_replica_queue is not None:
+                self._g_replica_queue.set(self.admission.pending)
+        occupancy = rows / bucket
+        self._c_batches.labels(model=mv.name).inc()
+        self._h_dispatch.observe(dt)
+        self._g_occupancy.set(occupancy)
+        if self._g_replica_occ is not None:
+            self._g_replica_occ.set(occupancy)
         with self._lock:
             self._dispatches += 1
-            self._occupancy_sum += rows / bucket
+            self._occupancy_sum += occupancy
             self._buckets_seen.add((group[0].key, bucket))
         off = 0
         for r in group:

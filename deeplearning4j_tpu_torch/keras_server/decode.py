@@ -57,6 +57,12 @@ acceptance rate; the T positions are never folded into one forward of
 ``cap * T`` rows, which would give ``int8_matmul`` another M and another
 K split. Prefill rides the same round: prompt tokens are inputs whose
 acceptance is certain.
+
+Metrics (``metrics=``, the global registry by default), all from host
+state the pump already holds: slot occupancy, time to first token, tokens,
+evictions by reason, the first-step time of each new capacity bucket,
+pages in use (the pool's host counter), the prefix share, speculative
+proposals and acceptance, and the host bytes copied at a bucket growth.
 """
 from __future__ import annotations
 
@@ -76,6 +82,8 @@ from ..nn.conf.layers.recurrent import (
     GravesBidirectionalLSTM, RnnOutputLayer, streaming_lstm,
 )
 from ..nn.inference import copy_tree
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 from ..ops.paged_attention import paged_gather
 from ..ops.quant import (
     dequantize_tree, gather_rows, quantize_tree, quantized_matmul,
@@ -300,7 +308,7 @@ class DecodeEngine:
                  quant: Optional[str] = None, capture_probs: bool = False,
                  max_queue: int = 4096, kv: str = "dense",
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 draft_net=None, spec_tokens: int = 3):
+                 draft_net=None, spec_tokens: int = 3, metrics=None):
         if mode not in DECODE_MODES:
             raise ValueError(f"mode must be one of {DECODE_MODES}, got {mode!r}")
         if kv not in DECODE_KV:
@@ -392,6 +400,39 @@ class DecodeEngine:
         self._params = copy_tree(net.params_list, self.device)
         if self.quant == "int8":
             self._params = quantize_tree(self._params)
+        m = metrics or global_registry()
+        self._g_occupancy = m.gauge(
+            _n.SERVE_SLOT_OCCUPANCY,
+            "active decode slots / slot capacity of the last step")
+        self._h_growth_stall = m.histogram(
+            _n.SERVE_BUCKET_GROWTH_STALL_SECONDS,
+            "first-step dispatch time of each new capacity bucket")
+        self._h_ttft = m.histogram(
+            _n.SERVE_TTFT_SECONDS,
+            "offered-arrival to first generated token")
+        self._c_tokens = m.counter(
+            _n.SERVE_TOKENS_TOTAL, "generated tokens streamed to sessions")
+        self._c_evictions = m.counter(
+            _n.SERVE_EVICTIONS_TOTAL, "slot evictions by reason")
+        self._g_pages = m.gauge(
+            _n.DECODE_PAGES_IN_USE,
+            "physical KV pages currently mapped by live slots")
+        self._g_share = m.gauge(
+            _n.DECODE_PREFIX_SHARE_RATIO,
+            "prompt tokens served from shared prefix pages / prompt "
+            "tokens admitted (cumulative)")
+        self._g_accept = m.gauge(
+            _n.DECODE_SPEC_ACCEPTANCE,
+            "spec-decode proposals accepted / proposals offered "
+            "(cumulative)")
+        self._c_spec = m.counter(
+            _n.DECODE_SPEC_TOKENS_TOTAL,
+            "spec-decode draft proposals by verify outcome")
+        self._c_copy = m.counter(
+            _n.DECODE_STATE_COPY_BYTES_TOTAL,
+            "host bytes copied moving per-slot decode state across "
+            "capacity buckets (device block moves do not count)")
+        self._copy_bytes = 0
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._queue: deque = deque()
@@ -458,19 +499,24 @@ class DecodeEngine:
     #: requires-lock: _cond
     def _grow_to(self, cap: int) -> None:
         """Move to a larger capacity bucket. Dense blocks copy their rows on
-        the device; the paged pool is capacity-independent and stays."""
+        the device; the paged pool is capacity-independent and stays. The
+        host arrays copied (slot arrays, the page table) are counted in
+        ``dl4j_decode_state_copy_bytes_total``."""
         old = self._cap
         self._slots += [None] * (cap - old)
+        copied = 0
         for name_ in ("_tokens_h", "_pos_h", "_fresh_h", "_fork_src_h",
                       "_fork_dst_h", "_park_h", "_dpos_h"):
             a = getattr(self, name_)
             grown = np.zeros((cap,), a.dtype)
             grown[:old] = a
+            copied += a.nbytes
             setattr(self, name_, grown)
         if self._pool is not None:
             t = np.full((cap, self._pages_per_slot), TRASH_PAGE, np.int32)
             if old:
                 t[:old] = self._table_h
+            copied += self._table_h.nbytes
             self._table_h = t
             if self._blocks is None:
                 self._blocks = self._zero_blocks(cap)
@@ -489,6 +535,8 @@ class DecodeEngine:
                         nb[key][:old] = ob[key]
             self._draft_blocks = new_draft
         self._cap = cap
+        self._copy_bytes += copied
+        self._c_copy.inc(copied)
 
     # --------------------------------------------------------------- producer
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -564,6 +612,8 @@ class DecodeEngine:
             if self._spec_draft is not None:
                 self._dpos_h[i] = 0
             active += 1
+        if self._prompt_tokens:
+            self._g_share.set(self._shared_tokens / self._prompt_tokens)
         self._peak_active = max(self._peak_active, active)
 
     #: requires-lock: _cond
@@ -580,6 +630,7 @@ class DecodeEngine:
         if self._pool is not None:
             self._release_pages_locked(i)
         self._evicted += 1
+        self._c_evictions.labels(reason=reason).inc()
         sess.evict_reason = reason
         sess.t_done = time.perf_counter()
         sess.done.set()
@@ -644,6 +695,7 @@ class DecodeEngine:
             pending = [i for i in still if i != victim]
             if not pending:
                 break
+        self._g_pages.set(self._pool.pages_in_use)
 
     #: requires-lock: _cond
     def _register_prefix_locked(self, i: int, sess, lo: int, hi: int) -> None:
@@ -676,7 +728,9 @@ class DecodeEngine:
                 sess.probs.append(probs_rows[t].copy())
             if sess.t_first is None:
                 sess.t_first = now
+                self._h_ttft.observe(now - sess.t_sched)
             self._generated += 1
+            self._c_tokens.inc()
             if sess.stream is not None:
                 sess.stream(sess.sid, tok, now)
             if self.eos_id is not None and tok == self.eos_id:
@@ -769,6 +823,8 @@ class DecodeEngine:
                 paged_args = tuple(torch.from_numpy(a.copy()).to(dev) for a in
                                    (self._table_h, self._fork_src_h,
                                     self._fork_dst_h))
+            growing = cap not in self._buckets
+        t0 = time.perf_counter()
         try:
             next_tok, probs = self._step(tokens, fresh, positions, paged_args)
             # the iteration's sync point: the emitted token drives admission
@@ -782,6 +838,8 @@ class DecodeEngine:
                     self._evict_locked(i, "error")
             raise
         now = time.perf_counter()
+        if growing:
+            self._h_growth_stall.labels(bucket=str(cap)).observe(now - t0)
         with self._cond:
             self._steps += 1
             self._buckets.add(cap)
@@ -792,6 +850,7 @@ class DecodeEngine:
                 self._settle_locked(
                     i, sess, int(self._pos_h[i]), 1, next_h[i:i + 1],
                     None if probs_h is None else probs_h[i:i + 1], now)
+        self._g_occupancy.set(len(active) / cap)
         return True
 
     def _pump_once_spec(self) -> bool:
@@ -820,7 +879,9 @@ class DecodeEngine:
                                     self._fork_dst_h))
             d0 = self._dpos_h.copy()
             base_pos = self._pos_h.copy()
+            growing = cap not in self._buckets
         live = [(i, s) for i, s in active if not parked[i]]
+        t0 = time.perf_counter()
         try:
             # the draft: γ single-token steps over its own dense blocks
             props = {i: {} for i, _ in active}   # stream index -> proposal
@@ -881,6 +942,8 @@ class DecodeEngine:
                     self._evict_locked(i, "error")
             raise
         now = time.perf_counter()
+        if growing:
+            self._h_growth_stall.labels(bucket=str(cap)).observe(now - t0)
         with self._cond:
             self._steps += 1
             self._draft_steps += n_draft
@@ -913,6 +976,9 @@ class DecodeEngine:
                 self._spec_accepted += accepted
                 s._spec_proposed += proposed
                 s._spec_accepted += accepted
+                if proposed:
+                    self._c_spec.labels(outcome="proposed").inc(proposed)
+                    self._c_spec.labels(outcome="accepted").inc(accepted)
                 # the draft keeps KV only for inputs that match the settled
                 # stream; the rest rolls back behind its position mask
                 h = s._hist
@@ -924,6 +990,9 @@ class DecodeEngine:
                     else:
                         break
                 self._dpos_h[i] = c0 + dvalid
+            if self._spec_proposed:
+                self._g_accept.set(self._spec_accepted / self._spec_proposed)
+        self._g_occupancy.set(len(active) / cap)
         return True
 
     def _loop(self) -> None:
@@ -952,6 +1021,7 @@ class DecodeEngine:
                 "mean_occupancy": (self._occupancy_sum / self._steps
                                    if self._steps else 0.0),
                 "param_bytes": tree_param_bytes(self._params),
+                "state_copy_bytes": self._copy_bytes,
                 "last_error": self.last_error,
             }
             if self._pool is not None:

@@ -25,6 +25,11 @@ the JAX package. A warmup forward on an explicit example that fails
 raises, and the version does not go active; an example derived from
 ``n_in`` that the network does not take (an embedding's ``n_in`` is its
 vocabulary) leaves the version unwarmed, as the JAX package's warmup does.
+
+The model versions held (``dl4j_serve_models_loaded``) and the hot swaps by
+model (``dl4j_serve_hot_swaps_total``: a registration over an active
+version, or a rollback that moves the pointer) go to the metrics registry
+(``metrics``, the global one by default).
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ import numpy as np
 
 from ..nn.conf.serde import layer_class
 from ..nn.inference import PredictFn, make_predict_fn
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 
 log = logging.getLogger(__name__)
 
@@ -112,7 +119,7 @@ class ModelRegistry:
     opts every registration into bucket warmup on ``warmup_workers``
     threads."""
 
-    def __init__(self, warmup_max_batch: Optional[int] = None,
+    def __init__(self, metrics=None, warmup_max_batch: Optional[int] = None,
                  warmup_workers: int = 4):
         self._lock = threading.RLock()
         self._versions: Dict[str, Dict[str, ModelVersion]] = {}
@@ -123,6 +130,11 @@ class ModelRegistry:
         self.warmup_workers = warmup_workers
         #: seconds the last registration's warmup took (None: no warmup ran)
         self.last_warmup_s: Optional[float] = None
+        self.metrics = metrics or global_registry()
+        self._g_models = self.metrics.gauge(
+            _n.SERVE_MODELS_LOADED, "model versions held by the registry")
+        self._c_swaps = self.metrics.counter(
+            _n.SERVE_HOT_SWAPS_TOTAL, "active-version hot swaps")
 
     def register(self, name: str, net, version: Optional[str] = None,
                  quant: Optional[str] = None, device=None,
@@ -152,9 +164,13 @@ class ModelRegistry:
             # off the serving path: an older version keeps serving meanwhile
             self._warmup(pf, net, warmup_example)
         with self._lock:
+            swapping = name in self._active
             mv = ModelVersion(name, version, net, pf, source=source)
             self._versions.setdefault(name, {})[version] = mv
             self._active[name] = version
+            self._g_models.set(sum(len(v) for v in self._versions.values()))
+            if swapping:
+                self._c_swaps.labels(model=name).inc()
         if draft_for is not None:
             self.link_draft(draft_for, name)
         return mv
@@ -251,7 +267,9 @@ class ModelRegistry:
         """Point ``name`` at an already-registered version (the rollback)."""
         with self._lock:
             mv = self._versions[name][version]  # KeyError: no such version
-            self._active[name] = version
+            if self._active[name] != version:
+                self._active[name] = version
+                self._c_swaps.labels(model=name).inc()
             return mv
 
     def names(self) -> List[str]:

@@ -49,8 +49,14 @@ autoscaler's actuators. Indices are allocated monotonically and never
 reused. A new replica registers the active version of every model in the
 catalog (warmed when the registration names an example) before the router
 sees it; removal drains, unlinks, then closes the dispatcher, so every
-admitted request completes. Where the JAX package records metrics, this
-module keeps plain counters in :meth:`stats`.
+admitted request completes.
+
+Metrics (``metrics=``, the global registry by default): each replica's
+batcher and admission write their series labelled by replica, and the set
+keeps the fleet size, the routed requests by replica, the active version
+(1 on the ``(replica, model, version)`` series in force, 0 on the ones it
+replaced) and the scale events by direction and reason; :meth:`stats` has
+the same counts.
 """
 from __future__ import annotations
 
@@ -64,6 +70,8 @@ import numpy as np
 import torch
 
 from ..common import resolve_device
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 from .admission import RejectedError
 from .batcher import MicroBatcher
 from .registry import ModelRegistry, ModelVersion, load_model_file
@@ -76,7 +84,7 @@ class Replica:
 
     def __init__(self, index: int, *, device=None, mesh=None, sharding=None,
                  slots=None, max_batch: int = 32, max_latency_s: float = 0.002,
-                 max_queue: int = 256, warmup: bool = False):
+                 max_queue: int = 256, warmup: bool = False, metrics=None):
         self.index = index
         self.mesh = mesh
         self.device = None if mesh is not None else resolve_device(device)
@@ -90,10 +98,10 @@ class Replica:
         #: set, else None
         self.lease = None
         self.registry = ModelRegistry(
-            warmup_max_batch=max_batch if warmup else None)
+            metrics=metrics, warmup_max_batch=max_batch if warmup else None)
         self.batcher = MicroBatcher(
             self.registry, max_batch=max_batch, max_latency_s=max_latency_s,
-            max_queue=max_queue, replica=index)
+            max_queue=max_queue, metrics=metrics, replica=index)
 
     def queue_depth(self) -> int:
         """Admitted-but-unanswered requests (the router's load signal)."""
@@ -112,7 +120,7 @@ class ReplicaSet:
                  sharding=None, mesh_axes=None, max_batch: int = 32,
                  max_latency_s: float = 0.002, max_queue: int = 256,
                  drain_timeout_s: float = 30.0, warmup: bool = False,
-                 membership=None):
+                 membership=None, metrics=None):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         self.sharding = sharding
@@ -133,6 +141,18 @@ class ReplicaSet:
         self._max_batch = max_batch
         self._max_latency_s = max_latency_s
         self._max_queue = max_queue
+        self._m = m = metrics or global_registry()
+        self._c_routed = m.counter(
+            _n.SERVE_REPLICA_ROUTED_TOTAL,
+            "requests routed per replica (least-queue-depth dispatch)")
+        self._g_active_version = m.gauge(
+            _n.SERVE_REPLICA_ACTIVE_VERSION,
+            "1 on the (replica, model, version) series currently active")
+        self._g_fleet = m.gauge(
+            _n.SERVE_FLEET_SIZE, "live serving replicas in the set")
+        self._c_scale = m.counter(
+            _n.SERVE_SCALE_EVENTS_TOTAL,
+            "fleet size changes, by direction (out/in) and reason")
         self._lock = threading.Lock()
         # serializes fleet mutations (a register roll, add/remove) against
         # each other, so a replica added mid-roll cannot miss a version;
@@ -154,6 +174,7 @@ class ReplicaSet:
                           for i in range(n_replicas)]
         for r in self._replicas:
             self._join(r)
+        self._g_fleet.set(len(self._replicas))
 
     def _join(self, r: Replica) -> None:
         if self._membership is not None:
@@ -165,7 +186,7 @@ class ReplicaSet:
         return Replica(i, max_batch=self._max_batch,
                        max_latency_s=self._max_latency_s,
                        max_queue=self._max_queue, warmup=warmup,
-                       **self._placement_for(i, n_total))
+                       metrics=self._m, **self._placement_for(i, n_total))
 
     def _placement_for(self, i: int, n_total: Optional[int] = None) -> dict:
         """Replica ``i``'s placement (JAX ``_placement_for``). ``n_total``
@@ -277,7 +298,13 @@ class ReplicaSet:
                                  replica=r.index, sharding=r.sharding,
                                  mesh=r.mesh)
         with self._lock:
+            prev = self._active_version.get((r.index, name))
             self._active_version[(r.index, name)] = version
+        if prev is not None:
+            self._g_active_version.labels(
+                replica=str(r.index), model=name, version=prev).set(0)
+        self._g_active_version.labels(
+            replica=str(r.index), model=name, version=version).set(1)
         return mv
 
     def load(self, name: str, path: str, version: Optional[str] = None,
@@ -308,6 +335,8 @@ class ReplicaSet:
                 self._replicas.append(r)
                 self._routed[idx] = 0
                 self.scale_events[("out", reason)] += 1
+                self._g_fleet.set(len(self._replicas))
+            self._c_scale.labels(direction="out", reason=reason).inc()
             return r
 
     def remove_replica(self, index: Optional[int] = None,
@@ -337,14 +366,22 @@ class ReplicaSet:
             self._wait_drained(r)
             with self._lock:
                 self._replicas = [o for o in self._replicas if o is not r]
+                self._g_fleet.set(len(self._replicas))
             r.batcher.close(self.drain_timeout_s)
             if self._membership is not None and r.lease is not None:
                 self._membership.deregister(r.lease.member, r.lease.epoch,
                                             reason=reason)
             with self._lock:
-                for name in r.registry.names():
-                    self._active_version.pop((r.index, name), None)
+                retired = {name: self._active_version.pop((r.index, name),
+                                                          None)
+                           for name in r.registry.names()}
                 self.scale_events[("in", reason)] += 1
+            for name, prev in retired.items():
+                if prev is not None:
+                    self._g_active_version.labels(
+                        replica=str(r.index), model=name,
+                        version=prev).set(0)
+            self._c_scale.labels(direction="in", reason=reason).inc()
             return True
 
     # ----------------------------------------------------------- membership
@@ -386,6 +423,7 @@ class ReplicaSet:
             except RejectedError as e:
                 last = e
                 continue
+            self._c_routed.labels(replica=str(r.index)).inc()
             with self._lock:
                 self._routed[r.index] = self._routed.get(r.index, 0) + 1
             return fut

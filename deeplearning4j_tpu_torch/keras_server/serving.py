@@ -27,6 +27,10 @@ connection. Routes:
 - ``GET /serve/status``: models, versions, drafts, queue, decode-engine
   stats, the streaming sessions, and in replica mode the replicas and the
   autoscaler.
+- ``GET /metrics``: the process-global metrics registry as Prometheus
+  text (``Content-Type: text/plain; version=0.0.4``): admission, batches,
+  decode, streams, the registry, the replicas, and each POST route's wall
+  time in ``dl4j_serve_request_seconds{route=...}``.
 
 ``replicas=N`` serves ``/v1/predict`` through a :class:`ReplicaSet` (a
 least-queue router over N batchers, rolling hot swaps) and ``autoscale=``
@@ -35,9 +39,9 @@ fenced by the leases of a ``cloud.MembershipOracle`` (``membership``).
 ``sharding=`` (with
 ``replica_devices=`` and ``replica_mesh_axes=``) shards each replica's pin
 over a device mesh of its slice of the device list (``replica.py``), and
-``replica_devices=`` alone places unsharded replicas round-robin; traces,
-SLOs (``/serve/slo``, the autoscaler's burn input), ``/metrics``, the fleet
-routes and ``active_server``/``serve_slo`` wait for A9.
+``replica_devices=`` alone places unsharded replicas round-robin. Traces,
+SLOs (``/serve/slo``, the autoscaler's burn input), the fleet routes and
+``active_server``/``serve_slo`` wait for A9.2–A9.4.
 """
 from __future__ import annotations
 
@@ -53,6 +57,8 @@ from urllib.parse import urlparse
 import numpy as np
 
 from ..common import resolve_device
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 from .admission import RejectedError, normalize_priority
 from .autoscaler import Autoscaler
 from .batcher import MicroBatcher
@@ -99,11 +105,26 @@ class _ServeHandler(BaseHTTPRequestHandler):
         path = urlparse(self.path).path
         if path == "/serve/status":
             self._json(self.engine.status())
+        elif path == "/metrics":
+            body = global_registry().prometheus_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         else:
             self._json({"error": f"unknown route {path}"}, code=404)
 
     def do_POST(self):
         path = urlparse(self.path).path
+        t0 = time.perf_counter()
+        try:
+            self._route(path)
+        finally:
+            self.engine._h_request.labels(route=path).observe(
+                time.perf_counter() - t0)
+
+    def _route(self, path: str) -> None:
         try:
             if path == "/v1/predict":
                 self._predict()
@@ -250,6 +271,8 @@ class InferenceServer:
                  max_replicas: Optional[int] = None,
                  autoscale_cooldown_s: float = 30.0,
                  autoscale_interval_s: float = 2.0):
+        self._h_request = global_registry().histogram(
+            _n.SERVE_REQUEST_SECONDS, "HTTP request latency per route")
         self.device = resolve_device(
             replica_devices[0] if device is None and replica_devices
             else device)

@@ -16,8 +16,9 @@ sessions over ``rnn_time_step`` and ``rnn_get/set_previous_state``:
   that attribute), then the state's tensors are dropped, so the caching
   allocator can reuse their device memory at once.
 
-The JAX package's metrics (sessions, steps, evictions) belong to its
-observability plane, which is not ported yet (ROADMAP.md).
+Live sessions, streamed timesteps (by model) and evictions (``ttl``,
+``reset``) go to the metrics registry (``metrics``, the global one by
+default).
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..common import host_numpy, resolve_device
+from ..observability import names as _n
+from ..observability.metrics import global_registry
 from .registry import ModelRegistry
 
 
@@ -46,12 +49,19 @@ class StreamSessions:
     ``device`` (``None`` means CUDA)."""
 
     def __init__(self, registry: ModelRegistry, ttl_s: float = 300.0,
-                 device=None):
+                 device=None, metrics=None):
         self.registry = registry
         self.ttl_s = float(ttl_s)
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._models: Dict[Tuple[str, str], _StreamModel] = {}
+        m = metrics or global_registry()
+        self._g_sessions = m.gauge(
+            _n.SERVE_STREAM_SESSIONS, "live streaming sessions")
+        self._c_steps = m.counter(
+            _n.SERVE_STREAM_STEPS_TOTAL, "streamed timesteps served")
+        self._c_evictions = m.counter(
+            _n.SERVE_EVICTIONS_TOTAL, "slot evictions by reason")
 
     def _model(self, name: str) -> Tuple[_StreamModel, str]:
         mv = self.registry.active(name)
@@ -86,6 +96,11 @@ class StreamSessions:
             if now - t > self.ttl_s:
                 del sm.states[sid]
                 self._release_state(sm, state)
+                self._c_evictions.labels(reason="ttl").inc()
+
+    def _session_count(self) -> int:
+        with self._lock:
+            return sum(len(sm.states) for sm in self._models.values())
 
     def step(self, model: str, session: str, x) -> dict:
         """Advance one session by the timesteps of ``x`` (``[B, T, F]``, or
@@ -110,6 +125,8 @@ class StreamSessions:
                 out = out[0]
             out = host_numpy(out)
             sm.states[session] = (sm.net.rnn_get_previous_state(), now)
+        self._c_steps.labels(model=model).inc(int(x.shape[1]))
+        self._g_sessions.set(self._session_count())
         return {"output": out, "model": model, "version": version,
                 "session": session, "timesteps": int(x.shape[1])}
 
@@ -123,6 +140,8 @@ class StreamSessions:
             parked = sm.states.pop(session, None)
             if parked is not None:
                 self._release_state(sm, parked[0])
+                self._c_evictions.labels(reason="reset").inc()
+        self._g_sessions.set(self._session_count())
         return parked is not None
 
     def status(self) -> dict:

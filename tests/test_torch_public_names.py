@@ -36,7 +36,10 @@ MODULES = {
         "nlp.paragraph_vectors", "nlp.glove", "nlp.bagofwords",
         "nlp.serializer", "nlp.distributed", "nlp.languages",
         "nlp.ja_lexicon", "nlp.annotators", "graph", "graph.graph",
-        "graph.walkers", "graph.deepwalk")},
+        "graph.walkers", "graph.deepwalk", "clustering",
+        "clustering.kdtree", "clustering.kmeans", "clustering.quadtree",
+        "clustering.vptree", "plot", "plot.tsne", "observability.metrics",
+        "observability.names")},
 }
 #: names the JAX modules hold that are not theirs to export: imported
 #: typing helpers and modules, and the libhdf5 binding's ctypes plumbing,

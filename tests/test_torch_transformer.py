@@ -202,7 +202,17 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.graph, "
             "deeplearning4j_tpu_torch.graph.graph, "
             "deeplearning4j_tpu_torch.graph.walkers, "
-            "deeplearning4j_tpu_torch.graph.deepwalk;"
+            "deeplearning4j_tpu_torch.graph.deepwalk, "
+            "deeplearning4j_tpu_torch.clustering, "
+            "deeplearning4j_tpu_torch.clustering.kdtree, "
+            "deeplearning4j_tpu_torch.clustering.kmeans, "
+            "deeplearning4j_tpu_torch.clustering.quadtree, "
+            "deeplearning4j_tpu_torch.clustering.vptree, "
+            "deeplearning4j_tpu_torch.plot, "
+            "deeplearning4j_tpu_torch.plot.tsne, "
+            "deeplearning4j_tpu_torch.observability, "
+            "deeplearning4j_tpu_torch.observability.metrics, "
+            "deeplearning4j_tpu_torch.observability.names;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.') or m == 'ml_dtypes' "

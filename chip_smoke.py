@@ -87,7 +87,18 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    pool, replays. LeNet's and the transformer's paths run right after
    serving (step 4), so their wall times come before any profiler session
    in the process (which may slow later launches on the host); their
-   profiled calls wait until after step 9;
+   profiled calls wait until after step 9. Then the ``diagnostics`` phase
+   (A9.3) on the same transformer at the same shape: ``fit(epochs=8)`` in
+   groups of 4 with ``HealthMonitor(cadence=4)`` and ``NanAlertListener``
+   (the health step graph beside the plain one) against the same fit
+   unmonitored (params and losses bitwise, the same launches a replay in
+   both graphs, the checks ``due_index`` names) and against an eager
+   monitored fit (each summary within 1e-4 relative); the monitored
+   (cadence 50) and unmonitored fits timed in turns, 5 calls a side of 50
+   steps; a NaN batch at iteration 6 alarming ``nonfinite-grads`` at 8 with
+   one complete bundle naming the card; a host stall under a 1 s
+   watchdog counted once, its bundle's ``threads.txt`` holding the
+   stalled listener;
 11. builds char_rnn_lstm(64)'s layers as a ``ComputationGraph`` and trains
    it through TBPTT (8 chunks of [32, 50, 64]) on the card against the CPU
    (chunk losses within 1e-4 relative; ``lstm_fwd`` 16, ``lstm_bwd`` 16,
@@ -239,13 +250,15 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    falls), then two worker processes on the card over tcp with bf16 deltas
    and two over shm (each reporting its own process's launches, the
    coordinator launching none; the shm rings and shard segments used; the
-   score falls; no orphan segment);
+   score falls; no orphan segment); the server's ``dl4j_ps_*`` series and
+   the worker processes' wire and ring series held against the stats;
 24. runs the ``elastic`` phase (A7.4, A7.8's checkpoints): two shm worker
    processes on the card, shard 0's SIGKILLed once its group committed its
    first window; every group committed through its fin marker, a handoff,
    no orphan segment, the score falls; then ``save_sharded`` and
    ``restore_sharded`` on the card bitwise (params, states, updater state)
-   and an async save whose sidecar appears only after ``wait``;
+   and an async save whose sidecar appears only after ``wait``; the
+   joins and handoffs series against the trainer's stats;
 25. runs the ``sharded`` phase (A7.8's second half; every slot on the one
    card, so it measures correctness, launches and the cost of gathering at
    use, not a gain across cards): (a) the serve phase's full-width
@@ -354,7 +367,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 To debug a phase alone on the card, ``run_phases`` sets the card up,
 builds the kernels and runs the named phases (``fixed_matmul``, ``c3``,
 ``sharded_pins``, ``sharded``, ``keras``, ``native``, ``nlp``, ``embed``,
-``serve``, ``replicas``).
+``serve``, ``replicas``, ``diagnostics``, ``parallel``, ``param_server``,
+``elastic``).
 
 Any failed check exits non-zero without the last line. Without CUDA it
 exits non-zero before printing anything. Full results also go to
@@ -2997,6 +3011,278 @@ def _ragged_footprint(k, epoch: list) -> dict:
             or not _shared_pool(k):
         fail(f"ResNet-50's ragged epoch: losses {losses}, or its two "
              "captured steps do not share one memory pool")
+    return out
+
+
+#: the diagnostics phase (A9.3): full-width transformer_lm(256) at the
+#: train shape through fit(epochs=8) in groups of KS_TRANSFORMER_K, with a
+#: HealthMonitor at DIAG_CADENCE; the cost of monitoring at
+#: DIAG_COST_CADENCE over DIAG_COST_STEPS a call, DIAG_TURNS; a NaN batch at
+#: iteration DIAG_NAN_AT of DIAG_NAN_STEPS; a host stall of DIAG_STALL_S
+#: under a watchdog of DIAG_WATCHDOG_S
+DIAG_CADENCE, DIAG_COST_CADENCE, DIAG_COST_STEPS = 4, 50, 50
+DIAG_TURNS = ("plain", "health", "health", "plain") * 2 + ("plain", "health")
+DIAG_NAN_AT, DIAG_NAN_STEPS = 6, 12
+DIAG_WATCHDOG_S, DIAG_STALL_S, DIAG_STALL_AT = 1.0, 2.0, 6
+#: a monitored K-step summary against an eager monitored fit's: K-step and
+#: eager already part by up to KS_TOL in the parameters
+DIAG_TOL = 1e-4
+
+
+def _series(name: str, **labels) -> float:
+    """The process registry's series of ``name`` whose labels include
+    ``labels``, summed (a histogram's count)."""
+    from deeplearning4j_tpu_torch.observability import global_registry
+    fam = global_registry().snapshot().get(name, {"series": []})
+    return sum(s.get("value", s.get("count", 0)) for s in fam["series"]
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+class _Summaries:
+    """Every summary a HealthMonitor resolves, in order."""
+
+    def __init__(self, hm):
+        self.seen = []
+        inner = hm._resolve
+
+        def resolve(pending):
+            alarm = inner(pending)
+            self.seen.append(dict(hm.last))
+            return alarm
+        hm._resolve = resolve
+
+
+class _Stall:
+    """A listener that sleeps on the host at one iteration: the watchdog
+    sees no beat meanwhile."""
+
+    def __init__(self, at: int, seconds: float):
+        self.at, self.seconds = at, seconds
+
+    def iteration_done(self, model, iteration):
+        if iteration == self.at:
+            time.sleep(self.seconds)
+
+
+def _diag_groups(n: int, k: int) -> list:
+    return [(s, min(k, n - s)) for s in range(0, n, k)]
+
+
+def diagnostics_phase(kernels) -> dict:
+    """A9.3 on the card: the health variant of the K-step graph against the
+    plain one, the cost of monitoring, a NaN alarm's bundle, a watchdog
+    stall (see the module docstring, step 10)."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.observability import (
+        HealthMonitor, NanAlertListener, global_recorder, install_watchdog,
+        names, uninstall_watchdog)
+    from deeplearning4j_tpu_torch.observability.flight_recorder import (
+        BUNDLE_FILES, DUMP_DIR_ENV)
+
+    t_phase = time.perf_counter()
+    out = {}
+    conf = transformer_lm(TRAIN_V)
+    ids = np.random.default_rng(SEED + 11).integers(
+        0, TRAIN_V, size=(TRAIN_B, TRAIN_T))
+    x = np.eye(TRAIN_V, dtype=np.float32)[ids]
+    base = MultiLayerNetwork(conf, device="cuda").init(seed=SEED)
+    n = KS_TRANSFORMER_STEPS
+
+    # (a) monitored K-step fit, unmonitored, eager monitored: one init
+    runs = {}
+    for name, k, monitored in (("health", KS_TRANSFORMER_K, True),
+                               ("plain", KS_TRANSFORMER_K, False),
+                               ("eager", 1, True)):
+        net = base.clone()
+        net.dispatch_ksteps = k
+        logs, listeners, hm, seen = [], [], None, None
+        if monitored:
+            hm = HealthMonitor(cadence=DIAG_CADENCE).attach(net)
+            seen = _Summaries(hm)
+            listeners.append(NanAlertListener())
+        net.set_listeners(*listeners, _LossLog(logs))
+        _zero(kernels)
+        net.fit(x, x, epochs=n)
+        torch.cuda.synchronize()
+        if hm is not None:
+            hm.poll()
+        runs[name] = {"net": net, "losses": logs, "hm": hm,
+                      "summaries": seen.seen if seen else None,
+                      "launches": _launches(kernels)}
+        net.set_listeners()
+    h, p, e = runs["health"], runs["plain"], runs["eager"]
+    bitwise = h["losses"] == p["losses"] and all(
+        torch.equal(a[key], b[key]) for a, b in zip(
+            h["net"].params_list, p["net"].params_list) for key in a)
+    want_checks = sum(h["hm"].due_index(s, g) is not None
+                      for s, g in _diag_groups(n, KS_TRANSFORMER_K))
+    graphs = {sg.health: sg for sg in h["net"]._step_graphs.values()}
+    per = {flag: {fn.__name__: c for fn, c in sg.per_replay.items()}
+           for flag, sg in graphs.items()}
+    pool = {("health" if flag else "plain"): sg.pool_bytes
+            for flag, sg in graphs.items()}
+    plain_pool = sum(sg.pool_bytes for sg in p["net"]._step_graphs.values())
+    rel = {}
+    for ks, eg in zip(h["summaries"], e["summaries"]):
+        for key in ("grad_norm", "update_norm", "loss"):
+            rel[key] = max(rel.get(key, 0.0), _rel(ks[key], eg[key]))
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update(softmax_cross_entropy=n, flash_fwd=4 * n, flash_bwd_dq=4 * n,
+                flash_bwd_dkv=4 * n)
+    print(f"diagnostics (a): monitored K-step fit (cadence {DIAG_CADENCE}, "
+          f"groups of {KS_TRANSFORMER_K}, {n} steps) bitwise the unmonitored "
+          f"one: {bitwise}; checks {h['hm'].checks} (due_index {want_checks})"
+          f" at {[s['iteration'] for s in h['summaries']]}; summaries "
+          f"{h['summaries']}; eager monitored {e['summaries']}; worst "
+          f"relative difference {rel} (tol {DIAG_TOL:.0e}); launches "
+          f"monitored {h['launches']}, plain {p['launches']}; a replay's "
+          f"launches health {per.get(True)}, plain {per.get(False)}; graph "
+          f"pool grown by the captures {pool} (the unmonitored net's one "
+          f"capture {plain_pool})", flush=True)
+    if not bitwise:
+        fail("diagnostics: the monitored fit parts from the unmonitored one")
+    if h["hm"].checks != want_checks or e["hm"].checks != n // DIAG_CADENCE:
+        fail(f"diagnostics: {h['hm'].checks} checks, want {want_checks}")
+    if set(graphs) != {True, False} or per[True] != per[False]:
+        fail(f"diagnostics: the health graph's launches {per}")
+    if h["launches"] != want or p["launches"] != want:
+        fail("diagnostics: launches moved under the monitor")
+    if len(h["summaries"]) != len(e["summaries"]) or not all(
+            v <= DIAG_TOL for v in rel.values()) or any(
+            s["nonfinite_grads"] for s in h["summaries"] + e["summaries"]):
+        fail(f"diagnostics: summaries against the eager fit: {rel}")
+    out["fit"] = {"bitwise": bitwise, "checks": h["hm"].checks,
+                  "summaries": h["summaries"],
+                  "eager_summaries": e["summaries"], "worst_rel": rel,
+                  "per_replay": {str(k): v for k, v in per.items()},
+                  "pool_bytes": pool, "plain_pool_bytes": plain_pool}
+    out["launches"] = h["launches"]
+    del runs, h, p, e
+
+    # (b) the cost of monitoring: cadence 50 against none, in turns
+    nets = {"health": base.clone(), "plain": base.clone()}
+    for name, net in nets.items():
+        net.dispatch_ksteps = KS_TRANSFORMER_K
+        if name == "health":
+            HealthMonitor(cadence=DIAG_COST_CADENCE).attach(net)
+            net.set_listeners(NanAlertListener())
+        net.fit(x, x, epochs=DIAG_COST_STEPS)  # captures
+    torch.cuda.synchronize()
+    walls = {"health": [], "plain": []}
+    for which in DIAG_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nets[which].fit(x, x, epochs=DIAG_COST_STEPS)
+        torch.cuda.synchronize()
+        walls[which].append(1e3 * (time.perf_counter() - t0)
+                            / DIAG_COST_STEPS)
+    checks = nets["health"].health_monitor.checks
+    cost = {k: {"mean": float(np.mean(v)), "range": [min(v), max(v)],
+                "runs": v} for k, v in walls.items()}
+    print(f"diagnostics (b) [{CARD}]: ms a step, {len(walls['plain'])} calls "
+          f"of {DIAG_COST_STEPS} steps a side in turns: monitored (cadence "
+          f"{DIAG_COST_CADENCE}) {cost['health']['mean']:.3f} (range "
+          f"{cost['health']['range'][0]:.3f}-{cost['health']['range'][1]:.3f}"
+          f"), unmonitored {cost['plain']['mean']:.3f} (range "
+          f"{cost['plain']['range'][0]:.3f}-{cost['plain']['range'][1]:.3f});"
+          f" {checks} checks", flush=True)
+    out["cost"] = cost
+    del nets
+
+    # (c) a NaN batch: the alarm, one bundle that names the card
+    rec = global_recorder()
+    old_dir, old_env = rec.dump_dir, os.environ.get(DUMP_DIR_ENV)
+    tmp, tmp2 = (tempfile.mkdtemp(prefix="dl4j_flight_") for _ in range(2))
+    try:
+        os.environ[DUMP_DIR_ENV] = tmp
+        rec.set_dump_dir(os.environ[DUMP_DIR_ENV])
+        net = base.clone()
+        hm = HealthMonitor(cadence=DIAG_CADENCE).attach(net)
+        net.set_listeners(NanAlertListener())
+        batches = []
+        for i in range(DIAG_NAN_STEPS):
+            xi = x.copy()
+            if i == DIAG_NAN_AT:
+                xi[1, 3, 0] = np.nan
+            batches.append(DataSet(xi, xi))
+        a0 = _series(names.HEALTH_ALARMS_TOTAL)
+        net.fit_iterator(ListDataSetIterator(batches),
+                         ksteps=KS_TRANSFORMER_K)
+        torch.cuda.synchronize()
+        hm.poll()
+        alarms = _series(names.HEALTH_ALARMS_TOTAL) - a0
+        bundles = rec.list_bundles()
+        files = sorted(os.listdir(bundles[0]["path"])) if bundles else []
+        env = {}
+        if bundles:
+            with open(os.path.join(bundles[0]["path"],
+                                   "environment.json")) as f:
+                env = json.load(f)
+        cards = [d["name"] for d in env.get("devices", [])]
+        alarm = hm.alarm or {}
+        print(f"diagnostics (c): NaN features at iteration {DIAG_NAN_AT}: "
+              f"alarm {alarm.get('why')} at iteration "
+              f"{alarm.get('iteration')}, dl4j_health_alarms_total +"
+              f"{alarms:g}; bundles {[b['reason'] for b in bundles]}, files "
+              f"{files}, environment's cards {cards}", flush=True)
+        if (alarm.get("why") != "nonfinite-grads"
+                or not DIAG_NAN_AT < alarm["iteration"]
+                <= DIAG_NAN_AT + DIAG_CADENCE or alarms != 1
+                or len(bundles) != 1 or set(files) != set(BUNDLE_FILES)
+                or torch.cuda.get_device_name(0) not in cards):
+            fail("diagnostics: the NaN alarm or its bundle")
+        out["nan"] = {"alarm": alarm, "bundles": len(bundles), "files": files,
+                      "cards": cards}
+        del net
+
+        # (d) the watchdog: one stall, its bundle holds the stalled thread
+        rec.set_dump_dir(tmp2)
+        net = base.clone()
+        net.dispatch_ksteps = KS_TRANSFORMER_K
+        net.fit(x, x, epochs=KS_TRANSFORMER_K)  # captures, unwatched
+        torch.cuda.synchronize()
+        s0 = _series(names.WATCHDOG_STALLS_TOTAL)
+        net.set_listeners(_Stall(net.iteration + DIAG_STALL_AT,
+                                 DIAG_STALL_S))
+        wd = install_watchdog(DIAG_WATCHDOG_S, poll_s=0.05)
+        try:
+            net.fit(x, x, epochs=n)
+        finally:
+            uninstall_watchdog()
+        stalls = _series(names.WATCHDOG_STALLS_TOTAL) - s0
+        bundles = rec.list_bundles()
+        threads = ""
+        if bundles:
+            with open(os.path.join(bundles[0]["path"], "threads.txt")) as f:
+                threads = f.read()
+        held = "MainThread" in threads and "iteration_done" in threads
+        print(f"diagnostics (d): a {DIAG_STALL_S:g} s host stall under a "
+              f"{DIAG_WATCHDOG_S:g} s watchdog: {wd.stalls} stall(s), "
+              f"dl4j_watchdog_stalls_total +{stalls:g}; bundles "
+              f"{[b['reason'] for b in bundles]}; threads.txt holds the "
+              f"stalled listener: {held}", flush=True)
+        if wd.stalls != 1 or stalls != 1 or len(bundles) != 1 or not held:
+            fail("diagnostics: the watchdog's stall")
+        out["watchdog"] = {"stalls": wd.stalls, "bundles": len(bundles)}
+        del net
+    finally:
+        rec.set_dump_dir(old_dir)
+        if old_env is None:
+            os.environ.pop(DUMP_DIR_ENV, None)
+        else:
+            os.environ[DUMP_DIR_ENV] = old_env
+        for d in (tmp, tmp2):
+            shutil.rmtree(d, ignore_errors=True)
+    del base
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"diagnostics: {out['seconds']:.1f}s", flush=True)
+    if out["seconds"] > 60.0:
+        fail(f"diagnostics: the phase took {out['seconds']:.1f}s (limit 60)")
     return out
 
 
@@ -6172,7 +6458,14 @@ def parallel_phase(kernels) -> dict:
         launches = {}
 
         def wrapper_dp(n):
+            from deeplearning4j_tpu_torch.observability import (
+                global_recorder, names, tree_nbytes)
             w = pw(n)
+            sent = ("all_reduce", "grad")
+            series0 = _series(names.COLLECTIVE_BYTES_TOTAL, op=sent[0],
+                              site=sent[1])
+            stats0 = w.stats()["collective_bytes_total"].get(sent, 0)
+            mark = len(global_recorder().snapshot())
             n.dispatch_ksteps = 1
             _zero(counted)
             w.fit(_par_iter(xs[:PAR_SINGLE]))
@@ -6184,6 +6477,23 @@ def parallel_phase(kernels) -> dict:
             out["dp_stats"] = {k: v for k, v in w.stats().items()
                                if isinstance(k, str) and
                                not isinstance(v, dict)}
+            # the series against the wrapper's stats and what it sent: one
+            # all-reduce of the float32 gradients a step
+            moved = (PAR_SINGLE + PAR_K) * tree_nbytes(n.params_list)
+            series = _series(names.COLLECTIVE_BYTES_TOTAL, op=sent[0],
+                             site=sent[1]) - series0
+            stats = w.stats()["collective_bytes_total"].get(sent, 0) - stats0
+            paths = [e["path"] for e in global_recorder().snapshot()[mark:]
+                     if e["kind"] == "step"]
+            steps = (paths.count("ParallelWrapper.sync_step"),
+                     paths.count("ParallelWrapper.sync_multistep"))
+            print(f"parallel dp series: dl4j_collective_bytes_total"
+                  f"{{op=all_reduce,site=grad}} +{series:g}, stats "
+                  f"+{stats}, sent {moved}; step events (single, group) "
+                  f"{steps}", flush=True)
+            if not series == stats == moved or steps != (PAR_SINGLE, 1):
+                fail("parallel: the collective series or the step events")
+            out["series"] = {"collective_bytes": series, "events": steps}
 
         ref = _par_run(net, snap, fit_dp)
         got = _par_run(net, snap, wrapper_dp)
@@ -6497,6 +6807,27 @@ def _check_workers(what: str, stats: list, steps: int) -> dict:
     return total
 
 
+#: the elastic phase's series, by the trainer's stats key
+_EL_SERIES = {"joins": "dl4j_elastic_joins_total",
+              "handoffs": "dl4j_elastic_handoffs_total",
+              "fenced": "dl4j_elastic_fenced_pushes_total"}
+
+
+def _ps_series() -> dict:
+    return {"pushes": _series("dl4j_ps_pushes_total", outcome="applied"),
+            "rejected": _series("dl4j_ps_pushes_total", outcome="rejected"),
+            "pulls": _series("dl4j_ps_pulls_total"),
+            "worker_steps": _series("dl4j_ps_worker_steps_total"),
+            "staleness": _series("dl4j_ps_staleness")}
+
+
+def _family_sum(series: dict, name: str, **labels) -> float:
+    """A family of a worker's reported series summed over the series whose
+    labels include ``labels``."""
+    return sum(s["value"] for s in series.get(name, [])
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
 def param_server_phase(kernels) -> dict:
     """A7.3 on the card: ``ParameterServerParallelWrapper`` with one inproc
     worker against ``fit`` (JAX's tolerance, exact launches, 2 pushes), two
@@ -6550,6 +6881,7 @@ def param_server_phase(kernels) -> dict:
     _restore(net, snap)
     s0 = _ps_score(net, xs[:2])
     w = PSW.builder(net).workers(2).push_frequency(PS_MANY_FREQ).build()
+    series0 = _ps_series()
     _zero(counted)
     t0 = time.perf_counter()
     w.fit(_par_iter(xs))
@@ -6558,6 +6890,16 @@ def param_server_phase(kernels) -> dict:
     out["launches"]["param_server_inproc2"] = got_l = _launches(counted)
     s1 = _ps_score(net, xs[:2])
     srv = w.server.stats()
+    got_series = {k: v - series0[k] for k, v in _ps_series().items()}
+    want_series = {"pushes": srv["pushes"], "rejected": srv["rejected"],
+                   "pulls": srv["pulls"], "worker_steps": PS_BATCHES,
+                   "staleness": sum(srv["staleness"].values())}
+    print(f"param_server two inproc workers' series {got_series} against "
+          f"the server's stats and the steps run {want_series}; version "
+          f"gauge {_series('dl4j_ps_version'):g}", flush=True)
+    if {k: got_series[k] for k in want_series} != want_series \
+            or _series("dl4j_ps_version") != srv["version"]:
+        fail("param_server: the series disagree with the server's stats")
     print(f"param_server two inproc workers: steps "
           f"{[s['steps'] for s in w.worker_stats]}, server {srv}; score "
           f"{s0:.5f} -> {s1:.5f}; {ms:.3f} ms a step; launches {got_l}",
@@ -6567,6 +6909,7 @@ def param_server_phase(kernels) -> dict:
         fail("param_server: two inproc workers")
     _check_launches("param_server two workers", got_l, _ps_want(PS_BATCHES))
     out["two_inproc"] = {"server": srv, "score": [s0, s1], "ms": ms}
+    out["series"] = {"inproc": got_series}
 
     # (c) two worker processes on the card over tcp (bf16 deltas), then
     # over shm: each reports the launches of its own process
@@ -6605,6 +6948,23 @@ def param_server_phase(kernels) -> dict:
         if pst.orphan_segments():
             fail(f"param_server {transport}: orphan segments "
                  f"{pst.orphan_segments()}")
+        # each worker process's series against its transport's stats
+        checks = []
+        for ws in w.worker_stats:
+            t, ser = ws["transport"], ws["series"]
+            if transport == "tcp":
+                got = _family_sum(ser, "dl4j_ps_wire_bytes_total", op="push")
+                want = t["push_bytes"]
+            else:
+                got = _family_sum(ser, "dl4j_shm_bytes_total",
+                                  direction="push")
+                want = t["shm_push_bytes"]
+            checks.append((got, want))
+        print(f"param_server {transport} workers' series (got, stats): "
+              f"{checks}", flush=True)
+        if any(g != wnt or not g for g, wnt in checks):
+            fail(f"param_server {transport}: the workers' series")
+        out["series"][transport] = checks
         out[transport] = {"score": [s0, s1], "wall_s": wall,
                           "workers": w.worker_stats,
                           "shard_routes": w.shard_routes}
@@ -6646,6 +7006,7 @@ def elastic_phase(kernels) -> dict:
             time.sleep(0.005)
 
     th = threading.Thread(target=assassin, daemon=True)
+    el0 = {k: _series(name) for k, name in _EL_SERIES.items()}
     _zero(counted)
     th.start()
     t0 = time.perf_counter()
@@ -6670,11 +7031,19 @@ def elastic_phase(kernels) -> dict:
         fail(f"elastic: segments left: {orphans}, {pst.segment_stats()}")
     if st["joins"] != 2 + trainer.handoffs or not s1 < s0:
         fail("elastic: joins or loss")
+    series = {k: _series(name) - el0[k] for k, name in _EL_SERIES.items()}
+    print(f"elastic series {series} against the trainer's stats (joins "
+          f"{st['joins']}, handoffs {trainer.handoffs}, fenced "
+          f"{st['fenced']})", flush=True)
+    if (series["joins"] != st["joins"] or series["handoffs"]
+            != trainer.handoffs or series["fenced"] != st["fenced"]):
+        fail("elastic: the series disagree with the trainer's stats")
     steps = sum(s["steps"] for s in trainer.worker_stats)
     launches = _check_workers("elastic", trainer.worker_stats, steps)
     out["run"] = {"killed_at": killed.get("committed"), "commits": commits,
                   "stats": st, "score": [s0, s1], "wall_s": wall,
-                  "workers": trainer.worker_stats, "launches": launches}
+                  "workers": trainer.worker_stats, "launches": launches,
+                  "series": series}
 
     # sharded checkpoints on the card: a fit step fills Adam's state first
     net.fit(xs[0], xs[0])
@@ -6808,7 +7177,11 @@ def _sh_pins(kernels) -> dict:
         print(f"sharded (a) {label}: per-device param bytes {per} (partition "
               f"math {math}, each slot's tensors {held}; whole "
               f"{pf.param_bytes})", flush=True)
-        if not (per == math and held == [per] * mesh.size
+        gauge = _series("dl4j_sharded_param_bytes_per_device",
+                        rule_set="dp_tp")
+        print(f"sharded (a) {label}: dl4j_sharded_param_bytes_per_device"
+              f"{{rule_set=dp_tp}} {gauge:g}", flush=True)
+        if not (per == math == gauge and held == [per] * mesh.size
                 and per < pf.param_bytes):
             fail(f"sharded (a) {label}: per-device bytes disagree")
         for B in SH_SIZES:
@@ -8469,7 +8842,11 @@ PHASES_ALONE = {"c3": lambda k: c3_phase(), "sharded_pins": _sh_pins,
                 "keras": keras_phase, "native": native_phase,
                 "nlp": nlp_phase, "embed": embed_phase,
                 "serve": lambda k: serve(k[:3]),
-                "replicas": replicas_phase}
+                "replicas": replicas_phase,
+                "diagnostics": diagnostics_phase,
+                "parallel": parallel_phase,
+                "param_server": param_server_phase,
+                "elastic": elastic_phase}
 
 
 def run_phases(*names: str) -> dict:
@@ -8549,6 +8926,9 @@ def main() -> None:
     resnet_run = resnet(kernels)
     for pending in PROFILE_LATER:
         _profile_pair(*pending)
+    t0 = time.perf_counter()
+    diag_run = diagnostics_phase(kernels)
+    print(f"phase diagnostics: {time.perf_counter() - t0:.1f}s", flush=True)
     kstep_run["resnet50"] = ksteps_resnet(kernels)
     graph_rnn_run = graph_rnn(kernels)
     dtype_run = dtype_phase(kernels)
@@ -8827,7 +9207,8 @@ def main() -> None:
                    + served_rnn["stream_launches"][fname],
                    "lenet": lenet_run["launches"][fname],
                    "resnet50": resnet_run["launches"][fname],
-                   "graph_rnn": graph_rnn_run["launches"][fname]}
+                   "graph_rnn": graph_rnn_run["launches"][fname],
+                   "diagnostics": diag_run["launches"][fname]}
         # the K-step paths: launches counted as the replays count them
         # (each replay adds its capture's launches)
         for path, run in kstep_run.items():
@@ -8979,7 +9360,8 @@ def main() -> None:
                    "serve_rnn": served_rnn,
                    "train_rnn": trained_rnn, "lenet": lenet_run,
                    "resnet50": resnet_run, "ksteps": kstep_run,
-                   "graph_rnn": graph_rnn_run, "dtype": dtype_run,
+                   "graph_rnn": graph_rnn_run, "diagnostics": diag_run,
+                   "dtype": dtype_run,
                    "files": files_run, "self_attention": sa_run,
                    "moe": moe_run, "zoo": zoo_run, "pretrain": pretrain_run,
                    "iris": iris_run, "spec": spec_run,

@@ -7,9 +7,12 @@ it), a gated ``S3Provider``, and ``TpuProvisioner``, which renders an
 accelerator-pool request dict (it keeps the JAX package's name, fields and
 defaults: it only renders a request). ``MembershipOracle`` grows it into
 the elastic-training membership authority: leases, heartbeats and fencing
-epochs. Where the JAX package records metrics and flight-recorder events,
-the oracle keeps plain counters (``joins``, ``lease_expiries``,
-:meth:`MembershipOracle.stats`).
+epochs. As in the JAX package, the oracle writes
+``dl4j_elastic_live_workers``, ``dl4j_elastic_joins_total`` and
+``dl4j_elastic_lease_expiries_total`` and records ``{role}_join``,
+``{role}_leave`` and ``{role}_lost`` events in the flight recorder; one
+oracle's own counts are :meth:`MembershipOracle.stats` (a process may hold
+several oracles: a trainer's and a serving fleet's).
 """
 from __future__ import annotations
 
@@ -19,6 +22,20 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
+
+from ..observability.flight_recorder import global_recorder
+from ..observability.metrics import global_registry
+from ..observability.names import (
+    ELASTIC_JOINS_TOTAL, ELASTIC_LEASE_EXPIRIES_TOTAL, ELASTIC_LIVE_WORKERS)
+
+_live_workers = global_registry().gauge(
+    ELASTIC_LIVE_WORKERS, "workers holding a live membership lease").labels()
+_lease_expiries = global_registry().counter(
+    ELASTIC_LEASE_EXPIRIES_TOTAL,
+    "membership leases declared dead after missing heartbeats").labels()
+_joins = global_registry().counter(
+    ELASTIC_JOINS_TOTAL, "worker registrations with the membership "
+                         "oracle").labels()
 
 
 class StorageProvider:
@@ -287,6 +304,11 @@ class MembershipOracle(TpuProvisioner):
                 deadline=self.clock() + self.lease_timeout_s)
             self._members[lease.member] = lease
             self.joins += 1
+            _joins.inc()
+            self._update_gauge_locked()
+        global_recorder().record(
+            f"{self.role}_join", member=lease.member, epoch=lease.epoch,
+            shard=lease.shard, worker=lease.name)
         return lease
 
     def _live_locked(self, member: int, epoch: int) -> Optional[WorkerLease]:
@@ -321,6 +343,10 @@ class MembershipOracle(TpuProvisioner):
             lease.alive = False
             lease.reason = reason
             self.leaves += 1
+            self._update_gauge_locked()
+        global_recorder().record(
+            f"{self.role}_leave", member=lease.member, shard=lease.shard,
+            reason=reason)
         return True
 
     def validate(self, member: int, epoch: int) -> bool:
@@ -351,6 +377,10 @@ class MembershipOracle(TpuProvisioner):
             lease.alive = False
             lease.reason = reason
             self.evictions += 1
+            self._update_gauge_locked()
+        global_recorder().record(
+            f"{self.role}_lost", member=lease.member, shard=lease.shard,
+            reason=reason)
         return True
 
     # ------------------------------------------------------------- queries
@@ -384,3 +414,12 @@ class MembershipOracle(TpuProvisioner):
         lease.alive = False
         lease.reason = reason
         self.lease_expiries += 1
+        _lease_expiries.inc()
+        self._update_gauge_locked()
+        global_recorder().record(
+            f"{self.role}_lost", member=lease.member, shard=lease.shard,
+            reason=reason)
+
+    def _update_gauge_locked(self) -> None:
+        _live_workers.set(
+            sum(1 for l in self._members.values() if l.alive))

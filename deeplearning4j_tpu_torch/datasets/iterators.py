@@ -104,7 +104,8 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def __iter__(self):
         self.close()  # a new pass abandons the previous producer
-        self._pf = DevicePrefetcher(self.base, depth=max(1, self.queue_size))
+        self._pf = DevicePrefetcher(self.base, depth=max(1, self.queue_size),
+                                    path=None)
         return iter(self._pf)
 
     def close(self) -> None:

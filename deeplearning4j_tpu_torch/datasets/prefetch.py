@@ -14,9 +14,14 @@ so the copy of group n+1 overlaps the steps of group n. Every staged group
 is a fresh device buffer that no step writes (the steps read it into their
 own input buffers), the counterpart of the JAX note on donation safety.
 
-The JAX module's Prometheus series belong to its observability plane, not
-ported yet; the prefetcher keeps plain counters instead: groups staged,
-producer seconds staging, consumer seconds waiting, and bytes staged.
+The prefetcher writes the JAX module's series, one labelset a fit path
+(``path``): the queue's depth, bytes staged, producer seconds staging,
+consumer seconds waiting and the overlap ratio (1 - wait / staging). Every
+second is a host clock around host work (pulling an item, stacking it,
+queuing its copy, waiting on the queue); nothing synchronizes the card to
+measure. Its own counters (``staged``, ``staging_s``, ``wait_s``,
+``bytes``) read the same work for one prefetcher. ``wait_series`` (the fit
+loops' ``dl4j_fit_phase_seconds{phase="staging"}``) observes each wait.
 """
 from __future__ import annotations
 
@@ -27,6 +32,31 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+
+from ..observability.metrics import global_registry
+from ..observability.names import (
+    PREFETCH_BYTES_TOTAL, PREFETCH_DEPTH, PREFETCH_OVERLAP_RATIO,
+    PREFETCH_STAGING_SECONDS_TOTAL, PREFETCH_WAIT_SECONDS_TOTAL)
+
+# families resolved once; a prefetcher resolves its path's series once
+_depth_gauge = global_registry().gauge(
+    PREFETCH_DEPTH,
+    "staged items currently queued ahead of the dispatch loop, by fit path")
+_bytes_total = global_registry().counter(
+    PREFETCH_BYTES_TOTAL,
+    "bytes of staged device arrays handed to the prefetch queue, by fit path")
+_staging_total = global_registry().counter(
+    PREFETCH_STAGING_SECONDS_TOTAL,
+    "producer-thread seconds spent pulling + staging items (the work hidden "
+    "behind dispatch when overlap works), by fit path")
+_wait_total = global_registry().counter(
+    PREFETCH_WAIT_SECONDS_TOTAL,
+    "consumer seconds blocked waiting for a staged item (staging NOT hidden "
+    "behind dispatch), by fit path")
+_overlap_gauge = global_registry().gauge(
+    PREFETCH_OVERLAP_RATIO,
+    "1 - wait/staging over this prefetcher's lifetime: fraction of staging "
+    "time hidden behind dispatch (1.0 = fully overlapped)")
 
 _DONE = object()  # queue sentinel: the producer finished or was stopped
 
@@ -39,13 +69,23 @@ class DevicePrefetcher:
     sees the prefix the synchronous loop would. ``close()`` (also run when
     iteration ends or the consumer's loop exits early) stops the producer;
     its bounded put polls a stop flag, so it never stays blocked on a full
-    queue."""
+    queue. ``path`` labels its series (None: no series);
+    ``wait_series`` observes each wait of the consumer (at depth <= 0,
+    each inline staging)."""
 
     def __init__(self, source: Iterable, stage: Optional[Callable] = None,
-                 *, depth: int = 2):
+                 *, depth: int = 2, path: Optional[str] = "default",
+                 wait_series=None):
         self._source = source
         self._stage = stage
         self._depth = depth
+        self._wait_series = wait_series
+        self._m = None if path is None else {
+            "depth": _depth_gauge.labels(path=path),
+            "bytes": _bytes_total.labels(path=path),
+            "staging": _staging_total.labels(path=path),
+            "wait": _wait_total.labels(path=path),
+            "overlap": _overlap_gauge.labels(path=path)}
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
@@ -58,13 +98,19 @@ class DevicePrefetcher:
         self.wait_s = 0.0
         self.bytes = 0
 
-    def _staged(self, item):
-        t0 = time.perf_counter()
+    def _staged(self, item, t0: float):
+        """``item`` staged; ``t0`` is when its pull began."""
         if self._stage is not None:
             item = self._stage(item)
-        self.staging_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        nbytes = _nbytes(item)
+        self.staging_s += dt
         self.staged += 1
-        self.bytes += _nbytes(item)
+        self.bytes += nbytes
+        if self._m is not None:
+            self._m["staging"].inc(dt)
+            if nbytes:
+                self._m["bytes"].inc(nbytes)
         return item
 
     # ---------------------------------------------------------------- producer
@@ -79,9 +125,17 @@ class DevicePrefetcher:
 
     def _run(self) -> None:
         try:
-            for item in self._source:
-                if self._stop.is_set() or not self._put(self._staged(item)):
+            it = iter(self._source)
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    break
+                if not self._put(self._staged(item, t0)):
                     return
+                if self._m is not None:
+                    self._m["depth"].set(self._q.qsize())
         except Exception as e:  # handed to the consumer, in order
             self._error = e
         finally:
@@ -92,8 +146,11 @@ class DevicePrefetcher:
         if self._depth <= 0:
             for item in self._source:
                 t0 = time.perf_counter()
-                item = self._staged(item)
-                self.wait_s += time.perf_counter() - t0
+                item = self._staged(item, t0)
+                dt = time.perf_counter() - t0
+                self.wait_s += dt
+                if self._wait_series is not None:
+                    self._wait_series.observe(dt)
                 yield item
             return
         self.thread = threading.Thread(target=self._run, daemon=True,
@@ -103,11 +160,20 @@ class DevicePrefetcher:
             while True:
                 t0 = time.perf_counter()
                 item = self._q.get()
-                self.wait_s += time.perf_counter() - t0
+                wait = time.perf_counter() - t0
                 if item is _DONE:
                     if self._error is not None:
                         raise self._error
                     return
+                self.wait_s += wait
+                if self._m is not None:
+                    self._m["wait"].inc(wait)
+                    self._m["depth"].set(self._q.qsize())
+                    if self.staging_s > 0.0:
+                        self._m["overlap"].set(max(0.0, min(
+                            1.0, 1.0 - self.wait_s / self.staging_s)))
+                if self._wait_series is not None:
+                    self._wait_series.observe(wait)
                 yield item
         finally:
             self.close()

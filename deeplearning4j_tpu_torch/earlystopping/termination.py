@@ -1,27 +1,15 @@
 """Termination conditions: epoch conditions see ``(epoch, score)``,
 iteration conditions the last minibatch's score.
 
-Counterpart of ``deeplearning4j_tpu/earlystopping/termination.py``, with
-the port's own copy of the JAX package's ``is_invalid_score``
-(``observability/health.py``).
+Counterpart of ``deeplearning4j_tpu/earlystopping/termination.py``. The
+invalid-score condition uses ``observability.health.is_invalid_score``, the
+predicate the training-health alarm uses, so the two never disagree.
 """
 from __future__ import annotations
 
-import math
 import time
-from typing import Any
 
-
-def is_invalid_score(score: Any) -> bool:
-    """Whether a score means training is broken: None, not a number, NaN
-    or infinite."""
-    if score is None:
-        return True
-    try:
-        value = float(score)
-    except (TypeError, ValueError):
-        return True
-    return math.isnan(value) or math.isinf(value)
+from ..observability.health import is_invalid_score
 
 
 class EpochTerminationCondition:

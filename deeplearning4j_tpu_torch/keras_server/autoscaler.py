@@ -8,7 +8,7 @@ reads two signals:
 - **SLO burn**: the short-window burn rate of each objective from
   ``slo_engine.evaluate()``, duck-typed (anything with ``evaluate()``
   returning ``[{"alerting": bool, "windows": [{"burn_rate": x}, ...]}]``;
-  the port's own SLO engine waits for ROADMAP.md A9).
+  the port's own SLO engine waits for ROADMAP.md A9.2, the tracing plane).
 
 It drives ``ReplicaSet.add_replica()``/``remove_replica()`` under
 hysteresis: at most one scale event per ``cooldown_s``, one replica a step,
@@ -17,8 +17,9 @@ the fleet within ``[min_replicas, max_replicas]``, and scale-in only after
 catalog on the new replica before the router sees it; scale-in drains
 without loss. ``last_scale_out_latency_s`` is the decision-to-routable wall
 time. ``clock`` is injectable, so the hysteresis is testable with a fake
-clock. Scale events are kept in a bounded list in :meth:`status`, where the
-JAX package records them in its flight recorder. Each tick first
+clock. Scale events are kept in a bounded list in :meth:`status` and
+recorded as ``fleet_scale`` events in the flight recorder (a failed tick as
+``fleet_scale_error``), as in the JAX package. Each tick first
 heartbeats the replicas and removes every one whose lease no longer
 validates (``ReplicaSet.fenced_replicas``, reason ``lease-fenced``), then
 fills the fleet back to ``min_replicas`` (``replace-fenced``), outside the
@@ -29,6 +30,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Callable, List, Optional
+
+from ..observability.flight_recorder import global_recorder
 
 #: scale events :meth:`Autoscaler.status` keeps, and shows
 _EVENTS_KEPT, _EVENTS_SHOWN = 64, 16
@@ -112,6 +115,8 @@ class Autoscaler:
             self._last_reason = reason
             self._events.append(ev)
             del self._events[:-_EVENTS_KEPT]
+        global_recorder().record(
+            "fleet_scale", direction=direction, reason=reason, size=size)
 
     def _scale_out(self, reason: str, now: float) -> None:
         t0 = self.clock()
@@ -184,9 +189,11 @@ class Autoscaler:
             try:
                 self.tick()
             except Exception as e:
-                # a failed decision must not take serving down
+                # a failed decision must not take serving down; the
+                # recorder keeps the scale history for triage
                 self.errors += 1
                 self.last_error = repr(e)
+                global_recorder().record("fleet_scale_error", error=repr(e))
 
     def stop(self) -> None:
         self._stop.set()

@@ -12,7 +12,10 @@ A ``ReplicaSet`` member carries its ``replica`` index into every answer
 and into the labels of its queue-depth and occupancy gauges. Requests,
 batches (by model), errors, the dispatch wall time and the occupancy of
 the last dispatch go to the metrics registry (``metrics``, the global one
-by default); none of them reads a device value.
+by default); none of them reads a device value. Each dispatch records a
+``serve_batch`` event in the flight recorder and beats the watchdog; a
+dispatch that fails dumps the recorder (``serve-dispatch-error``) before
+its requests get the error, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import numpy as np
 
 from ..common import host_numpy
 from ..observability import names as _n
+from ..observability.flight_recorder import global_recorder
 from ..observability.metrics import global_registry
+from ..observability.watchdog import beat
 from .admission import AdmissionController
 from .registry import ModelRegistry
 
@@ -194,10 +199,14 @@ class MicroBatcher:
             # .cpu() is this dispatch's sync point: the response is host data
             outs = [host_numpy(o) for o in (raw if multi_out else [raw])]
             dt = time.perf_counter() - t0
-        except Exception as e:
+        except Exception as e:  # each request of the group gets it
             self._c_errors.inc(len(group))
             with self._lock:
                 self._errors += len(group)
+            global_recorder().dump(
+                reason="serve-dispatch-error",
+                extra={"model": group[0].model, "rows": rows,
+                       "bucket": bucket, "error": repr(e)})
             for r in group:
                 r.future.set_exception(e)
             return
@@ -215,6 +224,12 @@ class MicroBatcher:
             self._dispatches += 1
             self._occupancy_sum += occupancy
             self._buckets_seen.add((group[0].key, bucket))
+            n_dispatch = self._dispatches
+        global_recorder().record(
+            "serve_batch", model=mv.name, version=mv.version, rows=rows,
+            bucket=bucket, requests=len(group), dispatch_s=dt,
+            **({"replica": self.replica} if self.replica is not None else {}))
+        beat(n_dispatch)
         off = 0
         for r in group:
             pred = [o[off:off + r.n] for o in outs]

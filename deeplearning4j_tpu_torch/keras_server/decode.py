@@ -63,6 +63,10 @@ state the pump already holds: slot occupancy, time to first token, tokens,
 evictions by reason, the first-step time of each new capacity bucket,
 pages in use (the pool's host counter), the prefix share, speculative
 proposals and acceptance, and the host bytes copied at a bucket growth.
+As in the JAX engine, every step or round beats the watchdog, and a step
+that fails records ``decode_bucket_growth_failed`` when it was growing a
+bucket and dumps the flight recorder (``decode-step-error``) before its
+sessions are evicted.
 """
 from __future__ import annotations
 
@@ -83,7 +87,9 @@ from ..nn.conf.layers.recurrent import (
 )
 from ..nn.inference import copy_tree
 from ..observability import names as _n
+from ..observability.flight_recorder import global_recorder
 from ..observability.metrics import global_registry
+from ..observability.watchdog import beat
 from ..ops.paged_attention import paged_gather
 from ..ops.quant import (
     dequantize_tree, gather_rows, quantize_tree, quantized_matmul,
@@ -831,8 +837,9 @@ class DecodeEngine:
             # and eviction and is the next input
             next_h = next_tok.cpu().numpy()
             probs_h = host_numpy(probs) if self.capture_probs else None
-        except Exception as e:
+        except Exception as e:  # the sessions fail with it, and it propagates
             self.last_error = repr(e)
+            self._step_failed(e, cap, growing)
             with self._cond:
                 for i, _ in active:
                     self._evict_locked(i, "error")
@@ -842,6 +849,7 @@ class DecodeEngine:
             self._h_growth_stall.labels(bucket=str(cap)).observe(now - t0)
         with self._cond:
             self._steps += 1
+            n_steps = self._steps
             self._buckets.add(cap)
             self._occupancy_sum += len(active) / cap
             for i, sess in active:
@@ -851,6 +859,7 @@ class DecodeEngine:
                     i, sess, int(self._pos_h[i]), 1, next_h[i:i + 1],
                     None if probs_h is None else probs_h[i:i + 1], now)
         self._g_occupancy.set(len(active) / cap)
+        beat(n_steps)
         return True
 
     def _pump_once_spec(self) -> bool:
@@ -935,8 +944,9 @@ class DecodeEngine:
             # accept/reject drives eviction and the next round's inputs
             outs_h = outs.cpu().numpy()
             vprobs_h = host_numpy(vprobs) if self.capture_probs else None
-        except Exception as e:
+        except Exception as e:  # the sessions fail with it, and it propagates
             self.last_error = repr(e)
+            self._step_failed(e, cap, growing)
             with self._cond:
                 for i, _ in active:
                     self._evict_locked(i, "error")
@@ -946,6 +956,7 @@ class DecodeEngine:
             self._h_growth_stall.labels(bucket=str(cap)).observe(now - t0)
         with self._cond:
             self._steps += 1
+            n_steps = self._steps
             self._draft_steps += n_draft
             self._buckets.add(cap)
             self._occupancy_sum += len(active) / cap
@@ -993,7 +1004,18 @@ class DecodeEngine:
             if self._spec_proposed:
                 self._g_accept.set(self._spec_accepted / self._spec_proposed)
         self._g_occupancy.set(len(active) / cap)
+        beat(n_steps)
         return True
+
+    def _step_failed(self, e: Exception, cap: int, growing: bool) -> None:
+        if growing:
+            # the event names the bucket that never came up
+            global_recorder().record(
+                "decode_bucket_growth_failed", cap=cap, mode=self.mode,
+                error=repr(e))
+        global_recorder().dump(
+            reason="decode-step-error",
+            extra={"cap": cap, "mode": self.mode, "error": repr(e)})
 
     def _loop(self) -> None:
         while True:

@@ -15,7 +15,10 @@ package, with the JAX package's flags (``-O3 -std=c++17 -fPIC -shared
 ``c++`` and ``clang++`` on the path; :data:`build_info` says which, and
 how long the build took. The library's name hashes the source, the flags
 and the compiler, so an edited source is rebuilt. A build that fails
-raises with the compiler's output; nothing falls back to Python.
+raises with the compiler's output, after a ``native_build_failed`` event
+in the flight recorder; nothing falls back to Python. The record decoders
+count their input bytes in ``dl4j_ingest_decode_bytes_total`` by path
+(``native``, ``python``), as the JAX module does.
 
 Each entry point has a plain Python version here (``*_py``), which the
 tests hold bitwise against the native one. ``read_csv_numeric`` with
@@ -40,6 +43,16 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..observability.flight_recorder import global_recorder
+from ..observability.metrics import global_registry
+from ..observability.names import INGEST_DECODE_BYTES_TOTAL
+
+_ingest_bytes = global_registry().counter(
+    INGEST_DECODE_BYTES_TOTAL,
+    "raw record bytes decoded to f32 batches, by path (native/python)")
+_ingest_native = _ingest_bytes.labels(path="native")
+_ingest_python = _ingest_bytes.labels(path="python")
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_PATH = Path(__file__).resolve().parent / "dl4j_runtime.cpp"
@@ -100,9 +113,14 @@ def build() -> Path:
             r = subprocess.run(cmd, capture_output=True, text=True,
                                timeout=300)
         except (OSError, subprocess.SubprocessError) as e:
+            global_recorder().record("native_build_failed",
+                                     src=str(SRC_PATH), error=repr(e))
             raise RuntimeError(f"building the host runtime with {cxx} "
                                f"failed: {e!r}") from e
         if r.returncode != 0 or not tmp.exists():
+            global_recorder().record(
+                "native_build_failed", src=str(SRC_PATH),
+                error=f"exit {r.returncode}", stderr=r.stderr[-500:])
             raise RuntimeError(
                 f"building the host runtime failed: {' '.join(cmd)} exited "
                 f"{r.returncode}:\n{r.stdout}{r.stderr}")
@@ -519,6 +537,7 @@ def decode_records_py(buf, codec: str = "f32") -> np.ndarray:
     if len(raw) % _INGEST_WIDTH[cid]:
         raise ValueError(f"ragged record: {len(raw)} bytes is not a whole "
                          f"number of {codec} elements")
+    _ingest_python.inc(len(raw))
     if cid == 0:
         return raw.view(np.float32).copy()
     if cid == 1:
@@ -544,6 +563,7 @@ def decode_records(buf, codec: str = "f32") -> np.ndarray:
                                    out.ctypes.data_as(c_f32p), n)
     if wrote != n:
         raise RuntimeError(f"dl4j_ingest_decode wrote {wrote} of {n}")
+    _ingest_native.inc(len(raw))
     return out
 
 
@@ -574,6 +594,7 @@ class IngestDecoder:
             self._h, raw.ctypes.data_as(c_u8p), len(raw), cid)
         if rc != 0:
             raise RuntimeError("ingest pipeline poisoned by a bad record")
+        _ingest_native.inc(len(raw))
         self._sizes.append(len(raw) // _INGEST_WIDTH[cid])
 
     def next(self) -> Optional[np.ndarray]:

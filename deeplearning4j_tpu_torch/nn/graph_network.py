@@ -43,6 +43,12 @@ and ``output``/``score``/``evaluate`` run under, as for
 
 A non-SGD ``optimization_algo`` trains through the ``Solver``
 (``optimize/solvers.py``).
+
+Diagnostics as in ``MultiLayerNetwork``: the health variant of the step at
+the monitor's due iterations (``make_graph_train_step(net, health=True)``),
+a flight-recorder ``step`` event and a watchdog beat every step and chunk,
+one bundle on an exception escaping ``fit`` or ``fit_iterator``, and the
+fit phases' seconds.
 """
 from __future__ import annotations
 
@@ -56,12 +62,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..common import resolve_device, under_conf_policy, wrap_with_policy
+from ..observability.flight_recorder import dump_on_unhandled
+from ..observability.health import health_terms
 from . import param_blocks
 from .conf.graphconf import ComputationGraphConfiguration
 from .conf.layers.recurrent import streaming_lstm
 from .conf.serde import layer_class
 from .conf.vertices import LayerVertex
-from .ksteps import KStepFit
+from .ksteps import KStepFit, t_staging
 from .multilayer import (
     _SEED_RANGE, UPDATER_LABEL, _dropout_gen, _layer_seeds, _numpy, _rewound,
     _updater_spec, load_states, pretrain_update, update_layer, write_states)
@@ -252,15 +260,18 @@ def _graph_grads(loss, params) -> Dict[str, dict]:
     return grads
 
 
-def _apply_graph_updates(net, params, loss, upd_state, iteration) -> dict:
+def _apply_graph_updates(net, params, loss, upd_state, iteration,
+                         health: bool = False):
     """Gradients of ``loss``, then each layer vertex's update (gradient
     normalization, learning-rate policy, bias rate, updater) in topological
-    order, in place. Returns the new updater state."""
+    order, in place. Returns the new updater state; with ``health``, also
+    the packed health summary."""
     g = net.conf.global_conf
     grads = _graph_grads(loss, params)
     new_upd = {}
     # the label names the updater's kernels in a profile
     with torch.no_grad(), torch.profiler.record_function(UPDATER_LABEL):
+        before = net._snapshot_params(params) if health else None
         for name in net.order:
             layer = net.vertex_layers.get(name)
             if layer is None or not grads.get(name):
@@ -268,6 +279,8 @@ def _apply_graph_updates(net, params, loss, upd_state, iteration) -> dict:
                 continue
             new_upd[name] = update_layer(g, layer, params[name], grads[name],
                                          upd_state[name], iteration)
+        if health:
+            return new_upd, health_terms(grads, before, params, loss)
     return new_upd
 
 
@@ -310,15 +323,20 @@ def make_graph_tbptt_step(net):
     return tbptt_step
 
 
-def make_graph_train_step(net):
+def make_graph_train_step(net, health: bool = False):
     """The train step as a plain function: ``(params, states, upd_state,
     inputs, labels, rng, iteration, fmasks, lmasks) -> (states', upd_state',
-    loss)``; the params are updated in place, the new states returned."""
+    loss)``, and with ``health`` the packed health summary after the loss;
+    the params are updated in place, the new states returned."""
 
     def train_step(params, states, upd_state, inputs, labels, rng, iteration,
                    fmasks=None, lmasks=None):
         loss, new_states = graph_loss(net, params, states, inputs, labels, rng,
                                       fmasks, lmasks)
+        if health:
+            new_upd, packed = _apply_graph_updates(
+                net, params, loss, upd_state, iteration, health=True)
+            return new_states, new_upd, loss.detach(), packed
         new_upd = _apply_graph_updates(net, params, loss, upd_state, iteration)
         return new_states, new_upd, loss.detach()
 
@@ -378,6 +396,8 @@ def make_graph_pretrain_step(net, name: str):
 class ComputationGraph(KStepFit, nn.Module):
     """The vertices of ``conf`` on ``device`` (``None`` means CUDA)."""
 
+    _prefetch_path = "graph"
+
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         super().__init__()
         self.conf = conf
@@ -405,7 +425,8 @@ class ComputationGraph(KStepFit, nn.Module):
         self.last_batch_size = 0
         self._score = float("nan")
         self._rng = torch.Generator(device="cpu")
-        self._train_step = None
+        #: the train step, by the health flag (made at first use)
+        self._train_steps: dict = {}
         self._tbptt_step = None
         #: the pretraining steps by vertex name (made at first use)
         self._pretrain_steps: dict = {}
@@ -713,6 +734,7 @@ class ComputationGraph(KStepFit, nn.Module):
         return (self.conf.backprop_type == "TruncatedBPTT"
                 and any(streaming_lstm(l) for l in self.vertex_layers.values()))
 
+    @dump_on_unhandled("ComputationGraph.fit")
     def fit(self, data, labels=None, *, epochs: int = 1) -> None:
         """Fit on a ``MultiDataSet`` or ``DataSet``, on lists of inputs and
         labels (or one array each), or on an iterable of batches. ``epochs``
@@ -737,6 +759,13 @@ class ComputationGraph(KStepFit, nn.Module):
         for _ in range(epochs):
             self._fit_batch(xs, ys, fm, lm)
 
+    @dump_on_unhandled("ComputationGraph.fit_iterator")
+    def fit_iterator(self, iterator, epochs: int = 1,
+                     ksteps: Optional[int] = None) -> None:
+        KStepFit.fit_iterator(self, iterator, epochs, ksteps)
+
+    fit_iterator.__doc__ = KStepFit.fit_iterator.__doc__
+
     # the hooks of the K-step shell (KStepFit)
     def _layer_modules(self) -> list:
         return list(self.vertex_layers.values())
@@ -755,14 +784,16 @@ class ComputationGraph(KStepFit, nn.Module):
 
     @under_conf_policy
     def _train_call(self, xs: list, ys: list, rng, iteration, upd,
-                    fmasks=None, lmasks=None):
-        """The train step on device tensors: ``(upd', states', loss)``."""
-        if self._train_step is None:
-            self._train_step = make_graph_train_step(self)
-        new_states, new_upd, loss = self._train_step(
-            self.params_list, self.state_list, upd, xs, ys, rng, iteration,
-            fmasks, lmasks)
-        return new_upd, new_states, loss
+                    fmasks=None, lmasks=None, health: bool = False):
+        """The train step on device tensors: ``(upd', states', loss)``, and
+        the packed health summary after them with ``health``."""
+        step = self._train_steps.get(health)
+        if step is None:
+            step = self._train_steps[health] = make_graph_train_step(
+                self, health)
+        out = step(self.params_list, self.state_list, upd, xs, ys, rng,
+                   iteration, fmasks, lmasks)
+        return (out[1], out[0]) + tuple(out[2:])
 
     def _write_states(self, new_states: dict) -> None:
         write_states(self.vertex_layers.values(),
@@ -785,15 +816,12 @@ class ComputationGraph(KStepFit, nn.Module):
         if self._uses_tbptt():
             self._fit_tbptt(xs, ys, fmasks, lmasks)
             return
-        xs, ys = self._to_devices(xs), self._to_devices(ys)
-        fmasks, lmasks = self._to_devices(fmasks), self._to_devices(lmasks)
+        with t_staging.time():
+            xs, ys = self._to_devices(xs), self._to_devices(ys)
+            fmasks = self._to_devices(fmasks)
+            lmasks = self._to_devices(lmasks)
         self.last_batch_size = int(xs[0].shape[0]) if xs and xs[0].ndim else 0
-        for _ in range(max(1, self.conf.global_conf.iterations)):
-            loss = self._eager_step(xs, ys, self.iteration, fmasks, lmasks)
-            self.score_value = loss  # a device scalar, read lazily
-            self.iteration += 1
-            for listener in self.listeners:
-                listener.iteration_done(self, self.iteration)
+        self._single_steps(xs, ys, fmasks, lmasks)
 
     @under_conf_policy
     def _fit_tbptt(self, xs, ys, fmasks=None, lmasks=None) -> None:
@@ -820,10 +848,7 @@ class ComputationGraph(KStepFit, nn.Module):
                                  [y[:, sl] for y in ys], self._next_rng(),
                                  self.iteration, fm, lm)
             self._write_states(new_states)
-            self.score_value = loss  # a device scalar, read lazily
-            self.iteration += 1
-            for listener in self.listeners:
-                listener.iteration_done(self, self.iteration)
+            self._chunk_done(loss)
 
     # ------------------------------------------------------------------ pretrain
     def pretrain(self, iterator) -> None:

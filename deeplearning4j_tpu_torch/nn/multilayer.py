@@ -31,8 +31,16 @@ runs under ``no_grad`` and updates the parameters *in place* (the JAX step
 returns new arrays; in place saves a copy of every parameter). The JAX
 package's K-step fused dispatch (``fit_iterator(ksteps=)``,
 ``fit(epochs=k)``) is :class:`~.ksteps.KStepFit`: on the card a CUDA graph
-of the step; its health-monitor variant waits for the observability plane
-(ROADMAP.md).
+of the step, and a second one of its health variant when a
+``HealthMonitor`` is attached.
+
+Diagnostics, as in the JAX package: ``health_monitor`` makes the due steps
+run ``make_train_step(net, health=True)`` (the parameters copied before the
+in-place update, the packed summary returned beside the loss); every step
+and TBPTT chunk records a ``step`` event in the flight recorder and beats
+the watchdog; ``fit`` and ``fit_iterator`` dump a bundle once on an
+unhandled exception (``dump_on_unhandled``) and re-raise it; staging,
+dispatch and listeners are timed into ``dl4j_fit_phase_seconds``.
 
 The config's ``dtype`` names the policy (``common.py``) every step, TBPTT
 chunk, streaming call and ``output``/``score``/``evaluate`` runs under,
@@ -62,7 +70,9 @@ from . import param_blocks
 from .conf.multilayer import MultiLayerConfiguration
 from .conf.layers.recurrent import LSTM, streaming_lstm
 from .conf.serde import layer_class
-from .ksteps import KStepFit
+from ..observability.flight_recorder import dump_on_unhandled
+from ..observability.health import health_terms
+from .ksteps import KStepFit, t_staging
 from .updaters import (
     UpdaterSpec, effective_lr, grads_to_param_dtype, normalize_gradients,
     updater_init, updater_step_with_param,
@@ -235,28 +245,34 @@ def update_layer(g, layer, params, grads, upd, iteration,
 
 
 def _apply_updates(net, params_list, upd_state, loss_val, iteration,
-                   bias_rate: bool = True) -> list:
+                   bias_rate: bool = True, health: bool = False):
     """Gradients of ``loss_val`` by ``torch.autograd.grad``, then
     :func:`update_layer` for each layer, inside the ``UPDATER_LABEL``
-    profiler range. Returns the new updater state."""
+    profiler range. Returns the new updater state; with ``health``, also
+    the packed health summary (the gradients before normalization, the
+    parameters copied before the update and after it, the loss)."""
     g = net.conf.global_conf
     grads = grads_to_param_dtype(_grads(loss_val, params_list), params_list)
     new_upd = []
     # the label names the updater's kernels in a profile
     with torch.no_grad(), torch.profiler.record_function(UPDATER_LABEL):
+        before = net._snapshot_params(params_list) if health else None
         for i, layer in enumerate(net.layers):
             if not grads[i]:
                 new_upd.append(upd_state[i])
                 continue
             new_upd.append(update_layer(g, layer, params_list[i], grads[i],
                                         upd_state[i], iteration, bias_rate))
+        if health:
+            return new_upd, health_terms(grads, before, params_list, loss_val)
     return new_upd
 
 
-def make_train_step(net):
+def make_train_step(net, health: bool = False):
     """The train step as a plain function:
     ``(params_list, upd_state, x, y, rng, iteration, fmask, lmask) ->
-    (upd_state', state_list', loss)``.
+    (upd_state', state_list', loss)``, and with ``health`` the packed
+    health summary after the loss (``observability.health.health_terms``).
 
     Gradients come from ``torch.autograd.grad``; per-layer gradient
     normalization, the learning-rate policy, the separate bias learning rate
@@ -268,6 +284,10 @@ def make_train_step(net):
                    lmask=None):
         loss_val, new_states = loss_fn(net, params_list, x, y, rng, fmask,
                                        lmask)
+        if health:
+            new_upd, packed = _apply_updates(net, params_list, upd_state,
+                                             loss_val, iteration, health=True)
+            return new_upd, new_states, loss_val.detach(), packed
         new_upd = _apply_updates(net, params_list, upd_state, loss_val,
                                  iteration)
         return new_upd, new_states, loss_val.detach()
@@ -455,7 +475,8 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         self.last_batch_size = 0
         self._score = float("nan")
         self._rng = torch.Generator(device="cpu")
-        self._train_step = None
+        #: the train step, by the health flag (made at first use)
+        self._train_steps: dict = {}
         self._tbptt_step = None
         #: the pretraining steps by layer index (made at first use)
         self._pretrain_steps: dict = {}
@@ -796,6 +817,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
     def _next_rng(self) -> int:
         return int(torch.randint(0, _SEED_RANGE, (1,), generator=self._rng))
 
+    @dump_on_unhandled("MultiLayerNetwork.fit")
     def fit(self, x, y=None, *, epochs: int = 1, fmask=None,
             lmask=None) -> None:
         """Fit on arrays, a ``DataSet``, or an iterable of ``DataSet``\\ s.
@@ -819,6 +841,13 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         for _ in range(epochs):
             self._fit_batch(x, y, fmask, lmask)
 
+    @dump_on_unhandled("MultiLayerNetwork.fit_iterator")
+    def fit_iterator(self, iterator, epochs: int = 1,
+                     ksteps: Optional[int] = None) -> None:
+        KStepFit.fit_iterator(self, iterator, epochs, ksteps)
+
+    fit_iterator.__doc__ = KStepFit.fit_iterator.__doc__
+
     # the hooks of the K-step shell (KStepFit)
     def _layer_modules(self) -> list:
         return list(self.layers)
@@ -837,12 +866,14 @@ class MultiLayerNetwork(KStepFit, nn.Module):
 
     @under_conf_policy
     def _train_call(self, xs: list, ys: list, rng, iteration, upd,
-                    fmask=None, lmask=None):
-        """The train step on device tensors: ``(upd', states', loss)``."""
-        if self._train_step is None:
-            self._train_step = make_train_step(self)
-        return self._train_step(self.params_list, upd, xs[0], ys[0], rng,
-                                iteration, fmask, lmask)
+                    fmask=None, lmask=None, health: bool = False):
+        """The train step on device tensors: ``(upd', states', loss)``, and
+        the packed health summary after them with ``health``."""
+        step = self._train_steps.get(health)
+        if step is None:
+            step = self._train_steps[health] = make_train_step(self, health)
+        return step(self.params_list, upd, xs[0], ys[0], rng, iteration,
+                    fmask, lmask)
 
     def _write_states(self, new_states: list) -> None:
         write_states(self.layers, new_states)
@@ -872,15 +903,11 @@ class MultiLayerNetwork(KStepFit, nn.Module):
         if self._uses_tbptt():
             self._fit_tbptt(x, y, fmask, lmask)
             return
-        x, y = self._to_device(x), self._to_device(y)
-        fmask, lmask = self._to_device(fmask), self._to_device(lmask)
+        with t_staging.time():
+            x, y = self._to_device(x), self._to_device(y)
+            fmask, lmask = self._to_device(fmask), self._to_device(lmask)
         self.last_batch_size = int(x.shape[0]) if x.ndim else 0
-        for _ in range(max(1, self.conf.global_conf.iterations)):
-            loss = self._eager_step([x], [y], self.iteration, fmask, lmask)
-            self.score_value = loss  # a device scalar, read lazily
-            self.iteration += 1
-            for listener in self.listeners:
-                listener.iteration_done(self, self.iteration)
+        self._single_steps([x], [y], fmask, lmask)
 
     @under_conf_policy
     def _fit_tbptt(self, x, y, fmask=None, lmask=None) -> None:
@@ -903,10 +930,7 @@ class MultiLayerNetwork(KStepFit, nn.Module):
                 self.params_list, self.updater_state, rnn_state, x[:, sl],
                 y[:, sl], self._next_rng(), self.iteration, fm, lm)
             write_states(self.layers, new_states)
-            self.score_value = loss  # a device scalar, read lazily
-            self.iteration += 1
-            for listener in self.listeners:
-                listener.iteration_done(self, self.iteration)
+            self._chunk_done(loss)
 
     # ------------------------------------------------------------------ pretrain
     def pretrain(self, iterator) -> None:

@@ -358,6 +358,35 @@ def render_prometheus(snapshot: dict,
     return "\n".join(lines) + ("\n" if lines else "")
 
 
+class LabeledSeries:
+    """A family's series by label values, each resolved once (the call
+    site's handle) and kept, so a module's ``stats()`` reads back what its
+    series recorded: ``counts = LabeledSeries(reg.counter(...), "op",
+    "site")``, ``counts("all_reduce", "grad").inc(n)``, ``counts.read()``."""
+
+    def __init__(self, family: _Family, *label_names: str):
+        self.family = family
+        self.names = label_names
+        self._by: Dict[tuple, _Series] = {}
+
+    def __call__(self, *values) -> _Series:
+        s = self._by.get(values)
+        if s is None:
+            s = self._by.setdefault(values, self.family.labels(
+                **dict(zip(self.names, values))))
+        return s
+
+    def read(self) -> dict:
+        """``{label values: value}`` (a single label's value as the key),
+        integral values as ints."""
+        out = {}
+        for key, s in list(self._by.items()):
+            v = s.value
+            out[key[0] if len(key) == 1 else key] = \
+                int(v) if float(v).is_integer() else v
+        return out
+
+
 _GLOBAL = MetricsRegistry()
 
 

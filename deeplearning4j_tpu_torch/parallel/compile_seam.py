@@ -38,41 +38,43 @@ over the context's group), the MoE load-balance share ``f_e``
 needs nothing: every rank adds the whole term and the average of the N
 equal gradients is that term's gradient once.
 
-The JAX seam's compile tracker and spec counters are plain counters here
-(``partition.stats()``, :func:`stats`).
+The spec counts and the collective bytes are the JAX package's series
+(``dl4j_sharding_spec_total``, ``dl4j_collective_bytes_total``), read back
+by ``partition.stats()`` and :func:`stats`; the JAX seam's compile tracker
+waits for the profiler plane (A9.4).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
-from collections import Counter
 from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
+from ..observability.metrics import LabeledSeries, global_registry
+from ..observability.names import COLLECTIVE_BYTES_TOTAL
 from . import partition
 from .partition import PartitionSpec, sharded_dim
 
 STRATEGIES = ("jit", "shard_map")
 
-_lock = threading.Lock()
-_collective_bytes: Counter = Counter()
+_collective_bytes = LabeledSeries(global_registry().counter(
+    COLLECTIVE_BYTES_TOTAL,
+    "bytes moved by host-dispatched collectives, by op and site"),
+    "op", "site")
 
 
 def count_collective(op: str, site: str, nbytes: int) -> None:
-    """Add to the bytes moved by a collective (the JAX package's
-    ``dl4j_collective_bytes_total``), by op and site."""
-    with _lock:
-        _collective_bytes[(op, site)] += int(nbytes)
+    """Add to the bytes a collective moved (``dl4j_collective_bytes_total``,
+    by op and site), counted from its tensors' shapes on the host."""
+    _collective_bytes(op, site).inc(int(nbytes))
 
 
 def stats() -> dict:
-    """``{"collective_bytes_total": {(op, site): bytes}}`` plus the
-    partition engine's counters."""
-    with _lock:
-        out = {"collective_bytes_total": dict(_collective_bytes)}
+    """``{"collective_bytes_total": {(op, site): bytes}}`` read back from
+    the series, plus the partition engine's."""
+    out = {"collective_bytes_total": _collective_bytes.read()}
     out.update(partition.stats())
     return out
 

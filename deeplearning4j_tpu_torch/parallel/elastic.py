@@ -28,8 +28,14 @@ dead worker whose shard has uncommitted samples is replaced; a worker
 whose lease lapsed while it still runs is a zombie and is SIGKILLed before
 its replacement starts, so one live worker owns each shard. Every wait on
 a process is bounded. The JAX trainer's fleet-observability plane
-(``FederatedRegistry``, ``FleetCollector``) waits for ROADMAP.md A9.4;
-:attr:`ElasticTrainer.stats` holds the counters.
+(``FederatedRegistry``, ``FleetCollector``) waits for ROADMAP.md A9.4.
+
+Telemetry as in the JAX trainer: ``dl4j_elastic_handoffs_total`` (and the
+oracle's and the server's series), the ``elastic_restore``,
+``elastic_chaos_kill``, ``shard_handoff`` and ``elastic_stats_unparsed``
+events, a watchdog beat every pass of the monitor, the flight recorder's
+dump directory handed to the workers, and one dump when an exception
+escapes ``fit``. :attr:`ElasticTrainer.stats` holds the trainer's counts.
 """
 from __future__ import annotations
 
@@ -42,11 +48,20 @@ import time
 from typing import List, Optional, Sequence
 
 from ..cloud import MembershipOracle
+from ..observability.flight_recorder import (
+    DUMP_DIR_ENV, dump_on_unhandled, global_recorder)
+from ..observability.metrics import global_registry
+from ..observability.names import ELASTIC_HANDOFFS_TOTAL
+from ..observability.watchdog import beat
 from .param_server import (
     DEFAULT_STALENESS_CAP, ParameterServer, _host, unflatten_into,
     worker_command, worker_env,
 )
 from .ps_transport import ParameterServerTcpFrontend, reap_orphans
+
+_handoffs = global_registry().counter(
+    ELASTIC_HANDOFFS_TOTAL,
+    "shard handoffs to a replacement worker after a worker died").labels()
 
 
 class _Shard:
@@ -190,6 +205,7 @@ class ElasticTrainer:
         return ElasticTrainer.Builder(model)
 
     # ----------------------------------------------------------------- fit
+    @dump_on_unhandled("ElasticTrainer.fit")
     def fit(self, iterator, epochs: int = 1) -> None:
         from ..streaming.broker import LoopbackBroker
 
@@ -246,6 +262,9 @@ class ElasticTrainer:
             return
         restore_sharded(self.checkpoint_dir, self.model)
         self.restored_from_checkpoint = True
+        global_recorder().record(
+            "elastic_restore", directory=self.checkpoint_dir,
+            iteration=self.model.iteration)
 
     def _publish_shards(self, broker, iterator, epochs: int) -> None:
         from ..streaming.broker import BrokerProducer
@@ -288,9 +307,15 @@ class ElasticTrainer:
              "--ps-transport", self.transport,
              "--delay", self._delay(shard.shard),
              "--device", str(self.model.device)])
+        env = worker_env()
+        rec = global_recorder()
+        if rec.dump_dir:
+            # a worker's last bundle lands beside the coordinator's (a
+            # set_dump_dir() here never reaches os.environ)
+            env[DUMP_DIR_ENV] = rec.dump_dir
         with self._proc_lock:
             shard.proc = subprocess.Popen(
-                cmd, env=worker_env(), stdout=subprocess.PIPE,
+                cmd, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
         shard.gen += 1
 
@@ -304,6 +329,8 @@ class ElasticTrainer:
             if s.proc is None or s.proc.poll() is not None:
                 return False
             s.proc.kill()
+        global_recorder().record("elastic_chaos_kill", shard=shard,
+                                 worker=s.name)
         return True
 
     def committed_offset(self, shard: int) -> int:
@@ -327,6 +354,7 @@ class ElasticTrainer:
             for shard in self._shards:
                 if not shard.done:
                     self._tend(shard, broker)
+            beat(self.server.version)
             if (saver is not None and time.time() - last_ckpt
                     > self.checkpoint_interval_s):
                 self._snapshot(saver)
@@ -355,6 +383,8 @@ class ElasticTrainer:
                     json.loads(stdout.strip().splitlines()[-1]))
             except (ValueError, IndexError):
                 self.worker_stats.append({"unparsed": stdout[-2000:]})
+                global_recorder().record("elastic_stats_unparsed",
+                                         worker=shard.name)
             return
         if lease is not None and lease.alive:
             self.oracle.evict(lease.member, reason=f"exit-rc{rc}")
@@ -365,6 +395,10 @@ class ElasticTrainer:
             return
         if self.respawn and shard.handoffs < self.max_handoffs_per_shard:
             shard.handoffs += 1
+            _handoffs.inc()
+            global_recorder().record(
+                "shard_handoff", shard=shard.shard, gen=shard.gen,
+                committed=committed, fin=shard.fin_offset, rc=rc)
             self._spawn(shard)
             return
         raise RuntimeError(

@@ -42,7 +42,7 @@ import torch.distributed as dist
 
 from .compile_seam import count_collective
 from .mesh import Mesh
-from .ring_attention import _AllToAll
+from .ring_attention import _AllToAll, _per_step
 
 _lock = threading.Lock()
 _tokens = 0
@@ -63,7 +63,9 @@ def _note(tokens: int, dropped: torch.Tensor) -> None:
 def stats() -> dict:
     """``{"tokens": n, "dropped": n}``: the tokens this process dispatched
     and those that found their expert's buffer full, since the last
-    :func:`reset_stats`."""
+    :func:`reset_stats` (the JAX package has no series for them; the dropped
+    count is read from the card here, never in the step). The dispatch's
+    bytes are the ``dl4j_collective_bytes_per_step`` series."""
     with _lock:
         return {"tokens": _tokens,
                 "dropped": int(sum(int(t) for t in _dropped.values()))}
@@ -123,8 +125,11 @@ def _moe_local(layer, params: dict, x: torch.Tensor, *, group, n: int,
     out = _exchange(out, group).reshape(E * capacity, F)
     out = torch.cat([out, out.new_zeros(1, F)])
     y = out.index_select(0, dest) * gate[:, None].to(out.dtype)
+    # two all_to_alls of every rank's [n, El, C, F] buffer, from its shape
+    # (the device's dropped count is never read here)
+    nbytes = 2 * buf.numel() * buf.element_size()
+    _per_step("all_to_all", "moe_dispatch").set(n * nbytes)
     if group is not None:
-        nbytes = 2 * buf.numel() * buf.element_size()
         count_collective("all_to_all", "moe_dispatch", nbytes)
     return y.to(x2d.dtype).reshape(Bl, T, F), aux
 

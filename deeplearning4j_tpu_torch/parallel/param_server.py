@@ -25,9 +25,16 @@ rebase copy between that host vector and the replica's tensors on its
 device (:func:`flatten_tree`, :func:`unflatten_into`), in the worker's own
 thread, so they never race a step of the same replica. The worker's step
 is the replica network's own train step (``_eager_step`` over
-``make_train_step``); on the card it launches the network's kernels. The
-JAX package's metrics, spans and watchdog beats are the counters of
-:meth:`ParameterServer.stats` and the workers' stats here.
+``make_train_step``); on the card it launches the network's kernels.
+
+Telemetry as in the JAX module: ``dl4j_ps_pushes_total`` by outcome,
+``dl4j_ps_pulls_total``, the staleness and push-weight histograms,
+``dl4j_ps_version``, ``dl4j_ps_worker_steps_total`` by worker and
+``dl4j_elastic_fenced_pushes_total``, process-wide series; a rejected or
+fenced push and a worker's crash are flight-recorder events, each applied
+push beats the watchdog, and ``fit`` dumps once on an unhandled exception.
+:meth:`ParameterServer.stats` keeps one server's own counts (a process may
+hold several) and the workers their stats.
 """
 from __future__ import annotations
 
@@ -45,10 +52,37 @@ import numpy as np
 import torch
 
 from ..common import host_numpy
+from ..observability.flight_recorder import dump_on_unhandled, global_recorder
+from ..observability.metrics import global_registry
+from ..observability.names import (
+    ELASTIC_FENCED_PUSHES_TOTAL, PS_PULLS_TOTAL, PS_PUSH_WEIGHT,
+    PS_PUSHES_TOTAL, PS_STALENESS, PS_VERSION, PS_WORKER_STEPS_TOTAL)
+from ..observability.watchdog import beat
 
 #: default hard staleness bound: a push based more than 8 versions back is
 #: rejected
 DEFAULT_STALENESS_CAP = 8
+
+_pushes = global_registry().counter(
+    PS_PUSHES_TOTAL, "delta pushes by outcome (applied|rejected)")
+_pushes_applied = _pushes.labels(outcome="applied")
+_pushes_rejected = _pushes.labels(outcome="rejected")
+_pulls = global_registry().counter(PS_PULLS_TOTAL,
+                                   "server param pulls").labels()
+_staleness_hist = global_registry().histogram(
+    PS_STALENESS, "versions behind head at push time",
+    buckets=(0, 1, 2, 4, 8, 16, 32, 64)).labels()
+_weight_hist = global_registry().histogram(
+    PS_PUSH_WEIGHT, "staleness down-weight 1/(1+s) applied to each delta",
+    buckets=(0.05, 0.1, 0.2, 0.3, 0.5, 0.8, 1.0)).labels()
+_version_gauge = global_registry().gauge(
+    PS_VERSION, "server param version (total applied pushes)").labels()
+_worker_steps = global_registry().counter(
+    PS_WORKER_STEPS_TOTAL, "local train steps by PS workers")
+_fenced_pushes = global_registry().counter(
+    ELASTIC_FENCED_PUSHES_TOTAL,
+    "pushes rejected because the worker's membership epoch is dead "
+    "(zombie fencing)").labels()
 
 #: how long a fit waits for its worker threads or processes to end
 WORKER_TIMEOUT_S = 600.0
@@ -256,6 +290,11 @@ class ParameterServer:
             with self._lock:
                 self.fenced += 1
                 self.rejected += 1
+                _fenced_pushes.inc()
+                _pushes_rejected.inc()
+                global_recorder().record(
+                    "ps_push_fenced", member=member, epoch=epoch,
+                    version=self.version)
                 return PushResult(False, self.version,
                                   self.version - int(base_version), 0.0,
                                   np.copy(self._vec), fenced=True)
@@ -263,18 +302,28 @@ class ParameterServer:
             staleness = self.version - int(base_version)
             self.staleness_counts[staleness] = (
                 self.staleness_counts.get(staleness, 0) + 1)
+            _staleness_hist.observe(staleness)
             if staleness > self.staleness_cap:
                 self.rejected += 1
+                _pushes_rejected.inc()
+                global_recorder().record(
+                    "ps_push_rejected", staleness=staleness,
+                    cap=self.staleness_cap, version=self.version)
                 return PushResult(False, self.version, staleness, 0.0,
                                   np.copy(self._vec))
             weight = 1.0 / (1.0 + max(0, staleness))
             self._vec = self._opt.apply(self._vec, delta, weight)
             self.version += 1
             self.pushes += 1
+            _pushes_applied.inc()
+            _weight_hist.observe(weight)
+            _version_gauge.set(self.version)
+            beat(self.version)
             return PushResult(True, self.version, staleness, weight,
                               np.copy(self._vec))
 
     def pull_flat(self) -> Tuple[int, np.ndarray]:
+        _pulls.inc()
         with self._lock:
             self.pulls += 1
             return self.version, np.copy(self._vec)
@@ -349,9 +398,10 @@ class _BackgroundPuller:
                 return
             try:
                 got = self._pull()
-            except (OSError, RuntimeError):
+            except (OSError, RuntimeError) as e:
                 # the transport closing under the worker's exit
                 self.errors += 1
+                global_recorder().record("ps_bg_pull_error", error=str(e))
                 continue
             fresh = got[0] > last_version
             last_version = max(last_version, got[0])
@@ -397,6 +447,7 @@ def run_worker_loop(*, transport, replica, step_fn, next_batch,
     version, base_vec = transport.pull()
     steps = pushes = rejected = rebased = 0
     steps_since_push = 0
+    step_series = _worker_steps.labels(worker=str(worker_id))
 
     def _set_replica(vec: np.ndarray) -> None:
         unflatten_into(vec, replica.params_list)
@@ -473,6 +524,7 @@ def run_worker_loop(*, transport, replica, step_fn, next_batch,
             for hook in hooks:
                 hook.post_update(ds, replica)
             steps += 1
+            step_series.inc()
             steps_since_push += 1
             if steps_since_push >= push_frequency:
                 _push_window()
@@ -618,6 +670,7 @@ class ParameterServerParallelWrapper:
         return ParameterServerParallelWrapper.Builder(model)
 
     # ------------------------------------------------------------------ fit
+    @dump_on_unhandled("ParameterServerParallelWrapper.fit")
     def fit(self, iterator, epochs: int = 1) -> None:
         self.server = ParameterServer(
             self.model.params_list, staleness_cap=self.staleness,
@@ -671,6 +724,8 @@ class ParameterServerParallelWrapper:
                         worker_id=worker_id)
                 except BaseException as e:
                     failed.append(e)
+                    global_recorder().record(
+                        "ps_worker_crash", worker=worker_id, error=repr(e))
                     raise
             return threading.Thread(target=run, daemon=True,
                                     name=f"ps-worker-{worker_id}")

@@ -25,18 +25,21 @@ a whole dim). On a process-group ``Mesh`` placement is SPMD:
 :class:`MeshLeaf`, the tensor every slot holds on its device. An int8
 ``QuantizedLeaf`` is a node of the tree, its ``q`` and ``scale`` leaves
 named as the JAX package's pytree paths name them (``.../W/q``). The JAX
-package's telemetry (the spec counter and the per-device bytes gauge) is
-plain counters here (:func:`stats`).
+package's telemetry is recorded as its series: ``dl4j_sharding_spec_total``
+(one count a resolved spec) and ``dl4j_sharded_param_bytes_per_device``
+(the bytes a rank holds under a rule set), which :func:`stats` reads back.
 """
 from __future__ import annotations
 
 import re
-import threading
-from collections import Counter
 from typing import Any, Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..observability.metrics import LabeledSeries, global_registry
+from ..observability.names import (
+    SHARDED_PARAM_BYTES_PER_DEVICE, SHARDING_SPEC_TOTAL)
 
 #: 1-D leaves below this many elements replicate whatever the rules say
 TINY_VECTOR = 8
@@ -463,10 +466,15 @@ def per_device_bytes(tree, spec_tree, mesh) -> int:
     return int(total)
 
 
-# --------------------------------------------------------------- counters
-_lock = threading.Lock()
-_spec_counts: Counter = Counter()
-_param_bytes: dict = {}
+# --------------------------------------------------------------- telemetry
+_spec_counts = LabeledSeries(global_registry().counter(
+    SHARDING_SPEC_TOTAL,
+    "partition-rule engine spec decisions, one count per leaf per "
+    "compiled step, by rule set and resolved spec"), "rule_set", "spec")
+_param_bytes = LabeledSeries(global_registry().gauge(
+    SHARDED_PARAM_BYTES_PER_DEVICE,
+    "per-device bytes of the parameter tree under the resolved specs — "
+    "zero3 should read ~1/N of the replicated figure"), "rule_set")
 
 
 def _spec_label(spec: PartitionSpec) -> str:
@@ -474,32 +482,28 @@ def _spec_label(spec: PartitionSpec) -> str:
 
 
 def record_specs(rule_set: str, *spec_trees) -> None:
-    """Count each resolved spec of the trees, by rule set (the JAX
-    package's ``dl4j_sharding_spec_total``)."""
-    with _lock:
-        for tree in spec_trees:
-            if isinstance(tree, PartitionSpec):
-                _spec_counts[(rule_set, _spec_label(tree))] += 1
-                continue
-            if tree is None:
-                continue
-            for s in tree_leaves(tree):
-                if isinstance(s, PartitionSpec):
-                    _spec_counts[(rule_set, _spec_label(s))] += 1
+    """Count each resolved spec of the trees, by rule set
+    (``dl4j_sharding_spec_total``)."""
+    for tree in spec_trees:
+        if tree is None:
+            continue
+        specs = [tree] if isinstance(tree, PartitionSpec) \
+            else tree_leaves(tree)
+        for s in specs:
+            if isinstance(s, PartitionSpec):
+                _spec_counts(rule_set, _spec_label(s)).inc()
 
 
 def record_param_bytes(rule_set: str, tree, spec_tree, mesh) -> int:
-    """Record the per-rank bytes of ``tree`` under ``spec_tree`` for the
-    rule set (the JAX package's per-device bytes gauge); returns them."""
+    """Set the per-rank bytes of ``tree`` under ``spec_tree`` for the rule
+    set (``dl4j_sharded_param_bytes_per_device``); returns them."""
     b = per_device_bytes(tree, spec_tree, mesh)
-    with _lock:
-        _param_bytes[rule_set] = b
+    _param_bytes(rule_set).set(b)
     return b
 
 
 def stats() -> dict:
-    """``{"sharding_spec_total": {(rule set, spec): n},
-    "sharded_param_bytes_per_device": {rule set: bytes}}``."""
-    with _lock:
-        return {"sharding_spec_total": dict(_spec_counts),
-                "sharded_param_bytes_per_device": dict(_param_bytes)}
+    """The series read back: ``{"sharding_spec_total": {(rule set, spec):
+    n}, "sharded_param_bytes_per_device": {rule set: bytes}}``."""
+    return {"sharding_spec_total": _spec_counts.read(),
+            "sharded_param_bytes_per_device": _param_bytes.read()}

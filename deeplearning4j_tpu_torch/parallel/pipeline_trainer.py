@@ -34,11 +34,15 @@ steps saves each block from its owner (:meth:`PipelineTrainer.
 checkpoint_entry`). A listener that reads whole params or updater state
 (a zip checkpoint, the param log) fires inside a whole view: each block
 broadcast from its owner to every stage, the storage given back after.
-The JAX module's compile tracker, flight recorder, metrics and watchdog
-beats are the plain counters of :meth:`stats`.
+Each step records a ``step`` event in the flight recorder, is timed into
+``dl4j_fit_phase_seconds`` and beats the watchdog; the handoffs and the
+gradients' all-reduce add their bytes to ``dl4j_collective_bytes_total``
+(``compile_seam.stats()`` reads them back); ``fit`` dumps the recorder once on an
+unhandled exception. The JAX module's compile tracker waits for A9.4.
 """
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Optional
 
@@ -47,6 +51,9 @@ import torch.distributed as dist
 
 from ..common import wrap_with_policy
 from ..datasets.prefetch import DevicePrefetcher
+from ..nn.ksteps import t_dispatch, t_listeners, t_staging
+from ..observability.flight_recorder import dump_on_unhandled, global_recorder
+from ..observability.watchdog import beat
 from ..optimize.listeners import fire_iteration_done
 from .compile_seam import WholeViews, count_collective, free_storage
 from .mesh import Mesh, build_mesh, world
@@ -223,7 +230,8 @@ class PipelineTrainer(WholeViews):
 
     def stats(self) -> dict:
         """Steps, the whole views given to listeners and their bytes, the
-        handoff route and the pipeline's counters."""
+        handoff route and the pipeline's counters (the bytes the handoffs
+        and the all-reduce moved are ``compile_seam.stats()``'s series)."""
         return {**dict(self.counts), **self.view_stats(),
                 **self.pipe.stats()}
 
@@ -352,6 +360,7 @@ class PipelineTrainer(WholeViews):
         return loss.detach()
 
     # ------------------------------------------------------------------- fit
+    @dump_on_unhandled("PipelineTrainer.fit")
     def fit(self, iterator, epochs: int = 1) -> None:
         """Every batch runs one pipelined train step; listeners fire once an
         iteration. The next batch is staged on the producer thread of a
@@ -379,14 +388,25 @@ class PipelineTrainer(WholeViews):
                 if hasattr(iterator, "reset"):
                     iterator.reset()
                 with DevicePrefetcher(iterator, stage,
-                                      depth=self.prefetch_depth) as pf:
+                                      depth=self.prefetch_depth,
+                                      path="pipeline",
+                                      wait_series=t_staging) as pf:
                     for x, y in pf:
                         net.last_batch_size = (int(x.shape[0]) if x.ndim
                                                else 0)
+                        t0 = time.perf_counter()
                         loss = step(x, y, net._next_rng(), net.iteration)
+                        dt = time.perf_counter() - t0
+                        t_dispatch.observe(dt)
+                        global_recorder().record(
+                            "step", path="PipelineTrainer.train_step",
+                            it=net.iteration, batch=net.last_batch_size,
+                            dispatch_s=dt)
                         net.score_value = loss
                         net.iteration += 1
-                        fire_iteration_done(net, net.iteration)
+                        with t_listeners.time():
+                            fire_iteration_done(net, net.iteration)
+                        beat(net.iteration)
         finally:
             net._held_sharding = None
             self._gather()

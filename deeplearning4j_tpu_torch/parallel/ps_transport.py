@@ -14,9 +14,9 @@ loop (``param_server.run_worker_loop``) sees only ``pull()`` and
   in a pair of per-worker double-buffered ``multiprocessing.shared_memory``
   rings with seqlock stamps, negotiated over the socket (``shm_open``).
   When the rings cannot attach, the transport degrades to the TCP frames
-  for good, and says so: ``stats()["shm_active"]`` is False and
-  ``shm_pushes``/``shm_pulls`` stay 0 (the JAX package falls back without
-  a trace outside its flight recorder).
+  for good, and says so: ``stats()["shm_active"]`` is False,
+  ``shm_pushes``/``shm_pulls`` stay 0 and a ``ps_shm_fallback`` event names
+  the error.
 
 The membership verbs (``register``, ``heartbeat``, ``deregister``) ride the
 same seam, so liveness and pushes share one failure domain. The JAX
@@ -33,6 +33,16 @@ the same). Workers only attach. A segment larger than the free space
 of ``/dev/shm`` is refused with ``OSError`` (writing past a full tmpfs
 kills the writer with SIGBUS), which the callers turn into their
 fallbacks.
+
+Telemetry as in the JAX module: ``dl4j_ps_wire_bytes_total`` (a push's
+bytes sent, a pull's payload received, by op and codec),
+``dl4j_shm_segments`` (segments this process owns), ``dl4j_shm_bytes_total``
+by direction (push and pull rings, shard segments) and
+``dl4j_shm_reaped_total``; the frontend's start, stop, errors and shm
+sessions, a transport's fallback and a reap are flight-recorder events, and
+the frontend's accept loop and every request it serves beat the watchdog.
+The transports' ``stats()`` keep their own counts beside the series, and
+:func:`segment_stats` reads the reaped and shard bytes back from them.
 """
 from __future__ import annotations
 
@@ -50,8 +60,26 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..observability.flight_recorder import global_recorder
+from ..observability.metrics import global_registry
+from ..observability.names import (
+    PS_WIRE_BYTES_TOTAL, SHM_BYTES_TOTAL, SHM_REAPED_TOTAL, SHM_SEGMENTS)
+from ..observability.watchdog import beat
 from ..streaming import wire
 from .param_server import ParameterServer, PushResult
+
+_wire_bytes = global_registry().counter(
+    PS_WIRE_BYTES_TOTAL, "PS bytes on the wire, by op and codec")
+_shm_gauge = global_registry().gauge(
+    SHM_SEGMENTS, "shared-memory segments currently owned (created, not yet "
+                  "unlinked) by this process").labels()
+_shm_bytes = global_registry().counter(
+    SHM_BYTES_TOTAL, "tensor bytes staged through shared-memory segments, "
+                     "by direction")
+_shm_shard_bytes = _shm_bytes.labels(direction="shard")
+_shm_reaped = global_registry().counter(
+    SHM_REAPED_TOTAL, "orphaned dl4j shared-memory segments unlinked by "
+                      "reap_orphans (creator pid dead)").labels()
 
 # --------------------------------------------------------------------------
 # shared-memory segments: creation registry + reaper
@@ -63,13 +91,19 @@ _SHM_DIR = "/dev/shm"
 _shm_lock = threading.Lock()
 _shm_created: Dict[str, shared_memory.SharedMemory] = {}
 _shm_counter = itertools.count()
-#: segments created, unlinked and reaped by this process; shard bytes
+#: segments created and unlinked by this process
 _shm_counts: Counter = Counter()
 
 
 def segment_stats() -> dict:
+    """Segments created, unlinked and owned by this process, and the
+    reaped segments and shard bytes read back from their series."""
     with _shm_lock:
-        return {**dict(_shm_counts), "owned": len(_shm_created)}
+        out = {**dict(_shm_counts), "owned": len(_shm_created)}
+    reaped, shard = int(_shm_reaped.value), int(_shm_shard_bytes.value)
+    out.update({k: v for k, v in (("reaped", reaped), ("shard_bytes", shard))
+                if v})
+    return out
 
 
 def _pid_alive(pid: int) -> bool:
@@ -97,6 +131,7 @@ def create_segment(nbytes: int, kind: str) -> shared_memory.SharedMemory:
     with _shm_lock:
         _shm_created[shm.name] = shm
         _shm_counts["created"] += 1
+        _shm_gauge.set(len(_shm_created))
     return shm
 
 
@@ -135,6 +170,7 @@ def release_segment(shm: shared_memory.SharedMemory,
         with _shm_lock:
             if _shm_created.pop(shm.name, None) is not None:
                 _shm_counts["unlinked"] += 1
+            _shm_gauge.set(len(_shm_created))
 
 
 def release_segment_by_name(name: str) -> bool:
@@ -188,8 +224,8 @@ def reap_orphans(shm_dir: str = _SHM_DIR) -> int:
             continue
         reaped += 1
     if reaped:
-        with _shm_lock:
-            _shm_counts["reaped"] += reaped
+        _shm_reaped.inc(reaped)
+        global_recorder().record("shm_reaped", count=reaped)
     return reaped
 
 
@@ -208,12 +244,14 @@ class ShmRing:
 
     SLOT_HDR = struct.Struct("!QQQ")  # seq, version, payload nbytes
 
-    def __init__(self, shm: shared_memory.SharedMemory, capacity: int):
+    def __init__(self, shm: shared_memory.SharedMemory, capacity: int,
+                 direction: str = "push"):
         self.shm = shm
         self.capacity = int(capacity)
         self._next = 0
         #: bytes written through this ring
         self.bytes = 0
+        self._bytes = _shm_bytes.labels(direction=direction)
 
     @classmethod
     def segment_size(cls, capacity: int) -> int:
@@ -239,6 +277,7 @@ class ShmRing:
         buf[data:data + nbytes] = view
         self.SLOT_HDR.pack_into(buf, base, seq + 2, int(version), nbytes)
         self.bytes += nbytes
+        self._bytes.inc(nbytes)
         return slot, seq + 2
 
     def read(self, slot: int, seq: int) -> Tuple[int, memoryview]:
@@ -361,8 +400,10 @@ class TcpTransport(Transport):
         # while holding it
         self._lock = threading.RLock()
         self._sock: Optional[socket.socket] = None
-        #: RPCs by op, bytes sent and received, retries
+        #: RPCs by op, bytes sent (the pushes' apart) and received, retries
         self.counts: Counter = Counter()
+        self._tx = _wire_bytes.labels(op="push", codec=codec)
+        self._rx = _wire_bytes.labels(op="pull", codec="none")
 
     def clone(self) -> "TcpTransport":
         t = type(self)(self._addr, self._codec, self._timeout,
@@ -424,6 +465,7 @@ class TcpTransport(Transport):
     def pull(self) -> Tuple[int, np.ndarray]:
         with self._lock:
             reply, payload, _ = self._rpc({"op": "pull"})
+        self._rx.inc(len(payload))
         return reply["version"], wire.decode_array(reply["array"], payload)
 
     def push(self, delta: np.ndarray, base_version: int) -> PushResult:
@@ -433,7 +475,9 @@ class TcpTransport(Transport):
                                  "base_version": int(base_version),
                                  "array": meta})
         with self._lock:
-            reply, buf, _ = self._rpc(header, payload)
+            reply, buf, sent = self._rpc(header, payload)
+            self.counts["push_bytes"] += sent
+        self._tx.inc(sent)
         return PushResult(accepted=reply["accepted"],
                           version=reply["version"],
                           staleness=reply["staleness"],
@@ -509,8 +553,8 @@ class ShmTransport(TcpTransport):
             push_seg = attach_segment(reply["push"])
             pull_seg = attach_segment(reply["pull"])
             cap = int(reply["capacity"])
-            self._push_ring = ShmRing(push_seg, cap)
-            self._pull_ring = ShmRing(pull_seg, cap)
+            self._push_ring = ShmRing(push_seg, cap, direction="push")
+            self._pull_ring = ShmRing(pull_seg, cap, direction="pull")
             self._token = reply["token"]
             self._shm_ok = True
         except (RuntimeError, OSError, KeyError, ValueError) as e:
@@ -522,6 +566,8 @@ class ShmTransport(TcpTransport):
             self._push_ring = self._pull_ring = None
             self._shm_ok = False
             self.fallback_reason = repr(e)
+            global_recorder().record("ps_shm_fallback", addr=str(self._addr),
+                                     error=repr(e))
         return self._shm_ok
 
     @property
@@ -601,8 +647,7 @@ def write_shard_segment(arrays: Dict[str, np.ndarray], kind: str = "shard",
     for v in views:
         buf[off:off + v.nbytes] = v
         off += v.nbytes
-    with _shm_lock:
-        _shm_counts["shard_bytes"] += total
+    _shm_shard_bytes.inc(total)
     return seg.name
 
 
@@ -665,10 +710,12 @@ class ParameterServerTcpFrontend:
                              name="ps-tcp-accept")
         t.start()
         self._threads.append(t)
+        global_recorder().record("ps_server_start", port=self._port)
         return self
 
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
+            beat()
             try:
                 conn, peer = self._lsock.accept()
             except socket.timeout:
@@ -679,11 +726,11 @@ class ParameterServerTcpFrontend:
             with self._lock:
                 self._conns.append(conn)
             t = threading.Thread(target=self._serve_conn, daemon=True,
-                                 args=(conn,), name="ps-tcp-conn")
+                                 args=(conn, peer), name="ps-tcp-conn")
             t.start()
             self._threads.append(t)
 
-    def _serve_conn(self, conn: socket.socket) -> None:
+    def _serve_conn(self, conn: socket.socket, peer=None) -> None:
         # one reusable receive buffer a connection: every op consumes its
         # payload inside _handle (a push applies under the server lock
         # before the reply), so the next frame may overwrite it
@@ -697,14 +744,17 @@ class ParameterServerTcpFrontend:
                 try:
                     reply, buf = self._handle(header, payload)
                     payload = None  # let rbuf grow in place next time
-                except Exception as e:
+                except Exception as e:  # replied to the worker, recorded
                     with self._lock:
                         self.counts["errors"] += 1
+                    global_recorder().record("ps_server_error",
+                                             peer=str(peer), error=repr(e))
                     try:
                         wire.send_frame(conn, {"error": repr(e)})
                     except OSError:
                         pass  # the peer is gone already
                     return
+                beat(self._server.version)
                 try:
                     wire.send_frame(conn, reply, buf)
                 except (ConnectionError, OSError):
@@ -785,8 +835,11 @@ class ParameterServerTcpFrontend:
             return {"ok": False, "error": repr(e)}
         with self._lock:
             token = f"shm{next(self._shm_next)}"
-            self._shm_sessions[token] = (ShmRing(push_seg, capacity),
-                                         ShmRing(pull_seg, capacity))
+            self._shm_sessions[token] = (
+                ShmRing(push_seg, capacity, direction="push"),
+                ShmRing(pull_seg, capacity, direction="pull"))
+        global_recorder().record("ps_shm_open", token=token,
+                                 pid=header.get("pid"), capacity=capacity)
         return {"ok": True, "token": token, "push": push_seg.name,
                 "pull": pull_seg.name, "capacity": capacity}
 
@@ -828,3 +881,7 @@ class ParameterServerTcpFrontend:
         for push_ring, pull_ring in sessions.values():
             release_segment(push_ring.shm, unlink=True)
             release_segment(pull_ring.shm, unlink=True)
+        global_recorder().record("ps_server_stop", port=self._port,
+                                 version=self._server.version,
+                                 pushes=self._server.pushes,
+                                 rejected=self._server.rejected)

@@ -27,9 +27,11 @@ device: unlike the JAX package, whose workers run on the CPU, the port's
 run their steps on the card. The worker pulls the initial params from the
 server, trains asynchronously, and prints one JSON stats line on stdout as
 its last line, with its own kernel launch counts (``"launches"``, by
-wrapper name: the coordinator sees no counter of another process) and its
-transport's stats. On every exit (clean, fenced or crashed) the shard
-``.npz``, if any, is removed.
+wrapper name: the coordinator sees no counter of another process), its
+transport's stats and its ``dl4j_ps_*``/``dl4j_shm_*`` series
+(``"series"``). On every exit (clean, fenced or crashed) the shard
+``.npz``, if any, is removed and a ``worker_exit`` event names the reason
+in the process's flight recorder.
 """
 from __future__ import annotations
 
@@ -188,6 +190,8 @@ def main(argv=None) -> int:
 
     from ..nn.conf.multilayer import MultiLayerConfiguration
     from ..nn.multilayer import MultiLayerNetwork
+    from ..observability.flight_recorder import global_recorder
+    from ..observability.metrics import global_registry
     from ..ops import _cuda
     from .param_server import StaleEpochFenced, make_compiled_worker_step
     from .ps_transport import ShmTransport, TcpTransport, TransportError
@@ -223,7 +227,13 @@ def main(argv=None) -> int:
     except TransportError as e:
         reason, rc = "coordinator-unreachable", 4
         sys.stderr.write(f"{e}\n")
+    except BaseException as e:
+        reason = f"error:{type(e).__name__}"
+        raise
     finally:
+        global_recorder().record(
+            "worker_exit", worker=args.worker_name or str(args.worker_id),
+            shard=args.shard, reason=reason)
         _cleanup_data()
         transport_stats = transport.stats()
         transport.close()
@@ -233,6 +243,12 @@ def main(argv=None) -> int:
         stats["transport"] = transport_stats
         stats["launches"] = {fn.__name__: n for fn, n in
                              _cuda.launch_counts().items()}
+        # this process's transport series (the coordinator's registry
+        # sees only the server's side)
+        stats["series"] = {
+            name: fam["series"] for name, fam in
+            global_registry().snapshot().items()
+            if name.startswith(("dl4j_ps_", "dl4j_shm_"))}
         # stdout's last line is the stats JSON: the parent's parse contract
         print(json.dumps(stats), flush=True)
     else:

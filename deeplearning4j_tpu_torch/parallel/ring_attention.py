@@ -31,9 +31,23 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..observability.metrics import LabeledSeries, global_registry
+from ..observability.names import COLLECTIVE_BYTES_PER_STEP
 from .mesh import Mesh
 
 NEG = -1e30
+
+#: the bytes one step's attention moves through its collectives, from the
+#: blocks' shapes on the host at each call (the JAX package sizes them at
+#: trace time), by op and site
+_per_step = LabeledSeries(global_registry().gauge(
+    COLLECTIVE_BYTES_PER_STEP,
+    "bytes one executed step moves through a traced collective, from "
+    "static shapes at trace time, by op and site"), "op", "site")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
@@ -114,6 +128,8 @@ def ring_attention_sharded(q, k, v, mesh: Mesh, axis_name: str = "sp",
     holds positions ``i T/N`` on); returns its output block. ``batch_axis``
     is the JAX signature's: a rank's rows are its own already."""
     group, n, idx = _axis(mesh, axis_name)
+    # every rank's K/V block goes round the ring: the whole K and V
+    _per_step("ppermute_kv", "ring_attention").set(n * _nbytes(k, v))
     B, Tq, H, _ = q.shape
     Tk = k.shape[1]
     m = torch.full((B, H, Tq), NEG, dtype=q.dtype, device=q.device)
@@ -170,6 +186,8 @@ def ulysses_attention_sharded(q, k, v, mesh: Mesh, axis_name: str = "sp",
     B, Tl, H, D = q.shape
     if H % n:
         raise ValueError(f"num heads {H} not divisible by axis size {n}")
+    # four exchanges (q, k, v there, the output back), each the whole q
+    _per_step("all_to_all", "ulysses_attention").set(4 * n * _nbytes(q))
     h = H // n
 
     def seq_to_heads(x):

@@ -15,6 +15,11 @@ collective), then the params, the layers' states and, with
 ``average_updaters``, the updater state are averaged over the ranks (the
 tree aggregate). :class:`DistributedMultiLayer` fronts it and evaluates
 each rank's block of each batch, merging the ranks' counts.
+
+Each split records a ``local_steps`` and an ``average`` event in the flight
+recorder (the average's bytes beside it; ``average_tree`` adds them to
+``dl4j_collective_bytes_total``) and beats the watchdog; an exception
+escaping ``execute_training`` dumps the recorder once.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ import torch
 import torch.distributed as dist
 
 from ..common import wrap_with_policy
+from ..observability.flight_recorder import dump_on_unhandled, global_recorder
+from ..observability.metrics import tree_nbytes
+from ..observability.watchdog import beat
 from .compile_seam import NetView, average_tree, broadcast_tree, compile_step
 from .mesh import Mesh, data_parallel_mesh
 from .partition import PartitionSpec as P
@@ -178,6 +186,7 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
                 out_specs=(P("data"),) * 3 + (P(),))
         return step
 
+    @dump_on_unhandled("TrainingMaster.execute_training")
     def execute_training(self, model, data_iterator) -> None:
         """One pass over the iterator (DL4J ``executeTraining``): splits of
         ``workers x averaging_frequency`` minibatches, each rank's share run
@@ -220,6 +229,9 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
         def dev(arrays):
             return [model._to_device(a) for a in arrays]
 
+        rec = global_recorder()
+        param_bytes = tree_nbytes(model.params_list)
+
         # the network's train step is the seam's local step for the pass
         model._drop_step_graphs()
         model._train_call = wrap_with_policy(step,
@@ -241,17 +253,25 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
                 if self.stats:
                     self.stats.add("WorkerFit", t1, time.time() - t1,
                                    loss=float(loss))
+                rec.record("step", path="TrainingMaster.local_steps",
+                           it=model.iteration, k=len(mine),
+                           dispatch_s=time.time() - t1)
                 t2 = time.time()
                 average_tree(model.params_list, group, D, "training_master")
                 average_tree(model.state_list, group, D, "training_master")
                 if self.average_updaters:
                     average_tree(model.updater_state, group, D,
                                  "training_master")
+                rec.record("step", path="TrainingMaster.average",
+                           it=model.iteration,
+                           collective_bytes=param_bytes if group else 0,
+                           dispatch_s=time.time() - t2)
                 if self.stats:
                     self.stats.add("AverageParameters", t2, time.time() - t2)
                 model.score_value = loss
                 for listener in model.listeners:
                     listener.iteration_done(model, model.iteration)
+                beat(model.iteration)
         finally:
             del model._train_call
             model._drop_step_graphs()

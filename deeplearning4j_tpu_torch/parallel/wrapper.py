@@ -39,13 +39,21 @@ group of one.
   block over ``model`` and used by the layers' Megatron pairs or gathered
   at use (``tensor_parallel.py``); gradients averaged over ``data``.
 
-Both take single steps (no K-step capture), as ZeRO does. The JAX
-package's metrics and flight-recorder events are plain counters
-(:meth:`ParallelWrapper.stats`).
+Both take single steps (no K-step capture), as ZeRO does.
+
+Telemetry as in the JAX wrapper: each single step, K-step group and local
+step records a ``step`` event (its path, iteration, batch, host seconds of
+the dispatch and the gradients' all-reduce bytes), is timed into
+``dl4j_fit_phase_seconds`` and beats the watchdog; the collectives add
+their bytes to ``dl4j_collective_bytes_total`` (``compile_seam``); ``fit``
+dumps the flight recorder once on an unhandled exception.
+:meth:`ParallelWrapper.stats` keeps the wrapper's own step counts beside
+the series read back.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from collections import Counter
 from typing import Optional
 
@@ -55,6 +63,9 @@ import torch.distributed as dist
 
 from ..common import wrap_with_policy
 from ..datasets.prefetch import DevicePrefetcher, stage_to_device
+from ..nn.ksteps import t_dispatch, t_listeners, t_staging
+from ..observability.flight_recorder import dump_on_unhandled, global_recorder
+from ..observability.watchdog import beat
 from ..optimize.listeners import fire_iteration_done
 from ..utils.batching import k_step_groups
 from . import compile_seam, context as pctx
@@ -366,6 +377,7 @@ class ParallelWrapper:
         return par, upd
 
     # ------------------------------------------------------------ public API
+    @dump_on_unhandled("ParallelWrapper.fit")
     def fit(self, iterator, epochs: int = 1) -> None:
         """DL4J ``fit(DataSetIterator)``: every rank iterates the same
         global batches and trains on its block of each."""
@@ -410,12 +422,20 @@ class ParallelWrapper:
     def _note_step(self, path: str, n: int = 1) -> None:
         self._counts[f"steps_{path}"] += n
 
-    def _after_step(self, loss, batch_size: int) -> None:
+    def _after_step(self, loss, batch_size: int, path: str, dispatch_s: float,
+                    **fields) -> None:
+        """After a step of the wrapper's: its event, the iteration, the
+        listeners (timed), a beat."""
         net = self.model
         net.last_batch_size = batch_size
+        global_recorder().record("step", path=path, it=net.iteration,
+                                 batch=batch_size, dispatch_s=dispatch_s,
+                                 **fields)
         net.score_value = loss
         net.iteration += 1
-        fire_iteration_done(net, net.iteration)
+        with t_listeners.time():
+            fire_iteration_done(net, net.iteration)
+        beat(net.iteration)
 
     # -------------------------------------------------------- synchronous DP
     def _make_sync_step(self):
@@ -509,30 +529,47 @@ class ParallelWrapper:
                         iterator.reset()
                     groups = k_step_groups(iterator, k, to_batch)
                     with DevicePrefetcher(groups, stage,
-                                          depth=self.prefetch) as pf:
+                                          depth=self.prefetch,
+                                          path="wrapper_sync",
+                                          wait_series=t_staging) as pf:
                         for kind, item in pf:
                             if kind == "single":
                                 fallback(item)
                             elif kind == "group":
                                 xs, ys = item[0]
+                                t0 = time.perf_counter()
                                 loss = net._eager_step(
                                     self._to_device(xs), self._to_device(ys),
                                     net.iteration)
+                                dt = time.perf_counter() - t0
+                                t_dispatch.observe(dt)
                                 self._note_step("sync")
-                                if sh is None:
+                                moved = 0 if sh is not None else grad_bytes
+                                if moved:
                                     compile_seam.count_collective(
-                                        "all_reduce", "grad", grad_bytes)
+                                        "all_reduce", "grad", moved)
                                 self._after_step(
-                                    loss, int(xs[0].shape[0]) * n_data)
+                                    loss, int(xs[0].shape[0]) * n_data,
+                                    "ParallelWrapper.sync_step", dt,
+                                    collective_bytes=moved)
                             else:
+                                it0 = net.iteration
                                 net._dispatch_staged(item)
                                 net.last_batch_size = (
                                     int(item.xs[0].shape[1]) * n_data)
                                 self._note_step("sync_ksteps", item.n)
-                                if sh is None:
+                                moved = (0 if sh is not None
+                                         else grad_bytes * item.n)
+                                if moved:
                                     compile_seam.count_collective(
-                                        "all_reduce", "grad",
-                                        grad_bytes * item.n)
+                                        "all_reduce", "grad", moved)
+                                global_recorder().record(
+                                    "step",
+                                    path="ParallelWrapper.sync_multistep",
+                                    it=it0, k=item.n,
+                                    batch=net.last_batch_size,
+                                    dispatch_s=net.last_dispatch_s,
+                                    collective_bytes=moved)
             finally:
                 if sh is not None:
                     net._held_sharding = None
@@ -589,20 +626,28 @@ class ParallelWrapper:
                         raise ValueError(
                             f"local SGD splits each batch over {n_data} "
                             f"ranks; a batch of {bs} rows does not divide")
+                    t0 = time.perf_counter()
                     loss = net._eager_step(
                         self._to_device([self._local(a) for a in xs]),
                         self._to_device([self._local(a) for a in ys]),
                         net.iteration)
+                    dt = time.perf_counter() - t0
+                    t_dispatch.observe(dt)
                     self._note_step("local_sgd")
                     net.last_batch_size = bs
+                    global_recorder().record(
+                        "step", path="ParallelWrapper.local_step",
+                        it=net.iteration, batch=bs, dispatch_s=dt)
                     net.score_value = loss
                     net.iteration += 1
                     since_avg += 1
                     if since_avg >= self.averaging_frequency:
                         self._average("wrapper_local_sgd")
                         since_avg = 0
-                    for listener in net.listeners:
-                        listener.iteration_done(net, net.iteration)
+                    with t_listeners.time():
+                        for listener in net.listeners:
+                            listener.iteration_done(net, net.iteration)
+                    beat(net.iteration)
             # the final sync
             self._average("wrapper_local_sgd")
             if not self.average_updaters:

@@ -6,9 +6,10 @@ a background thread and hands them to a handler. ``source`` is anything
 with the queue seam (``get(timeout)``, ``task_done``, ``unfinished_tasks``,
 ``all_tasks_done``): a ``queue.Queue``, or the broker's
 ``ReconnectingConsumer`` (``streaming/broker.py``). A handler that raises
-does not stop the route: the error is kept in ``errors`` and counted in
-:meth:`Route.stats`, where the JAX package counts it in a metric and a
-flight-recorder event.
+does not stop the route: the error is kept in ``errors``, counted in
+``dl4j_route_errors_total`` by route class and recorded as a
+``route_error`` event in the flight recorder, as in the JAX package;
+:meth:`Route.stats` keeps the route's own counts.
 """
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 
 from ..common import host_numpy
+from ..observability.flight_recorder import global_recorder
+from ..observability.metrics import global_registry
+from ..observability.names import ROUTE_ERRORS_TOTAL
+
+_route_errors = global_registry().counter(
+    ROUTE_ERRORS_TOTAL, "handler exceptions swallowed by streaming routes, "
+                        "by route class")
 
 
 class Route:
@@ -32,6 +40,7 @@ class Route:
         self._thread: Optional[threading.Thread] = None
         self.processed = 0
         self.errors: List[str] = []
+        self._err_series = _route_errors.labels(route=type(self).__name__)
 
     def start(self) -> "Route":
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -49,6 +58,10 @@ class Route:
                 self.processed += 1
             except Exception as e:  # the route keeps consuming, and says so
                 self.errors.append(f"{type(e).__name__}: {e}")
+                self._err_series.inc()
+                global_recorder().record(
+                    "route_error", route=type(self).__name__,
+                    error=f"{type(e).__name__}: {e}")
             finally:
                 self.source.task_done()
 

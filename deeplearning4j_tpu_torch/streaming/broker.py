@@ -18,8 +18,12 @@ consumes, so ``BrokerTrainingRoute`` is ``TrainingRoute`` over the network.
 Arrays decode through ``wire.decode_array``. A consumer takes the JAX
 signature's ``native_decode`` flag, and decodes through the wire with it
 too: the host runtime's ``nativert.decode_records`` gives the same float32
-values bitwise and was no faster on these frames (``PERF.md``). The JAX
-package's trace propagation and metrics are counters in ``stats()`` here.
+values bitwise and was no faster on these frames (``PERF.md``). As in the
+JAX package, messages published and delivered count in
+``dl4j_broker_messages_total`` by op and consumer reconnects in
+``dl4j_broker_reconnects_total``; a broker error, a fault-injected drop and
+a reconnect are flight-recorder events. ``stats()`` keeps one broker's
+counts. The JAX package's trace propagation waits for A9.2.
 """
 from __future__ import annotations
 
@@ -32,7 +36,19 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..observability.flight_recorder import global_recorder
+from ..observability.metrics import global_registry
+from ..observability.names import (
+    BROKER_MESSAGES_TOTAL, BROKER_RECONNECTS_TOTAL)
 from . import Route, wire
+
+_messages = global_registry().counter(
+    BROKER_MESSAGES_TOTAL, "broker messages by op (publish|deliver)")
+_published = _messages.labels(op="publish")
+_delivered = _messages.labels(op="deliver")
+_reconnects = global_registry().counter(
+    BROKER_RECONNECTS_TOTAL, "consumer reconnects after a dropped broker "
+                             "connection").labels()
 
 
 class LoopbackBroker:
@@ -101,9 +117,10 @@ class LoopbackBroker:
                     wire.send_frame(conn, reply, buf)
                 except (ConnectionError, OSError):
                     return  # client gone, or dropped by fault injection
-                except Exception as e:
+                except Exception as e:  # replied to the client, recorded
                     with self._cond:
                         self.counts["errors"] += 1
+                    global_recorder().record("broker_error", error=repr(e))
                     try:
                         wire.send_frame(conn, {"error": repr(e)})
                     except OSError:
@@ -118,6 +135,7 @@ class LoopbackBroker:
                 offset = len(log)
                 log.append((header.get("meta", {}), bytes(payload)))
                 self.counts["publish"] += 1
+                _published.inc()
                 self._cond.notify_all()
             return {"offset": offset}, b""
         if op == "fetch":
@@ -129,6 +147,7 @@ class LoopbackBroker:
                     if offset < len(log):
                         meta, buf = log[offset]
                         self.counts["deliver"] += 1
+                        _delivered.inc()
                         return {"offset": offset, "meta": meta}, buf
                     left = deadline - time.time()
                     if left <= 0 or self._stop.is_set():
@@ -163,6 +182,7 @@ class LoopbackBroker:
         with self._cond:
             conns, self._conns = self._conns, []
             self.counts["dropped"] += len(conns)
+        global_recorder().record("broker_drop_connections", n=len(conns))
         for conn in conns:
             try:
                 conn.shutdown(socket.SHUT_RDWR)
@@ -251,6 +271,10 @@ class ReconnectingConsumer:
         if self._sock is None:
             if self._next is not None:  # not the first connect: a drop
                 self.reconnects += 1
+                _reconnects.inc()
+                global_recorder().record(
+                    "broker_reconnect", topic=self.topic, group=self.group,
+                    n=self.reconnects)
             self._connect()
 
     def _drop(self) -> None:

@@ -22,19 +22,20 @@ view of the array's own buffer, ``pack_arrays`` leaves the views unjoined,
 ``send_frame`` hands them to ``socket.sendmsg``, ``recv_frame`` reads with
 ``recv_into`` and ``decode_array`` returns a read-only ``np.frombuffer``
 view. Where bytes are copied (``copy=True`` decodes, the fallback without
-``sendmsg``) they are counted in :func:`stats`, where the JAX package
-counts them in a metric.
+``sendmsg``) they are counted in ``dl4j_wire_copy_bytes_total`` by site,
+as in the JAX package; :func:`stats` reads the series back.
 """
 from __future__ import annotations
 
 import json
 import socket
 import struct
-import threading
-from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from ..observability.metrics import LabeledSeries, global_registry
+from ..observability.names import WIRE_COPY_BYTES_TOTAL
 
 _PREFIX = struct.Struct("!II")
 
@@ -45,20 +46,22 @@ CODECS = ("none", "bf16")
 Buffers = Union[bytes, bytearray, memoryview,
                 Sequence[Union[bytes, bytearray, memoryview]]]
 
-_lock = threading.Lock()
-_copy_bytes: Counter = Counter()
+_copy_bytes = LabeledSeries(global_registry().counter(
+    WIRE_COPY_BYTES_TOTAL,
+    "tensor bytes COPIED on the wire hot path, by site — flat under load "
+    "is the zero-copy proof; any growth names the regressing call site"),
+    "site")
 
 
 def _count_copy(site: str, n: int) -> None:
-    with _lock:
-        _copy_bytes[site] += int(n)
+    _copy_bytes(site).inc(int(n))
 
 
 def stats() -> dict:
     """``{"copy_bytes": {site: bytes}}``: tensor bytes copied on the wire
-    path, by site (``decode``, ``send_fallback``)."""
-    with _lock:
-        return {"copy_bytes": dict(_copy_bytes)}
+    path, by site (``decode``, ``send_fallback``), read back from
+    ``dl4j_wire_copy_bytes_total``."""
+    return {"copy_bytes": _copy_bytes.read()}
 
 
 def bf16_encode(a: np.ndarray) -> np.ndarray:

@@ -143,14 +143,15 @@ def port_module_name(name: str) -> str:
 
 
 def run_on_port(test_module: str, test_name: str, monkeypatch, jax_prefixes,
-                **kwargs):
+                /, **kwargs):
     """Run the JAX contract test ``test_module.test_name`` on the port: the
     test's own assertions, with every name the test module takes from the
     modules under ``jax_prefixes`` (e.g. ``deeplearning4j_tpu.nlp``) bound
     to the port's same-named object, its helper functions rebound alike,
     and those JAX modules answered by the port's for an import inside the
     test body. The port's entry points default to CUDA; the caller points
-    them at the CPU (``monkeypatch``)."""
+    them at the CPU (``monkeypatch``). The four arguments are positional,
+    so ``kwargs`` may hold the test's own ``monkeypatch``."""
     import importlib
     import sys
     import types

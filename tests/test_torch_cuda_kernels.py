@@ -813,6 +813,48 @@ def test_ksteps_ragged_shapes_share_one_pool_on_card(cuda_device,
 
 
 @pytest.mark.cuda
+def test_monitored_ksteps_on_card_are_bitwise_unmonitored(cuda_device):
+    """``fit(epochs=8)`` in groups of 4 with ``HealthMonitor(cadence=4)``:
+    the health graph replays each group's first step, the plain graph the
+    rest, both in the network's one pool and from its one capture stream;
+    params and losses bitwise the unmonitored fit's, two checks, the same
+    launches a replay in both graphs, and the second capture grows the
+    pool by less than the first."""
+    from deeplearning4j_tpu_torch.observability import (
+        HealthMonitor, NanAlertListener)
+    a = _kstep_net("transformer", cuda_device)
+    b = a.clone()
+    data = _kstep_batches("transformer", 1)[0]
+    losses = ([], [])
+    for net, seen, monitored in ((a, losses[0], True), (b, losses[1], False)):
+        class Rec:
+            def iteration_done(self, model_, it, seen=seen):
+                seen.append(float(model_.score_value))
+
+        net.dispatch_ksteps = 4
+        listeners = [Rec()]
+        if monitored:
+            HealthMonitor(cadence=4).attach(net)
+            listeners.insert(0, NanAlertListener())
+        net.set_listeners(*listeners)
+        net.fit(data.features, data.labels, epochs=8)
+    torch.cuda.synchronize()
+    assert losses[0] == losses[1]
+    for own, other in zip(a.params_list, b.params_list):
+        for k, v in own.items():
+            assert torch.equal(v, other[k]), k
+    hm = a.health_monitor
+    hm.poll()
+    assert hm.checks == 2 and hm.last["iteration"] == 4
+    graphs = {sg.health: sg for sg in a._step_graphs.values()}
+    assert set(graphs) == {True, False}
+    assert graphs[True].per_replay == graphs[False].per_replay
+    assert graphs[True].pool == graphs[False].pool == a._graph_pool
+    assert graphs[True].stream is graphs[False].stream is a._capture_stream
+    assert graphs[False].pool_bytes < graphs[True].pool_bytes
+
+
+@pytest.mark.cuda
 def test_ksteps_stage_dtype_on_card(cuda_device, monkeypatch):
     """``stage_dtype=torch.bfloat16`` on the card: the K-step epoch and
     ``fit(epochs=4)`` stage bfloat16 features and train as single steps on

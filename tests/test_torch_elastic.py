@@ -38,6 +38,7 @@ from deeplearning4j_tpu_torch.keras_server import (
 from deeplearning4j_tpu_torch.parallel import ps_transport as pst
 from deeplearning4j_tpu_torch.parallel import ps_worker
 from deeplearning4j_tpu_torch.parallel.elastic import ElasticTrainer
+from deeplearning4j_tpu_torch.observability import global_recorder
 from deeplearning4j_tpu_torch.parallel.param_server import ParameterServer
 from deeplearning4j_tpu_torch.streaming.broker import (
     BrokerProducer, LoopbackBroker, ReconnectingConsumer,
@@ -480,12 +481,15 @@ def test_builder_validates_and_builds():
 
 
 # ------------------------------------------------------------------- chaos
-def test_chaos_sigkill_hands_the_shard_off(tmp_path):
+def test_chaos_sigkill_hands_the_shard_off(tmp_path, monkeypatch):
     """SIGKILL one of two worker processes mid-fit (shm transport, CPU):
     the shard hands off, the replacement resumes at the committed offset,
     every shard's group ends committed through its fin marker, no orphan
     segment is left, and the loss lands near a single-process fit's on
-    the same batches."""
+    the same batches. The kill waits for the oracle's ``worker_join`` event
+    of shard 0's first worker: under load the other worker can push twice
+    before shard 0's process has even registered, and a kill then would
+    hand off a worker that never joined."""
     rng = np.random.default_rng(0)
     means = rng.normal(0.0, 1.0, (3, 4)).astype(np.float32)
     data = []
@@ -509,9 +513,21 @@ def test_chaos_sigkill_hands_the_shard_off(tmp_path):
                .worker_delays(0.1, 0.1).checkpoint(str(tmp_path / "ck"), 1.0)
                .fit_timeout(50.0).build())
     killed = threading.Event()
+    joined = threading.Event()
+    rec = global_recorder()
+    record = rec.record
+
+    def _record(kind, **fields):
+        record(kind, **fields)
+        if kind == "worker_join" and fields.get("worker") == "shard0-gen0":
+            joined.set()
+
+    monkeypatch.setattr(rec, "record", _record)
 
     def _assassin():
         deadline = time.monotonic() + 45.0
+        if not joined.wait(timeout=45.0):
+            return
         while time.monotonic() < deadline:
             if (trainer.server is not None and trainer._shards
                     and trainer._shards[0].proc is not None

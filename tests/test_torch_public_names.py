@@ -39,7 +39,8 @@ MODULES = {
         "graph.walkers", "graph.deepwalk", "clustering",
         "clustering.kdtree", "clustering.kmeans", "clustering.quadtree",
         "clustering.vptree", "plot", "plot.tsne", "observability.metrics",
-        "observability.names")},
+        "observability.names", "observability.flight_recorder",
+        "observability.watchdog", "observability.health")},
 }
 #: names the JAX modules hold that are not theirs to export: imported
 #: typing helpers and modules, and the libhdf5 binding's ctypes plumbing,

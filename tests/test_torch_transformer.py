@@ -173,6 +173,9 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.streaming, "
             "deeplearning4j_tpu_torch.streaming.broker, "
             "deeplearning4j_tpu_torch.cloud, "
+            "deeplearning4j_tpu_torch.observability.flight_recorder, "
+            "deeplearning4j_tpu_torch.observability.watchdog, "
+            "deeplearning4j_tpu_torch.observability.health, "
             "deeplearning4j_tpu_torch.utils.sharded_checkpoint, "
             "deeplearning4j_tpu_torch.parallel.elastic, "
             "deeplearning4j_tpu_torch.modelimport, "

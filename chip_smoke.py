@@ -22,7 +22,18 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    /metrics`` and holds the request, token, TTFT, eviction and batch
    series to what was sent and to ``/serve/status``, then repeats the
    traffic with the metrics registry off and on in turns (3 calls a side;
-   decode tokens/s and predict ms printed, not gated);
+   decode tokens/s and predict ms printed, not gated); then the ``tracing``
+   phase (A9.2) on the same server: the 8 generates one at a time and the
+   predict, each with a client ``traceparent``, untraced and then traced
+   (the launches of ``int8_matmul``, ``paged_gather``, ``flash_fwd`` and
+   ``fixed_matmul`` and the outputs of the two runs equal bitwise, every
+   echo keeps the client's trace id, every ``/serve/traces/<id>`` tree has
+   the names and parents the CPU tests hold against the JAX server, the
+   predict's ``batch.dispatch`` links its queue span, and
+   ``dl4j_trace_spans_total`` moved by the spans the trees hold), one 429
+   kept at ``sample=0``, ``GET /serve/slo`` (three objectives, two windows
+   each), and the concurrent traffic with tracing off and on in turns (3
+   calls a side; printed, not gated);
 5. trains full-width ``transformer_lm(256)`` through
    ``MultiLayerNetwork.fit`` for 5 steps at B = 16, T = 256 (one-hot ids from
    a numpy seed, y = x, Adam at 3e-4) on the card and, from the same initial
@@ -252,6 +263,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
    coordinator launching none; the shm rings and shard segments used; the
    score falls; no orphan segment); the server's ``dl4j_ps_*`` series and
    the worker processes' wire and ring series held against the stats;
+   then one traced push over tcp (A9.2): the frontend's ``ps.apply`` joins
+   the worker's trace id, parented on its RPC span;
 24. runs the ``elastic`` phase (A7.4, A7.8's checkpoints): two shm worker
    processes on the card, shard 0's SIGKILLed once its group committed its
    first window; every group committed through its fin marker, a handoff,
@@ -367,8 +380,8 @@ Imports nothing of JAX and nothing of ``deeplearning4j_tpu``. In order:
 To debug a phase alone on the card, ``run_phases`` sets the card up,
 builds the kernels and runs the named phases (``fixed_matmul``, ``c3``,
 ``sharded_pins``, ``sharded``, ``keras``, ``native``, ``nlp``, ``embed``,
-``serve``, ``replicas``, ``diagnostics``, ``parallel``, ``param_server``,
-``elastic``).
+``serve``, ``tracing`` (the serve phase, which ends with it), ``replicas``,
+``diagnostics``, ``parallel``, ``param_server``, ``elastic``).
 
 Any failed check exits non-zero without the last line. Without CUDA it
 exits non-zero before printing anything. Full results also go to
@@ -1358,6 +1371,11 @@ def serve(kernels) -> dict:
         st = srv.status()
         metrics = serve_metrics_check(srv.port, scraped, st, len(prompts))
         metrics["on_off"] = metrics_on_off(traffic)
+        t0 = time.perf_counter()
+        traced = tracing_phase(srv, traffic, prompts, ids,
+                               tuple(kernels) + (fixed_matmul,))
+        traced["seconds"] = time.perf_counter() - t0
+        print(f"phase tracing: {traced['seconds']:.1f}s", flush=True)
     finally:
         srv.stop()
 
@@ -1411,7 +1429,7 @@ def serve(kernels) -> dict:
             "decode_steps": dec["steps"], "decode_tokens": dec["tokens"],
             "decode_capacity": dec["capacity"],
             "predict_max_abs_err": perr, "generate_worst_argmax_gap": worst_gap,
-            "metrics": metrics}
+            "metrics": metrics, "tracing": traced}
 
 
 def serve_metrics_check(port: int, before: dict, st: dict,
@@ -1476,6 +1494,277 @@ def metrics_on_off(traffic, turns: int = 3) -> dict:
           f"[2,512] ms on {[round(v, 3) for v in out['on']['predict_ms']]} "
           f"off {[round(v, 3) for v in out['off']['predict_ms']]} [{CARD}]",
           flush=True)
+    return out
+
+
+def post_traced(port: int, path: str, body: dict, traceparent: str):
+    """``post`` with a client ``traceparent``: (status, the echoed
+    ``traceparent`` or None, body text)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json",
+                      "traceparent": traceparent})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("traceparent"), resp.read().decode()
+    finally:
+        conn.close()
+
+
+def get_json(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode())
+    finally:
+        conn.close()
+
+
+def fetch_trace(port: int, trace_id: str) -> dict:
+    """``GET /serve/traces/<id>`` once the trace is finalized (a handler
+    finishes its root span after writing the response), or fail after 10 s."""
+    deadline = time.perf_counter() + 10.0
+    while True:
+        code, rec = get_json(port, f"/serve/traces/{trace_id}")
+        if code == 200:
+            return rec
+        if time.perf_counter() > deadline:
+            fail(f"tracing: trace {trace_id} never reached the store")
+        time.sleep(0.01)
+
+
+def tree_edges(rec: dict) -> set:
+    """(span name, parent span name) of a trace; a parent outside the
+    trace's spans (the client's span) is ``<remote>``."""
+    by_id = {s["span_id"]: s["name"] for s in rec["spans"]}
+    return {(s["name"], None if s["parent_id"] is None
+             else by_id.get(s["parent_id"], "<remote>"))
+            for s in rec["spans"]}
+
+
+def client_traceparent(nonce: int, side: int, j: int) -> str:
+    """The client's trace context of request ``j`` of run ``side``: a
+    random 64-bit ``nonce`` a phase call (ids never repeat across calls in
+    one process), then the run and the request, never all-zero."""
+    return f"00-{nonce:016x}{side + 1:08x}{j + 1:08x}-{j + 1:016x}-01"
+
+
+#: the span tree of one traced /v1/generate and one /v1/predict (names and
+#: parents), as the CPU tests hold them against the JAX server
+GENERATE_TREE = {("http /v1/generate", "<remote>"),
+                 ("decode.queue", "http /v1/generate"),
+                 ("decode.prefill", "decode.queue"),
+                 ("decode.decode", "decode.queue")}
+PREDICT_TREE = {("http /v1/predict", "<remote>"),
+                ("admission", "http /v1/predict"),
+                ("batch.queue", "http /v1/predict")}
+
+
+def span_cost_us(tr, n: int = 2000) -> dict:
+    """Host µs of one root span, one child span (enter and exit, with the
+    tail sampler's finalize of the root) and one exemplar write, each the
+    mean of ``n``, on a private store (the JAX suite's budget terms)."""
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    store = tr.TraceStore(enabled=True, sample=1.0, capacity=256,
+                          registry=MetricsRegistry())
+    prev = tr.global_trace_store()
+    tr.set_global_trace_store(store)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with tr.trace_span("probe.root"):
+                pass
+        root = (time.perf_counter() - t0) / n
+        with tr.trace_span("probe.parent") as parent:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with tr.trace_span("probe.child", parent=parent):
+                    pass
+            child = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for _ in range(n):
+            store.put_exemplar("probe", 0.001, "f" * 32)
+        exemplar = (time.perf_counter() - t0) / n
+    finally:
+        tr.set_global_trace_store(prev)
+    return {"root": round(1e6 * root, 2), "child": round(1e6 * child, 2),
+            "exemplar": round(1e6 * exemplar, 2)}
+
+
+def tracing_phase(srv, traffic, prompts, ids, counted) -> dict:
+    """A9.2 on the serve phase's server: the 8 generates (one at a time, so
+    the decode steps, and with them the launches, do not depend on when
+    each request arrives) and the predict with a client ``traceparent``,
+    untraced then traced. The traced run's launches of ``counted`` and its
+    outputs must equal the untraced run's bitwise, every echo must keep the
+    client's trace id, every trace tree must be whole, and the
+    ``dl4j_trace_spans_total`` delta must equal the spans the trees hold.
+    Then one 429 kept at ``sample=0``, ``GET /serve/slo``, the host cost of
+    a span, and the concurrent traffic with tracing off and on in turns (3
+    calls a side, the first side alternating; printed, not gated)."""
+    import random
+    from deeplearning4j_tpu_torch.observability import tracing as tr
+    port = srv.port
+    n = len(prompts)
+    nonce = random.SystemRandom().getrandbits(64) | 1
+
+    def run(side: int):
+        answers = []
+        _zero(counted)
+        for j, prompt in enumerate(prompts):
+            answers.append(post_traced(
+                port, "/v1/generate", {"model": "lm", "prompt": prompt,
+                                       "max_new_tokens": 32},
+                client_traceparent(nonce, side, j)))
+        answers.append(post_traced(
+            port, "/v1/predict", {"model": "lm", "inputs": ids.tolist()},
+            client_traceparent(nonce, side, n)))
+        return answers, _launches(counted)
+
+    def outputs(answers):
+        out = []
+        for code, _, text in answers:
+            if code != 200:
+                fail(f"tracing: a request answered {code}: {text[:300]}")
+            lines = [json.loads(l) for l in text.splitlines() if l.strip()]
+            # the generate's last line carries its TTFT, a time
+            out.append(lines[-1]["tokens"] if "done" in lines[-1] else text)
+        return out
+
+    out = {}
+    try:
+        tr.configure(enabled=False)
+        plain, plain_launches = run(0)
+        if any(tp for _, tp, _ in plain):
+            fail("tracing: an untraced response echoed a traceparent")
+        tr.configure(enabled=True, sample=1.0)
+        before = scrape_metrics(port)
+        traced, traced_launches = run(1)
+        print(f"tracing: launches untraced {plain_launches}, traced "
+              f"{traced_launches}", flush=True)
+        if traced_launches != plain_launches or not all(
+                plain_launches.values()):
+            fail("tracing: tracing moved the launch counts")
+        if outputs(traced) != outputs(plain):
+            fail("tracing: traced outputs differ from the untraced ones")
+        trees, n_spans = [], 0
+        queue_span = None
+        for j, (_, echo, _) in enumerate(traced):
+            sent = tr.parse_traceparent(client_traceparent(nonce, 1, j))
+            got = tr.parse_traceparent(echo)
+            if got is None or got.trace_id != sent.trace_id:
+                fail(f"tracing: echo {echo!r} lost the trace id of "
+                     f"{sent.traceparent()}")
+            rec = fetch_trace(port, got.trace_id)
+            edges = tree_edges(rec)
+            want = GENERATE_TREE if j < n else PREDICT_TREE
+            root = next(s for s in rec["spans"]
+                        if s["parent_id"] == sent.span_id)
+            if edges != want or root["span_id"] != got.span_id or any(
+                    s["status"] != "ok" for s in rec["spans"]):
+                fail(f"tracing: request {j}'s tree {sorted(edges)}")
+            if j < n:
+                dec = next(s for s in rec["spans"]
+                           if s["name"] == "decode.decode")["attrs"]
+                if dec.get("tokens") != 32 or dec.get("reason") !=                         "max_tokens":
+                    fail(f"tracing: decode span attrs {dec}")
+            else:
+                queue_span = next(s for s in rec["spans"]
+                                  if s["name"] == "batch.queue")["span_id"]
+            n_spans += rec["n_spans"]
+            trees.append(rec["n_spans"])
+        # the predict's batch dispatch: a root of its own linking the
+        # request's queue span
+        dispatch = None
+        for summary in get_json(port, "/serve/traces")[1]["traces"]:
+            if summary["root"] != "batch.dispatch":
+                continue
+            rec = fetch_trace(port, summary["trace_id"])
+            links = rec["spans"][0]["links"]
+            if any(l.split("-")[2] == queue_span for l in links):
+                dispatch = rec
+        if dispatch is None:
+            fail("tracing: no batch.dispatch span links the predict")
+        attrs = dispatch["spans"][0]["attrs"]
+        if (attrs["rows"], attrs["bucket"], attrs["requests"],
+                attrs["version"], attrs["compile_cache_hit"]) != \
+                (2, 2, 1, "v1", None):
+            fail(f"tracing: dispatch attrs {attrs}")
+        n_spans += dispatch["n_spans"]
+        after = scrape_metrics(port)
+        counted_spans = metric_delta(after, before, "dl4j_trace_spans_total")
+        kept = metric_delta(after, before, "dl4j_trace_traces_kept_total")
+        print(f"tracing: {n + 1} request trees whole ({trees} spans) and "
+              f"the dispatch's ({dispatch['n_spans']}); spans counted "
+              f"{counted_spans:g}, returned {n_spans}; traces kept "
+              f"{kept:g}", flush=True)
+        if counted_spans != n_spans or kept != n + 2:
+            fail("tracing: dl4j_trace_spans_total moved by "
+                 f"{counted_spans}, the trees hold {n_spans}")
+        out.update(launches=traced_launches, spans=n_spans,
+                   trees=trees, dispatch_spans=dispatch["n_spans"])
+
+        # one 429 at sample 0: the tail sampler keeps it
+        tr.configure(sample=0.0)
+        adm = srv.batcher.admission
+        adm.admit(adm.max_pending)
+        try:
+            code, echo, _ = post_traced(
+                port, "/v1/predict", {"model": "lm", "inputs": [[0.0]]},
+                client_traceparent(nonce, 2, 0))
+        finally:
+            adm.release(adm.max_pending)
+        rec = fetch_trace(port, tr.parse_traceparent(echo).trace_id)
+        root = next(s for s in rec["spans"] if s["name"].startswith("http"))
+        if code != 429 or rec["keep_reason"] != "error" or \
+                root["attrs"].get("http_status") != 429 or \
+                tree_edges(rec) != {("http /v1/predict", "<remote>"),
+                                    ("admission", "http /v1/predict")}:
+            fail(f"tracing: the 429 ({code}) was not kept as an error: "
+                 f"{rec['keep_reason']}, {sorted(tree_edges(rec))}")
+        tr.configure(sample=1.0)
+        print(f"tracing: a 429 at sample 0 kept ({rec['keep_reason']}, "
+              f"{rec['n_spans']} spans)", flush=True)
+
+        code, body = get_json(port, "/serve/slo")
+        objectives = body.get("slo", [])
+        if code != 200 or [o["name"] for o in objectives] != [
+                "request_p99", "ttft_p99", "availability"] or any(
+                len(o["windows"]) != 2 for o in objectives):
+            fail(f"tracing: /serve/slo answered {code}: {body}")
+        out["slo"] = [{"name": o["name"], "alerting": o["alerting"],
+                       "burn": [w["burn_rate"] for w in o["windows"]],
+                       "total": [w["total"] for w in o["windows"]]}
+                      for o in objectives]
+        print(f"tracing: /serve/slo {out['slo']}", flush=True)
+
+        out["span_us"] = span_cost_us(tr)
+        print(f"tracing: host µs a span (root, child) and an exemplar "
+              f"{out['span_us']}", flush=True)
+
+        # off and on in turns, the serve phase's concurrent traffic; the
+        # side that goes first alternates
+        on_off = {"on": {"tokens_per_s": [], "predict_ms": []},
+                  "off": {"tokens_per_s": [], "predict_ms": []}}
+        for turn in range(3):
+            for side in (("off", "on") if turn % 2 == 0 else ("on", "off")):
+                tr.configure(enabled=side == "on")
+                gen_s, _, (code, _), predict_s = traffic()
+                if code != 200:
+                    fail(f"tracing on/off: /v1/predict answered {code}")
+                on_off[side]["tokens_per_s"].append(n * 32 / gen_s)
+                on_off[side]["predict_ms"].append(1e3 * predict_s)
+        out["on_off"] = on_off
+        print(f"tracing on/off in turns, 3 calls a side: decode tokens/s on "
+              f"{[round(v, 1) for v in on_off['on']['tokens_per_s']]} off "
+              f"{[round(v, 1) for v in on_off['off']['tokens_per_s']]}; "
+              f"predict [2,512] ms on "
+              f"{[round(v, 3) for v in on_off['on']['predict_ms']]} off "
+              f"{[round(v, 3) for v in on_off['off']['predict_ms']]} "
+              f"[{CARD}]", flush=True)
+    finally:
+        tr.configure(enabled=True, sample=1.0)
     return out
 
 
@@ -6968,9 +7257,48 @@ def param_server_phase(kernels) -> dict:
         out[transport] = {"score": [s0, s1], "wall_s": wall,
                           "workers": w.worker_stats,
                           "shard_routes": w.shard_routes}
+    out["traced_push"] = traced_tcp_push(net)
     del net, snap
     torch.cuda.empty_cache()
     return out
+
+
+def traced_tcp_push(net) -> dict:
+    """One traced push over the TCP transport: a worker's window span, its
+    ``ps.push`` RPC span stamping ``traceparent`` into the frame header, and
+    the frontend's ``ps.apply`` (on the frontend's own thread, which the
+    header alone reaches) under the same trace id, parented on the RPC
+    span."""
+    from deeplearning4j_tpu_torch.observability import tracing as tr
+    from deeplearning4j_tpu_torch.parallel import ps_transport as pst
+    from deeplearning4j_tpu_torch.parallel.param_server import (
+        ParameterServer)
+    server = ParameterServer(net.params_list)
+    frontend = pst.ParameterServerTcpFrontend(server).start()
+    transport = pst.TcpTransport(("127.0.0.1", frontend.port))
+    try:
+        version, vec = transport.pull()
+        with tr.trace_span("ps.push_window", worker="chip") as root:
+            res = transport.push(np.zeros_like(vec), version)
+    finally:
+        transport.close()
+        frontend.stop()
+    deadline = time.perf_counter() + 10.0
+    while True:
+        rec = tr.global_trace_store().get(root.trace_id)
+        names = {s["name"]: s for s in (rec or {}).get("spans", [])}
+        if "ps.apply" in names or time.perf_counter() > deadline:
+            break
+        time.sleep(0.01)
+    ok = ("ps.apply" in names and "ps.push" in names
+          and names["ps.apply"]["trace_id"] == root.trace_id
+          and names["ps.apply"]["parent_id"] == names["ps.push"]["span_id"]
+          and names["ps.push"]["parent_id"] == root.span_id)
+    print(f"param_server traced tcp push: accepted {res.accepted}; spans "
+          f"{sorted(names)} under trace {root.trace_id}", flush=True)
+    if not ok or not res.accepted:
+        fail("param_server: ps.apply did not join the worker's trace")
+    return {"trace_id": root.trace_id, "spans": sorted(names)}
 
 
 def elastic_phase(kernels) -> dict:
@@ -8842,6 +9170,7 @@ PHASES_ALONE = {"c3": lambda k: c3_phase(), "sharded_pins": _sh_pins,
                 "keras": keras_phase, "native": native_phase,
                 "nlp": nlp_phase, "embed": embed_phase,
                 "serve": lambda k: serve(k[:3]),
+                "tracing": lambda k: serve(k[:3])["tracing"],
                 "replicas": replicas_phase,
                 "diagnostics": diagnostics_phase,
                 "parallel": parallel_phase,

@@ -9,7 +9,9 @@ A request may name its tenant (the HTTP layer reads ``X-DL4J-Tenant``);
 priority sheds are counted by tenant and by priority in :meth:`stats`
 and in ``dl4j_serve_shed_total{tenant, priority}``. The queue-depth gauge
 moves on both edges (admit and release), so it always agrees with what a
-429 claimed.
+429 claimed. Each decision is the trace span ``admission`` (under the
+request's ambient span): an admit records the depth it entered at, a
+refusal is ``rejected``, which the tail sampler always keeps.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from collections import Counter
 
 from ..observability import names as _n
 from ..observability.metrics import global_registry
+from ..observability.tracing import trace_span
 
 #: recognized priority tags, lowest first (shed order under saturation)
 PRIORITY_LEVELS = ("low", "normal", "high")
@@ -87,7 +90,7 @@ class AdmissionController:
         """Admit ``n`` requests or raise :class:`RejectedError`; a priority
         shed is counted against ``tenant``."""
         limit = self.limit_for(priority)
-        with self._lock:
+        with trace_span("admission") as sp, self._lock:
             if self._pending + n > limit:
                 shed = limit < self.max_pending
                 self.rejected += n
@@ -97,11 +100,14 @@ class AdmissionController:
                     self.shed_by[(tenant, priority)] += n
                     self._c_shed.labels(tenant=tenant,
                                         priority=priority).inc(n)
+                sp.set_status("rejected").set_attr(
+                    pending=self._pending, limit=limit, priority=priority)
                 raise RejectedError(self._pending, limit,
                                     self.expected_latency_s,
                                     priority=priority, shed=shed)
             self._pending += n
             self._g_depth.set(self._pending)
+            sp.set_attr(pending=self._pending, limit=limit)
 
     def release(self, n: int = 1) -> None:
         with self._lock:

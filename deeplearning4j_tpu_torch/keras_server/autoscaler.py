@@ -6,9 +6,10 @@ reads two signals:
 - **queue pressure**: the mean admitted-but-unanswered fraction across the
   replicas (pending / max_pending), which rises before latency does;
 - **SLO burn**: the short-window burn rate of each objective from
-  ``slo_engine.evaluate()``, duck-typed (anything with ``evaluate()``
-  returning ``[{"alerting": bool, "windows": [{"burn_rate": x}, ...]}]``;
-  the port's own SLO engine waits for ROADMAP.md A9.2, the tracing plane).
+  ``slo_engine.evaluate()``: the serving front end hands in its
+  :class:`~deeplearning4j_tpu_torch.observability.slo.SLOEngine`, and any
+  object with an ``evaluate()`` returning ``[{"alerting": bool,
+  "windows": [{"burn_rate": x}, ...]}]`` will do (a test's fake).
 
 It drives ``ReplicaSet.add_replica()``/``remove_replica()`` under
 hysteresis: at most one scale event per ``cooldown_s``, one replica a step,

@@ -16,6 +16,15 @@ by default); none of them reads a device value. Each dispatch records a
 ``serve_batch`` event in the flight recorder and beats the watchdog; a
 dispatch that fails dumps the recorder (``serve-dispatch-error``) before
 its requests get the error, as in the JAX package.
+
+Tracing (``observability/tracing.py``): each request opens ``batch.queue``
+on the submitting thread, under its ambient span, and carries it on the
+request to the dispatcher, which finishes it at the group cut; the group's
+``batch.dispatch`` span is a root of its own that *links* every member's
+queue span (a batch has no one honest parent) and carries ``version``,
+``rows``, ``bucket``, ``requests``, the dispatch time and
+``compile_cache_hit`` (always None: the port has no compile cache, which is
+what the JAX package stamps with its cache off).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from ..common import host_numpy
 from ..observability import names as _n
 from ..observability.flight_recorder import global_recorder
 from ..observability.metrics import global_registry
+from ..observability.tracing import start_span
 from ..observability.watchdog import beat
 from .admission import AdmissionController
 from .registry import ModelRegistry
@@ -46,7 +56,7 @@ def batch_bucket(n: int, max_batch: int) -> int:
 
 
 class _Request:
-    __slots__ = ("model", "xs", "n", "key", "future", "t_enqueue")
+    __slots__ = ("model", "xs", "n", "key", "future", "t_enqueue", "span")
 
     def __init__(self, model: str, xs: Tuple[np.ndarray, ...], key: Tuple,
                  t_enqueue: float):
@@ -56,6 +66,9 @@ class _Request:
         self.key = key
         self.future: Future = Future()
         self.t_enqueue = t_enqueue
+        # started on the submitting thread, where the request's trace is
+        # ambient; the dispatcher finishes it (contextvars do not follow)
+        self.span = start_span("batch.queue", model=model, rows=self.n)
 
 
 class MicroBatcher:
@@ -145,6 +158,7 @@ class MicroBatcher:
         with self._cond:
             if self._closed:
                 self.admission.release()
+                req.span.set_status("error").finish()
                 raise RuntimeError("MicroBatcher is closed")
             self._queue.append(req)
             self._cond.notify()
@@ -183,9 +197,31 @@ class MicroBatcher:
     def _dispatch(self, group: List[_Request]) -> None:
         rows = sum(r.n for r in group)
         bucket = batch_bucket(rows, self.max_batch)
+        # close each member's queue span at the group cut; one dispatch
+        # span on its own trace links them all
+        links = []
+        for r in group:
+            r.span.set_attr(bucket=bucket)
+            ref = r.span.ref()
+            if ref is not None:
+                links.append(ref)
+            r.span.finish()
+        dspan = start_span("batch.dispatch", links=tuple(links),
+                           model=group[0].model, rows=rows, bucket=bucket,
+                           requests=len(group))
+        if self.replica is not None:
+            dspan.set_attr(replica=self.replica)
+        try:
+            self._dispatch_inner(group, rows, bucket, dspan)
+        finally:
+            dspan.finish()
+
+    def _dispatch_inner(self, group: List[_Request], rows: int, bucket: int,
+                        dspan) -> None:
         try:
             # the version resolves here, at dispatch time
             mv = self.registry.active(group[0].model)
+            dspan.set_attr(version=mv.version, compile_cache_hit=None)
             xs = []
             for j in range(len(group[0].xs)):
                 x = np.concatenate([r.xs[j] for r in group], axis=0)
@@ -203,6 +239,7 @@ class MicroBatcher:
             self._c_errors.inc(len(group))
             with self._lock:
                 self._errors += len(group)
+            dspan.set_status("error").set_attr(error=repr(e))
             global_recorder().dump(
                 reason="serve-dispatch-error",
                 extra={"model": group[0].model, "rows": rows,
@@ -215,6 +252,7 @@ class MicroBatcher:
             if self._g_replica_queue is not None:
                 self._g_replica_queue.set(self.admission.pending)
         occupancy = rows / bucket
+        dspan.set_attr(dispatch_s=round(dt, 6), occupancy=round(occupancy, 4))
         self._c_batches.labels(model=mv.name).inc()
         self._h_dispatch.observe(dt)
         self._g_occupancy.set(occupancy)

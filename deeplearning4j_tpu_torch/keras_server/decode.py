@@ -67,6 +67,16 @@ As in the JAX engine, every step or round beats the watchdog, and a step
 that fails records ``decode_bucket_growth_failed`` when it was growing a
 bucket and dumps the flight recorder (``decode-step-error``) before its
 sessions are evicted.
+
+Tracing (``observability/tracing.py``): ``submit`` opens ``decode.queue``
+under the caller's ambient span (the HTTP root) and the session carries it
+to the pump, which finishes it at admission and opens ``decode.prefill``,
+then ``decode.decode`` at the first token (the TTFT, with an exemplar on
+``dl4j_serve_ttft_seconds``), both parented on the queue span; a page-starved
+stretch is one ``decode.park`` span, a preemption an instant
+``decode.preempt``, and eviction closes whatever the session holds open
+(a rejected submit is ``rejected``, a failed step ``error``). All of it is
+host bookkeeping on the pump thread: no span reads a device tensor.
 """
 from __future__ import annotations
 
@@ -89,6 +99,7 @@ from ..nn.inference import copy_tree
 from ..observability import names as _n
 from ..observability.flight_recorder import global_recorder
 from ..observability.metrics import global_registry
+from ..observability.tracing import NOOP_SPAN, global_trace_store, start_span
 from ..observability.watchdog import beat
 from ..ops.paged_attention import paged_gather
 from ..ops.quant import (
@@ -139,6 +150,13 @@ class DecodeSession:
         #: every input token the target has consumed or will consume next
         #: (prompt + emissions); speculative rounds read their inputs here
         self._hist: List[int] = []
+        #: this session's trace spans, carried to the pump thread (no-ops
+        #: when tracing is off): decode.queue from submit to admission
+        self._span = NOOP_SPAN
+        #: decode.prefill, then decode.decode
+        self._span_phase = None
+        #: the open page-starvation episode
+        self._span_park = None
         self._spec_proposed = 0
         self._spec_accepted = 0
 
@@ -554,23 +572,35 @@ class DecodeEngine:
         client scheduled (TTFT counts from it)."""
         sess = DecodeSession(prompt, max_new_tokens, t_sched=t_sched,
                              stream=stream)
-        bad = [t for t in sess.prompt if not 0 <= t < self.vocab]
-        if bad:
-            raise ValueError(f"prompt token ids {bad} outside vocab "
-                             f"[0, {self.vocab})")
-        if self._pool is not None:
-            span = min(len(sess.prompt) + sess.max_new_tokens, self.max_context)
-            worst = -(-span // self.page_size)
-            if worst > self._n_pages:
-                # the session can never fit this pool: fail fast with a 429
-                raise RejectedError(worst, self._n_pages, 60.0)
-        with self._cond:
-            if self._closed:
-                raise RuntimeError("DecodeEngine is closed")
-            if len(self._queue) >= self.max_queue:
-                raise RejectedError(len(self._queue), self.max_queue, 1.0)
-            self._queue.append(sess)
-            self._cond.notify()
+        # under the caller's ambient span; the pump finishes it
+        sess._span = start_span("decode.queue", sid=sess.sid,
+                                prompt_len=len(sess.prompt),
+                                max_new=sess.max_new_tokens)
+        try:
+            bad = [t for t in sess.prompt if not 0 <= t < self.vocab]
+            if bad:
+                raise ValueError(f"prompt token ids {bad} outside vocab "
+                                 f"[0, {self.vocab})")
+            if self._pool is not None:
+                span = min(len(sess.prompt) + sess.max_new_tokens,
+                           self.max_context)
+                worst = -(-span // self.page_size)
+                if worst > self._n_pages:
+                    # the session can never fit this pool: fail fast (429)
+                    raise RejectedError(worst, self._n_pages, 60.0)
+            with self._cond:
+                if self._closed:
+                    raise RuntimeError("DecodeEngine is closed")
+                if len(self._queue) >= self.max_queue:
+                    raise RejectedError(len(self._queue), self.max_queue, 1.0)
+                self._queue.append(sess)
+                self._cond.notify()
+        except RejectedError:
+            sess._span.set_status("rejected").finish()
+            raise
+        except Exception:
+            sess._span.set_status("error").finish()
+            raise
         return sess
 
     # ----------------------------------------------------------------- pump
@@ -615,6 +645,11 @@ class DecodeEngine:
             self._fresh_h[i] = True
             sess._prompt_idx = skip
             sess._hist = list(sess.prompt)
+            sess._span.set_attr(slot=i, skip=skip)
+            sess._span.finish()
+            sess._span_phase = start_span(
+                "decode.prefill", parent=self._span_parent(sess),
+                sid=sess.sid, prompt_len=len(sess.prompt), skip=skip)
             if self._spec_draft is not None:
                 self._dpos_h[i] = 0
             active += 1
@@ -629,6 +664,36 @@ class DecodeEngine:
             self._pool.decref(pid)
         row[:] = TRASH_PAGE
 
+    @staticmethod
+    def _span_parent(sess):
+        """The session's queue span as a parent, or None, so a real span
+        never parents under the no-op singleton's empty trace id."""
+        return sess._span if sess._span is not NOOP_SPAN else None
+
+    #: requires-lock: _cond
+    def _trace_evict_locked(self, sess, reason: str) -> None:
+        """Close the session's open spans at eviction: a preemption leaves
+        an instant ``decode.preempt`` span, a failed step marks the phase
+        span ``error`` (the tail sampler then keeps the trace)."""
+        if sess._span_park is not None:
+            sess._span_park.set_attr(evicted=True)
+            sess._span_park.finish()
+            sess._span_park = None
+        if reason == "pool_exhausted":
+            start_span("decode.preempt", parent=self._span_parent(sess),
+                       sid=sess.sid).finish()
+        sp = sess._span_phase
+        if sp is not None:
+            if reason == "error":
+                sp.set_status("error")
+            sp.set_attr(reason=reason, tokens=len(sess.tokens))
+            if sess._spec_proposed:
+                sp.set_attr(spec_proposed=sess._spec_proposed,
+                            spec_accepted=sess._spec_accepted)
+            sp.finish()
+            sess._span_phase = None
+        sess._span.finish()  # idempotent; covers a session never admitted
+
     #: requires-lock: _cond
     def _evict_locked(self, i: int, reason: str) -> None:
         sess = self._slots[i]
@@ -637,6 +702,7 @@ class DecodeEngine:
             self._release_pages_locked(i)
         self._evicted += 1
         self._c_evictions.labels(reason=reason).inc()
+        self._trace_evict_locked(sess, reason)
         sess.evict_reason = reason
         sess.t_done = time.perf_counter()
         sess.done.set()
@@ -701,6 +767,19 @@ class DecodeEngine:
             pending = [i for i in still if i != victim]
             if not pending:
                 break
+        # one decode.park span a contiguous starved stretch of a session
+        for i in range(self._cap):
+            sess = self._slots[i]
+            if sess is None:
+                continue
+            if self._park_h[i]:
+                if sess._span_park is None:
+                    sess._span_park = start_span(
+                        "decode.park", parent=self._span_parent(sess),
+                        sid=sess.sid, reason="pool_exhausted")
+            elif sess._span_park is not None:
+                sess._span_park.finish()
+                sess._span_park = None
         self._g_pages.set(self._pool.pages_in_use)
 
     #: requires-lock: _cond
@@ -711,6 +790,20 @@ class DecodeEngine:
         for q in range(lo, min(hi, len(sess.prompt))):
             self._pool.register(sess.prompt[:q + 1],
                                 int(self._table_h[i, q // ps]))
+
+    def _note_first_token(self, sess, ttft: float) -> None:
+        """The prefill -> decode flip on the session's trace, and the TTFT
+        exemplar a burning TTFT objective names."""
+        sp = sess._span_phase
+        if sp is None:
+            return
+        sp.set_attr(ttft_s=round(ttft, 6))
+        sp.finish()
+        sess._span_phase = start_span(
+            "decode.decode", parent=self._span_parent(sess), sid=sess.sid)
+        if sp.trace_id:
+            global_trace_store().put_exemplar(
+                _n.SERVE_TTFT_SECONDS, ttft, sp.trace_id)
 
     #: requires-lock: _cond
     def _settle_locked(self, i: int, sess, p: int, n_ok: int, outs_row,
@@ -735,6 +828,7 @@ class DecodeEngine:
             if sess.t_first is None:
                 sess.t_first = now
                 self._h_ttft.observe(now - sess.t_sched)
+                self._note_first_token(sess, now - sess.t_sched)
             self._generated += 1
             self._c_tokens.inc()
             if sess.stream is not None:

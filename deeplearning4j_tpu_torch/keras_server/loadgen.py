@@ -29,14 +29,17 @@ holds the buckets the phase built (predict buckets, or decode capacity
 buckets), so the JAX identity ``recompiles == bucket count`` holds by
 construction, and ``kernel_launches`` holds each CUDA kernel's launches in
 the phase, from ``ops/_cuda.launch_counts()``. Every harness takes
-``device`` (``None`` means CUDA). The client sends no ``traceparent``
-header: request tracing waits for ROADMAP.md A9.2.
+``device`` (``None`` means CUDA). Each predict request carries a fresh
+client-minted W3C ``traceparent`` (what a fronting gateway sends), so the
+server's span trees parent under the client's ids and a slow request is
+findable by the id its response echoes.
 """
 from __future__ import annotations
 
 import http.client
 import json
 import os
+import random
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -106,10 +109,22 @@ def _connect(host: str, port: int,
     return conn
 
 
+#: trace-id source: an instance, not the global generator, so ids never
+#: repeat across seeded runs and never perturb a seeded workload
+_trace_rand = random.Random()
+
+
+def _mint_traceparent() -> str:
+    """A fresh client-side W3C trace context for one request."""
+    return (f"00-{_trace_rand.getrandbits(128):032x}"
+            f"-{_trace_rand.getrandbits(64):016x}-01")
+
+
 def _post_predict(conn: http.client.HTTPConnection, model: str,
                   payload: bytes) -> int:
     conn.request("POST", "/v1/predict", body=payload,
-                 headers={"Content-Type": "application/json"})
+                 headers={"Content-Type": "application/json",
+                          "traceparent": _mint_traceparent()})
     resp = conn.getresponse()
     resp.read()
     return resp.status

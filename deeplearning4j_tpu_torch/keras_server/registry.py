@@ -21,10 +21,14 @@ so the kernels are built and cuDNN and cuBLAS have chosen their algorithms
 before the first request. The example comes from ``warmup_example`` or, for
 a stack whose first layer is a feed-forward one, from its ``n_in``; a graph
 or any other first layer is warmed only with an explicit example, as in
-the JAX package. A warmup forward on an explicit example that fails
-raises, and the version does not go active; an example derived from
-``n_in`` that the network does not take (an embedding's ``n_in`` is its
-vocabulary) leaves the version unwarmed, as the JAX package's warmup does.
+the JAX package. Warmup is an optimization, never a correctness gate: a
+bucket whose forward fails (an explicit example the network rejects, or an
+example derived from an ``n_in`` it does not take: an embedding's ``n_in``
+is its vocabulary) is logged and skipped, and the version goes active all
+the same, as the JAX package's ``warm_parallel`` does. Each registration
+that warms observes the whole pass in ``dl4j_warmup_seconds{site="registry"}``
+and keeps it in ``last_warmup_s``. A registration is the trace span
+``registry.register`` (``model``, ``version``, ``warmup``, ``hot_swap``).
 
 The model versions held (``dl4j_serve_models_loaded``) and the hot swaps by
 model (``dl4j_serve_hot_swaps_total``: a registration over an active
@@ -46,6 +50,7 @@ from ..nn.conf.serde import layer_class
 from ..nn.inference import PredictFn, make_predict_fn
 from ..observability import names as _n
 from ..observability.metrics import global_registry
+from ..observability.tracing import trace_span
 
 log = logging.getLogger(__name__)
 
@@ -135,6 +140,10 @@ class ModelRegistry:
             _n.SERVE_MODELS_LOADED, "model versions held by the registry")
         self._c_swaps = self.metrics.counter(
             _n.SERVE_HOT_SWAPS_TOTAL, "active-version hot swaps")
+        self._h_warmup = self.metrics.histogram(
+            _n.WARMUP_SECONDS,
+            "wall time of one warmup pass (all buckets)").labels(
+                site="registry")
 
     def register(self, name: str, net, version: Optional[str] = None,
                  quant: Optional[str] = None, device=None,
@@ -158,19 +167,24 @@ class ModelRegistry:
                 raise ValueError(
                     f"model {name!r} already has version {version!r}; "
                     "versions are immutable - register a new one")
-        pf = make_predict_fn(net, version=version, quant=quant, device=device,
-                             replica=replica, sharding=sharding, mesh=mesh)
-        if self.warmup_max_batch:
-            # off the serving path: an older version keeps serving meanwhile
-            self._warmup(pf, net, warmup_example)
-        with self._lock:
-            swapping = name in self._active
-            mv = ModelVersion(name, version, net, pf, source=source)
-            self._versions.setdefault(name, {})[version] = mv
-            self._active[name] = version
-            self._g_models.set(sum(len(v) for v in self._versions.values()))
-            if swapping:
-                self._c_swaps.labels(model=name).inc()
+        with trace_span("registry.register", model=name, version=version,
+                        warmup=bool(self.warmup_max_batch)) as rsp:
+            pf = make_predict_fn(net, version=version, quant=quant,
+                                 device=device, replica=replica,
+                                 sharding=sharding, mesh=mesh)
+            if self.warmup_max_batch:
+                # off the serving path: an older version keeps serving
+                self._warmup(pf, net, warmup_example)
+            with self._lock:
+                swapping = name in self._active
+                mv = ModelVersion(name, version, net, pf, source=source)
+                self._versions.setdefault(name, {})[version] = mv
+                self._active[name] = version
+                self._g_models.set(
+                    sum(len(v) for v in self._versions.values()))
+                if swapping:
+                    self._c_swaps.labels(model=name).inc()
+            rsp.set_attr(hot_swap=swapping)
         if draft_for is not None:
             self.link_draft(draft_for, name)
         return mv
@@ -207,10 +221,10 @@ class ModelRegistry:
 
     def _warmup(self, pf: PredictFn, net, example=None) -> None:
         """One forward of ``pf`` at every bucket size, with zeros of the
-        example's row shape and dtype; skipped when no example is given or
-        derivable."""
-        derived = example is None
-        if derived:
+        example's row shape and dtype, on the warmup pool; skipped when no
+        example is given or derivable. A bucket that fails is logged and
+        the others go on (JAX ``compile_cache.warm_parallel``)."""
+        if example is None:
             example = _derive_warmup_example(net)
             if example is None:
                 return
@@ -223,23 +237,22 @@ class ModelRegistry:
                       for e in examples])
 
         buckets = self.warmup_buckets(self.warmup_max_batch)
+        failed = {}
         t0 = time.perf_counter()
-        try:
-            with ThreadPoolExecutor(
-                    max_workers=max(1, min(self.warmup_workers, len(buckets))),
-                    thread_name_prefix="dl4j-warmup") as ex:
-                for fut in [ex.submit(one, b) for b in buckets]:
+        with ThreadPoolExecutor(
+                max_workers=max(1, min(self.warmup_workers, len(buckets))),
+                thread_name_prefix="dl4j-warmup") as ex:
+            for b, fut in [(b, ex.submit(one, b)) for b in buckets]:
+                try:
                     fut.result()
-        except Exception as e:
-            if not derived:
-                raise
-            # a guess from n_in that the network does not take (an
-            # embedding's n_in is a vocabulary): no warmup, as in the JAX
-            # package, whose warmup forward fails the same way
-            log.warning("warmup skipped: the (1, n_in) example derived for "
-                        "%s does not fit it: %s", type(net).__name__, e)
-            return
+                except Exception as e:
+                    failed[b] = e
+        if failed:
+            log.warning("warmup of %s failed at buckets %s: %r",
+                        type(net).__name__, sorted(failed),
+                        next(iter(failed.values())))
         self.last_warmup_s = time.perf_counter() - t0
+        self._h_warmup.observe(self.last_warmup_s)
 
     def load(self, name: str, path: str, version: Optional[str] = None,
              quant: Optional[str] = None, device=None,

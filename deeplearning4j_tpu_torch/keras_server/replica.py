@@ -7,7 +7,11 @@ Counterpart of ``deeplearning4j_tpu/keras_server/replica.py``. A
 replicas share no lock on the hot path. The router picks the replica with
 the fewest admitted-but-unanswered requests (ties to the lowest index) and
 falls through to the next on an admission refusal: a 429 comes only when
-every replica refused.
+every replica refused. The routing decision is the trace span
+``replica.route`` (``replica``, ``tried``; ``rejected`` when every replica
+refused); the chosen replica's ``admission`` and ``batch.queue`` spans open
+under it on the caller's thread, so the request's trace reaches the
+replica's dispatcher through its queue span.
 
 Placement, as the JAX package's ``_placement_for``:
 
@@ -72,6 +76,7 @@ import torch
 from ..common import resolve_device
 from ..observability import names as _n
 from ..observability.metrics import global_registry
+from ..observability.tracing import trace_span
 from .admission import RejectedError
 from .batcher import MicroBatcher
 from .registry import ModelRegistry, ModelVersion, load_model_file
@@ -416,19 +421,25 @@ class ReplicaSet:
         live = [r for r in fleet if self._lease_ok(r)] or fleet
         candidates = [r for r in live if not r.draining] or live
         last: Optional[RejectedError] = None
-        for r in sorted(candidates, key=lambda r: (r.queue_depth(), r.index)):
-            try:
-                fut = r.batcher.submit(model, x, priority=priority,
-                                       tenant=tenant)
-            except RejectedError as e:
-                last = e
-                continue
-            self._c_routed.labels(replica=str(r.index)).inc()
-            with self._lock:
-                self._routed[r.index] = self._routed.get(r.index, 0) + 1
-            return fut
-        assert last is not None
-        raise last
+        with trace_span("replica.route", model=model) as sp:
+            tried = 0
+            for r in sorted(candidates,
+                            key=lambda r: (r.queue_depth(), r.index)):
+                tried += 1
+                try:
+                    fut = r.batcher.submit(model, x, priority=priority,
+                                           tenant=tenant)
+                except RejectedError as e:
+                    last = e
+                    continue
+                self._c_routed.labels(replica=str(r.index)).inc()
+                sp.set_attr(replica=r.index, tried=tried)
+                with self._lock:
+                    self._routed[r.index] = self._routed.get(r.index, 0) + 1
+                return fut
+            sp.set_status("rejected").set_attr(tried=tried)
+            assert last is not None
+            raise last
 
     # ------------------------------------------------------------- control
     def queue_stats(self) -> dict:

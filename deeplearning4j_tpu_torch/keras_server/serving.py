@@ -31,6 +31,21 @@ connection. Routes:
   text (``Content-Type: text/plain; version=0.0.4``): admission, batches,
   decode, streams, the registry, the replicas, and each POST route's wall
   time in ``dl4j_serve_request_seconds{route=...}``.
+- ``GET /serve/traces`` and ``GET /serve/traces/<id>``: the tail-sampled
+  trace summaries, and one whole span tree (``observability/tracing.py``).
+- ``GET /serve/slo``: the SLO engine's burn-rate evaluation, with trace
+  exemplars (``observability/slo.py``).
+
+Every POST reads the caller's W3C ``traceparent`` header (or mints a
+trace), opens the root span ``http <path>`` as the handler thread's
+ambient span, and echoes the root span's ``traceparent`` on every
+response, so a client can fetch ``/serve/traces/<id>``; a 429 marks the
+root ``rejected`` and a 503 or 500 ``error`` (the tail sampler keeps
+both). Below the root: ``admission``, ``batch.queue`` (finished by the
+dispatcher), ``replica.route`` in replica mode, ``decode.queue`` with its
+``decode.prefill``/``decode.decode``/``decode.park``/``decode.preempt``
+children; each ``batch.dispatch`` is a root of its own that links its
+member requests. The request latency and the TTFT carry trace exemplars.
 
 ``replicas=N`` serves ``/v1/predict`` through a :class:`ReplicaSet` (a
 least-queue router over N batchers, rolling hot swaps) and ``autoscale=``
@@ -39,9 +54,10 @@ fenced by the leases of a ``cloud.MembershipOracle`` (``membership``).
 ``sharding=`` (with
 ``replica_devices=`` and ``replica_mesh_axes=``) shards each replica's pin
 over a device mesh of its slice of the device list (``replica.py``), and
-``replica_devices=`` alone places unsharded replicas round-robin. Traces,
-SLOs (``/serve/slo``, the autoscaler's burn input), the fleet routes and
-``active_server``/``serve_slo`` wait for A9.2–A9.4.
+``replica_devices=`` alone places unsharded replicas round-robin. The
+server's :class:`SLOEngine` (``slo``, ticking while the server runs) is the
+autoscaler's burn input. The fleet routes and ``active_server``/
+``serve_slo`` wait for A9.4 and A9.5.
 """
 from __future__ import annotations
 
@@ -59,6 +75,9 @@ import numpy as np
 from ..common import resolve_device
 from ..observability import names as _n
 from ..observability.metrics import global_registry
+from ..observability.slo import SLOEngine
+from ..observability.tracing import (
+    TRACEPARENT_HEADER, global_trace_store, parse_traceparent, trace_span)
 from .admission import RejectedError, normalize_priority
 from .autoscaler import Autoscaler
 from .batcher import MicroBatcher
@@ -82,11 +101,18 @@ class _ServeHandler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # silence request logging
         pass
 
+    #: the root span of the request in flight (no-op singleton when off)
+    _trace = None
+    #: the root span's traceparent, echoed on every response ("" when off)
+    _traceparent = ""
+
     def _json(self, obj, code=200, headers=()):
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        if self._traceparent:
+            self.send_header(TRACEPARENT_HEADER, self._traceparent)
         for k, v in headers:
             self.send_header(k, v)
         self.end_headers()
@@ -103,8 +129,20 @@ class _ServeHandler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         path = urlparse(self.path).path
+        self._traceparent = ""
         if path == "/serve/status":
             self._json(self.engine.status())
+        elif path == "/serve/traces":
+            self._json({"traces": global_trace_store().list()})
+        elif path.startswith("/serve/traces/"):
+            trace_id = path.rsplit("/", 1)[1]
+            rec = global_trace_store().get(trace_id)
+            if rec is None:
+                self._json({"error": f"unknown trace {trace_id}"}, code=404)
+            else:
+                self._json(rec)
+        elif path == "/serve/slo":
+            self._json({"slo": self.engine.slo.evaluate()})
         elif path == "/metrics":
             body = global_registry().prometheus_text().encode()
             self.send_response(200)
@@ -118,13 +156,24 @@ class _ServeHandler(BaseHTTPRequestHandler):
     def do_POST(self):
         path = urlparse(self.path).path
         t0 = time.perf_counter()
+        # the caller's trace context (or a fresh trace) becomes the ambient
+        # span of everything this handler thread does
+        root = trace_span(f"http {path}", route=path, parent=parse_traceparent(
+            self.headers.get(TRACEPARENT_HEADER)))
+        self._trace = root
+        self._traceparent = root.traceparent()
         try:
-            self._route(path)
+            with root:
+                self._route(path)
         finally:
-            self.engine._h_request.labels(route=path).observe(
-                time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.engine._h_request.labels(route=path).observe(dt)
+            if root.trace_id:
+                global_trace_store().put_exemplar(
+                    _n.SERVE_REQUEST_SECONDS, dt, root.trace_id)
 
     def _route(self, path: str) -> None:
+        root = self._trace
         try:
             if path == "/v1/predict":
                 self._predict()
@@ -140,15 +189,19 @@ class _ServeHandler(BaseHTTPRequestHandler):
             else:
                 self._json({"error": f"unknown route {path}"}, code=404)
         except RejectedError as e:
+            root.set_status("rejected").set_attr(http_status=429)
             self._json({"error": str(e), "pending": e.pending,
                         "limit": e.limit}, code=429,
                        headers=(("Retry-After",
                                  f"{max(e.retry_after_s, 0.001):.3f}"),))
         except KeyError as e:
+            root.set_attr(http_status=404)
             self._json({"error": f"unknown model: {e}"}, code=404)
         except (ValueError, json.JSONDecodeError) as e:
+            root.set_attr(http_status=400)
             self._json({"error": str(e)}, code=400)
         except TimeoutError as e:
+            root.set_status("error").set_attr(http_status=503)
             self._json({"error": f"dispatch timed out: {e}"}, code=503)
 
     @staticmethod
@@ -161,6 +214,8 @@ class _ServeHandler(BaseHTTPRequestHandler):
         self.send_response(200)
         self.send_header("Content-Type", "application/x-ndjson")
         self.send_header("Transfer-Encoding", "chunked")
+        if self._traceparent:
+            self.send_header(TRACEPARENT_HEADER, self._traceparent)
         self.end_headers()
 
     def _chunk(self, obj: dict) -> None:
@@ -185,6 +240,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
             raise TimeoutError(
                 f"no dispatch within {self.engine.request_timeout_s}s")
         except Exception as e:
+            self._trace.set_status("error").set_attr(http_status=500)
             self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
             return
         payload = {
@@ -273,6 +329,10 @@ class InferenceServer:
                  autoscale_interval_s: float = 2.0):
         self._h_request = global_registry().histogram(
             _n.SERVE_REQUEST_SECONDS, "HTTP request latency per route")
+        #: the error-budget engine over this process's serve metrics:
+        #: /serve/slo evaluates on demand, start() runs its ticker so burn
+        #: alerts fire (and dump flight-recorder bundles) unscraped
+        self.slo = SLOEngine()
         self.device = resolve_device(
             replica_devices[0] if device is None and replica_devices
             else device)
@@ -301,7 +361,8 @@ class InferenceServer:
             self.registry = self.replica_set.primary_registry
             if autoscale:
                 self.autoscaler = Autoscaler(
-                    self.replica_set, min_replicas=min_replicas or 1,
+                    self.replica_set, slo_engine=self.slo,
+                    min_replicas=min_replicas or 1,
                     max_replicas=max_replicas or max(replicas, 8),
                     cooldown_s=autoscale_cooldown_s,
                     interval_s=autoscale_interval_s)
@@ -340,6 +401,7 @@ class InferenceServer:
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="serve-http", daemon=True)
         self._thread.start()
+        self.slo.start()
         if self.autoscaler is not None:
             self.autoscaler.start()
         return self
@@ -407,6 +469,7 @@ class InferenceServer:
     def stop(self) -> None:
         if self.autoscaler is not None:
             self.autoscaler.stop()
+        self.slo.stop()
         if self._thread is not None:
             # shutdown() waits for serve_forever, which only start() runs
             self._httpd.shutdown()

@@ -4,8 +4,10 @@ Counterpart of ``deeplearning4j_tpu/observability/names.py``, with the same
 strings: a scraper, alert or dashboard written against either package reads
 the other's series. Every name lives here once, as a ``dl4j_``-prefixed
 constant; call sites import the constant instead of repeating the string.
-The port records the serving path's series (A9.1); the rest are defined
-here for the modules that will record them.
+The port records the serving, training, parallel and data paths' series
+(A9.1), the span, trace and SLO series (A9.2) and the flight recorder's and
+health monitor's (A9.3); the rest are defined here for the modules that
+will record them (A9.4).
 
 Naming follows Prometheus conventions: ``_total`` for counters, ``_seconds``
 / ``_bytes`` for unit-carrying series, no label names in the metric name.

@@ -52,6 +52,7 @@ from ..observability.flight_recorder import (
     DUMP_DIR_ENV, dump_on_unhandled, global_recorder)
 from ..observability.metrics import global_registry
 from ..observability.names import ELASTIC_HANDOFFS_TOTAL
+from ..observability.tracing import trace_span
 from ..observability.watchdog import beat
 from .param_server import (
     DEFAULT_STALENESS_CAP, ParameterServer, _host, unflatten_into,
@@ -277,14 +278,20 @@ class ElasticTrainer:
         producer = BrokerProducer(broker.address)
         try:
             for shard in self._shards:
-                for ds in batches[shard.shard::self.workers]:
-                    producer.publish(shard.topic, {"x": _host(ds.features),
-                                                   "y": _host(ds.labels)})
-                    self.published += 1
-                # the fin marker closes the shard: a group whose committed
-                # offset reaches it consumed every sample at least once
-                shard.fin_offset = producer.publish(
-                    shard.topic, {}, meta={"fin": True})
+                # one trace root a shard: every message carries this span's
+                # traceparent, so the consume and the push stitch under it
+                with trace_span("shard.publish", topic=shard.topic,
+                                shard=shard.shard):
+                    for ds in batches[shard.shard::self.workers]:
+                        producer.publish(shard.topic,
+                                         {"x": _host(ds.features),
+                                          "y": _host(ds.labels)})
+                        self.published += 1
+                    # the fin marker closes the shard: a group whose
+                    # committed offset reaches it consumed every sample at
+                    # least once
+                    shard.fin_offset = producer.publish(
+                        shard.topic, {}, meta={"fin": True})
         finally:
             producer.close()
 

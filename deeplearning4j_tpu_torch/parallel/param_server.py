@@ -35,6 +35,12 @@ fenced push and a worker's crash are flight-recorder events, each applied
 push beats the watchdog, and ``fit`` dumps once on an unhandled exception.
 :meth:`ParameterServer.stats` keeps one server's own counts (a process may
 hold several) and the workers their stats.
+
+Tracing: a worker's push window is the span ``ps.push_window``, parented on
+the ambient span or on the transport's ``trace_parent`` (the consume span of
+the batch being trained, bound by the elastic worker); with neither it opens
+no span. The transport's RPC span and the server's ``ps.apply`` nest under
+it (``ps_transport.py``).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ import torch
 from ..common import host_numpy
 from ..observability.flight_recorder import dump_on_unhandled, global_recorder
 from ..observability.metrics import global_registry
+from ..observability.tracing import current_span, trace_span
 from ..observability.names import (
     ELASTIC_FENCED_PUSHES_TOTAL, PS_PULLS_TOTAL, PS_PUSH_WEIGHT,
     PS_PUSHES_TOTAL, PS_STALENESS, PS_VERSION, PS_WORKER_STEPS_TOTAL)
@@ -466,6 +473,17 @@ def run_worker_loop(*, transport, replica, step_fn, next_batch,
         puller.request()
 
     def _push_window() -> None:
+        # the window's push RPCs nest under one span parented on the
+        # batch's consume span; with no parent a worker would only mint
+        # root traces, so it opens none
+        parent = current_span() or getattr(transport, "trace_parent", None)
+        if parent is None:
+            return _push_window_inner()
+        with trace_span("ps.push_window", parent=parent,
+                        worker=str(worker_id)):
+            return _push_window_inner()
+
+    def _push_window_inner() -> None:
         nonlocal version, base_vec, steps_since_push, pushes, rejected
         delta = _local() - base_vec
         # a delta does not depend on where it lands (the server applies

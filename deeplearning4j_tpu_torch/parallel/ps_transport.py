@@ -19,7 +19,17 @@ loop (``param_server.run_worker_loop``) sees only ``pull()`` and
   the error.
 
 The membership verbs (``register``, ``heartbeat``, ``deregister``) ride the
-same seam, so liveness and pushes share one failure domain. The JAX
+same seam, so liveness and pushes share one failure domain.
+
+Tracing crosses the process boundary in the frame header: a pull or push
+made under an ambient span (or the transport's bound ``trace_parent``)
+opens the client span ``ps.pull``/``ps.push`` and stamps its
+``traceparent`` into the header; the frontend opens ``ps.apply`` parented
+from that header around the server's ``push_delta`` (``push`` and
+``push_shm``), so the worker's trace id lands in the server process's trace
+store. The inproc transport's ``ps.push`` covers the server's apply, in
+the same process, as in the JAX package. RPCs with no parent (the background puller, the heartbeat) carry no
+header and open no span. The JAX
 frontend's fleet-observability verbs (``metrics_push``, ``trace_push``,
 ``dump_fleet``) wait for ROADMAP.md A9.4: the frontend answers them with
 an error reply that says so.
@@ -64,6 +74,8 @@ from ..observability.flight_recorder import global_recorder
 from ..observability.metrics import global_registry
 from ..observability.names import (
     PS_WIRE_BYTES_TOTAL, SHM_BYTES_TOTAL, SHM_REAPED_TOTAL, SHM_SEGMENTS)
+from ..observability.tracing import (
+    NOOP_SPAN, current_span, parse_traceparent, start_span)
 from ..observability.watchdog import beat
 from ..streaming import wire
 from .param_server import ParameterServer, PushResult
@@ -335,6 +347,56 @@ class Transport:
     def close(self) -> None:
         pass
 
+    def bind_trace_parent(self, ref) -> None:
+        """The SpanRef later pushes and pulls parent under when no ambient
+        span is set: the elastic worker binds the consume span of the batch
+        it trains on, so its push joins the producer's trace (None
+        clears)."""
+        self._trace_ref = ref
+
+    @property
+    def trace_parent(self):
+        return getattr(self, "_trace_ref", None)
+
+    def _traced(self, name: str, header: dict, **attrs):
+        """Open the client span of one RPC and stamp its ``traceparent``
+        into the frame header, from which the server parents its
+        ``ps.apply``. An RPC with no parent carries no header and opens no
+        span. The caller finishes the span."""
+        parent = current_span() or self.trace_parent
+        if parent is None:
+            return NOOP_SPAN
+        sp = start_span(name, parent=parent, **attrs)
+        tp = sp.traceparent()
+        if tp:
+            header["traceparent"] = tp
+        return sp
+
+
+def _apply_span(header: dict):
+    """The server's half of a wire-propagated trace: a push carrying a
+    ``traceparent`` gets a ``ps.apply`` span parented on the client's RPC
+    span, in this process's trace store."""
+    ref = parse_traceparent(header.get("traceparent"))
+    if ref is None:
+        return NOOP_SPAN
+    return start_span("ps.apply", parent=ref, member=header.get("member"),
+                      epoch=header.get("epoch"))
+
+
+def _traced_push(server: ParameterServer, header: dict, delta):
+    """``server.push_delta`` under the header's ``ps.apply`` span."""
+    sp = _apply_span(header)
+    try:
+        res = server.push_delta(delta, header["base_version"],
+                                member=header.get("member"),
+                                epoch=header.get("epoch"))
+        sp.set_attr(accepted=res.accepted, version=res.version,
+                    fenced=res.fenced)
+        return res
+    finally:
+        sp.finish()
+
 
 class InprocTransport(Transport):
     def __init__(self, server: ParameterServer):
@@ -344,11 +406,19 @@ class InprocTransport(Transport):
         return self._server.pull_flat()
 
     def push(self, delta: np.ndarray, base_version: int) -> PushResult:
-        ident = self.member_identity
-        if ident is None:
-            return self._server.push_delta(delta, base_version)
-        return self._server.push_delta(delta, base_version, member=ident[0],
-                                       epoch=ident[1])
+        sp = self._traced("ps.push", {}, transport="inproc")
+        try:
+            ident = self.member_identity
+            if ident is None:
+                res = self._server.push_delta(delta, base_version)
+            else:
+                res = self._server.push_delta(delta, base_version,
+                                              member=ident[0],
+                                              epoch=ident[1])
+            sp.set_attr(accepted=res.accepted, version=res.version)
+            return res
+        finally:
+            sp.finish()
 
     def _membership(self):
         oracle = self._server.membership
@@ -463,10 +533,17 @@ class TcpTransport(Transport):
         return header
 
     def pull(self) -> Tuple[int, np.ndarray]:
-        with self._lock:
-            reply, payload, _ = self._rpc({"op": "pull"})
-        self._rx.inc(len(payload))
-        return reply["version"], wire.decode_array(reply["array"], payload)
+        header = {"op": "pull"}
+        sp = self._traced("ps.pull", header, transport="tcp")
+        try:
+            with self._lock:
+                reply, payload, _ = self._rpc(header)
+            self._rx.inc(len(payload))
+            sp.set_attr(version=reply["version"])
+            return reply["version"], wire.decode_array(reply["array"],
+                                                       payload)
+        finally:
+            sp.finish()
 
     def push(self, delta: np.ndarray, base_version: int) -> PushResult:
         meta, payload = wire.encode_array(
@@ -474,16 +551,22 @@ class TcpTransport(Transport):
         header = self._identify({"op": "push",
                                  "base_version": int(base_version),
                                  "array": meta})
-        with self._lock:
-            reply, buf, sent = self._rpc(header, payload)
-            self.counts["push_bytes"] += sent
-        self._tx.inc(sent)
-        return PushResult(accepted=reply["accepted"],
-                          version=reply["version"],
-                          staleness=reply["staleness"],
-                          weight=reply["weight"],
-                          params=wire.decode_array(reply["array"], buf),
-                          fenced=reply.get("fenced", False))
+        sp = self._traced("ps.push", header, transport="tcp",
+                          base_version=int(base_version))
+        try:
+            with self._lock:
+                reply, buf, sent = self._rpc(header, payload)
+                self.counts["push_bytes"] += sent
+            self._tx.inc(sent)
+            sp.set_attr(accepted=reply["accepted"], version=reply["version"])
+            return PushResult(accepted=reply["accepted"],
+                              version=reply["version"],
+                              staleness=reply["staleness"],
+                              weight=reply["weight"],
+                              params=wire.decode_array(reply["array"], buf),
+                              fenced=reply.get("fenced", False))
+        finally:
+            sp.finish()
 
     def register(self, shard: int, worker: str = "") -> dict:
         with self._lock:
@@ -588,11 +671,17 @@ class ShmTransport(TcpTransport):
         with self._lock:
             if not self._negotiate():
                 return super().pull()
-            reply, _, _ = self._rpc({"op": "pull_shm", "token": self._token})
-            _, view = self._pull_ring.read(reply["slot"], reply["seq"])
-            # a copy: the slot is reused two pulls later
-            vec = np.frombuffer(view, dtype=np.float32).copy()
-            del view
+            header = {"op": "pull_shm", "token": self._token}
+            sp = self._traced("ps.pull", header, transport="shm")
+            try:
+                reply, _, _ = self._rpc(header)
+                _, view = self._pull_ring.read(reply["slot"], reply["seq"])
+                # a copy: the slot is reused two pulls later
+                vec = np.frombuffer(view, dtype=np.float32).copy()
+                del view
+                sp.set_attr(version=reply["version"])
+            finally:
+                sp.finish()
         return reply["version"], vec
 
     def push(self, delta: np.ndarray, base_version: int) -> PushResult:
@@ -604,13 +693,21 @@ class ShmTransport(TcpTransport):
         with self._lock:
             if not self._negotiate():
                 return super().push(delta, base_version)
-            header["token"] = self._token
-            header["slot"], header["seq"] = self._push_ring.write(
-                payload, int(base_version))
-            reply, _, _ = self._rpc(header)
-            _, pview = self._pull_ring.read(reply["pslot"], reply["pseq"])
-            params = np.frombuffer(pview, dtype=np.float32).copy()
-            del pview
+            sp = self._traced("ps.push", header, transport="shm",
+                              base_version=int(base_version))
+            try:
+                header["token"] = self._token
+                header["slot"], header["seq"] = self._push_ring.write(
+                    payload, int(base_version))
+                reply, _, _ = self._rpc(header)
+                _, pview = self._pull_ring.read(reply["pslot"],
+                                                reply["pseq"])
+                params = np.frombuffer(pview, dtype=np.float32).copy()
+                del pview
+                sp.set_attr(accepted=reply["accepted"],
+                            version=reply["version"])
+            finally:
+                sp.finish()
         return PushResult(accepted=reply["accepted"],
                           version=reply["version"],
                           staleness=reply["staleness"],
@@ -775,9 +872,7 @@ class ParameterServerTcpFrontend:
             return {"version": version, "array": meta}, buf
         if op == "push":
             delta = wire.decode_array(header["array"], payload)
-            res = self._server.push_delta(
-                delta, header["base_version"],
-                member=header.get("member"), epoch=header.get("epoch"))
+            res = _traced_push(self._server, header, delta)
             meta, buf = wire.encode_array(res.params, "none")
             return dict(self._push_reply(res), array=meta), buf
         if op in _FEDERATION_OPS:
@@ -813,9 +908,7 @@ class ParameterServerTcpFrontend:
             # consumes it under the server lock before the reply lets the
             # client write again
             delta = wire.decode_array(header["array"], dview)
-            res = self._server.push_delta(
-                delta, header["base_version"],
-                member=header.get("member"), epoch=header.get("epoch"))
+            res = _traced_push(self._server, header, delta)
             del delta, dview
             pslot, pseq = pull_ring.write(wire._byteview(res.params),
                                           res.version)

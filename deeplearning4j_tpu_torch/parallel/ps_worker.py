@@ -119,6 +119,9 @@ def _run_elastic(args, net, step, transport):
             if meta.get("fin"):
                 saw_fin[0] = True
                 return None
+            # the window's push parents under this batch's consume span:
+            # producer, consume and push stitch into one trace
+            transport.bind_trace_parent(consumer.last_trace_ref)
             return DataSet(arrays["x"], arrays["y"])
         return None
 

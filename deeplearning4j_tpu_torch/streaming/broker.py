@@ -23,7 +23,11 @@ JAX package, messages published and delivered count in
 ``dl4j_broker_messages_total`` by op and consumer reconnects in
 ``dl4j_broker_reconnects_total``; a broker error, a fault-injected drop and
 a reconnect are flight-recorder events. ``stats()`` keeps one broker's
-counts. The JAX package's trace propagation waits for A9.2.
+counts. A publish under an ambient span stamps that span's
+``traceparent`` into the message meta (``wire.py``); a consumer that
+fetches such a message opens and finishes ``broker.consume`` parented on
+it, and keeps that span's ref in ``last_trace_ref`` for the work the message
+feeds (the elastic worker's push window parents there).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ import numpy as np
 
 from ..observability.flight_recorder import global_recorder
 from ..observability.metrics import global_registry
+from ..observability.tracing import (
+    TRACEPARENT_HEADER, current_span, parse_traceparent, start_span)
 from ..observability.names import (
     BROKER_MESSAGES_TOTAL, BROKER_RECONNECTS_TOTAL)
 from . import Route, wire
@@ -219,8 +225,13 @@ class BrokerProducer:
     def publish(self, topic: str, arrays: Dict[str, np.ndarray],
                 meta: Optional[dict] = None, codec: str = "none") -> int:
         metas, payload = wire.pack_arrays(arrays, codec)
-        header = {"op": "publish", "topic": topic,
-                  "meta": dict(meta or {}, arrays=metas)}
+        full_meta = dict(meta or {}, arrays=metas)
+        # the ambient span rides the message, so the consumer's process
+        # parents under the same trace id
+        sp = current_span()
+        if sp is not None and TRACEPARENT_HEADER not in full_meta:
+            full_meta[TRACEPARENT_HEADER] = sp.traceparent()
+        header = {"op": "publish", "topic": topic, "meta": full_meta}
         try:
             reply, _, _ = wire.request(self._sock, header, payload)
         except (ConnectionError, OSError):
@@ -256,6 +267,9 @@ class ReconnectingConsumer:
         self._next: Optional[int] = None   # next offset to fetch
         self._delivered: Optional[int] = None  # offset awaiting task_done
         self._last_delivered: Optional[int] = None  # high-water mark
+        #: the last delivered message's broker.consume span (None when it
+        #: carried no trace)
+        self.last_trace_ref = None
         self.reconnects = 0
         self.unfinished_tasks = 0
         self.all_tasks_done = threading.Condition()
@@ -315,6 +329,17 @@ class ReconnectingConsumer:
             self._delivered = reply["offset"]
             self._last_delivered = reply["offset"]
             self._next = reply["offset"] + 1
+            ref = parse_traceparent(meta.get(TRACEPARENT_HEADER))
+            if ref is not None:
+                # the consume hop, parented on the producer's span and
+                # finished at once; the handling work parents on its ref
+                csp = start_span("broker.consume", parent=ref,
+                                 topic=self.topic, group=self.group,
+                                 offset=reply["offset"])
+                csp.finish()
+                self.last_trace_ref = csp.ref()
+            else:
+                self.last_trace_ref = None
             with self.all_tasks_done:
                 self.unfinished_tasks += 1
             return meta, arrays

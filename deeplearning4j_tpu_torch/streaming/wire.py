@@ -24,6 +24,13 @@ view of the array's own buffer, ``pack_arrays`` leaves the views unjoined,
 view. Where bytes are copied (``copy=True`` decodes, the fallback without
 ``sendmsg``) they are counted in ``dl4j_wire_copy_bytes_total`` by site,
 as in the JAX package; :func:`stats` reads the series back.
+
+Trace propagation: the header key ``traceparent`` (and the same key inside
+a broker message's ``meta``) is reserved for a W3C traceparent string. The
+PS transports and the broker producer stamp it on outbound frames when an
+ambient span exists, and the receiving side parents its handling span
+(``ps.apply``, ``broker.consume``) from it: that is the whole cross-process
+trace contract; the framing itself is unchanged.
 """
 from __future__ import annotations
 

@@ -40,7 +40,9 @@ MODULES = {
         "clustering.kdtree", "clustering.kmeans", "clustering.quadtree",
         "clustering.vptree", "plot", "plot.tsne", "observability.metrics",
         "observability.names", "observability.flight_recorder",
-        "observability.watchdog", "observability.health")},
+        "observability.watchdog", "observability.health",
+        "observability.tracing", "observability.spans", "observability.slo",
+        "ui.storage")},
 }
 #: names the JAX modules hold that are not theirs to export: imported
 #: typing helpers and modules, and the libhdf5 binding's ctypes plumbing,

@@ -11,12 +11,17 @@
   dense stack, and none for a graph without ``warmup_example`` or a stack
   whose derived example does not fit it (as the JAX warmup ends for
   those); with an example a graph warms every bucket, and a bad explicit
-  example raises.
+  example leaves the version unwarmed but registered and active (C7).
+- C7: a failed warmup forward is logged and the version goes active, and
+  ``dl4j_warmup_seconds{site="registry"}`` gains one observation a warming
+  registration, as the JAX registry's ``warm_parallel`` does for the same
+  calls.
 - A file that is not a zip is read as a Keras HDF5 archive
   (``modelimport/``); one that is not HDF5, or is cut short, raises.
 """
 import http.client
 import json
+import logging
 
 import numpy as np
 import pytest
@@ -34,6 +39,8 @@ from deeplearning4j_tpu.nn.conf.builders import NeuralNetConfiguration as JNNC
 from deeplearning4j_tpu.nn.conf.layers import DenseLayer, OutputLayer
 from deeplearning4j_tpu.nn.graph_network import ComputationGraph as JGraph
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
+from deeplearning4j_tpu.observability.metrics import (
+    global_registry as jglobal_registry)
 from deeplearning4j_tpu_torch.keras_server import InferenceServer
 from deeplearning4j_tpu_torch.keras_server.registry import (
     ModelRegistry, _derive_warmup_example, load_model_file)
@@ -42,6 +49,7 @@ from deeplearning4j_tpu_torch.nn.conf.graphconf import (
 from deeplearning4j_tpu_torch.nn.conf.multilayer import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.graph_network import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.observability import MetricsRegistry
 from deeplearning4j_tpu_torch.utils.model_serializer import write_model
 
 
@@ -167,10 +175,11 @@ def test_warmup_skips_what_it_cannot_derive_and_takes_an_example():
     assert sorted(mv.predict_fn.warmed) == [1, 2, 4]
     lm = _port(jlm(16, width=16, n_layers=1, n_heads=2, max_len=8))
     assert reg.register("lm", lm, device="cpu").predict_fn.warmed == []
-    with pytest.raises(Exception):
-        reg.register("g2", graph, device="cpu",
-                     warmup_example=np.zeros((1, 7), np.float32))
-    assert "g2" not in reg.status()["models"]
+    # an example the graph rejects: warmup is no gate (C7), the version
+    # registers unwarmed and goes active
+    mv2 = reg.register("g2", graph, device="cpu",
+                       warmup_example=np.zeros((1, 7), np.float32))
+    assert reg.active("g2") is mv2 and mv2.predict_fn.warmed == []
     # InferenceServer(warmup=True) opts its registry in at its max_batch
     srv = InferenceServer(device="cpu", warmup=True, max_batch=8).start()
     try:
@@ -194,3 +203,46 @@ def test_a_file_that_is_not_a_zip_raises_naming_a8(tmp_path):
     path.write_bytes(b"not an archive" * 8)
     with pytest.raises(OSError, match="not an HDF5 file"):
         load_model_file(str(path), device="cpu")
+
+
+def _warmup_count(snapshot) -> int:
+    rows = snapshot.get("dl4j_warmup_seconds", {}).get("series", [])
+    return sum(r["count"] for r in rows if r["labels"] == {"site": "registry"})
+
+
+def test_failed_warmup_logs_and_goes_active_with_jax_observations(
+        tmp_path, monkeypatch, caplog):
+    """C7: the same three registrations on both registries (a dense stack
+    warmed from its derived example, a graph given an example it rejects,
+    a graph with no example) observe the same warmup passes, 1, 1 and 0;
+    the rejected example is logged at WARNING and its version is active."""
+    monkeypatch.setenv("DL4J_COMPILE_CACHE", "0")
+    jdense, jgraph = JNet(_dense_conf()).init(), JGraph(_small_resnet()).init()
+    bad = np.zeros((1, 7), np.float32)
+    calls = [("d", jdense, _port(_dense_conf()), None),
+             ("g", jgraph, _port(_small_resnet(), graph=True), bad),
+             ("g2", jgraph, _port(_small_resnet(), graph=True), None)]
+    metrics = MetricsRegistry()
+    ours = ModelRegistry(metrics=metrics, warmup_max_batch=4)
+    ref = JRegistry(warmup_max_batch=4)
+    seen_ours, seen_ref = [], []
+    for name, jnet, net, example in calls:
+        before = _warmup_count(jglobal_registry().snapshot())
+        with compile_cache_at(tmp_path):
+            ref.register(name, jnet, warmup_example=example)
+        seen_ref.append(_warmup_count(jglobal_registry().snapshot())
+                        - before)
+        before = _warmup_count(metrics.snapshot())
+        with caplog.at_level(logging.WARNING,
+                             logger="deeplearning4j_tpu_torch.keras_server"):
+            caplog.clear()
+            mv = ours.register(name, net, device="cpu",
+                               warmup_example=example)
+        seen_ours.append(_warmup_count(metrics.snapshot()) - before)
+        assert ours.active(name) is mv and ref.active(name).name == name
+        if example is bad:
+            assert mv.predict_fn.warmed == []
+            assert any("warmup" in r.getMessage() and "failed" in
+                       r.getMessage() for r in caplog.records)
+    assert seen_ours == seen_ref == [1, 1, 0]
+    assert ours.last_warmup_s > 0

@@ -215,7 +215,12 @@ def test_port_imports_no_jax():
             "deeplearning4j_tpu_torch.plot.tsne, "
             "deeplearning4j_tpu_torch.observability, "
             "deeplearning4j_tpu_torch.observability.metrics, "
-            "deeplearning4j_tpu_torch.observability.names;"
+            "deeplearning4j_tpu_torch.observability.names, "
+            "deeplearning4j_tpu_torch.observability.tracing, "
+            "deeplearning4j_tpu_torch.observability.spans, "
+            "deeplearning4j_tpu_torch.observability.slo, "
+            "deeplearning4j_tpu_torch.ui, "
+            "deeplearning4j_tpu_torch.ui.storage;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m == 'deeplearning4j_tpu' "
             "or m.startswith('deeplearning4j_tpu.') or m == 'ml_dtypes' "
